@@ -7,35 +7,55 @@ Phases, in order; any failure exits nonzero and none is caught:
 1. the card's name and power limit (nvidia-smi);
 2. build the CUDA kernels from ``video_gpt_tpu_torch/csrc`` (nvcc,
    sm_90a) and print the ptxas register / shared-memory lines;
-3. kernels: each hand-written kernel at the flagship shapes (176x320
-   frames, 8 clean + 16 generated, 32 heads of 96, bf16) against its plain
-   PyTorch version computed in fp32 from the same bf16 inputs (bar per
-   element: its bf16 rounding bound, see ``KERNEL_ATOL``), timed with CUDA
-   events beside the plain version and ``scaled_dot_product_attention`` as
-   the library yardstick;
-4. small-input reference: ``generate`` on a tiny model (head_dim 96, GQA)
-   on the card in bf16 against the same weights and noise on the CPU in
-   fp32 (plain versions), two blocks so every kernel and the cache extend
-   run (bar: final-latent relative MSE 1e-3);
-5. main path: ``VideoGPTPipeline.generate`` at full width (ModelConfig(),
-   the SDXL-class VAE, random bf16 weights from a seed, head and adaLN
-   random) on 8 synthetic frames, 16 frames in 10 steps with guidance 1.5
-   and a 24-frame window, so the context keeps all 8 frames:
+3. kernels: each hand-written kernel at the shapes of its path against its
+   plain PyTorch version computed in fp32 from the same bf16 inputs (bar
+   per element: its bf16 rounding bound, see ``KERNEL_ATOL``), timed with
+   CUDA events beside the plain version and ``scaled_dot_product_attention``
+   as the library yardstick. K1-K3 at the serving flagship (176x320
+   frames, 8 clean + 16 generated, 32 heads of 96); K3 again and K9 (its
+   backward) at the stage-1 training shape (16 frames, L 7104);
+4. small-input serving reference: ``generate`` on a tiny model (head_dim
+   96, GQA) on the card in bf16 against the same weights and noise on the
+   CPU in fp32 (plain versions), two blocks so every serving kernel and the
+   cache extend run (bar: final-latent relative MSE 1e-3);
+5. serving main path: ``VideoGPTPipeline.generate`` at full width
+   (ModelConfig(), the SDXL-class VAE, random bf16 weights from a seed,
+   head and adaLN random) on 8 synthetic frames, 16 frames in 10 steps with
+   guidance 1.5 and a 24-frame window, so the context keeps all 8 frames:
    once to warm up (checking that no float op runs on the host), once
    timed; the launch counts must be exactly the path's (prefill 32, cond
    decode 320, uncond 320);
 6. extend path: a two-block rollout without re-noise, whose second block
    grows the KV cache through the split decode kernel;
-7. profile: the main path once more under torch.profiler, tracing the
-   device only (device time by kernel group and the largest kernels, the
-   device's idle share in that run);
-8. a line of kernel records, then the device line as the last line.
+7. serving profile: the main path once more under torch.profiler, tracing
+   the device only (device time by kernel group and the largest kernels,
+   the device's idle share in that run);
+8. small-input training reference: one loss and backward of a tiny model
+   (head_dim 96, GQA) on the card (bf16, kernels) against the CPU (fp32,
+   plain versions) with the same weights and random numbers: loss and
+   flattened-gradient relative errors, held to a bar of a few times the
+   CPU's own bf16-vs-fp32 error (the loss: within 2^-8);
+9. training path: the stage-1 ``Trainer`` step at full width (ModelConfig()
+   with fp32 parameters and AdamW state, bf16 compute, per-layer
+   recompute; the SDXL-class VAE; B 1, 16 synthetic 176x320 frames, L
+   7104), the serving objects freed first: one warm-up step (host-op check
+   on) and 3 timed steps, each with exactly 64 K3 and 32 K9 launches,
+   finite loss and gradient norm, a nonzero gradient into layer 0's
+   attention, and AdamW moving the parameters; then one more step under
+   torch.profiler (device time by group, the optimizer's range apart);
+10. a line of kernel records, then the device line as the last line.
+
+The training phase uses the stage-1 recipe of ``configs/pretrain_stage1.sh``
+(betas 0.9/0.95, weight decay 0.1, eps 1e-5, clip 1.0) with a constant
+learning rate of 1e-4: the recipe's 320000-step linear warmup gives a
+learning rate of 0 at step 0, which would leave the parameters unmoved.
 
 It needs a CUDA device and exits nonzero without one. It imports nothing of
 JAX.
 """
 from __future__ import annotations
 
+import gc
 import json
 import subprocess
 import sys
@@ -47,7 +67,9 @@ import torch.nn.functional as F
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves
 
-from video_gpt_tpu_torch.config import ModelConfig
+from video_gpt_tpu_torch.config import ModelConfig, stage_config
+from video_gpt_tpu_torch.data.video import (ClipSample,
+                                            preprocess_to_resolution)
 from video_gpt_tpu_torch.layout import (frame_block_inference_layout,
                                         tokens_per_frame)
 from video_gpt_tpu_torch.models.vae import VAEConfig
@@ -56,6 +78,10 @@ from video_gpt_tpu_torch.ops import _cuda
 from video_gpt_tpu_torch.ops import flash_attention as fa
 from video_gpt_tpu_torch.ops.attention import AttnMeta
 from video_gpt_tpu_torch.sampling.pipeline import VideoGPTPipeline
+from video_gpt_tpu_torch.training.data import collate
+from video_gpt_tpu_torch.training.loss import LossDraws, training_loss
+from video_gpt_tpu_torch.training.train_state import autocast
+from video_gpt_tpu_torch.training.trainer import Trainer
 
 H_PX, W_PX = 176, 320
 N_CLEAN, N_GEN, STEPS, CFG_SCALE = 8, 16, 10, 1.5
@@ -74,6 +100,15 @@ KERNEL_ATOL, KERNEL_RTOL, BF16_U = 1e-4, 1e-2, 2.0 ** -8
 # prints that rounding floor, measured with the plain versions on the CPU);
 # hiding the clean cache from the decode step lands above it
 REF_REL_MSE_BAR = 1e-3
+# small-input training reference: the card's bf16 gradient may be off the
+# CPU's fp32 one by at most this many times the CPU's own bf16 error (the
+# same bf16 rounding, made at other places by other kernels). The loss, a
+# mean over every latent element, is held to one bf16 rounding of itself
+# (2^-8 relative): its CPU bf16 error is one draw of a quantity that
+# averages out (1.4e-5 in one run), too small a sample to scale a bar by.
+TRAIN_REF_FLOOR_FACTOR = 4.0
+# stage-1 training (configs/pretrain_stage1.sh), learning rate constant
+TRAIN_FRAMES, TRAIN_STEPS, TRAIN_LR = 16, 3, 1e-4
 # H100 SXM data-sheet peaks (dense bf16 tensor rate, HBM3 rate)
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
@@ -123,7 +158,8 @@ def rank_pairs(rank: torch.Tensor, q_off: torch.Tensor) -> int:
 
 class HostFloatOps(TorchDispatchMode):
     """Records every aten op that touches a floating-point tensor on the
-    host, apart from 0-dim operands (Python scalars), ops that compute
+    host, apart from 0-dim operands (Python scalars), empty tensors (the
+    placeholder that activation checkpointing allocates), ops that compute
     nothing (views, reading a scalar out) and copies between the host and
     the card (inputs in, results out). A copy or cast from host to host is
     recorded."""
@@ -142,7 +178,7 @@ class HostFloatOps(TorchDispatchMode):
         tensors = [x for x in tree_leaves((args, kwargs, out))
                    if isinstance(x, torch.Tensor)]
         on_host = any(x.device.type == "cpu" and x.is_floating_point()
-                      and x.dim() > 0 for x in tensors)
+                      and x.dim() > 0 and x.numel() > 0 for x in tensors)
         crosses = name in self.COPIES and any(x.device.type != "cpu"
                                               for x in tensors)
         if on_host and name not in self.NO_COMPUTE and not crosses:
@@ -262,41 +298,144 @@ def kernels_phase(dev):
         bytes=nbytes(q3, k3k, k3v, bias, q3),
         flops=4 * h * d * int((bias == 0).sum()))
 
-    out = {}
-    for name, r in recs.items():
-        got = r["fn"]()
-        torch.cuda.synchronize()
-        want = r["plain"]().float()
-        diff = (got.float() - want).abs()
-        err = float(diff.max())
-        bar = (KERNEL_ATOL + KERNEL_RTOL * want.abs()
-               + BF16_U * r["plain"](absv=True).float())
-        # the worst element's error over its bar: the check passes at <= 1
-        ratio = float((diff / bar).max())
-        finite = bool(torch.isfinite(got).all())
-        log(f"{name}: max abs err {err:.3e} vs plain, worst error / bar "
-            f"{ratio:.3f} (bar per element {float(bar.min()):.2e} to "
-            f"{float(bar.max()):.2e}, median {float(bar.median()):.2e}; "
-            f"|plain| median {float(want.abs().median()):.2e}, max "
-            f"{float(want.abs().max()):.3f}), finite={finite}")
-        if not finite or not ratio <= 1.0:
-            fail(f"{name} disagrees with its plain version: worst error / "
-                 f"bar {ratio}")
-        del got, want, diff, bar
-        ms = time_ms(r["fn"], reps=20)
-        plain_ms = time_ms(r["plain"], reps=3, warmup=1)
-        lib_ms = time_ms(r["lib"], reps=10)
-        bound_ms, bound_by = bound(r["bytes"], r["flops"])
-        log(f"{name}: {ms:.4f} ms (plain {plain_ms:.4f}, sdpa {lib_ms:.4f}, "
-            f"bound {bound_ms:.4f} by {bound_by}; "
-            f"{r['flops'] / ms / 1e9:.1f} TFLOP/s)")
-        out[name] = dict(name=name, route=r["route"], source=r["source"],
-                         replaces=r["replaces"], max_abs_err=err,
-                         max_err=err, err_over_bar=ratio, ms=ms,
-                         plain_ms=plain_ms,
-                         bound_ms=bound_ms, bound_by=bound_by,
-                         library_ms=lib_ms)
+    out = {name: check_and_time(name, r) for name, r in recs.items()}
+    train = training_kernels(dev)
+    out["K3"]["training_shape"] = train.pop("K3")
+    out.update(train)
     return out
+
+
+def check_and_time(name: str, r: dict, label: str = "") -> dict:
+    """One kernel against its plain version, then timed; ``fn`` and
+    ``plain`` return a tensor or a tuple of tensors (``plain(absv=True)``:
+    the rounding bound's mass of each). ``label`` names the shape in the
+    log."""
+    name_l = f"{name}{label}"
+    def tup(x):
+        return x if isinstance(x, tuple) else (x,)
+
+    got = tup(r["fn"]())
+    torch.cuda.synchronize()
+    want, mass = tup(r["plain"]()), tup(r["plain"](absv=True))
+    err = ratio = 0.0
+    finite = True
+    for g, w, m in zip(got, want, mass):
+        w = w.float()
+        diff = (g.float() - w).abs()
+        bar = KERNEL_ATOL + KERNEL_RTOL * w.abs() + BF16_U * m.float()
+        # the worst element's error over its bar: the check passes at <= 1
+        err = max(err, float(diff.max()))
+        ratio = max(ratio, float((diff / bar).max()))
+        finite = finite and bool(torch.isfinite(g).all())
+        log(f"{name_l}: output {tuple(g.shape)}: max abs err "
+            f"{float(diff.max()):.3e} vs plain, worst error / bar "
+            f"{float((diff / bar).max()):.3f} (bar per element "
+            f"{float(bar.min()):.2e} to {float(bar.max()):.2e}, median "
+            f"{float(bar.median()):.2e}; |plain| median "
+            f"{float(w.abs().median()):.2e}, max {float(w.abs().max()):.3f})")
+        del diff, bar, w
+    if not finite or not ratio <= 1.0:
+        fail(f"{name_l} disagrees with its plain version: worst error / "
+             f"bar {ratio}, finite={finite}")
+    del got, want, mass
+    torch.cuda.empty_cache()
+    ms = time_ms(r["fn"], reps=20)
+    plain_ms = time_ms(r["plain"], reps=3, warmup=1)
+    lib_ms = time_ms(r["lib"], reps=10)
+    bound_ms, bound_by = bound(r["bytes"], r["flops"])
+    log(f"{name_l}: {ms:.4f} ms (plain {plain_ms:.4f}, sdpa {lib_ms:.4f}, "
+        f"bound {bound_ms:.4f} by {bound_by}; "
+        f"{r['flops'] / ms / 1e9:.1f} TFLOP/s)")
+    return dict(name=name, route=r["route"], source=r["source"],
+                replaces=r["replaces"], max_abs_err=err, max_err=err,
+                err_over_bar=ratio, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms)
+
+
+def stage1_batch(n_frames: int = TRAIN_FRAMES):
+    """A stage-1 training batch (B 1) on the host: ``n_frames`` synthetic
+    176x320 frames through the port's preprocessing, interleaved blocks of
+    one frame, collated as the Trainer does."""
+    pixels = preprocess_to_resolution(synthetic_frames(n_frames), H_PX, W_PX)
+    return collate([ClipSample(pixels, (1,) * n_frames)],
+                   tokens_per_frame(H_PX, W_PX))
+
+
+def training_kernels(dev) -> dict:
+    """K3 and K9 at the stage-1 training shape: the bias of a real stage-1
+    collate layout (L 7104), 32 heads of 96, random bf16 q/k/v and dO. K9's
+    plain version computes the gradients in fp32 from the same bf16 values;
+    the mass of each gradient element is the plain version's product over
+    absolute values (K9 rounds p and ds to bf16 before its products)."""
+    meta = stage1_batch().inputs.batch.meta
+    meta = AttnMeta(*(x.to(dev) for x in meta))
+    bias = fa.precompute_bias(meta, meta)
+    cfg = ModelConfig()
+    h, hkv, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    L = bias.shape[1]
+    rng = np.random.default_rng(5)
+
+    def bf16(*shape):
+        return torch.from_numpy(rng.standard_normal(shape, np.float32)).to(
+            dev, torch.bfloat16)
+
+    # as the attention layer makes them: q, k new tensors (RoPE), v a view
+    # of the fused projection
+    q, k = bf16(1, L, h, d), bf16(1, L, hkv, d)
+    v = bf16(1, L, h + 2 * hkv, d)[:, :, h + hkv:]
+    do = bf16(1, L, h, d)
+    out, lse = fa._bias_forward(q, k, v, bias, with_lse=True)
+    pairs = int((bias == 0).sum())
+    log(f"stage-1 attention: L {L}, {pairs} visible pairs "
+        f"({pairs / L ** 2:.3f} of L^2)")
+
+    def f32(*ts):
+        return [t.float() for t in ts]
+
+    def k3_plain(absv=False):
+        vf = v.float()
+        return fa.bias_attention_reference(*f32(q, k),
+                                           vf.abs() if absv else vf, bias)
+
+    def k9():
+        return fa.flash_mha_bwd(q, k, v, bias, out, do, lse)
+
+    def k9_plain(absv=False):
+        return fa.bias_attention_backward_reference(
+            *f32(q, k, v), bias, *f32(out, do), magnitude=absv)
+
+    qh, kh, vh = (x.transpose(1, 2).contiguous().requires_grad_()
+                  for x in (q, k, v))
+    mask = bias[:, None]
+
+    def k3_lib():
+        with torch.no_grad():
+            return F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask)
+
+    lib_out = F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask)
+    do_h = do.transpose(1, 2).contiguous()
+
+    def k9_lib():  # the backward alone of the library's attention
+        return torch.autograd.grad(lib_out, (qh, kh, vh), do_h,
+                                   retain_graph=True)
+
+    src = "video_gpt_tpu_torch/csrc/"
+    recs = {
+        "K3": dict(fn=lambda: fa.flash_mha(q, k, v, bias), plain=k3_plain,
+                   lib=k3_lib, route="cuda", source=src + "bias_attention.cu",
+                   replaces=f"{TPU_KERNELS}:133",
+                   bytes=nbytes(q, k, v, bias, q),
+                   flops=4 * h * d * pairs),
+        "K9": dict(fn=k9, plain=k9_plain, lib=k9_lib, route="cuda",
+                   source=src + "bias_attention_bwd.cu",
+                   replaces=f"{TPU_KERNELS}:192",
+                   # read q, k, v, o, dO, the bias and lse; write dq, dk, dv
+                   bytes=nbytes(q, k, v, out, do, bias, q, k, v)
+                   + 4 * h * L,
+                   # S, dP, dV, dQ, dK over the visible pairs
+                   flops=5 * 2 * h * d * pairs)}
+    return {name: check_and_time(name, r, " (stage-1 training shape)")
+            for name, r in recs.items()}
 
 
 class SeededNoise:
@@ -355,7 +494,7 @@ def reference_phase(dev) -> float:
     log(f"small-input reference: card (bf16, kernels) vs CPU (fp32, plain) "
         f"final-latent relative MSE {rel_mse:.3e} (bar {REF_REL_MSE_BAR}; "
         f"CPU bf16 vs fp32 {rel_mse_of(floor):.3e}), launches {ran}")
-    if not all(ran.values()):
+    if not all(ran[k] for k in ("K1", "K2", "K3")):
         fail(f"the small-input run skipped a kernel: {ran}")
     if not torch.isfinite(got).all() or not rel_mse <= REF_REL_MSE_BAR:
         fail(f"the card's generate disagrees with the CPU's: {rel_mse}")
@@ -377,6 +516,8 @@ def synthetic_frames(n: int):
 
 KERNEL_GROUPS = (  # (group, substrings of kernel names), first match wins
     ("K1/K2 rank_attention", ("rank_attention",)),
+    ("K9 bias_attention_bwd", ("bias_attention_delta", "bias_attention_dkdv",
+                               "bias_attention_dq")),
     ("K3 bias_attention", ("bias_attention",)),
     ("memcpy/memset", ("Memcpy", "Memset")),
     ("conv (cuDNN)", ("conv", "fprop", "cudnn", "winograd")),
@@ -396,7 +537,6 @@ def profile_phase(pipe, frames, kw, clip_s: float) -> None:
     (no host op records): device time by kernel group, and the device busy
     time against the wall clock of this same run. Tracing adds host time,
     so the run's wall time is printed beside the unprofiled clip's."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -404,28 +544,45 @@ def profile_phase(pipe, frames, kw, clip_s: float) -> None:
         pipe.generate(frames, **kw)
         torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
+    groups, busy, top = device_groups(prof)
+    log(json.dumps({"profile": {
+        "device_ms_by_group": groups, "device_busy_ms": busy,
+        "wall_ms": wall_ms, "idle_share": 1.0 - busy / wall_ms,
+        "unprofiled_clip_ms": clip_s * 1e3, "top_kernels": top}}))
+
+
+def device_groups(prof, ranges=()):
+    """(device ms by kernel group, device busy ms, the 12 largest kernels)
+    of a profiler run. A kernel that starts inside the device span of a
+    ``record_function`` range named in ``ranges`` goes to that range's
+    group; the spans themselves are not kernels and count nothing."""
+    from torch.autograd import DeviceType
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    spans = [(e.name, e.time_range.start, e.time_range.end) for e in events
+             if e.name in ranges]
     groups, by_kernel = {}, {}
-    for e in prof.key_averages():
-        if e.device_type == DeviceType.CUDA:
-            ms = e.self_device_time_total / 1e3
-            g = kernel_group(e.key)
-            groups[g] = groups.get(g, 0.0) + ms
-            by_kernel[e.key[:80]] = (ms, e.count)
+    for e in events:
+        if e.name in ranges:
+            continue
+        ms = e.time_range.elapsed_us() / 1e3
+        start = e.time_range.start
+        g = next((n for n, a, b in spans if a <= start < b), None)
+        g = g or kernel_group(e.name)
+        groups[g] = groups.get(g, 0.0) + ms
+        t, n = by_kernel.get(e.name[:80], (0.0, 0))
+        by_kernel[e.name[:80]] = (t + ms, n + 1)
     busy = sum(groups.values())
     if not busy > 0:
         fail("the profiler recorded no device time")
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:12]
-    log(json.dumps({"profile": {
-        "device_ms_by_group": groups, "device_busy_ms": busy,
-        "wall_ms": wall_ms, "idle_share": 1.0 - busy / wall_ms,
-        "unprofiled_clip_ms": clip_s * 1e3,
-        "top_kernels": [dict(name=k, ms=ms, calls=n)
-                        for k, (ms, n) in top]}}))
+    return groups, busy, [dict(name=k, ms=ms, calls=n)
+                          for k, (ms, n) in top]
 
 
 def counts():
     return {"K1": fa.flash_mha_decode_split.launches,
-            "K2": fa.flash_mha_decode.launches, "K3": fa.flash_mha.launches}
+            "K2": fa.flash_mha_decode.launches, "K3": fa.flash_mha.launches,
+            "K9": fa.flash_mha_bwd.launches}
 
 
 def main() -> int:
@@ -495,7 +652,7 @@ def run(dev: torch.device, smi: str) -> None:
     clip_s = time.perf_counter() - t0
     launches = counts()
     nl = pipe.model.cfg.num_layers
-    want = {"K1": nl * STEPS, "K2": nl * STEPS, "K3": nl}
+    want = {"K1": nl * STEPS, "K2": nl * STEPS, "K3": nl, "K9": 0}
     log(f"main path launches {launches} (expected {want})")
     if launches != want:
         fail(f"main-path launch counts {launches} != {want}")
@@ -530,7 +687,7 @@ def run(dev: torch.device, smi: str) -> None:
     ext = counts()
     # one prefill (K3) for block 0; block 1 extends the cache through K1:
     # one extend launch per layer + 2 blocks x 2 steps of decode per layer
-    want_ext = {"K1": nl + 2 * 2 * nl, "K2": 2 * 2 * nl, "K3": nl}
+    want_ext = {"K1": nl + 2 * 2 * nl, "K2": 2 * 2 * nl, "K3": nl, "K9": 0}
     log(f"extend path: {time.perf_counter() - t0:.2f} s, launches {ext} "
         f"(expected {want_ext})")
     if ext != want_ext:
@@ -539,10 +696,255 @@ def run(dev: torch.device, smi: str) -> None:
         fail(f"extend path returned {len(out2)} frames")
 
     profile_phase(pipe, frames, kw, clip_s)
+    del pipe, out, lat, out2
+    gc.collect()
+    torch.cuda.empty_cache()
 
-    log(json.dumps({"kernels": [
-        dict(r, launches=launches[k], launches_per_clip=launches[k])
-        for k, r in records.items()]}))
+    train_reference_phase(dev)
+    train_counts = training_phase(dev, smi)
+
+    # launches: each kernel's count in its own path's timed run (serving:
+    # one clip; training: TRAIN_STEPS steps)
+    for k, r in records.items():
+        if k == "K9":
+            r.update(launches=train_counts[k],
+                     launches_per_train_step=train_counts[k] // TRAIN_STEPS)
+        else:
+            r.update(launches=launches[k], launches_per_clip=launches[k])
+    records["K3"]["launches_per_train_step"] = train_counts["K3"] \
+        // TRAIN_STEPS
+    log(json.dumps({"kernels": list(records.values())}))
+
+
+def randomise_heads_(model, seed: int, std: float = 0.02) -> None:
+    """Random weights for the parts a training model starts at zero (the
+    head and the noisy-patch embedder): with a zero head no gradient
+    reaches the trunk, and the attention backward would see dO = 0."""
+    gen = torch.Generator(model.llm.norm.weight.device).manual_seed(seed)
+    with torch.no_grad():
+        for p in (model.x_embedder.proj.weight,
+                  model.final_layer.adaLN_modulation[1].weight,
+                  model.final_layer.linear.weight):
+            p.normal_(0.0, std, generator=gen)
+
+
+def train_reference_phase(dev) -> None:
+    """One loss and backward of a tiny training model on the card (bf16
+    autocast over fp32 parameters, the kernels) against the same weights,
+    batch and random numbers on the CPU in fp32 (plain versions). The CPU
+    in bf16 gives the rounding floor the card's errors are read against:
+    the flattened gradient's relative error must stay within
+    TRAIN_REF_FLOOR_FACTOR times it, the loss's within 2^-8."""
+    mcfg = ModelConfig.tiny(hidden_size=192, num_heads=2, num_kv_heads=1,
+                            pos_embed_max_size=64)  # head_dim 96; GQA 2:1
+    res, n_frames = (64, 96), 4
+    rng = np.random.default_rng(11)
+    frames = [rng.integers(0, 256, res + (3,), dtype=np.uint8)
+              for _ in range(n_frames)]
+    sample = ClipSample(preprocess_to_resolution(frames, *res),
+                        (1,) * n_frames)
+    tb_host = collate([sample], tokens_per_frame(*res))
+
+    def trainer(device, mixed, **sd):
+        cfg = stage_config(1, frame_num=n_frames, mixed_precision=mixed)
+        return Trainer(mcfg, cfg, None, vae_cfg=VAEConfig.tiny(),
+                       target_resolution=res, device=device, seed=3, **sd)
+
+    card = trainer(dev, "bf16")
+    card.build()
+    randomise_heads_(card.model, seed=4)
+    sd = dict(init_state_dict={k: v.cpu() for k, v in
+                               card.model.state_dict().items()},
+              vae_state_dict={k: v.cpu() for k, v in
+                              card.vae.state_dict().items()})
+    # the same random numbers for every run, drawn on the host
+    gen = torch.Generator().manual_seed(5)
+    hl, wl = res[0] // 8, res[1] // 8
+    post = torch.randn((n_frames, hl, wl, 4), generator=gen)
+    nn_, nc = tb_host.noisy_sel.shape[0], tb_host.clean_sel.shape[0]
+    draws = LossDraws(torch.randn((nn_, hl, wl, 4), generator=gen),
+                      torch.rand((1, n_frames), generator=gen),
+                      torch.randn((nc, hl, wl, 4), generator=gen),
+                      torch.rand((nc,), generator=gen))
+
+    def loss_and_grad(tr):
+        if tr.model is None:
+            tr.build()
+        d = tr.device
+        tb = tb_host.to(d)
+        with torch.no_grad(), autocast(tr.cfg, d):
+            lat = tr.vae.encode(tb.pixels, noise=post.to(d))
+        inputs = tb.inputs._replace(x1=lat[tb.noisy_sel.long()],
+                                    clean_latents=lat[tb.clean_sel.long()])
+        with autocast(tr.cfg, d):
+            loss, _ = training_loss(tr.model, inputs, LossDraws(
+                *(x.to(d) for x in draws)))
+        loss.backward()
+        grad = torch.cat([p.grad.float().flatten()
+                          for p in tr.model.parameters()])
+        return float(loss.detach()), grad.cpu()
+
+    fa.reset_launch_counts()
+    got = loss_and_grad(card)
+    torch.cuda.synchronize()
+    ran = counts()
+    want, floor = (loss_and_grad(trainer("cpu", mixed, **sd))
+                   for mixed in ("no", "bf16"))
+
+    def errs(x):
+        return (abs(x[0] - want[0]) / abs(want[0]),
+                float((x[1] - want[1]).norm() / want[1].norm()))
+
+    (l_err, g_err), (l_floor, g_floor) = errs(got), errs(floor)
+    log(f"small-input training reference: card (bf16, kernels) vs CPU "
+        f"(fp32, plain): loss rel err {l_err:.3e} (CPU bf16 {l_floor:.3e}), "
+        f"gradient rel err {g_err:.3e} (CPU bf16 {g_floor:.3e}); bar "
+        f"{TRAIN_REF_FLOOR_FACTOR}x the CPU bf16 error, loss {BF16_U:.2e}; "
+        f"loss {got[0]:.6f} "
+        f"vs {want[0]:.6f}; launches {ran}")
+    if not (ran["K3"] and ran["K9"]):
+        fail(f"the small-input training run skipped a kernel: {ran}")
+    if not (float(got[1].abs().max()) > 0 and torch.isfinite(got[1]).all()):
+        fail("the small-input training gradient is zero or not finite")
+    if not (l_err <= BF16_U and g_err <= TRAIN_REF_FLOOR_FACTOR * g_floor):
+        fail(f"the card's training step disagrees with the CPU's: loss "
+             f"{l_err}, gradient {g_err}")
+
+
+def training_phase(dev, smi: str) -> dict:
+    """The stage-1 training path at full width through the Trainer's own
+    step; returns the K3/K9 launch counts of the timed steps."""
+    cfg = stage_config(1, lr=TRAIN_LR, lr_scheduler="constant",
+                       adam_epsilon=1e-5)
+    t0 = time.perf_counter()
+    trainer = Trainer(ModelConfig(), cfg, None, vae_cfg=VAEConfig(),
+                      target_resolution=(H_PX, W_PX), device=dev, seed=0)
+    state = trainer.build()
+    randomise_heads_(trainer.model, seed=1)
+    model = trainer.model
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"build trainer: {time.perf_counter() - t0:.1f} s, "
+        f"{n_params / 1e9:.3f}B fp32 params + AdamW state, remat "
+        f"{trainer.model_cfg.remat}")
+    tb = stage1_batch().to(dev)
+    b, L = tb.inputs.batch.input_ids.shape
+    real = int((tb.inputs.batch.meta.is_pad == 0).sum())
+    # collate pads to 2 F (n_img + 2): 7104 tokens at 176x320
+    want_l = 2 * TRAIN_FRAMES * (tokens_per_frame(H_PX, W_PX) + 2)
+    if (b, L) != (1, want_l):
+        fail(f"stage-1 batch is {b}x{L}, not 1x{want_l}")
+
+    # layer 0's attention gradient, read before the optimizer consumes it
+    qkv = model.llm.layers[0].self_attn.qkv_proj.weight
+    qkv_grads = []
+    hook = qkv.register_post_accumulate_grad_hook(
+        lambda p: qkv_grads.append(torch.linalg.vector_norm(p.grad)))
+
+    host = HostFloatOps()
+    t0 = time.perf_counter()
+    with host:
+        m = trainer.train_step(state, tb, 0)
+    torch.cuda.synchronize()
+    log(f"warm-up train step: {time.perf_counter() - t0:.2f} s, loss "
+        f"{float(m['loss']):.5f} (host-op check on)")
+    if host.ops:
+        fail(f"float ops ran on the host in the train step: "
+             f"{sorted(host.ops)}")
+
+    nl = trainer.model_cfg.num_layers
+    watched = {n: p for n, p in model.named_parameters() if n in (
+        "x_embedder.proj.weight", "llm.layers.0.self_attn.qkv_proj.weight",
+        f"llm.layers.{nl - 1}.mlp.down_proj.weight", "llm.norm.weight",
+        "final_layer.linear.weight")}
+    before = {n: p.detach().clone() for n, p in watched.items()}
+    torch.cuda.reset_peak_memory_stats()
+    steps, total = [], {"K3": 0, "K9": 0}
+    for i in range(1, TRAIN_STEPS + 1):
+        fa.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = trainer.train_step(state, tb, i)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        c = counts()
+        steps.append(dict(step_s=dt, loss=float(m["loss"]),
+                          grad_norm=float(m["grad_norm"]),
+                          qkv0_grad_norm=float(qkv_grads[-1]),
+                          launches={"K3": c["K3"], "K9": c["K9"]}))
+        log(f"train step {i}: {dt:.3f} s, {b * L / dt:.1f} tokens/s, "
+            f"loss {steps[-1]['loss']:.5f}, grad norm "
+            f"{steps[-1]['grad_norm']:.4f}, layer-0 qkv grad norm "
+            f"{steps[-1]['qkv0_grad_norm']:.3e}, launches {c}")
+        if (c["K3"], c["K9"]) != (2 * nl, nl) or c["K1"] or c["K2"]:
+            fail(f"train step launches {c} != K3 {2 * nl}, K9 {nl}")
+        if not all(np.isfinite([steps[-1]["loss"], steps[-1]["grad_norm"]])):
+            fail(f"train step {i}: loss or gradient norm not finite")
+        if not (np.isfinite(steps[-1]["qkv0_grad_norm"])
+                and steps[-1]["qkv0_grad_norm"] > 0):
+            fail(f"train step {i}: no gradient reached layer 0's attention")
+        for k in total:
+            total[k] += c[k]
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    hook.remove()
+
+    # AdamW moved every watched parameter, by at most ~lr per step and
+    # element (Adam's normalised update, plus the weight decay)
+    moved = {}
+    for n, p in watched.items():
+        d = float((p.detach() - before[n]).abs().max())
+        moved[n] = d
+        if not 0 < d <= 2 * TRAIN_STEPS * TRAIN_LR * (1 + float(
+                before[n].abs().max())):
+            fail(f"AdamW moved {n} by {d}")
+    log(f"AdamW moved (max abs change over {TRAIN_STEPS} steps): {moved}")
+    step_s = float(np.mean([r["step_s"] for r in steps]))
+    # the trunk's matmul work per step: forward, recompute, and the
+    # backward's two products per weight, 2 FLOPs per weight and token each
+    trunk = sum(m.weight.numel() for m in model.llm.layers.modules()
+                if isinstance(m, torch.nn.Linear))
+    matmul_tflop = 8 * trunk * b * L / 1e12
+    train = dict(step_s=step_s, tokens_per_s=b * L / step_s,
+                 real_tokens_per_s=real / step_s, tokens_per_step=b * L,
+                 real_tokens_per_step=real, peak_mem_gib=peak_gib,
+                 fp32_state_gib=16 * n_params / 2 ** 30,
+                 trunk_matmul_tflop=matmul_tflop, steps=steps,
+                 params=n_params, device=smi)
+    log(f"training path: {step_s:.3f} s/step, {b * L / step_s:.1f} tokens/s "
+        f"({real} of {L} tokens real), peak {peak_gib:.2f} GiB, on {smi}")
+    log(json.dumps({"training_path": train}))
+    profile_train_step(trainer, state, tb, step_s, matmul_tflop)
+    return total
+
+
+def profile_train_step(trainer, state, tb, step_s: float,
+                       matmul_tflop: float) -> None:
+    """One more train step under torch.profiler (host and device): device
+    time by kernel group, the kernels of the optimizer's range
+    ("AdamW.step": clip and update) as a group of their own, and the
+    device's idle share in this run."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        trainer.train_step(state, tb, TRAIN_STEPS + 1)
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    groups, busy, top = device_groups(prof, ranges=("AdamW.step",))
+    if "AdamW.step" in groups:
+        groups["optimizer (AdamW.step: clip + update)"] = groups.pop(
+            "AdamW.step")
+    else:
+        log("optimizer device time: not measured (the profiler showed no "
+            "device span of the AdamW.step range)")
+    matmul_ms = groups.get("matmul (cuBLAS)", 0.0)
+    log(json.dumps({"train_profile": {
+        "device_ms_by_group": groups, "device_busy_ms": busy,
+        "wall_ms": wall_ms, "idle_share": 1.0 - busy / wall_ms,
+        "unprofiled_step_ms": step_s * 1e3,
+        "matmul_tflops": matmul_tflop / (matmul_ms / 1e3) if matmul_ms
+        else None, "top_kernels": top}}))
 
 
 if __name__ == "__main__":

@@ -25,7 +25,9 @@ def test_port_has_the_slice_modules():
               "ops.attention", "ops.flash_attention", "ops._cuda",
               "models.embedders", "models.phi3", "models.video_gpt",
               "models.vae", "sampling.scheduler", "sampling.pipeline",
-              "utils.weights", "utils.torch_import"):
+              "utils.weights", "utils.torch_import", "utils.checkpoint",
+              "data.video", "data.prefetch", "training.loss",
+              "training.data", "training.train_state", "training.trainer"):
         assert "video_gpt_tpu_torch." + m in mods, m
 
 

@@ -14,7 +14,10 @@ values. Bar per element, its bf16 rounding bound:
 (the plain version run on |V|). The kernels round the probabilities before
 P.V to bf16 (unit roundoff 2^-8), which moves an output by at most 2^-8
 mass, and round the output, by at most 2^-8 |want|; 1e-4 covers fp32
-summation order.
+summation order. For the backward (K9) the mass of each gradient element is
+the plain version's product over absolute values (|ds| |K| for dq,
+|ds|^T |Q| for dk, p^T |dO| for dv): K9 rounds ds and p to bf16 before
+those products.
 """
 import pytest
 import torch
@@ -122,6 +125,60 @@ def test_k3_matches_plain(dev, n_clean, use_cfg, h, hkv):
     torch.cuda.synchronize()
     assert fa.flash_mha.launches == 1
     assert _err(got, want, mass) <= 1.0
+
+
+def _training_operands(dev, h, hkv, blocks, n_img, requires_grad=False):
+    """q/k/v as the attention layer makes them (q, k new tensors, v a view
+    of the fused projection) over a training layout, and its bias."""
+    d = fa.KERNEL_HEAD_DIM
+    lay = layout.build_layout([layout.RowSpec(blocks, "training")], n_img)
+    meta = AttnMeta.from_layout(lay, dev)
+    qkv = _bf16(dev, 7, 1, lay.length, h + 2 * hkv, d)
+    q, k = qkv[:, :, :h].contiguous(), qkv[:, :, h:h + hkv].contiguous()
+    v = qkv[:, :, h + hkv:]
+    if requires_grad:
+        q, k, v = (x.detach().requires_grad_() for x in (q, k, v))
+    return q, k, v, fa.precompute_bias(meta, meta)
+
+
+@pytest.mark.parametrize("h,hkv,blocks,n_img", [
+    (4, 2, (1, 2, 1), 30), (8, 8, (2, 1, 1, 1), 17)])
+def test_k9_matches_plain(dev, h, hkv, blocks, n_img):
+    q, k, v, bias = _training_operands(dev, h, hkv, blocks, n_img)
+    fa.reset_launch_counts()
+    out, lse = fa._bias_forward(q, k, v, bias, with_lse=True)
+    do = _bf16(dev, 8, *out.shape)
+    got = fa.flash_mha_bwd(q, k, v, bias, out, do, lse)
+    args = [x.float() for x in (q, k, v)] + [bias, out.float(), do.float()]
+    want = fa.bias_attention_backward_reference(*args)
+    mass = fa.bias_attention_backward_reference(*args, magnitude=True)
+    torch.cuda.synchronize()
+    assert fa.flash_mha.launches == 1 and fa.flash_mha_bwd.launches == 1
+    for name, g, w, m in zip(("dq", "dk", "dv"), got, want, mass):
+        assert g.shape == w.shape and g.dtype == torch.bfloat16, name
+        assert _err(g, w, m) <= 1.0, name
+
+
+def test_flash_mha_gradients_reach_q_k_v(dev):
+    """The repaired fault: through ``flash_mha`` on CUDA, q, k and v get
+    gradients (K9), and they agree with the plain backward."""
+    q, k, v, bias = _training_operands(dev, 4, 2, (1, 2, 1), 30,
+                                       requires_grad=True)
+    w = _bf16(dev, 9, *q.shape)
+    fa.reset_launch_counts()
+    out = fa.flash_mha(q, k, v, bias)
+    assert out.grad_fn is not None
+    (out.float() * w.float()).sum().backward()
+    torch.cuda.synchronize()
+    assert fa.flash_mha.launches == 1 and fa.flash_mha_bwd.launches == 1
+    args = [x.detach().float() for x in (q, k, v)] + [
+        bias, out.detach().float(), w.float()]
+    want = fa.bias_attention_backward_reference(*args)
+    mass = fa.bias_attention_backward_reference(*args, magnitude=True)
+    for name, x, wt, m in zip("qkv", (q, k, v), want, mass):
+        assert x.grad is not None, name
+        assert float(x.grad.float().abs().max()) > 0, name
+        assert _err(x.grad, wt, m) <= 1.0, name
 
 
 def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):

@@ -1,0 +1,338 @@
+"""The port's stage-1 training stack (video_gpt_tpu_torch.training) against
+the JAX package on the CPU.
+
+- ``collate``: every array bit-equal to the JAX collate's from the same
+  ClipSamples.
+- ``training_loss`` with the JAX loss's own draws injected (the test replays
+  its ``jax.random.split`` of the step key): loss and per-frame loss at
+  rtol 1e-5.
+- Parameter gradients of the loss against ``jax.grad`` at fp32 on a tiny
+  model with every parameter perturbed (a train-init model's zero head
+  would make the trunk's gradient exactly zero), the JAX gradient tree
+  mapped through ``videogpt_state_dict_from_jax``: rtol 1e-4 / atol 1e-6,
+  the model bar (two fp32 programs summing in other orders). JAX runs its
+  dense CPU attention (``maybe_bias`` is None off the TPU); the port runs
+  ``flash_mha``'s autograd Function, so plain K3 forward and plain K9
+  backward.
+- The optimizer fed the same gradients as optax for a few steps (clip
+  active; warmup, cosine and accumulation): parameters and moments within
+  rtol 1e-6 (float32 rounding of the same formulas). Shared gradients, not
+  full steps: Adam's sign-like first step would amplify ulp differences of
+  near-zero gradients.
+- ``Trainer.run`` end to end on a tiny model from short synthetic videos
+  written with cv2, and its resume from the checkpoint.
+"""
+import os
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+import optax
+
+from video_gpt_tpu.config import ModelConfig as JModelConfig
+from video_gpt_tpu.config import TrainConfig as JTrainConfig
+from video_gpt_tpu.data.video import ClipSample as JClipSample
+from video_gpt_tpu.models.video_gpt import VideoGPT as JVideoGPT
+from video_gpt_tpu.training import loss as jloss
+from video_gpt_tpu.training.data import collate as jcollate
+from video_gpt_tpu.training.train_state import make_optimizer as jmake_opt
+from video_gpt_tpu_torch.config import (ModelConfig, TrainConfig,
+                                        check_train_config, stage_config)
+from video_gpt_tpu_torch.data.video import ClipSample
+from video_gpt_tpu_torch.models.vae import VAEConfig
+from video_gpt_tpu_torch.models.video_gpt import VideoGPT
+from video_gpt_tpu_torch.training.data import collate
+from video_gpt_tpu_torch.training.loss import LossDraws, training_loss
+from video_gpt_tpu_torch.training.train_state import (AdamW, TrainState,
+                                                      ema_update_gated,
+                                                      lr_schedule)
+from video_gpt_tpu_torch.training.trainer import Trainer
+from video_gpt_tpu_torch.utils.weights import videogpt_state_dict_from_jax
+
+F, HL, WL, C = 3, 4, 4, 4
+N_IMG = (HL // 2) * (WL // 2)
+BLOCKS = ((1, 2), (1, 1, 1))   # two rows: frame-block and interleaved
+
+
+def _pixels(seed):
+    return np.random.default_rng(seed).uniform(
+        -1, 1, (F, 8 * HL, 8 * WL, 3)).astype(np.float32)
+
+
+def _batches(cls_weight=None):
+    jt = jcollate([JClipSample(_pixels(i), b) for i, b in enumerate(BLOCKS)],
+                  N_IMG, cls_weight=cls_weight)
+    tt = collate([ClipSample(_pixels(i), b) for i, b in enumerate(BLOCKS)],
+                 N_IMG, cls_weight=cls_weight)
+    return jt, tt
+
+
+@pytest.mark.parametrize("cls_weight", [None, 2.0])
+def test_collate_matches_jax(cls_weight):
+    jt, tt = _batches(cls_weight)
+    pairs = [(jt.pixels, tt.pixels), (jt.noisy_sel, tt.noisy_sel),
+             (jt.clean_sel, tt.clean_sel), (jt.clean_valid, tt.clean_valid)]
+    ji, ti = jt.inputs, tt.inputs
+    pairs += [(getattr(ji, n), getattr(ti, n)) for n in (
+        "noisy_frame_row", "noisy_frame_block", "frame_weights")]
+    jb, tb = ji.batch, ti.batch
+    pairs += [(getattr(jb, n), getattr(tb, n)) for n in tb._fields
+              if n != "meta"]
+    pairs += list(zip(jb.meta, tb.meta))
+    for want, got in pairs:
+        if want is None:
+            assert got is None
+            continue
+        want = np.array(want)
+        assert got.dtype == torch.from_numpy(want).dtype, (got.dtype, want)
+        np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.fixture(scope="module")
+def models():
+    jcfg = JModelConfig.tiny(pos_embed_max_size=8)
+    jm = JVideoGPT(jcfg, dtype=jnp.float32, train_init=True)
+    jt, _ = _batches()
+    nn_, nc = int(jt.noisy_sel.shape[0]), int(jt.clean_sel.shape[0])
+    params = jm.init(jax.random.PRNGKey(1), jt.inputs.batch,
+                     jnp.zeros((nn_, HL, WL, C)), jnp.zeros((nn_,)),
+                     jnp.zeros((nc, HL, WL, C)))
+    rng = np.random.default_rng(0)
+    params = jax.tree.map(
+        lambda x: np.asarray(x) + 0.05 * rng.standard_normal(x.shape).astype(
+            np.float32), params)
+    return jm, params
+
+
+def _loss_pair(order=2, cls_weight=None):
+    """(JAX inputs, port inputs, the step key, the JAX loss's draws)."""
+    jt, tt = _batches(cls_weight)
+    lat = np.random.default_rng(5).standard_normal(
+        (len(BLOCKS) * F, HL, WL, C)).astype(np.float32)
+    jin = jt.inputs._replace(x1=jnp.take(lat, jt.noisy_sel, axis=0),
+                             clean_latents=jnp.take(lat, jt.clean_sel,
+                                                    axis=0))
+    tl = torch.from_numpy(lat)
+    tin = tt.inputs._replace(x1=tl[tt.noisy_sel.long()],
+                             clean_latents=tl[tt.clean_sel.long()])
+    key = jax.random.PRNGKey(7)
+    r_x0, r_t, r_x0c, r_tc = jax.random.split(key, 4)
+    draws = LossDraws(*(torch.from_numpy(np.asarray(x)) for x in (
+        jax.random.normal(r_x0, jin.x1.shape, jin.x1.dtype),
+        jax.random.uniform(r_t, (len(BLOCKS), F)),
+        jax.random.normal(r_x0c, jin.clean_latents.shape),
+        jax.random.uniform(r_tc, (jin.clean_latents.shape[0],)))))
+    return jin, tin, key, draws
+
+
+def _port_model(params, **cfg):
+    tm = VideoGPT(ModelConfig.tiny(pos_embed_max_size=8, **cfg),
+                  device="cpu", train_init=True)
+    tm.load_state_dict(videogpt_state_dict_from_jax(params, tm.cfg),
+                       strict=True)
+    return tm
+
+
+@pytest.mark.parametrize("order,cls_weight", [(2, None), (4, 2.0)])
+def test_training_loss_matches_jax(models, order, cls_weight):
+    jm, params = models
+    jin, tin, key, draws = _loss_pair(order, cls_weight)
+    want, jaux = jloss.training_loss(jm, params, key, jin, max_blocks=F,
+                                     order=order)
+    with torch.no_grad():
+        got, aux = training_loss(_port_model(params), tin, draws,
+                                 order=order)
+    np.testing.assert_allclose(aux["per_frame_loss"].numpy(),
+                               np.asarray(jaux["per_frame_loss"]), rtol=1e-5)
+    np.testing.assert_allclose(float(got), float(want), rtol=1e-5)
+
+
+def _port_grads(params, draws, tin, **cfg):
+    tm = _port_model(params, **cfg)
+    loss, _ = training_loss(tm, tin, draws)
+    loss.backward()
+    return ({n: p.grad for n, p in tm.named_parameters()},
+            float(loss.detach()))
+
+
+def test_model_gradients_match_jax_grad(models):
+    jm, params = models
+    jin, tin, key, draws = _loss_pair()
+
+    def loss_fn(p):
+        return jloss.training_loss(jm, {"params": p}, key, jin,
+                                   max_blocks=F)[0]
+
+    jgrads = jax.grad(loss_fn)(params["params"])
+    want = videogpt_state_dict_from_jax(jax.device_get(jgrads),
+                                        ModelConfig.tiny(pos_embed_max_size=8))
+    got, _ = _port_grads(params, draws, tin)
+    assert set(got) == set(want)
+    for name, g in got.items():
+        assert g is not None, name
+        np.testing.assert_allclose(g.numpy(), want[name].numpy(), rtol=1e-4,
+                                   atol=1e-6, err_msg=name)
+    # the trunk's first attention gets a gradient through the backward
+    assert float(got["llm.layers.0.self_attn.qkv_proj.weight"].abs().max()) \
+        > 0
+
+
+def test_remat_gives_the_same_gradients(models):
+    _, params = models
+    _, tin, _, draws = _loss_pair()
+    plain, loss0 = _port_grads(params, draws, tin)
+    remat, loss1 = _port_grads(params, draws, tin, remat=True)
+    assert loss0 == loss1
+    for name, g in plain.items():
+        np.testing.assert_allclose(remat[name].numpy(), g.numpy(), rtol=1e-6,
+                                   atol=1e-9, err_msg=name)
+
+
+def test_train_init_zeroes_head_and_patch_embedder():
+    tm = VideoGPT(ModelConfig.tiny(), train_init=True).init_random_(
+        torch.Generator().manual_seed(0))
+    for mod in (tm.x_embedder, tm.final_layer):
+        assert all(bool((p == 0).all()) for p in mod.parameters())
+    assert float(tm.input_x_embedder.proj.weight.abs().max()) > 0
+
+
+OPT_CASES = [  # (scheduler, accumulation steps, micro-steps)
+    ("constant_with_warmup", 1, 3), ("cosine", 1, 3), ("constant", 2, 4)]
+
+
+@pytest.mark.parametrize("scheduler,accum,steps", OPT_CASES)
+def test_optimizer_matches_optax(scheduler, accum, steps):
+    kw = dict(lr=1e-2, lr_scheduler=scheduler, lr_warmup_steps=2,
+              max_steps=5, adam_epsilon=1e-5, gradient_accumulation_steps=accum,
+              use_ema=True, ema_decay=0.5)
+    rng = np.random.default_rng(0)
+    shapes = {"w": (8, 5), "b": (5,), "norm": (3,)}
+    init = {k: rng.standard_normal(s).astype(np.float32)
+            for k, s in shapes.items()}
+    # norms 3-6: the clip at max_grad_norm 1 is active every step
+    grads = [{k: rng.standard_normal(s).astype(np.float32)
+              for k, s in shapes.items()} for _ in range(steps)]
+    tx = jmake_opt(JTrainConfig(**kw))
+    jp = {k: jnp.asarray(v) for k, v in init.items()}
+    jstate = tx.init(jp)
+
+    model = torch.nn.ParameterDict(
+        {k: torch.nn.Parameter(torch.from_numpy(v.copy()))
+         for k, v in init.items()})
+    cfg = TrainConfig(**kw)
+    opt = AdamW(model.values(), cfg)
+    ema = {n: p.detach().clone() for n, p in model.named_parameters()}
+    jema = dict(jp)
+    for g in grads:
+        updates, jstate = tx.update({k: jnp.asarray(v) for k, v in g.items()},
+                                    jstate, jp)
+        jp = optax.apply_updates(jp, updates)
+        if accum == 1 or tx.has_updated(jstate):
+            jema = {k: jema[k] * 0.5 + jp[k] * 0.5 for k in jp}
+        for k, p in model.items():
+            p.grad = torch.from_numpy(g[k].copy())
+        opt.step()
+        ema_update_gated(ema, model, cfg, opt)
+        for k in model:
+            np.testing.assert_allclose(model[k].detach().numpy(),
+                                       np.asarray(jp[k]), rtol=1e-6,
+                                       atol=1e-8, err_msg=k)
+            np.testing.assert_allclose(ema[k].numpy(), np.asarray(jema[k]),
+                                       rtol=1e-6, atol=1e-8, err_msg=k)
+    adam = jstate.inner_opt_state if accum > 1 else jstate
+    adam = adam[1][0]  # chain(clip, adamw) -> adamw's ScaleByAdamState
+    assert opt.count == int(adam.count)
+    for i, k in enumerate(model):
+        np.testing.assert_allclose(opt.mu[i].numpy(), np.asarray(adam.mu[k]),
+                                   rtol=1e-6, atol=1e-9)
+        np.testing.assert_allclose(opt.nu[i].numpy(), np.asarray(adam.nu[k]),
+                                   rtol=1e-6, atol=1e-9)
+
+
+def test_lr_schedules_match_optax():
+    from video_gpt_tpu.training.train_state import lr_schedule as jsched
+    for name in ("constant", "constant_with_warmup", "cosine"):
+        kw = dict(lr=3e-4, lr_scheduler=name, lr_warmup_steps=4, max_steps=11)
+        port, ref = lr_schedule(TrainConfig(**kw)), jsched(JTrainConfig(**kw))
+        for count in range(14):
+            assert port(count) == pytest.approx(float(ref(count)), rel=1e-6,
+                                                abs=1e-12), (name, count)
+
+
+def test_unported_fields_raise():
+    check_train_config(stage_config(1))
+    for field in ("use_lora", "distill", "offload_optimizer",
+                  "input_output_return"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            check_train_config(TrainConfig(**{field: True}))
+
+
+def _write_videos(root, n=2, frames=20, h=128, w=160):
+    import cv2
+    os.makedirs(root, exist_ok=True)
+    rng = np.random.default_rng(0)
+    y, x = np.mgrid[0:h, 0:w]
+    for i in range(n):
+        out = cv2.VideoWriter(os.path.join(root, f"clip{i}.avi"),
+                              cv2.VideoWriter_fourcc(*"MJPG"), 10, (w, h))
+        for f in range(frames):
+            img = np.stack([(x + 4 * f) % 256, (y + 7 * i) % 256,
+                            (x + y + f) % 256], -1).astype(np.float32)
+            img += rng.normal(0, 8, img.shape)
+            out.write(np.clip(img, 0, 255).astype(np.uint8))
+        out.release()
+
+
+def test_trainer_runs_and_resumes(tmp_path, capsys):
+    videos = str(tmp_path / "videos")
+    _write_videos(videos)
+
+    def trainer():
+        cfg = stage_config(1, frame_num=4, lr=1e-3, lr_scheduler="constant",
+                           log_every=1, ckpt_every=2,
+                           results_dir=str(tmp_path / "run"))
+        return Trainer(ModelConfig.tiny(), cfg, videos,
+                       vae_cfg=VAEConfig.tiny(), target_resolution=(48, 64),
+                       device="cpu")
+
+    t = trainer()
+    assert t.model_cfg.remat  # gradient_checkpointing is on by default
+    sample = t.dataset.sample(0)
+    assert sample.pixels.shape == (4, 48, 64, 3)
+    assert sample.frame_blocks == (1, 1, 1, 1)
+    state = t.run(2)
+    assert isinstance(state, TrainState) and state.step == 2
+    assert os.path.exists(tmp_path / "run" / "checkpoints" / "2" / "state.pt")
+    out = capsys.readouterr().out
+    losses = [float(line.split("loss=")[1].split()[0])
+              for line in out.splitlines() if line.startswith("step ")]
+    assert len(losses) == 2 and all(np.isfinite(losses))
+    resumed = trainer().run(3)
+    assert "resumed from step 2" in capsys.readouterr().out
+    assert resumed.step == 3 and resumed.optimizer.count == 3
+
+
+def test_dataset_draws_match_jax(tmp_path):
+    """Same clip windows, strides and block partitions as the JAX dataset
+    (both pure functions of seed and index): the raw frames each sample
+    reads are bit-equal."""
+    from video_gpt_tpu.data.video import VideoClipDataset as JDataset
+    from video_gpt_tpu_torch.data.video import VideoClipDataset
+    videos = str(tmp_path / "videos")
+    _write_videos(videos, n=3)
+    kw = dict(frame_num=4, frame_interval=2, flexible_interval=True,
+              interval_bound=4, target_resolution=(48, 64),
+              scheme="frame_block", seed=3)
+    jds, tds = JDataset(videos, **kw), VideoClipDataset(videos, **kw)
+    assert tds.data == jds.data
+    for index in range(5):
+        epoch, vid = divmod(index, len(tds))
+        jrng, trng = jds._sample_rng(epoch, vid, 0), tds._sample_rng(
+            epoch, vid, 0)
+        np.testing.assert_array_equal(tds._read_clip(tds.data[vid], trng),
+                                      jds._read_clip(jds.data[vid], jrng))
+        assert tds.sample(index).frame_blocks == \
+            jds.sample(index).frame_blocks

@@ -1,12 +1,17 @@
-"""Command-line entry point: ``generate`` (single video).
+"""Command-line entry points: ``generate`` (single video) and ``train``.
 
     python -m video_gpt_tpu_torch.cli generate --video_path clip.mp4 \\
         --model_ckpt ckpt_dir --vae_ckpt vae.safetensors --gen_nums 16
+    python -m video_gpt_tpu_torch.cli train --stage 1 \\
+        --video_dir_path videos/ --results_dir results/stage1
 
-Port of the single-video path of ``video_gpt_tpu/cli.py generate``. Runs on
-CUDA unless ``--device cpu``; without checkpoints the weights are random
-(a smoke run). cv2 (video decode) and PIL (PNG writes) are imported only
-here, where files are read and written.
+Port of the single-video path of ``video_gpt_tpu/cli.py generate`` and of
+the single-device path of its ``train`` (stage 1 runs the ported kernels;
+stages 2-4 are accepted, but at their lengths the JAX package runs the
+metadata-inline kernels, which are not ported, so the port's route there is
+untested). Runs on CUDA unless ``--device cpu``; without checkpoints the
+weights are random (a smoke run). cv2 (video decode) and PIL (PNG writes)
+are imported only where files are read and written.
 """
 from __future__ import annotations
 
@@ -76,6 +81,119 @@ def cmd_generate(args):
           f"{args.save_dir}", flush=True)
 
 
+def cmd_train(args):
+    from .config import ModelConfig, stage_config
+    from .models.vae import VAEConfig
+    from .training.trainer import Trainer
+    from .utils.torch_import import load_reference_checkpoint
+
+    for flag in ("mesh_data", "mesh_seq", "mesh_tensor", "mesh_pipe"):
+        if getattr(args, flag) != 1:
+            raise SystemExit(f"--{flag} is not ported yet (ROADMAP.md "
+                             f"queue 1: the mesh)")
+    cfg = stage_config(
+        args.stage,
+        frame_num=args.frame_num or {1: 16, 2: 48, 3: 48, 4: 80}[args.stage],
+        batch_size_per_device=args.batch_size_per_device, lr=args.lr,
+        results_dir=args.results_dir, log_every=args.log_every,
+        ckpt_every=args.ckpt_every, mixed_precision=args.mixed_precision,
+        use_ema=args.use_ema, input_noise=args.input_noise,
+        auto_resume=not args.no_auto_resume, use_lora=args.use_lora,
+        cls_weight=args.cls_weight,
+        input_output_return=args.input_output_return,
+        offload_optimizer=args.offload_optimizer, distill=args.distill,
+        lr_scheduler=args.lr_scheduler, lr_warmup_steps=args.lr_warmup_steps,
+        gradient_accumulation_steps=args.gradient_accumulation_steps,
+        max_grad_norm=args.max_grad_norm,
+        adam_weight_decay=args.adam_weight_decay,
+        adam_epsilon=args.adam_epsilon, adam_beta1=args.adam_beta1,
+        adam_beta2=args.adam_beta2, num_workers=args.num_workers,
+        prefetch_depth=args.prefetch_depth,
+        **({"frame_interval": args.frame_interval}
+           if args.frame_interval is not None else {}),
+        **({"max_input_length_limit": args.max_input_length_limit}
+           if args.max_input_length_limit is not None else {}))
+    model_cfg = (ModelConfig.tiny(pos_embed_max_size=192) if args.tiny_model
+                 else ModelConfig())
+    vae_cfg = VAEConfig.tiny() if args.tiny_model else VAEConfig()
+    trainer = Trainer(
+        model_cfg, cfg, args.video_dir_path, vae_cfg=vae_cfg,
+        vae_state_dict=(load_reference_checkpoint(args.vae_ckpt)
+                        if args.vae_ckpt else None),
+        init_state_dict=(load_reference_checkpoint(args.model_ckpt)
+                         if args.model_ckpt else None),
+        target_resolution=tuple(args.target_resolution), device=args.device,
+        seed=args.seed)
+    steps = args.max_steps
+    if args.epochs is not None:
+        rows = cfg.batch_size_per_device
+        steps = args.epochs * max(1, len(trainer.dataset) // rows)
+        print(f"--epochs {args.epochs} => {steps} steps "
+              f"({len(trainer.dataset)} clips, {rows} rows/step)")
+    trainer.run(steps)
+
+
+def _add_train_parser(sub) -> None:
+    t = sub.add_parser("train", help="pretrain (stage 1-4 curriculum) on "
+                                     "one device")
+    t.add_argument("--stage", type=int, default=1, choices=[1, 2, 3, 4])
+    t.add_argument("--video_dir_path", type=str, required=True,
+                   help="directory of videos, or a .txt manifest "
+                        "(path<TAB>frame_count per line)")
+    t.add_argument("--results_dir", type=str, default="results")
+    t.add_argument("--max_steps", type=int, default=1000)
+    t.add_argument("--epochs", type=int, default=None,
+                   help="train for N passes over the dataset instead of "
+                        "--max_steps")
+    t.add_argument("--frame_num", type=int, default=None)
+    t.add_argument("--frame_interval", type=int, default=None,
+                   help="frame stride (the stage recipes default to 4)")
+    t.add_argument("--max_input_length_limit", type=int, default=None,
+                   help="override the stage recipe's sequence budget")
+    t.add_argument("--target_resolution", type=int, nargs=2,
+                   default=[176, 320])
+    t.add_argument("--batch_size_per_device", type=int, default=1)
+    t.add_argument("--lr", type=float, default=1e-4)
+    t.add_argument("--lr_scheduler", default="constant_with_warmup",
+                   choices=["constant", "constant_with_warmup", "cosine"])
+    t.add_argument("--lr_warmup_steps", type=int, default=1000)
+    t.add_argument("--gradient_accumulation_steps", type=int, default=1)
+    t.add_argument("--max_grad_norm", type=float, default=1.0)
+    t.add_argument("--adam_weight_decay", type=float, default=0.1)
+    t.add_argument("--adam_epsilon", type=float, default=1e-8)
+    t.add_argument("--adam_beta1", type=float, default=0.9)
+    t.add_argument("--adam_beta2", type=float, default=0.95)
+    t.add_argument("--mixed_precision", default="bf16",
+                   choices=["bf16", "no"],
+                   help="bf16 compute over fp32 parameters; 'no' is fp32 "
+                        "and runs on the CPU only (the CUDA kernels are "
+                        "bf16)")
+    t.add_argument("--use_ema", action="store_true")
+    t.add_argument("--cls_weight", type=float, default=None)
+    t.add_argument("--input_noise", type=float, default=0.9)
+    t.add_argument("--log_every", type=int, default=100)
+    t.add_argument("--ckpt_every", type=int, default=1000)
+    t.add_argument("--no_auto_resume", action="store_true")
+    t.add_argument("--num_workers", type=int, default=1,
+                   help="batch-building worker threads")
+    t.add_argument("--prefetch_depth", type=int, default=2)
+    t.add_argument("--model_ckpt", type=str, default=None,
+                   help="reference-format torch/safetensors initial weights")
+    t.add_argument("--vae_ckpt", type=str, default=None)
+    t.add_argument("--tiny_model", action="store_true")
+    t.add_argument("--seed", type=int, default=0)
+    t.add_argument("--device", default="cuda",
+                   help="'cuda' (default; raises without a GPU) or 'cpu'")
+    # accepted so a JAX command line parses; a non-default value raises
+    # (not ported yet, see ROADMAP.md queue 1)
+    for flag in ("use_lora", "distill", "offload_optimizer",
+                 "input_output_return"):
+        t.add_argument(f"--{flag}", action="store_true")
+    for flag in ("mesh_data", "mesh_seq", "mesh_tensor", "mesh_pipe"):
+        t.add_argument(f"--{flag}", type=int, default=1)
+    t.set_defaults(fn=cmd_train)
+
+
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="video_gpt_tpu_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
@@ -98,6 +216,7 @@ def build_parser() -> argparse.ArgumentParser:
     g.add_argument("--device", default="cuda",
                    help="'cuda' (default; raises without a GPU) or 'cpu'")
     g.set_defaults(fn=cmd_generate)
+    _add_train_parser(sub)
     return ap
 
 

@@ -1,5 +1,10 @@
-"""Model and sampler configuration (serving fields of
-``video_gpt_tpu/config.py``; mesh and training fields are not ported)."""
+"""Model, sampler and training configuration.
+
+Port of ``video_gpt_tpu/config.py``: the serving fields, and the fields of
+the single-device training path. The mesh, offload, LoRA and distillation
+fields are not ported; :func:`check_train_config` raises on a non-default
+value of any of them.
+"""
 from __future__ import annotations
 
 import dataclasses
@@ -29,6 +34,12 @@ class ModelConfig:
     pe_interpolation: float = 1.0
     pos_embed_max_size: int = 192
     freq_embed_size: int = 256
+    # execution
+    remat: bool = False  # recompute each decoder layer in the backward
+    # precompute the attention bias once per forward (shared by all layers)
+    # when B*Lq*Lk is at most this many elements; beyond it the JAX package
+    # evaluates the mask in-kernel (K8/K6, not ported: attend raises on CUDA)
+    precompute_bias_limit: int = 256_000_000
     token_ids: TokenIds = DEFAULT_TOKEN_IDS
 
     @property
@@ -61,3 +72,86 @@ class SchedulerConfig:
     begin_time: Optional[float] = None
     cfg_interval: Optional[Tuple[float, float]] = None
     uncond_refresh: int = 1
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Stage-1..4 training recipes (the single-device fields of the JAX
+    package's ``TrainConfig``, with its defaults)."""
+
+    # data
+    frame_num: int = 16
+    frame_interval: int = 4
+    flexible_interval: bool = False
+    interval_bound: Optional[int] = None
+    frame_block_scheme: str = "interleaved"  # 'interleaved' | 'frame_block'
+    max_input_length_limit: int = 18000
+    batch_size_per_device: int = 1
+    # optimisation
+    lr: float = 1e-4
+    lr_scheduler: str = "constant_with_warmup"
+    lr_warmup_steps: int = 1000
+    adam_beta1: float = 0.9
+    adam_beta2: float = 0.95
+    adam_weight_decay: float = 0.1
+    adam_epsilon: float = 1e-8
+    max_grad_norm: float = 1.0
+    gradient_accumulation_steps: int = 1
+    mixed_precision: str = "bf16"  # 'bf16' | 'no'
+    gradient_checkpointing: bool = True
+    # loss
+    input_noise: float = 0.9
+    cls_weight: Optional[float] = None
+    input_output_return: bool = False
+    # EMA
+    use_ema: bool = False
+    ema_decay: float = 0.9999
+    # not ported (ROADMAP queue 1): a non-default value raises
+    use_lora: bool = False
+    distill: bool = False
+    offload_optimizer: bool = False
+    # data loading (worker threads feeding the Prefetcher)
+    num_workers: int = 1
+    prefetch_depth: int = 2
+    # run control
+    max_steps: Optional[int] = None  # the cosine decay horizon
+    log_every: int = 100
+    ckpt_every: int = 20000
+    auto_resume: bool = True
+    results_dir: str = "results"
+
+
+# field -> the ROADMAP queue-1 item that ports it
+_NOT_PORTED = {
+    "use_lora": "LoRA and distillation",
+    "distill": "LoRA and distillation",
+    "offload_optimizer": "offload",
+    "input_output_return": "input_head",
+}
+
+
+def check_train_config(cfg: TrainConfig) -> None:
+    """Raise on a field that the port does not implement yet."""
+    for name, item in _NOT_PORTED.items():
+        if getattr(cfg, name) != getattr(TrainConfig, name):
+            raise NotImplementedError(
+                f"TrainConfig.{name}={getattr(cfg, name)!r} is not ported "
+                f"yet (ROADMAP.md queue 1: {item})")
+
+
+def stage_config(stage: int, **overrides) -> TrainConfig:
+    """The 4-stage curriculum (``configs/pretrain_stage{1..4}.sh``)."""
+    base = {
+        1: dict(frame_num=16, frame_interval=4,
+                frame_block_scheme="interleaved"),
+        2: dict(frame_num=48, frame_interval=4,
+                frame_block_scheme="frame_block", ckpt_every=1000),
+        3: dict(frame_num=48, frame_interval=4, flexible_interval=True,
+                interval_bound=12, frame_block_scheme="frame_block",
+                ckpt_every=1000),
+        4: dict(frame_num=80, frame_interval=4, flexible_interval=True,
+                interval_bound=12, frame_block_scheme="frame_block",
+                max_input_length_limit=1_280_000, ckpt_every=1000),
+    }[stage]
+    base.update(overrides)
+    return TrainConfig(**base)

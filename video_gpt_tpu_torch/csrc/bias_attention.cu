@@ -19,6 +19,8 @@
 // 32 heads of 96) ~2e10 visible-pair FLOPs against ~0.05 GB of operands
 // (q, k, v, the bias once, out): tensor throughput bounds it, though the
 // bias tile, read once per head from L2, is the largest operand stream.
+// With a non-null `lse` it also writes each row's logsumexp, the residual
+// of the backward kernel; a null pointer leaves the serving launch as it was.
 // Design: as the rank kernel (rank_attention.cu) -- 64 query rows of one head
 // per block, K/V tiles through shared memory, bf16 mma.sync with fp32
 // accumulate, probabilities kept in registers -- plus the per-row running
@@ -37,6 +39,9 @@ struct BiasAttnArgs {
   const void* v;      // values, same shape as the keys
   const void* bias;   // bf16 [B, Lq, Lk], rows at stride bias_sq
   void* out;          // [B, Lq, H, D]
+  float* lse;         // [B, H, Lq] contiguous, or null: the logsumexp of
+                      // each row's biased logits (natural log), which the
+                      // backward (K9, bias_attention_bwd.cu) reads
   long long q_sb, q_sl, q_sh;
   long long k_sb, k_sl, k_sh;
   long long v_sb, v_sl, v_sh;
@@ -163,8 +168,14 @@ __global__ void __launch_bounds__(kThreads)
     }
   }
 
-  const float inv0 = 1.f / quad_sum(l0);
-  const float inv1 = 1.f / quad_sum(l1);
+  const float sum0 = quad_sum(l0), sum1 = quad_sum(l1);
+  const float inv0 = 1.f / sum0, inv1 = 1.f / sum1;
+  if (a.lse != nullptr && t == 0) {
+    constexpr float kLn2 = 0.6931471805599453f;
+    float* lse = a.lse + (static_cast<long long>(b) * a.heads + h) * a.lq;
+    if (r0 < a.lq) lse[r0] = (m0 + log2f(sum0)) * kLn2;
+    if (r1 < a.lq) lse[r1] = (m1 + log2f(sum1)) * kLn2;
+  }
   bf16* out = static_cast<bf16*>(a.out) + b * a.o_sb + h * a.o_sh;
 #pragma unroll
   for (int n = 0; n < NO; ++n) {

@@ -66,12 +66,16 @@ def unpatchify(x: torch.Tensor, h: int, w: int, patch: int, channels: int
 
 class PatchEmbed(nn.Module):
     """Patchify + linear projection; ``proj`` holds the Conv2d-shaped
-    weight [D, C, p, p] and bias [D]."""
+    weight [D, C, p, p] and bias [D]. ``zero_init`` marks a module whose
+    parameters :meth:`VideoGPT.init_random_` zeroes: the training model's
+    noisy-patch embedder (the JAX package's ``PatchEmbed(zero_init=True)``).
+    """
 
     def __init__(self, hidden_size: int, patch_size: int, in_channels: int,
-                 device=None, dtype=None):
+                 device=None, dtype=None, zero_init: bool = False):
         super().__init__()
         self.patch_size = patch_size
+        self.zero_init = zero_init
         self.proj = nn.Conv2d(in_channels, hidden_size, patch_size,
                               stride=patch_size, device=device, dtype=dtype)
 
@@ -126,11 +130,15 @@ def modulate(x: torch.Tensor, shift: torch.Tensor, scale: torch.Tensor
 
 
 class FinalLayer(nn.Module):
-    """adaLN-modulated linear head (``adaLN_modulation.1``, ``linear``)."""
+    """adaLN-modulated linear head (``adaLN_modulation.1``, ``linear``).
+    The JAX package zero-initialises it always; the port does with
+    ``zero_init`` (the training model), and its serving model draws it at
+    random so a random-weight run predicts non-zeros."""
 
     def __init__(self, hidden_size: int, patch_size: int, out_channels: int,
-                 device=None, dtype=None):
+                 device=None, dtype=None, zero_init: bool = False):
         super().__init__()
+        self.zero_init = zero_init
         kw = dict(device=device, dtype=dtype)
         self.adaLN_modulation = nn.Sequential(
             nn.SiLU(), nn.Linear(hidden_size, 2 * hidden_size, **kw))

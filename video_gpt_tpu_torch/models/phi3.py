@@ -6,6 +6,10 @@ MLP. The layers are a Python loop (``nn.ModuleList``) named like the
 reference's torch model, so its state dict loads by name. LoRA is not
 ported (rank 0 only).
 
+With ``cfg.remat`` each layer is recomputed in the backward
+(``torch.utils.checkpoint``), the counterpart of the JAX package's
+``nn.remat``.
+
 The KV cache is heads-major [num_layers, B, H_kv, L_ctx, head_dim], the
 layout the decode kernels read; unlike the TPU package it carries no
 96->128 lane pad.
@@ -17,6 +21,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 from torch import nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..config import ModelConfig
 from ..ops.attention import AttnMeta, attend, attend_decode_split
@@ -160,11 +165,21 @@ class Phi3Decoder(nn.Module):
             b, l, _ = x.shape
             shape = (cfg.num_layers, b, cfg.num_kv_heads, l, cfg.head_dim)
             kv = KVCache(x.new_empty(shape), x.new_empty(shape))
+        remat = cfg.remat and torch.is_grad_enabled()
         for i, layer in enumerate(self.layers):
             layer_cache = None
             if cache is not None and cache.length > 0:
                 layer_cache = (cache.k[i], cache.v[i])
-            x, (k, v) = layer(x, cos, sin, q_meta, k_meta, layer_cache, bias)
+            args = (x, cos, sin, q_meta, k_meta, layer_cache, bias)
+            if remat:
+                # keep only the layer's input; the backward runs the layer
+                # again (the JAX package's nn.remat, nothing_saveable). The
+                # layer-invariant inputs (cos/sin, metadata, bias) are
+                # passed by reference, never copied per layer.
+                x, (k, v) = checkpoint(layer, *args, use_reentrant=False,
+                                       preserve_rng_state=False)
+            else:
+                x, (k, v) = layer(*args)
             if kv is not None:
                 kv.k[i].copy_(k.transpose(1, 2))
                 kv.v[i].copy_(v.transpose(1, 2))

@@ -53,10 +53,16 @@ class Batch(NamedTuple):
 
 def maybe_bias(cfg: ModelConfig, q_meta: AttnMeta, k_meta: AttnMeta):
     """The layer- and step-invariant attention bias (the bias kernel's
-    operand). The TPU package precomputes it only on the TPU and under a
-    VMEM-derived size cap; the port always does, so the prefill runs the
-    bias kernel's function on every device (the kernel on CUDA, its plain
-    version on the CPU)."""
+    operand), or None when B*Lq*Lk exceeds ``cfg.precompute_bias_limit``.
+    The JAX package precomputes it only on the TPU and under an 8192-key
+    VMEM cap as well; the port does on every device, so the prefill and the
+    training forward run the bias kernel's function everywhere (the kernel
+    on CUDA, its plain version on the CPU). Above the limit ``attend``
+    evaluates the mask densely on the CPU and raises on CUDA (the
+    metadata-inline kernel K8 is not ported)."""
+    b, lq = q_meta.index.shape
+    if b * lq * k_meta.vis_start.shape[1] > cfg.precompute_bias_limit:
+        return None
     return precompute_bias(q_meta, k_meta)
 
 
@@ -90,18 +96,31 @@ def _scatter(emb: torch.Tensor, src: torch.Tensor, values: torch.Tensor
 
 
 class VideoGPT(nn.Module):
-    def __init__(self, cfg: ModelConfig, device=None, dtype=torch.float32):
+    """``train_init`` builds the training model: :meth:`init_random_`
+    zeroes the noisy-patch embedder and the head, as the JAX package's
+    ``VideoGPT(train_init=True)`` initialises them, so a fresh model
+    predicts 0.
+
+    Mixed precision: under ``torch.autocast`` the residual stream is cast
+    to autocast's dtype at the embedding, so with fp32 parameters every
+    activation, and every attention kernel's operand, is bf16 (the JAX
+    package's flax ``dtype=bf16`` over fp32 parameters)."""
+
+    def __init__(self, cfg: ModelConfig, device=None, dtype=torch.float32,
+                 train_init: bool = False):
         super().__init__()
         self.cfg = cfg
+        self.train_init = train_init
         kw = dict(device=device, dtype=dtype)
         d = cfg.hidden_size
-        self.x_embedder = PatchEmbed(d, cfg.patch_size, cfg.in_channels, **kw)
+        self.x_embedder = PatchEmbed(d, cfg.patch_size, cfg.in_channels,
+                                     zero_init=train_init, **kw)
         self.input_x_embedder = PatchEmbed(d, cfg.patch_size, cfg.in_channels,
                                            **kw)
         self.time_token = TimestepEmbedder(d, cfg.freq_embed_size, **kw)
         self.t_embedder = TimestepEmbedder(d, cfg.freq_embed_size, **kw)
         self.final_layer = FinalLayer(d, cfg.patch_size, cfg.in_channels,
-                                      **kw)
+                                      zero_init=train_init, **kw)
         self.llm = Phi3Decoder(cfg, **kw)
         self._pos_tables: Dict[tuple, torch.Tensor] = {}
 
@@ -114,7 +133,10 @@ class VideoGPT(nn.Module):
         """Random weights drawn on the parameters' device: normal(std) for
         matrices and embeddings, zero biases, unit norms. The head and the
         adaLN modulation are random too, so the model does not predict
-        zeros (a zero-init head makes any parity or smoke run vacuous)."""
+        zeros (a zero-init head makes any parity or smoke run vacuous),
+        unless the model is built with ``train_init``: then the modules
+        marked ``zero_init`` (the head and the noisy-patch embedder) are
+        zero."""
         for name, p in self.named_parameters():
             if name.endswith("norm.weight"):
                 p.fill_(1.0)
@@ -122,9 +144,21 @@ class VideoGPT(nn.Module):
                 p.zero_()
             else:
                 p.normal_(0.0, std, generator=generator)
+        for module in self.modules():
+            if getattr(module, "zero_init", False):
+                for p in module.parameters():
+                    p.zero_()
         return self
 
     # ---- embedding assembly ------------------------------------------------
+
+    def _embed_ids(self, ids: torch.Tensor) -> torch.Tensor:
+        """Token embeddings in the residual stream's dtype: autocast's on
+        this device when it is on, else the parameters'."""
+        emb = self.llm.embed_tokens(ids.long())
+        if torch.is_autocast_enabled(emb.device.type):
+            return emb.to(torch.get_autocast_dtype(emb.device.type))
+        return emb
 
     def _pos_embed(self, hl: int, wl: int) -> torch.Tensor:
         p = self.cfg.patch_size
@@ -145,10 +179,11 @@ class VideoGPT(nn.Module):
         """[N, hl, wl, C] -> [N, n_img, D] plus the 2D sincos table."""
         embedder = self.input_x_embedder if is_input else self.x_embedder
         tok = embedder(latents)
-        return tok + self._pos_embed(latents.shape[1], latents.shape[2])[None]
+        pos = self._pos_embed(latents.shape[1], latents.shape[2])
+        return tok + pos.to(tok.dtype)[None]
 
     def _assemble(self, batch: Batch, noisy_latents, t, clean_latents):
-        emb = self.llm.embed_tokens(batch.input_ids.long())
+        emb = self._embed_ids(batch.input_ids)
         if noisy_latents is not None and noisy_latents.shape[0] > 0:
             emb = _scatter(emb, batch.noisy_src,
                            self._embed_frames(noisy_latents, is_input=False))
@@ -188,7 +223,7 @@ class VideoGPT(nn.Module):
                 prefix_len: int) -> KVCache:
         """Run the clean-context prefix once; return per-layer K/V."""
         lp = prefix_len
-        emb = self.llm.embed_tokens(batch.input_ids[:, :lp].long())
+        emb = self._embed_ids(batch.input_ids[:, :lp])
         if clean_latents is not None and clean_latents.shape[0] > 0:
             emb = _scatter(emb, batch.clean_src[:, :lp],
                            self._embed_frames(clean_latents, is_input=True))
@@ -210,7 +245,7 @@ class VideoGPT(nn.Module):
         """
         old = cache.length
         sl = slice(old, old + new_len)
-        emb = self.llm.embed_tokens(batch.input_ids[:, sl].long())
+        emb = self._embed_ids(batch.input_ids[:, sl])
         c = self._embed_frames(new_latents, is_input=True)
         p = self.cfg.patch_size
         offset = n_prev_clean * ((new_latents.shape[1] // p)
@@ -235,7 +270,7 @@ class VideoGPT(nn.Module):
         built here)."""
         lt = tail_len
         full_l = batch.input_ids.shape[1]
-        emb = self.llm.embed_tokens(batch.input_ids[:, -lt:].long())
+        emb = self._embed_ids(batch.input_ids[:, -lt:])
         emb = _scatter(emb, batch.noisy_src[:, -lt:],
                        self._embed_frames(noisy_latents, is_input=False))
         emb = _scatter(emb, batch.time_src[:, -lt:], self.time_token(t))

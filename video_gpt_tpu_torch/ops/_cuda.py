@@ -19,7 +19,8 @@ from typing import Dict
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-SOURCES = ("rank_attention.cu", "bias_attention.cu")
+SOURCES = ("rank_attention.cu", "bias_attention.cu",
+           "bias_attention_bwd.cu")
 HEADERS = ("attention_common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

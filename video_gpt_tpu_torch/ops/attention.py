@@ -100,8 +100,9 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     ``bias`` is a ``DecodeMask`` (columnar per-key rank: the decode kernel,
     K2), a precomputed bf16 bias from ``precompute_bias`` (the bias kernel,
-    K3), or None. None evaluates the rule densely, which only the CPU path
-    does: the metadata-inline kernels are not ported, so on CUDA it raises.
+    K3, differentiable: its backward is K9), or None. None evaluates the
+    rule densely, which only the CPU path does: the metadata-inline kernels
+    are not ported, so on CUDA it raises.
     """
     from .flash_attention import DecodeMask, flash_mha, flash_mha_decode
     if isinstance(bias, DecodeMask):

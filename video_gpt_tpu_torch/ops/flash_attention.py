@@ -1,20 +1,25 @@
-"""The serving path's attention kernels, each beside its plain version.
+"""The attention kernels of serving and training, each beside its plain
+version.
 
-Port of the three Pallas kernels of ``video_gpt_tpu/ops/flash_attention.py``
-that generation runs (the rest are not ported yet, see ROADMAP.md):
+Port of the Pallas kernels of ``video_gpt_tpu/ops/flash_attention.py`` that
+generation and stage-1 training run (the rest are not ported yet, see
+ROADMAP.md):
 
 - K1 :func:`flash_mha_decode_split` (TPU ``_decode_split_kernel``): the
   cond-row decode step and the cache extend, over separate cache and tail
   K/V operands;
 - K2 :func:`flash_mha_decode` (TPU ``_decode_kernel``): the uncond row;
-- K3 :func:`flash_mha` (TPU ``_bias_kernel``): the prefill, with the bias
-  of :func:`precompute_bias`.
+- K3 :func:`flash_mha` (TPU ``_bias_kernel``): the prefill and the training
+  forward, with the bias of :func:`precompute_bias`;
+- K9 :func:`flash_mha_bwd` (TPU ``_bwd_kernel``): the backward of K3.
 
 K1 and K2 are one CUDA kernel (``csrc/rank_attention.cu``); K3 is
-``csrc/bias_attention.cu``. Each wrapper takes its plain PyTorch version
-(``*_reference``) for CPU tensors only; for CUDA tensors it launches the
-kernel or raises, and counts the launch in its ``launches`` attribute. The
-TPU layout choices are gone: no 96->128 lane pad, no 8192-key VMEM cap, no
+``csrc/bias_attention.cu``, K9 ``csrc/bias_attention_bwd.cu``. Each wrapper
+takes its plain PyTorch version (``*_reference``) for CPU tensors only; for
+CUDA tensors it launches the kernel or raises, and counts the launch in its
+``launches`` attribute. :func:`flash_mha` is differentiable: under autograd
+it runs K3 keeping the per-row logsumexp, and its backward is K9. The TPU
+layout choices are gone: no 96->128 lane pad, no 8192-key VMEM cap, no
 VMEM-tuned query blocks, and the bias is not padded.
 """
 from __future__ import annotations
@@ -124,6 +129,50 @@ def bias_attention_reference(q: torch.Tensor, k: torch.Tensor,
     return (p.to(v.dtype).float() @ vf.float()).to(q.dtype).transpose(1, 2)
 
 
+def bias_attention_backward_reference(q: torch.Tensor, k: torch.Tensor,
+                                      v: torch.Tensor, bias: torch.Tensor,
+                                      o: torch.Tensor, do: torch.Tensor,
+                                      magnitude: bool = False):
+    """Plain K9: the gradients (dq, dk, dv) of :func:`flash_mha` at output
+    ``o`` for the output cotangent ``do``, by the TPU kernel's math in fp32:
+    the softmax recomputed over the whole key row, di = rowsum(o * do),
+    ds = p (dp - di) scale, dq = ds K, dk = ds^T Q, dv = p^T dO, the GQA
+    group's heads summed. Shapes as :func:`flash_mha`; grads in the inputs'
+    dtypes.
+
+    ``magnitude=True`` returns instead the same products over absolute
+    values, in fp32: (|ds| |K|, |ds|^T |Q|, p^T |dO|), the mass that the
+    kernel's bf16 rounding of ds and p before its products is read
+    against."""
+    b, lq, h, d = q.shape
+    hkv = k.shape[2]
+    group = h // hkv
+    scale = d ** -0.5
+
+    def heads(x, rep=1):
+        return x.transpose(1, 2).float().repeat_interleave(rep, dim=1)
+
+    qf, of, dof = heads(q), heads(o), heads(do)
+    kf, vf = heads(k, group), heads(v, group)
+    p = torch.softmax(qf @ kf.transpose(-1, -2) * scale
+                      + bias.float()[:, None], dim=-1)       # [B,H,Lq,Lk]
+    di = (of * dof).sum(-1, keepdim=True)
+    ds = p * (dof @ vf.transpose(-1, -2) - di) * scale
+    if magnitude:
+        ds, qf, kf, dof = ds.abs(), qf.abs(), kf.abs(), dof.abs()
+    dq = ds @ kf
+    dk = ds.transpose(-1, -2) @ qf
+    dv = p.transpose(-1, -2) @ dof
+
+    def kv_grad(x, like):
+        x = x.reshape(b, hkv, group, *x.shape[2:]).sum(2).transpose(1, 2)
+        return x if magnitude else x.to(like.dtype)
+
+    dq = dq.transpose(1, 2)
+    return (dq if magnitude else dq.to(q.dtype), kv_grad(dk, k),
+            kv_grad(dv, v))
+
+
 # ---- CUDA launch helpers ----------------------------------------------------
 
 class _RankArgs(ctypes.Structure):
@@ -153,7 +202,7 @@ class _BiasArgs(ctypes.Structure):
     _fields_ = [
         ("q", ctypes.c_void_p), ("k", ctypes.c_void_p),
         ("v", ctypes.c_void_p), ("bias", ctypes.c_void_p),
-        ("out", ctypes.c_void_p),
+        ("out", ctypes.c_void_p), ("lse", ctypes.c_void_p),
         ("q_sb", ctypes.c_int64), ("q_sl", ctypes.c_int64),
         ("q_sh", ctypes.c_int64),
         ("k_sb", ctypes.c_int64), ("k_sl", ctypes.c_int64),
@@ -168,6 +217,19 @@ class _BiasArgs(ctypes.Structure):
         ("lk", ctypes.c_int), ("head_dim", ctypes.c_int),
         ("scale_log2", ctypes.c_float),
     ]
+
+
+class _BiasBwdArgs(ctypes.Structure):
+    """Mirror of ``BiasAttnBwdArgs`` in csrc/bias_attention_bwd.cu."""
+    _fields_ = [(name, ctypes.c_void_p) for name in (
+        "q", "k", "v", "bias", "o", "dout", "lse", "delta", "dq", "dk",
+        "dv")] + [(name, ctypes.c_int64) for name in (
+            "q_sb", "q_sl", "q_sh", "k_sb", "k_sl", "k_sh", "v_sb", "v_sl",
+            "v_sh", "bias_sb", "bias_sq", "o_sb", "o_sl", "o_sh", "do_sb",
+            "do_sl", "do_sh", "dq_sb", "dq_sl", "dq_sh", "dkv_sb", "dkv_sl",
+            "dkv_sh")] + [(name, ctypes.c_int) for name in (
+                "batch", "heads", "kv_heads", "lq", "lk", "head_dim")] + [
+        ("scale", ctypes.c_float), ("scale_log2", ctypes.c_float)]
 
 
 def _check_operand(name: str, x: torch.Tensor, device: torch.device,
@@ -282,12 +344,9 @@ def flash_mha_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 flash_mha_decode.launches = 0
 
 
-def flash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-              bias: torch.Tensor) -> torch.Tensor:
-    """K3. q [B,Lq,H,D], k/v [B,Lk,Hkv,D], ``bias`` the bf16 [B, Lq, Lk]
-    of :func:`precompute_bias` -> [B,Lq,H,D]."""
-    if not q.is_cuda:
-        return bias_attention_reference(q, k, v, bias)
+def _check_bias_operands(q, k, v, bias):
+    """k/v as heads-major views [B,Hkv,Lk,D]; raises on what K3/K9 do not
+    take."""
     kh, vh = k.transpose(1, 2), v.transpose(1, 2)
     b, lq, h, d = q.shape
     hkv, lk = kh.shape[1], kh.shape[2]
@@ -296,25 +355,118 @@ def flash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         _check_operand(name, x, q.device, torch.bfloat16, (b, hkv, lk, d),
                        row_vectors=True)
     _check_operand("bias", bias, q.device, torch.bfloat16, (b, lq, lk))
+    return kh, vh
+
+
+def _bias_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  bias: torch.Tensor, with_lse: bool):
+    """K3 -> (out, lse): ``lse`` the fp32 per-row logsumexp [B, H, Lq] of
+    the biased logits when ``with_lse`` on CUDA, else None."""
+    if not q.is_cuda:
+        return bias_attention_reference(q, k, v, bias), None
+    kh, vh = _check_bias_operands(q, k, v, bias)
+    b, lq, h, d = q.shape
     out = torch.empty((b, lq, h, d), dtype=q.dtype, device=q.device)
+    lse = (torch.empty((b, h, lq), dtype=torch.float32, device=q.device)
+           if with_lse else None)
     a = _BiasArgs(
         q=q.data_ptr(), k=kh.data_ptr(), v=vh.data_ptr(),
         bias=bias.data_ptr(), out=out.data_ptr(),
+        lse=None if lse is None else lse.data_ptr(),
         q_sb=q.stride(0), q_sl=q.stride(1), q_sh=q.stride(2),
         k_sb=kh.stride(0), k_sl=kh.stride(2), k_sh=kh.stride(1),
         v_sb=vh.stride(0), v_sl=vh.stride(2), v_sh=vh.stride(1),
         bias_sb=bias.stride(0), bias_sq=bias.stride(1),
         o_sb=out.stride(0), o_sl=out.stride(1), o_sh=out.stride(2),
-        batch=b, heads=h, kv_heads=hkv, lq=lq, lk=lk, head_dim=d,
-        scale_log2=d ** -0.5 * LOG2E)
+        batch=b, heads=h, kv_heads=kh.shape[1], lq=lq, lk=kh.shape[2],
+        head_dim=d, scale_log2=d ** -0.5 * LOG2E)
     _launch("bias_attention", "vgt_bias_attention", a, q.device)
     flash_mha.launches += 1
-    return out
+    return out, lse
+
+
+class _BiasAttention(torch.autograd.Function):
+    """K3 forward (keeping the logsumexp), K9 backward. The per-layer
+    recompute of a checkpointed layer runs the forward again, alike."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias):
+        out, lse = _bias_forward(q, k, v, bias, with_lse=True)
+        ctx.save_for_backward(q, k, v, bias, out, lse)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, bias, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_mha_bwd(q, k, v, bias, out, do, lse)
+        return dq, dk, dv, None
+
+
+def flash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              bias: torch.Tensor) -> torch.Tensor:
+    """K3. q [B,Lq,H,D], k/v [B,Lk,Hkv,D], ``bias`` the bf16 [B, Lq, Lk]
+    of :func:`precompute_bias` -> [B,Lq,H,D]. Differentiable in q, k, v:
+    with grad enabled and an input that requires it, the backward is K9
+    (:func:`flash_mha_bwd`)."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _BiasAttention.apply(q, k, v, bias)
+    return _bias_forward(q, k, v, bias, with_lse=False)[0]
 
 
 flash_mha.launches = 0
 
-KERNELS = (flash_mha_decode_split, flash_mha_decode, flash_mha)
+
+def flash_mha_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  bias: torch.Tensor, o: torch.Tensor, do: torch.Tensor,
+                  lse=None):
+    """K9: (dq, dk, dv) of :func:`flash_mha` at its output ``o`` for the
+    cotangent ``do`` [B,Lq,H,D]. On CUDA ``lse`` is K3's fp32 logsumexp
+    [B, H, Lq], from which the kernel recomputes each probability; the plain
+    version (CPU tensors) recomputes the softmax over the whole row as the
+    TPU kernel does and ignores it."""
+    if not q.is_cuda:
+        return bias_attention_backward_reference(q, k, v, bias, o, do)
+    kh, vh = _check_bias_operands(q, k, v, bias)
+    b, lq, h, d = q.shape
+    hkv, lk = kh.shape[1], kh.shape[2]
+    do = do.contiguous()
+    for name, x in (("o", o), ("do", do)):
+        _check_operand(name, x, q.device, torch.bfloat16, (b, lq, h, d),
+                       row_vectors=True)
+    if lse is None:
+        raise ValueError("the K9 kernel needs K3's logsumexp (lse)")
+    _check_operand("lse", lse, q.device, torch.float32, (b, h, lq))
+    if not lse.is_contiguous():
+        raise ValueError("lse must be contiguous")
+    delta = torch.empty((b, h, lq), dtype=torch.float32, device=q.device)
+    dq = torch.empty((b, lq, h, d), dtype=q.dtype, device=q.device)
+    dk = torch.empty((b, lk, hkv, d), dtype=k.dtype, device=q.device)
+    dv = torch.empty((b, lk, hkv, d), dtype=v.dtype, device=q.device)
+    a = _BiasBwdArgs(
+        q=q.data_ptr(), k=kh.data_ptr(), v=vh.data_ptr(),
+        bias=bias.data_ptr(), o=o.data_ptr(), dout=do.data_ptr(),
+        lse=lse.data_ptr(), delta=delta.data_ptr(), dq=dq.data_ptr(),
+        dk=dk.data_ptr(), dv=dv.data_ptr(),
+        q_sb=q.stride(0), q_sl=q.stride(1), q_sh=q.stride(2),
+        k_sb=kh.stride(0), k_sl=kh.stride(2), k_sh=kh.stride(1),
+        v_sb=vh.stride(0), v_sl=vh.stride(2), v_sh=vh.stride(1),
+        bias_sb=bias.stride(0), bias_sq=bias.stride(1),
+        o_sb=o.stride(0), o_sl=o.stride(1), o_sh=o.stride(2),
+        do_sb=do.stride(0), do_sl=do.stride(1), do_sh=do.stride(2),
+        dq_sb=dq.stride(0), dq_sl=dq.stride(1), dq_sh=dq.stride(2),
+        dkv_sb=dk.stride(0), dkv_sl=dk.stride(1), dkv_sh=dk.stride(2),
+        batch=b, heads=h, kv_heads=hkv, lq=lq, lk=lk, head_dim=d,
+        scale=d ** -0.5, scale_log2=d ** -0.5 * LOG2E)
+    _launch("bias_attention_bwd", "vgt_bias_attention_bwd", a, q.device)
+    flash_mha_bwd.launches += 1
+    return dq, dk, dv
+
+
+flash_mha_bwd.launches = 0
+
+KERNELS = (flash_mha_decode_split, flash_mha_decode, flash_mha,
+           flash_mha_bwd)
 
 
 def reset_launch_counts() -> None:

@@ -7,6 +7,8 @@ sigma grid is a Python loop here. Semantics:
 - x1-prediction -> velocity  (pred - z) / (1 - sigma)
 - CFG: uncond + scale * (cond - uncond)
 - Euler update  z += (sigma_next - sigma) * v, integrated in fp32
+
+``add_noise_x1`` is the training loss's interpolation.
 """
 from __future__ import annotations
 
@@ -82,6 +84,14 @@ def _euler(cfg: SchedulerConfig, sigmas: np.ndarray, z: torch.Tensor,
     v = (pred - zf) / float(np.float32(1.0) - sigmas[i]) \
         if cfg.prediction_type == "x1" else pred
     return (zf + float(sigmas[i + 1] - sigmas[i]) * v).to(z.dtype)
+
+
+def add_noise_x1(x1: torch.Tensor, x0: torch.Tensor, t: torch.Tensor
+                 ) -> torch.Tensor:
+    """Rectified-flow interpolation x_t = t*x1 + (1-t)*x0 with one t per
+    leading index; t == 1 is clean."""
+    t = t.reshape((-1,) + (1,) * (x1.dim() - 1)).to(x1.dtype)
+    return t * x1 + (1.0 - t) * x0
 
 
 def _timesteps(z: torch.Tensor, sigma: np.float32) -> torch.Tensor:

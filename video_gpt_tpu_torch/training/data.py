@@ -1,0 +1,81 @@
+"""Collation: clip samples -> fixed-shape training batches.
+
+Port of ``video_gpt_tpu/training/data.py`` (without the ``uncond`` layout of
+guidance distillation, which is not ported). Every batch of one (rows,
+frames, resolution) signature has the same shapes: the sequence is padded
+to the worst-case frame-block layout and the clean-frame side to its
+largest count. The JAX package needs that for one compile; the port keeps
+it so a run's memory does not vary from step to step.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Optional, Sequence
+
+import numpy as np
+import torch
+
+from ..layout import RowSpec, build_layout
+from ..models.video_gpt import Batch
+from .loss import LossInputs
+
+
+class TrainBatch(NamedTuple):
+    inputs: LossInputs           # x1 / clean_latents None until encoded
+    pixels: torch.Tensor         # [B*F, H, W, 3] in [-1, 1]
+    noisy_sel: torch.Tensor      # [Nn] -> row-major frame index into pixels
+    clean_sel: torch.Tensor      # [Nc_max] (padded entries point at frame 0)
+    clean_valid: torch.Tensor    # [Nc_max] 1.0 for real clean frames
+
+    def to(self, device) -> "TrainBatch":
+        """Every tensor of the batch moved to ``device``."""
+        def move(x):
+            if isinstance(x, torch.Tensor):
+                return x.to(device)
+            if isinstance(x, tuple):  # the NamedTuples of the batch
+                return type(x)(*(move(y) for y in x))
+            return x
+        return move(self)
+
+
+def collate(samples: Sequence, n_img: int, cls_weight: Optional[float] = None
+            ) -> TrainBatch:
+    """``samples``: ClipSamples sharing frame count and resolution. The
+    batch is made on the host (:meth:`TrainBatch.to` moves it)."""
+    F = samples[0].pixels.shape[0]
+    B = len(samples)
+    pad_to = 2 * F * (n_img + 2)  # worst case: all but the last block doubled
+    layout = build_layout([RowSpec(tuple(s.frame_blocks), "training")
+                           for s in samples], n_img, pad_to=pad_to)
+    nn_ = layout.num_noisy_frames
+    if nn_ != B * F:
+        raise ValueError(f"{nn_} noisy frames for {B} rows of {F}")
+    nc_max = max(B * (F - 1), 1)
+    nc = layout.num_clean_frames
+
+    noisy_sel = layout.noisy_frame_row * F + layout.noisy_video_frame
+    clean_sel = np.zeros((nc_max,), np.int32)
+    clean_valid = np.zeros((nc_max,), np.float32)
+    clean_sel[:nc] = layout.clean_frame_row * F + layout.clean_video_frame
+    clean_valid[:nc] = 1.0
+    clean_gather = np.zeros((nc_max, n_img), np.int32)
+    clean_gather[:nc] = layout.clean_gather
+    layout.clean_gather = clean_gather  # fixed-shape view
+
+    def t(x):
+        return torch.from_numpy(np.ascontiguousarray(x))
+
+    frame_weights = None
+    if cls_weight is not None:
+        # up-weight the first frame of each clip
+        frame_weights = t(np.where(layout.noisy_video_frame == 0, cls_weight,
+                                   1.0).astype(np.float32))
+    inputs = LossInputs(
+        batch=Batch.from_layout(layout, "cpu"),
+        x1=None, clean_latents=None,
+        noisy_frame_row=t(layout.noisy_frame_row),
+        noisy_frame_block=t(layout.noisy_frame_block),
+        frame_weights=frame_weights)
+    pixels = np.concatenate([s.pixels for s in samples], axis=0)
+    return TrainBatch(inputs=inputs, pixels=t(pixels),
+                      noisy_sel=t(noisy_sel.astype(np.int32)),
+                      clean_sel=t(clean_sel), clean_valid=t(clean_valid))

@@ -1,0 +1,102 @@
+"""Flow-matching training loss (x1-prediction with noisy conditioning).
+
+Port of ``video_gpt_tpu/training/loss.py``:
+
+- rectified-flow interpolation x_t = t*x1 + (1-t)*x0 with target x1
+  (t == 1 is clean);
+- one timestep per frame-block, shared by the block's frames (the stage-1
+  interleaved recipe is the case of blocks of one frame);
+- conditioning frames get low noise: t_input ~ U[input_noise, 1];
+- optional first-frame weighting (``frame_weights``) and the higher-order
+  loss rescale (``order != 2``).
+
+The JAX package draws x0, the timestep table, x0c and t_input from one
+PRNG key. The port takes them as a :class:`LossDraws`, drawn from a
+``torch.Generator`` by :func:`draw_loss_noise` or built by a caller (a test
+hands both sides the same numbers).
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+
+from ..models.video_gpt import Batch
+from ..sampling.scheduler import add_noise_x1
+
+
+class LossInputs(NamedTuple):
+    """One training example of static shape (built by training/data.py from
+    a layout and the VAE-encoded frames)."""
+
+    batch: Batch
+    x1: torch.Tensor                 # [Nn, hl, wl, C] target latents
+    clean_latents: torch.Tensor      # [Nc, hl, wl, C]
+    noisy_frame_row: torch.Tensor    # [Nn] int32
+    noisy_frame_block: torch.Tensor  # [Nn] int32
+    frame_weights: Optional[torch.Tensor] = None  # [Nn] loss weights
+
+
+class LossDraws(NamedTuple):
+    """The loss's random numbers, all fp32 on the inputs' device."""
+
+    x0: torch.Tensor       # [Nn, hl, wl, C] standard normal
+    t_table: torch.Tensor  # [rows, max_blocks] uniform
+    x0c: torch.Tensor      # [Nc, hl, wl, C] standard normal
+    t_clean: torch.Tensor  # [Nc] uniform
+
+
+def draw_loss_noise(generator: torch.Generator, inputs: LossInputs,
+                    max_blocks: int) -> LossDraws:
+    """Draw :class:`LossDraws` from ``generator`` (on the inputs' device)."""
+    dev = inputs.x1.device
+    rows = inputs.batch.input_ids.shape[0]
+    nc = inputs.clean_latents.shape[0]
+    return LossDraws(
+        x0=torch.randn(inputs.x1.shape, generator=generator, device=dev),
+        t_table=torch.rand((rows, max_blocks), generator=generator,
+                           device=dev),
+        x0c=torch.randn(inputs.clean_latents.shape, generator=generator,
+                        device=dev),
+        t_clean=torch.rand((nc,), generator=generator, device=dev))
+
+
+def sample_block_timesteps(t_table: torch.Tensor, frame_row: torch.Tensor,
+                           frame_block: torch.Tensor) -> torch.Tensor:
+    """One t per (row, block) from the drawn table, gathered per frame:
+    frames of the same block share their timestep."""
+    return t_table[frame_row.long(), frame_block.long()]
+
+
+def training_loss(model, inputs: LossInputs, draws: LossDraws,
+                  input_noise: float = 0.9, order: int = 2):
+    """(scalar loss, aux dict with the per-frame losses) of ``model`` on
+    ``inputs`` with the random numbers ``draws``. The forward runs under
+    the caller's autocast; the loss is taken in fp32."""
+    x1, clean = inputs.x1, inputs.clean_latents
+    x0 = draws.x0.to(x1.dtype)
+    t = sample_block_timesteps(draws.t_table, inputs.noisy_frame_row,
+                               inputs.noisy_frame_block)
+    xt = add_noise_x1(x1, x0, t)
+    if clean.shape[0] > 0:
+        t_in = input_noise + (1.0 - input_noise) * draws.t_clean
+        clean_in = add_noise_x1(clean, draws.x0c.to(clean.dtype), t_in)
+    else:
+        clean_in = clean
+
+    pred = model(inputs.batch, xt, t, clean_in)
+
+    diff = x1.float() - pred.float()
+    err = (diff ** order).reshape(diff.shape[0], -1)
+    per_frame = err.mean(-1)  # [Nn]
+    if order != 2:
+        # rescale each frame's higher-order loss to the squared loss's
+        # magnitude, the scale detached: mean(err2_i) / mean(err_order_i)
+        per_frame2 = (diff ** 2).reshape(diff.shape[0], -1).mean(-1)
+        scale = (per_frame2 / torch.where(per_frame == 0.0,
+                                          torch.ones_like(per_frame),
+                                          per_frame)).detach()
+        per_frame = scale * per_frame
+    if inputs.frame_weights is not None:
+        per_frame = per_frame * inputs.frame_weights
+    return per_frame.mean(), {"per_frame_loss": per_frame}

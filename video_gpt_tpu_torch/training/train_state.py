@@ -1,0 +1,242 @@
+"""Optimizer, schedules, EMA and the train step.
+
+Port of ``video_gpt_tpu/training/train_state.py``. The JAX package chains
+``optax.clip_by_global_norm`` and ``optax.adamw`` (wrapped in
+``optax.MultiSteps`` under gradient accumulation); :class:`AdamW` computes
+the same formulas:
+
+- clip: g * max_norm / ||g|| when ||g|| >= max_norm (no epsilon);
+- Adam moments mu = b1 mu + (1-b1) g, nu = b2 nu + (1-b2) g^2, bias
+  corrected with the optimizer's own step count, update
+  mu_hat / (sqrt(nu_hat) + eps);
+- decoupled weight decay on every parameter (norms and biases too), then
+  the scheduled learning rate of the step count before the update;
+- accumulation: the running mean of the micro-step gradients, one optimizer
+  step (and one EMA update) per ``gradient_accumulation_steps``.
+
+The JAX step returns new arrays; the port updates the parameters and the
+optimizer state in place, one tensor at a time, so the update holds no
+temporary larger than one parameter.
+"""
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import math
+from typing import Callable, Dict, List, Optional
+
+import torch
+
+from ..config import TrainConfig
+from .loss import LossDraws, LossInputs, training_loss
+
+
+def _linear(init: float, end: float, steps: int, count: int) -> float:
+    """optax.linear_schedule."""
+    if steps <= 0:
+        return init
+    frac = 1.0 - min(max(count, 0), steps) / steps
+    return (init - end) * frac + end
+
+
+def lr_schedule(cfg: TrainConfig) -> Callable[[int], float]:
+    """The learning rate of optimizer step ``count`` (0-based), the curves
+    of optax's constant, linear-warmup and warmup-cosine schedules."""
+    lr, warm = cfg.lr, cfg.lr_warmup_steps
+    if cfg.lr_scheduler == "constant":
+        return lambda count: lr
+    if cfg.lr_scheduler == "constant_with_warmup":
+        return lambda count: (_linear(0.0, lr, warm, count) if count < warm
+                              else lr)
+    if cfg.lr_scheduler == "cosine":
+        # decays over the run's step budget (Trainer.run binds
+        # cfg.max_steps); any other horizon mis-shapes the schedule
+        if not cfg.max_steps:
+            raise ValueError(
+                "lr_scheduler='cosine' needs TrainConfig.max_steps (the "
+                "decay horizon); Trainer.run sets it from its max_steps "
+                "argument")
+        decay = max(cfg.max_steps, warm + 1) - warm
+
+        def cosine(count: int) -> float:
+            if count < warm:
+                return _linear(0.0, lr, warm, count)
+            c = min(count - warm, decay)
+            return lr * 0.5 * (1.0 + math.cos(math.pi * c / decay))
+        return cosine
+    raise ValueError(cfg.lr_scheduler)
+
+
+def global_norm(tensors) -> torch.Tensor:
+    """sqrt of the sum of squares of every element, an fp32 device scalar."""
+    return torch.linalg.vector_norm(torch.stack(
+        [torch.linalg.vector_norm(t.float()) for t in tensors]))
+
+
+class AdamW:
+    """Clip by global norm, then AdamW with optax's formulas, over
+    ``params`` (updated in place from their ``.grad``)."""
+
+    def __init__(self, params, cfg: TrainConfig):
+        self.params: List[torch.Tensor] = list(params)
+        self.cfg = cfg
+        self.schedule = lr_schedule(cfg)
+        self.count = 0       # optimizer steps taken (optax's Adam count)
+        self.mini_step = 0   # micro-steps into the accumulation cycle
+        self.mu = [torch.zeros_like(p) for p in self.params]
+        self.nu = [torch.zeros_like(p) for p in self.params]
+        self.acc = ([torch.zeros_like(p) for p in self.params]
+                    if cfg.gradient_accumulation_steps > 1 else None)
+
+    def _grads(self) -> List[torch.Tensor]:
+        for p in self.params:
+            if p.grad is None:  # unused this step: optax sees zeros
+                p.grad = torch.zeros_like(p)
+        return [p.grad for p in self.params]
+
+    def has_updated(self) -> bool:
+        """Whether the last :meth:`step` changed the parameters."""
+        return self.mini_step == 0 and self.count > 0
+
+    @torch.no_grad()
+    @torch.profiler.record_function("AdamW.step")
+    def step(self) -> torch.Tensor:
+        """Consume the parameters' gradients (set to None after); returns
+        this micro-step's gradient norm. Under accumulation the parameters
+        change only when the cycle completes (:meth:`has_updated`). A
+        profiler sees the clip and the update as the range "AdamW.step"."""
+        cfg = self.cfg
+        grads = self._grads()
+        norm = global_norm(grads)
+        k = cfg.gradient_accumulation_steps
+        if self.acc is not None:
+            for a, g in zip(self.acc, grads):
+                a.lerp_(g, 1.0 / (self.mini_step + 1))  # running mean
+            self.mini_step = (self.mini_step + 1) % k
+            self._clear_grads()
+            if self.mini_step != 0:
+                return norm
+            grads = self.acc
+        self._update(grads, norm if self.acc is None else global_norm(grads))
+        if self.acc is not None:
+            for a in self.acc:
+                a.zero_()
+        self._clear_grads()
+        return norm
+
+    def _update(self, grads, norm: torch.Tensor) -> None:
+        cfg = self.cfg
+        b1, b2 = cfg.adam_beta1, cfg.adam_beta2
+        clip = torch.where(norm < cfg.max_grad_norm, torch.ones_like(norm),
+                           cfg.max_grad_norm / norm)
+        lr = self.schedule(self.count)
+        self.count += 1
+        bc1, bc2 = 1.0 - b1 ** self.count, 1.0 - b2 ** self.count
+        for p, g, m, v in zip(self.params, grads, self.mu, self.nu):
+            g.mul_(clip)
+            m.mul_(b1).add_(g, alpha=1.0 - b1)
+            v.mul_(b2).addcmul_(g, g, value=1.0 - b2)
+            upd = (m / bc1).div_((v / bc2).sqrt_().add_(cfg.adam_epsilon))
+            upd.add_(p, alpha=cfg.adam_weight_decay)
+            p.add_(upd, alpha=-lr)
+
+    def _clear_grads(self) -> None:
+        for p in self.params:
+            p.grad = None
+
+    def state_dict(self) -> dict:
+        return {"count": self.count, "mini_step": self.mini_step,
+                "mu": self.mu, "nu": self.nu, "acc": self.acc}
+
+    @torch.no_grad()
+    def load_state_dict(self, sd: dict) -> None:
+        self.count, self.mini_step = int(sd["count"]), int(sd["mini_step"])
+        for name in ("mu", "nu", "acc"):
+            if getattr(self, name) is not None:
+                for dst, src in zip(getattr(self, name), sd[name]):
+                    dst.copy_(src)
+
+
+def make_optimizer(params, cfg: TrainConfig) -> AdamW:
+    return AdamW(params, cfg)
+
+
+@dataclasses.dataclass
+class TrainState:
+    """The model (its parameters), the optimizer and the EMA copies, all
+    updated in place by the train step."""
+
+    step: int
+    model: torch.nn.Module
+    optimizer: AdamW
+    ema: Optional[Dict[str, torch.Tensor]] = None
+
+    def state_dict(self) -> dict:
+        return {"step": self.step, "model": self.model.state_dict(),
+                "optimizer": self.optimizer.state_dict(), "ema": self.ema}
+
+    @torch.no_grad()
+    def load_state_dict(self, sd: dict) -> None:
+        self.step = int(sd["step"])
+        self.model.load_state_dict(sd["model"], strict=True)
+        self.optimizer.load_state_dict(sd["optimizer"])
+        if self.ema is not None:
+            for name, t in self.ema.items():
+                t.copy_(sd["ema"][name])
+
+
+def init_train_state(model: torch.nn.Module, cfg: TrainConfig) -> TrainState:
+    ema = None
+    if cfg.use_ema:
+        ema = {n: p.detach().clone() for n, p in model.named_parameters()}
+    return TrainState(step=0, model=model,
+                      optimizer=make_optimizer(model.parameters(), cfg),
+                      ema=ema)
+
+
+@torch.no_grad()
+def ema_update(ema: Dict[str, torch.Tensor], model: torch.nn.Module,
+               decay: float) -> None:
+    """ema = ema * decay + params * (1 - decay), in place."""
+    for name, p in model.named_parameters():
+        e = ema[name]
+        e.mul_(decay).add_(p.to(e.dtype), alpha=1.0 - decay)
+
+
+def ema_update_gated(ema, model, cfg: TrainConfig, optimizer: AdamW) -> None:
+    """The EMA update, applied only when the optimizer stepped: under
+    gradient accumulation the EMA decays once per completed cycle, not once
+    per micro-step."""
+    if optimizer.has_updated():
+        ema_update(ema, model, cfg.ema_decay)
+
+
+def autocast(cfg: TrainConfig, device: torch.device):
+    """bf16 compute over fp32 parameters under ``mixed_precision='bf16'``.
+    No cache of cast weights: with per-layer recompute it would hold a bf16
+    copy of every layer's weights through the whole step."""
+    if cfg.mixed_precision == "bf16":
+        return torch.autocast(device.type, dtype=torch.bfloat16,
+                              cache_enabled=False)
+    return contextlib.nullcontext()
+
+
+def make_train_step(model: torch.nn.Module, cfg: TrainConfig) -> Callable:
+    """``step(state, inputs, draws) -> metrics``: loss, backward, clip,
+    AdamW and the gated EMA, in place on ``state``. Metrics are device
+    tensors (reading them waits for the device)."""
+
+    def step(state: TrainState, inputs: LossInputs, draws: LossDraws):
+        device = inputs.x1.device
+        with autocast(cfg, device):
+            loss, aux = training_loss(model, inputs, draws,
+                                      input_noise=cfg.input_noise)
+        loss.backward()
+        grad_norm = state.optimizer.step()
+        if state.ema is not None:
+            ema_update_gated(state.ema, model, cfg, state.optimizer)
+        state.step += 1
+        return {"loss": loss.detach(), "grad_norm": grad_norm,
+                "per_frame_loss": aux["per_frame_loss"].detach()}
+
+    return step

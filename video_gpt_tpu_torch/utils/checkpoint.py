@@ -1,0 +1,107 @@
+"""Checkpoints with auto-resume, in torch's own format.
+
+The surface of ``video_gpt_tpu/utils/checkpoint.py`` (``latest_step``,
+``restore_checkpoint``, ``CheckpointWriter``) without orbax: a checkpoint
+is ``<directory>/<step>/state.pt``, the ``torch.save`` of the train state's
+``state_dict()`` (step, model, optimizer, EMA). Saves are asynchronous: the
+state is copied to the host before ``save`` returns, so training may go on
+changing it, and the file is written on a background thread.
+"""
+from __future__ import annotations
+
+import os
+import re
+import shutil
+import threading
+from typing import Any, Optional, Tuple
+
+import torch
+
+_FILE = "state.pt"
+
+
+def _to_host(obj):
+    if isinstance(obj, torch.Tensor):
+        return obj.detach().to("cpu", copy=True)
+    if isinstance(obj, dict):
+        return {k: _to_host(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_to_host(v) for v in obj)
+    return obj
+
+
+def _steps(directory: str):
+    if not os.path.isdir(directory):
+        return []
+    return sorted(int(n) for n in os.listdir(directory)
+                  if re.fullmatch(r"\d+", n)
+                  and os.path.exists(os.path.join(directory, n, _FILE)))
+
+
+def latest_step(directory: str) -> Optional[int]:
+    steps = _steps(directory)
+    return steps[-1] if steps else None
+
+
+def _write(directory: str, step: int, host_state, keep: int) -> None:
+    path = os.path.join(directory, str(step))
+    os.makedirs(path, exist_ok=True)
+    tmp = os.path.join(path, _FILE + ".tmp")
+    torch.save(host_state, tmp)
+    os.replace(tmp, os.path.join(path, _FILE))
+    for old in _steps(directory)[:-keep]:
+        shutil.rmtree(os.path.join(directory, str(old)), ignore_errors=True)
+
+
+class CheckpointWriter:
+    """Saves on a background thread, at most one in flight; ``close()`` (or
+    the context manager) waits for the last one."""
+
+    def __init__(self, directory: str, keep: int = 5):
+        self.directory = directory
+        self.keep = keep
+        self._thread: Optional[threading.Thread] = None
+        self._error: Optional[Exception] = None
+
+    def save(self, step: int, state: Any) -> None:
+        self.wait()
+        host = _to_host(state.state_dict())
+
+        def run():
+            try:
+                _write(self.directory, step, host, self.keep)
+            except Exception as e:  # raised again by wait()
+                self._error = e
+
+        self._thread = threading.Thread(target=run, daemon=True)
+        self._thread.start()
+
+    def wait(self) -> None:
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+        if self._error is not None:
+            err, self._error = self._error, None
+            raise err
+
+    def close(self) -> None:
+        self.wait()
+
+    def __enter__(self) -> "CheckpointWriter":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+
+def restore_checkpoint(directory: str, state_like: Any,
+                       step: Optional[int] = None) -> Tuple[Any, int]:
+    """Load the checkpoint of ``step`` (the latest by default) into
+    ``state_like`` in place; returns (state_like, step)."""
+    step = latest_step(directory) if step is None else step
+    if step is None:
+        raise FileNotFoundError(f"no checkpoints under {directory}")
+    sd = torch.load(os.path.join(directory, str(step), _FILE),
+                    map_location="cpu", weights_only=True)
+    state_like.load_state_dict(sd)
+    return state_like, step
