@@ -11,9 +11,11 @@ Phases, in order; any failure exits nonzero and none is caught:
    plain PyTorch version computed in fp32 from the same bf16 inputs (bar
    per element: its bf16 rounding bound, see ``KERNEL_ATOL``), timed with
    CUDA events beside the plain version and ``scaled_dot_product_attention``
-   as the library yardstick. K1-K3 at the serving flagship (176x320
-   frames, 8 clean + 16 generated, 32 heads of 96); K3 again and K9 (its
-   backward) at the stage-1 training shape (16 frames, L 7104);
+   as the library yardstick (as many launches as fit 2 s). K1-K3 at the
+   serving flagship (176x320 frames, 8 clean + 16 generated, 32 heads of
+   96); K3 again and K9 (its backward) at the stage-1 training shape (16
+   frames, L 7104); K6 and K7 (its backward) at the stage-4 shape (80
+   frames, L 35520), and K6's kernel at the stage-1 shape as K8;
 4. small-input serving reference: ``generate`` on a tiny model (head_dim
    96, GQA) on the card in bf16 against the same weights and noise on the
    CPU in fp32 (plain versions), two blocks so every serving kernel and the
@@ -30,25 +32,33 @@ Phases, in order; any failure exits nonzero and none is caught:
 7. serving profile: the main path once more under torch.profiler, tracing
    the device only (device time by kernel group and the largest kernels,
    the device's idle share in that run);
-8. small-input training reference: one loss and backward of a tiny model
-   (head_dim 96, GQA) on the card (bf16, kernels) against the CPU (fp32,
-   plain versions) with the same weights and random numbers: loss and
-   flattened-gradient relative errors, held to a bar of a few times the
-   CPU's own bf16-vs-fp32 error (the loss: within 2^-8);
-9. training path: the stage-1 ``Trainer`` step at full width (ModelConfig()
+8. small-input training reference, twice: one loss and backward of a tiny
+   model (head_dim 96, GQA) on the card (bf16, kernels) against the CPU
+   (fp32, plain versions) with the same weights and random numbers: loss
+   and flattened-gradient relative errors, held to a bar of a few times
+   the CPU's own bf16-vs-fp32 error (the loss: within 2^-8). First on the
+   bias route (K3/K9), then with ``precompute_bias_limit=0`` on the inline
+   route of stages 2-4 (K6/K7);
+9. stage-1 training path: the ``Trainer`` step at full width (ModelConfig()
    with fp32 parameters and AdamW state, bf16 compute, per-layer
    recompute; the SDXL-class VAE; B 1, 16 synthetic 176x320 frames, L
    7104), the serving objects freed first: one warm-up step (host-op check
-   on) and 3 timed steps, each with exactly 64 K3 and 32 K9 launches,
-   finite loss and gradient norm, a nonzero gradient into layer 0's
-   attention, and AdamW moving the parameters; then one more step under
+   on) and 3 timed steps, each with exactly 64 K3 and 32 K9 launches and
+   no other, finite loss and gradient norm, a nonzero gradient into layer
+   0's attention, and AdamW moving the parameters; then one more step under
    torch.profiler (device time by group, the optimizer's range apart);
-10. a line of kernel records, then the device line as the last line.
+10. stage-4 training path, the same at 80 frames in the frame blocks of one
+   seeded ``random_block_partition`` draw (L 35520, all 32 layers), after
+   the stage-1 trainer is freed (two 56 GiB states do not fit): one
+   warm-up step and 2 timed steps, each with exactly 64 K6 and 32 K7
+   launches and no other, then one profiled step;
+11. a line of kernel records, then the device line as the last line.
 
-The training phase uses the stage-1 recipe of ``configs/pretrain_stage1.sh``
-(betas 0.9/0.95, weight decay 0.1, eps 1e-5, clip 1.0) with a constant
-learning rate of 1e-4: the recipe's 320000-step linear warmup gives a
-learning rate of 0 at step 0, which would leave the parameters unmoved.
+The training phases use the recipes of ``configs/pretrain_stage1.sh`` and
+``configs/pretrain_stage4.sh`` (betas 0.9/0.95, weight decay 0.1, eps 1e-5,
+clip 1.0) with a constant learning rate of 1e-4: the recipes' 320000-step
+linear warmup gives a learning rate of 0 at step 0, which would leave the
+parameters unmoved. About 6 minutes on one H100.
 
 It needs a CUDA device and exits nonzero without one. It imports nothing of
 JAX.
@@ -57,6 +67,7 @@ from __future__ import annotations
 
 import gc
 import json
+import random
 import subprocess
 import sys
 import time
@@ -69,7 +80,8 @@ from torch.utils._pytree import tree_leaves
 
 from video_gpt_tpu_torch.config import ModelConfig, stage_config
 from video_gpt_tpu_torch.data.video import (ClipSample,
-                                            preprocess_to_resolution)
+                                            preprocess_to_resolution,
+                                            random_block_partition)
 from video_gpt_tpu_torch.layout import (frame_block_inference_layout,
                                         tokens_per_frame)
 from video_gpt_tpu_torch.models.vae import VAEConfig
@@ -107,8 +119,16 @@ REF_REL_MSE_BAR = 1e-3
 # (2^-8 relative): its CPU bf16 error is one draw of a quantity that
 # averages out (1.4e-5 in one run), too small a sample to scale a bar by.
 TRAIN_REF_FLOOR_FACTOR = 4.0
-# stage-1 training (configs/pretrain_stage1.sh), learning rate constant
-TRAIN_FRAMES, TRAIN_STEPS, TRAIN_LR = 16, 3, 1e-4
+# the training paths (configs/pretrain_stage{1,4}.sh, learning rate
+# constant): stage -> (frames, timed steps, launches of each kernel per
+# layer and step). Each layer runs the forward twice (per-layer recompute).
+TRAIN_PATHS = {1: (16, 3, {"K3": 2, "K9": 1}), 4: (80, 2, {"K6": 2, "K7": 1})}
+TRAIN_LR = 1e-4
+# the seed of the stage-4 batch's random_block_partition draw
+PARTITION_SEED = 0
+# a kernel's timing runs as many launches as fit this many ms (at most 20;
+# the plain version at most 3, the library call at most 10)
+TIME_BUDGET_MS = 2000.0
 # H100 SXM data-sheet peaks (dense bf16 tensor rate, HBM3 rate)
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
@@ -137,6 +157,14 @@ def time_ms(fn, reps: int, warmup: int = 2) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def timed(fn, max_reps: int, budget_ms: float = TIME_BUDGET_MS) -> float:
+    """Mean device time of ``fn``: one launch warms up and sizes the run,
+    then as many launches as fit ``budget_ms``, at most ``max_reps``."""
+    first = time_ms(fn, reps=1, warmup=0)
+    reps = int(max(1, min(max_reps, budget_ms // max(first, 1e-3))))
+    return time_ms(fn, reps=reps, warmup=0)
 
 
 def bound(nbytes: int, flops: int):
@@ -302,6 +330,8 @@ def kernels_phase(dev):
     train = training_kernels(dev)
     out["K3"]["training_shape"] = train.pop("K3")
     out.update(train)
+    torch.cuda.empty_cache()
+    out.update(inline_kernels(dev))
     return out
 
 
@@ -339,9 +369,9 @@ def check_and_time(name: str, r: dict, label: str = "") -> dict:
              f"bar {ratio}, finite={finite}")
     del got, want, mass
     torch.cuda.empty_cache()
-    ms = time_ms(r["fn"], reps=20)
-    plain_ms = time_ms(r["plain"], reps=3, warmup=1)
-    lib_ms = time_ms(r["lib"], reps=10)
+    ms = timed(r["fn"], max_reps=20)
+    plain_ms = timed(r["plain"], max_reps=3)
+    lib_ms = timed(r["lib"], max_reps=10)
     bound_ms, bound_by = bound(r["bytes"], r["flops"])
     log(f"{name_l}: {ms:.4f} ms (plain {plain_ms:.4f}, sdpa {lib_ms:.4f}, "
         f"bound {bound_ms:.4f} by {bound_by}; "
@@ -352,13 +382,29 @@ def check_and_time(name: str, r: dict, label: str = "") -> dict:
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms)
 
 
-def stage1_batch(n_frames: int = TRAIN_FRAMES):
-    """A stage-1 training batch (B 1) on the host: ``n_frames`` synthetic
-    176x320 frames through the port's preprocessing, interleaved blocks of
-    one frame, collated as the Trainer does."""
-    pixels = preprocess_to_resolution(synthetic_frames(n_frames), H_PX, W_PX)
-    return collate([ClipSample(pixels, (1,) * n_frames)],
-                   tokens_per_frame(H_PX, W_PX))
+def train_batch(stage: int):
+    """A training batch (B 1) of ``stage`` on the host: synthetic 176x320
+    frames through the port's preprocessing, collated as the Trainer does.
+    Stage 1: 16 frames in interleaved blocks of one frame; stage 4: 80
+    frames in the frame blocks of one seeded ``random_block_partition``
+    draw."""
+    n = TRAIN_PATHS[stage][0]
+    blocks = ((1,) * n if stage == 1 else
+              random_block_partition(n, random.Random(PARTITION_SEED)))
+    pixels = preprocess_to_resolution(synthetic_frames(n), H_PX, W_PX)
+    return collate([ClipSample(pixels, blocks)], tokens_per_frame(H_PX, W_PX))
+
+
+def visible_pairs(meta: AttnMeta) -> int:
+    """The (query, key) pairs that the metadata rule makes visible (B 1),
+    counted in steps of rows as the plain inline versions walk them."""
+    L = meta.index.shape[1]
+    total = 0
+    for r0 in range(0, L, fa.INLINE_ROWS):
+        qm = meta.cols(slice(r0, min(r0 + fa.INLINE_ROWS, L)))
+        total += int(fa._padded_visibility(qm, meta, qm.index.shape[1],
+                                           L).sum())
+    return total
 
 
 def training_kernels(dev) -> dict:
@@ -367,7 +413,7 @@ def training_kernels(dev) -> dict:
     plain version computes the gradients in fp32 from the same bf16 values;
     the mass of each gradient element is the plain version's product over
     absolute values (K9 rounds p and ds to bf16 before its products)."""
-    meta = stage1_batch().inputs.batch.meta
+    meta = train_batch(1).inputs.batch.meta
     meta = AttnMeta(*(x.to(dev) for x in meta))
     bias = fa.precompute_bias(meta, meta)
     cfg = ModelConfig()
@@ -436,6 +482,121 @@ def training_kernels(dev) -> dict:
                    flops=5 * 2 * h * d * pairs)}
     return {name: check_and_time(name, r, " (stage-1 training shape)")
             for name, r in recs.items()}
+
+
+def inline_kernels(dev) -> dict:
+    """K6 and K7 at the stage-4 training shape (the metadata of a real
+    stage-4 collate layout, L 35520, 32 heads of 96), and K6's kernel at
+    the stage-1 shape (L 7104) under the name K8: the TPU's resident
+    inline kernel computes the same function, and on the card K6 serves
+    it. Random bf16 q/k/v and dO; the plain versions compute in fp32 from
+    the same values, one kv head and 4096 query rows at a time. The bound
+    counts the visible pairs from the metadata. The library yardstick is
+    ``scaled_dot_product_attention`` with the equivalent boolean mask (for
+    K7, its backward alone)."""
+    cfg = ModelConfig()
+    h, hkv, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    src = "video_gpt_tpu_torch/csrc/"
+    rng = np.random.default_rng(7)
+
+    def bf16(*shape):
+        return torch.from_numpy(rng.standard_normal(shape, np.float32)).to(
+            dev, torch.bfloat16)
+
+    def f32(*ts):
+        return [t.float() for t in ts]
+
+    def operands(stage):
+        meta = AttnMeta(*(x.to(dev) for x in
+                          train_batch(stage).inputs.batch.meta))
+        L = meta.index.shape[1]
+        # as the attention layer makes them: q, k new tensors (RoPE), v a
+        # view of the fused projection
+        q, k = bf16(1, L, h, d), bf16(1, L, hkv, d)
+        v = bf16(1, L, h + 2 * hkv, d)[:, :, h + hkv:]
+        pairs = visible_pairs(meta)
+        log(f"stage-{stage} attention: L {L}, {pairs} visible pairs "
+            f"({pairs / L ** 2:.3f} of L^2)")
+        return meta, q, k, v, pairs
+
+    def sdpa(q, k, v, meta):
+        """The library call's operands: heads-major copies of q/k/v and the
+        mask as bool."""
+        L = meta.index.shape[1]
+        mask = fa._padded_visibility(meta, meta, L, L)[:, None]
+        qh, kh, vh = (x.transpose(1, 2).contiguous().requires_grad_()
+                      for x in (q, k, v))
+        return qh, kh, vh, mask
+
+    def forward_record(meta, q, k, v, pairs, fn, replaces, with_lse):
+        qh, kh, vh, mask = sdpa(q, k, v, meta)
+
+        def plain(absv=False):
+            vf = v.float()
+            return fa.inline_attention_reference(
+                *f32(q, k), vf.abs() if absv else vf, meta, meta)[0]
+
+        def lib():
+            with torch.no_grad():
+                return F.scaled_dot_product_attention(qh, kh, vh,
+                                                      attn_mask=mask)
+
+        # read q, k, v and the metadata; write out (and lse)
+        out_bytes = nbytes(q) + (4 * h * meta.index.shape[1] if with_lse
+                                 else 0)
+        return dict(fn=fn, plain=plain, lib=lib, route="cuda",
+                    source=src + "inline_attention.cu",
+                    replaces=f"{TPU_KERNELS}:{replaces}",
+                    bytes=nbytes(q, k, v) + out_bytes + meta_bytes(meta),
+                    flops=4 * h * d * pairs)
+
+    def meta_bytes(meta):
+        return 4 * len(meta) * meta.index.shape[1]
+
+    meta, q, k, v, pairs = operands(4)
+    L = meta.index.shape[1]
+    do = bf16(1, L, h, d)
+    out, lse = fa._inline_forward(q, k, v, meta, meta, with_lse=True)
+    qh, kh, vh, mask = sdpa(q, k, v, meta)
+
+    def k7():
+        return fa.flash_mha_inline_bwd(q, k, v, meta, meta, out, do, lse)
+
+    def k7_plain(absv=False):
+        return fa.inline_attention_backward_reference(
+            *f32(q, k, v), meta, meta, *f32(out, do), magnitude=absv)
+
+    lib_out = F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask)
+    do_h = do.transpose(1, 2).contiguous()
+
+    def k7_lib():  # the backward alone of the library's attention
+        return torch.autograd.grad(lib_out, (qh, kh, vh), do_h,
+                                   retain_graph=True)
+
+    recs = {
+        # the training forward, which keeps the logsumexp
+        "K6": forward_record(meta, q, k, v, pairs, lambda: fa._inline_forward(
+            q, k, v, meta, meta, with_lse=True)[0], 1071, with_lse=True),
+        "K7": dict(fn=k7, plain=k7_plain, lib=k7_lib, route="cuda",
+                   source=src + "inline_attention_bwd.cu",
+                   replaces=f"{TPU_KERNELS}:1215,1249",
+                   # read q, k, v, o, dO, lse and the metadata; write dq,
+                   # dk, dv
+                   bytes=nbytes(q, k, v, out, do, lse, q, k, v)
+                   + meta_bytes(meta),
+                   # S, dP, dV, dQ, dK over the visible pairs
+                   flops=5 * 2 * h * d * pairs)}
+    res = {name: check_and_time(name, r, " (stage-4 training shape)")
+           for name, r in recs.items()}
+    del recs, out, lse, do, lib_out, do_h, qh, kh, vh, mask
+    torch.cuda.empty_cache()
+
+    meta, q, k, v, pairs = operands(1)
+    res["K8"] = check_and_time("K8", forward_record(
+        meta, q, k, v, pairs, lambda: fa.flash_mha_inline(q, k, v, meta, meta),
+        149, with_lse=False), " (K6's kernel at the stage-1 shape)")
+    res["K8"]["same_kernel_as"] = "K6"
+    return res
 
 
 class SeededNoise:
@@ -519,6 +680,10 @@ KERNEL_GROUPS = (  # (group, substrings of kernel names), first match wins
     ("K9 bias_attention_bwd", ("bias_attention_delta", "bias_attention_dkdv",
                                "bias_attention_dq")),
     ("K3 bias_attention", ("bias_attention",)),
+    ("K7 inline_attention_bwd", ("inline_attention_delta",
+                                 "inline_attention_dkdv",
+                                 "inline_attention_dq")),
+    ("K6 inline_attention", ("inline_attention",)),
     ("memcpy/memset", ("Memcpy", "Memset")),
     ("conv (cuDNN)", ("conv", "fprop", "cudnn", "winograd")),
     ("matmul (cuBLAS)", ("gemm", "xmma", "cutlass", "cublas", "nvjet")),
@@ -582,7 +747,9 @@ def device_groups(prof, ranges=()):
 def counts():
     return {"K1": fa.flash_mha_decode_split.launches,
             "K2": fa.flash_mha_decode.launches, "K3": fa.flash_mha.launches,
-            "K9": fa.flash_mha_bwd.launches}
+            "K9": fa.flash_mha_bwd.launches,
+            "K6": fa.flash_mha_inline.launches,
+            "K7": fa.flash_mha_inline_bwd.launches}
 
 
 def main() -> int:
@@ -652,7 +819,8 @@ def run(dev: torch.device, smi: str) -> None:
     clip_s = time.perf_counter() - t0
     launches = counts()
     nl = pipe.model.cfg.num_layers
-    want = {"K1": nl * STEPS, "K2": nl * STEPS, "K3": nl, "K9": 0}
+    want = {"K1": nl * STEPS, "K2": nl * STEPS, "K3": nl, "K9": 0, "K6": 0,
+            "K7": 0}
     log(f"main path launches {launches} (expected {want})")
     if launches != want:
         fail(f"main-path launch counts {launches} != {want}")
@@ -687,7 +855,8 @@ def run(dev: torch.device, smi: str) -> None:
     ext = counts()
     # one prefill (K3) for block 0; block 1 extends the cache through K1:
     # one extend launch per layer + 2 blocks x 2 steps of decode per layer
-    want_ext = {"K1": nl + 2 * 2 * nl, "K2": 2 * 2 * nl, "K3": nl, "K9": 0}
+    want_ext = {"K1": nl + 2 * 2 * nl, "K2": 2 * 2 * nl, "K3": nl, "K9": 0,
+                "K6": 0, "K7": 0}
     log(f"extend path: {time.perf_counter() - t0:.2f} s, launches {ext} "
         f"(expected {want_ext})")
     if ext != want_ext:
@@ -701,18 +870,37 @@ def run(dev: torch.device, smi: str) -> None:
     torch.cuda.empty_cache()
 
     train_reference_phase(dev)
-    train_counts = training_phase(dev, smi)
+    inline_ref = train_reference_phase(dev, bias_limit=0)
+    train_counts = training_phase(dev, smi, stage=1)
+    # two 56 GiB training states do not fit one card: the stage-1 trainer
+    # is gone before the stage-4 one is built
+    gc.collect()
+    torch.cuda.empty_cache()
+    left_gib = torch.cuda.memory_allocated() / 2 ** 30
+    log(f"between the training paths: {left_gib:.2f} GiB allocated")
+    if left_gib > 1.0:
+        fail(f"{left_gib:.2f} GiB still allocated after the stage-1 path")
+    stage4_counts = training_phase(dev, smi, stage=4)
 
     # launches: each kernel's count in its own path's timed run (serving:
-    # one clip; training: TRAIN_STEPS steps)
+    # one clip; training: the timed steps of its stage). K8 is K6's kernel
+    # on the route of a stage-1 recipe whose B*L^2 exceeds the bias limit:
+    # its count is the small-input reference's at precompute_bias_limit=0.
     for k, r in records.items():
-        if k == "K9":
-            r.update(launches=train_counts[k],
-                     launches_per_train_step=train_counts[k] // TRAIN_STEPS)
+        if k in ("K6", "K7"):
+            r.update(launches=stage4_counts[k], launches_per_train_step=(
+                stage4_counts[k] // TRAIN_PATHS[4][1]))
+        elif k == "K8":
+            r.update(launches=inline_ref["K6"], launches_path=(
+                "small-input stage-1 training reference at "
+                "precompute_bias_limit=0"))
+        elif k == "K9":
+            r.update(launches=train_counts[k], launches_per_train_step=(
+                train_counts[k] // TRAIN_PATHS[1][1]))
         else:
             r.update(launches=launches[k], launches_per_clip=launches[k])
     records["K3"]["launches_per_train_step"] = train_counts["K3"] \
-        // TRAIN_STEPS
+        // TRAIN_PATHS[1][1]
     log(json.dumps({"kernels": list(records.values())}))
 
 
@@ -728,15 +916,22 @@ def randomise_heads_(model, seed: int, std: float = 0.02) -> None:
             p.normal_(0.0, std, generator=gen)
 
 
-def train_reference_phase(dev) -> None:
+def train_reference_phase(dev, bias_limit=None) -> dict:
     """One loss and backward of a tiny training model on the card (bf16
     autocast over fp32 parameters, the kernels) against the same weights,
     batch and random numbers on the CPU in fp32 (plain versions). The CPU
     in bf16 gives the rounding floor the card's errors are read against:
     the flattened gradient's relative error must stay within
-    TRAIN_REF_FLOOR_FACTOR times it, the loss's within 2^-8."""
+    TRAIN_REF_FLOOR_FACTOR times it, the loss's within 2^-8. With
+    ``bias_limit=0`` no bias is precomputed, so the model runs the inline
+    route of stages 2-4 (K6, K7) instead of K3/K9. Returns the card run's
+    launch counts."""
+    limit = {} if bias_limit is None else dict(
+        precompute_bias_limit=bias_limit)
     mcfg = ModelConfig.tiny(hidden_size=192, num_heads=2, num_kv_heads=1,
-                            pos_embed_max_size=64)  # head_dim 96; GQA 2:1
+                            pos_embed_max_size=64,  # head_dim 96; GQA 2:1
+                            **limit)
+    route = ("K6", "K7") if bias_limit == 0 else ("K3", "K9")
     res, n_frames = (64, 96), 4
     rng = np.random.default_rng(11)
     frames = [rng.integers(0, 256, res + (3,), dtype=np.uint8)
@@ -796,25 +991,29 @@ def train_reference_phase(dev) -> None:
                 float((x[1] - want[1]).norm() / want[1].norm()))
 
     (l_err, g_err), (l_floor, g_floor) = errs(got), errs(floor)
-    log(f"small-input training reference: card (bf16, kernels) vs CPU "
+    log(f"small-input training reference ({'/'.join(route)} route): card "
+        f"(bf16, kernels) vs CPU "
         f"(fp32, plain): loss rel err {l_err:.3e} (CPU bf16 {l_floor:.3e}), "
         f"gradient rel err {g_err:.3e} (CPU bf16 {g_floor:.3e}); bar "
         f"{TRAIN_REF_FLOOR_FACTOR}x the CPU bf16 error, loss {BF16_U:.2e}; "
         f"loss {got[0]:.6f} "
         f"vs {want[0]:.6f}; launches {ran}")
-    if not (ran["K3"] and ran["K9"]):
-        fail(f"the small-input training run skipped a kernel: {ran}")
+    if not all(ran[k] for k in route) or any(
+            n for k, n in ran.items() if k not in route):
+        fail(f"the small-input training run left the {route} route: {ran}")
     if not (float(got[1].abs().max()) > 0 and torch.isfinite(got[1]).all()):
         fail("the small-input training gradient is zero or not finite")
     if not (l_err <= BF16_U and g_err <= TRAIN_REF_FLOOR_FACTOR * g_floor):
         fail(f"the card's training step disagrees with the CPU's: loss "
              f"{l_err}, gradient {g_err}")
+    return ran
 
 
-def training_phase(dev, smi: str) -> dict:
-    """The stage-1 training path at full width through the Trainer's own
-    step; returns the K3/K9 launch counts of the timed steps."""
-    cfg = stage_config(1, lr=TRAIN_LR, lr_scheduler="constant",
+def training_phase(dev, smi: str, stage: int) -> dict:
+    """The training path of ``stage`` at full width through the Trainer's
+    own step; returns its kernels' launch counts over the timed steps."""
+    n_frames, n_steps, per_layer = TRAIN_PATHS[stage]
+    cfg = stage_config(stage, lr=TRAIN_LR, lr_scheduler="constant",
                        adam_epsilon=1e-5)
     t0 = time.perf_counter()
     trainer = Trainer(ModelConfig(), cfg, None, vae_cfg=VAEConfig(),
@@ -827,13 +1026,14 @@ def training_phase(dev, smi: str) -> dict:
     log(f"build trainer: {time.perf_counter() - t0:.1f} s, "
         f"{n_params / 1e9:.3f}B fp32 params + AdamW state, remat "
         f"{trainer.model_cfg.remat}")
-    tb = stage1_batch().to(dev)
+    tb = train_batch(stage).to(dev)
     b, L = tb.inputs.batch.input_ids.shape
     real = int((tb.inputs.batch.meta.is_pad == 0).sum())
-    # collate pads to 2 F (n_img + 2): 7104 tokens at 176x320
-    want_l = 2 * TRAIN_FRAMES * (tokens_per_frame(H_PX, W_PX) + 2)
+    # collate pads to 2 F (n_img + 2): 7104 tokens at stage 1, 35520 at
+    # stage 4 (176x320)
+    want_l = 2 * n_frames * (tokens_per_frame(H_PX, W_PX) + 2)
     if (b, L) != (1, want_l):
-        fail(f"stage-1 batch is {b}x{L}, not 1x{want_l}")
+        fail(f"stage-{stage} batch is {b}x{L}, not 1x{want_l}")
 
     # layer 0's attention gradient, read before the optimizer consumes it
     qkv = model.llm.layers[0].self_attn.qkv_proj.weight
@@ -846,7 +1046,8 @@ def training_phase(dev, smi: str) -> dict:
     with host:
         m = trainer.train_step(state, tb, 0)
     torch.cuda.synchronize()
-    log(f"warm-up train step: {time.perf_counter() - t0:.2f} s, loss "
+    log(f"warm-up stage-{stage} train step: {time.perf_counter() - t0:.2f} s,"
+        f" loss "
         f"{float(m['loss']):.5f} (host-op check on)")
     if host.ops:
         fail(f"float ops ran on the host in the train step: "
@@ -859,8 +1060,9 @@ def training_phase(dev, smi: str) -> dict:
         "final_layer.linear.weight")}
     before = {n: p.detach().clone() for n, p in watched.items()}
     torch.cuda.reset_peak_memory_stats()
-    steps, total = [], {"K3": 0, "K9": 0}
-    for i in range(1, TRAIN_STEPS + 1):
+    want = {k: per_layer.get(k, 0) * nl for k in counts()}
+    steps, total = [], dict.fromkeys(per_layer, 0)
+    for i in range(1, n_steps + 1):
         fa.reset_launch_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -871,13 +1073,14 @@ def training_phase(dev, smi: str) -> dict:
         steps.append(dict(step_s=dt, loss=float(m["loss"]),
                           grad_norm=float(m["grad_norm"]),
                           qkv0_grad_norm=float(qkv_grads[-1]),
-                          launches={"K3": c["K3"], "K9": c["K9"]}))
-        log(f"train step {i}: {dt:.3f} s, {b * L / dt:.1f} tokens/s, "
+                          launches={k: c[k] for k in per_layer}))
+        log(f"stage-{stage} train step {i}: {dt:.3f} s, "
+            f"{b * L / dt:.1f} tokens/s, "
             f"loss {steps[-1]['loss']:.5f}, grad norm "
             f"{steps[-1]['grad_norm']:.4f}, layer-0 qkv grad norm "
             f"{steps[-1]['qkv0_grad_norm']:.3e}, launches {c}")
-        if (c["K3"], c["K9"]) != (2 * nl, nl) or c["K1"] or c["K2"]:
-            fail(f"train step launches {c} != K3 {2 * nl}, K9 {nl}")
+        if c != want:
+            fail(f"stage-{stage} train step launches {c} != {want}")
         if not all(np.isfinite([steps[-1]["loss"], steps[-1]["grad_norm"]])):
             fail(f"train step {i}: loss or gradient norm not finite")
         if not (np.isfinite(steps[-1]["qkv0_grad_norm"])
@@ -894,31 +1097,35 @@ def training_phase(dev, smi: str) -> dict:
     for n, p in watched.items():
         d = float((p.detach() - before[n]).abs().max())
         moved[n] = d
-        if not 0 < d <= 2 * TRAIN_STEPS * TRAIN_LR * (1 + float(
+        if not 0 < d <= 2 * n_steps * TRAIN_LR * (1 + float(
                 before[n].abs().max())):
             fail(f"AdamW moved {n} by {d}")
-    log(f"AdamW moved (max abs change over {TRAIN_STEPS} steps): {moved}")
+    log(f"AdamW moved (max abs change over {n_steps} steps): {moved}")
     step_s = float(np.mean([r["step_s"] for r in steps]))
     # the trunk's matmul work per step: forward, recompute, and the
     # backward's two products per weight, 2 FLOPs per weight and token each
     trunk = sum(m.weight.numel() for m in model.llm.layers.modules()
                 if isinstance(m, torch.nn.Linear))
     matmul_tflop = 8 * trunk * b * L / 1e12
-    train = dict(step_s=step_s, tokens_per_s=b * L / step_s,
+    train = dict(stage=stage, frames=n_frames, layers=nl,
+                 step_s=step_s, tokens_per_s=b * L / step_s,
                  real_tokens_per_s=real / step_s, tokens_per_step=b * L,
                  real_tokens_per_step=real, peak_mem_gib=peak_gib,
                  fp32_state_gib=16 * n_params / 2 ** 30,
                  trunk_matmul_tflop=matmul_tflop, steps=steps,
                  params=n_params, device=smi)
-    log(f"training path: {step_s:.3f} s/step, {b * L / step_s:.1f} tokens/s "
+    log(f"stage-{stage} training path: {nl} layers, L {L}, B {b}: "
+        f"{step_s:.3f} s/step, {b * L / step_s:.1f} tokens/s "
         f"({real} of {L} tokens real), peak {peak_gib:.2f} GiB, on {smi}")
     log(json.dumps({"training_path": train}))
-    profile_train_step(trainer, state, tb, step_s, matmul_tflop)
+    profile_train_step(trainer, state, tb, step_s, matmul_tflop, stage,
+                       n_steps + 1)
     return total
 
 
 def profile_train_step(trainer, state, tb, step_s: float,
-                       matmul_tflop: float) -> None:
+                       matmul_tflop: float, stage: int, step_idx: int
+                       ) -> None:
     """One more train step under torch.profiler (host and device): device
     time by kernel group, the kernels of the optimizer's range
     ("AdamW.step": clip and update) as a group of their own, and the
@@ -928,7 +1135,7 @@ def profile_train_step(trainer, state, tb, step_s: float,
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        trainer.train_step(state, tb, TRAIN_STEPS + 1)
+        trainer.train_step(state, tb, step_idx)
         torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
     groups, busy, top = device_groups(prof, ranges=("AdamW.step",))
@@ -940,7 +1147,7 @@ def profile_train_step(trainer, state, tb, step_s: float,
             "device span of the AdamW.step range)")
     matmul_ms = groups.get("matmul (cuBLAS)", 0.0)
     log(json.dumps({"train_profile": {
-        "device_ms_by_group": groups, "device_busy_ms": busy,
+        "stage": stage, "device_ms_by_group": groups, "device_busy_ms": busy,
         "wall_ms": wall_ms, "idle_share": 1.0 - busy / wall_ms,
         "unprofiled_step_ms": step_s * 1e3,
         "matmul_tflops": matmul_tflop / (matmul_ms / 1e3) if matmul_ms

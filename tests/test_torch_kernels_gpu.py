@@ -14,16 +14,25 @@ values. Bar per element, its bf16 rounding bound:
 (the plain version run on |V|). The kernels round the probabilities before
 P.V to bf16 (unit roundoff 2^-8), which moves an output by at most 2^-8
 mass, and round the output, by at most 2^-8 |want|; 1e-4 covers fp32
-summation order. For the backward (K9) the mass of each gradient element is
-the plain version's product over absolute values (|ds| |K| for dq,
-|ds|^T |Q| for dk, p^T |dO| for dv): K9 rounds ds and p to bf16 before
-those products.
+summation order. For the backward (K9, K7) the mass of each gradient element
+is the plain version's product over absolute values (|ds| |K| for dq,
+|ds|^T |Q| for dk, p^T |dO| for dv): the kernels round ds and p to bf16
+before those products.
+
+The mutation checks build a copy of ``csrc/`` with one loop cut short (K6
+without its last key tile, K7's dK/dV without its last query tile) in a
+temporary directory and show that the bar catches it (worst error / bar
+above 1, printed; run with ``-s`` to read it).
 """
+import os
+import shutil
+
 import pytest
 import torch
 
 from video_gpt_tpu_torch import layout
 from video_gpt_tpu_torch.models.video_gpt import decode_mask, extend_mask
+from video_gpt_tpu_torch.ops import _cuda
 from video_gpt_tpu_torch.ops import flash_attention as fa
 from video_gpt_tpu_torch.ops.attention import AttnMeta
 
@@ -179,6 +188,142 @@ def test_flash_mha_gradients_reach_q_k_v(dev):
         assert x.grad is not None, name
         assert float(x.grad.float().abs().max()) > 0, name
         assert _err(x.grad, wt, m) <= 1.0, name
+
+
+def _inline_operands(dev, h, hkv, blocks, n_img, requires_grad=False):
+    """q/k/v as the attention layer makes them over a training layout, and
+    its metadata (``index`` an expanded view with batch stride 0)."""
+    d = fa.KERNEL_HEAD_DIM
+    lay = layout.build_layout([layout.RowSpec(blocks, "training")], n_img)
+    meta = AttnMeta.from_layout(lay, dev)
+    qkv = _bf16(dev, 17, 1, lay.length, h + 2 * hkv, d)
+    q, k = qkv[:, :, :h].contiguous(), qkv[:, :, h:h + hkv].contiguous()
+    v = qkv[:, :, h + hkv:]
+    if requires_grad:
+        q, k, v = (x.detach().requires_grad_() for x in (q, k, v))
+    return q, k, v, meta
+
+
+def _k6_error(dev, h, hkv, blocks, n_img):
+    q, k, v, meta = _inline_operands(dev, h, hkv, blocks, n_img)
+    fa.reset_launch_counts()
+    got = fa.flash_mha_inline(q, k, v, meta, meta)
+    want, _ = fa.inline_attention_reference(q.float(), k.float(), v.float(),
+                                            meta, meta)
+    mass, _ = fa.inline_attention_reference(q.float(), k.float(),
+                                            v.float().abs(), meta, meta)
+    torch.cuda.synchronize()
+    assert fa.flash_mha_inline.launches == 1
+    return _err(got, want, mass)
+
+
+def _k7_errors(dev, h, hkv, blocks, n_img):
+    q, k, v, meta = _inline_operands(dev, h, hkv, blocks, n_img)
+    fa.reset_launch_counts()
+    out, lse = fa._inline_forward(q, k, v, meta, meta, with_lse=True)
+    do = _bf16(dev, 18, *out.shape)
+    got = fa.flash_mha_inline_bwd(q, k, v, meta, meta, out, do, lse)
+    args = [x.float() for x in (q, k, v)] + [meta, meta, out.float(),
+                                             do.float()]
+    want = fa.inline_attention_backward_reference(*args)
+    mass = fa.inline_attention_backward_reference(*args, magnitude=True)
+    torch.cuda.synchronize()
+    assert fa.flash_mha_inline.launches == 1
+    assert fa.flash_mha_inline_bwd.launches == 1
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == torch.bfloat16
+    return {name: _err(g, w, m)
+            for name, g, w, m in zip(("dq", "dk", "dv"), got, want, mass)}
+
+
+INLINE_CASES = [(4, 2, (1, 2, 1), 30), (8, 8, (2, 1, 1, 1), 17)]
+
+
+@pytest.mark.parametrize("h,hkv,blocks,n_img", INLINE_CASES)
+def test_k6_matches_plain(dev, h, hkv, blocks, n_img):
+    assert _k6_error(dev, h, hkv, blocks, n_img) <= 1.0
+
+
+def test_k6_on_the_inference_layout(dev):
+    """K6 as a prefill above the bias limit would run it: the CFG pair
+    (B 2), the noisy tail against the whole row, keys heads-major views."""
+    d = fa.KERNEL_HEAD_DIM
+    lay = layout.frame_block_inference_layout(3, 2, 30, use_cfg=True)
+    meta = AttnMeta.from_layout(lay, dev)
+    tail = lay.noisy_tail_len()
+    q = _bf16(dev, 19, lay.batch, tail, 4, d)
+    kh = _bf16(dev, 20, lay.batch, 2, lay.length, d)   # [B, Hkv, L, D]
+    vh = _bf16(dev, 21, lay.batch, 2, lay.length, d)
+    qm = meta.tail(tail)
+    got = fa.flash_mha_inline(q, kh.transpose(1, 2), vh.transpose(1, 2), qm,
+                              meta)
+    k, v = kh.transpose(1, 2).float(), vh.transpose(1, 2).float()
+    want, _ = fa.inline_attention_reference(q.float(), k, v, qm, meta)
+    mass, _ = fa.inline_attention_reference(q.float(), k, v.abs(), qm, meta)
+    assert _err(got, want, mass) <= 1.0
+
+
+@pytest.mark.parametrize("h,hkv,blocks,n_img", INLINE_CASES)
+def test_k7_matches_plain(dev, h, hkv, blocks, n_img):
+    errs = _k7_errors(dev, h, hkv, blocks, n_img)
+    assert max(errs.values()) <= 1.0, errs
+
+
+def test_flash_mha_inline_gradients_reach_q_k_v(dev):
+    """Through ``flash_mha_inline`` on CUDA, q, k and v get gradients (K7),
+    and they agree with the plain backward."""
+    q, k, v, meta = _inline_operands(dev, 4, 2, (1, 2, 1), 30,
+                                     requires_grad=True)
+    w = _bf16(dev, 22, *q.shape)
+    fa.reset_launch_counts()
+    out = fa.flash_mha_inline(q, k, v, meta, meta)
+    assert out.grad_fn is not None
+    (out.float() * w.float()).sum().backward()
+    torch.cuda.synchronize()
+    assert fa.flash_mha_inline.launches == 1
+    assert fa.flash_mha_inline_bwd.launches == 1
+    assert fa.flash_mha.launches == 0 and fa.flash_mha_bwd.launches == 0
+    args = [x.detach().float() for x in (q, k, v)] + [
+        meta, meta, out.detach().float(), w.float()]
+    want = fa.inline_attention_backward_reference(*args)
+    mass = fa.inline_attention_backward_reference(*args, magnitude=True)
+    for name, x, wt, m in zip("qkv", (q, k, v), want, mass):
+        assert x.grad is not None, name
+        assert float(x.grad.float().abs().max()) > 0, name
+        assert _err(x.grad, wt, m) <= 1.0, name
+
+
+# (source, the loop as written, the loop one tile short)
+MUTATIONS = {
+    "k6_without_last_key_tile": (
+        "inline_attention.cu",
+        "for (int k0 = 0; k0 < a.lk; k0 += kBlockK) {",
+        "for (int k0 = 0; k0 < a.lk - kBlockK; k0 += kBlockK) {"),
+    "k7_dkdv_without_last_query_tile": (
+        "inline_attention_bwd.cu",
+        "for (int q0 = 0; q0 < a.lq; q0 += kBlockQ) {",
+        "for (int q0 = 0; q0 < a.lq - kBlockQ; q0 += kBlockQ) {"),
+}
+
+
+@pytest.mark.parametrize("mutation", sorted(MUTATIONS))
+def test_inline_mutation_fails_the_bar(dev, tmp_path, monkeypatch,
+                                       mutation):
+    src, loop, short = MUTATIONS[mutation]
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_cuda.CSRC, csrc)
+    text = (csrc / src).read_text()
+    assert text.count(loop) == 1, mutation
+    (csrc / src).write_text(text.replace(loop, short))
+    libs = _cuda.build(str(csrc), os.path.join(tmp_path, "_build"))
+    monkeypatch.setattr(_cuda, "libraries", lambda: libs)
+    case = (4, 2, (1, 2, 1), 30)
+    if src == "inline_attention.cu":
+        ratio = _k6_error(dev, *case)
+    else:
+        ratio = max(_k7_errors(dev, *case).values())
+    print(f"mutation {mutation}: worst error / bar {ratio:.2f}")
+    assert ratio > 1.0
 
 
 def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):

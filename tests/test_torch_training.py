@@ -2,7 +2,8 @@
 the JAX package on the CPU.
 
 - ``collate``: every array bit-equal to the JAX collate's from the same
-  ClipSamples.
+  ClipSamples, also at stage 4's 80 frames with a ``random_block_partition``
+  draw.
 - ``training_loss`` with the JAX loss's own draws injected (the test replays
   its ``jax.random.split`` of the step key): loss and per-frame loss at
   rtol 1e-5.
@@ -13,16 +14,21 @@ the JAX package on the CPU.
   the model bar (two fp32 programs summing in other orders). JAX runs its
   dense CPU attention (``maybe_bias`` is None off the TPU); the port runs
   ``flash_mha``'s autograd Function, so plain K3 forward and plain K9
-  backward.
+  backward; at ``precompute_bias_limit=0`` it runs ``flash_mha_inline``'s,
+  so plain K6 forward and plain K7 backward (the stage-2-4 route).
 - The optimizer fed the same gradients as optax for a few steps (clip
   active; warmup, cosine and accumulation): parameters and moments within
   rtol 1e-6 (float32 rounding of the same formulas). Shared gradients, not
   full steps: Adam's sign-like first step would amplify ulp differences of
   near-zero gradients.
 - ``Trainer.run`` end to end on a tiny model from short synthetic videos
-  written with cv2, and its resume from the checkpoint.
+  written with cv2, and its resume from the checkpoint; stage chaining:
+  ``cli train --stage 4 --init_checkpoint_dir`` warm-starts from a stage-1
+  run's checkpoint with its parameters and a fresh optimizer.
 """
+import dataclasses
 import os
+import random
 
 import numpy as np
 import pytest
@@ -41,7 +47,9 @@ from video_gpt_tpu.training.data import collate as jcollate
 from video_gpt_tpu.training.train_state import make_optimizer as jmake_opt
 from video_gpt_tpu_torch.config import (ModelConfig, TrainConfig,
                                         check_train_config, stage_config)
-from video_gpt_tpu_torch.data.video import ClipSample
+from video_gpt_tpu_torch import cli
+from video_gpt_tpu_torch.data.video import ClipSample, random_block_partition
+from video_gpt_tpu_torch.ops import flash_attention as fa
 from video_gpt_tpu_torch.models.vae import VAEConfig
 from video_gpt_tpu_torch.models.video_gpt import VideoGPT
 from video_gpt_tpu_torch.training.data import collate
@@ -57,22 +65,31 @@ N_IMG = (HL // 2) * (WL // 2)
 BLOCKS = ((1, 2), (1, 1, 1))   # two rows: frame-block and interleaved
 
 
-def _pixels(seed):
+def _pixels(seed, frames=F):
     return np.random.default_rng(seed).uniform(
-        -1, 1, (F, 8 * HL, 8 * WL, 3)).astype(np.float32)
+        -1, 1, (frames, 8 * HL, 8 * WL, 3)).astype(np.float32)
 
 
-def _batches(cls_weight=None):
-    jt = jcollate([JClipSample(_pixels(i), b) for i, b in enumerate(BLOCKS)],
-                  N_IMG, cls_weight=cls_weight)
-    tt = collate([ClipSample(_pixels(i), b) for i, b in enumerate(BLOCKS)],
-                 N_IMG, cls_weight=cls_weight)
+def _batches(cls_weight=None, blocks=BLOCKS):
+    frames = sum(blocks[0])
+
+    def samples(cls):
+        return [cls(_pixels(i, frames), b) for i, b in enumerate(blocks)]
+
+    jt = jcollate(samples(JClipSample), N_IMG, cls_weight=cls_weight)
+    tt = collate(samples(ClipSample), N_IMG, cls_weight=cls_weight)
     return jt, tt
 
 
-@pytest.mark.parametrize("cls_weight", [None, 2.0])
-def test_collate_matches_jax(cls_weight):
-    jt, tt = _batches(cls_weight)
+# stage 4: one clip of 80 frames in the blocks of one seeded draw
+STAGE4_BLOCKS = (random_block_partition(80, random.Random(0)),)
+
+
+@pytest.mark.parametrize("cls_weight,blocks", [
+    pytest.param(None, BLOCKS, id="None"), pytest.param(2.0, BLOCKS, id="2.0"),
+    pytest.param(None, STAGE4_BLOCKS, id="stage4-80-frames")])
+def test_collate_matches_jax(cls_weight, blocks):
+    jt, tt = _batches(cls_weight, blocks)
     pairs = [(jt.pixels, tt.pixels), (jt.noisy_sel, tt.noisy_sel),
              (jt.clean_sel, tt.clean_sel), (jt.clean_valid, tt.clean_valid)]
     ji, ti = jt.inputs, tt.inputs
@@ -158,7 +175,7 @@ def _port_grads(params, draws, tin, **cfg):
             float(loss.detach()))
 
 
-def test_model_gradients_match_jax_grad(models):
+def _check_model_gradients(models, **cfg):
     jm, params = models
     jin, tin, key, draws = _loss_pair()
 
@@ -169,7 +186,7 @@ def test_model_gradients_match_jax_grad(models):
     jgrads = jax.grad(loss_fn)(params["params"])
     want = videogpt_state_dict_from_jax(jax.device_get(jgrads),
                                         ModelConfig.tiny(pos_embed_max_size=8))
-    got, _ = _port_grads(params, draws, tin)
+    got, _ = _port_grads(params, draws, tin, **cfg)
     assert set(got) == set(want)
     for name, g in got.items():
         assert g is not None, name
@@ -178,6 +195,38 @@ def test_model_gradients_match_jax_grad(models):
     # the trunk's first attention gets a gradient through the backward
     assert float(got["llm.layers.0.self_attn.qkv_proj.weight"].abs().max()) \
         > 0
+
+
+def test_model_gradients_match_jax_grad(models):
+    _check_model_gradients(models)
+
+
+def _count_calls(monkeypatch, *names):
+    """Count the calls of the plain versions ``names`` of
+    ``ops.flash_attention`` (the wrappers look them up at call time)."""
+    calls = dict.fromkeys(names, 0)
+    for name in names:
+        fn = getattr(fa, name)
+
+        def counted(*a, name=name, fn=fn, **kw):
+            calls[name] += 1
+            return fn(*a, **kw)
+        monkeypatch.setattr(fa, name, counted)
+    return calls
+
+
+def test_model_gradients_match_jax_grad_inline(models, monkeypatch):
+    """The same gradients on the route of stages 2-4: with no bias
+    precomputed, every layer runs ``flash_mha_inline``, whose plain
+    versions (K6 forward, K7 backward) run on the CPU."""
+    calls = _count_calls(monkeypatch, "inline_attention_reference",
+                         "inline_attention_backward_reference",
+                         "bias_attention_reference")
+    _check_model_gradients(models, precompute_bias_limit=0)
+    layers = ModelConfig.tiny().num_layers
+    assert calls == {"inline_attention_reference": layers,
+                     "inline_attention_backward_reference": layers,
+                     "bias_attention_reference": 0}
 
 
 def test_remat_gives_the_same_gradients(models):
@@ -336,3 +385,71 @@ def test_dataset_draws_match_jax(tmp_path):
                                       jds._read_clip(jds.data[vid], jrng))
         assert tds.sample(index).frame_blocks == \
             jds.sample(index).frame_blocks
+
+
+@pytest.mark.parametrize("stage", [2, 3, 4])
+def test_later_stages_train_on_the_inline_route(stage, monkeypatch):
+    """One step of each later stage's recipe (frame-block partitions, a
+    tiny model with no bias precomputed, as at their full lengths) through
+    the Trainer's own step: every layer's backward is the plain K7, the
+    loss is finite and AdamW steps once."""
+    res = (32, 48)
+    trainer = Trainer(ModelConfig.tiny(precompute_bias_limit=0),
+                      stage_config(stage, frame_num=5, lr=1e-3,
+                                   lr_scheduler="constant"),
+                      None, vae_cfg=VAEConfig.tiny(), target_resolution=res,
+                      device="cpu", seed=stage)
+    state = trainer.build()
+    blocks = random_block_partition(5, random.Random(stage))
+    pixels = np.random.default_rng(stage).uniform(
+        -1, 1, (5, *res, 3)).astype(np.float32)
+    tb = collate([ClipSample(pixels, blocks)], trainer.n_img)
+    calls = _count_calls(monkeypatch, "inline_attention_backward_reference",
+                         "bias_attention_backward_reference")
+    metrics = trainer.train_step(state, tb, 0)
+    assert np.isfinite(float(metrics["loss"]))
+    assert state.optimizer.count == 1
+    assert calls == {"inline_attention_backward_reference":
+                     trainer.model_cfg.num_layers,
+                     "bias_attention_backward_reference": 0}
+
+
+def test_warm_start_from_an_earlier_stage(tmp_path, monkeypatch):
+    """Stage chaining: ``cli train --stage 1`` for 2 steps, then a stage-4
+    trainer from its checkpoint (``--init_checkpoint_dir``) starts with
+    exactly those parameters and a fresh AdamW, and trains on the inline
+    route (no bias precomputed, as at stage 4's full length)."""
+    videos = str(tmp_path / "videos")
+    _write_videos(videos)
+    common = ["--video_dir_path", videos, "--tiny_model", "--device", "cpu",
+              "--frame_num", "4", "--target_resolution", "48", "64",
+              "--lr", "1e-3", "--lr_scheduler", "constant", "--log_every",
+              "1"]
+    cli.main(["train", "--stage", "1", "--max_steps", "2", "--ckpt_every",
+              "2", "--results_dir", str(tmp_path / "stage1"), *common])
+    ckpt_dir = tmp_path / "stage1" / "checkpoints"
+    saved = torch.load(ckpt_dir / "2" / "state.pt", weights_only=True)
+    args = cli.build_parser().parse_args([
+        "train", "--stage", "4", "--max_steps", "1", "--results_dir",
+        str(tmp_path / "stage4"), "--init_checkpoint_dir", str(ckpt_dir),
+        *common])
+    trainer = cli.make_trainer(args)
+    assert trainer.cfg.frame_block_scheme == "frame_block"
+    state = trainer.build()
+    assert state.step == 0 and state.optimizer.count == 0
+    model_sd = state.model.state_dict()
+    assert set(model_sd) == set(saved["model"])
+    for name, p in model_sd.items():
+        torch.testing.assert_close(p, saved["model"][name], rtol=0, atol=0)
+    # the stage-1 run moved its moments; the warm start does not take them
+    assert any(float(m.abs().max()) > 0 for m in saved["optimizer"]["mu"])
+    assert all(float(m.abs().max()) == 0 for m in state.optimizer.mu)
+    assert all(float(m.abs().max()) == 0 for m in state.optimizer.nu)
+
+    trainer.model_cfg = dataclasses.replace(trainer.model_cfg,
+                                            precompute_bias_limit=0)
+    calls = _count_calls(monkeypatch, "inline_attention_backward_reference")
+    end = trainer.run(1)
+    assert end.step == 1 and end.optimizer.count == 1
+    assert calls["inline_attention_backward_reference"] == \
+        trainer.model_cfg.num_layers

@@ -6,12 +6,19 @@
         --video_dir_path videos/ --results_dir results/stage1
 
 Port of the single-video path of ``video_gpt_tpu/cli.py generate`` and of
-the single-device path of its ``train`` (stage 1 runs the ported kernels;
-stages 2-4 are accepted, but at their lengths the JAX package runs the
-metadata-inline kernels, which are not ported, so the port's route there is
-untested). Runs on CUDA unless ``--device cpu``; without checkpoints the
-weights are random (a smoke run). cv2 (video decode) and PIL (PNG writes)
-are imported only where files are read and written.
+the single-device path of its ``train``: stage 1 runs the bias kernels
+(K3, K9); stages 2-4, whose sequences are too long for a precomputed bias,
+run the metadata-inline kernels (K6, K7). A later stage warm-starts from an
+earlier one's checkpoint with ``--init_checkpoint_dir`` (the parameters or
+``--init_ema``, never the optimizer state):
+
+    python -m video_gpt_tpu_torch.cli train --stage 4 \\
+        --video_dir_path videos/ --results_dir results/stage4 \\
+        --init_checkpoint_dir results/stage3/checkpoints
+
+Runs on CUDA unless ``--device cpu``; without checkpoints the weights are
+random (a smoke run). cv2 (video decode) and PIL (PNG writes) are imported
+only where files are read and written.
 """
 from __future__ import annotations
 
@@ -81,7 +88,28 @@ def cmd_generate(args):
           f"{args.save_dir}", flush=True)
 
 
-def cmd_train(args):
+def _init_state_dict(args):
+    """The initial weights of ``train``: a reference checkpoint
+    (``--model_ckpt``), else an earlier stage's checkpoint of this port
+    (``--init_checkpoint_dir``: its parameters, or its EMA with
+    ``--init_ema``; the optimizer starts fresh), else None (random)."""
+    from .utils import checkpoint as ckpt
+    from .utils.torch_import import load_reference_checkpoint
+
+    if args.model_ckpt:
+        return load_reference_checkpoint(args.model_ckpt)
+    if args.init_checkpoint_dir:
+        sd, step = ckpt.load_train_params(args.init_checkpoint_dir,
+                                          step=args.init_step,
+                                          ema=args.init_ema)
+        print(f"warm-start from {args.init_checkpoint_dir} step {step}"
+              f"{' (EMA)' if args.init_ema else ''}")
+        return sd
+    return None
+
+
+def make_trainer(args):
+    """The ``Trainer`` of a ``train`` command line (nothing built yet)."""
     from .config import ModelConfig, stage_config
     from .models.vae import VAEConfig
     from .training.trainer import Trainer
@@ -116,17 +144,20 @@ def cmd_train(args):
     model_cfg = (ModelConfig.tiny(pos_embed_max_size=192) if args.tiny_model
                  else ModelConfig())
     vae_cfg = VAEConfig.tiny() if args.tiny_model else VAEConfig()
-    trainer = Trainer(
+    return Trainer(
         model_cfg, cfg, args.video_dir_path, vae_cfg=vae_cfg,
         vae_state_dict=(load_reference_checkpoint(args.vae_ckpt)
                         if args.vae_ckpt else None),
-        init_state_dict=(load_reference_checkpoint(args.model_ckpt)
-                         if args.model_ckpt else None),
+        init_state_dict=_init_state_dict(args),
         target_resolution=tuple(args.target_resolution), device=args.device,
         seed=args.seed)
+
+
+def cmd_train(args):
+    trainer = make_trainer(args)
     steps = args.max_steps
     if args.epochs is not None:
-        rows = cfg.batch_size_per_device
+        rows = trainer.cfg.batch_size_per_device
         steps = args.epochs * max(1, len(trainer.dataset) // rows)
         print(f"--epochs {args.epochs} => {steps} steps "
               f"({len(trainer.dataset)} clips, {rows} rows/step)")
@@ -179,6 +210,16 @@ def _add_train_parser(sub) -> None:
     t.add_argument("--prefetch_depth", type=int, default=2)
     t.add_argument("--model_ckpt", type=str, default=None,
                    help="reference-format torch/safetensors initial weights")
+    t.add_argument("--init_checkpoint_dir", type=str, default=None,
+                   help="warm-start the parameters from an earlier stage's "
+                        "checkpoint directory (<results_dir>/checkpoints; "
+                        "stage chaining: the optimizer state starts fresh)")
+    t.add_argument("--init_ema", action="store_true",
+                   help="warm-start from the EMA parameters of "
+                        "--init_checkpoint_dir")
+    t.add_argument("--init_step", type=int, default=None,
+                   help="checkpoint step for --init_checkpoint_dir "
+                        "(default: latest)")
     t.add_argument("--vae_ckpt", type=str, default=None)
     t.add_argument("--tiny_model", action="store_true")
     t.add_argument("--seed", type=int, default=0)

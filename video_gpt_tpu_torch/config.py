@@ -37,8 +37,8 @@ class ModelConfig:
     # execution
     remat: bool = False  # recompute each decoder layer in the backward
     # precompute the attention bias once per forward (shared by all layers)
-    # when B*Lq*Lk is at most this many elements; beyond it the JAX package
-    # evaluates the mask in-kernel (K8/K6, not ported: attend raises on CUDA)
+    # when B*Lq*Lk is at most this many elements; beyond it the mask is
+    # evaluated in-kernel from the token metadata (K6 forward, K7 backward)
     precompute_bias_limit: int = 256_000_000
     token_ids: TokenIds = DEFAULT_TOKEN_IDS
 

@@ -1,0 +1,74 @@
+// The frame-block visibility rule of the metadata-inline attention kernels
+// (K6 inline_attention.cu, K7 inline_attention_bwd.cu), evaluated per
+// (query, key) pair from seven int32 vectors of token metadata: the TPU's
+// `_inline_visible` / `_inline_visible_t` (video_gpt_tpu/ops/
+// flash_attention.py). No [Lq, Lk] mask or bias exists anywhere: a block
+// keeps its query rows' metadata in registers (or a query tile's in shared
+// memory) and loads each key tile's metadata into shared memory beside the
+// K/V tile.
+#pragma once
+
+#include "attention_common.cuh"
+
+namespace vgt {
+
+// Query side, in the order of the `qm` pointer arrays: index, q_block,
+// q_offset, is_pad. Key side (`km`): vis_start, noisy_block, noisy_role.
+// Each vector is [B, L] with contiguous rows; its batch stride (0 for the
+// broadcast `index`) comes beside it.
+struct QueryMeta {
+  int index, block, offset, pad;
+};
+struct KeyMeta {
+  int vis_start, block, role;
+};
+
+// Clean and causal keys from vis_start on; noisy keys only within the
+// query's own frame-block, gated by role; a pad row sees every key. The
+// callers exclude keys past Lk themselves.
+__device__ __forceinline__ bool inline_visible(const QueryMeta& q,
+                                               const KeyMeta& k) {
+  return q.index >= k.vis_start ||
+         (k.block >= 0 && k.block == q.block && q.offset >= k.role) ||
+         q.pad > 0;
+}
+
+// Query row r of batch b; a row past Lq sees no key, so the tile rows that
+// are never stored compute nothing but zeros.
+__device__ __forceinline__ QueryMeta query_meta(const int* const* m,
+                                                const long long* sb, int b,
+                                                int r, int lq) {
+  if (r >= lq) return {-kNever, -2, 0, 0};
+  return {m[0][b * sb[0] + r], m[1][b * sb[1] + r], m[2][b * sb[2] + r],
+          m[3][b * sb[3] + r]};
+}
+
+// Key column c of batch b; a column past Lk is never visible to a real row.
+__device__ __forceinline__ KeyMeta key_meta(const int* const* m,
+                                            const long long* sb, int b, int c,
+                                            int lk) {
+  if (c >= lk) return {kNever, -1, 0};
+  return {m[0][b * sb[0] + c], m[1][b * sb[1] + c], m[2][b * sb[2] + c]};
+}
+
+// The metadata of the ROWS rows or columns from `start` into shared memory
+// (all threads of the block take part; the caller synchronises).
+template <int ROWS>
+__device__ __forceinline__ void load_query_meta(QueryMeta* dst,
+                                                const int* const* m,
+                                                const long long* sb, int b,
+                                                int start, int lq) {
+  for (int i = threadIdx.x; i < ROWS; i += kThreads)
+    dst[i] = query_meta(m, sb, b, start + i, lq);
+}
+
+template <int ROWS>
+__device__ __forceinline__ void load_key_meta(KeyMeta* dst,
+                                              const int* const* m,
+                                              const long long* sb, int b,
+                                              int start, int lk) {
+  for (int i = threadIdx.x; i < ROWS; i += kThreads)
+    dst[i] = key_meta(m, sb, b, start + i, lk);
+}
+
+}  // namespace vgt

@@ -58,8 +58,9 @@ def maybe_bias(cfg: ModelConfig, q_meta: AttnMeta, k_meta: AttnMeta):
     VMEM cap as well; the port does on every device, so the prefill and the
     training forward run the bias kernel's function everywhere (the kernel
     on CUDA, its plain version on the CPU). Above the limit ``attend``
-    evaluates the mask densely on the CPU and raises on CUDA (the
-    metadata-inline kernel K8 is not ported)."""
+    runs the metadata-inline kernel K6 (backward K7), which evaluates the
+    rule per tile and needs no [Lq, Lk] tensor: stages 2-4, and stage 1 at
+    B >= 6."""
     b, lq = q_meta.index.shape
     if b * lq * k_meta.vis_start.shape[1] > cfg.precompute_bias_limit:
         return None

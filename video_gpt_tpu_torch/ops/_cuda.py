@@ -20,8 +20,9 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 SOURCES = ("rank_attention.cu", "bias_attention.cu",
-           "bias_attention_bwd.cu")
-HEADERS = ("attention_common.cuh",)
+           "bias_attention_bwd.cu", "inline_attention.cu",
+           "inline_attention_bwd.cu")
+HEADERS = ("attention_common.cuh", "inline_mask.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -38,28 +39,29 @@ def _nvcc() -> str:
     return path
 
 
-def _target(src: str) -> str:
+def _target(src: str, csrc: str = CSRC, build_dir: str = BUILD_DIR) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for name in HEADERS + (src,):
-        with open(os.path.join(CSRC, name), "rb") as f:
+        with open(os.path.join(csrc, name), "rb") as f:
             h.update(f.read())
     stem = os.path.splitext(src)[0]
-    return os.path.join(BUILD_DIR, f"lib{stem}-{h.hexdigest()[:16]}.so")
+    return os.path.join(build_dir, f"lib{stem}-{h.hexdigest()[:16]}.so")
 
 
-@functools.lru_cache(maxsize=None)
-def libraries() -> Dict[str, ctypes.CDLL]:
-    """{source stem: loaded library}, building what is missing (one nvcc
-    process per source, all started together)."""
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    targets = {src: _target(src) for src in SOURCES}
+def build(csrc: str = CSRC, build_dir: str = BUILD_DIR
+          ) -> Dict[str, ctypes.CDLL]:
+    """{source stem: loaded library} of the sources in ``csrc``, building
+    what is missing into ``build_dir`` (one nvcc process per source, all
+    started together)."""
+    os.makedirs(build_dir, exist_ok=True)
+    targets = {src: _target(src, csrc, build_dir) for src in SOURCES}
     procs = {}
     for src, so in targets.items():
         if os.path.exists(so):
             continue
         tmp = f"{so}.{os.getpid()}.tmp"
         log = open(so[:-3] + ".log", "w")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, src)]
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(csrc, src)]
         procs[src] = (subprocess.Popen(cmd, stdout=log,
                                        stderr=subprocess.STDOUT), log, tmp)
     failed = []
@@ -72,17 +74,23 @@ def libraries() -> Dict[str, ctypes.CDLL]:
             os.replace(tmp, targets[src])
     if failed:
         raise RuntimeError("nvcc failed for " + ", ".join(failed) + ":\n"
-                           + build_log())
+                           + build_log(csrc, build_dir))
     return {os.path.splitext(src)[0]: ctypes.CDLL(so)
             for src, so in targets.items()}
 
 
-def build_log() -> str:
+@functools.lru_cache(maxsize=None)
+def libraries() -> Dict[str, ctypes.CDLL]:
+    """The package's own kernels (``csrc/``), built at first use."""
+    return build()
+
+
+def build_log(csrc: str = CSRC, build_dir: str = BUILD_DIR) -> str:
     """The compiler output of the current sources (``-Xptxas -v``: each
     kernel's registers, shared memory and spills)."""
     out = []
     for src in SOURCES:
-        path = _target(src)[:-3] + ".log"
+        path = _target(src, csrc, build_dir)[:-3] + ".log"
         if os.path.exists(path):
             with open(path) as f:
                 out.append(f"== {src}\n{f.read()}")

@@ -2,9 +2,9 @@
 
 Port of ``video_gpt_tpu/ops/attention.py``. :class:`AttnMeta` carries
 per-token int32 vectors, and the visibility rule is evaluated where it is
-needed: a precomputed bias or a columnar :class:`DecodeMask` feeds the
-hand-written kernels of ``ops.flash_attention``; the dense reference here is
-the CPU path and the test oracle.
+needed: a precomputed bias, a columnar :class:`DecodeMask` or the metadata
+itself feeds the hand-written kernels of ``ops.flash_attention``; the dense
+reference here is a test oracle.
 """
 from __future__ import annotations
 
@@ -100,20 +100,18 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     ``bias`` is a ``DecodeMask`` (columnar per-key rank: the decode kernel,
     K2), a precomputed bf16 bias from ``precompute_bias`` (the bias kernel,
-    K3, differentiable: its backward is K9), or None. None evaluates the
-    rule densely, which only the CPU path does: the metadata-inline kernels
-    are not ported, so on CUDA it raises.
+    K3, differentiable: its backward is K9), or None: the metadata-inline
+    kernel K6 evaluates the rule from ``q_meta``/``k_meta`` per tile
+    (differentiable: its backward is K7). Each kernel's wrapper runs its
+    plain version on CPU tensors.
     """
-    from .flash_attention import DecodeMask, flash_mha, flash_mha_decode
+    from .flash_attention import (DecodeMask, flash_mha, flash_mha_decode,
+                                  flash_mha_inline)
     if isinstance(bias, DecodeMask):
         return flash_mha_decode(q, k, v, bias)
     if bias is not None:
         return flash_mha(q, k, v, bias)
-    if q.is_cuda:
-        raise NotImplementedError(
-            "metadata-inline attention has no CUDA kernel yet: pass a "
-            "precomputed bias or a DecodeMask")
-    return mha_reference(q, k, v, attention_bias(q_meta, k_meta))
+    return flash_mha_inline(q, k, v, q_meta, k_meta)
 
 
 def attend_decode_split(q: torch.Tensor, k_cache: torch.Tensor,

@@ -2,23 +2,31 @@
 version.
 
 Port of the Pallas kernels of ``video_gpt_tpu/ops/flash_attention.py`` that
-generation and stage-1 training run (the rest are not ported yet, see
-ROADMAP.md):
+generation and training run (the rest are not ported yet, see ROADMAP.md):
 
 - K1 :func:`flash_mha_decode_split` (TPU ``_decode_split_kernel``): the
   cond-row decode step and the cache extend, over separate cache and tail
   K/V operands;
 - K2 :func:`flash_mha_decode` (TPU ``_decode_kernel``): the uncond row;
-- K3 :func:`flash_mha` (TPU ``_bias_kernel``): the prefill and the training
-  forward, with the bias of :func:`precompute_bias`;
-- K9 :func:`flash_mha_bwd` (TPU ``_bwd_kernel``): the backward of K3.
+- K3 :func:`flash_mha` (TPU ``_bias_kernel``): the prefill and the stage-1
+  training forward, with the bias of :func:`precompute_bias`;
+- K9 :func:`flash_mha_bwd` (TPU ``_bwd_kernel``): the backward of K3;
+- K6 :func:`flash_mha_inline` (TPU ``_stream_inline_kernel``, and the
+  resident ``_inline_kernel``, K8, which computes the same function): the
+  attention with the visibility rule evaluated per tile from the seven
+  int32 metadata vectors, where a precomputed bias would be too large
+  (stages 2-4, and any B*Lq*Lk above ``precompute_bias_limit``);
+- K7 :func:`flash_mha_inline_bwd` (TPU ``_stream_dq_kernel`` and
+  ``_stream_dkv_kernel``): the backward of K6.
 
 K1 and K2 are one CUDA kernel (``csrc/rank_attention.cu``); K3 is
-``csrc/bias_attention.cu``, K9 ``csrc/bias_attention_bwd.cu``. Each wrapper
-takes its plain PyTorch version (``*_reference``) for CPU tensors only; for
-CUDA tensors it launches the kernel or raises, and counts the launch in its
-``launches`` attribute. :func:`flash_mha` is differentiable: under autograd
-it runs K3 keeping the per-row logsumexp, and its backward is K9. The TPU
+``csrc/bias_attention.cu``, K9 ``csrc/bias_attention_bwd.cu``, K6
+``csrc/inline_attention.cu`` and K7 ``csrc/inline_attention_bwd.cu``. Each
+wrapper takes its plain PyTorch version (``*_reference``) for CPU tensors
+only; for CUDA tensors it launches the kernel or raises, and counts the
+launch in its ``launches`` attribute. :func:`flash_mha` and
+:func:`flash_mha_inline` are differentiable: under autograd the forward
+keeps the per-row logsumexp, and the backward is K9, resp. K7. The TPU
 layout choices are gone: no 96->128 lane pad, no 8192-key VMEM cap, no
 VMEM-tuned query blocks, and the bias is not padded.
 """
@@ -173,6 +181,105 @@ def bias_attention_backward_reference(q: torch.Tensor, k: torch.Tensor,
             kv_grad(dv, v))
 
 
+# query rows per step of the plain inline versions: at L 35520 one head's
+# fp32 [rows, Lk] scores are 0.58 GB, so a step holds a few GB, not the
+# 160 GB of a whole-row softmax over all heads
+INLINE_ROWS = 4096
+
+
+def _inline_steps(q_meta: AttnMeta, k_meta: AttnMeta, lq: int, hkv: int,
+                  group: int):
+    """(batch, kv head, its q heads, query rows, visible [rows, Lk]) for
+    each step of the plain inline versions, ``INLINE_ROWS`` rows at a time:
+    K6's rule, ``_padded_visibility`` with no padding."""
+    lk = k_meta.vis_start.shape[1]
+    for b in range(q_meta.index.shape[0]):
+        km = AttnMeta(*(x[b:b + 1] for x in k_meta))
+        for r0 in range(0, lq, INLINE_ROWS):
+            sl = slice(r0, min(r0 + INLINE_ROWS, lq))
+            qm = AttnMeta(*(x[b:b + 1, sl] for x in q_meta))
+            vis = _padded_visibility(qm, km, sl.stop - r0, lk)[0]
+            for g in range(hkv):
+                yield b, g, slice(g * group, (g + 1) * group), sl, vis
+
+
+def _inline_probs(qf: torch.Tensor, kf: torch.Tensor, vis: torch.Tensor,
+                  scale: float):
+    """(p, lse) of the rows ``qf`` [G, n, D] over the keys ``kf`` [Lk, D]:
+    the softmax over the visible keys and its logsumexp. A row that sees no
+    key gets p = 0 and lse = -inf."""
+    s = torch.where(vis, qf @ kf.T * scale,
+                    torch.tensor(float("-inf"), device=qf.device))
+    lse = torch.logsumexp(s, dim=-1, keepdim=True)
+    p = torch.where(vis, torch.exp(s - lse), torch.zeros((), device=s.device))
+    return p, lse[..., 0]
+
+
+def inline_attention_reference(q: torch.Tensor, k: torch.Tensor,
+                               v: torch.Tensor, q_meta: AttnMeta,
+                               k_meta: AttnMeta):
+    """Plain K6: softmax attention over the keys that the metadata rule
+    makes visible to each query; q [B,Lq,H,D], k/v [B,Lk,Hkv,D] ->
+    (out [B,Lq,H,D] in q's dtype, lse [B, H, Lq] fp32, the natural-log
+    logsumexp of each row's scaled logits over its visible keys). The
+    probabilities are cast to v's dtype before P.V, as the kernels do. Runs
+    one kv head's group and ``INLINE_ROWS`` query rows at a time."""
+    b, lq, h, d = q.shape
+    hkv = k.shape[2]
+    group = h // hkv
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, h, lq), dtype=torch.float32, device=q.device)
+    for bi, g, heads, sl, vis in _inline_steps(q_meta, k_meta, lq, hkv,
+                                               group):
+        qf = q[bi, sl, heads].transpose(0, 1).float()   # [G, n, D]
+        p, lse_g = _inline_probs(qf, k[bi, :, g].float(), vis, d ** -0.5)
+        o = p.to(v.dtype).float() @ v[bi, :, g].float()
+        out[bi, sl, heads] = o.transpose(0, 1).to(q.dtype)
+        lse[bi, heads, sl] = lse_g
+    return out, lse
+
+
+def inline_attention_backward_reference(q: torch.Tensor, k: torch.Tensor,
+                                        v: torch.Tensor, q_meta: AttnMeta,
+                                        k_meta: AttnMeta, o: torch.Tensor,
+                                        do: torch.Tensor,
+                                        magnitude: bool = False):
+    """Plain K7: the gradients (dq, dk, dv) of :func:`flash_mha_inline` at
+    output ``o`` for the cotangent ``do``, by the TPU kernels' math in fp32:
+    p recomputed over the whole visible key row, di = rowsum(o * do),
+    ds = p (dp - di) scale, dq = ds K, dk = ds^T Q, dv = p^T dO, the GQA
+    group's heads summed. Shapes as :func:`flash_mha_inline`; grads in the
+    inputs' dtypes. ``magnitude=True`` returns the same products over
+    absolute values, in fp32, as :func:`bias_attention_backward_reference`
+    does. Runs one kv head's group and ``INLINE_ROWS`` query rows at a
+    time."""
+    b, lq, h, d = q.shape
+    lk, hkv = k.shape[1], k.shape[2]
+    group = h // hkv
+    scale = d ** -0.5
+    dq = torch.zeros((b, lq, h, d), dtype=torch.float32, device=q.device)
+    dk = torch.zeros((b, lk, hkv, d), dtype=torch.float32, device=q.device)
+    dv = torch.zeros_like(dk)
+    for bi, g, heads, sl, vis in _inline_steps(q_meta, k_meta, lq, hkv,
+                                               group):
+        def rows_of(x):
+            return x[bi, sl, heads].transpose(0, 1).float()  # [G, n, D]
+
+        qf, of, dof = rows_of(q), rows_of(o), rows_of(do)
+        kf, vf = k[bi, :, g].float(), v[bi, :, g].float()
+        p, _ = _inline_probs(qf, kf, vis, scale)
+        di = (of * dof).sum(-1, keepdim=True)
+        ds = p * (dof @ vf.T - di) * scale
+        if magnitude:
+            ds, qf, kf, dof = ds.abs(), qf.abs(), kf.abs(), dof.abs()
+        dq[bi, sl, heads] = (ds @ kf).transpose(0, 1)
+        dk[bi, :, g] += (ds.transpose(-1, -2) @ qf).sum(0)
+        dv[bi, :, g] += (p.transpose(-1, -2) @ dof).sum(0)
+    if magnitude:
+        return dq, dk, dv
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
 # ---- CUDA launch helpers ----------------------------------------------------
 
 class _RankArgs(ctypes.Structure):
@@ -229,6 +336,39 @@ class _BiasBwdArgs(ctypes.Structure):
             "do_sl", "do_sh", "dq_sb", "dq_sl", "dq_sh", "dkv_sb", "dkv_sl",
             "dkv_sh")] + [(name, ctypes.c_int) for name in (
                 "batch", "heads", "kv_heads", "lq", "lk", "head_dim")] + [
+        ("scale", ctypes.c_float), ("scale_log2", ctypes.c_float)]
+
+
+# the metadata vectors of the inline kernels, in the order of their
+# ``qm``/``km`` pointer arrays (csrc/inline_mask.cuh)
+Q_META = ("index", "q_block", "q_offset", "is_pad")
+K_META = ("vis_start", "noisy_block", "noisy_role")
+_META_FIELDS = [("qm", ctypes.c_void_p * 4), ("km", ctypes.c_void_p * 3),
+                ("qm_sb", ctypes.c_int64 * 4), ("km_sb", ctypes.c_int64 * 3)]
+
+
+class _InlineArgs(ctypes.Structure):
+    """Mirror of ``InlineAttnArgs`` in csrc/inline_attention.cu."""
+    _fields_ = [(name, ctypes.c_void_p) for name in (
+        "q", "k", "v", "out", "lse")] + _META_FIELDS + [
+        (name, ctypes.c_int64) for name in (
+            "q_sb", "q_sl", "q_sh", "k_sb", "k_sl", "k_sh", "v_sb", "v_sl",
+            "v_sh", "o_sb", "o_sl", "o_sh")] + [
+        (name, ctypes.c_int) for name in (
+            "batch", "heads", "kv_heads", "lq", "lk", "head_dim")] + [
+        ("scale_log2", ctypes.c_float)]
+
+
+class _InlineBwdArgs(ctypes.Structure):
+    """Mirror of ``InlineAttnBwdArgs`` in csrc/inline_attention_bwd.cu."""
+    _fields_ = [(name, ctypes.c_void_p) for name in (
+        "q", "k", "v", "o", "dout", "lse", "delta", "dq", "dk",
+        "dv")] + _META_FIELDS + [(name, ctypes.c_int64) for name in (
+            "q_sb", "q_sl", "q_sh", "k_sb", "k_sl", "k_sh", "v_sb", "v_sl",
+            "v_sh", "o_sb", "o_sl", "o_sh", "do_sb", "do_sl", "do_sh",
+            "dq_sb", "dq_sl", "dq_sh", "dkv_sb", "dkv_sl", "dkv_sh")] + [
+        (name, ctypes.c_int) for name in (
+            "batch", "heads", "kv_heads", "lq", "lk", "head_dim")] + [
         ("scale", ctypes.c_float), ("scale_log2", ctypes.c_float)]
 
 
@@ -344,9 +484,9 @@ def flash_mha_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 flash_mha_decode.launches = 0
 
 
-def _check_bias_operands(q, k, v, bias):
-    """k/v as heads-major views [B,Hkv,Lk,D]; raises on what K3/K9 do not
-    take."""
+def _kv_views(q, k, v):
+    """k/v [B,Lk,Hkv,D] as heads-major views [B,Hkv,Lk,D]; raises on what
+    the kernels over a whole key row (K3, K6, K7, K9) do not take."""
     kh, vh = k.transpose(1, 2), v.transpose(1, 2)
     b, lq, h, d = q.shape
     hkv, lk = kh.shape[1], kh.shape[2]
@@ -354,7 +494,15 @@ def _check_bias_operands(q, k, v, bias):
     for name, x in (("k", kh), ("v", vh)):
         _check_operand(name, x, q.device, torch.bfloat16, (b, hkv, lk, d),
                        row_vectors=True)
-    _check_operand("bias", bias, q.device, torch.bfloat16, (b, lq, lk))
+    return kh, vh
+
+
+def _check_bias_operands(q, k, v, bias):
+    """k/v as heads-major views [B,Hkv,Lk,D]; raises on what K3/K9 do not
+    take."""
+    kh, vh = _kv_views(q, k, v)
+    _check_operand("bias", bias, q.device, torch.bfloat16,
+                   (q.shape[0], q.shape[1], kh.shape[2]))
     return kh, vh
 
 
@@ -465,8 +613,139 @@ def flash_mha_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 flash_mha_bwd.launches = 0
 
+
+# ---- K6 / K7 wrappers -------------------------------------------------------
+
+def _set_meta(a, q_meta: AttnMeta, k_meta: AttnMeta, b: int, lq: int,
+              lk: int, device: torch.device) -> None:
+    """Point the kernel arguments ``a`` at the seven metadata vectors:
+    int32 [B, L] with contiguous rows; the batch stride is passed as it is
+    (``AttnMeta.index`` is an expanded view with batch stride 0)."""
+    for i, name in enumerate(Q_META):
+        x = getattr(q_meta, name)
+        _check_operand(name, x, device, torch.int32, (b, lq))
+        a.qm[i], a.qm_sb[i] = x.data_ptr(), x.stride(0)
+    for i, name in enumerate(K_META):
+        x = getattr(k_meta, name)
+        _check_operand(name, x, device, torch.int32, (b, lk))
+        a.km[i], a.km_sb[i] = x.data_ptr(), x.stride(0)
+
+
+def _inline_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    q_meta: AttnMeta, k_meta: AttnMeta, with_lse: bool):
+    """K6 -> (out, lse): ``lse`` the fp32 per-row logsumexp [B, H, Lq] when
+    ``with_lse`` (always on the CPU, where the plain version computes it
+    anyway), else None."""
+    if not q.is_cuda:
+        return inline_attention_reference(q, k, v, q_meta, k_meta)
+    kh, vh = _kv_views(q, k, v)
+    b, lq, h, d = q.shape
+    lk = kh.shape[2]
+    out = torch.empty((b, lq, h, d), dtype=q.dtype, device=q.device)
+    lse = (torch.empty((b, h, lq), dtype=torch.float32, device=q.device)
+           if with_lse else None)
+    a = _InlineArgs(
+        q=q.data_ptr(), k=kh.data_ptr(), v=vh.data_ptr(), out=out.data_ptr(),
+        lse=None if lse is None else lse.data_ptr(),
+        q_sb=q.stride(0), q_sl=q.stride(1), q_sh=q.stride(2),
+        k_sb=kh.stride(0), k_sl=kh.stride(2), k_sh=kh.stride(1),
+        v_sb=vh.stride(0), v_sl=vh.stride(2), v_sh=vh.stride(1),
+        o_sb=out.stride(0), o_sl=out.stride(1), o_sh=out.stride(2),
+        batch=b, heads=h, kv_heads=kh.shape[1], lq=lq, lk=lk, head_dim=d,
+        scale_log2=d ** -0.5 * LOG2E)
+    _set_meta(a, q_meta, k_meta, b, lq, lk, q.device)
+    _launch("inline_attention", "vgt_inline_attention", a, q.device)
+    flash_mha_inline.launches += 1
+    return out, lse
+
+
+class _InlineAttention(torch.autograd.Function):
+    """K6 forward (keeping the logsumexp), K7 backward; the fourteen
+    metadata vectors (query side, then key side) ride as inputs without a
+    gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, *meta):
+        out, lse = _inline_forward(q, k, v, AttnMeta(*meta[:7]),
+                                   AttnMeta(*meta[7:]), with_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse, *meta)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse, *meta = ctx.saved_tensors
+        dq, dk, dv = flash_mha_inline_bwd(q, k, v, AttnMeta(*meta[:7]),
+                                          AttnMeta(*meta[7:]), out, do, lse)
+        return (dq, dk, dv) + (None,) * len(meta)
+
+
+def flash_mha_inline(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     q_meta: AttnMeta, k_meta: AttnMeta) -> torch.Tensor:
+    """K6. q [B,Lq,H,D], k/v [B,Lk,Hkv,D] (views are fine: a heads-major
+    cache passes ``cache.transpose(1, 2)``) -> [B,Lq,H,D], masked by the
+    visibility rule of ``q_meta``/``k_meta`` evaluated in the kernel: no
+    [Lq, Lk] tensor exists. Differentiable in q, k, v: with grad enabled
+    and an input that requires it, the backward is K7
+    (:func:`flash_mha_inline_bwd`)."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _InlineAttention.apply(q, k, v, *q_meta, *k_meta)
+    return _inline_forward(q, k, v, q_meta, k_meta, with_lse=False)[0]
+
+
+flash_mha_inline.launches = 0
+
+
+def flash_mha_inline_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         q_meta: AttnMeta, k_meta: AttnMeta, o: torch.Tensor,
+                         do: torch.Tensor, lse=None):
+    """K7: (dq, dk, dv) of :func:`flash_mha_inline` at its output ``o`` for
+    the cotangent ``do`` [B,Lq,H,D]. On CUDA ``lse`` is K6's fp32
+    logsumexp [B, H, Lq], from which the kernels recompute each
+    probability; the plain version (CPU tensors) recomputes the softmax
+    over the whole visible row and ignores it."""
+    if not q.is_cuda:
+        return inline_attention_backward_reference(q, k, v, q_meta, k_meta,
+                                                   o, do)
+    kh, vh = _kv_views(q, k, v)
+    b, lq, h, d = q.shape
+    hkv, lk = kh.shape[1], kh.shape[2]
+    do = do.contiguous()
+    for name, x in (("o", o), ("do", do)):
+        _check_operand(name, x, q.device, torch.bfloat16, (b, lq, h, d),
+                       row_vectors=True)
+    if lse is None:
+        raise ValueError("the K7 kernels need K6's logsumexp (lse)")
+    _check_operand("lse", lse, q.device, torch.float32, (b, h, lq))
+    if not lse.is_contiguous():
+        raise ValueError("lse must be contiguous")
+    delta = torch.empty((b, h, lq), dtype=torch.float32, device=q.device)
+    dq = torch.empty((b, lq, h, d), dtype=q.dtype, device=q.device)
+    dk = torch.empty((b, lk, hkv, d), dtype=k.dtype, device=q.device)
+    dv = torch.empty((b, lk, hkv, d), dtype=v.dtype, device=q.device)
+    a = _InlineBwdArgs(
+        q=q.data_ptr(), k=kh.data_ptr(), v=vh.data_ptr(), o=o.data_ptr(),
+        dout=do.data_ptr(), lse=lse.data_ptr(), delta=delta.data_ptr(),
+        dq=dq.data_ptr(), dk=dk.data_ptr(), dv=dv.data_ptr(),
+        q_sb=q.stride(0), q_sl=q.stride(1), q_sh=q.stride(2),
+        k_sb=kh.stride(0), k_sl=kh.stride(2), k_sh=kh.stride(1),
+        v_sb=vh.stride(0), v_sl=vh.stride(2), v_sh=vh.stride(1),
+        o_sb=o.stride(0), o_sl=o.stride(1), o_sh=o.stride(2),
+        do_sb=do.stride(0), do_sl=do.stride(1), do_sh=do.stride(2),
+        dq_sb=dq.stride(0), dq_sl=dq.stride(1), dq_sh=dq.stride(2),
+        dkv_sb=dk.stride(0), dkv_sl=dk.stride(1), dkv_sh=dk.stride(2),
+        batch=b, heads=h, kv_heads=hkv, lq=lq, lk=lk, head_dim=d,
+        scale=d ** -0.5, scale_log2=d ** -0.5 * LOG2E)
+    _set_meta(a, q_meta, k_meta, b, lq, lk, q.device)
+    _launch("inline_attention_bwd", "vgt_inline_attention_bwd", a, q.device)
+    flash_mha_inline_bwd.launches += 1
+    return dq, dk, dv
+
+
+flash_mha_inline_bwd.launches = 0
+
 KERNELS = (flash_mha_decode_split, flash_mha_decode, flash_mha,
-           flash_mha_bwd)
+           flash_mha_bwd, flash_mha_inline, flash_mha_inline_bwd)
 
 
 def reset_launch_counts() -> None:

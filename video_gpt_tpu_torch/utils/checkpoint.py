@@ -6,6 +6,8 @@ is ``<directory>/<step>/state.pt``, the ``torch.save`` of the train state's
 ``state_dict()`` (step, model, optimizer, EMA). Saves are asynchronous: the
 state is copied to the host before ``save`` returns, so training may go on
 changing it, and the file is written on a background thread.
+:func:`load_train_params` reads the parameters (or the EMA) alone, for a
+warm start from an earlier stage.
 """
 from __future__ import annotations
 
@@ -94,14 +96,34 @@ class CheckpointWriter:
         self.close()
 
 
-def restore_checkpoint(directory: str, state_like: Any,
-                       step: Optional[int] = None) -> Tuple[Any, int]:
-    """Load the checkpoint of ``step`` (the latest by default) into
-    ``state_like`` in place; returns (state_like, step)."""
+def _load(directory: str, step: Optional[int]) -> Tuple[dict, int]:
     step = latest_step(directory) if step is None else step
     if step is None:
         raise FileNotFoundError(f"no checkpoints under {directory}")
     sd = torch.load(os.path.join(directory, str(step), _FILE),
                     map_location="cpu", weights_only=True)
+    return sd, step
+
+
+def restore_checkpoint(directory: str, state_like: Any,
+                       step: Optional[int] = None) -> Tuple[Any, int]:
+    """Load the checkpoint of ``step`` (the latest by default) into
+    ``state_like`` in place; returns (state_like, step)."""
+    sd, step = _load(directory, step)
     state_like.load_state_dict(sd)
     return state_like, step
+
+
+def load_train_params(directory: str, step: Optional[int] = None,
+                      ema: bool = False) -> Tuple[dict, int]:
+    """The model parameters of the checkpoint of ``step`` (the latest by
+    default), or its EMA copy, as a state dict on the host: the warm start
+    of a later curriculum stage, which never takes the optimizer state.
+    Returns (state dict, step)."""
+    sd, step = _load(directory, step)
+    if not ema:
+        return sd["model"], step
+    if sd["ema"] is None:
+        raise ValueError(f"checkpoint {step} under {directory} has no EMA "
+                         "(trained without use_ema)")
+    return sd["ema"], step
