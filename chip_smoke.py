@@ -13,9 +13,18 @@ Phases, in order; any failure exits nonzero and none is caught:
    CUDA events beside the plain version and ``scaled_dot_product_attention``
    as the library yardstick (as many launches as fit 2 s). K1-K3 at the
    serving flagship (176x320 frames, 8 clean + 16 generated, 32 heads of
-   96); K3 again and K9 (its backward) at the stage-1 training shape (16
-   frames, L 7104); K6 and K7 (its backward) at the stage-4 shape (80
-   frames, L 35520), and K6's kernel at the stage-1 shape as K8;
+   96); the TPU's k-tiled kernels past 8192 keys as the port runs them: K4
+   as K1 at the long rollout's cond row (5,328 queries over 12,432 + 5,328
+   keys), K5 as K2 at a 40-frame uncond row (8,880^2), K10 as K3 at the
+   long rollout's prefill (12,432^2 with its bias); the overlap probe P1
+   (serial and pipelined bodies, every nsub, 132 problems of 256 x 8192 x
+   128) and its sweep at 1 problem; K3 again and K9 (its backward) at the
+   stage-1 training shape (16 frames, L 7104); K6 and K7 (its backward) at
+   the stage-4 shape (80 frames, L 35520), and K6's kernel at the stage-1
+   shape as K8; then the rollouts' other shapes: K2 over the long
+   rollout's uncond row (5,328^2), and the batched rollout's K1 (B 2, a
+   heads-major cache), K2 (B 2) and its prefill through K6 (B 2 x
+   12,432^2, the index a batch-stride-0 view);
 4. small-input serving reference: ``generate`` on a tiny model (head_dim
    96, GQA) on the card in bf16 against the same weights and noise on the
    CPU in fp32 (plain versions), two blocks so every serving kernel and the
@@ -32,33 +41,45 @@ Phases, in order; any failure exits nonzero and none is caught:
 7. serving profile: the main path once more under torch.profiler, tracing
    the device only (device time by kernel group and the largest kernels,
    the device's idle share in that run);
-8. small-input training reference, twice: one loss and backward of a tiny
+8. long rollout, the recipe of ``configs/inference.sh`` at full width: 56
+   synthetic frames, two 24-frame clips in 50 steps, an 80-frame window
+   (the second block slides and prefills again), guidance 1.5, no re-noise:
+   a warm-up at 1 step (host-op check on), then timed, with exactly 64 K3,
+   3,200 K1 and 3,200 K2 launches (of which the 64 K3 and 3,200 K1 pass
+   8192 keys: K10's and K4's function), 104 uint8 frames and finite
+   latents; then its first block once more under the profiler;
+9. batched rollout: the same recipe for 2 videos through
+   ``generate_batch`` at 10 steps: exactly 64 K6 (the B = 2 prefill is
+   above the bias limit), 640 K1 (all past 8192 keys) and 640 K2
+   launches, 2 x 104 frames; the serving objects are freed after it;
+10. small-input training reference, twice: one loss and backward of a tiny
    model (head_dim 96, GQA) on the card (bf16, kernels) against the CPU
    (fp32, plain versions) with the same weights and random numbers: loss
    and flattened-gradient relative errors, held to a bar of a few times
    the CPU's own bf16-vs-fp32 error (the loss: within 2^-8). First on the
    bias route (K3/K9), then with ``precompute_bias_limit=0`` on the inline
    route of stages 2-4 (K6/K7);
-9. stage-1 training path: the ``Trainer`` step at full width (ModelConfig()
+11. stage-1 training path: the ``Trainer`` step at full width (ModelConfig()
    with fp32 parameters and AdamW state, bf16 compute, per-layer
    recompute; the SDXL-class VAE; B 1, 16 synthetic 176x320 frames, L
-   7104), the serving objects freed first: one warm-up step (host-op check
-   on) and 3 timed steps, each with exactly 64 K3 and 32 K9 launches and
-   no other, finite loss and gradient norm, a nonzero gradient into layer
-   0's attention, and AdamW moving the parameters; then one more step under
-   torch.profiler (device time by group, the optimizer's range apart);
-10. stage-4 training path, the same at 80 frames in the frame blocks of one
+   7104): one warm-up step (host-op check on) and 3 timed steps, each with
+   exactly 64 K3 and 32 K9 launches and no other, finite loss and gradient
+   norm, a nonzero gradient into layer 0's attention, and AdamW moving the
+   parameters; then one more step under torch.profiler (device time by
+   group, the optimizer's range apart);
+12. stage-4 training path, the same at 80 frames in the frame blocks of one
    seeded ``random_block_partition`` draw (L 35520, all 32 layers), after
    the stage-1 trainer is freed (two 56 GiB states do not fit): one
    warm-up step and 2 timed steps, each with exactly 64 K6 and 32 K7
    launches and no other, then one profiled step;
-11. a line of kernel records, then the device line as the last line.
+13. a line of kernel records (K1-K10 and P1, each with its launches read
+   from the counters), then the device line as the last line.
 
 The training phases use the recipes of ``configs/pretrain_stage1.sh`` and
 ``configs/pretrain_stage4.sh`` (betas 0.9/0.95, weight decay 0.1, eps 1e-5,
 clip 1.0) with a constant learning rate of 1e-4: the recipes' 320000-step
 linear warmup gives a learning rate of 0 at step 0, which would leave the
-parameters unmoved. About 6 minutes on one H100.
+parameters unmoved. About 9 minutes on one H100.
 
 It needs a CUDA device and exits nonzero without one. It imports nothing of
 JAX.
@@ -67,6 +88,7 @@ from __future__ import annotations
 
 import gc
 import json
+import math
 import random
 import subprocess
 import sys
@@ -89,6 +111,7 @@ from video_gpt_tpu_torch.models.video_gpt import decode_mask
 from video_gpt_tpu_torch.ops import _cuda
 from video_gpt_tpu_torch.ops import flash_attention as fa
 from video_gpt_tpu_torch.ops.attention import AttnMeta
+from video_gpt_tpu_torch.probes import overlap_probe
 from video_gpt_tpu_torch.sampling.pipeline import VideoGPTPipeline
 from video_gpt_tpu_torch.training.data import collate
 from video_gpt_tpu_torch.training.loss import LossDraws, training_loss
@@ -97,6 +120,17 @@ from video_gpt_tpu_torch.training.trainer import Trainer
 
 H_PX, W_PX = 176, 320
 N_CLEAN, N_GEN, STEPS, CFG_SCALE = 8, 16, 10, 1.5
+# the long rollout of configs/inference.sh: 56 conditioning frames, two
+# 24-frame clips, an 80-frame window, 50 steps, guidance 1.5, no re-noise
+ROLLOUT_CLEAN, ROLLOUT_GEN, ROLLOUT_WINDOW, ROLLOUT_STEPS = 56, (24, 24), \
+    80, 50
+# the batched rollout: that recipe for 2 videos through generate_batch, at
+# the flagship's 10 steps (a cut in steps only, for the script's time)
+BATCH_VIDEOS, BATCH_STEPS = 2, 10
+# K5's shape: the uncond row of a 40-frame clip (Lq = Lk = 8880)
+K5_FRAMES = 40
+# the overlap probe's problems per launch: 4 blocks on each of 132 SMs
+P1_PROBLEMS = 132
 # kernel vs plain, per element (bf16 inputs; the plain version in fp32 from
 # the same values):
 #   |got - want| <= ATOL + RTOL |want| + BF16_U * mass,
@@ -178,10 +212,15 @@ def nbytes(*ts) -> int:
 
 
 def rank_pairs(rank: torch.Tensor, q_off: torch.Tensor) -> int:
-    """Visible (query, key) pairs of a columnar mask (B = 1)."""
-    ranks = rank[0].sort().values
-    return int(torch.searchsorted(ranks, q_off[0].contiguous(),
-                                  right=True).sum())
+    """Visible (query, key) pairs of a columnar mask, over its batch rows."""
+    return sum(int(torch.searchsorted(r.sort().values, o.contiguous(),
+                                      right=True).sum())
+               for r, o in zip(rank, q_off))
+
+
+def rank_visibility(mask) -> torch.Tensor:
+    """[B, 1, Lq, Lk] bool of a columnar mask: the library call's mask."""
+    return (mask.q_off[:, :, None] >= mask.rank[:, None, :])[:, None]
 
 
 class HostFloatOps(TorchDispatchMode):
@@ -214,124 +253,238 @@ class HostFloatOps(TorchDispatchMode):
         return out
 
 
-def kernels_phase(dev):
-    """Each kernel at the flagship shapes vs its plain version; returns
-    {name: record} without the launch counts."""
-    n_img = tokens_per_frame(H_PX, W_PX)
-    lay_c = frame_block_inference_layout(N_CLEAN, N_GEN, n_img, False)
-    lay_u = frame_block_inference_layout(0, N_GEN, n_img, False)
-    meta_c = AttnMeta.from_layout(lay_c, dev)
-    meta_u = AttnMeta.from_layout(lay_u, dev)
-    tail = lay_c.noisy_tail_len()
-    lc = lay_c.length - tail
-    cfg = ModelConfig()
-    h, hkv, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    rng = np.random.default_rng(0)
+def _bf16_maker(dev, seed: int):
+    """bf16 standard-normal tensors on ``dev`` from a numpy seed."""
+    rng = np.random.default_rng(seed)
 
     def bf16(*shape):
         return torch.from_numpy(rng.standard_normal(shape, np.float32)).to(
             dev, torch.bfloat16)
 
-    def f32(*ts):
-        return [t.float() for t in ts]
+    return bf16
 
-    def vals(*ts, absv):
-        # V in fp32, or |V| for the rounding bound's mass
-        return [t.float().abs() if absv else t.float() for t in ts]
 
-    recs = {}
+def f32(*ts):
+    return [t.float() for t in ts]
 
-    # K1: cond-row decode; cache heads-major, tail as views of the layer's
-    # tokens-major K/V (as Phi3Attention passes them)
-    q = bf16(1, tail, h, d)
-    kc, vc = bf16(1, hkv, lc, d), bf16(1, hkv, lc, d)
-    kt_tok, vt_tok = bf16(1, tail, hkv, d), bf16(1, tail, hkv, d)
+
+def vals(*ts, absv):
+    # V in fp32, or |V| for the rounding bound's mass
+    return [t.float().abs() if absv else t.float() for t in ts]
+
+
+def decode_split_record(dev, seed: int, meta: AttnMeta, tail: int,
+                        replaces: int) -> dict:
+    """K1 over a cond row: the noisy tail's queries against the cache
+    (heads-major) and the tail's own K/V (views of tokens-major K/V, as
+    Phi3Attention passes them), for the batch rows of ``meta``."""
+    cfg = ModelConfig()
+    h, hkv, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    bf16 = _bf16_maker(dev, seed)
+    b, lc = meta.index.shape[0], meta.index.shape[1] - tail
+    q = bf16(b, tail, h, d)
+    kc, vc = bf16(b, hkv, lc, d), bf16(b, hkv, lc, d)
+    kt_tok, vt_tok = bf16(b, tail, hkv, d), bf16(b, tail, hkv, d)
     kt, vt = kt_tok.transpose(1, 2), vt_tok.transpose(1, 2)
-    mask = decode_mask(meta_c.tail(tail), meta_c)
+    mask = decode_mask(meta.tail(tail), meta)
     rank_c, rank_t = mask.rank[:, :lc], mask.rank[:, lc:]
 
-    def k1():
+    def fn():
         return fa.flash_mha_decode_split(q, kc, vc, kt, vt, mask)
 
-    def k1_plain(absv=False):
+    def plain(absv=False):
         return fa.rank_attention_reference(
             *f32(q), f32(kc, kt), vals(vc, vt, absv=absv), (rank_c, rank_t),
             mask.q_off)
 
     kcat = torch.cat([kc, kt], 2)
     vcat = torch.cat([vc, vt], 2)
-    vis = (mask.q_off[0][:, None] >= mask.rank[0][None, :])[None, None]
+    vis = rank_visibility(mask)
     qh = q.transpose(1, 2).contiguous()
 
-    def k1_lib():
+    def lib():
         return F.scaled_dot_product_attention(qh, kcat, vcat, attn_mask=vis)
 
-    pairs = rank_pairs(mask.rank, mask.q_off)
-    recs["K1"] = dict(
-        fn=k1, plain=k1_plain, lib=k1_lib, route="cuda",
+    return dict(
+        fn=fn, plain=plain, lib=lib, route="cuda",
         source="video_gpt_tpu_torch/csrc/rank_attention.cu",
-        replaces=f"{TPU_KERNELS}:661",
+        replaces=f"{TPU_KERNELS}:{replaces}",
+        shape=f"B {b}, Lq {tail} vs {lc} cached + {tail} new keys",
         bytes=nbytes(q, kc, vc, kt, vt, mask.rank, mask.q_off, q),
-        flops=4 * h * d * pairs)
+        flops=4 * h * d * rank_pairs(mask.rank, mask.q_off))
 
-    # K2: the uncond row, tokens-major K/V of its own
-    mask_u = decode_mask(meta_u, meta_u)
-    q2 = bf16(1, lay_u.length, h, d)
-    k2k, k2v = bf16(1, lay_u.length, hkv, d), bf16(1, lay_u.length, hkv, d)
 
-    def k2():
-        return fa.flash_mha_decode(q2, k2k, k2v, mask_u)
+def decode_record(dev, seed: int, meta: AttnMeta, replaces: int) -> dict:
+    """K2 over a tail-only row (the uncond row), tokens-major K/V of its
+    own, for the batch rows of ``meta``."""
+    cfg = ModelConfig()
+    h, hkv, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    bf16 = _bf16_maker(dev, seed)
+    b, L = meta.index.shape
+    mask = decode_mask(meta, meta)
+    q, k, v = bf16(b, L, h, d), bf16(b, L, hkv, d), bf16(b, L, hkv, d)
 
-    def k2_plain(absv=False):
+    def fn():
+        return fa.flash_mha_decode(q, k, v, mask)
+
+    def plain(absv=False):
         return fa.rank_attention_reference(
-            *f32(q2), f32(k2k.transpose(1, 2)),
-            vals(k2v.transpose(1, 2), absv=absv), (mask_u.rank,),
-            mask_u.q_off)
+            *f32(q), f32(k.transpose(1, 2)),
+            vals(v.transpose(1, 2), absv=absv), (mask.rank,), mask.q_off)
 
-    vis2 = (mask_u.q_off[0][:, None] >= mask_u.rank[0][None, :])[None, None]
-    q2h, k2h, v2h = (x.transpose(1, 2).contiguous() for x in (q2, k2k, k2v))
+    vis = rank_visibility(mask)
+    qh, kh, vh = (x.transpose(1, 2).contiguous() for x in (q, k, v))
 
-    def k2_lib():
-        return F.scaled_dot_product_attention(q2h, k2h, v2h, attn_mask=vis2)
+    def lib():
+        return F.scaled_dot_product_attention(qh, kh, vh, attn_mask=vis)
 
-    recs["K2"] = dict(
-        fn=k2, plain=k2_plain, lib=k2_lib, route="cuda",
+    return dict(
+        fn=fn, plain=plain, lib=lib, route="cuda",
         source="video_gpt_tpu_torch/csrc/rank_attention.cu",
-        replaces=f"{TPU_KERNELS}:416",
-        bytes=nbytes(q2, k2k, k2v, mask_u.rank, mask_u.q_off, q2),
-        flops=4 * h * d * rank_pairs(mask_u.rank, mask_u.q_off))
+        replaces=f"{TPU_KERNELS}:{replaces}", shape=f"B {b}, Lq = Lk = {L}",
+        bytes=nbytes(q, k, v, mask.rank, mask.q_off, q),
+        flops=4 * h * d * rank_pairs(mask.rank, mask.q_off))
 
-    # K3: the prefill over the clean prefix with its precomputed bias
-    meta_p = meta_c.cols(slice(0, lc))
-    bias = fa.precompute_bias(meta_p, meta_p)
-    q3, k3k, k3v = bf16(1, lc, h, d), bf16(1, lc, hkv, d), bf16(1, lc, hkv, d)
 
-    def k3():
-        return fa.flash_mha(q3, k3k, k3v, bias)
+def bias_record(dev, seed: int, meta: AttnMeta, replaces: int) -> dict:
+    """K3 over a prefill's clean prefix with its precomputed bias."""
+    cfg = ModelConfig()
+    h, hkv, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    bf16 = _bf16_maker(dev, seed)
+    L = meta.index.shape[1]
+    bias = fa.precompute_bias(meta, meta)
+    q, k, v = bf16(1, L, h, d), bf16(1, L, hkv, d), bf16(1, L, hkv, d)
 
-    def k3_plain(absv=False):
-        return fa.bias_attention_reference(*f32(q3, k3k),
-                                           *vals(k3v, absv=absv), bias)
+    def fn():
+        return fa.flash_mha(q, k, v, bias)
 
-    q3h, k3h, v3h = (x.transpose(1, 2).contiguous() for x in (q3, k3k, k3v))
+    def plain(absv=False):
+        return fa.bias_attention_reference(*f32(q, k), *vals(v, absv=absv),
+                                           bias)
+
+    qh, kh, vh = (x.transpose(1, 2).contiguous() for x in (q, k, v))
     bias4 = bias[:, None]
 
-    def k3_lib():
-        return F.scaled_dot_product_attention(q3h, k3h, v3h, attn_mask=bias4)
+    def lib():
+        return F.scaled_dot_product_attention(qh, kh, vh, attn_mask=bias4)
 
-    recs["K3"] = dict(
-        fn=k3, plain=k3_plain, lib=k3_lib, route="cuda",
+    return dict(
+        fn=fn, plain=plain, lib=lib, route="cuda",
         source="video_gpt_tpu_torch/csrc/bias_attention.cu",
-        replaces=f"{TPU_KERNELS}:133",
-        bytes=nbytes(q3, k3k, k3v, bias, q3),
+        replaces=f"{TPU_KERNELS}:{replaces}",
+        shape=f"B 1, Lq = Lk = {L}, bf16 bias",
+        bytes=nbytes(q, k, v, bias, q),
         flops=4 * h * d * int((bias == 0).sum()))
 
-    out = {name: check_and_time(name, r) for name, r in recs.items()}
+
+def kernels_phase(dev):
+    """Each kernel at the shapes of its paths vs its plain version; returns
+    {name: record} without the launch counts."""
+    n_img = tokens_per_frame(H_PX, W_PX)
+    lay_c = frame_block_inference_layout(N_CLEAN, N_GEN, n_img, False)
+    lay_u = frame_block_inference_layout(0, N_GEN, n_img, False)
+    meta_c = AttnMeta.from_layout(lay_c, dev)
+    tail = lay_c.noisy_tail_len()
+    lc = lay_c.length - tail
+    out = {}
+    # the serving flagship: K1 in the cond-row decode, K2 in the uncond
+    # row, K3 in the prefill
+    for name, make in (
+            ("K1", lambda: decode_split_record(dev, 0, meta_c, tail, 661)),
+            ("K2", lambda: decode_record(
+                dev, 1, AttnMeta.from_layout(lay_u, dev), 416)),
+            ("K3", lambda: bias_record(dev, 2, meta_c.cols(slice(0, lc)),
+                                       133))):
+        out[name] = check_and_time(name, make())
+    out.update(long_kernels(dev))
+    out.update(probe_kernels(dev))
     train = training_kernels(dev)
     out["K3"]["training_shape"] = train.pop("K3")
     out.update(train)
     torch.cuda.empty_cache()
     out.update(inline_kernels(dev))
+    for name, key, rec in rollout_kernels(dev):
+        out[name][key] = rec
+    return out
+
+
+def long_kernels(dev) -> dict:
+    """The TPU's k-tiled kernels past 8192 keys, K4, K5 and K10, as the port
+    runs them: K1, K2 and K3 (keys stream through shared memory with no
+    length cap). K4 at the long rollout's cond row (5,328 queries against
+    12,432 cached + 5,328 new keys), K5 at the uncond row of a 40-frame
+    clip (Lq = Lk = 8,880; no path of this script makes such a clip), K10
+    at the long rollout's prefill at B = 1 (12,432^2 with its 309 MB bias).
+    The plain versions walk one kv head and 4096 query rows at a time."""
+    n_img = tokens_per_frame(H_PX, W_PX)
+    lay = frame_block_inference_layout(ROLLOUT_CLEAN, ROLLOUT_GEN[0], n_img,
+                                       False)
+    meta = AttnMeta.from_layout(lay, dev)
+    tail = lay.noisy_tail_len()
+    lay5 = frame_block_inference_layout(0, K5_FRAMES, n_img, False)
+    out = {}
+    for name, kernel, make in (
+            ("K4", "K1", lambda: decode_split_record(dev, 3, meta, tail,
+                                                     797)),
+            ("K5", "K2", lambda: decode_record(
+                dev, 4, AttnMeta.from_layout(lay5, dev), 551)),
+            ("K10", "K3", lambda: bias_record(
+                dev, 5, meta.cols(slice(0, lay.length - tail)), 929))):
+        out[name] = check_and_time(name, make(), f" ({kernel}'s kernel)")
+        out[name]["kernel"] = kernel
+        torch.cuda.empty_cache()
+    return out
+
+
+def probe_kernels(dev) -> dict:
+    """P1, the overlap probe's serial and pipelined bodies, at the probe's
+    shapes (BQ 256 queries over LK 8192 keys of D 128) for G = P1_PROBLEMS
+    problems in one launch (4 blocks on each of the 132 SMs), each against
+    the plain version; the pipelined body for every nsub (with its speedup
+    over the serial body), the record keeps nsub 4 (the serial body's
+    64-key tile). The library yardstick is ``scaled_dot_product_attention``
+    at scale ln 2: exp2(s) = exp(s ln 2), and no |s| here comes near the
+    clamp at 100. Then the probe's own sweep at G 1 (median of 20
+    launches), the TPU probe's occupancy."""
+    q, k, v = overlap_probe.probe_inputs(P1_PROBLEMS, dev)
+
+    def plain(absv=False):
+        return overlap_probe.overlap_reference(
+            q.float(), k.float(), v.float().abs() if absv else v.float())
+
+    qh, kh, vh = q[:, None], k[:, None], v[:, None]
+
+    def lib():
+        return F.scaled_dot_product_attention(qh, kh, vh, scale=math.log(2))
+
+    base = dict(plain=plain, lib=lib, route="cuda",
+                source="video_gpt_tpu_torch/csrc/overlap_probe.cu",
+                shape=f"G {P1_PROBLEMS} x (BQ {overlap_probe.BQ}, LK "
+                      f"{overlap_probe.LK}, D {overlap_probe.D})",
+                bytes=nbytes(q, k, v, q),
+                flops=4 * q.shape[0] * q.shape[1] * k.shape[1] * q.shape[2])
+    out = {"P1-serial": check_and_time("P1-serial", dict(
+        base, fn=lambda: overlap_probe.overlap_serial(q, k, v),
+        replaces="scripts/overlap_probe.py:38"))}
+    by_nsub = []
+    for nsub in overlap_probe.NSUBS:
+        r = check_and_time("P1-pipelined", dict(
+            base, fn=lambda n=nsub: overlap_probe.overlap_pipelined(q, k, v,
+                                                                    n),
+            replaces="scripts/overlap_probe.py:49"), f" (nsub {nsub})")
+        r["nsub"] = nsub
+        by_nsub.append(r)
+    serial_ms = out["P1-serial"]["ms"]
+    out["P1-pipelined"] = dict(by_nsub[overlap_probe.NSUBS.index(4)],
+                               by_nsub=[dict({k_: r[k_] for k_ in (
+                                   "nsub", "ms", "max_abs_err",
+                                   "err_over_bar")},
+                                   speedup=serial_ms / r["ms"])
+                                   for r in by_nsub])
+    del q, k, v, qh, kh, vh
+    sweep = overlap_probe.run(1, dev)
+    log(json.dumps({"overlap_probe": sweep}))
+    out["P1-pipelined"]["sweep_one_problem"] = sweep
     return out
 
 
@@ -379,7 +532,8 @@ def check_and_time(name: str, r: dict, label: str = "") -> dict:
     return dict(name=name, route=r["route"], source=r["source"],
                 replaces=r["replaces"], max_abs_err=err, max_err=err,
                 err_over_bar=ratio, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms)
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms,
+                **({"shape": r["shape"]} if "shape" in r else {}))
 
 
 def train_batch(stage: int):
@@ -419,12 +573,7 @@ def training_kernels(dev) -> dict:
     cfg = ModelConfig()
     h, hkv, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     L = bias.shape[1]
-    rng = np.random.default_rng(5)
-
-    def bf16(*shape):
-        return torch.from_numpy(rng.standard_normal(shape, np.float32)).to(
-            dev, torch.bfloat16)
-
+    bf16 = _bf16_maker(dev, 5)
     # as the attention layer makes them: q, k new tensors (RoPE), v a view
     # of the fused projection
     q, k = bf16(1, L, h, d), bf16(1, L, hkv, d)
@@ -434,9 +583,6 @@ def training_kernels(dev) -> dict:
     pairs = int((bias == 0).sum())
     log(f"stage-1 attention: L {L}, {pairs} visible pairs "
         f"({pairs / L ** 2:.3f} of L^2)")
-
-    def f32(*ts):
-        return [t.float() for t in ts]
 
     def k3_plain(absv=False):
         vf = v.float()
@@ -497,67 +643,23 @@ def inline_kernels(dev) -> dict:
     cfg = ModelConfig()
     h, hkv, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     src = "video_gpt_tpu_torch/csrc/"
-    rng = np.random.default_rng(7)
-
-    def bf16(*shape):
-        return torch.from_numpy(rng.standard_normal(shape, np.float32)).to(
-            dev, torch.bfloat16)
-
-    def f32(*ts):
-        return [t.float() for t in ts]
+    bf16 = _bf16_maker(dev, 7)
 
     def operands(stage):
         meta = AttnMeta(*(x.to(dev) for x in
                           train_batch(stage).inputs.batch.meta))
+        q, k, v = inline_operands(bf16, meta)
         L = meta.index.shape[1]
-        # as the attention layer makes them: q, k new tensors (RoPE), v a
-        # view of the fused projection
-        q, k = bf16(1, L, h, d), bf16(1, L, hkv, d)
-        v = bf16(1, L, h + 2 * hkv, d)[:, :, h + hkv:]
         pairs = visible_pairs(meta)
         log(f"stage-{stage} attention: L {L}, {pairs} visible pairs "
             f"({pairs / L ** 2:.3f} of L^2)")
         return meta, q, k, v, pairs
 
-    def sdpa(q, k, v, meta):
-        """The library call's operands: heads-major copies of q/k/v and the
-        mask as bool."""
-        L = meta.index.shape[1]
-        mask = fa._padded_visibility(meta, meta, L, L)[:, None]
-        qh, kh, vh = (x.transpose(1, 2).contiguous().requires_grad_()
-                      for x in (q, k, v))
-        return qh, kh, vh, mask
-
-    def forward_record(meta, q, k, v, pairs, fn, replaces, with_lse):
-        qh, kh, vh, mask = sdpa(q, k, v, meta)
-
-        def plain(absv=False):
-            vf = v.float()
-            return fa.inline_attention_reference(
-                *f32(q, k), vf.abs() if absv else vf, meta, meta)[0]
-
-        def lib():
-            with torch.no_grad():
-                return F.scaled_dot_product_attention(qh, kh, vh,
-                                                      attn_mask=mask)
-
-        # read q, k, v and the metadata; write out (and lse)
-        out_bytes = nbytes(q) + (4 * h * meta.index.shape[1] if with_lse
-                                 else 0)
-        return dict(fn=fn, plain=plain, lib=lib, route="cuda",
-                    source=src + "inline_attention.cu",
-                    replaces=f"{TPU_KERNELS}:{replaces}",
-                    bytes=nbytes(q, k, v) + out_bytes + meta_bytes(meta),
-                    flops=4 * h * d * pairs)
-
-    def meta_bytes(meta):
-        return 4 * len(meta) * meta.index.shape[1]
-
     meta, q, k, v, pairs = operands(4)
     L = meta.index.shape[1]
     do = bf16(1, L, h, d)
     out, lse = fa._inline_forward(q, k, v, meta, meta, with_lse=True)
-    qh, kh, vh, mask = sdpa(q, k, v, meta)
+    qh, kh, vh, mask = inline_sdpa_operands(q, k, v, meta)
 
     def k7():
         return fa.flash_mha_inline_bwd(q, k, v, meta, meta, out, do, lse)
@@ -575,7 +677,7 @@ def inline_kernels(dev) -> dict:
 
     recs = {
         # the training forward, which keeps the logsumexp
-        "K6": forward_record(meta, q, k, v, pairs, lambda: fa._inline_forward(
+        "K6": inline_record(meta, q, k, v, pairs, lambda: fa._inline_forward(
             q, k, v, meta, meta, with_lse=True)[0], 1071, with_lse=True),
         "K7": dict(fn=k7, plain=k7_plain, lib=k7_lib, route="cuda",
                    source=src + "inline_attention_bwd.cu",
@@ -592,11 +694,114 @@ def inline_kernels(dev) -> dict:
     torch.cuda.empty_cache()
 
     meta, q, k, v, pairs = operands(1)
-    res["K8"] = check_and_time("K8", forward_record(
+    res["K8"] = check_and_time("K8", inline_record(
         meta, q, k, v, pairs, lambda: fa.flash_mha_inline(q, k, v, meta, meta),
         149, with_lse=False), " (K6's kernel at the stage-1 shape)")
     res["K8"]["same_kernel_as"] = "K6"
     return res
+
+
+def inline_operands(bf16, meta: AttnMeta):
+    """q, k, v for the batch rows of ``meta`` as the attention layer makes
+    them: q, k new tensors (RoPE), v a view of the fused projection."""
+    cfg = ModelConfig()
+    h, hkv, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    b, L = meta.index.shape
+    v = bf16(b, L, h + 2 * hkv, d)[:, :, h + hkv:]
+    return bf16(b, L, h, d), bf16(b, L, hkv, d), v
+
+
+def inline_sdpa_operands(q, k, v, meta: AttnMeta):
+    """The library call's operands: heads-major copies of q/k/v and the
+    mask as bool."""
+    L = meta.index.shape[1]
+    mask = fa._padded_visibility(meta, meta, L, L)[:, None]
+    qh, kh, vh = (x.transpose(1, 2).contiguous().requires_grad_()
+                  for x in (q, k, v))
+    return qh, kh, vh, mask
+
+
+def meta_bytes(meta: AttnMeta) -> int:
+    """The metadata's int32 bytes, an expanded (batch-stride-0) vector
+    counted once."""
+    return sum(4 * x.shape[1] * (x.shape[0] if x.stride(0) else 1)
+               for x in meta)
+
+
+def inline_record(meta, q, k, v, pairs: int, fn, replaces: int,
+                  with_lse: bool) -> dict:
+    """K6 (forward) on the operands of :func:`inline_operands`: the plain
+    version in fp32 from the same values, the library call with the
+    equivalent bool mask, the bound over ``pairs`` visible pairs."""
+    h, d = q.shape[2], q.shape[3]
+    qh, kh, vh, mask = inline_sdpa_operands(q, k, v, meta)
+
+    def plain(absv=False):
+        vf = v.float()
+        return fa.inline_attention_reference(
+            *f32(q, k), vf.abs() if absv else vf, meta, meta)[0]
+
+    def lib():
+        with torch.no_grad():
+            return F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask)
+
+    # read q, k, v and the metadata; write out (and lse)
+    out_bytes = nbytes(q) + (4 * h * q.shape[0] * q.shape[1] if with_lse
+                             else 0)
+    return dict(fn=fn, plain=plain, lib=lib, route="cuda",
+                source="video_gpt_tpu_torch/csrc/inline_attention.cu",
+                replaces=f"{TPU_KERNELS}:{replaces}",
+                bytes=nbytes(q, k, v) + out_bytes + meta_bytes(meta),
+                flops=4 * h * d * pairs)
+
+
+def rollout_kernels(dev):
+    """The rollouts' kernels at the shapes the K4/K10 records leave out:
+    K2 over the long rollout's own uncond row (B 1, 5,328^2); the batched
+    rollout's K1 cond row (B 2, 5,328 queries against a heads-major cache
+    of 12,432 + 5,328 new keys), its K2 uncond row (B 2, 5,328^2), and its
+    prefill through K6 (B 2 x 12,432^2, above the bias limit), whose
+    ``index`` is an expanded view with batch stride 0. Yields (kernel, key
+    of its record, result)."""
+    n_img = tokens_per_frame(H_PX, W_PX)
+    gen = ROLLOUT_GEN[0]
+
+    def metas(rows):
+        lay = frame_block_inference_layout(ROLLOUT_CLEAN, gen, n_img, False,
+                                           rows=rows)
+        lay_u = frame_block_inference_layout(0, gen, n_img, False, rows=rows)
+        return (lay, AttnMeta.from_layout(lay, dev),
+                AttnMeta.from_layout(lay_u, dev))
+
+    _, _, meta_u = metas(1)
+    yield "K2", "long_rollout_shape", check_and_time(
+        "K2", decode_record(dev, 8, meta_u, 416), " (long rollout, uncond)")
+    torch.cuda.empty_cache()
+    lay, meta, meta_u = metas(BATCH_VIDEOS)
+    tail = lay.noisy_tail_len()
+    for name, label, make in (
+            ("K1", "cond", lambda: decode_split_record(dev, 9, meta, tail,
+                                                       661)),
+            ("K2", "uncond", lambda: decode_record(dev, 10, meta_u, 416))):
+        yield name, "batched_rollout_shape", check_and_time(
+            name, make(), f" (batched rollout, {label})")
+        torch.cuda.empty_cache()
+    mp = meta.cols(slice(0, lay.length - tail))
+    if mp.index.stride(0) != 0:
+        fail("the batched prefill's index is not a batch-stride-0 view")
+    q, k, v = inline_operands(_bf16_maker(dev, 11), mp)
+    pairs = visible_pairs(mp)
+    log(f"batched prefill attention: B {BATCH_VIDEOS}, L {mp.index.shape[1]}"
+        f", {pairs} visible pairs")
+
+    def k6():
+        with torch.no_grad():
+            return fa.flash_mha_inline(q, k, v, mp, mp)
+
+    yield "K6", "batched_rollout_shape", check_and_time(
+        "K6", inline_record(mp, q, k, v, pairs, k6, 1071, with_lse=False),
+        " (batched rollout prefill)")
+    torch.cuda.empty_cache()
 
 
 class SeededNoise:
@@ -638,7 +843,7 @@ def reference_phase(dev) -> float:
                                **kw)
         return torch.stack(lat).float().cpu()
 
-    fa.reset_launch_counts()
+    reset_counts()
     got = latents(gpu)
     torch.cuda.synchronize()
     ran = counts()
@@ -662,8 +867,8 @@ def reference_phase(dev) -> float:
     return rel_mse
 
 
-def synthetic_frames(n: int):
-    rng = np.random.default_rng(1)
+def synthetic_frames(n: int, seed: int = 1):
+    rng = np.random.default_rng(seed)
     # smooth gradients plus noise, so the VAE sees image-like input
     y, x = np.mgrid[0:H_PX, 0:W_PX]
     frames = []
@@ -697,11 +902,13 @@ def kernel_group(name: str) -> str:
     return "other (elementwise, norms, softmax, copies)"
 
 
-def profile_phase(pipe, frames, kw, clip_s: float) -> None:
-    """One more main-path run under torch.profiler, tracing the device only
-    (no host op records): device time by kernel group, and the device busy
-    time against the wall clock of this same run. Tracing adds host time,
-    so the run's wall time is printed beside the unprofiled clip's."""
+def profile_phase(pipe, frames, kw, clip_s, name: str = "profile") -> None:
+    """One more serving run (``generate(frames, **kw)``) under
+    torch.profiler, tracing the device only (no host op records): device
+    time by kernel group, and the device busy time against the wall clock
+    of this same run. Tracing adds host time, so the run's wall time is
+    printed beside the unprofiled one's (``clip_s``; None where that run
+    was not timed alone)."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -710,10 +917,11 @@ def profile_phase(pipe, frames, kw, clip_s: float) -> None:
         torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
     groups, busy, top = device_groups(prof)
-    log(json.dumps({"profile": {
+    log(json.dumps({name: {
         "device_ms_by_group": groups, "device_busy_ms": busy,
         "wall_ms": wall_ms, "idle_share": 1.0 - busy / wall_ms,
-        "unprofiled_clip_ms": clip_s * 1e3, "top_kernels": top}}))
+        "unprofiled_clip_ms": None if clip_s is None else clip_s * 1e3,
+        "top_kernels": top}}))
 
 
 def device_groups(prof, ranges=()):
@@ -744,12 +952,106 @@ def device_groups(prof, ranges=()):
                           for k, (ms, n) in top]
 
 
+def rollout_phase(pipe, smi: str, name: str, n_videos: int, steps: int,
+                  want: dict) -> dict:
+    """The recipe of configs/inference.sh at full width: 56 synthetic
+    frames per video, two 24-frame clips, an 80-frame window, guidance 1.5,
+    no re-noise, x1 prediction, through ``generate`` (one video) or
+    ``generate_batch`` (``n_videos`` as batch rows, seeds 0..N-1). The
+    second block slides 24 frames out of the window, so its cache is
+    rebuilt by a second prefill. One warm-up rollout at 1 step with the
+    host-op check on, then the timed rollout at ``steps`` steps: its
+    launch counts must be exactly ``want``; each video gets 56 + 48 uint8
+    frames and 48 finite latents on the device."""
+    videos = [synthetic_frames(ROLLOUT_CLEAN, seed=1 + i)
+              for i in range(n_videos)]
+    kw = dict(gen_nums=ROLLOUT_GEN, img_guidance_scale=CFG_SCALE,
+              max_frame_window=ROLLOUT_WINDOW, clean_image_noise_level=0.0,
+              max_input_image_size=320, prediction_type="x1",
+              return_latents=True)
+
+    def rollout(num_steps):
+        if n_videos == 1:
+            return [pipe.generate(videos[0], seed=0,
+                                  num_inference_steps=num_steps, **kw)]
+        return pipe.generate_batch(videos, seeds=list(range(n_videos)),
+                                   num_inference_steps=num_steps, **kw)
+
+    host = HostFloatOps()
+    t0 = time.perf_counter()
+    with host:
+        rollout(1)
+    torch.cuda.synchronize()
+    log(f"{name}: warm-up at 1 step {time.perf_counter() - t0:.2f} s "
+        f"(host-op check on)")
+    if host.ops:
+        fail(f"{name}: float ops ran on the host: {sorted(host.ops)}")
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outs = rollout(steps)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = counts()
+    log(f"{name}: launches {launches} (expected {want})")
+    if launches != want:
+        fail(f"{name} launch counts {launches} != {want}")
+    n_gen = sum(ROLLOUT_GEN)
+    for frames, lat in outs:
+        if len(frames) != ROLLOUT_CLEAN + n_gen or len(lat) != n_gen:
+            fail(f"{name}: {len(frames)} frames / {len(lat)} latents")
+        if not all(f.dtype == np.uint8 and f.shape == (H_PX, W_PX, 3)
+                   for f in frames):
+            fail(f"{name}: frames are not uint8 {H_PX}x{W_PX}x3")
+        lat = torch.stack(lat)
+        if lat.device != pipe.device or not torch.isfinite(lat).all():
+            fail(f"{name}: latents on {lat.device} or not finite")
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    rec = dict(videos=n_videos, steps=steps, blocks=len(ROLLOUT_GEN),
+               clean_frames=ROLLOUT_CLEAN, generated_frames_per_video=n_gen,
+               wall_s=wall_s, frames_per_s_per_video=n_gen / wall_s,
+               frames_per_s=n_videos * n_gen / wall_s, peak_mem_gib=peak_gib,
+               launches=launches, device=smi)
+    log(f"{name}: {n_videos} x {n_gen} frames in {steps} steps per block: "
+        f"{wall_s:.3f} s, {n_gen / wall_s:.4f} frames/s per video, peak "
+        f"{peak_gib:.2f} GiB, on {smi}")
+    log(json.dumps({name: rec}))
+    if n_videos == 1:
+        # where the time goes: the first block once more, profiled
+        profile_phase(pipe, videos[0],
+                      dict(kw, gen_nums=ROLLOUT_GEN[:1],
+                           num_inference_steps=steps),
+                      None, name=f"{name}_block_profile")
+    return rec
+
+
 def counts():
+    """Every kernel's launches since the last :func:`reset_counts`. K4, K5
+    and K10 are the launches of K1, K2 and K3 past the TPU's 8192-key cap,
+    where the TPU runs its k-tiled kernels."""
     return {"K1": fa.flash_mha_decode_split.launches,
             "K2": fa.flash_mha_decode.launches, "K3": fa.flash_mha.launches,
+            "K4": fa.flash_mha_decode_split.long_launches,
+            "K5": fa.flash_mha_decode.long_launches,
+            "K10": fa.flash_mha.long_launches,
             "K9": fa.flash_mha_bwd.launches,
             "K6": fa.flash_mha_inline.launches,
-            "K7": fa.flash_mha_inline_bwd.launches}
+            "K7": fa.flash_mha_inline_bwd.launches,
+            "P1-serial": overlap_probe.overlap_serial.launches,
+            "P1-pipelined": overlap_probe.overlap_pipelined.launches}
+
+
+def expect(**launches) -> dict:
+    """A run's expected counts: the given ones, every other kernel 0."""
+    return {k: launches.get(k, 0) for k in counts()}
+
+
+def reset_counts() -> None:
+    fa.reset_launch_counts()
+    overlap_probe.overlap_serial.launches = 0
+    overlap_probe.overlap_pipelined.launches = 0
 
 
 def main() -> int:
@@ -778,7 +1080,8 @@ def run(dev: torch.device, smi: str) -> None:
     _cuda.libraries()
     log(f"build: {time.perf_counter() - t0:.1f} s")
     for line in _cuda.build_log().splitlines():
-        if "registers" in line or "spill" in line or line.startswith("=="):
+        if ("registers" in line or "spill" in line or "entry function" in line
+                or line.startswith("==")):
             log(f"  {line.strip()}")
 
     records = kernels_phase(dev)
@@ -811,7 +1114,7 @@ def run(dev: torch.device, smi: str) -> None:
         fail(f"float ops ran on the host: {sorted(host.ops)}")
 
     torch.cuda.reset_peak_memory_stats()
-    fa.reset_launch_counts()
+    reset_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     out, lat = pipe.generate(frames, **kw)
@@ -819,8 +1122,7 @@ def run(dev: torch.device, smi: str) -> None:
     clip_s = time.perf_counter() - t0
     launches = counts()
     nl = pipe.model.cfg.num_layers
-    want = {"K1": nl * STEPS, "K2": nl * STEPS, "K3": nl, "K9": 0, "K6": 0,
-            "K7": 0}
+    want = expect(K1=nl * STEPS, K2=nl * STEPS, K3=nl)
     log(f"main path launches {launches} (expected {want})")
     if launches != want:
         fail(f"main-path launch counts {launches} != {want}")
@@ -846,7 +1148,7 @@ def run(dev: torch.device, smi: str) -> None:
     log(json.dumps({"main_path": main}))
 
     # ---- extend path --------------------------------------------------------
-    fa.reset_launch_counts()
+    reset_counts()
     t0 = time.perf_counter()
     out2 = pipe.generate(frames, gen_nums=(4, 4), num_inference_steps=2,
                          img_guidance_scale=CFG_SCALE,
@@ -855,8 +1157,7 @@ def run(dev: torch.device, smi: str) -> None:
     ext = counts()
     # one prefill (K3) for block 0; block 1 extends the cache through K1:
     # one extend launch per layer + 2 blocks x 2 steps of decode per layer
-    want_ext = {"K1": nl + 2 * 2 * nl, "K2": 2 * 2 * nl, "K3": nl, "K9": 0,
-                "K6": 0, "K7": 0}
+    want_ext = expect(K1=nl + 2 * 2 * nl, K2=2 * 2 * nl, K3=nl)
     log(f"extend path: {time.perf_counter() - t0:.2f} s, launches {ext} "
         f"(expected {want_ext})")
     if ext != want_ext:
@@ -865,7 +1166,22 @@ def run(dev: torch.device, smi: str) -> None:
         fail(f"extend path returned {len(out2)} frames")
 
     profile_phase(pipe, frames, kw, clip_s)
-    del pipe, out, lat, out2
+    del out, lat, out2
+
+    # ---- long and batched rollouts (configs/inference.sh) ------------------
+    # both blocks prefill 56 frames (the second after the window slides):
+    # K3 with a bias at B 1 (12,432^2 within precompute_bias_limit, past
+    # 8192 keys: K10's function), K6 at B 2 (2 x 12,432^2 above it); K1
+    # (over 17,760 keys: K4's function) and K2 (5,328 keys) in every step
+    long_rollout = rollout_phase(
+        pipe, smi, "long_rollout", 1, ROLLOUT_STEPS, expect(
+            K3=2 * nl, K10=2 * nl, K1=2 * ROLLOUT_STEPS * nl,
+            K4=2 * ROLLOUT_STEPS * nl, K2=2 * ROLLOUT_STEPS * nl))
+    batched_rollout = rollout_phase(
+        pipe, smi, "batched_rollout", BATCH_VIDEOS, BATCH_STEPS, expect(
+            K6=2 * nl, K1=2 * BATCH_STEPS * nl, K4=2 * BATCH_STEPS * nl,
+            K2=2 * BATCH_STEPS * nl))
+    del pipe
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -886,6 +1202,14 @@ def run(dev: torch.device, smi: str) -> None:
     # one clip; training: the timed steps of its stage). K8 is K6's kernel
     # on the route of a stage-1 recipe whose B*L^2 exceeds the bias limit:
     # its count is the small-input reference's at precompute_bias_limit=0.
+    # K4 and K10 (K1 and K3 past 8192 keys) count in the long rollout. K5
+    # (K2 past 8192 keys: a tail-only row of a 37+-frame clip) and the
+    # probe lie on no path: theirs is the sum over every path's timed run.
+    paths = {"main path": launches, "extend path": ext,
+             "long rollout": long_rollout["launches"],
+             "batched rollout": batched_rollout["launches"],
+             "stage-1 training": train_counts,
+             "stage-4 training": stage4_counts}
     for k, r in records.items():
         if k in ("K6", "K7"):
             r.update(launches=stage4_counts[k], launches_per_train_step=(
@@ -897,10 +1221,19 @@ def run(dev: torch.device, smi: str) -> None:
         elif k == "K9":
             r.update(launches=train_counts[k], launches_per_train_step=(
                 train_counts[k] // TRAIN_PATHS[1][1]))
+        elif k in ("K4", "K10"):
+            r.update(launches=long_rollout["launches"][k],
+                     launches_path="long rollout")
+        elif k in ("K5", "P1-serial", "P1-pipelined"):
+            r.update(launches=sum(p[k] for p in paths.values()),
+                     launches_path="every path: " + ", ".join(paths))
         else:
             r.update(launches=launches[k], launches_per_clip=launches[k])
     records["K3"]["launches_per_train_step"] = train_counts["K3"] \
         // TRAIN_PATHS[1][1]
+    for k in ("K1", "K2", "K4", "K6"):
+        records[k]["launches_batched_rollout"] = \
+            batched_rollout["launches"][k]
     log(json.dumps({"kernels": list(records.values())}))
 
 
@@ -979,7 +1312,7 @@ def train_reference_phase(dev, bias_limit=None) -> dict:
                           for p in tr.model.parameters()])
         return float(loss.detach()), grad.cpu()
 
-    fa.reset_launch_counts()
+    reset_counts()
     got = loss_and_grad(card)
     torch.cuda.synchronize()
     ran = counts()
@@ -1061,9 +1394,9 @@ def training_phase(dev, smi: str, stage: int) -> dict:
     before = {n: p.detach().clone() for n, p in watched.items()}
     torch.cuda.reset_peak_memory_stats()
     want = {k: per_layer.get(k, 0) * nl for k in counts()}
-    steps, total = [], dict.fromkeys(per_layer, 0)
+    steps, total = [], dict.fromkeys(want, 0)
     for i in range(1, n_steps + 1):
-        fa.reset_launch_counts()
+        reset_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         m = trainer.train_step(state, tb, i)

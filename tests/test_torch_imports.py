@@ -27,7 +27,8 @@ def test_port_has_the_slice_modules():
               "models.vae", "sampling.scheduler", "sampling.pipeline",
               "utils.weights", "utils.torch_import", "utils.checkpoint",
               "data.video", "data.prefetch", "training.loss",
-              "training.data", "training.train_state", "training.trainer"):
+              "training.data", "training.train_state", "training.trainer",
+              "probes.overlap_probe"):
         assert "video_gpt_tpu_torch." + m in mods, m
 
 

@@ -20,9 +20,15 @@ is the plain version's product over absolute values (|ds| |K| for dq,
 before those products.
 
 The mutation checks build a copy of ``csrc/`` with one loop cut short (K6
-without its last key tile, K7's dK/dV without its last query tile) in a
-temporary directory and show that the bar catches it (worst error / bar
-above 1, printed; run with ``-s`` to read it).
+without its last key tile, K7's dK/dV without its last query tile, the
+pipelined overlap probe without its last subtile) in a temporary directory
+and show that the bar catches it (worst error / bar above 1, printed; run
+with ``-s`` to read it).
+
+Past 8192 keys the TPU runs k-tiled kernels (K4, K5, K10); here K1, K2 and
+K3 serve those rows, and are held against their plain versions at those
+shapes (32 heads of 96, 176x320 frames), as are K1 and K6 at the batched
+rollout's B 2.
 """
 import os
 import shutil
@@ -35,6 +41,7 @@ from video_gpt_tpu_torch.models.video_gpt import decode_mask, extend_mask
 from video_gpt_tpu_torch.ops import _cuda
 from video_gpt_tpu_torch.ops import flash_attention as fa
 from video_gpt_tpu_torch.ops.attention import AttnMeta
+from video_gpt_tpu_torch.probes import overlap_probe
 
 pytestmark = pytest.mark.gpu
 ATOL, RTOL, BF16_U = 1e-4, 1e-2, 2.0 ** -8
@@ -87,6 +94,9 @@ def test_k1_k2_match_plain(dev, h, hkv, n_img):
     torch.cuda.synchronize()
     assert fa.flash_mha_decode_split.launches == 1
     assert fa.flash_mha_decode.launches == 1
+    # within the TPU's key cap: no launch in K4's or K5's place
+    assert fa.flash_mha_decode_split.long_launches == 0
+    assert fa.flash_mha_decode.long_launches == 0
     assert _err(got1, want1, mass1) <= 1.0
     assert _err(got2, want1, mass1) <= 1.0
 
@@ -133,6 +143,7 @@ def test_k3_matches_plain(dev, n_clean, use_cfg, h, hkv):
                                        bias)
     torch.cuda.synchronize()
     assert fa.flash_mha.launches == 1
+    assert fa.flash_mha.long_launches == 0
     assert _err(got, want, mass) <= 1.0
 
 
@@ -340,3 +351,161 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
                             kb[..., :48].contiguous(), mask)
     with pytest.raises(ValueError):                   # bias on the CPU
         fa.flash_mha(qb, kb, kb, torch.zeros(1, 8, 8, dtype=torch.bfloat16))
+
+
+# ---- past 8192 keys: the TPU's k-tiled K4/K5/K10 are K1/K2/K3 here --------
+
+# 176x320 frames: 220 image tokens (222 per frame segment)
+N_IMG_FLAGSHIP = layout.tokens_per_frame(176, 320)
+H_FULL, HKV_FULL = 32, 32
+
+
+def _rollout_meta(dev, n_clean, n_gen, rows=1):
+    lay = layout.frame_block_inference_layout(n_clean, n_gen, N_IMG_FLAGSHIP,
+                                              use_cfg=False, rows=rows)
+    return lay, AttnMeta.from_layout(lay, dev)
+
+
+@pytest.mark.parametrize("batch", [1, 2])
+def test_k1_at_the_long_rollout_cond_row(dev, batch):
+    """K4's shape: 5,328 queries against 12,432 cached + 5,328 new keys,
+    the cache heads-major as the KV cache holds it (at B 2 as the batched
+    rollout's cond row), the tail views of tokens-major K/V."""
+    d = fa.KERNEL_HEAD_DIM
+    lay, meta = _rollout_meta(dev, 56, 24, rows=batch)
+    tail, L = lay.noisy_tail_len(), lay.length
+    lc = L - tail
+    assert lc + tail > 8192
+    mask = decode_mask(meta.tail(tail), meta)
+    q = _bf16(dev, 30, batch, tail, H_FULL, d)
+    kc = _bf16(dev, 31, batch, HKV_FULL, lc, d)
+    vc = _bf16(dev, 32, batch, HKV_FULL, lc, d)
+    kv = _bf16(dev, 33, batch, tail, 2, HKV_FULL, d)
+    kt, vt = kv[:, :, 0].transpose(1, 2), kv[:, :, 1].transpose(1, 2)
+    fa.reset_launch_counts()
+    got = fa.flash_mha_decode_split(q, kc, vc, kt, vt, mask)
+    torch.cuda.synchronize()
+    assert fa.flash_mha_decode_split.launches == 1
+    assert fa.flash_mha_decode_split.long_launches == 1
+
+    def plain(vf):
+        return fa.rank_attention_reference(
+            q.float(), (kc.float(), kt.float()), (vf(vc.float()),
+                                                  vf(vt.float())),
+            (mask.rank[:, :lc], mask.rank[:, lc:]), mask.q_off)
+
+    assert _err(got, plain(lambda x: x), plain(torch.abs)) <= 1.0
+
+
+def test_k2_at_the_k5_shape(dev):
+    """K5's shape: the uncond row of a 40-frame clip, Lq = Lk = 8,880."""
+    d = fa.KERNEL_HEAD_DIM
+    lay, meta = _rollout_meta(dev, 0, 40)
+    L = lay.length
+    assert L > 8192
+    mask = decode_mask(meta, meta)
+    q = _bf16(dev, 34, 1, L, H_FULL, d)
+    k, v = _bf16(dev, 35, 1, L, HKV_FULL, d), _bf16(dev, 36, 1, L, HKV_FULL, d)
+    fa.reset_launch_counts()
+    got = fa.flash_mha_decode(q, k, v, mask)
+    torch.cuda.synchronize()
+    assert fa.flash_mha_decode.launches == 1
+    assert fa.flash_mha_decode.long_launches == 1
+
+    def plain(vf):
+        return fa.rank_attention_reference(
+            q.float(), (k.float().transpose(1, 2),),
+            (vf(v.float()).transpose(1, 2),), (mask.rank,), mask.q_off)
+
+    assert _err(got, plain(lambda x: x), plain(torch.abs)) <= 1.0
+
+
+def test_k3_at_the_k10_shape(dev):
+    """K10's shape: the long rollout's prefill at B 1, 12,432^2 with its
+    309 MB bf16 bias."""
+    d = fa.KERNEL_HEAD_DIM
+    lay, meta = _rollout_meta(dev, 56, 24)
+    lp = lay.length - lay.noisy_tail_len()
+    mp = meta.cols(slice(0, lp))
+    bias = fa.precompute_bias(mp, mp)
+    q = _bf16(dev, 37, 1, lp, H_FULL, d)
+    k = _bf16(dev, 38, 1, lp, HKV_FULL, d)
+    v = _bf16(dev, 39, 1, lp, HKV_FULL, d)
+    fa.reset_launch_counts()
+    got = fa.flash_mha(q, k, v, bias)
+    torch.cuda.synchronize()
+    assert fa.flash_mha.launches == 1
+    assert fa.flash_mha.long_launches == 1
+    want = fa.bias_attention_reference(q.float(), k.float(), v.float(), bias)
+    mass = fa.bias_attention_reference(q.float(), k.float(), v.float().abs(),
+                                       bias)
+    assert _err(got, want, mass) <= 1.0
+
+
+def test_k6_at_the_batched_prefill(dev):
+    """The batched rollout's prefill: B 2 x 12,432^2 (above the bias
+    limit), ``index`` an expanded view with batch stride 0."""
+    d = fa.KERNEL_HEAD_DIM
+    lay, meta = _rollout_meta(dev, 56, 24, rows=2)
+    lp = lay.length - lay.noisy_tail_len()
+    mp = meta.cols(slice(0, lp))
+    assert mp.index.stride(0) == 0
+    qkv = _bf16(dev, 40, 2, lp, H_FULL + 2 * HKV_FULL, d)
+    q = qkv[:, :, :H_FULL].contiguous()
+    k = qkv[:, :, H_FULL:H_FULL + HKV_FULL].contiguous()
+    v = qkv[:, :, H_FULL + HKV_FULL:]
+    fa.reset_launch_counts()
+    with torch.no_grad():
+        got = fa.flash_mha_inline(q, k, v, mp, mp)
+    torch.cuda.synchronize()
+    assert fa.flash_mha_inline.launches == 1
+    want, _ = fa.inline_attention_reference(q.float(), k.float(), v.float(),
+                                            mp, mp)
+    mass, _ = fa.inline_attention_reference(q.float(), k.float(),
+                                            v.float().abs(), mp, mp)
+    assert _err(got, want, mass) <= 1.0
+
+
+# ---- P1, the overlap probe --------------------------------------------------
+
+def _probe_error(dev, nsub, lk=overlap_probe.LK):
+    """Worst error / bar of the serial body (``nsub`` None) or the
+    pipelined one against the plain version, at the probe's BQ and D for
+    2 problems over ``lk`` keys."""
+    q, k, v = overlap_probe.probe_inputs(2, dev, lk=lk)
+    overlap_probe.overlap_serial.launches = 0
+    overlap_probe.overlap_pipelined.launches = 0
+    got = (overlap_probe.overlap_serial(q, k, v) if nsub is None else
+           overlap_probe.overlap_pipelined(q, k, v, nsub))
+    torch.cuda.synchronize()
+    assert (overlap_probe.overlap_serial.launches
+            + overlap_probe.overlap_pipelined.launches) == 1
+    want = overlap_probe.overlap_reference(q.float(), k.float(), v.float())
+    mass = overlap_probe.overlap_reference(q.float(), k.float(),
+                                           v.float().abs())
+    return _err(got, want, mass)
+
+
+@pytest.mark.parametrize("nsub", [None] + list(overlap_probe.NSUBS))
+def test_overlap_probe_matches_plain(dev, nsub):
+    assert _probe_error(dev, nsub) <= 1.0
+
+
+def test_overlap_probe_mutation_fails_the_bar(dev, tmp_path, monkeypatch):
+    """The pipelined body without its last subtile (its last step skipped)
+    fails the bar: over 512 keys at nsub 2 it drops 128 of them."""
+    loop = ("    pipelined_step<D, W>(j + 1, n, sb, sa, o, l0, l1, qa, kbuf, "
+            "vbuf, kp, vp,")
+    short = ("    if (j + 1 < n - 1) pipelined_step<D, W>(j + 1, n, sb, sa, "
+             "o, l0, l1, qa, kbuf, vbuf, kp, vp,")
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_cuda.CSRC, csrc)
+    text = (csrc / "overlap_probe.cu").read_text()
+    assert text.count(loop) == 1
+    (csrc / "overlap_probe.cu").write_text(text.replace(loop, short))
+    libs = _cuda.build(str(csrc), os.path.join(tmp_path, "_build"))
+    monkeypatch.setattr(_cuda, "libraries", lambda: libs)
+    ratio = _probe_error(dev, 2, lk=512)
+    print(f"mutation overlap_pipelined_without_last_subtile: worst error / "
+          f"bar {ratio:.2f}")
+    assert ratio > 1.0

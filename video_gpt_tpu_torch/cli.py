@@ -1,16 +1,22 @@
-"""Command-line entry points: ``generate`` (single video) and ``train``.
+"""Command-line entry points: ``generate`` and ``train``.
 
     python -m video_gpt_tpu_torch.cli generate --video_path clip.mp4 \\
         --model_ckpt ckpt_dir --vae_ckpt vae.safetensors --gen_nums 16
     python -m video_gpt_tpu_torch.cli train --stage 1 \\
         --video_dir_path videos/ --results_dir results/stage1
 
-Port of the single-video path of ``video_gpt_tpu/cli.py generate`` and of
-the single-device path of its ``train``: stage 1 runs the bias kernels
-(K3, K9); stages 2-4, whose sequences are too long for a precomputed bias,
-run the metadata-inline kernels (K6, K7). A later stage warm-starts from an
-earlier one's checkpoint with ``--init_checkpoint_dir`` (the parameters or
-``--init_ema``, never the optimizer state):
+Port of ``video_gpt_tpu/cli.py generate`` (every option of the JAX command
+parses, so ``configs/inference.sh``'s command line runs as it is; the
+LoRA, ``--input_head`` and mesh options raise unless left at their
+defaults) and of the single-device path of its ``train``. ``generate``
+takes one video (``--video_path``) or a directory (``--video_path_dir``,
+same-shaped videos batched through ``generate_batch``), and the weights of
+a reference checkpoint, of a ``train`` run of this port
+(``--checkpoint_dir``) or random ones. ``train``: stage 1 runs the bias
+kernels (K3, K9); stages 2-4, whose sequences are too long for a
+precomputed bias, run the metadata-inline kernels (K6, K7). A later stage
+warm-starts from an earlier one's checkpoint with ``--init_checkpoint_dir``
+(the parameters or ``--init_ema``, never the optimizer state):
 
     python -m video_gpt_tpu_torch.cli train --stage 4 \\
         --video_dir_path videos/ --results_dir results/stage4 \\
@@ -28,32 +34,84 @@ import os
 import torch
 
 
-def cmd_generate(args):
-    import cv2
-    from PIL import Image
+# options of the JAX command that parse but are not ported yet: a value
+# other than the default raises (ROADMAP.md queue 1)
+GENERATE_NOT_PORTED = {"lora_checkpoint_dir": None, "lora_rank": 8,
+                       "input_head": False, "mesh_seq": 1, "mesh_tensor": 1}
 
-    from .config import ModelConfig
-    from .models.vae import VAEConfig
-    from .sampling.pipeline import VideoGPTPipeline
+
+def read_conditioning(path: str, n: int):
+    """The first ``n`` conditioning frames of a video, every 4th frame as
+    the reference inference script reads them (HWC uint8 RGB; cv2)."""
+    import cv2
+    cap = cv2.VideoCapture(path)
+    frames = []
+    for i in range(n):
+        cap.set(cv2.CAP_PROP_POS_FRAMES, i * 4)
+        ok, f = cap.read()
+        if not ok:
+            raise SystemExit(f"cannot read frame {i * 4} of {path}")
+        frames.append(cv2.cvtColor(f, cv2.COLOR_BGR2RGB))
+    cap.release()
+    return frames
+
+
+def _generate_weights(args):
+    """(model state dict or None, prediction type) of a ``generate``
+    command line: a reference checkpoint (``--model_ckpt``; a model.pt is a
+    velocity model unless ``--prediction_type`` says otherwise), a training
+    run of this port (``--checkpoint_dir [--step] [--ema]``), or random
+    weights."""
+    from .utils import checkpoint as ckpt
     from .utils.torch_import import (load_reference_checkpoint,
                                      resolve_checkpoint_path)
 
+    prediction_type = args.prediction_type
+    sd = None
+    if args.model_ckpt:
+        if prediction_type is None and os.path.basename(
+                resolve_checkpoint_path(args.model_ckpt)) == "model.pt":
+            # the reference inference script: a model.pt checkpoint is a
+            # velocity-prediction model
+            prediction_type = "v"
+            print("model.pt checkpoint: prediction_type defaults to 'v'")
+        sd = load_reference_checkpoint(args.model_ckpt)
+    elif args.checkpoint_dir:
+        sd, step = ckpt.load_train_params(args.checkpoint_dir, step=args.step,
+                                          ema=args.ema)
+        print(f"weights of {args.checkpoint_dir} step {step}"
+              f"{' (EMA)' if args.ema else ''}")
+    else:
+        print("WARNING: no --model_ckpt; using random weights (smoke run)")
+    return sd, prediction_type or "x1"
+
+
+def cmd_generate(args):
+    from .config import ModelConfig
+    from .data.processor import preprocess_frames
+    from .data.video import list_videos
+    from .models.vae import VAEConfig
+    from .sampling.pipeline import VideoGPTPipeline
+    from .utils.torch_import import load_reference_checkpoint
+
+    for flag, default in GENERATE_NOT_PORTED.items():
+        if getattr(args, flag) != default:
+            raise SystemExit(f"--{flag} is not ported yet (ROADMAP.md "
+                             f"queue 1)")
+    if args.video_path_dir:
+        video_paths = list_videos(args.video_path_dir)
+        if not video_paths:
+            raise SystemExit(f"no videos under {args.video_path_dir}")
+    elif args.video_path:
+        video_paths = [args.video_path]
+    else:
+        raise SystemExit("provide --video_path or --video_path_dir")
     cfg = (ModelConfig.tiny(pos_embed_max_size=192) if args.tiny_model
            else ModelConfig())
     vae_cfg = VAEConfig.tiny() if args.tiny_model else VAEConfig()
     dtype = torch.bfloat16 if args.dtype == "bf16" else torch.float32
-    prediction_type = "x1"
-    sd = vae_sd = None
-    if args.model_ckpt:
-        if os.path.basename(resolve_checkpoint_path(args.model_ckpt)) \
-                == "model.pt":
-            # the reference inference script: a model.pt checkpoint is a
-            # velocity-prediction model
-            prediction_type = "v"
-            print("model.pt checkpoint: prediction_type 'v'")
-        sd = load_reference_checkpoint(args.model_ckpt)
-    else:
-        print("WARNING: no --model_ckpt; using random weights (smoke run)")
+    sd, prediction_type = _generate_weights(args)
+    vae_sd = None
     if args.vae_ckpt:
         vae_sd = load_reference_checkpoint(args.vae_ckpt)
     else:
@@ -64,28 +122,47 @@ def cmd_generate(args):
     pipe = VideoGPTPipeline.build(cfg, vae_cfg, device=args.device,
                                   dtype=dtype, state_dict=sd,
                                   vae_state_dict=vae_sd, seed=args.seed)
-
-    # every 4th frame, like the reference inference script
-    cap = cv2.VideoCapture(args.video_path)
-    frames = []
-    for i in range(args.clean_image_num):
-        cap.set(cv2.CAP_PROP_POS_FRAMES, i * 4)
-        ok, f = cap.read()
-        if not ok:
-            raise SystemExit(f"cannot read frame {i * 4} of "
-                             f"{args.video_path}")
-        frames.append(cv2.cvtColor(f, cv2.COLOR_BGR2RGB))
-    cap.release()
-
-    images = pipe.generate(frames, gen_nums=args.gen_nums,
-                           num_inference_steps=args.num_inference_steps,
-                           img_guidance_scale=args.img_guidance_scale,
-                           prediction_type=prediction_type, seed=args.seed)
+    kw = dict(gen_nums=args.gen_nums,
+              num_inference_steps=args.num_inference_steps,
+              img_guidance_scale=args.img_guidance_scale,
+              max_input_image_size=args.max_input_image_size,
+              max_frame_window=args.max_frame_window,
+              clean_image_noise_level=args.clean_image_noise_level,
+              prediction_type=prediction_type,
+              vae_roundtrip_recycle=args.vae_roundtrip_recycle,
+              cfg_interval=(tuple(args.cfg_interval) if args.cfg_interval
+                            else None),
+              uncond_refresh=args.uncond_refresh)
     os.makedirs(args.save_dir, exist_ok=True)
-    for i, im in enumerate(images):
-        Image.fromarray(im).save(os.path.join(args.save_dir, f"0_{i}.png"))
-    print(f"{args.video_path}: saved {len(images)} frames to "
-          f"{args.save_dir}", flush=True)
+
+    def save(k, path, images):
+        from PIL import Image
+        for i, im in enumerate(images):
+            Image.fromarray(im).save(os.path.join(args.save_dir,
+                                                  f"{k}_{i}.png"))
+        print(f"[{k}] {path}: saved {len(images)} frames to "
+              f"{args.save_dir}", flush=True)
+
+    if len(video_paths) == 1:
+        save(0, video_paths[0], pipe.generate(
+            read_conditioning(video_paths[0], args.clean_image_num),
+            seed=args.seed, **kw))
+        return
+    # videos of one preprocessed shape ride one B = N set of calls
+    # (generate_batch), each with the seed of its place in the list
+    pre, groups = {}, {}
+    for path in video_paths:
+        arr = preprocess_frames(read_conditioning(path, args.clean_image_num),
+                                args.max_input_image_size)
+        pre[path] = arr
+        groups.setdefault(arr.shape, []).append(path)
+    order = {p: k for k, p in enumerate(video_paths)}
+    for paths in groups.values():
+        outs = pipe.generate_batch([pre[p] for p in paths],
+                                   seeds=[args.seed + order[p] for p in paths],
+                                   **kw)
+        for p, images in zip(paths, outs):
+            save(order[p], p, images)
 
 
 def _init_state_dict(args):
@@ -238,24 +315,58 @@ def _add_train_parser(sub) -> None:
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="video_gpt_tpu_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
-    g = sub.add_parser("generate", help="next-clip prediction for one video")
-    g.add_argument("--video_path", type=str, required=True)
+    g = sub.add_parser("generate", help="autoregressive next-clip "
+                                        "prediction")
+    g.add_argument("--video_path", type=str, default=None)
+    g.add_argument("--video_path_dir", type=str, default=None,
+                   help="run every video in a directory; videos of one "
+                        "preprocessed shape go through generate_batch")
     g.add_argument("--save_dir", type=str, default="result/test/inference")
     g.add_argument("--model_ckpt", type=str, default=None,
                    help="reference checkpoint (model.pt / model.safetensors "
                         "/ pytorch_model.bin, or a directory holding one)")
+    g.add_argument("--checkpoint_dir", type=str, default=None,
+                   help="a `train` run's checkpoint directory "
+                        "(<results_dir>/checkpoints): train -> serve")
+    g.add_argument("--step", type=int, default=None,
+                   help="checkpoint step of --checkpoint_dir (default: "
+                        "latest)")
+    g.add_argument("--ema", action="store_true",
+                   help="the EMA weights of --checkpoint_dir")
     g.add_argument("--vae_ckpt", type=str, default=None,
                    help="diffusers AutoencoderKL checkpoint")
     g.add_argument("--clean_image_num", type=int, default=1)
     g.add_argument("--gen_nums", type=int, nargs="+", default=[4, 4])
     g.add_argument("--num_inference_steps", type=int, default=50)
     g.add_argument("--img_guidance_scale", type=float, default=1.0)
+    g.add_argument("--max_input_image_size", type=int, default=320)
+    g.add_argument("--max_frame_window", type=int, default=16)
+    g.add_argument("--clean_image_noise_level", type=float, default=0.1)
+    g.add_argument("--vae_roundtrip_recycle", action="store_true",
+                   help="VAE-decode and re-encode the recycled predictions "
+                        "(reference semantics); default feeds the latents "
+                        "back")
+    g.add_argument("--prediction_type", default=None, choices=["x1", "v"],
+                   help="default: x1, or v when --model_ckpt resolves to a "
+                        "model.pt")
+    g.add_argument("--cfg_interval", type=float, nargs=2, default=None,
+                   metavar=("LO", "HI"),
+                   help="apply guidance only where sigma is in [LO, HI)")
+    g.add_argument("--uncond_refresh", type=int, default=1,
+                   help="evaluate the uncond row only every k-th guided step")
     g.add_argument("--dtype", default="bf16", choices=["bf16", "fp32"],
                    help="fp32 runs on the CPU only: the CUDA kernels are bf16")
     g.add_argument("--tiny_model", action="store_true")
     g.add_argument("--seed", type=int, default=42)
     g.add_argument("--device", default="cuda",
                    help="'cuda' (default; raises without a GPU) or 'cpu'")
+    # accepted so a JAX command line parses; a non-default value raises
+    # (not ported yet, see ROADMAP.md queue 1)
+    g.add_argument("--lora_checkpoint_dir", type=str, default=None)
+    g.add_argument("--lora_rank", type=int, default=8)
+    g.add_argument("--input_head", action="store_true")
+    g.add_argument("--mesh_seq", type=int, default=1)
+    g.add_argument("--mesh_tensor", type=int, default=1)
     g.set_defaults(fn=cmd_generate)
     _add_train_parser(sub)
     return ap

@@ -13,7 +13,11 @@
 // and rescale), which computes the same function in another summation
 // order. Masked logits are finite (BF16_NEG, never -inf), so a query whose
 // first tiles are fully masked gets a finite running max and no NaN; key
-// columns past Lk are -inf and weigh exactly 0.
+// columns past Lk are -inf and weigh exactly 0. This recurrence is the
+// TPU's k-tiled `_stream_kernel` (K10, `flash_mha_streaming`, its route
+// past 8192 keys), so the kernel serves that too: the long rollout's
+// prefill at B = 1 is 12,432^2 with a 309 MB bias, whose row offsets
+// (r * bias_sq, up to 1.5e8) are 64-bit products.
 //
 // What bounds it on the card: at the flagship prefill (Lq = Lk = 1776,
 // 32 heads of 96) ~2e10 visible-pair FLOPs against ~0.05 GB of operands

@@ -4,7 +4,13 @@
 // step and the cache extend; two key operands, cache then tail) and
 // `_decode_kernel` (K2, the uncond row; one key operand) of
 // video_gpt_tpu/ops/flash_attention.py. One kernel serves both: K2 is K1
-// with an empty second operand.
+// with an empty second operand. Keys stream through shared memory with no
+// length cap, so it also computes the function of the TPU's k-tiled
+// variants past 8192 keys, `_stream_decode_split_kernel` (K4: the long
+// rollout's cond row, 5,328 queries over 12,432 cached + 5,328 new keys)
+// and `_stream_decode_kernel` (K5). Offsets are 64-bit products of int
+// indices and long long strides (a 2 x 32 x 17,760 x 96 operand is 109M
+// elements; no int product reaches 2^31).
 //
 // Function, per (batch b, head h, query q):
 //   visible(q, k) = q_off[q] >= rank[k]

@@ -1,15 +1,19 @@
 """The attention kernels of serving and training, each beside its plain
 version.
 
-Port of the Pallas kernels of ``video_gpt_tpu/ops/flash_attention.py`` that
-generation and training run (the rest are not ported yet, see ROADMAP.md):
+Port of every Pallas kernel of ``video_gpt_tpu/ops/flash_attention.py``
+(the overlap probe of ``scripts/overlap_probe.py`` is
+``video_gpt_tpu_torch.probes.overlap_probe``):
 
 - K1 :func:`flash_mha_decode_split` (TPU ``_decode_split_kernel``): the
   cond-row decode step and the cache extend, over separate cache and tail
-  K/V operands;
+  K/V operands; past 8192 keys also the TPU's k-tiled
+  ``_stream_decode_split_kernel`` (K4), which computes the same function;
 - K2 :func:`flash_mha_decode` (TPU ``_decode_kernel``): the uncond row;
+  past 8192 keys also ``_stream_decode_kernel`` (K5);
 - K3 :func:`flash_mha` (TPU ``_bias_kernel``): the prefill and the stage-1
-  training forward, with the bias of :func:`precompute_bias`;
+  training forward, with the bias of :func:`precompute_bias`; past 8192
+  keys also ``_stream_kernel`` (K10, ``flash_mha_streaming``);
 - K9 :func:`flash_mha_bwd` (TPU ``_bwd_kernel``): the backward of K3;
 - K6 :func:`flash_mha_inline` (TPU ``_stream_inline_kernel``, and the
   resident ``_inline_kernel``, K8, which computes the same function): the
@@ -24,11 +28,18 @@ K1 and K2 are one CUDA kernel (``csrc/rank_attention.cu``); K3 is
 ``csrc/inline_attention.cu`` and K7 ``csrc/inline_attention_bwd.cu``. Each
 wrapper takes its plain PyTorch version (``*_reference``) for CPU tensors
 only; for CUDA tensors it launches the kernel or raises, and counts the
-launch in its ``launches`` attribute. :func:`flash_mha` and
-:func:`flash_mha_inline` are differentiable: under autograd the forward
-keeps the per-row logsumexp, and the backward is K9, resp. K7. The TPU
+launch in its ``launches`` attribute (K1-K3 also in ``long_launches``
+past ``TPU_KEY_CAP`` keys, where the TPU runs K4, K5, K10).
+:func:`flash_mha` and :func:`flash_mha_inline` are differentiable: under
+autograd the forward keeps the per-row logsumexp, and the backward is K9,
+resp. K7. The TPU
 layout choices are gone: no 96->128 lane pad, no 8192-key VMEM cap, no
-VMEM-tuned query blocks, and the bias is not padded.
+VMEM-tuned query blocks, and the bias is not padded. Every CUDA kernel
+streams its keys through shared memory in 64-key tiles with no length cap,
+so the TPU's streaming variants for rows past 8192 keys (K4, K5, K10) are
+the same kernels as K1, K2 and K3: the long rollout's cond-row decode over
+17,760 keys is K1, and its prefill is K3 at B = 1 (where the TPU runs K6)
+and K6 at B = 2 (B*L^2 above ``precompute_bias_limit``, as on the TPU).
 """
 from __future__ import annotations
 
@@ -45,6 +56,10 @@ LOG2E = 1.4426950408889634
 NEVER = 2 ** 30
 # the head width the CUDA kernels are built for (kHeadDim in csrc)
 KERNEL_HEAD_DIM = 96
+# the TPU kernels' VMEM cap on a key row; past it the TPU runs its k-tiled
+# K4, K5 and K10, whose function K1, K2 and K3 compute here. Those three
+# wrappers count such launches apart, in ``long_launches``
+TPU_KEY_CAP = 8192
 
 
 class DecodeMask(NamedTuple):
@@ -95,46 +110,72 @@ def precompute_bias(q_meta: AttnMeta, k_meta: AttnMeta) -> torch.Tensor:
 
 # ---- plain versions (CPU path and test oracle) ------------------------------
 
+# query rows per step of the plain versions, which walk one kv head's group
+# and this many rows at a time: at L 35520 one head's fp32 [rows, Lk] scores
+# are 0.58 GB, so a step holds a few GB, not the 160 GB of a whole-row
+# softmax over all heads (the long rollout's K1 row over 17,760 keys: 12 GB)
+INLINE_ROWS = 4096
+
+
+def _row_steps(b: int, lq: int, hkv: int, group: int):
+    """(batch, kv head, its q heads, query rows) for each step of the plain
+    versions, ``INLINE_ROWS`` rows at a time."""
+    for bi in range(b):
+        for r0 in range(0, lq, INLINE_ROWS):
+            rows = slice(r0, min(r0 + INLINE_ROWS, lq))
+            for g in range(hkv):
+                yield bi, g, slice(g * group, (g + 1) * group), rows
+
+
 def rank_attention_reference(q: torch.Tensor, ks: Sequence[torch.Tensor],
                              vs: Sequence[torch.Tensor],
                              ranks: Sequence[torch.Tensor],
                              q_off: torch.Tensor) -> torch.Tensor:
-    """Plain K1/K2: unshifted-exp2 columnar attention over the key operands
-    ``ks``/``vs`` (heads-major [B,Hkv,Lk_i,D], in order) with per-key ranks
-    ``ranks`` ([B, Lk_i]). q [B,Lq,H,D] -> [B,Lq,H,D] in q's dtype. The
-    probabilities are cast to v's dtype before P.V, as the kernels do."""
-    d = q.shape[-1]
+    """Plain K1/K2 (and the TPU's k-tiled K4/K5, the same function):
+    unshifted-exp2 columnar attention over the key operands ``ks``/``vs``
+    (heads-major [B,Hkv,Lk_i,D], in order) with per-key ranks ``ranks``
+    ([B, Lk_i]). q [B,Lq,H,D] -> [B,Lq,H,D] in q's dtype. The
+    probabilities are cast to v's dtype before P.V, as the kernels do. Runs
+    one kv head's group and ``INLINE_ROWS`` query rows at a time."""
+    b, lq, h, d = q.shape
     kscale = d ** -0.5 * LOG2E
-    qf = q.transpose(1, 2).float()
-    l = acc = 0.0
-    for k, v, rank in zip(ks, vs, ranks):
-        group = q.shape[2] // k.shape[1]
-        kf = k.float().repeat_interleave(group, dim=1)
-        vf = v.repeat_interleave(group, dim=1)
-        s = qf @ kf.transpose(-1, -2) * kscale
-        vis = q_off[:, None, :, None] >= rank[:, None, None, :]
-        p = torch.where(vis, torch.exp2(s.clamp(-100.0, 100.0)),
-                        torch.zeros((), device=s.device))
-        l = l + p.sum(-1, keepdim=True)
-        acc = acc + p.to(v.dtype).float() @ vf.float()
-    out = acc / torch.clamp(l, min=1e-30)
-    return out.to(q.dtype).transpose(1, 2)
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    for bi, g, heads, rows in _row_steps(b, lq, ks[0].shape[1],
+                                         h // ks[0].shape[1]):
+        qf = q[bi, rows, heads].transpose(0, 1).float()   # [G, n, D]
+        qo = q_off[bi, rows, None]
+        l = acc = 0.0
+        for k, v, rank in zip(ks, vs, ranks):
+            s = qf @ k[bi, g].float().T * kscale
+            p = torch.where(qo >= rank[bi, None, :],
+                            torch.exp2(s.clamp(-100.0, 100.0)),
+                            torch.zeros((), device=s.device))
+            l = l + p.sum(-1, keepdim=True)
+            acc = acc + p.to(v.dtype).float() @ v[bi, g].float()
+        o = acc / torch.clamp(l, min=1e-30)
+        out[bi, rows, heads] = o.transpose(0, 1).to(q.dtype)
+    return out
 
 
 def bias_attention_reference(q: torch.Tensor, k: torch.Tensor,
                              v: torch.Tensor, bias: torch.Tensor
                              ) -> torch.Tensor:
-    """Plain K3: max-subtracted softmax attention plus an additive bias
-    [B, Lq, Lk]; q [B,Lq,H,D], k/v [B,Lk,Hkv,D]. The probabilities are
-    cast to v's dtype before P.V."""
-    k, v = k.transpose(1, 2), v.transpose(1, 2)
-    group = q.shape[2] // k.shape[1]
-    kf = k.float().repeat_interleave(group, dim=1)
-    vf = v.repeat_interleave(group, dim=1)
-    logits = (q.transpose(1, 2).float() @ kf.transpose(-1, -2)
-              * q.shape[-1] ** -0.5 + bias.float()[:, None])
-    p = torch.softmax(logits, dim=-1)
-    return (p.to(v.dtype).float() @ vf.float()).to(q.dtype).transpose(1, 2)
+    """Plain K3 (and the TPU's k-tiled K10, the same function):
+    max-subtracted softmax attention plus an additive bias [B, Lq, Lk];
+    q [B,Lq,H,D], k/v [B,Lk,Hkv,D]. The probabilities are cast to v's dtype
+    before P.V. Runs one kv head's group and ``INLINE_ROWS`` query rows at
+    a time."""
+    b, lq, h, d = q.shape
+    hkv = k.shape[2]
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    for bi, g, heads, rows in _row_steps(b, lq, hkv, h // hkv):
+        qf = q[bi, rows, heads].transpose(0, 1).float()   # [G, n, D]
+        logits = (qf @ k[bi, :, g].float().T * d ** -0.5
+                  + bias[bi, rows].float())
+        p = torch.softmax(logits, dim=-1)
+        o = p.to(v.dtype).float() @ v[bi, :, g].float()
+        out[bi, rows, heads] = o.transpose(0, 1).to(q.dtype)
+    return out
 
 
 def bias_attention_backward_reference(q: torch.Tensor, k: torch.Tensor,
@@ -181,26 +222,19 @@ def bias_attention_backward_reference(q: torch.Tensor, k: torch.Tensor,
             kv_grad(dv, v))
 
 
-# query rows per step of the plain inline versions: at L 35520 one head's
-# fp32 [rows, Lk] scores are 0.58 GB, so a step holds a few GB, not the
-# 160 GB of a whole-row softmax over all heads
-INLINE_ROWS = 4096
-
-
 def _inline_steps(q_meta: AttnMeta, k_meta: AttnMeta, lq: int, hkv: int,
                   group: int):
-    """(batch, kv head, its q heads, query rows, visible [rows, Lk]) for
-    each step of the plain inline versions, ``INLINE_ROWS`` rows at a time:
+    """The steps of :func:`_row_steps` with the visible [rows, Lk] of each:
     K6's rule, ``_padded_visibility`` with no padding."""
     lk = k_meta.vis_start.shape[1]
-    for b in range(q_meta.index.shape[0]):
-        km = AttnMeta(*(x[b:b + 1] for x in k_meta))
-        for r0 in range(0, lq, INLINE_ROWS):
-            sl = slice(r0, min(r0 + INLINE_ROWS, lq))
+    at = vis = None
+    for b, g, heads, sl in _row_steps(q_meta.index.shape[0], lq, hkv, group):
+        if at != (b, sl.start):
+            at = (b, sl.start)
+            km = AttnMeta(*(x[b:b + 1] for x in k_meta))
             qm = AttnMeta(*(x[b:b + 1, sl] for x in q_meta))
-            vis = _padded_visibility(qm, km, sl.stop - r0, lk)[0]
-            for g in range(hkv):
-                yield b, g, slice(g * group, (g + 1) * group), sl, vis
+            vis = _padded_visibility(qm, km, sl.stop - sl.start, lk)[0]
+        yield b, g, heads, sl, vis
 
 
 def _inline_probs(qf: torch.Tensor, kf: torch.Tensor, vis: torch.Tensor,
@@ -463,10 +497,12 @@ def flash_mha_decode_split(q: torch.Tensor, k_cache: torch.Tensor,
     out = _launch_rank(q, [(k_cache, v_cache, rank_c),
                            (k_new, v_new, rank_t)], mask.q_off)
     flash_mha_decode_split.launches += 1
+    if mask.rank.shape[1] > TPU_KEY_CAP:
+        flash_mha_decode_split.long_launches += 1
     return out
 
 
-flash_mha_decode_split.launches = 0
+flash_mha_decode_split.launches = flash_mha_decode_split.long_launches = 0
 
 
 def flash_mha_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -478,10 +514,12 @@ def flash_mha_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                         mask.q_off)
     out = _launch_rank(q, [(k, v, mask.rank)], mask.q_off)
     flash_mha_decode.launches += 1
+    if mask.rank.shape[1] > TPU_KEY_CAP:
+        flash_mha_decode.long_launches += 1
     return out
 
 
-flash_mha_decode.launches = 0
+flash_mha_decode.launches = flash_mha_decode.long_launches = 0
 
 
 def _kv_views(q, k, v):
@@ -530,6 +568,8 @@ def _bias_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         head_dim=d, scale_log2=d ** -0.5 * LOG2E)
     _launch("bias_attention", "vgt_bias_attention", a, q.device)
     flash_mha.launches += 1
+    if kh.shape[2] > TPU_KEY_CAP:
+        flash_mha.long_launches += 1
     return out, lse
 
 
@@ -562,7 +602,7 @@ def flash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return _bias_forward(q, k, v, bias, with_lse=False)[0]
 
 
-flash_mha.launches = 0
+flash_mha.launches = flash_mha.long_launches = 0
 
 
 def flash_mha_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -751,3 +791,5 @@ KERNELS = (flash_mha_decode_split, flash_mha_decode, flash_mha,
 def reset_launch_counts() -> None:
     for fn in KERNELS:
         fn.launches = 0
+    for fn in (flash_mha_decode_split, flash_mha_decode, flash_mha):
+        fn.long_launches = 0

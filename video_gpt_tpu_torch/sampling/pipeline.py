@@ -10,10 +10,19 @@ recycled frames (``clean_image_noise_level``), ``cfg_interval``,
 ``uncond_refresh`` and ``vae_roundtrip_recycle`` keep the JAX package's
 semantics.
 
-Random numbers come from a :class:`TorchNoise` (a ``torch.Generator`` on
-the device) or any callable with its signature, so a test can hand the
-port the exact noise the JAX pipeline drew. ``generate_batch`` is not
-ported yet.
+``generate_batch`` runs N same-shaped videos as the batch rows of one set
+of prefill / extend / denoise calls, each video with its own noise stream;
+``generate`` is its one-video case. Random numbers come from a
+:class:`TorchNoise` (a ``torch.Generator`` on the device) or any callable
+with its signature, so a test can hand the port the exact noise the JAX
+pipeline drew.
+
+Past 8192 keys (the 80-frame window of ``configs/inference.sh``) the TPU
+switches to its k-tiled kernels (K4/K5 in the decode, K6 in the prefill);
+the port has no key cap and keeps its kernels: the cond-row decode runs K1
+and the uncond row K2 at any length, and the prefill runs K3 with a bias
+while B*L^2 stays within ``precompute_bias_limit`` (the long rollout at
+B = 1: 12,432^2 = 154.6M) and K6 above it (B = 2: 309.1M, as on the TPU).
 """
 from __future__ import annotations
 
@@ -129,10 +138,54 @@ class VideoGPTPipeline:
         return sample_separate_cfg(z0, denoise_pair, sched, cfg_scale,
                                    denoise_cond_fn=denoise_cond)
 
+    def generate(self, input_frames: Sequence, *, seed: Optional[int] = 42,
+                 noise: Optional[NoiseFn] = None,
+                 return_latents: bool = False, **recipe):
+        """Condition on ``input_frames`` (HWC uint8), roll out
+        ``recipe["gen_nums"]`` clips (the keyword arguments of
+        :meth:`_rollout`). Returns HWC uint8 frames: the VAE round-trip of
+        the first block's (windowed) conditioning frames, then every
+        generated frame; with ``return_latents`` also the generated latents,
+        one [h, w, C] tensor per frame. ``noise`` overrides the draws of a
+        :class:`TorchNoise` seeded with ``seed``."""
+        if noise is None:
+            noise = TorchNoise(0 if seed is None else seed, self.device)
+        frames, latents = self._rollout([input_frames], [noise], **recipe)[0]
+        return (frames, latents) if return_latents else frames
+
+    def generate_batch(self, inputs_list: Sequence[Sequence],
+                       seeds: Optional[Sequence[int]] = None, *,
+                       noise: Optional[Sequence[NoiseFn]] = None,
+                       seed: Optional[int] = 42,
+                       return_latents: bool = False, **recipe):
+        """N same-shaped condition clips through ONE B = N set of prefill /
+        extend / denoise calls (``frame_block_inference_layout(rows=N)``).
+        Every video keeps its own noise stream: ``seeds[i]`` (default
+        ``seed + i``) or ``noise[i]``, walking exactly the draws
+        :meth:`generate` walks for it, so the outputs match N independent
+        calls up to batched-reduction order (N = 1 without seeds or noise
+        is :meth:`generate`). Returns a list of N frame lists (ordered as
+        :meth:`generate`'s); with ``return_latents``, of (frames, latents)
+        pairs. Raises ``ValueError`` on videos whose preprocessed shapes
+        differ."""
+        n_vid = len(inputs_list)
+        if noise is None:
+            base = 0 if seed is None else seed
+            seeds = ([base + i for i in range(n_vid)] if seeds is None
+                     else list(seeds))
+            noise = [TorchNoise(s, self.device) for s in seeds]
+        elif seeds is not None:
+            raise ValueError("pass seeds or noise, not both")
+        if len(noise) != n_vid:
+            raise ValueError(f"{len(noise)} noise streams for {n_vid} videos")
+        outs = self._rollout(inputs_list, noise, **recipe)
+        return outs if return_latents else [frames for frames, _ in outs]
+
     @torch.inference_mode()
-    def generate(
+    def _rollout(
         self,
-        input_frames: Sequence,
+        inputs: Sequence[Sequence],
+        noises: Sequence[NoiseFn],
         gen_nums: Sequence[int] = (1,),
         num_inference_steps: int = 50,
         img_guidance_scale: float = 1.0,
@@ -142,74 +195,83 @@ class VideoGPTPipeline:
         clean_image_noise_level: float = 0.1,
         time_shifting_factor: float = 1.0,
         prediction_type: str = "x1",
-        seed: Optional[int] = 42,
-        noise: Optional[NoiseFn] = None,
-        return_latents: bool = False,
         vae_roundtrip_recycle: bool = False,
         cfg_interval: Optional[Tuple[float, float]] = None,
         uncond_refresh: int = 1,
-    ):
-        """Condition on ``input_frames`` (HWC uint8), roll out ``gen_nums``
-        clips. Returns HWC uint8 frames: the VAE round-trip of the first
-        block's (windowed) conditioning frames, then every generated frame;
-        with ``return_latents`` also the generated latents, one [h, w, C]
-        tensor per frame. ``noise`` overrides the seeded draws."""
-        if not len(input_frames):
+    ) -> List[Tuple[List[np.ndarray], List[torch.Tensor]]]:
+        """The rollout of :meth:`generate` for N same-shaped videos as batch
+        rows, video i drawing from ``noises[i]``; returns (frames, latents)
+        per video. The JAX package's ``_generate`` / ``_generate_batch``
+        semantics: the window slides (and the cache is rebuilt by a prefill)
+        when ``n_clean + gen_num > max_frame_window``; recycled frames are
+        re-noised by ``clean_image_noise_level`` from the second block on
+        (which also rebuilds the cache); otherwise the cache grows through
+        ``extend_cache``."""
+        if any(not len(f) for f in inputs):
             raise ValueError(
                 "generate() needs at least one conditioning frame")
         if img_guidance_scale == 1.0:
             use_img_guidance = False
+        n_vid = len(inputs)
         device = self.device
         dtype = self.model.dtype
-        if noise is None:
-            noise = TorchNoise(0 if seed is None else seed, device)
-
-        pixels = torch.from_numpy(
-            preprocess_frames(input_frames, max_input_image_size)).to(
-                device=device, dtype=dtype)
-        H, W = pixels.shape[1:3]
+        pix = [preprocess_frames(f, max_input_image_size) for f in inputs]
+        shapes = {p.shape for p in pix}
+        if len(shapes) != 1:
+            raise ValueError(
+                f"generate_batch needs same-shaped videos after "
+                f"preprocessing; got {sorted(shapes)} — group by bucket "
+                "and batch each group")
+        H, W = pix[0].shape[1:3]
         f = self.vae.cfg.downsample_factor
         p = self.model.cfg.patch_size
         hl, wl = H // f, W // f
         n_img = (hl // p) * (wl // p)
         c = self.model.cfg.in_channels
-        lat_shape = (pixels.shape[0], hl, wl, self.vae.cfg.latent_channels)
-        clean_latents = self.vae.encode(pixels,
-                                        noise("encode", lat_shape, dtype))
+        lat_shape = (pix[0].shape[0], hl, wl, self.vae.cfg.latent_channels)
+        # [N, frames, hl, wl, C]; each video's encode takes its own draw
+        clean = torch.stack([
+            self.vae.encode(torch.from_numpy(x).to(device=device, dtype=dtype),
+                            noise("encode", lat_shape, dtype))
+            for x, noise in zip(pix, noises)])
 
-        frames: List[torch.Tensor] = []   # uint8 [n, H, W, 3] per emit
-        out_latents: List[torch.Tensor] = []
+        def rows(x):  # [N, F, ...] -> [N * F, ...], video-major
+            return x.reshape((-1,) + tuple(x.shape[2:]))
+
+        emits: List[Tuple[torch.Tensor, int]] = []  # ([N * F, H, W, 3], F)
+        out_latents: List[torch.Tensor] = []         # [N * gen, h, w, C]
         emit_initial = True
         # cross-block KV cache (cache, frames covered): reusable while the
         # window has not slid (positions restart) and recycled predictions
         # are not re-noised (re-noise changes their K/V)
         kv_cache, kv_frames = None, 0
         for k, gen_num in enumerate(gen_nums):
-            if clean_latents.shape[0] + gen_num > max_frame_window:
-                clean_latents = clean_latents[
-                    gen_num + clean_latents.shape[0] - max_frame_window:]
+            if clean.shape[1] + gen_num > max_frame_window:
+                clean = clean[:, gen_num + clean.shape[1] - max_frame_window:]
                 kv_cache, kv_frames = None, 0
             if k > 0 and clean_image_noise_level:
                 kv_cache, kv_frames = None, 0
-            n_clean = clean_latents.shape[0]
+            n_clean = clean.shape[1]
             layout_c = frame_block_inference_layout(n_clean, gen_num, n_img,
-                                                    use_cfg=False)
+                                                    use_cfg=False, rows=n_vid)
             batch_c = Batch.from_layout(layout_c, device)
             tail = layout_c.noisy_tail_len()
             prefix = layout_c.length - tail
             batch_u = layout_u = None
             if use_img_guidance:
                 # unconditional context at its natural length
-                layout_u = frame_block_inference_layout(0, gen_num, n_img,
-                                                        use_cfg=False)
+                layout_u = frame_block_inference_layout(
+                    0, gen_num, n_img, use_cfg=False, rows=n_vid)
                 batch_u = Batch.from_layout(layout_u, device)
 
-            cl = clean_latents
+            cl = clean
             if k > 0 and clean_image_noise_level:
                 lvl = clean_image_noise_level
-                cl = (1.0 - lvl) * cl + lvl * noise("renoise", tuple(cl.shape),
-                                                    cl.dtype)
-            z = noise("z", (gen_num, hl, wl, c), dtype)
+                cl = (1.0 - lvl) * cl + lvl * torch.stack([
+                    noise("renoise", tuple(cl.shape[1:]), cl.dtype)
+                    for noise in noises])
+            z = torch.cat([noise("z", (gen_num, hl, wl, c), dtype)
+                           for noise in noises])
 
             if decode_rank(layout_c, tail) is None or (
                     use_img_guidance
@@ -221,10 +283,10 @@ class VideoGPTPipeline:
                 n_new = n_clean - kv_frames
                 if kv_cache is not None and 0 < n_new < n_clean:
                     kv_cache = self.model.extend_cache(
-                        batch_c, cl[-n_new:], kv_cache, n_new * (n_img + 2),
-                        kv_frames)
+                        batch_c, rows(cl[:, -n_new:]), kv_cache,
+                        n_new * (n_img + 2), kv_frames)
                 elif kv_cache is None or n_new != 0:
-                    kv_cache = self.model.prefill(batch_c, cl, prefix)
+                    kv_cache = self.model.prefill(batch_c, rows(cl), prefix)
                 kv_frames = n_clean
             else:
                 kv_cache, kv_frames = None, 0
@@ -238,27 +300,37 @@ class VideoGPTPipeline:
                                     img_guidance_scale)
             if emit_initial:
                 if n_clean:
-                    frames.append(self._decode_u8(clean_latents))
+                    emits.append((self._decode_u8(rows(clean)), n_clean))
                 emit_initial = False
 
             recycled = samples
             if vae_roundtrip_recycle:
                 # reference semantics: re-encode the DECODED pixels
                 out_px = self.vae.decode(samples)
-                frames.append(out_px)
-                recycled = self.vae.encode(
-                    out_px.to(dtype),
-                    noise("recycle_encode", tuple(samples.shape), dtype))
+                emits.append((out_px, gen_num))
+                recycled = torch.cat([
+                    self.vae.encode(
+                        out_px[i * gen_num:(i + 1) * gen_num].to(dtype),
+                        noise("recycle_encode",
+                              (gen_num,) + tuple(samples.shape[1:]), dtype))
+                    for i, noise in enumerate(noises)])
             else:
-                frames.append(self._decode_u8(samples))
+                emits.append((self._decode_u8(samples), gen_num))
             out_latents.append(samples)
-            clean_latents = (torch.cat([clean_latents, recycled])
-                             if n_clean else recycled)
+            clean = torch.cat(
+                [clean, recycled.reshape((n_vid, gen_num)
+                                         + tuple(recycled.shape[1:]))], dim=1)
 
-        outputs = [im for x in frames
-                   for im in postprocess_frames(x.float().cpu().numpy()
-                                                if x.dtype != torch.uint8
-                                                else x.cpu().numpy())]
-        if return_latents:
-            return outputs, [l for blk in out_latents for l in blk]
-        return outputs
+        def video(x, i, per):  # video i's rows of a video-major [N*per, ..]
+            return x[i * per:(i + 1) * per]
+
+        return [([im for x, per in emits
+                  for im in postprocess_frames(_host(video(x, i, per)))],
+                 [l for blk in out_latents
+                  for l in video(blk, i, blk.shape[0] // n_vid)])
+                for i in range(n_vid)]
+
+
+def _host(x: torch.Tensor) -> np.ndarray:
+    """Frames to the host: uint8 as they are, floats as fp32."""
+    return (x if x.dtype == torch.uint8 else x.float()).cpu().numpy()
