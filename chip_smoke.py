@@ -24,7 +24,11 @@ Phases, in order; any failure exits nonzero and none is caught:
    shape as K8; then the rollouts' other shapes: K2 over the long
    rollout's uncond row (5,328^2), and the batched rollout's K1 (B 2, a
    heads-major cache), K2 (B 2) and its prefill through K6 (B 2 x
-   12,432^2, the index a batch-stride-0 view);
+   12,432^2, the index a batch-stride-0 view). K9 (stage 1), K6 (stage 4),
+   K8 (stage 1) and the B 2 prefill compute only the tiles their tile map
+   does not call empty: each map the kernel builds is held equal to its
+   plain classifier, and its share of tiles computed and the map's own
+   time are printed beside the kernel's (which includes the map);
 4. small-input serving reference: ``generate`` on a tiny model (head_dim
    96, GQA) on the card in bf16 against the same weights and noise on the
    CPU in fp32 (plain versions), two blocks so every serving kernel and the
@@ -79,7 +83,7 @@ The training phases use the recipes of ``configs/pretrain_stage1.sh`` and
 ``configs/pretrain_stage4.sh`` (betas 0.9/0.95, weight decay 0.1, eps 1e-5,
 clip 1.0) with a constant learning rate of 1e-4: the recipes' 320000-step
 linear warmup gives a learning rate of 0 at step 0, which would leave the
-parameters unmoved. About 9 minutes on one H100.
+parameters unmoved. About 8 minutes on one H100.
 
 It needs a CUDA device and exits nonzero without one. It imports nothing of
 JAX.
@@ -488,6 +492,26 @@ def probe_kernels(dev) -> dict:
     return out
 
 
+def tile_map_record(label: str, build, plain) -> dict:
+    """A kernel's tile map (``build``: its classifier launches alone) held
+    equal to the plain classifier (``plain``), then timed; the share of
+    tiles the kernel computes (not empty) and skips the mask of (full)."""
+    got = build()
+    torch.cuda.synchronize()
+    want = plain()
+    if not torch.equal(got, want):
+        fail(f"{label}: the kernel's tile map differs from the plain one in "
+             f"{int((got != want).sum())} of {want.numel()} tiles")
+    computed = float((want != fa.TILE_EMPTY).float().mean())
+    full = float((want == fa.TILE_FULL).float().mean())
+    ms = timed(build, max_reps=20)
+    log(f"{label}: tile map {tuple(want.shape)} equal to the plain one; "
+        f"tiles computed {computed:.4f} (full {full:.4f}, partial "
+        f"{computed - full:.4f}); the map alone {ms:.4f} ms")
+    return dict(shape=list(want.shape), equal=True, tiles_computed=computed,
+                tiles_full=full, map_ms=ms)
+
+
 def check_and_time(name: str, r: dict, label: str = "") -> dict:
     """One kernel against its plain version, then timed; ``fn`` and
     ``plain`` return a tensor or a tuple of tensors (``plain(absv=True)``:
@@ -626,8 +650,19 @@ def training_kernels(dev) -> dict:
                    + 4 * h * L,
                    # S, dP, dV, dQ, dK over the visible pairs
                    flops=5 * 2 * h * d * pairs)}
-    return {name: check_and_time(name, r, " (stage-1 training shape)")
-            for name, r in recs.items()}
+    res = {name: check_and_time(name, r, " (stage-1 training shape)")
+           for name, r in recs.items()}
+    res["K9"]["tile_map"] = tile_map_record(
+        "K9 (stage-1 training shape)", lambda: fa.bias_tile_classes(bias),
+        lambda: fa.bias_tile_classes_reference(bias))
+    return res
+
+
+def inline_tile_map(label: str, meta: AttnMeta) -> dict:
+    """K6's tile map of ``meta`` against itself (tile_map_record)."""
+    return tile_map_record(
+        label, lambda: fa.inline_tile_classes(meta, meta),
+        lambda: fa.inline_tile_classes_reference(meta, meta))
 
 
 def inline_kernels(dev) -> dict:
@@ -690,6 +725,8 @@ def inline_kernels(dev) -> dict:
                    flops=5 * 2 * h * d * pairs)}
     res = {name: check_and_time(name, r, " (stage-4 training shape)")
            for name, r in recs.items()}
+    res["K6"]["tile_map"] = inline_tile_map("K6 (stage-4 training shape)",
+                                            meta)
     del recs, out, lse, do, lib_out, do_h, qh, kh, vh, mask
     torch.cuda.empty_cache()
 
@@ -698,6 +735,8 @@ def inline_kernels(dev) -> dict:
         meta, q, k, v, pairs, lambda: fa.flash_mha_inline(q, k, v, meta, meta),
         149, with_lse=False), " (K6's kernel at the stage-1 shape)")
     res["K8"]["same_kernel_as"] = "K6"
+    res["K8"]["tile_map"] = inline_tile_map(
+        "K8 (K6's kernel at the stage-1 shape)", meta)
     return res
 
 
@@ -798,9 +837,11 @@ def rollout_kernels(dev):
         with torch.no_grad():
             return fa.flash_mha_inline(q, k, v, mp, mp)
 
-    yield "K6", "batched_rollout_shape", check_and_time(
+    rec = check_and_time(
         "K6", inline_record(mp, q, k, v, pairs, k6, 1071, with_lse=False),
         " (batched rollout prefill)")
+    rec["tile_map"] = inline_tile_map("K6 (batched rollout prefill)", mp)
+    yield "K6", "batched_rollout_shape", rec
     torch.cuda.empty_cache()
 
 
@@ -882,13 +923,15 @@ def synthetic_frames(n: int, seed: int = 1):
 
 KERNEL_GROUPS = (  # (group, substrings of kernel names), first match wins
     ("K1/K2 rank_attention", ("rank_attention",)),
+    # K9 and K6 with the launches of their tile maps (csrc/tile_map.cuh)
     ("K9 bias_attention_bwd", ("bias_attention_delta", "bias_attention_dkdv",
-                               "bias_attention_dq")),
+                               "bias_attention_dq", "bias_tile_map")),
     ("K3 bias_attention", ("bias_attention",)),
     ("K7 inline_attention_bwd", ("inline_attention_delta",
                                  "inline_attention_dkdv",
                                  "inline_attention_dq")),
-    ("K6 inline_attention", ("inline_attention",)),
+    ("K6 inline_attention", ("inline_attention", "tile_summary",
+                             "meta_tile_map", "tile_order")),
     ("memcpy/memset", ("Memcpy", "Memset")),
     ("conv (cuDNN)", ("conv", "fprop", "cudnn", "winograd")),
     ("matmul (cuBLAS)", ("gemm", "xmma", "cutlass", "cublas", "nvjet")),
@@ -1076,7 +1119,7 @@ def main() -> int:
 
 
 def run(dev: torch.device, smi: str) -> None:
-    t0 = time.perf_counter()
+    t_run = t0 = time.perf_counter()
     _cuda.libraries()
     log(f"build: {time.perf_counter() - t0:.1f} s")
     for line in _cuda.build_log().splitlines():
@@ -1234,6 +1277,7 @@ def run(dev: torch.device, smi: str) -> None:
     for k in ("K1", "K2", "K4", "K6"):
         records[k]["launches_batched_rollout"] = \
             batched_rollout["launches"][k]
+    log(f"every phase: {time.perf_counter() - t_run:.1f} s")
     log(json.dumps({"kernels": list(records.values())}))
 
 

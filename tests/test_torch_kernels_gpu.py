@@ -19,11 +19,18 @@ is the plain version's product over absolute values (|ds| |K| for dq,
 |ds|^T |Q| for dk, p^T |dO| for dv): the kernels round ds and p to bf16
 before those products.
 
-The mutation checks build a copy of ``csrc/`` with one loop cut short (K6
-without its last key tile, K7's dK/dV without its last query tile, the
-pipelined overlap probe without its last subtile) in a temporary directory
-and show that the bar catches it (worst error / bar above 1, printed; run
-with ``-s`` to read it).
+K6 and K9 compute only the tiles that their tile map (``csrc/tile_map.cuh``)
+does not call empty: the maps the kernels build are held equal to the plain
+classifiers, K9 is checked on a bias row that sees no key (its softmax is
+uniform, so its query tile is never skipped), and K6 on a layout with pad
+rows and on a small batched prefill (``index`` with batch stride 0).
+
+The mutation checks build a copy of ``csrc/`` with one fault in a temporary
+directory and show that the bar catches it (worst error / bar above 1,
+printed; run with ``-s`` to read it): K6 without the last key tile of its
+list, K7's dK/dV without its last query tile, one non-empty tile (the first
+query tile against the first key tile) classed empty in K6's and in K9's
+map, the pipelined overlap probe without its last subtile.
 
 Past 8192 keys the TPU runs k-tiled kernels (K4, K5, K10); here K1, K2 and
 K3 serve those rows, and are held against their plain versions at those
@@ -147,13 +154,21 @@ def test_k3_matches_plain(dev, n_clean, use_cfg, h, hkv):
     assert _err(got, want, mass) <= 1.0
 
 
+def _training_layout(blocks, n_img):
+    """A training layout of one row, or of one row per tuple of blocks
+    (B 2: the shorter row left-padded)."""
+    rows = blocks if isinstance(blocks[0], tuple) else (blocks,)
+    return layout.build_layout([layout.RowSpec(r, "training") for r in rows],
+                               n_img)
+
+
 def _training_operands(dev, h, hkv, blocks, n_img, requires_grad=False):
     """q/k/v as the attention layer makes them (q, k new tensors, v a view
     of the fused projection) over a training layout, and its bias."""
     d = fa.KERNEL_HEAD_DIM
-    lay = layout.build_layout([layout.RowSpec(blocks, "training")], n_img)
+    lay = _training_layout(blocks, n_img)
     meta = AttnMeta.from_layout(lay, dev)
-    qkv = _bf16(dev, 7, 1, lay.length, h + 2 * hkv, d)
+    qkv = _bf16(dev, 7, lay.batch, lay.length, h + 2 * hkv, d)
     q, k = qkv[:, :, :h].contiguous(), qkv[:, :, h:h + hkv].contiguous()
     v = qkv[:, :, h + hkv:]
     if requires_grad:
@@ -161,10 +176,9 @@ def _training_operands(dev, h, hkv, blocks, n_img, requires_grad=False):
     return q, k, v, fa.precompute_bias(meta, meta)
 
 
-@pytest.mark.parametrize("h,hkv,blocks,n_img", [
-    (4, 2, (1, 2, 1), 30), (8, 8, (2, 1, 1, 1), 17)])
-def test_k9_matches_plain(dev, h, hkv, blocks, n_img):
-    q, k, v, bias = _training_operands(dev, h, hkv, blocks, n_img)
+def _k9_errors(dev, q, k, v, bias):
+    """K3 forward (keeping the lse) and K9 against the plain backward:
+    {grad: worst error / bar}."""
     fa.reset_launch_counts()
     out, lse = fa._bias_forward(q, k, v, bias, with_lse=True)
     do = _bf16(dev, 8, *out.shape)
@@ -174,9 +188,31 @@ def test_k9_matches_plain(dev, h, hkv, blocks, n_img):
     mass = fa.bias_attention_backward_reference(*args, magnitude=True)
     torch.cuda.synchronize()
     assert fa.flash_mha.launches == 1 and fa.flash_mha_bwd.launches == 1
-    for name, g, w, m in zip(("dq", "dk", "dv"), got, want, mass):
-        assert g.shape == w.shape and g.dtype == torch.bfloat16, name
-        assert _err(g, w, m) <= 1.0, name
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == torch.bfloat16
+    return {name: _err(g, w, m)
+            for name, g, w, m in zip(("dq", "dk", "dv"), got, want, mass)}
+
+
+@pytest.mark.parametrize("h,hkv,blocks,n_img", [
+    (4, 2, (1, 2, 1), 30), (8, 8, (2, 1, 1, 1), 17),
+    (4, 2, ((1, 2, 1), (2, 2)), 30)])
+def test_k9_matches_plain(dev, h, hkv, blocks, n_img):
+    q, k, v, bias = _training_operands(dev, h, hkv, blocks, n_img)
+    errs = _k9_errors(dev, q, k, v, bias)
+    assert max(errs.values()) <= 1.0, errs
+
+
+@pytest.mark.parametrize("row", [0, 70, 223])
+def test_k9_with_a_row_that_sees_no_key(dev, row):
+    """A bias row of BF16_NEG everywhere: every logit of it is BF16_NEG in
+    fp32, so K3's softmax of it is uniform and its gradient is not 0; K9
+    must not skip its query tile, nor take the lse (which lost the key
+    count) as the softmax's reference."""
+    q, k, v, bias = _training_operands(dev, 4, 2, (1, 2, 1), 30)
+    bias[:, row] = fa.BF16_NEG
+    errs = _k9_errors(dev, q, k, v, bias)
+    assert max(errs.values()) <= 1.0, errs
 
 
 def test_flash_mha_gradients_reach_q_k_v(dev):
@@ -205,9 +241,9 @@ def _inline_operands(dev, h, hkv, blocks, n_img, requires_grad=False):
     """q/k/v as the attention layer makes them over a training layout, and
     its metadata (``index`` an expanded view with batch stride 0)."""
     d = fa.KERNEL_HEAD_DIM
-    lay = layout.build_layout([layout.RowSpec(blocks, "training")], n_img)
+    lay = _training_layout(blocks, n_img)
     meta = AttnMeta.from_layout(lay, dev)
-    qkv = _bf16(dev, 17, 1, lay.length, h + 2 * hkv, d)
+    qkv = _bf16(dev, 17, lay.batch, lay.length, h + 2 * hkv, d)
     q, k = qkv[:, :, :h].contiguous(), qkv[:, :, h:h + hkv].contiguous()
     v = qkv[:, :, h + hkv:]
     if requires_grad:
@@ -247,7 +283,8 @@ def _k7_errors(dev, h, hkv, blocks, n_img):
             for name, g, w, m in zip(("dq", "dk", "dv"), got, want, mass)}
 
 
-INLINE_CASES = [(4, 2, (1, 2, 1), 30), (8, 8, (2, 1, 1, 1), 17)]
+INLINE_CASES = [(4, 2, (1, 2, 1), 30), (8, 8, (2, 1, 1, 1), 17),
+                (4, 2, ((1, 2, 1), (2, 2)), 30)]
 
 
 @pytest.mark.parametrize("h,hkv,blocks,n_img", INLINE_CASES)
@@ -272,6 +309,96 @@ def test_k6_on_the_inference_layout(dev):
     want, _ = fa.inline_attention_reference(q.float(), k, v, qm, meta)
     mass, _ = fa.inline_attention_reference(q.float(), k, v.abs(), qm, meta)
     assert _err(got, want, mass) <= 1.0
+
+
+def _k6_case_error(q, k, v, qm, km):
+    """K6 against the plain version on the given operands and metadata."""
+    fa.reset_launch_counts()
+    with torch.no_grad():
+        got = fa.flash_mha_inline(q, k, v, qm, km)
+    want, _ = fa.inline_attention_reference(q.float(), k.float(), v.float(),
+                                            qm, km)
+    mass, _ = fa.inline_attention_reference(q.float(), k.float(),
+                                            v.float().abs(), qm, km)
+    torch.cuda.synchronize()
+    assert fa.flash_mha_inline.launches == 1
+    return _err(got, want, mass)
+
+
+def test_k6_with_pad_rows(dev):
+    """A training row as ``collate`` pads it: the pad rows (first in the
+    row) see every key, so their tiles are never empty."""
+    d = fa.KERNEL_HEAD_DIM
+    blocks, n_img = (2, 1, 2), 30
+    f = sum(blocks)
+    lay = layout.build_layout([layout.RowSpec(blocks, "training")], n_img,
+                              pad_to=2 * f * (n_img + 2))
+    meta = AttnMeta.from_layout(lay, dev)
+    assert int(meta.is_pad.sum()) > 0
+    qkv = _bf16(dev, 23, 1, lay.length, 8, d)
+    q, k, v = qkv[:, :, :4].contiguous(), qkv[:, :, 4:6].contiguous(), \
+        qkv[:, :, 6:]
+    assert _k6_case_error(q, k, v, meta, meta) <= 1.0
+
+
+def test_k6_at_a_small_batched_prefill(dev):
+    """The batched rollout's prefill at a small size: B 2, the clean prefix
+    against itself, ``index`` an expanded view with batch stride 0."""
+    d = fa.KERNEL_HEAD_DIM
+    lay = layout.frame_block_inference_layout(6, 2, 30, use_cfg=False,
+                                              rows=2)
+    mp = AttnMeta.from_layout(lay, dev).cols(
+        slice(0, lay.length - lay.noisy_tail_len()))
+    assert mp.index.stride(0) == 0
+    lp = mp.index.shape[1]
+    q = _bf16(dev, 24, 2, lp, 4, d)
+    k, v = _bf16(dev, 25, 2, lp, 2, d), _bf16(dev, 26, 2, lp, 2, d)
+    assert _k6_case_error(q, k, v, mp, mp) <= 1.0
+
+
+def _map_cases(dev):
+    """(name, query meta, key meta) of the map checks."""
+    def training(blocks, n_img, pad=False):
+        f = sum(blocks)
+        lay = layout.build_layout([layout.RowSpec(blocks, "training")],
+                                  n_img,
+                                  pad_to=2 * f * (n_img + 2) if pad else None)
+        return AttnMeta.from_layout(lay, dev)
+
+    inf = layout.frame_block_inference_layout(3, 2, 30, use_cfg=True)
+    mi = AttnMeta.from_layout(inf, dev)
+    lay, mb = _rollout_meta(dev, 56, 24, rows=2)
+    mb = mb.cols(slice(0, lay.length - lay.noisy_tail_len()))
+    return [("training, pad rows", training((2, 1, 2), 30, True), None),
+            ("training, unaligned rows", training((2, 1, 1, 1), 17), None),
+            ("inference CFG pair", mi, None),
+            ("inference tail", mi.tail(inf.noisy_tail_len()), mi),
+            ("batched rollout prefill", mb, None)]
+
+
+def test_tile_maps_match_plain(dev):
+    """The maps that K6 (from the metadata's summaries) and K9 (from one
+    pass over the bias) build equal their plain versions, the dense rule
+    reduced tile by tile; the bias map also with a row that sees no key
+    (never an empty tile in its query tile) and with bias rows that are
+    not 16-byte aligned (the pass's scalar loads)."""
+    for name, qm, km in _map_cases(dev):
+        km = qm if km is None else km
+        got = fa.inline_tile_classes(qm, km)
+        want = fa.inline_tile_classes_reference(qm, km)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), name
+        bias = fa.precompute_bias(qm, km)
+        if name.startswith("training"):
+            bias[0, 40] = fa.BF16_NEG
+        if name == "training, unaligned rows":
+            assert bias.stride(1) % 8, bias.shape
+        got = fa.bias_tile_classes(bias)
+        want = fa.bias_tile_classes_reference(bias)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), name
+        if name == "batched rollout prefill":
+            assert (want == fa.TILE_EMPTY).any() and (want == fa.TILE_FULL).any()
 
 
 @pytest.mark.parametrize("h,hkv,blocks,n_img", INLINE_CASES)
@@ -304,35 +431,49 @@ def test_flash_mha_inline_gradients_reach_q_k_v(dev):
         assert _err(x.grad, wt, m) <= 1.0, name
 
 
-# (source, the loop as written, the loop one tile short)
+# (source, the text as written, the text with one fault, the kernel whose
+# bar must catch it)
 MUTATIONS = {
     "k6_without_last_key_tile": (
         "inline_attention.cu",
-        "for (int k0 = 0; k0 < a.lk; k0 += kBlockK) {",
-        "for (int k0 = 0; k0 < a.lk - kBlockK; k0 += kBlockK) {"),
+        "for (int i = 0; i < n; ++i) {",
+        "for (int i = 0; i < n - 1; ++i) {", "K6"),
+    "k6_map_one_tile_empty": (
+        "tile_map.cuh",
+        "    row[kt] = c;",
+        "    row[kt] = (qt == 0 && kt == 0) ? kTileEmpty : c;", "K6"),
     "k7_dkdv_without_last_query_tile": (
         "inline_attention_bwd.cu",
         "for (int q0 = 0; q0 < a.lq; q0 += kBlockQ) {",
-        "for (int q0 = 0; q0 < a.lq - kBlockQ; q0 += kBlockQ) {"),
+        "for (int q0 = 0; q0 < a.lq - kBlockQ; q0 += kBlockQ) {", "K7"),
+    "k9_map_one_tile_empty": (
+        "tile_map.cuh",
+        "    out[kt] = (any_dead && c == kTileEmpty) ? kTilePartial : c;",
+        "    out[kt] = (qt == 0 && kt == 0) ? kTileEmpty\n"
+        "              : (any_dead && c == kTileEmpty) ? kTilePartial : c;",
+        "K9"),
 }
 
 
 @pytest.mark.parametrize("mutation", sorted(MUTATIONS))
 def test_inline_mutation_fails_the_bar(dev, tmp_path, monkeypatch,
                                        mutation):
-    src, loop, short = MUTATIONS[mutation]
+    src, text, fault, kernel = MUTATIONS[mutation]
     csrc = tmp_path / "csrc"
     shutil.copytree(_cuda.CSRC, csrc)
-    text = (csrc / src).read_text()
-    assert text.count(loop) == 1, mutation
-    (csrc / src).write_text(text.replace(loop, short))
+    source = (csrc / src).read_text()
+    assert source.count(text) == 1, mutation
+    (csrc / src).write_text(source.replace(text, fault))
     libs = _cuda.build(str(csrc), os.path.join(tmp_path, "_build"))
     monkeypatch.setattr(_cuda, "libraries", lambda: libs)
     case = (4, 2, (1, 2, 1), 30)
-    if src == "inline_attention.cu":
+    if kernel == "K6":
         ratio = _k6_error(dev, *case)
-    else:
+    elif kernel == "K7":
         ratio = max(_k7_errors(dev, *case).values())
+    else:
+        ratio = max(_k9_errors(dev, *_training_operands(dev, *case))
+                    .values())
     print(f"mutation {mutation}: worst error / bar {ratio:.2f}")
     assert ratio > 1.0
 

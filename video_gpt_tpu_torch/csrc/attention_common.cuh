@@ -109,4 +109,180 @@ __device__ __forceinline__ float quad_max(float x) {
   return x;
 }
 
+// ---- Hopper: asynchronous copies and warpgroup products (wgmma) -----------
+//
+// One warpgroup (the block's 4 warps) runs each wgmma: a 64-row product
+// with B, and A unless it comes from registers, read from shared memory
+// through a descriptor. The accumulator of m64nNk16 is, per warp w of the
+// group, the mma.m16n8k16 C layout of rows 16w..16w+15 repeated over the N/8
+// column tiles: d[4n + e] is the C element e of column tile n. The A
+// register fragment is the mma.m16n8k16 A fragment of the warp's 16 rows,
+// so two neighbouring column tiles of an accumulator are one A fragment
+// over those 16 columns, as with mma.sync.
+//
+// Operand tiles live in shared memory in the layout wgmma reads without a
+// swizzle: 8x8 "core matrices" of 128 contiguous bytes (8 rows of 16 bytes,
+// 8 bf16 of the head dim each), the 12 core matrices of an 8-row group one
+// after another along the head dim, then the next 8-row group. So 16-byte
+// chunk i of a [rows][kHeadDim] tile lies at byte 16 i (async_copy_tile), and
+// the same tile serves as a K-major operand (its rows are M or N, the head
+// dim is the reduction) and as an MN-major one (its rows are the reduction,
+// the head dim is N).
+
+constexpr int kCoreBytes = 128;                          // one 8x8 core matrix
+constexpr int kGroupBytes = kCoreBytes * kHeadDim / 8;   // 8 rows of a tile
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, bypassing L1; zero-fills the destination when
+// `valid` is false (the source is then not read).
+__device__ __forceinline__ void async_copy16(void* dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+// 4 bytes global -> shared; zero-fills when `valid` is false.
+__device__ __forceinline__ void async_copy4(void* dst, const void* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N of this thread's committed copy groups are pending.
+template <int N>
+__device__ __forceinline__ void async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Make this thread's shared-memory writes visible to wgmma (the async
+// proxy); a barrier after it publishes them to the whole warpgroup.
+__device__ __forceinline__ void fence_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Copy the ROWS x kHeadDim bf16 tile at `src` (row stride `row_stride`
+// elements, 16-byte aligned rows) into `dst` in the core-matrix layout,
+// zero-filling rows from `rows_valid` on. NT threads, this one `tid`.
+template <int ROWS, int NT>
+__device__ __forceinline__ void async_copy_tile(bf16* dst, const bf16* src,
+                                              long long row_stride,
+                                              int rows_valid, int tid) {
+  constexpr int kRowChunks = kHeadDim / 8;
+  constexpr int kGroupChunks = 8 * kRowChunks;
+  for (int i = tid; i < ROWS * kRowChunks; i += NT) {
+    const int grp = i / kGroupChunks, w = i % kGroupChunks;
+    const int r = grp * 8 + (w & 7), c = (w >> 3) * 8;
+    const bool ok = r < rows_valid;
+    async_copy16(dst + i * 8, src + (ok ? r * row_stride + c : 0), ok);
+  }
+}
+
+// Shared-memory matrix descriptor without swizzle: start address, the byte
+// offset between core matrices along the reduction (lbo) and along M or N
+// (sbo).
+__device__ __forceinline__ uint64_t wgmma_desc(const void* p, uint32_t lbo,
+                                               uint32_t sbo) {
+  return static_cast<uint64_t>((smem_u32(p) & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32);
+}
+
+// A core-matrix tile as a K-major operand (rows M or N, head dim the
+// reduction), at reduction step kk (head dims 16 kk .. 16 kk + 15).
+__device__ __forceinline__ uint64_t desc_k_major(const bf16* tile, int kk) {
+  return wgmma_desc(reinterpret_cast<const char*>(tile) + 2 * kk * kCoreBytes,
+                    kCoreBytes, kGroupBytes);
+}
+
+// A core-matrix tile as the MN-major B operand (rows the reduction, head
+// dim N), at reduction step j (rows 16 j .. 16 j + 15).
+__device__ __forceinline__ uint64_t desc_mn_major(const bf16* tile, int j) {
+  return wgmma_desc(reinterpret_cast<const char*>(tile) + 2 * j * kGroupBytes,
+                    kGroupBytes, kCoreBytes);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keep the compiler from moving accesses of accumulator registers across
+// the asynchronous products that write them.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d (64 x 64, fp32) (+)= A (64 x 16, K-major, shared) . B (16 x 64, K-major
+// shared: the tile's rows are the 64 columns of d); scale_d 0 overwrites.
+__device__ __forceinline__ void wgmma_64x64_ss(float (&d)[32], uint64_t da,
+                                               uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d (64 x 96, fp32) += A (64 x 16, registers) . B (16 x 96, MN-major
+// shared: the tile's rows are the reduction, the head dim the columns).
+__device__ __forceinline__ void wgmma_64x96_rs(float (&d)[48],
+                                               const uint32_t (&a)[4],
+                                               uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, "
+      "%43, %44, %45, %46, %47}, {%48, %49, %50, %51}, %52, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// The A fragment over columns 16 j .. 16 j + 15 of a 64-column
+// accumulator, rounded to bf16.
+__device__ __forceinline__ void acc_to_a(uint32_t (&a)[4], const float* d) {
+  a[0] = pack_bf16(d[0], d[1]);
+  a[1] = pack_bf16(d[2], d[3]);
+  a[2] = pack_bf16(d[4], d[5]);
+  a[3] = pack_bf16(d[6], d[7]);
+}
+
 }  // namespace vgt

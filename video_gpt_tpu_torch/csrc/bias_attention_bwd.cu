@@ -15,27 +15,53 @@
 // The TPU kernel recomputes the softmax over the whole VMEM-resident key row
 // per query block. Here the forward (K3, bias_attention.cu) keeps each row's
 // logsumexp `lse`, and every tile recomputes p = exp(s + bias - lse) on its
-// own: the same function without holding a row. Three launches, in order:
-//   1. delta: di = rowsum(o * do) in fp32 (part of the TPU kernel's body);
-//   2. dK/dV: one block per (b, kv head, 64-key tile); it loops over the
-//      group's q heads and all 64-row query tiles and keeps dK and dV in fp32
-//      registers, so the GQA sum falls out of the loop, as the TPU kernel's
-//      revisited output block does, and no atomics are needed;
-//   3. dQ: one block per (b, head, 64-row query tile), looping over the key
-//      tiles, as the forward does.
-// Products are bf16 mma.sync with fp32 accumulation: p and ds are rounded to
+// own: the same function without holding a row. Four launches, in order:
+//   1. the tile map (tile_map.cuh's bias classifier);
+//   2. delta: di = rowsum(o * do) in fp32 (part of the TPU kernel's body),
+//      and each row's softmax reference;
+//   3. dK/dV: one block per (b, kv head, 64-key tile); it loops over the
+//      group's q heads and the non-empty 64-row query tiles of its column of
+//      the map and keeps dK and dV in fp32 registers, so the GQA sum falls
+//      out of the loop, as the TPU kernel's revisited output block does, and
+//      no atomics are needed;
+//   4. dQ: one block per (b, head, 64-row query tile), looping over the
+//      non-empty key tiles of its row of the map, as the forward does.
+// Products are bf16 wgmma with fp32 accumulation: p and ds are rounded to
 // bf16 before the products that consume them (the TPU keeps them in fp32),
 // and dq, dk, dv are written in the inputs' dtype from fp32 accumulators
 // (the TPU accumulates dK/dV in bf16 for want of VMEM; that is not copied).
+// No atomics: dq, dk and dv are each summed by one block in a fixed order,
+// so the result is deterministic.
 //
-// What bounds it on the card: at stage 1 (B 1, L 7104, 32 heads of 96) the
-// five matrix products of the visible pairs are ~0.8 TFLOP against ~0.3 GB
-// of operands: tensor throughput bounds it. This first version skips no
-// fully masked tile and uses no wgmma or TMA; the bias tile is read twice
-// (once by each of the dK/dV and dQ kernels).
+// What bounds it on the card: at stage 1 (B 1, L 7104, 32 heads of 96)
+// 0.281 of the pairs are visible; the five products over them are 0.44
+// TFLOP against ~0.3 GB of operands: tensor throughput bounds it (0.44 ms
+// at 989 TFLOP/s).
+//
+// Design. Before the dK/dV and dQ kernels, tile_map.cuh's bias classifier
+// reads the bias once (100 MB at stage 1) and writes the class of every
+// (64-query, 64-key) tile and each row's softmax reference; at stage 1
+// 0.375 of the tiles are non-empty (0.220 full). Each kernel gathers the
+// non-empty tiles of its column or row of the map and computes only those:
+// Q/dO tiles (dK/dV kernel) or K/V tiles (dQ kernel) stream through a
+// two-stage ring in shared memory, filled by cp.async one tile ahead of the
+// products, with the bias tile beside them for partial tiles only (full
+// tiles skip the bias). All products are wgmma over 64 rows:
+//   dK/dV: S^T = K.Q^T and dP^T = V.dO^T from shared memory (m64n64k16);
+//          dV += P^T.dO and dK += dS^T.Q with P^T, dS^T from registers and
+//          dO, Q MN-major (m64n96k16);
+//   dQ:    S = Q.K^T, dP = dO.V^T (m64n64k16); dQ += dS.K (m64n96k16).
+// The dQ kernel recomputes S and dP (7 products per tile, not 5) to keep
+// dq free of atomics.
+//
+// A row whose bias is BF16_NEG everywhere sees no key; in fp32 every logit
+// of it is the same (the bias absorbs q.k), so its softmax is uniform over
+// its keys, while K3's lse of it carries no trace of the count. The
+// classifier gives each such row its count n: p = exp2((x - x_neg) -
+// log2 n) with x_neg the row's common logit, in place of exp2(x - lse).
 #include <math_constants.h>
 
-#include "attention_common.cuh"
+#include "tile_map.cuh"
 
 namespace vgt {
 
@@ -52,6 +78,10 @@ struct BiasAttnBwdArgs {
   void* dq;           // [B, Lq, H, D]
   void* dk;           // [B, Lk, Hkv, D]
   void* dv;           // [B, Lk, Hkv, D], the strides of dk
+  int8_t* tile_map;   // [B, ceil(Lq/64), ceil(Lk/64)] tile classes (written)
+  float* rowdead;     // [B, Lq] scratch: see bias_tile_map_kernel
+  float* rowref;      // [B, H, Lq, 2] scratch: each row's softmax reference
+                      // (x_ref, off): p = exp2((x - x_ref) - off)
   long long q_sb, q_sl, q_sh;
   long long k_sb, k_sl, k_sh;
   long long v_sb, v_sl, v_sh;
@@ -63,12 +93,17 @@ struct BiasAttnBwdArgs {
   int batch, heads, kv_heads, lq, lk, head_dim;
   float scale;        // head_dim^-0.5
   float scale_log2;   // head_dim^-0.5 * log2(e)
+  int bias_vec;       // bias rows allow 16-byte loads
+  int map_only;       // 1: build the tile map and stop
 };
 
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr int kDeltaWarps = 8;
+constexpr int kBiasLd = kBlockK + 8;  // bias tile row stride (elements)
 
-// 1. di = rowsum(o * do): one warp per (b, h, query row).
+// 1. di = rowsum(o * do), and each row's softmax reference (x_ref, off):
+// (lse log2e, 0), or for a row that sees no key (BF16_NEG log2e, log2 n).
+// One warp per (b, h, query row).
 __global__ void __launch_bounds__(32 * kDeltaWarps)
     bias_attention_delta_kernel(const BiasAttnBwdArgs a) {
   const long long row = (static_cast<long long>(blockIdx.x) * kDeltaWarps +
@@ -88,330 +123,411 @@ __global__ void __launch_bounds__(32 * kDeltaWarps)
     s += __bfloat162float(o[c]) * __bfloat162float(d[c]);
 #pragma unroll
   for (int m = 16; m > 0; m >>= 1) s += __shfl_xor_sync(0xffffffffu, s, m);
-  if (lane == 0) a.delta[row] = s;
+  if (lane == 0) {
+    a.delta[row] = s;
+    const float dead = a.rowdead[static_cast<long long>(b) * a.lq + r];
+    a.rowref[2 * row] = dead >= 0.f ? kBf16Neg * kLog2e : a.lse[row] * kLog2e;
+    a.rowref[2 * row + 1] = dead >= 0.f ? dead : 0.f;
+  }
 }
 
-// Pack the 16x16 A fragment of keys-or-queries j*16..j*16+15 from two
-// neighbouring C tiles (attention_common.cuh: the C layout of two n-tiles is
-// exactly one A fragment).
-__device__ __forceinline__ void pack_a(uint32_t pa[4], const float c0[4],
-                                       const float c1[4]) {
-  pa[0] = pack_bf16(c0[0], c0[1]);
-  pa[1] = pack_bf16(c0[2], c0[3]);
-  pa[2] = pack_bf16(c1[0], c1[1]);
-  pa[3] = pack_bf16(c1[2], c1[3]);
+// Copy the bias tile of query rows q0.. and keys k0.. into bs [64][kBiasLd]
+// (rows past Lq zero; keys past Lk hold whatever the row holds there, and
+// are masked by the caller): cp.async when the rows allow 16-byte loads,
+// else plain loads.
+__device__ __forceinline__ void load_bias_tile(bf16* bs, const BiasAttnBwdArgs& a,
+                                               int b, int q0, int k0, int tid) {
+  const bf16* src = static_cast<const bf16*>(a.bias) + b * a.bias_sb +
+                    q0 * a.bias_sq + k0;
+  const int rows = min(kBlockQ, a.lq - q0);
+  if (a.bias_vec) {
+    for (int i = tid; i < kBlockQ * kBlockK / 8; i += kThreads) {
+      const int r = i / (kBlockK / 8), c = (i % (kBlockK / 8)) * 8;
+      async_copy16(bs + r * kBiasLd + c, src + (r < rows ? r * a.bias_sq + c : 0),
+                 r < rows && k0 + c < a.lk);
+    }
+  } else {
+    for (int i = tid; i < kBlockQ * kBlockK; i += kThreads) {
+      const int r = i / kBlockK, c = i % kBlockK;
+      bs[r * kBiasLd + c] = (r < rows && k0 + c < a.lk)
+                                ? src[r * a.bias_sq + c]
+                                : __float2bfloat16(0.f);
+    }
+  }
 }
 
-template <int D>
-constexpr int dkdv_smem_bytes() {
-  // K, V, Q, dO tiles [64][D+8] bf16; the bias tile [64 q][64+8 k] bf16;
-  // lse and delta of the query tile
-  return (2 * kBlockK + 2 * kBlockQ) * (D + 8) * 2 +
-         kBlockQ * (kBlockK + 8) * 2 + 2 * kBlockQ * 4;
+constexpr int kStages = 2;  // ring depth of the streamed tiles
+constexpr int kTile = kBlockK * kHeadDim;  // one core-matrix tile (elements)
+
+// dK/dV kernel shared memory: K, V; per stage Q, dO, the bias tile, delta
+// and the softmax references of the query tile; the list of query tiles.
+constexpr int kDkdvStage = 2 * kTile * 2 + kBlockQ * kBiasLd * 2 +
+                           3 * kBlockQ * 4;
+__host__ __device__ constexpr int dkdv_smem_bytes(int nq) {
+  return 2 * kTile * 2 + kStages * kDkdvStage + nq * 4;
 }
 
 // 2. dK/dV of one 64-key tile of one kv head; warp w owns keys w*16..+15.
-// Per query tile it forms the transposed products, rows = keys:
-//   S^T = K.Q^T, P^T = exp2(S^T scale_log2 + bias^T log2e - lse log2e),
+// Per non-empty query tile of the map's column, for each q head of the
+// group, the transposed products, rows = keys:
+//   S^T = K.Q^T, P^T = exp2(S^T scale_log2 + bias^T log2e - x_ref) 2^-off,
 //   dV += P^T.dO, dP^T = V.dO^T, dS^T = P^T (dP^T - di) scale, dK += dS^T.Q
 template <int D>
 __global__ void __launch_bounds__(kThreads)
     bias_attention_dkdv_kernel(const BiasAttnBwdArgs a) {
-  constexpr int LDS = D + 8;
-  constexpr int LDB = kBlockK + 8;
-  constexpr int KS = D / 16;
+  static_assert(D == kHeadDim, "tiles are laid out for kHeadDim");
   constexpr int NO = D / 8;
-  constexpr int NQ = kBlockQ / 8;
-  extern __shared__ __align__(16) unsigned char smem[];
+  extern __shared__ __align__(128) unsigned char smem[];
   bf16* ks = reinterpret_cast<bf16*>(smem);
-  bf16* vs = ks + kBlockK * LDS;
-  bf16* qs = vs + kBlockK * LDS;
-  bf16* dos = qs + kBlockQ * LDS;
-  bf16* bs = dos + kBlockQ * LDS;
-  float* lse_s = reinterpret_cast<float*>(bs + kBlockQ * LDB);
-  float* dl_s = lse_s + kBlockQ;
+  bf16* vs = ks + kTile;
+  unsigned char* stages = smem + 2 * kTile * 2;
+  int* list = reinterpret_cast<int*>(stages + kStages * kDkdvStage);
 
   const int b = blockIdx.z, hk = blockIdx.y, k0 = blockIdx.x * kBlockK;
   const int group = a.heads / a.kv_heads;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int nq = (a.lq + kBlockQ - 1) / kBlockQ;
+  const int nk = (a.lk + kBlockK - 1) / kBlockK;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
   const int kvalid = min(kBlockK, a.lk - k0);
-  const int kr0 = warp * 16 + g, kr1 = kr0 + 8;  // this thread's key rows
 
-  load_tile<D, kBlockK, LDS>(
+  async_copy_tile<kBlockK, kThreads>(
       ks, static_cast<const bf16*>(a.k) + b * a.k_sb + hk * a.k_sh +
-              k0 * a.k_sl, a.k_sl, kvalid);
-  load_tile<D, kBlockK, LDS>(
+              k0 * a.k_sl, a.k_sl, kvalid, tid);
+  async_copy_tile<kBlockK, kThreads>(
       vs, static_cast<const bf16*>(a.v) + b * a.v_sb + hk * a.v_sh +
-              k0 * a.v_sl, a.v_sl, kvalid);
-  const bf16* bias = static_cast<const bf16*>(a.bias) + b * a.bias_sb + k0;
+              k0 * a.v_sl, a.v_sl, kvalid, tid);
+  async_commit();
+  const int n = gather_tiles(
+      a.tile_map + static_cast<long long>(b) * nq * nk + blockIdx.x, nk, nq,
+      list);
+  const int pairs = n * group;  // (q head, query tile), head-major
 
-  float dk[NO][4], dv[NO][4];
-#pragma unroll
-  for (int n = 0; n < NO; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.f;
-
-  for (int i = 0; i < group; ++i) {
-    const int h = hk * group + i;
-    const bf16* qp = static_cast<const bf16*>(a.q) + b * a.q_sb + h * a.q_sh;
-    const bf16* dop =
-        static_cast<const bf16*>(a.dout) + b * a.do_sb + h * a.do_sh;
-    const long long row0 = (static_cast<long long>(b) * a.heads + h) * a.lq;
-    for (int q0 = 0; q0 < a.lq; q0 += kBlockQ) {
-      const int qvalid = min(kBlockQ, a.lq - q0);
-      __syncthreads();  // the previous tile's reads are done
-      load_tile<D, kBlockQ, LDS>(qs, qp + q0 * a.q_sl, a.q_sl, qvalid);
-      load_tile<D, kBlockQ, LDS>(dos, dop + q0 * a.do_sl, a.do_sl, qvalid);
-      for (int idx = threadIdx.x; idx < kBlockQ * kBlockK; idx += kThreads) {
-        const int r = idx / kBlockK, c = idx % kBlockK;
-        bs[r * LDB + c] = (r < qvalid && c < kvalid)
-                              ? bias[(q0 + r) * a.bias_sq + c]
-                              : __float2bfloat16(0.f);
-      }
-      if (threadIdx.x < kBlockQ) {
-        const int r = threadIdx.x;
-        lse_s[r] = r < qvalid ? a.lse[row0 + q0 + r] * kLog2e : 0.f;
-        dl_s[r] = r < qvalid ? a.delta[row0 + q0 + r] : 0.f;
-      }
-      __syncthreads();
-
-      float s[NQ][4];
-#pragma unroll
-      for (int n = 0; n < NQ; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < KS; ++kk) {
-        uint32_t ka[4];
-        load_a(ka, ks + warp * 16 * LDS + kk * 16, LDS, lane);
-#pragma unroll
-        for (int n = 0; n < NQ; ++n) {
-          uint32_t b0, b1;
-          load_b_kt(b0, b1, qs + n * 8 * LDS + kk * 16, LDS, lane);
-          mma_16816(s[n], ka, b0, b1);
-        }
-      }
-      // P^T; queries past Lq and keys past Lk weigh nothing
-#pragma unroll
-      for (int n = 0; n < NQ; ++n) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int kr = e < 2 ? kr0 : kr1;
-          const int qc = n * 8 + 2 * t + (e & 1);
-          float p = 0.f;
-          if (kr < kvalid && qc < qvalid)
-            p = exp2f(s[n][e] * a.scale_log2 +
-                      __bfloat162float(bs[qc * LDB + kr]) * kLog2e -
-                      lse_s[qc]);
-          s[n][e] = p;
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < kBlockQ / 16; ++j) {
-        uint32_t pa[4];
-        pack_a(pa, s[2 * j], s[2 * j + 1]);
-#pragma unroll
-        for (int n = 0; n < NO; ++n) {
-          uint32_t b0, b1;
-          load_b_v(b0, b1, dos + j * 16 * LDS + n * 8, LDS, lane);
-          mma_16816(dv[n], pa, b0, b1);
-        }
-      }
-      float dp[NQ][4];
-#pragma unroll
-      for (int n = 0; n < NQ; ++n)
-        dp[n][0] = dp[n][1] = dp[n][2] = dp[n][3] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < KS; ++kk) {
-        uint32_t va[4];
-        load_a(va, vs + warp * 16 * LDS + kk * 16, LDS, lane);
-#pragma unroll
-        for (int n = 0; n < NQ; ++n) {
-          uint32_t b0, b1;
-          load_b_kt(b0, b1, dos + n * 8 * LDS + kk * 16, LDS, lane);
-          mma_16816(dp[n], va, b0, b1);
-        }
-      }
-#pragma unroll
-      for (int n = 0; n < NQ; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          s[n][e] *= (dp[n][e] - dl_s[n * 8 + 2 * t + (e & 1)]) * a.scale;
-#pragma unroll
-      for (int j = 0; j < kBlockQ / 16; ++j) {
-        uint32_t pa[4];
-        pack_a(pa, s[2 * j], s[2 * j + 1]);
-#pragma unroll
-        for (int n = 0; n < NO; ++n) {
-          uint32_t b0, b1;
-          load_b_v(b0, b1, qs + j * 16 * LDS + n * 8, LDS, lane);
-          mma_16816(dk[n], pa, b0, b1);
-        }
-      }
+  auto stage = [&](int st, bf16*& qs, bf16*& dos, bf16*& bs, float*& dl,
+                   float*& ref) {
+    unsigned char* p = stages + st * kDkdvStage;
+    qs = reinterpret_cast<bf16*>(p);
+    dos = qs + kTile;
+    bs = dos + kTile;
+    dl = reinterpret_cast<float*>(bs + kBlockQ * kBiasLd);
+    ref = dl + kBlockQ;
+  };
+  auto prefetch = [&](int i) {
+    bf16 *qs, *dos, *bs;
+    float *dl, *ref;
+    stage(i % kStages, qs, dos, bs, dl, ref);
+    const int e = list[i % n], q0 = (e >> 2) * kBlockQ;
+    const int h = hk * group + i / n;
+    const int qvalid = min(kBlockQ, a.lq - q0);
+    async_copy_tile<kBlockQ, kThreads>(
+        qs, static_cast<const bf16*>(a.q) + b * a.q_sb + h * a.q_sh +
+                q0 * a.q_sl, a.q_sl, qvalid, tid);
+    async_copy_tile<kBlockQ, kThreads>(
+        dos, static_cast<const bf16*>(a.dout) + b * a.do_sb + h * a.do_sh +
+                 q0 * a.do_sl, a.do_sl, qvalid, tid);
+    const long long row0 = (static_cast<long long>(b) * a.heads + h) * a.lq + q0;
+    for (int c = tid; c < 3 * kBlockQ; c += kThreads) {
+      const int r = c < kBlockQ ? c : (c - kBlockQ) >> 1;
+      const bool ok = r < qvalid;
+      if (c < kBlockQ)
+        async_copy4(dl + c, a.delta + (ok ? row0 + c : 0), ok);
+      else
+        async_copy4(ref + (c - kBlockQ), a.rowref + (ok ? 2 * row0 + c - kBlockQ : 0),
+                  ok);
     }
+    if ((e & 3) == kTilePartial) load_bias_tile(bs, a, b, q0, k0, tid);
+  };
+  for (int p = 0; p < kStages - 1; ++p) {  // the ring's first tiles
+    if (p < pairs) prefetch(p);
+    async_commit();
   }
 
+  float dk[NO * 4], dv[NO * 4];
+#pragma unroll
+  for (int i = 0; i < NO * 4; ++i) dk[i] = dv[i] = 0.f;
+
+  for (int i = 0; i < pairs; ++i) {
+    if (i + kStages - 1 < pairs) prefetch(i + kStages - 1);
+    async_commit();
+    async_wait<kStages - 1>();
+    fence_async_shared();
+    __syncthreads();
+    bf16 *qs, *dos, *bs;
+    float *dl, *ref;
+    stage(i % kStages, qs, dos, bs, dl, ref);
+    const int e = list[i % n], q0 = (e >> 2) * kBlockQ;
+
+    float st[32], dpt[32];
+#pragma unroll
+    for (int j = 0; j < 32; ++j) st[j] = dpt[j] = 0.f;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_64x64_ss(st, desc_k_major(ks, kk), desc_k_major(qs, kk), 1);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_64x64_ss(dpt, desc_k_major(vs, kk), desc_k_major(dos, kk), 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(st);
+    fence_regs(dpt);
+
+    // P^T and dS^T; in a partial tile, queries past Lq and keys past Lk
+    // weigh nothing
+    const bool partial = (e & 3) == kTilePartial;
+    const int qvalid = min(kBlockQ, a.lq - q0);
+#pragma unroll
+    for (int j = 0; j < 32; ++j) {
+      const int kr = warp * 16 + g + ((j & 2) ? 8 : 0);
+      const int qc = (j >> 2) * 8 + 2 * t + (j & 1);
+      float x = st[j] * a.scale_log2;
+      bool ok = true;
+      if (partial) {
+        ok = kr < kvalid && qc < qvalid;
+        x += __bfloat162float(bs[qc * kBiasLd + kr]) * kLog2e;
+      }
+      const float p = ok ? exp2f((x - ref[2 * qc]) - ref[2 * qc + 1]) : 0.f;
+      st[j] = p;
+      dpt[j] = p * (dpt[j] - dl[qc]) * a.scale;
+    }
+    uint32_t pa[kBlockQ / 16][4], da[kBlockQ / 16][4];
+#pragma unroll
+    for (int j = 0; j < kBlockQ / 16; ++j) {
+      acc_to_a(pa[j], st + 8 * j);
+      acc_to_a(da[j], dpt + 8 * j);
+    }
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < kBlockQ / 16; ++j)
+      wgmma_64x96_rs(dv, pa[j], desc_mn_major(dos, j));
+#pragma unroll
+    for (int j = 0; j < kBlockQ / 16; ++j)
+      wgmma_64x96_rs(dk, da[j], desc_mn_major(qs, j));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dv);
+    fence_regs(dk);
+    __syncthreads();  // every warp is done with this stage before its refill
+  }
+  async_wait<0>();
+
+  const int kr0 = warp * 16 + g, kr1 = kr0 + 8;  // this thread's key rows
   bf16* dkp = static_cast<bf16*>(a.dk) + b * a.dkv_sb + hk * a.dkv_sh;
   bf16* dvp = static_cast<bf16*>(a.dv) + b * a.dkv_sb + hk * a.dkv_sh;
 #pragma unroll
-  for (int n = 0; n < NO; ++n) {
-    const int c = n * 8 + 2 * t;
+  for (int n8 = 0; n8 < NO; ++n8) {
+    const int c = n8 * 8 + 2 * t;
     if (kr0 < kvalid) {
       const long long off = (k0 + kr0) * a.dkv_sl + c;
-      *reinterpret_cast<uint32_t*>(dkp + off) = pack_bf16(dk[n][0], dk[n][1]);
-      *reinterpret_cast<uint32_t*>(dvp + off) = pack_bf16(dv[n][0], dv[n][1]);
+      *reinterpret_cast<uint32_t*>(dkp + off) =
+          pack_bf16(dk[4 * n8], dk[4 * n8 + 1]);
+      *reinterpret_cast<uint32_t*>(dvp + off) =
+          pack_bf16(dv[4 * n8], dv[4 * n8 + 1]);
     }
     if (kr1 < kvalid) {
       const long long off = (k0 + kr1) * a.dkv_sl + c;
-      *reinterpret_cast<uint32_t*>(dkp + off) = pack_bf16(dk[n][2], dk[n][3]);
-      *reinterpret_cast<uint32_t*>(dvp + off) = pack_bf16(dv[n][2], dv[n][3]);
+      *reinterpret_cast<uint32_t*>(dkp + off) =
+          pack_bf16(dk[4 * n8 + 2], dk[4 * n8 + 3]);
+      *reinterpret_cast<uint32_t*>(dvp + off) =
+          pack_bf16(dv[4 * n8 + 2], dv[4 * n8 + 3]);
     }
   }
 }
 
-// 3. dQ of one 64-row query tile of one head; warp w owns rows w*16..+15,
-// keys stream through shared memory in 64-key tiles:
-//   S = Q.K^T, P = exp2(S scale_log2 + bias log2e - lse log2e),
+// dQ kernel shared memory: Q, dO; per stage K, V and the bias tile; the
+// list of key tiles.
+constexpr int kDqStage = 2 * kTile * 2 + kBlockQ * kBiasLd * 2;
+__host__ __device__ constexpr int dq_smem_bytes(int nk) {
+  return 2 * kTile * 2 + kStages * kDqStage + nk * 4;
+}
+
+// 3. dQ of one 64-row query tile of one head; warp w owns rows w*16..+15;
+// the non-empty key tiles of the map's row stream through the ring:
+//   S = Q.K^T, P = exp2(S scale_log2 + bias log2e - x_ref) 2^-off,
 //   dP = dO.V^T, dS = P (dP - di) scale, dQ += dS.K
 template <int D>
 __global__ void __launch_bounds__(kThreads)
     bias_attention_dq_kernel(const BiasAttnBwdArgs a) {
-  constexpr int LDS = D + 8;
-  constexpr int KS = D / 16;
+  static_assert(D == kHeadDim, "tiles are laid out for kHeadDim");
   constexpr int NO = D / 8;
-  constexpr int NS = kBlockK / 8;
-  // Q and dO pass through these tiles first, then K and V
-  __shared__ __align__(16) bf16 ks[kBlockK * LDS];
-  __shared__ __align__(16) bf16 vs[kBlockK * LDS];
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* qs = reinterpret_cast<bf16*>(smem);
+  bf16* dos = qs + kTile;
+  unsigned char* stages = smem + 2 * kTile * 2;
+  int* list = reinterpret_cast<int*>(stages + kStages * kDqStage);
 
   const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * kBlockQ;
   const int hk = h / (a.heads / a.kv_heads);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int nq = (a.lq + kBlockQ - 1) / kBlockQ;
+  const int nk = (a.lk + kBlockK - 1) / kBlockK;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
   const int qvalid = min(kBlockQ, a.lq - q0);
 
-  load_tile<D, kBlockQ, LDS>(
-      ks, static_cast<const bf16*>(a.q) + b * a.q_sb + h * a.q_sh +
-              q0 * a.q_sl, a.q_sl, qvalid);
-  load_tile<D, kBlockQ, LDS>(
-      vs, static_cast<const bf16*>(a.dout) + b * a.do_sb + h * a.do_sh +
-              q0 * a.do_sl, a.do_sl, qvalid);
-  __syncthreads();
-  uint32_t qa[KS][4], da[KS][4];
-#pragma unroll
-  for (int kk = 0; kk < KS; ++kk) {
-    load_a(qa[kk], ks + warp * 16 * LDS + kk * 16, LDS, lane);
-    load_a(da[kk], vs + warp * 16 * LDS + kk * 16, LDS, lane);
-  }
-
-  const int r0 = q0 + warp * 16 + g, r1 = r0 + 8;
-  const long long row0 = (static_cast<long long>(b) * a.heads + h) * a.lq;
-  const float lse0 = r0 < a.lq ? a.lse[row0 + r0] * kLog2e : 0.f;
-  const float lse1 = r1 < a.lq ? a.lse[row0 + r1] * kLog2e : 0.f;
-  const float dl0 = r0 < a.lq ? a.delta[row0 + r0] : 0.f;
-  const float dl1 = r1 < a.lq ? a.delta[row0 + r1] : 0.f;
-  // rows past Lq read no bias (their dq is never stored)
-  const bf16* bias = static_cast<const bf16*>(a.bias) + b * a.bias_sb;
-  const bf16* brow0 = r0 < a.lq ? bias + r0 * a.bias_sq : nullptr;
-  const bf16* brow1 = r1 < a.lq ? bias + r1 * a.bias_sq : nullptr;
-
-  float dq[NO][4];
-#pragma unroll
-  for (int n = 0; n < NO; ++n) dq[n][0] = dq[n][1] = dq[n][2] = dq[n][3] = 0.f;
+  async_copy_tile<kBlockQ, kThreads>(
+      qs, static_cast<const bf16*>(a.q) + b * a.q_sb + h * a.q_sh +
+              q0 * a.q_sl, a.q_sl, qvalid, tid);
+  async_copy_tile<kBlockQ, kThreads>(
+      dos, static_cast<const bf16*>(a.dout) + b * a.do_sb + h * a.do_sh +
+               q0 * a.do_sl, a.do_sl, qvalid, tid);
+  async_commit();
+  const int n = gather_tiles(
+      a.tile_map + (static_cast<long long>(b) * nq + blockIdx.x) * nk, 1, nk,
+      list);
 
   const bf16* kp = static_cast<const bf16*>(a.k) + b * a.k_sb + hk * a.k_sh;
   const bf16* vp = static_cast<const bf16*>(a.v) + b * a.v_sb + hk * a.v_sh;
-  for (int k0 = 0; k0 < a.lk; k0 += kBlockK) {
+  auto prefetch = [&](int i) {
+    bf16* kt = reinterpret_cast<bf16*>(stages + (i % kStages) * kDqStage);
+    const int e = list[i], k0 = (e >> 2) * kBlockK;
     const int valid = min(kBlockK, a.lk - k0);
-    __syncthreads();
-    load_tile<D, kBlockK, LDS>(ks, kp + k0 * a.k_sl, a.k_sl, valid);
-    load_tile<D, kBlockK, LDS>(vs, vp + k0 * a.v_sl, a.v_sl, valid);
-    __syncthreads();
-
-    float s[NS][4], dp[NS][4];
-#pragma unroll
-    for (int n = 0; n < NS; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < KS; ++kk) {
-#pragma unroll
-      for (int n = 0; n < NS; ++n) {
-        uint32_t b0, b1;
-        load_b_kt(b0, b1, ks + n * 8 * LDS + kk * 16, LDS, lane);
-        mma_16816(s[n], qa[kk], b0, b1);
-        load_b_kt(b0, b1, vs + n * 8 * LDS + kk * 16, LDS, lane);
-        mma_16816(dp[n], da[kk], b0, b1);
-      }
-    }
-#pragma unroll
-    for (int n = 0; n < NS; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = n * 8 + 2 * t + (e & 1);
-        const bf16* brow = e < 2 ? brow0 : brow1;
-        float ds = 0.f;
-        if (col < valid && brow != nullptr) {
-          const float p = exp2f(s[n][e] * a.scale_log2 +
-                                __bfloat162float(brow[k0 + col]) * kLog2e -
-                                (e < 2 ? lse0 : lse1));
-          ds = p * (dp[n][e] - (e < 2 ? dl0 : dl1)) * a.scale;
-        }
-        s[n][e] = ds;
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < kBlockK / 16; ++j) {
-      uint32_t pa[4];
-      pack_a(pa, s[2 * j], s[2 * j + 1]);
-#pragma unroll
-      for (int n = 0; n < NO; ++n) {
-        uint32_t b0, b1;
-        load_b_v(b0, b1, ks + j * 16 * LDS + n * 8, LDS, lane);
-        mma_16816(dq[n], pa, b0, b1);
-      }
-    }
+    async_copy_tile<kBlockK, kThreads>(kt, kp + k0 * a.k_sl, a.k_sl, valid,
+                                     tid);
+    async_copy_tile<kBlockK, kThreads>(kt + kTile, vp + k0 * a.v_sl, a.v_sl,
+                                     valid, tid);
+    if ((e & 3) == kTilePartial)
+      load_bias_tile(kt + 2 * kTile, a, b, q0, k0, tid);
+  };
+  for (int p = 0; p < kStages - 1; ++p) {  // the ring's first tiles
+    if (p < n) prefetch(p);
+    async_commit();
   }
+
+  // this thread's rows: local lr0 / lr0 + 8, their di and softmax reference
+  const int lr0 = warp * 16 + g;
+  const int r0 = q0 + lr0, r1 = r0 + 8;
+  const long long row0 = (static_cast<long long>(b) * a.heads + h) * a.lq;
+  float dl[2] = {0.f, 0.f}, xr[2] = {0.f, 0.f}, off[2] = {0.f, 0.f};
+  if (r0 < a.lq) {
+    dl[0] = a.delta[row0 + r0];
+    xr[0] = a.rowref[2 * (row0 + r0)];
+    off[0] = a.rowref[2 * (row0 + r0) + 1];
+  }
+  if (r1 < a.lq) {
+    dl[1] = a.delta[row0 + r1];
+    xr[1] = a.rowref[2 * (row0 + r1)];
+    off[1] = a.rowref[2 * (row0 + r1) + 1];
+  }
+
+  float dq[NO * 4];
+#pragma unroll
+  for (int i = 0; i < NO * 4; ++i) dq[i] = 0.f;
+
+  for (int i = 0; i < n; ++i) {
+    if (i + kStages - 1 < n) prefetch(i + kStages - 1);
+    async_commit();
+    async_wait<kStages - 1>();
+    fence_async_shared();
+    __syncthreads();
+    const bf16* kt = reinterpret_cast<const bf16*>(stages +
+                                                   (i % kStages) * kDqStage);
+    const bf16* vt = kt + kTile;
+    const bf16* bs = kt + 2 * kTile;
+    const int e = list[i], k0 = (e >> 2) * kBlockK;
+
+    float s[32], dp[32];
+#pragma unroll
+    for (int j = 0; j < 32; ++j) s[j] = dp[j] = 0.f;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_64x64_ss(s, desc_k_major(qs, kk), desc_k_major(kt, kk), 1);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_64x64_ss(dp, desc_k_major(dos, kk), desc_k_major(vt, kk), 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+    fence_regs(dp);
+
+    const bool partial = (e & 3) == kTilePartial;
+    const int kvalid = min(kBlockK, a.lk - k0);
+#pragma unroll
+    for (int j = 0; j < 32; ++j) {
+      const int hi = (j >> 1) & 1;  // 0: row lr0, 1: row lr0 + 8
+      const int col = (j >> 2) * 8 + 2 * t + (j & 1);
+      float x = s[j] * a.scale_log2;
+      bool ok = true;
+      if (partial) {
+        ok = col < kvalid && (hi ? r1 : r0) < a.lq;
+        x += __bfloat162float(bs[(lr0 + 8 * hi) * kBiasLd + col]) * kLog2e;
+      }
+      const float p = ok ? exp2f((x - xr[hi]) - off[hi]) : 0.f;
+      s[j] = p * (dp[j] - dl[hi]) * a.scale;
+    }
+    uint32_t da[kBlockK / 16][4];
+#pragma unroll
+    for (int j = 0; j < kBlockK / 16; ++j) acc_to_a(da[j], s + 8 * j);
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < kBlockK / 16; ++j)
+      wgmma_64x96_rs(dq, da[j], desc_mn_major(kt, j));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dq);
+    __syncthreads();
+  }
+  async_wait<0>();
 
   bf16* out = static_cast<bf16*>(a.dq) + b * a.dq_sb + h * a.dq_sh;
 #pragma unroll
-  for (int n = 0; n < NO; ++n) {
-    const int c = n * 8 + 2 * t;
+  for (int n8 = 0; n8 < NO; ++n8) {
+    const int c = n8 * 8 + 2 * t;
     if (r0 < a.lq)
       *reinterpret_cast<uint32_t*>(out + r0 * a.dq_sl + c) =
-          pack_bf16(dq[n][0], dq[n][1]);
+          pack_bf16(dq[4 * n8], dq[4 * n8 + 1]);
     if (r1 < a.lq)
       *reinterpret_cast<uint32_t*>(out + r1 * a.dq_sl + c) =
-          pack_bf16(dq[n][2], dq[n][3]);
+          pack_bf16(dq[4 * n8 + 2], dq[4 * n8 + 3]);
   }
 }
 
 }  // namespace vgt
 
-// Launches the three kernels on `stream`, in order; returns the first
-// nonzero cudaGetLastError() (0 = all launched).
+// Launches on `stream`, in order: the tile map, then (unless map_only) the
+// delta pre-pass, dK/dV and dQ; returns the first nonzero
+// cudaGetLastError() (0 = all launched).
 extern "C" int vgt_bias_attention_bwd(const vgt::BiasAttnBwdArgs* a,
                                       void* stream) {
   using namespace vgt;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (a->head_dim != kHeadDim) return static_cast<int>(cudaErrorInvalidValue);
+  const int nq = (a->lq + kBlockQ - 1) / kBlockQ;
+  const int nk = (a->lk + kBlockK - 1) / kBlockK;
+  cudaError_t err = cudaFuncSetAttribute(
+      bias_tile_map_kernel<kBlockQ, kBlockK>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, nk);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  bias_tile_map_kernel<kBlockQ, kBlockK>
+      <<<dim3(nq, a->batch), 2 * kBlockQ, nk, s>>>(
+          static_cast<const bf16*>(a->bias), a->bias_sb, a->bias_sq, a->lq,
+          a->lk, a->bias_vec != 0, a->tile_map, a->rowdead);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || a->map_only) return static_cast<int>(err);
+
   const long long rows = static_cast<long long>(a->batch) * a->heads * a->lq;
   bias_attention_delta_kernel<<<
       static_cast<unsigned>((rows + kDeltaWarps - 1) / kDeltaWarps),
       32 * kDeltaWarps, 0, s>>>(*a);
-  cudaError_t err = cudaGetLastError();
+  err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
 
-  constexpr int smem = dkdv_smem_bytes<kHeadDim>();
+  int smem = dkdv_smem_bytes(nq);
   err = cudaFuncSetAttribute(bias_attention_dkdv_kernel<kHeadDim>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid_kv((a->lk + kBlockK - 1) / kBlockK, a->kv_heads, a->batch);
+  const dim3 grid_kv(nk, a->kv_heads, a->batch);
   bias_attention_dkdv_kernel<kHeadDim><<<grid_kv, kThreads, smem, s>>>(*a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
 
-  const dim3 grid_q((a->lq + kBlockQ - 1) / kBlockQ, a->heads, a->batch);
-  bias_attention_dq_kernel<kHeadDim><<<grid_q, kThreads, 0, s>>>(*a);
+  smem = dq_smem_bytes(nk);
+  err = cudaFuncSetAttribute(bias_attention_dq_kernel<kHeadDim>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid_q(nq, a->heads, a->batch);
+  bias_attention_dq_kernel<kHeadDim><<<grid_q, kThreads, smem, s>>>(*a);
   return static_cast<int>(cudaGetLastError());
 }

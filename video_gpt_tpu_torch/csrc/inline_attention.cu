@@ -23,14 +23,28 @@
 // no visible key, so masked keys weigh exactly 0 on every path.
 //
 // What bounds it on the card: at stage 4 (B 1, L 35520, 32 heads of 96)
-// about 1.26e9 x 0.27 visible pairs per head, 4 FLOPs x 96 each: ~16 TFLOP
-// of visible-pair products against ~0.2 GB of operands, so tensor
-// throughput bounds it. This first version computes every tile, masked or
-// not (no tile skipping), with mma.sync and no wgmma or TMA.
-// Design: K3's (bias_attention.cu) -- 64 query rows of one head per block,
-// K/V tiles through shared memory with the tile's key metadata beside them,
-// bf16 mma.sync with fp32 accumulate, online softmax with the probabilities
-// kept in registers -- with the bias read replaced by the rule.
+// 0.261 of the 1.26e9 pairs per head are visible: 4 FLOPs x 96 each over
+// 32 heads is 4.04 TFLOP of visible-pair products against ~0.2 GB of
+// operands, so tensor throughput bounds it (4.09 ms at 989 TFLOP/s).
+//
+// Design. One launch sequence per call:
+//   1. tile_map.cuh's metadata classifier: per-tile summaries of the query
+//      and key metadata (O(L)), then the class of every (64-row query tile,
+//      64-key tile) pair, and the query tiles ordered by their count of
+//      non-empty key tiles, most first, so that the long rows start first
+//      and the grid does not end on a few of them;
+//   2. the attention: one block (one warpgroup, 4 warps) per (query tile,
+//      head), the query tiles in that order. The block gathers the
+//      non-empty key tiles of its row of the map and streams only those:
+//      K and V through a two-stage ring in shared memory filled by cp.async
+//      one tile ahead of the products (the key metadata beside them, for
+//      partial tiles only). S = Q.K^T and O += P.V are wgmma (m64n64k16
+//      from shared memory; m64n96k16 with P from registers, V MN-major),
+//      fp32 accumulate, online softmax in registers between them. Partial
+//      tiles evaluate the rule per element; full tiles skip it. At stage 4
+//      0.301 of the 64x64 tiles are non-empty (0.211 full).
+// Masked keys are skipped or weigh exactly 0, so skipping a tile changes no
+// sum: an empty tile holds only pairs that would add exp2(-inf) = 0.
 #include <math_constants.h>
 
 #include "inline_mask.cuh"
@@ -54,79 +68,129 @@ struct InlineAttnArgs {
   long long o_sb, o_sl, o_sh;
   int batch, heads, kv_heads, lq, lk, head_dim;
   float scale_log2;   // head_dim^-0.5 * log2(e)
+  int8_t* tile_map;   // [B, ceil(Lq/64), ceil(Lk/64)] tile classes (written)
+  int* scratch;       // B (nq + nk) 8 + 2 B nq ints (written): the query-
+                      // and key-tile summaries, each query tile's count of
+                      // non-empty key tiles, the launch order
+  int map_only;       // 1: build the tile map and stop
 };
+
+constexpr int kStages = 2;  // K/V ring depth
+
+__host__ __device__ constexpr int inline_smem_bytes(int nk) {
+  // Q, the K and V ring (core-matrix tiles), the ring's key metadata, the
+  // block's list of non-empty key tiles
+  return (kBlockQ + 2 * kStages * kBlockK) * kHeadDim * 2 +
+         kStages * 3 * kBlockK * 4 + nk * 4;
+}
 
 template <int D>
 __global__ void __launch_bounds__(kThreads)
-    inline_attention_kernel(const InlineAttnArgs a) {
-  constexpr int LDS = D + 8;
-  constexpr int KS = D / 16;
+    inline_attention_kernel(const InlineAttnArgs a, const int* order) {
+  static_assert(D == kHeadDim, "tiles are laid out for kHeadDim");
   constexpr int NO = D / 8;
-  constexpr int NS = kBlockK / 8;
-  __shared__ __align__(16) bf16 qs[kBlockQ * LDS];
-  __shared__ __align__(16) bf16 ks[kBlockK * LDS];
-  __shared__ __align__(16) bf16 vs[kBlockK * LDS];
-  __shared__ KeyMeta kmeta[kBlockK];
+  constexpr int kTile = kBlockK * D;
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* qs = reinterpret_cast<bf16*>(smem);
+  bf16* ks = qs + kBlockQ * D;            // [kStages][kTile]
+  bf16* vs = ks + kStages * kTile;        // [kStages][kTile]
+  int* kmeta = reinterpret_cast<int*>(vs + kStages * kTile);  // [st][3][64]
+  int* list = kmeta + kStages * 3 * kBlockK;
 
-  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * kBlockQ;
+  const int nq = (a.lq + kBlockQ - 1) / kBlockQ;
+  const int nk = (a.lk + kBlockK - 1) / kBlockK;
+  const int item = order[blockIdx.x];
+  const int b = item / nq, q0 = (item % nq) * kBlockQ, h = blockIdx.y;
   const int hk = h / (a.heads / a.kv_heads);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
 
-  const bf16* qp = static_cast<const bf16*>(a.q) + b * a.q_sb + h * a.q_sh +
-                   q0 * a.q_sl;
-  load_tile<D, kBlockQ, LDS>(qs, qp, a.q_sl, min(kBlockQ, a.lq - q0));
-  const int r0 = q0 + warp * 16 + g, r1 = r0 + 8;
-  const QueryMeta qm0 = query_meta(a.qm, a.qm_sb, b, r0, a.lq);
-  const QueryMeta qm1 = query_meta(a.qm, a.qm_sb, b, r1, a.lq);
-  __syncthreads();
-
-  uint32_t qa[KS][4];
-#pragma unroll
-  for (int kk = 0; kk < KS; ++kk)
-    load_a(qa[kk], qs + warp * 16 * LDS + kk * 16, LDS, lane);
-
-  float o[NO][4];
-#pragma unroll
-  for (int n = 0; n < NO; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
-  float m0 = -CUDART_INF_F, m1 = -CUDART_INF_F;  // running max, log2 units
-  float l0 = 0.f, l1 = 0.f;  // this thread's share of the denominators
+  async_copy_tile<kBlockQ, kThreads>(
+      qs, static_cast<const bf16*>(a.q) + b * a.q_sb + h * a.q_sh +
+              q0 * a.q_sl, a.q_sl, min(kBlockQ, a.lq - q0), tid);
+  async_commit();
+  const int n = gather_tiles(
+      a.tile_map + (static_cast<long long>(b) * nq + q0 / kBlockQ) * nk, 1,
+      nk, list);
 
   const bf16* kp = static_cast<const bf16*>(a.k) + b * a.k_sb + hk * a.k_sh;
   const bf16* vp = static_cast<const bf16*>(a.v) + b * a.v_sb + hk * a.v_sh;
-  for (int k0 = 0; k0 < a.lk; k0 += kBlockK) {
+  // the loads of the i-th listed key tile into stage i % kStages
+  auto prefetch = [&](int i) {
+    const int e = list[i], k0 = (e >> 2) * kBlockK, st = i % kStages;
     const int valid = min(kBlockK, a.lk - k0);
-    __syncthreads();
-    load_tile<D, kBlockK, LDS>(ks, kp + k0 * a.k_sl, a.k_sl, valid);
-    load_tile<D, kBlockK, LDS>(vs, vp + k0 * a.v_sl, a.v_sl, valid);
-    load_key_meta<kBlockK>(kmeta, a.km, a.km_sb, b, k0, a.lk);
-    __syncthreads();
-
-    float s[NS][4];
-#pragma unroll
-    for (int n = 0; n < NS; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < KS; ++kk) {
-#pragma unroll
-      for (int n = 0; n < NS; ++n) {
-        uint32_t b0, b1;
-        load_b_kt(b0, b1, ks + n * 8 * LDS + kk * 16, LDS, lane);
-        mma_16816(s[n], qa[kk], b0, b1);
+    async_copy_tile<kBlockK, kThreads>(ks + st * kTile, kp + k0 * a.k_sl,
+                                     a.k_sl, valid, tid);
+    async_copy_tile<kBlockK, kThreads>(vs + st * kTile, vp + k0 * a.v_sl,
+                                     a.v_sl, valid, tid);
+    if ((e & 3) == kTilePartial) {
+      for (int c = tid; c < 3 * kBlockK; c += kThreads) {
+        const int m = c / kBlockK, j = c % kBlockK;
+        const bool ok = j < valid;
+        async_copy4(kmeta + (st * 3 + m) * kBlockK + j,
+                  a.km[m] + b * a.km_sb[m] + (ok ? k0 + j : 0), ok);
       }
     }
-    // logits in log2 units; masked keys and columns past Lk are -inf
+  };
+  for (int p = 0; p < kStages - 1; ++p) {  // the ring's first tiles
+    if (p < n) prefetch(p);
+    async_commit();
+  }
+
+  const int r0 = q0 + warp * 16 + g, r1 = r0 + 8;
+  const QueryMeta qm0 = query_meta(a.qm, a.qm_sb, b, r0, a.lq);
+  const QueryMeta qm1 = query_meta(a.qm, a.qm_sb, b, r1, a.lq);
+
+  float o[NO * 4];
+#pragma unroll
+  for (int i = 0; i < NO * 4; ++i) o[i] = 0.f;
+  float m0 = -CUDART_INF_F, m1 = -CUDART_INF_F;  // running max, log2 units
+  float l0 = 0.f, l1 = 0.f;  // this thread's share of the denominators
+
+  for (int i = 0; i < n; ++i) {
+    if (i + kStages - 1 < n) prefetch(i + kStages - 1);
+    async_commit();
+    async_wait<kStages - 1>();  // all but the tiles still ahead have landed
+    fence_async_shared();
+    __syncthreads();
+    const int e = list[i], k0 = (e >> 2) * kBlockK, st = i % kStages;
+    const bf16* kt = ks + st * kTile;
+    const bf16* vt = vs + st * kTile;
+
+    float s[32];
+#pragma unroll
+    for (int j = 0; j < 32; ++j) s[j] = 0.f;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_64x64_ss(s, desc_k_major(qs, kk), desc_k_major(kt, kk), 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+
+    // logits in log2 units; in a partial tile masked keys and columns past
+    // Lk are -inf (a full tile lies inside Lk and is wholly visible)
+    if ((e & 3) == kTilePartial) {
+      const int valid = min(kBlockK, a.lk - k0);
+      const int* kv = kmeta + st * 3 * kBlockK;
+#pragma unroll
+      for (int j = 0; j < 32; ++j) {
+        const int col = (j >> 2) * 8 + 2 * t + (j & 1);
+        const KeyMeta km{kv[col], kv[kBlockK + col], kv[2 * kBlockK + col]};
+        const bool vis =
+            col < valid && inline_visible((j & 2) ? qm1 : qm0, km);
+        s[j] = vis ? s[j] * a.scale_log2 : -CUDART_INF_F;
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < 32; ++j) s[j] *= a.scale_log2;
+    }
     float mx0 = -CUDART_INF_F, mx1 = -CUDART_INF_F;
 #pragma unroll
-    for (int n = 0; n < NS; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = n * 8 + 2 * t + (e & 1);
-        const bool vis =
-            col < valid && inline_visible(e < 2 ? qm0 : qm1, kmeta[col]);
-        s[n][e] = vis ? s[n][e] * a.scale_log2 : -CUDART_INF_F;
-      }
-      mx0 = fmaxf(mx0, fmaxf(s[n][0], s[n][1]));
-      mx1 = fmaxf(mx1, fmaxf(s[n][2], s[n][3]));
+    for (int n8 = 0; n8 < 8; ++n8) {
+      mx0 = fmaxf(mx0, fmaxf(s[4 * n8], s[4 * n8 + 1]));
+      mx1 = fmaxf(mx1, fmaxf(s[4 * n8 + 2], s[4 * n8 + 3]));
     }
     const float mn0 = fmaxf(m0, quad_max(mx0));
     const float mn1 = fmaxf(m1, quad_max(mx1));
@@ -139,37 +203,36 @@ __global__ void __launch_bounds__(kThreads)
     m1 = mn1;
     float ls0 = 0.f, ls1 = 0.f;
 #pragma unroll
-    for (int n = 0; n < NS; ++n) {
-      s[n][0] = exp2f(s[n][0] - ms0);
-      s[n][1] = exp2f(s[n][1] - ms0);
-      s[n][2] = exp2f(s[n][2] - ms1);
-      s[n][3] = exp2f(s[n][3] - ms1);
-      ls0 += s[n][0] + s[n][1];
-      ls1 += s[n][2] + s[n][3];
+    for (int n8 = 0; n8 < 8; ++n8) {
+      s[4 * n8] = exp2f(s[4 * n8] - ms0);
+      s[4 * n8 + 1] = exp2f(s[4 * n8 + 1] - ms0);
+      s[4 * n8 + 2] = exp2f(s[4 * n8 + 2] - ms1);
+      s[4 * n8 + 3] = exp2f(s[4 * n8 + 3] - ms1);
+      ls0 += s[4 * n8] + s[4 * n8 + 1];
+      ls1 += s[4 * n8 + 2] + s[4 * n8 + 3];
     }
     l0 = l0 * alpha0 + ls0;
     l1 = l1 * alpha1 + ls1;
+    uint32_t pa[kBlockK / 16][4];
 #pragma unroll
-    for (int n = 0; n < NO; ++n) {
-      o[n][0] *= alpha0;
-      o[n][1] *= alpha0;
-      o[n][2] *= alpha1;
-      o[n][3] *= alpha1;
+    for (int j = 0; j < kBlockK / 16; ++j) acc_to_a(pa[j], s + 8 * j);
+#pragma unroll
+    for (int n8 = 0; n8 < NO; ++n8) {
+      o[4 * n8] *= alpha0;
+      o[4 * n8 + 1] *= alpha0;
+      o[4 * n8 + 2] *= alpha1;
+      o[4 * n8 + 3] *= alpha1;
     }
+    wgmma_fence();
 #pragma unroll
-    for (int j = 0; j < kBlockK / 16; ++j) {
-      const uint32_t pa[4] = {pack_bf16(s[2 * j][0], s[2 * j][1]),
-                              pack_bf16(s[2 * j][2], s[2 * j][3]),
-                              pack_bf16(s[2 * j + 1][0], s[2 * j + 1][1]),
-                              pack_bf16(s[2 * j + 1][2], s[2 * j + 1][3])};
-#pragma unroll
-      for (int n = 0; n < NO; ++n) {
-        uint32_t b0, b1;
-        load_b_v(b0, b1, vs + j * 16 * LDS + n * 8, LDS, lane);
-        mma_16816(o[n], pa, b0, b1);
-      }
-    }
+    for (int j = 0; j < kBlockK / 16; ++j)
+      wgmma_64x96_rs(o, pa[j], desc_mn_major(vt, j));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(o);
+    __syncthreads();  // every warp is done with this stage before its refill
   }
+  async_wait<0>();
 
   const float sum0 = quad_sum(l0), sum1 = quad_sum(l1);
   const float inv0 = sum0 > 0.f ? 1.f / sum0 : 0.f;
@@ -184,28 +247,62 @@ __global__ void __launch_bounds__(kThreads)
   }
   bf16* out = static_cast<bf16*>(a.out) + b * a.o_sb + h * a.o_sh;
 #pragma unroll
-  for (int n = 0; n < NO; ++n) {
-    const int c = n * 8 + 2 * t;
+  for (int n8 = 0; n8 < NO; ++n8) {
+    const int c = n8 * 8 + 2 * t;
     if (r0 < a.lq)
       *reinterpret_cast<uint32_t*>(out + r0 * a.o_sl + c) =
-          pack_bf16(o[n][0] * inv0, o[n][1] * inv0);
+          pack_bf16(o[4 * n8] * inv0, o[4 * n8 + 1] * inv0);
     if (r1 < a.lq)
       *reinterpret_cast<uint32_t*>(out + r1 * a.o_sl + c) =
-          pack_bf16(o[n][2] * inv1, o[n][3] * inv1);
+          pack_bf16(o[4 * n8 + 2] * inv1, o[4 * n8 + 3] * inv1);
   }
 }
 
 }  // namespace vgt
 
-// Launches on `stream`; returns cudaGetLastError() (0 = launched).
+// Launches on `stream`: the tile map (summaries, classes, order), then,
+// unless map_only, the attention; returns the first nonzero
+// cudaGetLastError() (0 = all launched).
 extern "C" int vgt_inline_attention(const vgt::InlineAttnArgs* a,
                                     void* stream) {
-  const dim3 grid((a->lq + vgt::kBlockQ - 1) / vgt::kBlockQ, a->heads,
-                  a->batch);
+  using namespace vgt;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (a->head_dim != vgt::kHeadDim)
-    return static_cast<int>(cudaErrorInvalidValue);
-  vgt::inline_attention_kernel<vgt::kHeadDim>
-      <<<grid, vgt::kThreads, 0, s>>>(*a);
+  if (a->head_dim != kHeadDim) return static_cast<int>(cudaErrorInvalidValue);
+  const int nq = (a->lq + kBlockQ - 1) / kBlockQ;
+  const int nk = (a->lk + kBlockK - 1) / kBlockK;
+  QuerySummary* qsum = reinterpret_cast<QuerySummary*>(a->scratch);
+  KeySummary* ksum =
+      reinterpret_cast<KeySummary*>(qsum + static_cast<long long>(a->batch) * nq);
+  int* counts = reinterpret_cast<int*>(ksum + static_cast<long long>(a->batch) * nk);
+  int* order = counts + static_cast<long long>(a->batch) * nq;
+
+  const long long tiles = static_cast<long long>(a->batch) * (nq + nk);
+  tile_summary_kernel<kBlockQ, kBlockK, InlineAttnArgs>
+      <<<static_cast<unsigned>((tiles + kSummaryWarps - 1) / kSummaryWarps),
+         32 * kSummaryWarps, 0, s>>>(*a, qsum, ksum);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  meta_tile_map_kernel<kBlockQ, kBlockK>
+      <<<dim3(nq, a->batch), kMapThreads, 0, s>>>(qsum, ksum, a->lq, a->lk,
+                                                  a->tile_map, counts);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int order_smem = (nk + 1) * static_cast<int>(sizeof(int));
+  err = cudaFuncSetAttribute(tile_order_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             order_smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  tile_order_kernel<<<1, kOrderThreads, order_smem, s>>>(
+      counts, a->batch * nq, nk, order);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || a->map_only) return static_cast<int>(err);
+
+  const int smem = inline_smem_bytes(nk);
+  err = cudaFuncSetAttribute(inline_attention_kernel<kHeadDim>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  inline_attention_kernel<kHeadDim>
+      <<<dim3(a->batch * nq, a->heads), kThreads, smem, s>>>(*a, order);
   return static_cast<int>(cudaGetLastError());
 }

@@ -5,10 +5,12 @@
 // flash_attention.py). No [Lq, Lk] mask or bias exists anywhere: a block
 // keeps its query rows' metadata in registers (or a query tile's in shared
 // memory) and loads each key tile's metadata into shared memory beside the
-// K/V tile.
+// K/V tile. The tile map of the same rule (which tile pairs hold no visible
+// pair, or only visible ones) is tile_map.cuh's metadata classifier.
 #pragma once
 
 #include "attention_common.cuh"
+#include "tile_map.cuh"
 
 namespace vgt {
 

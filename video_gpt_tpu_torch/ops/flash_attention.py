@@ -25,7 +25,12 @@ Port of every Pallas kernel of ``video_gpt_tpu/ops/flash_attention.py``
 
 K1 and K2 are one CUDA kernel (``csrc/rank_attention.cu``); K3 is
 ``csrc/bias_attention.cu``, K9 ``csrc/bias_attention_bwd.cu``, K6
-``csrc/inline_attention.cu`` and K7 ``csrc/inline_attention_bwd.cu``. Each
+``csrc/inline_attention.cu`` and K7 ``csrc/inline_attention_bwd.cu``. K6
+and K9 compute only the tiles that their mask does not hide entirely: each
+launch first builds a tile map (``csrc/tile_map.cuh``; plain versions
+:func:`inline_tile_classes_reference` and
+:func:`bias_tile_classes_reference`, the map alone
+:func:`inline_tile_classes` and :func:`bias_tile_classes`). Each
 wrapper takes its plain PyTorch version (``*_reference``) for CPU tensors
 only; for CUDA tensors it launches the kernel or raises, and counts the
 launch in its ``launches`` attribute (K1-K3 also in ``long_launches``
@@ -60,6 +65,10 @@ KERNEL_HEAD_DIM = 96
 # K4, K5 and K10, whose function K1, K2 and K3 compute here. Those three
 # wrappers count such launches apart, in ``long_launches``
 TPU_KEY_CAP = 8192
+# the tiles of K6's and K9's tile maps (kBlockQ, kBlockK in csrc), and the
+# classes of csrc/tile_map.cuh: no pair visible, some, all
+TILE_Q, TILE_K = 64, 64
+TILE_EMPTY, TILE_PARTIAL, TILE_FULL = 0, 1, 2
 
 
 class DecodeMask(NamedTuple):
@@ -314,6 +323,78 @@ def inline_attention_backward_reference(q: torch.Tensor, k: torch.Tensor,
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+def _tile_view(x: torch.Tensor, tile_q: int, tile_k: int) -> torch.Tensor:
+    """bool [n, Lk] -> uint8 [ceil(n/tile_q), ceil(Lk/tile_k), tile_q *
+    tile_k], the tiles of ``x`` padded with False."""
+    n, lk = x.shape
+    nq, nk = -(-n // tile_q), -(-lk // tile_k)
+    x = torch.nn.functional.pad(x.to(torch.uint8),
+                                (0, nk * tile_k - lk, 0, nq * tile_q - n))
+    return x.view(nq, tile_q, nk, tile_k).transpose(1, 2).reshape(
+        nq, nk, tile_q * tile_k)
+
+
+def _classes(some: torch.Tensor, every: torch.Tensor) -> torch.Tensor:
+    return torch.where(every.bool(), TILE_FULL, torch.where(
+        some.bool(), TILE_PARTIAL, TILE_EMPTY)).to(torch.int8)
+
+
+def _tile_row_steps(lq: int, tile_q: int):
+    """Row slices of whole query tiles, about ``INLINE_ROWS`` rows each."""
+    step = tile_q * max(1, INLINE_ROWS // tile_q)
+    for r0 in range(0, lq, step):
+        yield slice(r0, min(r0 + step, lq))
+
+
+def inline_tile_classes_reference(q_meta: AttnMeta, k_meta: AttnMeta,
+                                  tile_q: int = TILE_Q,
+                                  tile_k: int = TILE_K) -> torch.Tensor:
+    """Plain version of K6's tile map: int8 [B, ceil(Lq/tile_q),
+    ceil(Lk/tile_k)], per (query tile, key tile) ``TILE_EMPTY`` when no
+    real pair (query < Lq, key < Lk) is visible, ``TILE_FULL`` when the
+    tile lies inside [0, Lq) x [0, Lk) and every pair is visible, else
+    ``TILE_PARTIAL``: the visibility of K6's rule reduced tile by tile,
+    whole query tiles of about ``INLINE_ROWS`` rows at a time."""
+    b, lq = q_meta.index.shape
+    lk = k_meta.vis_start.shape[1]
+    out = torch.empty((b, -(-lq // tile_q), -(-lk // tile_k)),
+                      dtype=torch.int8, device=q_meta.index.device)
+    for bi in range(b):
+        km = AttnMeta(*(x[bi:bi + 1] for x in k_meta))
+        for sl in _tile_row_steps(lq, tile_q):
+            qm = AttnMeta(*(x[bi:bi + 1, sl] for x in q_meta))
+            vis = _padded_visibility(qm, km, sl.stop - sl.start, lk)[0]
+            t = _tile_view(vis, tile_q, tile_k)
+            out[bi, sl.start // tile_q:-(-sl.stop // tile_q)] = _classes(
+                t.any(-1), t.all(-1))
+    return out
+
+
+def bias_tile_classes_reference(bias: torch.Tensor, tile_q: int = TILE_Q,
+                                tile_k: int = TILE_K) -> torch.Tensor:
+    """Plain version of K9's tile map of the bias [B, Lq, Lk]: int8 [B,
+    ceil(Lq/tile_q), ceil(Lk/tile_k)], per tile ``TILE_FULL`` when it lies
+    inside [0, Lq) x [0, Lk) and every entry is 0, ``TILE_EMPTY`` when
+    every real entry is at most ``BF16_NEG`` and no row of its query tile
+    is at most ``BF16_NEG`` everywhere (such a row sees no key, and its
+    softmax is uniform, not 0), else ``TILE_PARTIAL``. Whole query tiles of
+    about ``INLINE_ROWS`` rows at a time."""
+    b, lq, lk = bias.shape
+    out = torch.empty((b, -(-lq // tile_q), -(-lk // tile_k)),
+                      dtype=torch.int8, device=bias.device)
+    for bi in range(b):
+        for sl in _tile_row_steps(lq, tile_q):
+            x = bias[bi, sl].float()
+            alive = x > BF16_NEG
+            dead = _tile_view(~alive.any(-1, keepdim=True), tile_q, 1)
+            some = _tile_view(alive, tile_q, tile_k).any(-1) \
+                | dead.any(-1)
+            every = _tile_view(x == 0, tile_q, tile_k).all(-1)
+            out[bi, sl.start // tile_q:-(-sl.stop // tile_q)] = _classes(
+                some, every)
+    return out
+
+
 # ---- CUDA launch helpers ----------------------------------------------------
 
 class _RankArgs(ctypes.Structure):
@@ -364,13 +445,15 @@ class _BiasBwdArgs(ctypes.Structure):
     """Mirror of ``BiasAttnBwdArgs`` in csrc/bias_attention_bwd.cu."""
     _fields_ = [(name, ctypes.c_void_p) for name in (
         "q", "k", "v", "bias", "o", "dout", "lse", "delta", "dq", "dk",
-        "dv")] + [(name, ctypes.c_int64) for name in (
+        "dv", "tile_map", "rowdead", "rowref")] + [
+        (name, ctypes.c_int64) for name in (
             "q_sb", "q_sl", "q_sh", "k_sb", "k_sl", "k_sh", "v_sb", "v_sl",
             "v_sh", "bias_sb", "bias_sq", "o_sb", "o_sl", "o_sh", "do_sb",
             "do_sl", "do_sh", "dq_sb", "dq_sl", "dq_sh", "dkv_sb", "dkv_sl",
             "dkv_sh")] + [(name, ctypes.c_int) for name in (
                 "batch", "heads", "kv_heads", "lq", "lk", "head_dim")] + [
-        ("scale", ctypes.c_float), ("scale_log2", ctypes.c_float)]
+        ("scale", ctypes.c_float), ("scale_log2", ctypes.c_float),
+        ("bias_vec", ctypes.c_int), ("map_only", ctypes.c_int)]
 
 
 # the metadata vectors of the inline kernels, in the order of their
@@ -390,7 +473,8 @@ class _InlineArgs(ctypes.Structure):
             "v_sh", "o_sb", "o_sl", "o_sh")] + [
         (name, ctypes.c_int) for name in (
             "batch", "heads", "kv_heads", "lq", "lk", "head_dim")] + [
-        ("scale_log2", ctypes.c_float)]
+        ("scale_log2", ctypes.c_float), ("tile_map", ctypes.c_void_p),
+        ("scratch", ctypes.c_void_p), ("map_only", ctypes.c_int)]
 
 
 class _InlineBwdArgs(ctypes.Structure):
@@ -605,6 +689,40 @@ def flash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 flash_mha.launches = flash_mha.long_launches = 0
 
 
+def _bias_map_args(bias: torch.Tensor):
+    """(K9's arguments with the bias, its tile map and scratch set,
+    ``map_only`` 0; the map [B, ceil(Lq/TILE_Q), ceil(Lk/TILE_K)]; the
+    scratch, to be held until the launch)."""
+    b, lq, lk = bias.shape
+    tile_map = torch.empty((b, -(-lq // TILE_Q), -(-lk // TILE_K)),
+                           dtype=torch.int8, device=bias.device)
+    rowdead = torch.empty((b, lq), dtype=torch.float32, device=bias.device)
+    a = _BiasBwdArgs(
+        bias=bias.data_ptr(), tile_map=tile_map.data_ptr(),
+        rowdead=rowdead.data_ptr(), bias_sb=bias.stride(0),
+        bias_sq=bias.stride(1), batch=b, lq=lq, lk=lk,
+        head_dim=KERNEL_HEAD_DIM,
+        # 16-byte loads of the bias rows
+        bias_vec=int(bias.stride(0) % 8 == 0 and bias.stride(1) % 8 == 0
+                     and bias.data_ptr() % 16 == 0))
+    return a, tile_map, rowdead
+
+
+def bias_tile_classes(bias: torch.Tensor) -> torch.Tensor:
+    """K9's tile map of the bf16 bias [B, Lq, Lk] alone (the first launch
+    of :func:`flash_mha_bwd`): int8 [B, ceil(Lq/TILE_Q), ceil(Lk/TILE_K)]
+    of ``TILE_EMPTY`` / ``TILE_PARTIAL`` / ``TILE_FULL``. For a bias on the
+    CPU, :func:`bias_tile_classes_reference`. Counts no launch."""
+    if not bias.is_cuda:
+        return bias_tile_classes_reference(bias)
+    _check_operand("bias", bias, bias.device, torch.bfloat16,
+                   (bias.shape[0], bias.shape[1], bias.shape[2]))
+    a, tile_map, rowdead = _bias_map_args(bias)
+    a.map_only = 1
+    _launch("bias_attention_bwd", "vgt_bias_attention_bwd", a, bias.device)
+    return tile_map
+
+
 def flash_mha_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   bias: torch.Tensor, o: torch.Tensor, do: torch.Tensor,
                   lse=None):
@@ -628,24 +746,24 @@ def flash_mha_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if not lse.is_contiguous():
         raise ValueError("lse must be contiguous")
     delta = torch.empty((b, h, lq), dtype=torch.float32, device=q.device)
+    rowref = torch.empty((b, h, lq, 2), dtype=torch.float32, device=q.device)
     dq = torch.empty((b, lq, h, d), dtype=q.dtype, device=q.device)
     dk = torch.empty((b, lk, hkv, d), dtype=k.dtype, device=q.device)
     dv = torch.empty((b, lk, hkv, d), dtype=v.dtype, device=q.device)
-    a = _BiasBwdArgs(
-        q=q.data_ptr(), k=kh.data_ptr(), v=vh.data_ptr(),
-        bias=bias.data_ptr(), o=o.data_ptr(), dout=do.data_ptr(),
-        lse=lse.data_ptr(), delta=delta.data_ptr(), dq=dq.data_ptr(),
-        dk=dk.data_ptr(), dv=dv.data_ptr(),
-        q_sb=q.stride(0), q_sl=q.stride(1), q_sh=q.stride(2),
-        k_sb=kh.stride(0), k_sl=kh.stride(2), k_sh=kh.stride(1),
-        v_sb=vh.stride(0), v_sl=vh.stride(2), v_sh=vh.stride(1),
-        bias_sb=bias.stride(0), bias_sq=bias.stride(1),
-        o_sb=o.stride(0), o_sl=o.stride(1), o_sh=o.stride(2),
-        do_sb=do.stride(0), do_sl=do.stride(1), do_sh=do.stride(2),
-        dq_sb=dq.stride(0), dq_sl=dq.stride(1), dq_sh=dq.stride(2),
-        dkv_sb=dk.stride(0), dkv_sl=dk.stride(1), dkv_sh=dk.stride(2),
-        batch=b, heads=h, kv_heads=hkv, lq=lq, lk=lk, head_dim=d,
-        scale=d ** -0.5, scale_log2=d ** -0.5 * LOG2E)
+    a, tile_map, rowdead = _bias_map_args(bias)
+    a.q, a.k, a.v, a.o, a.dout = (x.data_ptr() for x in (q, kh, vh, o, do))
+    a.lse, a.delta, a.rowref = lse.data_ptr(), delta.data_ptr(), \
+        rowref.data_ptr()
+    a.dq, a.dk, a.dv = dq.data_ptr(), dk.data_ptr(), dv.data_ptr()
+    for name, x, (sb, sl, sh) in (
+            ("q", q, (0, 1, 2)), ("k", kh, (0, 2, 1)), ("v", vh, (0, 2, 1)),
+            ("o", o, (0, 1, 2)), ("do", do, (0, 1, 2)),
+            ("dq", dq, (0, 1, 2)), ("dkv", dk, (0, 1, 2))):
+        setattr(a, f"{name}_sb", x.stride(sb))
+        setattr(a, f"{name}_sl", x.stride(sl))
+        setattr(a, f"{name}_sh", x.stride(sh))
+    a.heads, a.kv_heads = h, hkv
+    a.scale, a.scale_log2 = d ** -0.5, d ** -0.5 * LOG2E
     _launch("bias_attention_bwd", "vgt_bias_attention_bwd", a, q.device)
     flash_mha_bwd.launches += 1
     return dq, dk, dv
@@ -671,6 +789,40 @@ def _set_meta(a, q_meta: AttnMeta, k_meta: AttnMeta, b: int, lq: int,
         a.km[i], a.km_sb[i] = x.data_ptr(), x.stride(0)
 
 
+def _inline_map_args(q_meta: AttnMeta, k_meta: AttnMeta):
+    """(K6's arguments with the metadata, its tile map and scratch set,
+    ``map_only`` 0; the map [B, ceil(Lq/TILE_Q), ceil(Lk/TILE_K)]; the
+    scratch, to be held until the launch)."""
+    b, lq = q_meta.index.shape
+    lk = k_meta.vis_start.shape[1]
+    device = q_meta.index.device
+    nq, nk = -(-lq // TILE_Q), -(-lk // TILE_K)
+    tile_map = torch.empty((b, nq, nk), dtype=torch.int8, device=device)
+    # csrc/inline_attention.cu: the query- and key-tile summaries (8 ints
+    # each), each query tile's count of non-empty key tiles, the launch order
+    scratch = torch.empty((b * (nq + nk) * 8 + 2 * b * nq,),
+                          dtype=torch.int32, device=device)
+    a = _InlineArgs(tile_map=tile_map.data_ptr(), scratch=scratch.data_ptr(),
+                    batch=b, lq=lq, lk=lk, head_dim=KERNEL_HEAD_DIM)
+    _set_meta(a, q_meta, k_meta, b, lq, lk, device)
+    return a, tile_map, scratch
+
+
+def inline_tile_classes(q_meta: AttnMeta, k_meta: AttnMeta) -> torch.Tensor:
+    """K6's tile map alone (the first launches of :func:`flash_mha_inline`):
+    int8 [B, ceil(Lq/TILE_Q), ceil(Lk/TILE_K)] of ``TILE_EMPTY`` /
+    ``TILE_PARTIAL`` / ``TILE_FULL``, from per-tile summaries of the
+    metadata. For metadata on the CPU, :func:`inline_tile_classes_reference`.
+    Counts no launch."""
+    if not q_meta.index.is_cuda:
+        return inline_tile_classes_reference(q_meta, k_meta)
+    a, tile_map, scratch = _inline_map_args(q_meta, k_meta)
+    a.map_only = 1
+    _launch("inline_attention", "vgt_inline_attention", a,
+            q_meta.index.device)
+    return tile_map
+
+
 def _inline_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     q_meta: AttnMeta, k_meta: AttnMeta, with_lse: bool):
     """K6 -> (out, lse): ``lse`` the fp32 per-row logsumexp [B, H, Lq] when
@@ -684,16 +836,22 @@ def _inline_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty((b, lq, h, d), dtype=q.dtype, device=q.device)
     lse = (torch.empty((b, h, lq), dtype=torch.float32, device=q.device)
            if with_lse else None)
-    a = _InlineArgs(
-        q=q.data_ptr(), k=kh.data_ptr(), v=vh.data_ptr(), out=out.data_ptr(),
-        lse=None if lse is None else lse.data_ptr(),
-        q_sb=q.stride(0), q_sl=q.stride(1), q_sh=q.stride(2),
-        k_sb=kh.stride(0), k_sl=kh.stride(2), k_sh=kh.stride(1),
-        v_sb=vh.stride(0), v_sl=vh.stride(2), v_sh=vh.stride(1),
-        o_sb=out.stride(0), o_sl=out.stride(1), o_sh=out.stride(2),
-        batch=b, heads=h, kv_heads=kh.shape[1], lq=lq, lk=lk, head_dim=d,
-        scale_log2=d ** -0.5 * LOG2E)
-    _set_meta(a, q_meta, k_meta, b, lq, lk, q.device)
+    if (tuple(q_meta.index.shape) != (b, lq)
+            or tuple(k_meta.vis_start.shape) != (b, lk)):
+        raise ValueError(f"metadata {tuple(q_meta.index.shape)} / "
+                         f"{tuple(k_meta.vis_start.shape)} for q {(b, lq)}, "
+                         f"keys {(b, lk)}")
+    a, tile_map, scratch = _inline_map_args(q_meta, k_meta)
+    a.q, a.k, a.v, a.out = (x.data_ptr() for x in (q, kh, vh, out))
+    a.lse = None if lse is None else lse.data_ptr()
+    for name, x, (sb, sl, sh) in (
+            ("q", q, (0, 1, 2)), ("k", kh, (0, 2, 1)), ("v", vh, (0, 2, 1)),
+            ("o", out, (0, 1, 2))):
+        setattr(a, f"{name}_sb", x.stride(sb))
+        setattr(a, f"{name}_sl", x.stride(sl))
+        setattr(a, f"{name}_sh", x.stride(sh))
+    a.heads, a.kv_heads = h, kh.shape[1]
+    a.scale_log2 = d ** -0.5 * LOG2E
     _launch("inline_attention", "vgt_inline_attention", a, q.device)
     flash_mha_inline.launches += 1
     return out, lse
