@@ -24,11 +24,13 @@ Phases, in order; any failure exits nonzero and none is caught:
    shape as K8; then the rollouts' other shapes: K2 over the long
    rollout's uncond row (5,328^2), and the batched rollout's K1 (B 2, a
    heads-major cache), K2 (B 2) and its prefill through K6 (B 2 x
-   12,432^2, the index a batch-stride-0 view). K9 (stage 1), K6 (stage 4),
-   K8 (stage 1) and the B 2 prefill compute only the tiles their tile map
-   does not call empty: each map the kernel builds is held equal to its
-   plain classifier, and its share of tiles computed and the map's own
-   time are printed beside the kernel's (which includes the map);
+   12,432^2, the index a batch-stride-0 view). Every attention kernel but
+   K1/K2 computes only the tiles its tile map does not call empty: each
+   map the kernels build is held equal to its plain classifier, and its
+   share of tiles computed and the map's own time are printed beside the
+   kernel's: K3 (flagship, stage 1, K10) and K9 read the bias's map, built
+   once per bias (``fa.bias_map``, not in their times); K6, K8, the B 2
+   prefill and K7 (stage 4) build theirs in every launch (in their times);
 4. small-input serving reference: ``generate`` on a tiny model (head_dim
    96, GQA) on the card in bf16 against the same weights and noise on the
    CPU in fp32 (plain versions), two blocks so every serving kernel and the
@@ -39,7 +41,7 @@ Phases, in order; any failure exits nonzero and none is caught:
    guidance 1.5 and a 24-frame window, so the context keeps all 8 frames:
    once to warm up (checking that no float op runs on the host), once
    timed; the launch counts must be exactly the path's (prefill 32, cond
-   decode 320, uncond 320);
+   decode 320, uncond 320), with one build of the bias's tile map;
 6. extend path: a two-block rollout without re-noise, whose second block
    grows the KV cache through the split decode kernel;
 7. serving profile: the main path once more under torch.profiler, tracing
@@ -50,7 +52,8 @@ Phases, in order; any failure exits nonzero and none is caught:
    (the second block slides and prefills again), guidance 1.5, no re-noise:
    a warm-up at 1 step (host-op check on), then timed, with exactly 64 K3,
    3,200 K1 and 3,200 K2 launches (of which the 64 K3 and 3,200 K1 pass
-   8192 keys: K10's and K4's function), 104 uint8 frames and finite
+   8192 keys: K10's and K4's function) and 2 bias-map builds (one per
+   prefill), 104 uint8 frames and finite
    latents; then its first block once more under the profiler;
 9. batched rollout: the same recipe for 2 videos through
    ``generate_batch`` at 10 steps: exactly 64 K6 (the B = 2 prefill is
@@ -67,7 +70,8 @@ Phases, in order; any failure exits nonzero and none is caught:
    with fp32 parameters and AdamW state, bf16 compute, per-layer
    recompute; the SDXL-class VAE; B 1, 16 synthetic 176x320 frames, L
    7104): one warm-up step (host-op check on) and 3 timed steps, each with
-   exactly 64 K3 and 32 K9 launches and no other, finite loss and gradient
+   exactly 64 K3 and 32 K9 launches and no other, one build of the bias's
+   tile map, finite loss and gradient
    norm, a nonzero gradient into layer 0's attention, and AdamW moving the
    parameters; then one more step under torch.profiler (device time by
    group, the optimizer's range apart);
@@ -159,8 +163,11 @@ REF_REL_MSE_BAR = 1e-3
 TRAIN_REF_FLOOR_FACTOR = 4.0
 # the training paths (configs/pretrain_stage{1,4}.sh, learning rate
 # constant): stage -> (frames, timed steps, launches of each kernel per
-# layer and step). Each layer runs the forward twice (per-layer recompute).
-TRAIN_PATHS = {1: (16, 3, {"K3": 2, "K9": 1}), 4: (80, 2, {"K6": 2, "K7": 1})}
+# layer and step, builds of the bias's tile map per step). Each layer runs
+# the forward twice (per-layer recompute); every layer's K3 and K9 read the
+# one map of the step's bias.
+TRAIN_PATHS = {1: (16, 3, {"K3": 2, "K9": 1}, 1),
+               4: (80, 2, {"K6": 2, "K7": 1}, 0)}
 TRAIN_LR = 1e-4
 # the seed of the stage-4 batch's random_block_partition draw
 PARTITION_SEED = 0
@@ -357,10 +364,13 @@ def bias_record(dev, seed: int, meta: AttnMeta, replaces: int) -> dict:
     bf16 = _bf16_maker(dev, seed)
     L = meta.index.shape[1]
     bias = fa.precompute_bias(meta, meta)
+    # the map is built once per bias, as the prefill builds it for its 32
+    # layers: the kernel's time is the attention alone
+    bm = fa.bias_map(bias)
     q, k, v = bf16(1, L, h, d), bf16(1, L, hkv, d), bf16(1, L, hkv, d)
 
     def fn():
-        return fa.flash_mha(q, k, v, bias)
+        return fa.flash_mha(q, k, v, bm)
 
     def plain(absv=False):
         return fa.bias_attention_reference(*f32(q, k), *vals(v, absv=absv),
@@ -378,7 +388,8 @@ def bias_record(dev, seed: int, meta: AttnMeta, replaces: int) -> dict:
         replaces=f"{TPU_KERNELS}:{replaces}",
         shape=f"B 1, Lq = Lk = {L}, bf16 bias",
         bytes=nbytes(q, k, v, bias, q),
-        flops=4 * h * d * int((bias == 0).sum()))
+        flops=4 * h * d * int((bias == 0).sum()),
+        tile_map=bias_tile_map(bias))
 
 
 def kernels_phase(dev):
@@ -492,6 +503,12 @@ def probe_kernels(dev) -> dict:
     return out
 
 
+def bias_tile_map(bias: torch.Tensor):
+    """(build, plain) of the bias's tile map, which K3 and K9 read."""
+    return (lambda: fa.bias_tile_classes(bias),
+            lambda: fa.bias_tile_classes_reference(bias))
+
+
 def tile_map_record(label: str, build, plain) -> dict:
     """A kernel's tile map (``build``: its classifier launches alone) held
     equal to the plain classifier (``plain``), then timed; the share of
@@ -516,7 +533,8 @@ def check_and_time(name: str, r: dict, label: str = "") -> dict:
     """One kernel against its plain version, then timed; ``fn`` and
     ``plain`` return a tensor or a tuple of tensors (``plain(absv=True)``:
     the rounding bound's mass of each). ``label`` names the shape in the
-    log."""
+    log. With ``tile_map`` (build, plain), the kernel's tile map is held
+    equal to the plain one and timed (tile_map_record)."""
     name_l = f"{name}{label}"
     def tup(x):
         return x if isinstance(x, tuple) else (x,)
@@ -553,11 +571,14 @@ def check_and_time(name: str, r: dict, label: str = "") -> dict:
     log(f"{name_l}: {ms:.4f} ms (plain {plain_ms:.4f}, sdpa {lib_ms:.4f}, "
         f"bound {bound_ms:.4f} by {bound_by}; "
         f"{r['flops'] / ms / 1e9:.1f} TFLOP/s)")
-    return dict(name=name, route=r["route"], source=r["source"],
-                replaces=r["replaces"], max_abs_err=err, max_err=err,
-                err_over_bar=ratio, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms,
-                **({"shape": r["shape"]} if "shape" in r else {}))
+    rec = dict(name=name, route=r["route"], source=r["source"],
+               replaces=r["replaces"], max_abs_err=err, max_err=err,
+               err_over_bar=ratio, ms=ms, plain_ms=plain_ms,
+               bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms,
+               **({"shape": r["shape"]} if "shape" in r else {}))
+    if "tile_map" in r:
+        rec["tile_map"] = tile_map_record(name_l, *r["tile_map"])
+    return rec
 
 
 def train_batch(stage: int):
@@ -603,7 +624,9 @@ def training_kernels(dev) -> dict:
     q, k = bf16(1, L, h, d), bf16(1, L, hkv, d)
     v = bf16(1, L, h + 2 * hkv, d)[:, :, h + hkv:]
     do = bf16(1, L, h, d)
-    out, lse = fa._bias_forward(q, k, v, bias, with_lse=True)
+    # one map per bias, as a training step builds it for K3 and K9
+    bm = fa.bias_map(bias)
+    out, lse = fa._bias_forward(q, k, v, bm, with_lse=True)
     pairs = int((bias == 0).sum())
     log(f"stage-1 attention: L {L}, {pairs} visible pairs "
         f"({pairs / L ** 2:.3f} of L^2)")
@@ -614,7 +637,7 @@ def training_kernels(dev) -> dict:
                                            vf.abs() if absv else vf, bias)
 
     def k9():
-        return fa.flash_mha_bwd(q, k, v, bias, out, do, lse)
+        return fa.flash_mha_bwd(q, k, v, bm, out, do, lse)
 
     def k9_plain(absv=False):
         return fa.bias_attention_backward_reference(
@@ -637,11 +660,11 @@ def training_kernels(dev) -> dict:
 
     src = "video_gpt_tpu_torch/csrc/"
     recs = {
-        "K3": dict(fn=lambda: fa.flash_mha(q, k, v, bias), plain=k3_plain,
+        "K3": dict(fn=lambda: fa.flash_mha(q, k, v, bm), plain=k3_plain,
                    lib=k3_lib, route="cuda", source=src + "bias_attention.cu",
                    replaces=f"{TPU_KERNELS}:133",
                    bytes=nbytes(q, k, v, bias, q),
-                   flops=4 * h * d * pairs),
+                   flops=4 * h * d * pairs, tile_map=bias_tile_map(bias)),
         "K9": dict(fn=k9, plain=k9_plain, lib=k9_lib, route="cuda",
                    source=src + "bias_attention_bwd.cu",
                    replaces=f"{TPU_KERNELS}:192",
@@ -652,9 +675,8 @@ def training_kernels(dev) -> dict:
                    flops=5 * 2 * h * d * pairs)}
     res = {name: check_and_time(name, r, " (stage-1 training shape)")
            for name, r in recs.items()}
-    res["K9"]["tile_map"] = tile_map_record(
-        "K9 (stage-1 training shape)", lambda: fa.bias_tile_classes(bias),
-        lambda: fa.bias_tile_classes_reference(bias))
+    # K9 reads the map that K3 read
+    res["K9"]["tile_map"] = res["K3"]["tile_map"]
     return res
 
 
@@ -722,7 +744,11 @@ def inline_kernels(dev) -> dict:
                    bytes=nbytes(q, k, v, out, do, lse, q, k, v)
                    + meta_bytes(meta),
                    # S, dP, dV, dQ, dK over the visible pairs
-                   flops=5 * 2 * h * d * pairs)}
+                   flops=5 * 2 * h * d * pairs,
+                   # K6's map, with the column counts, in each K7 launch
+                   tile_map=(lambda: fa.inline_tile_classes(
+                       meta, meta, backward=True),
+                       lambda: fa.inline_tile_classes_reference(meta, meta)))}
     res = {name: check_and_time(name, r, " (stage-4 training shape)")
            for name, r in recs.items()}
     res["K6"]["tile_map"] = inline_tile_map("K6 (stage-4 training shape)",
@@ -923,15 +949,17 @@ def synthetic_frames(n: int, seed: int = 1):
 
 KERNEL_GROUPS = (  # (group, substrings of kernel names), first match wins
     ("K1/K2 rank_attention", ("rank_attention",)),
-    # K9 and K6 with the launches of their tile maps (csrc/tile_map.cuh)
+    # the tile maps' launches (csrc/tile_map.cuh): the bias's, once per
+    # bias; K6's and K7's, in each of their launches
+    ("tile maps", ("bias_tile_map", "tile_summary", "meta_tile_map",
+                   "tile_order")),
     ("K9 bias_attention_bwd", ("bias_attention_delta", "bias_attention_dkdv",
-                               "bias_attention_dq", "bias_tile_map")),
+                               "bias_attention_dq")),
     ("K3 bias_attention", ("bias_attention",)),
     ("K7 inline_attention_bwd", ("inline_attention_delta",
                                  "inline_attention_dkdv",
                                  "inline_attention_dq")),
-    ("K6 inline_attention", ("inline_attention", "tile_summary",
-                             "meta_tile_map", "tile_order")),
+    ("K6 inline_attention", ("inline_attention",)),
     ("memcpy/memset", ("Memcpy", "Memset")),
     ("conv (cuDNN)", ("conv", "fprop", "cudnn", "winograd")),
     ("matmul (cuBLAS)", ("gemm", "xmma", "cutlass", "cublas", "nvjet")),
@@ -1071,9 +1099,10 @@ def rollout_phase(pipe, smi: str, name: str, n_videos: int, steps: int,
 
 
 def counts():
-    """Every kernel's launches since the last :func:`reset_counts`. K4, K5
-    and K10 are the launches of K1, K2 and K3 past the TPU's 8192-key cap,
-    where the TPU runs its k-tiled kernels."""
+    """Every kernel's launches since the last :func:`reset_counts`, and the
+    builds of the bias's tile map. K4, K5 and K10 are the launches of K1,
+    K2 and K3 past the TPU's 8192-key cap, where the TPU runs its k-tiled
+    kernels."""
     return {"K1": fa.flash_mha_decode_split.launches,
             "K2": fa.flash_mha_decode.launches, "K3": fa.flash_mha.launches,
             "K4": fa.flash_mha_decode_split.long_launches,
@@ -1083,7 +1112,8 @@ def counts():
             "K6": fa.flash_mha_inline.launches,
             "K7": fa.flash_mha_inline_bwd.launches,
             "P1-serial": overlap_probe.overlap_serial.launches,
-            "P1-pipelined": overlap_probe.overlap_pipelined.launches}
+            "P1-pipelined": overlap_probe.overlap_pipelined.launches,
+            "bias_map_builds": fa.flash_mha.bias_map_builds}
 
 
 def expect(**launches) -> dict:
@@ -1165,7 +1195,7 @@ def run(dev: torch.device, smi: str) -> None:
     clip_s = time.perf_counter() - t0
     launches = counts()
     nl = pipe.model.cfg.num_layers
-    want = expect(K1=nl * STEPS, K2=nl * STEPS, K3=nl)
+    want = expect(K1=nl * STEPS, K2=nl * STEPS, K3=nl, bias_map_builds=1)
     log(f"main path launches {launches} (expected {want})")
     if launches != want:
         fail(f"main-path launch counts {launches} != {want}")
@@ -1200,7 +1230,8 @@ def run(dev: torch.device, smi: str) -> None:
     ext = counts()
     # one prefill (K3) for block 0; block 1 extends the cache through K1:
     # one extend launch per layer + 2 blocks x 2 steps of decode per layer
-    want_ext = expect(K1=nl + 2 * 2 * nl, K2=2 * 2 * nl, K3=nl)
+    want_ext = expect(K1=nl + 2 * 2 * nl, K2=2 * 2 * nl, K3=nl,
+                      bias_map_builds=1)
     log(f"extend path: {time.perf_counter() - t0:.2f} s, launches {ext} "
         f"(expected {want_ext})")
     if ext != want_ext:
@@ -1219,7 +1250,8 @@ def run(dev: torch.device, smi: str) -> None:
     long_rollout = rollout_phase(
         pipe, smi, "long_rollout", 1, ROLLOUT_STEPS, expect(
             K3=2 * nl, K10=2 * nl, K1=2 * ROLLOUT_STEPS * nl,
-            K4=2 * ROLLOUT_STEPS * nl, K2=2 * ROLLOUT_STEPS * nl))
+            K4=2 * ROLLOUT_STEPS * nl, K2=2 * ROLLOUT_STEPS * nl,
+            bias_map_builds=2))
     batched_rollout = rollout_phase(
         pipe, smi, "batched_rollout", BATCH_VIDEOS, BATCH_STEPS, expect(
             K6=2 * nl, K1=2 * BATCH_STEPS * nl, K4=2 * BATCH_STEPS * nl,
@@ -1274,6 +1306,12 @@ def run(dev: torch.device, smi: str) -> None:
             r.update(launches=launches[k], launches_per_clip=launches[k])
     records["K3"]["launches_per_train_step"] = train_counts["K3"] \
         // TRAIN_PATHS[1][1]
+    # the bias's tile map, which K3 and K9 read: builds per clip (its
+    # prefill), per long rollout (two prefills) and per stage-1 step
+    records["K3"]["bias_map_builds"] = dict(
+        per_clip=launches["bias_map_builds"],
+        per_long_rollout=long_rollout["launches"]["bias_map_builds"],
+        per_train_step=train_counts["bias_map_builds"] // TRAIN_PATHS[1][1])
     for k in ("K1", "K2", "K4", "K6"):
         records[k]["launches_batched_rollout"] = \
             batched_rollout["launches"][k]
@@ -1309,6 +1347,8 @@ def train_reference_phase(dev, bias_limit=None) -> dict:
                             pos_embed_max_size=64,  # head_dim 96; GQA 2:1
                             **limit)
     route = ("K6", "K7") if bias_limit == 0 else ("K3", "K9")
+    # the bias route builds the bias's tile map once for the step
+    builds = 0 if bias_limit == 0 else 1
     res, n_frames = (64, 96), 4
     rng = np.random.default_rng(11)
     frames = [rng.integers(0, 256, res + (3,), dtype=np.uint8)
@@ -1376,8 +1416,12 @@ def train_reference_phase(dev, bias_limit=None) -> dict:
         f"loss {got[0]:.6f} "
         f"vs {want[0]:.6f}; launches {ran}")
     if not all(ran[k] for k in route) or any(
-            n for k, n in ran.items() if k not in route):
+            n for k, n in ran.items()
+            if k not in route + ("bias_map_builds",)):
         fail(f"the small-input training run left the {route} route: {ran}")
+    if ran["bias_map_builds"] != builds:
+        fail(f"the small-input training run built the bias's tile map "
+             f"{ran['bias_map_builds']} times, not {builds}")
     if not (float(got[1].abs().max()) > 0 and torch.isfinite(got[1]).all()):
         fail("the small-input training gradient is zero or not finite")
     if not (l_err <= BF16_U and g_err <= TRAIN_REF_FLOOR_FACTOR * g_floor):
@@ -1389,7 +1433,7 @@ def train_reference_phase(dev, bias_limit=None) -> dict:
 def training_phase(dev, smi: str, stage: int) -> dict:
     """The training path of ``stage`` at full width through the Trainer's
     own step; returns its kernels' launch counts over the timed steps."""
-    n_frames, n_steps, per_layer = TRAIN_PATHS[stage]
+    n_frames, n_steps, per_layer, builds = TRAIN_PATHS[stage]
     cfg = stage_config(stage, lr=TRAIN_LR, lr_scheduler="constant",
                        adam_epsilon=1e-5)
     t0 = time.perf_counter()
@@ -1438,6 +1482,7 @@ def training_phase(dev, smi: str, stage: int) -> dict:
     before = {n: p.detach().clone() for n, p in watched.items()}
     torch.cuda.reset_peak_memory_stats()
     want = {k: per_layer.get(k, 0) * nl for k in counts()}
+    want["bias_map_builds"] = builds
     steps, total = [], dict.fromkeys(want, 0)
     for i in range(1, n_steps + 1):
         reset_counts()

@@ -105,3 +105,37 @@ def test_magnitude_bounds_the_gradients():
     for g, m in zip(grads, mass):
         assert g.shape == m.shape
         assert bool((g.abs() <= m * (1 + 1e-5) + 1e-6).all())
+
+
+@pytest.mark.parametrize("h,hkv", [(4, 4), (4, 2)])
+def test_bias_carrier_grads_match_jax_grad(h, hkv):
+    """The model's bias carrier (``maybe_bias``: the bias with its tile
+    map, which on the CPU holds no map and counts no build) through a
+    checkpointed ``flash_mha``, as a layer with per-layer recompute runs
+    it: the forward, its recompute and the backward read the one carrier,
+    and the gradients equal jax.grad of the Pallas flash_mha_biased."""
+    from torch.utils.checkpoint import checkpoint
+
+    from video_gpt_tpu_torch.config import ModelConfig
+    from video_gpt_tpu_torch.models.video_gpt import maybe_bias
+    meta, jmeta, q, k, v, w = _case(h, hkv, seed=3)
+    fa.reset_launch_counts()
+    bm = maybe_bias(ModelConfig.tiny(), meta, meta)
+    assert isinstance(bm, fa.BiasMap)
+    assert bm.tile_map is None and bm.rowdead is None and bm.order is None
+    assert torch.equal(bm.bias, fa.precompute_bias(meta, meta))
+    tq, tk, tv = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+    out = checkpoint(fa.flash_mha, tq, tk, tv, bm, use_reentrant=False)
+    (out * torch.from_numpy(w)).sum().backward()
+    assert fa.flash_mha.bias_map_builds == 0 and fa.flash_mha.launches == 0
+    jbias = jfa.precompute_bias(jmeta, jmeta)
+    jfa.INTERPRET = True
+    try:
+        def loss(q, k, v):
+            return (jfa.flash_mha_biased(q, k, v, jbias) * w).sum()
+        want = jax.grad(loss, argnums=(0, 1, 2))(
+            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    finally:
+        jfa.INTERPRET = False
+    for x, wt, name in zip((tq, tk, tv), want, "qkv"):
+        _close(x.grad, wt, "d" + name)

@@ -19,18 +19,23 @@ is the plain version's product over absolute values (|ds| |K| for dq,
 |ds|^T |Q| for dk, p^T |dO| for dv): the kernels round ds and p to bf16
 before those products.
 
-K6 and K9 compute only the tiles that their tile map (``csrc/tile_map.cuh``)
-does not call empty: the maps the kernels build are held equal to the plain
-classifiers, K9 is checked on a bias row that sees no key (its softmax is
-uniform, so its query tile is never skipped), and K6 on a layout with pad
-rows and on a small batched prefill (``index`` with batch stride 0).
+K3, K9, K6 and K7 compute only the tiles that their tile map
+(``csrc/tile_map.cuh``) does not call empty: the maps the kernels build are
+held equal to the plain classifiers; K3 and K9 are checked on a bias row
+that sees no key (its softmax is uniform, so its query tile is never
+skipped), and read one map, built once per bias, across a forward, its
+recompute and the backward; K6 on a layout with pad rows and on a small
+batched prefill (``index`` with batch stride 0); K7 on a layout whose key
+tile no query sees (its dK/dV are exactly 0).
 
 The mutation checks build a copy of ``csrc/`` with one fault in a temporary
 directory and show that the bar catches it (worst error / bar above 1,
 printed; run with ``-s`` to read it): K6 without the last key tile of its
-list, K7's dK/dV without its last query tile, one non-empty tile (the first
-query tile against the first key tile) classed empty in K6's and in K9's
-map, the pipelined overlap probe without its last subtile.
+list, K7's dK/dV without its last listed query tile, K7's dQ and K3
+without their last listed key tile, K3 treating a partial tile as full,
+one non-empty tile (the first query tile against the first key tile)
+classed empty in K6's and in the bias's map, the pipelined overlap probe
+without its last subtile.
 
 Past 8192 keys the TPU runs k-tiled kernels (K4, K5, K10); here K1, K2 and
 K3 serve those rows, and are held against their plain versions at those
@@ -42,6 +47,7 @@ import shutil
 
 import pytest
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from video_gpt_tpu_torch import layout
 from video_gpt_tpu_torch.models.video_gpt import decode_mask, extend_mask
@@ -176,18 +182,33 @@ def _training_operands(dev, h, hkv, blocks, n_img, requires_grad=False):
     return q, k, v, fa.precompute_bias(meta, meta)
 
 
+def _k3_error(q, k, v, bias):
+    """K3 against the plain version: worst error / bar."""
+    fa.reset_launch_counts()
+    with torch.no_grad():
+        got = fa.flash_mha(q, k, v, bias)
+    want = fa.bias_attention_reference(q.float(), k.float(), v.float(), bias)
+    mass = fa.bias_attention_reference(q.float(), k.float(), v.float().abs(),
+                                       bias)
+    torch.cuda.synchronize()
+    assert fa.flash_mha.launches == 1 and fa.flash_mha.bias_map_builds == 1
+    return _err(got, want, mass)
+
+
 def _k9_errors(dev, q, k, v, bias):
     """K3 forward (keeping the lse) and K9 against the plain backward:
     {grad: worst error / bar}."""
     fa.reset_launch_counts()
-    out, lse = fa._bias_forward(q, k, v, bias, with_lse=True)
+    bm = fa.bias_map(bias)
+    out, lse = fa._bias_forward(q, k, v, bm, with_lse=True)
     do = _bf16(dev, 8, *out.shape)
-    got = fa.flash_mha_bwd(q, k, v, bias, out, do, lse)
+    got = fa.flash_mha_bwd(q, k, v, bm, out, do, lse)
     args = [x.float() for x in (q, k, v)] + [bias, out.float(), do.float()]
     want = fa.bias_attention_backward_reference(*args)
     mass = fa.bias_attention_backward_reference(*args, magnitude=True)
     torch.cuda.synchronize()
     assert fa.flash_mha.launches == 1 and fa.flash_mha_bwd.launches == 1
+    assert fa.flash_mha.bias_map_builds == 1
     for g, w in zip(got, want):
         assert g.shape == w.shape and g.dtype == torch.bfloat16
     return {name: _err(g, w, m)
@@ -213,6 +234,38 @@ def test_k9_with_a_row_that_sees_no_key(dev, row):
     bias[:, row] = fa.BF16_NEG
     errs = _k9_errors(dev, q, k, v, bias)
     assert max(errs.values()) <= 1.0, errs
+
+
+@pytest.mark.parametrize("row", [0, 70, 223])
+def test_k3_with_a_row_that_sees_no_key(dev, row):
+    """A bias row of BF16_NEG everywhere: K3's softmax of it is uniform
+    over every key (the map keeps every tile of its query tile), as the
+    plain version's is."""
+    q, k, v, bias = _training_operands(dev, 4, 2, (1, 2, 1), 30)
+    bias[:, row] = fa.BF16_NEG
+    assert _k3_error(q, k, v, bias) <= 1.0
+
+
+def test_bias_map_is_built_once_for_k3_and_k9(dev):
+    """The bias's map, built once (``bias_map``), serves a checkpointed
+    forward, its recompute and the backward: two K3 launches and one K9
+    over one build, with gradients that agree with the plain backward."""
+    q, k, v, bias = _training_operands(dev, 4, 2, (1, 2, 1), 30,
+                                       requires_grad=True)
+    w = _bf16(dev, 9, *q.shape)
+    fa.reset_launch_counts()
+    bm = fa.bias_map(bias)
+    out = checkpoint(fa.flash_mha, q, k, v, bm, use_reentrant=False)
+    (out.float() * w.float()).sum().backward()
+    torch.cuda.synchronize()
+    assert fa.flash_mha.bias_map_builds == 1
+    assert fa.flash_mha.launches == 2 and fa.flash_mha_bwd.launches == 1
+    args = [x.detach().float() for x in (q, k, v)] + [
+        bias, out.detach().float(), w.float()]
+    want = fa.bias_attention_backward_reference(*args)
+    mass = fa.bias_attention_backward_reference(*args, magnitude=True)
+    for name, x, wt, m in zip("qkv", (q, k, v), want, mass):
+        assert _err(x.grad, wt, m) <= 1.0, name
 
 
 def test_flash_mha_gradients_reach_q_k_v(dev):
@@ -265,7 +318,13 @@ def _k6_error(dev, h, hkv, blocks, n_img):
 
 
 def _k7_errors(dev, h, hkv, blocks, n_img):
-    q, k, v, meta = _inline_operands(dev, h, hkv, blocks, n_img)
+    return _k7_case_errors(dev, *_inline_operands(dev, h, hkv, blocks,
+                                                  n_img))[0]
+
+
+def _k7_case_errors(dev, q, k, v, meta):
+    """K6 forward (keeping the lse) and K7 against the plain backward:
+    ({grad: worst error / bar}, K7's (dq, dk, dv))."""
     fa.reset_launch_counts()
     out, lse = fa._inline_forward(q, k, v, meta, meta, with_lse=True)
     do = _bf16(dev, 18, *out.shape)
@@ -280,7 +339,7 @@ def _k7_errors(dev, h, hkv, blocks, n_img):
     for g, w in zip(got, want):
         assert g.shape == w.shape and g.dtype == torch.bfloat16
     return {name: _err(g, w, m)
-            for name, g, w, m in zip(("dq", "dk", "dv"), got, want, mass)}
+            for name, g, w, m in zip(("dq", "dk", "dv"), got, want, mass)}, got
 
 
 INLINE_CASES = [(4, 2, (1, 2, 1), 30), (8, 8, (2, 1, 1, 1), 17),
@@ -377,17 +436,18 @@ def _map_cases(dev):
 
 
 def test_tile_maps_match_plain(dev):
-    """The maps that K6 (from the metadata's summaries) and K9 (from one
-    pass over the bias) build equal their plain versions, the dense rule
-    reduced tile by tile; the bias map also with a row that sees no key
-    (never an empty tile in its query tile) and with bias rows that are
-    not 16-byte aligned (the pass's scalar loads)."""
+    """The maps that K6 and K7 (from the metadata's summaries) and K3/K9
+    (from one pass over the bias) build equal their plain versions, the
+    dense rule reduced tile by tile; the bias map also with a row that
+    sees no key (never an empty tile in its query tile) and with bias rows
+    that are not 16-byte aligned (the pass's scalar loads)."""
     for name, qm, km in _map_cases(dev):
         km = qm if km is None else km
-        got = fa.inline_tile_classes(qm, km)
         want = fa.inline_tile_classes_reference(qm, km)
-        torch.cuda.synchronize()
-        assert torch.equal(got, want), name
+        for backward in (False, True):
+            got = fa.inline_tile_classes(qm, km, backward=backward)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), (name, backward)
         bias = fa.precompute_bias(qm, km)
         if name.startswith("training"):
             bias[0, 40] = fa.BF16_NEG
@@ -405,6 +465,25 @@ def test_tile_maps_match_plain(dev):
 def test_k7_matches_plain(dev, h, hkv, blocks, n_img):
     errs = _k7_errors(dev, h, hkv, blocks, n_img)
     assert max(errs.values()) <= 1.0, errs
+
+
+def test_k7_with_an_empty_key_tile_column(dev):
+    """Keys 64..127 visible to no query (vis_start past every index, no
+    noisy block, no pad row): the second column of K7's map is empty, its
+    dK/dV blocks list no query tile and must store exactly 0; the rest
+    agrees with the plain version."""
+    q, k, v, meta = _inline_operands(dev, 4, 2, (1, 2, 1), 30)
+    assert meta.index.shape[1] > 128 and int(meta.is_pad.sum()) == 0
+    vis, blk = meta.vis_start.clone(), meta.noisy_block.clone()
+    vis[:, 64:128], blk[:, 64:128] = fa.NEVER, -1
+    meta = meta._replace(vis_start=vis, noisy_block=blk)
+    tiles = fa.inline_tile_classes(meta, meta, backward=True)
+    assert (tiles[:, :, 1] == fa.TILE_EMPTY).all()
+    assert (tiles[:, :, 0] != fa.TILE_EMPTY).any()
+    errs, (dq, dk, dv) = _k7_case_errors(dev, q, k, v, meta)
+    assert max(errs.values()) <= 1.0, errs
+    assert not dk[:, 64:128].any() and not dv[:, 64:128].any()
+    assert dk[:, :64].any() and dv[:, :64].any()
 
 
 def test_flash_mha_inline_gradients_reach_q_k_v(dev):
@@ -444,8 +523,20 @@ MUTATIONS = {
         "    row[kt] = (qt == 0 && kt == 0) ? kTileEmpty : c;", "K6"),
     "k7_dkdv_without_last_query_tile": (
         "inline_attention_bwd.cu",
-        "for (int q0 = 0; q0 < a.lq; q0 += kBlockQ) {",
-        "for (int q0 = 0; q0 < a.lq - kBlockQ; q0 += kBlockQ) {", "K7"),
+        "for (int i = 0; i < pairs; ++i) {",
+        "for (int i = 0; i < pairs - 1; ++i) {", "K7"),
+    "k7_dq_without_last_key_tile": (
+        "inline_attention_bwd.cu",
+        "for (int i = 0; i < n; ++i) {",
+        "for (int i = 0; i < n - 1; ++i) {", "K7"),
+    "k3_without_last_key_tile": (
+        "bias_attention.cu",
+        "for (int i = 0; i < n; ++i) {",
+        "for (int i = 0; i < n - 1; ++i) {", "K3"),
+    "k3_partial_tile_reads_no_bias": (
+        "bias_attention.cu",
+        "const bool partial = (e & 3) == kTilePartial;",
+        "const bool partial = false;", "K3"),
     "k9_map_one_tile_empty": (
         "tile_map.cuh",
         "    out[kt] = (any_dead && c == kTileEmpty) ? kTilePartial : c;",
@@ -471,6 +562,8 @@ def test_inline_mutation_fails_the_bar(dev, tmp_path, monkeypatch,
         ratio = _k6_error(dev, *case)
     elif kernel == "K7":
         ratio = max(_k7_errors(dev, *case).values())
+    elif kernel == "K3":
+        ratio = _k3_error(*_training_operands(dev, *case))
     else:
         ratio = max(_k9_errors(dev, *_training_operands(dev, *case))
                     .values())

@@ -82,6 +82,11 @@ class JaxChain:
     (dict(gen_nums=(1, 1), num_inference_steps=2, clean_image_noise_level=0.0,
           max_frame_window=8),
      ["encode", "z", "z"]),
+    # two blocks, each prediction re-encoded through the VAE before it is
+    # recycled, re-noised by 0.1 in block 2
+    (dict(gen_nums=(1, 1), num_inference_steps=2, clean_image_noise_level=0.1,
+          vae_roundtrip_recycle=True, max_frame_window=8),
+     ["encode", "z", "recycle_encode", "renoise", "z", "recycle_encode"]),
 ])
 def test_generate_matches_jax(pipes, kw, kinds):
     jpipe, tpipe = pipes

@@ -387,6 +387,68 @@ def test_dataset_draws_match_jax(tmp_path):
             jds.sample(index).frame_blocks
 
 
+@pytest.mark.parametrize("size", [(144, 256), (352, 640), (480, 854),
+                                  (176, 320)],
+                         ids=["enlarge", "shrink-2x", "shrink-fractional",
+                              "same-size"])
+def test_dataset_pixels_match_jax(tmp_path, size):
+    """The training pixels: the port's ``sample(i).pixels`` against the JAX
+    dataset's, which takes the native frame library whenever it loads
+    (fractional box filter to shrink, bilinear to enlarge, a fractional
+    crop, floats), within 1e-5 (float32 rounding of one arithmetic, the
+    port's in numpy)."""
+    from video_gpt_tpu.data import native
+    from video_gpt_tpu.data.video import VideoClipDataset as JDataset
+    from video_gpt_tpu_torch.data.video import VideoClipDataset
+    if not native.available():
+        pytest.skip("the JAX package's native frame library does not load")
+    videos = str(tmp_path / "videos")
+    _write_videos(videos, n=1, frames=6, h=size[0], w=size[1])
+    kw = dict(frame_num=2, frame_interval=2, target_resolution=(176, 320),
+              seed=1)
+    jds, tds = JDataset(videos, **kw), VideoClipDataset(videos, **kw)
+    for index in range(2):
+        got, want = tds.sample(index).pixels, jds.sample(index).pixels
+        assert got.dtype == np.float32 and got.shape == (2, 176, 320, 3)
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("ema", [False, True])
+def test_warm_start_reads_only_the_parameters(tmp_path, monkeypatch, ema):
+    """``load_train_params`` memory-maps the checkpoint and copies out the
+    one sub-dict it returns: the optimizer state is never read into host
+    memory, and what it returns shares no storage with the file."""
+    from video_gpt_tpu_torch.utils import checkpoint
+    g = torch.Generator().manual_seed(0)
+    model = {f"w{i}": torch.randn(4, 3, generator=g) for i in range(3)}
+    copy = {k: torch.randn(v.shape, generator=g) for k, v in model.items()}
+    opt = {"count": 2, "mini_step": 0, "acc": None,
+           "mu": [torch.randn(4, 3, generator=g) for _ in range(3)],
+           "nu": [torch.randn(4, 3, generator=g) for _ in range(3)]}
+    os.makedirs(tmp_path / "7")
+    torch.save({"step": 7, "model": model, "optimizer": opt,
+                "ema": copy}, tmp_path / "7" / "state.pt")
+    loads = []
+    orig = torch.load
+    monkeypatch.setattr(torch, "load", lambda *a, **k: (
+        loads.append((k, orig(*a, **k))), loads[-1][1])[1])
+    sd, step = checkpoint.load_train_params(str(tmp_path), ema=ema)
+    assert step == 7 and len(loads) == 1
+    kwargs, loaded = loads[0]
+    assert kwargs["mmap"] and kwargs["weights_only"]
+    want = copy if ema else model
+    assert set(sd) == set(want)
+    for name, t in sd.items():
+        assert torch.equal(t, want[name])
+    file_storages = {t.untyped_storage().data_ptr()
+                     for part in ("model", "ema") for t in loaded[part].values()}
+    file_storages |= {t.untyped_storage().data_ptr()
+                      for t in loaded["optimizer"]["mu"]
+                      + loaded["optimizer"]["nu"]}
+    assert not file_storages & {t.untyped_storage().data_ptr()
+                                for t in sd.values()}
+
+
 @pytest.mark.parametrize("stage", [2, 3, 4])
 def test_later_stages_train_on_the_inline_route(stage, monkeypatch):
     """One step of each later stage's recipe (frame-block partitions, a

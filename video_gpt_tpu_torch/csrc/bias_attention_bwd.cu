@@ -15,16 +15,17 @@
 // The TPU kernel recomputes the softmax over the whole VMEM-resident key row
 // per query block. Here the forward (K3, bias_attention.cu) keeps each row's
 // logsumexp `lse`, and every tile recomputes p = exp(s + bias - lse) on its
-// own: the same function without holding a row. Four launches, in order:
-//   1. the tile map (tile_map.cuh's bias classifier);
-//   2. delta: di = rowsum(o * do) in fp32 (part of the TPU kernel's body),
+// own: the same function without holding a row. It reads the tile map of
+// the bias that K3 read (tile_map.cuh's bias classifier, built once per
+// bias by vgt_bias_tile_map in bias_attention.cu). Three launches, in order:
+//   1. delta: di = rowsum(o * do) in fp32 (part of the TPU kernel's body),
 //      and each row's softmax reference;
-//   3. dK/dV: one block per (b, kv head, 64-key tile); it loops over the
+//   2. dK/dV: one block per (b, kv head, 64-key tile); it loops over the
 //      group's q heads and the non-empty 64-row query tiles of its column of
 //      the map and keeps dK and dV in fp32 registers, so the GQA sum falls
 //      out of the loop, as the TPU kernel's revisited output block does, and
 //      no atomics are needed;
-//   4. dQ: one block per (b, head, 64-row query tile), looping over the
+//   3. dQ: one block per (b, head, 64-row query tile), looping over the
 //      non-empty key tiles of its row of the map, as the forward does.
 // Products are bf16 wgmma with fp32 accumulation: p and ds are rounded to
 // bf16 before the products that consume them (the TPU keeps them in fp32),
@@ -38,8 +39,8 @@
 // TFLOP against ~0.3 GB of operands: tensor throughput bounds it (0.44 ms
 // at 989 TFLOP/s).
 //
-// Design. Before the dK/dV and dQ kernels, tile_map.cuh's bias classifier
-// reads the bias once (100 MB at stage 1) and writes the class of every
+// Design. Once per bias (one per training step), tile_map.cuh's bias
+// classifier reads the bias (100 MB at stage 1) and writes the class of every
 // (64-query, 64-key) tile and each row's softmax reference; at stage 1
 // 0.375 of the tiles are non-empty (0.220 full). Each kernel gathers the
 // non-empty tiles of its column or row of the map and computes only those:
@@ -78,8 +79,9 @@ struct BiasAttnBwdArgs {
   void* dq;           // [B, Lq, H, D]
   void* dk;           // [B, Lk, Hkv, D]
   void* dv;           // [B, Lk, Hkv, D], the strides of dk
-  int8_t* tile_map;   // [B, ceil(Lq/64), ceil(Lk/64)] tile classes (written)
-  float* rowdead;     // [B, Lq] scratch: see bias_tile_map_kernel
+  const int8_t* tile_map;  // [B, ceil(Lq/64), ceil(Lk/64)] tile classes and
+  const float* rowdead;    // [B, Lq] each row's dead-row count (see
+                           // bias_tile_map_kernel), from vgt_bias_tile_map
   float* rowref;      // [B, H, Lq, 2] scratch: each row's softmax reference
                       // (x_ref, off): p = exp2((x - x_ref) - off)
   long long q_sb, q_sl, q_sh;
@@ -94,7 +96,6 @@ struct BiasAttnBwdArgs {
   float scale;        // head_dim^-0.5
   float scale_log2;   // head_dim^-0.5 * log2(e)
   int bias_vec;       // bias rows allow 16-byte loads
-  int map_only;       // 1: build the tile map and stop
 };
 
 constexpr float kLog2e = 1.4426950408889634f;
@@ -131,29 +132,13 @@ __global__ void __launch_bounds__(32 * kDeltaWarps)
   }
 }
 
-// Copy the bias tile of query rows q0.. and keys k0.. into bs [64][kBiasLd]
-// (rows past Lq zero; keys past Lk hold whatever the row holds there, and
-// are masked by the caller): cp.async when the rows allow 16-byte loads,
-// else plain loads.
+// The bias tile of query rows q0.. and keys k0.. of batch row b into bs
+// [64][kBiasLd] (tile_map.cuh's load_bias_tile).
 __device__ __forceinline__ void load_bias_tile(bf16* bs, const BiasAttnBwdArgs& a,
                                                int b, int q0, int k0, int tid) {
-  const bf16* src = static_cast<const bf16*>(a.bias) + b * a.bias_sb +
-                    q0 * a.bias_sq + k0;
-  const int rows = min(kBlockQ, a.lq - q0);
-  if (a.bias_vec) {
-    for (int i = tid; i < kBlockQ * kBlockK / 8; i += kThreads) {
-      const int r = i / (kBlockK / 8), c = (i % (kBlockK / 8)) * 8;
-      async_copy16(bs + r * kBiasLd + c, src + (r < rows ? r * a.bias_sq + c : 0),
-                 r < rows && k0 + c < a.lk);
-    }
-  } else {
-    for (int i = tid; i < kBlockQ * kBlockK; i += kThreads) {
-      const int r = i / kBlockK, c = i % kBlockK;
-      bs[r * kBiasLd + c] = (r < rows && k0 + c < a.lk)
-                                ? src[r * a.bias_sq + c]
-                                : __float2bfloat16(0.f);
-    }
-  }
+  load_bias_tile<kBlockQ, kBlockK, kThreads>(
+      bs, kBiasLd, static_cast<const bf16*>(a.bias) + b * a.bias_sb,
+      a.bias_sq, a.lq, a.lk, a.bias_vec != 0, q0, k0, tid);
 }
 
 constexpr int kStages = 2;  // ring depth of the streamed tiles
@@ -484,8 +469,8 @@ __global__ void __launch_bounds__(kThreads)
 
 }  // namespace vgt
 
-// Launches on `stream`, in order: the tile map, then (unless map_only) the
-// delta pre-pass, dK/dV and dQ; returns the first nonzero
+// Launches on `stream`, in order: the delta pre-pass, dK/dV and dQ, over
+// the map of vgt_bias_tile_map; returns the first nonzero
 // cudaGetLastError() (0 = all launched).
 extern "C" int vgt_bias_attention_bwd(const vgt::BiasAttnBwdArgs* a,
                                       void* stream) {
@@ -494,22 +479,11 @@ extern "C" int vgt_bias_attention_bwd(const vgt::BiasAttnBwdArgs* a,
   if (a->head_dim != kHeadDim) return static_cast<int>(cudaErrorInvalidValue);
   const int nq = (a->lq + kBlockQ - 1) / kBlockQ;
   const int nk = (a->lk + kBlockK - 1) / kBlockK;
-  cudaError_t err = cudaFuncSetAttribute(
-      bias_tile_map_kernel<kBlockQ, kBlockK>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, nk);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  bias_tile_map_kernel<kBlockQ, kBlockK>
-      <<<dim3(nq, a->batch), 2 * kBlockQ, nk, s>>>(
-          static_cast<const bf16*>(a->bias), a->bias_sb, a->bias_sq, a->lq,
-          a->lk, a->bias_vec != 0, a->tile_map, a->rowdead);
-  err = cudaGetLastError();
-  if (err != cudaSuccess || a->map_only) return static_cast<int>(err);
-
   const long long rows = static_cast<long long>(a->batch) * a->heads * a->lq;
   bias_attention_delta_kernel<<<
       static_cast<unsigned>((rows + kDeltaWarps - 1) / kDeltaWarps),
       32 * kDeltaWarps, 0, s>>>(*a);
-  err = cudaGetLastError();
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
 
   int smem = dkdv_smem_bytes(nq);

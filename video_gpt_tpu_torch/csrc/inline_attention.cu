@@ -284,7 +284,7 @@ extern "C" int vgt_inline_attention(const vgt::InlineAttnArgs* a,
   if (err != cudaSuccess) return static_cast<int>(err);
   meta_tile_map_kernel<kBlockQ, kBlockK>
       <<<dim3(nq, a->batch), kMapThreads, 0, s>>>(qsum, ksum, a->lq, a->lk,
-                                                  a->tile_map, counts);
+                                                  a->tile_map, counts, nullptr);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const int order_smem = (nk + 1) * static_cast<int>(sizeof(int));

@@ -169,10 +169,13 @@ constexpr int kMapThreads = 128;
 
 // One block per (batch row b, query tile): the map's row of key-tile
 // classes, and its count of non-empty tiles in counts[b * nq + query tile].
+// With a non-null `col_counts` (zeroed before the launch) it also adds each
+// non-empty tile to its column's count, col_counts[b * nk + key tile].
 template <int TQ, int TK>
 __global__ void __launch_bounds__(kMapThreads)
     meta_tile_map_kernel(const QuerySummary* qsum, const KeySummary* ksum,
-                         int lq, int lk, int8_t* map, int* counts) {
+                         int lq, int lk, int8_t* map, int* counts,
+                         int* col_counts) {
   const int nq = (lq + TQ - 1) / TQ, nk = (lk + TK - 1) / TK;
   const int b = blockIdx.y, qt = blockIdx.x;
   const QuerySummary q = qsum[b * nq + qt];
@@ -184,6 +187,8 @@ __global__ void __launch_bounds__(kMapThreads)
         classify_meta(q, ksum[b * nk + kt], q_inside && (kt + 1) * TK <= lk);
     row[kt] = c;
     n += c != kTileEmpty;
+    if (col_counts != nullptr && c != kTileEmpty)
+      atomicAdd(&col_counts[b * nk + kt], 1);
   }
   __shared__ int total;
   if (threadIdx.x == 0) total = 0;
@@ -232,12 +237,14 @@ constexpr int kBiasMapSteps = 4;  // key tiles per step of the bias pass
 // rowdead[b * lq + q] = -1 for a row with an entry above BF16_NEG, else
 // log2 of its count of BF16_NEG entries (every logit of such a row is
 // BF16_NEG in fp32: its softmax is uniform over those entries). `vec`:
-// the bias rows allow 16-byte loads. Dynamic shared memory: nk bytes.
+// the bias rows allow 16-byte loads. The map row's count of non-empty
+// tiles goes to counts[b * nq + query tile]. Dynamic shared memory: nk
+// bytes.
 template <int TQ, int TK>
 __global__ void __launch_bounds__(2 * TQ)
     bias_tile_map_kernel(const bf16* bias, long long bias_sb,
                          long long bias_sq, int lq, int lk, bool vec,
-                         int8_t* map, float* rowdead) {
+                         int8_t* map, float* rowdead, int* counts) {
   constexpr int kThreadsB = 2 * TQ, kWarpsB = kThreadsB / 32;
   constexpr int kCols = TK / 2;
   static_assert(kCols % 8 == 0, "16-byte chunks per thread");
@@ -313,9 +320,45 @@ __global__ void __launch_bounds__(2 * TQ)
                                  : CUDART_INF_F;
   const bool any_dead = __syncthreads_or(dead);
   int8_t* out = map + (static_cast<long long>(b) * nq + qt) * nk;
+  int n = 0;
   for (int kt = threadIdx.x; kt < nk; kt += kThreadsB) {
     const int8_t c = cls[kt];
     out[kt] = (any_dead && c == kTileEmpty) ? kTilePartial : c;
+    n += out[kt] != kTileEmpty;
+  }
+  __shared__ int total;
+  if (threadIdx.x == 0) total = 0;
+  __syncthreads();
+  if (n) atomicAdd(&total, n);
+  __syncthreads();
+  if (threadIdx.x == 0) counts[b * nq + qt] = total;
+}
+
+// Copy the bias tile of query rows q0.. and keys k0.. of one batch row
+// (`bias` its first element, rows at stride bias_sq) into bs [TQ][ld]:
+// cp.async when the rows allow 16-byte loads (`vec`), else plain loads.
+// Rows past Lq are zero; keys past Lk hold whatever the row holds there and
+// are masked by the caller. NT threads, this one `tid`.
+template <int TQ, int TK, int NT>
+__device__ __forceinline__ void load_bias_tile(bf16* bs, int ld,
+                                               const bf16* bias,
+                                               long long bias_sq, int lq,
+                                               int lk, bool vec, int q0,
+                                               int k0, int tid) {
+  const bf16* src = bias + q0 * bias_sq + k0;
+  const int rows = min(TQ, lq - q0);
+  if (vec) {
+    for (int i = tid; i < TQ * TK / 8; i += NT) {
+      const int r = i / (TK / 8), c = (i % (TK / 8)) * 8;
+      async_copy16(bs + r * ld + c, src + (r < rows ? r * bias_sq + c : 0),
+                   r < rows && k0 + c < lk);
+    }
+  } else {
+    for (int i = tid; i < TQ * TK; i += NT) {
+      const int r = i / TK, c = i % TK;
+      bs[r * ld + c] = (r < rows && k0 + c < lk) ? src[r * bias_sq + c]
+                                                 : __float2bfloat16(0.f);
+    }
   }
 }
 

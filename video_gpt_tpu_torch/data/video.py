@@ -6,13 +6,17 @@ partitioning, resolution sanity checks, retry-on-bad-sample, ``.txt``
 manifests (path \\t frame_count) or directory walks, and one fixed
 resolution bucket per run. Every sample is a pure function of (seed,
 index), the same function as the JAX package's shard 0 of 1 (multi-host
-sharding is not ported). cv2 is imported only where a file is read or
-a frame must be resized; the preprocessing is the numpy path (the JAX
-package's native C++ fast path is not ported).
+sharding is not ported). cv2 is imported only where a file is read. The
+preprocessing computes in numpy the arithmetic of the JAX package's native
+frame library (``native/frame_ops.cpp``, ``preprocess_frame``), which that
+package takes whenever the library loads: a fractional box filter to
+shrink, bilinear to enlarge, a centre crop at a fractional offset, and
+floats throughout.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import os
 import random
 from typing import List, Optional, Sequence, Tuple
@@ -68,30 +72,86 @@ def random_block_partition(num_frames: int, rng: random.Random
     return tuple(parts)
 
 
+def _fma(a, b, c):
+    """a * b + c rounded once to float32, as the native library's build
+    (-O3 -march=native) contracts it: a float32 product is exact in
+    float64."""
+    return (np.float64(a) * np.float64(b) + np.float64(c)).astype(np.float32)
+
+
+def _box_weights(n_src: int, n_dst: int, inv: np.float32,
+                 off: np.float32) -> np.ndarray:
+    """[n_dst, n_src] weights of the area filter along one axis: output t
+    averages the source span [off + t inv, off + (t + 1) inv), clamped to
+    the image, each source pixel weighted by its overlap with the span."""
+    t = np.arange(n_dst, dtype=np.float32)
+    lo = np.maximum(_fma(t, inv, off), np.float32(0))
+    hi = np.minimum(_fma(t + np.float32(1), inv, off), np.float32(n_src))
+    w = np.zeros((n_dst, n_src), np.float64)
+    for i in range(n_dst):
+        for s in range(int(lo[i]), min(int(np.ceil(hi[i])), n_src)):
+            w[i, s] = (min(hi[i], np.float32(s + 1))
+                       - max(lo[i], np.float32(s)))
+    sums = w.sum(1, keepdims=True)
+    return np.divide(w, sums, out=np.zeros_like(w), where=sums > 0)
+
+
+def _bilinear_weights(n_src: int, n_dst: int, inv: np.float32,
+                      off: np.float32) -> np.ndarray:
+    """[n_dst, n_src] weights of the bilinear sample along one axis at
+    (t + 0.5) inv - 0.5 + off, clamped to [0, n_src - 1]."""
+    t = np.arange(n_dst, dtype=np.float32)
+    pos = _fma(t + np.float32(0.5), inv, off) - np.float32(0.5)
+    pos = np.clip(pos, np.float32(0), np.float32(n_src - 1))
+    i0 = pos.astype(np.int64)
+    i1 = np.minimum(i0 + 1, n_src - 1)
+    frac = (pos - i0.astype(np.float32)).astype(np.float64)
+    w = np.zeros((n_dst, n_src), np.float64)
+    rows = np.arange(n_dst)
+    np.add.at(w, (rows, i0), 1.0 - frac)
+    np.add.at(w, (rows, i1), frac)
+    return w
+
+
+@functools.lru_cache(maxsize=32)
+def resample_matrices(src_h: int, src_w: int, height: int, width: int
+                      ) -> Tuple[np.ndarray, np.ndarray]:
+    """The cover-resize and centre crop of an (src_h, src_w) frame to
+    (height, width) as two separable matrices (rows [height, src_h], cols
+    [width, src_w]): frame channel c maps to rows @ x[..., c] @ cols.T.
+    The float32 scale, offsets and sample positions of ``preprocess_frame``
+    (native/frame_ops.cpp): one scale covers both sides; shrinking takes
+    the area filter, enlarging (and scale 1) the bilinear sample. Both
+    filters are a product of a row weight and a column weight, so the
+    matrices reproduce them exactly."""
+    scale = max(np.float32(height) / np.float32(src_h),
+                np.float32(width) / np.float32(src_w))
+    inv = np.float32(1) / scale
+    y_off = _fma(-np.float32(height), inv, src_h) * np.float32(0.5)
+    x_off = _fma(-np.float32(width), inv, src_w) * np.float32(0.5)
+    weights = _box_weights if scale < 1 else _bilinear_weights
+    return (weights(src_h, height, inv, y_off),
+            weights(src_w, width, inv, x_off))
+
+
 def fit_to_resolution(frame: np.ndarray, height: int, width: int
                       ) -> np.ndarray:
-    """Aspect-preserving scale to cover (height, width), then center crop.
-    A frame already at (height, width) is returned as it is (what the cv2
-    resize to the same size would give), without cv2."""
-    h0, w0 = frame.shape[:2]
-    if (h0, w0) == (height, width):
-        return frame
-    import cv2
-    scale = max(height / h0, width / w0)
-    nh, nw = max(int(round(h0 * scale)), height), max(
-        int(round(w0 * scale)), width)
-    interp = cv2.INTER_AREA if scale < 1 else cv2.INTER_CUBIC
-    img = cv2.resize(frame, (nw, nh), interpolation=interp)
-    y0 = (nh - height) // 2
-    x0 = (nw - width) // 2
-    return img[y0: y0 + height, x0: x0 + width]
+    """Aspect-preserving scale to cover (height, width), then centre crop:
+    [height, width, 3] float32 pixel values (not rounded) of an HxWx3
+    uint8 frame."""
+    rows, cols = resample_matrices(frame.shape[0], frame.shape[1], height,
+                                   width)
+    x = frame.astype(np.float64)
+    return np.einsum("ys,sxc,tx->ytc", rows, x, cols,
+                     optimize=True).astype(np.float32)
 
 
 def preprocess_to_resolution(frames: Sequence[np.ndarray], th: int, tw: int
                              ) -> np.ndarray:
-    """Cover-resize + center-crop + normalise to [-1, 1] float32."""
+    """Cover-resize + centre crop + normalise to [-1, 1] float32
+    (``px * 2/255 - 1``, in float32 as the native library computes it)."""
     pixels = np.stack([fit_to_resolution(f, th, tw) for f in frames])
-    return (pixels.astype(np.float32) / 255.0 - 0.5) / 0.5
+    return pixels * np.float32(2.0 / 255.0) - np.float32(1.0)
 
 
 @dataclasses.dataclass

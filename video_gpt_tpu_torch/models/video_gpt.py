@@ -20,7 +20,7 @@ from torch import nn
 
 from ..config import ModelConfig
 from ..ops.attention import AttnMeta
-from ..ops.flash_attention import DecodeMask, precompute_bias
+from ..ops.flash_attention import DecodeMask, bias_map, precompute_bias
 from .embedders import (FinalLayer, PatchEmbed, TimestepEmbedder,
                         crop_pos_embed, sincos_2d_pos_embed, unpatchify)
 from .phi3 import KVCache, Phi3Decoder
@@ -53,7 +53,9 @@ class Batch(NamedTuple):
 
 def maybe_bias(cfg: ModelConfig, q_meta: AttnMeta, k_meta: AttnMeta):
     """The layer- and step-invariant attention bias (the bias kernel's
-    operand), or None when B*Lq*Lk exceeds ``cfg.precompute_bias_limit``.
+    operand) with its tile map, built once here and read by every layer's
+    K3 and K9 (a :class:`BiasMap`; on the CPU it holds no map), or None
+    when B*Lq*Lk exceeds ``cfg.precompute_bias_limit``.
     The JAX package precomputes it only on the TPU and under an 8192-key
     VMEM cap as well; the port does on every device, so the prefill and the
     training forward run the bias kernel's function everywhere (the kernel
@@ -64,7 +66,7 @@ def maybe_bias(cfg: ModelConfig, q_meta: AttnMeta, k_meta: AttnMeta):
     b, lq = q_meta.index.shape
     if b * lq * k_meta.vis_start.shape[1] > cfg.precompute_bias_limit:
         return None
-    return precompute_bias(q_meta, k_meta)
+    return bias_map(precompute_bias(q_meta, k_meta))
 
 
 def decode_mask(q_meta: AttnMeta, k_meta: AttnMeta) -> DecodeMask:

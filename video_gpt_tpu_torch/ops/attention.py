@@ -99,8 +99,9 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Metadata-masked attention dispatch; q [B,Lq,H,D], k/v [B,Lk,Hkv,D].
 
     ``bias`` is a ``DecodeMask`` (columnar per-key rank: the decode kernel,
-    K2), a precomputed bf16 bias from ``precompute_bias`` (the bias kernel,
-    K3, differentiable: its backward is K9), or None: the metadata-inline
+    K2), a precomputed bf16 bias from ``precompute_bias``, bare or with its
+    tile map as a ``BiasMap`` (the bias kernel, K3, differentiable: its
+    backward is K9, over the same map), or None: the metadata-inline
     kernel K6 evaluates the rule from ``q_meta``/``k_meta`` per tile
     (differentiable: its backward is K7). Each kernel's wrapper runs its
     plain version on CPU tensors.

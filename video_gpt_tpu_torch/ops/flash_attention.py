@@ -25,12 +25,15 @@ Port of every Pallas kernel of ``video_gpt_tpu/ops/flash_attention.py``
 
 K1 and K2 are one CUDA kernel (``csrc/rank_attention.cu``); K3 is
 ``csrc/bias_attention.cu``, K9 ``csrc/bias_attention_bwd.cu``, K6
-``csrc/inline_attention.cu`` and K7 ``csrc/inline_attention_bwd.cu``. K6
-and K9 compute only the tiles that their mask does not hide entirely: each
-launch first builds a tile map (``csrc/tile_map.cuh``; plain versions
+``csrc/inline_attention.cu`` and K7 ``csrc/inline_attention_bwd.cu``. All
+four compute only the tiles that their mask does not hide entirely, over a
+tile map (``csrc/tile_map.cuh``; plain versions
 :func:`inline_tile_classes_reference` and
 :func:`bias_tile_classes_reference`, the map alone
-:func:`inline_tile_classes` and :func:`bias_tile_classes`). Each
+:func:`inline_tile_classes` and :func:`bias_tile_classes`): K6 and K7 build
+the metadata's map in each launch; the bias's map is built once per bias
+by :func:`bias_map` (where the model builds the bias) and read by every
+K3 and K9 launch over that bias. Each
 wrapper takes its plain PyTorch version (``*_reference``) for CPU tensors
 only; for CUDA tensors it launches the kernel or raises, and counts the
 launch in its ``launches`` attribute (K1-K3 also in ``long_launches``
@@ -49,7 +52,7 @@ and K6 at B = 2 (B*L^2 above ``precompute_bias_limit``, as on the TPU).
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple, Sequence
+from typing import NamedTuple, Optional, Sequence
 
 import torch
 
@@ -65,7 +68,7 @@ KERNEL_HEAD_DIM = 96
 # K4, K5 and K10, whose function K1, K2 and K3 compute here. Those three
 # wrappers count such launches apart, in ``long_launches``
 TPU_KEY_CAP = 8192
-# the tiles of K6's and K9's tile maps (kBlockQ, kBlockK in csrc), and the
+# the tiles of the kernels' tile maps (kBlockQ, kBlockK in csrc), and the
 # classes of csrc/tile_map.cuh: no pair visible, some, all
 TILE_Q, TILE_K = 64, 64
 TILE_EMPTY, TILE_PARTIAL, TILE_FULL = 0, 1, 2
@@ -425,6 +428,7 @@ class _BiasArgs(ctypes.Structure):
         ("q", ctypes.c_void_p), ("k", ctypes.c_void_p),
         ("v", ctypes.c_void_p), ("bias", ctypes.c_void_p),
         ("out", ctypes.c_void_p), ("lse", ctypes.c_void_p),
+        ("tile_map", ctypes.c_void_p), ("order", ctypes.c_void_p),
         ("q_sb", ctypes.c_int64), ("q_sl", ctypes.c_int64),
         ("q_sh", ctypes.c_int64),
         ("k_sb", ctypes.c_int64), ("k_sl", ctypes.c_int64),
@@ -437,8 +441,16 @@ class _BiasArgs(ctypes.Structure):
         ("batch", ctypes.c_int), ("heads", ctypes.c_int),
         ("kv_heads", ctypes.c_int), ("lq", ctypes.c_int),
         ("lk", ctypes.c_int), ("head_dim", ctypes.c_int),
-        ("scale_log2", ctypes.c_float),
+        ("scale_log2", ctypes.c_float), ("bias_vec", ctypes.c_int),
     ]
+
+
+class _BiasMapArgs(ctypes.Structure):
+    """Mirror of ``BiasMapArgs`` in csrc/bias_attention.cu."""
+    _fields_ = [(name, ctypes.c_void_p) for name in (
+        "bias", "tile_map", "rowdead", "counts", "order")] + [
+        ("bias_sb", ctypes.c_int64), ("bias_sq", ctypes.c_int64)] + [
+        (name, ctypes.c_int) for name in ("batch", "lq", "lk", "bias_vec")]
 
 
 class _BiasBwdArgs(ctypes.Structure):
@@ -453,7 +465,7 @@ class _BiasBwdArgs(ctypes.Structure):
             "dkv_sh")] + [(name, ctypes.c_int) for name in (
                 "batch", "heads", "kv_heads", "lq", "lk", "head_dim")] + [
         ("scale", ctypes.c_float), ("scale_log2", ctypes.c_float),
-        ("bias_vec", ctypes.c_int), ("map_only", ctypes.c_int)]
+        ("bias_vec", ctypes.c_int)]
 
 
 # the metadata vectors of the inline kernels, in the order of their
@@ -487,7 +499,9 @@ class _InlineBwdArgs(ctypes.Structure):
             "dq_sb", "dq_sl", "dq_sh", "dkv_sb", "dkv_sl", "dkv_sh")] + [
         (name, ctypes.c_int) for name in (
             "batch", "heads", "kv_heads", "lq", "lk", "head_dim")] + [
-        ("scale", ctypes.c_float), ("scale_log2", ctypes.c_float)]
+        ("scale", ctypes.c_float), ("scale_log2", ctypes.c_float),
+        ("tile_map", ctypes.c_void_p), ("scratch", ctypes.c_void_p),
+        ("map_only", ctypes.c_int)]
 
 
 def _check_operand(name: str, x: torch.Tensor, device: torch.device,
@@ -619,6 +633,57 @@ def _kv_views(q, k, v):
     return kh, vh
 
 
+def _bias_vec(bias: torch.Tensor) -> int:
+    """1 when the bias rows allow 16-byte loads."""
+    return int(bias.stride(0) % 8 == 0 and bias.stride(1) % 8 == 0
+               and bias.data_ptr() % 16 == 0)
+
+
+class BiasMap(NamedTuple):
+    """A precomputed bias with its tile map: what K3 and K9 read, built
+    once per bias by :func:`bias_map` and shared by every layer (and by a
+    layer's forward, its recompute and its backward). On the CPU the map
+    fields are None: the plain versions read the bias alone."""
+
+    bias: torch.Tensor                # bf16 [B, Lq, Lk]
+    tile_map: Optional[torch.Tensor]  # int8 [B, ceil(Lq/TILE_Q), ceil(Lk/TILE_K)]
+    rowdead: Optional[torch.Tensor]   # fp32 [B, Lq]: rows that see no key
+    order: Optional[torch.Tensor]     # int32 [B ceil(Lq/TILE_Q)]: query
+    #                                   tiles, most non-empty tiles first
+
+
+def bias_map(bias: torch.Tensor) -> BiasMap:
+    """The bf16 bias [B, Lq, Lk] of :func:`precompute_bias` with its tile
+    map, built once (on CUDA: the launches of csrc/bias_attention.cu
+    ``vgt_bias_tile_map``, counted in ``flash_mha.bias_map_builds``; on
+    the CPU the map fields are None): hand it to :func:`flash_mha` and
+    :func:`flash_mha_bwd` in place of the bare bias, so that K3 and K9 read
+    one map."""
+    if not bias.is_cuda:
+        return BiasMap(bias, None, None, None)
+    b, lq, lk = bias.shape
+    _check_operand("bias", bias, bias.device, torch.bfloat16)
+    nq = -(-lq // TILE_Q)
+    tile_map = torch.empty((b, nq, -(-lk // TILE_K)), dtype=torch.int8,
+                           device=bias.device)
+    rowdead = torch.empty((b, lq), dtype=torch.float32, device=bias.device)
+    counts, order = torch.empty((2, b * nq), dtype=torch.int32,
+                                device=bias.device)
+    a = _BiasMapArgs(bias=bias.data_ptr(), tile_map=tile_map.data_ptr(),
+                     rowdead=rowdead.data_ptr(), counts=counts.data_ptr(),
+                     order=order.data_ptr(), bias_sb=bias.stride(0),
+                     bias_sq=bias.stride(1), batch=b, lq=lq, lk=lk,
+                     bias_vec=_bias_vec(bias))
+    _launch("bias_attention", "vgt_bias_tile_map", a, bias.device)
+    flash_mha.bias_map_builds += 1
+    return BiasMap(bias, tile_map, rowdead, order)
+
+
+def _as_bias_map(bias) -> BiasMap:
+    """A :class:`BiasMap` as it is; a bare bias with its map built here."""
+    return bias if isinstance(bias, BiasMap) else bias_map(bias)
+
+
 def _check_bias_operands(q, k, v, bias):
     """k/v as heads-major views [B,Hkv,Lk,D]; raises on what K3/K9 do not
     take."""
@@ -629,11 +694,13 @@ def _check_bias_operands(q, k, v, bias):
 
 
 def _bias_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                  bias: torch.Tensor, with_lse: bool):
-    """K3 -> (out, lse): ``lse`` the fp32 per-row logsumexp [B, H, Lq] of
-    the biased logits when ``with_lse`` on CUDA, else None."""
+                  bm: BiasMap, with_lse: bool):
+    """K3 over the map of ``bm`` -> (out, lse): ``lse`` the fp32 per-row
+    logsumexp [B, H, Lq] of the biased logits when ``with_lse`` on CUDA,
+    else None."""
     if not q.is_cuda:
-        return bias_attention_reference(q, k, v, bias), None
+        return bias_attention_reference(q, k, v, bm.bias), None
+    bias = bm.bias
     kh, vh = _check_bias_operands(q, k, v, bias)
     b, lq, h, d = q.shape
     out = torch.empty((b, lq, h, d), dtype=q.dtype, device=q.device)
@@ -643,13 +710,14 @@ def _bias_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         q=q.data_ptr(), k=kh.data_ptr(), v=vh.data_ptr(),
         bias=bias.data_ptr(), out=out.data_ptr(),
         lse=None if lse is None else lse.data_ptr(),
+        tile_map=bm.tile_map.data_ptr(), order=bm.order.data_ptr(),
         q_sb=q.stride(0), q_sl=q.stride(1), q_sh=q.stride(2),
         k_sb=kh.stride(0), k_sl=kh.stride(2), k_sh=kh.stride(1),
         v_sb=vh.stride(0), v_sl=vh.stride(2), v_sh=vh.stride(1),
         bias_sb=bias.stride(0), bias_sq=bias.stride(1),
         o_sb=out.stride(0), o_sl=out.stride(1), o_sh=out.stride(2),
         batch=b, heads=h, kv_heads=kh.shape[1], lq=lq, lk=kh.shape[2],
-        head_dim=d, scale_log2=d ** -0.5 * LOG2E)
+        head_dim=d, scale_log2=d ** -0.5 * LOG2E, bias_vec=_bias_vec(bias))
     _launch("bias_attention", "vgt_bias_attention", a, q.device)
     flash_mha.launches += 1
     if kh.shape[2] > TPU_KEY_CAP:
@@ -658,81 +726,65 @@ def _bias_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 class _BiasAttention(torch.autograd.Function):
-    """K3 forward (keeping the logsumexp), K9 backward. The per-layer
+    """K3 forward (keeping the logsumexp), K9 backward; the bias's tile map
+    (tile classes, dead rows, row order) rides as inputs without a
+    gradient, so the two read the map that was built once. The per-layer
     recompute of a checkpointed layer runs the forward again, alike."""
 
     @staticmethod
-    def forward(ctx, q, k, v, bias):
-        out, lse = _bias_forward(q, k, v, bias, with_lse=True)
-        ctx.save_for_backward(q, k, v, bias, out, lse)
+    def forward(ctx, q, k, v, *bm):
+        out, lse = _bias_forward(q, k, v, BiasMap(*bm), with_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse, *bm)
         return out
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, bias, out, lse = ctx.saved_tensors
-        dq, dk, dv = flash_mha_bwd(q, k, v, bias, out, do, lse)
-        return dq, dk, dv, None
+        q, k, v, out, lse, *bm = ctx.saved_tensors
+        dq, dk, dv = flash_mha_bwd(q, k, v, BiasMap(*bm), out, do, lse)
+        return (dq, dk, dv) + (None,) * len(bm)
 
 
 def flash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-              bias: torch.Tensor) -> torch.Tensor:
+              bias) -> torch.Tensor:
     """K3. q [B,Lq,H,D], k/v [B,Lk,Hkv,D], ``bias`` the bf16 [B, Lq, Lk]
-    of :func:`precompute_bias` -> [B,Lq,H,D]. Differentiable in q, k, v:
-    with grad enabled and an input that requires it, the backward is K9
-    (:func:`flash_mha_bwd`)."""
+    of :func:`precompute_bias`, bare or as a :class:`BiasMap` (a bare
+    bias on CUDA gets its map built here, once per call) -> [B,Lq,H,D].
+    Differentiable in q, k, v: with grad enabled and an input that
+    requires it, the backward is K9 (:func:`flash_mha_bwd`), over the
+    same map."""
+    bm = _as_bias_map(bias)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
-        return _BiasAttention.apply(q, k, v, bias)
-    return _bias_forward(q, k, v, bias, with_lse=False)[0]
+        return _BiasAttention.apply(q, k, v, *bm)
+    return _bias_forward(q, k, v, bm, with_lse=False)[0]
 
 
 flash_mha.launches = flash_mha.long_launches = 0
-
-
-def _bias_map_args(bias: torch.Tensor):
-    """(K9's arguments with the bias, its tile map and scratch set,
-    ``map_only`` 0; the map [B, ceil(Lq/TILE_Q), ceil(Lk/TILE_K)]; the
-    scratch, to be held until the launch)."""
-    b, lq, lk = bias.shape
-    tile_map = torch.empty((b, -(-lq // TILE_Q), -(-lk // TILE_K)),
-                           dtype=torch.int8, device=bias.device)
-    rowdead = torch.empty((b, lq), dtype=torch.float32, device=bias.device)
-    a = _BiasBwdArgs(
-        bias=bias.data_ptr(), tile_map=tile_map.data_ptr(),
-        rowdead=rowdead.data_ptr(), bias_sb=bias.stride(0),
-        bias_sq=bias.stride(1), batch=b, lq=lq, lk=lk,
-        head_dim=KERNEL_HEAD_DIM,
-        # 16-byte loads of the bias rows
-        bias_vec=int(bias.stride(0) % 8 == 0 and bias.stride(1) % 8 == 0
-                     and bias.data_ptr() % 16 == 0))
-    return a, tile_map, rowdead
+flash_mha.bias_map_builds = 0
 
 
 def bias_tile_classes(bias: torch.Tensor) -> torch.Tensor:
-    """K9's tile map of the bf16 bias [B, Lq, Lk] alone (the first launch
-    of :func:`flash_mha_bwd`): int8 [B, ceil(Lq/TILE_Q), ceil(Lk/TILE_K)]
-    of ``TILE_EMPTY`` / ``TILE_PARTIAL`` / ``TILE_FULL``. For a bias on the
-    CPU, :func:`bias_tile_classes_reference`. Counts no launch."""
+    """The tile map of the bf16 bias [B, Lq, Lk] that K3 and K9 read (from
+    :func:`bias_map`, a build counted there): int8 [B, ceil(Lq/TILE_Q),
+    ceil(Lk/TILE_K)] of ``TILE_EMPTY`` / ``TILE_PARTIAL`` / ``TILE_FULL``.
+    For a bias on the CPU, :func:`bias_tile_classes_reference`."""
     if not bias.is_cuda:
         return bias_tile_classes_reference(bias)
-    _check_operand("bias", bias, bias.device, torch.bfloat16,
-                   (bias.shape[0], bias.shape[1], bias.shape[2]))
-    a, tile_map, rowdead = _bias_map_args(bias)
-    a.map_only = 1
-    _launch("bias_attention_bwd", "vgt_bias_attention_bwd", a, bias.device)
-    return tile_map
+    return bias_map(bias).tile_map
 
 
 def flash_mha_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                  bias: torch.Tensor, o: torch.Tensor, do: torch.Tensor,
-                  lse=None):
+                  bias, o: torch.Tensor, do: torch.Tensor, lse=None):
     """K9: (dq, dk, dv) of :func:`flash_mha` at its output ``o`` for the
-    cotangent ``do`` [B,Lq,H,D]. On CUDA ``lse`` is K3's fp32 logsumexp
+    cotangent ``do`` [B,Lq,H,D]; ``bias`` bare or as the
+    :class:`BiasMap` that K3 read. On CUDA ``lse`` is K3's fp32 logsumexp
     [B, H, Lq], from which the kernel recomputes each probability; the plain
     version (CPU tensors) recomputes the softmax over the whole row as the
     TPU kernel does and ignores it."""
+    bm = _as_bias_map(bias)
     if not q.is_cuda:
-        return bias_attention_backward_reference(q, k, v, bias, o, do)
+        return bias_attention_backward_reference(q, k, v, bm.bias, o, do)
+    bias = bm.bias
     kh, vh = _check_bias_operands(q, k, v, bias)
     b, lq, h, d = q.shape
     hkv, lk = kh.shape[1], kh.shape[2]
@@ -750,7 +802,11 @@ def flash_mha_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dq = torch.empty((b, lq, h, d), dtype=q.dtype, device=q.device)
     dk = torch.empty((b, lk, hkv, d), dtype=k.dtype, device=q.device)
     dv = torch.empty((b, lk, hkv, d), dtype=v.dtype, device=q.device)
-    a, tile_map, rowdead = _bias_map_args(bias)
+    a = _BiasBwdArgs(
+        bias=bias.data_ptr(), tile_map=bm.tile_map.data_ptr(),
+        rowdead=bm.rowdead.data_ptr(), bias_sb=bias.stride(0),
+        bias_sq=bias.stride(1), batch=b, lq=lq, lk=lk, head_dim=d,
+        bias_vec=_bias_vec(bias))
     a.q, a.k, a.v, a.o, a.dout = (x.data_ptr() for x in (q, kh, vh, o, do))
     a.lse, a.delta, a.rowref = lse.data_ptr(), delta.data_ptr(), \
         rowref.data_ptr()
@@ -789,37 +845,55 @@ def _set_meta(a, q_meta: AttnMeta, k_meta: AttnMeta, b: int, lq: int,
         a.km[i], a.km_sb[i] = x.data_ptr(), x.stride(0)
 
 
-def _inline_map_args(q_meta: AttnMeta, k_meta: AttnMeta):
-    """(K6's arguments with the metadata, its tile map and scratch set,
-    ``map_only`` 0; the map [B, ceil(Lq/TILE_Q), ceil(Lk/TILE_K)]; the
-    scratch, to be held until the launch)."""
+def _check_meta_shapes(q_meta: AttnMeta, k_meta: AttnMeta, b: int, lq: int,
+                       lk: int) -> None:
+    """Raise unless the metadata covers the queries [B, Lq] and the keys
+    [B, Lk] of the operands."""
+    if (tuple(q_meta.index.shape) != (b, lq)
+            or tuple(k_meta.vis_start.shape) != (b, lk)):
+        raise ValueError(f"metadata {tuple(q_meta.index.shape)} / "
+                         f"{tuple(k_meta.vis_start.shape)} for q {(b, lq)}, "
+                         f"keys {(b, lk)}")
+
+
+def _inline_map_args(q_meta: AttnMeta, k_meta: AttnMeta,
+                     backward: bool = False):
+    """(K6's arguments, or with ``backward`` K7's, with the metadata, the
+    tile map and scratch set, ``map_only`` 0; the map [B, ceil(Lq/TILE_Q),
+    ceil(Lk/TILE_K)]; the scratch, to be held until the launch)."""
     b, lq = q_meta.index.shape
     lk = k_meta.vis_start.shape[1]
     device = q_meta.index.device
     nq, nk = -(-lq // TILE_Q), -(-lk // TILE_K)
     tile_map = torch.empty((b, nq, nk), dtype=torch.int8, device=device)
-    # csrc/inline_attention.cu: the query- and key-tile summaries (8 ints
-    # each), each query tile's count of non-empty key tiles, the launch order
-    scratch = torch.empty((b * (nq + nk) * 8 + 2 * b * nq,),
+    # the query- and key-tile summaries (8 ints each); csrc/
+    # inline_attention.cu: each query tile's count of non-empty key tiles
+    # and the launch order; csrc/inline_attention_bwd.cu: those of the key
+    # tiles too
+    orders = b * (nq + nk) if backward else b * nq
+    scratch = torch.empty((b * (nq + nk) * 8 + 2 * orders,),
                           dtype=torch.int32, device=device)
-    a = _InlineArgs(tile_map=tile_map.data_ptr(), scratch=scratch.data_ptr(),
-                    batch=b, lq=lq, lk=lk, head_dim=KERNEL_HEAD_DIM)
+    a = (_InlineBwdArgs if backward else _InlineArgs)(
+        tile_map=tile_map.data_ptr(), scratch=scratch.data_ptr(), batch=b,
+        lq=lq, lk=lk, head_dim=KERNEL_HEAD_DIM)
     _set_meta(a, q_meta, k_meta, b, lq, lk, device)
     return a, tile_map, scratch
 
 
-def inline_tile_classes(q_meta: AttnMeta, k_meta: AttnMeta) -> torch.Tensor:
-    """K6's tile map alone (the first launches of :func:`flash_mha_inline`):
-    int8 [B, ceil(Lq/TILE_Q), ceil(Lk/TILE_K)] of ``TILE_EMPTY`` /
-    ``TILE_PARTIAL`` / ``TILE_FULL``, from per-tile summaries of the
-    metadata. For metadata on the CPU, :func:`inline_tile_classes_reference`.
-    Counts no launch."""
+def inline_tile_classes(q_meta: AttnMeta, k_meta: AttnMeta,
+                        backward: bool = False) -> torch.Tensor:
+    """K6's tile map alone (the first launches of :func:`flash_mha_inline`;
+    with ``backward``, of :func:`flash_mha_inline_bwd`, which builds the
+    same map and counts its columns too): int8 [B, ceil(Lq/TILE_Q),
+    ceil(Lk/TILE_K)] of ``TILE_EMPTY`` / ``TILE_PARTIAL`` / ``TILE_FULL``,
+    from per-tile summaries of the metadata. For metadata on the CPU,
+    :func:`inline_tile_classes_reference`. Counts no launch."""
     if not q_meta.index.is_cuda:
         return inline_tile_classes_reference(q_meta, k_meta)
-    a, tile_map, scratch = _inline_map_args(q_meta, k_meta)
+    a, tile_map, scratch = _inline_map_args(q_meta, k_meta, backward)
     a.map_only = 1
-    _launch("inline_attention", "vgt_inline_attention", a,
-            q_meta.index.device)
+    lib = "inline_attention_bwd" if backward else "inline_attention"
+    _launch(lib, f"vgt_{lib}", a, q_meta.index.device)
     return tile_map
 
 
@@ -836,11 +910,7 @@ def _inline_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty((b, lq, h, d), dtype=q.dtype, device=q.device)
     lse = (torch.empty((b, h, lq), dtype=torch.float32, device=q.device)
            if with_lse else None)
-    if (tuple(q_meta.index.shape) != (b, lq)
-            or tuple(k_meta.vis_start.shape) != (b, lk)):
-        raise ValueError(f"metadata {tuple(q_meta.index.shape)} / "
-                         f"{tuple(k_meta.vis_start.shape)} for q {(b, lq)}, "
-                         f"keys {(b, lk)}")
+    _check_meta_shapes(q_meta, k_meta, b, lq, lk)
     a, tile_map, scratch = _inline_map_args(q_meta, k_meta)
     a.q, a.k, a.v, a.out = (x.data_ptr() for x in (q, kh, vh, out))
     a.lse = None if lse is None else lse.data_ptr()
@@ -917,24 +987,24 @@ def flash_mha_inline_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check_operand("lse", lse, q.device, torch.float32, (b, h, lq))
     if not lse.is_contiguous():
         raise ValueError("lse must be contiguous")
+    _check_meta_shapes(q_meta, k_meta, b, lq, lk)
     delta = torch.empty((b, h, lq), dtype=torch.float32, device=q.device)
     dq = torch.empty((b, lq, h, d), dtype=q.dtype, device=q.device)
     dk = torch.empty((b, lk, hkv, d), dtype=k.dtype, device=q.device)
     dv = torch.empty((b, lk, hkv, d), dtype=v.dtype, device=q.device)
-    a = _InlineBwdArgs(
-        q=q.data_ptr(), k=kh.data_ptr(), v=vh.data_ptr(), o=o.data_ptr(),
-        dout=do.data_ptr(), lse=lse.data_ptr(), delta=delta.data_ptr(),
-        dq=dq.data_ptr(), dk=dk.data_ptr(), dv=dv.data_ptr(),
-        q_sb=q.stride(0), q_sl=q.stride(1), q_sh=q.stride(2),
-        k_sb=kh.stride(0), k_sl=kh.stride(2), k_sh=kh.stride(1),
-        v_sb=vh.stride(0), v_sl=vh.stride(2), v_sh=vh.stride(1),
-        o_sb=o.stride(0), o_sl=o.stride(1), o_sh=o.stride(2),
-        do_sb=do.stride(0), do_sl=do.stride(1), do_sh=do.stride(2),
-        dq_sb=dq.stride(0), dq_sl=dq.stride(1), dq_sh=dq.stride(2),
-        dkv_sb=dk.stride(0), dkv_sl=dk.stride(1), dkv_sh=dk.stride(2),
-        batch=b, heads=h, kv_heads=hkv, lq=lq, lk=lk, head_dim=d,
-        scale=d ** -0.5, scale_log2=d ** -0.5 * LOG2E)
-    _set_meta(a, q_meta, k_meta, b, lq, lk, q.device)
+    a, tile_map, scratch = _inline_map_args(q_meta, k_meta, backward=True)
+    a.q, a.k, a.v, a.o, a.dout = (x.data_ptr() for x in (q, kh, vh, o, do))
+    a.lse, a.delta = lse.data_ptr(), delta.data_ptr()
+    a.dq, a.dk, a.dv = dq.data_ptr(), dk.data_ptr(), dv.data_ptr()
+    for name, x, (sb, sl, sh) in (
+            ("q", q, (0, 1, 2)), ("k", kh, (0, 2, 1)), ("v", vh, (0, 2, 1)),
+            ("o", o, (0, 1, 2)), ("do", do, (0, 1, 2)),
+            ("dq", dq, (0, 1, 2)), ("dkv", dk, (0, 1, 2))):
+        setattr(a, f"{name}_sb", x.stride(sb))
+        setattr(a, f"{name}_sl", x.stride(sl))
+        setattr(a, f"{name}_sh", x.stride(sh))
+    a.heads, a.kv_heads = h, hkv
+    a.scale, a.scale_log2 = d ** -0.5, d ** -0.5 * LOG2E
     _launch("inline_attention_bwd", "vgt_inline_attention_bwd", a, q.device)
     flash_mha_inline_bwd.launches += 1
     return dq, dk, dv
@@ -947,6 +1017,9 @@ KERNELS = (flash_mha_decode_split, flash_mha_decode, flash_mha,
 
 
 def reset_launch_counts() -> None:
+    """Every wrapper's launch counts, and ``flash_mha.bias_map_builds``,
+    to 0."""
+    flash_mha.bias_map_builds = 0
     for fn in KERNELS:
         fn.launches = 0
     for fn in (flash_mha_decode_split, flash_mha_decode, flash_mha):

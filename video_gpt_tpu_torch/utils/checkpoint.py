@@ -96,21 +96,20 @@ class CheckpointWriter:
         self.close()
 
 
-def _load(directory: str, step: Optional[int]) -> Tuple[dict, int]:
+def _path(directory: str, step: Optional[int]) -> Tuple[str, int]:
     step = latest_step(directory) if step is None else step
     if step is None:
         raise FileNotFoundError(f"no checkpoints under {directory}")
-    sd = torch.load(os.path.join(directory, str(step), _FILE),
-                    map_location="cpu", weights_only=True)
-    return sd, step
+    return os.path.join(directory, str(step), _FILE), step
 
 
 def restore_checkpoint(directory: str, state_like: Any,
                        step: Optional[int] = None) -> Tuple[Any, int]:
     """Load the checkpoint of ``step`` (the latest by default) into
     ``state_like`` in place; returns (state_like, step)."""
-    sd, step = _load(directory, step)
-    state_like.load_state_dict(sd)
+    path, step = _path(directory, step)
+    state_like.load_state_dict(torch.load(path, map_location="cpu",
+                                          weights_only=True))
     return state_like, step
 
 
@@ -119,11 +118,13 @@ def load_train_params(directory: str, step: Optional[int] = None,
     """The model parameters of the checkpoint of ``step`` (the latest by
     default), or its EMA copy, as a state dict on the host: the warm start
     of a later curriculum stage, which never takes the optimizer state.
-    Returns (state dict, step)."""
-    sd, step = _load(directory, step)
-    if not ema:
-        return sd["model"], step
-    if sd["ema"] is None:
+    The file is memory-mapped and only the returned tensors are copied out
+    of it, so the optimizer's moments (and the other copy) are never read
+    into host memory. Returns (state dict, step)."""
+    path, step = _path(directory, step)
+    sd = torch.load(path, map_location="cpu", weights_only=True, mmap=True)
+    params = sd["ema" if ema else "model"]
+    if params is None:
         raise ValueError(f"checkpoint {step} under {directory} has no EMA "
                          "(trained without use_ema)")
-    return sd["ema"], step
+    return {name: t.clone() for name, t in params.items()}, step
