@@ -24,13 +24,16 @@ Phases, in order; any failure exits nonzero and none is caught:
    shape as K8; then the rollouts' other shapes: K2 over the long
    rollout's uncond row (5,328^2), and the batched rollout's K1 (B 2, a
    heads-major cache), K2 (B 2) and its prefill through K6 (B 2 x
-   12,432^2, the index a batch-stride-0 view). Every attention kernel but
-   K1/K2 computes only the tiles its tile map does not call empty: each
-   map the kernels build is held equal to its plain classifier, and its
-   share of tiles computed and the map's own time are printed beside the
-   kernel's: K3 (flagship, stage 1, K10) and K9 read the bias's map, built
-   once per bias (``fa.bias_map``, not in their times); K6, K8, the B 2
-   prefill and K7 (stage 4) build theirs in every launch (in their times);
+   12,432^2, the index a batch-stride-0 view). Every attention kernel
+   computes only the tiles its tile map does not call empty: each map the
+   kernels build is held equal to its plain classifier, and its share of
+   tiles computed and the map's own time are printed beside the kernel's:
+   K3 (flagship, stage 1, K10) and K9 read the bias's map, built once per
+   bias (``fa.bias_map``, not in their times); K6, K8, the B 2 prefill and
+   K7 (stage 4) build theirs in every launch (in their times); K1/K2 (and
+   K4, K5 and the rollouts' rows) classify each key tile in their producer
+   as they load its ranks (in their times; no map), and their records give
+   the share of tiles computed and full from the plain classifier;
 4. small-input serving reference: ``generate`` on a tiny model (head_dim
    96, GQA) on the card in bf16 against the same weights and noise on the
    CPU in fp32 (plain versions), two blocks so every serving kernel and the
@@ -322,7 +325,9 @@ def decode_split_record(dev, seed: int, meta: AttnMeta, tail: int,
         replaces=f"{TPU_KERNELS}:{replaces}",
         shape=f"B {b}, Lq {tail} vs {lc} cached + {tail} new keys",
         bytes=nbytes(q, kc, vc, kt, vt, mask.rank, mask.q_off, q),
-        flops=4 * h * d * rank_pairs(mask.rank, mask.q_off))
+        flops=4 * h * d * rank_pairs(mask.rank, mask.q_off),
+        tiles=lambda: fa.rank_tile_classes_reference((rank_c, rank_t),
+                                                     mask.q_off))
 
 
 def decode_record(dev, seed: int, meta: AttnMeta, replaces: int) -> dict:
@@ -354,7 +359,9 @@ def decode_record(dev, seed: int, meta: AttnMeta, replaces: int) -> dict:
         source="video_gpt_tpu_torch/csrc/rank_attention.cu",
         replaces=f"{TPU_KERNELS}:{replaces}", shape=f"B {b}, Lq = Lk = {L}",
         bytes=nbytes(q, k, v, mask.rank, mask.q_off, q),
-        flops=4 * h * d * rank_pairs(mask.rank, mask.q_off))
+        flops=4 * h * d * rank_pairs(mask.rank, mask.q_off),
+        tiles=lambda: fa.rank_tile_classes_reference((mask.rank,),
+                                                     mask.q_off))
 
 
 def bias_record(dev, seed: int, meta: AttnMeta, replaces: int) -> dict:
@@ -411,6 +418,7 @@ def kernels_phase(dev):
             ("K3", lambda: bias_record(dev, 2, meta_c.cols(slice(0, lc)),
                                        133))):
         out[name] = check_and_time(name, make())
+    out["K1"]["host_us"] = launch_host_us(dev)
     out.update(long_kernels(dev))
     out.update(probe_kernels(dev))
     train = training_kernels(dev)
@@ -420,6 +428,35 @@ def kernels_phase(dev):
     out.update(inline_kernels(dev))
     for name, key, rec in rollout_kernels(dev):
         out[name][key] = rec
+    return out
+
+
+def launch_host_us(dev, n: int = 500) -> dict:
+    """Host time of one K1 call (``flash_mha_decode_split``: its checks,
+    the tensor maps' encoding and the launch) in microseconds, at a tiny
+    shape (B 1, 4 heads, 64 queries over 64 + 64 keys) whose device time
+    is below it, so that the launch queue never fills; beside it one
+    ``torch.add`` of two such tensors, a PyTorch launch's host cost."""
+    bf16 = _bf16_maker(dev, 11)
+    q = bf16(1, 64, 4, fa.KERNEL_HEAD_DIM)
+    kc, vc, kt, vt = (bf16(1, 2, 64, fa.KERNEL_HEAD_DIM) for _ in range(4))
+    mask = fa.DecodeMask(torch.zeros(1, 128, dtype=torch.int32, device=dev),
+                         torch.zeros(1, 64, dtype=torch.int32, device=dev))
+    out = {}
+    for name, fn in (
+            ("K1", lambda: fa.flash_mha_decode_split(q, kc, vc, kt, vt,
+                                                     mask)),
+            ("torch.add", lambda: torch.add(q, q))):
+        for _ in range(20):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        out[name] = (time.perf_counter() - t0) / n * 1e6
+        torch.cuda.synchronize()
+    log(f"host time per call: K1 {out['K1']:.2f} us, torch.add "
+        f"{out['torch.add']:.2f} us")
     return out
 
 
@@ -534,7 +571,8 @@ def check_and_time(name: str, r: dict, label: str = "") -> dict:
     ``plain`` return a tensor or a tuple of tensors (``plain(absv=True)``:
     the rounding bound's mass of each). ``label`` names the shape in the
     log. With ``tile_map`` (build, plain), the kernel's tile map is held
-    equal to the plain one and timed (tile_map_record)."""
+    equal to the plain one and timed (tile_map_record); with ``tiles`` (the
+    plain classes of a kernel that builds no map), their shares."""
     name_l = f"{name}{label}"
     def tup(x):
         return x if isinstance(x, tuple) else (x,)
@@ -575,9 +613,17 @@ def check_and_time(name: str, r: dict, label: str = "") -> dict:
                replaces=r["replaces"], max_abs_err=err, max_err=err,
                err_over_bar=ratio, ms=ms, plain_ms=plain_ms,
                bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms,
+               tflops_visible=r["flops"] / ms / 1e9,
                **({"shape": r["shape"]} if "shape" in r else {}))
     if "tile_map" in r:
         rec["tile_map"] = tile_map_record(name_l, *r["tile_map"])
+    if "tiles" in r:
+        classes = r["tiles"]()
+        rec["tiles"] = dict(
+            computed=float((classes != fa.TILE_EMPTY).float().mean()),
+            full=float((classes == fa.TILE_FULL).float().mean()))
+        log(f"{name_l}: tiles computed {rec['tiles']['computed']:.4f} (full "
+            f"{rec['tiles']['full']:.4f}; the plain classes)")
     return rec
 
 
@@ -1154,8 +1200,10 @@ def run(dev: torch.device, smi: str) -> None:
     log(f"build: {time.perf_counter() - t0:.1f} s")
     for line in _cuda.build_log().splitlines():
         if ("registers" in line or "spill" in line or "entry function" in line
-                or line.startswith("==")):
+                or "Performance Loss" in line or line.startswith("==")):
             log(f"  {line.strip()}")
+    log(f"rank_attention_kernel (K1/K2): {fa.rank_attention_smem()} bytes of "
+        f"dynamic shared memory per block")
 
     records = kernels_phase(dev)
     torch.cuda.empty_cache()

@@ -186,6 +186,82 @@ def test_k3_prefill_prefix_matches_pallas():
     _close(got, want)
 
 
+# ---- K1/K2 at the lengths that the layouts above never make ---------------
+
+def _rank_mask(seed, b, lq, lk, never_tile=None):
+    """A random columnar mask (numpy): q_off in {0, 1, 2}, ranks in {-1, 0,
+    1, 2, NEVER}; with ``never_tile`` the keys of that 64-key tile are
+    NEVER, a key tile that no query sees."""
+    rng = np.random.default_rng(seed)
+    rank = rng.choice(np.array([-1, 0, 1, 2, tfa.NEVER], np.int32), (b, lk))
+    if never_tile is not None:
+        rank[:, 64 * never_tile:64 * (never_tile + 1)] = tfa.NEVER
+    return rank, rng.integers(0, 3, (b, lq)).astype(np.int32)
+
+
+@pytest.mark.parametrize("b,lq,lc,lt", [
+    (1, 1, 70, 1), (1, 63, 1, 129), (2, 64, 9, 57), (1, 127, 200, 64),
+    (2, 129, 13, 3)])
+def test_k1_at_odd_lengths_matches_pallas(b, lq, lc, lt):
+    """Query rows and operand lengths off the kernels' 64-row tiles (1, 63,
+    64, 127, 129 queries; operands of 1 key, of lengths that are no
+    multiple of 8 or 64), at B 1 and 2; at Lc 200 the cache's second key
+    tile is seen by no query."""
+    q = _rand(20, b, lq, H, D)
+    kc, vc = _rand(21, b, HKV, lc, D), _rand(22, b, HKV, lc, D)
+    kt, vt = _rand(23, b, lt, HKV, D), _rand(24, b, lt, HKV, D)
+    rank, q_off = _rank_mask(25, b, lq, lc + lt,
+                             never_tile=1 if lc >= 128 else None)
+    want = jfa.flash_mha_decode_split(
+        jnp.asarray(q), jnp.asarray(kc), jnp.asarray(vc),
+        jnp.asarray(kt.transpose(0, 2, 1, 3)),
+        jnp.asarray(vt.transpose(0, 2, 1, 3)),
+        jfa.DecodeMask(jnp.asarray(rank), jnp.asarray(q_off)),
+        interpret=True)
+    got = tfa.flash_mha_decode_split(
+        torch.from_numpy(q), torch.from_numpy(kc), torch.from_numpy(vc),
+        torch.from_numpy(kt).transpose(1, 2),
+        torch.from_numpy(vt).transpose(1, 2),
+        tfa.DecodeMask(torch.from_numpy(rank), torch.from_numpy(q_off)))
+    _close(got, want)
+
+
+def test_k1_with_an_empty_cache_matches_pallas_k2():
+    """Lc = 0: K1 over the tail alone is the TPU's K2 over those keys."""
+    b, lq, lt = 1, 70, 77
+    q = _rand(26, b, lq, H, D)
+    kt, vt = _rand(27, b, HKV, lt, D), _rand(28, b, HKV, lt, D)
+    rank, q_off = _rank_mask(29, b, lq, lt)
+    want = jfa.flash_mha_decode(
+        jnp.asarray(q), jnp.asarray(kt), jnp.asarray(vt),
+        jfa.DecodeMask(jnp.asarray(rank), jnp.asarray(q_off)),
+        interpret=True, kv_heads_major=True)
+    tk, tv = torch.from_numpy(kt), torch.from_numpy(vt)
+    got = tfa.flash_mha_decode_split(
+        torch.from_numpy(q), tk[:, :, :0], tv[:, :, :0], tk, tv,
+        tfa.DecodeMask(torch.from_numpy(rank), torch.from_numpy(q_off)))
+    _close(got, want)
+
+
+@pytest.mark.parametrize("b,lq,lk", [
+    (1, 1, 1), (1, 63, 65), (2, 127, 7), (1, 129, 129), (1, 64, 200)])
+def test_k2_at_odd_lengths_matches_pallas(b, lq, lk):
+    """As the K1 case, over one tokens-major operand; at Lk 200 the second
+    key tile is seen by no query."""
+    q = _rand(30, b, lq, H, D)
+    k, v = _rand(31, b, lk, HKV, D), _rand(32, b, lk, HKV, D)
+    rank, q_off = _rank_mask(33, b, lq, lk,
+                             never_tile=1 if lk >= 128 else None)
+    want = jfa.flash_mha_decode(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+        jfa.DecodeMask(jnp.asarray(rank), jnp.asarray(q_off)),
+        interpret=True)
+    got = tfa.flash_mha_decode(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+        tfa.DecodeMask(torch.from_numpy(rank), torch.from_numpy(q_off)))
+    _close(got, want)
+
+
 def test_plain_versions_do_not_count_launches():
     """On CPU tensors the wrappers run the plain versions: no launch is
     counted (the counters prove a CUDA run went through the kernels)."""

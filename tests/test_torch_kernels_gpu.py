@@ -73,10 +73,12 @@ def _bf16(dev, seed, *shape):
 
 
 def _err(got, want, mass):
-    """The worst element's error over its bar (passes at <= 1)."""
+    """The worst element's error over its bar (passes at <= 1); a value
+    that is not finite counts as an infinite error."""
     got, want, mass = (x.float().cpu() for x in (got, want, mass))
     bar = ATOL + RTOL * want.abs() + BF16_U * mass
-    return float(((got - want).abs() / bar).max())
+    return float(torch.nan_to_num((got - want).abs() / bar,
+                                  nan=float("inf")).max())
 
 
 @pytest.mark.parametrize("h,hkv,n_img", [(4, 2, 30), (8, 8, 17)])
@@ -126,6 +128,160 @@ def test_k1_extend_matches_plain(dev):
                                                      96)
     got = fa.flash_mha_decode_split(q, k[:, :, :old], v[:, :, :old],
                                     k[:, :, old:], v[:, :, old:], mask)
+    def plain(vf):
+        return fa.rank_attention_reference(
+            q.float(), (k[:, :, :old].float(), k[:, :, old:].float()),
+            (vf(v[:, :, :old].float()), vf(v[:, :, old:].float())),
+            (mask.rank[:, :old], mask.rank[:, old:]), mask.q_off)
+
+    assert _err(got, plain(lambda x: x), plain(torch.abs)) <= 1.0
+
+
+def _rank_mask(dev, seed, b, lq, lk, never_tile=None):
+    """A random columnar mask: q_off in {0, 1, 2}, ranks in {-1, 0, 1, 2,
+    NEVER}; with ``never_tile`` the keys of that 64-key tile are NEVER (a
+    key tile that no query sees)."""
+    g = torch.Generator().manual_seed(seed)
+    choices = torch.tensor([-1, 0, 1, 2, fa.NEVER], dtype=torch.int32)
+    rank = choices[torch.randint(0, 5, (b, lk), generator=g)]
+    if never_tile is not None:
+        rank[:, 64 * never_tile:64 * (never_tile + 1)] = fa.NEVER
+    q_off = torch.randint(0, 3, (b, lq), generator=g, dtype=torch.int32)
+    return fa.DecodeMask(rank.to(dev), q_off.to(dev))
+
+
+def _k1_error(dev, b, lq, lc, lt, seed=0, heads=(4, 2)):
+    """K1 over a random mask against its plain version: the cache
+    heads-major [B, Hkv, Lc, D], the tail a view of tokens-major K/V (its
+    key tile past 64 of the cache unseen when Lc >= 128). The kernel writes
+    into an output filled with NaN, so that a row it leaves unstored fails
+    the bar."""
+    h, hkv = heads
+    d = fa.KERNEL_HEAD_DIM
+    q = _bf16(dev, seed, b, lq, h, d)
+    kc, vc = _bf16(dev, seed + 1, b, hkv, lc, d), _bf16(dev, seed + 2, b,
+                                                       hkv, lc, d)
+    kv = _bf16(dev, seed + 3, b, lt, 2, hkv, d)
+    kt, vt = kv[:, :, 0].transpose(1, 2), kv[:, :, 1].transpose(1, 2)
+    mask = _rank_mask(dev, seed + 4, b, lq, lc + lt,
+                      never_tile=1 if lc >= 128 else None)
+    fill = q.new_full((b, lq, h, d), float("nan"))
+    launch = fa._launch_rank
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(fa, "_launch_rank",
+                   lambda *args: launch(*args, out=fill))
+        got = fa.flash_mha_decode_split(q, kc, vc, kt, vt, mask)
+    assert got is fill
+
+    def plain(vf):
+        return fa.rank_attention_reference(
+            q.float(), (kc.float(), kt.float()), (vf(vc.float()),
+                                                  vf(vt.float())),
+            (mask.rank[:, :lc], mask.rank[:, lc:]), mask.q_off)
+
+    return _err(got, plain(lambda x: x), plain(torch.abs))
+
+
+@pytest.mark.parametrize("b,lq,lc,lt", [
+    (1, 1, 70, 1), (1, 63, 1, 129), (2, 64, 9, 57), (1, 127, 200, 64),
+    (2, 129, 13, 3), (1, 129, 0, 77)])
+def test_k1_at_odd_lengths(dev, b, lq, lc, lt):
+    """K1 at query rows and operand lengths off its tiles: 1, 63, 64, 127
+    and 129 rows (one or two consumer warpgroups of a block, the second
+    one partly filled), operands of 1 key, lengths no multiple of 8 or 64,
+    an empty cache (Lc 0), B 2 with a heads-major cache, and a cache key
+    tile that no query sees."""
+    fa.reset_launch_counts()
+    assert _k1_error(dev, b, lq, lc, lt) <= 1.0
+    assert fa.flash_mha_decode_split.launches == 1
+
+
+@pytest.mark.parametrize("b,lq,lk", [
+    (1, 1, 1), (1, 63, 65), (2, 127, 7), (1, 129, 129), (1, 64, 200)])
+def test_k2_at_odd_lengths(dev, b, lq, lk):
+    """K2 over one tokens-major operand at the K1 case's lengths; at Lk 200
+    the second key tile is seen by no query."""
+    d = fa.KERNEL_HEAD_DIM
+    q = _bf16(dev, 5, b, lq, 4, d)
+    k, v = _bf16(dev, 6, b, lk, 2, d), _bf16(dev, 7, b, lk, 2, d)
+    mask = _rank_mask(dev, 8, b, lq, lk, never_tile=1 if lk >= 128 else None)
+    fa.reset_launch_counts()
+    got = fa.flash_mha_decode(q, k, v, mask)
+    torch.cuda.synchronize()
+    assert fa.flash_mha_decode.launches == 1
+
+    def plain(vf):
+        return fa.rank_attention_reference(
+            q.float(), (k.float().transpose(1, 2),),
+            (vf(v.float()).transpose(1, 2),), (mask.rank,), mask.q_off)
+
+    assert _err(got, plain(lambda x: x), plain(torch.abs)) <= 1.0
+
+
+def test_k1_k2_on_a_key_tile_that_no_query_sees(dev):
+    """A tile that neither consumer sees is never loaded: the output is the
+    plain version's, and the tile's K/V may hold anything (here NaN)."""
+    d = fa.KERNEL_HEAD_DIM
+    b, lq, lk = 1, 100, 300
+    q = _bf16(dev, 9, b, lq, 4, d)
+    k, v = _bf16(dev, 10, b, lk, 2, d), _bf16(dev, 11, b, lk, 2, d)
+    mask = _rank_mask(dev, 12, b, lq, lk, never_tile=2)
+    k[:, 128:192], v[:, 128:192] = float("nan"), float("nan")
+    got = fa.flash_mha_decode(q, k, v, mask)
+    keep = torch.ones(lk, dtype=torch.bool, device=dev)
+    keep[128:192] = False
+
+    def plain(vf):
+        return fa.rank_attention_reference(
+            q.float(), (k[:, keep].float().transpose(1, 2),),
+            (vf(v[:, keep].float()).transpose(1, 2),),
+            (mask.rank[:, keep],), mask.q_off)
+
+    assert _err(got, plain(lambda x: x), plain(torch.abs)) <= 1.0
+
+
+@pytest.mark.parametrize("lk", [600, 2000])
+def test_k2_on_a_causal_mask(dev, lk):
+    """q_off = row, rank = key: each consumer warpgroup of a block sees a
+    prefix of the key tiles, so one meets many tiles that only the others
+    see while it holds a stage of the ring (the ring must not wrap around
+    it)."""
+    d = fa.KERNEL_HEAD_DIM
+    lq = 600
+    q = _bf16(dev, 14, 1, lq, 4, d)
+    k, v = _bf16(dev, 15, 1, lk, 2, d), _bf16(dev, 16, 1, lk, 2, d)
+    mask = fa.DecodeMask(
+        torch.arange(lk, dtype=torch.int32, device=dev)[None],
+        torch.arange(lq, dtype=torch.int32, device=dev)[None])
+    got = fa.flash_mha_decode(q, k, v, mask)
+
+    def plain(vf):
+        return fa.rank_attention_reference(
+            q.float(), (k.float().transpose(1, 2),),
+            (vf(v.float()).transpose(1, 2),), (mask.rank,), mask.q_off)
+
+    assert _err(got, plain(lambda x: x), plain(torch.abs)) <= 1.0
+
+
+def test_k1_at_the_extend_shape(dev):
+    """The serving extend at full width: 4 generated frames (888 clean
+    queries) grow the 8-frame cache (1,776 keys) with their own 888 keys,
+    under extend_mask (frame-causal, so the blocks' consumers see
+    different prefixes of the key tiles)."""
+    d = fa.KERNEL_HEAD_DIM
+    n_img = layout.tokens_per_frame(176, 320)
+    lay = layout.frame_block_inference_layout(12, 4, n_img, use_cfg=False)
+    meta = AttnMeta.from_layout(lay, dev)
+    seg = n_img + 2
+    old, new = 8 * seg, 4 * seg
+    mask = extend_mask(meta.cols(slice(old, old + new)),
+                       meta.cols(slice(0, old + new)))
+    q = _bf16(dev, 17, 1, new, H_FULL, d)
+    k = _bf16(dev, 18, 1, HKV_FULL, old + new, d)
+    v = _bf16(dev, 19, 1, HKV_FULL, old + new, d)
+    got = fa.flash_mha_decode_split(q, k[:, :, :old], v[:, :, :old],
+                                    k[:, :, old:], v[:, :, old:], mask)
+
     def plain(vf):
         return fa.rank_attention_reference(
             q.float(), (k[:, :, :old].float(), k[:, :, old:].float()),
@@ -543,6 +699,21 @@ MUTATIONS = {
         "    out[kt] = (qt == 0 && kt == 0) ? kTileEmpty\n"
         "              : (any_dead && c == kTileEmpty) ? kTilePartial : c;",
         "K9"),
+    "k1_tail_without_last_key_tile": (
+        "rank_attention.cu",
+        "    while (op < 2 && k0 >= a.len[op]) {",
+        "    while (op < 2 && k0 >= a.len[op] - (op == 1 ? kRankTile : 0)) {",
+        "K1"),
+    "k1_partial_tile_as_full": (
+        "rank_attention.cu",
+        "    if (cls == kTileFull) {",
+        "    if (cls != kTileEmpty) {", "K1"),
+    "k1_second_consumer_rows_unstored": (
+        "rank_attention.cu",
+        "  bf16* out = static_cast<bf16*>(a.out) + b * a.o_sb + h * a.o_sh;",
+        "  if (wg == 1) return;\n"
+        "  bf16* out = static_cast<bf16*>(a.out) + b * a.o_sb + h * a.o_sh;",
+        "K1"),
 }
 
 
@@ -558,7 +729,10 @@ def test_inline_mutation_fails_the_bar(dev, tmp_path, monkeypatch,
     libs = _cuda.build(str(csrc), os.path.join(tmp_path, "_build"))
     monkeypatch.setattr(_cuda, "libraries", lambda: libs)
     case = (4, 2, (1, 2, 1), 30)
-    if kernel == "K6":
+    if kernel == "K1":
+        # two consumer warpgroups, partial tiles, a tail of 100 keys
+        ratio = _k1_error(dev, 1, 129, 70, 100)
+    elif kernel == "K6":
         ratio = _k6_error(dev, *case)
     elif kernel == "K7":
         ratio = max(_k7_errors(dev, *case).values())

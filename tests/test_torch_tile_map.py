@@ -245,3 +245,104 @@ def test_summary_rule_equals_the_exact_reduction(case):
     np.testing.assert_array_equal(
         _summary_classes(meta, fa.TILE_Q, fa.TILE_K), want)
     assert (want == fa.TILE_EMPTY).any() and (want == fa.TILE_FULL).any()
+
+
+# ---- K1/K2's classes of the columnar decode mask (q_off >= rank) ----------
+
+from video_gpt_tpu.models import video_gpt as jvg  # noqa: E402
+from video_gpt_tpu_torch.models import video_gpt as tvg  # noqa: E402
+
+N_IMG_FLAGSHIP = tlayout.tokens_per_frame(176, 320)
+RANK_CASES = ("flagship_cond", "flagship_uncond", "extend",
+              "long_rollout_cond", "cond_b2")
+
+
+def _rank_case(name):
+    """(port ranks per key operand, port q_off, the same from the JAX
+    package in numpy) of K1/K2's calls at 176x320 frames: the cond row's
+    tail against its cache and itself, the uncond row against itself, the
+    cache extend (the last of 8 clean frames against the prefix), the long
+    rollout's cond row (12,432 + 5,328 keys) and a cond row at B 2."""
+    n = N_IMG_FLAGSHIP
+    if name == "extend":
+        jl = jlayout.frame_block_inference_layout(8, 16, n, use_cfg=False)
+        tl = tlayout.frame_block_inference_layout(8, 16, n, use_cfg=False)
+        jm, tm = JMeta.from_layout(jl), AttnMeta.from_layout(tl, "cpu")
+        seg = n + 2
+        old, new = 7 * seg, seg
+        sl = slice(old, old + new)
+        je = jvg.extend_mask(JMeta(*(x[:, sl] for x in jm)),
+                             JMeta(*(x[:, :old + new] for x in jm)))
+        te = tvg.extend_mask(tm.cols(sl), tm.cols(slice(0, old + new)))
+        jrank, jqoff = np.asarray(je.rank), np.asarray(je.q_off)
+        return ((te.rank[:, :old], te.rank[:, old:]), te.q_off,
+                (jrank[:, :old], jrank[:, old:]), jqoff)
+    n_clean, n_gen, rows = {"flagship_cond": (8, 16, 1),
+                            "flagship_uncond": (0, 16, 1),
+                            "long_rollout_cond": (56, 24, 1),
+                            "cond_b2": (8, 16, 2)}[name]
+    jl = jlayout.frame_block_inference_layout(n_clean, n_gen, n,
+                                              use_cfg=False, rows=rows)
+    tl = tlayout.frame_block_inference_layout(n_clean, n_gen, n,
+                                              use_cfg=False, rows=rows)
+    tail = tl.noisy_tail_len()
+    jrank, jqoff = jlayout.decode_rank(jl, tail)
+    tm = AttnMeta.from_layout(tl, "cpu")
+    mask = tvg.decode_mask(tm.tail(tail), tm)
+    if not n_clean:
+        return (mask.rank,), mask.q_off, (jrank,), jqoff
+    lc = tl.length - tail
+    return ((mask.rank[:, :lc], mask.rank[:, lc:]), mask.q_off,
+            (jrank[:, :lc], jrank[:, lc:]), jqoff)
+
+
+def _range_classes(ranks, q_off, tq, tk):
+    """K1/K2's classes as the producer computes them, in numpy: per query
+    tile the least and largest q_off of its real rows, per key tile the
+    least and largest rank (keys past the operand count as never visible),
+    then csrc/tile_map.cuh rank_tile_class."""
+    b, lq = q_off.shape
+    nq = -(-lq // tq)
+    out = []
+    for rank in ranks:
+        lk = rank.shape[1]
+        nk = -(-lk // tk)
+        r = np.full((b, nk * tk), fa.NEVER, np.int64)
+        r[:, :lk] = rank
+        r = r.reshape(b, nk, tk)
+        q = np.full((b, nq * tq), 0, np.int64)
+        q[:, :lq] = q_off
+        real = (np.arange(nq * tq) < lq).reshape(nq, tq)
+        q = q.reshape(b, nq, tq)
+        lo = np.where(real, q, BIG).min(2)[:, :, None]
+        hi = np.where(real, q, -BIG - 1).max(2)[:, :, None]
+        whole = real.all(1)[None, :, None]
+        rmin, rmax = r.min(2)[:, None, :], r.max(2)[:, None, :]
+        out.append(np.where(hi < rmin, fa.TILE_EMPTY, np.where(
+            whole & (lo >= rmax), fa.TILE_FULL, fa.TILE_PARTIAL)))
+    return np.concatenate(out, axis=2)
+
+
+@pytest.mark.parametrize("name", RANK_CASES)
+def test_rank_classes_match_the_jax_decode_rank(name):
+    """The plain classifier, and the producer's rule from two ranges,
+    against the JAX package's rank and q_off (held bit-equal to the port's)
+    made dense and reduced tile by tile; soundness tile by tile."""
+    ranks, q_off, jranks, jqoff = _rank_case(name)
+    np.testing.assert_array_equal(q_off.numpy(), jqoff)
+    for r, jr in zip(ranks, jranks):
+        np.testing.assert_array_equal(r.numpy(), jr)
+    tq, tk = fa.TILE_Q, fa.TILE_K
+    got = fa.rank_tile_classes_reference(ranks, q_off, tq, tk).numpy()
+    want, k0 = [], 0
+    for jr in jranks:
+        vis = jqoff[:, :, None] >= jr[:, None, :]
+        nk = -(-jr.shape[1] // tk)
+        _check_sound(got[:, :, k0:k0 + nk], vis, tq, tk)
+        want.append(_exact(vis, tq, tk))
+        k0 += nk
+    want = np.concatenate(want, axis=2)
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(_range_classes(jranks, jqoff, tq, tk),
+                                  want)
+    assert (want == fa.TILE_FULL).any() and (want == fa.TILE_PARTIAL).any()

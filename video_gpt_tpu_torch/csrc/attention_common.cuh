@@ -276,6 +276,27 @@ __device__ __forceinline__ void wgmma_64x96_rs(float (&d)[48],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// d (64 x 64, fp32) (+)= A (64 x 16, registers) . B (16 x 64, K-major
+// shared: the tile's rows are the 64 columns of d); scale_d 0 overwrites.
+__device__ __forceinline__ void wgmma_64x64_rs(float (&d)[32],
+                                               const uint32_t (&a)[4],
+                                               uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
 // The A fragment over columns 16 j .. 16 j + 15 of a 64-column
 // accumulator, rounded to bf16.
 __device__ __forceinline__ void acc_to_a(uint32_t (&a)[4], const float* d) {
@@ -283,6 +304,122 @@ __device__ __forceinline__ void acc_to_a(uint32_t (&a)[4], const float* d) {
   a[1] = pack_bf16(d[2], d[3]);
   a[2] = pack_bf16(d[4], d[5]);
   a[3] = pack_bf16(d[6], d[7]);
+}
+
+// Keep the compiler from reusing the registers of an A fragment that an
+// asynchronous product still reads.
+template <int N>
+__device__ __forceinline__ void fence_frags(uint32_t (&a)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(a[i][e])::"memory");
+}
+
+// ---- Hopper: mbarriers, TMA and 64-byte-swizzled tiles ----------------------
+//
+// A producer fills a ring of shared-memory stages and consumers drain it,
+// each stage guarded by two mbarriers: "full" (the stage's data has landed)
+// and "empty" (every consumer is done with it). A waiter tracks the phase
+// parity of each barrier: the first wait on "full" passes at parity 0 once
+// the stage is filled; the producer's first wait on "empty" uses parity 1,
+// which a fresh barrier reports complete.
+//
+// A [64 rows][kHeadDim] bf16 tile is kept in wgmma's 64-byte swizzle: three
+// "atoms" of 32 head dims (64 rows x 64 bytes = 4 KB, one after another),
+// each row of an atom its four 16-byte chunks in the order c ^ ((row / 2) %
+// 4). A TMA box of 32 x 64 with CU_TENSOR_MAP_SWIZZLE_64B writes one atom;
+// the same tile serves as a K-major operand (its rows are N, the head dim
+// the reduction) and as an MN-major one (its rows the reduction, the head
+// dim N). The stage must start on a 512-byte boundary.
+
+constexpr int kSw64Atom = 64 * 64;  // bytes of one 32-dim atom of 64 rows
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+// Make initialised barriers visible to the async proxy (TMA) and the block.
+__device__ __forceinline__ void fence_mbar_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
+// Arrive and expect `bytes` more of asynchronous copies on the barrier.
+__device__ __forceinline__ void mbar_arrive_tx(uint64_t* bar,
+                                               uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+// Spin until the barrier's phase of parity `parity` has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n.reg .pred done;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@!done bra WAIT;\n}\n" ::"r"(smem_u32(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// One 4-D TMA box from the tensor map `map` (the address of a
+// __grid_constant__ CUtensorMap) into shared memory, completing on `bar`.
+__device__ __forceinline__ void tma_load_4d(void* dst, const void* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(map), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+// 2^x (MUFU.EX2; denormal results flush to 0).
+__device__ __forceinline__ float ex2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// A 64-byte-swizzled 64-row tile as the K-major B operand (rows N, head dim
+// the reduction), at reduction step kk (head dims 16 kk .. 16 kk + 15):
+// within an atom the step moves the start by 32 bytes; 8-row groups lie
+// 512 bytes apart.
+__device__ __forceinline__ uint64_t desc_sw64_k(const bf16* tile, int kk) {
+  return wgmma_desc(reinterpret_cast<const char*>(tile) +
+                        (kk >> 1) * kSw64Atom + (kk & 1) * 32,
+                    16, 512) |
+         (2ull << 62);
+}
+
+// ... as the MN-major B operand (rows the reduction, head dim N), at
+// reduction step j (rows 16 j .. 16 j + 15): atoms along N lie kSw64Atom
+// apart, 8-row groups along the reduction 512 bytes.
+__device__ __forceinline__ uint64_t desc_sw64_mn(const bf16* tile, int j) {
+  return wgmma_desc(reinterpret_cast<const char*>(tile) + j * 1024,
+                    kSw64Atom, 512) |
+         (2ull << 62);
 }
 
 }  // namespace vgt

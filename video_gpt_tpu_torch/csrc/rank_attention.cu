@@ -17,19 +17,42 @@
 //   p(q, k)      = visible ? exp2(clamp(q.k * scale * log2(e), -100, 100)) : 0
 //   out(q)       = sum_k bf16(p) v_k / max(sum_k p, 1e-30)
 // The softmax is NOT max-shifted (the TPU kernels' semantics, kept exactly:
-// no running max, so no rescale and no cross-tile reduction beyond sums).
-// GQA: key/value head = h / (H / Hkv).
+// no running max, so no rescale and no cross-tile reduction beyond sums);
+// the row sum is taken in fp32 from the unrounded p. GQA: key/value head =
+// h / (H / Hkv).
 //
 // What bounds it on the card: at the flagship shapes (Lq 3552, 1776 cache +
 // 3552 tail keys, 32 heads of 96) the work is ~2.3e11 visible-pair FLOPs
 // against ~0.11 GB of operands, far above the ~295 FLOP/byte ridge: tensor
-// throughput bounds it. Design: each block owns 64 query rows of one head
-// (16 per warp) and streams K/V tiles of 64 keys through shared memory;
-// S = Q.K^T and O += P.V run on bf16 tensor cores (mma.sync, fp32
-// accumulate), the probabilities stay in registers between the two
-// products, and the denominator is one quad reduction at the end. Loads are
-// synchronous (no cp.async/TMA pipeline, no wgmma): a simple first kernel.
-#include "attention_common.cuh"
+// throughput bounds it, and beside it the exp2 of every pair (one per 384
+// tensor FLOPs at head_dim 96) and the L2 traffic of re-reading a head's
+// K/V for every block of query rows.
+//
+// Design. One block owns 192 query rows of one head (grid: query blocks
+// fastest, so the blocks that run together share their head's K/V in L2)
+// and is four warpgroups: a producer (its registers lowered with
+// setmaxnreg) and three consumers of 64 rows each, so that each K/V tile in
+// shared memory serves 192 rows. The producer walks the key tiles of both
+// operands (64 keys each), loads each tile's ranks and classifies it for
+// each consumer from two ranges (tile_map.cuh `rank_tile_class`, exact for
+// this mask): a tile that no consumer sees is never loaded; the others go
+// into a ring of kRankStages stages, K and V by TMA in wgmma's 64-byte
+// swizzle, the ranks and the classes beside them, each stage guarded by
+// full/empty mbarriers. A consumer holds
+// its Q rows in registers and runs S = Q.K^T (wgmma m64n64k16, Q from
+// registers, K from shared memory) and O += P.V (m64n96k16, P from
+// registers, V MN-major) on every tile of the ring, by its class: all
+// visible, no compare; some, compare per element; none (a tile that only
+// another consumer sees), P = 0. The products overlap
+// the softmax: S of a tile is issued with P.V of the previous one, and the
+// softmax of the tile runs while that P.V is in flight; the three
+// consumers' products and softmaxes interleave on the SM. The row sums stay
+// in registers and are quad-reduced once at the end.
+#include <cuda.h>
+
+#include <cstring>
+
+#include "tile_map.cuh"
 
 namespace vgt {
 
@@ -52,99 +75,274 @@ struct RankAttnArgs {
   float kscale;          // head_dim^-0.5 * log2(e)
 };
 
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-    rank_attention_kernel(const RankAttnArgs a) {
-  constexpr int LDS = D + 8;          // padded row: conflict-free fragments
-  constexpr int KS = D / 16;          // k16 steps over head_dim
-  constexpr int NO = D / 8;           // n8 tiles of the output row
-  constexpr int NS = kBlockK / 8;     // n8 tiles of one score tile
-  __shared__ __align__(16) bf16 qs[kBlockQ * LDS];
-  __shared__ __align__(16) bf16 ks[kBlockK * LDS];
-  __shared__ __align__(16) bf16 vs[kBlockK * LDS];
-  __shared__ int rank_s[kBlockK];
+constexpr int kRankConsumers = 3;                   // warpgroups of 64 rows
+constexpr int kRankRows = kRankTile * kRankConsumers;
+constexpr int kRankThreads = 128 * (1 + kRankConsumers);
+constexpr int kRankStages = 3;
+// registers a thread (setmaxnreg): the producer few, the consumers the
+// rest of the SM's 64K
+constexpr int kProducerRegs = 40, kConsumerRegs = 152;
+static_assert(128 * (kProducerRegs + kRankConsumers * kConsumerRegs) <=
+                  65536,
+              "the block's registers exceed the SM's");
+constexpr int kRankTileBytes = kRankTile * kHeadDim * 2;   // K or V
+// one stage: K, V (64-byte swizzle), 64 ranks, the meta words (done flag,
+// one class per consumer), padded to keep every stage 1024-byte aligned
+constexpr int kRanksOff = 2 * kRankTileBytes;
+constexpr int kMetaOff = kRanksOff + kRankTile * 4;
+constexpr int kStageBytes = (kMetaOff + 16 + 1023) / 1024 * 1024;
+constexpr int kRankSmem = kRankStages * kStageBytes +
+                          2 * kRankStages * 8 + 1024;  // + barriers, align
 
-  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * kBlockQ;
+// The tensor maps of the key operands, [operand][K, V].
+struct alignas(64) RankMaps {
+  CUtensorMap kv[2][2];
+};
+
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  const uint32_t a = smem_u32(p);
+  return p + (((a + 1023u) & ~1023u) - a);
+}
+
+// The producer warpgroup: classify every key tile for every consumer and
+// fill the ring with the tiles that one of them sees; then a stage with the
+// done flag. Only warp 0 works.
+__device__ __forceinline__ void rank_producer(const RankAttnArgs& a,
+                                              const RankMaps& maps,
+                                              unsigned char* smem,
+                                              uint64_t* full, uint64_t* empty,
+                                              int b, int h, int q0) {
+  const int lane = threadIdx.x & 31;
+  if (threadIdx.x >= 32) return;
   const int hk = h / (a.heads / a.kv_heads);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-
-  const bf16* qp = static_cast<const bf16*>(a.q) + b * a.q_sb + h * a.q_sh +
-                   q0 * a.q_sl;
-  load_tile<D, kBlockQ, LDS>(qs, qp, a.q_sl, min(kBlockQ, a.lq - q0));
-  const int r0 = q0 + warp * 16 + g, r1 = r0 + 8;
   const int* qo = a.qoff + b * a.qoff_sb;
-  const int qoff0 = r0 < a.lq ? qo[r0] : kNever;
-  const int qoff1 = r1 < a.lq ? qo[r1] : kNever;
-  __syncthreads();
+  RankQueryRange qr[kRankConsumers];
+#pragma unroll
+  for (int w = 0; w < kRankConsumers; ++w)
+    qr[w] = rank_query_range(qo, q0 + w * kRankTile, a.lq, lane);
 
+  int stage = 0;
+  uint32_t phase = 0;
+  // wait for the stage to be free
+  auto acquire = [&]() -> unsigned char* {
+    if (lane == 0) mbar_wait(&empty[stage], phase ^ 1);
+    __syncwarp();
+    return smem + stage * kStageBytes;
+  };
+  auto advance = [&]() {
+    if (++stage == kRankStages) {
+      stage = 0;
+      phase ^= 1;
+    }
+  };
+  // the key tiles in order: operand 0's, then operand 1's
+  auto next = [&](int& op, int& k0) {
+    k0 += kRankTile;
+    while (op < 2 && k0 >= a.len[op]) {
+      ++op;
+      k0 = 0;
+    }
+  };
+  auto ranks_of = [&](int op, int k0, int& ra, int& rb) {
+    if (op < 2)
+      rank_tile_load(a.rank[op] + b * a.rank_sb[op], k0, a.len[op], lane,
+                     ra, rb);
+  };
+  int op = 0, k0 = -kRankTile;
+  next(op, k0);
+  int ra = kNever, rb = kNever;
+  ranks_of(op, k0, ra, rb);
+  while (op < 2) {
+    int nop = op, nk0 = k0, na = kNever, nb = kNever;
+    next(nop, nk0);
+    ranks_of(nop, nk0, na, nb);  // the next tile's ranks, in flight
+    int8_t cls[kRankConsumers];
+    bool any = false;
+#pragma unroll
+    for (int w = 0; w < kRankConsumers; ++w) {
+      cls[w] = rank_tile_class(qr[w], ra, rb);
+      any = any || cls[w] != kTileEmpty;
+    }
+    if (any) {
+      unsigned char* st = acquire();
+      int* rk = reinterpret_cast<int*>(st + kRanksOff);
+      rk[lane] = ra;
+      rk[lane + 32] = rb;
+      if (lane == 0) {
+        int* meta = reinterpret_cast<int*>(st + kMetaOff);
+        meta[0] = 0;
+#pragma unroll
+        for (int w = 0; w < kRankConsumers; ++w) meta[1 + w] = cls[w];
+      }
+      __syncwarp();
+      if (lane == 0) {
+        mbar_arrive_tx(&full[stage], 2 * kRankTileBytes);
+#pragma unroll
+        for (int at = 0; at < kHeadDim / 32; ++at) {
+          tma_load_4d(st + at * kSw64Atom, &maps.kv[op][0], &full[stage],
+                      32 * at, k0, hk, b);
+          tma_load_4d(st + kRankTileBytes + at * kSw64Atom, &maps.kv[op][1],
+                      &full[stage], 32 * at, k0, hk, b);
+        }
+      }
+      advance();
+    }
+    op = nop;
+    k0 = nk0;
+    ra = na;
+    rb = nb;
+  }
+  unsigned char* st = acquire();
+  if (lane == 0) {
+    reinterpret_cast<int*>(st + kMetaOff)[0] = 1;
+    mbar_arrive(&full[stage]);
+  }
+}
+
+// The probabilities of one S tile (this thread's 32 accumulators), in
+// place, their row sums added to l0 / l1. kMask: compare each pair's q_off
+// (qo0: row g, qo1: row g + 8) with its key's rank (rk: the tile's 64
+// ranks).
+template <bool kMask>
+__device__ __forceinline__ void rank_probs(float (&s)[32], const int* rk,
+                                           int qo0, int qo1, float kscale,
+                                           int t, float& l0, float& l1) {
+#pragma unroll
+  for (int n = 0; n < kRankTile / 8; ++n) {
+    int2 rr = make_int2(0, 0);
+    if (kMask) rr = *reinterpret_cast<const int2*>(rk + 8 * n + 2 * t);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float x = ex2_approx(
+          fminf(fmaxf(s[4 * n + e] * kscale, -100.f), 100.f));
+      if (kMask)
+        x = ((e >> 1) ? qo1 : qo0) >= ((e & 1) ? rr.y : rr.x) ? x : 0.f;
+      s[4 * n + e] = x;
+    }
+    l0 += s[4 * n] + s[4 * n + 1];
+    l1 += s[4 * n + 2] + s[4 * n + 3];
+  }
+}
+
+// A consumer warpgroup (wg 0 .. kRankConsumers - 1: rows q0 + 64 wg ..):
+// drain the ring.
+__device__ __forceinline__ void rank_consumer(const RankAttnArgs& a,
+                                              unsigned char* smem,
+                                              uint64_t* full, uint64_t* empty,
+                                              int b, int h, int q0, int wg) {
+  constexpr int NO = kHeadDim / 8;
+  constexpr int KS = kHeadDim / 16;
+  constexpr int NP = kRankTile / 16;
+  const int tid = threadIdx.x & 127, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int r0 = q0 + wg * kRankTile + warp * 16 + g, r1 = r0 + 8;
+
+  // this thread's Q fragments (the mma.m16n8k16 A layout of the warp's 16
+  // rows), zero past Lq, and the two rows' offsets
+  const bf16* qp = static_cast<const bf16*>(a.q) + b * a.q_sb + h * a.q_sh;
   uint32_t qa[KS][4];
 #pragma unroll
-  for (int kk = 0; kk < KS; ++kk)
-    load_a(qa[kk], qs + warp * 16 * LDS + kk * 16, LDS, lane);
-
-  float o[NO][4];
+  for (int kk = 0; kk < KS; ++kk) {
+    const int c = kk * 16 + 2 * t;
 #pragma unroll
-  for (int n = 0; n < NO; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
-  float l0 = 0.f, l1 = 0.f;
-
-  for (int op = 0; op < 2; ++op) {
-    const int len = a.len[op];
-    const bf16* kp = static_cast<const bf16*>(a.k[op]) + b * a.k_sb[op] +
-                     hk * a.k_sh[op];
-    const bf16* vp = static_cast<const bf16*>(a.v[op]) + b * a.v_sb[op] +
-                     hk * a.v_sh[op];
-    const int* rp = a.rank[op] + b * a.rank_sb[op];
-    const long long ksl = a.k_sl[op], vsl = a.v_sl[op];
-    for (int k0 = 0; k0 < len; k0 += kBlockK) {
-      const int valid = min(kBlockK, len - k0);
-      __syncthreads();  // the previous tile is fully consumed
-      load_tile<D, kBlockK, LDS>(ks, kp + k0 * ksl, ksl, valid);
-      load_tile<D, kBlockK, LDS>(vs, vp + k0 * vsl, vsl, valid);
-      for (int i = threadIdx.x; i < kBlockK; i += kThreads)
-        rank_s[i] = i < valid ? rp[k0 + i] : kNever;
-      __syncthreads();
-
-      float s[NS][4];
-#pragma unroll
-      for (int n = 0; n < NS; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < KS; ++kk) {
-#pragma unroll
-        for (int n = 0; n < NS; ++n) {
-          uint32_t b0, b1;
-          load_b_kt(b0, b1, ks + n * 8 * LDS + kk * 16, LDS, lane);
-          mma_16816(s[n], qa[kk], b0, b1);
-        }
-      }
-#pragma unroll
-      for (int n = 0; n < NS; ++n) {
-        const int rk0 = rank_s[n * 8 + 2 * t], rk1 = rank_s[n * 8 + 2 * t + 1];
-        const bool vis[4] = {qoff0 >= rk0, qoff0 >= rk1, qoff1 >= rk0,
-                             qoff1 >= rk1};
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          s[n][e] = vis[e] ? exp2f(fminf(fmaxf(s[n][e] * a.kscale, -100.f),
-                                         100.f))
-                           : 0.f;
-        l0 += s[n][0] + s[n][1];
-        l1 += s[n][2] + s[n][3];
-      }
-#pragma unroll
-      for (int j = 0; j < kBlockK / 16; ++j) {
-        const uint32_t pa[4] = {pack_bf16(s[2 * j][0], s[2 * j][1]),
-                                pack_bf16(s[2 * j][2], s[2 * j][3]),
-                                pack_bf16(s[2 * j + 1][0], s[2 * j + 1][1]),
-                                pack_bf16(s[2 * j + 1][2], s[2 * j + 1][3])};
-#pragma unroll
-        for (int n = 0; n < NO; ++n) {
-          uint32_t b0, b1;
-          load_b_v(b0, b1, vs + j * 16 * LDS + n * 8, LDS, lane);
-          mma_16816(o[n], pa, b0, b1);
-        }
-      }
+    for (int e = 0; e < 4; ++e) {
+      const int r = (e & 1) ? r1 : r0;
+      qa[kk][e] = r < a.lq ? *reinterpret_cast<const uint32_t*>(
+                                 qp + r * a.q_sl + c + (e >> 1) * 8)
+                           : 0u;
     }
   }
+  const int* qo = a.qoff + b * a.qoff_sb;
+  const int qo0 = r0 < a.lq ? qo[r0] : kNever;
+  const int qo1 = r1 < a.lq ? qo[r1] : kNever;
+
+  float o[NO * 4];
+#pragma unroll
+  for (int i = 0; i < NO * 4; ++i) o[i] = 0.f;
+  float l0 = 0.f, l1 = 0.f;
+  // P of the tile in stage `held`, whose P.V is issued with the next
+  // tile's S. Before the first tile P is 0 and its P.V, against any landed
+  // V (finite), adds nothing: every product is issued on every path, and
+  // no branch of the compiler's view lies between a product and its fence
+  uint32_t pa[NP][4];
+#pragma unroll
+  for (int j = 0; j < NP; ++j) pa[j][0] = pa[j][1] = pa[j][2] = pa[j][3] = 0u;
+  int held = -1;
+  int stage = 0;
+  uint32_t phase = 0;
+  // every warp signals once it is done with a stage (4 per consumer)
+  auto release = [&](int s) {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[s]);
+  };
+  auto issue_pv = [&](int s) {
+    const bf16* vt =
+        reinterpret_cast<const bf16*>(smem + s * kStageBytes + kRankTileBytes);
+#pragma unroll
+    for (int j = 0; j < NP; ++j)
+      wgmma_64x96_rs(o, pa[j], desc_sw64_mn(vt, j));
+    wgmma_commit();
+  };
+  for (;;) {
+    mbar_wait(&full[stage], phase);
+    const unsigned char* st = smem + stage * kStageBytes;
+    const int* meta = reinterpret_cast<const int*>(st + kMetaOff);
+    // the same words in every thread: broadcast, so that the compiler sees
+    // the branches as uniform
+    if (__shfl_sync(0xffffffffu, meta[0], 0)) break;
+    const int cls = __shfl_sync(0xffffffffu, meta[1 + wg], 0);
+    // a tile that only another consumer sees takes the same steps with P =
+    // 0: so this consumer holds at most one stage while it waits for the
+    // next, and the ring cannot wrap around a stage it holds
+    const bf16* kt = reinterpret_cast<const bf16*>(st);
+    float s[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = 0.f;
+    // the products' register operands pinned before their fence, so that
+    // no copy of theirs lands between the fence and the last wait
+    fence_regs(s);
+    fence_frags(qa);
+    fence_regs(o);
+    fence_frags(pa);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk)
+      wgmma_64x64_rs(s, qa[kk], desc_sw64_k(kt, kk), 1);
+    wgmma_commit();
+    issue_pv(held >= 0 ? held : stage);
+    wgmma_wait<1>();  // S has landed; the previous tile's P.V runs on
+    fence_regs(s);
+    const int* rk = reinterpret_cast<const int*>(st + kRanksOff);
+    if (cls == kTileFull) {
+      rank_probs<false>(s, rk, qo0, qo1, a.kscale, t, l0, l1);
+    } else {
+      // an empty tile compares against offsets that see no key
+      const bool none = cls == kTileEmpty;
+      rank_probs<true>(s, rk, none ? kIntMin : qo0, none ? kIntMin : qo1,
+                       a.kscale, t, l0, l1);
+    }
+    wgmma_wait<0>();
+    fence_regs(o);
+    fence_frags(pa);
+    if (held >= 0) release(held);
+    // P in bf16 only now, once the P.V that reads the old P is done
+#pragma unroll
+    for (int j = 0; j < NP; ++j) acc_to_a(pa[j], s + 8 * j);
+    held = stage;
+    if (++stage == kRankStages) {
+      stage = 0;
+      phase ^= 1;
+    }
+  }
+  // the last tile's P.V; with no tile at all, P is 0 against stage 0's V,
+  // which the kernel zeroed before the producer started
+  fence_regs(o);
+  fence_frags(pa);
+  wgmma_fence();
+  issue_pv(held >= 0 ? held : 0);
+  wgmma_wait<0>();
+  fence_regs(o);
+  if (held >= 0) release(held);
 
   const float inv0 = 1.f / fmaxf(quad_sum(l0), 1e-30f);
   const float inv1 = 1.f / fmaxf(quad_sum(l1), 1e-30f);
@@ -154,23 +352,125 @@ __global__ void __launch_bounds__(kThreads)
     const int c = n * 8 + 2 * t;
     if (r0 < a.lq)
       *reinterpret_cast<uint32_t*>(out + r0 * a.o_sl + c) =
-          pack_bf16(o[n][0] * inv0, o[n][1] * inv0);
+          pack_bf16(o[4 * n] * inv0, o[4 * n + 1] * inv0);
     if (r1 < a.lq)
       *reinterpret_cast<uint32_t*>(out + r1 * a.o_sl + c) =
-          pack_bf16(o[n][2] * inv1, o[n][3] * inv1);
+          pack_bf16(o[4 * n + 2] * inv1, o[4 * n + 3] * inv1);
   }
+}
+
+__global__ void __launch_bounds__(kRankThreads, 1)
+    rank_attention_kernel(const __grid_constant__ RankAttnArgs a,
+                          const __grid_constant__ RankMaps maps) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  uint64_t* full =
+      reinterpret_cast<uint64_t*>(smem + kRankStages * kStageBytes);
+  uint64_t* empty = full + kRankStages;
+  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * kRankRows;
+  // stage 0's V, read with P = 0 by a consumer that sees no tile: finite
+  for (int i = threadIdx.x; i < kRankTileBytes / 16; i += kRankThreads)
+    reinterpret_cast<uint4*>(smem + kRankTileBytes)[i] =
+        make_uint4(0u, 0u, 0u, 0u);
+  fence_async_shared();
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kRankStages; ++s) {
+      // the producer's one arrival (+ the bytes of its TMA boxes)
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 4 * kRankConsumers);
+    }
+    fence_mbar_init();
+  }
+  __syncthreads();
+  // warp-uniform in the compiler's view (a shuffle), as wgmma wants
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  if (wg == 0) {
+    setmaxnreg_dec<kProducerRegs>();
+    rank_producer(a, maps, smem, full, empty, b, h, q0);
+  } else {
+    setmaxnreg_inc<kConsumerRegs>();
+    rank_consumer(a, smem, full, empty, b, h, q0, wg - 1);
+  }
+}
+
+// cuTensorMapEncodeTiled, looked up through the runtime's entry-point
+// query (the library links no -lcuda).
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+inline EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                     cudaEnableDefault, &q);
+#else
+    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                            &q);
+#endif
+    return q == cudaDriverEntryPointSuccess ? reinterpret_cast<EncodeTiled>(p)
+                                            : nullptr;
+  }();
+  return fn;
+}
+
+// The map of a [B, Hkv, L, D] bf16 operand at `base` (element strides sb,
+// sh, sl): boxes of 32 head dims x 64 rows, 64-byte swizzle, rows past L
+// read as 0.
+inline CUresult encode_operand(CUtensorMap* m, const void* base, int batch,
+                               int kv_heads, int len, long long sb,
+                               long long sh, long long sl) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return CUDA_ERROR_NOT_FOUND;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(kHeadDim),
+                              static_cast<cuuint64_t>(len),
+                              static_cast<cuuint64_t>(kv_heads),
+                              static_cast<cuuint64_t>(batch)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(sl) * 2,
+                                 static_cast<cuuint64_t>(sh) * 2,
+                                 static_cast<cuuint64_t>(sb) * 2};
+  const cuuint32_t box[4] = {32, kRankTile, 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return encode(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                const_cast<void*>(base), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_64B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
 
 }  // namespace vgt
 
-// Launches on `stream`; returns cudaGetLastError() (0 = launched).
+// Launches the attention on `stream`. Returns cudaGetLastError() (0 =
+// launched), or 100000 + the CUresult of a tensor map that failed to encode.
 extern "C" int vgt_rank_attention(const vgt::RankAttnArgs* a, void* stream) {
-  const dim3 grid((a->lq + vgt::kBlockQ - 1) / vgt::kBlockQ, a->heads,
-                  a->batch);
+  using namespace vgt;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (a->head_dim != vgt::kHeadDim)
-    return static_cast<int>(cudaErrorInvalidValue);
-  vgt::rank_attention_kernel<vgt::kHeadDim>
-      <<<grid, vgt::kThreads, 0, s>>>(*a);
+  if (a->head_dim != kHeadDim) return static_cast<int>(cudaErrorInvalidValue);
+  RankMaps maps;
+  memset(&maps, 0, sizeof(maps));
+  for (int op = 0; op < 2; ++op) {
+    if (a->len[op] == 0) continue;
+    for (int kv = 0; kv < 2; ++kv) {
+      const CUresult r = encode_operand(
+          &maps.kv[op][kv], kv ? a->v[op] : a->k[op], a->batch, a->kv_heads,
+          a->len[op], kv ? a->v_sb[op] : a->k_sb[op],
+          kv ? a->v_sh[op] : a->k_sh[op], kv ? a->v_sl[op] : a->k_sl[op]);
+      if (r != CUDA_SUCCESS) return 100000 + static_cast<int>(r);
+    }
+  }
+  cudaError_t err = cudaFuncSetAttribute(
+      rank_attention_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kRankSmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((a->lq + kRankRows - 1) / kRankRows, a->heads, a->batch);
+  rank_attention_kernel<<<grid, kRankThreads, kRankSmem, s>>>(*a, maps);
   return static_cast<int>(cudaGetLastError());
 }
+
+// The dynamic shared memory of an attention block, in bytes.
+extern "C" int vgt_rank_attention_smem() { return vgt::kRankSmem; }

@@ -26,6 +26,12 @@
 //     softmax is not 0 (every logit is BF16_NEG, so it is uniform), so its
 //     query tile is never empty. For every other row, an entry at most
 //     BF16_NEG weighs exactly 0 in fp32, so skipping its tile is exact.
+//
+// The columnar-rank decode kernels (K1/K2) take no map from a launch of its
+// own: their mask, visible(q, k) = q_off[q] >= rank[k], is exact from two
+// ranges, so the producer of rank_attention.cu classifies each key tile as
+// it loads its ranks (`rank_tile_class`; plain version
+// `rank_tile_classes_reference`).
 #pragma once
 
 #include <math_constants.h>
@@ -360,6 +366,57 @@ __device__ __forceinline__ void load_bias_tile(bf16* bs, int ld,
                                                  : __float2bfloat16(0.f);
     }
   }
+}
+
+// ---- rank classes (K1/K2) --------------------------------------------------
+//
+// A query tile is the 64 rows of one consumer warpgroup, a key tile 64 keys
+// of one key operand (the cache's tiles, then the tail's). Every pair of the
+// tile is visible iff the least q_off of its rows is at least the largest
+// rank of its keys, none iff the largest q_off is below the least rank:
+// exact, not conservative. Keys past the operand count with rank kNever and
+// rows past Lq not at all, so an edge tile is never full.
+
+constexpr int kRankTile = 64;  // rows of a query tile, keys of a key tile
+
+struct RankQueryRange {
+  int lo, hi;  // least and largest q_off of the real rows (kIntMax, kIntMin:
+               // none)
+  bool whole;  // all 64 rows lie below Lq
+};
+
+// The q_off range of rows r0 .. r0 + 63 (of Lq), for every lane of a warp.
+__device__ __forceinline__ RankQueryRange rank_query_range(const int* qoff,
+                                                           int r0, int lq,
+                                                           int lane) {
+  int lo = kIntMax, hi = kIntMin;
+  for (int i = lane; i < kRankTile; i += 32)
+    if (r0 + i < lq) {
+      const int v = qoff[r0 + i];
+      lo = min(lo, v);
+      hi = max(hi, v);
+    }
+  return {__reduce_min_sync(0xffffffffu, lo),
+          __reduce_max_sync(0xffffffffu, hi), r0 + kRankTile <= lq};
+}
+
+// The ranks of keys k0 + lane and k0 + 32 + lane of an operand of `len`
+// keys whose ranks are `rank` (kNever past `len`).
+__device__ __forceinline__ void rank_tile_load(const int* rank, int k0,
+                                               int len, int lane, int& ra,
+                                               int& rb) {
+  ra = k0 + lane < len ? rank[k0 + lane] : kNever;
+  rb = k0 + 32 + lane < len ? rank[k0 + 32 + lane] : kNever;
+}
+
+// The class of a query tile against the key tile whose lanes hold ranks
+// (ra, rb), for every lane of the warp.
+__device__ __forceinline__ int8_t rank_tile_class(const RankQueryRange& q,
+                                                  int ra, int rb) {
+  const int rmin = __reduce_min_sync(0xffffffffu, min(ra, rb));
+  const int rmax = __reduce_max_sync(0xffffffffu, max(ra, rb));
+  if (q.hi < rmin) return kTileEmpty;
+  return q.whole && q.lo >= rmax ? kTileFull : kTilePartial;
 }
 
 // ---- reading a map ---------------------------------------------------------

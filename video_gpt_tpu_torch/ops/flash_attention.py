@@ -23,11 +23,14 @@ Port of every Pallas kernel of ``video_gpt_tpu/ops/flash_attention.py``
 - K7 :func:`flash_mha_inline_bwd` (TPU ``_stream_dq_kernel`` and
   ``_stream_dkv_kernel``): the backward of K6.
 
-K1 and K2 are one CUDA kernel (``csrc/rank_attention.cu``); K3 is
-``csrc/bias_attention.cu``, K9 ``csrc/bias_attention_bwd.cu``, K6
-``csrc/inline_attention.cu`` and K7 ``csrc/inline_attention_bwd.cu``. All
-four compute only the tiles that their mask does not hide entirely, over a
-tile map (``csrc/tile_map.cuh``; plain versions
+K1 and K2 are one CUDA kernel (``csrc/rank_attention.cu``), which
+classifies each key tile from its ranks as it loads them and never loads a
+tile that no query of its block sees (plain classes:
+:func:`rank_tile_classes_reference`); K3 is ``csrc/bias_attention.cu``, K9
+``csrc/bias_attention_bwd.cu``, K6 ``csrc/inline_attention.cu`` and K7
+``csrc/inline_attention_bwd.cu``. Those four compute only the tiles that
+their mask does not hide entirely, over a tile map (``csrc/tile_map.cuh``;
+plain versions
 :func:`inline_tile_classes_reference` and
 :func:`bias_tile_classes_reference`, the map alone
 :func:`inline_tile_classes` and :func:`bias_tile_classes`): K6 and K7 build
@@ -68,8 +71,8 @@ KERNEL_HEAD_DIM = 96
 # K4, K5 and K10, whose function K1, K2 and K3 compute here. Those three
 # wrappers count such launches apart, in ``long_launches``
 TPU_KEY_CAP = 8192
-# the tiles of the kernels' tile maps (kBlockQ, kBlockK in csrc), and the
-# classes of csrc/tile_map.cuh: no pair visible, some, all
+# the tiles of the kernels' tile maps (kBlockQ, kBlockK, kRankTile in csrc),
+# and the classes of csrc/tile_map.cuh: no pair visible, some, all
 TILE_Q, TILE_K = 64, 64
 TILE_EMPTY, TILE_PARTIAL, TILE_FULL = 0, 1, 2
 
@@ -373,6 +376,32 @@ def inline_tile_classes_reference(q_meta: AttnMeta, k_meta: AttnMeta,
     return out
 
 
+def rank_tile_classes_reference(ranks: Sequence[torch.Tensor],
+                                q_off: torch.Tensor, tile_q: int = TILE_Q,
+                                tile_k: int = TILE_K) -> torch.Tensor:
+    """Plain version of K1/K2's tile classes: int8 [B, ceil(Lq/tile_q),
+    sum_i ceil(L_i/tile_k)], the key tiles of each operand ``ranks[i]``
+    ([B, L_i] int32) in order, per (query tile, key tile) ``TILE_EMPTY``
+    when no real pair has ``q_off >= rank``, ``TILE_FULL`` when the tile
+    lies inside [0, Lq) x [0, L_i) and every pair does, else
+    ``TILE_PARTIAL``: the columnar mask reduced tile by tile, whole query
+    tiles of about ``INLINE_ROWS`` rows at a time."""
+    b, lq = q_off.shape
+    nk = [-(-r.shape[1] // tile_k) for r in ranks]
+    out = torch.empty((b, -(-lq // tile_q), sum(nk)), dtype=torch.int8,
+                      device=q_off.device)
+    for bi in range(b):
+        for sl in _tile_row_steps(lq, tile_q):
+            rows = slice(sl.start // tile_q, -(-sl.stop // tile_q))
+            k0 = 0
+            for rank, n in zip(ranks, nk):
+                vis = q_off[bi, sl, None] >= rank[bi, None, :]
+                t = _tile_view(vis, tile_q, tile_k)
+                out[bi, rows, k0:k0 + n] = _classes(t.any(-1), t.all(-1))
+                k0 += n
+    return out
+
+
 def bias_tile_classes_reference(bias: torch.Tensor, tile_q: int = TILE_Q,
                                 tile_k: int = TILE_K) -> torch.Tensor:
     """Plain version of K9's tile map of the bias [B, Lq, Lk]: int8 [B,
@@ -547,14 +576,22 @@ def _launch(lib: str, fn: str, args, device: torch.device) -> None:
         _cuda.check(f(ctypes.byref(args), ctypes.c_void_p(stream)), fn)
 
 
-def _launch_rank(q: torch.Tensor, operands, q_off: torch.Tensor
-                 ) -> torch.Tensor:
-    """operands: [(k, v, rank)] with k/v heads-major views [B,Hkv,L,D]."""
+def _launch_rank(q: torch.Tensor, operands, q_off: torch.Tensor,
+                 out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """operands: [(k, v, rank)] with k/v heads-major views [B,Hkv,L,D];
+    the result goes into ``out`` when given (a contiguous tensor of q's
+    shape and dtype), else into a new tensor."""
     b, lq, h, d = q.shape
     hkv = operands[0][0].shape[1]
     _check_q(q, hkv)
     _check_operand("q_off", q_off, q.device, torch.int32, (b, lq))
-    out = torch.empty((b, lq, h, d), dtype=q.dtype, device=q.device)
+    if lq > 1 and q_off.stride(1) != 1:
+        raise ValueError("q_off needs contiguous rows")
+    if out is None:
+        out = torch.empty((b, lq, h, d), dtype=q.dtype, device=q.device)
+    elif (out.shape != q.shape or out.dtype != q.dtype
+          or out.device != q.device or not out.is_contiguous()):
+        raise ValueError("out must be a contiguous tensor like q")
     a = _RankArgs(q=q.data_ptr(), qoff=q_off.data_ptr(), out=out.data_ptr(),
                   q_sb=q.stride(0), q_sl=q.stride(1), q_sh=q.stride(2),
                   qoff_sb=q_off.stride(0), o_sb=out.stride(0),
@@ -567,6 +604,8 @@ def _launch_rank(q: torch.Tensor, operands, q_off: torch.Tensor
             _check_operand(name, x, q.device, torch.bfloat16,
                            (b, hkv, lk, d), row_vectors=True)
         _check_operand("rank", rank, q.device, torch.int32, (b, lk))
+        if lk > 1 and rank.stride(1) != 1:
+            raise ValueError("rank needs contiguous rows")
         a.k[i], a.v[i], a.rank[i] = k.data_ptr(), v.data_ptr(), \
             rank.data_ptr()
         a.k_sb[i], a.k_sh[i], a.k_sl[i] = k.stride()[:3]
@@ -575,6 +614,14 @@ def _launch_rank(q: torch.Tensor, operands, q_off: torch.Tensor
         a.len[i] = lk
     _launch("rank_attention", "vgt_rank_attention", a, q.device)
     return out
+
+
+def rank_attention_smem() -> int:
+    """The dynamic shared memory of a K1/K2 block (kRankSmem in
+    csrc/rank_attention.cu): its ring of K/V tiles and their barriers."""
+    f = _cuda.libraries()["rank_attention"].vgt_rank_attention_smem
+    f.restype = ctypes.c_int
+    return f()
 
 
 # ---- K1 / K2 / K3 wrappers --------------------------------------------------
