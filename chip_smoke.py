@@ -83,14 +83,44 @@ Phases, in order; any failure exits nonzero and none is caught:
    the stage-1 trainer is freed (two 56 GiB states do not fit): one
    warm-up step and 2 timed steps, each with exactly 64 K6 and 32 K7
    launches and no other, then one profiled step;
-13. a line of kernel records (K1-K10 and P1, each with its launches read
-   from the counters), then the device line as the last line.
+13. LoRA path, after the stage-4 trainer is freed (less than 1 GiB may
+   stay allocated between these phases): rank-8 adapters on every layer's
+   qkv_proj and o_proj over a frozen stage-1 model at full width (random
+   base, heads randomised), L 7104, through the Trainer's own step: one
+   warm-up step and 2 timed steps, each with exactly 64 K3, 32 K9 and one
+   bias-map build; the base stays bit-equal, every watched lora_B moves in
+   step 1 while lora_A's gradient is exactly 0 (B = 0), lora_A's gradient
+   is not 0 from step 2 on, layer 0's adapter gradient is finite and not
+   0; s/step, tokens/s, peak memory and the adapter count (4.72M);
+14. small-input distillation reference: one guided distillation loss and
+   backward of a tiny model (a teacher other than the student) on the card
+   (bf16, K3/K9) against the CPU (fp32, plain versions) with the same
+   weights and random numbers, held to the training reference's bars;
+15. guided distillation path, the first round of
+   ``configs/distill_serving.sh`` (5 student steps, 2 substeps, guidance
+   1.5, distill_lr 1e-4) at full width: a random teacher with randomised
+   heads (bf16) and its fp32 copy as the student; one warm-up and 2 timed
+   steps, each with exactly 192 K3 (two substeps of a cond and an uncond
+   teacher forward, the student's forward and recompute, per layer), 32 K9
+   and two bias-map builds (one per layout); the teacher stays bit-equal,
+   the student moves;
+16. serving the products: the student's weights (bf16) through
+   ``generate`` at its serving line (16 frames, 5 steps,
+   ``img_guidance_scale`` 1: no uncond row), with exactly 160 K1, 32 K3, no
+   K2 and one map build; then the LoRA path's adapters (B redrawn at
+   random) merged into those weights on the card, each merged weight held
+   to W + (alpha/r) B A within its bf16 rounding, and a clip of the merged
+   model;
+17. a line of kernel records (K1-K10 and P1, each with its launches read
+   from the counters; K3 and K9 also per LoRA and per distillation step),
+   then the device line as the last line.
 
 The training phases use the recipes of ``configs/pretrain_stage1.sh`` and
 ``configs/pretrain_stage4.sh`` (betas 0.9/0.95, weight decay 0.1, eps 1e-5,
 clip 1.0) with a constant learning rate of 1e-4: the recipes' 320000-step
 linear warmup gives a learning rate of 0 at step 0, which would leave the
-parameters unmoved. About 8 minutes on one H100.
+parameters unmoved. The LoRA and distillation paths take stage 1's
+recipe with their own flags. About 10 minutes on one H100.
 
 It needs a CUDA device and exits nonzero without one. It imports nothing of
 JAX.
@@ -124,7 +154,11 @@ from video_gpt_tpu_torch.ops import flash_attention as fa
 from video_gpt_tpu_torch.ops.attention import AttnMeta
 from video_gpt_tpu_torch.probes import overlap_probe
 from video_gpt_tpu_torch.sampling.pipeline import VideoGPTPipeline
+from video_gpt_tpu_torch.models.video_gpt import VideoGPT
 from video_gpt_tpu_torch.training.data import collate
+from video_gpt_tpu_torch.training.distill import (DistillDraws,
+                                                  distillation_loss)
+from video_gpt_tpu_torch.training.lora import lora_state_dict, merge_lora
 from video_gpt_tpu_torch.training.loss import LossDraws, training_loss
 from video_gpt_tpu_torch.training.train_state import autocast
 from video_gpt_tpu_torch.training.trainer import Trainer
@@ -172,6 +206,19 @@ TRAIN_REF_FLOOR_FACTOR = 4.0
 TRAIN_PATHS = {1: (16, 3, {"K3": 2, "K9": 1}, 1),
                4: (80, 2, {"K6": 2, "K7": 1}, 0)}
 TRAIN_LR = 1e-4
+# the LoRA path: rank-8 adapters on qkv_proj / o_proj (the reference's
+# peft recipe) over a frozen stage-1 model; per step and layer 2 K3 and 1
+# K9, one bias-map build, as the stage-1 path
+LORA_RANK, LORA_STEPS = 8, 2
+# guided distillation, the first round of configs/distill_serving.sh: a
+# 5-step student from 2 teacher substeps each, guidance 1.5 baked in; per
+# step and layer 6 K3 (2 substeps x (cond, uncond) teacher forwards, the
+# student's forward and recompute) and 1 K9, one map per layout (2)
+DISTILL = dict(distill=True, distill_student_steps=5, distill_substeps=2,
+               distill_guidance=1.5, distill_lr=1e-4)
+DISTILL_STEPS = 2
+# serving the guided student: one cond row, 5 steps (its serving line)
+STUDENT_STEPS = 5
 # the seed of the stage-4 batch's random_block_partition draw
 PARTITION_SEED = 0
 # a kernel's timing runs as many launches as fit this many ms (at most 20;
@@ -627,9 +674,10 @@ def check_and_time(name: str, r: dict, label: str = "") -> dict:
     return rec
 
 
-def train_batch(stage: int):
+def train_batch(stage: int, uncond: bool = False):
     """A training batch (B 1) of ``stage`` on the host: synthetic 176x320
-    frames through the port's preprocessing, collated as the Trainer does.
+    frames through the port's preprocessing, collated as the Trainer does
+    (``uncond``: with guidance distillation's unconditional layout).
     Stage 1: 16 frames in interleaved blocks of one frame; stage 4: 80
     frames in the frame blocks of one seeded ``random_block_partition``
     draw."""
@@ -637,7 +685,8 @@ def train_batch(stage: int):
     blocks = ((1,) * n if stage == 1 else
               random_block_partition(n, random.Random(PARTITION_SEED)))
     pixels = preprocess_to_resolution(synthetic_frames(n), H_PX, W_PX)
-    return collate([ClipSample(pixels, blocks)], tokens_per_frame(H_PX, W_PX))
+    return collate([ClipSample(pixels, blocks)], tokens_per_frame(H_PX, W_PX),
+                   uncond=uncond)
 
 
 def visible_pairs(meta: AttnMeta) -> int:
@@ -1313,13 +1362,16 @@ def run(dev: torch.device, smi: str) -> None:
     train_counts = training_phase(dev, smi, stage=1)
     # two 56 GiB training states do not fit one card: the stage-1 trainer
     # is gone before the stage-4 one is built
-    gc.collect()
-    torch.cuda.empty_cache()
-    left_gib = torch.cuda.memory_allocated() / 2 ** 30
-    log(f"between the training paths: {left_gib:.2f} GiB allocated")
-    if left_gib > 1.0:
-        fail(f"{left_gib:.2f} GiB still allocated after the stage-1 path")
+    freed("the stage-1 path")
     stage4_counts = training_phase(dev, smi, stage=4)
+    freed("the stage-4 path")
+    lora_counts, adapters = lora_phase(dev, smi)
+    freed("the LoRA path")
+    distill_reference_phase(dev)
+    distill_counts, student = distill_phase(dev, smi)
+    freed("the distillation path")
+    student_counts = products_phase(dev, smi, student, adapters)
+    del student, adapters
 
     # launches: each kernel's count in its own path's timed run (serving:
     # one clip; training: the timed steps of its stage). K8 is K6's kernel
@@ -1332,7 +1384,9 @@ def run(dev: torch.device, smi: str) -> None:
              "long rollout": long_rollout["launches"],
              "batched rollout": batched_rollout["launches"],
              "stage-1 training": train_counts,
-             "stage-4 training": stage4_counts}
+             "stage-4 training": stage4_counts, "LoRA training": lora_counts,
+             "guided distillation": distill_counts,
+             "guided student": student_counts}
     for k, r in records.items():
         if k in ("K6", "K7"):
             r.update(launches=stage4_counts[k], launches_per_train_step=(
@@ -1363,6 +1417,15 @@ def run(dev: torch.device, smi: str) -> None:
     for k in ("K1", "K2", "K4", "K6"):
         records[k]["launches_batched_rollout"] = \
             batched_rollout["launches"][k]
+    for k in ("K3", "K9"):
+        records[k]["launches_per_lora_step"] = lora_counts[k] // LORA_STEPS
+        records[k]["launches_per_distill_step"] = \
+            distill_counts[k] // DISTILL_STEPS
+    records["K3"]["bias_map_builds"].update(
+        per_lora_step=lora_counts["bias_map_builds"] // LORA_STEPS,
+        per_distill_step=distill_counts["bias_map_builds"] // DISTILL_STEPS)
+    records["K1"]["launches_per_student_clip"] = student_counts["K1"]
+    records["K3"]["launches_per_student_clip"] = student_counts["K3"]
     log(f"every phase: {time.perf_counter() - t_run:.1f} s")
     log(json.dumps({"kernels": list(records.values())}))
 
@@ -1510,55 +1573,26 @@ def training_phase(dev, smi: str, stage: int) -> dict:
     hook = qkv.register_post_accumulate_grad_hook(
         lambda p: qkv_grads.append(torch.linalg.vector_norm(p.grad)))
 
-    host = HostFloatOps()
-    t0 = time.perf_counter()
-    with host:
-        m = trainer.train_step(state, tb, 0)
-    torch.cuda.synchronize()
-    log(f"warm-up stage-{stage} train step: {time.perf_counter() - t0:.2f} s,"
-        f" loss "
-        f"{float(m['loss']):.5f} (host-op check on)")
-    if host.ops:
-        fail(f"float ops ran on the host in the train step: "
-             f"{sorted(host.ops)}")
-
     nl = trainer.model_cfg.num_layers
     watched = {n: p for n, p in model.named_parameters() if n in (
         "x_embedder.proj.weight", "llm.layers.0.self_attn.qkv_proj.weight",
         f"llm.layers.{nl - 1}.mlp.down_proj.weight", "llm.norm.weight",
         "final_layer.linear.weight")}
-    before = {n: p.detach().clone() for n, p in watched.items()}
-    torch.cuda.reset_peak_memory_stats()
+    before = {}
+
+    def check(step, m):
+        g = float(qkv_grads[-1])
+        if not (np.isfinite(g) and g > 0):
+            fail(f"train step {step}: no gradient reached layer 0's "
+                 f"attention")
+        if step == 1:  # after the warm-up
+            before.update({n: p.detach().clone()
+                           for n, p in watched.items()})
+
     want = {k: per_layer.get(k, 0) * nl for k in counts()}
     want["bias_map_builds"] = builds
-    steps, total = [], dict.fromkeys(want, 0)
-    for i in range(1, n_steps + 1):
-        reset_counts()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        m = trainer.train_step(state, tb, i)
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-        c = counts()
-        steps.append(dict(step_s=dt, loss=float(m["loss"]),
-                          grad_norm=float(m["grad_norm"]),
-                          qkv0_grad_norm=float(qkv_grads[-1]),
-                          launches={k: c[k] for k in per_layer}))
-        log(f"stage-{stage} train step {i}: {dt:.3f} s, "
-            f"{b * L / dt:.1f} tokens/s, "
-            f"loss {steps[-1]['loss']:.5f}, grad norm "
-            f"{steps[-1]['grad_norm']:.4f}, layer-0 qkv grad norm "
-            f"{steps[-1]['qkv0_grad_norm']:.3e}, launches {c}")
-        if c != want:
-            fail(f"stage-{stage} train step launches {c} != {want}")
-        if not all(np.isfinite([steps[-1]["loss"], steps[-1]["grad_norm"]])):
-            fail(f"train step {i}: loss or gradient norm not finite")
-        if not (np.isfinite(steps[-1]["qkv0_grad_norm"])
-                and steps[-1]["qkv0_grad_norm"] > 0):
-            fail(f"train step {i}: no gradient reached layer 0's attention")
-        for k in total:
-            total[k] += c[k]
-    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    steps, total, peak_gib, step_s = run_steps(
+        trainer, state, tb, f"stage-{stage} train", n_steps, want, check)
     hook.remove()
 
     # AdamW moved every watched parameter, by at most ~lr per step and
@@ -1571,7 +1605,6 @@ def training_phase(dev, smi: str, stage: int) -> dict:
                 before[n].abs().max())):
             fail(f"AdamW moved {n} by {d}")
     log(f"AdamW moved (max abs change over {n_steps} steps): {moved}")
-    step_s = float(np.mean([r["step_s"] for r in steps]))
     # the trunk's matmul work per step: forward, recompute, and the
     # backward's two products per weight, 2 FLOPs per weight and token each
     trunk = sum(m.weight.numel() for m in model.llm.layers.modules()
@@ -1583,6 +1616,7 @@ def training_phase(dev, smi: str, stage: int) -> dict:
                  real_tokens_per_step=real, peak_mem_gib=peak_gib,
                  fp32_state_gib=16 * n_params / 2 ** 30,
                  trunk_matmul_tflop=matmul_tflop, steps=steps,
+                 qkv0_grad_norms=[float(x) for x in qkv_grads],
                  params=n_params, device=smi)
     log(f"stage-{stage} training path: {nl} layers, L {L}, B {b}: "
         f"{step_s:.3f} s/step, {b * L / step_s:.1f} tokens/s "
@@ -1622,6 +1656,423 @@ def profile_train_step(trainer, state, tb, step_s: float,
         "unprofiled_step_ms": step_s * 1e3,
         "matmul_tflops": matmul_tflop / (matmul_ms / 1e3) if matmul_ms
         else None, "top_kernels": top}}))
+
+
+def freed(after: str) -> None:
+    """Collect the garbage of a finished phase and fail if 1 GiB or more
+    is still allocated on the card."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    left_gib = torch.cuda.memory_allocated() / 2 ** 30
+    log(f"after {after}: {left_gib:.2f} GiB allocated")
+    if left_gib > 1.0:
+        fail(f"{left_gib:.2f} GiB still allocated after {after}")
+
+
+def host_copy(tensors: dict) -> dict:
+    return {n: t.detach().cpu().clone() for n, t in tensors.items()}
+
+
+def unchanged(now: dict, before: dict) -> bool:
+    """Whether every tensor of ``now`` is bit-equal to its host copy."""
+    return all(torch.equal(t.detach().cpu(), before[n])
+               for n, t in now.items())
+
+
+def run_steps(trainer, state, tb, label: str, n_steps: int, want: dict,
+              check=None) -> tuple:
+    """A warm-up step (host-op check on), then ``n_steps`` timed steps of
+    ``trainer`` on ``tb``, each with exactly the launches ``want`` and a
+    finite loss and gradient norm; ``check(step, metrics)`` runs after
+    every step (the warm-up is step 1). Returns (step records, summed
+    launches, peak GiB over the timed steps, mean s/step)."""
+    host = HostFloatOps()
+    t0 = time.perf_counter()
+    with host:
+        m = trainer.train_step(state, tb, 0)
+    torch.cuda.synchronize()
+    log(f"warm-up {label} step: {time.perf_counter() - t0:.2f} s, loss "
+        f"{float(m['loss']):.6f} (host-op check on)")
+    if host.ops:
+        fail(f"float ops ran on the host in the {label} step: "
+             f"{sorted(host.ops)}")
+    if check is not None:
+        check(1, m)
+    b, L = tb.inputs.batch.input_ids.shape
+    torch.cuda.reset_peak_memory_stats()
+    steps, total = [], dict.fromkeys(want, 0)
+    for i in range(2, n_steps + 2):
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = trainer.train_step(state, tb, i - 1)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        c = counts()
+        steps.append(dict(step_s=dt, loss=float(m["loss"]),
+                          grad_norm=float(m["grad_norm"])))
+        log(f"{label} step {i}: {dt:.3f} s, {b * L / dt:.1f} tokens/s, loss "
+            f"{steps[-1]['loss']:.6f}, grad norm "
+            f"{steps[-1]['grad_norm']:.4e}, launches {c}")
+        if c != want:
+            fail(f"{label} step launches {c} != {want}")
+        if not all(np.isfinite([steps[-1]["loss"], steps[-1]["grad_norm"]])):
+            fail(f"{label} step {i}: loss or gradient norm not finite")
+        if check is not None:
+            check(i, m)
+        for k in total:
+            total[k] += c[k]
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    return steps, total, peak_gib, float(np.mean([r["step_s"]
+                                                  for r in steps]))
+
+
+def lora_phase(dev, smi: str):
+    """The LoRA path at full width through the Trainer's own step: rank-8
+    adapters on every layer's qkv_proj and o_proj over a frozen stage-1
+    model (random base, heads randomised; fp32 base, bf16 compute), L 7104.
+    One warm-up step and LORA_STEPS timed steps, each with exactly 64 K3,
+    32 K9 and one bias-map build. The base stays bit-equal; every watched
+    lora_B moves in step 1, when lora_A's gradient is exactly 0 (B = 0);
+    from step 2 lora_A's gradient is not 0; layer 0's adapter gradient is
+    finite and not 0 in every step. Returns (summed launches, the trained
+    adapters on the host with B redrawn at random, for the merge)."""
+    cfg = stage_config(1, lr=TRAIN_LR, lr_scheduler="constant",
+                       adam_epsilon=1e-5, use_lora=True, lora_rank=LORA_RANK)
+    t0 = time.perf_counter()
+    trainer = Trainer(ModelConfig(), cfg, None, vae_cfg=VAEConfig(),
+                      target_resolution=(H_PX, W_PX), device=dev, seed=0)
+    state = trainer.build()
+    model = trainer.model
+    randomise_heads_(model, seed=1)
+    mcfg = trainer.model_cfg
+    nl, d = mcfg.num_layers, mcfg.hidden_size
+    adapters = lora_state_dict(model)
+    n_adapter = sum(t.numel() for t in adapters.values())
+    qkv = (mcfg.num_heads + 2 * mcfg.num_kv_heads) * mcfg.head_dim
+    want_n = nl * LORA_RANK * (d + qkv + mcfg.num_heads * mcfg.head_dim + d)
+    if n_adapter != want_n or len(state.optimizer.params) != len(adapters):
+        fail(f"{n_adapter} adapter parameters in "
+             f"{len(state.optimizer.params)} tensors, not {want_n}")
+    base = host_copy({n: p for n, p in model.named_parameters()
+                      if not p.requires_grad})
+    torch.cuda.synchronize()
+    log(f"build LoRA trainer: {time.perf_counter() - t0:.1f} s, "
+        f"{sum(t.numel() for t in base.values()) / 1e9:.3f}B frozen fp32 "
+        f"params, {n_adapter} adapter params (rank {LORA_RANK})")
+
+    watched = [f"llm.layers.{i}.self_attn.{m}.lora_{ab}.weight"
+               for i in (0, nl // 2, nl - 1) for m in ("qkv_proj", "o_proj")
+               for ab in "AB"]
+    params = dict(model.named_parameters())
+    norms = {n: [] for n in watched}
+    hooks = [params[n].register_post_accumulate_grad_hook(
+        lambda p, n=n: norms[n].append(torch.linalg.vector_norm(p.grad)))
+        for n in watched]
+    a_before = {}
+
+    def check(step, m):
+        g = {n: float(v[-1]) for n, v in norms.items()}
+        if not all(np.isfinite(list(g.values()))):
+            fail(f"LoRA step {step}: an adapter gradient is not finite")
+        a0 = "llm.layers.0.self_attn.qkv_proj.lora_"
+        if not (g[a0 + "B.weight"] > 0 and (step == 1 or g[a0 + "A.weight"]
+                                             > 0)):
+            fail(f"LoRA step {step}: no gradient reached layer 0's "
+                 f"adapters: {g}")
+        if step == 1:
+            if any(g[n] != 0 for n in watched if ".lora_A." in n):
+                fail(f"lora_A had a gradient while B = 0: {g}")
+            if any(float(params[n].detach().abs().max()) == 0
+                   for n in watched if ".lora_B." in n):
+                fail("a watched lora_B did not move in step 1")
+            a_before.update(host_copy({n: params[n] for n in watched
+                                       if ".lora_A." in n}))
+        elif any(g[n] == 0 for n in watched):
+            fail(f"LoRA step {step}: a watched adapter had no gradient: {g}")
+
+    tb = train_batch(1).to(dev)
+    b, L = tb.inputs.batch.input_ids.shape
+    steps, total, peak_gib, step_s = run_steps(
+        trainer, state, tb, "LoRA", LORA_STEPS,
+        expect(K3=2 * nl, K9=nl, bias_map_builds=1), check)
+    for hook in hooks:
+        hook.remove()
+    if not unchanged({n: p for n, p in model.named_parameters()
+                      if not p.requires_grad}, base):
+        fail("the LoRA steps changed the frozen base")
+    if unchanged({n: params[n] for n in a_before}, a_before):
+        fail("lora_A did not move after step 1")
+    rec = dict(rank=LORA_RANK, layers=nl, step_s=step_s,
+               tokens_per_s=b * L / step_s, tokens_per_step=b * L,
+               peak_mem_gib=peak_gib, adapter_params=n_adapter,
+               frozen_params=sum(t.numel() for t in base.values()),
+               steps=steps, layer0_grad_norms={
+                   n: [float(x) for x in v] for n, v in norms.items()
+                   if n.startswith("llm.layers.0.")}, device=smi)
+    log(f"LoRA path: {nl} layers, L {L}: {step_s:.3f} s/step, "
+        f"{b * L / step_s:.1f} tokens/s, peak {peak_gib:.2f} GiB, "
+        f"{n_adapter} adapter params, base unchanged, on {smi}")
+    log(json.dumps({"lora_path": rec}))
+    out = host_copy(adapters)
+    gen = torch.Generator().manual_seed(7)
+    for n, t in out.items():
+        if ".lora_B." in n:  # a trained B is ~1e-4: redraw it for the merge
+            t.copy_(0.05 * torch.randn(t.shape, generator=gen))
+    return total, out
+
+
+def distill_phase(dev, smi: str):
+    """Guided distillation at full width through the Trainer's own step,
+    the first round of configs/distill_serving.sh (5 student steps, 2
+    substeps, guidance 1.5, distill_lr 1e-4): a random model with
+    randomised heads as the teacher (a zero head makes every target 0) and
+    the student its copy; fp32 student and AdamW, bf16 teacher and
+    compute, L 7104 and the unconditional layout's 3552. One warm-up step
+    and DISTILL_STEPS timed steps, each with exactly 192 K3, 32 K9 and two
+    bias-map builds. The teacher stays bit-equal, the student moves.
+    Returns (summed launches, the student's weights in bf16 on the
+    host)."""
+    cfg = stage_config(1, lr=TRAIN_LR, lr_scheduler="constant",
+                       adam_epsilon=1e-5, **DISTILL)
+    t0 = time.perf_counter()
+    trainer = Trainer(ModelConfig(), cfg, None, vae_cfg=VAEConfig(),
+                      target_resolution=(H_PX, W_PX), device=dev, seed=0)
+    state = trainer.build()
+    model, teacher = trainer.model, trainer.teacher
+    randomise_heads_(model, seed=1)
+    teacher.load_state_dict(model.state_dict())
+    teacher0 = host_copy(teacher.state_dict())
+    torch.cuda.synchronize()
+    nl = trainer.model_cfg.num_layers
+    log(f"build distillation trainer: {time.perf_counter() - t0:.1f} s, "
+        f"student fp32 + AdamW, teacher "
+        f"{next(teacher.parameters()).dtype}")
+    tb = train_batch(1, uncond=True).to(dev)
+    b, L = tb.inputs.batch.input_ids.shape
+    lu = tb.inputs.batch_uncond.input_ids.shape[1]
+    if lu != TRAIN_PATHS[1][0] * (tokens_per_frame(H_PX, W_PX) + 2):
+        fail(f"the unconditional layout has {lu} tokens")
+    watched = {n: p for n, p in model.named_parameters() if n in (
+        "x_embedder.proj.weight", "llm.layers.0.self_attn.qkv_proj.weight",
+        f"llm.layers.{nl - 1}.mlp.down_proj.weight",
+        "final_layer.linear.weight")}
+    before = {}
+
+    def check(step, m):
+        if step == 1:
+            before.update({n: p.detach().clone()
+                           for n, p in watched.items()})
+
+    steps, total, peak_gib, step_s = run_steps(
+        trainer, state, tb, "distillation", DISTILL_STEPS,
+        expect(K3=6 * nl, K9=nl, bias_map_builds=2), check)
+    moved = {n: float((p.detach() - before[n]).abs().max())
+             for n, p in watched.items()}
+    if not all(v > 0 for v in moved.values()):
+        fail(f"the student did not move: {moved}")
+    if not unchanged(teacher.state_dict(), teacher0):
+        fail("the distillation steps changed the teacher")
+    rec = dict(layers=nl, **{k: v for k, v in DISTILL.items()
+                             if k != "distill"},
+               step_s=step_s, tokens_per_s=b * L / step_s,
+               tokens_per_step=b * L, uncond_tokens=lu,
+               peak_mem_gib=peak_gib, steps=steps, student_moved=moved,
+               device=smi)
+    log(f"distillation path: {nl} layers, L {L} (+ uncond {lu}): "
+        f"{step_s:.3f} s/step, {b * L / step_s:.1f} student tokens/s, "
+        f"peak {peak_gib:.2f} GiB, teacher unchanged, on {smi}")
+    log(json.dumps({"distill_path": rec}))
+    student = {n: t.to(torch.bfloat16).cpu()
+               for n, t in model.state_dict().items()}
+    return total, student
+
+
+def distill_reference_phase(dev) -> None:
+    """One guided distillation loss and backward of a tiny model (head_dim
+    96, GQA) on the card (bf16 autocast, fp32 student, bf16 teacher, the
+    kernels) against the same student, teacher, batch and random numbers
+    on the CPU in fp32 (plain versions), on the bias route, read against
+    the CPU's own bf16 error as the training reference is: the student
+    gradient's relative error within TRAIN_REF_FLOOR_FACTOR times it, the
+    loss within 2^-8."""
+    mcfg = ModelConfig.tiny(hidden_size=192, num_heads=2, num_kv_heads=1,
+                            pos_embed_max_size=64)
+    res, n_frames = (64, 96), 4
+    rng = np.random.default_rng(12)
+    frames = [rng.integers(0, 256, res + (3,), dtype=np.uint8)
+              for _ in range(n_frames)]
+    sample = ClipSample(preprocess_to_resolution(frames, *res),
+                        (1,) * n_frames)
+    tb_host = collate([sample], tokens_per_frame(*res), uncond=True)
+    # the student's warm start and the teacher: two random models with
+    # random heads. A teacher equal to the student makes the target and
+    # the prediction nearly equal, and their difference, the loss, mostly
+    # bf16 rounding, far past any bar a bf16 run could meet
+    init, teacher = (VideoGPT(mcfg).init_random_(
+        torch.Generator().manual_seed(seed)).state_dict() for seed in (6, 9))
+
+    def trainer(device, mixed, **sd):
+        cfg = stage_config(1, frame_num=n_frames, mixed_precision=mixed,
+                           **DISTILL)
+        tr = Trainer(mcfg, cfg, None, vae_cfg=VAEConfig.tiny(),
+                     target_resolution=res, device=device, seed=3,
+                     init_state_dict=init, **sd)
+        tr.build()
+        tr.teacher.load_state_dict(teacher)
+        return tr
+
+    card = trainer(dev, "bf16")
+    vae_sd = {k: v.cpu() for k, v in card.vae.state_dict().items()}
+    gen = torch.Generator().manual_seed(8)
+    hl, wl = res[0] // 8, res[1] // 8
+    post = torch.randn((n_frames, hl, wl, 4), generator=gen)
+    nn_, nc = tb_host.noisy_sel.shape[0], tb_host.clean_sel.shape[0]
+    draws = DistillDraws(
+        torch.randn((nn_, hl, wl, 4), generator=gen),
+        torch.randint(0, DISTILL["distill_student_steps"], (1, n_frames),
+                      generator=gen),
+        torch.randn((nc, hl, wl, 4), generator=gen),
+        torch.rand((nc,), generator=gen))
+
+    def loss_and_grad(tr):
+        d, cfg = tr.device, tr.cfg
+        tb = tb_host.to(d)
+        with torch.no_grad(), autocast(cfg, d):
+            lat = tr.vae.encode(tb.pixels, noise=post.to(d))
+        inputs = tb.inputs._replace(x1=lat[tb.noisy_sel.long()],
+                                    clean_latents=lat[tb.clean_sel.long()])
+        with autocast(cfg, d):
+            loss, _ = distillation_loss(
+                tr.model, tr.teacher, inputs,
+                DistillDraws(*(x.to(d) for x in draws)),
+                student_steps=cfg.distill_student_steps,
+                substeps=cfg.distill_substeps,
+                input_noise=cfg.distill_input_noise,
+                cfg_scale=cfg.distill_guidance)
+        loss.backward()
+        grad = torch.cat([p.grad.float().flatten()
+                          for p in tr.model.parameters()])
+        return float(loss.detach()), grad.cpu()
+
+    reset_counts()
+    got = loss_and_grad(card)
+    torch.cuda.synchronize()
+    ran = counts()
+    want, floor = (loss_and_grad(trainer("cpu", mixed, vae_state_dict=vae_sd))
+                   for mixed in ("no", "bf16"))
+
+    def errs(x):
+        return (abs(x[0] - want[0]) / abs(want[0]),
+                float((x[1] - want[1]).norm() / want[1].norm()))
+
+    (l_err, g_err), (l_floor, g_floor) = errs(got), errs(floor)
+    nl = mcfg.num_layers
+    log(f"small-input distillation reference (guided, K3/K9 route): card "
+        f"(bf16, kernels) vs CPU (fp32, plain): loss rel err {l_err:.3e} "
+        f"(CPU bf16 {l_floor:.3e}), student gradient rel err {g_err:.3e} "
+        f"(CPU bf16 {g_floor:.3e}); bar {TRAIN_REF_FLOOR_FACTOR}x the CPU "
+        f"bf16 error, loss {BF16_U:.2e}; loss {got[0]:.6e} vs "
+        f"{want[0]:.6e}; launches {ran}")
+    if ran != expect(K3=6 * nl, K9=nl, bias_map_builds=2):
+        fail(f"the small-input distillation step left its route: {ran}")
+    if not (float(got[1].abs().max()) > 0 and torch.isfinite(got[1]).all()):
+        fail("the small-input distillation gradient is zero or not finite")
+    if not (l_err <= BF16_U and g_err <= TRAIN_REF_FLOOR_FACTOR * g_floor):
+        fail(f"the card's distillation step disagrees with the CPU's: loss "
+             f"{l_err}, gradient {g_err}")
+
+
+def products_phase(dev, smi: str, student: dict, adapters: dict) -> dict:
+    """Serve what the training paths made, at full width: the guided
+    student (its bf16 weights) through ``generate`` at its serving line (5
+    steps, ``img_guidance_scale`` 1: the cond row alone), one 16-frame clip
+    after a warm-up, with exactly 5 nl K1, nl K3 and one bias-map build;
+    then the LoRA adapters (B redrawn) merged into those weights on the
+    card, each adapted weight's change held to (alpha / r) B A within the
+    merged weight's bf16 rounding, and a clip of the merged model. Returns
+    the student clip's launches."""
+    t0 = time.perf_counter()
+    pipe = VideoGPTPipeline.build(ModelConfig(), VAEConfig(), device=dev,
+                                  dtype=torch.bfloat16, state_dict=student,
+                                  seed=0)
+    torch.cuda.synchronize()
+    log(f"build the student's pipeline: {time.perf_counter() - t0:.1f} s")
+    frames = synthetic_frames(N_CLEAN)
+    kw = dict(gen_nums=(N_GEN,), num_inference_steps=STUDENT_STEPS,
+              img_guidance_scale=1.0, max_frame_window=N_CLEAN + N_GEN,
+              seed=0, return_latents=True)
+    nl = pipe.model.cfg.num_layers
+    want = expect(K1=STUDENT_STEPS * nl, K3=nl, bias_map_builds=1)
+
+    def clip(label):
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, lat = pipe.generate(frames, **kw)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        c = counts()
+        log(f"{label}: {N_GEN}-frame clip at {STUDENT_STEPS} steps, "
+            f"guidance 1: {dt:.3f} s, {N_GEN / dt:.3f} frames/s, launches "
+            f"{c} (expected {want})")
+        if c != want:
+            fail(f"{label} launch counts {c} != {want}")
+        lat = torch.stack(lat)
+        if (len(out) != N_CLEAN + N_GEN or lat.device.type != dev.type
+                or not torch.isfinite(lat).all()
+                or not all(f.dtype == np.uint8 and f.shape == (H_PX, W_PX, 3)
+                           for f in out[-N_GEN:])):
+            fail(f"{label}: {len(out)} frames, latents on {lat.device} or "
+                 f"not finite")
+        return dt, c, lat
+
+    host = HostFloatOps()
+    with host:
+        pipe.generate(frames, **kw)
+    if host.ops:
+        fail(f"float ops ran on the host serving the student: "
+             f"{sorted(host.ops)}")
+    torch.cuda.reset_peak_memory_stats()
+    clip_s, launches, lat_s = clip("guided student")
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    base = pipe.model.state_dict()
+    alpha = pipe.model.cfg.lora_alpha
+    on_card = {n: t.to(dev) for n, t in adapters.items()}
+    merged = merge_lora(base, on_card, alpha=alpha)
+    worst = 0.0
+    for name in on_card:
+        if not name.endswith(".lora_A.weight"):
+            continue
+        layer = name[:-len(".lora_A.weight")]
+        a, b_ = on_card[name], on_card[layer + ".lora_B.weight"]
+        # the exact sum W + (alpha/r) B A in fp32; the merged bf16 weight
+        # may differ from it by its rounding, at most 2^-8 of it
+        exact = base[layer + ".weight"].float() + (b_ @ a) * (
+            alpha / a.shape[0])
+        err = (merged[layer + ".weight"].float() - exact).abs()
+        worst = max(worst, float((err / (BF16_U * exact.abs()
+                                         + 1e-30)).max()))
+    log(f"LoRA merge on the card: {len(on_card) // 2} adapted weights, "
+        f"worst |merged - (W + (alpha/r) B A)| / (2^-8 |W + (alpha/r) B A|)"
+        f" {worst:.3f}")
+    if not worst <= 1.0:
+        fail(f"the merged weights are off (alpha/r) B A: {worst}")
+    pipe.model.load_state_dict(merged, strict=True)
+    del merged, base, on_card
+    merged_s, _, lat_m = clip("LoRA-merged model")
+    rec = dict(steps=STUDENT_STEPS, img_guidance_scale=1.0,
+               clip_s=clip_s, frames_per_s=N_GEN / clip_s,
+               peak_mem_gib=peak_gib, merged_clip_s=merged_s,
+               merge_err_over_bar=worst,
+               merged_vs_student_latent_max=float(
+                   (lat_m.float() - lat_s.float()).abs().max()),
+               launches=launches, device=smi)
+    log(f"guided student: {N_GEN}-frame clip {clip_s:.3f} s, "
+        f"{N_GEN / clip_s:.3f} frames/s, peak {peak_gib:.2f} GiB, on {smi}")
+    log(json.dumps({"student_serving": rec}))
+    return launches
 
 
 if __name__ == "__main__":

@@ -1,12 +1,14 @@
-"""The port's ``cli generate`` against the JAX command's options, on the CPU.
+"""The port's ``cli`` against the JAX command's options, on the CPU.
 
 ``configs/inference.sh`` (the reference's long-rollout recipe: 56
 conditioning frames, two 24-frame clips, an 80-frame window, no re-noise)
 must parse with the port's parser and reach the pipeline with its window,
 re-noise, image size and prediction type. With the old parser's defaults (a
 16-frame window) the window slid every conditioning frame out of the
-context: that regression runs here through the tiny pipeline. The frame
-reader (cv2) and, where the point is the options, the pipeline are patched.
+context: that regression runs here through the tiny pipeline. The command
+lines of ``configs/distill_serving.sh`` (two distillation rounds and the
+guided student's serving line) parse too. The frame reader (cv2) and,
+where the point is the options, the pipeline are patched.
 """
 import os
 import shlex
@@ -26,16 +28,29 @@ from video_gpt_tpu_torch.utils import checkpoint, torch_import
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
+def script_argv(script, command, **subs):
+    """The command lines of ``configs/<script>`` after ``-m
+    video_gpt_tpu.cli`` whose command is ``command`` (commented-out lines
+    included, their ``#`` dropped), each as an argv with the shell
+    parameters named in ``subs`` filled in."""
+    with open(os.path.join(REPO, "configs", script)) as f:
+        lines = [ln.strip().lstrip("#") for ln in f]
+    text = "\n".join(lines).replace("\\\n", " ")
+    out = []
+    for ln in text.splitlines():
+        if "-m video_gpt_tpu.cli " + command in ln:
+            argv = shlex.split(ln.split("-m video_gpt_tpu.cli", 1)[1])
+            out.append([subs.get(a, a) for a in argv])
+    return out
+
+
 def inference_sh_argv(video="clip.mp4", model="ckpt/model.pt",
                       vae="vae.safetensors"):
     """The command line of configs/inference.sh after ``-m
     video_gpt_tpu.cli``, its three positional parameters filled in."""
-    with open(os.path.join(REPO, "configs", "inference.sh")) as f:
-        text = f.read().replace("\\\n", " ")
-    line = next(ln for ln in text.splitlines()
-                if "-m video_gpt_tpu.cli" in ln)
-    argv = shlex.split(line.split("-m video_gpt_tpu.cli", 1)[1])
-    return [{"$1": video, "$2": model, "$3": vae}.get(a, a) for a in argv]
+    argv, = script_argv("inference.sh", "generate",
+                        **{"$1": video, "$2": model, "$3": vae})
+    return argv
 
 
 class FakePipe:
@@ -159,11 +174,35 @@ def test_video_path_dir_batches_same_shaped_videos(fake, tmp_path):
 
 
 @pytest.mark.parametrize("flags", [["--mesh_seq", "2"], ["--mesh_tensor", "2"],
-                                   ["--lora_checkpoint_dir", "lora"],
-                                   ["--lora_rank", "4"], ["--input_head"]])
+                                   ["--input_head"]])
 def test_options_not_ported_yet_raise(fake, flags):
     with pytest.raises(SystemExit, match="not ported yet"):
         cli.main(["generate", "--video_path", "clip.mp4"] + flags)
+    assert fake[0].calls == []
+
+
+def test_distill_serving_sh_parses():
+    """Both distillation rounds of configs/distill_serving.sh parse with
+    the port's ``train`` parser, and its serving line with ``generate``."""
+    subs = {"$1": "videos", "$2": "teacher/checkpoints", "$STEPS": "20000"}
+    rounds = [cli.build_parser().parse_args(argv) for argv in
+              script_argv("distill_serving.sh", "train", **subs)]
+    assert [(a.distill, a.distill_student_steps, a.distill_substeps,
+             a.distill_guidance, a.distill_lr, a.init_checkpoint_dir)
+            for a in rounds] == [
+        (True, 5, 2, 1.5, 1e-4, "teacher/checkpoints"),
+        (True, 3, 2, None, 1e-4, "results/distill5g/checkpoints")]
+    serve, = script_argv("distill_serving.sh", "generate")
+    args = cli.build_parser().parse_args(serve)
+    assert (args.checkpoint_dir, args.num_inference_steps,
+            args.img_guidance_scale) == ("results/distill5g/checkpoints", 5,
+                                         1.0)
+
+
+def test_lora_without_base_weights_exits(fake):
+    with pytest.raises(SystemExit, match="needs base weights"):
+        cli.main(["generate", "--video_path", "clip.mp4",
+                  "--lora_checkpoint_dir", "lora"])
     assert fake[0].calls == []
 
 

@@ -28,6 +28,7 @@ def test_port_has_the_slice_modules():
               "utils.weights", "utils.torch_import", "utils.checkpoint",
               "data.video", "data.prefetch", "training.loss",
               "training.data", "training.train_state", "training.trainer",
+              "training.lora", "training.distill",
               "probes.overlap_probe"):
         assert "video_gpt_tpu_torch." + m in mods, m
 

@@ -24,7 +24,9 @@ K3, K9, K6 and K7 compute only the tiles that their tile map
 held equal to the plain classifiers; K3 and K9 are checked on a bias row
 that sees no key (its softmax is uniform, so its query tile is never
 skipped), and read one map, built once per bias, across a forward, its
-recompute and the backward; K6 on a layout with pad rows and on a small
+recompute and the backward, and across the four forwards of a guided
+distillation step (whose Trainer step builds one map per layout); K6 on a
+layout with pad rows and on a small
 batched prefill (``index`` with batch stride 0); K7 on a layout whose key
 tile no query sees (its dK/dV are exactly 0).
 
@@ -422,6 +424,76 @@ def test_bias_map_is_built_once_for_k3_and_k9(dev):
     mass = fa.bias_attention_backward_reference(*args, magnitude=True)
     for name, x, wt, m in zip("qkv", (q, k, v), want, mass):
         assert _err(x.grad, wt, m) <= 1.0, name
+
+
+def test_one_bias_map_serves_four_forwards(dev):
+    """A guided distillation step reads one map of the conditional bias in
+    four forwards (two teacher substeps, the student's forward and its
+    recompute) and the student's backward: K3 and K9 over that one map give
+    exactly what they give over a map built per call, and one build is
+    made."""
+    _, _, _, bias = _training_operands(dev, 4, 2, (1, 2, 1), 30)
+    d = fa.KERNEL_HEAD_DIM
+    b, lq, lk = bias.shape
+    fa.reset_launch_counts()
+    bm = fa.bias_map(bias)
+    for i in range(4):
+        q = _bf16(dev, 20 + i, b, lq, 4, d)
+        k, v = _bf16(dev, 30 + i, b, lk, 2, d), _bf16(dev, 40 + i, b, lk, 2, d)
+        builds = fa.flash_mha.bias_map_builds
+        out, lse = fa._bias_forward(q, k, v, bm, with_lse=True)
+        do = _bf16(dev, 50 + i, *out.shape)
+        grads = fa.flash_mha_bwd(q, k, v, bm, out, do, lse)
+        assert fa.flash_mha.bias_map_builds == builds
+        own = fa.bias_map(bias)
+        out2, lse2 = fa._bias_forward(q, k, v, own, with_lse=True)
+        assert torch.equal(out, out2) and torch.equal(lse, lse2)
+        for g, g2 in zip(grads, fa.flash_mha_bwd(q, k, v, own, out2, do,
+                                                 lse2)):
+            assert torch.equal(g, g2)
+    torch.cuda.synchronize()
+    assert fa.flash_mha.bias_map_builds == 1 + 4
+    assert fa.flash_mha.launches == 8 and fa.flash_mha_bwd.launches == 8
+
+
+@pytest.mark.parametrize("guidance,k3,builds", [(1.5, 6, 2), (None, 4, 1)])
+def test_distill_step_builds_each_map_once(dev, guidance, k3, builds):
+    """The Trainer's distillation step on the card (a tiny model of head_dim
+    96, per-layer recompute): per layer 6 K3 launches with guidance (two
+    teacher substeps of a cond and an uncond forward, the student's forward
+    and recompute), 4 without, 1 K9; one map build per layout, 2 and 1."""
+    import numpy as np
+
+    from video_gpt_tpu_torch.config import ModelConfig, stage_config
+    from video_gpt_tpu_torch.data.video import ClipSample
+    from video_gpt_tpu_torch.models.vae import VAEConfig
+    from video_gpt_tpu_torch.models.video_gpt import VideoGPT
+    from video_gpt_tpu_torch.training.data import collate
+    from video_gpt_tpu_torch.training.trainer import Trainer
+
+    mcfg = ModelConfig.tiny(hidden_size=192, num_heads=2, num_kv_heads=1,
+                            pos_embed_max_size=64)
+    res = (64, 96)
+    init = VideoGPT(mcfg).init_random_(
+        torch.Generator().manual_seed(2)).state_dict()
+    trainer = Trainer(mcfg, stage_config(1, frame_num=4, distill=True,
+                                         distill_guidance=guidance),
+                      None, vae_cfg=VAEConfig.tiny(), target_resolution=res,
+                      device=dev, init_state_dict=init)
+    state = trainer.build()
+    pixels = np.random.default_rng(0).uniform(
+        -1, 1, (4, *res, 3)).astype(np.float32)
+    tb = collate([ClipSample(pixels, (1, 1, 1, 1))], trainer.n_img,
+                 uncond=guidance is not None).to(dev)
+    fa.reset_launch_counts()
+    metrics = trainer.train_step(state, tb, 0)
+    torch.cuda.synchronize()
+    nl = mcfg.num_layers
+    assert fa.flash_mha.launches == k3 * nl
+    assert fa.flash_mha_bwd.launches == nl
+    assert fa.flash_mha.bias_map_builds == builds
+    assert fa.flash_mha_inline.launches == 0
+    assert bool(torch.isfinite(metrics["loss"]))
 
 
 def test_flash_mha_gradients_reach_q_k_v(dev):

@@ -313,8 +313,7 @@ def test_lr_schedules_match_optax():
 
 def test_unported_fields_raise():
     check_train_config(stage_config(1))
-    for field in ("use_lora", "distill", "offload_optimizer",
-                  "input_output_return"):
+    for field in ("offload_optimizer", "input_output_return"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             check_train_config(TrainConfig(**{field: True}))
 

@@ -7,8 +7,10 @@
 
 Port of ``video_gpt_tpu/cli.py generate`` (every option of the JAX command
 parses, so ``configs/inference.sh``'s command line runs as it is; the
-LoRA, ``--input_head`` and mesh options raise unless left at their
-defaults) and of the single-device path of its ``train``. ``generate``
+``--input_head`` and mesh options raise unless left at their defaults)
+and of the single-device path of its ``train``, LoRA and distillation
+included (``configs/distill_serving.sh``'s command lines run with ``-m
+video_gpt_tpu_torch.cli``). ``generate``
 takes one video (``--video_path``) or a directory (``--video_path_dir``,
 same-shaped videos batched through ``generate_batch``), and the weights of
 a reference checkpoint, of a ``train`` run of this port
@@ -21,6 +23,13 @@ warm-starts from an earlier one's checkpoint with ``--init_checkpoint_dir``
     python -m video_gpt_tpu_torch.cli train --stage 4 \\
         --video_dir_path videos/ --results_dir results/stage4 \\
         --init_checkpoint_dir results/stage3/checkpoints
+
+``train --use_lora`` fine-tunes rank-``--lora_rank`` adapters over frozen
+warm-start weights; ``generate --lora_checkpoint_dir`` merges such a run's
+adapters into the base weights it serves (``--model_ckpt`` or
+``--checkpoint_dir``). ``train --distill`` distills the warm start into a
+student that serves at ``--distill_student_steps`` steps (with
+``--distill_guidance``, at ``--img_guidance_scale 1``).
 
 Runs on CUDA unless ``--device cpu``; without checkpoints the weights are
 random (a smoke run). cv2 (video decode) and PIL (PNG writes) are imported
@@ -36,8 +45,7 @@ import torch
 
 # options of the JAX command that parse but are not ported yet: a value
 # other than the default raises (ROADMAP.md queue 1)
-GENERATE_NOT_PORTED = {"lora_checkpoint_dir": None, "lora_rank": 8,
-                       "input_head": False, "mesh_seq": 1, "mesh_tensor": 1}
+GENERATE_NOT_PORTED = {"input_head": False, "mesh_seq": 1, "mesh_tensor": 1}
 
 
 def read_conditioning(path: str, n: int):
@@ -83,7 +91,35 @@ def _generate_weights(args):
               f"{' (EMA)' if args.ema else ''}")
     else:
         print("WARNING: no --model_ckpt; using random weights (smoke run)")
+    if args.lora_checkpoint_dir:
+        sd = _merge_lora_run(args, sd)
     return sd, prediction_type or "x1"
+
+
+def _merge_lora_run(args, sd):
+    """The base weights ``sd`` with the adapters of a ``train --use_lora``
+    run (``--lora_checkpoint_dir [--step] [--ema]``) merged in."""
+    from .config import ModelConfig
+    from .training.lora import merge_lora
+    from .utils import checkpoint as ckpt
+
+    if sd is None:
+        raise SystemExit("--lora_checkpoint_dir needs base weights "
+                         "(--model_ckpt or --checkpoint_dir)")
+    try:
+        adapters, step = ckpt.load_lora_adapters(
+            args.lora_checkpoint_dir, step=args.step, ema=args.ema)
+    except ValueError as e:
+        raise SystemExit(str(e))
+    rank = next(t.shape[0] for n, t in adapters.items()
+                if n.endswith(".lora_A.weight"))
+    if rank != args.lora_rank:
+        raise SystemExit(f"the LoRA run trained rank {rank}, not "
+                         f"--lora_rank {args.lora_rank}")
+    print(f"merged LoRA adapters (rank {rank}) of "
+          f"{args.lora_checkpoint_dir} step {step}"
+          f"{' (EMA)' if args.ema else ''}")
+    return merge_lora(sd, adapters, alpha=ModelConfig.lora_alpha)
 
 
 def cmd_generate(args):
@@ -204,9 +240,18 @@ def make_trainer(args):
         ckpt_every=args.ckpt_every, mixed_precision=args.mixed_precision,
         use_ema=args.use_ema, input_noise=args.input_noise,
         auto_resume=not args.no_auto_resume, use_lora=args.use_lora,
-        cls_weight=args.cls_weight,
+        lora_rank=args.lora_rank, cls_weight=args.cls_weight,
         input_output_return=args.input_output_return,
         offload_optimizer=args.offload_optimizer, distill=args.distill,
+        distill_student_steps=args.distill_student_steps,
+        distill_substeps=args.distill_substeps,
+        distill_time_shift=args.distill_time_shift,
+        distill_input_noise=args.distill_input_noise,
+        # a negative --distill_lr inherits --lr
+        distill_lr=(None if args.distill_lr is not None
+                    and args.distill_lr < 0 else args.distill_lr),
+        distill_loss_weight=args.distill_loss_weight,
+        distill_guidance=args.distill_guidance,
         lr_scheduler=args.lr_scheduler, lr_warmup_steps=args.lr_warmup_steps,
         gradient_accumulation_steps=args.gradient_accumulation_steps,
         max_grad_norm=args.max_grad_norm,
@@ -302,10 +347,41 @@ def _add_train_parser(sub) -> None:
     t.add_argument("--seed", type=int, default=0)
     t.add_argument("--device", default="cuda",
                    help="'cuda' (default; raises without a GPU) or 'cpu'")
+    t.add_argument("--use_lora", action="store_true",
+                   help="fine-tune LoRA adapters on qkv_proj/o_proj over "
+                        "the frozen warm-start weights; checkpoints hold "
+                        "the adapters alone")
+    t.add_argument("--lora_rank", type=int, default=8)
+    t.add_argument("--distill", action="store_true",
+                   help="progressive step distillation: the student (a "
+                        "copy of the --model_ckpt/--init_checkpoint_dir "
+                        "weights) regresses onto the frozen teacher's "
+                        "rollouts, to serve at --distill_student_steps "
+                        "Euler steps")
+    t.add_argument("--distill_student_steps", type=int, default=5,
+                   help="sampler step count the student is trained for")
+    t.add_argument("--distill_substeps", type=int, default=2,
+                   help="teacher Euler substeps per student step")
+    t.add_argument("--distill_time_shift", type=float, default=1.0,
+                   help="sigma-grid time shift; must match the serving "
+                        "scheduler's")
+    t.add_argument("--distill_input_noise", type=float, default=1.0,
+                   help="conditioning-frame noise floor (1.0 = clean, the "
+                        "serving regime)")
+    t.add_argument("--distill_lr", type=float, default=1e-4,
+                   help="learning rate of the distillation optimizer (in "
+                        "place of --lr); a negative value inherits --lr")
+    t.add_argument("--distill_loss_weight", default="uniform",
+                   choices=["uniform", "endpoint"],
+                   help="per-frame weights across grid points; 'endpoint' "
+                        "= ((s_next - s) / (1 - s))^2")
+    t.add_argument("--distill_guidance", type=float, default=None,
+                   help="guidance distillation: the teacher's target is "
+                        "uncond + w (cond - uncond) at this w, so the "
+                        "student serves at --img_guidance_scale 1")
     # accepted so a JAX command line parses; a non-default value raises
     # (not ported yet, see ROADMAP.md queue 1)
-    for flag in ("use_lora", "distill", "offload_optimizer",
-                 "input_output_return"):
+    for flag in ("offload_optimizer", "input_output_return"):
         t.add_argument(f"--{flag}", action="store_true")
     for flag in ("mesh_data", "mesh_seq", "mesh_tensor", "mesh_pipe"):
         t.add_argument(f"--{flag}", type=int, default=1)
@@ -360,10 +436,14 @@ def build_parser() -> argparse.ArgumentParser:
     g.add_argument("--seed", type=int, default=42)
     g.add_argument("--device", default="cuda",
                    help="'cuda' (default; raises without a GPU) or 'cpu'")
+    g.add_argument("--lora_checkpoint_dir", type=str, default=None,
+                   help="checkpoints of a `train --use_lora` run: its "
+                        "adapters (--step, --ema) merge into the base "
+                        "weights")
+    g.add_argument("--lora_rank", type=int, default=8,
+                   help="the rank the LoRA run trained with")
     # accepted so a JAX command line parses; a non-default value raises
     # (not ported yet, see ROADMAP.md queue 1)
-    g.add_argument("--lora_checkpoint_dir", type=str, default=None)
-    g.add_argument("--lora_rank", type=int, default=8)
     g.add_argument("--input_head", action="store_true")
     g.add_argument("--mesh_seq", type=int, default=1)
     g.add_argument("--mesh_tensor", type=int, default=1)

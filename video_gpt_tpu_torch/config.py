@@ -1,9 +1,10 @@
 """Model, sampler and training configuration.
 
 Port of ``video_gpt_tpu/config.py``: the serving fields, and the fields of
-the single-device training path. The mesh, offload, LoRA and distillation
-fields are not ported; :func:`check_train_config` raises on a non-default
-value of any of them.
+the single-device training path with its LoRA and distillation recipes.
+The mesh, offload and ``input_head`` fields are not ported;
+:func:`check_train_config` raises on a non-default value of any of them,
+and on the combinations the JAX trainer refuses.
 """
 from __future__ import annotations
 
@@ -40,6 +41,10 @@ class ModelConfig:
     # when B*Lq*Lk is at most this many elements; beyond it the mask is
     # evaluated in-kernel from the token metadata (K6 forward, K7 backward)
     precompute_bias_limit: int = 256_000_000
+    # in-model LoRA on qkv_proj / o_proj: rank 0 = off; the adapters add
+    # (lora_alpha / lora_rank) * (x A) B to the layer's output
+    lora_rank: int = 0
+    lora_alpha: float = 8.0
     token_ids: TokenIds = DEFAULT_TOKEN_IDS
 
     @property
@@ -103,12 +108,27 @@ class TrainConfig:
     input_noise: float = 0.9
     cls_weight: Optional[float] = None
     input_output_return: bool = False
-    # EMA
+    # EMA / LoRA
     use_ema: bool = False
     ema_decay: float = 0.9999
-    # not ported (ROADMAP queue 1): a non-default value raises
     use_lora: bool = False
+    lora_rank: int = 8
+    # progressive step- and guidance distillation (training/distill.py):
+    # the student learns to serve at `distill_student_steps` Euler steps
+    # from a frozen teacher's `distill_substeps`-step rollouts; with
+    # `distill_guidance` w the teacher's target is the guided
+    # uncond + w (cond - uncond), so the student serves without an uncond
+    # row. `distill_lr` replaces `lr` in the distillation optimizer (None
+    # inherits `lr`); `distill_loss_weight` is 'uniform' or 'endpoint'.
     distill: bool = False
+    distill_student_steps: int = 5
+    distill_substeps: int = 2
+    distill_time_shift: float = 1.0
+    distill_input_noise: float = 1.0
+    distill_lr: Optional[float] = 1e-4
+    distill_loss_weight: str = "uniform"
+    distill_guidance: Optional[float] = None
+    # not ported (ROADMAP queue 1): a non-default value raises
     offload_optimizer: bool = False
     # data loading (worker threads feeding the Prefetcher)
     num_workers: int = 1
@@ -123,15 +143,23 @@ class TrainConfig:
 
 # field -> the ROADMAP queue-1 item that ports it
 _NOT_PORTED = {
-    "use_lora": "LoRA and distillation",
-    "distill": "LoRA and distillation",
     "offload_optimizer": "offload",
     "input_output_return": "input_head",
 }
 
 
 def check_train_config(cfg: TrainConfig) -> None:
-    """Raise on a field that the port does not implement yet."""
+    """Raise on the combinations the JAX trainer refuses (ValueError, with
+    its messages), then on a field the port does not implement yet."""
+    if not cfg.distill and cfg.distill_guidance is not None:
+        raise ValueError("--distill_guidance is a distillation knob; "
+                         "pass --distill with it")
+    if cfg.distill and cfg.use_lora:
+        raise ValueError("distillation trains the full student; "
+                         "it does not compose with --use_lora")
+    if cfg.distill and cfg.input_output_return:
+        raise ValueError("distillation regresses the denoise head only; "
+                         "input_output_return is a pretraining option")
     for name, item in _NOT_PORTED.items():
         if getattr(cfg, name) != getattr(TrainConfig, name):
             raise NotImplementedError(

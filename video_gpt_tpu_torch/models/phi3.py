@@ -3,8 +3,9 @@
 Port of ``video_gpt_tpu/models/phi3.py``: RMSNorm, full-dim rotate-half
 RoPE with explicit position ids, fused qkv and gate_up projections, SwiGLU
 MLP. The layers are a Python loop (``nn.ModuleList``) named like the
-reference's torch model, so its state dict loads by name. LoRA is not
-ported (rank 0 only).
+reference's torch model, so its state dict loads by name. ``qkv_proj`` and
+``o_proj`` are :class:`LoraLinear`: ``nn.Linear`` itself at
+``cfg.lora_rank`` 0, with in-module adapters above it.
 
 With ``cfg.remat`` each layer is recomputed in the backward
 (``torch.utils.checkpoint``), the counterpart of the JAX package's
@@ -72,14 +73,42 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor
     return x * cos[:, :, None, :] + rotated * sin[:, :, None, :]
 
 
+class LoraLinear(nn.Linear):
+    """Bias-free linear layer with optional in-module LoRA adapters, the
+    counterpart of the JAX package's ``LoraDense``:
+    y = x W^T + (alpha / rank) (x A^T) B^T, with ``lora_A.weight`` [rank,
+    in] and ``lora_B.weight`` [out, rank] (peft's layout). The adapters
+    act inside the layer, so a frozen-base fine-tune computes gradients
+    for them alone. At rank 0 the module is ``nn.Linear`` name for name,
+    so checkpoints of a rank-0 model load unchanged."""
+
+    def __init__(self, in_features: int, out_features: int, rank: int = 0,
+                 alpha: float = 8.0, device=None, dtype=None):
+        super().__init__(in_features, out_features, bias=False,
+                         device=device, dtype=dtype)
+        self.rank = rank
+        self.scaling = alpha / rank if rank else 0.0
+        if rank:
+            kw = dict(bias=False, device=device, dtype=dtype)
+            self.lora_A = nn.Linear(in_features, rank, **kw)
+            self.lora_B = nn.Linear(rank, out_features, **kw)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.linear(x, self.weight)
+        if self.rank:
+            y = y + self.lora_B(self.lora_A(x)) * self.scaling
+        return y
+
+
 class Phi3Attention(nn.Module):
     def __init__(self, cfg: ModelConfig, device=None, dtype=None):
         super().__init__()
         self.cfg = cfg
         h, hkv, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-        kw = dict(bias=False, device=device, dtype=dtype)
-        self.qkv_proj = nn.Linear(cfg.hidden_size, (h + 2 * hkv) * d, **kw)
-        self.o_proj = nn.Linear(h * d, cfg.hidden_size, **kw)
+        kw = dict(rank=cfg.lora_rank, alpha=cfg.lora_alpha, device=device,
+                  dtype=dtype)
+        self.qkv_proj = LoraLinear(cfg.hidden_size, (h + 2 * hkv) * d, **kw)
+        self.o_proj = LoraLinear(h * d, cfg.hidden_size, **kw)
 
     def forward(self, x, cos, sin, q_meta: AttnMeta, k_meta: AttnMeta,
                 cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,

@@ -1,7 +1,6 @@
 """Collation: clip samples -> fixed-shape training batches.
 
-Port of ``video_gpt_tpu/training/data.py`` (without the ``uncond`` layout of
-guidance distillation, which is not ported). Every batch of one (rows,
+Port of ``video_gpt_tpu/training/data.py``. Every batch of one (rows,
 frames, resolution) signature has the same shapes: the sequence is padded
 to the worst-case frame-block layout and the clean-frame side to its
 largest count. The JAX package needs that for one compile; the port keeps
@@ -37,15 +36,28 @@ class TrainBatch(NamedTuple):
         return move(self)
 
 
-def collate(samples: Sequence, n_img: int, cls_weight: Optional[float] = None
-            ) -> TrainBatch:
+def collate(samples: Sequence, n_img: int, cls_weight: Optional[float] = None,
+            uncond: bool = False) -> TrainBatch:
     """``samples``: ClipSamples sharing frame count and resolution. The
-    batch is made on the host (:meth:`TrainBatch.to` moves it)."""
+    batch is made on the host (:meth:`TrainBatch.to` moves it).
+
+    ``uncond=True`` also builds the unconditional branch of guidance
+    distillation (``inputs.batch_uncond``): the 'uncond' layout scheme,
+    same rows and blocks, noisy frames only in the same order, padded to
+    F (n_img + 2) whatever the block partition."""
     F = samples[0].pixels.shape[0]
     B = len(samples)
-    pad_to = 2 * F * (n_img + 2)  # worst case: all but the last block doubled
+    seg = n_img + 2
+    pad_to = 2 * F * seg  # worst case: all but the last block doubled
     layout = build_layout([RowSpec(tuple(s.frame_blocks), "training")
                            for s in samples], n_img, pad_to=pad_to)
+    batch_uncond = None
+    if uncond:
+        layout_u = build_layout([RowSpec(tuple(s.frame_blocks), "uncond")
+                                 for s in samples], n_img, pad_to=F * seg)
+        if layout_u.num_noisy_frames != layout.num_noisy_frames:
+            raise ValueError("the uncond layout's noisy frames differ")
+        batch_uncond = Batch.from_layout(layout_u, "cpu")
     nn_ = layout.num_noisy_frames
     if nn_ != B * F:
         raise ValueError(f"{nn_} noisy frames for {B} rows of {F}")
@@ -74,7 +86,7 @@ def collate(samples: Sequence, n_img: int, cls_weight: Optional[float] = None
         x1=None, clean_latents=None,
         noisy_frame_row=t(layout.noisy_frame_row),
         noisy_frame_block=t(layout.noisy_frame_block),
-        frame_weights=frame_weights)
+        frame_weights=frame_weights, batch_uncond=batch_uncond)
     pixels = np.concatenate([s.pixels for s in samples], axis=0)
     return TrainBatch(inputs=inputs, pixels=t(pixels),
                       noisy_sel=t(noisy_sel.astype(np.int32)),

@@ -35,6 +35,9 @@ class LossInputs(NamedTuple):
     noisy_frame_row: torch.Tensor    # [Nn] int32
     noisy_frame_block: torch.Tensor  # [Nn] int32
     frame_weights: Optional[torch.Tensor] = None  # [Nn] loss weights
+    # the unconditional branch of guidance distillation ('uncond' scheme:
+    # same rows and blocks, noisy frames only, the same noisy order)
+    batch_uncond: Optional[Batch] = None
 
 
 class LossDraws(NamedTuple):

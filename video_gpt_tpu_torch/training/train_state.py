@@ -28,6 +28,7 @@ from typing import Callable, Dict, List, Optional
 import torch
 
 from ..config import TrainConfig
+from .lora import lora_state_dict
 from .loss import LossDraws, LossInputs, training_loss
 
 
@@ -164,21 +165,38 @@ def make_optimizer(params, cfg: TrainConfig) -> AdamW:
 @dataclasses.dataclass
 class TrainState:
     """The model (its parameters), the optimizer and the EMA copies, all
-    updated in place by the train step."""
+    updated in place by the train step. With ``adapters_only`` (LoRA) the
+    optimizer and the EMA hold the adapters alone, and so does the
+    checkpoint: the frozen base is never written (the JAX package's LoRA
+    ``state.params`` is the adapter tree)."""
 
     step: int
     model: torch.nn.Module
     optimizer: AdamW
     ema: Optional[Dict[str, torch.Tensor]] = None
+    adapters_only: bool = False
+
+    def _params(self) -> Dict[str, torch.Tensor]:
+        if self.adapters_only:
+            return lora_state_dict(self.model)
+        return self.model.state_dict()
 
     def state_dict(self) -> dict:
-        return {"step": self.step, "model": self.model.state_dict(),
+        return {"step": self.step, "model": self._params(),
                 "optimizer": self.optimizer.state_dict(), "ema": self.ema}
 
     @torch.no_grad()
     def load_state_dict(self, sd: dict) -> None:
         self.step = int(sd["step"])
-        self.model.load_state_dict(sd["model"], strict=True)
+        if self.adapters_only:
+            params = self._params()
+            if set(sd["model"]) != set(params):
+                raise ValueError("the checkpoint's adapters do not match "
+                                 "the model's")
+            for name, t in params.items():
+                t.copy_(sd["model"][name])
+        else:
+            self.model.load_state_dict(sd["model"], strict=True)
         self.optimizer.load_state_dict(sd["optimizer"])
         if self.ema is not None:
             for name, t in self.ema.items():
@@ -192,6 +210,19 @@ def init_train_state(model: torch.nn.Module, cfg: TrainConfig) -> TrainState:
     return TrainState(step=0, model=model,
                       optimizer=make_optimizer(model.parameters(), cfg),
                       ema=ema)
+
+
+def init_lora_train_state(model: torch.nn.Module, cfg: TrainConfig
+                          ) -> TrainState:
+    """The state of a LoRA run: AdamW and the EMA over the adapters (the
+    parameters that require a gradient, :func:`lora.freeze_base_`)."""
+    adapters = {n: p for n, p in model.named_parameters() if p.requires_grad}
+    ema = None
+    if cfg.use_ema:
+        ema = {n: p.detach().clone() for n, p in adapters.items()}
+    return TrainState(step=0, model=model,
+                      optimizer=make_optimizer(adapters.values(), cfg),
+                      ema=ema, adapters_only=True)
 
 
 @torch.no_grad()
@@ -221,22 +252,52 @@ def autocast(cfg: TrainConfig, device: torch.device):
     return contextlib.nullcontext()
 
 
+def loss_step(state: TrainState, loss_fn: Callable, cfg: TrainConfig,
+              device: torch.device, update_ema: bool = True) -> dict:
+    """``loss_fn()`` (-> loss, aux) under autocast on ``device``, then
+    backward, clip and AdamW, and the gated EMA when ``update_ema``, in
+    place on ``state``. Metrics are device tensors (reading them waits for
+    the device)."""
+    with autocast(cfg, device):
+        loss, aux = loss_fn()
+    loss.backward()
+    grad_norm = state.optimizer.step()
+    if update_ema and state.ema is not None:
+        ema_update_gated(state.ema, state.model, cfg, state.optimizer)
+    state.step += 1
+    return {"loss": loss.detach(), "grad_norm": grad_norm,
+            "per_frame_loss": aux["per_frame_loss"].detach()}
+
+
 def make_train_step(model: torch.nn.Module, cfg: TrainConfig) -> Callable:
     """``step(state, inputs, draws) -> metrics``: loss, backward, clip,
-    AdamW and the gated EMA, in place on ``state``. Metrics are device
-    tensors (reading them waits for the device)."""
+    AdamW and the gated EMA, in place on ``state``."""
 
     def step(state: TrainState, inputs: LossInputs, draws: LossDraws):
-        device = inputs.x1.device
-        with autocast(cfg, device):
-            loss, aux = training_loss(model, inputs, draws,
-                                      input_noise=cfg.input_noise)
-        loss.backward()
-        grad_norm = state.optimizer.step()
-        if state.ema is not None:
-            ema_update_gated(state.ema, model, cfg, state.optimizer)
-        state.step += 1
-        return {"loss": loss.detach(), "grad_norm": grad_norm,
-                "per_frame_loss": aux["per_frame_loss"].detach()}
+        return loss_step(state, lambda: training_loss(
+            model, inputs, draws, input_noise=cfg.input_noise), cfg,
+            inputs.x1.device)
+
+    return step
+
+
+def make_lora_train_step(model: torch.nn.Module, cfg: TrainConfig
+                         ) -> Callable:
+    """The train step of a LoRA run (``init_lora_train_state``): the
+    training loss through the in-model adapters of ``model`` (built with
+    ``ModelConfig.lora_rank > 0``, base frozen), AdamW over the adapters.
+
+    The EMA is left as it is, as the JAX package's ``make_lora_train_step``
+    returns ``state.ema_params`` unchanged: under ``use_ema`` the EMA
+    adapters stay at their initial values (B = 0), and serving them gives
+    the base model."""
+    if model.cfg.lora_rank <= 0:
+        raise ValueError("make_lora_train_step needs a model built with "
+                         "ModelConfig.lora_rank > 0 (in-model adapters)")
+
+    def step(state: TrainState, inputs: LossInputs, draws: LossDraws):
+        return loss_step(state, lambda: training_loss(
+            model, inputs, draws, input_noise=cfg.input_noise), cfg,
+            inputs.x1.device, update_ema=False)
 
     return step

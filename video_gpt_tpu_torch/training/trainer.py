@@ -9,6 +9,18 @@ state, bf16 compute. Every random number of step ``i`` comes from one
 ``torch.Generator`` seeded from (seed, i), so a resumed run continues the
 noise stream instead of replaying it. Runs on CUDA unless the caller asks
 for the CPU.
+
+Two recipes change what :meth:`Trainer.build` makes (the JAX ``_build``'s
+branches):
+
+- ``use_lora``: the model carries rank-``lora_rank`` adapters on
+  ``qkv_proj`` / ``o_proj``, the base (the warm start) is frozen, and AdamW,
+  the EMA and the checkpoints hold the adapters alone;
+- ``distill``: the student is a copy of the warm start, and the teacher a
+  frozen second model with the same weights (held in bf16 under
+  ``mixed_precision='bf16'``: autocast casts every weight use to bf16, so it
+  computes what the fp32 weights would); AdamW runs at ``distill_lr``, and
+  with ``distill_guidance`` the batches carry the 'uncond' layout.
 """
 from __future__ import annotations
 
@@ -30,8 +42,12 @@ from ..models.video_gpt import VideoGPT
 from ..sampling.pipeline import resolve_device
 from ..utils import checkpoint as ckpt
 from .data import TrainBatch, collate
+from .distill import (distill_optimizer_config, draw_distill_noise,
+                      make_distill_train_step)
+from .lora import freeze_base_, init_lora_, is_adapter
 from .loss import draw_loss_noise
-from .train_state import (TrainState, autocast, init_train_state,
+from .train_state import (TrainState, autocast, init_lora_train_state,
+                          init_train_state, make_lora_train_step,
                           make_train_step)
 
 
@@ -56,6 +72,9 @@ class Trainer:
         check_train_config(train_cfg)
         if train_cfg.gradient_checkpointing and not model_cfg.remat:
             model_cfg = dataclasses.replace(model_cfg, remat=True)
+        if train_cfg.use_lora and not model_cfg.lora_rank:
+            model_cfg = dataclasses.replace(model_cfg,
+                                            lora_rank=train_cfg.lora_rank)
         est_tokens = 2 * train_cfg.frame_num * (
             tokens_per_frame(*target_resolution) + 2)
         if est_tokens > train_cfg.max_input_length_limit:
@@ -81,6 +100,7 @@ class Trainer:
         self._vae_state_dict = vae_state_dict
         self._init_state_dict = init_state_dict
         self.model: Optional[VideoGPT] = None
+        self.teacher: Optional[VideoGPT] = None  # distillation only
         self.vae: Optional[AutoencoderKL] = None
         self._step_fn = None
 
@@ -93,17 +113,38 @@ class Trainer:
         rows = self.cfg.batch_size_per_device
         # the raw index: each wraparound of the dataset re-rolls the clips
         samples = [self.dataset.sample(index * rows + i) for i in range(rows)]
-        return collate(samples, self.n_img, cls_weight=self.cfg.cls_weight)
+        return collate(samples, self.n_img, cls_weight=self.cfg.cls_weight,
+                       uncond=self.cfg.distill_guidance is not None)
+
+    def _new_model(self, dtype: torch.dtype) -> VideoGPT:
+        return VideoGPT(self.model_cfg, device="meta", dtype=dtype,
+                        train_init=True).to_empty(device=self.device)
+
+    def _load_init(self, model: VideoGPT) -> None:
+        """The warm start into ``model``: every entry (the base's alone
+        under LoRA, whose adapters it does not hold), or random weights."""
+        sd = self._init_state_dict
+        if sd is None:
+            model.init_random_(
+                torch.Generator(self.device).manual_seed(self.seed + 3))
+        elif self.cfg.use_lora:
+            missing, unexpected = model.load_state_dict(sd, strict=False)
+            base = [n for n in missing if not is_adapter(n)]
+            if unexpected or base:
+                raise ValueError(
+                    f"the LoRA warm start must hold the base model: "
+                    f"{len(base)} base entries missing (e.g. {base[:3]}), "
+                    f"unexpected {unexpected[:3]}")
+        else:
+            model.load_state_dict(sd, strict=True)
 
     def build(self) -> TrainState:
-        """Model, VAE and optimizer on the device; the train state."""
+        """Model (and teacher), VAE and optimizer on the device; the train
+        state."""
         dev = self.device
-        model = VideoGPT(self.model_cfg, device="meta", dtype=torch.float32,
-                         train_init=True).to_empty(device=dev)
-        if self._init_state_dict is not None:
-            model.load_state_dict(self._init_state_dict, strict=True)
-        else:
-            model.init_random_(torch.Generator(dev).manual_seed(self.seed + 3))
+        cfg = self.cfg
+        model = self._new_model(torch.float32)
+        self._load_init(model)
         vae = AutoencoderKL(self.vae_cfg, device="meta",
                             dtype=torch.float32).to_empty(device=dev)
         if self._vae_state_dict is not None:
@@ -111,8 +152,30 @@ class Trainer:
         else:
             vae.init_random_(torch.Generator(dev).manual_seed(self.seed + 1))
         self.model, self.vae = model.train(), vae.eval().requires_grad_(False)
-        self._step_fn = make_train_step(model, self.cfg)
-        return init_train_state(model, self.cfg)
+        if cfg.distill:
+            if self._init_state_dict is None:
+                # distilling a random teacher is almost surely a mistake,
+                # but a smoke run on fresh weights must stay possible
+                print("WARNING: --distill with no --model_ckpt/"
+                      "--init_checkpoint_dir — the frozen teacher is a "
+                      "RANDOMLY INITIALIZED model. Distillation regresses "
+                      "the student onto this teacher's rollouts; if you "
+                      "meant to distill trained weights, pass them.",
+                      flush=True)
+            teacher = self._new_model(torch.bfloat16
+                                      if cfg.mixed_precision == "bf16"
+                                      else torch.float32)
+            teacher.load_state_dict(model.state_dict(), strict=True)
+            self.teacher = teacher.eval().requires_grad_(False)
+            self._step_fn = make_distill_train_step(model, self.teacher, cfg)
+            return init_train_state(model, distill_optimizer_config(cfg))
+        if cfg.use_lora:
+            init_lora_(model, torch.Generator(dev).manual_seed(self.seed + 4))
+            freeze_base_(model)
+            self._step_fn = make_lora_train_step(model, cfg)
+            return init_lora_train_state(model, cfg)
+        self._step_fn = make_train_step(model, cfg)
+        return init_train_state(model, cfg)
 
     def step_generator(self, step_idx: int) -> torch.Generator:
         """The generator of step ``step_idx``'s random numbers."""
@@ -122,15 +185,21 @@ class Trainer:
 
     def train_step(self, state: TrainState, tb: TrainBatch, step_idx: int):
         """One full step on a batch already on the device: VAE encode under
-        no_grad with a posterior draw, then loss, backward, clip, AdamW and
-        the gated EMA. Returns the step's metrics (device tensors)."""
+        no_grad with a posterior draw, then the recipe's loss (training or
+        distillation), backward, clip, AdamW and the gated EMA. Returns the
+        step's metrics (device tensors)."""
+        cfg = self.cfg
         gen = self.step_generator(step_idx)
-        with torch.no_grad(), autocast(self.cfg, self.device):
+        with torch.no_grad(), autocast(cfg, self.device):
             latents = self.vae.encode(tb.pixels, noise=gen)
         inputs = tb.inputs._replace(
             x1=latents[tb.noisy_sel.long()],
             clean_latents=latents[tb.clean_sel.long()])
-        draws = draw_loss_noise(gen, inputs, max_blocks=self.cfg.frame_num)
+        if cfg.distill:
+            draws = draw_distill_noise(gen, inputs, cfg.frame_num,
+                                       cfg.distill_student_steps)
+        else:
+            draws = draw_loss_noise(gen, inputs, max_blocks=cfg.frame_num)
         return self._step_fn(state, inputs, draws)
 
     # ---- loop --------------------------------------------------------------

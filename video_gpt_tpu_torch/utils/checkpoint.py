@@ -7,7 +7,8 @@ is ``<directory>/<step>/state.pt``, the ``torch.save`` of the train state's
 state is copied to the host before ``save`` returns, so training may go on
 changing it, and the file is written on a background thread.
 :func:`load_train_params` reads the parameters (or the EMA) alone, for a
-warm start from an earlier stage.
+warm start from an earlier stage; :func:`load_lora_adapters` the adapters
+of a LoRA run, whose checkpoints hold nothing else of the model.
 """
 from __future__ import annotations
 
@@ -128,3 +129,17 @@ def load_train_params(directory: str, step: Optional[int] = None,
         raise ValueError(f"checkpoint {step} under {directory} has no EMA "
                          "(trained without use_ema)")
     return {name: t.clone() for name, t in params.items()}, step
+
+
+def load_lora_adapters(directory: str, step: Optional[int] = None,
+                       ema: bool = False) -> Tuple[dict, int]:
+    """The LoRA adapters of a ``train --use_lora`` run's checkpoint of
+    ``step`` (the latest by default), or their EMA copy, memory-mapped as
+    :func:`load_train_params` reads them. Raises if the checkpoint holds
+    anything but adapters. Returns (adapter state dict, step)."""
+    from ..training.lora import is_adapter
+    sd, step = load_train_params(directory, step=step, ema=ema)
+    if not sd or not all(is_adapter(n) for n in sd):
+        raise ValueError(f"checkpoint {step} under {directory} is not a LoRA "
+                         "run's (it holds more than adapters)")
+    return sd, step

@@ -4,7 +4,8 @@
 (``llm.layers.{i}.self_attn.qkv_proj.weight``, ...), the same mapping as
 ``video_gpt_tpu/utils/torch_export.py``; ``vae_state_dict_from_jax`` emits
 diffusers AutoencoderKL names, the inverse of
-``video_gpt_tpu/models/vae.py:vae_params_from_diffusers``. The port's
+``video_gpt_tpu/models/vae.py:vae_params_from_diffusers``;
+``lora_state_dict_from_jax`` unstacks LoRA adapters into peft's names. The port's
 modules carry these names, so both load with ``strict=True``. Pure numpy
 on the input side: pass ``jax.device_get(params)`` or any nested mapping of
 arrays.
@@ -66,6 +67,26 @@ def videogpt_state_dict_from_jax(params: Mapping, cfg: ModelConfig
         for name in ("input_layernorm", "post_attention_layernorm"):
             sd[f"{base}{name}.weight"] = _t(layers[name]["weight"][i])
     sd["llm.norm.weight"] = _t(p["llm"]["norm"]["weight"])
+    return sd
+
+
+def lora_state_dict_from_jax(lora: Mapping, cfg: ModelConfig
+                             ) -> Dict[str, torch.Tensor]:
+    """JAX LoRA adapters -> the port's adapter entries (float32). ``lora``
+    is an adapter tree of ``init_lora`` or a grafted params tree of a
+    ``lora_rank > 0`` model: the scanned ``lora_a`` [num_layers, in, r] and
+    ``lora_b`` [num_layers, r, out] of ``qkv_proj`` / ``o_proj`` become
+    ``llm.layers.{i}.self_attn.{name}.lora_A.weight`` [r, in] and
+    ``...lora_B.weight`` [out, r]."""
+    attn = _unwrap(lora)["llm"]["layers"]["self_attn"]
+    sd: Dict[str, torch.Tensor] = {}
+    for name in ("qkv_proj", "o_proj"):
+        a, b = np.asarray(attn[name]["lora_a"]), np.asarray(
+            attn[name]["lora_b"])
+        for i in range(cfg.num_layers):
+            base = f"llm.layers.{i}.self_attn.{name}."
+            sd[base + "lora_A.weight"] = _t(a[i].T)
+            sd[base + "lora_B.weight"] = _t(b[i].T)
     return sd
 
 
