@@ -24,7 +24,11 @@ Phases, in order; any failure exits nonzero and none is caught:
    shape as K8; then the rollouts' other shapes: K2 over the long
    rollout's uncond row (5,328^2), and the batched rollout's K1 (B 2, a
    heads-major cache), K2 (B 2) and its prefill through K6 (B 2 x
-   12,432^2, the index a batch-stride-0 view). Every attention kernel
+   12,432^2, the index a batch-stride-0 view); K3 at the image path's
+   cached decode (the tail's 4,097 queries over the heads-major
+   concatenation of a prompt's cache and the tail, with a rectangular
+   bias: text -> image ~4.1k keys, editing ~8.2k keys) and K3 and K9 at
+   the train-image shape (L 4,609). Every attention kernel
    computes only the tiles its tile map does not call empty: each map the
    kernels build is held equal to its plain classifier, and its share of
    tiles computed and the map's own time are printed beside the kernel's:
@@ -111,16 +115,40 @@ Phases, in order; any failure exits nonzero and none is caught:
    random) merged into those weights on the card, each merged weight held
    to W + (alpha/r) B A within its bf16 rounding, and a clip of the merged
    model;
-17. a line of kernel records (K1-K10 and P1, each with its launches read
-   from the counters; K3 and K9 also per LoRA and per distillation step),
-   then the device line as the last line.
+17. small-input image reference: ``ImageGenPipeline`` on a tiny model
+   (head_dim 96, GQA) on the card in bf16 against the CPU in fp32 with the
+   same weights and noise, 2-way and 3-way guidance (bar: final-latent
+   relative MSE 1e-3), each with exactly its K3 launches and map builds;
+18. image serving at full width, stub tokenizer, each guidance context at
+   its natural length: (a) text -> image at the CLI's defaults
+   (1024x1024, 50 steps, guidance 3.0): exactly 2 (32 + 50 x 32) = 3,264
+   K3 launches and 4 map builds (each context's prefill and its decode
+   bias, built once before the loop), no K1, K2 or K6; (b) editing with
+   one 1024x1024 input image, 3-way guidance at 10 steps (a cut in steps
+   only): 3 (32 + 10 x 32) = 1,056 K3 and 6 builds; each one uint8
+   1024x1024x3 image and finite latents, after a 1-step warm-up with the
+   host-op check on;
+19. train-image at full width through the image trainer's own step (512 x
+   512 output, one 512x512 input image, max_input_images 3: L 4,609):
+   one warm-up and 2 timed steps, each with exactly 64 K3, 32 K9 and one
+   map build, finite loss and gradient norm, a gradient into layer 0's
+   attention, AdamW moving the parameters;
+20. stage 1 with the aux input head (``input_output_return``): one
+   warm-up and 2 timed steps with stage 1's launches; the head's weight is
+   0 before the first step, gets a nonzero gradient in every step and
+   moves;
+21. a line of kernel records (K1-K10 and P1, each with its launches read
+   from the counters; K3 and K9 also per LoRA, distillation, train-image
+   and input-head step, K3 per image), then the device line as the last
+   line.
 
 The training phases use the recipes of ``configs/pretrain_stage1.sh`` and
 ``configs/pretrain_stage4.sh`` (betas 0.9/0.95, weight decay 0.1, eps 1e-5,
 clip 1.0) with a constant learning rate of 1e-4: the recipes' 320000-step
 linear warmup gives a learning rate of 0 at step 0, which would leave the
 parameters unmoved. The LoRA and distillation paths take stage 1's
-recipe with their own flags. About 10 minutes on one H100.
+recipe with their own flags; train-image and the input-head path take a
+constant learning rate too. About 10 minutes on one H100.
 
 It needs a CUDA device and exits nonzero without one. It imports nothing of
 JAX.
@@ -141,10 +169,17 @@ import torch.nn.functional as F
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves
 
-from video_gpt_tpu_torch.config import ModelConfig, stage_config
+from video_gpt_tpu_torch.config import ModelConfig, TrainConfig, stage_config
+from video_gpt_tpu_torch.data.image_text import (ImageGenSample,
+                                                 collate_image_gen,
+                                                 resize_center_crop)
 from video_gpt_tpu_torch.data.video import (ClipSample,
                                             preprocess_to_resolution,
                                             random_block_partition)
+from video_gpt_tpu_torch.image_gen import (DEFAULT_NEGATIVE_PROMPT,
+                                           ImageGenPipeline,
+                                           ImageGenProcessor, StubTokenizer,
+                                           single_shot_layout)
 from video_gpt_tpu_torch.layout import (frame_block_inference_layout,
                                         tokens_per_frame)
 from video_gpt_tpu_torch.models.vae import VAEConfig
@@ -156,6 +191,7 @@ from video_gpt_tpu_torch.probes import overlap_probe
 from video_gpt_tpu_torch.sampling.pipeline import VideoGPTPipeline
 from video_gpt_tpu_torch.models.video_gpt import VideoGPT
 from video_gpt_tpu_torch.training.data import collate
+from video_gpt_tpu_torch.training.image_trainer import ImageGenTrainer
 from video_gpt_tpu_torch.training.distill import (DistillDraws,
                                                   distillation_loss)
 from video_gpt_tpu_torch.training.lora import lora_state_dict, merge_lora
@@ -219,6 +255,18 @@ DISTILL = dict(distill=True, distill_student_steps=5, distill_substeps=2,
 DISTILL_STEPS = 2
 # serving the guided student: one cond row, 5 steps (its serving line)
 STUDENT_STEPS = 5
+# the image family at the CLI's defaults: (a) text -> image, 1024x1024, 50
+# steps, guidance 3.0 (the README's prompt and the default negative
+# prompt); (b) editing with one 1024x1024 input image and 3-way guidance
+# (img_guidance_scale 1.6) at 10 steps, a cut in steps only
+IMAGE_PX, IMAGE_STEPS, EDIT_STEPS = 1024, 50, 10
+IMAGE_CFG, IMAGE_IMG_CFG = 3.0, 1.6
+IMAGE_PROMPT = "a red bird"
+EDIT_PROMPT = "make it red <img><|image_1|></img>"
+# train-image at its CLI defaults (512x512, max_input_images 3: L 4,609)
+# with one input image, and stage 1 with the aux input head
+TRAIN_IMAGE_PX, MAX_INPUT_IMAGES, TRAIN_IMAGE_STEPS = 512, 3, 2
+INPUT_HEAD_STEPS = 2
 # the seed of the stage-4 batch's random_block_partition draw
 PARTITION_SEED = 0
 # a kernel's timing runs as many launches as fit this many ms (at most 20;
@@ -475,6 +523,11 @@ def kernels_phase(dev):
     out.update(inline_kernels(dev))
     for name, key, rec in rollout_kernels(dev):
         out[name][key] = rec
+    image = image_kernels(dev)
+    for key in ("image_decode_2way", "image_decode_3way"):
+        out["K3"][key] = image[key]
+    for name, rec in image["train_image_shape"].items():
+        out[name]["train_image_shape"] = rec
     return out
 
 
@@ -703,12 +756,18 @@ def visible_pairs(meta: AttnMeta) -> int:
 
 def training_kernels(dev) -> dict:
     """K3 and K9 at the stage-1 training shape: the bias of a real stage-1
-    collate layout (L 7104), 32 heads of 96, random bf16 q/k/v and dO. K9's
-    plain version computes the gradients in fp32 from the same bf16 values;
-    the mass of each gradient element is the plain version's product over
-    absolute values (K9 rounds p and ds to bf16 before its products)."""
+    collate layout (L 7104)."""
     meta = train_batch(1).inputs.batch.meta
-    meta = AttnMeta(*(x.to(dev) for x in meta))
+    return bias_train_records(dev, AttnMeta(*(x.to(dev) for x in meta)),
+                              " (stage-1 training shape)")
+
+
+def bias_train_records(dev, meta: AttnMeta, label: str) -> dict:
+    """K3 and K9 over the bias of a training layout's ``meta``, 32 heads of
+    96, random bf16 q/k/v and dO. K9's plain version computes the
+    gradients in fp32 from the same bf16 values; the mass of each gradient
+    element is the plain version's product over absolute values (K9
+    rounds p and ds to bf16 before its products)."""
     bias = fa.precompute_bias(meta, meta)
     cfg = ModelConfig()
     h, hkv, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
@@ -723,7 +782,7 @@ def training_kernels(dev) -> dict:
     bm = fa.bias_map(bias)
     out, lse = fa._bias_forward(q, k, v, bm, with_lse=True)
     pairs = int((bias == 0).sum())
-    log(f"stage-1 attention: L {L}, {pairs} visible pairs "
+    log(f"attention{label}: L {L}, {pairs} visible pairs "
         f"({pairs / L ** 2:.3f} of L^2)")
 
     def k3_plain(absv=False):
@@ -768,8 +827,7 @@ def training_kernels(dev) -> dict:
                    + 4 * h * L,
                    # S, dP, dV, dQ, dK over the visible pairs
                    flops=5 * 2 * h * d * pairs)}
-    res = {name: check_and_time(name, r, " (stage-1 training shape)")
-           for name, r in recs.items()}
+    res = {name: check_and_time(name, r, label) for name, r in recs.items()}
     # K9 reads the map that K3 read
     res["K9"]["tile_map"] = res["K3"]["tile_map"]
     return res
@@ -1372,6 +1430,14 @@ def run(dev: torch.device, smi: str) -> None:
     freed("the distillation path")
     student_counts = products_phase(dev, smi, student, adapters)
     del student, adapters
+    freed("serving the products")
+    image_reference_phase(dev)
+    image_serving = image_serving_phase(dev, smi)
+    freed("the image serving path")
+    train_image_counts = train_image_phase(dev, smi)
+    freed("the train-image path")
+    input_head_counts = input_head_phase(dev, smi)
+    freed("the input-head path")
 
     # launches: each kernel's count in its own path's timed run (serving:
     # one clip; training: the timed steps of its stage). K8 is K6's kernel
@@ -1386,7 +1452,11 @@ def run(dev: torch.device, smi: str) -> None:
              "stage-1 training": train_counts,
              "stage-4 training": stage4_counts, "LoRA training": lora_counts,
              "guided distillation": distill_counts,
-             "guided student": student_counts}
+             "guided student": student_counts,
+             "text to image": image_serving["text_to_image"]["launches"],
+             "image editing": image_serving["editing_3way"]["launches"],
+             "train-image": train_image_counts,
+             "input-head training": input_head_counts}
     for k, r in records.items():
         if k in ("K6", "K7"):
             r.update(launches=stage4_counts[k], launches_per_train_step=(
@@ -1426,6 +1496,17 @@ def run(dev: torch.device, smi: str) -> None:
         per_distill_step=distill_counts["bias_map_builds"] // DISTILL_STEPS)
     records["K1"]["launches_per_student_clip"] = student_counts["K1"]
     records["K3"]["launches_per_student_clip"] = student_counts["K3"]
+    # the image family: K3 per image (every context's prefill and cached
+    # decode steps), K3 and K9 per train-image and per input-head step
+    records["K3"]["launches_per_image"] = {
+        k: r["launches"]["K3"] for k, r in image_serving.items()}
+    records["K3"]["bias_map_builds"]["per_image"] = {
+        k: r["launches"]["bias_map_builds"] for k, r in image_serving.items()}
+    for k in ("K3", "K9"):
+        records[k]["launches_per_train_image_step"] = \
+            train_image_counts[k] // TRAIN_IMAGE_STEPS
+        records[k]["launches_per_input_head_step"] = \
+            input_head_counts[k] // INPUT_HEAD_STEPS
     log(f"every phase: {time.perf_counter() - t_run:.1f} s")
     log(json.dumps({"kernels": list(records.values())}))
 
@@ -2073,6 +2154,370 @@ def products_phase(dev, smi: str, student: dict, adapters: dict) -> dict:
         f"{N_GEN / clip_s:.3f} frames/s, peak {peak_gib:.2f} GiB, on {smi}")
     log(json.dumps({"student_serving": rec}))
     return launches
+
+
+# ---- the image-generation family --------------------------------------------
+
+def synthetic_image(px: int, seed: int) -> np.ndarray:
+    """A px x px uint8 RGB image: smooth gradients plus noise."""
+    rng = np.random.default_rng(seed)
+    y, x = np.mgrid[0:px, 0:px]
+    base = np.stack([(x // 4 + 16 * seed) % 256, (y // 2) % 256,
+                     ((x + y) // 8) % 256], -1).astype(np.float32)
+    return np.clip(base + rng.normal(0, 12, base.shape), 0,
+                   255).astype(np.uint8)
+
+
+def image_rows():
+    """The rows of the smoke's two image scenarios at IMAGE_PX, as the
+    pipeline builds them with the stub tokenizer: (a) the prompt and the
+    negative prompt, (b) the editing prompt with one input image, the
+    negative prompt and the image row. Returns {scenario: ([TextRow],
+    n_out)}."""
+    proc = ImageGenProcessor(StubTokenizer())
+    img = synthetic_image(IMAGE_PX, 1)
+    neg = proc.row(DEFAULT_NEGATIVE_PROMPT)[0]
+    n_out = (IMAGE_PX // 16) ** 2
+    return {"text": ([proc.row(IMAGE_PROMPT)[0], neg], n_out),
+            "edit": ([proc.row(EDIT_PROMPT, [img])[0], neg,
+                      proc.row("<img><|image_1|></img>", [img])[0]], n_out)}
+
+
+def image_decode_record(dev, seed: int, row, n_out: int) -> dict:
+    """K3 as the image path's cached decode runs it: the tail's queries
+    (TIME + the output tokens) over the heads-major concatenation of the
+    prompt's cache and the tail's own keys (the tail's K/V views of the
+    fused projection, concatenated as ``attend_cached`` does), with the
+    rectangular bias of the tail's rows over every key and its map built
+    once (as once per guidance context)."""
+    cfg = ModelConfig()
+    h, hkv, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    lay = single_shot_layout([row], n_out)
+    meta = AttnMeta.from_layout(lay, dev)
+    tail = lay.noisy_tail_len()
+    lc = lay.length - tail
+    bf16 = _bf16_maker(dev, seed)
+    q = bf16(1, tail, h, d)
+    kc, vc = bf16(1, hkv, lc, d), bf16(1, hkv, lc, d)
+    kt = bf16(1, tail, hkv, d)
+    vt = bf16(1, tail, h + 2 * hkv, d)[:, :, h + hkv:]
+    kh = torch.cat([kc, kt.transpose(1, 2)], 2)
+    vh = torch.cat([vc, vt.transpose(1, 2)], 2)
+    k, v = kh.transpose(1, 2), vh.transpose(1, 2)  # [1, Lk, Hkv, D] views
+    bias = fa.precompute_bias(meta.tail(tail), meta)
+    bm = fa.bias_map(bias)
+
+    def plain(absv=False):
+        return fa.bias_attention_reference(*f32(q, k), *vals(v, absv=absv),
+                                           bias)
+
+    qh = q.transpose(1, 2).contiguous()
+    bias4 = bias[:, None]
+
+    def lib():
+        return F.scaled_dot_product_attention(qh, kh, vh, attn_mask=bias4)
+
+    return dict(
+        fn=lambda: fa.flash_mha(q, k, v, bm), plain=plain, lib=lib,
+        route="cuda", source="video_gpt_tpu_torch/csrc/bias_attention.cu",
+        replaces=f"{TPU_KERNELS}:133",
+        shape=f"B 1, Lq {tail} vs {lc} cached + {tail} new keys "
+              f"(heads-major), bf16 bias",
+        bytes=nbytes(q, kh, vh, bias, q),
+        flops=4 * h * d * int((bias == 0).sum()),
+        tile_map=bias_tile_map(bias))
+
+
+def train_image_batch(trainer):
+    """The train-image path's batch (B 1) on the host: one synthetic
+    output image and one input image at TRAIN_IMAGE_PX, the editing prompt
+    through the trainer's processor and the training template, collated to
+    the trainer's ``pad_to`` with MAX_INPUT_IMAGES clean slots."""
+    size = (TRAIN_IMAGE_PX, TRAIN_IMAGE_PX)
+    proc = trainer.processor
+    row, _ = proc.row(EDIT_PROMPT, [synthetic_image(TRAIN_IMAGE_PX, 2)],
+                      add_prefix=True)
+    sample = ImageGenSample(
+        row, [resize_center_crop(synthetic_image(TRAIN_IMAGE_PX, 2), size)],
+        resize_center_crop(synthetic_image(TRAIN_IMAGE_PX, 3), size))
+    return collate_image_gen([sample], trainer.pad_to, MAX_INPUT_IMAGES,
+                             token_ids=trainer.model_cfg.token_ids)
+
+
+def image_kernels(dev) -> dict:
+    """K3 at the image path's decode shapes: (a)'s cond row (4,097
+    queries over its prompt and tail) and (b)'s editing cond row (~8.2k
+    keys: the prompt, one 1024x1024 input image's 4,096 tokens, the
+    tail); K3 and K9 at the train-image shape (L 4,609)."""
+    rows = image_rows()
+    out = {}
+    for key, (scenario, seed) in (("image_decode_2way", ("text", 21)),
+                                  ("image_decode_3way", ("edit", 22))):
+        (cond, *_), n_out = rows[scenario]
+        out[key] = check_and_time("K3", image_decode_record(dev, seed, cond,
+                                                            n_out),
+                                  f" ({key})")
+        torch.cuda.empty_cache()
+    trainer = ImageGenTrainer(ModelConfig(), TrainConfig(), None, None,
+                              StubTokenizer(),
+                              output_size=(TRAIN_IMAGE_PX,) * 2,
+                              max_input_images=MAX_INPUT_IMAGES, device=dev)
+    meta = AttnMeta(*(x.to(dev) for x in
+                      train_image_batch(trainer).inputs.batch.meta))
+    recs = bias_train_records(dev, meta, " (train-image shape)")
+    out["train_image_shape"] = recs
+    torch.cuda.empty_cache()
+    return out
+
+
+def image_reference_phase(dev) -> dict:
+    """The image path end to end on a small input: ``ImageGenPipeline`` on
+    the card (bf16, the kernels) against the same weights and noise on the
+    CPU in fp32 (plain versions), 2-way (a prompt) and 3-way (an editing
+    prompt with one 64x64 input image), each context separately; the CPU
+    in bf16 gives the rounding floor. Bar: final-latent relative MSE
+    REF_REL_MSE_BAR. Every run holds exactly its K3 launches and map
+    builds (per context: the prefill's and the decode's). Returns
+    {scenario: relative MSE}."""
+    cfg = ModelConfig.tiny(hidden_size=192, num_heads=2, num_kv_heads=1)
+    vae_cfg = VAEConfig.tiny()  # head_dim 96 above; GQA 2:1
+    proc = ImageGenProcessor(StubTokenizer())
+    gpu = ImageGenPipeline.build(proc, cfg, vae_cfg, device=dev,
+                                 dtype=torch.bfloat16, seed=0)
+    cpu = {dtype: ImageGenPipeline.build(
+        proc, cfg, vae_cfg, device="cpu", dtype=dtype,
+        state_dict=gpu.model.state_dict(),
+        vae_state_dict=gpu.vae.state_dict())
+        for dtype in (torch.float32, torch.bfloat16)}
+    steps, nl = 3, cfg.num_layers
+    out = {}
+    for name, prompt, images in (
+            ("2-way", IMAGE_PROMPT, None),
+            ("3-way", EDIT_PROMPT, [synthetic_image(64, 4)])):
+        kw = dict(input_images=images, height=64, width=64,
+                  num_inference_steps=steps, guidance_scale=IMAGE_CFG,
+                  img_guidance_scale=IMAGE_IMG_CFG, max_input_image_size=64,
+                  output_type="np", return_latents=True)
+
+        def latents(pipe):
+            return pipe(prompt, noise=SeededNoise(0, pipe.device),
+                        **kw)[1].float().cpu()
+
+        reset_counts()
+        got = latents(gpu)
+        torch.cuda.synchronize()
+        ran = counts()
+        want, floor = (latents(cpu[d]) for d in (torch.float32,
+                                                  torch.bfloat16))
+
+        def rel_mse_of(x):
+            return float(((x - want) ** 2).mean() / (want ** 2).mean())
+
+        n_ctx = 2 if images is None else 3
+        expected = expect(K3=n_ctx * (nl + steps * nl),
+                          bias_map_builds=2 * n_ctx)
+        out[name] = rel_mse_of(got)
+        log(f"small-input image reference ({name}): card (bf16, kernels) vs "
+            f"CPU (fp32, plain) final-latent relative MSE {out[name]:.3e} "
+            f"(bar {REF_REL_MSE_BAR}; CPU bf16 vs fp32 "
+            f"{rel_mse_of(floor):.3e}), launches {ran}")
+        if ran != expected:
+            fail(f"the small-input image run ({name}) launched {ran}, not "
+                 f"{expected}")
+        if not torch.isfinite(got).all() or not out[name] <= REF_REL_MSE_BAR:
+            fail(f"the card's image pipeline ({name}) disagrees with the "
+                 f"CPU's: {out[name]}")
+    return out
+
+
+def image_serving_phase(dev, smi: str) -> dict:
+    """The image path at full width (ModelConfig(), the SDXL-class VAE,
+    random bf16 weights from a seed, heads random), stub tokenizer, each
+    guidance context at its natural length: (a) text -> image at the CLI's
+    defaults (1024x1024, 50 steps, guidance 3.0; the prompt and the
+    default negative prompt), exactly 2 (32 + 50 * 32) K3 launches and 4
+    map builds; (b) editing, one synthetic 1024x1024 input image, 3-way
+    guidance (img_guidance_scale 1.6) at 10 steps (a cut in steps only),
+    exactly 3 (32 + 10 * 32) K3 and 6 builds. The decodes of the contexts
+    with the input image run over more than 8192 keys: the counters' K10
+    column, K3 past the TPU's key cap (there the JAX ``maybe_bias`` gives
+    no bias, and the TPU runs K6 at the same math). Each after a warm-up at
+    1 step with the host-op check on; one uint8 1024x1024x3 image and
+    finite latents on the device. Returns {scenario: record}."""
+    t0 = time.perf_counter()
+    pipe = ImageGenPipeline.build(ImageGenProcessor(StubTokenizer()),
+                                  ModelConfig(), VAEConfig(), device=dev,
+                                  dtype=torch.bfloat16, seed=0)
+    torch.cuda.synchronize()
+    log(f"build the image pipeline: {time.perf_counter() - t0:.1f} s")
+    nl = pipe.model.cfg.num_layers
+    out = {}
+    for name, prompt, images, steps in (
+            ("text_to_image", IMAGE_PROMPT, None, IMAGE_STEPS),
+            ("editing_3way", EDIT_PROMPT, [synthetic_image(IMAGE_PX, 1)],
+             EDIT_STEPS)):
+        rows, n_out = image_rows()["text" if images is None else "edit"]
+        n_ctx = len(rows)
+        # K3 launches past 8192 keys: a context's prefill (its prompt) and
+        # its decode steps (prompt and tail)
+        n_long = sum(
+            nl * ((lay.length - lay.noisy_tail_len() > fa.TPU_KEY_CAP)
+                  + steps * (lay.length > fa.TPU_KEY_CAP))
+            for lay in (single_shot_layout([r], n_out) for r in rows))
+        kw = dict(input_images=images, height=IMAGE_PX, width=IMAGE_PX,
+                  guidance_scale=IMAGE_CFG, img_guidance_scale=IMAGE_IMG_CFG,
+                  seed=0, output_type="np", return_latents=True)
+        host = HostFloatOps()
+        t0 = time.perf_counter()
+        with host:
+            pipe(prompt, num_inference_steps=1, **kw)
+        torch.cuda.synchronize()
+        log(f"{name}: warm-up at 1 step {time.perf_counter() - t0:.2f} s "
+            f"(host-op check on)")
+        if host.ops:
+            fail(f"{name}: float ops ran on the host: {sorted(host.ops)}")
+        want = expect(K3=n_ctx * (nl + steps * nl), K10=n_long,
+                      bias_map_builds=2 * n_ctx)
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        images_out, lat = pipe(prompt, num_inference_steps=steps, **kw)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        launches = counts()
+        log(f"{name}: launches {launches} (expected {want})")
+        if launches != want:
+            fail(f"{name} launch counts {launches} != {want}")
+        if (len(images_out) != 1 or images_out[0].dtype != np.uint8
+                or images_out[0].shape != (IMAGE_PX, IMAGE_PX, 3)):
+            fail(f"{name}: not one uint8 {IMAGE_PX}x{IMAGE_PX}x3 image")
+        f = VAEConfig().downsample_factor
+        if (tuple(lat.shape) != (1, IMAGE_PX // f, IMAGE_PX // f, 4)
+                or lat.device.type != dev.type
+                or not torch.isfinite(lat).all()):
+            fail(f"{name}: latents {tuple(lat.shape)} on {lat.device} or "
+                 f"not finite")
+        peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+        out[name] = dict(steps=steps, contexts=n_ctx, image_s=wall_s,
+                         s_per_step=wall_s / steps, peak_mem_gib=peak_gib,
+                         launches=launches,
+                         image_std=float(np.std(images_out[0])), device=smi)
+        log(f"{name}: one {IMAGE_PX}x{IMAGE_PX} image in {steps} steps x "
+            f"{n_ctx} contexts: {wall_s:.3f} s ({wall_s / steps:.4f} s a "
+            f"step), peak {peak_gib:.2f} GiB, on {smi}")
+        log(json.dumps({f"image_{name}": out[name]}))
+    return out
+
+
+def train_image_phase(dev, smi: str) -> dict:
+    """The train-image path at full width through the image trainer's own
+    step (fp32 parameters and AdamW, bf16 compute, per-layer recompute; a
+    constant lr as the other training paths): B 1, a 512x512 output image
+    and one 512x512 input image, MAX_INPUT_IMAGES clean slots, L 4,609.
+    One warm-up step and TRAIN_IMAGE_STEPS timed steps, each with exactly
+    64 K3, 32 K9 and one bias-map build; finite loss and gradient norm, a
+    nonzero gradient into layer 0's attention, AdamW moving the
+    parameters. Returns the summed launches."""
+    cfg = TrainConfig(lr=TRAIN_LR, lr_scheduler="constant")
+    t0 = time.perf_counter()
+    trainer = ImageGenTrainer(ModelConfig(), cfg, None, None,
+                              StubTokenizer(),
+                              output_size=(TRAIN_IMAGE_PX,) * 2,
+                              max_input_images=MAX_INPUT_IMAGES, device=dev,
+                              seed=0)
+    state = trainer.build()
+    model = trainer.model
+    randomise_heads_(model, seed=1)
+    torch.cuda.synchronize()
+    log(f"build image trainer: {time.perf_counter() - t0:.1f} s, pad_to "
+        f"{trainer.pad_to}")
+    tb = train_image_batch(trainer).to(dev)
+    b, L = tb.inputs.batch.input_ids.shape
+    n_out = (TRAIN_IMAGE_PX // 16) ** 2
+    if (b, L) != (1, 512 + MAX_INPUT_IMAGES * n_out + 1 + n_out):
+        fail(f"the train-image batch is {b}x{L}")
+    nl = trainer.model_cfg.num_layers
+    qkv = model.llm.layers[0].self_attn.qkv_proj.weight
+    grads = []
+    hook = qkv.register_post_accumulate_grad_hook(
+        lambda p: grads.append(torch.linalg.vector_norm(p.grad)))
+    watched = {n: p for n, p in model.named_parameters() if n in (
+        "x_embedder.proj.weight", "input_x_embedder.proj.weight",
+        "llm.layers.0.self_attn.qkv_proj.weight",
+        "final_layer.linear.weight")}
+    before = {}
+
+    def check(step, m):
+        if not (np.isfinite(float(grads[-1])) and float(grads[-1]) > 0):
+            fail(f"train-image step {step}: no gradient reached layer 0's "
+                 f"attention")
+        if step == 1:
+            before.update({n: p.detach().clone()
+                           for n, p in watched.items()})
+
+    steps, total, peak_gib, step_s = run_steps(
+        trainer, state, tb, "train-image", TRAIN_IMAGE_STEPS,
+        expect(K3=2 * nl, K9=nl, bias_map_builds=1), check)
+    hook.remove()
+    moved = {n: float((p.detach() - before[n]).abs().max())
+             for n, p in watched.items()}
+    if not all(v > 0 for v in moved.values()):
+        fail(f"AdamW did not move the image model: {moved}")
+    rec = dict(layers=nl, output_px=TRAIN_IMAGE_PX, tokens_per_step=b * L,
+               step_s=step_s, tokens_per_s=b * L / step_s,
+               peak_mem_gib=peak_gib, steps=steps, moved=moved, device=smi)
+    log(f"train-image path: {nl} layers, L {L}: {step_s:.3f} s/step, "
+        f"{b * L / step_s:.1f} tokens/s, peak {peak_gib:.2f} GiB, on {smi}")
+    log(json.dumps({"train_image_path": rec}))
+    return total
+
+
+def input_head_phase(dev, smi: str) -> dict:
+    """Stage 1's training path with ``input_output_return``: the model
+    carries the aux input head (zero at init), and the loss adds its
+    reconstruction of the clean frames. One warm-up step and
+    INPUT_HEAD_STEPS timed steps, each with stage 1's launches (64 K3, 32
+    K9, one map build); the head's weight is 0 before the first step, gets
+    a nonzero gradient in every step and moves. Returns the summed
+    launches."""
+    cfg = stage_config(1, lr=TRAIN_LR, lr_scheduler="constant",
+                       adam_epsilon=1e-5, input_output_return=True)
+    t0 = time.perf_counter()
+    trainer = Trainer(ModelConfig(), cfg, None, vae_cfg=VAEConfig(),
+                      target_resolution=(H_PX, W_PX), device=dev, seed=0)
+    state = trainer.build()
+    model = trainer.model
+    randomise_heads_(model, seed=1)
+    head = model.input_final_layer.weight
+    if float(head.detach().abs().max()) != 0:
+        fail("the input head is not zero at init")
+    grads = []
+    hook = head.register_post_accumulate_grad_hook(
+        lambda p: grads.append(torch.linalg.vector_norm(p.grad)))
+    torch.cuda.synchronize()
+    log(f"build input-head trainer: {time.perf_counter() - t0:.1f} s")
+
+    def check(step, m):
+        if not (np.isfinite(float(grads[-1])) and float(grads[-1]) > 0):
+            fail(f"input-head step {step}: no gradient into the head")
+
+    tb = train_batch(1).to(dev)
+    b, L = tb.inputs.batch.input_ids.shape
+    nl = trainer.model_cfg.num_layers
+    steps, total, peak_gib, step_s = run_steps(
+        trainer, state, tb, "input-head", INPUT_HEAD_STEPS,
+        expect(K3=2 * nl, K9=nl, bias_map_builds=1), check)
+    hook.remove()
+    if not float(head.detach().abs().max()) > 0:
+        fail("the input head did not move")
+    rec = dict(layers=nl, step_s=step_s, tokens_per_s=b * L / step_s,
+               tokens_per_step=b * L, peak_mem_gib=peak_gib, steps=steps,
+               head_grad_norms=[float(g) for g in grads], device=smi)
+    log(f"input-head path: {nl} layers, L {L}: {step_s:.3f} s/step, "
+        f"{b * L / step_s:.1f} tokens/s, peak {peak_gib:.2f} GiB, on {smi}")
+    log(json.dumps({"input_head_path": rec}))
+    return total
 
 
 if __name__ == "__main__":

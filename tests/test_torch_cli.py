@@ -10,6 +10,7 @@ lines of ``configs/distill_serving.sh`` (two distillation rounds and the
 guided student's serving line) parse too. The frame reader (cv2) and,
 where the point is the options, the pipeline are patched.
 """
+import argparse
 import os
 import shlex
 
@@ -173,8 +174,7 @@ def test_video_path_dir_batches_same_shaped_videos(fake, tmp_path):
                                                                "b.mp4"))
 
 
-@pytest.mark.parametrize("flags", [["--mesh_seq", "2"], ["--mesh_tensor", "2"],
-                                   ["--input_head"]])
+@pytest.mark.parametrize("flags", [["--mesh_seq", "2"], ["--mesh_tensor", "2"]])
 def test_options_not_ported_yet_raise(fake, flags):
     with pytest.raises(SystemExit, match="not ported yet"):
         cli.main(["generate", "--video_path", "clip.mp4"] + flags)
@@ -230,10 +230,71 @@ def test_checkpoint_dir_loads_a_training_run(monkeypatch, tmp_path):
     cli.main(["generate", "--video_path", "clip.mp4", "--checkpoint_dir",
               str(ckpt_dir), "--tiny_model", "--device", "cpu", "--dtype",
               "fp32", "--save_dir", str(tmp_path / "out")])
-    assert loads == [((str(ckpt_dir),), dict(step=None, ema=False))]
+    assert loads == [((str(ckpt_dir),), dict(step=None, ema=False,
+                                             input_head=False))]
     got = served[0].model.state_dict()
     assert all(torch.equal(got[k], v) for k, v in sd.items())
     with pytest.raises(ValueError, match="no EMA"):
         cli.main(["generate", "--video_path", "clip.mp4", "--checkpoint_dir",
                   str(ckpt_dir), "--ema", "--tiny_model", "--device", "cpu",
                   "--save_dir", str(tmp_path / "out")])
+
+
+def _save_run(ckpt_dir, sd, step=1):
+    os.makedirs(ckpt_dir / str(step))
+    torch.save({"step": step, "model": sd, "ema": None},
+               ckpt_dir / str(step) / "state.pt")
+
+
+def test_generate_serves_an_input_head_run(monkeypatch, tmp_path):
+    """``generate --input_head`` serves the weights of a ``train
+    --input_output_return`` run, its aux head included; without the flag
+    the run is refused with the JAX command's message, as is the flag for
+    a run without the head."""
+    cfg = ModelConfig.tiny(pos_embed_max_size=192)
+    model = VideoGPT(cfg, input_head=True).init_random_(
+        torch.Generator().manual_seed(4))
+    with torch.no_grad():
+        model.input_final_layer.weight.normal_()
+    sd = {k: v.clone() for k, v in model.state_dict().items()}
+    _save_run(tmp_path / "head", sd)
+    _save_run(tmp_path / "plain", {k: v for k, v in sd.items()
+                                   if not k.startswith("input_final")})
+    served = []
+    monkeypatch.setattr(cli, "read_conditioning",
+                        lambda path, n: [np.zeros((32, 48, 3), np.uint8)] * n)
+    monkeypatch.setattr(VideoGPTPipeline, "generate",
+                        lambda self, frames, **kw: (served.append(self),
+                                                    [])[1])
+    argv = ["generate", "--video_path", "clip.mp4", "--tiny_model",
+            "--device", "cpu", "--dtype", "fp32", "--save_dir",
+            str(tmp_path / "out"), "--checkpoint_dir"]
+    cli.main(argv + [str(tmp_path / "head"), "--input_head"])
+    got = served[0].model.state_dict()
+    assert set(got) == set(sd)
+    assert all(torch.equal(got[k], v) for k, v in sd.items())
+    for run, flags in (("head", []), ("plain", ["--input_head"])):
+        with pytest.raises(ValueError, match="--input_output_return but no "
+                                             "--input_head"):
+            cli.main(argv + [str(tmp_path / run)] + flags)
+    assert len(served) == 1
+
+
+@pytest.mark.parametrize("command", ["generate-image", "train-image",
+                                     "export"])
+def test_image_and_export_parsers_take_every_jax_option(command):
+    """Every option of the JAX command parses with the port's (which adds
+    ``--device`` to the commands that run a model)."""
+    from video_gpt_tpu.cli import build_parser as jax_parser
+
+    def options(parser):
+        sub = next(a for a in parser._actions
+                   if isinstance(a, argparse._SubParsersAction))
+        cmd = sub.choices[command]
+        return {a.dest: (a.default, a.nargs, tuple(a.choices or ()))
+                for a in cmd._actions if a.dest != "help"}
+
+    port, ref = options(cli.build_parser()), options(jax_parser())
+    assert set(ref) <= set(port), set(ref) - set(port)
+    assert {k: port[k] for k in ref} == ref
+    assert set(port) - set(ref) <= {"device", "fn"}

@@ -29,7 +29,8 @@ def test_port_has_the_slice_modules():
               "data.video", "data.prefetch", "training.loss",
               "training.data", "training.train_state", "training.trainer",
               "training.lora", "training.distill",
-              "probes.overlap_probe"):
+              "probes.overlap_probe", "image_gen", "data.image_text",
+              "training.image_trainer", "utils.torch_export"):
         assert "video_gpt_tpu_torch." + m in mods, m
 
 

@@ -43,6 +43,12 @@ Past 8192 keys the TPU runs k-tiled kernels (K4, K5, K10); here K1, K2 and
 K3 serve those rows, and are held against their plain versions at those
 shapes (32 heads of 96, 176x320 frames), as are K1 and K6 at the batched
 rollout's B 2.
+
+The image path's cached decode runs K3 over the heads-major concatenation
+of a prompt's cache and the tail (``attend_cached``) with a rectangular
+bias (the tail's rows over every key): held at odd lengths, a cache
+shorter than one key tile, and the padded batch's 3 rows; a mutation drops
+the key tile that holds the cache's last key.
 """
 import os
 import shutil
@@ -52,10 +58,13 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from video_gpt_tpu_torch import layout
-from video_gpt_tpu_torch.models.video_gpt import decode_mask, extend_mask
+from video_gpt_tpu_torch.config import ModelConfig
+from video_gpt_tpu_torch.image_gen import TextRow, single_shot_layout
+from video_gpt_tpu_torch.models.video_gpt import (decode_mask, extend_mask,
+                                                  maybe_bias)
 from video_gpt_tpu_torch.ops import _cuda
 from video_gpt_tpu_torch.ops import flash_attention as fa
-from video_gpt_tpu_torch.ops.attention import AttnMeta
+from video_gpt_tpu_torch.ops.attention import AttnMeta, attend_cached
 from video_gpt_tpu_torch.probes import overlap_probe
 
 pytestmark = pytest.mark.gpu
@@ -316,6 +325,57 @@ def test_k3_matches_plain(dev, n_clean, use_cfg, h, hkv):
     assert fa.flash_mha.launches == 1
     assert fa.flash_mha.long_launches == 0
     assert _err(got, want, mass) <= 1.0
+
+
+def _image_layout(rows, n_out):
+    """A single-shot layout of one row per (text tokens, input-image region
+    tokens) pair, the region (if any) after the third token; rows of other
+    lengths are left-padded, as in the padded guidance batch."""
+    trows = []
+    for i, (n_text, n_region) in enumerate(rows):
+        ids = list(range(100 + i, 100 + i + n_text))
+        regions = [(3, 3 + n_region)] if n_region else []
+        trows.append(TextRow(ids[:3] + [0] * n_region + ids[3:], regions))
+    return single_shot_layout(trows, n_out)
+
+
+def _k3_cached_error(dev, rows, n_out, h=4, hkv=2):
+    """K3 as the image decode runs it (``attend_cached``: the heads-major
+    cache and the tail's K/V views of the fused projection concatenated,
+    the decode's BiasMap) against the plain version: worst error / bar."""
+    d = fa.KERNEL_HEAD_DIM
+    lay = _image_layout(rows, n_out)
+    meta = AttnMeta.from_layout(lay, dev)
+    b, tail = lay.batch, lay.noisy_tail_len()
+    lc = lay.length - tail
+    q = _bf16(dev, 1, b, tail, h, d)
+    kc, vc = _bf16(dev, 2, b, hkv, lc, d), _bf16(dev, 3, b, hkv, lc, d)
+    qkv = _bf16(dev, 4, b, tail, h + 2 * hkv, d)
+    kt, vt = qkv[:, :, h:h + hkv], qkv[:, :, h + hkv:]
+    qm = meta.tail(tail)
+    fa.reset_launch_counts()
+    bm = maybe_bias(ModelConfig(), qm, meta)
+    assert bm.bias.shape == (b, tail, lay.length)
+    got = attend_cached(q, kc, vc, kt.transpose(1, 2), vt.transpose(1, 2),
+                        qm, meta, bm)
+    k = torch.cat([kc, kt.transpose(1, 2)], 2).transpose(1, 2).float()
+    v = torch.cat([vc, vt.transpose(1, 2)], 2).transpose(1, 2).float()
+    want = fa.bias_attention_reference(q.float(), k, v, bm.bias)
+    mass = fa.bias_attention_reference(q.float(), k, v.abs(), bm.bias)
+    torch.cuda.synchronize()
+    assert fa.flash_mha.launches == 1 and fa.flash_mha.bias_map_builds == 1
+    assert fa.flash_mha_decode_split.launches == 0
+    return _err(got, want, mass)
+
+
+@pytest.mark.parametrize("rows,n_out", [
+    (((37, 70),), 100),            # text around one region, odd lengths
+    (((13, 0),), 150),             # a cache shorter than one key tile
+    (((29, 300),), 260),           # a longer region and tail
+    (((40, 70), (57, 0), (5, 70)), 100)],  # the padded batch's 3 rows
+    ids=["region", "short-cache", "long", "padded-3-rows"])
+def test_k3_over_a_heads_major_cache(dev, rows, n_out):
+    assert _k3_cached_error(dev, rows, n_out) <= 1.0
 
 
 def _training_layout(blocks, n_img):
@@ -761,6 +821,14 @@ MUTATIONS = {
         "bias_attention.cu",
         "for (int i = 0; i < n; ++i) {",
         "for (int i = 0; i < n - 1; ++i) {", "K3"),
+    "k3_without_the_cache_last_key_tile": (
+        "bias_attention.cu",
+        "    const bf16* bs = kt + 2 * kTile;",
+        "    const bf16* bs = kt + 2 * kTile;\n"
+        "    if (k0 / kBlockK == (a.lk - a.lq - 1) / kBlockK) {\n"
+        "      __syncthreads();\n"
+        "      continue;\n"
+        "    }", "K3-cache"),
     "k3_partial_tile_reads_no_bias": (
         "bias_attention.cu",
         "const bool partial = (e & 3) == kTilePartial;",
@@ -810,6 +878,8 @@ def test_inline_mutation_fails_the_bar(dev, tmp_path, monkeypatch,
         ratio = max(_k7_errors(dev, *case).values())
     elif kernel == "K3":
         ratio = _k3_error(*_training_operands(dev, *case))
+    elif kernel == "K3-cache":
+        ratio = _k3_cached_error(dev, ((37, 70),), 100)
     else:
         ratio = max(_k9_errors(dev, *_training_operands(dev, *case))
                     .values())

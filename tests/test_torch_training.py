@@ -313,9 +313,9 @@ def test_lr_schedules_match_optax():
 
 def test_unported_fields_raise():
     check_train_config(stage_config(1))
-    for field in ("offload_optimizer", "input_output_return"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            check_train_config(TrainConfig(**{field: True}))
+    check_train_config(TrainConfig(input_output_return=True))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        check_train_config(TrainConfig(offload_optimizer=True))
 
 
 def _write_videos(root, n=2, frames=20, h=128, w=160):

@@ -1,4 +1,5 @@
-"""Command-line entry points: ``generate`` and ``train``.
+"""Command-line entry points: ``generate``, ``train``,
+``generate-image``, ``train-image`` and ``export``.
 
     python -m video_gpt_tpu_torch.cli generate --video_path clip.mp4 \\
         --model_ckpt ckpt_dir --vae_ckpt vae.safetensors --gen_nums 16
@@ -31,9 +32,27 @@ adapters into the base weights it serves (``--model_ckpt`` or
 student that serves at ``--distill_student_steps`` steps (with
 ``--distill_guidance``, at ``--img_guidance_scale 1``).
 
+``generate-image`` and ``train-image`` are the image-generation family
+(``image_gen.py``, ``training/image_trainer.py``): text (and input images)
+to an image with 2- or 3-way guidance, and its training on a json dataset
+of prompts and images with condition dropout and the velocity target.
+Without ``--tokenizer`` they hash words (a smoke run; Python salts the
+hash per process, so set ``PYTHONHASHSEED`` to serve a run in another
+process). ``generate-image --checkpoint_dir`` serves a ``train-image`` run:
+
+    python -m video_gpt_tpu_torch.cli train-image --json_file data.json \
+        --results_dir results_image
+    python -m video_gpt_tpu_torch.cli generate-image --prompt "a red bird" \
+        --checkpoint_dir results_image/checkpoints --output bird.png
+
+``export`` writes a run's parameters (``--ema``: its EMA) as the reference's
+safetensors. ``train --input_output_return`` trains the aux
+input-reconstruction head; ``generate`` and ``export`` then take
+``--input_head``.
+
 Runs on CUDA unless ``--device cpu``; without checkpoints the weights are
-random (a smoke run). cv2 (video decode) and PIL (PNG writes) are imported
-only where files are read and written.
+random (a smoke run). cv2 (video decode), PIL (image files), safetensors
+and transformers are imported only where they are used.
 """
 from __future__ import annotations
 
@@ -45,7 +64,30 @@ import torch
 
 # options of the JAX command that parse but are not ported yet: a value
 # other than the default raises (ROADMAP.md queue 1)
-GENERATE_NOT_PORTED = {"input_head": False, "mesh_seq": 1, "mesh_tensor": 1}
+GENERATE_NOT_PORTED = {"mesh_seq": 1, "mesh_tensor": 1}
+# the mesh options of the training commands (ROADMAP.md queue 1: the mesh)
+MESH_FLAGS = ("mesh_data", "mesh_seq", "mesh_tensor", "mesh_pipe", "zero3")
+
+
+def _tokenizer(args):
+    """The ``--tokenizer`` (a Hugging Face tokenizer path), else the
+    word-hash stub."""
+    from .image_gen import StubTokenizer
+    if args.tokenizer:
+        from transformers import AutoTokenizer
+        return AutoTokenizer.from_pretrained(args.tokenizer)
+    print("WARNING: no --tokenizer; hashing words (smoke run only)")
+    return StubTokenizer()
+
+
+def _configs(args):
+    """The (model, VAE) configs of a command line: the reference width, or
+    with ``--tiny_model`` the tiny ones."""
+    from .config import ModelConfig
+    from .models.vae import VAEConfig
+    if args.tiny_model:
+        return ModelConfig.tiny(pos_embed_max_size=192), VAEConfig.tiny()
+    return ModelConfig(), VAEConfig()
 
 
 def read_conditioning(path: str, n: int):
@@ -86,7 +128,8 @@ def _generate_weights(args):
         sd = load_reference_checkpoint(args.model_ckpt)
     elif args.checkpoint_dir:
         sd, step = ckpt.load_train_params(args.checkpoint_dir, step=args.step,
-                                          ema=args.ema)
+                                          ema=args.ema,
+                                          input_head=args.input_head)
         print(f"weights of {args.checkpoint_dir} step {step}"
               f"{' (EMA)' if args.ema else ''}")
     else:
@@ -123,10 +166,8 @@ def _merge_lora_run(args, sd):
 
 
 def cmd_generate(args):
-    from .config import ModelConfig
     from .data.processor import preprocess_frames
     from .data.video import list_videos
-    from .models.vae import VAEConfig
     from .sampling.pipeline import VideoGPTPipeline
     from .utils.torch_import import load_reference_checkpoint
 
@@ -142,9 +183,7 @@ def cmd_generate(args):
         video_paths = [args.video_path]
     else:
         raise SystemExit("provide --video_path or --video_path_dir")
-    cfg = (ModelConfig.tiny(pos_embed_max_size=192) if args.tiny_model
-           else ModelConfig())
-    vae_cfg = VAEConfig.tiny() if args.tiny_model else VAEConfig()
+    cfg, vae_cfg = _configs(args)
     dtype = torch.bfloat16 if args.dtype == "bf16" else torch.float32
     sd, prediction_type = _generate_weights(args)
     vae_sd = None
@@ -157,7 +196,8 @@ def cmd_generate(args):
     torch.backends.cudnn.allow_tf32 = False
     pipe = VideoGPTPipeline.build(cfg, vae_cfg, device=args.device,
                                   dtype=dtype, state_dict=sd,
-                                  vae_state_dict=vae_sd, seed=args.seed)
+                                  vae_state_dict=vae_sd, seed=args.seed,
+                                  input_head=args.input_head)
     kw = dict(gen_nums=args.gen_nums,
               num_inference_steps=args.num_inference_steps,
               img_guidance_scale=args.img_guidance_scale,
@@ -212,9 +252,9 @@ def _init_state_dict(args):
     if args.model_ckpt:
         return load_reference_checkpoint(args.model_ckpt)
     if args.init_checkpoint_dir:
-        sd, step = ckpt.load_train_params(args.init_checkpoint_dir,
-                                          step=args.init_step,
-                                          ema=args.init_ema)
+        sd, step = ckpt.load_train_params(
+            args.init_checkpoint_dir, step=args.init_step, ema=args.init_ema,
+            input_head=args.input_output_return)
         print(f"warm-start from {args.init_checkpoint_dir} step {step}"
               f"{' (EMA)' if args.init_ema else ''}")
         return sd
@@ -223,15 +263,11 @@ def _init_state_dict(args):
 
 def make_trainer(args):
     """The ``Trainer`` of a ``train`` command line (nothing built yet)."""
-    from .config import ModelConfig, stage_config
-    from .models.vae import VAEConfig
+    from .config import stage_config
     from .training.trainer import Trainer
     from .utils.torch_import import load_reference_checkpoint
 
-    for flag in ("mesh_data", "mesh_seq", "mesh_tensor", "mesh_pipe"):
-        if getattr(args, flag) != 1:
-            raise SystemExit(f"--{flag} is not ported yet (ROADMAP.md "
-                             f"queue 1: the mesh)")
+    _refuse_mesh(args)
     cfg = stage_config(
         args.stage,
         frame_num=args.frame_num or {1: 16, 2: 48, 3: 48, 4: 80}[args.stage],
@@ -263,9 +299,7 @@ def make_trainer(args):
            if args.frame_interval is not None else {}),
         **({"max_input_length_limit": args.max_input_length_limit}
            if args.max_input_length_limit is not None else {}))
-    model_cfg = (ModelConfig.tiny(pos_embed_max_size=192) if args.tiny_model
-                 else ModelConfig())
-    vae_cfg = VAEConfig.tiny() if args.tiny_model else VAEConfig()
+    model_cfg, vae_cfg = _configs(args)
     return Trainer(
         model_cfg, cfg, args.video_dir_path, vae_cfg=vae_cfg,
         vae_state_dict=(load_reference_checkpoint(args.vae_ckpt)
@@ -273,6 +307,16 @@ def make_trainer(args):
         init_state_dict=_init_state_dict(args),
         target_resolution=tuple(args.target_resolution), device=args.device,
         seed=args.seed)
+
+
+def _refuse_mesh(args) -> None:
+    """Exit on a mesh option of a training command left off its default."""
+    for flag in MESH_FLAGS:
+        value = getattr(args, flag, None)
+        default = False if flag == "zero3" else 1
+        if value is not None and value != default:
+            raise SystemExit(f"--{flag} is not ported yet (ROADMAP.md "
+                             f"queue 1: the mesh)")
 
 
 def cmd_train(args):
@@ -379,10 +423,13 @@ def _add_train_parser(sub) -> None:
                    help="guidance distillation: the teacher's target is "
                         "uncond + w (cond - uncond) at this w, so the "
                         "student serves at --img_guidance_scale 1")
+    t.add_argument("--input_output_return", action="store_true",
+                   help="train the aux input-reconstruction head too (its "
+                        "loss over the clean frames joins the denoising "
+                        "loss); serve or export with --input_head")
     # accepted so a JAX command line parses; a non-default value raises
     # (not ported yet, see ROADMAP.md queue 1)
-    for flag in ("offload_optimizer", "input_output_return"):
-        t.add_argument(f"--{flag}", action="store_true")
+    t.add_argument("--offload_optimizer", action="store_true")
     for flag in ("mesh_data", "mesh_seq", "mesh_tensor", "mesh_pipe"):
         t.add_argument(f"--{flag}", type=int, default=1)
     t.set_defaults(fn=cmd_train)
@@ -442,14 +489,229 @@ def build_parser() -> argparse.ArgumentParser:
                         "weights")
     g.add_argument("--lora_rank", type=int, default=8,
                    help="the rank the LoRA run trained with")
+    g.add_argument("--input_head", action="store_true",
+                   help="the checkpoint was trained with "
+                        "--input_output_return (it holds the aux input head)")
     # accepted so a JAX command line parses; a non-default value raises
     # (not ported yet, see ROADMAP.md queue 1)
-    g.add_argument("--input_head", action="store_true")
     g.add_argument("--mesh_seq", type=int, default=1)
     g.add_argument("--mesh_tensor", type=int, default=1)
     g.set_defaults(fn=cmd_generate)
     _add_train_parser(sub)
+    _add_image_parsers(sub)
+    _add_export_parser(sub)
     return ap
+
+
+def cmd_generate_image(args):
+    """Text (and input images) -> one image, saved to ``--output``."""
+    from .image_gen import ImageGenPipeline, ImageGenProcessor
+    from .utils import checkpoint as ckpt
+    from .utils.torch_import import load_reference_checkpoint
+
+    cfg, vae_cfg = _configs(args)
+    dtype = torch.bfloat16 if args.dtype == "bf16" else torch.float32
+    proc = ImageGenProcessor(_tokenizer(args), args.max_input_image_size)
+    sd = None
+    if args.model_ckpt:
+        sd = load_reference_checkpoint(args.model_ckpt)
+    elif args.checkpoint_dir:
+        try:
+            sd, step = ckpt.load_train_params(
+                args.checkpoint_dir, step=args.step, ema=args.ema,
+                input_head=False)
+        except ValueError as e:
+            raise SystemExit(str(e))
+        print(f"weights of {args.checkpoint_dir} step {step}"
+              f"{' (EMA)' if args.ema else ''}")
+    else:
+        print("WARNING: no --model_ckpt; using random weights (smoke run)")
+    vae_sd = None
+    if args.vae_ckpt:
+        vae_sd = load_reference_checkpoint(args.vae_ckpt)
+    else:
+        print("WARNING: no --vae_ckpt; using random VAE weights")
+    # fp32 VAE convolutions in full fp32 (cuDNN's default is TF32)
+    torch.backends.cudnn.allow_tf32 = False
+    pipe = ImageGenPipeline.build(proc, cfg, vae_cfg, device=args.device,
+                                  dtype=dtype, state_dict=sd,
+                                  vae_state_dict=vae_sd)
+    images = pipe(args.prompt, input_images=args.input_images or None,
+                  height=args.height, width=args.width,
+                  num_inference_steps=args.num_inference_steps,
+                  guidance_scale=args.guidance_scale,
+                  img_guidance_scale=args.img_guidance_scale,
+                  max_input_image_size=args.max_input_image_size,
+                  seed=args.seed,
+                  separate_cfg_infer=not args.no_separate_cfg,
+                  cfg_interval=(tuple(args.cfg_interval)
+                                if args.cfg_interval else None),
+                  uncond_refresh=args.uncond_refresh, output_type="np")
+    from PIL import Image
+    os.makedirs(os.path.dirname(os.path.abspath(args.output)) or ".",
+                exist_ok=True)
+    Image.fromarray(images[0]).save(args.output)
+    print(f"saved {args.output}")
+
+
+def cmd_train_image(args):
+    from .config import TrainConfig
+    from .training.image_trainer import ImageGenTrainer
+    from .utils.torch_import import load_reference_checkpoint
+
+    _refuse_mesh(args)
+    if args.offload_grad_splits != 1:
+        raise SystemExit("--offload_grad_splits is not ported yet "
+                         "(ROADMAP.md queue 1: offload)")
+    if args.report_to != "none":
+        raise SystemExit(f"--report_to {args.report_to} is not ported yet "
+                         "(ROADMAP.md queue 1: utilities)")
+    cfg = TrainConfig(
+        batch_size_per_device=args.batch_size_per_device, lr=args.lr,
+        results_dir=args.results_dir, log_every=args.log_every,
+        ckpt_every=args.ckpt_every, mixed_precision=args.mixed_precision,
+        use_ema=args.use_ema, auto_resume=not args.no_auto_resume,
+        max_input_length_limit=args.max_input_length_limit,
+        offload_optimizer=args.offload_optimizer,
+        num_workers=args.num_workers, prefetch_depth=args.prefetch_depth)
+    model_cfg, vae_cfg = _configs(args)
+    ImageGenTrainer(
+        model_cfg, cfg, args.json_file, args.image_root, _tokenizer(args),
+        output_size=(args.height, args.width),
+        input_size=((args.input_height, args.input_width)
+                    if args.input_height else None),
+        condition_dropout_prob=args.condition_dropout_prob,
+        max_input_images=args.max_input_images, vae_cfg=vae_cfg,
+        vae_state_dict=(load_reference_checkpoint(args.vae_ckpt)
+                        if args.vae_ckpt else None),
+        device=args.device, seed=args.seed).run(args.max_steps)
+
+
+def cmd_export(args):
+    """A training run's parameters (or EMA) -> the reference's
+    safetensors; the model config checks the shapes first."""
+    from .models.video_gpt import VideoGPT
+    from .utils import checkpoint as ckpt
+    from .utils.torch_export import save_safetensors
+
+    try:
+        sd, step = ckpt.load_train_params(args.checkpoint_dir, step=args.step,
+                                          ema=args.ema,
+                                          input_head=args.input_head)
+    except ValueError as e:
+        raise SystemExit(str(e))
+    cfg, _ = _configs(args)
+    # the run's model must be this config's: names and shapes, strictly
+    VideoGPT(cfg, device="meta", input_head=args.input_head
+             ).load_state_dict(sd, strict=True, assign=True)
+    save_safetensors(sd, args.output)
+    print(f"exported step {step}{' (EMA)' if args.ema else ''} "
+          f"to {args.output}")
+
+
+def _add_image_parsers(sub) -> None:
+    gi = sub.add_parser("generate-image",
+                        help="single-shot text(+image) -> image generation")
+    gi.add_argument("--prompt", type=str, required=True)
+    gi.add_argument("--input_images", type=str, nargs="*", default=None)
+    gi.add_argument("--output", type=str, default="result/image.png")
+    gi.add_argument("--height", type=int, default=1024)
+    gi.add_argument("--width", type=int, default=1024)
+    gi.add_argument("--num_inference_steps", type=int, default=50)
+    gi.add_argument("--guidance_scale", type=float, default=3.0)
+    gi.add_argument("--img_guidance_scale", type=float, default=1.6)
+    gi.add_argument("--max_input_image_size", type=int, default=1024)
+    gi.add_argument("--model_ckpt", type=str, default=None,
+                    help="reference-format torch/safetensors checkpoint")
+    gi.add_argument("--checkpoint_dir", type=str, default=None,
+                    help="a `train-image` run's checkpoint directory "
+                         "(<results_dir>/checkpoints): train -> serve")
+    gi.add_argument("--step", type=int, default=None)
+    gi.add_argument("--ema", action="store_true",
+                    help="the EMA weights of --checkpoint_dir")
+    gi.add_argument("--vae_ckpt", type=str, default=None)
+    gi.add_argument("--tokenizer", type=str, default=None,
+                    help="Hugging Face tokenizer path for the prompts "
+                         "(default: the word-hash stub)")
+    gi.add_argument("--dtype", default="bf16", choices=["bf16", "fp32"],
+                    help="fp32 runs on the CPU only: the CUDA kernels are "
+                         "bf16")
+    gi.add_argument("--tiny_model", action="store_true")
+    gi.add_argument("--no_separate_cfg", action="store_true",
+                    help="run the guidance contexts as one padded batch "
+                         "instead of each at its natural length")
+    gi.add_argument("--cfg_interval", type=float, nargs=2, default=None,
+                    metavar=("LO", "HI"),
+                    help="apply guidance only where sigma is in [LO, HI)")
+    gi.add_argument("--uncond_refresh", type=int, default=1,
+                    help="evaluate the guidance contexts only every k-th "
+                         "guided step")
+    gi.add_argument("--seed", type=int, default=None)
+    gi.add_argument("--device", default="cuda",
+                    help="'cuda' (default; raises without a GPU) or 'cpu'")
+    gi.set_defaults(fn=cmd_generate_image)
+
+    ti = sub.add_parser("train-image",
+                        help="image-generation training (json dataset, "
+                             "condition dropout, velocity target) on one "
+                             "device")
+    ti.add_argument("--json_file", type=str, required=True,
+                    help="json/jsonl of instruction/input_images/"
+                         "output_image records")
+    ti.add_argument("--image_root", type=str, default=None)
+    ti.add_argument("--tokenizer", type=str, default=None)
+    ti.add_argument("--height", type=int, default=512)
+    ti.add_argument("--width", type=int, default=512)
+    ti.add_argument("--input_height", type=int, default=None)
+    ti.add_argument("--input_width", type=int, default=None)
+    ti.add_argument("--condition_dropout_prob", type=float, default=0.1)
+    ti.add_argument("--max_input_images", type=int, default=3)
+    ti.add_argument("--max_input_length_limit", type=int, default=18000)
+    ti.add_argument("--batch_size_per_device", type=int, default=1)
+    ti.add_argument("--lr", type=float, default=1e-4)
+    ti.add_argument("--max_steps", type=int, default=100000)
+    ti.add_argument("--num_workers", type=int, default=1,
+                    help="batch-building worker threads")
+    ti.add_argument("--prefetch_depth", type=int, default=2)
+    ti.add_argument("--results_dir", type=str, default="results_image")
+    ti.add_argument("--log_every", type=int, default=100)
+    ti.add_argument("--ckpt_every", type=int, default=1000)
+    ti.add_argument("--mixed_precision", default="bf16",
+                    choices=["bf16", "no"],
+                    help="bf16 compute over fp32 parameters; 'no' is fp32 "
+                         "and runs on the CPU only")
+    ti.add_argument("--use_ema", action="store_true")
+    ti.add_argument("--no_auto_resume", action="store_true")
+    ti.add_argument("--vae_ckpt", type=str, default=None)
+    ti.add_argument("--tiny_model", action="store_true")
+    ti.add_argument("--seed", type=int, default=0)
+    ti.add_argument("--device", default="cuda",
+                    help="'cuda' (default; raises without a GPU) or 'cpu'")
+    # accepted so a JAX command line parses; a non-default value raises
+    # (not ported yet, see ROADMAP.md queue 1)
+    ti.add_argument("--offload_optimizer", action="store_true")
+    ti.add_argument("--offload_grad_splits", type=int, default=1)
+    ti.add_argument("--zero3", action="store_true")
+    for flag in ("mesh_data", "mesh_seq", "mesh_tensor"):
+        ti.add_argument(f"--{flag}", type=int, default=1)
+    ti.add_argument("--report_to", default="none",
+                    choices=["none", "tensorboard"])
+    ti.set_defaults(fn=cmd_train_image)
+
+
+def _add_export_parser(sub) -> None:
+    e = sub.add_parser("export", help="a training run's checkpoint -> the "
+                                      "reference's safetensors")
+    e.add_argument("--checkpoint_dir", type=str, required=True)
+    e.add_argument("--output", type=str, default="model.safetensors")
+    e.add_argument("--step", type=int, default=None,
+                   help="checkpoint step (default: latest)")
+    e.add_argument("--ema", action="store_true",
+                   help="export the EMA weights")
+    e.add_argument("--input_head", action="store_true",
+                   help="the run trained with --input_output_return")
+    e.add_argument("--tiny_model", action="store_true")
+    e.set_defaults(fn=cmd_export)
 
 
 def main(argv=None):

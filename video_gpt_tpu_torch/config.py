@@ -1,10 +1,10 @@
 """Model, sampler and training configuration.
 
 Port of ``video_gpt_tpu/config.py``: the serving fields, and the fields of
-the single-device training path with its LoRA and distillation recipes.
-The mesh, offload and ``input_head`` fields are not ported;
-:func:`check_train_config` raises on a non-default value of any of them,
-and on the combinations the JAX trainer refuses.
+the single-device training path with its LoRA, distillation and aux
+input-head (``input_output_return``) recipes. The mesh and offload fields
+are not ported; :func:`check_train_config` raises on a non-default value
+of any of them, and on the combinations the JAX trainer refuses.
 """
 from __future__ import annotations
 
@@ -144,7 +144,6 @@ class TrainConfig:
 # field -> the ROADMAP queue-1 item that ports it
 _NOT_PORTED = {
     "offload_optimizer": "offload",
-    "input_output_return": "input_head",
 }
 
 

@@ -13,7 +13,9 @@ With ``cfg.remat`` each layer is recomputed in the backward
 
 The KV cache is heads-major [num_layers, B, H_kv, L_ctx, head_dim], the
 layout the decode kernels read; unlike the TPU package it carries no
-96->128 lane pad.
+96->128 lane pad. A cached call goes through ``attend_cached``: with a
+columnar DecodeMask the cache and the tail are separate operands of K1,
+with a precomputed bias (or none) they are concatenated along the keys.
 """
 from __future__ import annotations
 
@@ -25,7 +27,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..config import ModelConfig
-from ..ops.attention import AttnMeta, attend, attend_decode_split
+from ..ops.attention import AttnMeta, attend, attend_cached
 
 
 class KVCache(NamedTuple):
@@ -122,11 +124,8 @@ class Phi3Attention(nn.Module):
         k = apply_rope(k.view(b, l, hkv, d), cos, sin)
         v = v.view(b, l, hkv, d)
         if cache is not None:
-            # columnar decode (``bias`` a DecodeMask): cache and tail feed
-            # the kernel as separate operands, no per-step concat copy
-            out = attend_decode_split(q, cache[0], cache[1],
-                                      k.transpose(1, 2), v.transpose(1, 2),
-                                      bias)
+            out = attend_cached(q, cache[0], cache[1], k.transpose(1, 2),
+                                v.transpose(1, 2), q_meta, k_meta, bias)
         else:
             out = attend(q, k, v, q_meta, k_meta, bias=bias)
         return self.o_proj(out.reshape(b, l, h * d)), (k, v)

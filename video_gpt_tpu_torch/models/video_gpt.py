@@ -8,12 +8,19 @@ assembled with the layout's precomputed gather maps; forward variants:
 - ``extend_cache``: grow that cache by new clean frames;
 - ``decode``: one denoise evaluation over the noisy tail against the cache.
 
+Clean conditions are one [N, hl, wl, C] tensor (the video path) or a tuple
+of such groups of different sizes (an image prompt's input images, each at
+its own token length), embedded as one flat patch stream in group order.
+With ``input_head`` the model carries the aux input-reconstruction head
+``input_final_layer`` (zero at init), read by
+``forward(..., input_output_return=True)``.
+
 Module names follow the reference's torch model, so its state dict (and
 ``utils.weights.videogpt_state_dict_from_jax``) loads with ``strict=True``.
 """
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Optional, Tuple
+from typing import Dict, NamedTuple, Tuple
 
 import torch
 from torch import nn
@@ -89,6 +96,14 @@ def extend_mask(q_meta: AttnMeta, k_meta: AttnMeta) -> DecodeMask:
                       q_off=q_meta.index.to(torch.int32))
 
 
+def _has_frames(clean) -> bool:
+    if clean is None:
+        return False
+    if isinstance(clean, (tuple, list)):
+        return any(g.shape[0] > 0 for g in clean)
+    return clean.shape[0] > 0
+
+
 def _scatter(emb: torch.Tensor, src: torch.Tensor, values: torch.Tensor
              ) -> torch.Tensor:
     """Replace emb[b, l] with values[src[b, l]] where src >= 0. ``values``
@@ -110,7 +125,7 @@ class VideoGPT(nn.Module):
     package's flax ``dtype=bf16`` over fp32 parameters)."""
 
     def __init__(self, cfg: ModelConfig, device=None, dtype=torch.float32,
-                 train_init: bool = False):
+                 train_init: bool = False, input_head: bool = False):
         super().__init__()
         self.cfg = cfg
         self.train_init = train_init
@@ -124,6 +139,11 @@ class VideoGPT(nn.Module):
         self.t_embedder = TimestepEmbedder(d, cfg.freq_embed_size, **kw)
         self.final_layer = FinalLayer(d, cfg.patch_size, cfg.in_channels,
                                       zero_init=train_init, **kw)
+        if input_head:
+            # zero at init in both packages, whatever train_init says
+            self.input_final_layer = nn.Linear(
+                d, cfg.patch_size ** 2 * cfg.in_channels, **kw)
+            self.input_final_layer.zero_init = True
         self.llm = Phi3Decoder(cfg, **kw)
         self._pos_tables: Dict[tuple, torch.Tensor] = {}
 
@@ -139,7 +159,8 @@ class VideoGPT(nn.Module):
         zeros (a zero-init head makes any parity or smoke run vacuous),
         unless the model is built with ``train_init``: then the modules
         marked ``zero_init`` (the head and the noisy-patch embedder) are
-        zero."""
+        zero. The aux input head is always zero, as the JAX package
+        initialises it."""
         for name, p in self.named_parameters():
             if name.endswith("norm.weight"):
                 p.fill_(1.0)
@@ -185,51 +206,72 @@ class VideoGPT(nn.Module):
         pos = self._pos_embed(latents.shape[1], latents.shape[2])
         return tok + pos.to(tok.dtype)[None]
 
+    def _embed_clean_flat(self, clean) -> torch.Tensor:
+        """Clean conditions as a flat [sum_i N_i n_i, D] patch stream: one
+        [N, hl, wl, C] tensor or a tuple/list of such groups (each group at
+        its own size), in group order, the order ``clean_src`` indexes."""
+        groups = clean if isinstance(clean, (tuple, list)) else (clean,)
+        flat = [self._embed_frames(g, is_input=True).flatten(0, 1)
+                for g in groups if g.shape[0] > 0]
+        return flat[0] if len(flat) == 1 else torch.cat(flat, dim=0)
+
     def _assemble(self, batch: Batch, noisy_latents, t, clean_latents):
         emb = self._embed_ids(batch.input_ids)
         if noisy_latents is not None and noisy_latents.shape[0] > 0:
             emb = _scatter(emb, batch.noisy_src,
                            self._embed_frames(noisy_latents, is_input=False))
             emb = _scatter(emb, batch.time_src, self.time_token(t))
-        if clean_latents is not None and clean_latents.shape[0] > 0:
+        if _has_frames(clean_latents):
             emb = _scatter(emb, batch.clean_src,
-                           self._embed_frames(clean_latents, is_input=True))
+                           self._embed_clean_flat(clean_latents))
         return emb
 
-    def _heads(self, hidden, gather, t, shape):
-        """Per-frame head: gather patch states, adaLN head, unpatchify."""
+    def _heads(self, hidden, gather, t, shape, aux: bool = False):
+        """Per-frame head: gather patch states, adaLN head (or, with
+        ``aux``, the input-reconstruction head), unpatchify."""
         n_frames, hl, wl = shape
         flat = hidden.reshape(-1, hidden.shape[-1])
         img = flat[gather.reshape(-1).long()].reshape(n_frames, -1,
                                                       hidden.shape[-1])
-        out = self.final_layer(img, self.t_embedder(t))
+        if aux:
+            out = self.input_final_layer(img)
+        else:
+            out = self.final_layer(img, self.t_embedder(t))
         return unpatchify(out, hl, wl, self.cfg.patch_size,
                           self.cfg.in_channels)
 
     # ---- forward variants --------------------------------------------------
 
     def forward(self, batch: Batch, noisy_latents: torch.Tensor,
-                t: torch.Tensor, clean_latents: Optional[torch.Tensor] = None,
-                bias=None) -> torch.Tensor:
+                t: torch.Tensor, clean_latents=None,
+                input_output_return: bool = False, bias=None):
         """Full-sequence forward: x1-prediction per noisy frame
-        [Nn, hl, wl, C]. ``bias`` (a precomputed bias or a DecodeMask) lets
-        loop callers pay the step-invariant mask once."""
+        [Nn, hl, wl, C]; with ``input_output_return`` also the aux head's
+        reconstruction of each clean frame [Nc, hl, wl, C] (the model must
+        carry ``input_head``). ``bias`` (a precomputed bias or a
+        DecodeMask) lets loop callers pay the step-invariant mask once."""
         emb = self._assemble(batch, noisy_latents, t, clean_latents)
         if bias is None:
             bias = maybe_bias(self.cfg, batch.meta, batch.meta)
         hidden, _ = self.llm(emb, batch.pos_ids, batch.meta, batch.meta,
                              bias=bias)
         nn_, hl, wl, _ = noisy_latents.shape
-        return self._heads(hidden, batch.noisy_gather, t, (nn_, hl, wl))
+        pred = self._heads(hidden, batch.noisy_gather, t, (nn_, hl, wl))
+        if input_output_return:
+            nc, hc, wc = clean_latents.shape[:3]
+            aux = self._heads(hidden, batch.clean_gather, None, (nc, hc, wc),
+                              aux=True)
+            return pred, aux
+        return pred
 
-    def prefill(self, batch: Batch, clean_latents: Optional[torch.Tensor],
-                prefix_len: int) -> KVCache:
+    def prefill(self, batch: Batch, clean_latents, prefix_len: int
+                ) -> KVCache:
         """Run the clean-context prefix once; return per-layer K/V."""
         lp = prefix_len
         emb = self._embed_ids(batch.input_ids[:, :lp])
-        if clean_latents is not None and clean_latents.shape[0] > 0:
+        if _has_frames(clean_latents):
             emb = _scatter(emb, batch.clean_src[:, :lp],
-                           self._embed_frames(clean_latents, is_input=True))
+                           self._embed_clean_flat(clean_latents))
         meta_p = batch.meta.cols(slice(0, lp))
         _, cache = self.llm(emb, batch.pos_ids[:, :lp], meta_p, meta_p,
                             bias=maybe_bias(self.cfg, meta_p, meta_p),
@@ -268,9 +310,13 @@ class VideoGPT(nn.Module):
                t: torch.Tensor, cache: KVCache, tail_len: int,
                bias=None) -> torch.Tensor:
         """One denoise evaluation over the noisy tail against the cache.
-        The layout must pass ``layout.decode_rank``: the cached attention
-        takes the columnar :class:`DecodeMask` only (``bias``, by default
-        built here)."""
+        ``bias`` selects the cached attention: a columnar
+        :class:`DecodeMask` (the video path, whose layouts pass
+        ``layout.decode_rank``) runs K1 over the cache and the tail as
+        separate operands; a :class:`BiasMap` of the tail's rows over every
+        key (the image path's rectangular bias, built once per context)
+        runs K3, and None K6, over their concatenation. By default the
+        bias is built here, as :func:`maybe_bias` builds it."""
         lt = tail_len
         full_l = batch.input_ids.shape[1]
         emb = self._embed_ids(batch.input_ids[:, -lt:])
@@ -279,7 +325,7 @@ class VideoGPT(nn.Module):
         emb = _scatter(emb, batch.time_src[:, -lt:], self.time_token(t))
         q_meta = batch.meta.tail(lt)
         if bias is None:
-            bias = decode_mask(q_meta, batch.meta)
+            bias = maybe_bias(self.cfg, q_meta, batch.meta)
         hidden, _ = self.llm(emb, batch.pos_ids[:, -lt:], q_meta, batch.meta,
                              cache=cache, bias=bias)
         # remap full-sequence gather indices onto the tail

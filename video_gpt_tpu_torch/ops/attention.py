@@ -127,3 +127,23 @@ def attend_decode_split(q: torch.Tensor, k_cache: torch.Tensor,
         raise TypeError(f"attend_decode_split needs a DecodeMask, got "
                         f"{type(mask).__name__}")
     return flash_mha_decode_split(q, k_cache, v_cache, k_new, v_new, mask)
+
+
+def attend_cached(q: torch.Tensor, k_cache: torch.Tensor,
+                  v_cache: torch.Tensor, k_new: torch.Tensor,
+                  v_new: torch.Tensor, q_meta: AttnMeta, k_meta: AttnMeta,
+                  bias=None) -> torch.Tensor:
+    """Attention of the new tokens' queries over a heads-major cache
+    [B,Hkv,Lc,D] and their own keys [B,Hkv,Lt,D] (views), the JAX
+    ``Phi3Attention``'s cached branches. A ``DecodeMask`` runs K1 over the
+    two operands (:func:`attend_decode_split`); a precomputed bias (a
+    ``BiasMap`` [B, Lt, Lc+Lt], the image path's rectangular decode bias)
+    runs K3, and None K6 with ``q_meta``/``k_meta``, over the heads-major
+    concatenation, handed to :func:`attend` as a [B,Lk,Hkv,D] view."""
+    from .flash_attention import DecodeMask
+    if isinstance(bias, DecodeMask):
+        return attend_decode_split(q, k_cache, v_cache, k_new, v_new, bias)
+    k = torch.cat([k_cache.to(k_new.dtype), k_new], dim=2)
+    v = torch.cat([v_cache.to(v_new.dtype), v_new], dim=2)
+    return attend(q, k.transpose(1, 2), v.transpose(1, 2), q_meta, k_meta,
+                  bias=bias)

@@ -79,13 +79,16 @@ class VideoGPTPipeline:
               dtype: torch.dtype = torch.bfloat16,
               state_dict: Optional[dict] = None,
               vae_state_dict: Optional[dict] = None,
-              seed: int = 0) -> "VideoGPTPipeline":
+              seed: int = 0, input_head: bool = False) -> "VideoGPTPipeline":
         """Model and VAE allocated on ``device`` in ``dtype``, loaded from
         the given state dicts (reference / diffusers names, strict) or
-        initialised at random on the device from ``seed``."""
+        initialised at random on the device from ``seed``. ``input_head``
+        builds the model with the aux input head, so that the weights of a
+        run trained with ``input_output_return`` load (serving never reads
+        the head)."""
         device = resolve_device(device)
-        model = VideoGPT(cfg, device="meta", dtype=dtype).to_empty(
-            device=device)
+        model = VideoGPT(cfg, device="meta", dtype=dtype,
+                         input_head=input_head).to_empty(device=device)
         vae = AutoencoderKL(vae_cfg, device="meta", dtype=dtype).to_empty(
             device=device)
         gen = torch.Generator(device).manual_seed(seed)

@@ -12,7 +12,7 @@ sigma grid is a Python loop here. Semantics:
 """
 from __future__ import annotations
 
-from typing import Callable, Optional, Tuple
+from typing import Callable, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -102,21 +102,27 @@ def _timesteps(z: torch.Tensor, sigma: np.float32) -> torch.Tensor:
 def sample(z0: torch.Tensor,
            denoise_fn: Callable[[torch.Tensor, torch.Tensor], torch.Tensor],
            cfg: SchedulerConfig, use_cfg: bool = False,
-           cfg_scale: float = 1.0) -> torch.Tensor:
+           cfg_scale: float = 1.0,
+           guidance_fn: Optional[Callable[[torch.Tensor], torch.Tensor]]
+           = None) -> torch.Tensor:
     """Run the Euler ODE from noise to clip latents. ``denoise_fn(z, t)``
     returns the model prediction (t is [N]); with ``use_cfg`` the first half
-    of z is the conditional copy and must equal the second half."""
+    of z is the conditional copy and must equal the second half, and the
+    guidance mixes the halves (``guidance_fn``, default :func:`cfg_mix` at
+    ``cfg_scale``: any row split, such as the image path's 3-way one)."""
     sigmas = sigma_schedule(cfg.num_steps, cfg.time_shifting_factor,
                             cfg.begin_time)
+    guide = guidance_fn if guidance_fn is not None else (
+        lambda v: cfg_mix(v, cfg_scale))
     z = z0
     for i in range(cfg.num_steps):
         pred = denoise_fn(z, _timesteps(z, sigmas[i])).float()
         if cfg.prediction_type == "x1":
             v = (pred - z.float()) / float(np.float32(1.0) - sigmas[i])
             if use_cfg:
-                v = cfg_mix(v, cfg_scale)
+                v = guide(v)
         else:
-            v = cfg_mix(pred, cfg_scale) if use_cfg else pred
+            v = guide(pred) if use_cfg else pred
         z = (z.float() + float(sigmas[i + 1] - sigmas[i]) * v).to(z.dtype)
     return z
 
@@ -158,5 +164,38 @@ def sample_separate_cfg(
             pred = cond.float()
         else:
             pred = uncond.float() + cfg_scale * (cond.float() - uncond.float())
+        z = _euler(cfg, sigmas, z, i, pred)
+    return z
+
+
+def sample_separate_multi(
+    z0: torch.Tensor,
+    denoise_fns: Sequence[Callable[[torch.Tensor, torch.Tensor],
+                                   torch.Tensor]],
+    combine: Callable[[Sequence[torch.Tensor]], torch.Tensor],
+    cfg: SchedulerConfig,
+) -> torch.Tensor:
+    """Euler ODE where each guidance context evaluates separately at its
+    natural length and ``combine(preds) -> pred`` mixes their fp32
+    predictions, given in ``denoise_fns`` order with the conditional
+    context first (the image path's 2- and 3-way CFG). Per
+    :func:`step_kinds`: ``'cond'`` steps evaluate the conditional context
+    alone and use its prediction raw; ``'cfg_reuse'`` steps evaluate it
+    alone and combine it with the other contexts' last predictions (kept in
+    z0's dtype). z0: [N, hl, wl, C], one copy."""
+    sigmas = sigma_schedule(cfg.num_steps, cfg.time_shifting_factor,
+                            cfg.begin_time)
+    z = z0
+    cache = [torch.zeros_like(z0) for _ in denoise_fns[1:]]
+    for i, kind in enumerate(step_kinds(cfg)):
+        t = _timesteps(z, sigmas[i])
+        if kind == "cfg":
+            preds = [fn(z, t).float() for fn in denoise_fns]
+            cache = [p.to(z0.dtype) for p in preds[1:]]
+            pred = combine(preds)
+        else:
+            cond = denoise_fns[0](z, t).float()
+            pred = cond if kind == "cond" else combine(
+                [cond] + [c.float() for c in cache])
         z = _euler(cfg, sigmas, z, i, pred)
     return z

@@ -39,5 +39,31 @@ class TokenIds:
     img_close: int = 32003
     diffusion: int = 32004
 
+    @classmethod
+    def from_tokenizer(cls, tokenizer) -> "TokenIds":
+        """The structural ids of a checkpoint's tokenizer: ``<img>``,
+        ``</img>`` and ``<|diffusion|>`` are added tokens of the shipped
+        tokenizer, and its pad id. An id the tokenizer does not know (or
+        maps to its unknown token) keeps the class default, which is only
+        a smoke-run assumption."""
+        def tid(tok, default):
+            try:
+                t = tokenizer.convert_tokens_to_ids(tok)
+                unk = getattr(tokenizer, "unk_token_id", None)
+                if t is None or t < 0 or (unk is not None and t == unk):
+                    return default
+                return int(t)
+            except Exception:
+                return default
+
+        pad = getattr(tokenizer, "pad_token_id", None)
+        return cls(
+            pad=int(pad) if pad is not None else cls.pad,
+            slot=cls.slot,
+            img_open=tid("<img>", cls.img_open),
+            img_close=tid("</img>", cls.img_close),
+            diffusion=tid("<|diffusion|>", cls.diffusion),
+        )
+
 
 DEFAULT_TOKEN_IDS = TokenIds()

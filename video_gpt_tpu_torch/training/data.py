@@ -18,6 +18,16 @@ from ..models.video_gpt import Batch
 from .loss import LossInputs
 
 
+def to_device(batch, device):
+    """A batch (nested NamedTuples of tensors) with every tensor moved to
+    ``device``."""
+    if isinstance(batch, torch.Tensor):
+        return batch.to(device)
+    if isinstance(batch, tuple):
+        return type(batch)(*(to_device(x, device) for x in batch))
+    return batch
+
+
 class TrainBatch(NamedTuple):
     inputs: LossInputs           # x1 / clean_latents None until encoded
     pixels: torch.Tensor         # [B*F, H, W, 3] in [-1, 1]
@@ -27,13 +37,7 @@ class TrainBatch(NamedTuple):
 
     def to(self, device) -> "TrainBatch":
         """Every tensor of the batch moved to ``device``."""
-        def move(x):
-            if isinstance(x, torch.Tensor):
-                return x.to(device)
-            if isinstance(x, tuple):  # the NamedTuples of the batch
-                return type(x)(*(move(y) for y in x))
-            return x
-        return move(self)
+        return to_device(self, device)
 
 
 def collate(samples: Sequence, n_img: int, cls_weight: Optional[float] = None,
@@ -86,7 +90,8 @@ def collate(samples: Sequence, n_img: int, cls_weight: Optional[float] = None,
         x1=None, clean_latents=None,
         noisy_frame_row=t(layout.noisy_frame_row),
         noisy_frame_block=t(layout.noisy_frame_block),
-        frame_weights=frame_weights, batch_uncond=batch_uncond)
+        frame_weights=frame_weights, clean_weights=t(clean_valid),
+        batch_uncond=batch_uncond)
     pixels = np.concatenate([s.pixels for s in samples], axis=0)
     return TrainBatch(inputs=inputs, pixels=t(pixels),
                       noisy_sel=t(noisy_sel.astype(np.int32)),

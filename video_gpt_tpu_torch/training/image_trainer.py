@@ -1,0 +1,200 @@
+"""Training loop of the image-generation (OmniGen ancestor) family.
+
+Port of ``video_gpt_tpu/training/image_trainer.py`` for one device and no
+mesh. One step (:meth:`ImageGenTrainer.train_step`): the VAE encodes the
+output and the input images under ``no_grad`` with posterior draws, then
+the flow-matching loss on the velocity target (x1 - x0, one block per
+row), the backward with per-layer recompute, global-norm clip, AdamW and
+the gated EMA of ``training.train_state``. Every random number of step
+``i`` comes from one ``torch.Generator`` seeded from (seed, i). The token
+stream of every batch is padded to one length, ``pad_to`` (default
+``min(max_input_length_limit, 512 + max_input_images * n_region + 1 +
+n_out)``). Runs on CUDA unless the caller asks for the CPU.
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+import time
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..config import ModelConfig, TrainConfig, check_train_config
+from ..data.image_text import (ImageGenTrainBatch, ImageTextDataset,
+                               collate_image_gen)
+from ..data.prefetch import Prefetcher
+from ..image_gen import ImageGenProcessor
+from ..models.vae import AutoencoderKL, VAEConfig
+from ..models.video_gpt import VideoGPT
+from ..sampling.pipeline import resolve_device
+from ..utils import checkpoint as ckpt
+from .loss import draw_loss_noise
+from .train_state import (TrainState, autocast, init_train_state,
+                          make_train_step)
+
+
+class ImageGenTrainer:
+    def __init__(
+        self,
+        model_cfg: ModelConfig,
+        train_cfg: TrainConfig,
+        json_file: Optional[str],
+        image_root: Optional[str],
+        tokenizer,
+        output_size: Tuple[int, int] = (512, 512),
+        input_size: Optional[Tuple[int, int]] = None,
+        condition_dropout_prob: float = 0.1,
+        max_input_images: int = 3,
+        pad_to: Optional[int] = None,
+        vae_cfg: VAEConfig = VAEConfig(),
+        vae_state_dict: Optional[dict] = None,
+        init_state_dict: Optional[dict] = None,
+        device="cuda",
+        seed: int = 0,
+    ):
+        """``json_file`` None builds no dataset, for a caller that feeds
+        :meth:`train_step` its own batches. Without state dicts the weights
+        are random from ``seed`` (the head and the noisy-patch embedder
+        zero, as a fresh training model's)."""
+        check_train_config(train_cfg)
+        if train_cfg.gradient_checkpointing and not model_cfg.remat:
+            model_cfg = dataclasses.replace(model_cfg, remat=True)
+        self.model_cfg = model_cfg
+        self.cfg = train_cfg
+        self.vae_cfg = vae_cfg
+        self.device = resolve_device(device)
+        self.seed = seed
+        self.processor = ImageGenProcessor(tokenizer,
+                                           token_ids=model_cfg.token_ids)
+        self.output_size = tuple(output_size)
+        self.input_size = tuple(input_size or output_size)
+        self.max_input_images = max_input_images
+        self.dataset = None
+        if json_file is not None:
+            self.dataset = ImageTextDataset(
+                json_file, image_root, self.processor,
+                output_size=self.output_size, input_size=self.input_size,
+                condition_dropout_prob=condition_dropout_prob,
+                max_input_length_limit=train_cfg.max_input_length_limit,
+                seed=seed)
+        # one token budget: a text allowance, the worst case of image
+        # regions, TIME and the output tokens
+        n_out = (self.output_size[0] // 16) * (self.output_size[1] // 16)
+        n_region = (self.input_size[0] // 16) * (self.input_size[1] // 16)
+        self.pad_to = pad_to if pad_to is not None else min(
+            train_cfg.max_input_length_limit,
+            512 + max_input_images * n_region + 1 + n_out)
+        self._vae_state_dict = vae_state_dict
+        self._init_state_dict = init_state_dict
+        self.model: Optional[VideoGPT] = None
+        self.vae: Optional[AutoencoderKL] = None
+        self._step_fn = None
+
+    def make_batch(self, index: int) -> ImageGenTrainBatch:
+        """Batch ``index`` of the data order, on the host; a record's epoch
+        is its visit count, which re-rolls its condition dropout."""
+        b = self.cfg.batch_size_per_device
+        n = len(self.dataset)
+        samples = [self.dataset.sample((index * b + i) % n,
+                                       (index * b + i) // n)
+                   for i in range(b)]
+        return collate_image_gen(samples, self.pad_to, self.max_input_images,
+                                 token_ids=self.model_cfg.token_ids)
+
+    def build(self) -> TrainState:
+        """Model, VAE and optimizer on the device; the train state."""
+        dev = self.device
+        model = VideoGPT(self.model_cfg, device="meta", dtype=torch.float32,
+                         train_init=True,
+                         input_head=self.cfg.input_output_return).to_empty(
+                             device=dev)
+        if self._init_state_dict is None:
+            model.init_random_(torch.Generator(dev).manual_seed(self.seed + 3))
+        else:
+            model.load_state_dict(self._init_state_dict, strict=True)
+        vae = AutoencoderKL(self.vae_cfg, device="meta",
+                            dtype=torch.float32).to_empty(device=dev)
+        if self._vae_state_dict is not None:
+            vae.load_state_dict(self._vae_state_dict, strict=True)
+        else:
+            vae.init_random_(torch.Generator(dev).manual_seed(self.seed + 1))
+        self.model, self.vae = model.train(), vae.eval().requires_grad_(False)
+        self._step_fn = make_train_step(model, self.cfg,
+                                        prediction_target="velocity")
+        return init_train_state(model, self.cfg)
+
+    def step_generator(self, step_idx: int) -> torch.Generator:
+        """The generator of step ``step_idx``'s random numbers."""
+        seed = int(np.random.SeedSequence([self.seed, step_idx])
+                   .generate_state(1)[0])
+        return torch.Generator(self.device).manual_seed(seed)
+
+    def train_step(self, state: TrainState, tb: ImageGenTrainBatch,
+                   step_idx: int):
+        """One full step on a batch already on the device: the output and
+        the input images VAE-encoded under no_grad (posterior draws), then
+        the velocity loss, backward, clip, AdamW and the gated EMA. Returns
+        the step's metrics (device tensors)."""
+        gen = self.step_generator(step_idx)
+        with torch.no_grad(), autocast(self.cfg, self.device):
+            x1 = self.vae.encode(tb.out_pixels, noise=gen)
+            clean = self.vae.encode(tb.in_pixels, noise=gen)
+        inputs = tb.inputs._replace(x1=x1, clean_latents=clean)
+        draws = draw_loss_noise(gen, inputs, max_blocks=1)
+        return self._step_fn(state, inputs, draws)
+
+    # ---- loop --------------------------------------------------------------
+
+    def run(self, max_steps: int, log_writer=None) -> TrainState:
+        if self.dataset is None:
+            raise ValueError("ImageGenTrainer.run needs a json_file")
+        if self.cfg.max_steps is None:
+            # the cosine schedule decays over the run's step budget
+            self.cfg = dataclasses.replace(self.cfg, max_steps=max_steps)
+        cfg = self.cfg
+        os.makedirs(cfg.results_dir, exist_ok=True)
+        with open(os.path.join(cfg.results_dir, "train_args.json"), "w") as f:
+            json.dump({"train": dataclasses.asdict(cfg),
+                       "model": {k: str(v) for k, v in
+                                 dataclasses.asdict(self.model_cfg).items()}},
+                      f, indent=2, default=str)
+        ckpt_dir = os.path.join(cfg.results_dir, "checkpoints")
+        state = self.build()
+        start_step = 0
+        if cfg.auto_resume and ckpt.latest_step(ckpt_dir) is not None:
+            state, start_step = ckpt.restore_checkpoint(ckpt_dir, state)
+            print(f"resumed from step {start_step}", flush=True)
+        prefetcher = Prefetcher(self.make_batch, depth=cfg.prefetch_depth,
+                                workers=cfg.num_workers, start=start_step)
+        writer = ckpt.CheckpointWriter(ckpt_dir)
+        t0, running = time.time(), []
+        try:
+            for step_idx in range(start_step, max_steps):
+                tb = prefetcher.get().to(self.device)
+                metrics = self.train_step(state, tb, step_idx)
+                running.append(metrics["loss"])
+                if (step_idx + 1) % cfg.log_every == 0 \
+                        or step_idx == start_step:
+                    sps = len(running) / max(time.time() - t0, 1e-9)
+                    mean_loss = float(torch.stack(running).mean())
+                    grad_norm = float(metrics["grad_norm"])
+                    print(f"step {step_idx + 1}: loss={mean_loss:.4f} "
+                          f"grad_norm={grad_norm:.3f} steps/sec={sps:.3f}",
+                          flush=True)
+                    if log_writer is not None:
+                        log_writer.add_scalar("train/loss", mean_loss,
+                                              step_idx + 1)
+                        log_writer.add_scalar("train/grad_norm", grad_norm,
+                                              step_idx + 1)
+                        log_writer.add_scalar("train/steps_per_sec", sps,
+                                              step_idx + 1)
+                    running, t0 = [], time.time()
+                if (step_idx + 1) % cfg.ckpt_every == 0:
+                    writer.save(step_idx + 1, state)
+        finally:
+            prefetcher.close()
+            writer.close()  # the last save is on disk before returning
+        return state

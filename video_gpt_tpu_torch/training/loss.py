@@ -8,7 +8,11 @@ Port of ``video_gpt_tpu/training/loss.py``:
   interleaved recipe is the case of blocks of one frame);
 - conditioning frames get low noise: t_input ~ U[input_noise, 1];
 - optional first-frame weighting (``frame_weights``) and the higher-order
-  loss rescale (``order != 2``).
+  loss rescale (``order != 2``);
+- ``prediction_target='velocity'`` (the image family's target x1 - x0);
+- ``input_output_return``: the aux input-reconstruction loss over the
+  clean frames, averaged with the per-frame losses over every frame;
+  ``clean_weights`` drops the clean slots that only pad a shape.
 
 The JAX package draws x0, the timestep table, x0c and t_input from one
 PRNG key. The port takes them as a :class:`LossDraws`, drawn from a
@@ -35,6 +39,8 @@ class LossInputs(NamedTuple):
     noisy_frame_row: torch.Tensor    # [Nn] int32
     noisy_frame_block: torch.Tensor  # [Nn] int32
     frame_weights: Optional[torch.Tensor] = None  # [Nn] loss weights
+    # [Nc] 1.0 for real clean frames, 0.0 for shape-padding slots
+    clean_weights: Optional[torch.Tensor] = None
     # the unconditional branch of guidance distillation ('uncond' scheme:
     # same rows and blocks, noisy frames only, the same noisy order)
     batch_uncond: Optional[Batch] = None
@@ -72,10 +78,17 @@ def sample_block_timesteps(t_table: torch.Tensor, frame_row: torch.Tensor,
 
 
 def training_loss(model, inputs: LossInputs, draws: LossDraws,
-                  input_noise: float = 0.9, order: int = 2):
+                  input_noise: float = 0.9, order: int = 2,
+                  prediction_target: str = "x1",
+                  input_output_return: bool = False):
     """(scalar loss, aux dict with the per-frame losses) of ``model`` on
     ``inputs`` with the random numbers ``draws``. The forward runs under
-    the caller's autocast; the loss is taken in fp32."""
+    the caller's autocast; the loss is taken in fp32.
+    ``prediction_target`` is ``'x1'`` (the video path) or ``'velocity'``
+    (the image family: x1 - x0). ``input_output_return`` adds the aux
+    head's reconstruction loss of the clean frames (the model must carry
+    ``input_head``): loss = (sum per_frame + sum per_clean) / (Nn +
+    n_clean), with n_clean the real clean frames of ``clean_weights``."""
     x1, clean = inputs.x1, inputs.clean_latents
     x0 = draws.x0.to(x1.dtype)
     t = sample_block_timesteps(draws.t_table, inputs.noisy_frame_row,
@@ -87,9 +100,14 @@ def training_loss(model, inputs: LossInputs, draws: LossDraws,
     else:
         clean_in = clean
 
-    pred = model(inputs.batch, xt, t, clean_in)
+    if input_output_return:
+        pred, clean_pred = model(inputs.batch, xt, t, clean_in,
+                                 input_output_return=True)
+    else:
+        pred = model(inputs.batch, xt, t, clean_in)
 
-    diff = x1.float() - pred.float()
+    target = x1 if prediction_target == "x1" else x1 - x0
+    diff = target.float() - pred.float()
     err = (diff ** order).reshape(diff.shape[0], -1)
     per_frame = err.mean(-1)  # [Nn]
     if order != 2:
@@ -102,4 +120,17 @@ def training_loss(model, inputs: LossInputs, draws: LossDraws,
         per_frame = scale * per_frame
     if inputs.frame_weights is not None:
         per_frame = per_frame * inputs.frame_weights
-    return per_frame.mean(), {"per_frame_loss": per_frame}
+    aux = {"per_frame_loss": per_frame}
+    if not input_output_return:
+        return per_frame.mean(), aux
+    cerr = (clean.float() - clean_pred.float()) ** 2
+    per_clean = cerr.reshape(cerr.shape[0], -1).mean(-1)
+    if inputs.clean_weights is not None:
+        w = inputs.clean_weights.float()
+        per_clean = per_clean * w
+        n_clean = torch.clamp(w.sum(), min=1.0)
+    else:
+        n_clean = per_clean.shape[0]
+    aux["input_loss"] = per_clean
+    return ((per_frame.sum() + per_clean.sum())
+            / (per_frame.shape[0] + n_clean)), aux

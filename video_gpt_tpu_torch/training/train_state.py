@@ -269,13 +269,18 @@ def loss_step(state: TrainState, loss_fn: Callable, cfg: TrainConfig,
             "per_frame_loss": aux["per_frame_loss"].detach()}
 
 
-def make_train_step(model: torch.nn.Module, cfg: TrainConfig) -> Callable:
+def make_train_step(model: torch.nn.Module, cfg: TrainConfig,
+                    prediction_target: str = "x1") -> Callable:
     """``step(state, inputs, draws) -> metrics``: loss, backward, clip,
-    AdamW and the gated EMA, in place on ``state``."""
+    AdamW and the gated EMA, in place on ``state``.
+    ``prediction_target='velocity'`` trains the image family's target;
+    ``cfg.input_output_return`` adds the aux input head's loss."""
 
     def step(state: TrainState, inputs: LossInputs, draws: LossDraws):
         return loss_step(state, lambda: training_loss(
-            model, inputs, draws, input_noise=cfg.input_noise), cfg,
+            model, inputs, draws, input_noise=cfg.input_noise,
+            prediction_target=prediction_target,
+            input_output_return=cfg.input_output_return), cfg,
             inputs.x1.device)
 
     return step
@@ -297,7 +302,8 @@ def make_lora_train_step(model: torch.nn.Module, cfg: TrainConfig
 
     def step(state: TrainState, inputs: LossInputs, draws: LossDraws):
         return loss_step(state, lambda: training_loss(
-            model, inputs, draws, input_noise=cfg.input_noise), cfg,
+            model, inputs, draws, input_noise=cfg.input_noise,
+            input_output_return=cfg.input_output_return), cfg,
             inputs.x1.device, update_ema=False)
 
     return step

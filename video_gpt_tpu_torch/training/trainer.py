@@ -10,8 +10,9 @@ state, bf16 compute. Every random number of step ``i`` comes from one
 noise stream instead of replaying it. Runs on CUDA unless the caller asks
 for the CPU.
 
-Two recipes change what :meth:`Trainer.build` makes (the JAX ``_build``'s
-branches):
+With ``input_output_return`` the model carries the aux input head and the
+loss adds its reconstruction of the clean frames. Two recipes change what
+:meth:`Trainer.build` makes (the JAX ``_build``'s branches):
 
 - ``use_lora``: the model carries rank-``lora_rank`` adapters on
   ``qkv_proj`` / ``o_proj``, the base (the warm start) is frozen, and AdamW,
@@ -117,8 +118,12 @@ class Trainer:
                        uncond=self.cfg.distill_guidance is not None)
 
     def _new_model(self, dtype: torch.dtype) -> VideoGPT:
+        """A training model (with the aux input head under
+        ``input_output_return``), its memory uninitialised."""
         return VideoGPT(self.model_cfg, device="meta", dtype=dtype,
-                        train_init=True).to_empty(device=self.device)
+                        train_init=True,
+                        input_head=self.cfg.input_output_return).to_empty(
+                            device=self.device)
 
     def _load_init(self, model: VideoGPT) -> None:
         """The warm start into ``model``: every entry (the base's alone

@@ -115,19 +115,31 @@ def restore_checkpoint(directory: str, state_like: Any,
 
 
 def load_train_params(directory: str, step: Optional[int] = None,
-                      ema: bool = False) -> Tuple[dict, int]:
+                      ema: bool = False, input_head: Optional[bool] = None
+                      ) -> Tuple[dict, int]:
     """The model parameters of the checkpoint of ``step`` (the latest by
     default), or its EMA copy, as a state dict on the host: the warm start
     of a later curriculum stage, which never takes the optimizer state.
     The file is memory-mapped and only the returned tensors are copied out
     of it, so the optimizer's moments (and the other copy) are never read
-    into host memory. Returns (state dict, step)."""
+    into host memory. ``input_head`` (when not None) says whether the
+    caller's model carries the aux input head; a checkpoint that differs
+    is refused with the JAX command's message. Returns (state dict,
+    step)."""
     path, step = _path(directory, step)
     sd = torch.load(path, map_location="cpu", weights_only=True, mmap=True)
     params = sd["ema" if ema else "model"]
     if params is None:
         raise ValueError(f"checkpoint {step} under {directory} has no EMA "
                          "(trained without use_ema)")
+    has_head = any(n.startswith("input_final_layer.") for n in params)
+    if input_head is not None and has_head != input_head:
+        raise ValueError(
+            "restore failed: the checkpoint's structure does not match "
+            "(--ema given but the run trained without EMA? wrong --step or "
+            "model size? run trained with --input_output_return but no "
+            "--input_head given?)" + ("" if has_head else
+                                      " (it holds no input_final_layer)"))
     return {name: t.clone() for name, t in params.items()}, step
 
 

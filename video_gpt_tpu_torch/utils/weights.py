@@ -55,6 +55,8 @@ def videogpt_state_dict_from_jax(params: Mapping, cfg: ModelConfig
     dense("final_layer.adaLN_modulation.1",
           p["final_layer"]["adaLN_modulation"])
     dense("final_layer.linear", p["final_layer"]["linear"])
+    if "input_final_layer" in p:  # a model with the aux input head
+        dense("input_final_layer", p["input_final_layer"])
 
     sd["llm.embed_tokens.weight"] = _t(p["embed_tokens"]["embedding"])
     layers = p["llm"]["layers"]
