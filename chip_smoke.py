@@ -1,6 +1,7 @@
 """Smoke run of the PyTorch/CUDA port (``video_gpt_tpu_torch``) on one GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --mesh-margin SEED...   # a reading, see below
 
 Phases, in order; any failure exits nonzero and none is caught:
 
@@ -28,7 +29,9 @@ Phases, in order; any failure exits nonzero and none is caught:
    cached decode (the tail's 4,097 queries over the heads-major
    concatenation of a prompt's cache and the tail, with a rectangular
    bias: text -> image ~4.1k keys, editing ~8.2k keys) and K3 and K9 at
-   the train-image shape (L 4,609). Every attention kernel
+   the train-image shape (L 4,609); and at a mesh rank's shapes of the
+   flagship: K1 and K2 at 8 heads, K6 at a seq-sharded prefill (8 heads),
+   K3 at a tensor-only prefill (16 heads). Every attention kernel
    computes only the tiles its tile map does not call empty: each map the
    kernels build is held equal to its plain classifier, and its share of
    tiles computed and the map's own time are printed beside the kernel's:
@@ -65,15 +68,33 @@ Phases, in order; any failure exits nonzero and none is caught:
 9. batched rollout: the same recipe for 2 videos through
    ``generate_batch`` at 10 steps: exactly 64 K6 (the B = 2 prefill is
    above the bias limit), 640 K1 (all past 8192 keys) and 640 K2
-   launches, 2 x 104 frames; the serving objects are freed after it;
-10. small-input training reference, twice: one loss and backward of a tiny
+   launches, 2 x 104 frames; the serving objects are freed after it
+   (less than 1 GiB may stay allocated);
+10. small-input mesh reference: a tiny model (head_dim 96, GQA 8:4) over
+   (seq 2), (tensor 2) and (seq 2, tensor 2) gloo ranks sharing the card
+   (``spawn_ranks``: one spawned process per rank; NCCL refuses two ranks
+   on one device), against the same model on one rank, all in bf16, two
+   blocks over 48x80 frames whose odd tails the seq axis pads (bar:
+   final-latent relative MSE 1e-3), each rank with its exact launches
+   (K6 prefills on a seq mesh, K3 with its bias on a tensor-only one);
+11. full-width mesh clips: the main path's model (seed 0), frames, noise
+   and recipe over (seq 2, tensor 2) and (seq 4) (the reference's SP=4)
+   gloo ranks on the card: each rank exactly 32 K6, 320 K1 and 320 K2 at
+   its 8 heads, the final latents bit-equal across the ranks
+   (``shard_divergence`` 0) and within relative MSE 1e-3 of the main
+   path's and within twice its floor (the main path's clip rerun with its
+   linears in another fp32 summation order, ``fp32_linears``: at seeds 1
+   and 2 that floor alone is above 1e-3), with the clip's wall time, the bytes each rank's collectives
+   took in and each rank's peak memory (gloo ranks sharing one card: not
+   multi-GPU speed);
+12. small-input training reference, twice: one loss and backward of a tiny
    model (head_dim 96, GQA) on the card (bf16, kernels) against the CPU
    (fp32, plain versions) with the same weights and random numbers: loss
    and flattened-gradient relative errors, held to a bar of a few times
    the CPU's own bf16-vs-fp32 error (the loss: within 2^-8). First on the
    bias route (K3/K9), then with ``precompute_bias_limit=0`` on the inline
    route of stages 2-4 (K6/K7);
-11. stage-1 training path: the ``Trainer`` step at full width (ModelConfig()
+13. stage-1 training path: the ``Trainer`` step at full width (ModelConfig()
    with fp32 parameters and AdamW state, bf16 compute, per-layer
    recompute; the SDXL-class VAE; B 1, 16 synthetic 176x320 frames, L
    7104): one warm-up step (host-op check on) and 3 timed steps, each with
@@ -82,12 +103,12 @@ Phases, in order; any failure exits nonzero and none is caught:
    norm, a nonzero gradient into layer 0's attention, and AdamW moving the
    parameters; then one more step under torch.profiler (device time by
    group, the optimizer's range apart);
-12. stage-4 training path, the same at 80 frames in the frame blocks of one
+14. stage-4 training path, the same at 80 frames in the frame blocks of one
    seeded ``random_block_partition`` draw (L 35520, all 32 layers), after
    the stage-1 trainer is freed (two 56 GiB states do not fit): one
    warm-up step and 2 timed steps, each with exactly 64 K6 and 32 K7
    launches and no other, then one profiled step;
-13. LoRA path, after the stage-4 trainer is freed (less than 1 GiB may
+15. LoRA path, after the stage-4 trainer is freed (less than 1 GiB may
    stay allocated between these phases): rank-8 adapters on every layer's
    qkv_proj and o_proj over a frozen stage-1 model at full width (random
    base, heads randomised), L 7104, through the Trainer's own step: one
@@ -96,11 +117,11 @@ Phases, in order; any failure exits nonzero and none is caught:
    step 1 while lora_A's gradient is exactly 0 (B = 0), lora_A's gradient
    is not 0 from step 2 on, layer 0's adapter gradient is finite and not
    0; s/step, tokens/s, peak memory and the adapter count (4.72M);
-14. small-input distillation reference: one guided distillation loss and
+16. small-input distillation reference: one guided distillation loss and
    backward of a tiny model (a teacher other than the student) on the card
    (bf16, K3/K9) against the CPU (fp32, plain versions) with the same
    weights and random numbers, held to the training reference's bars;
-15. guided distillation path, the first round of
+17. guided distillation path, the first round of
    ``configs/distill_serving.sh`` (5 student steps, 2 substeps, guidance
    1.5, distill_lr 1e-4) at full width: a random teacher with randomised
    heads (bf16) and its fp32 copy as the student; one warm-up and 2 timed
@@ -108,18 +129,18 @@ Phases, in order; any failure exits nonzero and none is caught:
    teacher forward, the student's forward and recompute, per layer), 32 K9
    and two bias-map builds (one per layout); the teacher stays bit-equal,
    the student moves;
-16. serving the products: the student's weights (bf16) through
+18. serving the products: the student's weights (bf16) through
    ``generate`` at its serving line (16 frames, 5 steps,
    ``img_guidance_scale`` 1: no uncond row), with exactly 160 K1, 32 K3, no
    K2 and one map build; then the LoRA path's adapters (B redrawn at
    random) merged into those weights on the card, each merged weight held
    to W + (alpha/r) B A within its bf16 rounding, and a clip of the merged
    model;
-17. small-input image reference: ``ImageGenPipeline`` on a tiny model
+19. small-input image reference: ``ImageGenPipeline`` on a tiny model
    (head_dim 96, GQA) on the card in bf16 against the CPU in fp32 with the
    same weights and noise, 2-way and 3-way guidance (bar: final-latent
    relative MSE 1e-3), each with exactly its K3 launches and map builds;
-18. image serving at full width, stub tokenizer, each guidance context at
+20. image serving at full width, stub tokenizer, each guidance context at
    its natural length: (a) text -> image at the CLI's defaults
    (1024x1024, 50 steps, guidance 3.0): exactly 2 (32 + 50 x 32) = 3,264
    K3 launches and 4 map builds (each context's prefill and its decode
@@ -128,16 +149,16 @@ Phases, in order; any failure exits nonzero and none is caught:
    only): 3 (32 + 10 x 32) = 1,056 K3 and 6 builds; each one uint8
    1024x1024x3 image and finite latents, after a 1-step warm-up with the
    host-op check on;
-19. train-image at full width through the image trainer's own step (512 x
+21. train-image at full width through the image trainer's own step (512 x
    512 output, one 512x512 input image, max_input_images 3: L 4,609):
    one warm-up and 2 timed steps, each with exactly 64 K3, 32 K9 and one
    map build, finite loss and gradient norm, a gradient into layer 0's
    attention, AdamW moving the parameters;
-20. stage 1 with the aux input head (``input_output_return``): one
+22. stage 1 with the aux input head (``input_output_return``): one
    warm-up and 2 timed steps with stage 1's launches; the head's weight is
    0 before the first step, gets a nonzero gradient in every step and
    moves;
-21. a line of kernel records (K1-K10 and P1, each with its launches read
+23. a line of kernel records (K1-K10 and P1, each with its launches read
    from the counters; K3 and K9 also per LoRA, distillation, train-image
    and input-head step, K3 per image), then the device line as the last
    line.
@@ -150,17 +171,25 @@ parameters unmoved. The LoRA and distillation paths take stage 1's
 recipe with their own flags; train-image and the input-head path take a
 constant learning rate too. About 10 minutes on one H100.
 
+``--mesh-margin SEED...`` builds the kernels and runs only
+:func:`mesh_margin`: the full-width (seq 2, tensor 2) clip against the
+single-rank clip at each weight-and-noise seed, beside the single-rank
+clip's own sensitivity to another fp32 summation order. It is a reading,
+not a check: it fails on no value, and prints no device line.
+
 It needs a CUDA device and exits nonzero without one. It imports nothing of
 JAX.
 """
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import math
 import random
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -169,7 +198,8 @@ import torch.nn.functional as F
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves
 
-from video_gpt_tpu_torch.config import ModelConfig, TrainConfig, stage_config
+from video_gpt_tpu_torch.config import (MeshConfig, ModelConfig, TrainConfig,
+                                        stage_config)
 from video_gpt_tpu_torch.data.image_text import (ImageGenSample,
                                                  collate_image_gen,
                                                  resize_center_crop)
@@ -187,6 +217,8 @@ from video_gpt_tpu_torch.models.video_gpt import decode_mask
 from video_gpt_tpu_torch.ops import _cuda
 from video_gpt_tpu_torch.ops import flash_attention as fa
 from video_gpt_tpu_torch.ops.attention import AttnMeta
+from video_gpt_tpu_torch.parallel.distributed import spawn_ranks
+from video_gpt_tpu_torch.parallel.mesh import make_mesh
 from video_gpt_tpu_torch.probes import overlap_probe
 from video_gpt_tpu_torch.sampling.pipeline import VideoGPTPipeline
 from video_gpt_tpu_torch.models.video_gpt import VideoGPT
@@ -382,13 +414,22 @@ def vals(*ts, absv):
     return [t.float().abs() if absv else t.float() for t in ts]
 
 
+def _heads(heads=None):
+    """(heads, kv heads, head_dim): the flagship's, or ``heads`` of each
+    (the flagship has as many kv heads as heads)."""
+    cfg = ModelConfig()
+    if heads is None:
+        return cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    return heads, heads, cfg.head_dim
+
+
 def decode_split_record(dev, seed: int, meta: AttnMeta, tail: int,
-                        replaces: int) -> dict:
+                        replaces: int, heads: int = None) -> dict:
     """K1 over a cond row: the noisy tail's queries against the cache
     (heads-major) and the tail's own K/V (views of tokens-major K/V, as
-    Phi3Attention passes them), for the batch rows of ``meta``."""
-    cfg = ModelConfig()
-    h, hkv, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    Phi3Attention passes them), for the batch rows of ``meta``; at the
+    flagship's 32 heads, or ``heads`` (a mesh rank's share)."""
+    h, hkv, d = _heads(heads)
     bf16 = _bf16_maker(dev, seed)
     b, lc = meta.index.shape[0], meta.index.shape[1] - tail
     q = bf16(b, tail, h, d)
@@ -425,11 +466,11 @@ def decode_split_record(dev, seed: int, meta: AttnMeta, tail: int,
                                                      mask.q_off))
 
 
-def decode_record(dev, seed: int, meta: AttnMeta, replaces: int) -> dict:
+def decode_record(dev, seed: int, meta: AttnMeta, replaces: int,
+                  heads: int = None) -> dict:
     """K2 over a tail-only row (the uncond row), tokens-major K/V of its
     own, for the batch rows of ``meta``."""
-    cfg = ModelConfig()
-    h, hkv, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    h, hkv, d = _heads(heads)
     bf16 = _bf16_maker(dev, seed)
     b, L = meta.index.shape
     mask = decode_mask(meta, meta)
@@ -459,10 +500,10 @@ def decode_record(dev, seed: int, meta: AttnMeta, replaces: int) -> dict:
                                                      mask.q_off))
 
 
-def bias_record(dev, seed: int, meta: AttnMeta, replaces: int) -> dict:
+def bias_record(dev, seed: int, meta: AttnMeta, replaces: int,
+                heads: int = None) -> dict:
     """K3 over a prefill's clean prefix with its precomputed bias."""
-    cfg = ModelConfig()
-    h, hkv, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    h, hkv, d = _heads(heads)
     bf16 = _bf16_maker(dev, seed)
     L = meta.index.shape[1]
     bias = fa.precompute_bias(meta, meta)
@@ -522,6 +563,8 @@ def kernels_phase(dev):
     torch.cuda.empty_cache()
     out.update(inline_kernels(dev))
     for name, key, rec in rollout_kernels(dev):
+        out[name][key] = rec
+    for name, key, rec in mesh_kernels(dev):
         out[name][key] = rec
     image = image_kernels(dev)
     for key in ("image_decode_2way", "image_decode_3way"):
@@ -919,11 +962,10 @@ def inline_kernels(dev) -> dict:
     return res
 
 
-def inline_operands(bf16, meta: AttnMeta):
+def inline_operands(bf16, meta: AttnMeta, heads: int = None):
     """q, k, v for the batch rows of ``meta`` as the attention layer makes
     them: q, k new tensors (RoPE), v a view of the fused projection."""
-    cfg = ModelConfig()
-    h, hkv, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    h, hkv, d = _heads(heads)
     b, L = meta.index.shape
     v = bf16(b, L, h + 2 * hkv, d)[:, :, h + hkv:]
     return bf16(b, L, h, d), bf16(b, L, hkv, d), v
@@ -1022,6 +1064,288 @@ def rollout_kernels(dev):
     rec["tile_map"] = inline_tile_map("K6 (batched rollout prefill)", mp)
     yield "K6", "batched_rollout_shape", rec
     torch.cuda.empty_cache()
+
+
+# ---- the mesh: sequence- and tensor-parallel serving ------------------------
+
+# the full-width clips' meshes: (seq 2, tensor 2), and (seq 4), the
+# reference's SP=4; each rank holds 32 / (S T) = 8 of the flagship's heads
+MESH_CLIPS = ((2, 2), (4, 1))
+# the small-input mesh reference's meshes, and its frames: 48x80 is 15
+# tokens a frame, 17 with its markers, so the seq axis pads the tail and
+# the extend
+MESH_REF_MESHES = ((2, 1), (1, 2), (2, 2))
+MESH_REF_PX = (48, 80)
+
+
+def mesh_name(seq: int, tensor: int) -> str:
+    return f"seq{seq}_tensor{tensor}" if tensor > 1 else f"seq{seq}"
+
+
+def mesh_kernels(dev):
+    """The kernels at a mesh rank's shapes of the flagship: K1 (the cond
+    row over the cache and the tail) and K2 (the uncond row) at the 8 heads
+    of a (seq 2, tensor 2) or (seq 4) rank, K6 at such a rank's
+    seq-sharded prefill (8 heads; no bias under Ulysses), K3 at a
+    (tensor 2) rank's prefill (16 heads, with its bias). The flagship's
+    lengths (prefix 1,776, tail 3,552, uncond row 3,552) are multiples of
+    4, so neither seq axis pads them (the CPU tests hold padded lengths).
+    Yields (kernel, key of its record, result)."""
+    n_img = tokens_per_frame(H_PX, W_PX)
+    lay_c = frame_block_inference_layout(N_CLEAN, N_GEN, n_img, False)
+    lay_u = frame_block_inference_layout(0, N_GEN, n_img, False)
+    meta_c = AttnMeta.from_layout(lay_c, dev)
+    tail = lay_c.noisy_tail_len()
+    lc = lay_c.length - tail
+    if any(n % 4 for n in (tail, lc, lay_u.length)):
+        fail(f"the flagship's lengths {tail}, {lc}, {lay_u.length} need a "
+             "pad on a seq-4 mesh: the records below would not be the "
+             "ranks' shapes")
+    heads = ModelConfig().num_heads // 4
+    label = f" (a mesh rank: {heads} heads)"
+    yield "K1", "mesh_rank_shape", check_and_time(
+        "K1", decode_split_record(dev, 30, meta_c, tail, 661, heads=heads),
+        label)
+    torch.cuda.empty_cache()
+    yield "K2", "mesh_rank_shape", check_and_time(
+        "K2", decode_record(dev, 31, AttnMeta.from_layout(lay_u, dev), 416,
+                            heads=heads), label)
+    torch.cuda.empty_cache()
+    mp = meta_c.cols(slice(0, lc))
+    q, k, v = inline_operands(_bf16_maker(dev, 32), mp, heads=heads)
+
+    def k6():
+        with torch.no_grad():
+            return fa.flash_mha_inline(q, k, v, mp, mp)
+
+    rec = check_and_time("K6", inline_record(
+        mp, q, k, v, visible_pairs(mp), k6, 1071, with_lse=False),
+        f" (a seq-sharded prefill: {heads} heads)")
+    rec["tile_map"] = inline_tile_map("K6 (a seq-sharded prefill)", mp)
+    yield "K6", "mesh_prefill_shape", rec
+    del q, k, v
+    torch.cuda.empty_cache()
+    yield "K3", "mesh_tensor_prefill_shape", check_and_time(
+        "K3", bias_record(dev, 33, mp, 133, heads=2 * heads),
+        f" (a tensor-2 prefill: {2 * heads} heads)")
+    torch.cuda.empty_cache()
+
+
+def mesh_reference_config() -> ModelConfig:
+    """A tiny model the kernels take (head_dim 96), GQA 8:4, kv heads
+    divisible by 4."""
+    return ModelConfig.tiny(hidden_size=768, num_heads=8, num_kv_heads=4)
+
+
+def mesh_reference_latents(mesh) -> tuple:
+    """(final latents on the host, launch counts) of the small-input
+    mesh reference's generate on the card in bf16 (``mesh`` None: one
+    rank): two blocks without re-noise, so the prefill, both denoise rows
+    and the extend run, over frames whose tails the seq axis pads."""
+    pipe = VideoGPTPipeline.build(mesh_reference_config(), VAEConfig.tiny(),
+                                  device="cuda", dtype=torch.bfloat16,
+                                  seed=0, mesh=mesh)
+    rng = np.random.default_rng(3)
+    frames = [rng.integers(0, 256, MESH_REF_PX + (3,), dtype=np.uint8)
+              for _ in range(2)]
+    reset_counts()
+    _, lat = pipe.generate(
+        frames, noise=SeededNoise(0, pipe.device), gen_nums=(1, 1),
+        num_inference_steps=3, img_guidance_scale=CFG_SCALE,
+        clean_image_noise_level=0.0, max_input_image_size=80,
+        max_frame_window=8, return_latents=True)
+    torch.cuda.synchronize()
+    return torch.stack(lat).float().cpu(), counts()
+
+
+def mesh_rank(seq: int, tensor: int, reference: bool, clip: bool,
+              seed: int = 0) -> dict:
+    """One gloo rank of a mesh on the card: the small-input reference
+    (``reference``) and the full-width clip (``clip``: the main path's
+    ModelConfig(), frames and recipe, weights and noise from ``seed`` (the
+    main path's is 0), a warm-up at 1 step,
+    then timed with its launch counts, the bytes its collectives took in,
+    its peak memory and the final latents' divergence across the ranks)."""
+    import torch.distributed as dist
+    from video_gpt_tpu_torch.utils.parity import shard_divergence
+    mesh = make_mesh(MeshConfig(seq=seq, tensor=tensor))
+    out = {}
+    if reference:
+        out["reference"] = mesh_reference_latents(mesh)
+    if not clip:
+        return out
+    pipe = VideoGPTPipeline.build(ModelConfig(), VAEConfig(), device="cuda",
+                                  dtype=torch.bfloat16, seed=seed, mesh=mesh)
+    frames = synthetic_frames(N_CLEAN)
+    kw = dict(gen_nums=(N_GEN,), img_guidance_scale=CFG_SCALE,
+              max_frame_window=N_CLEAN + N_GEN, seed=seed,
+              return_latents=True)
+    pipe.generate(frames, num_inference_steps=1, **kw)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mesh.stats.moved = mesh.stats.calls = 0
+    reset_counts()
+    dist.barrier()
+    t0 = time.perf_counter()
+    frames_out, lat = pipe.generate(frames, num_inference_steps=STEPS, **kw)
+    torch.cuda.synchronize()
+    dist.barrier()
+    wall_s = time.perf_counter() - t0
+    launches = counts()
+    lat = torch.stack(lat)
+    out["clip"] = dict(
+        wall_s=wall_s, launches=launches, collective_bytes=mesh.stats.moved,
+        collective_calls=mesh.stats.calls,
+        peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+        divergence=shard_divergence(lat),
+        frames_ok=(len(frames_out) == N_CLEAN + N_GEN and all(
+            f.dtype == np.uint8 and f.shape == (H_PX, W_PX, 3)
+            for f in frames_out)),
+        finite=bool(torch.isfinite(lat).all()), latents=lat.float().cpu())
+    return out
+
+
+def run_mesh(seq: int, tensor: int, reference: bool, clip: bool,
+             seed: int = 0) -> list:
+    """:func:`mesh_rank` on S x T gloo ranks sharing the card; every rank
+    must exit 0."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as workdir:
+        res = spawn_ranks(mesh_rank, (seq, tensor, reference, clip, seed),
+                          seq * tensor, workdir, timeout=600)
+    log(f"mesh {mesh_name(seq, tensor)}: {seq * tensor} gloo ranks on the "
+        f"card, {time.perf_counter() - t0:.1f} s with their start-up")
+    return res
+
+
+def rel_mse(got: torch.Tensor, want: torch.Tensor) -> float:
+    return float(((got - want) ** 2).mean() / (want ** 2).mean())
+
+
+def mesh_reference_phase(want_launches) -> dict:
+    """The small-input mesh reference: the tiny model over (seq 2),
+    (tensor 2) and (seq 2, tensor 2) gloo ranks against the same model on
+    one rank, all on the card in bf16 (bar: final-latent relative MSE
+    1e-3); each rank's launches must equal ``want_launches(seq, tensor)``.
+    The (seq 2, tensor 2) ranks go on to that mesh's full-width clip, whose
+    results come back with it."""
+    want, _ = mesh_reference_latents(None)
+    out = {}
+    for seq, tensor in MESH_REF_MESHES:
+        name = mesh_name(seq, tensor)
+        res = run_mesh(seq, tensor, True, (seq, tensor) in MESH_CLIPS)
+        rels = [rel_mse(r["reference"][0], want) for r in res]
+        ran = [r["reference"][1] for r in res]
+        log(f"small-input mesh reference {name}: relative MSE vs one rank "
+            f"per rank {rels} (bar {REF_REL_MSE_BAR}), launches {ran[0]}")
+        exp = want_launches(seq, tensor)
+        if any(c != exp for c in ran):
+            fail(f"small-input mesh reference {name}: launches {ran} != "
+                 f"{exp}")
+        if not all(r <= REF_REL_MSE_BAR for r in rels):
+            fail(f"small-input mesh reference {name} disagrees with one "
+                 f"rank: {rels}")
+        out[name] = dict(rel_mse=max(rels), ranks=res)
+    return out
+
+
+def mesh_clip_phase(seq: int, tensor: int, res: list, single: torch.Tensor,
+                    floor: float, want: dict, smi: str) -> dict:
+    """Checks and prints one full-width mesh clip: each rank's launches
+    exactly ``want``, the final latents bit-equal across the ranks and
+    within REF_REL_MSE_BAR of the single-rank main path's (``single``, on
+    the host) and within twice ``floor`` (the single-rank clip's own
+    relative MSE under :func:`fp32_linears`: one change of summation order
+    for the floor, the mesh's split as another), uint8 frames of the
+    flagship's shape."""
+    name = f"mesh_clip_{mesh_name(seq, tensor)}"
+    clips = [r["clip"] for r in res]
+    for r, c in enumerate(clips):
+        log(f"{name} rank {r}: launches {c['launches']} (expected {want})")
+        if c["launches"] != want:
+            fail(f"{name} rank {r} launch counts {c['launches']} != {want}")
+        if not (c["frames_ok"] and c["finite"]):
+            fail(f"{name} rank {r}: frames or latents malformed")
+    divergence = max(c["divergence"] for c in clips)
+    rel = max(rel_mse(c["latents"], single) for c in clips)
+    rec = dict(ranks=seq * tensor, seq=seq, tensor=tensor, steps=STEPS,
+               clip_s=max(c["wall_s"] for c in clips),
+               shard_divergence=divergence, rel_mse_vs_one_rank=rel,
+               floor_rel_mse=floor,
+               collective_bytes_per_rank=[c["collective_bytes"]
+                                          for c in clips],
+               collective_calls_per_rank=[c["collective_calls"]
+                                          for c in clips],
+               peak_mem_gib_per_rank=[c["peak_mem_gib"] for c in clips],
+               launches_per_rank=clips[0]["launches"], device=smi,
+               note="gloo ranks sharing one card: not multi-GPU speed")
+    log(f"{name}: {N_GEN}-frame clip {rec['clip_s']:.3f} s over "
+        f"{seq * tensor} gloo ranks on {smi} (gloo ranks sharing one card: "
+        f"not multi-GPU speed); shard divergence {divergence}, relative MSE "
+        f"vs one rank {rel:.3e} (bar {REF_REL_MSE_BAR}; one rank's floor "
+        f"{floor:.3e}, bar twice that)")
+    log(json.dumps({name: rec}))
+    if divergence != 0.0:
+        fail(f"{name}: the ranks' final latents differ by {divergence}")
+    if not rel <= REF_REL_MSE_BAR:
+        fail(f"{name} disagrees with the single-rank clip: {rel}")
+    if not rel <= 2 * floor:
+        fail(f"{name} is farther from the single-rank clip ({rel}) than "
+             f"twice its floor ({floor})")
+    return rec
+
+
+@contextlib.contextmanager
+def fp32_linears():
+    """Every ``F.linear`` as a TF32 GEMM of its operands upcast to fp32,
+    rounded once to the input's dtype: bf16 operands are exact in TF32, so
+    this is a one-rank matmul with its fp32 accumulation in another
+    order."""
+    linear, tf32 = F.linear, torch.backends.cuda.matmul.allow_tf32
+
+    def upcast(x, w, b=None):
+        return linear(x.float(), w.float(),
+                      None if b is None else b.float()).to(x.dtype)
+
+    F.linear, torch.backends.cuda.matmul.allow_tf32 = upcast, True
+    try:
+        yield
+    finally:
+        F.linear, torch.backends.cuda.matmul.allow_tf32 = linear, tf32
+
+
+def mesh_margin(dev, smi: str, seeds) -> None:
+    """For each seed: the single-rank clip (the main path's recipe, weights
+    and noise from the seed), the same clip with :func:`fp32_linears` (the
+    floor: how far another fp32 summation order moves this clip), and the
+    (seq 2, tensor 2) clip over 4 gloo ranks; prints each one's relative
+    MSE against the single-rank clip (the smoke's bar is
+    REF_REL_MSE_BAR)."""
+    frames = synthetic_frames(N_CLEAN)
+    kw = dict(gen_nums=(N_GEN,), img_guidance_scale=CFG_SCALE,
+              max_frame_window=N_CLEAN + N_GEN, num_inference_steps=STEPS,
+              return_latents=True)
+    rows = []
+    for seed in seeds:
+        pipe = VideoGPTPipeline.build(ModelConfig(), VAEConfig(), device=dev,
+                                      dtype=torch.bfloat16, seed=seed)
+        _, lat = pipe.generate(frames, seed=seed, **kw)
+        single = torch.stack(lat).float().cpu()
+        with fp32_linears():
+            _, lat = pipe.generate(frames, seed=seed, **kw)
+        floor = rel_mse(torch.stack(lat).float().cpu(), single)
+        del pipe, lat
+        freed(f"the single-rank clips of seed {seed}")
+        res = run_mesh(2, 2, False, True, seed)
+        mesh = max(rel_mse(r["clip"]["latents"], single) for r in res)
+        div = max(r["clip"]["divergence"] for r in res)
+        rows.append(dict(seed=seed, floor_rel_mse=floor,
+                         mesh_seq2_tensor2_rel_mse=mesh,
+                         shard_divergence=div))
+        log(f"mesh margin, seed {seed}: (seq 2, tensor 2) relative MSE vs "
+            f"one rank {mesh:.3e}, one rank with fp32 linears {floor:.3e} "
+            f"(bar {REF_REL_MSE_BAR}), divergence {div}; {smi}")
+    log(json.dumps({"mesh_margin": rows, "device": smi}))
 
 
 class SeededNoise:
@@ -1294,6 +1618,11 @@ def main() -> int:
     # fp32 VAE convolutions in full fp32 (cuDNN's default is TF32); the
     # bf16 runs below do not read the flag
     torch.backends.cudnn.allow_tf32 = False
+    if sys.argv[1:2] == ["--mesh-margin"]:
+        _cuda.libraries()
+        mesh_margin(torch.device("cuda"), smi,
+                    [int(a) for a in sys.argv[2:]])
+        return 0
     run(torch.device("cuda"), smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1395,6 +1724,15 @@ def run(dev: torch.device, smi: str) -> None:
         fail(f"extend path returned {len(out2)} frames")
 
     profile_phase(pipe, frames, kw, clip_s)
+    # the mesh clips are held to this clip's latents, and to its floor:
+    # how far the same clip moves with its linears in another fp32
+    # summation order (TP's row-parallel split is one such order)
+    main_latents = lat.float().cpu()
+    with fp32_linears():
+        _, lat = pipe.generate(frames, **kw)
+    mesh_floor = rel_mse(torch.stack(lat).float().cpu(), main_latents)
+    log(f"main path with fp32 linears: relative MSE vs the main path "
+        f"{mesh_floor:.3e} (the mesh clips' floor)")
     del out, lat, out2
 
     # ---- long and batched rollouts (configs/inference.sh) ------------------
@@ -1412,8 +1750,27 @@ def run(dev: torch.device, smi: str) -> None:
             K6=2 * nl, K1=2 * BATCH_STEPS * nl, K4=2 * BATCH_STEPS * nl,
             K2=2 * BATCH_STEPS * nl))
     del pipe
-    gc.collect()
-    torch.cuda.empty_cache()
+    freed("the serving paths")
+
+    # ---- the mesh: gloo ranks sharing the card ----------------------------
+    def mesh_launches(seq, tensor, layers=2, steps=3):
+        # the small-input reference: a prefill (K6 under Ulysses, K3 with
+        # its bias on a tensor-only mesh), one extend and 2 blocks of
+        # cond and uncond rows
+        prefill = (dict(K6=layers) if seq > 1
+                   else dict(K3=layers, bias_map_builds=1))
+        return expect(K1=layers + 2 * steps * layers,
+                      K2=2 * steps * layers, **prefill)
+
+    mesh_ref = mesh_reference_phase(mesh_launches)
+    mesh_want = expect(K6=nl, K1=nl * STEPS, K2=nl * STEPS)
+    mesh_clips = {}
+    for seq, tensor in MESH_CLIPS:
+        res = mesh_ref.get(mesh_name(seq, tensor), {}).get("ranks") \
+            or run_mesh(seq, tensor, False, True)
+        mesh_clips[mesh_name(seq, tensor)] = mesh_clip_phase(
+            seq, tensor, res, main_latents, mesh_floor, mesh_want, smi)
+    freed("the mesh phases")
 
     train_reference_phase(dev)
     inline_ref = train_reference_phase(dev, bias_limit=0)
@@ -1494,6 +1851,10 @@ def run(dev: torch.device, smi: str) -> None:
     records["K3"]["bias_map_builds"].update(
         per_lora_step=lora_counts["bias_map_builds"] // LORA_STEPS,
         per_distill_step=distill_counts["bias_map_builds"] // DISTILL_STEPS)
+    # each mesh rank's launches in its full-width clip (every rank alike)
+    for k in ("K1", "K2", "K6"):
+        records[k]["launches_per_mesh_rank_clip"] = {
+            name: c["launches_per_rank"][k] for name, c in mesh_clips.items()}
     records["K1"]["launches_per_student_clip"] = student_counts["K1"]
     records["K3"]["launches_per_student_clip"] = student_counts["K3"]
     # the image family: K3 per image (every context's prefill and cached

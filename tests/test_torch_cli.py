@@ -174,10 +174,14 @@ def test_video_path_dir_batches_same_shaped_videos(fake, tmp_path):
                                                                "b.mp4"))
 
 
-@pytest.mark.parametrize("flags", [["--mesh_seq", "2"], ["--mesh_tensor", "2"]])
-def test_options_not_ported_yet_raise(fake, flags):
-    with pytest.raises(SystemExit, match="not ported yet"):
-        cli.main(["generate", "--video_path", "clip.mp4"] + flags)
+@pytest.mark.parametrize("flags,n", [(["--mesh_seq", "2"], 2),
+                                     (["--mesh_tensor", "2"], 2)])
+def test_mesh_exits_on_a_world_size_mismatch(fake, flags, n):
+    """``--mesh_seq S --mesh_tensor T`` serves over S*T processes: one
+    process exits with a message before anything is built."""
+    with pytest.raises(SystemExit, match=f"serves over {n} processes"):
+        cli.main(["generate", "--video_path", "clip.mp4", "--device", "cpu"]
+                 + flags)
     assert fake[0].calls == []
 
 

@@ -30,7 +30,9 @@ def test_port_has_the_slice_modules():
               "training.data", "training.train_state", "training.trainer",
               "training.lora", "training.distill",
               "probes.overlap_probe", "image_gen", "data.image_text",
-              "training.image_trainer", "utils.torch_export"):
+              "training.image_trainer", "utils.torch_export",
+              "parallel.distributed", "parallel.mesh", "parallel.tensor",
+              "parallel.ulysses", "utils.parity"):
         assert "video_gpt_tpu_torch." + m in mods, m
 
 

@@ -1059,3 +1059,45 @@ def test_overlap_probe_mutation_fails_the_bar(dev, tmp_path, monkeypatch):
     print(f"mutation overlap_pipelined_without_last_subtile: worst error / "
           f"bar {ratio:.2f}")
     assert ratio > 1.0
+
+
+def test_ulysses_attend_cached_on_two_gloo_ranks(dev, tmp_path):
+    """Two gloo ranks sharing the card, (seq 2): ``ulysses_attend_cached``
+    (each rank's K1 over its half of the heads, on its cache slice and the
+    gathered tail, whose 7 tokens the seq axis pads to 8) against the
+    single-rank K1 over every head (``attend_cached``). Both are bf16
+    kernel outputs of the same per-head work: bar per element 1e-4 +
+    1e-2 |want|, the output's bf16 rounding."""
+    import numpy as np
+    import torch_mesh_ranks as ranks
+    from video_gpt_tpu_torch.config import MeshConfig
+    from video_gpt_tpu_torch.parallel.distributed import spawn_ranks
+    shape = (2, 1, 5, 2)  # 7-token frames: the cond row 21, the tail 7
+    h, hkv, d = 8, 4, fa.KERNEL_HEAD_DIM
+    meta, _, tail = ranks.metas(*shape, device=dev)
+    b, length = meta.index.shape
+    rng = np.random.default_rng(0)
+    arrays = {n: torch.from_numpy(rng.standard_normal(
+        (b, length, heads, d), np.float32)).to(torch.bfloat16).float().numpy()
+        for n, heads in (("q", h), ("k", hkv), ("v", hkv))}
+    res = spawn_ranks(ranks.attention_cases,
+                      (MeshConfig(seq=2), arrays, shape, "cuda"), 2,
+                      str(tmp_path), timeout=300)
+    got = torch.cat([r["cached_decode_mask"] for r in res], dim=1)[:, :tail]
+    lc = length - tail
+    q, k, v = (torch.from_numpy(arrays[n]).to(dev, torch.bfloat16)
+               for n in "qkv")
+    q_meta = meta.tail(tail)
+    kh, vh = k.transpose(1, 2), v.transpose(1, 2)
+    fa.reset_launch_counts()
+    want = attend_cached(q[:, lc:].contiguous(), kh[:, :, :lc].contiguous(),
+                         vh[:, :, :lc].contiguous(),
+                         kh[:, :, lc:].contiguous(),
+                         vh[:, :, lc:].contiguous(), q_meta, meta,
+                         decode_mask(q_meta, meta)).float().cpu()
+    assert fa.flash_mha_decode_split.launches == 1
+    err = (got.float() - want).abs()
+    ratio = float((err / (ATOL + RTOL * want.abs())).max())
+    print(f"ulysses_attend_cached on 2 gloo ranks vs one rank: max abs err "
+          f"{float(err.max()):.3e}, worst error / bar {ratio:.3f}")
+    assert ratio <= 1.0

@@ -7,9 +7,8 @@
         --video_dir_path videos/ --results_dir results/stage1
 
 Port of ``video_gpt_tpu/cli.py generate`` (every option of the JAX command
-parses, so ``configs/inference.sh``'s command line runs as it is; the
-``--input_head`` and mesh options raise unless left at their defaults)
-and of the single-device path of its ``train``, LoRA and distillation
+parses, so ``configs/inference.sh``'s command line runs as it is) and of
+the single-device path of its ``train``, LoRA and distillation
 included (``configs/distill_serving.sh``'s command lines run with ``-m
 video_gpt_tpu_torch.cli``). ``generate``
 takes one video (``--video_path``) or a directory (``--video_path_dir``,
@@ -45,6 +44,17 @@ process). ``generate-image --checkpoint_dir`` serves a ``train-image`` run:
     python -m video_gpt_tpu_torch.cli generate-image --prompt "a red bird" \
         --checkpoint_dir results_image/checkpoints --output bird.png
 
+``generate --mesh_seq S --mesh_tensor T`` serves over S x T ranks, one
+process each, sequence-parallel (Ulysses) over S and tensor-parallel over
+T, as the reference serves at SP=4; rank 0 alone prints and writes:
+
+    torchrun --nproc_per_node 4 -m video_gpt_tpu_torch.cli generate \
+        --video_path clip.mp4 --mesh_seq 2 --mesh_tensor 2
+
+Each rank takes ``cuda:LOCAL_RANK`` and NCCL (gloo with ``--device cpu``).
+The training commands' mesh options still refuse (ROADMAP.md queue 1: the
+mesh's training half).
+
 ``export`` writes a run's parameters (``--ema``: its EMA) as the reference's
 safetensors. ``train --input_output_return`` trains the aux
 input-reconstruction head; ``generate`` and ``export`` then take
@@ -57,15 +67,14 @@ and transformers are imported only where they are used.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 
 import torch
 
 
-# options of the JAX command that parse but are not ported yet: a value
-# other than the default raises (ROADMAP.md queue 1)
-GENERATE_NOT_PORTED = {"mesh_seq": 1, "mesh_tensor": 1}
-# the mesh options of the training commands (ROADMAP.md queue 1: the mesh)
+# the mesh options of the training commands (ROADMAP.md queue 1: the mesh's
+# training half)
 MESH_FLAGS = ("mesh_data", "mesh_seq", "mesh_tensor", "mesh_pipe", "zero3")
 
 
@@ -165,16 +174,55 @@ def _merge_lora_run(args, sd):
     return merge_lora(sd, adapters, alpha=ModelConfig.lora_alpha)
 
 
+def _generate_mesh(args):
+    """The serving mesh of ``--mesh_seq S --mesh_tensor T`` (None at 1 x
+    1), after joining the launch's process group; exits unless the launch
+    runs S x T processes."""
+    import torch.distributed as dist
+
+    from .config import MeshConfig
+    from .parallel.distributed import init_runtime
+    from .parallel.mesh import make_mesh
+
+    init_runtime(device=args.device)
+    n = args.mesh_seq * args.mesh_tensor
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if world != n:
+        raise SystemExit(
+            f"--mesh_seq {args.mesh_seq} --mesh_tensor {args.mesh_tensor} "
+            f"serves over {n} processes (torchrun --nproc_per_node {n}); "
+            f"this launch runs {world}")
+    if n == 1:
+        return None
+    return make_mesh(MeshConfig(seq=args.mesh_seq, tensor=args.mesh_tensor))
+
+
 def cmd_generate(args):
+    import torch.distributed as dist
+
+    from .parallel.distributed import is_main_process
+
+    mesh = _generate_mesh(args)
+    try:
+        with contextlib.ExitStack() as stack:
+            # every rank computes the same frames; rank 0 alone prints and
+            # writes them
+            if not is_main_process():
+                stack.enter_context(contextlib.redirect_stdout(
+                    stack.enter_context(open(os.devnull, "w"))))
+            _generate(args, mesh)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _generate(args, mesh):
     from .data.processor import preprocess_frames
     from .data.video import list_videos
+    from .parallel.distributed import is_main_process
     from .sampling.pipeline import VideoGPTPipeline
     from .utils.torch_import import load_reference_checkpoint
 
-    for flag, default in GENERATE_NOT_PORTED.items():
-        if getattr(args, flag) != default:
-            raise SystemExit(f"--{flag} is not ported yet (ROADMAP.md "
-                             f"queue 1)")
     if args.video_path_dir:
         video_paths = list_videos(args.video_path_dir)
         if not video_paths:
@@ -197,7 +245,7 @@ def cmd_generate(args):
     pipe = VideoGPTPipeline.build(cfg, vae_cfg, device=args.device,
                                   dtype=dtype, state_dict=sd,
                                   vae_state_dict=vae_sd, seed=args.seed,
-                                  input_head=args.input_head)
+                                  input_head=args.input_head, mesh=mesh)
     kw = dict(gen_nums=args.gen_nums,
               num_inference_steps=args.num_inference_steps,
               img_guidance_scale=args.img_guidance_scale,
@@ -213,6 +261,8 @@ def cmd_generate(args):
 
     def save(k, path, images):
         from PIL import Image
+        if not is_main_process():
+            return
         for i, im in enumerate(images):
             Image.fromarray(im).save(os.path.join(args.save_dir,
                                                   f"{k}_{i}.png"))
@@ -316,7 +366,7 @@ def _refuse_mesh(args) -> None:
         default = False if flag == "zero3" else 1
         if value is not None and value != default:
             raise SystemExit(f"--{flag} is not ported yet (ROADMAP.md "
-                             f"queue 1: the mesh)")
+                             f"queue 1: the mesh's training half)")
 
 
 def cmd_train(args):
@@ -492,10 +542,11 @@ def build_parser() -> argparse.ArgumentParser:
     g.add_argument("--input_head", action="store_true",
                    help="the checkpoint was trained with "
                         "--input_output_return (it holds the aux input head)")
-    # accepted so a JAX command line parses; a non-default value raises
-    # (not ported yet, see ROADMAP.md queue 1)
-    g.add_argument("--mesh_seq", type=int, default=1)
-    g.add_argument("--mesh_tensor", type=int, default=1)
+    g.add_argument("--mesh_seq", type=int, default=1,
+                   help="sequence-parallel (Ulysses) ranks; with "
+                        "--mesh_tensor, launch S*T processes (torchrun)")
+    g.add_argument("--mesh_tensor", type=int, default=1,
+                   help="tensor-parallel ranks (heads and MLP features)")
     g.set_defaults(fn=cmd_generate)
     _add_train_parser(sub)
     _add_image_parsers(sub)

@@ -1,10 +1,12 @@
-"""Model, sampler and training configuration.
+"""Model, sampler, mesh and training configuration.
 
-Port of ``video_gpt_tpu/config.py``: the serving fields, and the fields of
-the single-device training path with its LoRA, distillation and aux
-input-head (``input_output_return``) recipes. The mesh and offload fields
-are not ported; :func:`check_train_config` raises on a non-default value
-of any of them, and on the combinations the JAX trainer refuses.
+Port of ``video_gpt_tpu/config.py``: the serving fields with the mesh's
+serving half (``MeshConfig``; the model reads its sharding off the mesh it
+is built on), and the fields of the
+single-device training path with its LoRA, distillation and aux input-head
+(``input_output_return``) recipes. The offload field is not ported;
+:func:`check_train_config` raises on a non-default value of it, and on the
+combinations the JAX trainer refuses.
 """
 from __future__ import annotations
 
@@ -77,6 +79,21 @@ class SchedulerConfig:
     begin_time: Optional[float] = None
     cfg_interval: Optional[Tuple[float, float]] = None
     uncond_refresh: int = 1
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshConfig:
+    """Process grid: data x sequence x tensor axes, one process per rank
+    (``parallel/mesh.py``). The JAX package's pipe axis and ZeRO-3 flag
+    belong to the mesh's training half (ROADMAP.md queue 1)."""
+
+    data: int = 1
+    seq: int = 1
+    tensor: int = 1
+
+    @property
+    def num_devices(self) -> int:
+        return self.data * self.seq * self.tensor
 
 
 @dataclasses.dataclass(frozen=True)

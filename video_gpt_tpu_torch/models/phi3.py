@@ -16,6 +16,21 @@ layout the decode kernels read; unlike the TPU package it carries no
 96->128 lane pad. A cached call goes through ``attend_cached``: with a
 columnar DecodeMask the cache and the tail are separate operands of K1,
 with a precomputed bias (or none) they are concatenated along the keys.
+
+On a mesh (``parallel/mesh.py``, the model built with ``mesh=``) whose
+seq axis S or tensor axis T is above 1, the routing of the JAX
+``Phi3Attention`` under Ulysses or tensor parallelism: cached calls go
+through ``ulysses_attend_cached`` and the others through
+``ulysses_attend``. The model reads S and T off the mesh. With T > 1
+qkv/gate_up hold the rank's [q_t|k_t|v_t] / [gate_t|up_t] rows and
+o_proj/down_proj its columns (``utils.weights.tp_shard_state_dict``);
+the partial products of o_proj/down_proj stay fp32 through the all-reduce
+over the tensor group and are rounded once after it, as one rank's matmul
+rounds its fp32 accumulator once. With S > 1 the trunk pads the sequence
+to the seq multiple at its entry, each rank runs its contiguous chunk
+through the layers, and the chunks are gathered before the final norm;
+the KV cache it returns holds the rank's heads (``mesh.cache_heads``) of
+the unpadded tokens.
 """
 from __future__ import annotations
 
@@ -28,6 +43,10 @@ from torch.utils.checkpoint import checkpoint
 
 from ..config import ModelConfig
 from ..ops.attention import AttnMeta, attend, attend_cached
+from ..parallel.mesh import (SEQ_AXIS, TENSOR_AXIS, axis_size, gather_seq,
+                             split_seq)
+from ..parallel.ulysses import (pad_to_seq, ulysses_attend,
+                                ulysses_attend_cached)
 
 
 class KVCache(NamedTuple):
@@ -102,11 +121,37 @@ class LoraLinear(nn.Linear):
         return y
 
 
+def check_mesh(cfg: ModelConfig, mesh) -> None:
+    """Raise on a config that the mesh cannot run (or that is not ported
+    yet)."""
+    tp = axis_size(mesh, TENSOR_AXIS)
+    if tp > 1 and cfg.lora_rank:
+        raise NotImplementedError(
+            "LoRA under tensor parallelism: merge the adapters before "
+            "sharding (serving); training on the mesh is not ported yet")
+    if cfg.num_heads % tp or cfg.num_kv_heads % tp \
+            or cfg.intermediate_size % tp:
+        raise ValueError(f"heads {cfg.num_heads}/{cfg.num_kv_heads} and "
+                         f"features {cfg.intermediate_size} must divide by "
+                         f"the tensor axis {tp}")
+
+
+def row_parallel(layer: nn.Linear, x: torch.Tensor, mesh) -> torch.Tensor:
+    """``layer(x)`` of a row-parallel layer whose input features are split
+    over the tensor axis: the rank's partial product in fp32, summed over
+    the tensor group, rounded once to ``x``'s dtype."""
+    out = F.linear(x.float(), layer.weight.float())
+    return mesh.all_reduce(out, TENSOR_AXIS).to(x.dtype)
+
+
 class Phi3Attention(nn.Module):
-    def __init__(self, cfg: ModelConfig, device=None, dtype=None):
+    def __init__(self, cfg: ModelConfig, device=None, dtype=None, mesh=None):
         super().__init__()
         self.cfg = cfg
-        h, hkv, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+        self.mesh = mesh
+        self.tp = tp = axis_size(mesh, TENSOR_AXIS)
+        self.ulysses = tp * axis_size(mesh, SEQ_AXIS) > 1
+        h, hkv, d = cfg.num_heads // tp, cfg.num_kv_heads // tp, cfg.head_dim
         kw = dict(rank=cfg.lora_rank, alpha=cfg.lora_alpha, device=device,
                   dtype=dtype)
         self.qkv_proj = LoraLinear(cfg.hidden_size, (h + 2 * hkv) * d, **kw)
@@ -115,46 +160,64 @@ class Phi3Attention(nn.Module):
     def forward(self, x, cos, sin, q_meta: AttnMeta, k_meta: AttnMeta,
                 cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
                 bias=None):
-        """Returns (output, (k, v) of these tokens [B, L, Hkv, D])."""
-        cfg = self.cfg
-        h, hkv, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+        """Returns (output, (k, v)): the keys/values of these tokens
+        [B, L, Hkv, D] that this rank holds, its heads over the full
+        (padded) length on a mesh."""
+        cfg, tp = self.cfg, self.tp
+        h, hkv, d = cfg.num_heads // tp, cfg.num_kv_heads // tp, cfg.head_dim
         b, l, _ = x.shape
         q, k, v = self.qkv_proj(x).split([h * d, hkv * d, hkv * d], dim=-1)
         q = apply_rope(q.view(b, l, h, d), cos, sin)
         k = apply_rope(k.view(b, l, hkv, d), cos, sin)
         v = v.view(b, l, hkv, d)
-        if cache is not None:
-            out = attend_cached(q, cache[0], cache[1], k.transpose(1, 2),
-                                v.transpose(1, 2), q_meta, k_meta, bias)
+        if self.ulysses:
+            if cache is not None:
+                out, kv = ulysses_attend_cached(
+                    q, k.transpose(1, 2), v.transpose(1, 2), cache[0],
+                    cache[1], q_meta, k_meta, self.mesh, bias)
+            else:
+                out, kv = ulysses_attend(q, k, v, q_meta, k_meta, self.mesh,
+                                         bias)
+        elif cache is not None:
+            out, kv = attend_cached(q, cache[0], cache[1], k.transpose(1, 2),
+                                    v.transpose(1, 2), q_meta, k_meta,
+                                    bias), (k, v)
         else:
-            out = attend(q, k, v, q_meta, k_meta, bias=bias)
-        return self.o_proj(out.reshape(b, l, h * d)), (k, v)
+            out, kv = attend(q, k, v, q_meta, k_meta, bias=bias), (k, v)
+        out = out.reshape(b, l, h * d)
+        if tp > 1:
+            return row_parallel(self.o_proj, out, self.mesh), kv
+        return self.o_proj(out), kv
 
 
 class Phi3Mlp(nn.Module):
-    def __init__(self, cfg: ModelConfig, device=None, dtype=None):
+    def __init__(self, cfg: ModelConfig, device=None, dtype=None, mesh=None):
         super().__init__()
+        self.mesh = mesh
+        self.tp = axis_size(mesh, TENSOR_AXIS)
         kw = dict(bias=False, device=device, dtype=dtype)
-        self.gate_up_proj = nn.Linear(cfg.hidden_size,
-                                      2 * cfg.intermediate_size, **kw)
-        self.down_proj = nn.Linear(cfg.intermediate_size, cfg.hidden_size,
-                                   **kw)
+        features = cfg.intermediate_size // self.tp
+        self.gate_up_proj = nn.Linear(cfg.hidden_size, 2 * features, **kw)
+        self.down_proj = nn.Linear(features, cfg.hidden_size, **kw)
 
     def forward(self, x):
         gate, up = self.gate_up_proj(x).chunk(2, dim=-1)
-        return self.down_proj(F.silu(gate) * up)
+        act = F.silu(gate) * up
+        if self.tp > 1:
+            return row_parallel(self.down_proj, act, self.mesh)
+        return self.down_proj(act)
 
 
 class Phi3Layer(nn.Module):
-    def __init__(self, cfg: ModelConfig, device=None, dtype=None):
+    def __init__(self, cfg: ModelConfig, device=None, dtype=None, mesh=None):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
         self.input_layernorm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps,
                                        **kw)
-        self.self_attn = Phi3Attention(cfg, **kw)
+        self.self_attn = Phi3Attention(cfg, mesh=mesh, **kw)
         self.post_attention_layernorm = RMSNorm(cfg.hidden_size,
                                                 cfg.rms_norm_eps, **kw)
-        self.mlp = Phi3Mlp(cfg, **kw)
+        self.mlp = Phi3Mlp(cfg, mesh=mesh, **kw)
 
     def forward(self, x, cos, sin, q_meta, k_meta, cache, bias):
         attn_out, new_kv = self.self_attn(self.input_layernorm(x), cos, sin,
@@ -167,13 +230,15 @@ class Phi3Layer(nn.Module):
 class Phi3Decoder(nn.Module):
     """Decoder trunk with the token embedding (``llm.embed_tokens``)."""
 
-    def __init__(self, cfg: ModelConfig, device=None, dtype=None):
+    def __init__(self, cfg: ModelConfig, device=None, dtype=None, mesh=None):
         super().__init__()
+        check_mesh(cfg, mesh)
         self.cfg = cfg
+        self.mesh = mesh
         kw = dict(device=device, dtype=dtype)
         self.embed_tokens = nn.Embedding(cfg.vocab_size, cfg.hidden_size,
                                          **kw)
-        self.layers = nn.ModuleList(Phi3Layer(cfg, **kw)
+        self.layers = nn.ModuleList(Phi3Layer(cfg, mesh=mesh, **kw)
                                     for _ in range(cfg.num_layers))
         self.norm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps, **kw)
 
@@ -183,15 +248,25 @@ class Phi3Decoder(nn.Module):
                 return_kv: bool = False
                 ) -> Tuple[torch.Tensor, Optional[KVCache]]:
         """Final-norm hidden states, and with ``return_kv`` the new tokens'
-        keys/values as a heads-major :class:`KVCache`."""
-        cfg = self.cfg
+        keys/values as a heads-major :class:`KVCache` (on a mesh, of this
+        rank's heads)."""
+        cfg, mesh = self.cfg, self.mesh
+        b, l, _ = inputs_embeds.shape
+        # seq sharding: pad the new tokens to the seq multiple once, here
+        # (padded queries are pad rows cropped at the end, padded keys are
+        # never visible and never stored), and keep this rank's chunk
+        pad, q_meta, k_meta, bias = pad_to_seq(mesh, l, q_meta, k_meta, bias)
+        x = inputs_embeds
+        if pad:
+            x, pos_ids = F.pad(x, (0, 0, 0, pad)), F.pad(pos_ids, (0, pad))
         cos, sin = rope_tables(pos_ids, cfg.head_dim, cfg.rope_theta,
                                inputs_embeds.dtype)
-        x = inputs_embeds
+        x, cos, sin = (split_seq(t, mesh) for t in (x, cos, sin))
         kv = None
         if return_kv:
-            b, l, _ = x.shape
-            shape = (cfg.num_layers, b, cfg.num_kv_heads, l, cfg.head_dim)
+            hkv = cfg.num_kv_heads // (axis_size(mesh, SEQ_AXIS)
+                                       * axis_size(mesh, TENSOR_AXIS))
+            shape = (cfg.num_layers, b, hkv, l, cfg.head_dim)
             kv = KVCache(x.new_empty(shape), x.new_empty(shape))
         remat = cfg.remat and torch.is_grad_enabled()
         for i, layer in enumerate(self.layers):
@@ -209,6 +284,8 @@ class Phi3Decoder(nn.Module):
             else:
                 x, (k, v) = layer(*args)
             if kv is not None:
-                kv.k[i].copy_(k.transpose(1, 2))
-                kv.v[i].copy_(v.transpose(1, 2))
+                kv.k[i].copy_(k[:, :l].transpose(1, 2))
+                kv.v[i].copy_(v[:, :l].transpose(1, 2))
+        if axis_size(mesh, SEQ_AXIS) > 1:
+            x = gather_seq(x, mesh)[:, :l]
         return self.norm(x), kv

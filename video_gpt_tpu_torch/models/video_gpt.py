@@ -17,6 +17,11 @@ With ``input_head`` the model carries the aux input-reconstruction head
 
 Module names follow the reference's torch model, so its state dict (and
 ``utils.weights.videogpt_state_dict_from_jax``) loads with ``strict=True``.
+
+Built with ``mesh=`` (``parallel/mesh.py``), every rank assembles the
+token stream whole; the trunk splits it over the seq axis and gathers it
+before the heads, and the KV cache that ``prefill`` / ``extend_cache``
+return holds the rank's heads (``mesh.cache_heads``).
 """
 from __future__ import annotations
 
@@ -28,6 +33,7 @@ from torch import nn
 from ..config import ModelConfig
 from ..ops.attention import AttnMeta
 from ..ops.flash_attention import DecodeMask, bias_map, precompute_bias
+from ..parallel.mesh import SEQ_AXIS, axis_size
 from .embedders import (FinalLayer, PatchEmbed, TimestepEmbedder,
                         crop_pos_embed, sincos_2d_pos_embed, unpatchify)
 from .phi3 import KVCache, Phi3Decoder
@@ -58,7 +64,8 @@ class Batch(NamedTuple):
                    meta=AttnMeta.from_layout(layout, device))
 
 
-def maybe_bias(cfg: ModelConfig, q_meta: AttnMeta, k_meta: AttnMeta):
+def maybe_bias(cfg: ModelConfig, q_meta: AttnMeta, k_meta: AttnMeta,
+               mesh=None):
     """The layer- and step-invariant attention bias (the bias kernel's
     operand) with its tile map, built once here and read by every layer's
     K3 and K9 (a :class:`BiasMap`; on the CPU it holds no map), or None
@@ -69,7 +76,11 @@ def maybe_bias(cfg: ModelConfig, q_meta: AttnMeta, k_meta: AttnMeta):
     on CUDA, its plain version on the CPU). Above the limit ``attend``
     runs the metadata-inline kernel K6 (backward K7), which evaluates the
     rule per tile and needs no [Lq, Lk] tensor: stages 2-4, and stage 1 at
-    B >= 6."""
+    B >= 6. On a ``mesh`` with a seq axis it is None, as under the JAX
+    package's Ulysses: the seq-sharded trunk pads its sequences to the seq
+    multiple, which a dense bias cannot follow, so its prefill runs K6."""
+    if axis_size(mesh, SEQ_AXIS) > 1:
+        return None
     b, lq = q_meta.index.shape
     if b * lq * k_meta.vis_start.shape[1] > cfg.precompute_bias_limit:
         return None
@@ -125,7 +136,8 @@ class VideoGPT(nn.Module):
     package's flax ``dtype=bf16`` over fp32 parameters)."""
 
     def __init__(self, cfg: ModelConfig, device=None, dtype=torch.float32,
-                 train_init: bool = False, input_head: bool = False):
+                 train_init: bool = False, input_head: bool = False,
+                 mesh=None):
         super().__init__()
         self.cfg = cfg
         self.train_init = train_init
@@ -144,7 +156,7 @@ class VideoGPT(nn.Module):
             self.input_final_layer = nn.Linear(
                 d, cfg.patch_size ** 2 * cfg.in_channels, **kw)
             self.input_final_layer.zero_init = True
-        self.llm = Phi3Decoder(cfg, **kw)
+        self.llm = Phi3Decoder(cfg, mesh=mesh, **kw)
         self._pos_tables: Dict[tuple, torch.Tensor] = {}
 
     @property
@@ -252,7 +264,8 @@ class VideoGPT(nn.Module):
         DecodeMask) lets loop callers pay the step-invariant mask once."""
         emb = self._assemble(batch, noisy_latents, t, clean_latents)
         if bias is None:
-            bias = maybe_bias(self.cfg, batch.meta, batch.meta)
+            bias = maybe_bias(self.cfg, batch.meta, batch.meta,
+                              self.llm.mesh)
         hidden, _ = self.llm(emb, batch.pos_ids, batch.meta, batch.meta,
                              bias=bias)
         nn_, hl, wl, _ = noisy_latents.shape
@@ -274,7 +287,8 @@ class VideoGPT(nn.Module):
                            self._embed_clean_flat(clean_latents))
         meta_p = batch.meta.cols(slice(0, lp))
         _, cache = self.llm(emb, batch.pos_ids[:, :lp], meta_p, meta_p,
-                            bias=maybe_bias(self.cfg, meta_p, meta_p),
+                            bias=maybe_bias(self.cfg, meta_p, meta_p,
+                                            self.llm.mesh),
                             return_kv=True)
         return cache
 
@@ -325,7 +339,7 @@ class VideoGPT(nn.Module):
         emb = _scatter(emb, batch.time_src[:, -lt:], self.time_token(t))
         q_meta = batch.meta.tail(lt)
         if bias is None:
-            bias = maybe_bias(self.cfg, q_meta, batch.meta)
+            bias = maybe_bias(self.cfg, q_meta, batch.meta, self.llm.mesh)
         hidden, _ = self.llm(emb, batch.pos_ids[:, -lt:], q_meta, batch.meta,
                              cache=cache, bias=bias)
         # remap full-sequence gather indices onto the tail

@@ -4,11 +4,15 @@ Each ``csrc/*.cu`` compiles with ``nvcc`` for ``sm_90a`` into a shared
 library with a plain C interface, loaded with ``ctypes``. Builds happen at
 first use, all sources in parallel, into ``_build/`` beside the package; a
 library is named by the hash of its sources and flags, so a changed source
-rebuilds and an unchanged one is reused. Nothing here runs at import time.
+rebuilds and an unchanged one is reused. Processes that build at once (the
+ranks of a mesh on a fresh tree) take turns under a file lock in the build
+directory, so one builds and the others load. Nothing here runs at import
+time.
 """
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import functools
 import hashlib
 import os
@@ -54,6 +58,16 @@ def build(csrc: str = CSRC, build_dir: str = BUILD_DIR
     what is missing into ``build_dir`` (one nvcc process per source, all
     started together)."""
     os.makedirs(build_dir, exist_ok=True)
+    # one process builds at a time, so the ranks of a fresh multi-process
+    # launch run nvcc once, not once each (each library is installed
+    # whole, by os.replace, either way); the lock goes with its file's
+    # close (or the process), so a build that was cut off leaves none
+    with open(os.path.join(build_dir, "lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        return _build(csrc, build_dir)
+
+
+def _build(csrc: str, build_dir: str) -> Dict[str, ctypes.CDLL]:
     targets = {src: _target(src, csrc, build_dir) for src in SOURCES}
     procs = {}
     for src, so in targets.items():

@@ -1,0 +1,180 @@
+"""Multi-process runtime, collectives and failure handling.
+
+Port of ``video_gpt_tpu/parallel/distributed.py`` onto
+``torch.distributed``, one process per rank:
+
+- :func:`init_runtime` joins the process group of a ``torchrun`` launch
+  (``RANK`` / ``WORLD_SIZE`` / ``LOCAL_RANK`` / ``MASTER_ADDR`` /
+  ``MASTER_PORT``) or of the JAX package's variables
+  (``COORDINATOR_ADDRESS`` / ``NUM_PROCESSES`` / ``PROCESS_ID``), and does
+  nothing in a single process;
+- :func:`is_main_process`: rank 0, or no process group;
+- :class:`GracefulShutdown`: SIGTERM/SIGINT sets a flag that the training
+  loops read each step, to write a checkpoint and return;
+- :func:`spawn_ranks` runs a function in one spawned process per rank
+  (``torch.multiprocessing``), joined by a file rendezvous, without
+  ``torchrun`` (the tests, and the smoke run's ranks sharing one card).
+
+The collectives the mesh runs (:func:`all_to_all`, :func:`all_reduce`,
+:func:`all_gather`) count the bytes they take in, in the caller's
+:class:`CollectiveStats`. Several ranks sharing one card run the ``gloo``
+backend (NCCL refuses two ranks of one communicator on one device); gloo
+takes CUDA operands of these collectives itself, copying them through host
+memory.
+"""
+from __future__ import annotations
+
+import dataclasses
+import os
+import signal
+import threading
+import time
+from typing import Callable, List, Optional, Sequence
+
+import torch
+import torch.distributed as dist
+import torch.multiprocessing
+
+def init_runtime(device=None, backend: Optional[str] = None) -> bool:
+    """Join the launch's process group; True when one is running.
+
+    ``backend`` None takes ``nccl`` for a CUDA ``device`` and ``gloo`` for
+    the CPU; ranks that share one card pass ``"gloo"`` themselves. With
+    ``LOCAL_RANK`` set, a CUDA rank's current device is ``cuda:LOCAL_RANK``.
+    Without a launch (no world size above 1 in the environment) nothing is
+    done."""
+    if dist.is_initialized():
+        return True
+    env = os.environ
+    world = int(env.get("WORLD_SIZE") or env.get("NUM_PROCESSES") or 1)
+    if world == 1:
+        return False
+    rank = int(env.get("RANK") or env.get("PROCESS_ID") or 0)
+    if env.get("MASTER_ADDR"):
+        init_method = "env://"
+    elif env.get("COORDINATOR_ADDRESS"):
+        init_method = f"tcp://{env['COORDINATOR_ADDRESS']}"
+    else:
+        raise RuntimeError(f"WORLD_SIZE {world} without MASTER_ADDR or "
+                           "COORDINATOR_ADDRESS: launch with torchrun")
+    cuda = device is not None and torch.device(device).type == "cuda"
+    if cuda and env.get("LOCAL_RANK") is not None:
+        torch.cuda.set_device(int(env["LOCAL_RANK"]))
+    dist.init_process_group(backend or ("nccl" if cuda else "gloo"),
+                            init_method=init_method, world_size=world,
+                            rank=rank)
+    return True
+
+
+def is_main_process() -> bool:
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
+@dataclasses.dataclass
+class CollectiveStats:
+    """Bytes a rank's collectives took in, and their count."""
+
+    moved: int = 0
+    calls: int = 0
+
+    def add(self, x: torch.Tensor) -> None:
+        self.moved += x.numel() * x.element_size()
+        self.calls += 1
+
+
+def all_to_all(x: torch.Tensor, group, split_dim: int, concat_dim: int,
+               stats: Optional[CollectiveStats] = None) -> torch.Tensor:
+    """Split ``x`` into n chunks along ``split_dim``, send chunk j to the
+    group's rank j, and concatenate the chunks received along
+    ``concat_dim`` in group-rank order."""
+    n = dist.get_world_size(group)
+    inp = torch.stack(x.chunk(n, dim=split_dim))
+    out = torch.empty_like(inp)
+    dist.all_to_all_single(out, inp, group=group)
+    if stats is not None:
+        stats.add(inp)
+    return torch.cat(out.unbind(0), dim=concat_dim)
+
+
+def all_reduce(x: torch.Tensor, group,
+               stats: Optional[CollectiveStats] = None) -> torch.Tensor:
+    """Sum of ``x`` over the group's ranks (in place; returns ``x``)."""
+    dist.all_reduce(x, group=group)
+    if stats is not None:
+        stats.add(x)
+    return x
+
+
+def all_gather(x: torch.Tensor, group,
+               stats: Optional[CollectiveStats] = None) -> List[torch.Tensor]:
+    """Every group rank's ``x``, in group-rank order."""
+    src = x.detach().contiguous()
+    parts = [torch.empty_like(src) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, src, group=group)
+    if stats is not None:
+        stats.add(src)
+    return parts
+
+
+class GracefulShutdown:
+    """Sets ``requested`` on SIGTERM/SIGINT; the training loops read it
+    each step, write a checkpoint at the current step and return.
+    :meth:`restore` puts the previous handlers back."""
+
+    def __init__(self, signals=(signal.SIGTERM, signal.SIGINT)):
+        self.requested = threading.Event()
+        self._prev = {}
+        for sig in signals:
+            try:
+                self._prev[sig] = signal.signal(sig, self._handler)
+            except ValueError:
+                pass  # not the main thread: no handler can be installed
+
+    def _handler(self, signum, frame):
+        self.requested.set()
+
+    def restore(self) -> None:
+        for sig, prev in self._prev.items():
+            signal.signal(sig, prev)
+        self._prev = {}
+
+
+def _rank_main(rank: int, fn: Callable, args: Sequence, world: int,
+               workdir: str, threads: int) -> None:
+    if threads:
+        torch.set_num_threads(threads)
+    dist.init_process_group("gloo", init_method=f"file://{workdir}/rdzv",
+                            world_size=world, rank=rank)
+    try:
+        torch.save(fn(*args), os.path.join(workdir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def spawn_ranks(fn: Callable, args: Sequence, world: int, workdir: str,
+                timeout: float = 600.0, threads: int = 0) -> list:
+    """``fn(*args)`` in ``world`` processes of ``torch.multiprocessing``'s
+    spawn, each one rank of a gloo process group joined through a file
+    under ``workdir`` (an empty directory); returns each rank's result, in
+    rank order (tensors, numbers, strings and containers of them: they
+    cross as ``torch.save`` files). ``fn`` is a module-level function (it
+    is pickled by name). A rank that fails stops the others and its error
+    is raised here; past ``timeout`` seconds every rank is stopped and
+    ``RuntimeError`` raised. ``threads`` (when nonzero) caps each rank's
+    intra-op threads."""
+    ctx = torch.multiprocessing.start_processes(
+        _rank_main, args=(fn, args, world, workdir, threads), nprocs=world,
+        join=False, start_method="spawn")
+    deadline = time.monotonic() + timeout
+    try:
+        while not ctx.join(max(deadline - time.monotonic(), 0.0)):
+            if time.monotonic() >= deadline:
+                raise RuntimeError(f"the {world} ranks still run after "
+                                   f"{timeout} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    return [torch.load(os.path.join(workdir, f"rank{r}.pt"))
+            for r in range(world)]

@@ -23,6 +23,16 @@ the port has no key cap and keeps its kernels: the cond-row decode runs K1
 and the uncond row K2 at any length, and the prefill runs K3 with a bias
 while B*L^2 stays within ``precompute_bias_limit`` (the long rollout at
 B = 1: 12,432^2 = 154.6M) and K6 above it (B = 2: 309.1M, as on the TPU).
+
+Sequence- and tensor-parallel serving: ``build(..., mesh=)`` with a
+``parallel.mesh.Mesh`` of S x T ranks (one process each, e.g. ``torchrun
+--nproc_per_node S*T``) builds this rank's model, and every rank then runs
+``generate`` / ``generate_batch`` with the same arguments: the same
+layouts, the same seeded noise (a generator per rank, seeded alike), the
+VAE on every rank, so every rank returns the same frames. The trunk splits
+the sequence over seq and the heads over (tensor, seq); the prefill runs
+K6 (no bias under Ulysses) when S > 1 and K3 with its bias on a
+tensor-only mesh, the denoise rows K1/K2 at each rank's H/(S T) heads.
 """
 from __future__ import annotations
 
@@ -33,10 +43,12 @@ import numpy as np
 import torch
 
 from ..config import ModelConfig, SchedulerConfig
+from ..parallel.mesh import DATA_AXIS, TENSOR_AXIS, Mesh, axis_size
 from ..data.processor import postprocess_frames, preprocess_frames
 from ..layout import decode_rank, frame_block_inference_layout
 from ..models.vae import AutoencoderKL, VAEConfig
 from ..models.video_gpt import Batch, VideoGPT, decode_mask
+from ..utils.weights import tp_shard_state_dict
 from .scheduler import sample, sample_separate_cfg
 
 # noise(kind, shape, dtype) -> standard-normal tensor on the device; kinds in
@@ -79,28 +91,60 @@ class VideoGPTPipeline:
               dtype: torch.dtype = torch.bfloat16,
               state_dict: Optional[dict] = None,
               vae_state_dict: Optional[dict] = None,
-              seed: int = 0, input_head: bool = False) -> "VideoGPTPipeline":
+              seed: int = 0, input_head: bool = False,
+              mesh: Optional[Mesh] = None) -> "VideoGPTPipeline":
         """Model and VAE allocated on ``device`` in ``dtype``, loaded from
         the given state dicts (reference / diffusers names, strict) or
         initialised at random on the device from ``seed``. ``input_head``
         builds the model with the aux input head, so that the weights of a
         run trained with ``input_output_return`` load (serving never reads
-        the head)."""
+        the head).
+
+        With a ``mesh`` (seq S, tensor T; data 1) the model is this
+        rank's: seq-sharded under Ulysses when S > 1 (the JAX command's
+        setting; a tensor-only mesh keeps the prefill's bias), and at T > 1
+        built at 1/T of its width with the rank's shard of the weights
+        (``tp_shard_state_dict``; random weights are drawn for the whole
+        model first, so every mesh serves the one-rank model of ``seed``).
+        """
         device = resolve_device(device)
-        model = VideoGPT(cfg, device="meta", dtype=dtype,
-                         input_head=input_head).to_empty(device=device)
+        gen = torch.Generator(device).manual_seed(seed)
+        model = cls._model(cfg, device, dtype, input_head, gen, state_dict,
+                           mesh)
         vae = AutoencoderKL(vae_cfg, device="meta", dtype=dtype).to_empty(
             device=device)
-        gen = torch.Generator(device).manual_seed(seed)
-        if state_dict is None:
-            model.init_random_(gen)
-        else:
-            model.load_state_dict(state_dict, strict=True)
         if vae_state_dict is None:
             vae.init_random_(gen)
         else:
             vae.load_state_dict(vae_state_dict, strict=True)
         return cls(model=model.eval(), vae=vae.eval())
+
+    @staticmethod
+    def _model(cfg, device, dtype, input_head, gen, state_dict, mesh):
+        def empty(c, m=None):
+            return VideoGPT(c, device="meta", dtype=dtype,
+                            input_head=input_head, mesh=m).to_empty(
+                device=device)
+
+        if axis_size(mesh, DATA_AXIS) != 1:
+            raise NotImplementedError(
+                "serving on a mesh with a data axis is not ported yet "
+                "(ROADMAP.md queue 1: the mesh's training half)")
+        tp = axis_size(mesh, TENSOR_AXIS)
+        if tp > 1:
+            if state_dict is None:
+                # the whole model's draws, then this rank's shard of them
+                full = empty(cfg).init_random_(gen)
+                state_dict = full.state_dict()
+                del full
+            state_dict = tp_shard_state_dict(state_dict, cfg, tp,
+                                             mesh.index(TENSOR_AXIS))
+        model = empty(cfg, mesh)
+        if state_dict is None:
+            model.init_random_(gen)
+        else:
+            model.load_state_dict(state_dict, strict=True)
+        return model
 
     @property
     def device(self) -> torch.device:

@@ -29,6 +29,7 @@ from ..data.prefetch import Prefetcher
 from ..image_gen import ImageGenProcessor
 from ..models.vae import AutoencoderKL, VAEConfig
 from ..models.video_gpt import VideoGPT
+from ..parallel.distributed import GracefulShutdown
 from ..sampling.pipeline import resolve_device
 from ..utils import checkpoint as ckpt
 from .loss import draw_loss_noise
@@ -170,9 +171,16 @@ class ImageGenTrainer:
         prefetcher = Prefetcher(self.make_batch, depth=cfg.prefetch_depth,
                                 workers=cfg.num_workers, start=start_step)
         writer = ckpt.CheckpointWriter(ckpt_dir)
+        # SIGTERM / SIGINT: a checkpoint at the current step, then return
+        shutdown = GracefulShutdown()
         t0, running = time.time(), []
         try:
             for step_idx in range(start_step, max_steps):
+                if shutdown.requested.is_set():
+                    writer.save_durable(step_idx, state)
+                    print(f"shutdown requested: checkpoint-{step_idx} "
+                          "durable", flush=True)
+                    break
                 tb = prefetcher.get().to(self.device)
                 metrics = self.train_step(state, tb, step_idx)
                 running.append(metrics["loss"])
@@ -195,6 +203,7 @@ class ImageGenTrainer:
                 if (step_idx + 1) % cfg.ckpt_every == 0:
                     writer.save(step_idx + 1, state)
         finally:
+            shutdown.restore()
             prefetcher.close()
             writer.close()  # the last save is on disk before returning
         return state

@@ -40,6 +40,7 @@ from ..data.video import VideoClipDataset
 from ..layout import tokens_per_frame
 from ..models.vae import AutoencoderKL, VAEConfig
 from ..models.video_gpt import VideoGPT
+from ..parallel.distributed import GracefulShutdown
 from ..sampling.pipeline import resolve_device
 from ..utils import checkpoint as ckpt
 from .data import TrainBatch, collate
@@ -232,19 +233,27 @@ class Trainer:
         prefetcher = Prefetcher(self.make_batch, depth=cfg.prefetch_depth,
                                 workers=cfg.num_workers, start=start_step)
         writer = ckpt.CheckpointWriter(ckpt_dir)
+        # SIGTERM / SIGINT: a checkpoint at the current step, then return
+        shutdown = GracefulShutdown()
         try:
             return self._loop(start_step, max_steps, state, prefetcher,
-                              writer, log_writer)
+                              writer, log_writer, shutdown)
         finally:
+            shutdown.restore()
             prefetcher.close()
             writer.close()  # the last save is on disk before returning
 
     def _loop(self, start_step, max_steps, state, prefetcher, writer,
-              log_writer):
+              log_writer, shutdown):
         cfg = self.cfg
         t0 = time.time()
         running = []
         for step_idx in range(start_step, max_steps):
+            if shutdown.requested.is_set():
+                writer.save_durable(step_idx, state)
+                print(f"shutdown requested: checkpoint-{step_idx} durable",
+                      flush=True)
+                break
             tb = prefetcher.get().to(self.device)
             metrics = self.train_step(state, tb, step_idx)
             # keep the device scalar: reading it here would wait for the

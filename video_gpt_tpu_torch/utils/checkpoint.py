@@ -65,9 +65,11 @@ class CheckpointWriter:
         self.keep = keep
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[Exception] = None
+        self.last_step: Optional[int] = None
 
     def save(self, step: int, state: Any) -> None:
         self.wait()
+        self.last_step = step
         host = _to_host(state.state_dict())
 
         def run():
@@ -86,6 +88,14 @@ class CheckpointWriter:
         if self._error is not None:
             err, self._error = self._error, None
             raise err
+
+    def save_durable(self, step: int, state: Any) -> None:
+        """A checkpoint of ``state`` at ``step`` on disk before returning
+        (written unless the last save was of this step): the save before a
+        requested shutdown."""
+        if self.last_step != step:
+            self.save(step, state)
+        self.wait()
 
     def close(self) -> None:
         self.wait()

@@ -8,17 +8,20 @@ diffusers AutoencoderKL names, the inverse of
 ``lora_state_dict_from_jax`` unstacks LoRA adapters into peft's names. The port's
 modules carry these names, so both load with ``strict=True``. Pure numpy
 on the input side: pass ``jax.device_get(params)`` or any nested mapping of
-arrays.
+arrays. :func:`tp_shard_state_dict` cuts a standard-layout state dict into
+tensor rank t's part, which a model built on a (tensor T) mesh loads
+(``videogpt_state_dict_from_jax(..., tp_shard=(T, t))`` does both).
 """
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..config import ModelConfig
 from ..models.vae import VAEConfig
+from ..parallel.tensor import fused_group_sizes, tp_order
 
 
 def _t(x) -> torch.Tensor:
@@ -29,9 +32,13 @@ def _unwrap(params: Mapping) -> Mapping:
     return params["params"] if "params" in params else params
 
 
-def videogpt_state_dict_from_jax(params: Mapping, cfg: ModelConfig
+def videogpt_state_dict_from_jax(params: Mapping, cfg: ModelConfig,
+                                 tp_shard: Optional[Tuple[int, int]] = None
                                  ) -> Dict[str, torch.Tensor]:
-    """Flax VideoGPT params -> reference torch state dict (float32)."""
+    """Flax VideoGPT params (the standard fused layout, unsharded) ->
+    reference torch state dict (float32); with
+    ``tp_shard=(T, t)``, tensor rank t's part of it
+    (:func:`tp_shard_state_dict`)."""
     p = _unwrap(params)
     sd: Dict[str, torch.Tensor] = {}
 
@@ -69,7 +76,34 @@ def videogpt_state_dict_from_jax(params: Mapping, cfg: ModelConfig
         for name in ("input_layernorm", "post_attention_layernorm"):
             sd[f"{base}{name}.weight"] = _t(layers[name]["weight"][i])
     sd["llm.norm.weight"] = _t(p["llm"]["norm"]["weight"])
-    return sd
+    return sd if tp_shard is None else tp_shard_state_dict(sd, cfg, *tp_shard)
+
+
+# row-parallel weights: [out, in] with the contraction (in) over the ranks
+_ROW_PARALLEL = ("o_proj.weight", "o_proj.lora_A.weight", "down_proj.weight")
+
+
+def tp_shard_state_dict(sd: Mapping[str, torch.Tensor], cfg: ModelConfig,
+                        tp: int, rank: int) -> Dict[str, torch.Tensor]:
+    """Tensor rank ``rank``'s part of a standard-layout state dict over
+    ``tp`` ranks (Megatron column/row parallel): the rows of
+    ``qkv_proj.weight`` for its [q_t|k_t|v_t] and of
+    ``gate_up_proj.weight`` for its [gate_t|up_t] (block t of the
+    tp-grouped order), the columns of ``o_proj.weight`` and
+    ``down_proj.weight`` for its heads and features; every other entry is
+    replicated. A LoRA model is merged before it is sharded."""
+    if tp == 1:
+        return dict(sd)
+    out = {}
+    for name, w in sd.items():
+        sizes = fused_group_sizes(name, cfg)
+        if sizes is not None:
+            rows = tp_order(sizes, tp).reshape(tp, -1)[rank]
+            w = w.index_select(0, torch.from_numpy(rows).to(w.device))
+        elif name.endswith(_ROW_PARALLEL):
+            w = w.chunk(tp, dim=1)[rank]
+        out[name] = w
+    return out
 
 
 def lora_state_dict_from_jax(lora: Mapping, cfg: ModelConfig
