@@ -31,7 +31,10 @@ Phases, in order; any failure exits nonzero and none is caught:
    bias: text -> image ~4.1k keys, editing ~8.2k keys) and K3 and K9 at
    the train-image shape (L 4,609); and at a mesh rank's shapes of the
    flagship: K1 and K2 at 8 heads, K6 at a seq-sharded prefill (8 heads),
-   K3 at a tensor-only prefill (16 heads). Every attention kernel
+   K3 at a tensor-only prefill (16 heads); and at a mesh training rank's:
+   K3/K9 at 16 heads over the stage-1 layout (tensor 2), K6/K7 at 16
+   heads over it (a seq-2 rank's Ulysses heads) and at 8 heads over the
+   stage-4 layout ((seq 2, tensor 2)). Every attention kernel
    computes only the tiles its tile map does not call empty: each map the
    kernels build is held equal to its plain classifier, and its share of
    tiles computed and the map's own time are printed beside the kernel's:
@@ -77,16 +80,36 @@ Phases, in order; any failure exits nonzero and none is caught:
    blocks over 48x80 frames whose odd tails the seq axis pads (bar:
    final-latent relative MSE 1e-3), each rank with its exact launches
    (K6 prefills on a seq mesh, K3 with its bias on a tensor-only one);
-11. full-width mesh clips: the main path's model (seed 0), frames, noise
-   and recipe over (seq 2, tensor 2) and (seq 4) (the reference's SP=4)
-   gloo ranks on the card: each rank exactly 32 K6, 320 K1 and 320 K2 at
-   its 8 heads, the final latents bit-equal across the ranks
-   (``shard_divergence`` 0) and within relative MSE 1e-3 of the main
-   path's and within twice its floor (the main path's clip rerun with its
-   linears in another fp32 summation order, ``fp32_linears``: at seeds 1
-   and 2 that floor alone is above 1e-3), with the clip's wall time, the bytes each rank's collectives
-   took in and each rank's peak memory (gloo ranks sharing one card: not
-   multi-GPU speed);
+11. full-width mesh clips: the main path's widths at 8 of its 32 layers
+   (MESH_CLIP_LAYERS, seed 0), frames, noise and recipe over (seq 2,
+   tensor 2) and (seq 4) (the reference's SP=4) gloo ranks on the card:
+   each rank exactly 8 K6, 80 K1 and 80 K2 at its 8 heads, the final
+   latents bit-equal across the ranks (``shard_divergence`` 0) and within
+   relative MSE 1e-3 of the same model's single-rank clip and within
+   twice its floor (that clip rerun with its linears in another fp32
+   summation order, ``fp32_linears``), with the clip's wall time, the
+   bytes each rank's collectives took in and each rank's peak memory
+   (gloo ranks sharing one card: not multi-GPU speed);
+11a. mesh training, gloo ranks sharing the card: gloo's reduce_scatter,
+   all_gather, all_to_all_single and all_reduce on CUDA operands (small,
+   and large ones a matmul has just written), each against its expected
+   result; a small-input reference (a tiny model, head_dim 96, 8 heads, 4
+   layers, two 4-frame 48x64 rows, two steps with injected posterior
+   noise and loss draws) over (data 2), (seq 2), (tensor 2), (data 2,
+   zero3) and (data 2, seq 2, tensor 2, zero3) against the one-rank step
+   on the CPU in fp32 (bars: the training reference's, per step; each
+   rank its exact K3/K9 or K6/K7 launches; the replicated parameters
+   bit-equal across the ranks); then the recipes of
+   ``configs/pretrain_multichip_examples.sh`` at full width through the
+   Trainer's own step, a warm-up and a timed step each: dp_tp_zero3 as
+   (data 2, tensor 2, zero3) at full depth (stage 1, each rank 64 K3 and
+   32 K9 at 16 heads), dp_sp as (data 2, seq 2) and dp_sp_tp's (seq 2,
+   tensor 2) at stage 4, both at 8 of the 32 layers (a replicating axis
+   holds 16 B a parameter on each of its ranks: full depth does not fit
+   the card twice); each with the slowest rank's step time, global
+   tokens/s, each rank's collective bytes (forward; backward with the
+   optimizer's), peak memory, a gradient into layer 0's attention, moved
+   parameters and divergence 0 (not multi-GPU speed);
 12. small-input training reference, twice: one loss and backward of a tiny
    model (head_dim 96, GQA) on the card (bf16, kernels) against the CPU
    (fp32, plain versions) with the same weights and random numbers: loss
@@ -171,6 +194,9 @@ parameters unmoved. The LoRA and distillation paths take stage 1's
 recipe with their own flags; train-image and the input-head path take a
 constant learning rate too. About 10 minutes on one H100.
 
+``--mesh-train`` builds the kernels and runs only the mesh training's
+kernel records and phase 11a (a development reading; no device line).
+
 ``--mesh-margin SEED...`` builds the kernels and runs only
 :func:`mesh_margin`: the full-width (seq 2, tensor 2) clip against the
 single-rank clip at each weight-and-noise seed, beside the single-rank
@@ -182,6 +208,7 @@ JAX.
 """
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import gc
 import json
@@ -566,6 +593,8 @@ def kernels_phase(dev):
         out[name][key] = rec
     for name, key, rec in mesh_kernels(dev):
         out[name][key] = rec
+    for name, key, rec in mesh_train_kernels(dev):
+        out[name][key] = rec
     image = image_kernels(dev)
     for key in ("image_decode_2way", "image_decode_3way"):
         out["K3"][key] = image[key]
@@ -805,15 +834,15 @@ def training_kernels(dev) -> dict:
                               " (stage-1 training shape)")
 
 
-def bias_train_records(dev, meta: AttnMeta, label: str) -> dict:
+def bias_train_records(dev, meta: AttnMeta, label: str,
+                       heads: int = None) -> dict:
     """K3 and K9 over the bias of a training layout's ``meta``, 32 heads of
-    96, random bf16 q/k/v and dO. K9's plain version computes the
-    gradients in fp32 from the same bf16 values; the mass of each gradient
-    element is the plain version's product over absolute values (K9
-    rounds p and ds to bf16 before its products)."""
+    96 (or ``heads``, a mesh rank's), random bf16 q/k/v and dO. K9's plain
+    version computes the gradients in fp32 from the same bf16 values; the
+    mass of each gradient element is the plain version's product over
+    absolute values (K9 rounds p and ds to bf16 before its products)."""
     bias = fa.precompute_bias(meta, meta)
-    cfg = ModelConfig()
-    h, hkv, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    h, hkv, d = _heads(heads)
     L = bias.shape[1]
     bf16 = _bf16_maker(dev, 5)
     # as the attention layer makes them: q, k new tensors (RoPE), v a view
@@ -893,24 +922,49 @@ def inline_kernels(dev) -> dict:
     counts the visible pairs from the metadata. The library yardstick is
     ``scaled_dot_product_attention`` with the equivalent boolean mask (for
     K7, its backward alone)."""
-    cfg = ModelConfig()
-    h, hkv, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    src = "video_gpt_tpu_torch/csrc/"
     bf16 = _bf16_maker(dev, 7)
 
     def operands(stage):
-        meta = AttnMeta(*(x.to(dev) for x in
-                          train_batch(stage).inputs.batch.meta))
-        q, k, v = inline_operands(bf16, meta)
-        L = meta.index.shape[1]
-        pairs = visible_pairs(meta)
-        log(f"stage-{stage} attention: L {L}, {pairs} visible pairs "
-            f"({pairs / L ** 2:.3f} of L^2)")
-        return meta, q, k, v, pairs
+        return stage_operands(dev, bf16, stage)
 
     meta, q, k, v, pairs = operands(4)
+    res = inline_train_records(bf16, meta, q, k, v, pairs,
+                               " (stage-4 training shape)")
+    res["K6"]["tile_map"] = inline_tile_map("K6 (stage-4 training shape)",
+                                            meta)
+    del q, k, v
+    torch.cuda.empty_cache()
+
+    meta, q, k, v, pairs = operands(1)
+    res["K8"] = check_and_time("K8", inline_record(
+        meta, q, k, v, pairs, lambda: fa.flash_mha_inline(q, k, v, meta, meta),
+        149, with_lse=False), " (K6's kernel at the stage-1 shape)")
+    res["K8"]["same_kernel_as"] = "K6"
+    res["K8"]["tile_map"] = inline_tile_map(
+        "K8 (K6's kernel at the stage-1 shape)", meta)
+    return res
+
+
+def stage_operands(dev, bf16, stage: int, heads: int = None):
+    """(metadata of a stage's training layout, q, k, v at ``heads`` (the
+    flagship's by default), its visible pairs)."""
+    meta = AttnMeta(*(x.to(dev) for x in
+                      train_batch(stage).inputs.batch.meta))
+    q, k, v = inline_operands(bf16, meta, heads=heads)
     L = meta.index.shape[1]
-    do = bf16(1, L, h, d)
+    pairs = visible_pairs(meta)
+    log(f"stage-{stage} attention: L {L}, {pairs} visible pairs "
+        f"({pairs / L ** 2:.3f} of L^2)")
+    return meta, q, k, v, pairs
+
+
+def inline_train_records(bf16, meta: AttnMeta, q, k, v, pairs: int,
+                         label: str) -> dict:
+    """K6 (the training forward, with its logsumexp) and K7 on ``q``,
+    ``k``, ``v`` over ``meta``, with a random bf16 dO."""
+    src = "video_gpt_tpu_torch/csrc/"
+    b, L, h, d = q.shape
+    do = bf16(b, L, h, d)
     out, lse = fa._inline_forward(q, k, v, meta, meta, with_lse=True)
     qh, kh, vh, mask = inline_sdpa_operands(q, k, v, meta)
 
@@ -945,20 +999,9 @@ def inline_kernels(dev) -> dict:
                    tile_map=(lambda: fa.inline_tile_classes(
                        meta, meta, backward=True),
                        lambda: fa.inline_tile_classes_reference(meta, meta)))}
-    res = {name: check_and_time(name, r, " (stage-4 training shape)")
-           for name, r in recs.items()}
-    res["K6"]["tile_map"] = inline_tile_map("K6 (stage-4 training shape)",
-                                            meta)
+    res = {name: check_and_time(name, r, label) for name, r in recs.items()}
     del recs, out, lse, do, lib_out, do_h, qh, kh, vh, mask
     torch.cuda.empty_cache()
-
-    meta, q, k, v, pairs = operands(1)
-    res["K8"] = check_and_time("K8", inline_record(
-        meta, q, k, v, pairs, lambda: fa.flash_mha_inline(q, k, v, meta, meta),
-        149, with_lse=False), " (K6's kernel at the stage-1 shape)")
-    res["K8"]["same_kernel_as"] = "K6"
-    res["K8"]["tile_map"] = inline_tile_map(
-        "K8 (K6's kernel at the stage-1 shape)", meta)
     return res
 
 
@@ -1071,6 +1114,10 @@ def rollout_kernels(dev):
 # the full-width clips' meshes: (seq 2, tensor 2), and (seq 4), the
 # reference's SP=4; each rank holds 32 / (S T) = 8 of the flagship's heads
 MESH_CLIPS = ((2, 2), (4, 1))
+# their depth: 8 of the 32 layers (cut in PR 11 to fit the mesh training
+# phases in the script's time; the single-rank clip they are held to, and
+# its floor, are made at the same depth)
+MESH_CLIP_LAYERS = 8
 # the small-input mesh reference's meshes, and its frames: 48x80 is 15
 # tokens a frame, 17 with its markers, so the seq axis pads the tail and
 # the extend
@@ -1162,8 +1209,8 @@ def mesh_rank(seq: int, tensor: int, reference: bool, clip: bool,
               seed: int = 0) -> dict:
     """One gloo rank of a mesh on the card: the small-input reference
     (``reference``) and the full-width clip (``clip``: the main path's
-    ModelConfig(), frames and recipe, weights and noise from ``seed`` (the
-    main path's is 0), a warm-up at 1 step,
+    widths at MESH_CLIP_LAYERS layers, frames and recipe, weights and
+    noise from ``seed`` (the main path's is 0), a warm-up at 1 step,
     then timed with its launch counts, the bytes its collectives took in,
     its peak memory and the final latents' divergence across the ranks)."""
     import torch.distributed as dist
@@ -1174,7 +1221,8 @@ def mesh_rank(seq: int, tensor: int, reference: bool, clip: bool,
         out["reference"] = mesh_reference_latents(mesh)
     if not clip:
         return out
-    pipe = VideoGPTPipeline.build(ModelConfig(), VAEConfig(), device="cuda",
+    pipe = VideoGPTPipeline.build(ModelConfig(num_layers=MESH_CLIP_LAYERS),
+                                  VAEConfig(), device="cuda",
                                   dtype=torch.bfloat16, seed=seed, mesh=mesh)
     frames = synthetic_frames(N_CLEAN)
     kw = dict(gen_nums=(N_GEN,), img_guidance_scale=CFG_SCALE,
@@ -1228,12 +1276,22 @@ def mesh_reference_phase(want_launches) -> dict:
     one rank, all on the card in bf16 (bar: final-latent relative MSE
     1e-3); each rank's launches must equal ``want_launches(seq, tensor)``.
     The (seq 2, tensor 2) ranks go on to that mesh's full-width clip, whose
-    results come back with it."""
+    results come back with it (run alone, after the others, which run at
+    once)."""
     want, _ = mesh_reference_latents(None)
     out = {}
+    # the meshes without a clip at once (their ranks' start-up overlaps);
+    # a mesh with its clip alone, so that nothing else runs in its timing
+    alone = [m for m in MESH_REF_MESHES if m in MESH_CLIPS]
+    together = [m for m in MESH_REF_MESHES if m not in MESH_CLIPS]
+    runs = {}
+    with concurrent.futures.ThreadPoolExecutor(len(together)) as pool:
+        runs.update(zip(together, pool.map(
+            lambda m: run_mesh(*m, True, False), together)))
+    runs.update({m: run_mesh(*m, True, True) for m in alone})
     for seq, tensor in MESH_REF_MESHES:
         name = mesh_name(seq, tensor)
-        res = run_mesh(seq, tensor, True, (seq, tensor) in MESH_CLIPS)
+        res = runs[(seq, tensor)]
         rels = [rel_mse(r["reference"][0], want) for r in res]
         ran = [r["reference"][1] for r in res]
         log(f"small-input mesh reference {name}: relative MSE vs one rank "
@@ -1253,8 +1311,8 @@ def mesh_clip_phase(seq: int, tensor: int, res: list, single: torch.Tensor,
                     floor: float, want: dict, smi: str) -> dict:
     """Checks and prints one full-width mesh clip: each rank's launches
     exactly ``want``, the final latents bit-equal across the ranks and
-    within REF_REL_MSE_BAR of the single-rank main path's (``single``, on
-    the host) and within twice ``floor`` (the single-rank clip's own
+    within REF_REL_MSE_BAR of the single-rank clip's (``single``, on the
+    host) and within twice ``floor`` (the single-rank clip's own
     relative MSE under :func:`fp32_linears`: one change of summation order
     for the floor, the mesh's split as another), uint8 frames of the
     flagship's shape."""
@@ -1295,6 +1353,530 @@ def mesh_clip_phase(seq: int, tensor: int, res: list, single: torch.Tensor,
     return rec
 
 
+# ---- training on the mesh: gloo ranks sharing the card -------------------
+# the small-input mesh training reference: (data, seq, tensor, zero3)
+MESH_TRAIN_REF = ((2, 1, 1, False), (1, 2, 1, False), (1, 1, 2, False),
+                  (2, 1, 1, True), (2, 2, 2, True))
+# its tiny model's layers, frames (stage 1's interleaved blocks), global
+# rows and steps
+MESH_TRAIN_PX, MESH_TRAIN_FRAMES, MESH_TRAIN_ROWS = (48, 64), 4, 2
+MESH_TRAIN_LAYERS, MESH_TRAIN_STEPS = 4, 2
+# full width, the recipes of configs/pretrain_multichip_examples.sh at the
+# card's sizes: (data, seq, tensor, zero3, stage, layers). Only a mesh that
+# shards all the state (ZeRO-3 over data with tensor) fits full depth on
+# one card; the replicating ones run 8 of the 32 layers
+MESH_TRAIN_FULL = ((2, 1, 2, True, 1, 32), (2, 2, 1, False, 1, 8),
+                   (1, 2, 2, False, 4, 8))
+# the device of the mesh training ranks
+MESH_TRAIN_DEVICE = "cuda"
+
+
+def train_mesh_name(data: int, seq: int, tensor: int, zero3: bool) -> str:
+    name = "_".join(f"{a}{n}" for a, n in (("data", data), ("seq", seq),
+                                           ("tensor", tensor)) if n > 1)
+    return name + ("_zero3" if zero3 else "")
+
+
+def mesh_train_launches(seq: int, layers: int) -> dict:
+    """One step's launches on a rank: the forward and the recompute of
+    each layer, one backward; K6/K7 under seq (no bias), else K3/K9 with
+    one build of the bias's map."""
+    if seq > 1:
+        return expect(K6=2 * layers, K7=layers)
+    return expect(K3=2 * layers, K9=layers, bias_map_builds=1)
+
+
+def probe_rank() -> dict:
+    """gloo's collectives on CUDA operands (two ranks sharing the card),
+    each against its expected result: reduce_scatter (ZeRO's gradient
+    shard), all_gather, all_to_all_single, all_reduce; each on a small
+    vector and on a large matrix that a matmul queued on the current
+    stream has just written (the collective must wait for it)."""
+    import torch.distributed as dist
+    r, n = dist.get_rank(), dist.get_world_size()
+    dev = torch.device("cuda")
+
+    def operands(size):
+        """Each rank's input (rank i's from seed i), made on the card."""
+        if size == "small":
+            return [torch.arange(8, device=dev, dtype=torch.float32) + 10 * i
+                    for i in range(n)]
+        out = []
+        for i in range(n):
+            gen = torch.Generator(dev).manual_seed(100 + i)
+            a = torch.randn((2048, 2048), device=dev, generator=gen)
+            out.append(a @ a)
+        return out
+
+    out = {}
+    for size in ("small", "large"):
+        xs = operands(size)
+        torch.cuda.synchronize()
+        want_all = [x.cpu() for x in xs]
+        total = sum(want_all)
+        ops = {
+            "reduce_scatter": (lambda x: _probe_reduce_scatter(x, n),
+                               total.chunk(n)[r]),
+            "all_gather": (lambda x: _probe_all_gather(x, n),
+                           torch.cat(want_all)),
+            "all_to_all_single": (lambda x: _probe_all_to_all(x),
+                                  torch.cat([w.chunk(n)[r]
+                                             for w in want_all])),
+            "all_reduce": (lambda x: _probe_all_reduce(x), total)}
+        for name, (fn, want) in ops.items():
+            x = operands(size)[r]  # just queued, not synchronised
+            try:
+                got = fn(x).cpu()
+                err = float((got - want).abs().max())
+                out[f"{name}_{size}"] = err <= 1e-3 * float(
+                    want.abs().max()) or err
+            except Exception as e:  # the probe reports what gloo refuses
+                out[f"{name}_{size}"] = f"{type(e).__name__}: {e}"
+    return out
+
+
+def _probe_reduce_scatter(x, n):
+    import torch.distributed as dist
+    o = torch.empty_like(x.chunk(n)[0])
+    dist.reduce_scatter(o, [c.contiguous() for c in x.chunk(n)])
+    return o
+
+
+def _probe_all_gather(x, n):
+    import torch.distributed as dist
+    parts = [torch.empty_like(x) for _ in range(n)]
+    dist.all_gather(parts, x)
+    return torch.cat(parts)
+
+
+def _probe_all_to_all(x):
+    import torch.distributed as dist
+    o = torch.empty_like(x)
+    dist.all_to_all_single(o, x)
+    return o
+
+
+def _probe_all_reduce(x):
+    import torch.distributed as dist
+    y = x.clone()
+    dist.all_reduce(y)
+    return y
+
+
+def collective_probe(strict: bool = True) -> dict:
+    with tempfile.TemporaryDirectory() as workdir:
+        res = spawn_ranks(probe_rank, (), 2, workdir, timeout=300)
+    log(f"gloo collectives on CUDA operands, 2 ranks sharing the card: "
+        f"{res}")
+    if strict and any(v is not True for r in res for v in r.values()):
+        fail(f"a collective failed on CUDA operands: {res}")
+    return res[0]
+
+
+def mesh_train_ref_config() -> ModelConfig:
+    """A tiny training model the kernels take: head_dim 96, 8 heads (GQA
+    8:4: kv heads divide by seq x tensor), 4 layers."""
+    return ModelConfig.tiny(hidden_size=768, num_heads=8, num_kv_heads=4,
+                            num_layers=MESH_TRAIN_LAYERS,
+                            pos_embed_max_size=64)
+
+
+def mesh_train_ref_trainer(device, mixed: str, mesh_cfg=None, **sd):
+    rows = MESH_TRAIN_ROWS // (mesh_cfg.data if mesh_cfg else 1)
+    cfg = stage_config(1, frame_num=MESH_TRAIN_FRAMES, lr=TRAIN_LR,
+                       lr_scheduler="constant", adam_epsilon=1e-5,
+                       mixed_precision=mixed, batch_size_per_device=rows)
+    return Trainer(mesh_train_ref_config(), cfg, None,
+                   vae_cfg=VAEConfig.tiny(), target_resolution=MESH_TRAIN_PX,
+                   device=device, seed=3, mesh_cfg=mesh_cfg, **sd)
+
+
+def record_grads(optimizer) -> list:
+    """Each update's gradients (this rank's parts, reduced), on the host,
+    as the optimizer receives them (before the clip)."""
+    seen = []
+    update = optimizer._update
+
+    def recording(grads, norm):
+        # a copy: the update clips the gradients in place
+        seen.append([g.detach().float().to("cpu", copy=True)
+                     for g in grads])
+        return update(grads, norm)
+    optimizer._update = recording
+    return seen
+
+
+def mesh_train_ref_steps(trainer, samples, post, draws) -> dict:
+    """MESH_TRAIN_STEPS steps of ``trainer`` (on a mesh: this rank's rows)
+    on the given global batch, posterior noise and loss draws, sliced to
+    the rank's as the trainer slices its own draws: each step's loss,
+    gradient norm, launches and gradient parts; the parameters' ZeRO
+    dimensions; the replicated parameters' divergence across the ranks."""
+    from video_gpt_tpu_torch.parallel.mesh import SEQ_AXIS, batch_rows
+    from video_gpt_tpu_torch.training.loss import take_part
+    from video_gpt_tpu_torch.training.trainer import draw_part
+    from video_gpt_tpu_torch.utils.parity import replicated_divergence
+    state = trainer.build()
+    mesh, dev = trainer.mesh, trainer.device
+    seen = record_grads(state.optimizer)
+    rows = batch_rows(mesh, len(samples))
+    tb = collate(samples[rows], tokens_per_frame(*MESH_TRAIN_PX),
+                 sp_multiple=1 if mesh is None else mesh.size(SEQ_AXIS)
+                 ).to(dev)
+    f = MESH_TRAIN_FRAMES
+    steps = []
+    for i in range(MESH_TRAIN_STEPS):
+        reset_counts()
+        with torch.no_grad(), autocast(trainer.cfg, dev):
+            lat = trainer.vae.encode(tb.pixels, noise=post[i][
+                rows.start * f:rows.stop * f].to(dev))
+        inputs = tb.inputs._replace(x1=lat[tb.noisy_sel.long()],
+                                    clean_latents=lat[tb.clean_sel.long()])
+        part, den = draw_part(mesh, tb.inputs, tb.clean_valid, False)
+        m = trainer._step_fn(state, inputs, take_part(
+            LossDraws(*(x.to(dev) for x in draws[i])), part, inputs),
+            denominator=den)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        steps.append(dict(loss=float(m["loss"]),
+                          grad_norm=float(m["grad_norm"]),
+                          launches=counts()))
+    names = [n for n, _ in state.model.named_parameters()]
+    return dict(
+        coords=None if mesh is None else mesh.coords, steps=steps,
+        grads=[dict(zip(names, g)) for g in seen],
+        dims=dict(zip(names, (p.dim for p in state.optimizer.places))),
+        divergence=(0.0 if mesh is None else replicated_divergence(
+            state.model.named_parameters(), mesh)))
+
+
+def mesh_train_ref_rank(mesh_cfg, sd, samples, post, draws) -> dict:
+    """One gloo rank of the small-input mesh training reference (bf16 on
+    the card, the kernels)."""
+    return mesh_train_ref_steps(
+        mesh_train_ref_trainer(MESH_TRAIN_DEVICE, "bf16", mesh_cfg, **sd),
+        samples, post, draws)
+
+
+def whole_grads(res: list, mesh_cfg, step: int) -> torch.Tensor:
+    """A mesh's gradient of ``step`` put together from its ranks' parts,
+    flattened in the parameters' order."""
+    from video_gpt_tpu_torch.parallel.mesh import rank_grid
+    from video_gpt_tpu_torch.utils.weights import unshard
+    grid = rank_grid(mesh_cfg)
+    cfg = mesh_train_ref_config()
+    names = list(res[0]["dims"])
+    return torch.cat([unshard(
+        n, lambda d, t: res[int(grid[d, 0, t])]["grads"][step][n],
+        res[0]["dims"][n], mesh_cfg.data, mesh_cfg.tensor, cfg).flatten()
+        for n in names])
+
+
+def mesh_train_reference_phase() -> dict:
+    """The small-input mesh training reference: MESH_TRAIN_STEPS steps of
+    a tiny model on each mesh of MESH_TRAIN_REF (gloo ranks sharing the
+    card, bf16, the kernels) against the one-rank step on the CPU in fp32
+    (plain versions), all on one global batch and one set of random
+    numbers. Bars, per step: the whole gradient's relative error within
+    TRAIN_REF_FLOOR_FACTOR times the CPU's own bf16 error, the loss within
+    2^-8; the replicated parameters bit-equal across the ranks; each rank
+    exactly its step's launches."""
+    cpu = mesh_train_ref_trainer("cpu", "no")
+    cpu.build()
+    randomise_heads_(cpu.model, seed=4)
+    sd = dict(init_state_dict={k: v.clone() for k, v in
+                               cpu.model.state_dict().items()},
+              vae_state_dict={k: v.clone() for k, v in
+                              cpu.vae.state_dict().items()})
+    rng = np.random.default_rng(12)
+    f, (h, w) = MESH_TRAIN_FRAMES, MESH_TRAIN_PX
+    samples = [ClipSample(preprocess_to_resolution(
+        [rng.integers(0, 256, (h, w, 3), dtype=np.uint8) for _ in range(f)],
+        h, w), (1,) * f) for _ in range(MESH_TRAIN_ROWS)]
+    tb = collate(samples, tokens_per_frame(h, w))
+    gen = torch.Generator().manual_seed(13)
+    hl, wl = h // 8, w // 8
+    nn_, nc = tb.noisy_sel.shape[0], tb.clean_sel.shape[0]
+    post, draws = [], []
+    for _ in range(MESH_TRAIN_STEPS):
+        post.append(torch.randn((MESH_TRAIN_ROWS * f, hl, wl, 4),
+                                generator=gen))
+        draws.append(LossDraws(
+            torch.randn((nn_, hl, wl, 4), generator=gen),
+            torch.rand((MESH_TRAIN_ROWS, f), generator=gen),
+            torch.randn((nc, hl, wl, 4), generator=gen),
+            torch.rand((nc,), generator=gen)))
+    want, floor = (mesh_train_ref_steps(mesh_train_ref_trainer(
+        "cpu", mixed, **sd), samples, post, draws) for mixed in ("no", "bf16"))
+    want_g = [torch.cat([g.flatten() for g in s.values()])
+              for s in want["grads"]]
+    floor_g = [torch.cat([g.flatten() for g in s.values()])
+               for s in floor["grads"]]
+
+    def rel(a, b):
+        return float((a - b).norm() / b.norm())
+
+    out, faults = {}, []
+    names = list(want["grads"][0])
+    sizes = [g.numel() for g in want["grads"][0].values()]
+
+    def run(mesh_cfg):
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory() as workdir:
+            res = spawn_ranks(mesh_train_ref_rank,
+                              (mesh_cfg, sd, samples, post, draws),
+                              mesh_cfg.num_devices, workdir, timeout=600,
+                              threads=1)
+        return res, time.perf_counter() - t0
+
+    # the two-rank meshes at once (their ranks' start-up overlaps), then
+    # the eight-rank one
+    meshes = [MeshConfig(*m) for m in MESH_TRAIN_REF]
+    runs = {}
+    for batch in ([m for m in meshes if m.num_devices == 2],
+                  [m for m in meshes if m.num_devices > 2]):
+        with concurrent.futures.ThreadPoolExecutor(len(batch)) as pool:
+            runs.update(zip(batch, pool.map(run, batch)))
+    for mesh_cfg in meshes:
+        d, s, t, z = (mesh_cfg.data, mesh_cfg.seq, mesh_cfg.tensor,
+                      mesh_cfg.zero_params)
+        name = train_mesh_name(d, s, t, z)
+        res, wall = runs[mesh_cfg]
+        want_l = mesh_train_launches(s, MESH_TRAIN_LAYERS)
+        rec = dict(ranks=mesh_cfg.num_devices, wall_s=wall, steps=[])
+        for i in range(MESH_TRAIN_STEPS):
+            got_g = whole_grads(res, mesh_cfg, i)
+            loss = res[0]["steps"][i]["loss"]
+            step = dict(
+                loss=loss, loss_rel_err=abs(loss - want["steps"][i]["loss"])
+                / abs(want["steps"][i]["loss"]),
+                grad_rel_err=rel(got_g, want_g[i]),
+                floor_grad_rel_err=rel(floor_g[i], want_g[i]),
+                launches=[r["steps"][i]["launches"] for r in res])
+            rec["steps"].append(step)
+            log(f"small-input mesh training {name} step {i + 1}: loss "
+                f"{loss:.6f} (CPU fp32 {want['steps'][i]['loss']:.6f}, rel "
+                f"err {step['loss_rel_err']:.3e}, bar {BF16_U:.2e}); "
+                f"gradient rel err {step['grad_rel_err']:.3e} (CPU bf16 "
+                f"{step['floor_grad_rel_err']:.3e}, bar "
+                f"{TRAIN_REF_FLOOR_FACTOR}x); launches per rank "
+                f"{step['launches'][0]} (expected {want_l})")
+            if any(c != want_l for c in step["launches"]):
+                faults.append(f"mesh training {name} step {i + 1}: "
+                              f"launches {step['launches']} != {want_l}")
+            step["launches"] = step["launches"][0]  # every rank's
+            if not (torch.isfinite(got_g).all()
+                    and float(got_g.abs().max()) > 0):
+                faults.append(f"mesh training {name}: the gradient is zero "
+                              f"or not finite")
+            if not (step["loss_rel_err"] <= BF16_U and step["grad_rel_err"]
+                    <= TRAIN_REF_FLOOR_FACTOR * step["floor_grad_rel_err"]):
+                # the parameters whose gradients are farthest off
+                per = sorted(((rel(a, b), n) for n, a, b in zip(
+                    names, got_g.split(sizes), want_g[i].split(sizes))),
+                    reverse=True)[:6]
+                faults.append(f"mesh training {name} step {i + 1} "
+                              f"disagrees with the CPU's: {step}; worst "
+                              f"parameters {per}")
+        rec["divergence"] = max(r["divergence"] for r in res)
+        log(f"small-input mesh training {name}: replicated parameters' "
+            f"divergence across the ranks {rec['divergence']}, {wall:.1f} s "
+            f"with the ranks' start-up")
+        if rec["divergence"] != 0.0:
+            faults.append(f"mesh training {name}: replicated parameters "
+                          f"diverge across the ranks by {rec['divergence']}")
+        out[name] = rec
+    log(json.dumps({"mesh_training_reference": out}))
+    for msg in faults:
+        log(msg)
+    if faults:
+        fail(f"{len(faults)} faults in the small-input mesh training "
+             f"reference (above)")
+    return out
+
+
+def mesh_train_samples(stage: int, rows: int) -> list:
+    """``rows`` full-width clips of ``stage`` (train_batch's frames and
+    blocks, each row its own frames)."""
+    n = TRAIN_PATHS[stage][0]
+    blocks = ((1,) * n if stage == 1 else
+              random_block_partition(n, random.Random(PARTITION_SEED)))
+    return [ClipSample(preprocess_to_resolution(
+        synthetic_frames(n, seed=1 + r), H_PX, W_PX), blocks)
+        for r in range(rows)]
+
+
+def mesh_train_full_rank(data: int, seq: int, tensor: int, zero3: bool,
+                         stage: int, layers: int) -> dict:
+    """One gloo rank of a full-width mesh training run (ModelConfig() at
+    ``layers`` layers, the stage's recipe, heads randomised): a warm-up
+    step and a timed one through the Trainer's own step, with its
+    launches, the bytes its collectives took in (forward; backward with
+    the optimizer's), its peak memory, its layer-0 attention gradient,
+    the watched parameters' moves and the replicated parameters'
+    divergence across the ranks."""
+    import torch.distributed as dist
+    from video_gpt_tpu_torch.parallel.mesh import SEQ_AXIS, batch_rows
+    from video_gpt_tpu_torch.utils.parity import replicated_divergence
+    mesh_cfg = MeshConfig(data, seq, tensor, zero3)
+    cfg = stage_config(stage, lr=TRAIN_LR, lr_scheduler="constant",
+                       adam_epsilon=1e-5)
+    t0 = time.perf_counter()
+    trainer = Trainer(ModelConfig(num_layers=layers), cfg, None,
+                      vae_cfg=VAEConfig(), target_resolution=(H_PX, W_PX),
+                      device=MESH_TRAIN_DEVICE, seed=0, mesh_cfg=mesh_cfg)
+    state = trainer.build()
+    randomise_heads_(trainer.model, seed=1)
+    mesh, model = trainer.mesh, trainer.model
+    build_s = time.perf_counter() - t0
+    samples = mesh_train_samples(stage, data)
+    rows = batch_rows(mesh, data)
+    tb = collate(samples[rows], tokens_per_frame(H_PX, W_PX),
+                 sp_multiple=mesh.size(SEQ_AXIS)).to(MESH_TRAIN_DEVICE)
+    names = [n for n, _ in model.named_parameters()]
+    qkv0 = names.index("llm.layers.0.self_attn.qkv_proj.weight")
+    qkv_norms = []
+    update = state.optimizer._update
+
+    def watching(grads, norm):
+        qkv_norms.append(float(torch.linalg.vector_norm(grads[qkv0])))
+        return update(grads, norm)
+    state.optimizer._update = watching
+    watched = ("x_embedder.proj.weight",
+               "llm.layers.0.self_attn.qkv_proj.weight",
+               f"llm.layers.{layers - 1}.mlp.down_proj.weight",
+               "llm.norm.weight", "final_layer.linear.weight")
+    params = dict(model.named_parameters())
+    steps = []
+    for i in range(2):  # a warm-up step, then the timed one
+        if i == 1:
+            before = host_copy({n: params[n] for n in watched})
+            torch.cuda.reset_peak_memory_stats()
+            mesh.stats.reset()
+        reset_counts()
+        torch.cuda.synchronize()
+        dist.barrier()
+        t0 = time.perf_counter()
+        m = trainer.train_step(state, tb, i)
+        torch.cuda.synchronize()
+        step_s = time.perf_counter() - t0
+        steps.append(dict(step_s=step_s, loss=float(m["loss"]),
+                          grad_norm=float(m["grad_norm"]),
+                          launches=counts()))
+    moved = {n: float((params[n].detach().cpu() - before[n]).abs().max())
+             for n in watched}
+    return dict(
+        coords=mesh.coords, build_s=build_s, steps=steps,
+        tokens=tb.inputs.batch.input_ids.numel(),
+        forward_bytes=mesh.stats.moved, forward_calls=mesh.stats.calls,
+        backward_bytes=mesh.stats.backward_moved,
+        backward_calls=mesh.stats.backward_calls,
+        peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+        qkv0_grad_norms=qkv_norms, moved=moved,
+        params_held=sum(p.numel() for p in model.parameters()),
+        divergence=replicated_divergence(model.named_parameters(), mesh))
+
+
+def mesh_train_full_phase(smi: str) -> dict:
+    """Every run of MESH_TRAIN_FULL on gloo ranks sharing the card; each
+    rank exactly its step's launches, finite loss and gradient norm, a
+    nonzero gradient into layer 0's attention, the watched parameters
+    moved (by at most ~lr an element), the replicated parameters
+    bit-equal across the ranks. Step time is the slowest rank's."""
+    out = {}
+    for data, seq, tensor, zero3, stage, layers in MESH_TRAIN_FULL:
+        name = train_mesh_name(data, seq, tensor, zero3)
+        n = data * seq * tensor
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory() as workdir:
+            res = spawn_ranks(mesh_train_full_rank,
+                              (data, seq, tensor, zero3, stage, layers), n,
+                              workdir, timeout=900)
+        wall = time.perf_counter() - t0
+        want = mesh_train_launches(seq, layers)
+        for r, x in enumerate(res):
+            timed = x["steps"][-1]
+            log(f"mesh training {name} rank {r} {x['coords']}: build "
+                f"{x['build_s']:.1f} s, steps "
+                f"{[round(s['step_s'], 3) for s in x['steps']]} s, loss "
+                f"{timed['loss']:.6f}, grad norm {timed['grad_norm']:.4e}, "
+                f"launches {timed['launches']} (expected {want}), collective "
+                f"bytes forward {x['forward_bytes']} backward "
+                f"{x['backward_bytes']}, peak {x['peak_mem_gib']:.2f} GiB, "
+                f"layer-0 qkv gradient norms {x['qkv0_grad_norms']}, moved "
+                f"{x['moved']}, divergence {x['divergence']}")
+            if any(s["launches"] != want for s in x["steps"]):
+                fail(f"mesh training {name} rank {r}: launches "
+                     f"{[s['launches'] for s in x['steps']]} != {want}")
+            if not all(np.isfinite([s["loss"], s["grad_norm"]]).all()
+                       for s in x["steps"]):
+                fail(f"mesh training {name} rank {r}: loss or gradient "
+                     f"norm not finite")
+            if not all(np.isfinite(g) and g > 0
+                       for g in x["qkv0_grad_norms"]):
+                fail(f"mesh training {name} rank {r}: no gradient reached "
+                     f"layer 0's attention")
+            for p, d in x["moved"].items():
+                # Adam's normalised update and the weight decay
+                if not 0 < d <= 4 * TRAIN_LR:
+                    fail(f"mesh training {name} rank {r}: AdamW moved {p} "
+                         f"by {d}")
+            if x["divergence"] != 0.0:
+                fail(f"mesh training {name}: replicated parameters "
+                     f"diverge across the ranks by {x['divergence']}")
+        step_s = max(x["steps"][-1]["step_s"] for x in res)
+        tokens = res[0]["tokens"] * data  # each data rank's rows
+        rec = dict(
+            ranks=n, data=data, seq=seq, tensor=tensor, zero3=zero3,
+            stage=stage, layers=layers, step_s=step_s,
+            tokens_per_step=tokens, tokens_per_s=tokens / step_s,
+            loss=res[0]["steps"][-1]["loss"],
+            grad_norm=res[0]["steps"][-1]["grad_norm"],
+            forward_bytes_per_rank=[x["forward_bytes"] for x in res],
+            backward_bytes_per_rank=[x["backward_bytes"] for x in res],
+            peak_mem_gib_per_rank=[x["peak_mem_gib"] for x in res],
+            params_held_per_rank=[x["params_held"] for x in res],
+            launches_per_rank_step=res[0]["steps"][-1]["launches"],
+            divergence=max(x["divergence"] for x in res), wall_s=wall,
+            device=smi, note="gloo ranks sharing one card: not multi-GPU "
+                             "speed")
+        log(f"mesh training {name}: stage {stage}, {layers} layers, "
+            f"{step_s:.3f} s/step (slowest rank), {rec['tokens_per_s']:.1f} "
+            f"tokens/s, peak {max(rec['peak_mem_gib_per_rank']):.2f} GiB a "
+            f"rank, on {smi} (gloo ranks sharing one card: not multi-GPU "
+            f"speed); {wall:.1f} s with the ranks' start-up and build")
+        log(json.dumps({f"mesh_training_{name}": rec}))
+        out[name] = rec
+    return out
+
+
+def mesh_train_kernels(dev):
+    """The training kernels at a mesh rank's shapes: K3/K9 at 16 heads
+    over the stage-1 layout (a tensor-2 rank), K6/K7 at 16 heads over the
+    stage-1 layout (a seq-2 rank's Ulysses heads) and at 8 heads over the
+    stage-4 layout (a (seq 2, tensor 2) rank). Yields (kernel, key of its
+    record, result)."""
+    heads = ModelConfig().num_heads
+    meta = AttnMeta(*(x.to(dev) for x in train_batch(1).inputs.batch.meta))
+    label = f" (a tensor-2 training rank: {heads // 2} heads, L 7104)"
+    for name, rec in bias_train_records(dev, meta, label,
+                                        heads=heads // 2).items():
+        yield name, "mesh_tensor_train_shape", rec
+    torch.cuda.empty_cache()
+    bf16 = _bf16_maker(dev, 40)
+    for stage, h, key in ((1, heads // 2, "mesh_seq_train_shape"),
+                          (4, heads // 4, "mesh_seq_tensor_stage4_shape")):
+        meta, q, k, v, pairs = stage_operands(dev, bf16, stage, heads=h)
+        label = f" (a training rank's Ulysses heads: {h}, L " \
+                f"{meta.index.shape[1]})"
+        res = inline_train_records(bf16, meta, q, k, v, pairs, label)
+        res["K6"]["tile_map"] = inline_tile_map("K6" + label, meta)
+        for name, rec in res.items():
+            yield name, key, rec
+        del q, k, v, res
+        torch.cuda.empty_cache()
+
+
 @contextlib.contextmanager
 def fp32_linears():
     """Every ``F.linear`` as a TF32 GEMM of its operands upcast to fp32,
@@ -1314,27 +1896,34 @@ def fp32_linears():
         F.linear, torch.backends.cuda.matmul.allow_tf32 = linear, tf32
 
 
-def mesh_margin(dev, smi: str, seeds) -> None:
-    """For each seed: the single-rank clip (the main path's recipe, weights
-    and noise from the seed), the same clip with :func:`fp32_linears` (the
-    floor: how far another fp32 summation order moves this clip), and the
-    (seq 2, tensor 2) clip over 4 gloo ranks; prints each one's relative
-    MSE against the single-rank clip (the smoke's bar is
-    REF_REL_MSE_BAR)."""
+def mesh_clip_reference(dev, seed: int = 0) -> tuple:
+    """(the single-rank clip's final latents on the host, its floor) of
+    the mesh clips' model (MESH_CLIP_LAYERS layers) and recipe, weights
+    and noise from ``seed``: the floor is the relative MSE of the same clip
+    with :func:`fp32_linears`, another fp32 summation order."""
+    pipe = VideoGPTPipeline.build(ModelConfig(num_layers=MESH_CLIP_LAYERS),
+                                  VAEConfig(), device=dev,
+                                  dtype=torch.bfloat16, seed=seed)
     frames = synthetic_frames(N_CLEAN)
     kw = dict(gen_nums=(N_GEN,), img_guidance_scale=CFG_SCALE,
               max_frame_window=N_CLEAN + N_GEN, num_inference_steps=STEPS,
-              return_latents=True)
+              seed=seed, return_latents=True)
+    _, lat = pipe.generate(frames, **kw)
+    single = torch.stack(lat).float().cpu()
+    with fp32_linears():
+        _, lat = pipe.generate(frames, **kw)
+    return single, rel_mse(torch.stack(lat).float().cpu(), single)
+
+
+def mesh_margin(dev, smi: str, seeds) -> None:
+    """For each seed: the single-rank clip of the mesh clips' model
+    (MESH_CLIP_LAYERS layers; the main path's recipe, weights and noise
+    from the seed), its floor (:func:`mesh_clip_reference`), and the (seq
+    2, tensor 2) clip over 4 gloo ranks; prints each one's relative MSE
+    against the single-rank clip (the smoke's bar is REF_REL_MSE_BAR)."""
     rows = []
     for seed in seeds:
-        pipe = VideoGPTPipeline.build(ModelConfig(), VAEConfig(), device=dev,
-                                      dtype=torch.bfloat16, seed=seed)
-        _, lat = pipe.generate(frames, seed=seed, **kw)
-        single = torch.stack(lat).float().cpu()
-        with fp32_linears():
-            _, lat = pipe.generate(frames, seed=seed, **kw)
-        floor = rel_mse(torch.stack(lat).float().cpu(), single)
-        del pipe, lat
+        single, floor = mesh_clip_reference(dev, seed)
         freed(f"the single-rank clips of seed {seed}")
         res = run_mesh(2, 2, False, True, seed)
         mesh = max(rel_mse(r["clip"]["latents"], single) for r in res)
@@ -1623,6 +2212,10 @@ def main() -> int:
         mesh_margin(torch.device("cuda"), smi,
                     [int(a) for a in sys.argv[2:]])
         return 0
+    if sys.argv[1:2] == ["--mesh-train"]:
+        _cuda.libraries()
+        mesh_train_only(torch.device("cuda"), smi)
+        return 0
     run(torch.device("cuda"), smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1724,15 +2317,6 @@ def run(dev: torch.device, smi: str) -> None:
         fail(f"extend path returned {len(out2)} frames")
 
     profile_phase(pipe, frames, kw, clip_s)
-    # the mesh clips are held to this clip's latents, and to its floor:
-    # how far the same clip moves with its linears in another fp32
-    # summation order (TP's row-parallel split is one such order)
-    main_latents = lat.float().cpu()
-    with fp32_linears():
-        _, lat = pipe.generate(frames, **kw)
-    mesh_floor = rel_mse(torch.stack(lat).float().cpu(), main_latents)
-    log(f"main path with fp32 linears: relative MSE vs the main path "
-        f"{mesh_floor:.3e} (the mesh clips' floor)")
     del out, lat, out2
 
     # ---- long and batched rollouts (configs/inference.sh) ------------------
@@ -1762,8 +2346,16 @@ def run(dev: torch.device, smi: str) -> None:
         return expect(K1=layers + 2 * steps * layers,
                       K2=2 * steps * layers, **prefill)
 
+    # the mesh clips are held to the single-rank clip of their model and to
+    # its floor: how far the same clip moves with its linears in another
+    # fp32 summation order (TP's row-parallel split is one such order)
+    main_latents, mesh_floor = mesh_clip_reference(dev)
+    log(f"single-rank clip at {MESH_CLIP_LAYERS} layers with fp32 linears: "
+        f"relative MSE {mesh_floor:.3e} (the mesh clips' floor)")
+    freed("the mesh clips' single-rank clip")
     mesh_ref = mesh_reference_phase(mesh_launches)
-    mesh_want = expect(K6=nl, K1=nl * STEPS, K2=nl * STEPS)
+    cl = MESH_CLIP_LAYERS
+    mesh_want = expect(K6=cl, K1=cl * STEPS, K2=cl * STEPS)
     mesh_clips = {}
     for seq, tensor in MESH_CLIPS:
         res = mesh_ref.get(mesh_name(seq, tensor), {}).get("ranks") \
@@ -1771,6 +2363,7 @@ def run(dev: torch.device, smi: str) -> None:
         mesh_clips[mesh_name(seq, tensor)] = mesh_clip_phase(
             seq, tensor, res, main_latents, mesh_floor, mesh_want, smi)
     freed("the mesh phases")
+    mesh_training = mesh_training_phases(smi)
 
     train_reference_phase(dev)
     inline_ref = train_reference_phase(dev, bias_limit=0)
@@ -1855,6 +2448,18 @@ def run(dev: torch.device, smi: str) -> None:
     for k in ("K1", "K2", "K6"):
         records[k]["launches_per_mesh_rank_clip"] = {
             name: c["launches_per_rank"][k] for name, c in mesh_clips.items()}
+    # each mesh training rank's launches in a timed full-width step
+    for name, key, run_name in (
+            ("K3", "mesh_tensor_train_shape", "data2_tensor2_zero3"),
+            ("K9", "mesh_tensor_train_shape", "data2_tensor2_zero3"),
+            ("K6", "mesh_seq_train_shape", "data2_seq2"),
+            ("K7", "mesh_seq_train_shape", "data2_seq2"),
+            ("K6", "mesh_seq_tensor_stage4_shape", "seq2_tensor2"),
+            ("K7", "mesh_seq_tensor_stage4_shape", "seq2_tensor2")):
+        records[name][key]["launches"] = \
+            mesh_training[run_name]["launches_per_rank_step"][name]
+        records[name][key]["launches_path"] = \
+            f"each rank of the full-width mesh training run {run_name}"
     records["K1"]["launches_per_student_clip"] = student_counts["K1"]
     records["K3"]["launches_per_student_clip"] = student_counts["K3"]
     # the image family: K3 per image (every context's prefill and cached
@@ -1870,6 +2475,33 @@ def run(dev: torch.device, smi: str) -> None:
             input_head_counts[k] // INPUT_HEAD_STEPS
     log(f"every phase: {time.perf_counter() - t_run:.1f} s")
     log(json.dumps({"kernels": list(records.values())}))
+
+
+def mesh_training_phases(smi: str) -> dict:
+    """The mesh's training half on gloo ranks sharing the card: the
+    collective probe, the small-input reference, the full-width runs."""
+    collective_probe()
+    mesh_train_reference_phase()
+    out = mesh_train_full_phase(smi)
+    freed("the mesh training phases")
+    return out
+
+
+def mesh_train_only(dev, smi: str) -> None:
+    """``--mesh-train``: the mesh training kernels' records and phases
+    alone (a development reading; no device line)."""
+    t0 = time.perf_counter()
+    recs = list(mesh_train_kernels(dev))
+    torch.cuda.empty_cache()
+    runs = mesh_training_phases(smi)
+    for name, key, rec in recs:
+        run_name = {"mesh_tensor_train_shape": "data2_tensor2_zero3",
+                    "mesh_seq_train_shape": "data2_seq2",
+                    "mesh_seq_tensor_stage4_shape": "seq2_tensor2"}[key]
+        rec["launches"] = runs[run_name]["launches_per_rank_step"][name]
+    log(json.dumps({"mesh_train_kernels": [
+        dict(rec, shape=key) for _, key, rec in recs]}))
+    log(f"mesh training phases: {time.perf_counter() - t0:.1f} s")
 
 
 def randomise_heads_(model, seed: int, std: float = 0.02) -> None:

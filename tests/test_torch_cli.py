@@ -13,6 +13,8 @@ where the point is the options, the pipeline are patched.
 import argparse
 import os
 import shlex
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -302,3 +304,153 @@ def test_image_and_export_parsers_take_every_jax_option(command):
     assert set(ref) <= set(port), set(ref) - set(port)
     assert {k: port[k] for k in ref} == ref
     assert set(port) - set(ref) <= {"device", "fn"}
+
+
+def test_train_parser_takes_every_jax_option():
+    """Every option of the JAX ``train`` command parses with the port's,
+    with the JAX default, nargs and choices (the port adds ``--device``),
+    so every line of ``configs/pretrain_multichip_examples.sh`` reaches
+    the trainer or its refusal."""
+    from video_gpt_tpu.cli import build_parser as jax_parser
+
+    def options(parser):
+        sub = next(a for a in parser._actions
+                   if isinstance(a, argparse._SubParsersAction))
+        return {a.dest: (a.default, a.nargs, tuple(a.choices or ()))
+                for a in sub.choices["train"]._actions if a.dest != "help"}
+
+    port, ref = options(cli.build_parser()), options(jax_parser())
+    assert set(ref) <= set(port), set(ref) - set(port)
+    assert {k: port[k] for k in ref} == ref
+    assert set(port) - set(ref) <= {"device", "fn"}
+    recipes = [[a for a in argv if a != ";;"] for argv in script_argv(
+        "pretrain_multichip_examples.sh", "train",
+        **{"$VIDEOS": "videos", "$STEPS": "100"})]
+    meshes = [(a.mesh_data, a.mesh_seq, a.mesh_tensor, a.mesh_pipe, a.zero3)
+              for a in map(cli.build_parser().parse_args, recipes)]
+    # dp_sp, dp_tp_zero3, dp_sp_tp run; dp_pp (GPipe) refuses: part B
+    assert meshes == [(2, 4, 1, 1, False), (2, 1, 4, 1, True),
+                      (2, 2, 2, 1, False), (2, 1, 1, 4, False)]
+
+
+@pytest.mark.parametrize("flags,match", [
+    (["--mesh_data", "2"], "trains over 2 processes"),
+    (["--mesh_seq", "2", "--mesh_tensor", "2"], "trains over 4 processes"),
+    (["--mesh_pipe", "2"], "part B"),
+    (["--sp_attention", "ring"], "part B"),
+    (["--pp_microbatches", "2"], "part B"),
+    (["--offload_grad_splits", "2"], "CPU-offloaded optimizer")])
+def test_train_exits_on_what_it_cannot_run(tmp_path, flags, match):
+    """A mesh larger than the launch (one process here) exits with the
+    launch it needs, as ``generate`` does; an option not ported yet exits
+    with its ROADMAP item; before anything is built."""
+    with pytest.raises(SystemExit, match=match):
+        cli.main(["train", "--video_dir_path", str(tmp_path), "--device",
+                  "cpu", "--tiny_model"] + flags)
+
+
+def test_report_to_tensorboard_writes_results_dir_log(monkeypatch, tmp_path):
+    """``--report_to tensorboard`` (the JAX default) hands the trainer a
+    ``tensorboardX.SummaryWriter`` of ``results_dir/tensorboard_log`` when
+    tensorboardX imports, else no writer; ``none`` never one."""
+    import sys
+    import types
+    made = []
+    fake = types.ModuleType("tensorboardX")
+    fake.SummaryWriter = lambda path: made.append(path) or ("writer", path)
+    args = argparse.Namespace(report_to="tensorboard",
+                              results_dir=str(tmp_path / "run"))
+    monkeypatch.setitem(sys.modules, "tensorboardX", fake)
+    assert cli._log_writer(args) == ("writer", str(tmp_path / "run" /
+                                                   "tensorboard_log"))
+    args.report_to = "none"
+    assert cli._log_writer(args) is None
+    monkeypatch.setitem(sys.modules, "tensorboardX", None)  # not installed
+    args.report_to = "tensorboard"
+    assert cli._log_writer(args) is None
+    assert made == [str(tmp_path / "run" / "tensorboard_log")]
+
+
+def _torchrun(n, argv, tmp_path):
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    env.pop("PYTHONPATH", None)
+    res = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc_per_node", str(n), "-m", "video_gpt_tpu_torch.cli",
+         *argv], cwd=REPO, env=env, capture_output=True, text=True,
+        timeout=300)
+    assert res.returncode == 0, res.stdout[-3000:] + res.stderr[-3000:]
+    return res.stdout
+
+
+def test_train_on_a_zero3_tensor_mesh_resumes_serves_and_warm_starts(
+        tmp_path, monkeypatch):
+    """``cli train --mesh_data 2 --mesh_tensor 2 --zero3`` under
+    ``torch.distributed.run`` with 4 CPU processes: two steps, each rank's
+    part checkpointed (and rank 0 the mesh's record and train_args.json
+    with ``tensor_parallel``), resumed on the same mesh for a third step;
+    its checkpoint put together into the one-rank layout (each rank's
+    stored part is that layout's part), served by ``cli generate`` on one
+    process, and warm-started by a (tensor 2) run."""
+    import json
+    from test_torch_training import _write_videos
+    from video_gpt_tpu_torch.config import MeshConfig
+    from video_gpt_tpu_torch.parallel.mesh import Mesh, shard_params_
+    from video_gpt_tpu_torch.training.trainer import shard_state_dict
+    videos = str(tmp_path / "videos")
+    _write_videos(videos)
+    run = tmp_path / "run"
+    argv = ["train", "--device", "cpu", "--tiny_model", "--video_dir_path",
+            videos, "--results_dir", str(run), "--frame_num", "4",
+            "--target_resolution", "48", "64", "--mixed_precision", "no",
+            "--lr_scheduler", "constant", "--log_every", "1",
+            "--ckpt_every", "2", "--report_to", "none"]
+    mesh_flags = ["--mesh_data", "2", "--mesh_tensor", "2", "--zero3"]
+    out = _torchrun(4, argv + mesh_flags + ["--max_steps", "2"], tmp_path)
+    assert out.count("step 2:") == 1, out  # rank 0 alone logs
+    ckpt_dir = run / "checkpoints"
+    assert sorted(os.listdir(ckpt_dir / "2")) == [
+        "mesh.json", "rank0.pt", "rank1.pt", "rank2.pt", "rank3.pt"]
+    args_json = json.loads((run / "train_args.json").read_text())
+    assert args_json["model"]["tensor_parallel"] == "2"
+    out = _torchrun(4, argv + mesh_flags + ["--max_steps", "3"], tmp_path)
+    assert "resumed from step 2" in out and "step 3:" in out, out
+    # a resume on another mesh is refused, not loaded part for whole
+    with pytest.raises(ValueError, match="resume it on its mesh"):
+        checkpoint.restore_checkpoint(str(ckpt_dir), None)
+
+    sd, step = checkpoint.load_train_params(str(ckpt_dir))
+    assert step == 2  # ckpt_every 2: step 3 wrote none
+    cfg = ModelConfig.tiny(pos_embed_max_size=192)
+    VideoGPT(cfg, device="meta", train_init=True).load_state_dict(
+        sd, strict=True, assign=True)
+    for rank in range(4):
+        mesh = Mesh(MeshConfig(2, 1, 2, True), rank, {})
+        model = shard_params_(VideoGPT(cfg, device="meta", train_init=True,
+                                       mesh=mesh), mesh, "cpu")
+        stored = torch.load(ckpt_dir / "2" / f"rank{rank}.pt",
+                            weights_only=True)["model"]
+        for name, part in shard_state_dict(sd, model, mesh).items():
+            assert torch.equal(part, stored[name]), (rank, name)
+
+    served = []
+    monkeypatch.setattr(cli, "read_conditioning",
+                        lambda path, n: [np.zeros((48, 64, 3), np.uint8)] * n)
+    monkeypatch.setattr(VideoGPTPipeline, "generate",
+                        lambda self, frames, **kw: (served.append(self),
+                                                    [])[1])
+    cli.main(["generate", "--video_path", "clip.mp4", "--checkpoint_dir",
+              str(ckpt_dir), "--tiny_model", "--device", "cpu", "--dtype",
+              "fp32", "--save_dir", str(tmp_path / "out")])
+    got = served[0].model.state_dict()
+    assert all(torch.equal(got[k], v) for k, v in sd.items())
+
+    out = _torchrun(2, ["train", "--device", "cpu", "--tiny_model",
+                        "--video_dir_path", videos, "--results_dir",
+                        str(tmp_path / "warm"), "--frame_num", "4",
+                        "--target_resolution", "48", "64",
+                        "--mixed_precision", "no", "--lr_scheduler",
+                        "constant", "--log_every", "1", "--report_to",
+                        "none", "--max_steps", "1", "--init_checkpoint_dir",
+                        str(ckpt_dir), "--mesh_tensor", "2"], tmp_path)
+    assert "warm-start from" in out and "step 1:" in out, out

@@ -1101,3 +1101,19 @@ def test_ulysses_attend_cached_on_two_gloo_ranks(dev, tmp_path):
     print(f"ulysses_attend_cached on 2 gloo ranks vs one rank: max abs err "
           f"{float(err.max()):.3e}, worst error / bar {ratio:.3f}")
     assert ratio <= 1.0
+
+
+def test_autograd_collectives_on_cuda_operands_of_two_gloo_ranks(dev,
+                                                                 tmp_path):
+    """The autograd collectives (``own_chunk`` / ``all_gather``,
+    ``copy_to`` / ``reduce_from``, ``all_to_all``) and ZeRO's
+    ``reduce_scatter`` on CUDA operands between two gloo ranks sharing the
+    card (gloo copies them through host memory), forward and gradient
+    against the one-rank function at fp32 rounding (atol 1e-5)."""
+    import torch_mesh_ranks as ranks
+    from video_gpt_tpu_torch.parallel.distributed import spawn_ranks
+    for errs in spawn_ranks(ranks.collective_grads, ("cuda",), 2,
+                            str(tmp_path), timeout=300):
+        assert errs.pop("backward_bytes") > 0
+        print(f"autograd collectives on CUDA operands: {errs}")
+        assert max(errs.values()) <= 1e-5, errs

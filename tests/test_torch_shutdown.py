@@ -1,7 +1,8 @@
 """SIGTERM during training: ``cli train`` and ``cli train-image`` (each a
 subprocess on the CPU, tiny model) write a checkpoint at the step they are
 at and exit 0 (``GracefulShutdown``, as the JAX trainers do); a second run
-resumes from that checkpoint."""
+resumes from that checkpoint. On a mesh, a signal that reaches one rank
+stops every rank at the same step."""
 import os
 import re
 import signal
@@ -65,3 +66,23 @@ def test_sigterm_checkpoints_train_and_resumes(tmp_path):
 def test_sigterm_checkpoints_train_image_and_resumes(tmp_path):
     _interrupt_then_resume(_train_argv(tmp_path, "--ckpt_every", "1000"),
                            str(tmp_path / "run" / "checkpoints"))
+
+
+def test_sigterm_to_one_rank_checkpoints_every_rank(tmp_path):
+    """A (data 2) run in which one rank alone receives SIGTERM: the ranks
+    agree on the flag each step (``GracefulShutdown.agreed``), so every
+    rank stops and writes its part at the same step, and none waits in a
+    collective that the other never issues."""
+    import torch_mesh_ranks as ranks
+    from video_gpt_tpu_torch.config import MeshConfig
+    from video_gpt_tpu_torch.parallel.distributed import spawn_ranks
+    videos = str(tmp_path / "videos")
+    _write_videos(videos)
+    run, rdzv = tmp_path / "run", tmp_path / "rdzv"
+    rdzv.mkdir()
+    res = spawn_ranks(ranks.sigterm_run,
+                      (videos, str(run), MeshConfig(data=2), 2), 2,
+                      str(rdzv), threads=1, timeout=300)
+    assert [r["step"] for r in res] == [2, 2]
+    assert sorted(os.listdir(run / "checkpoints" / "2")) == [
+        "mesh.json", "rank0.pt", "rank1.pt"]

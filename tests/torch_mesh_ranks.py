@@ -1,5 +1,7 @@
 """Rank-side functions of the port's mesh tests (``test_torch_mesh.py``,
-``test_torch_sp_serving.py``), run in spawned gloo processes by
+``test_torch_sp_serving.py``, ``test_torch_mesh_training.py``,
+``test_torch_mesh_train_step.py``, ``test_torch_shutdown.py``), run in
+spawned gloo processes by
 ``video_gpt_tpu_torch.parallel.distributed.spawn_ranks``. This module
 imports only torch, numpy and the port: the ranks never load JAX."""
 from __future__ import annotations
@@ -23,6 +25,12 @@ from video_gpt_tpu_torch.sampling.pipeline import VideoGPTPipeline
 from video_gpt_tpu_torch.utils.parity import (assert_replicated,
                                               shard_divergence)
 from video_gpt_tpu_torch.utils.weights import tp_shard_state_dict
+from video_gpt_tpu_torch.config import TrainConfig
+from video_gpt_tpu_torch.data.video import ClipSample
+from video_gpt_tpu_torch.parallel.mesh import batch_rows
+from video_gpt_tpu_torch.training.data import collate
+from video_gpt_tpu_torch.training.loss import LossDraws, take_part
+from video_gpt_tpu_torch.training.trainer import Trainer, draw_part
 
 
 def metas(n_clean: int, n_gen: int, n_img: int, rows: int,
@@ -182,3 +190,253 @@ def serve(mesh_cfg, cfg: ModelConfig, vae_cfg: VAEConfig, sd, vae_sd,
                 batch_latents=lat_b, heads=(heads.start, heads.stop),
                 divergence=max([shard_divergence(lat_g)]
                                + [shard_divergence(x) for x in lat_b]))
+
+
+def record_updates(optimizer) -> list:
+    """The gradients (this rank's parts, reduced, before the clip) that
+    each optimizer update of ``optimizer`` receives, in order."""
+    seen = []
+    update = optimizer._update
+
+    def recording(grads, norm):
+        seen.append([g.clone() for g in grads])
+        return update(grads, norm)
+    optimizer._update = recording
+    return seen
+
+
+def _step_record(state, metrics, grads) -> dict:
+    names = [n for n, _ in state.model.named_parameters()]
+    return dict(loss=float(metrics["loss"]),
+                grad_norm=float(metrics["grad_norm"]),
+                grads=dict(zip(names, grads)),
+                params={n: p.detach().clone()
+                        for n, p in state.model.named_parameters()})
+
+
+def train_step_case(mesh_cfg, cfg: ModelConfig, tcfg: TrainConfig,
+                    vae_cfg: VAEConfig, sd: dict, vae_sd: dict,
+                    samples: list, res: tuple, injected=None,
+                    steps: int = 1) -> dict:
+    """This rank's training steps on its rows of the global batch
+    ``samples`` ((pixels, frame blocks) pairs), from the one-rank weights
+    ``sd``: "trainer", ``steps`` steps of ``Trainer.train_step`` (VAE
+    encode and draws from the step's generator, sliced to the rank);
+    with ``injected`` = (global latents, global ``LossDraws``), "injected",
+    one step of the train step on them (the rank's slices). Each: loss,
+    gradient norm, the last update's gradients and the parameters after,
+    as this rank holds them; ``injected`` may be a list of such pairs,
+    one step each (gradient accumulation). ``mesh_cfg`` None: one process,
+    no mesh."""
+    trainer = Trainer(cfg, tcfg, None, vae_cfg=vae_cfg, vae_state_dict=vae_sd,
+                      init_state_dict=sd, target_resolution=res,
+                      device="cpu", seed=0, mesh_cfg=mesh_cfg)
+    mesh = trainer.mesh
+    rows = batch_rows(mesh, len(samples))
+    tb = collate([ClipSample(p, b) for p, b in samples[rows]], trainer.n_img,
+                 sp_multiple=mesh_cfg.seq if mesh_cfg else 1)
+    out = {"coords": None if mesh is None else mesh.coords}
+    state = trainer.build()
+    seen = record_updates(state.optimizer)
+    for i in range(steps):
+        metrics = trainer.train_step(state, tb, i)
+    out["trainer"] = _step_record(state, metrics, seen[-1])
+    if mesh is not None:
+        out["collective_bytes"] = (mesh.stats.moved,
+                                   mesh.stats.backward_moved)
+    if injected is not None:
+        if not isinstance(injected, list):
+            injected = [injected]
+        f = samples[0][0].shape[0]
+        state = trainer.build()
+        seen = record_updates(state.optimizer)
+        part, den = draw_part(mesh, tb.inputs, tb.clean_valid,
+                              tcfg.input_output_return)
+        losses = []
+        for lat, draws in injected:
+            lat = torch.from_numpy(lat)[rows.start * f:rows.stop * f]
+            inputs = tb.inputs._replace(
+                x1=lat[tb.noisy_sel.long()],
+                clean_latents=lat[tb.clean_sel.long()])
+            draws = take_part(LossDraws(*(torch.from_numpy(x)
+                                          for x in draws)), part, inputs)
+            metrics = trainer._step_fn(state, inputs, draws,
+                                       denominator=den)
+            losses.append(float(metrics["loss"]))
+        out["injected"] = _step_record(state, metrics, seen[-1])
+        out["injected"]["losses"] = losses
+    return out
+
+
+def ulysses_grads(mesh_cfg: MeshConfig, arrays: dict, shape: tuple) -> dict:
+    """``ulysses_attend`` over the metadata on this rank's chunks of the
+    full q/k/v, differentiated: the loss sum(out * dout) (``dout`` in
+    ``arrays``), the gradients of the rank's q/k/v chunks, the bytes its
+    collectives took in (forward, backward)."""
+    mesh = make_mesh(mesh_cfg)
+    meta, _, _ = metas(*shape)
+    t = {k: torch.from_numpy(v) for k, v in arrays.items()}
+    pad, qm, km, _ = pad_to_seq(mesh, t["q"].shape[1], meta, meta, None)
+    q, k, v = (_chunk(t[x], mesh, pad).clone().requires_grad_()
+               for x in "qkv")
+    out, _ = ulysses_attend(q, k, v, qm, km, mesh)
+    (out * _chunk(t["dout"], mesh, pad)).sum().backward()
+    return dict(out=out.detach(), q=q.grad, k=k.grad, v=v.grad,
+                stats=(mesh.stats.moved, mesh.stats.backward_moved))
+
+
+def tp_layer_grads(mesh_cfg: MeshConfig, cfg: ModelConfig, sd: dict,
+                   x: np.ndarray, dy: np.ndarray, shape: tuple) -> dict:
+    """A ``Phi3Layer`` on a (tensor T) mesh holding this rank's shard of
+    ``sd``, differentiated: the loss mean(y * dy) on the full input ``x``;
+    its output, the input's gradient and each parameter's (the rank's
+    part)."""
+    mesh = make_mesh(mesh_cfg)
+    layer = Phi3Layer(cfg, mesh=mesh)
+    layer.load_state_dict(tp_shard_state_dict(
+        {k: torch.from_numpy(v) for k, v in sd.items()}, cfg,
+        mesh.size(TENSOR_AXIS), mesh.index(TENSOR_AXIS)))
+    meta, _, _ = metas(*shape)
+    xt = torch.from_numpy(x).requires_grad_()
+    cos, sin = rope_tables(meta.index, cfg.head_dim, cfg.rope_theta,
+                           xt.dtype)
+    y, _ = layer(xt, cos, sin, meta, meta, None, None)
+    (y * torch.from_numpy(dy)).mean().backward()
+    return dict(y=y.detach(), x=xt.grad,
+                params={n: p.grad for n, p in layer.named_parameters()})
+
+
+def row_parallel_autocast(mesh_cfg: MeshConfig, x: np.ndarray,
+                          w: np.ndarray) -> dict:
+    """``row_parallel`` of this rank's feature chunk of bf16 ``x`` and
+    column chunk of fp32 ``w`` under bf16 autocast: the output, and the
+    bytes per element of what the all-reduce took in."""
+    from video_gpt_tpu_torch.models.phi3 import row_parallel
+    mesh = make_mesh(mesh_cfg)
+    t, n = mesh.index(TENSOR_AXIS), mesh.size(TENSOR_AXIS)
+    xs = torch.from_numpy(x).to(torch.bfloat16).chunk(n, -1)[t]
+    ws = torch.from_numpy(w).chunk(n, -1)[t]
+    with torch.autocast("cpu", dtype=torch.bfloat16):
+        y = row_parallel(xs, ws, mesh)
+    numel = x.shape[0] * w.shape[0]
+    return dict(y=y, bytes_per_element=mesh.stats.moved / numel)
+
+
+def image_step_case(mesh_cfg, cfg: ModelConfig, tcfg: TrainConfig,
+                    sd: dict, vae_sd: dict, samples: list, px: int,
+                    pad_to: int, injected=None) -> dict:
+    """One ``ImageGenTrainer`` step (VAE encodes and draws from the step's
+    generator, sliced to the rank) on this rank's rows of the global
+    batch ``samples`` (``ImageGenSample``s, ``px`` square images), from
+    the one-rank weights ``sd``: loss, gradient norm, the update's
+    gradients and the parameters after, as the rank holds them; with
+    ``injected`` = (global output latents, global input-image latents,
+    global ``LossDraws``), also "injected": the train step on the rank's
+    slices of them."""
+    from video_gpt_tpu_torch.data.image_text import collate_image_gen
+    from video_gpt_tpu_torch.image_gen import StubTokenizer
+    from video_gpt_tpu_torch.training.image_trainer import ImageGenTrainer
+    trainer = ImageGenTrainer(
+        cfg, tcfg, None, None, StubTokenizer(), output_size=(px, px),
+        input_size=(px, px), max_input_images=2, pad_to=pad_to,
+        vae_cfg=VAEConfig.tiny(), vae_state_dict=vae_sd, init_state_dict=sd,
+        device="cpu", seed=0, mesh_cfg=mesh_cfg)
+    state = trainer.build()
+    seen = record_updates(state.optimizer)
+    rows = batch_rows(trainer.mesh, len(samples))
+    tb = collate_image_gen(samples[rows], trainer.pad_to, 2,
+                           token_ids=cfg.token_ids)
+    metrics = trainer.train_step(state, tb, 0)
+    out = _step_record(state, metrics, seen[-1])
+    out["coords"] = None if trainer.mesh is None else trainer.mesh.coords
+    if injected is not None:
+        x1, clean, draws = (torch.from_numpy(x) if isinstance(x, np.ndarray)
+                            else x for x in injected)
+        state = trainer.build()
+        seen = record_updates(state.optimizer)
+        part, den = draw_part(trainer.mesh, tb.inputs,
+                              tb.inputs.clean_weights, False)
+        first = 0 if part is None else part.clean[0]
+        inputs = tb.inputs._replace(
+            x1=x1[rows], clean_latents=clean[first:first + len(
+                tb.inputs.clean_weights)])
+        draws = take_part(LossDraws(*(torch.from_numpy(x) for x in draws)),
+                          part, inputs)
+        metrics = trainer._step_fn(state, inputs, draws, denominator=den)
+        out["injected"] = _step_record(state, metrics, seen[-1])
+    return out
+
+
+def sigterm_run(videos: str, results: str, mesh_cfg: MeshConfig,
+                at_step: int) -> dict:
+    """``Trainer.run`` of a tiny model on ``mesh_cfg`` in which rank 1
+    alone receives SIGTERM after its step ``at_step``: the step each rank
+    stopped at."""
+    import os
+    import signal
+    from video_gpt_tpu_torch.config import stage_config
+    cfg = stage_config(1, frame_num=4, lr_scheduler="constant", log_every=1,
+                       ckpt_every=1000, results_dir=results,
+                       mixed_precision="no")
+    trainer = Trainer(ModelConfig.tiny(), cfg, videos,
+                      vae_cfg=VAEConfig.tiny(), target_resolution=(48, 64),
+                      device="cpu", mesh_cfg=mesh_cfg)
+    train_step = trainer.train_step
+
+    def step(state, tb, i):
+        metrics = train_step(state, tb, i)
+        if i + 1 == at_step and dist.get_rank() == 1:
+            os.kill(os.getpid(), signal.SIGTERM)
+        return metrics
+    trainer.train_step = step
+    return dict(step=trainer.run(200).step)
+
+
+def collective_grads(device: str = "cpu") -> dict:
+    """The autograd collectives on two ranks (a (seq 2) mesh; the seq
+    group serves every pair) on ``device``, each against the same function
+    computed on one rank (errors, max abs): ``own_chunk`` then
+    ``all_gather`` (x -> x * W, rows split over the ranks), ``copy_to``
+    then ``reduce_from`` (x -> x * (v_0 + v_1)), ``all_to_all`` (its
+    gradient: the reverse all_to_all of the upstream gradient), and
+    ``reduce_scatter`` (this rank's chunk of the sum)."""
+    mesh = make_mesh(MeshConfig(seq=2))
+    r = mesh.index(SEQ_AXIS)
+
+    def rand(seed, *shape):
+        g = torch.Generator().manual_seed(seed)
+        return torch.randn(shape, generator=g).to(device)
+
+    errs = {}
+    x = rand(0, 4, 6).requires_grad_()
+    w, c = rand(1, 4, 6), rand(2, 4, 6)
+    y = mesh.all_gather(mesh.own_chunk(x, SEQ_AXIS, 0) * w.chunk(2)[r],
+                        SEQ_AXIS, 0)
+    (y * c).sum().backward()
+    errs["gather_chunk"] = float((y - x * w).abs().max())
+    errs["gather_chunk_grad"] = float((x.grad - w * c).abs().max())
+
+    x.grad = None
+    v = [rand(3 + i, 4, 6) for i in range(2)]
+    y = mesh.reduce_from(mesh.copy_to(x, SEQ_AXIS) * v[r], SEQ_AXIS)
+    (y * c).sum().backward()
+    errs["copy_reduce"] = float((y - x * (v[0] + v[1])).abs().max())
+    errs["copy_reduce_grad"] = float(
+        (x.grad - (v[0] + v[1]) * c).abs().max())
+
+    a = rand(10 + r, 2, 4).requires_grad_()
+    b = mesh.all_to_all(a, SEQ_AXIS, split_dim=1, concat_dim=0)
+    cb = rand(20 + r, 4, 2)
+    (b * cb).sum().backward()
+    whole = [rand(10 + i, 2, 4) for i in range(2)]
+    errs["all_to_all"] = float((b - torch.cat(
+        [p.chunk(2, 1)[r] for p in whole], 0)).abs().max())
+    with torch.no_grad():
+        back = mesh.all_to_all(cb, SEQ_AXIS, split_dim=0, concat_dim=1)
+    errs["all_to_all_grad"] = float((a.grad - back).abs().max())
+
+    s = mesh.reduce_scatter(rand(30 + r, 6, 4), SEQ_AXIS, 0)
+    want = (rand(30, 6, 4) + rand(31, 6, 4)).chunk(2)[r]
+    errs["reduce_scatter"] = float((s - want).abs().max())
+    errs["backward_bytes"] = mesh.stats.backward_moved
+    return errs

@@ -52,8 +52,16 @@ T, as the reference serves at SP=4; rank 0 alone prints and writes:
         --video_path clip.mp4 --mesh_seq 2 --mesh_tensor 2
 
 Each rank takes ``cuda:LOCAL_RANK`` and NCCL (gloo with ``--device cpu``).
-The training commands' mesh options still refuse (ROADMAP.md queue 1: the
-mesh's training half).
+``train`` and ``train-image`` train over ``--mesh_data D --mesh_seq S
+--mesh_tensor T`` ranks the same way (``--zero3`` shards the parameters
+over data too), e.g. the recipes of
+``configs/pretrain_multichip_examples.sh``:
+
+    torchrun --nproc_per_node 4 -m video_gpt_tpu_torch.cli train \
+        --video_dir_path videos/ --mesh_data 2 --mesh_seq 2
+
+``--mesh_pipe``, ``--pp_microbatches``, ``--sp_attention ring`` and the
+offload options refuse (ROADMAP.md queue 1).
 
 ``export`` writes a run's parameters (``--ema``: its EMA) as the reference's
 safetensors. ``train --input_output_return`` trains the aux
@@ -73,9 +81,16 @@ import os
 import torch
 
 
-# the mesh options of the training commands (ROADMAP.md queue 1: the mesh's
-# training half)
-MESH_FLAGS = ("mesh_data", "mesh_seq", "mesh_tensor", "mesh_pipe", "zero3")
+# options of the training commands that parse but are not ported yet:
+# (flag, its default, the ROADMAP.md queue-1 item that ports it);
+# --offload_optimizer raises in the trainers (config.check_train_config)
+NOT_PORTED = (
+    ("mesh_pipe", 1, "the mesh's training half, part B (GPipe)"),
+    ("pp_microbatches", 0, "the mesh's training half, part B (GPipe)"),
+    ("sp_attention", "ulysses", "the mesh's training half, part B (the "
+                                "ring)"),
+    ("offload_grad_splits", 1, "CPU-offloaded optimizer"),
+)
 
 
 def _tokenizer(args):
@@ -311,13 +326,14 @@ def _init_state_dict(args):
     return None
 
 
-def make_trainer(args):
-    """The ``Trainer`` of a ``train`` command line (nothing built yet)."""
+def make_trainer(args, mesh_cfg=None):
+    """The ``Trainer`` of a ``train`` command line (nothing built yet), on
+    ``mesh_cfg`` (:func:`_train_mesh`)."""
     from .config import stage_config
     from .training.trainer import Trainer
     from .utils.torch_import import load_reference_checkpoint
 
-    _refuse_mesh(args)
+    _refuse_unported(args)
     cfg = stage_config(
         args.stage,
         frame_num=args.frame_num or {1: 16, 2: 48, 3: 48, 4: 80}[args.stage],
@@ -356,33 +372,91 @@ def make_trainer(args):
                         if args.vae_ckpt else None),
         init_state_dict=_init_state_dict(args),
         target_resolution=tuple(args.target_resolution), device=args.device,
-        seed=args.seed)
+        seed=args.seed, mesh_cfg=mesh_cfg)
 
 
-def _refuse_mesh(args) -> None:
-    """Exit on a mesh option of a training command left off its default."""
-    for flag in MESH_FLAGS:
-        value = getattr(args, flag, None)
-        default = False if flag == "zero3" else 1
-        if value is not None and value != default:
-            raise SystemExit(f"--{flag} is not ported yet (ROADMAP.md "
-                             f"queue 1: the mesh's training half)")
+def _refuse_unported(args) -> None:
+    """Exit on an option of a training command that is not ported yet,
+    left off its default."""
+    for flag, default, item in NOT_PORTED:
+        value = getattr(args, flag, default)
+        if value != default:
+            raise SystemExit(f"--{flag} {value} is not ported yet "
+                             f"(ROADMAP.md queue 1: {item})")
+
+
+def _train_mesh(args):
+    """The training mesh of ``--mesh_data D --mesh_seq S --mesh_tensor T
+    [--zero3]`` (None at 1 x 1 x 1), after joining the launch's process
+    group; exits unless the launch runs D x S x T processes."""
+    import torch.distributed as dist
+
+    from .config import MeshConfig
+    from .parallel.distributed import init_runtime
+
+    _refuse_unported(args)
+    init_runtime(device=args.device)
+    cfg = MeshConfig(data=args.mesh_data, seq=args.mesh_seq,
+                     tensor=args.mesh_tensor, zero_params=args.zero3)
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if world != cfg.num_devices:
+        raise SystemExit(
+            f"--mesh_data {cfg.data} --mesh_seq {cfg.seq} --mesh_tensor "
+            f"{cfg.tensor} trains over {cfg.num_devices} processes (torchrun "
+            f"--nproc_per_node {cfg.num_devices}); this launch runs {world}")
+    return cfg if cfg.num_devices > 1 else None
+
+
+@contextlib.contextmanager
+def _on_the_mesh(args):
+    """The training mesh's config for the command's body (rank 0 alone
+    prints; the process group is left at the end)."""
+    import torch.distributed as dist
+
+    from .parallel.distributed import is_main_process
+
+    mesh_cfg = _train_mesh(args)
+    try:
+        with contextlib.ExitStack() as stack:
+            if not is_main_process():
+                stack.enter_context(contextlib.redirect_stdout(
+                    stack.enter_context(open(os.devnull, "w"))))
+            yield mesh_cfg
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _log_writer(args):
+    """``--report_to tensorboard``: a tensorboardX writer of
+    ``results_dir/tensorboard_log`` on rank 0 when tensorboardX imports,
+    else None (the JAX command's behaviour)."""
+    from .parallel.distributed import is_main_process
+    if args.report_to != "tensorboard" or not is_main_process():
+        return None
+    try:
+        from tensorboardX import SummaryWriter
+    except Exception:
+        return None
+    return SummaryWriter(os.path.join(args.results_dir, "tensorboard_log"))
 
 
 def cmd_train(args):
-    trainer = make_trainer(args)
-    steps = args.max_steps
-    if args.epochs is not None:
-        rows = trainer.cfg.batch_size_per_device
-        steps = args.epochs * max(1, len(trainer.dataset) // rows)
-        print(f"--epochs {args.epochs} => {steps} steps "
-              f"({len(trainer.dataset)} clips, {rows} rows/step)")
-    trainer.run(steps)
+    with _on_the_mesh(args) as mesh_cfg:
+        trainer = make_trainer(args, mesh_cfg)
+        steps = args.max_steps
+        if args.epochs is not None:
+            # an epoch is a pass of the global batch's rows
+            rows = trainer._batch_rows
+            steps = args.epochs * max(1, len(trainer.dataset) // rows)
+            print(f"--epochs {args.epochs} => {steps} steps "
+                  f"({len(trainer.dataset)} clips, {rows} rows/step)")
+        trainer.run(steps, log_writer=_log_writer(args))
 
 
 def _add_train_parser(sub) -> None:
     t = sub.add_parser("train", help="pretrain (stage 1-4 curriculum) on "
-                                     "one device")
+                                     "one device or a mesh")
     t.add_argument("--stage", type=int, default=1, choices=[1, 2, 3, 4])
     t.add_argument("--video_dir_path", type=str, required=True,
                    help="directory of videos, or a .txt manifest "
@@ -477,12 +551,34 @@ def _add_train_parser(sub) -> None:
                    help="train the aux input-reconstruction head too (its "
                         "loss over the clean frames joins the denoising "
                         "loss); serve or export with --input_head")
+    t.add_argument("--report_to", default="tensorboard",
+                   help="'tensorboard': results_dir/tensorboard_log when "
+                        "tensorboardX imports")
+    _add_mesh_args(t)
+    t.add_argument("--mesh_pipe", type=int, default=1)
+    t.add_argument("--pp_microbatches", type=int, default=0)
+    t.add_argument("--sp_attention", default="ulysses",
+                   choices=["ulysses", "ring"])
     # accepted so a JAX command line parses; a non-default value raises
     # (not ported yet, see ROADMAP.md queue 1)
     t.add_argument("--offload_optimizer", action="store_true")
-    for flag in ("mesh_data", "mesh_seq", "mesh_tensor", "mesh_pipe"):
-        t.add_argument(f"--{flag}", type=int, default=1)
+    t.add_argument("--offload_grad_splits", type=int, default=1)
     t.set_defaults(fn=cmd_train)
+
+
+def _add_mesh_args(parser) -> None:
+    """The training mesh's options (one process per rank, torchrun)."""
+    parser.add_argument("--zero3", action="store_true",
+                        help="ZeRO-3: the parameters and the EMA sharded "
+                             "over the data axis too")
+    parser.add_argument("--mesh_data", type=int, default=1,
+                        help="data-parallel ranks (batch rows; ZeRO "
+                             "optimizer-state sharding)")
+    parser.add_argument("--mesh_seq", type=int, default=1,
+                        help="sequence-parallel (Ulysses) ranks")
+    parser.add_argument("--mesh_tensor", type=int, default=1,
+                        help="tensor-parallel ranks (heads and MLP "
+                             "features)")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -606,17 +702,15 @@ def cmd_generate_image(args):
 
 
 def cmd_train_image(args):
+    with _on_the_mesh(args) as mesh_cfg:
+        _train_image(args, mesh_cfg)
+
+
+def _train_image(args, mesh_cfg):
     from .config import TrainConfig
     from .training.image_trainer import ImageGenTrainer
     from .utils.torch_import import load_reference_checkpoint
 
-    _refuse_mesh(args)
-    if args.offload_grad_splits != 1:
-        raise SystemExit("--offload_grad_splits is not ported yet "
-                         "(ROADMAP.md queue 1: offload)")
-    if args.report_to != "none":
-        raise SystemExit(f"--report_to {args.report_to} is not ported yet "
-                         "(ROADMAP.md queue 1: utilities)")
     cfg = TrainConfig(
         batch_size_per_device=args.batch_size_per_device, lr=args.lr,
         results_dir=args.results_dir, log_every=args.log_every,
@@ -635,7 +729,8 @@ def cmd_train_image(args):
         max_input_images=args.max_input_images, vae_cfg=vae_cfg,
         vae_state_dict=(load_reference_checkpoint(args.vae_ckpt)
                         if args.vae_ckpt else None),
-        device=args.device, seed=args.seed).run(args.max_steps)
+        device=args.device, seed=args.seed, mesh_cfg=mesh_cfg).run(
+            args.max_steps, log_writer=_log_writer(args))
 
 
 def cmd_export(args):
@@ -742,9 +837,7 @@ def _add_image_parsers(sub) -> None:
     # (not ported yet, see ROADMAP.md queue 1)
     ti.add_argument("--offload_optimizer", action="store_true")
     ti.add_argument("--offload_grad_splits", type=int, default=1)
-    ti.add_argument("--zero3", action="store_true")
-    for flag in ("mesh_data", "mesh_seq", "mesh_tensor"):
-        ti.add_argument(f"--{flag}", type=int, default=1)
+    _add_mesh_args(ti)
     ti.add_argument("--report_to", default="none",
                     choices=["none", "tensorboard"])
     ti.set_defaults(fn=cmd_train_image)

@@ -1,12 +1,11 @@
 """Model, sampler, mesh and training configuration.
 
-Port of ``video_gpt_tpu/config.py``: the serving fields with the mesh's
-serving half (``MeshConfig``; the model reads its sharding off the mesh it
-is built on), and the fields of the
-single-device training path with its LoRA, distillation and aux input-head
-(``input_output_return``) recipes. The offload field is not ported;
-:func:`check_train_config` raises on a non-default value of it, and on the
-combinations the JAX trainer refuses.
+Port of ``video_gpt_tpu/config.py``: the serving fields, the mesh
+(``MeshConfig``; the model reads its sharding off the mesh it is built
+on), and the training fields with the LoRA, distillation and aux
+input-head (``input_output_return``) recipes. The offload fields, the ring
+and GPipe are not ported; :func:`check_train_config` raises on their
+non-default values, and on the combinations the JAX trainer refuses.
 """
 from __future__ import annotations
 
@@ -84,12 +83,16 @@ class SchedulerConfig:
 @dataclasses.dataclass(frozen=True)
 class MeshConfig:
     """Process grid: data x sequence x tensor axes, one process per rank
-    (``parallel/mesh.py``). The JAX package's pipe axis and ZeRO-3 flag
-    belong to the mesh's training half (ROADMAP.md queue 1)."""
+    (``parallel/mesh.py``). The optimizer state is always sharded over
+    ``data`` (ZeRO-1/2); ``zero_params`` (ZeRO-3) shards the parameters and
+    the EMA over it too, gathered a layer at a time where they are used.
+    The JAX package's pipe axis is not ported (ROADMAP.md queue 1, part
+    B)."""
 
     data: int = 1
     seq: int = 1
     tensor: int = 1
+    zero_params: bool = False
 
     @property
     def num_devices(self) -> int:
@@ -121,6 +124,11 @@ class TrainConfig:
     gradient_accumulation_steps: int = 1
     mixed_precision: str = "bf16"  # 'bf16' | 'no'
     gradient_checkpointing: bool = True
+    # sequence parallelism over the mesh's seq axis: 'ulysses' | 'ring'
+    # (the ring is not ported: ROADMAP.md queue 1, part B)
+    sp_attention: str = "ulysses"
+    # GPipe microbatches over the pipe axis (not ported: part B)
+    pp_microbatches: int = 0
     # loss
     input_noise: float = 0.9
     cls_weight: Optional[float] = None
@@ -145,8 +153,9 @@ class TrainConfig:
     distill_lr: Optional[float] = 1e-4
     distill_loss_weight: str = "uniform"
     distill_guidance: Optional[float] = None
-    # not ported (ROADMAP queue 1): a non-default value raises
+    # not ported (ROADMAP.md queue 1): a non-default value raises
     offload_optimizer: bool = False
+    offload_grad_splits: int = 1
     # data loading (worker threads feeding the Prefetcher)
     num_workers: int = 1
     prefetch_depth: int = 2
@@ -158,9 +167,12 @@ class TrainConfig:
     results_dir: str = "results"
 
 
-# field -> the ROADMAP queue-1 item that ports it
+# field -> the ROADMAP.md queue-1 item that ports it
 _NOT_PORTED = {
-    "offload_optimizer": "offload",
+    "sp_attention": "the mesh's training half, part B (the ring)",
+    "pp_microbatches": "the mesh's training half, part B (GPipe)",
+    "offload_optimizer": "CPU-offloaded optimizer",
+    "offload_grad_splits": "CPU-offloaded optimizer",
 }
 
 

@@ -24,13 +24,19 @@ through ``ulysses_attend_cached`` and the others through
 ``ulysses_attend``. The model reads S and T off the mesh. With T > 1
 qkv/gate_up hold the rank's [q_t|k_t|v_t] / [gate_t|up_t] rows and
 o_proj/down_proj its columns (``utils.weights.tp_shard_state_dict``);
-the partial products of o_proj/down_proj stay fp32 through the all-reduce
-over the tensor group and are rounded once after it, as one rank's matmul
+the input of qkv_proj/gate_up_proj passes Megatron's ``copy_to`` (its
+gradient is summed over the tensor group), and the partial products of
+o_proj/down_proj stay fp32 through the all-reduce over the tensor group,
+autocast or not, and are rounded once after it, as one rank's matmul
 rounds its fp32 accumulator once. With S > 1 the trunk pads the sequence
 to the seq multiple at its entry, each rank runs its contiguous chunk
 through the layers, and the chunks are gathered before the final norm;
 the KV cache it returns holds the rank's heads (``mesh.cache_heads``) of
-the unpadded tokens.
+the unpadded tokens. On a ZeRO-3 mesh (``MeshConfig.zero_params``) each
+layer's parameters rest as this data rank's parts and are all-gathered at
+use (``mesh.gather_params``, in autocast's dtype under autocast: the
+matmuls would cast them to it anyway), inside the checkpointed layer, so
+the recompute gathers them again and no gathered layer outlives its use.
 """
 from __future__ import annotations
 
@@ -39,12 +45,13 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 from torch import nn
 import torch.nn.functional as F
+from torch.func import functional_call
 from torch.utils.checkpoint import checkpoint
 
 from ..config import ModelConfig
 from ..ops.attention import AttnMeta, attend, attend_cached
-from ..parallel.mesh import (SEQ_AXIS, TENSOR_AXIS, axis_size, gather_seq,
-                             split_seq)
+from ..parallel.mesh import (DATA_AXIS, SEQ_AXIS, TENSOR_AXIS, axis_size,
+                             gather_params, gather_seq, split_seq)
 from ..parallel.ulysses import (pad_to_seq, ulysses_attend,
                                 ulysses_attend_cached)
 
@@ -128,7 +135,8 @@ def check_mesh(cfg: ModelConfig, mesh) -> None:
     if tp > 1 and cfg.lora_rank:
         raise NotImplementedError(
             "LoRA under tensor parallelism: merge the adapters before "
-            "sharding (serving); training on the mesh is not ported yet")
+            "sharding (serving); LoRA training on the mesh is not ported "
+            "yet (ROADMAP.md queue 1: LoRA and distillation on the mesh)")
     if cfg.num_heads % tp or cfg.num_kv_heads % tp \
             or cfg.intermediate_size % tp:
         raise ValueError(f"heads {cfg.num_heads}/{cfg.num_kv_heads} and "
@@ -136,12 +144,16 @@ def check_mesh(cfg: ModelConfig, mesh) -> None:
                          f"the tensor axis {tp}")
 
 
-def row_parallel(layer: nn.Linear, x: torch.Tensor, mesh) -> torch.Tensor:
-    """``layer(x)`` of a row-parallel layer whose input features are split
-    over the tensor axis: the rank's partial product in fp32, summed over
-    the tensor group, rounded once to ``x``'s dtype."""
-    out = F.linear(x.float(), layer.weight.float())
-    return mesh.all_reduce(out, TENSOR_AXIS).to(x.dtype)
+def row_parallel(x: torch.Tensor, weight: torch.Tensor, mesh
+                 ) -> torch.Tensor:
+    """``F.linear(x, weight)`` of a row-parallel layer whose input features
+    are split over the tensor axis: the rank's partial product of x and the
+    weight in x's dtype, accumulated in fp32 (autocast off: under autocast
+    it would be a bf16 product), summed over the tensor group in fp32 and
+    rounded once to ``x``'s dtype."""
+    with torch.autocast(x.device.type, enabled=False):
+        out = F.linear(x.float(), weight.to(x.dtype).float())
+    return mesh.reduce_from(out, TENSOR_AXIS).to(x.dtype)
 
 
 class Phi3Attention(nn.Module):
@@ -166,6 +178,8 @@ class Phi3Attention(nn.Module):
         cfg, tp = self.cfg, self.tp
         h, hkv, d = cfg.num_heads // tp, cfg.num_kv_heads // tp, cfg.head_dim
         b, l, _ = x.shape
+        if tp > 1:
+            x = self.mesh.copy_to(x, TENSOR_AXIS)
         q, k, v = self.qkv_proj(x).split([h * d, hkv * d, hkv * d], dim=-1)
         q = apply_rope(q.view(b, l, h, d), cos, sin)
         k = apply_rope(k.view(b, l, hkv, d), cos, sin)
@@ -186,7 +200,7 @@ class Phi3Attention(nn.Module):
             out, kv = attend(q, k, v, q_meta, k_meta, bias=bias), (k, v)
         out = out.reshape(b, l, h * d)
         if tp > 1:
-            return row_parallel(self.o_proj, out, self.mesh), kv
+            return row_parallel(out, self.o_proj.weight, self.mesh), kv
         return self.o_proj(out), kv
 
 
@@ -201,10 +215,12 @@ class Phi3Mlp(nn.Module):
         self.down_proj = nn.Linear(features, cfg.hidden_size, **kw)
 
     def forward(self, x):
+        if self.tp > 1:
+            x = self.mesh.copy_to(x, TENSOR_AXIS)
         gate, up = self.gate_up_proj(x).chunk(2, dim=-1)
         act = F.silu(gate) * up
         if self.tp > 1:
-            return row_parallel(self.down_proj, act, self.mesh)
+            return row_parallel(act, self.down_proj.weight, self.mesh)
         return self.down_proj(act)
 
 
@@ -269,23 +285,37 @@ class Phi3Decoder(nn.Module):
             shape = (cfg.num_layers, b, hkv, l, cfg.head_dim)
             kv = KVCache(x.new_empty(shape), x.new_empty(shape))
         remat = cfg.remat and torch.is_grad_enabled()
+        zero3 = mesh is not None and mesh.cfg.zero_params \
+            and axis_size(mesh, DATA_AXIS) > 1
         for i, layer in enumerate(self.layers):
             layer_cache = None
             if cache is not None and cache.length > 0:
                 layer_cache = (cache.k[i], cache.v[i])
             args = (x, cos, sin, q_meta, k_meta, layer_cache, bias)
+            run = self._gathered(layer) if zero3 else layer
             if remat:
                 # keep only the layer's input; the backward runs the layer
                 # again (the JAX package's nn.remat, nothing_saveable). The
                 # layer-invariant inputs (cos/sin, metadata, bias) are
                 # passed by reference, never copied per layer.
-                x, (k, v) = checkpoint(layer, *args, use_reentrant=False,
+                x, (k, v) = checkpoint(run, *args, use_reentrant=False,
                                        preserve_rng_state=False)
             else:
-                x, (k, v) = layer(*args)
+                x, (k, v) = run(*args)
             if kv is not None:
                 kv.k[i].copy_(k[:, :l].transpose(1, 2))
                 kv.v[i].copy_(v[:, :l].transpose(1, 2))
         if axis_size(mesh, SEQ_AXIS) > 1:
             x = gather_seq(x, mesh)[:, :l]
         return self.norm(x), kv
+
+    def _gathered(self, layer: nn.Module):
+        """``layer``'s forward on its ZeRO-3 parameters gathered at the
+        call (in autocast's dtype under autocast)."""
+        def run(*args):
+            dev = args[0].device.type
+            dtype = (torch.get_autocast_dtype(dev)
+                     if torch.is_autocast_enabled(dev) else None)
+            return functional_call(layer, gather_params(layer, self.mesh,
+                                                        dtype), args)
+        return run

@@ -224,15 +224,20 @@ class AutoencoderKL(nn.Module):
 
     def encode(self, pixels: torch.Tensor,
                noise: Union[torch.Tensor, torch.Generator, None] = None,
-               sample: bool = True) -> torch.Tensor:
+               sample: bool = True, noise_rows=None) -> torch.Tensor:
         """Posterior sample (or mode), scaled for the diffusion model.
         ``noise`` is the standard-normal draw itself ([N, h, w, Cz]) or a
-        Generator on the VAE's device to draw it from."""
+        Generator on the VAE's device to draw it from; ``noise_rows``
+        (first, total): the pixels are rows first.. of a global batch of
+        ``total``, whose draw is made and sliced (a data rank's)."""
         mean, logvar = self.encode_moments(pixels).chunk(2, dim=-1)
         if sample:
             if not isinstance(noise, torch.Tensor):
-                noise = torch.randn(mean.shape, generator=noise,
-                                    device=mean.device, dtype=mean.dtype)
+                first, total = noise_rows or (0, mean.shape[0])
+                noise = torch.randn((total,) + mean.shape[1:],
+                                    generator=noise, device=mean.device,
+                                    dtype=mean.dtype)
+                noise = noise[first:first + mean.shape[0]]
             std = torch.exp(0.5 * logvar.clamp(-30.0, 20.0))
             mean = mean + std * noise.to(mean.dtype)
         if self.cfg.shift_factor is not None:

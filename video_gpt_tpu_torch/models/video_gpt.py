@@ -20,8 +20,13 @@ Module names follow the reference's torch model, so its state dict (and
 
 Built with ``mesh=`` (``parallel/mesh.py``), every rank assembles the
 token stream whole; the trunk splits it over the seq axis and gathers it
-before the heads, and the KV cache that ``prefill`` / ``extend_cache``
-return holds the rank's heads (``mesh.cache_heads``).
+before the heads (the embedders and the heads, the aux input head too, get
+their whole gradient on every seq rank), and the KV cache that ``prefill``
+/ ``extend_cache`` return holds the rank's heads (``mesh.cache_heads``).
+On a ZeRO-3 mesh the parameters rest as this data rank's parts
+(``mesh.shard_params_``): ``forward`` gathers the embedders', the heads',
+the token embedding's and the final norm's once per call, and the trunk
+each layer's at its use.
 """
 from __future__ import annotations
 
@@ -29,11 +34,12 @@ from typing import Dict, NamedTuple, Tuple
 
 import torch
 from torch import nn
+from torch.func import functional_call
 
 from ..config import ModelConfig
 from ..ops.attention import AttnMeta
 from ..ops.flash_attention import DecodeMask, bias_map, precompute_bias
-from ..parallel.mesh import SEQ_AXIS, axis_size
+from ..parallel.mesh import DATA_AXIS, SEQ_AXIS, axis_size, gather_params
 from .embedders import (FinalLayer, PatchEmbed, TimestepEmbedder,
                         crop_pos_embed, sincos_2d_pos_embed, unpatchify)
 from .phi3 import KVCache, Phi3Decoder
@@ -158,13 +164,15 @@ class VideoGPT(nn.Module):
             self.input_final_layer.zero_init = True
         self.llm = Phi3Decoder(cfg, mesh=mesh, **kw)
         self._pos_tables: Dict[tuple, torch.Tensor] = {}
+        self._whole_params = False
 
     @property
     def dtype(self) -> torch.dtype:
         return self.llm.embed_tokens.weight.dtype
 
     @torch.no_grad()
-    def init_random_(self, generator: torch.Generator, std: float = 0.02):
+    def init_random_(self, generator: torch.Generator, std: float = 0.02,
+                     whole: "VideoGPT" = None, part=None):
         """Random weights drawn on the parameters' device: normal(std) for
         matrices and embeddings, zero biases, unit norms. The head and the
         adaLN modulation are random too, so the model does not predict
@@ -172,18 +180,32 @@ class VideoGPT(nn.Module):
         unless the model is built with ``train_init``: then the modules
         marked ``zero_init`` (the head and the noisy-patch embedder) are
         zero. The aux input head is always zero, as the JAX package
-        initialises it."""
-        for name, p in self.named_parameters():
+        initialises it.
+
+        A model on a mesh holding parts of the parameters passes ``whole``
+        (the unsharded model, on the meta device) and ``part(name,
+        tensor)`` (this rank's part of a whole parameter): the whole model's
+        draws are made one parameter at a time and each rank keeps its
+        part, so every mesh holds the one-rank model of ``generator``."""
+        src = self if whole is None else whole
+        zero = {f"{m_name}.{n}" for m_name, m in src.named_modules()
+                if getattr(m, "zero_init", False)
+                for n, _ in m.named_parameters()}
+        mine = dict(self.named_parameters())
+        for name, p in src.named_parameters():
+            dst = mine[name]
+            t = p if whole is None else torch.empty(
+                p.shape, device=dst.device, dtype=dst.dtype)
             if name.endswith("norm.weight"):
-                p.fill_(1.0)
+                t.fill_(1.0)
             elif name.endswith(".bias"):
-                p.zero_()
+                t.zero_()
             else:
-                p.normal_(0.0, std, generator=generator)
-        for module in self.modules():
-            if getattr(module, "zero_init", False):
-                for p in module.parameters():
-                    p.zero_()
+                t.normal_(0.0, std, generator=generator)
+            if name in zero:
+                t.zero_()
+            if whole is not None:
+                dst.copy_(part(name, t))
         return self
 
     # ---- embedding assembly ------------------------------------------------
@@ -262,6 +284,21 @@ class VideoGPT(nn.Module):
         reconstruction of each clean frame [Nc, hl, wl, C] (the model must
         carry ``input_head``). ``bias`` (a precomputed bias or a
         DecodeMask) lets loop callers pay the step-invariant mask once."""
+        mesh = self.llm.mesh
+        if (mesh is not None and mesh.cfg.zero_params
+                and axis_size(mesh, DATA_AXIS) > 1
+                and not self._whole_params):
+            # ZeRO-3: this call on the parameters outside the trunk's
+            # layers gathered whole (the layers gather their own)
+            self._whole_params = True
+            try:
+                return functional_call(
+                    self, gather_params(self, mesh, skip="llm.layers."),
+                    (batch, noisy_latents, t, clean_latents),
+                    dict(input_output_return=input_output_return,
+                         bias=bias))
+            finally:
+                self._whole_params = False
         emb = self._assemble(batch, noisy_latents, t, clean_latents)
         if bias is None:
             bias = maybe_bias(self.cfg, batch.meta, batch.meta,

@@ -10,17 +10,23 @@ Port of ``video_gpt_tpu/parallel/distributed.py`` onto
   nothing in a single process;
 - :func:`is_main_process`: rank 0, or no process group;
 - :class:`GracefulShutdown`: SIGTERM/SIGINT sets a flag that the training
-  loops read each step, to write a checkpoint and return;
+  loops read each step (agreed over the ranks, :meth:`~GracefulShutdown.
+  agreed`), to write a checkpoint and return;
 - :func:`spawn_ranks` runs a function in one spawned process per rank
   (``torch.multiprocessing``), joined by a file rendezvous, without
   ``torchrun`` (the tests, and the smoke run's ranks sharing one card).
 
-The collectives the mesh runs (:func:`all_to_all`, :func:`all_reduce`,
-:func:`all_gather`) count the bytes they take in, in the caller's
-:class:`CollectiveStats`. Several ranks sharing one card run the ``gloo``
-backend (NCCL refuses two ranks of one communicator on one device); gloo
-takes CUDA operands of these collectives itself, copying them through host
-memory.
+The collectives the mesh runs count the bytes they take in, in the
+caller's :class:`CollectiveStats`, in the forward and the backward. The
+ones training differentiates through are ``torch.autograd.Function``s:
+:func:`all_to_all` (backward: the reverse all_to_all), Megatron's pair
+:func:`copy_to_group` / :func:`reduce_from_group`, :func:`gather_cat`
+(backward: this rank's chunk) and :func:`own_chunk` (backward: the chunks
+gathered); :func:`all_reduce`, :func:`all_gather` and
+:func:`reduce_scatter` (ZeRO's gradient shard) have no backward.
+Several ranks sharing one card run the ``gloo`` backend (NCCL refuses two
+ranks of one communicator on one device); gloo takes CUDA operands of
+these collectives itself, copying them through host memory.
 """
 from __future__ import annotations
 
@@ -72,48 +78,203 @@ def is_main_process() -> bool:
 
 @dataclasses.dataclass
 class CollectiveStats:
-    """Bytes a rank's collectives took in, and their count."""
+    """Bytes a rank's collectives took in, and their count, in the forward
+    and in the backward of the autograd collectives."""
 
     moved: int = 0
     calls: int = 0
+    backward_moved: int = 0
+    backward_calls: int = 0
 
-    def add(self, x: torch.Tensor) -> None:
-        self.moved += x.numel() * x.element_size()
-        self.calls += 1
+    def add(self, x: torch.Tensor, backward: bool = False) -> None:
+        if backward:
+            self.backward_moved += x.numel() * x.element_size()
+            self.backward_calls += 1
+        else:
+            self.moved += x.numel() * x.element_size()
+            self.calls += 1
+
+    def reset(self) -> None:
+        self.moved = self.calls = self.backward_moved = 0
+        self.backward_calls = 0
+
+
+def _count(stats: Optional[CollectiveStats], x: torch.Tensor,
+           backward: bool = False) -> None:
+    if stats is not None:
+        stats.add(x, backward)
+
+
+def _all_to_all(x, group, split_dim, concat_dim, stats, backward=False):
+    n = dist.get_world_size(group)
+    inp = torch.stack(x.chunk(n, dim=split_dim))
+    out = torch.empty_like(inp)
+    dist.all_to_all_single(out, inp, group=group)
+    _count(stats, inp, backward)
+    return torch.cat(out.unbind(0), dim=concat_dim)
+
+
+def _gather_cat(x, group, dim, stats, backward=False):
+    src = x.contiguous()
+    parts = [torch.empty_like(src) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, src, group=group)
+    _count(stats, src, backward)
+    return torch.cat(parts, dim=dim)
+
+
+def _own_chunk(x, group, dim):
+    n, i = dist.get_world_size(group), dist.get_rank(group)
+    return x.chunk(n, dim=dim)[i].contiguous()
+
+
+def _all_reduce(x, group, stats, backward=False):
+    dist.all_reduce(x, group=group)
+    _count(stats, x, backward)
+    return x
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, split_dim, concat_dim, stats):
+        ctx.args = (group, split_dim, concat_dim, stats)
+        return _all_to_all(x, group, split_dim, concat_dim, stats)
+
+    @staticmethod
+    def backward(ctx, g):
+        group, split_dim, concat_dim, stats = ctx.args
+        # the transpose: every chunk goes back where it came from
+        return (_all_to_all(g, group, concat_dim, split_dim, stats, True),
+                None, None, None, None)
+
+
+class _CopyToGroup(torch.autograd.Function):
+    """Identity forward, all-reduce backward (Megatron's f): the input of
+    a column-parallel layer, which every rank of the group reads whole."""
+
+    @staticmethod
+    def forward(ctx, x, group, stats):
+        ctx.args = (group, stats)
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        group, stats = ctx.args
+        return _all_reduce(g.clone(), group, stats, True), None, None
+
+
+class _ReduceFromGroup(torch.autograd.Function):
+    """All-reduce forward, identity backward (Megatron's g): the partial
+    products of a row-parallel layer."""
+
+    @staticmethod
+    def forward(ctx, x, group, stats):
+        ctx.mark_dirty(x)
+        return _all_reduce(x, group, stats)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _GatherCat(torch.autograd.Function):
+    """The group's chunks concatenated; backward: this rank's chunk of the
+    gradient (what follows is replicated over the group, so every rank
+    holds the whole gradient)."""
+
+    @staticmethod
+    def forward(ctx, x, group, dim, stats):
+        ctx.args = (group, dim)
+        return _gather_cat(x, group, dim, stats)
+
+    @staticmethod
+    def backward(ctx, g):
+        group, dim = ctx.args
+        return _own_chunk(g, group, dim), None, None, None
+
+
+class _OwnChunk(torch.autograd.Function):
+    """This rank's chunk of a tensor replicated over the group; backward:
+    the chunks' gradients gathered (the transpose of taking a chunk)."""
+
+    @staticmethod
+    def forward(ctx, x, group, dim, stats):
+        ctx.args = (group, dim, stats)
+        return _own_chunk(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        group, dim, stats = ctx.args
+        return _gather_cat(g, group, dim, stats, True), None, None, None
 
 
 def all_to_all(x: torch.Tensor, group, split_dim: int, concat_dim: int,
                stats: Optional[CollectiveStats] = None) -> torch.Tensor:
     """Split ``x`` into n chunks along ``split_dim``, send chunk j to the
     group's rank j, and concatenate the chunks received along
-    ``concat_dim`` in group-rank order."""
-    n = dist.get_world_size(group)
-    inp = torch.stack(x.chunk(n, dim=split_dim))
-    out = torch.empty_like(inp)
-    dist.all_to_all_single(out, inp, group=group)
-    if stats is not None:
-        stats.add(inp)
-    return torch.cat(out.unbind(0), dim=concat_dim)
+    ``concat_dim`` in group-rank order. Differentiable: the backward is the
+    reverse all_to_all."""
+    return _AllToAll.apply(x, group, split_dim, concat_dim, stats)
+
+
+def copy_to_group(x: torch.Tensor, group,
+                  stats: Optional[CollectiveStats] = None) -> torch.Tensor:
+    """``x`` itself; its gradient is summed over the group."""
+    return _CopyToGroup.apply(x, group, stats)
+
+
+def reduce_from_group(x: torch.Tensor, group,
+                      stats: Optional[CollectiveStats] = None
+                      ) -> torch.Tensor:
+    """Sum of ``x`` over the group's ranks (in place; returns ``x``); the
+    gradient passes through unchanged."""
+    return _ReduceFromGroup.apply(x, group, stats)
+
+
+def gather_cat(x: torch.Tensor, group, dim: int,
+               stats: Optional[CollectiveStats] = None) -> torch.Tensor:
+    """Every group rank's ``x`` concatenated along ``dim``, in group-rank
+    order; the backward keeps this rank's chunk of the gradient."""
+    return _GatherCat.apply(x, group, dim, stats)
+
+
+def own_chunk(x: torch.Tensor, group, dim: int,
+              stats: Optional[CollectiveStats] = None) -> torch.Tensor:
+    """This rank's contiguous chunk of ``x`` along ``dim``; the backward
+    gathers the chunks' gradients."""
+    return _OwnChunk.apply(x, group, dim, stats)
 
 
 def all_reduce(x: torch.Tensor, group,
-               stats: Optional[CollectiveStats] = None) -> torch.Tensor:
-    """Sum of ``x`` over the group's ranks (in place; returns ``x``)."""
-    dist.all_reduce(x, group=group)
-    if stats is not None:
-        stats.add(x)
-    return x
+               stats: Optional[CollectiveStats] = None,
+               backward: bool = False) -> torch.Tensor:
+    """Sum of ``x`` over the group's ranks (in place; returns ``x``), with
+    no backward (``backward``: count its bytes as the backward's)."""
+    return _all_reduce(x, group, stats, backward)
 
 
 def all_gather(x: torch.Tensor, group,
-               stats: Optional[CollectiveStats] = None) -> List[torch.Tensor]:
-    """Every group rank's ``x``, in group-rank order."""
+               stats: Optional[CollectiveStats] = None,
+               backward: bool = False) -> List[torch.Tensor]:
+    """Every group rank's ``x``, in group-rank order, with no backward
+    (``backward``: count its bytes as the backward's)."""
     src = x.detach().contiguous()
     parts = [torch.empty_like(src) for _ in range(dist.get_world_size(group))]
     dist.all_gather(parts, src, group=group)
-    if stats is not None:
-        stats.add(src)
+    _count(stats, src, backward)
     return parts
+
+
+def reduce_scatter(x: torch.Tensor, group, dim: int,
+                   stats: Optional[CollectiveStats] = None,
+                   backward: bool = False) -> torch.Tensor:
+    """This rank's chunk along ``dim`` of the sum of ``x`` over the
+    group's ranks (ZeRO's gradient shard), with no backward."""
+    n = dist.get_world_size(group)
+    parts = [c.contiguous() for c in x.chunk(n, dim=dim)]
+    out = torch.empty_like(parts[0])
+    dist.reduce_scatter(out, parts, group=group)
+    _count(stats, x, backward)
+    return out
 
 
 class GracefulShutdown:
@@ -132,6 +293,19 @@ class GracefulShutdown:
 
     def _handler(self, signum, frame):
         self.requested.set()
+
+    def agreed(self, device=None) -> bool:
+        """Whether any rank of the launch saw a signal: one
+        ``all_reduce(MAX)`` of the flag over the world, so every rank
+        writes its checkpoint at the same step (a rank that acted alone
+        would save while the others wait in a collective). Without a
+        process group, the local flag."""
+        stop = self.requested.is_set()
+        if dist.is_initialized() and dist.get_world_size() > 1:
+            flag = torch.tensor([float(stop)], device=device)
+            dist.all_reduce(flag, op=dist.ReduceOp.MAX)
+            stop = bool(flag.item() > 0)
+        return stop
 
     def restore(self) -> None:
         for sig, prev in self._prev.items():

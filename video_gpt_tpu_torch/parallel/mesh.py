@@ -13,19 +13,29 @@ rank here holds its own part and calls the collectives itself:
   ``constrain_activations`` and ``constrain_replicated``: the trunk's
   [B, L, D] activations are split into contiguous L/S chunks over the seq
   axis (``P(data, seq, None)``), and gathered whole before the final norm
-  and the heads;
+  and the heads. Both are differentiable: a chunk's backward gathers the
+  chunks' gradients, the gather's keeps the rank's chunk, so whatever runs
+  before the split or after the gather (the embedders, the final norm, the
+  heads) gets its whole gradient on every seq rank;
 - :func:`cache_heads` is the head rule of ``constrain_cache``: the KV cache
   is head-sharded at rest over (tensor, seq), tensor-major, so global kv
-  head ``(t S + s) hkv/(S T) + i`` is rank (s, t)'s local head i.
+  head ``(t S + s) hkv/(S T) + i`` is rank (s, t)'s local head i;
+- ZeRO (``zero_sharding`` / ``param_specs(zero=...)`` /
+  ``place_train_state``): :func:`zero_dim` is the dimension of a tensor
+  (the rank's tensor-parallel part of a parameter, or its AdamW moment, or
+  its EMA) sharded over ``data``: the first one ``data`` divides, else
+  None (replicated); :func:`zero_shard` is the rank's part.
+  :func:`shard_params_` makes a model's parameters rest as those parts
+  (ZeRO-3), and :func:`gather_params` all-gathers them where they are used
+  (backward: the reduce-scatter of their gradients);
+- :func:`batch_rows`: this data rank's rows of the global batch
+  (``batch_sharding``).
 
-The pipe axis and the parameter shardings of training (``param_specs``,
-``zero_sharding``, ``place_train_state``) are the mesh's training half
-(ROADMAP.md queue 1); serving needs only the tensor shard of
-``utils.weights``.
+The pipe axis is the mesh's training half, part B (ROADMAP.md queue 1).
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Sequence
 
 import numpy as np
 import torch
@@ -70,13 +80,36 @@ class Mesh:
         return coll.all_to_all(x, self.groups[axis], split_dim, concat_dim,
                                self.stats)
 
-    def all_reduce(self, x: torch.Tensor, axis: str) -> torch.Tensor:
-        return coll.all_reduce(x, self.groups[axis], self.stats)
+    def all_reduce(self, x: torch.Tensor, axis: str,
+                   backward: bool = False) -> torch.Tensor:
+        """In-place sum over the axis, no backward (``backward``: count
+        its bytes as the backward's)."""
+        return coll.all_reduce(x, self.groups[axis], self.stats, backward)
 
-    def all_gather(self, x: torch.Tensor, axis: str, dim: int
-                   ) -> torch.Tensor:
-        return torch.cat(coll.all_gather(x, self.groups[axis], self.stats),
-                         dim=dim)
+    def copy_to(self, x: torch.Tensor, axis: str) -> torch.Tensor:
+        return coll.copy_to_group(x, self.groups[axis], self.stats)
+
+    def reduce_from(self, x: torch.Tensor, axis: str) -> torch.Tensor:
+        return coll.reduce_from_group(x, self.groups[axis], self.stats)
+
+    def all_gather(self, x: torch.Tensor, axis: str, dim: int,
+                   backward: bool = False) -> torch.Tensor:
+        """The axis's chunks concatenated (differentiable); with
+        ``backward``, a plain gather whose bytes count as the backward's
+        (the optimizer's)."""
+        if backward:
+            return torch.cat(coll.all_gather(x, self.groups[axis],
+                                             self.stats, True), dim=dim)
+        return coll.gather_cat(x, self.groups[axis], dim, self.stats)
+
+    def own_chunk(self, x: torch.Tensor, axis: str, dim: int
+                  ) -> torch.Tensor:
+        return coll.own_chunk(x, self.groups[axis], dim, self.stats)
+
+    def reduce_scatter(self, x: torch.Tensor, axis: str, dim: int,
+                       backward: bool = False) -> torch.Tensor:
+        return coll.reduce_scatter(x, self.groups[axis], dim, self.stats,
+                                   backward)
 
 
 def make_mesh(cfg: MeshConfig) -> Mesh:
@@ -123,19 +156,109 @@ def cache_heads(mesh: Optional[Mesh], n_heads: int) -> slice:
 def split_seq(x: torch.Tensor, mesh: Optional[Mesh], dim: int = 1
               ) -> torch.Tensor:
     """This rank's contiguous chunk of ``x`` along ``dim`` (a multiple of
-    the seq axis)."""
+    the seq axis); its backward all-gathers the chunks' gradients."""
     s = axis_size(mesh, SEQ_AXIS)
     if s == 1:
         return x
     if x.shape[dim] % s:
         raise ValueError(f"length {x.shape[dim]} not divisible by the seq "
                          f"axis {s}")
-    return x.chunk(s, dim=dim)[mesh.index(SEQ_AXIS)]
+    return mesh.own_chunk(x, SEQ_AXIS, dim)
 
 
 def gather_seq(x: torch.Tensor, mesh: Optional[Mesh], dim: int = 1
                ) -> torch.Tensor:
-    """The seq axis's chunks of ``x`` concatenated along ``dim``."""
+    """The seq axis's chunks of ``x`` concatenated along ``dim``; its
+    backward keeps this rank's chunk of the gradient."""
     if axis_size(mesh, SEQ_AXIS) == 1:
         return x
     return mesh.all_gather(x, SEQ_AXIS, dim)
+
+
+def batch_rows(mesh: Optional[Mesh], rows: int) -> slice:
+    """This data rank's contiguous rows of a global batch of ``rows``."""
+    d = axis_size(mesh, DATA_AXIS)
+    if rows % d:
+        raise ValueError(f"{rows} rows not divisible by the data axis {d}")
+    i = 0 if mesh is None else mesh.index(DATA_AXIS)
+    return slice(i * rows // d, (i + 1) * rows // d)
+
+
+def zero_dim(shape: Sequence[int], n: int) -> Optional[int]:
+    """The dimension ZeRO shards over ``n`` data ranks: the first that
+    ``n`` divides (the JAX ``zero_sharding`` rule), else None."""
+    if n == 1:
+        return None
+    for d, size in enumerate(shape):
+        if size % n == 0 and size >= n:
+            return d
+    return None
+
+
+def zero_shard(x: torch.Tensor, mesh: Optional[Mesh]) -> torch.Tensor:
+    """This data rank's part of ``x`` (a view), or ``x`` itself where
+    :func:`zero_dim` is None."""
+    n = axis_size(mesh, DATA_AXIS)
+    d = zero_dim(x.shape, n)
+    if d is None:
+        return x
+    return x.chunk(n, dim=d)[mesh.index(DATA_AXIS)]
+
+
+def shard_params_(module: torch.nn.Module, mesh: Optional[Mesh], device
+                  ) -> torch.nn.Module:
+    """ZeRO-3: ``module`` (on the meta device) materialised on ``device``
+    (uninitialised) with every parameter that :func:`zero_dim` shards
+    replaced by a Parameter of this data rank's part, tagged with its
+    ``zero_dim``; :func:`gather_params` puts it together where it is
+    used."""
+    n = axis_size(mesh, DATA_AXIS)
+    dims = {}
+    for mod_name, mod in module.named_modules():
+        for name, p in list(mod._parameters.items()):
+            d = None if p is None else zero_dim(p.shape, n)
+            if d is None:
+                continue
+            shape = list(p.shape)
+            shape[d] //= n
+            mod._parameters[name] = torch.nn.Parameter(
+                torch.empty(shape, device=p.device, dtype=p.dtype),
+                requires_grad=p.requires_grad)
+            dims[f"{mod_name}.{name}" if mod_name else name] = d
+    module.to_empty(device=device)  # new Parameter objects: tag them now
+    for name, p in module.named_parameters():
+        if name in dims:
+            p.zero_dim = dims[name]
+    return module
+
+
+class _GatherParam(torch.autograd.Function):
+    """A ZeRO-3 parameter's parts all-gathered over ``data`` in ``dtype``;
+    backward: the reduce-scatter (sum, in the part's dtype) of the whole
+    gradient."""
+
+    @staticmethod
+    def forward(ctx, part, mesh, dim, dtype):
+        ctx.args = (mesh, dim, part.dtype)
+        return torch.cat(coll.all_gather(part.to(dtype),
+                                         mesh.groups[DATA_AXIS], mesh.stats),
+                         dim=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, dim, dtype = ctx.args
+        return (mesh.reduce_scatter(g.to(dtype), DATA_AXIS, dim, True), None,
+                None, None)
+
+
+def gather_params(module: torch.nn.Module, mesh: Optional[Mesh],
+                  dtype: Optional[torch.dtype] = None,
+                  skip: str = None) -> Dict[str, torch.Tensor]:
+    """The whole tensors of ``module``'s ZeRO-3 parameters (those tagged
+    by :func:`shard_params_`, except names starting with ``skip``), by
+    name, gathered in ``dtype`` (theirs by default), for
+    ``torch.func.functional_call``."""
+    return {name: _GatherParam.apply(p, mesh, p.zero_dim, dtype or p.dtype)
+            for name, p in module.named_parameters()
+            if getattr(p, "zero_dim", None) is not None
+            and not (skip and name.startswith(skip))}

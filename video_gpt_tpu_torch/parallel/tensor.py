@@ -19,6 +19,12 @@ import numpy as np
 import torch
 
 
+# the parameters a tensor rank holds its own part of (Megatron column- and
+# row-parallel); every other parameter is replicated over the tensor axis
+TP_SHARDED = (".qkv_proj.weight", ".gate_up_proj.weight", ".o_proj.weight",
+              ".down_proj.weight")
+
+
 def regroup_columns(w: torch.Tensor, sizes: Sequence[int], tp: int,
                     axis: int = 0, inverse: bool = False) -> torch.Tensor:
     """Reorder the concatenated feature groups of ``w`` along ``axis``

@@ -5,9 +5,11 @@ contiguous L/S chunk of the sequence and H/T heads (its tensor block); an
 ``all_to_all`` over the seq group turns q/k/v into the rank's H/(S T)
 heads over the full length, the local kernel attends, and a second
 ``all_to_all`` turns the output back. Global head order is tensor-block
-major, seq-chunk minor (``mesh.cache_heads``). The metadata, and a
-``DecodeMask``, are whole on every rank, so the kernels see global
-positions.
+major, seq-chunk minor (``mesh.cache_heads``). The all_to_all is
+differentiable (its backward is the reverse all_to_all), so training runs
+K6 forward and K7 backward at H/(S T) heads over the full length. The
+metadata, and a ``DecodeMask``, are whole on every rank, so the kernels
+see global positions.
 
 Lengths. The trunk pads the sequence once, at its entry, to the seq
 multiple (:func:`pad_to_seq`): padded queries are pad rows (they see

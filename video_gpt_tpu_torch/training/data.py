@@ -40,10 +40,17 @@ class TrainBatch(NamedTuple):
         return to_device(self, device)
 
 
-def collate(samples: Sequence, n_img: int, cls_weight: Optional[float] = None,
+def _round_up(n: int, multiple: int) -> int:
+    return n + -n % multiple
+
+
+def collate(samples: Sequence, n_img: int, sp_multiple: int = 1,
+            cls_weight: Optional[float] = None,
             uncond: bool = False) -> TrainBatch:
     """``samples``: ClipSamples sharing frame count and resolution. The
     batch is made on the host (:meth:`TrainBatch.to` moves it).
+    ``sp_multiple`` (the mesh's seq axis) pads every token layout to a
+    multiple of it.
 
     ``uncond=True`` also builds the unconditional branch of guidance
     distillation (``inputs.batch_uncond``): the 'uncond' layout scheme,
@@ -52,13 +59,17 @@ def collate(samples: Sequence, n_img: int, cls_weight: Optional[float] = None,
     F = samples[0].pixels.shape[0]
     B = len(samples)
     seg = n_img + 2
-    pad_to = 2 * F * seg  # worst case: all but the last block doubled
+    # worst case: all but the last block doubled
+    pad_to = _round_up(2 * F * seg, sp_multiple)
     layout = build_layout([RowSpec(tuple(s.frame_blocks), "training")
-                           for s in samples], n_img, pad_to=pad_to)
+                           for s in samples], n_img,
+                          pad_to_multiple=sp_multiple, pad_to=pad_to)
     batch_uncond = None
     if uncond:
         layout_u = build_layout([RowSpec(tuple(s.frame_blocks), "uncond")
-                                 for s in samples], n_img, pad_to=F * seg)
+                                 for s in samples], n_img,
+                                pad_to_multiple=sp_multiple,
+                                pad_to=_round_up(F * seg, sp_multiple))
         if layout_u.num_noisy_frames != layout.num_noisy_frames:
             raise ValueError("the uncond layout's noisy frames differ")
         batch_uncond = Batch.from_layout(layout_u, "cpu")

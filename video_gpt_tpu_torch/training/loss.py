@@ -17,11 +17,13 @@ Port of ``video_gpt_tpu/training/loss.py``:
 The JAX package draws x0, the timestep table, x0c and t_input from one
 PRNG key. The port takes them as a :class:`LossDraws`, drawn from a
 ``torch.Generator`` by :func:`draw_loss_noise` or built by a caller (a test
-hands both sides the same numbers).
+hands both sides the same numbers). A data rank of a mesh draws the global
+batch's numbers and keeps its part (:class:`DrawPart`), so its step
+computes what one rank computes on the global batch.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -55,19 +57,50 @@ class LossDraws(NamedTuple):
     t_clean: torch.Tensor  # [Nc] uniform
 
 
+class DrawPart(NamedTuple):
+    """Where a data rank's batch sits in the global batch: the (first,
+    global count) of its noisy frames, of its rows and of its clean slots
+    (row-major in both, as ``collate`` lays them out)."""
+
+    noisy: Tuple[int, int]
+    rows: Tuple[int, int]
+    clean: Tuple[int, int]
+
+
 def draw_loss_noise(generator: torch.Generator, inputs: LossInputs,
-                    max_blocks: int) -> LossDraws:
-    """Draw :class:`LossDraws` from ``generator`` (on the inputs' device)."""
+                    max_blocks: int, part: Optional[DrawPart] = None
+                    ) -> LossDraws:
+    """Draw :class:`LossDraws` from ``generator`` (on the inputs' device);
+    with ``part``, the global batch's draws, and keep this rank's
+    (:func:`take_part`)."""
     dev = inputs.x1.device
-    rows = inputs.batch.input_ids.shape[0]
-    nc = inputs.clean_latents.shape[0]
-    return LossDraws(
-        x0=torch.randn(inputs.x1.shape, generator=generator, device=dev),
-        t_table=torch.rand((rows, max_blocks), generator=generator,
+    g = part or DrawPart((0, inputs.x1.shape[0]),
+                         (0, inputs.batch.input_ids.shape[0]),
+                         (0, inputs.clean_latents.shape[0]))
+    draws = LossDraws(
+        x0=torch.randn((g.noisy[1],) + inputs.x1.shape[1:],
+                       generator=generator, device=dev),
+        t_table=torch.rand((g.rows[1], max_blocks), generator=generator,
                            device=dev),
-        x0c=torch.randn(inputs.clean_latents.shape, generator=generator,
-                        device=dev),
-        t_clean=torch.rand((nc,), generator=generator, device=dev))
+        x0c=torch.randn((g.clean[1],) + inputs.clean_latents.shape[1:],
+                        generator=generator, device=dev),
+        t_clean=torch.rand((g.clean[1],), generator=generator, device=dev))
+    return take_part(draws, part, inputs)
+
+
+def take_part(draws: LossDraws, part: Optional[DrawPart],
+              inputs: LossInputs) -> LossDraws:
+    """This data rank's part (``part``; None: all) of the global batch's
+    ``draws``, for its batch ``inputs``."""
+    if part is None:
+        return draws
+    nn_, nc = inputs.x1.shape[0], inputs.clean_latents.shape[0]
+    rows = inputs.batch.input_ids.shape[0]
+    (n0, _), (r0, _), (c0, _) = part
+    return LossDraws(x0=draws.x0[n0:n0 + nn_],
+                     t_table=draws.t_table[r0:r0 + rows],
+                     x0c=draws.x0c[c0:c0 + nc],
+                     t_clean=draws.t_clean[c0:c0 + nc])
 
 
 def sample_block_timesteps(t_table: torch.Tensor, frame_row: torch.Tensor,
@@ -80,7 +113,8 @@ def sample_block_timesteps(t_table: torch.Tensor, frame_row: torch.Tensor,
 def training_loss(model, inputs: LossInputs, draws: LossDraws,
                   input_noise: float = 0.9, order: int = 2,
                   prediction_target: str = "x1",
-                  input_output_return: bool = False):
+                  input_output_return: bool = False,
+                  denominator: Optional[torch.Tensor] = None):
     """(scalar loss, aux dict with the per-frame losses) of ``model`` on
     ``inputs`` with the random numbers ``draws``. The forward runs under
     the caller's autocast; the loss is taken in fp32.
@@ -132,5 +166,6 @@ def training_loss(model, inputs: LossInputs, draws: LossDraws,
     else:
         n_clean = per_clean.shape[0]
     aux["input_loss"] = per_clean
-    return ((per_frame.sum() + per_clean.sum())
-            / (per_frame.shape[0] + n_clean)), aux
+    if denominator is None:
+        denominator = per_frame.shape[0] + n_clean
+    return (per_frame.sum() + per_clean.sum()) / denominator, aux

@@ -17,6 +17,26 @@ the same formulas:
 The JAX step returns new arrays; the port updates the parameters and the
 optimizer state in place, one tensor at a time, so the update holds no
 temporary larger than one parameter.
+
+On a mesh (``AdamW(..., mesh=)``, the JAX ``place_train_state`` and the
+SPMD partitioner's reductions) each parameter's gradient is reduced in the
+backward, as soon as it is complete (a ``post_accumulate_grad`` hook), so
+no rank holds its whole fp32 gradient beside its shards:
+
+- summed over ``seq`` for the trunk's layers (each seq rank differentiates
+  its own chunk; what runs before ``split_seq`` and after ``gather_seq``
+  has its whole gradient already), and averaged over ``data``;
+- no reduction over ``tensor``: a sharded parameter's gradient is its own,
+  a replicated one's is whole on every tensor rank (``copy_to``);
+- ZeRO-1/2: the moments hold this data rank's part (``mesh.zero_dim``) of
+  each parameter, its gradient part arrives by reduce-scatter, the rank
+  updates its part and all-gathers the parameter; ZeRO-3: the parameter
+  is the part (its gradient part comes from the gather's backward);
+- the clip's norm sums the squares of each rank's parts over ``data`` and
+  ``tensor``, counting a replicated parameter once;
+- under accumulation each micro-step's gradient is reduced (the
+  micro-step's norm, a metric, is the global gradient's, as in JAX) and
+  the running mean kept in parts.
 """
 from __future__ import annotations
 
@@ -28,6 +48,9 @@ from typing import Callable, Dict, List, Optional
 import torch
 
 from ..config import TrainConfig
+from ..parallel.mesh import (DATA_AXIS, SEQ_AXIS, TENSOR_AXIS, axis_size,
+                             zero_dim)
+from ..parallel.tensor import TP_SHARDED
 from .lora import lora_state_dict
 from .loss import LossDraws, LossInputs, training_loss
 
@@ -74,26 +97,115 @@ def global_norm(tensors) -> torch.Tensor:
         [torch.linalg.vector_norm(t.float()) for t in tensors]))
 
 
+@dataclasses.dataclass(frozen=True)
+class Placement:
+    """How one parameter sits on the mesh: ``dim``, the dimension of the
+    rank's tensor that its optimizer state (and, with ``zero3``, itself)
+    is sharded along over ``data`` (None: replicated); ``seq_sum``, its
+    gradient is partial per seq rank; ``tp_sharded``, it is a tensor
+    rank's own part."""
+
+    dim: Optional[int] = None
+    zero3: bool = False
+    seq_sum: bool = False
+    tp_sharded: bool = False
+
+
+def placement(name: str, p: torch.Tensor, mesh) -> Placement:
+    """The :class:`Placement` of parameter ``name`` on ``mesh``."""
+    zero3 = getattr(p, "zero_dim", None) is not None
+    return Placement(
+        dim=p.zero_dim if zero3 else zero_dim(p.shape,
+                                              axis_size(mesh, DATA_AXIS)),
+        zero3=zero3,
+        seq_sum=(axis_size(mesh, SEQ_AXIS) > 1
+                 and name.startswith("llm.layers.")),
+        tp_sharded=(axis_size(mesh, TENSOR_AXIS) > 1 and name.endswith(
+            TP_SHARDED)))
+
+
 class AdamW:
     """Clip by global norm, then AdamW with optax's formulas, over
-    ``params`` (updated in place from their ``.grad``)."""
+    ``params`` (updated in place from their ``.grad``). On a ``mesh``,
+    ``names`` are the parameters' names and the state is ZeRO-sharded
+    (module docstring)."""
 
-    def __init__(self, params, cfg: TrainConfig):
+    def __init__(self, params, cfg: TrainConfig, mesh=None, names=None):
         self.params: List[torch.Tensor] = list(params)
         self.cfg = cfg
         self.schedule = lr_schedule(cfg)
         self.count = 0       # optimizer steps taken (optax's Adam count)
         self.mini_step = 0   # micro-steps into the accumulation cycle
-        self.mu = [torch.zeros_like(p) for p in self.params]
-        self.nu = [torch.zeros_like(p) for p in self.params]
-        self.acc = ([torch.zeros_like(p) for p in self.params]
+        self.mesh = mesh
+        self.places = ([placement(n, p, mesh)
+                        for n, p in zip(names, self.params)]
+                       if mesh is not None else [Placement()] * len(
+                           self.params))
+        parts = [self._part(i) for i in range(len(self.params))]
+        self.mu = [torch.zeros_like(p) for p in parts]
+        self.nu = [torch.zeros_like(p) for p in parts]
+        self.acc = ([torch.zeros_like(p) for p in parts]
                     if cfg.gradient_accumulation_steps > 1 else None)
+        self.reduced: Optional[List[Optional[torch.Tensor]]] = None
+        if mesh is not None and (axis_size(mesh, DATA_AXIS) > 1
+                                 or axis_size(mesh, SEQ_AXIS) > 1):
+            self.reduced = [None] * len(self.params)
+            for i, p in enumerate(self.params):
+                p.register_post_accumulate_grad_hook(
+                    lambda p, i=i: self._reduce(i, p))
+
+    def _part(self, i: int) -> torch.Tensor:
+        """This data rank's part of parameter ``i`` (a view)."""
+        p, place = self.params[i].data, self.places[i]
+        if place.zero3 or place.dim is None:
+            return p
+        n = axis_size(self.mesh, DATA_AXIS)
+        return p.chunk(n, dim=place.dim)[self.mesh.index(DATA_AXIS)]
+
+    def _reduce(self, i: int, p: torch.Tensor) -> None:
+        """Parameter ``i``'s gradient, as soon as it is complete, reduced
+        to this rank's part of the global gradient."""
+        mesh, place = self.mesh, self.places[i]
+        g, p.grad = p.grad, None
+        n = axis_size(mesh, DATA_AXIS)
+        if place.seq_sum:
+            mesh.all_reduce(g, SEQ_AXIS, backward=True)
+        if n > 1:
+            if place.dim is not None and not place.zero3:
+                g = mesh.reduce_scatter(g, DATA_AXIS, place.dim,
+                                        backward=True)
+            elif place.dim is None:
+                mesh.all_reduce(g, DATA_AXIS, backward=True)
+            g.div_(n)
+        self.reduced[i] = g
 
     def _grads(self) -> List[torch.Tensor]:
+        if self.reduced is not None:
+            grads = [g if g is not None else torch.zeros_like(self._part(i))
+                     for i, g in enumerate(self.reduced)]
+            self.reduced = [None] * len(self.params)
+            return grads
         for p in self.params:
             if p.grad is None:  # unused this step: optax sees zeros
                 p.grad = torch.zeros_like(p)
         return [p.grad for p in self.params]
+
+    def _norm(self, grads) -> torch.Tensor:
+        """The global gradient's norm from this rank's parts."""
+        if self.mesh is None:
+            return global_norm(grads)
+        mesh = self.mesh
+        first = {a: mesh.index(a) == 0 for a in (DATA_AXIS, TENSOR_AXIS)}
+        sq = torch.zeros((), device=grads[0].device)
+        for g, place in zip(grads, self.places):
+            # a part held alike by the ranks of an axis counts once
+            if (place.dim is not None or first[DATA_AXIS]) and (
+                    place.tp_sharded or first[TENSOR_AXIS]):
+                sq = sq + torch.linalg.vector_norm(g.float()) ** 2
+        for axis in (DATA_AXIS, TENSOR_AXIS):
+            if axis_size(mesh, axis) > 1:
+                mesh.all_reduce(sq, axis, backward=True)
+        return sq.sqrt()
 
     def has_updated(self) -> bool:
         """Whether the last :meth:`step` changed the parameters."""
@@ -108,7 +220,7 @@ class AdamW:
         profiler sees the clip and the update as the range "AdamW.step"."""
         cfg = self.cfg
         grads = self._grads()
-        norm = global_norm(grads)
+        norm = self._norm(grads)
         k = cfg.gradient_accumulation_steps
         if self.acc is not None:
             for a, g in zip(self.acc, grads):
@@ -118,7 +230,7 @@ class AdamW:
             if self.mini_step != 0:
                 return norm
             grads = self.acc
-        self._update(grads, norm if self.acc is None else global_norm(grads))
+        self._update(grads, norm if self.acc is None else self._norm(grads))
         if self.acc is not None:
             for a in self.acc:
                 a.zero_()
@@ -133,13 +245,20 @@ class AdamW:
         lr = self.schedule(self.count)
         self.count += 1
         bc1, bc2 = 1.0 - b1 ** self.count, 1.0 - b2 ** self.count
-        for p, g, m, v in zip(self.params, grads, self.mu, self.nu):
+        for i, (g, m, v) in enumerate(zip(grads, self.mu, self.nu)):
+            p = self._part(i)
             g.mul_(clip)
             m.mul_(b1).add_(g, alpha=1.0 - b1)
             v.mul_(b2).addcmul_(g, g, value=1.0 - b2)
             upd = (m / bc1).div_((v / bc2).sqrt_().add_(cfg.adam_epsilon))
             upd.add_(p, alpha=cfg.adam_weight_decay)
             p.add_(upd, alpha=-lr)
+            place = self.places[i]
+            if place.dim is not None and not place.zero3 \
+                    and axis_size(self.mesh, DATA_AXIS) > 1:
+                # ZeRO-1/2: every data rank's updated part, put together
+                self.params[i].data.copy_(self.mesh.all_gather(
+                    p, DATA_AXIS, place.dim, backward=True))
 
     def _clear_grads(self) -> None:
         for p in self.params:
@@ -158,8 +277,9 @@ class AdamW:
                     dst.copy_(src)
 
 
-def make_optimizer(params, cfg: TrainConfig) -> AdamW:
-    return AdamW(params, cfg)
+def make_optimizer(params, cfg: TrainConfig, mesh=None,
+                   names=None) -> AdamW:
+    return AdamW(params, cfg, mesh=mesh, names=names)
 
 
 @dataclasses.dataclass
@@ -203,12 +323,16 @@ class TrainState:
                 t.copy_(sd["ema"][name])
 
 
-def init_train_state(model: torch.nn.Module, cfg: TrainConfig) -> TrainState:
+def init_train_state(model: torch.nn.Module, cfg: TrainConfig,
+                     mesh=None) -> TrainState:
+    """The state of ``model`` (built on ``mesh``, if any): AdamW's moments
+    made at once in their ZeRO layout, and the EMA in its parameters'."""
     ema = None
     if cfg.use_ema:
         ema = {n: p.detach().clone() for n, p in model.named_parameters()}
+    names, params = zip(*model.named_parameters())
     return TrainState(step=0, model=model,
-                      optimizer=make_optimizer(model.parameters(), cfg),
+                      optimizer=make_optimizer(params, cfg, mesh, names),
                       ema=ema)
 
 
@@ -257,7 +381,8 @@ def loss_step(state: TrainState, loss_fn: Callable, cfg: TrainConfig,
     """``loss_fn()`` (-> loss, aux) under autocast on ``device``, then
     backward, clip and AdamW, and the gated EMA when ``update_ema``, in
     place on ``state``. Metrics are device tensors (reading them waits for
-    the device)."""
+    the device); on a mesh with a data axis the loss is the mean over the
+    data ranks (the global batch's), the per-frame losses the rank's."""
     with autocast(cfg, device):
         loss, aux = loss_fn()
     loss.backward()
@@ -265,23 +390,30 @@ def loss_step(state: TrainState, loss_fn: Callable, cfg: TrainConfig,
     if update_ema and state.ema is not None:
         ema_update_gated(state.ema, state.model, cfg, state.optimizer)
     state.step += 1
-    return {"loss": loss.detach(), "grad_norm": grad_norm,
+    loss = loss.detach()
+    mesh = state.optimizer.mesh
+    if axis_size(mesh, DATA_AXIS) > 1:
+        loss = mesh.all_reduce(loss.clone(), DATA_AXIS) / axis_size(
+            mesh, DATA_AXIS)
+    return {"loss": loss, "grad_norm": grad_norm,
             "per_frame_loss": aux["per_frame_loss"].detach()}
 
 
 def make_train_step(model: torch.nn.Module, cfg: TrainConfig,
                     prediction_target: str = "x1") -> Callable:
-    """``step(state, inputs, draws) -> metrics``: loss, backward, clip,
-    AdamW and the gated EMA, in place on ``state``.
+    """``step(state, inputs, draws[, denominator]) -> metrics``: loss,
+    backward, clip, AdamW and the gated EMA, in place on ``state``
+    (``denominator``: ``training_loss``'s, a data rank's).
     ``prediction_target='velocity'`` trains the image family's target;
     ``cfg.input_output_return`` adds the aux input head's loss."""
 
-    def step(state: TrainState, inputs: LossInputs, draws: LossDraws):
+    def step(state: TrainState, inputs: LossInputs, draws: LossDraws,
+             denominator=None):
         return loss_step(state, lambda: training_loss(
             model, inputs, draws, input_noise=cfg.input_noise,
             prediction_target=prediction_target,
-            input_output_return=cfg.input_output_return), cfg,
-            inputs.x1.device)
+            input_output_return=cfg.input_output_return,
+            denominator=denominator), cfg, inputs.x1.device)
 
     return step
 
@@ -300,10 +432,12 @@ def make_lora_train_step(model: torch.nn.Module, cfg: TrainConfig
         raise ValueError("make_lora_train_step needs a model built with "
                          "ModelConfig.lora_rank > 0 (in-model adapters)")
 
-    def step(state: TrainState, inputs: LossInputs, draws: LossDraws):
+    def step(state: TrainState, inputs: LossInputs, draws: LossDraws,
+             denominator=None):
         return loss_step(state, lambda: training_loss(
             model, inputs, draws, input_noise=cfg.input_noise,
-            input_output_return=cfg.input_output_return), cfg,
-            inputs.x1.device, update_ema=False)
+            input_output_return=cfg.input_output_return,
+            denominator=denominator), cfg, inputs.x1.device,
+            update_ema=False)
 
     return step

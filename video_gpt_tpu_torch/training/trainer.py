@@ -1,8 +1,8 @@
 """Training loop: dataset -> VAE encode -> flow-matching step -> checkpoints.
 
-Port of ``video_gpt_tpu/training/trainer.py`` for one device and no mesh.
-One step (:meth:`Trainer.train_step`): the VAE encodes the clip's frames
-under ``no_grad`` with a posterior draw, then the loss, the backward through
+Port of ``video_gpt_tpu/training/trainer.py``. One step
+(:meth:`Trainer.train_step`): the VAE encodes the clip's frames under
+``no_grad`` with a posterior draw, then the loss, the backward through
 the trunk with per-layer recompute, global-norm clip, AdamW and the gated
 EMA. Mixed precision is the JAX package's: fp32 parameters and optimizer
 state, bf16 compute. Every random number of step ``i`` comes from one
@@ -22,6 +22,18 @@ loss adds its reconstruction of the clean frames. Two recipes change what
   ``mixed_precision='bf16'``: autocast casts every weight use to bf16, so it
   computes what the fp32 weights would); AdamW runs at ``distill_lr``, and
   with ``distill_guidance`` the batches carry the 'uncond' layout.
+
+``mesh_cfg`` (one process per rank, ``parallel/mesh.py``) trains over
+data x seq x tensor ranks: the global batch is ``batch_size_per_device x
+data`` rows, of which each data rank loads and collates its own (the
+dataset is not split by process: every rank reads the same global clip
+indices, as the single-host JAX run does); the sequence is padded to the
+seq multiple; the random numbers of step i are drawn for the global batch
+and sliced to the rank's rows, so a mesh step computes what one rank
+computes on the global batch. The model is built for the mesh (its tensor
+part, its ZeRO-3 parts; random weights are the one-rank model's), AdamW's
+state is ZeRO-sharded (``train_state``), each rank checkpoints its part,
+and rank 0 alone logs. LoRA and distillation on a mesh are not ported.
 """
 from __future__ import annotations
 
@@ -34,20 +46,25 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..config import ModelConfig, TrainConfig, check_train_config
+from ..config import MeshConfig, ModelConfig, TrainConfig, check_train_config
 from ..data.prefetch import Prefetcher
 from ..data.video import VideoClipDataset
 from ..layout import tokens_per_frame
 from ..models.vae import AutoencoderKL, VAEConfig
 from ..models.video_gpt import VideoGPT
 from ..parallel.distributed import GracefulShutdown
+from ..parallel.mesh import (DATA_AXIS, SEQ_AXIS, TENSOR_AXIS, axis_size,
+                             batch_rows, make_mesh, shard_params_,
+                             zero_shard)
 from ..sampling.pipeline import resolve_device
 from ..utils import checkpoint as ckpt
+from ..utils.weights import (tp_shard, tp_shard_state_dict,
+                             zero_shard_state_dict)
 from .data import TrainBatch, collate
 from .distill import (distill_optimizer_config, draw_distill_noise,
                       make_distill_train_step)
 from .lora import freeze_base_, init_lora_, is_adapter
-from .loss import draw_loss_noise
+from .loss import DrawPart, draw_loss_noise
 from .train_state import (TrainState, autocast, init_lora_train_state,
                           init_train_state, make_lora_train_step,
                           make_train_step)
@@ -65,13 +82,20 @@ class Trainer:
         target_resolution=(176, 320),
         device="cuda",
         seed: int = 0,
+        mesh_cfg: Optional[MeshConfig] = None,
     ):
         """``video_source``: a directory of videos or a ``.txt`` manifest;
         None builds no dataset, for a caller that feeds
         :meth:`train_step` its own batches. Without state dicts the
         weights are random from ``seed`` (the model's head and noisy-patch
-        embedder zero, as a fresh training model's)."""
+        embedder zero, as a fresh training model's). ``mesh_cfg``: the
+        mesh of a launch of one process per rank (its world size must be
+        the mesh's)."""
         check_train_config(train_cfg)
+        self.mesh = None
+        if mesh_cfg is not None and mesh_cfg.num_devices > 1:
+            check_mesh_recipe(train_cfg)
+            self.mesh = make_mesh(mesh_cfg)
         if train_cfg.gradient_checkpointing and not model_cfg.remat:
             model_cfg = dataclasses.replace(model_cfg, remat=True)
         if train_cfg.use_lora and not model_cfg.lora_rank:
@@ -110,29 +134,47 @@ class Trainer:
     def n_img(self) -> int:
         return tokens_per_frame(*self.target_resolution)
 
+    @property
+    def _batch_rows(self) -> int:
+        """Global batch rows: rows per rank x the data axis."""
+        return self.cfg.batch_size_per_device * axis_size(self.mesh,
+                                                          DATA_AXIS)
+
+    @property
+    def is_main(self) -> bool:
+        """Rank 0 (or no mesh): the rank that logs."""
+        return self.mesh is None or self.mesh.rank == 0
+
     def make_batch(self, index: int) -> TrainBatch:
-        """Batch ``index`` of the data order, on the host."""
-        rows = self.cfg.batch_size_per_device
+        """This rank's rows of batch ``index`` of the data order, on the
+        host."""
+        rows = self._batch_rows
         # the raw index: each wraparound of the dataset re-rolls the clips
-        samples = [self.dataset.sample(index * rows + i) for i in range(rows)]
-        return collate(samples, self.n_img, cls_weight=self.cfg.cls_weight,
+        samples = [self.dataset.sample(index * rows + i)
+                   for i in range(rows)[batch_rows(self.mesh, rows)]]
+        return collate(samples, self.n_img,
+                       sp_multiple=axis_size(self.mesh, SEQ_AXIS),
+                       cls_weight=self.cfg.cls_weight,
                        uncond=self.cfg.distill_guidance is not None)
 
     def _new_model(self, dtype: torch.dtype) -> VideoGPT:
         """A training model (with the aux input head under
-        ``input_output_return``), its memory uninitialised."""
-        return VideoGPT(self.model_cfg, device="meta", dtype=dtype,
-                        train_init=True,
-                        input_head=self.cfg.input_output_return).to_empty(
-                            device=self.device)
+        ``input_output_return``) built for the mesh, its memory
+        uninitialised."""
+        return new_model(self.model_cfg, dtype, self.device, self.mesh,
+                         self.cfg.input_output_return)
 
     def _load_init(self, model: VideoGPT) -> None:
         """The warm start into ``model``: every entry (the base's alone
-        under LoRA, whose adapters it does not hold), or random weights."""
+        under LoRA, whose adapters it does not hold), or random weights;
+        on a mesh, this rank's part of them."""
         sd = self._init_state_dict
         if sd is None:
-            model.init_random_(
-                torch.Generator(self.device).manual_seed(self.seed + 3))
+            init_model_(model, self.mesh, torch.Generator(
+                self.device).manual_seed(self.seed + 3))
+        elif self.mesh is not None:
+            model.load_state_dict(shard_state_dict(sd, model, self.mesh),
+                                  strict=True)
         elif self.cfg.use_lora:
             missing, unexpected = model.load_state_dict(sd, strict=False)
             base = [n for n in missing if not is_adapter(n)]
@@ -181,7 +223,7 @@ class Trainer:
             self._step_fn = make_lora_train_step(model, cfg)
             return init_lora_train_state(model, cfg)
         self._step_fn = make_train_step(model, cfg)
-        return init_train_state(model, cfg)
+        return init_train_state(model, cfg, self.mesh)
 
     def step_generator(self, step_idx: int) -> torch.Generator:
         """The generator of step ``step_idx``'s random numbers."""
@@ -196,17 +238,23 @@ class Trainer:
         step's metrics (device tensors)."""
         cfg = self.cfg
         gen = self.step_generator(step_idx)
+        part, denominator = draw_part(self.mesh, tb.inputs, tb.clean_valid,
+                                      cfg.input_output_return)
+        f = tb.pixels.shape[0] // tb.inputs.batch.input_ids.shape[0]
         with torch.no_grad(), autocast(cfg, self.device):
-            latents = self.vae.encode(tb.pixels, noise=gen)
+            latents = self.vae.encode(tb.pixels, noise=gen, noise_rows=(
+                None if part is None else (part.rows[0] * f,
+                                           part.rows[1] * f)))
         inputs = tb.inputs._replace(
             x1=latents[tb.noisy_sel.long()],
             clean_latents=latents[tb.clean_sel.long()])
         if cfg.distill:
             draws = draw_distill_noise(gen, inputs, cfg.frame_num,
                                        cfg.distill_student_steps)
-        else:
-            draws = draw_loss_noise(gen, inputs, max_blocks=cfg.frame_num)
-        return self._step_fn(state, inputs, draws)
+            return self._step_fn(state, inputs, draws)
+        draws = draw_loss_noise(gen, inputs, max_blocks=cfg.frame_num,
+                                part=part)
+        return self._step_fn(state, inputs, draws, denominator=denominator)
 
     # ---- loop --------------------------------------------------------------
 
@@ -218,21 +266,17 @@ class Trainer:
             # cosine schedule decays over exactly this horizon
             self.cfg = dataclasses.replace(self.cfg, max_steps=max_steps)
         cfg = self.cfg
-        os.makedirs(cfg.results_dir, exist_ok=True)
-        with open(os.path.join(cfg.results_dir, "train_args.json"), "w") as f:
-            json.dump({"train": dataclasses.asdict(cfg),
-                       "model": {k: str(v) for k, v in
-                                 dataclasses.asdict(self.model_cfg).items()}},
-                      f, indent=2, default=str)
+        write_train_args(cfg, self.model_cfg, self.mesh)
         ckpt_dir = os.path.join(cfg.results_dir, "checkpoints")
         state = self.build()
         start_step = 0
         if cfg.auto_resume and ckpt.latest_step(ckpt_dir) is not None:
-            state, start_step = ckpt.restore_checkpoint(ckpt_dir, state)
-            print(f"resumed from step {start_step}", flush=True)
+            state, start_step = ckpt.restore_checkpoint(ckpt_dir, state,
+                                                        mesh=self.mesh)
+            self.log(f"resumed from step {start_step}")
         prefetcher = Prefetcher(self.make_batch, depth=cfg.prefetch_depth,
                                 workers=cfg.num_workers, start=start_step)
-        writer = ckpt.CheckpointWriter(ckpt_dir)
+        writer = checkpoint_writer(ckpt_dir, self.mesh, self.model)
         # SIGTERM / SIGINT: a checkpoint at the current step, then return
         shutdown = GracefulShutdown()
         try:
@@ -249,10 +293,10 @@ class Trainer:
         t0 = time.time()
         running = []
         for step_idx in range(start_step, max_steps):
-            if shutdown.requested.is_set():
+            if shutdown.agreed(self.device):
                 writer.save_durable(step_idx, state)
-                print(f"shutdown requested: checkpoint-{step_idx} durable",
-                      flush=True)
+                self.log(f"shutdown requested: checkpoint-{step_idx} "
+                         "durable")
                 break
             tb = prefetcher.get().to(self.device)
             metrics = self.train_step(state, tb, step_idx)
@@ -264,10 +308,9 @@ class Trainer:
                 sps = len(running) / max(dt, 1e-9)
                 mean_loss = float(torch.stack(running).mean())
                 grad_norm = float(metrics["grad_norm"])
-                print(f"step {step_idx + 1}: loss={mean_loss:.4f} "
-                      f"grad_norm={grad_norm:.3f} steps/sec={sps:.3f}",
-                      flush=True)
-                if log_writer is not None:
+                self.log(f"step {step_idx + 1}: loss={mean_loss:.4f} "
+                         f"grad_norm={grad_norm:.3f} steps/sec={sps:.3f}")
+                if log_writer is not None and self.is_main:
                     log_writer.add_scalar("train/loss", mean_loss,
                                           step_idx + 1)
                     log_writer.add_scalar("train/grad_norm", grad_norm,
@@ -277,5 +320,108 @@ class Trainer:
                 running, t0 = [], time.time()
             if (step_idx + 1) % cfg.ckpt_every == 0:
                 writer.save(step_idx + 1, state)
-                print(f"saving checkpoint-{step_idx + 1} (async)", flush=True)
+                self.log(f"saving checkpoint-{step_idx + 1} (async)")
         return state
+
+    def log(self, msg: str) -> None:
+        if self.is_main:
+            print(msg, flush=True)
+
+
+def check_mesh_recipe(cfg: TrainConfig) -> None:
+    """Raise on a recipe the mesh does not run yet."""
+    for flag in ("use_lora", "distill"):
+        if getattr(cfg, flag):
+            raise NotImplementedError(
+                f"--{flag} on a mesh is not ported yet (ROADMAP.md queue 1: "
+                "LoRA and distillation on the mesh)")
+
+
+def new_model(cfg: ModelConfig, dtype: torch.dtype, device, mesh,
+              input_head: bool) -> VideoGPT:
+    """A training model built for ``mesh`` (its tensor part; under ZeRO-3
+    its parameters this data rank's parts), memory uninitialised."""
+    model = VideoGPT(cfg, device="meta", dtype=dtype, train_init=True,
+                     input_head=input_head, mesh=mesh)
+    if mesh is not None and mesh.cfg.zero_params:
+        return shard_params_(model, mesh, device)
+    return model.to_empty(device=device)
+
+
+def _part_of(name: str, w: torch.Tensor, model: VideoGPT, mesh
+             ) -> torch.Tensor:
+    """This rank's part of the whole (one-rank) parameter ``name``."""
+    w = tp_shard(name, w, model.cfg, axis_size(mesh, TENSOR_AXIS),
+                 0 if mesh is None else mesh.index(TENSOR_AXIS))
+    if mesh is not None and mesh.cfg.zero_params:
+        w = zero_shard(w, mesh)
+    return w
+
+
+def init_model_(model: VideoGPT, mesh, gen: torch.Generator) -> None:
+    """Random weights of the one-rank model of ``gen``: on a mesh each
+    whole parameter is drawn in turn and this rank keeps its part."""
+    if mesh is None:
+        model.init_random_(gen)
+        return
+    whole = VideoGPT(model.cfg, device="meta", train_init=model.train_init,
+                     input_head=hasattr(model, "input_final_layer"))
+    model.init_random_(gen, whole=whole, part=lambda name, w: _part_of(
+        name, w, model, mesh))
+
+
+def shard_state_dict(sd: dict, model: VideoGPT, mesh) -> dict:
+    """This rank's part of a one-rank state dict: its tensor part, and
+    under ZeRO-3 its data part of that (``sd`` itself without a mesh)."""
+    if mesh is None:
+        return sd
+    sd = tp_shard_state_dict(sd, model.cfg, axis_size(mesh, TENSOR_AXIS),
+                             mesh.index(TENSOR_AXIS))
+    if mesh.cfg.zero_params:
+        sd = zero_shard_state_dict(sd, axis_size(mesh, DATA_AXIS),
+                                   mesh.index(DATA_AXIS))
+    return sd
+
+
+def draw_part(mesh, inputs, clean_valid: torch.Tensor, input_head: bool):
+    """(:class:`DrawPart` of this data rank's batch, the loss denominator
+    of the global batch over the data size under ``input_head``), or
+    (None, None) without a data axis. The rows' real clean counts are
+    all-gathered over data: the clean slots of the global batch are laid
+    out row-major, so a rank's start is the count of the rows before it."""
+    n = axis_size(mesh, DATA_AXIS)
+    if n == 1:
+        return None, None
+    rows = inputs.batch.input_ids.shape[0]
+    nn_ = inputs.noisy_frame_row.shape[0]
+    i = mesh.index(DATA_AXIS)
+    counts = mesh.all_gather(clean_valid.sum().reshape(1), DATA_AXIS, 0)
+    counts = [int(c) for c in counts.tolist()]
+    # every rank's clean slots are rows x a per-row maximum
+    part = DrawPart(noisy=(i * nn_, n * nn_), rows=(i * rows, n * rows),
+                    clean=(sum(counts[:i]), n * clean_valid.shape[0]))
+    denominator = None
+    if input_head:
+        denominator = (n * nn_ + max(sum(counts), 1)) / n
+    return part, denominator
+
+
+def write_train_args(cfg: TrainConfig, model_cfg: ModelConfig, mesh) -> None:
+    """``results_dir/train_args.json`` (rank 0): the recipe, the model and,
+    as the JAX package records it, its tensor-parallel degree."""
+    os.makedirs(cfg.results_dir, exist_ok=True)
+    if mesh is not None and mesh.rank != 0:
+        return
+    model = {k: str(v) for k, v in dataclasses.asdict(model_cfg).items()}
+    model["tensor_parallel"] = str(axis_size(mesh, TENSOR_AXIS))
+    with open(os.path.join(cfg.results_dir, "train_args.json"), "w") as f:
+        json.dump({"train": dataclasses.asdict(cfg), "model": model,
+                   "mesh": (None if mesh is None
+                            else dataclasses.asdict(mesh.cfg))},
+                  f, indent=2, default=str)
+
+
+def checkpoint_writer(ckpt_dir: str, mesh, model) -> ckpt.CheckpointWriter:
+    return ckpt.CheckpointWriter(
+        ckpt_dir, mesh=mesh,
+        record=None if mesh is None else ckpt.mesh_record(mesh, model))

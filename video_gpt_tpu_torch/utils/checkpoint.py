@@ -9,9 +9,18 @@ changing it, and the file is written on a background thread.
 :func:`load_train_params` reads the parameters (or the EMA) alone, for a
 warm start from an earlier stage; :func:`load_lora_adapters` the adapters
 of a LoRA run, whose checkpoints hold nothing else of the model.
+
+A mesh run writes each rank's part of the train state,
+``<directory>/<step>/rank<r>.pt``, and rank 0 a record of the mesh,
+``mesh.json`` (its axes, ZeRO-3, each parameter's ZeRO dimension and the
+widths the tensor-parallel layout needs). It resumes on the same mesh
+only; :func:`load_train_params` puts the parameters of the parts back
+together into the one-rank layout, reading only the parameters from each
+part, so a mesh run's checkpoint serves and warm-starts at any mesh.
 """
 from __future__ import annotations
 
+import json
 import os
 import re
 import shutil
@@ -21,6 +30,28 @@ from typing import Any, Optional, Tuple
 import torch
 
 _FILE = "state.pt"
+_MESH = "mesh.json"
+
+
+def _rank_file(rank: int) -> str:
+    return f"rank{rank}.pt"
+
+
+def _mesh_record(path: str) -> Optional[dict]:
+    try:
+        with open(os.path.join(path, _MESH)) as f:
+            return json.load(f)
+    except FileNotFoundError:
+        return None
+
+
+def _complete(path: str) -> bool:
+    if os.path.exists(os.path.join(path, _FILE)):
+        return True
+    rec = _mesh_record(path)
+    return rec is not None and all(
+        os.path.exists(os.path.join(path, _rank_file(r)))
+        for r in range(rec["ranks"]))
 
 
 def _to_host(obj):
@@ -38,7 +69,7 @@ def _steps(directory: str):
         return []
     return sorted(int(n) for n in os.listdir(directory)
                   if re.fullmatch(r"\d+", n)
-                  and os.path.exists(os.path.join(directory, n, _FILE)))
+                  and _complete(os.path.join(directory, n)))
 
 
 def latest_step(directory: str) -> Optional[int]:
@@ -46,26 +77,54 @@ def latest_step(directory: str) -> Optional[int]:
     return steps[-1] if steps else None
 
 
-def _write(directory: str, step: int, host_state, keep: int) -> None:
+def _write(directory: str, step: int, host_state, keep: int,
+           name: str = _FILE, record: Optional[dict] = None) -> None:
     path = os.path.join(directory, str(step))
     os.makedirs(path, exist_ok=True)
-    tmp = os.path.join(path, _FILE + ".tmp")
+    if record is not None:
+        with open(os.path.join(path, _MESH + ".tmp"), "w") as f:
+            json.dump(record, f, indent=1)
+        os.replace(os.path.join(path, _MESH + ".tmp"),
+                   os.path.join(path, _MESH))
+    tmp = os.path.join(path, name + ".tmp")
     torch.save(host_state, tmp)
-    os.replace(tmp, os.path.join(path, _FILE))
-    for old in _steps(directory)[:-keep]:
-        shutil.rmtree(os.path.join(directory, str(old)), ignore_errors=True)
+    os.replace(tmp, os.path.join(path, name))
+    if name == _FILE or record is not None:  # one writer prunes
+        for old in _steps(directory)[:-keep]:
+            shutil.rmtree(os.path.join(directory, str(old)),
+                          ignore_errors=True)
+
+
+def mesh_record(mesh, model) -> dict:
+    """What a mesh run's checkpoint records beside its parts: the axes,
+    ZeRO-3, each parameter's ZeRO dimension (of the rank's tensor) and the
+    model widths that the tensor-parallel layout depends on."""
+    cfg = model.cfg
+    return dict(data=mesh.cfg.data, seq=mesh.cfg.seq,
+                tensor=mesh.cfg.tensor, zero_params=mesh.cfg.zero_params,
+                ranks=mesh.cfg.num_devices,
+                zero_dims={n: getattr(p, "zero_dim", None)
+                           for n, p in model.named_parameters()},
+                model={k: getattr(cfg, k) for k in (
+                    "hidden_size", "num_heads", "num_kv_heads",
+                    "intermediate_size")})
 
 
 class CheckpointWriter:
     """Saves on a background thread, at most one in flight; ``close()`` (or
-    the context manager) waits for the last one."""
+    the context manager) waits for the last one. On a mesh (``mesh`` and
+    its ``record``, :func:`mesh_record`) each rank writes its part and
+    rank 0 the record."""
 
-    def __init__(self, directory: str, keep: int = 5):
+    def __init__(self, directory: str, keep: int = 5, mesh=None,
+                 record: Optional[dict] = None):
         self.directory = directory
         self.keep = keep
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[Exception] = None
         self.last_step: Optional[int] = None
+        self._name = _FILE if mesh is None else _rank_file(mesh.rank)
+        self._record = record if mesh is None or mesh.rank == 0 else None
 
     def save(self, step: int, state: Any) -> None:
         self.wait()
@@ -74,7 +133,8 @@ class CheckpointWriter:
 
         def run():
             try:
-                _write(self.directory, step, host, self.keep)
+                _write(self.directory, step, host, self.keep, self._name,
+                       self._record)
             except Exception as e:  # raised again by wait()
                 self._error = e
 
@@ -108,20 +168,69 @@ class CheckpointWriter:
 
 
 def _path(directory: str, step: Optional[int]) -> Tuple[str, int]:
+    """(the step's directory, step)."""
     step = latest_step(directory) if step is None else step
     if step is None:
         raise FileNotFoundError(f"no checkpoints under {directory}")
-    return os.path.join(directory, str(step), _FILE), step
+    return os.path.join(directory, str(step)), step
+
+
+def _mesh_name(rec: Optional[dict]) -> str:
+    if rec is None:
+        return "one rank"
+    return (f"(data {rec['data']}, seq {rec['seq']}, tensor "
+            f"{rec['tensor']}{', zero3' if rec['zero_params'] else ''})")
 
 
 def restore_checkpoint(directory: str, state_like: Any,
-                       step: Optional[int] = None) -> Tuple[Any, int]:
+                       step: Optional[int] = None,
+                       mesh=None) -> Tuple[Any, int]:
     """Load the checkpoint of ``step`` (the latest by default) into
-    ``state_like`` in place; returns (state_like, step)."""
+    ``state_like`` in place (this rank's part of it on a ``mesh``);
+    returns (state_like, step). A checkpoint of another mesh is refused:
+    its parts do not fit this one's (warm-start from it instead)."""
     path, step = _path(directory, step)
-    state_like.load_state_dict(torch.load(path, map_location="cpu",
+    rec = _mesh_record(path)
+    want = None if mesh is None else dict(
+        data=mesh.cfg.data, seq=mesh.cfg.seq, tensor=mesh.cfg.tensor,
+        zero_params=mesh.cfg.zero_params)
+    if (rec is None) != (want is None) or (rec is not None and any(
+            rec[k] != v for k, v in want.items())):
+        raise ValueError(
+            f"checkpoint {step} under {directory} was written on "
+            f"{_mesh_name(rec)}, not {_mesh_name(want)}: resume it on its "
+            "mesh, or start a new run from it with --init_checkpoint_dir")
+    name = _FILE if mesh is None else _rank_file(mesh.rank)
+    state_like.load_state_dict(torch.load(os.path.join(path, name),
+                                          map_location="cpu",
                                           weights_only=True))
     return state_like, step
+
+
+def _mesh_params(path: str, rec: dict, field: str) -> Optional[dict]:
+    """The one-rank layout of ``field`` ("model" or "ema") put together
+    from a mesh checkpoint's parts (``weights.unshard``; the seq-0 ranks'
+    parts, memory-mapped, only the parameters read)."""
+    from ..config import MeshConfig, ModelConfig
+    from ..parallel.mesh import rank_grid
+    from .weights import unshard
+
+    grid = rank_grid(MeshConfig(rec["data"], rec["seq"], rec["tensor"]))
+    cfg = ModelConfig(**rec["model"])
+    files = {}
+
+    def state(rank):
+        if rank not in files:
+            files[rank] = torch.load(os.path.join(path, _rank_file(rank)),
+                                     map_location="cpu", weights_only=True,
+                                     mmap=True)[field]
+        return files[rank]
+
+    if state(0) is None:
+        return None
+    return {name: unshard(name, lambda d, t: state(int(grid[d, 0, t]))[name],
+                          dim, rec["data"], rec["tensor"], cfg)
+            for name, dim in rec["zero_dims"].items()}
 
 
 def load_train_params(directory: str, step: Optional[int] = None,
@@ -137,8 +246,13 @@ def load_train_params(directory: str, step: Optional[int] = None,
     is refused with the JAX command's message. Returns (state dict,
     step)."""
     path, step = _path(directory, step)
-    sd = torch.load(path, map_location="cpu", weights_only=True, mmap=True)
-    params = sd["ema" if ema else "model"]
+    rec = _mesh_record(path)
+    if rec is not None:
+        params = _mesh_params(path, rec, "ema" if ema else "model")
+    else:
+        sd = torch.load(os.path.join(path, _FILE), map_location="cpu",
+                        weights_only=True, mmap=True)
+        params = sd["ema" if ema else "model"]
     if params is None:
         raise ValueError(f"checkpoint {step} under {directory} has no EMA "
                          "(trained without use_ema)")

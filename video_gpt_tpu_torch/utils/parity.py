@@ -55,3 +55,25 @@ def assert_replicated(tree: Any, group=None, atol: float = 0.0) -> None:
             if d > atol:
                 raise AssertionError(f"{path or 'tensor'} diverges across "
                                      f"ranks: {d}")
+
+
+def replicated_divergence(named, mesh) -> float:
+    """The largest :func:`shard_divergence` of the tensors ``named`` (name,
+    tensor) over each mesh axis whose ranks hold them alike: seq always,
+    data unless the tensor is a ZeRO-3 part (tagged ``zero_dim``), tensor
+    unless it is a tensor rank's own part of a projection. Every rank
+    calls it with the same names, in one order."""
+    from ..parallel.mesh import DATA_AXIS, SEQ_AXIS, TENSOR_AXIS
+    from ..parallel.tensor import TP_SHARDED
+    worst = 0.0
+    for name, x in named:
+        axes = [SEQ_AXIS]
+        if getattr(x, "zero_dim", None) is None:
+            axes.append(DATA_AXIS)
+        if not name.endswith(TP_SHARDED):
+            axes.append(TENSOR_AXIS)
+        for axis in axes:
+            if mesh.size(axis) > 1:
+                worst = max(worst, shard_divergence(x.detach(),
+                                                    mesh.groups[axis]))
+    return worst

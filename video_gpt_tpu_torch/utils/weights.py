@@ -10,7 +10,10 @@ modules carry these names, so both load with ``strict=True``. Pure numpy
 on the input side: pass ``jax.device_get(params)`` or any nested mapping of
 arrays. :func:`tp_shard_state_dict` cuts a standard-layout state dict into
 tensor rank t's part, which a model built on a (tensor T) mesh loads
-(``videogpt_state_dict_from_jax(..., tp_shard=(T, t))`` does both).
+(``videogpt_state_dict_from_jax(..., tp_shard=(T, t))`` does both), and
+:func:`tp_unshard` puts the parts back together;
+:func:`zero_shard_state_dict` cuts one into data rank i's ZeRO part (a
+warm start onto a ZeRO-3 mesh).
 """
 from __future__ import annotations
 
@@ -21,7 +24,8 @@ import torch
 
 from ..config import ModelConfig
 from ..models.vae import VAEConfig
-from ..parallel.tensor import fused_group_sizes, tp_order
+from ..parallel.mesh import zero_dim
+from ..parallel.tensor import fused_group_sizes, regroup_columns, tp_order
 
 
 def _t(x) -> torch.Tensor:
@@ -86,23 +90,67 @@ _ROW_PARALLEL = ("o_proj.weight", "o_proj.lora_A.weight", "down_proj.weight")
 def tp_shard_state_dict(sd: Mapping[str, torch.Tensor], cfg: ModelConfig,
                         tp: int, rank: int) -> Dict[str, torch.Tensor]:
     """Tensor rank ``rank``'s part of a standard-layout state dict over
-    ``tp`` ranks (Megatron column/row parallel): the rows of
-    ``qkv_proj.weight`` for its [q_t|k_t|v_t] and of
+    ``tp`` ranks (Megatron column/row parallel, :func:`tp_shard`); every
+    entry but the four projections is replicated. A LoRA model is merged
+    before it is sharded."""
+    return {name: tp_shard(name, w, cfg, tp, rank) for name, w in sd.items()}
+
+
+def tp_shard(name: str, w: torch.Tensor, cfg: ModelConfig, tp: int,
+             rank: int) -> torch.Tensor:
+    """Tensor rank ``rank``'s part of the standard-layout entry ``name``:
+    the rows of ``qkv_proj.weight`` for its [q_t|k_t|v_t] and of
     ``gate_up_proj.weight`` for its [gate_t|up_t] (block t of the
     tp-grouped order), the columns of ``o_proj.weight`` and
-    ``down_proj.weight`` for its heads and features; every other entry is
-    replicated. A LoRA model is merged before it is sharded."""
+    ``down_proj.weight`` for its heads and features; ``w`` itself for any
+    other entry."""
     if tp == 1:
-        return dict(sd)
+        return w
+    sizes = fused_group_sizes(name, cfg)
+    if sizes is not None:
+        rows = tp_order(sizes, tp).reshape(tp, -1)[rank]
+        return w.index_select(0, torch.from_numpy(rows).to(w.device))
+    if name.endswith(_ROW_PARALLEL):
+        return w.chunk(tp, dim=1)[rank]
+    return w
+
+
+def tp_unshard(name: str, parts, cfg: ModelConfig) -> torch.Tensor:
+    """The standard-layout entry ``name`` from the tensor ranks' parts of
+    it, in rank order (the inverse of :func:`tp_shard`)."""
+    tp = len(parts)
+    sizes = fused_group_sizes(name, cfg)
+    if tp > 1 and sizes is not None:
+        return regroup_columns(torch.cat(parts, dim=0), sizes, tp,
+                               inverse=True)
+    if tp > 1 and name.endswith(_ROW_PARALLEL):
+        return torch.cat(parts, dim=1)
+    return parts[0]
+
+
+def unshard(name: str, part, dim: Optional[int], data: int, tensor: int,
+            cfg: ModelConfig) -> torch.Tensor:
+    """The standard-layout entry ``name`` from a mesh's parts of it:
+    ``part(d, t)`` is the part of data rank d and tensor rank t (ZeRO
+    parts along ``dim`` over data; None: whole on every data rank), put
+    together over data, then over tensor (:func:`tp_unshard`)."""
+    pieces = []
+    for t in range(tensor):
+        parts = [part(d, t) for d in range(data if dim is not None else 1)]
+        pieces.append(parts[0] if len(parts) == 1
+                      else torch.cat(parts, dim=dim))
+    return tp_unshard(name, pieces, cfg)
+
+
+def zero_shard_state_dict(sd: Mapping[str, torch.Tensor], n: int, rank: int
+                          ) -> Dict[str, torch.Tensor]:
+    """Data rank ``rank``'s ZeRO part of each entry over ``n`` data ranks
+    (``mesh.zero_dim``: the first dimension ``n`` divides; the entry
+    itself where none does)."""
     out = {}
     for name, w in sd.items():
-        sizes = fused_group_sizes(name, cfg)
-        if sizes is not None:
-            rows = tp_order(sizes, tp).reshape(tp, -1)[rank]
-            w = w.index_select(0, torch.from_numpy(rows).to(w.device))
-        elif name.endswith(_ROW_PARALLEL):
-            w = w.chunk(tp, dim=1)[rank]
-        out[name] = w
+        d = zero_dim(w.shape, n)
+        out[name] = w if d is None else w.chunk(n, dim=d)[rank]
     return out
 
 
