@@ -34,7 +34,11 @@ Phases, in order; any failure exits nonzero and none is caught:
    K3 at a tensor-only prefill (16 heads); and at a mesh training rank's:
    K3/K9 at 16 heads over the stage-1 layout (tensor 2), K6/K7 at 16
    heads over it (a seq-2 rank's Ulysses heads) and at 8 heads over the
-   stage-4 layout ((seq 2, tensor 2)). Every attention kernel
+   stage-4 layout ((seq 2, tensor 2)); and at part B's: K6/K7 on a ring
+   hop of the (seq 2, tensor 2) stage-4 run (16 heads, q chunk 1 over k
+   chunk 0 and q chunk 0 over k chunk 1, each 17,760 x 17,760; K7 and its
+   plain version handed the global lse of the two-chunk merge), and at a
+   GPipe microbatch (32 heads, L 7104, B 1). Every attention kernel
    computes only the tiles its tile map does not call empty: each map the
    kernels build is held equal to its plain classifier, and its share of
    tiles computed and the map's own time are printed beside the kernel's:
@@ -80,10 +84,10 @@ Phases, in order; any failure exits nonzero and none is caught:
    blocks over 48x80 frames whose odd tails the seq axis pads (bar:
    final-latent relative MSE 1e-3), each rank with its exact launches
    (K6 prefills on a seq mesh, K3 with its bias on a tensor-only one);
-11. full-width mesh clips: the main path's widths at 8 of its 32 layers
+11. full-width mesh clips: the main path's widths at 4 of its 32 layers
    (MESH_CLIP_LAYERS, seed 0), frames, noise and recipe over (seq 2,
    tensor 2) and (seq 4) (the reference's SP=4) gloo ranks on the card:
-   each rank exactly 8 K6, 80 K1 and 80 K2 at its 8 heads, the final
+   each rank exactly 4 K6, 40 K1 and 40 K2 at its 8 heads, the final
    latents bit-equal across the ranks (``shard_divergence`` 0) and within
    relative MSE 1e-3 of the same model's single-rank clip and within
    twice its floor (that clip rerun with its linears in another fp32
@@ -91,25 +95,38 @@ Phases, in order; any failure exits nonzero and none is caught:
    bytes each rank's collectives took in and each rank's peak memory
    (gloo ranks sharing one card: not multi-GPU speed);
 11a. mesh training, gloo ranks sharing the card: gloo's reduce_scatter,
-   all_gather, all_to_all_single and all_reduce on CUDA operands (small,
-   and large ones a matmul has just written), each against its expected
-   result; a small-input reference (a tiny model, head_dim 96, 8 heads, 4
-   layers, two 4-frame 48x64 rows, two steps with injected posterior
-   noise and loss draws) over (data 2), (seq 2), (tensor 2), (data 2,
-   zero3) and (data 2, seq 2, tensor 2, zero3) against the one-rank step
-   on the CPU in fp32 (bars: the training reference's, per step; each
-   rank its exact K3/K9 or K6/K7 launches; the replicated parameters
+   all_gather, all_to_all_single, all_reduce and the hop of the ring and
+   of GPipe (all_to_all_single with the payload to one peer: a ring shift,
+   and with nothing sent by the last rank and received by the first) on
+   CUDA operands (small, and large ones a matmul has just written), on 2
+   and 3 ranks, each against its expected result; a small-input
+   reference (a tiny model, head_dim 96, 8 heads, 4 layers, 4-frame 48x64
+   rows, two steps with injected posterior noise and loss draws) over
+   (data 2), (seq 2), (tensor 2), (data 2, zero3) and (data 2, seq 2,
+   tensor 2, zero3), the ring over (seq 2), (seq 4) and (data 2, seq 2,
+   tensor 2, zero3), and GPipe over (pipe 2, 2 microbatches) and (data 2,
+   pipe 2, 4 microbatches, 8 rows), against the one-rank step on the same
+   rows on the CPU in fp32 (bars: the training reference's, per step;
+   each rank its exact K3/K9 or K6/K7 launches; the replicated parameters
    bit-equal across the ranks); then the recipes of
    ``configs/pretrain_multichip_examples.sh`` at full width through the
    Trainer's own step, a warm-up and a timed step each: dp_tp_zero3 as
-   (data 2, tensor 2, zero3) at full depth (stage 1, each rank 64 K3 and
-   32 K9 at 16 heads), dp_sp as (data 2, seq 2) and dp_sp_tp's (seq 2,
-   tensor 2) at stage 4, both at 8 of the 32 layers (a replicating axis
-   holds 16 B a parameter on each of its ranks: full depth does not fit
-   the card twice); each with the slowest rank's step time, global
-   tokens/s, each rank's collective bytes (forward; backward with the
-   optimizer's), peak memory, a gradient into layer 0's attention, moved
-   parameters and divergence 0 (not multi-GPU speed);
+   (data 2, tensor 2, zero3) at 8 of the 32 layers (stage 1, each rank
+   16 K3 and 8 K9 at 16 heads), dp_sp as (data 2, seq 2) at 2 layers
+   and dp_sp_tp's (seq 2, tensor 2) at stage 4 and 8 layers (a
+   replicating axis holds 16 B a parameter on each of its ranks: full
+   depth does not fit the card twice; the first two were cut from 32 and
+   8 layers for the script's time), the ring on that (seq 2, tensor 2)
+   stage-4 run (each rank 32 K6 and 16 K7 at 16 heads over 17,760-token
+   chunks), and dp_pp
+   without its data axis as (pipe 4), stage 1, 4 rows in 4 microbatches,
+   16 layers (4 a stage: each rank 32 K6 and 16 K7 at 32 heads); each
+   with the slowest rank's step time, global tokens/s, each rank's
+   collective bytes (forward; backward with the optimizer's; the hops'
+   apart), peak memory, a gradient into its first layer's attention and
+   into the patch embedder (under pipe, after the input gradient's sum
+   over the stages), moved parameters and divergence 0 (not multi-GPU
+   speed);
 12. small-input training reference, twice: one loss and backward of a tiny
    model (head_dim 96, GQA) on the card (bf16, kernels) against the CPU
    (fp32, plain versions) with the same weights and random numbers: loss
@@ -192,7 +209,7 @@ clip 1.0) with a constant learning rate of 1e-4: the recipes' 320000-step
 linear warmup gives a learning rate of 0 at step 0, which would leave the
 parameters unmoved. The LoRA and distillation paths take stage 1's
 recipe with their own flags; train-image and the input-head path take a
-constant learning rate too. About 10 minutes on one H100.
+constant learning rate too. About 16 minutes on one H100.
 
 ``--mesh-train`` builds the kernels and runs only the mesh training's
 kernel records and phase 11a (a development reading; no device line).
@@ -213,11 +230,13 @@ import contextlib
 import gc
 import json
 import math
+import os
 import random
 import subprocess
 import sys
 import tempfile
 import time
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -244,7 +263,7 @@ from video_gpt_tpu_torch.models.video_gpt import decode_mask
 from video_gpt_tpu_torch.ops import _cuda
 from video_gpt_tpu_torch.ops import flash_attention as fa
 from video_gpt_tpu_torch.ops.attention import AttnMeta
-from video_gpt_tpu_torch.parallel.distributed import spawn_ranks
+from video_gpt_tpu_torch.parallel.distributed import hop, spawn_ranks
 from video_gpt_tpu_torch.parallel.mesh import make_mesh
 from video_gpt_tpu_torch.probes import overlap_probe
 from video_gpt_tpu_torch.sampling.pipeline import VideoGPTPipeline
@@ -814,15 +833,18 @@ def train_batch(stage: int, uncond: bool = False):
                    uncond=uncond)
 
 
-def visible_pairs(meta: AttnMeta) -> int:
-    """The (query, key) pairs that the metadata rule makes visible (B 1),
-    counted in steps of rows as the plain inline versions walk them."""
-    L = meta.index.shape[1]
+def visible_pairs(meta: AttnMeta, k_meta: AttnMeta = None) -> int:
+    """The (query, key) pairs that the metadata rule makes visible (B 1)
+    between the queries of ``meta`` and the keys of ``k_meta`` (``meta``'s
+    own by default), counted in steps of rows as the plain inline versions
+    walk them."""
+    k_meta = meta if k_meta is None else k_meta
+    L, lk = meta.index.shape[1], k_meta.index.shape[1]
     total = 0
     for r0 in range(0, L, fa.INLINE_ROWS):
         qm = meta.cols(slice(r0, min(r0 + fa.INLINE_ROWS, L)))
-        total += int(fa._padded_visibility(qm, meta, qm.index.shape[1],
-                                           L).sum())
+        total += int(fa._padded_visibility(qm, k_meta, qm.index.shape[1],
+                                           lk).sum())
     return total
 
 
@@ -1114,10 +1136,10 @@ def rollout_kernels(dev):
 # the full-width clips' meshes: (seq 2, tensor 2), and (seq 4), the
 # reference's SP=4; each rank holds 32 / (S T) = 8 of the flagship's heads
 MESH_CLIPS = ((2, 2), (4, 1))
-# their depth: 8 of the 32 layers (cut in PR 11 to fit the mesh training
-# phases in the script's time; the single-rank clip they are held to, and
-# its floor, are made at the same depth)
-MESH_CLIP_LAYERS = 8
+# their depth: 4 of the 32 layers (cut to fit the mesh training phases in
+# the script's time; the single-rank clip they are held to, and its floor,
+# are made at the same depth)
+MESH_CLIP_LAYERS = 4
 # the small-input mesh reference's meshes, and its frames: 48x80 is 15
 # tokens a frame, 17 with its markers, so the seq axis pads the tail and
 # the extend
@@ -1354,44 +1376,89 @@ def mesh_clip_phase(seq: int, tensor: int, res: list, single: torch.Tensor,
 
 
 # ---- training on the mesh: gloo ranks sharing the card -------------------
-# the small-input mesh training reference: (data, seq, tensor, zero3)
-MESH_TRAIN_REF = ((2, 1, 1, False), (1, 2, 1, False), (1, 1, 2, False),
-                  (2, 1, 1, True), (2, 2, 2, True))
-# its tiny model's layers, frames (stage 1's interleaved blocks), global
-# rows and steps
-MESH_TRAIN_PX, MESH_TRAIN_FRAMES, MESH_TRAIN_ROWS = (48, 64), 4, 2
+class MeshRun(NamedTuple):
+    """A mesh of the mesh training phases: its config, the attention over
+    seq, GPipe's microbatches (0: one per stage), the global batch's rows,
+    and (full width) the stage and the layers."""
+
+    cfg: MeshConfig
+    sp: str = "ulysses"
+    nm: int = 0
+    rows: int = 2
+    stage: int = 1
+    layers: int = 4
+
+
+# the small-input mesh training reference: the data, seq and tensor
+# meshes, the ring's (seq 2), (seq 4) and (data 2, seq 2, tensor 2,
+# zero3), GPipe's (pipe 2, nm 2) and (data 2, pipe 2, nm 4) (4 rows a data
+# rank)
+MESH_TRAIN_REF = (
+    MeshRun(MeshConfig(2)), MeshRun(MeshConfig(1, 2)),
+    MeshRun(MeshConfig(1, 1, 2)), MeshRun(MeshConfig(2, zero_params=True)),
+    MeshRun(MeshConfig(2, 2, 2, True)), MeshRun(MeshConfig(1, 2), "ring"),
+    MeshRun(MeshConfig(1, 4), "ring"),
+    MeshRun(MeshConfig(2, 2, 2, True), "ring"),
+    MeshRun(MeshConfig(pipe=2), nm=2),
+    MeshRun(MeshConfig(2, pipe=2), nm=4, rows=8))
+# its tiny model's layers, frames (stage 1's interleaved blocks) and steps
+MESH_TRAIN_PX, MESH_TRAIN_FRAMES = (48, 64), 4
 MESH_TRAIN_LAYERS, MESH_TRAIN_STEPS = 4, 2
 # full width, the recipes of configs/pretrain_multichip_examples.sh at the
-# card's sizes: (data, seq, tensor, zero3, stage, layers). Only a mesh that
-# shards all the state (ZeRO-3 over data with tensor) fits full depth on
-# one card; the replicating ones run 8 of the 32 layers
-MESH_TRAIN_FULL = ((2, 1, 2, True, 1, 32), (2, 2, 1, False, 1, 8),
-                   (1, 2, 2, False, 4, 8))
+# card's sizes, one row a data rank but GPipe's four. The ring runs
+# dp_sp_tp's (seq 2, tensor 2) at stage 4 and 8 layers beside Ulysses
+# there; GPipe runs dp_pp without its data axis, (pipe 4) at 4
+# microbatches and 16 layers (4 a stage: 16 B a parameter of 0.6B a rank).
+# Cut for the script's time when those two joined: dp_tp_zero3 (which fits
+# full depth: every axis shards its state) from 32 layers to 8, dp_sp
+# from 8 to 2 (a replicating axis holds 16 B a parameter on each of its
+# ranks: full depth does not fit one card twice)
+MESH_TRAIN_FULL = (
+    MeshRun(MeshConfig(2, 1, 2, True), layers=8),
+    MeshRun(MeshConfig(2, 2, 1), layers=2),
+    MeshRun(MeshConfig(1, 2, 2), rows=1, stage=4, layers=8),
+    MeshRun(MeshConfig(1, 2, 2), "ring", rows=1, stage=4, layers=8),
+    MeshRun(MeshConfig(pipe=4), nm=4, rows=4, layers=16))
 # the device of the mesh training ranks
 MESH_TRAIN_DEVICE = "cuda"
 
 
-def train_mesh_name(data: int, seq: int, tensor: int, zero3: bool) -> str:
-    name = "_".join(f"{a}{n}" for a, n in (("data", data), ("seq", seq),
-                                           ("tensor", tensor)) if n > 1)
-    return name + ("_zero3" if zero3 else "")
+def train_mesh_name(run: MeshRun) -> str:
+    c = run.cfg
+    name = "_".join(f"{a}{n}" for a, n in (
+        ("data", c.data), ("seq", c.seq), ("tensor", c.tensor),
+        ("pipe", c.pipe)) if n > 1)
+    return (name + ("_zero3" if c.zero_params else "")
+            + ("_ring" if run.sp == "ring" and c.seq > 1 else "")
+            + (f"_nm{run.nm or c.pipe}" if c.pipe > 1 else ""))
 
 
-def mesh_train_launches(seq: int, layers: int) -> dict:
+def mesh_train_launches(run: MeshRun, layers: int) -> dict:
     """One step's launches on a rank: the forward and the recompute of
-    each layer, one backward; K6/K7 under seq (no bias), else K3/K9 with
-    one build of the bias's map."""
-    if seq > 1:
-        return expect(K6=2 * layers, K7=layers)
+    each layer, one backward. The ring runs K6/K7 once per chunk, S of
+    them; a pipe stage its layers once per microbatch; Ulysses K6/K7 once
+    a layer; without a seq or pipe axis K3/K9 with one build of the
+    bias's map."""
+    c = run.cfg
+    if c.pipe > 1:
+        n = (run.nm or c.pipe) * layers // c.pipe
+        return expect(K6=2 * n, K7=n)
+    if c.seq > 1:
+        s = c.seq if run.sp == "ring" else 1
+        return expect(K6=2 * s * layers, K7=s * layers)
     return expect(K3=2 * layers, K9=layers, bias_map_builds=1)
 
 
-def probe_rank() -> dict:
-    """gloo's collectives on CUDA operands (two ranks sharing the card),
-    each against its expected result: reduce_scatter (ZeRO's gradient
-    shard), all_gather, all_to_all_single, all_reduce; each on a small
-    vector and on a large matrix that a matmul queued on the current
-    stream has just written (the collective must wait for it)."""
+def probe_rank(hops_only: bool = False) -> dict:
+    """gloo's collectives on CUDA operands (ranks sharing the card), each
+    against its expected result: reduce_scatter (ZeRO's gradient shard),
+    all_gather, all_to_all_single, all_reduce, and the hop of the ring and
+    of GPipe (``distributed.hop``: all_to_all_single with the payload to
+    one peer, in a ring shift, and with nothing sent on the last rank and
+    nothing received on the first), or with ``hops_only`` the hop alone
+    (the others split their operand into as many chunks as ranks); each on
+    a small vector and on a large matrix that a matmul queued on the
+    current stream has just written (the collective must wait for it)."""
     import torch.distributed as dist
     r, n = dist.get_rank(), dist.get_world_size()
     dev = torch.device("cuda")
@@ -1422,7 +1489,17 @@ def probe_rank() -> dict:
             "all_to_all_single": (lambda x: _probe_all_to_all(x),
                                   torch.cat([w.chunk(n)[r]
                                              for w in want_all])),
-            "all_reduce": (lambda x: _probe_all_reduce(x), total)}
+            "all_reduce": (lambda x: _probe_all_reduce(x), total),
+            "hop_shift": (lambda x: hop(x, None, (r + 1) % n, (r - 1) % n),
+                          want_all[(r - 1) % n]),
+            # the last rank sends nothing, the first receives nothing (its
+            # result is checked as its own input, untouched)
+            "hop_ends": (lambda x: hop(x, None, r + 1 if r < n - 1 else None,
+                                       r - 1 if r > 0 else None)
+                         if r > 0 else (hop(x, None, r + 1, None), x)[1],
+                         want_all[r - 1] if r > 0 else want_all[0])}
+        if hops_only:
+            ops = {k: v for k, v in ops.items() if k.startswith("hop")}
         for name, (fn, want) in ops.items():
             x = operands(size)[r]  # just queued, not synchronised
             try:
@@ -1464,10 +1541,13 @@ def _probe_all_reduce(x):
 
 
 def collective_probe(strict: bool = True) -> dict:
-    with tempfile.TemporaryDirectory() as workdir:
-        res = spawn_ranks(probe_rank, (), 2, workdir, timeout=300)
-    log(f"gloo collectives on CUDA operands, 2 ranks sharing the card: "
-        f"{res}")
+    res = []
+    for n in (2, 3):  # every collective on 2 ranks; the hop on 3 too
+        with tempfile.TemporaryDirectory() as workdir:
+            res += spawn_ranks(probe_rank, (n == 3,), n, workdir,
+                               timeout=300)
+    log(f"gloo collectives and the hop on CUDA operands, 2 and 3 ranks "
+        f"sharing the card: {res}")
     if strict and any(v is not True for r in res for v in r.values()):
         fail(f"a collective failed on CUDA operands: {res}")
     return res[0]
@@ -1481,14 +1561,20 @@ def mesh_train_ref_config() -> ModelConfig:
                             pos_embed_max_size=64)
 
 
-def mesh_train_ref_trainer(device, mixed: str, mesh_cfg=None, **sd):
-    rows = MESH_TRAIN_ROWS // (mesh_cfg.data if mesh_cfg else 1)
+def mesh_train_ref_trainer(device, mixed: str, run: MeshRun,
+                           mesh: bool = True, **sd):
+    """The small-input reference's trainer of ``run``'s recipe, on its
+    mesh (``mesh``) or one rank."""
+    c = run.cfg
     cfg = stage_config(1, frame_num=MESH_TRAIN_FRAMES, lr=TRAIN_LR,
                        lr_scheduler="constant", adam_epsilon=1e-5,
-                       mixed_precision=mixed, batch_size_per_device=rows)
+                       mixed_precision=mixed,
+                       batch_size_per_device=run.rows // (c.data if mesh
+                                                          else 1),
+                       sp_attention=run.sp, pp_microbatches=run.nm)
     return Trainer(mesh_train_ref_config(), cfg, None,
                    vae_cfg=VAEConfig.tiny(), target_resolution=MESH_TRAIN_PX,
-                   device=device, seed=3, mesh_cfg=mesh_cfg, **sd)
+                   device=device, seed=3, mesh_cfg=c if mesh else None, **sd)
 
 
 def record_grads(optimizer) -> list:
@@ -1550,108 +1636,129 @@ def mesh_train_ref_steps(trainer, samples, post, draws) -> dict:
             state.model.named_parameters(), mesh)))
 
 
-def mesh_train_ref_rank(mesh_cfg, sd, samples, post, draws) -> dict:
+def mesh_train_ref_rank(run: MeshRun, sd, samples, post, draws) -> dict:
     """One gloo rank of the small-input mesh training reference (bf16 on
     the card, the kernels)."""
     return mesh_train_ref_steps(
-        mesh_train_ref_trainer(MESH_TRAIN_DEVICE, "bf16", mesh_cfg, **sd),
+        mesh_train_ref_trainer(MESH_TRAIN_DEVICE, "bf16", run, **sd),
         samples, post, draws)
 
 
-def whole_grads(res: list, mesh_cfg, step: int) -> torch.Tensor:
-    """A mesh's gradient of ``step`` put together from its ranks' parts,
-    flattened in the parameters' order."""
+def whole_grads(res: list, mesh_cfg, step: int, names) -> torch.Tensor:
+    """A mesh's gradient of ``step`` put together from its ranks' parts
+    (a layer's from its pipe stage's ranks), flattened in the order of
+    ``names``."""
     from video_gpt_tpu_torch.parallel.mesh import rank_grid
     from video_gpt_tpu_torch.utils.weights import unshard
     grid = rank_grid(mesh_cfg)
     cfg = mesh_train_ref_config()
-    names = list(res[0]["dims"])
-    return torch.cat([unshard(
-        n, lambda d, t: res[int(grid[d, 0, t])]["grads"][step][n],
-        res[0]["dims"][n], mesh_cfg.data, mesh_cfg.tensor, cfg).flatten()
-        for n in names])
+    per = cfg.num_layers // mesh_cfg.pipe
+
+    def stage(n):
+        return (int(n.split(".")[2]) // per if n.startswith("llm.layers.")
+                else 0)
+
+    out = []
+    for n in names:
+        ranks = grid[..., stage(n)]
+        holder = res[int(ranks[0, 0, 0])]
+        out.append(unshard(
+            n, lambda d, t: res[int(ranks[d, 0, t])]["grads"][step][n],
+            holder["dims"][n], mesh_cfg.data, mesh_cfg.tensor,
+            cfg).flatten())
+    return torch.cat(out)
 
 
-def mesh_train_reference_phase() -> dict:
-    """The small-input mesh training reference: MESH_TRAIN_STEPS steps of
-    a tiny model on each mesh of MESH_TRAIN_REF (gloo ranks sharing the
-    card, bf16, the kernels) against the one-rank step on the CPU in fp32
-    (plain versions), all on one global batch and one set of random
-    numbers. Bars, per step: the whole gradient's relative error within
-    TRAIN_REF_FLOOR_FACTOR times the CPU's own bf16 error, the loss within
-    2^-8; the replicated parameters bit-equal across the ranks; each rank
-    exactly its step's launches."""
-    cpu = mesh_train_ref_trainer("cpu", "no")
-    cpu.build()
-    randomise_heads_(cpu.model, seed=4)
-    sd = dict(init_state_dict={k: v.clone() for k, v in
-                               cpu.model.state_dict().items()},
-              vae_state_dict={k: v.clone() for k, v in
-                              cpu.vae.state_dict().items()})
+def mesh_train_ref_inputs(rows: int, sd: dict):
+    """The global batch of ``rows`` rows, its posterior noise and loss
+    draws per step, and the one-rank CPU steps on them in fp32 (the
+    reference) and with bf16 autocast (the floor)."""
     rng = np.random.default_rng(12)
     f, (h, w) = MESH_TRAIN_FRAMES, MESH_TRAIN_PX
     samples = [ClipSample(preprocess_to_resolution(
         [rng.integers(0, 256, (h, w, 3), dtype=np.uint8) for _ in range(f)],
-        h, w), (1,) * f) for _ in range(MESH_TRAIN_ROWS)]
+        h, w), (1,) * f) for _ in range(rows)]
     tb = collate(samples, tokens_per_frame(h, w))
     gen = torch.Generator().manual_seed(13)
     hl, wl = h // 8, w // 8
     nn_, nc = tb.noisy_sel.shape[0], tb.clean_sel.shape[0]
     post, draws = [], []
     for _ in range(MESH_TRAIN_STEPS):
-        post.append(torch.randn((MESH_TRAIN_ROWS * f, hl, wl, 4),
-                                generator=gen))
+        post.append(torch.randn((rows * f, hl, wl, 4), generator=gen))
         draws.append(LossDraws(
             torch.randn((nn_, hl, wl, 4), generator=gen),
-            torch.rand((MESH_TRAIN_ROWS, f), generator=gen),
+            torch.rand((rows, f), generator=gen),
             torch.randn((nc, hl, wl, 4), generator=gen),
             torch.rand((nc,), generator=gen)))
+    one = MeshRun(MeshConfig(), rows=rows)
     want, floor = (mesh_train_ref_steps(mesh_train_ref_trainer(
-        "cpu", mixed, **sd), samples, post, draws) for mixed in ("no", "bf16"))
-    want_g = [torch.cat([g.flatten() for g in s.values()])
-              for s in want["grads"]]
-    floor_g = [torch.cat([g.flatten() for g in s.values()])
-               for s in floor["grads"]]
+        "cpu", mixed, one, mesh=False, **sd), samples, post, draws)
+        for mixed in ("no", "bf16"))
+    return samples, post, draws, want, floor
+
+
+def mesh_train_reference_phase() -> dict:
+    """The small-input mesh training reference: MESH_TRAIN_STEPS steps of
+    a tiny model on each mesh of MESH_TRAIN_REF (gloo ranks sharing the
+    card, bf16, the kernels) against the one-rank step on the CPU in fp32
+    (plain versions), all on one global batch (of the mesh's rows) and one
+    set of random numbers. Bars, per step: the whole gradient's relative
+    error within TRAIN_REF_FLOOR_FACTOR times the CPU's own bf16 error,
+    the loss within 2^-8; the replicated parameters bit-equal across the
+    ranks; each rank exactly its step's launches."""
+    cpu = mesh_train_ref_trainer("cpu", "no", MeshRun(MeshConfig()),
+                                 mesh=False)
+    cpu.build()
+    randomise_heads_(cpu.model, seed=4)
+    sd = dict(init_state_dict={k: v.clone() for k, v in
+                               cpu.model.state_dict().items()},
+              vae_state_dict={k: v.clone() for k, v in
+                              cpu.vae.state_dict().items()})
+    inputs = {rows: mesh_train_ref_inputs(rows, sd)
+              for rows in sorted({r.rows for r in MESH_TRAIN_REF})}
 
     def rel(a, b):
         return float((a - b).norm() / b.norm())
 
-    out, faults = {}, []
-    names = list(want["grads"][0])
-    sizes = [g.numel() for g in want["grads"][0].values()]
-
-    def run(mesh_cfg):
+    def run_mesh(run):
+        samples, post, draws, _, _ = inputs[run.rows]
         t0 = time.perf_counter()
         with tempfile.TemporaryDirectory() as workdir:
             res = spawn_ranks(mesh_train_ref_rank,
-                              (mesh_cfg, sd, samples, post, draws),
-                              mesh_cfg.num_devices, workdir, timeout=600,
+                              (run, sd, samples, post, draws),
+                              run.cfg.num_devices, workdir, timeout=600,
                               threads=1)
         return res, time.perf_counter() - t0
 
     # the two-rank meshes at once (their ranks' start-up overlaps), then
-    # the eight-rank one
-    meshes = [MeshConfig(*m) for m in MESH_TRAIN_REF]
+    # the larger ones
     runs = {}
-    for batch in ([m for m in meshes if m.num_devices == 2],
-                  [m for m in meshes if m.num_devices > 2]):
+    for batch in ([m for m in MESH_TRAIN_REF if m.cfg.num_devices == 2],
+                  [m for m in MESH_TRAIN_REF if m.cfg.num_devices > 2]):
         with concurrent.futures.ThreadPoolExecutor(len(batch)) as pool:
-            runs.update(zip(batch, pool.map(run, batch)))
-    for mesh_cfg in meshes:
-        d, s, t, z = (mesh_cfg.data, mesh_cfg.seq, mesh_cfg.tensor,
-                      mesh_cfg.zero_params)
-        name = train_mesh_name(d, s, t, z)
-        res, wall = runs[mesh_cfg]
-        want_l = mesh_train_launches(s, MESH_TRAIN_LAYERS)
-        rec = dict(ranks=mesh_cfg.num_devices, wall_s=wall, steps=[])
+            runs.update(zip(batch, pool.map(run_mesh, batch)))
+    out, faults = {}, []
+    for run in MESH_TRAIN_REF:
+        name = train_mesh_name(run)
+        res, wall = runs[run]
+        _, _, _, want, floor = inputs[run.rows]
+        names = list(want["grads"][0])
+        sizes = [g.numel() for g in want["grads"][0].values()]
+        want_l = mesh_train_launches(run, MESH_TRAIN_LAYERS)
+        rec = dict(ranks=run.cfg.num_devices, rows=run.rows, wall_s=wall,
+                   steps=[])
         for i in range(MESH_TRAIN_STEPS):
-            got_g = whole_grads(res, mesh_cfg, i)
+            want_g = torch.cat([g.flatten() for g in want["grads"][i]
+                                .values()])
+            floor_g = torch.cat([g.flatten() for g in floor["grads"][i]
+                                 .values()])
+            got_g = whole_grads(res, run.cfg, i, names)
             loss = res[0]["steps"][i]["loss"]
             step = dict(
                 loss=loss, loss_rel_err=abs(loss - want["steps"][i]["loss"])
                 / abs(want["steps"][i]["loss"]),
-                grad_rel_err=rel(got_g, want_g[i]),
-                floor_grad_rel_err=rel(floor_g[i], want_g[i]),
+                grad_rel_err=rel(got_g, want_g),
+                floor_grad_rel_err=rel(floor_g, want_g),
                 launches=[r["steps"][i]["launches"] for r in res])
             rec["steps"].append(step)
             log(f"small-input mesh training {name} step {i + 1}: loss "
@@ -1673,7 +1780,7 @@ def mesh_train_reference_phase() -> dict:
                     <= TRAIN_REF_FLOOR_FACTOR * step["floor_grad_rel_err"]):
                 # the parameters whose gradients are farthest off
                 per = sorted(((rel(a, b), n) for n, a, b in zip(
-                    names, got_g.split(sizes), want_g[i].split(sizes))),
+                    names, got_g.split(sizes), want_g.split(sizes))),
                     reverse=True)[:6]
                 faults.append(f"mesh training {name} step {i + 1} "
                               f"disagrees with the CPU's: {step}; worst "
@@ -1706,45 +1813,54 @@ def mesh_train_samples(stage: int, rows: int) -> list:
         for r in range(rows)]
 
 
-def mesh_train_full_rank(data: int, seq: int, tensor: int, zero3: bool,
-                         stage: int, layers: int) -> dict:
+def mesh_train_full_rank(run: MeshRun) -> dict:
     """One gloo rank of a full-width mesh training run (ModelConfig() at
-    ``layers`` layers, the stage's recipe, heads randomised): a warm-up
-    step and a timed one through the Trainer's own step, with its
+    ``run.layers`` layers, the stage's recipe, heads randomised): a
+    warm-up step and a timed one through the Trainer's own step, with its
     launches, the bytes its collectives took in (forward; backward with
-    the optimizer's), its peak memory, its layer-0 attention gradient,
-    the watched parameters' moves and the replicated parameters'
+    the optimizer's; the hops' apart), its peak memory, the gradient into
+    its first layer's attention (on a pipe rank its stage's first) and
+    into the patch embedder (under pipe, after the input gradient's pipe
+    sum), the watched parameters' moves and the replicated parameters'
     divergence across the ranks."""
     import torch.distributed as dist
-    from video_gpt_tpu_torch.parallel.mesh import SEQ_AXIS, batch_rows
+    from video_gpt_tpu_torch.parallel.mesh import (SEQ_AXIS, batch_rows,
+                                                   stage_layers)
     from video_gpt_tpu_torch.utils.parity import replicated_divergence
-    mesh_cfg = MeshConfig(data, seq, tensor, zero3)
-    cfg = stage_config(stage, lr=TRAIN_LR, lr_scheduler="constant",
-                       adam_epsilon=1e-5)
+    c = run.cfg
+    cfg = stage_config(run.stage, lr=TRAIN_LR, lr_scheduler="constant",
+                       adam_epsilon=1e-5, sp_attention=run.sp,
+                       pp_microbatches=run.nm,
+                       batch_size_per_device=run.rows // c.data)
     t0 = time.perf_counter()
-    trainer = Trainer(ModelConfig(num_layers=layers), cfg, None,
+    trainer = Trainer(ModelConfig(num_layers=run.layers), cfg, None,
                       vae_cfg=VAEConfig(), target_resolution=(H_PX, W_PX),
-                      device=MESH_TRAIN_DEVICE, seed=0, mesh_cfg=mesh_cfg)
+                      device=MESH_TRAIN_DEVICE, seed=0, mesh_cfg=c)
     state = trainer.build()
     randomise_heads_(trainer.model, seed=1)
     mesh, model = trainer.mesh, trainer.model
     build_s = time.perf_counter() - t0
-    samples = mesh_train_samples(stage, data)
-    rows = batch_rows(mesh, data)
+    samples = mesh_train_samples(run.stage, run.rows)
+    rows = batch_rows(mesh, run.rows)
     tb = collate(samples[rows], tokens_per_frame(H_PX, W_PX),
                  sp_multiple=mesh.size(SEQ_AXIS)).to(MESH_TRAIN_DEVICE)
+    mine = stage_layers(mesh, run.layers)
+    first, last = mine[0], mine[-1]
     names = [n for n, _ in model.named_parameters()]
-    qkv0 = names.index("llm.layers.0.self_attn.qkv_proj.weight")
-    qkv_norms = []
+    norms_of = {"qkv_first": names.index(
+        f"llm.layers.{first}.self_attn.qkv_proj.weight"),
+        "x_embedder": names.index("x_embedder.proj.weight")}
+    grad_norms = {k: [] for k in norms_of}
     update = state.optimizer._update
 
     def watching(grads, norm):
-        qkv_norms.append(float(torch.linalg.vector_norm(grads[qkv0])))
+        for k, i in norms_of.items():
+            grad_norms[k].append(float(torch.linalg.vector_norm(grads[i])))
         return update(grads, norm)
     state.optimizer._update = watching
     watched = ("x_embedder.proj.weight",
-               "llm.layers.0.self_attn.qkv_proj.weight",
-               f"llm.layers.{layers - 1}.mlp.down_proj.weight",
+               f"llm.layers.{first}.self_attn.qkv_proj.weight",
+               f"llm.layers.{last}.mlp.down_proj.weight",
                "llm.norm.weight", "final_layer.linear.weight")
     params = dict(model.named_parameters())
     steps = []
@@ -1765,14 +1881,16 @@ def mesh_train_full_rank(data: int, seq: int, tensor: int, zero3: bool,
                           launches=counts()))
     moved = {n: float((params[n].detach().cpu() - before[n]).abs().max())
              for n in watched}
+    st = mesh.stats
     return dict(
         coords=mesh.coords, build_s=build_s, steps=steps,
         tokens=tb.inputs.batch.input_ids.numel(),
-        forward_bytes=mesh.stats.moved, forward_calls=mesh.stats.calls,
-        backward_bytes=mesh.stats.backward_moved,
-        backward_calls=mesh.stats.backward_calls,
+        forward_bytes=st.moved, forward_calls=st.calls,
+        backward_bytes=st.backward_moved, backward_calls=st.backward_calls,
+        hop_forward_bytes=st.hop_moved,
+        hop_backward_bytes=st.hop_backward_moved,
         peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
-        qkv0_grad_norms=qkv_norms, moved=moved,
+        grad_norms=grad_norms, moved=moved, layers_held=[first, last],
         params_held=sum(p.numel() for p in model.parameters()),
         divergence=replicated_divergence(model.named_parameters(), mesh))
 
@@ -1780,82 +1898,212 @@ def mesh_train_full_rank(data: int, seq: int, tensor: int, zero3: bool,
 def mesh_train_full_phase(smi: str) -> dict:
     """Every run of MESH_TRAIN_FULL on gloo ranks sharing the card; each
     rank exactly its step's launches, finite loss and gradient norm, a
-    nonzero gradient into layer 0's attention, the watched parameters
-    moved (by at most ~lr an element), the replicated parameters
-    bit-equal across the ranks. Step time is the slowest rank's."""
+    nonzero gradient into its first layer's attention and into the patch
+    embedder, the watched parameters moved (by at most ~lr an element),
+    the replicated parameters bit-equal across the ranks. Step time is the
+    slowest rank's."""
     out = {}
-    for data, seq, tensor, zero3, stage, layers in MESH_TRAIN_FULL:
-        name = train_mesh_name(data, seq, tensor, zero3)
-        n = data * seq * tensor
-        t0 = time.perf_counter()
-        with tempfile.TemporaryDirectory() as workdir:
-            res = spawn_ranks(mesh_train_full_rank,
-                              (data, seq, tensor, zero3, stage, layers), n,
-                              workdir, timeout=900)
-        wall = time.perf_counter() - t0
-        want = mesh_train_launches(seq, layers)
-        for r, x in enumerate(res):
-            timed = x["steps"][-1]
-            log(f"mesh training {name} rank {r} {x['coords']}: build "
-                f"{x['build_s']:.1f} s, steps "
-                f"{[round(s['step_s'], 3) for s in x['steps']]} s, loss "
-                f"{timed['loss']:.6f}, grad norm {timed['grad_norm']:.4e}, "
-                f"launches {timed['launches']} (expected {want}), collective "
-                f"bytes forward {x['forward_bytes']} backward "
-                f"{x['backward_bytes']}, peak {x['peak_mem_gib']:.2f} GiB, "
-                f"layer-0 qkv gradient norms {x['qkv0_grad_norms']}, moved "
-                f"{x['moved']}, divergence {x['divergence']}")
-            if any(s["launches"] != want for s in x["steps"]):
-                fail(f"mesh training {name} rank {r}: launches "
-                     f"{[s['launches'] for s in x['steps']]} != {want}")
-            if not all(np.isfinite([s["loss"], s["grad_norm"]]).all()
-                       for s in x["steps"]):
-                fail(f"mesh training {name} rank {r}: loss or gradient "
-                     f"norm not finite")
-            if not all(np.isfinite(g) and g > 0
-                       for g in x["qkv0_grad_norms"]):
-                fail(f"mesh training {name} rank {r}: no gradient reached "
-                     f"layer 0's attention")
-            for p, d in x["moved"].items():
-                # Adam's normalised update and the weight decay
-                if not 0 < d <= 4 * TRAIN_LR:
-                    fail(f"mesh training {name} rank {r}: AdamW moved {p} "
-                         f"by {d}")
-            if x["divergence"] != 0.0:
-                fail(f"mesh training {name}: replicated parameters "
-                     f"diverge across the ranks by {x['divergence']}")
-        step_s = max(x["steps"][-1]["step_s"] for x in res)
-        tokens = res[0]["tokens"] * data  # each data rank's rows
-        rec = dict(
-            ranks=n, data=data, seq=seq, tensor=tensor, zero3=zero3,
-            stage=stage, layers=layers, step_s=step_s,
-            tokens_per_step=tokens, tokens_per_s=tokens / step_s,
-            loss=res[0]["steps"][-1]["loss"],
-            grad_norm=res[0]["steps"][-1]["grad_norm"],
-            forward_bytes_per_rank=[x["forward_bytes"] for x in res],
-            backward_bytes_per_rank=[x["backward_bytes"] for x in res],
-            peak_mem_gib_per_rank=[x["peak_mem_gib"] for x in res],
-            params_held_per_rank=[x["params_held"] for x in res],
-            launches_per_rank_step=res[0]["steps"][-1]["launches"],
-            divergence=max(x["divergence"] for x in res), wall_s=wall,
-            device=smi, note="gloo ranks sharing one card: not multi-GPU "
-                             "speed")
-        log(f"mesh training {name}: stage {stage}, {layers} layers, "
-            f"{step_s:.3f} s/step (slowest rank), {rec['tokens_per_s']:.1f} "
-            f"tokens/s, peak {max(rec['peak_mem_gib_per_rank']):.2f} GiB a "
-            f"rank, on {smi} (gloo ranks sharing one card: not multi-GPU "
-            f"speed); {wall:.1f} s with the ranks' start-up and build")
-        log(json.dumps({f"mesh_training_{name}": rec}))
-        out[name] = rec
+    # the ranks' allocators grow segments in place: four ranks at 16-17
+    # GiB each, every one encoding its clip's frames at once, leave no
+    # room for the blocks a fixed-segment allocator strands
+    alloc = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    try:
+        for run in MESH_TRAIN_FULL:
+            out[train_mesh_name(run)] = mesh_train_full_run(run, smi)
+    finally:
+        if alloc is None:
+            del os.environ["PYTORCH_CUDA_ALLOC_CONF"]
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = alloc
     return out
+
+
+def mesh_train_full_run(run: MeshRun, smi: str) -> dict:
+    """One run of MESH_TRAIN_FULL (:func:`mesh_train_full_phase`)."""
+    name = train_mesh_name(run)
+    c = run.cfg
+    n = c.num_devices
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as workdir:
+        res = spawn_ranks(mesh_train_full_rank, (run,), n, workdir,
+                          timeout=900)
+    wall = time.perf_counter() - t0
+    want = mesh_train_launches(run, run.layers)
+    for r, x in enumerate(res):
+        timed = x["steps"][-1]
+        log(f"mesh training {name} rank {r} {x['coords']}: build "
+            f"{x['build_s']:.1f} s, steps "
+            f"{[round(s['step_s'], 3) for s in x['steps']]} s, loss "
+            f"{timed['loss']:.6f}, grad norm {timed['grad_norm']:.4e}, "
+            f"launches {timed['launches']} (expected {want}), collective "
+            f"bytes forward {x['forward_bytes']} backward "
+            f"{x['backward_bytes']} (hops {x['hop_forward_bytes']} / "
+            f"{x['hop_backward_bytes']}), peak {x['peak_mem_gib']:.2f} "
+            f"GiB, layers {x['layers_held']}, gradient norms "
+            f"{x['grad_norms']}, moved {x['moved']}, divergence "
+            f"{x['divergence']}")
+        if any(s["launches"] != want for s in x["steps"]):
+            fail(f"mesh training {name} rank {r}: launches "
+                 f"{[s['launches'] for s in x['steps']]} != {want}")
+        if not all(np.isfinite([s["loss"], s["grad_norm"]]).all()
+                   for s in x["steps"]):
+            fail(f"mesh training {name} rank {r}: loss or gradient "
+                 f"norm not finite")
+        for k, norms in x["grad_norms"].items():
+            if not all(np.isfinite(g) and g > 0 for g in norms):
+                fail(f"mesh training {name} rank {r}: no gradient "
+                     f"reached {k} ({norms})")
+        for p, d in x["moved"].items():
+            # Adam's normalised update and the weight decay
+            if not 0 < d <= 4 * TRAIN_LR:
+                fail(f"mesh training {name} rank {r}: AdamW moved {p} "
+                     f"by {d}")
+        if x["divergence"] != 0.0:
+            fail(f"mesh training {name}: replicated parameters "
+                 f"diverge across the ranks by {x['divergence']}")
+    step_s = max(x["steps"][-1]["step_s"] for x in res)
+    # each data rank's rows (its first pipe rank's)
+    tokens = res[0]["tokens"] * c.data
+    rec = dict(
+        ranks=n, data=c.data, seq=c.seq, tensor=c.tensor, pipe=c.pipe,
+        zero3=c.zero_params, sp_attention=run.sp,
+        microbatches=(run.nm or c.pipe) if c.pipe > 1 else 0,
+        rows=run.rows, stage=run.stage, layers=run.layers,
+        step_s=step_s, tokens_per_step=tokens,
+        tokens_per_s=tokens / step_s,
+        loss=res[0]["steps"][-1]["loss"],
+        grad_norm=res[0]["steps"][-1]["grad_norm"],
+        forward_bytes_per_rank=[x["forward_bytes"] for x in res],
+        backward_bytes_per_rank=[x["backward_bytes"] for x in res],
+        hop_forward_bytes_per_rank=[x["hop_forward_bytes"] for x in res],
+        hop_backward_bytes_per_rank=[x["hop_backward_bytes"]
+                                     for x in res],
+        peak_mem_gib_per_rank=[x["peak_mem_gib"] for x in res],
+        params_held_per_rank=[x["params_held"] for x in res],
+        launches_per_rank_step=res[0]["steps"][-1]["launches"],
+        divergence=max(x["divergence"] for x in res), wall_s=wall,
+        device=smi, note="gloo ranks sharing one card: not multi-GPU "
+                         "speed")
+    log(f"mesh training {name}: stage {run.stage}, {run.layers} layers, "
+        f"{step_s:.3f} s/step (slowest rank), {rec['tokens_per_s']:.1f} "
+        f"tokens/s, peak {max(rec['peak_mem_gib_per_rank']):.2f} GiB a "
+        f"rank, on {smi} (gloo ranks sharing one card: not multi-GPU "
+        f"speed); {wall:.1f} s with the ranks' start-up and build")
+    log(json.dumps({f"mesh_training_{name}": rec}))
+    return rec
+
+
+def ring_pipe_kernels(dev):
+    """K6 and K7 at the new launch shapes of part B: a ring hop of the
+    (seq 2, tensor 2) stage-4 run (a rank's 16 heads: the ring splits the
+    sequence over seq and the heads over tensor alone; a 17,760-query
+    chunk over a 17,760-key chunk of the stage-4 layout), in both
+    directions: q chunk 1 over k chunk 0, and q chunk 0 over k chunk 1
+    (most of its rows see no key there); K7 there is handed the global
+    (out, lse) of the two-chunk merge (``parallel.ring.merge`` of K6 over
+    both chunks), and so is the plain K7. Then a GPipe microbatch's (32
+    heads, stage 1, L 7104, B 1). Yields (kernel, key of its record,
+    result)."""
+    from video_gpt_tpu_torch.parallel.ring import LSE_START, merge
+    heads = ModelConfig().num_heads
+    bf16 = _bf16_maker(dev, 41)
+    meta, q, k, v, _ = stage_operands(dev, bf16, 4, heads=heads // 2)
+    L = meta.index.shape[1]
+    c = L // 2
+    chunks = [slice(0, c), slice(c, L)]
+    cm = [meta.cols(s) for s in chunks]
+    qc = [q[:, s].contiguous() for s in chunks]
+    kc = [k[:, s].contiguous() for s in chunks]
+    vc = [v[:, s] for s in chunks]
+    src = "video_gpt_tpu_torch/csrc/"
+    for i, j in ((1, 0), (0, 1)):
+        qm, km = cm[i], cm[j]
+        q_, k_, v_ = qc[i], kc[j], vc[j]
+        h, d = q_.shape[2], q_.shape[3]
+        pairs = visible_pairs(qm, km)
+        label = (f" (a ring hop: {h} heads, q chunk {i} over k chunk {j} "
+                 f"of the stage-4 layout, {pairs} visible pairs)")
+        log(f"ring hop q{i} k{j}: {c} x {c}, {pairs} visible pairs "
+            f"({pairs / c ** 2:.3f})")
+        # the global (out, lse) of q chunk i: the merge over both chunks
+        o = torch.zeros(q_.shape, dtype=torch.float32, device=dev)
+        lse = torch.full((1, h, c), LSE_START, dtype=torch.float32,
+                         device=dev)
+        for jj in (i, 1 - i):
+            o, lse = merge(o, lse, *fa._inline_forward(
+                q_, kc[jj], vc[jj], qm, cm[jj], with_lse=True))
+        out = o.to(q_.dtype)
+        do = bf16(1, c, h, d)
+        mask = fa._padded_visibility(qm, km, c, c)[:, None]
+        qh, kh, vh = (x.transpose(1, 2).contiguous().requires_grad_()
+                      for x in (q_, k_, v_))
+
+        def k6_plain(absv=False, q_=q_, k_=k_, v_=v_, qm=qm, km=km):
+            vf = v_.float()
+            return fa.inline_attention_reference(
+                *f32(q_, k_), vf.abs() if absv else vf, qm, km)[0]
+
+        def lib(qh=qh, kh=kh, vh=vh, mask=mask):
+            with torch.no_grad():
+                return F.scaled_dot_product_attention(qh, kh, vh,
+                                                      attn_mask=mask)
+
+        def k7(q_=q_, k_=k_, v_=v_, qm=qm, km=km, out=out, do=do, lse=lse):
+            return fa.flash_mha_inline_bwd(q_, k_, v_, qm, km, out, do, lse)
+
+        def k7_plain(absv=False, q_=q_, k_=k_, v_=v_, qm=qm, km=km,
+                     out=out, do=do, lse=lse):
+            return fa.inline_attention_backward_reference(
+                *f32(q_, k_, v_), qm, km, *f32(out, do), magnitude=absv,
+                lse=lse)
+
+        lib_out = F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask)
+        do_h = do.transpose(1, 2).contiguous()
+
+        def k7_lib(lib_out=lib_out, qh=qh, kh=kh, vh=vh, do_h=do_h):
+            return torch.autograd.grad(lib_out, (qh, kh, vh), do_h,
+                                       retain_graph=True)
+
+        mb = (meta_bytes(qm) + meta_bytes(km))
+        key = f"ring_hop_q{i}_k{j}"
+        yield "K6", key, check_and_time("K6", dict(
+            fn=lambda q_=q_, k_=k_, v_=v_, qm=qm, km=km: fa._inline_forward(
+                q_, k_, v_, qm, km, with_lse=True)[0],
+            plain=k6_plain, lib=lib, route="cuda",
+            source=src + "inline_attention.cu",
+            replaces=f"{TPU_KERNELS}:1071",
+            bytes=nbytes(q_, k_, v_, q_) + 4 * h * c + mb,
+            flops=4 * h * d * pairs), label)
+        rec = check_and_time("K7", dict(
+            fn=k7, plain=k7_plain, lib=k7_lib, route="cuda",
+            source=src + "inline_attention_bwd.cu",
+            replaces=f"{TPU_KERNELS}:1215,1249",
+            bytes=nbytes(q_, k_, v_, out, do, lse, q_, k_, v_) + mb,
+            flops=5 * 2 * h * d * pairs), label)
+        rec["lse"] = "global: the two-chunk merge's, given to the plain K7 too"
+        yield "K7", key, rec
+        del qh, kh, vh, lib_out, mask, o, lse, out, do
+        torch.cuda.empty_cache()
+    del meta, q, k, v, qc, kc, vc
+    torch.cuda.empty_cache()
+    meta, q, k, v, pairs = stage_operands(dev, bf16, 1)
+    res = inline_train_records(
+        bf16, meta, q, k, v, pairs,
+        " (a GPipe microbatch: 32 heads, stage 1, L 7104, B 1)")
+    for name, rec in res.items():
+        yield name, "pipe_microbatch_shape", rec
+    del q, k, v, res
+    torch.cuda.empty_cache()
 
 
 def mesh_train_kernels(dev):
     """The training kernels at a mesh rank's shapes: K3/K9 at 16 heads
     over the stage-1 layout (a tensor-2 rank), K6/K7 at 16 heads over the
     stage-1 layout (a seq-2 rank's Ulysses heads) and at 8 heads over the
-    stage-4 layout (a (seq 2, tensor 2) rank). Yields (kernel, key of its
-    record, result)."""
+    stage-4 layout (a (seq 2, tensor 2) rank); then part B's (a ring hop,
+    a GPipe microbatch: :func:`ring_pipe_kernels`). Yields (kernel, key of
+    its record, result)."""
     heads = ModelConfig().num_heads
     meta = AttnMeta(*(x.to(dev) for x in train_batch(1).inputs.batch.meta))
     label = f" (a tensor-2 training rank: {heads // 2} heads, L 7104)"
@@ -1875,6 +2123,7 @@ def mesh_train_kernels(dev):
             yield name, key, rec
         del q, k, v, res
         torch.cuda.empty_cache()
+    yield from ring_pipe_kernels(dev)
 
 
 @contextlib.contextmanager
@@ -2455,7 +2704,13 @@ def run(dev: torch.device, smi: str) -> None:
             ("K6", "mesh_seq_train_shape", "data2_seq2"),
             ("K7", "mesh_seq_train_shape", "data2_seq2"),
             ("K6", "mesh_seq_tensor_stage4_shape", "seq2_tensor2"),
-            ("K7", "mesh_seq_tensor_stage4_shape", "seq2_tensor2")):
+            ("K7", "mesh_seq_tensor_stage4_shape", "seq2_tensor2"),
+            ("K6", "ring_hop_q1_k0", "seq2_tensor2_ring"),
+            ("K7", "ring_hop_q1_k0", "seq2_tensor2_ring"),
+            ("K6", "ring_hop_q0_k1", "seq2_tensor2_ring"),
+            ("K7", "ring_hop_q0_k1", "seq2_tensor2_ring"),
+            ("K6", "pipe_microbatch_shape", "pipe4_nm4"),
+            ("K7", "pipe_microbatch_shape", "pipe4_nm4")):
         records[name][key]["launches"] = \
             mesh_training[run_name]["launches_per_rank_step"][name]
         records[name][key]["launches_path"] = \
@@ -2492,12 +2747,15 @@ def mesh_train_only(dev, smi: str) -> None:
     alone (a development reading; no device line)."""
     t0 = time.perf_counter()
     recs = list(mesh_train_kernels(dev))
-    torch.cuda.empty_cache()
+    freed("the mesh training kernels")
     runs = mesh_training_phases(smi)
     for name, key, rec in recs:
         run_name = {"mesh_tensor_train_shape": "data2_tensor2_zero3",
                     "mesh_seq_train_shape": "data2_seq2",
-                    "mesh_seq_tensor_stage4_shape": "seq2_tensor2"}[key]
+                    "mesh_seq_tensor_stage4_shape": "seq2_tensor2",
+                    "ring_hop_q1_k0": "seq2_tensor2_ring",
+                    "ring_hop_q0_k1": "seq2_tensor2_ring",
+                    "pipe_microbatch_shape": "pipe4_nm4"}[key]
         rec["launches"] = runs[run_name]["launches_per_rank_step"][name]
     log(json.dumps({"mesh_train_kernels": [
         dict(rec, shape=key) for _, key, rec in recs]}))

@@ -326,24 +326,58 @@ def test_train_parser_takes_every_jax_option():
     recipes = [[a for a in argv if a != ";;"] for argv in script_argv(
         "pretrain_multichip_examples.sh", "train",
         **{"$VIDEOS": "videos", "$STEPS": "100"})]
+    parsed = list(map(cli.build_parser().parse_args, recipes))
     meshes = [(a.mesh_data, a.mesh_seq, a.mesh_tensor, a.mesh_pipe, a.zero3)
-              for a in map(cli.build_parser().parse_args, recipes)]
-    # dp_sp, dp_tp_zero3, dp_sp_tp run; dp_pp (GPipe) refuses: part B
+              for a in parsed]
+    # dp_sp, dp_tp_zero3, dp_sp_tp, dp_pp: every recipe runs
     assert meshes == [(2, 4, 1, 1, False), (2, 1, 4, 1, True),
                       (2, 2, 2, 1, False), (2, 1, 1, 4, False)]
+    assert cli.NOT_PORTED == (("offload_grad_splits", 1,
+                               "CPU-offloaded optimizer"),)
+
+
+def test_dp_pp_recipe_reaches_the_trainer(monkeypatch):
+    """The ``dp_pp`` recipe of ``configs/pretrain_multichip_examples.sh``
+    (data 2 x pipe 4, 4 microbatches, 4 rows a rank) builds the trainer
+    of a (data 2, pipe 4) mesh with its recipe; the ring's line too."""
+    from video_gpt_tpu_torch.config import MeshConfig
+    from video_gpt_tpu_torch.training import trainer as trainer_mod
+    made = []
+
+    class Recorder:
+        def __init__(self, model_cfg, cfg, *a, mesh_cfg=None, **kw):
+            made.append((cfg, mesh_cfg))
+
+    monkeypatch.setattr(trainer_mod, "Trainer", Recorder)
+    recipes = [[a for a in argv if a != ";;"] for argv in script_argv(
+        "pretrain_multichip_examples.sh", "train",
+        **{"$VIDEOS": "videos", "$STEPS": "100"})]
+    args = cli.build_parser().parse_args(recipes[3] + ["--device", "cpu"])
+    cli.make_trainer(args, MeshConfig(data=2, pipe=4))
+    args = cli.build_parser().parse_args(
+        recipes[0] + ["--device", "cpu", "--sp_attention", "ring"])
+    cli.make_trainer(args, MeshConfig(data=2, seq=4))
+    (pp_cfg, pp_mesh), (ring_cfg, _) = made
+    assert (pp_cfg.pp_microbatches, pp_cfg.batch_size_per_device,
+            pp_mesh.pipe, pp_mesh.data, pp_mesh.num_devices) == (4, 4, 4, 2,
+                                                                 8)
+    assert ring_cfg.sp_attention == "ring"
 
 
 @pytest.mark.parametrize("flags,match", [
     (["--mesh_data", "2"], "trains over 2 processes"),
     (["--mesh_seq", "2", "--mesh_tensor", "2"], "trains over 4 processes"),
-    (["--mesh_pipe", "2"], "part B"),
-    (["--sp_attention", "ring"], "part B"),
-    (["--pp_microbatches", "2"], "part B"),
+    (["--mesh_pipe", "2"], "--mesh_pipe 2 trains over 2 processes"),
+    (["--mesh_seq", "2", "--sp_attention", "ring"],
+     "trains over 2 processes"),
+    (["--mesh_data", "2", "--mesh_pipe", "2", "--pp_microbatches", "2"],
+     "trains over 4 processes"),
     (["--offload_grad_splits", "2"], "CPU-offloaded optimizer")])
 def test_train_exits_on_what_it_cannot_run(tmp_path, flags, match):
     """A mesh larger than the launch (one process here) exits with the
-    launch it needs, as ``generate`` does; an option not ported yet exits
-    with its ROADMAP item; before anything is built."""
+    launch it needs (data x seq x tensor x pipe), as ``generate`` does; an
+    option not ported yet exits with its ROADMAP item; before anything is
+    built."""
     with pytest.raises(SystemExit, match=match):
         cli.main(["train", "--video_dir_path", str(tmp_path), "--device",
                   "cpu", "--tiny_model"] + flags)
@@ -454,3 +488,148 @@ def test_train_on_a_zero3_tensor_mesh_resumes_serves_and_warm_starts(
                         "none", "--max_steps", "1", "--init_checkpoint_dir",
                         str(ckpt_dir), "--mesh_tensor", "2"], tmp_path)
     assert "warm-start from" in out and "step 1:" in out, out
+
+
+def _jax_refusal(make) -> str:
+    with pytest.raises(ValueError) as e:
+        make()
+    return str(e.value)
+
+
+@pytest.mark.parametrize("case", ["pipe_seq", "pipe_tensor", "pipe_lora",
+                                  "layers", "microbatches"])
+def test_pipe_refusals_match_jax(tmp_path, case):
+    """Each pipe mesh the JAX Trainer refuses, the port's refuses with the
+    same message: pipe with seq or with tensor, pipe with LoRA, layers
+    the stages do not divide (at construction), rows per rank that the
+    microbatches do not divide (the JAX Trainer's build)."""
+    from test_torch_training import _write_videos
+    from video_gpt_tpu.config import MeshConfig as JMeshConfig
+    from video_gpt_tpu.config import ModelConfig as JModelConfig
+    from video_gpt_tpu.config import TrainConfig as JTrainConfig
+    from video_gpt_tpu.models.vae import VAEConfig as JVAEConfig
+    from video_gpt_tpu.training.trainer import Trainer as JTrainer
+    from video_gpt_tpu_torch.config import MeshConfig, TrainConfig
+    from video_gpt_tpu_torch.models.vae import VAEConfig
+    from video_gpt_tpu_torch.training.trainer import Trainer
+    videos = str(tmp_path / "videos")
+    _write_videos(videos, n=1)
+    mesh, train, layers = dict(pipe=2), dict(frame_num=4), 2
+    if case == "pipe_seq":
+        mesh["seq"] = 2
+    elif case == "pipe_tensor":
+        mesh["tensor"] = 2
+    elif case == "pipe_lora":
+        train["use_lora"] = True
+    elif case == "layers":
+        layers = 3
+    else:
+        train.update(batch_size_per_device=1, pp_microbatches=2)
+    res = (48, 64)
+
+    def jax_trainer():
+        return JTrainer(JModelConfig.tiny(num_layers=layers),
+                        JTrainConfig(**train), videos,
+                        vae_cfg=JVAEConfig.tiny(), target_resolution=res,
+                        mesh_cfg=JMeshConfig(**mesh))
+
+    if case == "microbatches":
+        jt = jax_trainer()
+        want = _jax_refusal(lambda: jt._build(jt._example_batch()))
+    else:
+        want = _jax_refusal(jax_trainer)
+    with pytest.raises(ValueError) as got:
+        Trainer(ModelConfig.tiny(num_layers=layers), TrainConfig(**train),
+                videos, vae_cfg=VAEConfig.tiny(), target_resolution=res,
+                device="cpu", mesh_cfg=MeshConfig(**mesh))
+    assert str(got.value) == want
+
+
+def test_train_image_refuses_a_pipe_as_jax_does(tmp_path):
+    """``ImageGenTrainer`` on a pipe mesh: the JAX image trainer's
+    message (the JAX ``train-image`` command has no pipe option)."""
+    from video_gpt_tpu.config import MeshConfig as JMeshConfig
+    from video_gpt_tpu.config import ModelConfig as JModelConfig
+    from video_gpt_tpu.config import TrainConfig as JTrainConfig
+    from video_gpt_tpu.training.image_trainer import \
+        ImageGenTrainer as JImageTrainer
+    from video_gpt_tpu_torch.config import MeshConfig, TrainConfig
+    from video_gpt_tpu_torch.image_gen import StubTokenizer
+    from video_gpt_tpu_torch.training.image_trainer import ImageGenTrainer
+    want = _jax_refusal(lambda: JImageTrainer(
+        JModelConfig.tiny(), JTrainConfig(), str(tmp_path / "none.json"),
+        None, None, mesh_cfg=JMeshConfig(data=2, pipe=2)))
+    with pytest.raises(ValueError) as got:
+        ImageGenTrainer(ModelConfig.tiny(), TrainConfig(), None, None,
+                        StubTokenizer(), device="cpu",
+                        mesh_cfg=MeshConfig(data=2, pipe=2))
+    assert str(got.value) == want
+
+
+def _run_mesh_train(tmp_path, n, mesh_flags, extra=()):
+    """Two steps of ``cli train`` on a tiny model under torch.distributed.run
+    with ``n`` CPU processes, then a third resumed on the same mesh: the
+    checkpoint directory (step 2) and the run's output."""
+    from test_torch_training import _write_videos
+    videos = str(tmp_path / "videos")
+    _write_videos(videos)
+    run = tmp_path / "run"
+    argv = ["train", "--device", "cpu", "--tiny_model", "--video_dir_path",
+            videos, "--results_dir", str(run), "--frame_num", "4",
+            "--target_resolution", "48", "64", "--mixed_precision", "no",
+            "--lr_scheduler", "constant", "--log_every", "1",
+            "--ckpt_every", "2", "--report_to", "none", *mesh_flags, *extra]
+    out = _torchrun(n, argv + ["--max_steps", "2"], tmp_path)
+    assert out.count("step 2:") == 1, out  # rank 0 alone logs
+    ckpt_dir = run / "checkpoints"
+    assert sorted(os.listdir(ckpt_dir / "2")) == ["mesh.json"] + [
+        f"rank{r}.pt" for r in range(n)]
+    out = _torchrun(n, argv + ["--max_steps", "3"], tmp_path)
+    assert "resumed from step 2" in out and "step 3:" in out, out
+    return ckpt_dir
+
+
+def _check_parts(ckpt_dir, mesh_cfg, n):
+    """The checkpoint put together into the one-rank layout (every
+    parameter of the model, once) holds each rank's stored parameters."""
+    from video_gpt_tpu_torch.parallel.mesh import Mesh
+    from video_gpt_tpu_torch.training.trainer import shard_state_dict
+    sd, step = checkpoint.load_train_params(str(ckpt_dir))
+    assert step == 2
+    cfg = ModelConfig.tiny(pos_embed_max_size=192)
+    VideoGPT(cfg, device="meta", train_init=True).load_state_dict(
+        sd, strict=True, assign=True)
+    for rank in range(n):
+        mesh = Mesh(mesh_cfg, rank, {})
+        model = VideoGPT(cfg, device="meta", train_init=True, mesh=mesh)
+        stored = torch.load(ckpt_dir / "2" / f"rank{rank}.pt",
+                            weights_only=True)["model"]
+        mine = shard_state_dict(sd, model, mesh)
+        assert set(mine) == set(stored), rank
+        for name, part in mine.items():
+            assert torch.equal(part, stored[name]), (rank, name)
+
+
+def test_train_on_a_data_pipe_mesh_resumes_and_loads(tmp_path):
+    """``cli train --mesh_data 2 --mesh_pipe 2 --pp_microbatches 2`` (2
+    rows a rank) under torch.distributed.run with 4 CPU processes: two
+    steps, each rank's stage checkpointed, resumed on the same mesh; the
+    checkpoint put together by ``load_train_params`` into the one-rank
+    layout, equal to every rank's parameters."""
+    from video_gpt_tpu_torch.config import MeshConfig
+    ckpt_dir = _run_mesh_train(
+        tmp_path, 4, ["--mesh_data", "2", "--mesh_pipe", "2",
+                      "--pp_microbatches", "2"],
+        ["--batch_size_per_device", "2"])
+    _check_parts(ckpt_dir, MeshConfig(data=2, pipe=2), 4)
+
+
+def test_train_with_the_ring_resumes_and_loads(tmp_path):
+    """``cli train --mesh_seq 2 --sp_attention ring`` under
+    torch.distributed.run with 2 CPU processes: two steps, resumed on the
+    same mesh, the checkpoint loaded into one rank equal to the ranks'
+    parameters."""
+    from video_gpt_tpu_torch.config import MeshConfig
+    ckpt_dir = _run_mesh_train(tmp_path, 2, ["--mesh_seq", "2",
+                                             "--sp_attention", "ring"])
+    _check_parts(ckpt_dir, MeshConfig(seq=2), 2)

@@ -179,24 +179,28 @@ def test_mesh_groups_follow_the_grid(attention):
     grid = rank_grid(MeshConfig(seq=seq, tensor=tensor))
     for r, out in enumerate(res):
         c = out["coords"]
-        assert grid[c["data"], c["seq"], c["tensor"]] == r
+        assert grid[c["data"], c["seq"], c["tensor"], c["pipe"]] == r
         want = {}
         if seq > 1:
-            want["seq"] = [int(x) for x in grid[0, :, c["tensor"]]]
+            want["seq"] = [int(x) for x in grid[0, :, c["tensor"], 0]]
         if tensor > 1:
-            want["tensor"] = [int(x) for x in grid[0, c["seq"], :]]
+            want["tensor"] = [int(x) for x in grid[0, c["seq"], :, 0]]
         assert out["groups"] == want
 
 
 @pytest.mark.parametrize("shape", [(1, 2, 1, 1), (1, 2, 2, 1),
-                                   (2, 1, 2, 1)])
+                                   (2, 1, 2, 1), (1, 1, 1, 2),
+                                   (2, 1, 1, 2), (2, 1, 1, 4)])
 def test_rank_grid_matches_jax_make_mesh(shape):
-    """(data, seq, tensor, pipe): the port's grid has no pipe axis, so the
-    JAX grid's pipe axis of 1 is dropped."""
-    jm = jmake_mesh(JMeshConfig(*shape))
+    """(data, seq, tensor, pipe): rank r sits where the JAX grid places
+    device r, pipe the fastest axis."""
+    data, seq, tensor, pipe = shape
+    jm = jmake_mesh(JMeshConfig(data=data, seq=seq, tensor=tensor,
+                                pipe=pipe))
     ids = np.vectorize(lambda d: d.id)(jm.devices)
-    np.testing.assert_array_equal(rank_grid(MeshConfig(*shape[:3])),
-                                  ids[..., 0])
+    np.testing.assert_array_equal(
+        rank_grid(MeshConfig(data=data, seq=seq, tensor=tensor, pipe=pipe)),
+        ids)
 
 
 def test_cache_heads_are_tensor_major():

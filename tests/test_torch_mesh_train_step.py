@@ -39,6 +39,7 @@ from video_gpt_tpu.data.video import ClipSample as JClipSample
 from video_gpt_tpu.models.video_gpt import VideoGPT as JVideoGPT
 from video_gpt_tpu.parallel.mesh import make_mesh as jmake_mesh
 from video_gpt_tpu.parallel.mesh import place_train_state
+from video_gpt_tpu.parallel.pipeline import pp_apply as jpp_apply
 from video_gpt_tpu.parallel.tensor import tp_regroup_params as jtp_regroup
 from video_gpt_tpu.training import loss as jloss
 from video_gpt_tpu.training.data import collate as jcollate
@@ -68,19 +69,21 @@ MESHES = {"data2": (2, 1, 1, False), "seq2": (1, 2, 1, False),
 BAR = dict(rtol=1e-4, atol=1e-6)
 
 
-def _tcfg(accum=1):
+def _tcfg(accum=1, **extra):
+    """(JAX, port) TrainConfigs of the step; ``extra``: further fields of
+    both (the ring, GPipe's microbatches and rows per rank)."""
     kw = dict(lr_scheduler="constant", mixed_precision="no",
-              adam_epsilon=1e-3, gradient_accumulation_steps=accum)
+              adam_epsilon=1e-3, gradient_accumulation_steps=accum, **extra)
     return JTrainConfig(**kw), TrainConfig(**kw)
 
 
 @functools.lru_cache(maxsize=None)
-def _setup():
+def _setup(blocks=BLOCKS):
     """(JAX params, the port's state dict of them, the VAE's, the global
-    batch's samples)."""
+    batch's samples: one row per frame-block partition of ``blocks``)."""
     rng = np.random.default_rng(0)
     samples = [(rng.uniform(-1, 1, (F, PX, PX, 3)).astype(np.float32), b)
-               for b in BLOCKS]
+               for b in blocks]
     jt = jcollate([JClipSample(p, b) for p, b in samples], N_IMG)
     nn_, nc = int(jt.noisy_sel.shape[0]), int(jt.clean_sel.shape[0])
     params = JVideoGPT(JCFG, dtype=jnp.float32, train_init=True).init(
@@ -93,15 +96,15 @@ def _setup():
     return params, videogpt_state_dict_from_jax(params, CFG), vae_sd, samples
 
 
-def _injected(seq, seeds):
+def _injected(seq, seeds, blocks=BLOCKS):
     """(JAX inputs, [(latents, the JAX loss's draws of the key)], keys)."""
-    _, _, _, samples = _setup()
+    _, _, _, samples = _setup(blocks)
     jt = jcollate([JClipSample(p, b) for p, b in samples], N_IMG,
                   sp_multiple=seq)
     out, keys = [], []
     for seed in seeds:
         lat = np.random.default_rng(seed).standard_normal(
-            (len(BLOCKS) * F, 4, 4, 4)).astype(np.float32)
+            (len(blocks) * F, 4, 4, 4)).astype(np.float32)
         jin = jt.inputs._replace(x1=jnp.take(lat, jt.noisy_sel, axis=0),
                                  clean_latents=jnp.take(lat, jt.clean_sel,
                                                         axis=0))
@@ -109,28 +112,36 @@ def _injected(seq, seeds):
         r_x0, r_t, r_x0c, r_tc = jax.random.split(key, 4)
         draws = tuple(np.asarray(x) for x in (
             jax.random.normal(r_x0, jin.x1.shape),
-            jax.random.uniform(r_t, (len(BLOCKS), F)),
+            jax.random.uniform(r_t, (len(blocks), F)),
             jax.random.normal(r_x0c, jin.clean_latents.shape),
             jax.random.uniform(r_tc, (jin.clean_latents.shape[0],))))
         out.append((jin, (lat, draws), key))
     return out
 
 
-def _jax_step(mesh_dims, accum, seeds):
+def _jax_step(mesh_dims, accum, seeds, sp="ulysses", num_micro=0,
+              blocks=BLOCKS):
     """The JAX mesh's (losses, mean gradient, parameters after), the
-    gradient and parameters in the port's standard layout."""
-    data, seq, tensor, zero3 = mesh_dims
-    params, _, _, _ = _setup()
+    gradient and parameters in the port's standard layout. ``mesh_dims``
+    (data, seq, tensor, zero3[, pipe]); ``sp`` the attention over seq;
+    ``num_micro`` GPipe's microbatches (0: one per stage)."""
+    data, seq, tensor, zero3 = mesh_dims[:4]
+    pipe = mesh_dims[4] if len(mesh_dims) > 4 else 1
+    params, _, _, _ = _setup(blocks)
     jtcfg, _ = _tcfg(accum)
     over = dict(remat=True, tensor_parallel=tensor)
     if seq > 1:
-        over.update(seq_shard=True, sp_attention="ulysses")
+        over.update(seq_shard=True, sp_attention=sp)
     cfg = dataclasses.replace(JCFG, **over)
     model = JVideoGPT(cfg, dtype=jnp.float32, train_init=True)
+    apply_fn = None
+    if pipe > 1:
+        apply_fn = functools.partial(jpp_apply, model,
+                                     num_micro=num_micro or pipe)
     p = params["params"] if tensor == 1 else jtp_regroup(params["params"],
                                                           cfg)
     mesh = jmake_mesh(JMeshConfig(data=data, seq=seq, tensor=tensor,
-                                  zero_params=zero3))
+                                  pipe=pipe, zero_params=zero3))
 
     def standard(tree):
         tree = jax.device_get(tree)
@@ -140,13 +151,15 @@ def _jax_step(mesh_dims, accum, seeds):
 
     with jax.sharding.set_mesh(mesh):
         state = place_train_state(jinit_state(model, {"params": p}, jtcfg),
-                                  mesh, zero_params=zero3, tp=tensor > 1)
-        step = jax.jit(make_train_step(model, jtcfg, max_blocks=F))
+                                  mesh, zero_params=zero3, tp=tensor > 1,
+                                  pp=pipe > 1)
+        step = jax.jit(make_train_step(model, jtcfg, max_blocks=F,
+                                       apply_fn=apply_fn))
         losses, grads = [], []
-        for jin, _, key in _injected(seq, seeds):
+        for jin, _, key in _injected(seq, seeds, blocks):
             grads.append(jax.jit(jax.grad(lambda q: jloss.training_loss(
-                model, {"params": q}, key, jin, max_blocks=F)[0]))(
-                    state.params["params"]))
+                model, {"params": q}, key, jin, max_blocks=F,
+                apply_fn=apply_fn)[0]))(state.params["params"]))
             state, metrics = step(state, key, jin)
             losses.append(float(metrics["loss"]))
         mean = jax.tree.map(lambda *g: sum(g) / len(g), *grads)
@@ -156,7 +169,7 @@ def _jax_step(mesh_dims, accum, seeds):
 def _part(name, whole, mesh_dims, coords, zero_part):
     """This rank's part of the whole entry: its tensor part, and along the
     ZeRO dimension its data part when ``zero_part``."""
-    data, _, tensor, _ = mesh_dims
+    data, tensor = mesh_dims[0], mesh_dims[2]
     w = tp_shard(name, whole, CFG, tensor, coords["tensor"])
     d = zero_dim(w.shape, data)
     if zero_part and d is not None:
@@ -164,9 +177,20 @@ def _part(name, whole, mesh_dims, coords, zero_part):
     return w
 
 
+def _held(names, mesh_dims, coords):
+    """The entries of ``names`` that a rank at ``coords`` holds: all of
+    them, but on a pipe mesh only its stage's layers."""
+    pipe = mesh_dims[4] if len(mesh_dims) > 4 else 1
+    if pipe == 1:
+        return set(names)
+    per = CFG.num_layers // pipe
+    return {n for n in names if not n.startswith("llm.layers.")
+            or int(n.split(".")[2]) // per == coords["pipe"]}
+
+
 def _compare(rec, want_grads, want_params, mesh_dims, coords, what):
     zero3 = mesh_dims[3]
-    assert set(rec["grads"]) == set(want_grads)
+    assert set(rec["grads"]) == _held(want_grads, mesh_dims, coords)
     for name, g in rec["grads"].items():
         want = _part(name, want_grads[name], mesh_dims, coords, True)
         np.testing.assert_allclose(g.numpy(), want.numpy(), **BAR,
@@ -177,17 +201,21 @@ def _compare(rec, want_grads, want_params, mesh_dims, coords, what):
                                    err_msg=f"{what}: parameter {name}")
 
 
-def _run(tmp_path, mesh_dims, accum=1, seeds=(7,)):
-    _, sd, vae_sd, samples = _setup()
-    _, tcfg = _tcfg(accum)
+def _run(tmp_path, mesh_dims, accum=1, seeds=(7,), blocks=BLOCKS,
+         **extra):
+    """The one-rank and the mesh's ranks' ``train_step_case``;
+    ``extra``: TrainConfig fields of both."""
+    _, sd, vae_sd, samples = _setup(blocks)
+    _, tcfg = _tcfg(accum, **extra)
     seq = mesh_dims[1]
-    injected = [x[1] for x in _injected(seq, seeds)]
+    injected = [x[1] for x in _injected(seq, seeds, blocks)]
     args = (CFG, tcfg, VAEConfig.tiny(), sd, vae_sd, samples, (PX, PX),
             injected, len(seeds))
     one = ranks.train_step_case(None, *args)
-    res = spawn_ranks(ranks.train_step_case, (MeshConfig(*mesh_dims),)
-                      + args, int(np.prod(mesh_dims[:3])), str(tmp_path),
-                      threads=1, timeout=300)
+    mesh_cfg = MeshConfig(*mesh_dims)
+    res = spawn_ranks(ranks.train_step_case, (mesh_cfg,) + args,
+                      mesh_cfg.num_devices, str(tmp_path), threads=1,
+                      timeout=300)
     return one, res
 
 
@@ -196,16 +224,29 @@ def _whole_record(rec):
     return rec["grads"], rec["params"]
 
 
-def check_mesh_step(tmp_path, mesh_name):
-    """The mesh's step (the injected one) against the JAX mesh's and the
-    one-rank step; the Trainer's own step against the one-rank Trainer's."""
-    mesh_dims = MESHES[mesh_name]
-    one, res = _run(tmp_path, mesh_dims)
-    losses, jgrads, jparams = _jax_step(mesh_dims, 1, (7,))
+def check_mesh_step(tmp_path, mesh_name, mesh_dims=None, sp="ulysses",
+                    num_micro=0, blocks=BLOCKS, accum=1, seeds=(7,)):
+    """The mesh's step (the injected one; under ``accum`` the last of
+    ``seeds``' micro-steps) against the JAX mesh's and the one-rank step;
+    the Trainer's own step against the one-rank Trainer's. ``mesh_dims``
+    (data, seq, tensor, zero3[, pipe]) defaults to ``MESHES[mesh_name]``;
+    ``sp`` is the attention over seq, ``num_micro`` GPipe's microbatches,
+    ``blocks`` the global batch's rows."""
+    mesh_dims = mesh_dims or MESHES[mesh_name]
+    extra = {}
+    if sp != "ulysses":
+        extra["sp_attention"] = sp
+    if len(mesh_dims) > 4:
+        extra.update(pp_microbatches=num_micro,
+                     batch_size_per_device=len(blocks) // mesh_dims[0])
+    one, res = _run(tmp_path, mesh_dims, accum, seeds, blocks, **extra)
+    losses, jgrads, jparams = _jax_step(mesh_dims, accum, seeds, sp,
+                                        num_micro, blocks)
+    assert all(r["ring"] == (sp == "ring") for r in res)
     for r in res:
         inj = r["injected"]
-        np.testing.assert_allclose(inj["loss"], losses[0], rtol=1e-5)
-        np.testing.assert_allclose(inj["loss"], one["injected"]["loss"],
+        np.testing.assert_allclose(inj["losses"], losses, rtol=1e-5)
+        np.testing.assert_allclose(inj["losses"], one["injected"]["losses"],
                                    rtol=1e-5)
         _compare(inj, jgrads, jparams, mesh_dims, r["coords"], "vs JAX")
         _compare(inj, *_whole_record(one["injected"]), mesh_dims,

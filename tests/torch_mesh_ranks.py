@@ -1,6 +1,7 @@
 """Rank-side functions of the port's mesh tests (``test_torch_mesh.py``,
 ``test_torch_sp_serving.py``, ``test_torch_mesh_training.py``,
-``test_torch_mesh_train_step.py``, ``test_torch_shutdown.py``), run in
+``test_torch_mesh_train_step*.py``, ``test_torch_ring.py``,
+``test_torch_pipeline.py``, ``test_torch_shutdown.py``), run in
 spawned gloo processes by
 ``video_gpt_tpu_torch.parallel.distributed.spawn_ranks``. This module
 imports only torch, numpy and the port: the ranks never load JAX."""
@@ -214,6 +215,13 @@ def _step_record(state, metrics, grads) -> dict:
                         for n, p in state.model.named_parameters()})
 
 
+def _runs_the_ring(model) -> bool:
+    """Whether every attention layer of ``model`` takes the ring."""
+    from video_gpt_tpu_torch.models.phi3 import Phi3Attention
+    return all(m.ring for m in model.modules()
+               if isinstance(m, Phi3Attention))
+
+
 def train_step_case(mesh_cfg, cfg: ModelConfig, tcfg: TrainConfig,
                     vae_cfg: VAEConfig, sd: dict, vae_sd: dict,
                     samples: list, res: tuple, injected=None,
@@ -237,6 +245,7 @@ def train_step_case(mesh_cfg, cfg: ModelConfig, tcfg: TrainConfig,
                  sp_multiple=mesh_cfg.seq if mesh_cfg else 1)
     out = {"coords": None if mesh is None else mesh.coords}
     state = trainer.build()
+    out["ring"] = _runs_the_ring(trainer.model)
     seen = record_updates(state.optimizer)
     for i in range(steps):
         metrics = trainer.train_step(state, tb, i)
@@ -349,6 +358,7 @@ def image_step_case(mesh_cfg, cfg: ModelConfig, tcfg: TrainConfig,
     metrics = trainer.train_step(state, tb, 0)
     out = _step_record(state, metrics, seen[-1])
     out["coords"] = None if trainer.mesh is None else trainer.mesh.coords
+    out["ring"] = _runs_the_ring(trainer.model)
     if injected is not None:
         x1, clean, draws = (torch.from_numpy(x) if isinstance(x, np.ndarray)
                             else x for x in injected)
@@ -440,3 +450,94 @@ def collective_grads(device: str = "cpu") -> dict:
     errs["reduce_scatter"] = float((s - want).abs().max())
     errs["backward_bytes"] = mesh.stats.backward_moved
     return errs
+
+
+def ppermute_case() -> dict:
+    """``ppermute`` on four ranks, over the seq group of (seq 4) and of
+    (data 2, seq 2), shifts +1 and -1: each rank's output (rank r's input
+    is r + its group rank / 10 in every element) and the gradient of
+    sum(out * c) for c = 1 + the rank, with the bytes each hop counted."""
+    from video_gpt_tpu_torch.parallel.distributed import ppermute
+    out = {}
+    for name, cfg in (("group4", MeshConfig(seq=4)),
+                      ("group2", MeshConfig(data=2, seq=2))):
+        mesh = make_mesh(cfg)
+        i = mesh.index(SEQ_AXIS)
+        for shift in (1, -1):
+            mesh.stats.reset()
+            x = torch.full((3, 2), float(dist.get_rank()) + i / 10
+                           ).requires_grad_()
+            y = ppermute(x, mesh.groups[SEQ_AXIS], shift, mesh.stats)
+            (y * (1.0 + dist.get_rank())).sum().backward()
+            out[f"{name}_{shift}"] = dict(
+                y=y.detach(), grad=x.grad, seq_index=i,
+                stats=(mesh.stats.moved, mesh.stats.backward_moved))
+    return out
+
+
+def _meta_from(arrays: dict) -> AttnMeta:
+    return AttnMeta(*(torch.from_numpy(arrays[f]) for f in AttnMeta._fields))
+
+
+def ring_grads(mesh_cfg: MeshConfig, arrays: dict, meta: dict) -> dict:
+    """``ring_attend`` on this rank's chunks of the full q/k/v in
+    ``arrays`` over the whole metadata ``meta`` (numpy, per field; its
+    length a multiple of the seq axis), differentiated: the loss
+    sum(out * dout); the output chunk, the gradients of the rank's q/k/v
+    chunks, the bytes its hops took in (forward, backward)."""
+    from video_gpt_tpu_torch.parallel.ring import ring_attend
+    mesh = make_mesh(mesh_cfg)
+    m = _meta_from(meta)
+    t = {k: torch.from_numpy(v) for k, v in arrays.items()}
+    q, k, v = (_chunk(t[x], mesh, 0).clone().requires_grad_()
+               for x in "qkv")
+    out = ring_attend(q, k, v, m, m, mesh)
+    (out * _chunk(t["dout"], mesh, 0)).sum().backward()
+    return dict(out=out.detach(), q=q.grad, k=k.grad, v=v.grad,
+                stats=(mesh.stats.moved, mesh.stats.backward_moved))
+
+
+def pipe_case(mesh_cfg, cfg: ModelConfig, sd: dict, rows: int,
+              arrays: dict, cases: list) -> dict:
+    """``pp_apply`` of a training ``VideoGPT`` holding this rank's part of
+    ``sd`` on this data rank's rows of a ``rows``-row batch (every row the
+    layout of ``RowSpec((1, 2, 1))`` at 48x48; ``arrays`` the global
+    noisy latents ``z``, timesteps ``t`` and clean latents ``cl``), per
+    case (num_micro, remat, grads): the prediction and, with ``grads``,
+    each parameter's gradient of mean(pred ** 2) over the rank's rows.
+    ``mesh_cfg`` None: one process, no mesh."""
+    from video_gpt_tpu_torch.layout import (RowSpec, build_layout,
+                                            tokens_per_frame)
+    from video_gpt_tpu_torch.models.video_gpt import Batch, VideoGPT
+    from video_gpt_tpu_torch.parallel.pipeline import pp_apply
+    from video_gpt_tpu_torch.training.trainer import shard_state_dict
+    import dataclasses
+    mesh = None if mesh_cfg is None else make_mesh(mesh_cfg)
+    mine = batch_rows(mesh, rows)
+    n = mine.stop - mine.start
+    lay = build_layout([RowSpec((1, 2, 1), "training")] * n,
+                       tokens_per_frame(48, 48))
+    batch = Batch.from_layout(lay, "cpu")
+    per = {k: v.shape[0] // rows for k, v in arrays.items()}
+    z, t, cl = (torch.from_numpy(arrays[k][mine.start * per[k]:
+                                           mine.stop * per[k]])
+                for k in ("z", "t", "cl"))
+    out = {"coords": None if mesh is None else mesh.coords}
+    for nm, remat, grads in cases:
+        model = VideoGPT(dataclasses.replace(cfg, remat=remat),
+                         train_init=True, mesh=mesh)
+        model.load_state_dict(shard_state_dict(
+            {k: torch.from_numpy(v) for k, v in sd.items()}, model, mesh))
+        with torch.set_grad_enabled(grads):
+            pred = pp_apply(model, batch, z, t, cl, num_micro=nm)
+            if grads:
+                (pred ** 2).mean().backward()
+        out[(nm, remat)] = dict(
+            pred=pred.detach(),
+            grads={k: p.grad for k, p in model.named_parameters()}
+            if grads else None,
+            stats=None if mesh is None else (mesh.stats.moved,
+                                             mesh.stats.backward_moved))
+        if mesh is not None:
+            mesh.stats.reset()
+    return out

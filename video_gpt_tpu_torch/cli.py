@@ -54,14 +54,18 @@ T, as the reference serves at SP=4; rank 0 alone prints and writes:
 Each rank takes ``cuda:LOCAL_RANK`` and NCCL (gloo with ``--device cpu``).
 ``train`` and ``train-image`` train over ``--mesh_data D --mesh_seq S
 --mesh_tensor T`` ranks the same way (``--zero3`` shards the parameters
-over data too), e.g. the recipes of
+over data too; ``--sp_attention ring`` runs the ring over seq in place of
+Ulysses), and ``train`` also over ``--mesh_pipe P`` GPipe stages
+(``--pp_microbatches M`` a step, with data only), e.g. the recipes of
 ``configs/pretrain_multichip_examples.sh``:
 
     torchrun --nproc_per_node 4 -m video_gpt_tpu_torch.cli train \
         --video_dir_path videos/ --mesh_data 2 --mesh_seq 2
+    torchrun --nproc_per_node 8 -m video_gpt_tpu_torch.cli train \
+        --video_dir_path videos/ --mesh_data 2 --mesh_pipe 4 \
+        --pp_microbatches 4 --batch_size_per_device 4
 
-``--mesh_pipe``, ``--pp_microbatches``, ``--sp_attention ring`` and the
-offload options refuse (ROADMAP.md queue 1).
+The offload options refuse (ROADMAP.md queue 1).
 
 ``export`` writes a run's parameters (``--ema``: its EMA) as the reference's
 safetensors. ``train --input_output_return`` trains the aux
@@ -85,10 +89,6 @@ import torch
 # (flag, its default, the ROADMAP.md queue-1 item that ports it);
 # --offload_optimizer raises in the trainers (config.check_train_config)
 NOT_PORTED = (
-    ("mesh_pipe", 1, "the mesh's training half, part B (GPipe)"),
-    ("pp_microbatches", 0, "the mesh's training half, part B (GPipe)"),
-    ("sp_attention", "ulysses", "the mesh's training half, part B (the "
-                                "ring)"),
     ("offload_grad_splits", 1, "CPU-offloaded optimizer"),
 )
 
@@ -342,7 +342,8 @@ def make_trainer(args, mesh_cfg=None):
         ckpt_every=args.ckpt_every, mixed_precision=args.mixed_precision,
         use_ema=args.use_ema, input_noise=args.input_noise,
         auto_resume=not args.no_auto_resume, use_lora=args.use_lora,
-        lora_rank=args.lora_rank, cls_weight=args.cls_weight,
+        lora_rank=args.lora_rank, sp_attention=args.sp_attention,
+        pp_microbatches=args.pp_microbatches, cls_weight=args.cls_weight,
         input_output_return=args.input_output_return,
         offload_optimizer=args.offload_optimizer, distill=args.distill,
         distill_student_steps=args.distill_student_steps,
@@ -387,8 +388,9 @@ def _refuse_unported(args) -> None:
 
 def _train_mesh(args):
     """The training mesh of ``--mesh_data D --mesh_seq S --mesh_tensor T
-    [--zero3]`` (None at 1 x 1 x 1), after joining the launch's process
-    group; exits unless the launch runs D x S x T processes."""
+    [--mesh_pipe P] [--zero3]`` (None at one rank), after joining the
+    launch's process group; exits unless the launch runs D x S x T x P
+    processes."""
     import torch.distributed as dist
 
     from .config import MeshConfig
@@ -397,13 +399,16 @@ def _train_mesh(args):
     _refuse_unported(args)
     init_runtime(device=args.device)
     cfg = MeshConfig(data=args.mesh_data, seq=args.mesh_seq,
-                     tensor=args.mesh_tensor, zero_params=args.zero3)
+                     tensor=args.mesh_tensor, zero_params=args.zero3,
+                     pipe=getattr(args, "mesh_pipe", 1))
     world = dist.get_world_size() if dist.is_initialized() else 1
     if world != cfg.num_devices:
+        pipe = f" --mesh_pipe {cfg.pipe}" if cfg.pipe > 1 else ""
         raise SystemExit(
             f"--mesh_data {cfg.data} --mesh_seq {cfg.seq} --mesh_tensor "
-            f"{cfg.tensor} trains over {cfg.num_devices} processes (torchrun "
-            f"--nproc_per_node {cfg.num_devices}); this launch runs {world}")
+            f"{cfg.tensor}{pipe} trains over {cfg.num_devices} processes "
+            f"(torchrun --nproc_per_node {cfg.num_devices}); this launch "
+            f"runs {world}")
     return cfg if cfg.num_devices > 1 else None
 
 
@@ -555,10 +560,20 @@ def _add_train_parser(sub) -> None:
                    help="'tensorboard': results_dir/tensorboard_log when "
                         "tensorboardX imports")
     _add_mesh_args(t)
-    t.add_argument("--mesh_pipe", type=int, default=1)
-    t.add_argument("--pp_microbatches", type=int, default=0)
+    t.add_argument("--mesh_pipe", type=int, default=1,
+                   help="GPipe pipeline stages: the layer stack split over "
+                        "P ranks, microbatches hopping between them "
+                        "(composes with --mesh_data)")
+    t.add_argument("--pp_microbatches", type=int, default=0,
+                   help="microbatches per step when --mesh_pipe > 1 "
+                        "(0 = one per stage); must divide "
+                        "--batch_size_per_device")
     t.add_argument("--sp_attention", default="ulysses",
-                   choices=["ulysses", "ring"])
+                   choices=["ulysses", "ring"],
+                   help="sequence parallelism over --mesh_seq: Ulysses "
+                        "(all_to_all over heads) or the ring (K/V chunks "
+                        "hop between neighbours; any seq degree dividing "
+                        "L)")
     # accepted so a JAX command line parses; a non-default value raises
     # (not ported yet, see ROADMAP.md queue 1)
     t.add_argument("--offload_optimizer", action="store_true")

@@ -2,10 +2,11 @@
 
 Port of ``video_gpt_tpu/config.py``: the serving fields, the mesh
 (``MeshConfig``; the model reads its sharding off the mesh it is built
-on), and the training fields with the LoRA, distillation and aux
-input-head (``input_output_return``) recipes. The offload fields, the ring
-and GPipe are not ported; :func:`check_train_config` raises on their
-non-default values, and on the combinations the JAX trainer refuses.
+on, and its sequence-parallel attention off ``ModelConfig.sp_attention``),
+and the training fields with the LoRA, distillation, aux input-head
+(``input_output_return``), ring and GPipe recipes. The offload fields are
+not ported; :func:`check_train_config` raises on their non-default values,
+and on the combinations the JAX trainer refuses.
 """
 from __future__ import annotations
 
@@ -38,6 +39,12 @@ class ModelConfig:
     freq_embed_size: int = 256
     # execution
     remat: bool = False  # recompute each decoder layer in the backward
+    # sequence-parallel attention over a mesh's seq axis: 'ulysses' (the
+    # all_to_all over seq, parallel/ulysses.py) or 'ring' (K/V chunks hop
+    # around the seq group, parallel/ring.py; cached calls stay on
+    # Ulysses). 'none', the default, is read as 'ulysses' on a seq mesh:
+    # the port has no partitioner to choose
+    sp_attention: str = "none"
     # precompute the attention bias once per forward (shared by all layers)
     # when B*Lq*Lk is at most this many elements; beyond it the mask is
     # evaluated in-kernel from the token metadata (K6 forward, K7 backward)
@@ -82,21 +89,23 @@ class SchedulerConfig:
 
 @dataclasses.dataclass(frozen=True)
 class MeshConfig:
-    """Process grid: data x sequence x tensor axes, one process per rank
-    (``parallel/mesh.py``). The optimizer state is always sharded over
+    """Process grid: data x sequence x tensor x pipe axes, one process per
+    rank (``parallel/mesh.py``). The optimizer state is always sharded over
     ``data`` (ZeRO-1/2); ``zero_params`` (ZeRO-3) shards the parameters and
-    the EMA over it too, gathered a layer at a time where they are used.
-    The JAX package's pipe axis is not ported (ROADMAP.md queue 1, part
-    B)."""
+    the EMA over it too, gathered a layer at a time where they are used;
+    ``pipe`` stages the layer stack (GPipe, ``parallel/pipeline.py``).
+    ``pipe`` comes last so that positional (data, seq, tensor, zero_params)
+    stay as they were."""
 
     data: int = 1
     seq: int = 1
     tensor: int = 1
     zero_params: bool = False
+    pipe: int = 1
 
     @property
     def num_devices(self) -> int:
-        return self.data * self.seq * self.tensor
+        return self.data * self.seq * self.tensor * self.pipe
 
 
 @dataclasses.dataclass(frozen=True)
@@ -125,9 +134,8 @@ class TrainConfig:
     mixed_precision: str = "bf16"  # 'bf16' | 'no'
     gradient_checkpointing: bool = True
     # sequence parallelism over the mesh's seq axis: 'ulysses' | 'ring'
-    # (the ring is not ported: ROADMAP.md queue 1, part B)
     sp_attention: str = "ulysses"
-    # GPipe microbatches over the pipe axis (not ported: part B)
+    # GPipe microbatches per step over the pipe axis (0: one per stage)
     pp_microbatches: int = 0
     # loss
     input_noise: float = 0.9
@@ -169,8 +177,6 @@ class TrainConfig:
 
 # field -> the ROADMAP.md queue-1 item that ports it
 _NOT_PORTED = {
-    "sp_attention": "the mesh's training half, part B (the ring)",
-    "pp_microbatches": "the mesh's training half, part B (GPipe)",
     "offload_optimizer": "CPU-offloaded optimizer",
     "offload_grad_splits": "CPU-offloaded optimizer",
 }

@@ -32,7 +32,14 @@ rounds its fp32 accumulator once. With S > 1 the trunk pads the sequence
 to the seq multiple at its entry, each rank runs its contiguous chunk
 through the layers, and the chunks are gathered before the final norm;
 the KV cache it returns holds the rank's heads (``mesh.cache_heads``) of
-the unpadded tokens. On a ZeRO-3 mesh (``MeshConfig.zero_params``) each
+the unpadded tokens. Under ``cfg.sp_attention == 'ring'`` an uncached call
+goes through ``ring_attend`` instead (K/V chunks hop around the seq group;
+cached calls stay on ``ulysses_attend_cached``, as in the JAX package).
+On a pipe mesh each rank builds only its stage's block of layers
+(``mesh.stage_layers``), under their global names ``llm.layers.{i}``, and
+the trunk runs them as a GPipe stage (``parallel.pipeline``); a pipe axis
+does not compose with seq or tensor. On a ZeRO-3 mesh
+(``MeshConfig.zero_params``) each
 layer's parameters rest as this data rank's parts and are all-gathered at
 use (``mesh.gather_params``, in autocast's dtype under autocast: the
 matmuls would cast them to it anyway), inside the checkpointed layer, so
@@ -50,8 +57,11 @@ from torch.utils.checkpoint import checkpoint
 
 from ..config import ModelConfig
 from ..ops.attention import AttnMeta, attend, attend_cached
-from ..parallel.mesh import (DATA_AXIS, SEQ_AXIS, TENSOR_AXIS, axis_size,
-                             gather_params, gather_seq, split_seq)
+from ..parallel.mesh import (DATA_AXIS, PIPE_AXIS, SEQ_AXIS, TENSOR_AXIS,
+                             axis_size, gather_params, gather_seq, split_seq,
+                             stage_layers)
+from ..parallel.pipeline import pipeline_trunk
+from ..parallel.ring import ring_attend
 from ..parallel.ulysses import (pad_to_seq, ulysses_attend,
                                 ulysses_attend_cached)
 
@@ -132,6 +142,13 @@ def check_mesh(cfg: ModelConfig, mesh) -> None:
     """Raise on a config that the mesh cannot run (or that is not ported
     yet)."""
     tp = axis_size(mesh, TENSOR_AXIS)
+    if axis_size(mesh, PIPE_AXIS) > 1 and (
+            tp > 1 or axis_size(mesh, SEQ_AXIS) > 1):
+        raise ValueError(
+            "pipeline parallelism runs the stage body as local math; "
+            "combine pp with data parallelism, not tp/sp "
+            f"(got tensor_parallel={tp}, sp_attention={cfg.sp_attention!r}, "
+            f"seq={axis_size(mesh, SEQ_AXIS)})")
     if tp > 1 and cfg.lora_rank:
         raise NotImplementedError(
             "LoRA under tensor parallelism: merge the adapters before "
@@ -162,7 +179,9 @@ class Phi3Attention(nn.Module):
         self.cfg = cfg
         self.mesh = mesh
         self.tp = tp = axis_size(mesh, TENSOR_AXIS)
-        self.ulysses = tp * axis_size(mesh, SEQ_AXIS) > 1
+        sp = axis_size(mesh, SEQ_AXIS)
+        self.ulysses = tp * sp > 1
+        self.ring = sp > 1 and cfg.sp_attention == "ring"
         h, hkv, d = cfg.num_heads // tp, cfg.num_kv_heads // tp, cfg.head_dim
         kw = dict(rank=cfg.lora_rank, alpha=cfg.lora_alpha, device=device,
                   dtype=dtype)
@@ -189,6 +208,12 @@ class Phi3Attention(nn.Module):
                 out, kv = ulysses_attend_cached(
                     q, k.transpose(1, 2), v.transpose(1, 2), cache[0],
                     cache[1], q_meta, k_meta, self.mesh, bias)
+            elif self.ring:
+                if bias is not None:
+                    raise ValueError("the ring attends by the metadata: it "
+                                     "takes no bias or DecodeMask")
+                out, kv = ring_attend(q, k, v, q_meta, k_meta,
+                                      self.mesh), (k, v)
             else:
                 out, kv = ulysses_attend(q, k, v, q_meta, k_meta, self.mesh,
                                          bias)
@@ -244,7 +269,9 @@ class Phi3Layer(nn.Module):
 
 
 class Phi3Decoder(nn.Module):
-    """Decoder trunk with the token embedding (``llm.embed_tokens``)."""
+    """Decoder trunk with the token embedding (``llm.embed_tokens``). On a
+    pipe mesh it holds this rank's stage of the layers, named by their
+    global index."""
 
     def __init__(self, cfg: ModelConfig, device=None, dtype=None, mesh=None):
         super().__init__()
@@ -254,20 +281,27 @@ class Phi3Decoder(nn.Module):
         kw = dict(device=device, dtype=dtype)
         self.embed_tokens = nn.Embedding(cfg.vocab_size, cfg.hidden_size,
                                          **kw)
-        self.layers = nn.ModuleList(Phi3Layer(cfg, mesh=mesh, **kw)
-                                    for _ in range(cfg.num_layers))
+        self.layers = nn.ModuleList()
+        for i in stage_layers(mesh, cfg.num_layers):
+            self.layers.add_module(str(i), Phi3Layer(cfg, mesh=mesh, **kw))
         self.norm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps, **kw)
 
     def forward(self, inputs_embeds: torch.Tensor, pos_ids: torch.Tensor,
                 q_meta: AttnMeta, k_meta: AttnMeta,
                 cache: Optional[KVCache] = None, bias=None,
-                return_kv: bool = False
+                return_kv: bool = False, num_micro: Optional[int] = None
                 ) -> Tuple[torch.Tensor, Optional[KVCache]]:
         """Final-norm hidden states, and with ``return_kv`` the new tokens'
         keys/values as a heads-major :class:`KVCache` (on a mesh, of this
-        rank's heads)."""
+        rank's heads). On a pipe mesh the layers run as a GPipe pipeline
+        over ``num_micro`` microbatches (``parallel.pipeline``; uncached,
+        without a bias)."""
         cfg, mesh = self.cfg, self.mesh
         b, l, _ = inputs_embeds.shape
+        if return_kv and cfg.sp_attention == "ring" \
+                and axis_size(mesh, SEQ_AXIS) > 1:
+            raise ValueError("a prefill under sp_attention='ring' would "
+                             "cache chunks, not heads: serve with Ulysses")
         # seq sharding: pad the new tokens to the seq multiple once, here
         # (padded queries are pad rows cropped at the end, padded keys are
         # never visible and never stored), and keep this rank's chunk
@@ -277,6 +311,12 @@ class Phi3Decoder(nn.Module):
             x, pos_ids = F.pad(x, (0, 0, 0, pad)), F.pad(pos_ids, (0, pad))
         cos, sin = rope_tables(pos_ids, cfg.head_dim, cfg.rope_theta,
                                inputs_embeds.dtype)
+        if axis_size(mesh, PIPE_AXIS) > 1:
+            if cache is not None or return_kv or bias is not None:
+                raise ValueError("a pipe mesh runs the uncached trunk by the "
+                                 "metadata (no cache, no bias)")
+            x = pipeline_trunk(self, x, cos, sin, q_meta, k_meta, num_micro)
+            return self.norm(x), None
         x, cos, sin = (split_seq(t, mesh) for t in (x, cos, sin))
         kv = None
         if return_kv:
@@ -285,29 +325,44 @@ class Phi3Decoder(nn.Module):
             shape = (cfg.num_layers, b, hkv, l, cfg.head_dim)
             kv = KVCache(x.new_empty(shape), x.new_empty(shape))
         remat = cfg.remat and torch.is_grad_enabled()
-        zero3 = mesh is not None and mesh.cfg.zero_params \
-            and axis_size(mesh, DATA_AXIS) > 1
         for i, layer in enumerate(self.layers):
             layer_cache = None
             if cache is not None and cache.length > 0:
                 layer_cache = (cache.k[i], cache.v[i])
-            args = (x, cos, sin, q_meta, k_meta, layer_cache, bias)
-            run = self._gathered(layer) if zero3 else layer
-            if remat:
-                # keep only the layer's input; the backward runs the layer
-                # again (the JAX package's nn.remat, nothing_saveable). The
-                # layer-invariant inputs (cos/sin, metadata, bias) are
-                # passed by reference, never copied per layer.
-                x, (k, v) = checkpoint(run, *args, use_reentrant=False,
-                                       preserve_rng_state=False)
-            else:
-                x, (k, v) = run(*args)
+            x, (k, v) = self._run(layer, (x, cos, sin, q_meta, k_meta,
+                                          layer_cache, bias), remat)
             if kv is not None:
                 kv.k[i].copy_(k[:, :l].transpose(1, 2))
                 kv.v[i].copy_(v[:, :l].transpose(1, 2))
         if axis_size(mesh, SEQ_AXIS) > 1:
             x = gather_seq(x, mesh)[:, :l]
         return self.norm(x), kv
+
+    def stage(self, x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
+              q_meta: AttnMeta, k_meta: AttnMeta) -> torch.Tensor:
+        """This pipe stage's layers on ``x``, uncached and without a bias
+        (K6 forward, K7 backward), with no recompute of their own (the
+        GPipe schedule recomputes the stage)."""
+        for layer in self.layers:
+            x, _ = self._run(layer, (x, cos, sin, q_meta, k_meta, None, None),
+                             remat=False)
+        return x
+
+    def _run(self, layer: nn.Module, args: tuple, remat: bool):
+        """One layer's (output, (k, v)): its ZeRO-3 parameters gathered at
+        the call, and with ``remat`` recomputed in the backward."""
+        mesh = self.mesh
+        if mesh is not None and mesh.cfg.zero_params \
+                and axis_size(mesh, DATA_AXIS) > 1:
+            layer = self._gathered(layer)
+        if remat:
+            # keep only the layer's input; the backward runs the layer
+            # again (the JAX package's nn.remat, nothing_saveable). The
+            # layer-invariant inputs (cos/sin, metadata, bias) are passed
+            # by reference, never copied per layer.
+            return checkpoint(layer, *args, use_reentrant=False,
+                              preserve_rng_state=False)
+        return layer(*args)
 
     def _gathered(self, layer: nn.Module):
         """``layer``'s forward on its ZeRO-3 parameters gathered at the

@@ -26,7 +26,9 @@ their whole gradient on every seq rank), and the KV cache that ``prefill``
 On a ZeRO-3 mesh the parameters rest as this data rank's parts
 (``mesh.shard_params_``): ``forward`` gathers the embedders', the heads',
 the token embedding's and the final norm's once per call, and the trunk
-each layer's at its use.
+each layer's at its use. On a pipe mesh every rank assembles the tokens and
+runs the heads; the trunk between them is a GPipe pipeline over the pipe
+ranks' stages (``parallel.pipeline``), whose output every pipe rank gets.
 """
 from __future__ import annotations
 
@@ -39,7 +41,8 @@ from torch.func import functional_call
 from ..config import ModelConfig
 from ..ops.attention import AttnMeta
 from ..ops.flash_attention import DecodeMask, bias_map, precompute_bias
-from ..parallel.mesh import DATA_AXIS, SEQ_AXIS, axis_size, gather_params
+from ..parallel.mesh import (DATA_AXIS, PIPE_AXIS, SEQ_AXIS, axis_size,
+                             gather_params)
 from .embedders import (FinalLayer, PatchEmbed, TimestepEmbedder,
                         crop_pos_embed, sincos_2d_pos_embed, unpatchify)
 from .phi3 import KVCache, Phi3Decoder
@@ -84,8 +87,11 @@ def maybe_bias(cfg: ModelConfig, q_meta: AttnMeta, k_meta: AttnMeta,
     rule per tile and needs no [Lq, Lk] tensor: stages 2-4, and stage 1 at
     B >= 6. On a ``mesh`` with a seq axis it is None, as under the JAX
     package's Ulysses: the seq-sharded trunk pads its sequences to the seq
-    multiple, which a dense bias cannot follow, so its prefill runs K6."""
-    if axis_size(mesh, SEQ_AXIS) > 1:
+    multiple, which a dense bias cannot follow, so its prefill runs K6
+    (and so does the ring). On a pipe mesh it is None too: the JAX pipeline
+    trunk takes no dense bias (it would replicate [Lq, Lk] onto every
+    stage), so a stage runs K6 forward and K7 backward."""
+    if axis_size(mesh, SEQ_AXIS) > 1 or axis_size(mesh, PIPE_AXIS) > 1:
         return None
     b, lq = q_meta.index.shape
     if b * lq * k_meta.vis_start.shape[1] > cfg.precompute_bias_limit:
@@ -192,10 +198,12 @@ class VideoGPT(nn.Module):
                 if getattr(m, "zero_init", False)
                 for n, _ in m.named_parameters()}
         mine = dict(self.named_parameters())
+        dev, dtype = self.llm.norm.weight.device, self.llm.norm.weight.dtype
         for name, p in src.named_parameters():
-            dst = mine[name]
+            # a pipe rank draws every parameter and keeps its stage's
+            dst = mine.get(name)
             t = p if whole is None else torch.empty(
-                p.shape, device=dst.device, dtype=dst.dtype)
+                p.shape, device=dev, dtype=dtype)
             if name.endswith("norm.weight"):
                 t.fill_(1.0)
             elif name.endswith(".bias"):
@@ -204,7 +212,7 @@ class VideoGPT(nn.Module):
                 t.normal_(0.0, std, generator=generator)
             if name in zero:
                 t.zero_()
-            if whole is not None:
+            if whole is not None and dst is not None:
                 dst.copy_(part(name, t))
         return self
 
@@ -278,12 +286,15 @@ class VideoGPT(nn.Module):
 
     def forward(self, batch: Batch, noisy_latents: torch.Tensor,
                 t: torch.Tensor, clean_latents=None,
-                input_output_return: bool = False, bias=None):
+                input_output_return: bool = False, bias=None,
+                num_micro: int = None):
         """Full-sequence forward: x1-prediction per noisy frame
         [Nn, hl, wl, C]; with ``input_output_return`` also the aux head's
         reconstruction of each clean frame [Nc, hl, wl, C] (the model must
         carry ``input_head``). ``bias`` (a precomputed bias or a
-        DecodeMask) lets loop callers pay the step-invariant mask once."""
+        DecodeMask) lets loop callers pay the step-invariant mask once.
+        ``num_micro``: the GPipe microbatches of a pipe mesh (one per stage
+        by default; ``parallel.pipeline.pp_apply``)."""
         mesh = self.llm.mesh
         if (mesh is not None and mesh.cfg.zero_params
                 and axis_size(mesh, DATA_AXIS) > 1
@@ -296,7 +307,7 @@ class VideoGPT(nn.Module):
                     self, gather_params(self, mesh, skip="llm.layers."),
                     (batch, noisy_latents, t, clean_latents),
                     dict(input_output_return=input_output_return,
-                         bias=bias))
+                         bias=bias, num_micro=num_micro))
             finally:
                 self._whole_params = False
         emb = self._assemble(batch, noisy_latents, t, clean_latents)
@@ -304,7 +315,7 @@ class VideoGPT(nn.Module):
             bias = maybe_bias(self.cfg, batch.meta, batch.meta,
                               self.llm.mesh)
         hidden, _ = self.llm(emb, batch.pos_ids, batch.meta, batch.meta,
-                             bias=bias)
+                             bias=bias, num_micro=num_micro)
         nn_, hl, wl, _ = noisy_latents.shape
         pred = self._heads(hidden, batch.noisy_gather, t, (nn_, hl, wl))
         if input_output_return:

@@ -292,16 +292,20 @@ def inline_attention_backward_reference(q: torch.Tensor, k: torch.Tensor,
                                         v: torch.Tensor, q_meta: AttnMeta,
                                         k_meta: AttnMeta, o: torch.Tensor,
                                         do: torch.Tensor,
-                                        magnitude: bool = False):
+                                        magnitude: bool = False,
+                                        lse: Optional[torch.Tensor] = None):
     """Plain K7: the gradients (dq, dk, dv) of :func:`flash_mha_inline` at
     output ``o`` for the cotangent ``do``, by the TPU kernels' math in fp32:
-    p recomputed over the whole visible key row, di = rowsum(o * do),
+    p = exp(s - lse) where the key is visible, else 0, di = rowsum(o * do),
     ds = p (dp - di) scale, dq = ds K, dk = ds^T Q, dv = p^T dO, the GQA
-    group's heads summed. Shapes as :func:`flash_mha_inline`; grads in the
-    inputs' dtypes. ``magnitude=True`` returns the same products over
-    absolute values, in fp32, as :func:`bias_attention_backward_reference`
-    does. Runs one kv head's group and ``INLINE_ROWS`` query rows at a
-    time."""
+    group's heads summed. ``lse`` [B, H, Lq] is the logsumexp the kernels
+    are handed: a ring chunk's backward gets the global one of the whole
+    key row, of which these keys are a part; without it p is the softmax
+    over these keys (their own lse). Shapes as :func:`flash_mha_inline`;
+    grads in the inputs' dtypes. ``magnitude=True`` returns the same
+    products over absolute values, in fp32, as
+    :func:`bias_attention_backward_reference` does. Runs one kv head's
+    group and ``INLINE_ROWS`` query rows at a time."""
     b, lq, h, d = q.shape
     lk, hkv = k.shape[1], k.shape[2]
     group = h // hkv
@@ -316,7 +320,11 @@ def inline_attention_backward_reference(q: torch.Tensor, k: torch.Tensor,
 
         qf, of, dof = rows_of(q), rows_of(o), rows_of(do)
         kf, vf = k[bi, :, g].float(), v[bi, :, g].float()
-        p, _ = _inline_probs(qf, kf, vis, scale)
+        if lse is None:
+            p, _ = _inline_probs(qf, kf, vis, scale)
+        else:
+            s = qf @ kf.T * scale - lse[bi, heads, sl].float()[..., None]
+            p = torch.where(vis, torch.exp(s), torch.zeros((), device=s.device))
         di = (of * dof).sum(-1, keepdim=True)
         ds = p * (dof @ vf.T - di) * scale
         if magnitude:
@@ -1015,13 +1023,14 @@ def flash_mha_inline_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          q_meta: AttnMeta, k_meta: AttnMeta, o: torch.Tensor,
                          do: torch.Tensor, lse=None):
     """K7: (dq, dk, dv) of :func:`flash_mha_inline` at its output ``o`` for
-    the cotangent ``do`` [B,Lq,H,D]. On CUDA ``lse`` is K6's fp32
-    logsumexp [B, H, Lq], from which the kernels recompute each
-    probability; the plain version (CPU tensors) recomputes the softmax
-    over the whole visible row and ignores it."""
+    the cotangent ``do`` [B,Lq,H,D]. ``lse`` is an fp32 logsumexp
+    [B, H, Lq], from which each probability is recomputed: K6's of these
+    keys, or the global one of a ring of key chunks. CUDA needs it; the
+    plain version (CPU tensors) takes it where given and recomputes the
+    softmax over these keys where not."""
     if not q.is_cuda:
         return inline_attention_backward_reference(q, k, v, q_meta, k_meta,
-                                                   o, do)
+                                                   o, do, lse=lse)
     kh, vh = _kv_views(q, k, v)
     b, lq, h, d = q.shape
     hkv, lk = kh.shape[1], kh.shape[2]

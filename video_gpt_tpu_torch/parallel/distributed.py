@@ -21,9 +21,12 @@ caller's :class:`CollectiveStats`, in the forward and the backward. The
 ones training differentiates through are ``torch.autograd.Function``s:
 :func:`all_to_all` (backward: the reverse all_to_all), Megatron's pair
 :func:`copy_to_group` / :func:`reduce_from_group`, :func:`gather_cat`
-(backward: this rank's chunk) and :func:`own_chunk` (backward: the chunks
-gathered); :func:`all_reduce`, :func:`all_gather` and
-:func:`reduce_scatter` (ZeRO's gradient shard) have no backward.
+(backward: this rank's chunk), :func:`own_chunk` (backward: the chunks
+gathered) and :func:`ppermute` (the neighbour hop of the ring and of
+GPipe; backward: the reverse hop); :func:`all_reduce`, :func:`all_gather`,
+:func:`reduce_scatter` (ZeRO's gradient shard) and :func:`hop` (one
+point-to-point step, which the ring's and GPipe's own backward schedules
+issue) have no backward.
 Several ranks sharing one card run the ``gloo`` backend (NCCL refuses two
 ranks of one communicator on one device); gloo takes CUDA operands of
 these collectives itself, copying them through host memory.
@@ -79,30 +82,37 @@ def is_main_process() -> bool:
 @dataclasses.dataclass
 class CollectiveStats:
     """Bytes a rank's collectives took in, and their count, in the forward
-    and in the backward of the autograd collectives."""
+    and in the backward of the autograd collectives; of those, the bytes
+    its point-to-point hops (:func:`hop`) sent, forward and backward."""
 
     moved: int = 0
     calls: int = 0
     backward_moved: int = 0
     backward_calls: int = 0
+    hop_moved: int = 0
+    hop_backward_moved: int = 0
 
-    def add(self, x: torch.Tensor, backward: bool = False) -> None:
+    def add(self, x: torch.Tensor, backward: bool = False,
+            hop: bool = False) -> None:
+        n = x.numel() * x.element_size()
         if backward:
-            self.backward_moved += x.numel() * x.element_size()
+            self.backward_moved += n
             self.backward_calls += 1
+            self.hop_backward_moved += n if hop else 0
         else:
-            self.moved += x.numel() * x.element_size()
+            self.moved += n
             self.calls += 1
+            self.hop_moved += n if hop else 0
 
     def reset(self) -> None:
-        self.moved = self.calls = self.backward_moved = 0
-        self.backward_calls = 0
+        for f in dataclasses.fields(self):
+            setattr(self, f.name, 0)
 
 
 def _count(stats: Optional[CollectiveStats], x: torch.Tensor,
-           backward: bool = False) -> None:
+           backward: bool = False, hop: bool = False) -> None:
     if stats is not None:
-        stats.add(x, backward)
+        stats.add(x, backward, hop)
 
 
 def _all_to_all(x, group, split_dim, concat_dim, stats, backward=False):
@@ -125,6 +135,38 @@ def _gather_cat(x, group, dim, stats, backward=False):
 def _own_chunk(x, group, dim):
     n, i = dist.get_world_size(group), dist.get_rank(group)
     return x.chunk(n, dim=dim)[i].contiguous()
+
+
+def hop(x: torch.Tensor, group, dst: Optional[int], src: Optional[int],
+        stats: Optional[CollectiveStats] = None,
+        backward: bool = False) -> Optional[torch.Tensor]:
+    """One point-to-point step over the group, with no backward: send
+    ``x`` to group rank ``dst`` (None: send nothing) and return what group
+    rank ``src`` sends, a tensor shaped like ``x`` (None where ``src`` is
+    None). Every rank of the group calls it at the same point, with the
+    ``x`` shape the others use. It is one ``all_to_all_single`` whose
+    split sizes carry the whole payload to one peer and 0 to the others:
+    the form that both gloo (CPU and CUDA operands) and NCCL take, where
+    gloo's ``send`` / ``recv`` take CPU tensors only. The bytes sent count
+    in ``stats``."""
+    n = dist.get_world_size(group)
+    flat = x.detach().contiguous().reshape(-1)
+    ins, outs = [0] * n, [0] * n
+    if dst is not None:
+        ins[dst] = flat.numel()
+    if src is not None:
+        outs[src] = flat.numel()
+    out = flat.new_empty(sum(outs))
+    dist.all_to_all_single(out, flat if dst is not None else flat[:0],
+                           outs, ins, group=group)
+    if dst is not None:
+        _count(stats, flat, backward, hop=True)
+    return None if src is None else out.view(x.shape)
+
+
+def _shifted(x, group, shift, stats, backward=False):
+    n, i = dist.get_world_size(group), dist.get_rank(group)
+    return hop(x, group, (i + shift) % n, (i - shift) % n, stats, backward)
 
 
 def _all_reduce(x, group, stats, backward=False):
@@ -205,6 +247,31 @@ class _OwnChunk(torch.autograd.Function):
     def backward(ctx, g):
         group, dim, stats = ctx.args
         return _gather_cat(g, group, dim, stats, True), None, None, None
+
+
+class _Ppermute(torch.autograd.Function):
+    """The ring shift; backward: the reverse shift of the gradient."""
+
+    @staticmethod
+    def forward(ctx, x, group, shift, stats):
+        ctx.args = (group, shift, stats)
+        return _shifted(x, group, shift, stats)
+
+    @staticmethod
+    def backward(ctx, g):
+        group, shift, stats = ctx.args
+        return _shifted(g, group, -shift, stats, True), None, None, None
+
+
+def ppermute(x: torch.Tensor, group, shift: int,
+             stats: Optional[CollectiveStats] = None) -> torch.Tensor:
+    """``jax.lax.ppermute`` over the group's ring: group rank i sends ``x``
+    to rank (i + shift) mod n and returns what rank (i - shift) mod n sent.
+    Differentiable: the backward is the reverse shift (its bytes count as
+    the backward's). Every rank must reach the backward: a schedule whose
+    last hop is unused on some ranks issues its hops itself (:func:`hop`)
+    in one explicit backward."""
+    return _Ppermute.apply(x, group, shift, stats)
 
 
 def all_to_all(x: torch.Tensor, group, split_dim: int, concat_dim: int,

@@ -5,10 +5,14 @@ the JAX package states shardings and lets XLA insert the collectives, each
 rank here holds its own part and calls the collectives itself:
 
 - :func:`make_mesh` places global rank r where ``make_mesh`` of the JAX
-  package places device r: ``np.arange(n).reshape(data, seq, tensor)``
-  (:func:`rank_grid`; the JAX grid's pipe axis is 1 when serving), and
-  creates one group per line of every axis longer than 1 (each rank creates every group, in one order: group
-  creation is collective);
+  package places device r: ``np.arange(n).reshape(data, seq, tensor,
+  pipe)`` (:func:`rank_grid`: pipe is the fastest axis), and creates one
+  group per line of every axis longer than 1 (each rank creates every
+  group, in one order: group creation is collective);
+- the pipe axis stages the layer stack: :func:`stage_layers` is the
+  contiguous block of layers a pipe rank holds (the JAX ``param_specs(pp=
+  True)`` shards the scanned layer axis ``P('pipe')``); the ZeRO rules
+  below apply to a stage's own layers over ``data``;
 - :func:`split_seq` / :func:`gather_seq` take the place of
   ``constrain_activations`` and ``constrain_replicated``: the trunk's
   [B, L, D] activations are split into contiguous L/S chunks over the seq
@@ -30,8 +34,6 @@ rank here holds its own part and calls the collectives itself:
   (backward: the reduce-scatter of their gradients);
 - :func:`batch_rows`: this data rank's rows of the global batch
   (``batch_sharding``).
-
-The pipe axis is the mesh's training half, part B (ROADMAP.md queue 1).
 """
 from __future__ import annotations
 
@@ -47,12 +49,14 @@ from . import distributed as coll
 DATA_AXIS = "data"
 SEQ_AXIS = "seq"
 TENSOR_AXIS = "tensor"   # Megatron TP: heads / MLP features
-AXES = (DATA_AXIS, SEQ_AXIS, TENSOR_AXIS)
+PIPE_AXIS = "pipe"       # GPipe: layer-stack stages
+AXES = (DATA_AXIS, SEQ_AXIS, TENSOR_AXIS, PIPE_AXIS)
 
 
 def rank_grid(cfg: MeshConfig) -> np.ndarray:
-    """[data, seq, tensor] array of global ranks."""
-    return np.arange(cfg.num_devices).reshape(cfg.data, cfg.seq, cfg.tensor)
+    """[data, seq, tensor, pipe] array of global ranks."""
+    return np.arange(cfg.num_devices).reshape(cfg.data, cfg.seq, cfg.tensor,
+                                              cfg.pipe)
 
 
 class Mesh:
@@ -106,6 +110,13 @@ class Mesh:
                   ) -> torch.Tensor:
         return coll.own_chunk(x, self.groups[axis], dim, self.stats)
 
+    def hop(self, x: torch.Tensor, axis: str, dst: Optional[int],
+            src: Optional[int], backward: bool = False
+            ) -> Optional[torch.Tensor]:
+        """``x`` to the axis's rank ``dst``, what its rank ``src`` sends
+        back (:func:`distributed.hop`; no backward)."""
+        return coll.hop(x, self.groups[axis], dst, src, self.stats, backward)
+
     def reduce_scatter(self, x: torch.Tensor, axis: str, dim: int,
                        backward: bool = False) -> torch.Tensor:
         return coll.reduce_scatter(x, self.groups[axis], dim, self.stats,
@@ -136,6 +147,19 @@ def make_mesh(cfg: MeshConfig) -> Mesh:
 def axis_size(mesh: Optional[Mesh], axis: str) -> int:
     """Size of ``axis`` (1 without a mesh)."""
     return 1 if mesh is None else mesh.size(axis)
+
+
+def stage_layers(mesh: Optional[Mesh], num_layers: int) -> range:
+    """The global indices of the layers this pipe rank holds: its
+    contiguous block of ``num_layers / pipe`` (all of them without a pipe
+    axis)."""
+    pp = axis_size(mesh, PIPE_AXIS)
+    if num_layers % pp:
+        raise ValueError(f"num_layers={num_layers} not divisible by the pipe "
+                         f"axis {pp}")
+    per = num_layers // pp
+    s = 0 if mesh is None else mesh.index(PIPE_AXIS)
+    return range(s * per, (s + 1) * per)
 
 
 def cache_heads(mesh: Optional[Mesh], n_heads: int) -> slice:

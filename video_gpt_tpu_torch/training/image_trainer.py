@@ -11,7 +11,9 @@ stream of every batch is padded to one length, ``pad_to`` (default
 ``min(max_input_length_limit, 512 + max_input_images * n_region + 1 +
 n_out)``, rounded down to the seq multiple on a mesh, then up to it). Runs
 on CUDA unless the caller asks for the CPU. ``mesh_cfg`` trains over data
-x seq x tensor ranks as the video ``Trainer`` does (its module docstring).
+x seq x tensor ranks as the video ``Trainer`` does (its module docstring;
+the ring under ``sp_attention='ring'`` too); a pipe axis is refused, as
+the JAX package refuses it.
 """
 from __future__ import annotations
 
@@ -70,9 +72,15 @@ class ImageGenTrainer:
         check_train_config(train_cfg)
         self.mesh = None
         if mesh_cfg is not None and mesh_cfg.num_devices > 1:
+            if mesh_cfg.pipe > 1:
+                raise ValueError("pipeline parallelism is wired for the "
+                                 "video Trainer; use dp/sp/tensor here")
             check_mesh_recipe(train_cfg)
             self.mesh = make_mesh(mesh_cfg)
         sp = axis_size(self.mesh, SEQ_AXIS)
+        if sp > 1:
+            model_cfg = dataclasses.replace(
+                model_cfg, sp_attention=train_cfg.sp_attention)
         if train_cfg.gradient_checkpointing and not model_cfg.remat:
             model_cfg = dataclasses.replace(model_cfg, remat=True)
         self.model_cfg = model_cfg

@@ -114,7 +114,8 @@ def training_loss(model, inputs: LossInputs, draws: LossDraws,
                   input_noise: float = 0.9, order: int = 2,
                   prediction_target: str = "x1",
                   input_output_return: bool = False,
-                  denominator: Optional[torch.Tensor] = None):
+                  denominator: Optional[torch.Tensor] = None,
+                  apply_fn=None):
     """(scalar loss, aux dict with the per-frame losses) of ``model`` on
     ``inputs`` with the random numbers ``draws``. The forward runs under
     the caller's autocast; the loss is taken in fp32.
@@ -122,7 +123,9 @@ def training_loss(model, inputs: LossInputs, draws: LossDraws,
     (the image family: x1 - x0). ``input_output_return`` adds the aux
     head's reconstruction loss of the clean frames (the model must carry
     ``input_head``): loss = (sum per_frame + sum per_clean) / (Nn +
-    n_clean), with n_clean the real clean frames of ``clean_weights``."""
+    n_clean), with n_clean the real clean frames of ``clean_weights``.
+    ``apply_fn`` replaces ``model``'s forward, with its signature (the
+    GPipe trunk, ``parallel.pipeline.pp_apply``)."""
     x1, clean = inputs.x1, inputs.clean_latents
     x0 = draws.x0.to(x1.dtype)
     t = sample_block_timesteps(draws.t_table, inputs.noisy_frame_row,
@@ -134,11 +137,12 @@ def training_loss(model, inputs: LossInputs, draws: LossDraws,
     else:
         clean_in = clean
 
+    call = model if apply_fn is None else apply_fn
     if input_output_return:
-        pred, clean_pred = model(inputs.batch, xt, t, clean_in,
-                                 input_output_return=True)
+        pred, clean_pred = call(inputs.batch, xt, t, clean_in,
+                                input_output_return=True)
     else:
-        pred = model(inputs.batch, xt, t, clean_in)
+        pred = call(inputs.batch, xt, t, clean_in)
 
     target = x1 if prediction_target == "x1" else x1 - x0
     diff = target.float() - pred.float()

@@ -32,8 +32,11 @@ no rank holds its whole fp32 gradient beside its shards:
   each parameter, its gradient part arrives by reduce-scatter, the rank
   updates its part and all-gathers the parameter; ZeRO-3: the parameter
   is the part (its gradient part comes from the gather's backward);
-- the clip's norm sums the squares of each rank's parts over ``data`` and
-  ``tensor``, counting a replicated parameter once;
+- no reduction over ``pipe``: a layer's parameters live on one stage, whose
+  gradient is whole there; the pipeline hands every pipe rank the whole
+  gradient of what runs before and after the trunk (``parallel.pipeline``);
+- the clip's norm sums the squares of each rank's parts over ``data``,
+  ``tensor`` and ``pipe``, counting a replicated parameter once;
 - under accumulation each micro-step's gradient is reduced (the
   micro-step's norm, a metric, is the global gradient's, as in JAX) and
   the running mean kept in parts.
@@ -48,8 +51,8 @@ from typing import Callable, Dict, List, Optional
 import torch
 
 from ..config import TrainConfig
-from ..parallel.mesh import (DATA_AXIS, SEQ_AXIS, TENSOR_AXIS, axis_size,
-                             zero_dim)
+from ..parallel.mesh import (DATA_AXIS, PIPE_AXIS, SEQ_AXIS, TENSOR_AXIS,
+                             axis_size, zero_dim)
 from ..parallel.tensor import TP_SHARDED
 from .lora import lora_state_dict
 from .loss import LossDraws, LossInputs, training_loss
@@ -103,12 +106,13 @@ class Placement:
     rank's tensor that its optimizer state (and, with ``zero3``, itself)
     is sharded along over ``data`` (None: replicated); ``seq_sum``, its
     gradient is partial per seq rank; ``tp_sharded``, it is a tensor
-    rank's own part."""
+    rank's own part; ``pipe_staged``, a pipe stage's own layer."""
 
     dim: Optional[int] = None
     zero3: bool = False
     seq_sum: bool = False
     tp_sharded: bool = False
+    pipe_staged: bool = False
 
 
 def placement(name: str, p: torch.Tensor, mesh) -> Placement:
@@ -121,7 +125,9 @@ def placement(name: str, p: torch.Tensor, mesh) -> Placement:
         seq_sum=(axis_size(mesh, SEQ_AXIS) > 1
                  and name.startswith("llm.layers.")),
         tp_sharded=(axis_size(mesh, TENSOR_AXIS) > 1 and name.endswith(
-            TP_SHARDED)))
+            TP_SHARDED)),
+        pipe_staged=(axis_size(mesh, PIPE_AXIS) > 1
+                     and name.startswith("llm.layers.")))
 
 
 class AdamW:
@@ -195,14 +201,16 @@ class AdamW:
         if self.mesh is None:
             return global_norm(grads)
         mesh = self.mesh
-        first = {a: mesh.index(a) == 0 for a in (DATA_AXIS, TENSOR_AXIS)}
+        axes = (DATA_AXIS, TENSOR_AXIS, PIPE_AXIS)
+        first = {a: mesh.index(a) == 0 for a in axes}
         sq = torch.zeros((), device=grads[0].device)
         for g, place in zip(grads, self.places):
             # a part held alike by the ranks of an axis counts once
             if (place.dim is not None or first[DATA_AXIS]) and (
-                    place.tp_sharded or first[TENSOR_AXIS]):
+                    place.tp_sharded or first[TENSOR_AXIS]) and (
+                    place.pipe_staged or first[PIPE_AXIS]):
                 sq = sq + torch.linalg.vector_norm(g.float()) ** 2
-        for axis in (DATA_AXIS, TENSOR_AXIS):
+        for axis in axes:
             if axis_size(mesh, axis) > 1:
                 mesh.all_reduce(sq, axis, backward=True)
         return sq.sqrt()
@@ -400,12 +408,15 @@ def loss_step(state: TrainState, loss_fn: Callable, cfg: TrainConfig,
 
 
 def make_train_step(model: torch.nn.Module, cfg: TrainConfig,
-                    prediction_target: str = "x1") -> Callable:
+                    prediction_target: str = "x1",
+                    apply_fn: Optional[Callable] = None) -> Callable:
     """``step(state, inputs, draws[, denominator]) -> metrics``: loss,
     backward, clip, AdamW and the gated EMA, in place on ``state``
     (``denominator``: ``training_loss``'s, a data rank's).
     ``prediction_target='velocity'`` trains the image family's target;
-    ``cfg.input_output_return`` adds the aux input head's loss."""
+    ``cfg.input_output_return`` adds the aux input head's loss;
+    ``apply_fn`` replaces the model's forward (with its signature): the
+    GPipe trunk, ``parallel.pipeline.pp_apply``."""
 
     def step(state: TrainState, inputs: LossInputs, draws: LossDraws,
              denominator=None):
@@ -413,7 +424,8 @@ def make_train_step(model: torch.nn.Module, cfg: TrainConfig,
             model, inputs, draws, input_noise=cfg.input_noise,
             prediction_target=prediction_target,
             input_output_return=cfg.input_output_return,
-            denominator=denominator), cfg, inputs.x1.device)
+            denominator=denominator, apply_fn=apply_fn), cfg,
+            inputs.x1.device)
 
     return step
 

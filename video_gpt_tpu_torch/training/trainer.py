@@ -24,20 +24,27 @@ loss adds its reconstruction of the clean frames. Two recipes change what
   with ``distill_guidance`` the batches carry the 'uncond' layout.
 
 ``mesh_cfg`` (one process per rank, ``parallel/mesh.py``) trains over
-data x seq x tensor ranks: the global batch is ``batch_size_per_device x
-data`` rows, of which each data rank loads and collates its own (the
+data x seq x tensor x pipe ranks: the global batch is
+``batch_size_per_device x data`` rows, of which each data rank loads and
+collates its own (the
 dataset is not split by process: every rank reads the same global clip
 indices, as the single-host JAX run does); the sequence is padded to the
-seq multiple; the random numbers of step i are drawn for the global batch
-and sliced to the rank's rows, so a mesh step computes what one rank
-computes on the global batch. The model is built for the mesh (its tensor
-part, its ZeRO-3 parts; random weights are the one-rank model's), AdamW's
-state is ZeRO-sharded (``train_state``), each rank checkpoints its part,
-and rank 0 alone logs. LoRA and distillation on a mesh are not ported.
+seq multiple, and the attention over seq is ``TrainConfig.sp_attention``'s
+(Ulysses or the ring); the random numbers of step i are drawn for the
+global batch and sliced to the rank's rows, so a mesh step computes what
+one rank computes on the global batch. The model is built for the mesh
+(its tensor part, its ZeRO-3 parts, its pipe stage's layers; random
+weights are the one-rank model's), the loss runs the trunk as a GPipe
+pipeline of ``pp_microbatches`` microbatches on a pipe mesh
+(``parallel.pipeline.pp_apply``), AdamW's state is ZeRO-sharded
+(``train_state``), each rank checkpoints its part, and rank 0 alone logs.
+A pipe axis composes with data only. LoRA and distillation on a mesh are
+not ported.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import os
 import time
@@ -53,9 +60,10 @@ from ..layout import tokens_per_frame
 from ..models.vae import AutoencoderKL, VAEConfig
 from ..models.video_gpt import VideoGPT
 from ..parallel.distributed import GracefulShutdown
-from ..parallel.mesh import (DATA_AXIS, SEQ_AXIS, TENSOR_AXIS, axis_size,
-                             batch_rows, make_mesh, shard_params_,
+from ..parallel.mesh import (DATA_AXIS, PIPE_AXIS, SEQ_AXIS, TENSOR_AXIS,
+                             axis_size, batch_rows, make_mesh, shard_params_,
                              zero_shard)
+from ..parallel.pipeline import pp_apply
 from ..sampling.pipeline import resolve_device
 from ..utils import checkpoint as ckpt
 from ..utils.weights import (tp_shard, tp_shard_state_dict,
@@ -94,8 +102,12 @@ class Trainer:
         check_train_config(train_cfg)
         self.mesh = None
         if mesh_cfg is not None and mesh_cfg.num_devices > 1:
+            check_pipe(mesh_cfg, model_cfg, train_cfg)
             check_mesh_recipe(train_cfg)
             self.mesh = make_mesh(mesh_cfg)
+            if mesh_cfg.seq > 1:
+                model_cfg = dataclasses.replace(
+                    model_cfg, sp_attention=train_cfg.sp_attention)
         if train_cfg.gradient_checkpointing and not model_cfg.remat:
             model_cfg = dataclasses.replace(model_cfg, remat=True)
         if train_cfg.use_lora and not model_cfg.lora_rank:
@@ -222,7 +234,12 @@ class Trainer:
             freeze_base_(model)
             self._step_fn = make_lora_train_step(model, cfg)
             return init_lora_train_state(model, cfg)
-        self._step_fn = make_train_step(model, cfg)
+        apply_fn = None
+        if axis_size(self.mesh, PIPE_AXIS) > 1:
+            # the GPipe trunk: the stage's layers over the pipe axis
+            apply_fn = functools.partial(
+                pp_apply, model, num_micro=num_micro(self.mesh.cfg, cfg))
+        self._step_fn = make_train_step(model, cfg, apply_fn=apply_fn)
         return init_train_state(model, cfg, self.mesh)
 
     def step_generator(self, step_idx: int) -> torch.Generator:
@@ -328,6 +345,39 @@ class Trainer:
             print(msg, flush=True)
 
 
+def num_micro(mesh_cfg: MeshConfig, cfg: TrainConfig) -> int:
+    """GPipe's microbatches a step: ``pp_microbatches``, or one per
+    stage."""
+    return cfg.pp_microbatches or mesh_cfg.pipe
+
+
+def check_pipe(mesh_cfg: MeshConfig, model_cfg: ModelConfig,
+               cfg: TrainConfig) -> None:
+    """Raise, with the JAX Trainer's messages, on a pipe mesh it refuses:
+    pipe with seq or tensor, with LoRA, layers that the stages do not
+    divide, rows per rank that the microbatches do not."""
+    pp = mesh_cfg.pipe
+    if pp == 1:
+        return
+    if mesh_cfg.seq > 1 or mesh_cfg.tensor > 1:
+        raise ValueError(
+            "pipeline parallelism composes with data parallelism "
+            "only (the stage body is local math); use tp/sp "
+            "without pp for those regimes")
+    if cfg.use_lora:
+        raise ValueError("LoRA fine-tuning does not route through "
+                         "the pipeline trunk; use dp/ZeRO for LoRA")
+    if model_cfg.num_layers % pp:
+        raise ValueError(
+            f"num_layers={model_cfg.num_layers} not divisible by "
+            f"the pipe axis {pp}")
+    nm = num_micro(mesh_cfg, cfg)
+    if cfg.batch_size_per_device % nm:
+        raise ValueError(
+            f"batch_size_per_device={cfg.batch_size_per_device} not "
+            f"divisible by pp_microbatches={nm}")
+
+
 def check_mesh_recipe(cfg: TrainConfig) -> None:
     """Raise on a recipe the mesh does not run yet."""
     for flag in ("use_lora", "distill"):
@@ -371,10 +421,14 @@ def init_model_(model: VideoGPT, mesh, gen: torch.Generator) -> None:
 
 
 def shard_state_dict(sd: dict, model: VideoGPT, mesh) -> dict:
-    """This rank's part of a one-rank state dict: its tensor part, and
-    under ZeRO-3 its data part of that (``sd`` itself without a mesh)."""
+    """This rank's part of a one-rank state dict: its pipe stage's entries,
+    its tensor part, and under ZeRO-3 its data part of that (``sd`` itself
+    without a mesh)."""
     if mesh is None:
         return sd
+    if axis_size(mesh, PIPE_AXIS) > 1:
+        mine = model.state_dict().keys()
+        sd = {k: v for k, v in sd.items() if k in mine}
     sd = tp_shard_state_dict(sd, model.cfg, axis_size(mesh, TENSOR_AXIS),
                              mesh.index(TENSOR_AXIS))
     if mesh.cfg.zero_params:

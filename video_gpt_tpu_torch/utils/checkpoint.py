@@ -12,9 +12,10 @@ of a LoRA run, whose checkpoints hold nothing else of the model.
 
 A mesh run writes each rank's part of the train state,
 ``<directory>/<step>/rank<r>.pt``, and rank 0 a record of the mesh,
-``mesh.json`` (its axes, ZeRO-3, each parameter's ZeRO dimension and the
-widths the tensor-parallel layout needs). It resumes on the same mesh
-only; :func:`load_train_params` puts the parameters of the parts back
+``mesh.json`` (its axes, ZeRO-3, each parameter's ZeRO dimension, every
+pipe stage's layers included, and the widths the tensor-parallel and pipe
+layouts need). It resumes on the same mesh only;
+:func:`load_train_params` puts the parameters of the parts back
 together into the one-rank layout, reading only the parameters from each
 part, so a mesh run's checkpoint serves and warm-starts at any mesh.
 """
@@ -97,17 +98,27 @@ def _write(directory: str, step: int, host_state, keep: int,
 
 def mesh_record(mesh, model) -> dict:
     """What a mesh run's checkpoint records beside its parts: the axes,
-    ZeRO-3, each parameter's ZeRO dimension (of the rank's tensor) and the
-    model widths that the tensor-parallel layout depends on."""
-    cfg = model.cfg
+    ZeRO-3, each parameter's ZeRO dimension (of the rank's tensor; a pipe
+    stage's layers as rank 0's stage's) and the model widths that the
+    tensor-parallel and pipe layouts depend on."""
+    cfg, pp = model.cfg, mesh.cfg.pipe
+    per = cfg.num_layers // pp
+    dims = {}
+    for n, p in model.named_parameters():
+        d = getattr(p, "zero_dim", None)
+        layer = re.fullmatch(r"llm\.layers\.(\d+)\.(.*)", n)
+        if layer is None:
+            dims[n] = d
+            continue
+        for stage in range(pp):
+            dims[f"llm.layers.{int(layer[1]) % per + stage * per}."
+                 f"{layer[2]}"] = d
     return dict(data=mesh.cfg.data, seq=mesh.cfg.seq,
                 tensor=mesh.cfg.tensor, zero_params=mesh.cfg.zero_params,
-                ranks=mesh.cfg.num_devices,
-                zero_dims={n: getattr(p, "zero_dim", None)
-                           for n, p in model.named_parameters()},
+                pipe=pp, ranks=mesh.cfg.num_devices, zero_dims=dims,
                 model={k: getattr(cfg, k) for k in (
                     "hidden_size", "num_heads", "num_kv_heads",
-                    "intermediate_size")})
+                    "intermediate_size", "num_layers")})
 
 
 class CheckpointWriter:
@@ -178,8 +189,10 @@ def _path(directory: str, step: Optional[int]) -> Tuple[str, int]:
 def _mesh_name(rec: Optional[dict]) -> str:
     if rec is None:
         return "one rank"
+    pipe = rec.get("pipe", 1)
     return (f"(data {rec['data']}, seq {rec['seq']}, tensor "
-            f"{rec['tensor']}{', zero3' if rec['zero_params'] else ''})")
+            f"{rec['tensor']}{f', pipe {pipe}' if pipe > 1 else ''}"
+            f"{', zero3' if rec['zero_params'] else ''})")
 
 
 def restore_checkpoint(directory: str, state_like: Any,
@@ -193,9 +206,9 @@ def restore_checkpoint(directory: str, state_like: Any,
     rec = _mesh_record(path)
     want = None if mesh is None else dict(
         data=mesh.cfg.data, seq=mesh.cfg.seq, tensor=mesh.cfg.tensor,
-        zero_params=mesh.cfg.zero_params)
+        zero_params=mesh.cfg.zero_params, pipe=mesh.cfg.pipe)
     if (rec is None) != (want is None) or (rec is not None and any(
-            rec[k] != v for k, v in want.items())):
+            rec.get(k, 1) != v for k, v in want.items())):
         raise ValueError(
             f"checkpoint {step} under {directory} was written on "
             f"{_mesh_name(rec)}, not {_mesh_name(want)}: resume it on its "
@@ -210,12 +223,15 @@ def restore_checkpoint(directory: str, state_like: Any,
 def _mesh_params(path: str, rec: dict, field: str) -> Optional[dict]:
     """The one-rank layout of ``field`` ("model" or "ema") put together
     from a mesh checkpoint's parts (``weights.unshard``; the seq-0 ranks'
-    parts, memory-mapped, only the parameters read)."""
+    parts, a layer's from its pipe stage's ranks, memory-mapped, only the
+    parameters read)."""
     from ..config import MeshConfig, ModelConfig
     from ..parallel.mesh import rank_grid
     from .weights import unshard
 
-    grid = rank_grid(MeshConfig(rec["data"], rec["seq"], rec["tensor"]))
+    pp = rec.get("pipe", 1)
+    grid = rank_grid(MeshConfig(rec["data"], rec["seq"], rec["tensor"],
+                                pipe=pp))
     cfg = ModelConfig(**rec["model"])
     files = {}
 
@@ -228,9 +244,16 @@ def _mesh_params(path: str, rec: dict, field: str) -> Optional[dict]:
 
     if state(0) is None:
         return None
-    return {name: unshard(name, lambda d, t: state(int(grid[d, 0, t]))[name],
-                          dim, rec["data"], rec["tensor"], cfg)
-            for name, dim in rec["zero_dims"].items()}
+    def stage(name: str) -> int:
+        layer = re.match(r"llm\.layers\.(\d+)\.", name)
+        if layer is None or pp == 1:
+            return 0
+        return int(layer[1]) // (cfg.num_layers // pp)
+
+    return {name: unshard(
+        name, lambda d, t: state(int(grid[d, 0, t, stage(name)]))[name],
+        dim, rec["data"], rec["tensor"], cfg)
+        for name, dim in rec["zero_dims"].items()}
 
 
 def load_train_params(directory: str, step: Optional[int] = None,

@@ -61,13 +61,16 @@ def replicated_divergence(named, mesh) -> float:
     """The largest :func:`shard_divergence` of the tensors ``named`` (name,
     tensor) over each mesh axis whose ranks hold them alike: seq always,
     data unless the tensor is a ZeRO-3 part (tagged ``zero_dim``), tensor
-    unless it is a tensor rank's own part of a projection. Every rank
-    calls it with the same names, in one order."""
-    from ..parallel.mesh import DATA_AXIS, SEQ_AXIS, TENSOR_AXIS
+    unless it is a tensor rank's own part of a projection, pipe unless it
+    is a layer (a stage's own). Every rank calls it with its names in
+    their order: the ranks of an axis's group hold the same ones."""
+    from ..parallel.mesh import DATA_AXIS, PIPE_AXIS, SEQ_AXIS, TENSOR_AXIS
     from ..parallel.tensor import TP_SHARDED
     worst = 0.0
     for name, x in named:
         axes = [SEQ_AXIS]
+        if not name.startswith("llm.layers."):
+            axes.append(PIPE_AXIS)
         if getattr(x, "zero_dim", None) is None:
             axes.append(DATA_AXIS)
         if not name.endswith(TP_SHARDED):
