@@ -58,7 +58,9 @@ Phases, in order; any failure exits nonzero and none is caught:
    guidance 1.5 and a 24-frame window, so the context keeps all 8 frames:
    once to warm up (checking that no float op runs on the host), once
    timed; the launch counts must be exactly the path's (prefill 32, cond
-   decode 320, uncond 320), with one build of the bias's tile map;
+   decode 320, uncond 320), with one build of the bias's tile map; its
+   MFU on a line of its own (``utils.profiling.mfu`` of ``bench.py``'s
+   model flops, against the card's bf16 dense peak);
 6. extend path: a two-block rollout without re-noise, whose second block
    grows the KV cache through the split decode kernel;
 7. serving profile: the main path once more under torch.profiler, tracing
@@ -105,28 +107,39 @@ Phases, in order; any failure exits nonzero and none is caught:
    (data 2), (seq 2), (tensor 2), (data 2, zero3) and (data 2, seq 2,
    tensor 2, zero3), the ring over (seq 2), (seq 4) and (data 2, seq 2,
    tensor 2, zero3), and GPipe over (pipe 2, 2 microbatches) and (data 2,
-   pipe 2, 4 microbatches, 8 rows), against the one-rank step on the same
-   rows on the CPU in fp32 (bars: the training reference's, per step;
-   each rank its exact K3/K9 or K6/K7 launches; the replicated parameters
-   bit-equal across the ranks); then the recipes of
+   pipe 2, 4 microbatches, 8 rows), LoRA (rank 8) over (data 2, seq 2,
+   tensor 2, zero3) and the ring's (seq 2), guided distillation over (seq
+   2, tensor 2) and distillation over (data 2, pipe 2, 2 microbatches, 4
+   rows) (a student other than its teacher), against the one-rank step on
+   the same rows on the CPU in fp32 (bars: the training reference's, per
+   step; each rank its exact K3/K9 or K6/K7 launches; the replicated
+   parameters bit-equal across the ranks; the LoRA base or the teacher
+   bit-equal on every rank); then the recipes of
    ``configs/pretrain_multichip_examples.sh`` at full width through the
    Trainer's own step, a warm-up and a timed step each: dp_tp_zero3 as
-   (data 2, tensor 2, zero3) at 8 of the 32 layers (stage 1, each rank
-   16 K3 and 8 K9 at 16 heads), dp_sp as (data 2, seq 2) at 2 layers
-   and dp_sp_tp's (seq 2, tensor 2) at stage 4 and 8 layers (a
+   (data 2, tensor 2, zero3) at 4 of the 32 layers (stage 1, each rank
+   8 K3 and 4 K9 at 16 heads), dp_sp as (data 2, seq 2) at 2 layers
+   and dp_sp_tp's (seq 2, tensor 2) at stage 4 and 2 layers (a
    replicating axis holds 16 B a parameter on each of its ranks: full
-   depth does not fit the card twice; the first two were cut from 32 and
-   8 layers for the script's time), the ring on that (seq 2, tensor 2)
-   stage-4 run (each rank 32 K6 and 16 K7 at 16 heads over 17,760-token
+   depth does not fit the card twice; the three were cut from 32, 8 and 8
+   layers for the script's time), the ring on that (seq 2, tensor 2)
+   stage-4 run (each rank 8 K6 and 4 K7 at 16 heads over 17,760-token
    chunks), and dp_pp
    without its data axis as (pipe 4), stage 1, 4 rows in 4 microbatches,
-   16 layers (4 a stage: each rank 32 K6 and 16 K7 at 32 heads); each
-   with the slowest rank's step time, global tokens/s, each rank's
-   collective bytes (forward; backward with the optimizer's; the hops'
-   apart), peak memory, a gradient into its first layer's attention and
-   into the patch embedder (under pipe, after the input gradient's sum
-   over the stages), moved parameters and divergence 0 (not multi-GPU
-   speed);
+   8 layers (2 a stage, cut from 16: each rank 16 K6 and 8 K7 at 32
+   heads); LoRA on dp_tp_zero3's (data 2, tensor 2, zero3) at stage 1
+   and 4 layers (each rank 8 K3 and 4 K9, its adapters' tensor and ZeRO
+   parts over a frozen base), and guided distillation on (seq 2, tensor
+   2) at stage 1 and 4 layers (each rank 24 K6 and 4 K7: four teacher
+   forwards, the
+   student's forward and recompute); each with the slowest rank's step
+   time, global tokens/s, each rank's collective bytes (forward; backward
+   with the optimizer's; the hops' apart), peak memory, its trained and
+   frozen parameters, a gradient into its first layer's attention and
+   into the patch embedder (LoRA: into the first layer's lora_B; under
+   pipe, after the input gradient's sum over the stages), moved
+   parameters, the LoRA base or the teacher bit-equal and divergence 0
+   (not multi-GPU speed);
 12. small-input training reference, twice: one loss and backward of a tiny
    model (head_dim 96, GQA) on the card (bf16, kernels) against the CPU
    (fp32, plain versions) with the same weights and random numbers: loss
@@ -141,13 +154,14 @@ Phases, in order; any failure exits nonzero and none is caught:
    exactly 64 K3 and 32 K9 launches and no other, one build of the bias's
    tile map, finite loss and gradient
    norm, a nonzero gradient into layer 0's attention, and AdamW moving the
-   parameters; then one more step under torch.profiler (device time by
-   group, the optimizer's range apart);
+   parameters; its MFU on a line of its own (``bench_suite.py``'s 6PT
+   and attention flops); then one more step under torch.profiler (device
+   time by group, the optimizer's range apart);
 14. stage-4 training path, the same at 80 frames in the frame blocks of one
    seeded ``random_block_partition`` draw (L 35520, all 32 layers), after
    the stage-1 trainer is freed (two 56 GiB states do not fit): one
    warm-up step and 2 timed steps, each with exactly 64 K6 and 32 K7
-   launches and no other, then one profiled step;
+   launches and no other, its MFU line, then one profiled step;
 15. LoRA path, after the stage-4 trainer is freed (less than 1 GiB may
    stay allocated between these phases): rank-8 adapters on every layer's
    qkv_proj and o_proj over a frozen stage-1 model at full width (random
@@ -209,7 +223,7 @@ clip 1.0) with a constant learning rate of 1e-4: the recipes' 320000-step
 linear warmup gives a learning rate of 0 at step 0, which would leave the
 parameters unmoved. The LoRA and distillation paths take stage 1's
 recipe with their own flags; train-image and the input-head path take a
-constant learning rate too. About 16 minutes on one H100.
+constant learning rate too. About 19 minutes on one H100.
 
 ``--mesh-train`` builds the kernels and runs only the mesh training's
 kernel records and phase 11a (a development reading; no device line).
@@ -227,6 +241,7 @@ from __future__ import annotations
 
 import concurrent.futures
 import contextlib
+import dataclasses
 import gc
 import json
 import math
@@ -272,7 +287,8 @@ from video_gpt_tpu_torch.training.data import collate
 from video_gpt_tpu_torch.training.image_trainer import ImageGenTrainer
 from video_gpt_tpu_torch.training.distill import (DistillDraws,
                                                   distillation_loss)
-from video_gpt_tpu_torch.training.lora import lora_state_dict, merge_lora
+from video_gpt_tpu_torch.training.lora import (is_adapter, lora_state_dict,
+                                               merge_lora)
 from video_gpt_tpu_torch.training.loss import LossDraws, training_loss
 from video_gpt_tpu_torch.training.train_state import autocast
 from video_gpt_tpu_torch.training.trainer import Trainer
@@ -1379,7 +1395,9 @@ def mesh_clip_phase(seq: int, tensor: int, res: list, single: torch.Tensor,
 class MeshRun(NamedTuple):
     """A mesh of the mesh training phases: its config, the attention over
     seq, GPipe's microbatches (0: one per stage), the global batch's rows,
-    and (full width) the stage and the layers."""
+    (full width) the stage and the layers, and the recipe: "train",
+    "lora" (rank-8 adapters over a frozen base), "distill" or
+    "distill_guided" (a frozen teacher, guidance 1.5)."""
 
     cfg: MeshConfig
     sp: str = "ulysses"
@@ -1387,12 +1405,15 @@ class MeshRun(NamedTuple):
     rows: int = 2
     stage: int = 1
     layers: int = 4
+    recipe: str = "train"
 
 
 # the small-input mesh training reference: the data, seq and tensor
 # meshes, the ring's (seq 2), (seq 4) and (data 2, seq 2, tensor 2,
 # zero3), GPipe's (pipe 2, nm 2) and (data 2, pipe 2, nm 4) (4 rows a data
-# rank)
+# rank); LoRA on (data 2, seq 2, tensor 2, zero3) and on the ring's (seq
+# 2), guided distillation on (seq 2, tensor 2) and distillation on (data
+# 2, pipe 2, nm 2)
 MESH_TRAIN_REF = (
     MeshRun(MeshConfig(2)), MeshRun(MeshConfig(1, 2)),
     MeshRun(MeshConfig(1, 1, 2)), MeshRun(MeshConfig(2, zero_params=True)),
@@ -1400,25 +1421,35 @@ MESH_TRAIN_REF = (
     MeshRun(MeshConfig(1, 4), "ring"),
     MeshRun(MeshConfig(2, 2, 2, True), "ring"),
     MeshRun(MeshConfig(pipe=2), nm=2),
-    MeshRun(MeshConfig(2, pipe=2), nm=4, rows=8))
+    MeshRun(MeshConfig(2, pipe=2), nm=4, rows=8),
+    MeshRun(MeshConfig(2, 2, 2, True), recipe="lora"),
+    MeshRun(MeshConfig(1, 2), "ring", recipe="lora"),
+    MeshRun(MeshConfig(1, 2, 2), recipe="distill_guided"),
+    MeshRun(MeshConfig(2, pipe=2), nm=2, rows=4, recipe="distill"))
 # its tiny model's layers, frames (stage 1's interleaved blocks) and steps
 MESH_TRAIN_PX, MESH_TRAIN_FRAMES = (48, 64), 4
 MESH_TRAIN_LAYERS, MESH_TRAIN_STEPS = 4, 2
 # full width, the recipes of configs/pretrain_multichip_examples.sh at the
 # card's sizes, one row a data rank but GPipe's four. The ring runs
-# dp_sp_tp's (seq 2, tensor 2) at stage 4 and 8 layers beside Ulysses
-# there; GPipe runs dp_pp without its data axis, (pipe 4) at 4
-# microbatches and 16 layers (4 a stage: 16 B a parameter of 0.6B a rank).
-# Cut for the script's time when those two joined: dp_tp_zero3 (which fits
-# full depth: every axis shards its state) from 32 layers to 8, dp_sp
-# from 8 to 2 (a replicating axis holds 16 B a parameter on each of its
-# ranks: full depth does not fit one card twice)
+# dp_sp_tp's (seq 2, tensor 2) at stage 4 beside Ulysses there; GPipe
+# runs dp_pp without its data axis, (pipe 4) at 4 microbatches; LoRA runs
+# on dp_tp_zero3's mesh and guided distillation on (seq 2, tensor 2), both
+# at stage 1. A replicating axis holds 16 B a parameter on each of its
+# ranks: full depth does not fit one card twice. Cut in depth for the
+# script's time: when the ring and GPipe joined, dp_tp_zero3 (which fits
+# full depth: every axis shards its state) from 32 layers to 8 and dp_sp
+# from 8 to 2; when LoRA and distillation joined, those two from 8 layers
+# to 4, then dp_tp_zero3 from 8 to 4, the stage-4 (seq 2, tensor 2) runs
+# (Ulysses and the ring) from 8 to 2 and GPipe from 16 to 8 (2 a stage)
 MESH_TRAIN_FULL = (
-    MeshRun(MeshConfig(2, 1, 2, True), layers=8),
+    MeshRun(MeshConfig(2, 1, 2, True), layers=4),
     MeshRun(MeshConfig(2, 2, 1), layers=2),
-    MeshRun(MeshConfig(1, 2, 2), rows=1, stage=4, layers=8),
-    MeshRun(MeshConfig(1, 2, 2), "ring", rows=1, stage=4, layers=8),
-    MeshRun(MeshConfig(pipe=4), nm=4, rows=4, layers=16))
+    MeshRun(MeshConfig(1, 2, 2), rows=1, stage=4, layers=2),
+    MeshRun(MeshConfig(1, 2, 2), "ring", rows=1, stage=4, layers=2),
+    MeshRun(MeshConfig(pipe=4), nm=4, rows=4, layers=8),
+    MeshRun(MeshConfig(2, 1, 2, True), layers=4, recipe="lora"),
+    MeshRun(MeshConfig(1, 2, 2), rows=1, layers=4,
+            recipe="distill_guided"))
 # the device of the mesh training ranks
 MESH_TRAIN_DEVICE = "cuda"
 
@@ -1430,23 +1461,30 @@ def train_mesh_name(run: MeshRun) -> str:
         ("pipe", c.pipe)) if n > 1)
     return (name + ("_zero3" if c.zero_params else "")
             + ("_ring" if run.sp == "ring" and c.seq > 1 else "")
-            + (f"_nm{run.nm or c.pipe}" if c.pipe > 1 else ""))
+            + (f"_nm{run.nm or c.pipe}" if c.pipe > 1 else "")
+            + ("" if run.recipe == "train" else f"_{run.recipe}"))
 
 
 def mesh_train_launches(run: MeshRun, layers: int) -> dict:
     """One step's launches on a rank: the forward and the recompute of
-    each layer, one backward. The ring runs K6/K7 once per chunk, S of
-    them; a pipe stage its layers once per microbatch; Ulysses K6/K7 once
-    a layer; without a seq or pipe axis K3/K9 with one build of the
-    bias's map."""
+    each layer, one backward; distillation adds the teacher's forwards (2
+    substeps, each a conditional and, guided, an unconditional one). The
+    ring runs K6/K7 once per chunk, S of them; a pipe stage its layers
+    once per microbatch; Ulysses K6/K7 once a layer; without a seq or
+    pipe axis K3/K9 with one build of the bias's map per layout."""
     c = run.cfg
+    guided = run.recipe == "distill_guided"
+    teacher = (0 if not run.recipe.startswith("distill")
+               else 2 * (2 if guided else 1))
+    fwd = 2 + teacher
     if c.pipe > 1:
         n = (run.nm or c.pipe) * layers // c.pipe
-        return expect(K6=2 * n, K7=n)
+        return expect(K6=fwd * n, K7=n)
     if c.seq > 1:
         s = c.seq if run.sp == "ring" else 1
-        return expect(K6=2 * s * layers, K7=s * layers)
-    return expect(K3=2 * layers, K9=layers, bias_map_builds=1)
+        return expect(K6=fwd * s * layers, K7=s * layers)
+    return expect(K3=fwd * layers, K9=layers,
+                  bias_map_builds=2 if guided else 1)
 
 
 def probe_rank(hops_only: bool = False) -> dict:
@@ -1561,6 +1599,17 @@ def mesh_train_ref_config() -> ModelConfig:
                             pos_embed_max_size=64)
 
 
+def recipe_flags(recipe: str) -> dict:
+    """The TrainConfig fields of a MeshRun's recipe."""
+    if recipe == "lora":
+        return dict(use_lora=True, lora_rank=LORA_RANK)
+    if recipe.startswith("distill"):
+        return dict(DISTILL, distill_guidance=(
+            DISTILL["distill_guidance"] if recipe == "distill_guided"
+            else None))
+    return {}
+
+
 def mesh_train_ref_trainer(device, mixed: str, run: MeshRun,
                            mesh: bool = True, **sd):
     """The small-input reference's trainer of ``run``'s recipe, on its
@@ -1571,7 +1620,8 @@ def mesh_train_ref_trainer(device, mixed: str, run: MeshRun,
                        mixed_precision=mixed,
                        batch_size_per_device=run.rows // (c.data if mesh
                                                           else 1),
-                       sp_attention=run.sp, pp_microbatches=run.nm)
+                       sp_attention=run.sp, pp_microbatches=run.nm,
+                       **recipe_flags(run.recipe))
     return Trainer(mesh_train_ref_config(), cfg, None,
                    vae_cfg=VAEConfig.tiny(), target_resolution=MESH_TRAIN_PX,
                    device=device, seed=3, mesh_cfg=c if mesh else None, **sd)
@@ -1592,23 +1642,53 @@ def record_grads(optimizer) -> list:
     return seen
 
 
-def mesh_train_ref_steps(trainer, samples, post, draws) -> dict:
+def frozen_copy(trainer) -> dict:
+    """Device copies of what a recipe's step must leave bit-equal: a LoRA
+    run's base, a distillation run's teacher (empty for training)."""
+    if trainer.teacher is not None:
+        return {n: t.clone() for n, t in trainer.teacher.state_dict()
+                .items()}
+    return {n: p.detach().clone() for n, p in trainer.model
+            .named_parameters() if not p.requires_grad}
+
+
+def frozen_kept(trainer, frozen: dict) -> bool:
+    """Whether :func:`frozen_copy`'s tensors are bit-equal now."""
+    now = (trainer.teacher.state_dict() if trainer.teacher is not None
+           else dict(trainer.model.named_parameters()))
+    return all(torch.equal(now[n].detach(), t) for n, t in frozen.items())
+
+
+def mesh_train_ref_steps(trainer, samples, post, draws,
+                         start=None) -> dict:
     """MESH_TRAIN_STEPS steps of ``trainer`` (on a mesh: this rank's rows)
-    on the given global batch, posterior noise and loss draws, sliced to
-    the rank's as the trainer slices its own draws: each step's loss,
-    gradient norm, launches and gradient parts; the parameters' ZeRO
-    dimensions; the replicated parameters' divergence across the ranks."""
+    on the given global batch, posterior noise and loss (or distillation)
+    draws, sliced to the rank's as the trainer slices its own draws, from
+    the whole trained weights ``start`` when given (a LoRA run's adapters,
+    a distillation run's student other than its teacher, the warm start;
+    each rank keeps its part): each step's loss, gradient norm, launches
+    and the trained parameters' gradient parts; their ZeRO dimensions; the
+    replicated parameters' divergence across the ranks; whether the LoRA
+    base or the teacher stayed bit-equal."""
     from video_gpt_tpu_torch.parallel.mesh import SEQ_AXIS, batch_rows
     from video_gpt_tpu_torch.training.loss import take_part
-    from video_gpt_tpu_torch.training.trainer import draw_part
+    from video_gpt_tpu_torch.training.trainer import draw_part, part_of
     from video_gpt_tpu_torch.utils.parity import replicated_divergence
     state = trainer.build()
-    mesh, dev = trainer.mesh, trainer.device
+    mesh, dev, model = trainer.mesh, trainer.device, trainer.model
+    if start is not None:
+        params = dict(model.named_parameters())
+        with torch.no_grad():
+            for n, w in start.items():
+                if n in params:  # a pipe rank's stage
+                    params[n].copy_(part_of(n, w.to(dev), model, mesh))
+    frozen = frozen_copy(trainer)
     seen = record_grads(state.optimizer)
     rows = batch_rows(mesh, len(samples))
     tb = collate(samples[rows], tokens_per_frame(*MESH_TRAIN_PX),
-                 sp_multiple=1 if mesh is None else mesh.size(SEQ_AXIS)
-                 ).to(dev)
+                 sp_multiple=1 if mesh is None else mesh.size(SEQ_AXIS),
+                 uncond=trainer.cfg.distill_guidance is not None).to(dev)
+    kind = DistillDraws if trainer.cfg.distill else LossDraws
     f = MESH_TRAIN_FRAMES
     steps = []
     for i in range(MESH_TRAIN_STEPS):
@@ -1619,29 +1699,39 @@ def mesh_train_ref_steps(trainer, samples, post, draws) -> dict:
         inputs = tb.inputs._replace(x1=lat[tb.noisy_sel.long()],
                                     clean_latents=lat[tb.clean_sel.long()])
         part, den = draw_part(mesh, tb.inputs, tb.clean_valid, False)
-        m = trainer._step_fn(state, inputs, take_part(
-            LossDraws(*(x.to(dev) for x in draws[i])), part, inputs),
-            denominator=den)
+        mine = take_part(kind(*(x.to(dev) for x in draws[i])), part, inputs)
+        m = (trainer._step_fn(state, inputs, mine) if trainer.cfg.distill
+             else trainer._step_fn(state, inputs, mine, denominator=den))
         if dev.type == "cuda":
             torch.cuda.synchronize()
         steps.append(dict(loss=float(m["loss"]),
                           grad_norm=float(m["grad_norm"]),
                           launches=counts()))
-    names = [n for n, _ in state.model.named_parameters()]
+    names = [n for n, p in model.named_parameters() if p.requires_grad]
     return dict(
         coords=None if mesh is None else mesh.coords, steps=steps,
         grads=[dict(zip(names, g)) for g in seen],
         dims=dict(zip(names, (p.dim for p in state.optimizer.places))),
         divergence=(0.0 if mesh is None else replicated_divergence(
-            state.model.named_parameters(), mesh)))
+            model.named_parameters(), mesh)),
+        frozen_kept=frozen_kept(trainer, frozen))
 
 
-def mesh_train_ref_rank(run: MeshRun, sd, samples, post, draws) -> dict:
+def mesh_train_ref_rank(runs: list, sd) -> list:
     """One gloo rank of the small-input mesh training reference (bf16 on
-    the card, the kernels)."""
-    return mesh_train_ref_steps(
-        mesh_train_ref_trainer(MESH_TRAIN_DEVICE, "bf16", run, **sd),
-        samples, post, draws)
+    the card, the kernels): each of ``runs`` ((run, samples, posterior
+    noise, draws, trained start) of one world size) in turn, each on its
+    own mesh; per run its record and its seconds on this rank."""
+    out = []
+    for run, samples, post, draws, start in runs:
+        t0 = time.perf_counter()
+        rec = mesh_train_ref_steps(
+            mesh_train_ref_trainer(MESH_TRAIN_DEVICE, "bf16", run, **sd),
+            samples, post, draws, start)
+        rec["wall_s"] = time.perf_counter() - t0
+        out.append(rec)
+        gc.collect()
+    return out
 
 
 def whole_grads(res: list, mesh_cfg, step: int, names) -> torch.Tensor:
@@ -1669,10 +1759,12 @@ def whole_grads(res: list, mesh_cfg, step: int, names) -> torch.Tensor:
     return torch.cat(out)
 
 
-def mesh_train_ref_inputs(rows: int, sd: dict):
-    """The global batch of ``rows`` rows, its posterior noise and loss
-    draws per step, and the one-rank CPU steps on them in fp32 (the
-    reference) and with bf16 autocast (the floor)."""
+def mesh_train_ref_inputs(rows: int, recipe: str, sd: dict, starts: dict):
+    """The global batch of ``rows`` rows, its posterior noise and loss (or
+    distillation) draws per step, and the one-rank CPU steps of
+    ``recipe`` on them in fp32 (the reference) and with bf16 autocast (the
+    floor), from the recipe's trained weights in ``starts`` (by recipe
+    family: "lora", "distill"), if any."""
     rng = np.random.default_rng(12)
     f, (h, w) = MESH_TRAIN_FRAMES, MESH_TRAIN_PX
     samples = [ClipSample(preprocess_to_resolution(
@@ -1682,19 +1774,23 @@ def mesh_train_ref_inputs(rows: int, sd: dict):
     gen = torch.Generator().manual_seed(13)
     hl, wl = h // 8, w // 8
     nn_, nc = tb.noisy_sel.shape[0], tb.clean_sel.shape[0]
+    distill = recipe.startswith("distill")
     post, draws = [], []
     for _ in range(MESH_TRAIN_STEPS):
         post.append(torch.randn((rows * f, hl, wl, 4), generator=gen))
-        draws.append(LossDraws(
-            torch.randn((nn_, hl, wl, 4), generator=gen),
-            torch.rand((rows, f), generator=gen),
-            torch.randn((nc, hl, wl, 4), generator=gen),
+        x0 = torch.randn((nn_, hl, wl, 4), generator=gen)
+        per_row = (torch.randint(0, DISTILL["distill_student_steps"],
+                                 (rows, f), generator=gen) if distill
+                   else torch.rand((rows, f), generator=gen))
+        draws.append((DistillDraws if distill else LossDraws)(
+            x0, per_row, torch.randn((nc, hl, wl, 4), generator=gen),
             torch.rand((nc,), generator=gen)))
-    one = MeshRun(MeshConfig(), rows=rows)
+    one = MeshRun(MeshConfig(), rows=rows, recipe=recipe)
+    start = starts.get("distill" if distill else recipe)
     want, floor = (mesh_train_ref_steps(mesh_train_ref_trainer(
-        "cpu", mixed, one, mesh=False, **sd), samples, post, draws)
+        "cpu", mixed, one, mesh=False, **sd), samples, post, draws, start)
         for mixed in ("no", "bf16"))
-    return samples, post, draws, want, floor
+    return samples, post, draws, want, floor, start
 
 
 def mesh_train_reference_phase() -> dict:
@@ -1714,34 +1810,56 @@ def mesh_train_reference_phase() -> dict:
                                cpu.model.state_dict().items()},
               vae_state_dict={k: v.clone() for k, v in
                               cpu.vae.state_dict().items()})
-    inputs = {rows: mesh_train_ref_inputs(rows, sd)
-              for rows in sorted({r.rows for r in MESH_TRAIN_REF})}
+    # the trained weights both sides start from, drawn on the host (a
+    # trainer draws its adapters on its own device's generator): LoRA's
+    # adapters (B random too, so that every adapter has a gradient from
+    # the first step), and a distillation run's student, the warm start
+    # (its teacher) moved by another draw. A student equal to its teacher
+    # makes the loss mostly bf16 rounding (distill_reference_phase)
+    gen = torch.Generator().manual_seed(14)
+    lora = VideoGPT(dataclasses.replace(mesh_train_ref_config(),
+                                        lora_rank=LORA_RANK), device="meta")
+    starts = dict(
+        lora={n: torch.randn(p.shape, generator=gen) * (
+            p.shape[1] ** -0.5 if ".lora_A." in n else 0.02)
+            for n, p in lora.named_parameters() if is_adapter(n)},
+        distill={k: v + 0.03 * torch.randn(v.shape, generator=gen)
+                 for k, v in sd["init_state_dict"].items()})
+    inputs = {key: mesh_train_ref_inputs(*key, sd, starts)
+              for key in sorted({(r.rows, r.recipe)
+                                 for r in MESH_TRAIN_REF})}
 
     def rel(a, b):
         return float((a - b).norm() / b.norm())
 
-    def run_mesh(run):
-        samples, post, draws, _, _ = inputs[run.rows]
-        t0 = time.perf_counter()
+    def run_size(group):
+        # one set of ranks runs every mesh of its world size in turn: the
+        # ranks' start-up (imports, CUDA context, gloo) is paid once a size
+        args = [(run,) + tuple(inputs[run.rows, run.recipe][i]
+                               for i in (0, 1, 2, 5)) for run in group]
         with tempfile.TemporaryDirectory() as workdir:
-            res = spawn_ranks(mesh_train_ref_rank,
-                              (run, sd, samples, post, draws),
-                              run.cfg.num_devices, workdir, timeout=600,
-                              threads=1)
-        return res, time.perf_counter() - t0
+            res = spawn_ranks(mesh_train_ref_rank, (args, sd),
+                              group[0].cfg.num_devices, workdir,
+                              timeout=900, threads=1)
+        return {run: [r[i] for r in res] for i, run in enumerate(group)}
 
-    # the two-rank meshes at once (their ranks' start-up overlaps), then
-    # the larger ones
+    sizes = {}
+    for run in MESH_TRAIN_REF:
+        sizes.setdefault(run.cfg.num_devices, []).append(run)
+    t0 = time.perf_counter()
     runs = {}
-    for batch in ([m for m in MESH_TRAIN_REF if m.cfg.num_devices == 2],
-                  [m for m in MESH_TRAIN_REF if m.cfg.num_devices > 2]):
-        with concurrent.futures.ThreadPoolExecutor(len(batch)) as pool:
-            runs.update(zip(batch, pool.map(run_mesh, batch)))
+    with concurrent.futures.ThreadPoolExecutor(len(sizes)) as pool:
+        for done in pool.map(run_size, sizes.values()):
+            runs.update(done)
+    log(f"small-input mesh training reference: {len(MESH_TRAIN_REF)} "
+        f"meshes on {len(sizes)} sets of ranks at once, "
+        f"{time.perf_counter() - t0:.1f} s with the ranks' start-up")
     out, faults = {}, []
     for run in MESH_TRAIN_REF:
         name = train_mesh_name(run)
-        res, wall = runs[run]
-        _, _, _, want, floor = inputs[run.rows]
+        res = runs[run]
+        wall = max(r["wall_s"] for r in res)
+        _, _, _, want, floor, _ = inputs[run.rows, run.recipe]
         names = list(want["grads"][0])
         sizes = [g.numel() for g in want["grads"][0].values()]
         want_l = mesh_train_launches(run, MESH_TRAIN_LAYERS)
@@ -1753,17 +1871,27 @@ def mesh_train_reference_phase() -> dict:
             floor_g = torch.cat([g.flatten() for g in floor["grads"][i]
                                  .values()])
             got_g = whole_grads(res, run.cfg, i, names)
-            loss = res[0]["steps"][i]["loss"]
+            loss, want_loss = (x["steps"][i]["loss"] for x in (res[0], want))
             step = dict(
-                loss=loss, loss_rel_err=abs(loss - want["steps"][i]["loss"])
-                / abs(want["steps"][i]["loss"]),
+                loss=loss, loss_rel_err=abs(loss - want_loss) / abs(
+                    want_loss),
+                floor_loss_rel_err=abs(floor["steps"][i]["loss"] - want_loss)
+                / abs(want_loss),
                 grad_rel_err=rel(got_g, want_g),
                 floor_grad_rel_err=rel(floor_g, want_g),
                 launches=[r["steps"][i]["launches"] for r in res])
+            # distillation's loss is the MSE of an amplified difference (the
+            # target inverts a teacher step: x (1 - s) / (s_next - s)), not
+            # a mean of well-conditioned terms: its bf16 error is the CPU's
+            # own times the gradient's factor, where that exceeds 2^-8
+            loss_bar = BF16_U if not run.recipe.startswith("distill") else \
+                max(BF16_U, TRAIN_REF_FLOOR_FACTOR
+                    * step["floor_loss_rel_err"])
             rec["steps"].append(step)
             log(f"small-input mesh training {name} step {i + 1}: loss "
-                f"{loss:.6f} (CPU fp32 {want['steps'][i]['loss']:.6f}, rel "
-                f"err {step['loss_rel_err']:.3e}, bar {BF16_U:.2e}); "
+                f"{loss:.6f} (CPU fp32 {want_loss:.6f}, rel err "
+                f"{step['loss_rel_err']:.3e}, CPU bf16 "
+                f"{step['floor_loss_rel_err']:.3e}, bar {loss_bar:.2e}); "
                 f"gradient rel err {step['grad_rel_err']:.3e} (CPU bf16 "
                 f"{step['floor_grad_rel_err']:.3e}, bar "
                 f"{TRAIN_REF_FLOOR_FACTOR}x); launches per rank "
@@ -1776,7 +1904,7 @@ def mesh_train_reference_phase() -> dict:
                     and float(got_g.abs().max()) > 0):
                 faults.append(f"mesh training {name}: the gradient is zero "
                               f"or not finite")
-            if not (step["loss_rel_err"] <= BF16_U and step["grad_rel_err"]
+            if not (step["loss_rel_err"] <= loss_bar and step["grad_rel_err"]
                     <= TRAIN_REF_FLOOR_FACTOR * step["floor_grad_rel_err"]):
                 # the parameters whose gradients are farthest off
                 per = sorted(((rel(a, b), n) for n, a, b in zip(
@@ -1786,12 +1914,17 @@ def mesh_train_reference_phase() -> dict:
                               f"disagrees with the CPU's: {step}; worst "
                               f"parameters {per}")
         rec["divergence"] = max(r["divergence"] for r in res)
+        rec["frozen_kept"] = all(r["frozen_kept"] for r in res)
         log(f"small-input mesh training {name}: replicated parameters' "
-            f"divergence across the ranks {rec['divergence']}, {wall:.1f} s "
-            f"with the ranks' start-up")
+            f"divergence across the ranks {rec['divergence']}, the LoRA "
+            f"base or the teacher bit-equal on every rank "
+            f"{rec['frozen_kept']}, {wall:.1f} s on the ranks")
         if rec["divergence"] != 0.0:
             faults.append(f"mesh training {name}: replicated parameters "
                           f"diverge across the ranks by {rec['divergence']}")
+        if not rec["frozen_kept"]:
+            faults.append(f"mesh training {name}: a step changed the LoRA "
+                          f"base or the teacher")
         out[name] = rec
     log(json.dumps({"mesh_training_reference": out}))
     for msg in faults:
@@ -1831,25 +1964,47 @@ def mesh_train_full_rank(run: MeshRun) -> dict:
     cfg = stage_config(run.stage, lr=TRAIN_LR, lr_scheduler="constant",
                        adam_epsilon=1e-5, sp_attention=run.sp,
                        pp_microbatches=run.nm,
-                       batch_size_per_device=run.rows // c.data)
+                       batch_size_per_device=run.rows // c.data,
+                       **recipe_flags(run.recipe))
     t0 = time.perf_counter()
     trainer = Trainer(ModelConfig(num_layers=run.layers), cfg, None,
                       vae_cfg=VAEConfig(), target_resolution=(H_PX, W_PX),
                       device=MESH_TRAIN_DEVICE, seed=0, mesh_cfg=c)
     state = trainer.build()
-    randomise_heads_(trainer.model, seed=1)
     mesh, model = trainer.mesh, trainer.model
+    randomise_heads_(model, seed=1)
+    if trainer.teacher is not None:
+        # the teacher is the student's warm start (in bf16): a zero head
+        # makes every target 0
+        trainer.teacher.load_state_dict(model.state_dict())
+    frozen = frozen_copy(trainer)
     build_s = time.perf_counter() - t0
     samples = mesh_train_samples(run.stage, run.rows)
     rows = batch_rows(mesh, run.rows)
     tb = collate(samples[rows], tokens_per_frame(H_PX, W_PX),
-                 sp_multiple=mesh.size(SEQ_AXIS)).to(MESH_TRAIN_DEVICE)
+                 sp_multiple=mesh.size(SEQ_AXIS),
+                 uncond=cfg.distill_guidance is not None).to(
+                     MESH_TRAIN_DEVICE)
     mine = stage_layers(mesh, run.layers)
     first, last = mine[0], mine[-1]
-    names = [n for n, _ in model.named_parameters()]
-    norms_of = {"qkv_first": names.index(
-        f"llm.layers.{first}.self_attn.qkv_proj.weight"),
-        "x_embedder": names.index("x_embedder.proj.weight")}
+    names = [n for n, p in model.named_parameters() if p.requires_grad]
+    if run.recipe == "lora":
+        # lora_B has a gradient from the first step on (lora_A's is 0
+        # while B is)
+        attn = f"llm.layers.{first}.self_attn."
+        norms_of = {"qkv_lora_B_first": names.index(
+            attn + "qkv_proj.lora_B.weight"),
+            "o_lora_B_first": names.index(attn + "o_proj.lora_B.weight")}
+        watched = tuple(attn + f"{m}.lora_{ab}.weight"
+                        for m in ("qkv_proj", "o_proj") for ab in "AB")
+    else:
+        norms_of = {"qkv_first": names.index(
+            f"llm.layers.{first}.self_attn.qkv_proj.weight"),
+            "x_embedder": names.index("x_embedder.proj.weight")}
+        watched = ("x_embedder.proj.weight",
+                   f"llm.layers.{first}.self_attn.qkv_proj.weight",
+                   f"llm.layers.{last}.mlp.down_proj.weight",
+                   "llm.norm.weight", "final_layer.linear.weight")
     grad_norms = {k: [] for k in norms_of}
     update = state.optimizer._update
 
@@ -1858,10 +2013,6 @@ def mesh_train_full_rank(run: MeshRun) -> dict:
             grad_norms[k].append(float(torch.linalg.vector_norm(grads[i])))
         return update(grads, norm)
     state.optimizer._update = watching
-    watched = ("x_embedder.proj.weight",
-               f"llm.layers.{first}.self_attn.qkv_proj.weight",
-               f"llm.layers.{last}.mlp.down_proj.weight",
-               "llm.norm.weight", "final_layer.linear.weight")
     params = dict(model.named_parameters())
     steps = []
     for i in range(2):  # a warm-up step, then the timed one
@@ -1884,6 +2035,9 @@ def mesh_train_full_rank(run: MeshRun) -> dict:
     st = mesh.stats
     return dict(
         coords=mesh.coords, build_s=build_s, steps=steps,
+        frozen_kept=frozen_kept(trainer, frozen),
+        frozen_params=sum(t.numel() for t in frozen.values()),
+        trained_params=sum(params[n].numel() for n in names),
         tokens=tb.inputs.batch.input_ids.numel(),
         forward_bytes=st.moved, forward_calls=st.calls,
         backward_bytes=st.backward_moved, backward_calls=st.backward_calls,
@@ -1908,9 +2062,23 @@ def mesh_train_full_phase(smi: str) -> dict:
     # room for the blocks a fixed-segment allocator strands
     alloc = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
     os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    sizes = {}
+    for run in MESH_TRAIN_FULL:
+        sizes.setdefault(run.cfg.num_devices, []).append(run)
     try:
-        for run in MESH_TRAIN_FULL:
-            out[train_mesh_name(run)] = mesh_train_full_run(run, smi)
+        for n, runs in sizes.items():
+            # one set of ranks runs every run of its world size in turn,
+            # each freed before the next: the ranks' start-up is paid once
+            t0 = time.perf_counter()
+            with tempfile.TemporaryDirectory() as workdir:
+                res = spawn_ranks(mesh_train_full_ranks, (runs,), n,
+                                  workdir, timeout=1200)
+            log(f"full-width mesh training: {len(runs)} runs on one set of "
+                f"{n} ranks, {time.perf_counter() - t0:.1f} s with the "
+                f"ranks' start-up")
+            for i, run in enumerate(runs):
+                out[train_mesh_name(run)] = mesh_train_full_run(
+                    run, [r[i] for r in res], smi)
     finally:
         if alloc is None:
             del os.environ["PYTORCH_CUDA_ALLOC_CONF"]
@@ -1919,16 +2087,29 @@ def mesh_train_full_phase(smi: str) -> dict:
     return out
 
 
-def mesh_train_full_run(run: MeshRun, smi: str) -> dict:
-    """One run of MESH_TRAIN_FULL (:func:`mesh_train_full_phase`)."""
+def mesh_train_full_ranks(runs: list) -> list:
+    """One gloo rank of the full-width mesh training runs ``runs`` (of one
+    world size), each in turn on its own mesh and freed before the next;
+    per run its record (:func:`mesh_train_full_rank`) and its seconds on
+    this rank, the build included."""
+    out = []
+    for run in runs:
+        t0 = time.perf_counter()
+        rec = mesh_train_full_rank(run)
+        rec["wall_s"] = time.perf_counter() - t0
+        out.append(rec)
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def mesh_train_full_run(run: MeshRun, res: list, smi: str) -> dict:
+    """The checks and the record of one run of MESH_TRAIN_FULL from its
+    ranks' records ``res`` (:func:`mesh_train_full_phase`)."""
     name = train_mesh_name(run)
     c = run.cfg
     n = c.num_devices
-    t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory() as workdir:
-        res = spawn_ranks(mesh_train_full_rank, (run,), n, workdir,
-                          timeout=900)
-    wall = time.perf_counter() - t0
+    wall = max(x["wall_s"] for x in res)
     want = mesh_train_launches(run, run.layers)
     for r, x in enumerate(res):
         timed = x["steps"][-1]
@@ -1962,6 +2143,9 @@ def mesh_train_full_run(run: MeshRun, smi: str) -> dict:
         if x["divergence"] != 0.0:
             fail(f"mesh training {name}: replicated parameters "
                  f"diverge across the ranks by {x['divergence']}")
+        if not x["frozen_kept"]:
+            fail(f"mesh training {name} rank {r}: a step changed the LoRA "
+                 f"base or the teacher")
     step_s = max(x["steps"][-1]["step_s"] for x in res)
     # each data rank's rows (its first pipe rank's)
     tokens = res[0]["tokens"] * c.data
@@ -1970,7 +2154,7 @@ def mesh_train_full_run(run: MeshRun, smi: str) -> dict:
         zero3=c.zero_params, sp_attention=run.sp,
         microbatches=(run.nm or c.pipe) if c.pipe > 1 else 0,
         rows=run.rows, stage=run.stage, layers=run.layers,
-        step_s=step_s, tokens_per_step=tokens,
+        recipe=run.recipe, step_s=step_s, tokens_per_step=tokens,
         tokens_per_s=tokens / step_s,
         loss=res[0]["steps"][-1]["loss"],
         grad_norm=res[0]["steps"][-1]["grad_norm"],
@@ -1981,15 +2165,21 @@ def mesh_train_full_run(run: MeshRun, smi: str) -> dict:
                                      for x in res],
         peak_mem_gib_per_rank=[x["peak_mem_gib"] for x in res],
         params_held_per_rank=[x["params_held"] for x in res],
+        trained_params_per_rank=[x["trained_params"] for x in res],
+        frozen_params_per_rank=[x["frozen_params"] for x in res],
+        frozen_kept=all(x["frozen_kept"] for x in res),
         launches_per_rank_step=res[0]["steps"][-1]["launches"],
         divergence=max(x["divergence"] for x in res), wall_s=wall,
         device=smi, note="gloo ranks sharing one card: not multi-GPU "
                          "speed")
     log(f"mesh training {name}: stage {run.stage}, {run.layers} layers, "
-        f"{step_s:.3f} s/step (slowest rank), {rec['tokens_per_s']:.1f} "
-        f"tokens/s, peak {max(rec['peak_mem_gib_per_rank']):.2f} GiB a "
-        f"rank, on {smi} (gloo ranks sharing one card: not multi-GPU "
-        f"speed); {wall:.1f} s with the ranks' start-up and build")
+        f"recipe {run.recipe}, {step_s:.3f} s/step (slowest rank), "
+        f"{rec['tokens_per_s']:.1f} tokens/s, peak "
+        f"{max(rec['peak_mem_gib_per_rank']):.2f} GiB a rank, trained "
+        f"parameters a rank {rec['trained_params_per_rank']}, frozen "
+        f"{rec['frozen_params_per_rank']} (bit-equal: "
+        f"{rec['frozen_kept']}), on {smi} (gloo ranks sharing one card: "
+        f"not multi-GPU speed); {wall:.1f} s on the ranks with the build")
     log(json.dumps({f"mesh_training_{name}": rec}))
     return rec
 
@@ -2545,6 +2735,7 @@ def run(dev: torch.device, smi: str) -> None:
         f"{main['frames_per_s']:.3f} frames/s, peak {peak_gib:.2f} GiB, "
         f"on {smi}")
     log(json.dumps({"main_path": main}))
+    mfu_line("clip", clip_flops(pipe.model), clip_s, smi)
 
     # ---- extend path --------------------------------------------------------
     reset_counts()
@@ -2715,6 +2906,17 @@ def run(dev: torch.device, smi: str) -> None:
             mesh_training[run_name]["launches_per_rank_step"][name]
         records[name][key]["launches_path"] = \
             f"each rank of the full-width mesh training run {run_name}"
+    # the mesh recipes: each rank's launches in a timed full-width step of
+    # LoRA on (data 2, tensor 2, zero3) (K3/K9 at 16 heads) and of guided
+    # distillation on (seq 2, tensor 2) (K6/K7 over the stage-1 layout at
+    # 8 heads: T = 2 halves a seq-2 rank's 16)
+    for name, key, run_name in (
+            ("K3", "mesh_tensor_train_shape", "data2_tensor2_zero3_lora"),
+            ("K9", "mesh_tensor_train_shape", "data2_tensor2_zero3_lora"),
+            ("K6", "mesh_seq_train_shape", "seq2_tensor2_distill_guided"),
+            ("K7", "mesh_seq_train_shape", "seq2_tensor2_distill_guided")):
+        records[name][key][f"launches_{run_name}"] = \
+            mesh_training[run_name]["launches_per_rank_step"][name]
     records["K1"]["launches_per_student_clip"] = student_counts["K1"]
     records["K3"]["launches_per_student_clip"] = student_counts["K3"]
     # the image family: K3 per image (every context's prefill and cached
@@ -2760,6 +2962,57 @@ def mesh_train_only(dev, smi: str) -> None:
     log(json.dumps({"mesh_train_kernels": [
         dict(rec, shape=key) for _, key, rec in recs]}))
     log(f"mesh training phases: {time.perf_counter() - t0:.1f} s")
+
+
+def clip_flops(model) -> float:
+    """Model flops of the main path's clip, ``bench.py``'s count
+    (separate CFG): the prefix's prefill, then every step the cond row's
+    tail over the cached prefix and the uncond row over its own tokens:
+    2PT dense plus QK^T and PV."""
+    from video_gpt_tpu_torch.utils.profiling import (attention_flops,
+                                                     count_params,
+                                                     dense_model_flops)
+    n_img = tokens_per_frame(H_PX, W_PX)
+    lay_c = frame_block_inference_layout(N_CLEAN, N_GEN, n_img, False)
+    lay_u = frame_block_inference_layout(0, N_GEN, n_img, False)
+    tail = lay_c.noisy_tail_len()
+    prefix, l_c, l_u = lay_c.length - tail, lay_c.length, lay_u.length
+    p, cfg = count_params(model), model.cfg
+
+    def attn(q, kv):
+        return attention_flops(cfg.num_layers, cfg.hidden_size, q, kv)
+
+    return (dense_model_flops(p, prefix) + attn(prefix, prefix)
+            + STEPS * (dense_model_flops(p, tail) + attn(tail, l_c))
+            + STEPS * (dense_model_flops(p, l_u) + attn(l_u, l_u)))
+
+
+def train_step_flops(model, tokens: int) -> float:
+    """Model flops of a train step over ``tokens`` tokens,
+    ``bench_suite.py``'s count: 6PT (forward and backward; the recompute
+    not counted) plus 3x the QK^T and PV flops."""
+    from video_gpt_tpu_torch.utils.profiling import (attention_flops,
+                                                     count_params,
+                                                     dense_model_flops)
+    cfg = model.cfg
+    return 3.0 * (dense_model_flops(count_params(model), tokens)
+                  + attention_flops(cfg.num_layers, cfg.hidden_size, tokens,
+                                    tokens))
+
+
+def mfu_line(name: str, flops: float, seconds: float, smi: str) -> None:
+    """A line of its own: ``name``'s MFU (``utils.profiling.mfu``: model
+    flops / seconds / the card's bf16 dense peak) beside the card."""
+    from video_gpt_tpu_torch.utils.profiling import mfu, peak_flops
+    m = mfu(flops, seconds)
+    peak = peak_flops()
+    log(f"MFU {name}: {m if m is None else round(m, 4)} ({flops:.4e} model "
+        f"flops in {seconds:.3f} s against "
+        f"{peak if peak is None else peak / 1e12} TFLOP/s bf16 dense) on "
+        f"{smi}")
+    log(json.dumps({"mfu": {"path": name, "mfu": m, "model_flops": flops,
+                            "seconds": seconds, "peak_flops": peak,
+                            "device": smi}}))
 
 
 def randomise_heads_(model, seed: int, std: float = 0.02) -> None:
@@ -2954,6 +3207,8 @@ def training_phase(dev, smi: str, stage: int) -> dict:
         f"{step_s:.3f} s/step, {b * L / step_s:.1f} tokens/s "
         f"({real} of {L} tokens real), peak {peak_gib:.2f} GiB, on {smi}")
     log(json.dumps({"training_path": train}))
+    mfu_line(f"stage-{stage} train step", train_step_flops(
+        model, b * L), step_s, smi)
     profile_train_step(trainer, state, tb, step_s, matmul_tflop, stage,
                        n_steps + 1)
     return total

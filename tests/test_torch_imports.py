@@ -32,7 +32,8 @@ def test_port_has_the_slice_modules():
               "probes.overlap_probe", "image_gen", "data.image_text",
               "training.image_trainer", "utils.torch_export",
               "parallel.distributed", "parallel.mesh", "parallel.tensor",
-              "parallel.ulysses", "utils.parity"):
+              "parallel.ulysses", "utils.parity", "parallel.ring",
+              "parallel.pipeline", "utils.logging", "utils.profiling"):
         assert "video_gpt_tpu_torch." + m in mods, m
 
 

@@ -294,3 +294,22 @@ def test_autograd_collectives_match_one_rank(tmp_path):
                             threads=1, timeout=120):
         assert errs.pop("backward_bytes") > 0
         assert max(errs.values()) <= 1e-5, errs
+
+
+def test_a_mesh_optimizer_is_freed_with_its_run():
+    """AdamW on a mesh with a data and a seq axis puts a gradient hook on
+    each parameter; the hooks hold the optimizer weakly, so a finished
+    run's parameters and moments are freed with it (a strong reference
+    closes a cycle through the tensors' hooks that ``gc`` does not see,
+    and a process that runs several trainers kept every one)."""
+    import gc
+    import weakref
+    mesh = Mesh(MeshConfig(data=2, seq=2), 0, {})
+    model = torch.nn.Linear(8, 4)
+    state = init_train_state(model, TrainConfig(), mesh)
+    assert state.optimizer.reduced is not None  # the hooks are on
+    refs = [weakref.ref(x) for x in (state.optimizer, model.weight,
+                                     state.optimizer.mu[0])]
+    del state, model
+    gc.collect()
+    assert [r() for r in refs] == [None] * 3

@@ -207,12 +207,48 @@ def record_updates(optimizer) -> list:
 
 
 def _step_record(state, metrics, grads) -> dict:
-    names = [n for n, _ in state.model.named_parameters()]
+    """The step's loss and gradient norm, the gradients of the trained
+    parameters (a LoRA run's adapters) and the shapes of their AdamW
+    moments, and every parameter after."""
+    names = [n for n, p in state.model.named_parameters()
+             if p.requires_grad]
     return dict(loss=float(metrics["loss"]),
                 grad_norm=float(metrics["grad_norm"]),
                 grads=dict(zip(names, grads)),
+                moment_shapes={n: tuple(m.shape) for n, m in zip(
+                    names, state.optimizer.mu)},
                 params={n: p.detach().clone()
                         for n, p in state.model.named_parameters()})
+
+
+def _frozen(trainer) -> dict:
+    """Copies of what a recipe's step must leave alone: a LoRA run's base,
+    a distillation run's teacher."""
+    if trainer.teacher is not None:
+        return {n: t.clone() for n, t in trainer.teacher.state_dict()
+                .items()}
+    return {n: p.detach().clone() for n, p in trainer.model
+            .named_parameters() if not p.requires_grad}
+
+
+def _kept(trainer, frozen: dict) -> bool:
+    """Whether what :func:`_frozen` copied is bit-equal now."""
+    now = (trainer.teacher.state_dict() if trainer.teacher is not None
+           else dict(trainer.model.named_parameters()))
+    return all(torch.equal(now[n].detach(), t) for n, t in frozen.items())
+
+
+def _load_parts(trainer, whole: dict) -> None:
+    """This rank's parts of the one-rank entries ``whole`` into the
+    trainer's model (its pipe stage's, its tensor part, under ZeRO-3 its
+    data part)."""
+    from video_gpt_tpu_torch.training.trainer import part_of
+    params = dict(trainer.model.named_parameters())
+    with torch.no_grad():
+        for name, w in whole.items():
+            if name in params:
+                params[name].copy_(part_of(name, torch.from_numpy(w),
+                                           trainer.model, trainer.mesh))
 
 
 def _runs_the_ring(model) -> bool:
@@ -225,31 +261,51 @@ def _runs_the_ring(model) -> bool:
 def train_step_case(mesh_cfg, cfg: ModelConfig, tcfg: TrainConfig,
                     vae_cfg: VAEConfig, sd: dict, vae_sd: dict,
                     samples: list, res: tuple, injected=None,
-                    steps: int = 1) -> dict:
+                    steps: int = 1, start: dict = None) -> dict:
     """This rank's training steps on its rows of the global batch
     ``samples`` ((pixels, frame blocks) pairs), from the one-rank weights
     ``sd``: "trainer", ``steps`` steps of ``Trainer.train_step`` (VAE
     encode and draws from the step's generator, sliced to the rank);
-    with ``injected`` = (global latents, global ``LossDraws``), "injected",
-    one step of the train step on them (the rank's slices). Each: loss,
-    gradient norm, the last update's gradients and the parameters after,
-    as this rank holds them; ``injected`` may be a list of such pairs,
-    one step each (gradient accumulation). ``mesh_cfg`` None: one process,
-    no mesh."""
+    with ``injected`` = (global latents, global draws: ``LossDraws``, or
+    ``DistillDraws`` under ``tcfg.distill``), "injected", one step of the
+    train step on them (the rank's slices), from the trained parameters
+    ``start`` (one-rank entries, numpy: a LoRA run's adapters, a
+    distillation run's student) when given. Each: loss, gradient norm,
+    the last update's gradients and the parameters after, as this rank
+    holds them, and whether the step left the LoRA base or the teacher
+    bit-equal ("frozen_kept") and the EMA at its start ("ema_kept");
+    ``injected`` may be a list of such pairs, one step each (gradient
+    accumulation). ``mesh_cfg`` None: one process, no mesh."""
+    from video_gpt_tpu_torch.training.distill import DistillDraws
     trainer = Trainer(cfg, tcfg, None, vae_cfg=vae_cfg, vae_state_dict=vae_sd,
                       init_state_dict=sd, target_resolution=res,
                       device="cpu", seed=0, mesh_cfg=mesh_cfg)
     mesh = trainer.mesh
     rows = batch_rows(mesh, len(samples))
     tb = collate([ClipSample(p, b) for p, b in samples[rows]], trainer.n_img,
-                 sp_multiple=mesh_cfg.seq if mesh_cfg else 1)
+                 sp_multiple=mesh_cfg.seq if mesh_cfg else 1,
+                 uncond=tcfg.distill_guidance is not None)
     out = {"coords": None if mesh is None else mesh.coords}
-    state = trainer.build()
+
+    def run(step_fn, n, load_start):
+        state = trainer.build()
+        if load_start and start is not None:
+            _load_parts(trainer, start)
+        frozen = _frozen(trainer)
+        ema = None if state.ema is None else {
+            k: t.clone() for k, t in state.ema.items()}
+        seen = record_updates(state.optimizer)
+        metrics = [step_fn(state, i) for i in range(n)]
+        rec = _step_record(state, metrics[-1], seen[-1])
+        rec.update(losses=[float(m["loss"]) for m in metrics],
+                   frozen_kept=_kept(trainer, frozen),
+                   ema_kept=ema is not None and all(
+                       torch.equal(state.ema[k], t) for k, t in ema.items()))
+        return rec
+
+    out["trainer"] = run(lambda state, i: trainer.train_step(state, tb, i),
+                         steps, False)
     out["ring"] = _runs_the_ring(trainer.model)
-    seen = record_updates(state.optimizer)
-    for i in range(steps):
-        metrics = trainer.train_step(state, tb, i)
-    out["trainer"] = _step_record(state, metrics, seen[-1])
     if mesh is not None:
         out["collective_bytes"] = (mesh.stats.moved,
                                    mesh.stats.backward_moved)
@@ -257,23 +313,23 @@ def train_step_case(mesh_cfg, cfg: ModelConfig, tcfg: TrainConfig,
         if not isinstance(injected, list):
             injected = [injected]
         f = samples[0][0].shape[0]
-        state = trainer.build()
-        seen = record_updates(state.optimizer)
         part, den = draw_part(mesh, tb.inputs, tb.clean_valid,
                               tcfg.input_output_return)
-        losses = []
-        for lat, draws in injected:
+        kind = DistillDraws if tcfg.distill else LossDraws
+
+        def injected_step(state, i):
+            lat, draws = injected[i]
             lat = torch.from_numpy(lat)[rows.start * f:rows.stop * f]
             inputs = tb.inputs._replace(
                 x1=lat[tb.noisy_sel.long()],
                 clean_latents=lat[tb.clean_sel.long()])
-            draws = take_part(LossDraws(*(torch.from_numpy(x)
-                                          for x in draws)), part, inputs)
-            metrics = trainer._step_fn(state, inputs, draws,
-                                       denominator=den)
-            losses.append(float(metrics["loss"]))
-        out["injected"] = _step_record(state, metrics, seen[-1])
-        out["injected"]["losses"] = losses
+            draws = take_part(kind(*(torch.from_numpy(x) for x in draws)),
+                              part, inputs)
+            if tcfg.distill:
+                return trainer._step_fn(state, inputs, draws)
+            return trainer._step_fn(state, inputs, draws, denominator=den)
+
+        out["injected"] = run(injected_step, len(injected), True)
     return out
 
 

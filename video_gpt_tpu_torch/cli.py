@@ -27,9 +27,15 @@ warm-starts from an earlier one's checkpoint with ``--init_checkpoint_dir``
 ``train --use_lora`` fine-tunes rank-``--lora_rank`` adapters over frozen
 warm-start weights; ``generate --lora_checkpoint_dir`` merges such a run's
 adapters into the base weights it serves (``--model_ckpt`` or
-``--checkpoint_dir``). ``train --distill`` distills the warm start into a
-student that serves at ``--distill_student_steps`` steps (with
-``--distill_guidance``, at ``--img_guidance_scale 1``).
+``--checkpoint_dir``), whatever mesh the run trained on and whatever mesh
+serves them. ``train --distill`` distills the warm start into a student
+that serves at ``--distill_student_steps`` steps (with
+``--distill_guidance``, at ``--img_guidance_scale 1``). Both run on the
+training meshes below, LoRA on every axis but pipe:
+
+    torchrun --nproc_per_node 4 -m video_gpt_tpu_torch.cli train \
+        --video_dir_path videos/ --use_lora --mesh_data 2 --mesh_tensor 2 \
+        --zero3 --init_checkpoint_dir results/stage1/checkpoints
 
 ``generate-image`` and ``train-image`` are the image-generation family
 (``image_gen.py``, ``training/image_trainer.py``): text (and input images)

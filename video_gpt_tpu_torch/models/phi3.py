@@ -28,7 +28,11 @@ the input of qkv_proj/gate_up_proj passes Megatron's ``copy_to`` (its
 gradient is summed over the tensor group), and the partial products of
 o_proj/down_proj stay fp32 through the all-reduce over the tensor group,
 autocast or not, and are rounded once after it, as one rank's matmul
-rounds its fp32 accumulator once. With S > 1 the trunk pads the sequence
+rounds its fp32 accumulator once. LoRA adapters follow their projection:
+qkv_proj's lora_B holds the rank's rows and o_proj's lora_A its input
+columns; each rank-r intermediate is whole on every rank before it enters
+lora_B (:func:`column_parallel`, :func:`row_parallel_lora`), so every
+adapter's gradient is the whole one. With S > 1 the trunk pads the sequence
 to the seq multiple at its entry, each rank runs its contiguous chunk
 through the layers, and the chunks are gathered before the final norm;
 the KV cache it returns holds the rank's heads (``mesh.cache_heads``) of
@@ -139,8 +143,7 @@ class LoraLinear(nn.Linear):
 
 
 def check_mesh(cfg: ModelConfig, mesh) -> None:
-    """Raise on a config that the mesh cannot run (or that is not ported
-    yet)."""
+    """Raise on a config that the mesh cannot run."""
     tp = axis_size(mesh, TENSOR_AXIS)
     if axis_size(mesh, PIPE_AXIS) > 1 and (
             tp > 1 or axis_size(mesh, SEQ_AXIS) > 1):
@@ -149,11 +152,6 @@ def check_mesh(cfg: ModelConfig, mesh) -> None:
             "combine pp with data parallelism, not tp/sp "
             f"(got tensor_parallel={tp}, sp_attention={cfg.sp_attention!r}, "
             f"seq={axis_size(mesh, SEQ_AXIS)})")
-    if tp > 1 and cfg.lora_rank:
-        raise NotImplementedError(
-            "LoRA under tensor parallelism: merge the adapters before "
-            "sharding (serving); LoRA training on the mesh is not ported "
-            "yet (ROADMAP.md queue 1: LoRA and distillation on the mesh)")
     if cfg.num_heads % tp or cfg.num_kv_heads % tp \
             or cfg.intermediate_size % tp:
         raise ValueError(f"heads {cfg.num_heads}/{cfg.num_kv_heads} and "
@@ -171,6 +169,35 @@ def row_parallel(x: torch.Tensor, weight: torch.Tensor, mesh
     with torch.autocast(x.device.type, enabled=False):
         out = F.linear(x.float(), weight.to(x.dtype).float())
     return mesh.reduce_from(out, TENSOR_AXIS).to(x.dtype)
+
+
+def column_parallel(x: torch.Tensor, layer: LoraLinear, mesh
+                    ) -> torch.Tensor:
+    """``layer(x)`` of a column-parallel layer whose output features are
+    split over the tensor axis: ``x`` enters through ``copy_to`` (its
+    gradient summed over the tensor group). The adapters' rank-r product
+    x A^T is whole on every rank and enters ``lora_B`` (the rank's rows)
+    through ``copy_to`` too, so that A's gradient, and x's through A, is
+    the whole one: each rank's B rows see only the rank's outputs."""
+    y = F.linear(mesh.copy_to(x, TENSOR_AXIS), layer.weight)
+    if layer.rank:
+        u = mesh.copy_to(layer.lora_A(x), TENSOR_AXIS)
+        y = y + layer.lora_B(u) * layer.scaling
+    return y
+
+
+def row_parallel_lora(x: torch.Tensor, layer: LoraLinear, mesh
+                      ) -> torch.Tensor:
+    """``layer(x)`` of a row-parallel layer whose input features are split
+    over the tensor axis (:func:`row_parallel`). The adapters' rank-r
+    product x A^T (A the rank's input columns) is summed over the tensor
+    group like the base product before it enters ``lora_B``, so B's
+    gradient is the whole one on every rank."""
+    y = row_parallel(x, layer.weight, mesh)
+    if layer.rank:
+        u = row_parallel(x, layer.lora_A.weight, mesh)
+        y = y + layer.lora_B(u) * layer.scaling
+    return y
 
 
 class Phi3Attention(nn.Module):
@@ -197,9 +224,9 @@ class Phi3Attention(nn.Module):
         cfg, tp = self.cfg, self.tp
         h, hkv, d = cfg.num_heads // tp, cfg.num_kv_heads // tp, cfg.head_dim
         b, l, _ = x.shape
-        if tp > 1:
-            x = self.mesh.copy_to(x, TENSOR_AXIS)
-        q, k, v = self.qkv_proj(x).split([h * d, hkv * d, hkv * d], dim=-1)
+        qkv = (column_parallel(x, self.qkv_proj, self.mesh) if tp > 1
+               else self.qkv_proj(x))
+        q, k, v = qkv.split([h * d, hkv * d, hkv * d], dim=-1)
         q = apply_rope(q.view(b, l, h, d), cos, sin)
         k = apply_rope(k.view(b, l, hkv, d), cos, sin)
         v = v.view(b, l, hkv, d)
@@ -225,7 +252,7 @@ class Phi3Attention(nn.Module):
             out, kv = attend(q, k, v, q_meta, k_meta, bias=bias), (k, v)
         out = out.reshape(b, l, h * d)
         if tp > 1:
-            return row_parallel(out, self.o_proj.weight, self.mesh), kv
+            return row_parallel_lora(out, self.o_proj, self.mesh), kv
         return self.o_proj(out), kv
 
 

@@ -178,13 +178,15 @@ def pipeline_trunk(decoder, x: torch.Tensor, cos: torch.Tensor,
 
 def pp_apply(model, batch, noisy_latents: torch.Tensor, t: torch.Tensor,
              clean_latents=None, input_output_return: bool = False,
-             num_micro: Optional[int] = None):
+             bias=None, num_micro: Optional[int] = None):
     """``VideoGPT``'s full-sequence forward with the trunk pipelined over
     the pipe axis (``num_micro`` microbatches): the training loss's
-    ``apply_fn`` on a pipe mesh, with ``model.forward``'s signature. The
-    embedding assembly before the trunk and the final norm and heads after
-    it run on every pipe rank. On a mesh without a pipe axis it is the
-    plain forward."""
+    ``apply_fn`` on a pipe mesh, with ``model.forward``'s signature, and
+    distillation's for the student and the frozen teacher alike (each over
+    its own stage's layers; the teacher's under ``no_grad``, a forward
+    schedule whose ticks hop as the student's do). The embedding assembly
+    before the trunk and the final norm and heads after it run on every
+    pipe rank. On a mesh without a pipe axis it is the plain forward."""
     return model(batch, noisy_latents, t, clean_latents,
-                 input_output_return=input_output_return,
+                 input_output_return=input_output_return, bias=bias,
                  num_micro=num_micro)

@@ -20,9 +20,13 @@ import torch
 
 
 # the parameters a tensor rank holds its own part of (Megatron column- and
-# row-parallel); every other parameter is replicated over the tensor axis
+# row-parallel, and the LoRA adapter on each one's sharded side: the rows
+# of qkv_proj's lora_B, the input columns of o_proj's lora_A, as the JAX
+# ``param_specs`` shards ``lora_b`` / ``lora_a``); every other parameter is
+# replicated over the tensor axis
 TP_SHARDED = (".qkv_proj.weight", ".gate_up_proj.weight", ".o_proj.weight",
-              ".down_proj.weight")
+              ".down_proj.weight", ".qkv_proj.lora_B.weight",
+              ".o_proj.lora_A.weight")
 
 
 def regroup_columns(w: torch.Tensor, sizes: Sequence[int], tp: int,

@@ -37,7 +37,7 @@ import torch
 from ..config import TrainConfig
 from ..models.video_gpt import maybe_bias
 from ..sampling.scheduler import add_noise_x1, sigma_schedule
-from .loss import LossInputs
+from .loss import DrawPart, LossInputs, take_part, whole_part
 from .train_state import TrainState, loss_step
 
 
@@ -51,19 +51,24 @@ class DistillDraws(NamedTuple):
 
 
 def draw_distill_noise(generator: torch.Generator, inputs: LossInputs,
-                       max_blocks: int, student_steps: int) -> DistillDraws:
+                       max_blocks: int, student_steps: int,
+                       part: Optional[DrawPart] = None) -> DistillDraws:
     """Draw :class:`DistillDraws` from ``generator`` (on the inputs'
-    device)."""
+    device); with ``part``, a data rank's: the global batch's draws, of
+    which it keeps its noisy and clean slots and its rows
+    (``loss.take_part``), so every data rank draws the numbers one rank
+    draws for the global batch."""
     dev = inputs.x1.device
-    rows = inputs.batch.input_ids.shape[0]
-    nc = inputs.clean_latents.shape[0]
-    return DistillDraws(
-        x0=torch.randn(inputs.x1.shape, generator=generator, device=dev),
-        index=torch.randint(0, student_steps, (rows, max_blocks),
+    g = part or whole_part(inputs)
+    draws = DistillDraws(
+        x0=torch.randn((g.noisy[1],) + inputs.x1.shape[1:],
+                       generator=generator, device=dev),
+        index=torch.randint(0, student_steps, (g.rows[1], max_blocks),
                             generator=generator, device=dev),
-        x0c=torch.randn(inputs.clean_latents.shape, generator=generator,
-                        device=dev),
-        t_clean=torch.rand((nc,), generator=generator, device=dev))
+        x0c=torch.randn((g.clean[1],) + inputs.clean_latents.shape[1:],
+                        generator=generator, device=dev),
+        t_clean=torch.rand((g.clean[1],), generator=generator, device=dev))
+    return take_part(draws, part, inputs)
 
 
 def _per_frame_sigma(sig: torch.Tensor, idx: torch.Tensor, x: torch.Tensor
@@ -93,15 +98,26 @@ def teacher_rollout(call: Callable, zt: torch.Tensor, clean_in: torch.Tensor,
     return z
 
 
+def _forward(module, batch, z, t, clean, bias=None):
+    return module(batch, z, t, clean, bias=bias)
+
+
 def distillation_loss(model, teacher, inputs: LossInputs,
                       draws: DistillDraws, student_steps: int,
                       substeps: int = 2, time_shift: float = 1.0,
                       input_noise: float = 1.0, loss_weight: str = "uniform",
-                      cfg_scale: Optional[float] = None):
+                      cfg_scale: Optional[float] = None,
+                      apply_fn: Optional[Callable] = None):
     """(scalar loss, aux with the per-frame losses) of one distillation
     regression step of ``model`` (the student) onto ``teacher`` with the
     random numbers ``draws``. The forwards run under the caller's
-    autocast; the targets and the loss are fp32."""
+    autocast; the targets and the loss are fp32. ``apply_fn(module,
+    batch, z, t, clean, bias=)`` replaces the forward of the teacher and
+    the student alike (``parallel.pipeline.pp_apply`` on a pipe mesh, each
+    model over its own stage's layers). On a mesh the two models are built
+    on the same one, and every teacher forward is a sequence of
+    collectives that each rank issues in the same order: the rollout's
+    substeps, each the conditional then the unconditional call."""
     x1, clean = inputs.x1, inputs.clean_latents
     m = int(substeps)
     sig_t = torch.from_numpy(sigma_schedule(student_steps * m,
@@ -123,24 +139,27 @@ def distillation_loss(model, teacher, inputs: LossInputs,
     else:
         clean_in = clean
 
+    call = apply_fn or _forward
+    mesh = model.llm.mesh
     batch = inputs.batch
-    bias = maybe_bias(model.cfg, batch.meta, batch.meta)
+    bias = maybe_bias(model.cfg, batch.meta, batch.meta, mesh)
     if cfg_scale is not None:
         if inputs.batch_uncond is None:
             raise ValueError("guidance distillation (cfg_scale set) needs "
                              "inputs.batch_uncond: collate with "
                              "uncond=True (training/data.py)")
         batch_u = inputs.batch_uncond
-        bias_u = maybe_bias(model.cfg, batch_u.meta, batch_u.meta)
+        bias_u = maybe_bias(model.cfg, batch_u.meta, batch_u.meta, mesh)
         empty_clean = clean_in[:0]
 
         def teacher_call(z, t, cl):
-            cond = teacher(batch, z, t, cl, bias=bias).float()
-            unc = teacher(batch_u, z, t, empty_clean, bias=bias_u).float()
+            cond = call(teacher, batch, z, t, cl, bias=bias).float()
+            unc = call(teacher, batch_u, z, t, empty_clean,
+                       bias=bias_u).float()
             return unc + cfg_scale * (cond - unc)
     else:
         def teacher_call(z, t, cl):
-            return teacher(batch, z, t, cl, bias=bias)
+            return call(teacher, batch, z, t, cl, bias=bias)
     z_prime = teacher_rollout(teacher_call, xt, clean_in, sig_t, start, m)
 
     # invert one student Euler step: predicting `target` at sigma_i lands
@@ -150,7 +169,8 @@ def distillation_loss(model, teacher, inputs: LossInputs,
     xt32 = xt.float()
     target = xt32 + (z_prime - xt32) * (1.0 - s) / (s_next - s)
 
-    pred = model(batch, xt, sigma.to(xt.dtype), clean_in, bias=bias).float()
+    pred = call(model, batch, xt, sigma.to(xt.dtype), clean_in,
+                bias=bias).float()
 
     diff = target - pred
     per_frame = (diff ** 2).reshape(diff.shape[0], -1).mean(-1)
@@ -177,13 +197,15 @@ def distill_optimizer_config(cfg: TrainConfig) -> TrainConfig:
     return dataclasses.replace(cfg, lr=cfg.distill_lr)
 
 
-def make_distill_train_step(model, teacher, cfg: TrainConfig) -> Callable:
+def make_distill_train_step(model, teacher, cfg: TrainConfig,
+                            apply_fn: Optional[Callable] = None
+                            ) -> Callable:
     """``step(state, inputs, draws) -> metrics``: the distillation loss of
     the student ``model`` (``state``'s model, its optimizer built from
     :func:`distill_optimizer_config`) onto the frozen ``teacher``,
     backward, clip, AdamW and the gated EMA of the student, in place
     (``config.check_train_config`` refuses the recipes it does not
-    take)."""
+    take). ``apply_fn``: :func:`distillation_loss`'s."""
 
     def step(state: TrainState, inputs: LossInputs, draws: DistillDraws):
         return loss_step(state, lambda: distillation_loss(
@@ -193,6 +215,7 @@ def make_distill_train_step(model, teacher, cfg: TrainConfig) -> Callable:
             time_shift=cfg.distill_time_shift,
             input_noise=cfg.distill_input_noise,
             loss_weight=cfg.distill_loss_weight,
-            cfg_scale=cfg.distill_guidance), cfg, inputs.x1.device)
+            cfg_scale=cfg.distill_guidance, apply_fn=apply_fn), cfg,
+            inputs.x1.device)
 
     return step

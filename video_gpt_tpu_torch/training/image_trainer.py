@@ -40,9 +40,8 @@ from ..utils import checkpoint as ckpt
 from .loss import draw_loss_noise
 from .train_state import (TrainState, autocast, init_train_state,
                           make_train_step)
-from .trainer import (check_mesh_recipe, checkpoint_writer, draw_part,
-                      init_model_, new_model, shard_state_dict,
-                      write_train_args)
+from .trainer import (checkpoint_writer, draw_part, init_model_, new_model,
+                      shard_state_dict, write_train_args)
 
 
 class ImageGenTrainer:
@@ -75,7 +74,6 @@ class ImageGenTrainer:
             if mesh_cfg.pipe > 1:
                 raise ValueError("pipeline parallelism is wired for the "
                                  "video Trainer; use dp/sp/tensor here")
-            check_mesh_recipe(train_cfg)
             self.mesh = make_mesh(mesh_cfg)
         sp = axis_size(self.mesh, SEQ_AXIS)
         if sp > 1:
@@ -204,7 +202,7 @@ class ImageGenTrainer:
             self.log(f"resumed from step {start_step}")
         prefetcher = Prefetcher(self.make_batch, depth=cfg.prefetch_depth,
                                 workers=cfg.num_workers, start=start_step)
-        writer = checkpoint_writer(ckpt_dir, self.mesh, self.model)
+        writer = checkpoint_writer(ckpt_dir, self.mesh, state)
         # SIGTERM / SIGINT: a checkpoint at the current step, then return
         shutdown = GracefulShutdown()
         t0, running = time.time(), []

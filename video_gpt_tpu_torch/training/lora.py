@@ -25,15 +25,29 @@ def is_adapter(name: str) -> bool:
 
 
 @torch.no_grad()
-def init_lora_(model: nn.Module, generator: torch.Generator) -> nn.Module:
+def init_lora_(model: nn.Module, generator: torch.Generator,
+               whole: nn.Module = None, part=None) -> nn.Module:
     """A ~ N(0, 1) / sqrt(fan_in) and B = 0 in every adapter (``init_lora``:
-    the adapted model starts exactly at its base weights)."""
-    for module in model.modules():
-        if isinstance(module, LoraLinear) and module.rank:
-            a = module.lora_A.weight
-            a.normal_(0.0, 1.0, generator=generator)
-            a.div_(module.in_features ** 0.5)
-            module.lora_B.weight.zero_()
+    the adapted model starts exactly at its base weights).
+
+    A model on a mesh holding parts of the adapters passes ``whole`` (the
+    unsharded model, on the meta device) and ``part(name, tensor)`` (this
+    rank's part of a whole parameter, its tensor and ZeRO part): every
+    rank draws each whole A in the one-rank order and keeps its part, so
+    the mesh starts where the one-rank run of ``generator`` starts."""
+    mine = dict(model.named_modules())
+    for name, module in (whole or model).named_modules():
+        if not (isinstance(module, LoraLinear) and module.rank):
+            continue
+        dst = mine[name]
+        a = module.lora_A.weight
+        if whole is not None:
+            a = torch.empty(a.shape, device=dst.lora_A.weight.device)
+        a.normal_(0.0, 1.0, generator=generator)
+        a.div_(module.in_features ** 0.5)
+        if whole is not None:
+            dst.lora_A.weight.copy_(part(name + ".lora_A.weight", a))
+        dst.lora_B.weight.zero_()
     return model
 
 

@@ -67,6 +67,13 @@ class DrawPart(NamedTuple):
     clean: Tuple[int, int]
 
 
+def whole_part(inputs: LossInputs) -> DrawPart:
+    """The :class:`DrawPart` of a batch that is the whole global batch."""
+    return DrawPart((0, inputs.x1.shape[0]),
+                    (0, inputs.batch.input_ids.shape[0]),
+                    (0, inputs.clean_latents.shape[0]))
+
+
 def draw_loss_noise(generator: torch.Generator, inputs: LossInputs,
                     max_blocks: int, part: Optional[DrawPart] = None
                     ) -> LossDraws:
@@ -74,9 +81,7 @@ def draw_loss_noise(generator: torch.Generator, inputs: LossInputs,
     with ``part``, the global batch's draws, and keep this rank's
     (:func:`take_part`)."""
     dev = inputs.x1.device
-    g = part or DrawPart((0, inputs.x1.shape[0]),
-                         (0, inputs.batch.input_ids.shape[0]),
-                         (0, inputs.clean_latents.shape[0]))
+    g = part or whole_part(inputs)
     draws = LossDraws(
         x0=torch.randn((g.noisy[1],) + inputs.x1.shape[1:],
                        generator=generator, device=dev),
@@ -88,19 +93,19 @@ def draw_loss_noise(generator: torch.Generator, inputs: LossInputs,
     return take_part(draws, part, inputs)
 
 
-def take_part(draws: LossDraws, part: Optional[DrawPart],
-              inputs: LossInputs) -> LossDraws:
+def take_part(draws, part: Optional[DrawPart], inputs: LossInputs):
     """This data rank's part (``part``; None: all) of the global batch's
-    ``draws``, for its batch ``inputs``."""
+    ``draws``, for its batch ``inputs``: a :class:`LossDraws`, or any
+    draws of its layout (per noisy frame, per row, per clean slot twice;
+    ``distill.DistillDraws``)."""
     if part is None:
         return draws
     nn_, nc = inputs.x1.shape[0], inputs.clean_latents.shape[0]
     rows = inputs.batch.input_ids.shape[0]
     (n0, _), (r0, _), (c0, _) = part
-    return LossDraws(x0=draws.x0[n0:n0 + nn_],
-                     t_table=draws.t_table[r0:r0 + rows],
-                     x0c=draws.x0c[c0:c0 + nc],
-                     t_clean=draws.t_clean[c0:c0 + nc])
+    x0, per_row, x0c, t_clean = draws
+    return type(draws)(x0[n0:n0 + nn_], per_row[r0:r0 + rows],
+                       x0c[c0:c0 + nc], t_clean[c0:c0 + nc])
 
 
 def sample_block_timesteps(t_table: torch.Tensor, frame_row: torch.Tensor,

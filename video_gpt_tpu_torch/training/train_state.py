@@ -27,7 +27,8 @@ no rank holds its whole fp32 gradient beside its shards:
   its own chunk; what runs before ``split_seq`` and after ``gather_seq``
   has its whole gradient already), and averaged over ``data``;
 - no reduction over ``tensor``: a sharded parameter's gradient is its own,
-  a replicated one's is whole on every tensor rank (``copy_to``);
+  a replicated one's is whole on every tensor rank (``copy_to``; a LoRA
+  adapter's through the rank-r intermediate, ``models.phi3``);
 - ZeRO-1/2: the moments hold this data rank's part (``mesh.zero_dim``) of
   each parameter, its gradient part arrives by reduce-scatter, the rank
   updates its part and all-gathers the parameter; ZeRO-3: the parameter
@@ -46,6 +47,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import math
+import weakref
 from typing import Callable, Dict, List, Optional
 
 import torch
@@ -156,9 +158,14 @@ class AdamW:
         if mesh is not None and (axis_size(mesh, DATA_AXIS) > 1
                                  or axis_size(mesh, SEQ_AXIS) > 1):
             self.reduced = [None] * len(self.params)
+            # the hooks live on the parameters and hold the optimizer
+            # weakly: a strong reference would close a cycle through a
+            # tensor's hooks that the garbage collector does not see, and
+            # keep every parameter and moment of a finished run alive
+            ref = weakref.ref(self)
             for i, p in enumerate(self.params):
                 p.register_post_accumulate_grad_hook(
-                    lambda p, i=i: self._reduce(i, p))
+                    lambda p, i=i: ref()._reduce(i, p))
 
     def _part(self, i: int) -> torch.Tensor:
         """This data rank's part of parameter ``i`` (a view)."""
@@ -344,16 +351,19 @@ def init_train_state(model: torch.nn.Module, cfg: TrainConfig,
                       ema=ema)
 
 
-def init_lora_train_state(model: torch.nn.Module, cfg: TrainConfig
-                          ) -> TrainState:
+def init_lora_train_state(model: torch.nn.Module, cfg: TrainConfig,
+                          mesh=None) -> TrainState:
     """The state of a LoRA run: AdamW and the EMA over the adapters (the
-    parameters that require a gradient, :func:`lora.freeze_base_`)."""
+    parameters that require a gradient, :func:`lora.freeze_base_`); on a
+    ``mesh``, the rank's parts of them, AdamW's moments in their own ZeRO
+    layout (the frozen base holds no optimizer state)."""
     adapters = {n: p for n, p in model.named_parameters() if p.requires_grad}
     ema = None
     if cfg.use_ema:
         ema = {n: p.detach().clone() for n, p in adapters.items()}
     return TrainState(step=0, model=model,
-                      optimizer=make_optimizer(adapters.values(), cfg),
+                      optimizer=make_optimizer(adapters.values(), cfg, mesh,
+                                               list(adapters)),
                       ema=ema, adapters_only=True)
 
 

@@ -38,8 +38,16 @@ weights are the one-rank model's), the loss runs the trunk as a GPipe
 pipeline of ``pp_microbatches`` microbatches on a pipe mesh
 (``parallel.pipeline.pp_apply``), AdamW's state is ZeRO-sharded
 (``train_state``), each rank checkpoints its part, and rank 0 alone logs.
-A pipe axis composes with data only. LoRA and distillation on a mesh are
-not ported.
+A pipe axis composes with data only. Both recipes run on a mesh as the
+JAX Trainer runs them: LoRA's frozen base is placed as the trainable
+parameters are (its tensor part, under ZeRO-3 its data part, gathered per
+layer), the adapters follow their projections' tensor parts and take
+their own ZeRO dimension, and every rank starts from the one-rank
+adapters; LoRA refuses a pipe axis with the JAX message. Distillation's
+teacher is built for the mesh like the student (its tensor part, ZeRO-3
+parts and pipe stage) and runs through the student's attention routing
+and, on a pipe mesh, the GPipe trunk; its draws are made for the global
+batch and sliced to the rank, as the loss's are.
 """
 from __future__ import annotations
 
@@ -103,7 +111,6 @@ class Trainer:
         self.mesh = None
         if mesh_cfg is not None and mesh_cfg.num_devices > 1:
             check_pipe(mesh_cfg, model_cfg, train_cfg)
-            check_mesh_recipe(train_cfg)
             self.mesh = make_mesh(mesh_cfg)
             if mesh_cfg.seq > 1:
                 model_cfg = dataclasses.replace(
@@ -184,10 +191,9 @@ class Trainer:
         if sd is None:
             init_model_(model, self.mesh, torch.Generator(
                 self.device).manual_seed(self.seed + 3))
-        elif self.mesh is not None:
-            model.load_state_dict(shard_state_dict(sd, model, self.mesh),
-                                  strict=True)
-        elif self.cfg.use_lora:
+            return
+        sd = shard_state_dict(sd, model, self.mesh)
+        if self.cfg.use_lora:
             missing, unexpected = model.load_state_dict(sd, strict=False)
             base = [n for n in missing if not is_adapter(n)]
             if unexpected or base:
@@ -227,20 +233,35 @@ class Trainer:
                                       else torch.float32)
             teacher.load_state_dict(model.state_dict(), strict=True)
             self.teacher = teacher.eval().requires_grad_(False)
-            self._step_fn = make_distill_train_step(model, self.teacher, cfg)
-            return init_train_state(model, distill_optimizer_config(cfg))
+            self._step_fn = make_distill_train_step(
+                model, self.teacher, cfg, apply_fn=self._pipe_fn())
+            return init_train_state(model, distill_optimizer_config(cfg),
+                                    self.mesh)
         if cfg.use_lora:
-            init_lora_(model, torch.Generator(dev).manual_seed(self.seed + 4))
+            gen = torch.Generator(dev).manual_seed(self.seed + 4)
+            if self.mesh is None:
+                init_lora_(model, gen)
+            else:
+                init_lora_(model, gen, whole=whole_model(model),
+                           part=functools.partial(part_of, model=model,
+                                                  mesh=self.mesh))
             freeze_base_(model)
             self._step_fn = make_lora_train_step(model, cfg)
-            return init_lora_train_state(model, cfg)
-        apply_fn = None
-        if axis_size(self.mesh, PIPE_AXIS) > 1:
-            # the GPipe trunk: the stage's layers over the pipe axis
-            apply_fn = functools.partial(
-                pp_apply, model, num_micro=num_micro(self.mesh.cfg, cfg))
-        self._step_fn = make_train_step(model, cfg, apply_fn=apply_fn)
+            return init_lora_train_state(model, cfg, self.mesh)
+        pipe_fn = self._pipe_fn()
+        self._step_fn = make_train_step(
+            model, cfg, apply_fn=None if pipe_fn is None
+            else functools.partial(pipe_fn, model))
         return init_train_state(model, cfg, self.mesh)
+
+    def _pipe_fn(self):
+        """On a pipe mesh, the GPipe trunk's forward of a model (its
+        stage's layers over the pipe axis, ``pp_apply`` at the recipe's
+        microbatches); else None."""
+        if axis_size(self.mesh, PIPE_AXIS) == 1:
+            return None
+        return functools.partial(pp_apply,
+                                 num_micro=num_micro(self.mesh.cfg, self.cfg))
 
     def step_generator(self, step_idx: int) -> torch.Generator:
         """The generator of step ``step_idx``'s random numbers."""
@@ -267,7 +288,7 @@ class Trainer:
             clean_latents=latents[tb.clean_sel.long()])
         if cfg.distill:
             draws = draw_distill_noise(gen, inputs, cfg.frame_num,
-                                       cfg.distill_student_steps)
+                                       cfg.distill_student_steps, part=part)
             return self._step_fn(state, inputs, draws)
         draws = draw_loss_noise(gen, inputs, max_blocks=cfg.frame_num,
                                 part=part)
@@ -293,7 +314,7 @@ class Trainer:
             self.log(f"resumed from step {start_step}")
         prefetcher = Prefetcher(self.make_batch, depth=cfg.prefetch_depth,
                                 workers=cfg.num_workers, start=start_step)
-        writer = checkpoint_writer(ckpt_dir, self.mesh, self.model)
+        writer = checkpoint_writer(ckpt_dir, self.mesh, state)
         # SIGTERM / SIGINT: a checkpoint at the current step, then return
         shutdown = GracefulShutdown()
         try:
@@ -378,15 +399,6 @@ def check_pipe(mesh_cfg: MeshConfig, model_cfg: ModelConfig,
             f"divisible by pp_microbatches={nm}")
 
 
-def check_mesh_recipe(cfg: TrainConfig) -> None:
-    """Raise on a recipe the mesh does not run yet."""
-    for flag in ("use_lora", "distill"):
-        if getattr(cfg, flag):
-            raise NotImplementedError(
-                f"--{flag} on a mesh is not ported yet (ROADMAP.md queue 1: "
-                "LoRA and distillation on the mesh)")
-
-
 def new_model(cfg: ModelConfig, dtype: torch.dtype, device, mesh,
               input_head: bool) -> VideoGPT:
     """A training model built for ``mesh`` (its tensor part; under ZeRO-3
@@ -398,7 +410,7 @@ def new_model(cfg: ModelConfig, dtype: torch.dtype, device, mesh,
     return model.to_empty(device=device)
 
 
-def _part_of(name: str, w: torch.Tensor, model: VideoGPT, mesh
+def part_of(name: str, w: torch.Tensor, model: VideoGPT, mesh
              ) -> torch.Tensor:
     """This rank's part of the whole (one-rank) parameter ``name``."""
     w = tp_shard(name, w, model.cfg, axis_size(mesh, TENSOR_AXIS),
@@ -408,16 +420,21 @@ def _part_of(name: str, w: torch.Tensor, model: VideoGPT, mesh
     return w
 
 
+def whole_model(model: VideoGPT) -> VideoGPT:
+    """The one-rank (unsharded) model of ``model``, on the meta device."""
+    return VideoGPT(model.cfg, device="meta", train_init=model.train_init,
+                    input_head=hasattr(model, "input_final_layer"))
+
+
 def init_model_(model: VideoGPT, mesh, gen: torch.Generator) -> None:
     """Random weights of the one-rank model of ``gen``: on a mesh each
     whole parameter is drawn in turn and this rank keeps its part."""
     if mesh is None:
         model.init_random_(gen)
         return
-    whole = VideoGPT(model.cfg, device="meta", train_init=model.train_init,
-                     input_head=hasattr(model, "input_final_layer"))
-    model.init_random_(gen, whole=whole, part=lambda name, w: _part_of(
-        name, w, model, mesh))
+    model.init_random_(gen, whole=whole_model(model),
+                       part=functools.partial(part_of, model=model,
+                                              mesh=mesh))
 
 
 def shard_state_dict(sd: dict, model: VideoGPT, mesh) -> dict:
@@ -475,7 +492,11 @@ def write_train_args(cfg: TrainConfig, model_cfg: ModelConfig, mesh) -> None:
                   f, indent=2, default=str)
 
 
-def checkpoint_writer(ckpt_dir: str, mesh, model) -> ckpt.CheckpointWriter:
+def checkpoint_writer(ckpt_dir: str, mesh, state: TrainState
+                      ) -> ckpt.CheckpointWriter:
+    """The writer of ``state``'s checkpoints; on a mesh its record names
+    the parameters the state writes (a LoRA run's adapters alone)."""
     return ckpt.CheckpointWriter(
         ckpt_dir, mesh=mesh,
-        record=None if mesh is None else ckpt.mesh_record(mesh, model))
+        record=None if mesh is None else ckpt.mesh_record(
+            mesh, state.model, only=list(state.state_dict()["model"])))

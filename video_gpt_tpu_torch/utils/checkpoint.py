@@ -17,7 +17,10 @@ pipe stage's layers included, and the widths the tensor-parallel and pipe
 layouts need). It resumes on the same mesh only;
 :func:`load_train_params` puts the parameters of the parts back
 together into the one-rank layout, reading only the parameters from each
-part, so a mesh run's checkpoint serves and warm-starts at any mesh.
+part, so a mesh run's checkpoint serves and warm-starts at any mesh. A
+LoRA run's parts and record hold the adapters alone
+(:func:`load_lora_adapters` puts them together the same way); a
+distillation run's the student alone (the teacher is its warm start).
 """
 from __future__ import annotations
 
@@ -96,15 +99,18 @@ def _write(directory: str, step: int, host_state, keep: int,
                           ignore_errors=True)
 
 
-def mesh_record(mesh, model) -> dict:
+def mesh_record(mesh, model, only=None) -> dict:
     """What a mesh run's checkpoint records beside its parts: the axes,
     ZeRO-3, each parameter's ZeRO dimension (of the rank's tensor; a pipe
     stage's layers as rank 0's stage's) and the model widths that the
-    tensor-parallel and pipe layouts depend on."""
+    tensor-parallel and pipe layouts depend on. ``only``: the names of the
+    parameters the checkpoint holds (a LoRA run's adapters), else all."""
     cfg, pp = model.cfg, mesh.cfg.pipe
     per = cfg.num_layers // pp
     dims = {}
     for n, p in model.named_parameters():
+        if only is not None and n not in only:
+            continue
         d = getattr(p, "zero_dim", None)
         layer = re.fullmatch(r"llm\.layers\.(\d+)\.(.*)", n)
         if layer is None:
