@@ -79,6 +79,14 @@ Phases, in order; any failure exits nonzero and none is caught:
    above the bias limit), 640 K1 (all past 8192 keys) and 640 K2
    launches, 2 x 104 frames; the serving objects are freed after it
    (less than 1 GiB may stay allocated);
+9a. ``scripts/cfg_drift.py`` at its defaults (8 layers of the flagship's
+   width, random bf16 weights with the head re-rolled, 10 steps,
+   guidance 1.5) over its whole sweep and the reference schedule against
+   itself: the uncond / cond ratio measured on the card (the medians of
+   timed calls), then a JSON line per schedule; the reference drifts from
+   itself by exactly 0, every drift is finite, every plan is
+   ``step_kinds``', the launches are exactly K3 per prefill, K1 per cond
+   and K2 per uncond evaluation;
 10. small-input mesh reference: a tiny model (head_dim 96, GQA 8:4) over
    (seq 2), (tensor 2) and (seq 2, tensor 2) gloo ranks sharing the card
    (``spawn_ranks``: one spawned process per rank; NCCL refuses two ranks
@@ -212,18 +220,41 @@ Phases, in order; any failure exits nonzero and none is caught:
    warm-up and 2 timed steps with stage 1's launches; the head's weight is
    0 before the first step, gets a nonzero gradient in every step and
    moves;
+22a. small-input offload reference: one offload step (``--offload_optimizer``:
+   bf16 parameters on the card, fp32 master, mu and nu on the host, the
+   update on the host CPU) of a tiny model (head_dim 96, GQA) on the card
+   against the same step on the CPU in fp32 (plain versions) and in bf16,
+   from the same bf16-valued weights and random numbers: the loss within
+   2^-8, the gradient the host update received within 4x the CPU's own
+   bf16 error, every parameter exactly bf16 of its master after it;
+22b. the offload path: stage 1 (``configs/pretrain_stage1.sh`` with
+   ``--offload_optimizer``) at full width and depth through the Trainer's
+   own step (a cut in depth only if the host's MemAvailable cannot hold
+   the 14 B a parameter of host state with a 1.25x margin: printed and
+   listed in the ``runtime_depth_cuts`` line): a warm-up (no float op on
+   the host but the shared AdamW arithmetic of the update), 2 timed steps
+   at ``offload_grad_splits`` 1 with exactly 64 K3, 32 K9 and one map
+   build each, one step at 2 (two passes: two map builds, K3 and K9
+   between one and two passes' counts); each step's split (forward +
+   backward, D2H, host update, H2D, with rates), peak device memory per
+   grad_splits, the host state's size, its MFU line; finite loss and
+   gradient norm, a gradient into layer 0's attention, the watched
+   masters moved within the stage-1 bound, the watched parameters bf16
+   and exactly bf16(master) after every step; the host state and the
+   pinned buffer are freed after it (these two run last, so that the
+   host state is not held while the mesh ranks copy through host memory);
 23. a line of kernel records (K1-K10 and P1, each with its launches read
-   from the counters; K3 and K9 also per LoRA, distillation, train-image
-   and input-head step, K3 per image), then the device line as the last
-   line.
+   from the counters; K3 and K9 also per LoRA, distillation, train-image,
+   input-head and offload step, K3 per image, K1-K3 in the cfg_drift
+   sweep), then the device line as the last line.
 
 The training phases use the recipes of ``configs/pretrain_stage1.sh`` and
 ``configs/pretrain_stage4.sh`` (betas 0.9/0.95, weight decay 0.1, eps 1e-5,
 clip 1.0) with a constant learning rate of 1e-4: the recipes' 320000-step
 linear warmup gives a learning rate of 0 at step 0, which would leave the
 parameters unmoved. The LoRA and distillation paths take stage 1's
-recipe with their own flags; train-image and the input-head path take a
-constant learning rate too. About 19 minutes on one H100.
+recipe with their own flags; train-image, the input-head and the offload
+paths take a constant learning rate too.
 
 ``--mesh-train`` builds the kernels and runs only the mesh training's
 kernel records and phase 11a (a development reading; no device line).
@@ -361,6 +392,20 @@ EDIT_PROMPT = "make it red <img><|image_1|></img>"
 # with one input image, and stage 1 with the aux input head
 TRAIN_IMAGE_PX, MAX_INPUT_IMAGES, TRAIN_IMAGE_STEPS = 512, 3, 2
 INPUT_HEAD_STEPS = 2
+# the offload optimizer at stage 1 (configs/pretrain_stage1.sh with
+# --offload_optimizer, learning rate constant): a warm-up, OFFLOAD_STEPS
+# timed steps at grad_splits 1, one at 2. Its host state takes
+# OFFLOAD_HOST_BYTES a parameter (fp32 master, mu and nu; the bf16
+# transfer buffer); the phase cuts the depth (printed, listed in CUTS)
+# unless the host's MemAvailable holds it OFFLOAD_HOST_MARGIN times over.
+# The host update touches OFFLOAD_UPDATE_BYTES a parameter at the least:
+# the bf16 gradient read and the new bf16 parameter written, master, mu
+# and nu read and written.
+OFFLOAD_STEPS = 2
+OFFLOAD_HOST_BYTES, OFFLOAD_HOST_MARGIN = 14, 1.25
+OFFLOAD_UPDATE_BYTES = 28
+# the cuts in depth this run made beyond those of the constants above
+CUTS = []
 # the seed of the stage-4 batch's random_block_partition draw
 PARTITION_SEED = 0
 # a kernel's timing runs as many launches as fit this many ms (at most 20;
@@ -2775,6 +2820,8 @@ def run(dev: torch.device, smi: str) -> None:
             K2=2 * BATCH_STEPS * nl))
     del pipe
     freed("the serving paths")
+    drift_counts = cfg_drift_phase(dev, smi)
+    freed("the cfg_drift sweep")
 
     # ---- the mesh: gloo ranks sharing the card ----------------------------
     def mesh_launches(seq, tensor, layers=2, steps=3):
@@ -2828,6 +2875,14 @@ def run(dev: torch.device, smi: str) -> None:
     freed("the train-image path")
     input_head_counts = input_head_phase(dev, smi)
     freed("the input-head path")
+    # the offload optimizer last, so that nothing it leaves on the host
+    # (the pinned allocator's cache, the pages of its 49 GiB of state) is
+    # around while the mesh ranks copy their collectives through host
+    # memory
+    offload_reference_phase(dev)
+    freed("the small-input offload reference")
+    offload_counts = offload_phase(dev, smi)
+    freed("the offload path")
 
     # launches: each kernel's count in its own path's timed run (serving:
     # one clip; training: the timed steps of its stage). K8 is K6's kernel
@@ -2846,7 +2901,9 @@ def run(dev: torch.device, smi: str) -> None:
              "text to image": image_serving["text_to_image"]["launches"],
              "image editing": image_serving["editing_3way"]["launches"],
              "train-image": train_image_counts,
-             "input-head training": input_head_counts}
+             "input-head training": input_head_counts,
+             "cfg_drift sweep": drift_counts,
+             "offload training": offload_counts}
     for k, r in records.items():
         if k in ("K6", "K7"):
             r.update(launches=stage4_counts[k], launches_per_train_step=(
@@ -2930,6 +2987,16 @@ def run(dev: torch.device, smi: str) -> None:
             train_image_counts[k] // TRAIN_IMAGE_STEPS
         records[k]["launches_per_input_head_step"] = \
             input_head_counts[k] // INPUT_HEAD_STEPS
+    # the cfg_drift sweep (8 layers: K3 per prefill, K1 per cond and K2 per
+    # uncond evaluation) and the offload path's steps at grad_splits 1
+    for k in ("K1", "K2", "K3"):
+        records[k]["launches_cfg_drift"] = drift_counts[k]
+    for k in ("K3", "K9"):
+        records[k]["launches_per_offload_step"] = \
+            offload_counts[k] // OFFLOAD_STEPS
+    records["K3"]["bias_map_builds"]["per_offload_step"] = \
+        offload_counts["bias_map_builds"] // OFFLOAD_STEPS
+    log(json.dumps({"runtime_depth_cuts": CUTS}))
     log(f"every phase: {time.perf_counter() - t_run:.1f} s")
     log(json.dumps({"kernels": list(records.values())}))
 
@@ -3015,16 +3082,23 @@ def mfu_line(name: str, flops: float, seconds: float, smi: str) -> None:
                             "device": smi}}))
 
 
+# the parameters a training model starts at zero that randomise_heads_
+# redraws
+HEAD_PARAMS = ("x_embedder.proj.weight",
+               "final_layer.adaLN_modulation.1.weight",
+               "final_layer.linear.weight")
+
+
 def randomise_heads_(model, seed: int, std: float = 0.02) -> None:
     """Random weights for the parts a training model starts at zero (the
-    head and the noisy-patch embedder): with a zero head no gradient
-    reaches the trunk, and the attention backward would see dO = 0."""
+    head and the noisy-patch embedder, HEAD_PARAMS): with a zero head no
+    gradient reaches the trunk, and the attention backward would see
+    dO = 0."""
     gen = torch.Generator(model.llm.norm.weight.device).manual_seed(seed)
+    params = dict(model.named_parameters())
     with torch.no_grad():
-        for p in (model.x_embedder.proj.weight,
-                  model.final_layer.adaLN_modulation[1].weight,
-                  model.final_layer.linear.weight):
-            p.normal_(0.0, std, generator=gen)
+        for n in HEAD_PARAMS:
+            params[n].normal_(0.0, std, generator=gen)
 
 
 def train_reference_phase(dev, bias_limit=None) -> dict:
@@ -3124,6 +3198,422 @@ def train_reference_phase(dev, bias_limit=None) -> dict:
         fail(f"the card's training step disagrees with the CPU's: loss "
              f"{l_err}, gradient {g_err}")
     return ran
+
+
+def cfg_drift_phase(dev, smi: str) -> dict:
+    """The port's ``scripts/cfg_drift.py`` at its defaults (8 layers of the
+    flagship's width, random bf16 weights, the head re-rolled, 10 steps,
+    guidance 1.5) over its whole sweep and, last, the reference schedule
+    against itself: the measured uncond / cond ratio, then a line per
+    schedule. Checks: the reference against itself drifts by exactly 0,
+    every drift is finite, every plan is ``step_kinds``', and the launches
+    are exactly K3 per prefill, K1 per cond and K2 per uncond evaluation
+    (the ratio's timed calls included). Returns the launch counts."""
+    from video_gpt_tpu_torch.sampling.scheduler import step_kinds
+    from video_gpt_tpu_torch.scripts import cfg_drift
+    reset_counts()
+    t0 = time.perf_counter()
+    res = cfg_drift.run(dev, num_layers=cfg_drift.NUM_LAYERS,
+                        schedules=cfg_drift.SCHEDULES + ";ival=none",
+                        log=lambda line: log(f"cfg_drift: {line}"))
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    ran = counts()
+    records = res["records"]
+    if records[-1]["rel_final_latent_mse"] != 0.0:
+        fail(f"cfg_drift: the reference schedule drifts from itself by "
+             f"{records[-1]['rel_final_latent_mse']}")
+    for r in records:
+        kinds = step_kinds(cfg_drift.parse_schedule(r["schedule"]))
+        if r["kinds"] != "".join(cfg_drift.KIND_CHARS[k] for k in kinds):
+            fail(f"cfg_drift: {r['schedule']} ran {r['kinds']}, not "
+                 f"{kinds}")
+        if not np.isfinite(r["rel_final_latent_mse"]):
+            fail(f"cfg_drift: {r['schedule']} drift is not finite")
+    nl, calls = cfg_drift.NUM_LAYERS, 1 + cfg_drift.RATIO_CALLS
+    prefills = 2 + len(records)  # the ratio's, the reference's, each's
+    cond = calls + cfg_drift.STEPS + sum(r["num_steps"] for r in records)
+    uncond = calls + cfg_drift.STEPS + sum(r["uncond_evals"]
+                                           for r in records)
+    want = expect(K3=nl * prefills, K1=nl * cond, K2=nl * uncond,
+                  bias_map_builds=prefills)
+    log(f"cfg_drift: {len(records)} schedules at {nl} layers in "
+        f"{wall_s:.2f} s, uncond/cond {res['ratio']['uncond_over_cond']:.4f} "
+        f"on {smi}; launches {ran} (expected {want})")
+    if ran != want:
+        fail(f"cfg_drift launch counts {ran} != {want}")
+    return ran
+
+
+def offload_reference_phase(dev) -> dict:
+    """One offload step of a tiny training model (head_dim 96, GQA 2:1) on
+    the card (bf16 parameters, the kernels, the update on the host) against
+    the same step on the CPU in fp32 (plain versions) and the CPU's own
+    bf16 step, from the same bf16-valued weights, batch and random numbers:
+    the loss within 2^-8 of the fp32 step's, the gradient that reached the
+    host update within TRAIN_REF_FLOOR_FACTOR times the CPU bf16 error; on
+    the card every parameter is bf16(master) after the step and the master
+    is fp32. Returns the card step's launch counts."""
+    from video_gpt_tpu_torch.training import offload
+    mcfg = ModelConfig.tiny(hidden_size=192, num_heads=2, num_kv_heads=1,
+                            pos_embed_max_size=64)
+    res, n_frames = (64, 96), 4
+    rng = np.random.default_rng(13)
+    frames = [rng.integers(0, 256, res + (3,), dtype=np.uint8)
+              for _ in range(n_frames)]
+    tb_host = collate([ClipSample(preprocess_to_resolution(frames, *res),
+                                  (1,) * n_frames)], tokens_per_frame(*res))
+
+    def trainer(device, mixed, **sd):
+        cfg = stage_config(1, frame_num=n_frames, mixed_precision=mixed,
+                           lr=TRAIN_LR, lr_scheduler="constant",
+                           adam_epsilon=1e-5, offload_optimizer=True)
+        return Trainer(mcfg, cfg, None, vae_cfg=VAEConfig.tiny(),
+                       target_resolution=res, device=device, seed=3, **sd)
+
+    card = trainer(dev, "bf16")
+    card_state = card.build()
+    randomise_heads_(card.model, seed=4)
+    sync_master_(card_state)
+    sd = dict(init_state_dict={k: v.float().cpu() for k, v in
+                               card.model.state_dict().items()},
+              vae_state_dict={k: v.cpu() for k, v in
+                              card.vae.state_dict().items()})
+    gen = torch.Generator().manual_seed(5)
+    hl, wl = res[0] // 8, res[1] // 8
+    post = torch.randn((n_frames, hl, wl, 4), generator=gen)
+    nn_, nc = tb_host.noisy_sel.shape[0], tb_host.clean_sel.shape[0]
+    draws = LossDraws(torch.randn((nn_, hl, wl, 4), generator=gen),
+                      torch.rand((1, n_frames), generator=gen),
+                      torch.randn((nc, hl, wl, 4), generator=gen),
+                      torch.rand((nc,), generator=gen))
+
+    def one_step(tr, state):
+        d = tr.device
+        tb = tb_host.to(d)
+        with torch.no_grad(), autocast(tr.cfg, d):
+            lat = tr.vae.encode(tb.pixels, noise=post.to(d))
+        inputs = tb.inputs._replace(x1=lat[tb.noisy_sel.long()],
+                                    clean_latents=lat[tb.clean_sel.long()])
+        grads = []
+        update = offload.host_update_
+
+        def recording(buf, *args):
+            # the gradient, as received (the update overwrites the buffer)
+            grads.append(buf.float().flatten().clone())
+            update(buf, *args)
+
+        offload.host_update_ = recording
+        try:
+            m = tr._step_fn(state, inputs, LossDraws(*(x.to(d)
+                                                      for x in draws)))
+        finally:
+            offload.host_update_ = update
+        return float(m["loss"]), torch.cat(grads)
+
+    reset_counts()
+    got = one_step(card, card_state)
+    torch.cuda.synchronize()
+    ran = counts()
+    want, floor = [one_step(tr, tr.build()) for tr in (
+        trainer("cpu", mixed, **sd) for mixed in ("no", "bf16"))]
+
+    def errs(x):
+        return (abs(x[0] - want[0]) / abs(want[0]),
+                float((x[1] - want[1]).norm() / want[1].norm()))
+
+    (l_err, g_err), (l_floor, g_floor) = errs(got), errs(floor)
+    log(f"small-input offload reference: card (bf16 parameters, kernels, "
+        f"host update) vs CPU (fp32, plain): loss rel err {l_err:.3e} (CPU "
+        f"bf16 {l_floor:.3e}), gradient rel err {g_err:.3e} (CPU bf16 "
+        f"{g_floor:.3e}); bar {TRAIN_REF_FLOOR_FACTOR}x the CPU bf16 error, "
+        f"loss {BF16_U:.2e}; launches {ran}")
+    nl = mcfg.num_layers
+    if ran != expect(K3=2 * nl, K9=nl, bias_map_builds=1):
+        fail(f"the small-input offload step's launches {ran}")
+    if not (float(got[1].abs().max()) > 0 and torch.isfinite(got[1]).all()):
+        fail("the small-input offload gradient is zero or not finite")
+    if not (l_err <= BF16_U and g_err <= TRAIN_REF_FLOOR_FACTOR * g_floor):
+        fail(f"the card's offload step disagrees with the CPU's: loss "
+             f"{l_err}, gradient {g_err}")
+    bad = master_mismatch(card_state)
+    if bad:
+        fail(f"after the small-input offload step: {bad}")
+    return ran
+
+
+def sync_master_(state) -> None:
+    """The offload master of the parameters :func:`randomise_heads_`
+    redrew, from their (bf16) values, as the build makes it."""
+    params = dict(state.model.named_parameters())
+    for n in HEAD_PARAMS:
+        state.optimizer.master[n].copy_(params[n].detach())
+
+
+def master_mismatch(state, names=None) -> list:
+    """The offload parameters (``names``, default all) that are not bf16,
+    or not exactly bf16 of their master, or whose master is not fp32."""
+    bad = []
+    for n, p in state.model.named_parameters():
+        if names is not None and n not in names:
+            continue
+        m = state.optimizer.master[n]
+        if p.dtype != torch.bfloat16 or m.dtype != torch.float32 or not \
+                torch.equal(p.detach().cpu(), m.to(torch.bfloat16)):
+            bad.append(n)
+    return bad
+
+
+class PhaseHostOps(HostFloatOps):
+    """:class:`HostFloatOps` with the offload step's host update apart: the
+    ops recorded inside ``offload.host_update_`` (wrapped while the mode
+    is on) go to ``update``, every other to ``other``."""
+
+    def __init__(self):
+        super().__init__()
+        self.other, self.update = set(), set()
+        self.ops = self.other
+
+    def __enter__(self):
+        from video_gpt_tpu_torch.training import offload
+        update = self._host_update = offload.host_update_
+
+        def recording(*args):
+            self.ops = self.update
+            try:
+                update(*args)
+            finally:
+                self.ops = self.other
+
+        offload.host_update_ = recording
+        return super().__enter__()
+
+    def __exit__(self, *exc):
+        from video_gpt_tpu_torch.training import offload
+        offload.host_update_ = self._host_update
+        return super().__exit__(*exc)
+
+
+def host_update_ops() -> set:
+    """The host ops of the shared AdamW arithmetic as the offload update
+    runs it (``offload.host_update_`` on small host tensors)."""
+    from video_gpt_tpu_torch.training.offload import host_update_
+    rec = HostFloatOps()
+    buf = torch.ones(4, 3, dtype=torch.bfloat16)
+    master, mu, nu = (torch.full((4, 3), 0.5) for _ in range(3))
+    with rec:
+        host_update_(buf, master, mu, nu, 0.5, 1e-4, 0.1, 0.05,
+                     TrainConfig())
+    return rec.ops
+
+
+def offload_layers(full: int) -> tuple:
+    """(layers, the host's MemAvailable GiB, the state's GiB at that
+    depth): the depth whose offload state (OFFLOAD_HOST_BYTES a parameter)
+    the host holds with OFFLOAD_HOST_MARGIN to spare, at most ``full``."""
+    with open("/proc/meminfo") as f:
+        avail = next(int(line.split()[1]) * 1024 for line in f
+                     if line.startswith("MemAvailable:"))
+
+    def need(layers):
+        model = VideoGPT(ModelConfig(num_layers=layers), device="meta",
+                         train_init=True)
+        return OFFLOAD_HOST_BYTES * sum(p.numel() for p in
+                                        model.parameters())
+
+    layers = full
+    while layers > 1 and OFFLOAD_HOST_MARGIN * need(layers) > avail:
+        layers -= 1
+    return layers, avail / 2 ** 30, need(layers) / 2 ** 30
+
+
+def release_pinned() -> None:
+    """Return the caching host allocator's free pinned blocks to the OS."""
+    for name in ("_accelerator_emptyHostCache", "_host_emptyCache"):
+        fn = getattr(torch._C, name, None)
+        if fn is not None:
+            fn()
+            return
+
+
+def offload_phase(dev, smi: str) -> dict:
+    """Stage 1 with the offload optimizer at full width and depth (the
+    cut, if the host's memory forces one, printed and listed in CUTS)
+    through the Trainer's own step: a warm-up (the host-op check on, the
+    host update apart), OFFLOAD_STEPS timed steps at grad_splits 1, each
+    with exactly stage 1's launches, then one step at grad_splits 2. Each
+    step's time split (forward + backward, D2H, host update, H2D, with
+    rates), its peak device memory, the host state's size; checks: finite
+    loss and gradient norm, a gradient into layer 0's attention, the
+    watched masters moved within training_phase's bound, the watched
+    parameters bf16 and exactly bf16(master) after every step, the master
+    fp32. Returns the launch counts of the grad_splits-1 steps."""
+    full = ModelConfig().num_layers
+    layers, avail_gib, need_gib = offload_layers(full)
+    log(f"offload: host MemAvailable {avail_gib:.2f} GiB; the state needs "
+        f"{need_gib:.2f} GiB at {layers} layers ({OFFLOAD_HOST_BYTES} B a "
+        f"parameter, margin {OFFLOAD_HOST_MARGIN}x)")
+    if layers < full:
+        cut = (f"offload stage-1 path at {layers} of {full} layers: the "
+               f"host holds {avail_gib:.2f} GiB, the full-depth state needs "
+               f"more with its margin")
+        CUTS.append(cut)
+        log(f"CUT: {cut}")
+    cfg = stage_config(1, lr=TRAIN_LR, lr_scheduler="constant",
+                       adam_epsilon=1e-5, offload_optimizer=True)
+    rss_gib_before = host_rss_gib()
+    t0 = time.perf_counter()
+    trainer = Trainer(ModelConfig(num_layers=layers), cfg, None,
+                      vae_cfg=VAEConfig(), target_resolution=(H_PX, W_PX),
+                      device=dev, seed=0)
+    state = trainer.build()
+    model, ost, step = trainer.model, state.optimizer, trainer._step_fn
+    randomise_heads_(model, seed=1)
+    sync_master_(state)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    buf_bytes = sum(b.numel() * b.element_size() for b in step.buffers)
+    host_gib = (ost.host_bytes + buf_bytes) / 2 ** 30
+    log(f"build offload trainer: {time.perf_counter() - t0:.1f} s, "
+        f"{n_params / 1e9:.3f}B bf16 params on the card, host state "
+        f"{ost.host_bytes / 2 ** 30:.2f} GiB (fp32 master, mu, nu) + "
+        f"{buf_bytes / 2 ** 30:.2f} GiB pinned transfer buffer, "
+        f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB allocated on "
+        f"the card")
+    nl = layers
+    watched = ["x_embedder.proj.weight",
+               "llm.layers.0.self_attn.qkv_proj.weight",
+               f"llm.layers.{nl - 1}.mlp.down_proj.weight", "llm.norm.weight",
+               "final_layer.linear.weight"]
+    bad = master_mismatch(state)
+    if bad:
+        fail(f"the offload build's parameters are not bf16(master): {bad}")
+    tb = train_batch(1).to(dev)
+    b, L = tb.inputs.batch.input_ids.shape
+    qkv = model.llm.layers[0].self_attn.qkv_proj.weight
+    qkv_grads = []
+    hook = qkv.register_post_accumulate_grad_hook(
+        lambda p: qkv_grads.append(torch.linalg.vector_norm(p.grad.float())))
+
+    def check(label, m):
+        g = float(qkv_grads[-1]) if qkv_grads else 0.0
+        if not (np.isfinite(g) and g > 0):
+            fail(f"offload {label}: no gradient reached layer 0's attention")
+        if not all(np.isfinite([float(m["loss"]), float(m["grad_norm"])])):
+            fail(f"offload {label}: loss or gradient norm not finite")
+        bad = master_mismatch(state, watched)
+        if bad:
+            fail(f"offload {label}: not bf16(master): {bad}")
+
+    ops = PhaseHostOps()
+    t0 = time.perf_counter()
+    with ops:
+        m = trainer.train_step(state, tb, 0)
+    torch.cuda.synchronize()
+    want_ops = host_update_ops()
+    log(f"warm-up offload step: {time.perf_counter() - t0:.2f} s, loss "
+        f"{float(m['loss']):.6f} (host-op check on; host update ops "
+        f"{sorted(ops.update)})")
+    if ops.other:
+        fail(f"float ops ran on the host outside the offload update: "
+             f"{sorted(ops.other)}")
+    if ops.update != want_ops:
+        fail(f"the offload update ran {sorted(ops.update)} on the host, not "
+             f"the shared AdamW arithmetic's {sorted(want_ops)}")
+    check("warm-up", m)
+    before = {n: ost.master[n].clone() for n in watched}
+
+    grad_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    steps, total = [], dict.fromkeys(counts(), 0)
+    want = expect(K3=2 * nl, K9=nl, bias_map_builds=1)
+    peaks = {}
+    for i, splits in enumerate([1] * OFFLOAD_STEPS + [2], start=2):
+        step.grad_splits = splits
+        if splits not in peaks:
+            torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = trainer.train_step(state, tb, i - 1)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        peaks[splits] = torch.cuda.max_memory_allocated() / 2 ** 30
+        c = counts()
+        sp = dict(step.split)
+        rec = dict(grad_splits=splits, step_s=dt, loss=float(m["loss"]),
+                   grad_norm=float(m["grad_norm"]), split_s=sp,
+                   d2h_gb_per_s=grad_bytes / sp["d2h"] / 1e9,
+                   h2d_gb_per_s=grad_bytes / sp["h2d"] / 1e9,
+                   update_gb_per_s=OFFLOAD_UPDATE_BYTES * n_params
+                   / sp["update"] / 1e9, launches=c)
+        steps.append(rec)
+        log(f"offload step {i} (grad_splits {splits}): {dt:.3f} s, "
+            f"{b * L / dt:.1f} tokens/s, loss {rec['loss']:.6f}, grad norm "
+            f"{rec['grad_norm']:.4e}; forward+backward "
+            f"{sp['forward_backward']:.3f} s, D2H {sp['d2h']:.3f} s "
+            f"({rec['d2h_gb_per_s']:.2f} GB/s), host update "
+            f"{sp['update']:.3f} s ({rec['update_gb_per_s']:.2f} GB/s at "
+            f"{OFFLOAD_UPDATE_BYTES} B a parameter), H2D {sp['h2d']:.3f} s "
+            f"({rec['h2d_gb_per_s']:.2f} GB/s); launches {c}")
+        if splits == 1:
+            if c != want:
+                fail(f"offload step launches {c} != {want}")
+            for k in total:
+                total[k] += c[k]
+        else:
+            # two passes over the groups: each its forward (and map), the
+            # recompute and backward of the layers its parameters reach
+            lo = {k: want[k] for k in ("K3", "K9")}
+            if c["bias_map_builds"] != 2 or any(
+                    not lo[k] <= c[k] <= 2 * lo[k] for k in lo) or any(
+                    c[k] for k in c if k not in lo
+                    and k != "bias_map_builds"):
+                fail(f"offload grad_splits-2 step launches {c}")
+        check(f"step {i}", m)
+    hook.remove()
+    moved = {}
+    n_moves = len(steps)
+    for n in watched:
+        d = float((ost.master[n] - before[n]).abs().max())
+        moved[n] = d
+        if not 0 < d <= 2 * n_moves * TRAIN_LR * (1 + float(
+                before[n].abs().max())):
+            fail(f"the offload update moved the master of {n} by {d}")
+    log(f"offload masters moved (max abs change over {n_moves} steps): "
+        f"{moved}")
+    timed = [r for r in steps if r["grad_splits"] == 1]
+    step_s = float(np.mean([r["step_s"] for r in timed]))
+    split = {k: float(np.mean([r["split_s"][k] for r in timed]))
+             for k in timed[0]["split_s"]}
+    out = dict(stage=1, layers=nl, full_layers=full, params=n_params,
+               step_s=step_s, tokens_per_s=b * L / step_s,
+               tokens_per_step=b * L, split_s=split,
+               peak_mem_gib_grad_splits_1=peaks[1],
+               peak_mem_gib_grad_splits_2=peaks[2],
+               host_state_gib=ost.host_bytes / 2 ** 30,
+               pinned_buffer_gib=buf_bytes / 2 ** 30,
+               host_mem_available_gib=avail_gib, steps=steps,
+               qkv0_grad_norms=[float(x) for x in qkv_grads], device=smi)
+    log(f"offload stage-1 path: {nl} layers, L {L}, B {b}: {step_s:.3f} "
+        f"s/step, {b * L / step_s:.1f} tokens/s, peak {peaks[1]:.2f} GiB "
+        f"(grad_splits 2: {peaks[2]:.2f} GiB), host {host_gib:.2f} GiB, "
+        f"on {smi}")
+    log(json.dumps({"offload_path": out}))
+    mfu_line("offload stage-1 train step", train_step_flops(model, b * L),
+             step_s, smi)
+    del trainer, state, model, ost, step, ops, m
+    gc.collect()
+    release_pinned()
+    log(f"offload: host RSS {rss_gib_before:.2f} GiB before the build, "
+        f"{host_rss_gib():.2f} GiB after freeing the state")
+    return total
+
+
+def host_rss_gib() -> float:
+    """This process's resident host memory (VmRSS), GiB."""
+    with open("/proc/self/status") as f:
+        return next(int(line.split()[1]) for line in f
+                    if line.startswith("VmRSS:")) / 2 ** 20
 
 
 def training_phase(dev, smi: str, stage: int) -> dict:

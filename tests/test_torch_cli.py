@@ -332,8 +332,10 @@ def test_train_parser_takes_every_jax_option():
     # dp_sp, dp_tp_zero3, dp_sp_tp, dp_pp: every recipe runs
     assert meshes == [(2, 4, 1, 1, False), (2, 1, 4, 1, True),
                       (2, 2, 2, 1, False), (2, 1, 1, 4, False)]
-    assert cli.NOT_PORTED == (("offload_grad_splits", 1,
-                               "CPU-offloaded optimizer"),)
+    # no option of the command refuses as not ported any more
+    import inspect
+    assert not hasattr(cli, "NOT_PORTED")
+    assert "not ported" not in inspect.getsource(cli)
 
 
 def test_dp_pp_recipe_reaches_the_trainer(monkeypatch):
@@ -372,12 +374,12 @@ def test_dp_pp_recipe_reaches_the_trainer(monkeypatch):
      "trains over 2 processes"),
     (["--mesh_data", "2", "--mesh_pipe", "2", "--pp_microbatches", "2"],
      "trains over 4 processes"),
-    (["--offload_grad_splits", "2"], "CPU-offloaded optimizer")])
+    (["--offload_grad_splits", "0"], "grad_splits must be >= 1")])
 def test_train_exits_on_what_it_cannot_run(tmp_path, flags, match):
     """A mesh larger than the launch (one process here) exits with the
-    launch it needs (data x seq x tensor x pipe), as ``generate`` does; an
-    option not ported yet exits with its ROADMAP item; before anything is
-    built."""
+    launch it needs (data x seq x tensor x pipe), as ``generate`` does; a
+    value the JAX trainer refuses exits with its message; before anything
+    is built."""
     with pytest.raises(SystemExit, match=match):
         cli.main(["train", "--video_dir_path", str(tmp_path), "--device",
                   "cpu", "--tiny_model"] + flags)

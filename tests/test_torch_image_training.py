@@ -13,8 +13,8 @@ port against the JAX package on the CPU at a tiny size.
   ``make_train_step(prediction_target='velocity')``: loss and gradient
   norm.
 - ``cli train-image`` on a json of PNGs, resumed, then served by ``cli
-  generate-image --checkpoint_dir``; the training commands' mesh and
-  offload options refuse.
+  generate-image --checkpoint_dir``; the training commands refuse a mesh
+  larger than the launch and the offload values the JAX trainer refuses.
 """
 import json
 import os
@@ -314,20 +314,24 @@ def test_cli_train_image_resumes_and_serves(tmp_path, capsys):
 
 @pytest.mark.parametrize("flags", [
     ["--mesh_data", "2"], ["--mesh_seq", "2"], ["--mesh_tensor", "2"],
-    ["--zero3", "--mesh_data", "2"], ["--offload_grad_splits", "2"],
+    ["--zero3", "--mesh_data", "2"], ["--offload_grad_splits", "0"],
     ["--report_to", "tensorboard", "--mesh_tensor", "4"]])
 def test_train_image_refuses_what_is_not_ported(tmp_path, flags):
-    """An option not ported exits with its ROADMAP item; a mesh larger
-    than the launch (one process here) exits with the launch it needs."""
-    with pytest.raises(SystemExit, match="not ported yet|trains over "
-                                         r"\d processes"):
+    """A value the JAX trainer refuses exits with its message; a mesh
+    larger than the launch (one process here) exits with the launch it
+    needs."""
+    with pytest.raises(SystemExit, match="grad_splits must be >= 1|trains "
+                                         r"over \d processes"):
         cli.main(_train_argv(tmp_path, "--max_steps", "1", *flags))
 
 
 def test_train_image_refuses_the_offload_optimizer(tmp_path):
-    with pytest.raises(NotImplementedError, match="not ported yet"):
+    """The offload optimizer with EMA exits with the JAX message
+    (``video_gpt_tpu/training/image_trainer.py:203``)."""
+    with pytest.raises(SystemExit, match="offload_optimizer does not "
+                                         "support EMA"):
         cli.main(_train_argv(tmp_path, "--max_steps", "1",
-                             "--offload_optimizer"))
+                             "--offload_optimizer", "--use_ema"))
 
 
 def _video_pair():

@@ -33,7 +33,8 @@ def test_port_has_the_slice_modules():
               "training.image_trainer", "utils.torch_export",
               "parallel.distributed", "parallel.mesh", "parallel.tensor",
               "parallel.ulysses", "utils.parity", "parallel.ring",
-              "parallel.pipeline", "utils.logging", "utils.profiling"):
+              "parallel.pipeline", "utils.logging", "utils.profiling",
+              "training.offload", "scripts.cfg_drift"):
         assert "video_gpt_tpu_torch." + m in mods, m
 
 

@@ -312,10 +312,14 @@ def test_lr_schedules_match_optax():
 
 
 def test_unported_fields_raise():
+    """Every field is ported: the offload optimizer passes, and only its
+    combinations that the JAX trainer refuses raise."""
     check_train_config(stage_config(1))
     check_train_config(TrainConfig(input_output_return=True))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        check_train_config(TrainConfig(offload_optimizer=True))
+    check_train_config(TrainConfig(offload_optimizer=True,
+                                   offload_grad_splits=2))
+    with pytest.raises(ValueError, match="does not support EMA"):
+        check_train_config(TrainConfig(offload_optimizer=True, use_ema=True))
 
 
 def _write_videos(root, n=2, frames=20, h=128, w=160):

@@ -71,7 +71,10 @@ Ulysses), and ``train`` also over ``--mesh_pipe P`` GPipe stages
         --video_dir_path videos/ --mesh_data 2 --mesh_pipe 4 \
         --pp_microbatches 4 --batch_size_per_device 4
 
-The offload options refuse (ROADMAP.md queue 1).
+``--offload_optimizer`` keeps AdamW's fp32 master, mu and nu in host
+memory and runs the update on the host CPU (one device; ``train`` and
+``train-image``), ``--offload_grad_splits N`` differentiates the
+parameters in N backward passes.
 
 ``export`` writes a run's parameters (``--ema``: its EMA) as the reference's
 safetensors. ``train --input_output_return`` trains the aux
@@ -89,14 +92,6 @@ import contextlib
 import os
 
 import torch
-
-
-# options of the training commands that parse but are not ported yet:
-# (flag, its default, the ROADMAP.md queue-1 item that ports it);
-# --offload_optimizer raises in the trainers (config.check_train_config)
-NOT_PORTED = (
-    ("offload_grad_splits", 1, "CPU-offloaded optimizer"),
-)
 
 
 def _tokenizer(args):
@@ -339,8 +334,7 @@ def make_trainer(args, mesh_cfg=None):
     from .training.trainer import Trainer
     from .utils.torch_import import load_reference_checkpoint
 
-    _refuse_unported(args)
-    cfg = stage_config(
+    cfg = _checked(stage_config(
         args.stage,
         frame_num=args.frame_num or {1: 16, 2: 48, 3: 48, 4: 80}[args.stage],
         batch_size_per_device=args.batch_size_per_device, lr=args.lr,
@@ -351,7 +345,8 @@ def make_trainer(args, mesh_cfg=None):
         lora_rank=args.lora_rank, sp_attention=args.sp_attention,
         pp_microbatches=args.pp_microbatches, cls_weight=args.cls_weight,
         input_output_return=args.input_output_return,
-        offload_optimizer=args.offload_optimizer, distill=args.distill,
+        offload_optimizer=args.offload_optimizer,
+        offload_grad_splits=args.offload_grad_splits, distill=args.distill,
         distill_student_steps=args.distill_student_steps,
         distill_substeps=args.distill_substeps,
         distill_time_shift=args.distill_time_shift,
@@ -371,7 +366,7 @@ def make_trainer(args, mesh_cfg=None):
         **({"frame_interval": args.frame_interval}
            if args.frame_interval is not None else {}),
         **({"max_input_length_limit": args.max_input_length_limit}
-           if args.max_input_length_limit is not None else {}))
+           if args.max_input_length_limit is not None else {})))
     model_cfg, vae_cfg = _configs(args)
     return Trainer(
         model_cfg, cfg, args.video_dir_path, vae_cfg=vae_cfg,
@@ -382,14 +377,16 @@ def make_trainer(args, mesh_cfg=None):
         seed=args.seed, mesh_cfg=mesh_cfg)
 
 
-def _refuse_unported(args) -> None:
-    """Exit on an option of a training command that is not ported yet,
-    left off its default."""
-    for flag, default, item in NOT_PORTED:
-        value = getattr(args, flag, default)
-        if value != default:
-            raise SystemExit(f"--{flag} {value} is not ported yet "
-                             f"(ROADMAP.md queue 1: {item})")
+def _checked(cfg):
+    """``cfg``, or an exit with the JAX trainer's message on a combination
+    it refuses (``config.check_train_config``), before anything is
+    built."""
+    from .config import check_train_config
+    try:
+        check_train_config(cfg)
+    except ValueError as e:
+        raise SystemExit(str(e))
+    return cfg
 
 
 def _train_mesh(args):
@@ -402,7 +399,6 @@ def _train_mesh(args):
     from .config import MeshConfig
     from .parallel.distributed import init_runtime
 
-    _refuse_unported(args)
     init_runtime(device=args.device)
     cfg = MeshConfig(data=args.mesh_data, seq=args.mesh_seq,
                      tensor=args.mesh_tensor, zero_params=args.zero3,
@@ -580,10 +576,15 @@ def _add_train_parser(sub) -> None:
                         "(all_to_all over heads) or the ring (K/V chunks "
                         "hop between neighbours; any seq degree dividing "
                         "L)")
-    # accepted so a JAX command line parses; a non-default value raises
-    # (not ported yet, see ROADMAP.md queue 1)
-    t.add_argument("--offload_optimizer", action="store_true")
-    t.add_argument("--offload_grad_splits", type=int, default=1)
+    t.add_argument("--offload_optimizer", action="store_true",
+                   help="host-offloaded AdamW: fp32 master/mu/nu in host "
+                        "memory, the update on the host CPU, bf16 "
+                        "parameters and transient gradients on the card — "
+                        "full-depth training on ONE device (the "
+                        "reference's ZeRO-offload analogue)")
+    t.add_argument("--offload_grad_splits", type=int, default=1,
+                   help="backward passes per step (2 halves the live "
+                        "gradients on the card for one forward recompute)")
     t.set_defaults(fn=cmd_train)
 
 
@@ -732,14 +733,15 @@ def _train_image(args, mesh_cfg):
     from .training.image_trainer import ImageGenTrainer
     from .utils.torch_import import load_reference_checkpoint
 
-    cfg = TrainConfig(
+    cfg = _checked(TrainConfig(
         batch_size_per_device=args.batch_size_per_device, lr=args.lr,
         results_dir=args.results_dir, log_every=args.log_every,
         ckpt_every=args.ckpt_every, mixed_precision=args.mixed_precision,
         use_ema=args.use_ema, auto_resume=not args.no_auto_resume,
         max_input_length_limit=args.max_input_length_limit,
         offload_optimizer=args.offload_optimizer,
-        num_workers=args.num_workers, prefetch_depth=args.prefetch_depth)
+        offload_grad_splits=args.offload_grad_splits,
+        num_workers=args.num_workers, prefetch_depth=args.prefetch_depth))
     model_cfg, vae_cfg = _configs(args)
     ImageGenTrainer(
         model_cfg, cfg, args.json_file, args.image_root, _tokenizer(args),
@@ -854,9 +856,8 @@ def _add_image_parsers(sub) -> None:
     ti.add_argument("--seed", type=int, default=0)
     ti.add_argument("--device", default="cuda",
                     help="'cuda' (default; raises without a GPU) or 'cpu'")
-    # accepted so a JAX command line parses; a non-default value raises
-    # (not ported yet, see ROADMAP.md queue 1)
-    ti.add_argument("--offload_optimizer", action="store_true")
+    ti.add_argument("--offload_optimizer", action="store_true",
+                    help="host-offloaded AdamW (see `train`)")
     ti.add_argument("--offload_grad_splits", type=int, default=1)
     _add_mesh_args(ti)
     ti.add_argument("--report_to", default="none",

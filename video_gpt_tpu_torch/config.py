@@ -4,9 +4,10 @@ Port of ``video_gpt_tpu/config.py``: the serving fields, the mesh
 (``MeshConfig``; the model reads its sharding off the mesh it is built
 on, and its sequence-parallel attention off ``ModelConfig.sp_attention``),
 and the training fields with the LoRA, distillation, aux input-head
-(``input_output_return``), ring and GPipe recipes. The offload fields are
-not ported; :func:`check_train_config` raises on their non-default values,
-and on the combinations the JAX trainer refuses.
+(``input_output_return``), ring and GPipe recipes, and the host-offloaded
+AdamW (``offload_optimizer``, ``training/offload.py``);
+:func:`check_train_config` raises on the combinations the JAX trainer
+refuses.
 """
 from __future__ import annotations
 
@@ -161,7 +162,9 @@ class TrainConfig:
     distill_lr: Optional[float] = 1e-4
     distill_loss_weight: str = "uniform"
     distill_guidance: Optional[float] = None
-    # not ported (ROADMAP.md queue 1): a non-default value raises
+    # AdamW with its fp32 master, mu and nu in host memory and the update
+    # on the host CPU (training/offload.py); the gradients in
+    # `offload_grad_splits` backward passes over groups of the parameters
     offload_optimizer: bool = False
     offload_grad_splits: int = 1
     # data loading (worker threads feeding the Prefetcher)
@@ -175,16 +178,10 @@ class TrainConfig:
     results_dir: str = "results"
 
 
-# field -> the ROADMAP.md queue-1 item that ports it
-_NOT_PORTED = {
-    "offload_optimizer": "CPU-offloaded optimizer",
-    "offload_grad_splits": "CPU-offloaded optimizer",
-}
-
-
 def check_train_config(cfg: TrainConfig) -> None:
-    """Raise on the combinations the JAX trainer refuses (ValueError, with
-    its messages), then on a field the port does not implement yet."""
+    """Raise (ValueError, with its messages) on the combinations the JAX
+    trainer refuses; the offload optimizer on a mesh is refused by the
+    trainers, which know the mesh."""
     if not cfg.distill and cfg.distill_guidance is not None:
         raise ValueError("--distill_guidance is a distillation knob; "
                          "pass --distill with it")
@@ -194,11 +191,23 @@ def check_train_config(cfg: TrainConfig) -> None:
     if cfg.distill and cfg.input_output_return:
         raise ValueError("distillation regresses the denoise head only; "
                          "input_output_return is a pretraining option")
-    for name, item in _NOT_PORTED.items():
-        if getattr(cfg, name) != getattr(TrainConfig, name):
-            raise NotImplementedError(
-                f"TrainConfig.{name}={getattr(cfg, name)!r} is not ported "
-                f"yet (ROADMAP.md queue 1: {item})")
+    if cfg.offload_grad_splits < 1:
+        raise ValueError(
+            f"grad_splits must be >= 1, got {cfg.offload_grad_splits}")
+    if not cfg.offload_optimizer:
+        return
+    if cfg.distill:
+        raise ValueError("distillation holds teacher+student trees; "
+                         "it does not compose with the single-chip "
+                         "offload path — use ZeRO over a mesh")
+    if cfg.use_lora:
+        raise ValueError("offload_optimizer is for full-parameter "
+                         "training; LoRA state fits HBM directly")
+    if cfg.use_ema:
+        raise ValueError("offload_optimizer does not support EMA "
+                         "(neither does the reference's offload recipe)")
+    if cfg.gradient_accumulation_steps > 1:
+        raise ValueError("offload step does not support MultiSteps")
 
 
 def stage_config(stage: int, **overrides) -> TrainConfig:

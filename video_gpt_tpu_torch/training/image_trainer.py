@@ -5,8 +5,10 @@ Port of ``video_gpt_tpu/training/image_trainer.py``. One step
 input images under ``no_grad`` with posterior draws, then
 the flow-matching loss on the velocity target (x1 - x0, one block per
 row), the backward with per-layer recompute, global-norm clip, AdamW and
-the gated EMA of ``training.train_state``. Every random number of step
-``i`` comes from one ``torch.Generator`` seeded from (seed, i). The token
+the gated EMA of ``training.train_state`` (with ``offload_optimizer``,
+the host-offloaded AdamW of ``training.offload`` on one device). Every
+random number of step ``i`` comes from one ``torch.Generator`` seeded from
+(seed, i). The token
 stream of every batch is padded to one length, ``pad_to`` (default
 ``min(max_input_length_limit, 512 + max_input_images * n_region + 1 +
 n_out)``, rounded down to the seq multiple on a mesh, then up to it). Runs
@@ -38,6 +40,7 @@ from ..parallel.mesh import DATA_AXIS, SEQ_AXIS, axis_size, batch_rows, \
 from ..sampling.pipeline import resolve_device
 from ..utils import checkpoint as ckpt
 from .loss import draw_loss_noise
+from .offload import init_offload_training
 from .train_state import (TrainState, autocast, init_train_state,
                           make_train_step)
 from .trainer import (checkpoint_writer, draw_part, init_model_, new_model,
@@ -71,6 +74,10 @@ class ImageGenTrainer:
         check_train_config(train_cfg)
         self.mesh = None
         if mesh_cfg is not None and mesh_cfg.num_devices > 1:
+            if train_cfg.offload_optimizer:
+                raise ValueError("offload_optimizer is the single-chip "
+                                 "full-depth path; it does not compose "
+                                 "with a mesh")
             if mesh_cfg.pipe > 1:
                 raise ValueError("pipeline parallelism is wired for the "
                                  "video Trainer; use dp/sp/tensor here")
@@ -154,6 +161,10 @@ class ImageGenTrainer:
         else:
             vae.init_random_(torch.Generator(dev).manual_seed(self.seed + 1))
         self.model, self.vae = model.train(), vae.eval().requires_grad_(False)
+        if self.cfg.offload_optimizer:
+            state, self._step_fn = init_offload_training(
+                model, self.cfg, prediction_target="velocity")
+            return state
         self._step_fn = make_train_step(model, self.cfg,
                                         prediction_target="velocity")
         return init_train_state(model, self.cfg, self.mesh)

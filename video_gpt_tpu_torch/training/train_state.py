@@ -102,6 +102,23 @@ def global_norm(tensors) -> torch.Tensor:
         [torch.linalg.vector_norm(t.float()) for t in tensors]))
 
 
+def adamw_update_(p: torch.Tensor, g: torch.Tensor, mu: torch.Tensor,
+                  nu: torch.Tensor, clip, lr: float, bc1: float, bc2: float,
+                  cfg: TrainConfig) -> None:
+    """AdamW's arithmetic on one tensor, in place: the gradient ``g``
+    scaled by ``clip`` (clobbered), the moments ``mu`` and ``nu``, then
+    ``p`` moved by ``lr`` (mu_hat / (sqrt(nu_hat) + eps) + wd p), with the
+    bias corrections ``bc1`` and ``bc2`` of the step. :class:`AdamW` and
+    the host-offloaded update (``training/offload.py``) both call it."""
+    b1, b2 = cfg.adam_beta1, cfg.adam_beta2
+    g.mul_(clip)
+    mu.mul_(b1).add_(g, alpha=1.0 - b1)
+    nu.mul_(b2).addcmul_(g, g, value=1.0 - b2)
+    upd = (mu / bc1).div_((nu / bc2).sqrt_().add_(cfg.adam_epsilon))
+    upd.add_(p, alpha=cfg.adam_weight_decay)
+    p.add_(upd, alpha=-lr)
+
+
 @dataclasses.dataclass(frozen=True)
 class Placement:
     """How one parameter sits on the mesh: ``dim``, the dimension of the
@@ -262,12 +279,7 @@ class AdamW:
         bc1, bc2 = 1.0 - b1 ** self.count, 1.0 - b2 ** self.count
         for i, (g, m, v) in enumerate(zip(grads, self.mu, self.nu)):
             p = self._part(i)
-            g.mul_(clip)
-            m.mul_(b1).add_(g, alpha=1.0 - b1)
-            v.mul_(b2).addcmul_(g, g, value=1.0 - b2)
-            upd = (m / bc1).div_((v / bc2).sqrt_().add_(cfg.adam_epsilon))
-            upd.add_(p, alpha=cfg.adam_weight_decay)
-            p.add_(upd, alpha=-lr)
+            adamw_update_(p, g, m, v, clip, lr, bc1, bc2, cfg)
             place = self.places[i]
             if place.dim is not None and not place.zero3 \
                     and axis_size(self.mesh, DATA_AXIS) > 1:

@@ -5,8 +5,11 @@ Port of ``video_gpt_tpu/training/trainer.py``. One step
 ``no_grad`` with a posterior draw, then the loss, the backward through
 the trunk with per-layer recompute, global-norm clip, AdamW and the gated
 EMA. Mixed precision is the JAX package's: fp32 parameters and optimizer
-state, bf16 compute. Every random number of step ``i`` comes from one
-``torch.Generator`` seeded from (seed, i), so a resumed run continues the
+state, bf16 compute; with ``offload_optimizer`` bf16 parameters on the
+device and the fp32 master, mu and nu in host memory, updated on the host
+(``training/offload.py``; one device only). Every random number of step
+``i`` comes from one ``torch.Generator`` seeded from (seed, i), so a
+resumed run continues the
 noise stream instead of replaying it. Runs on CUDA unless the caller asks
 for the CPU.
 
@@ -81,6 +84,7 @@ from .distill import (distill_optimizer_config, draw_distill_noise,
                       make_distill_train_step)
 from .lora import freeze_base_, init_lora_, is_adapter
 from .loss import DrawPart, draw_loss_noise
+from .offload import init_offload_training
 from .train_state import (TrainState, autocast, init_lora_train_state,
                           init_train_state, make_lora_train_step,
                           make_train_step)
@@ -110,6 +114,10 @@ class Trainer:
         check_train_config(train_cfg)
         self.mesh = None
         if mesh_cfg is not None and mesh_cfg.num_devices > 1:
+            if train_cfg.offload_optimizer:
+                raise ValueError("offload_optimizer is the single-chip "
+                                 "full-depth path; use ZeRO over the mesh "
+                                 "(--mesh_data/--zero3) instead")
             check_pipe(mesh_cfg, model_cfg, train_cfg)
             self.mesh = make_mesh(mesh_cfg)
             if mesh_cfg.seq > 1:
@@ -218,6 +226,9 @@ class Trainer:
         else:
             vae.init_random_(torch.Generator(dev).manual_seed(self.seed + 1))
         self.model, self.vae = model.train(), vae.eval().requires_grad_(False)
+        if cfg.offload_optimizer:
+            state, self._step_fn = init_offload_training(model, cfg)
+            return state
         if cfg.distill:
             if self._init_state_dict is None:
                 # distilling a random teacher is almost surely a mistake,

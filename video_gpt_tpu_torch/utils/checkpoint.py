@@ -5,7 +5,11 @@ The surface of ``video_gpt_tpu/utils/checkpoint.py`` (``latest_step``,
 is ``<directory>/<step>/state.pt``, the ``torch.save`` of the train state's
 ``state_dict()`` (step, model, optimizer, EMA). Saves are asynchronous: the
 state is copied to the host before ``save`` returns, so training may go on
-changing it, and the file is written on a background thread.
+changing it, and the file is written on a background thread. The part of a
+state that already lives on the host and that the step changes in place
+(the offload optimizer's master, mu and nu, :class:`HostResident`) is
+written from its own tensors, without a second host copy, and ``save``
+returns only once it is on disk.
 :func:`load_train_params` reads the parameters (or the EMA) alone, for a
 warm start from an earlier stage; :func:`load_lora_adapters` the adapters
 of a LoRA run, whose checkpoints hold nothing else of the model.
@@ -58,13 +62,24 @@ def _complete(path: str) -> bool:
         for r in range(rec["ranks"]))
 
 
-def _to_host(obj):
+class HostResident(dict):
+    """A part of a train state's ``state_dict()`` whose tensors live on the
+    host and change in place in the train step: a save writes them as they
+    are (a plain dict in the file) and waits for the write."""
+
+
+def _to_host(obj, resident: list):
+    """A host snapshot of ``obj``; each :class:`HostResident` part is kept
+    as it is, and appended to ``resident``."""
+    if isinstance(obj, HostResident):
+        resident.append(obj)
+        return dict(obj)
     if isinstance(obj, torch.Tensor):
         return obj.detach().to("cpu", copy=True)
     if isinstance(obj, dict):
-        return {k: _to_host(v) for k, v in obj.items()}
+        return {k: _to_host(v, resident) for k, v in obj.items()}
     if isinstance(obj, (list, tuple)):
-        return type(obj)(_to_host(v) for v in obj)
+        return type(obj)(_to_host(v, resident) for v in obj)
     return obj
 
 
@@ -146,7 +161,8 @@ class CheckpointWriter:
     def save(self, step: int, state: Any) -> None:
         self.wait()
         self.last_step = step
-        host = _to_host(state.state_dict())
+        resident: list = []
+        host = _to_host(state.state_dict(), resident)
 
         def run():
             try:
@@ -157,6 +173,8 @@ class CheckpointWriter:
 
         self._thread = threading.Thread(target=run, daemon=True)
         self._thread.start()
+        if resident:  # the next step changes those tensors
+            self.wait()
 
     def wait(self) -> None:
         if self._thread is not None:
@@ -220,9 +238,11 @@ def restore_checkpoint(directory: str, state_like: Any,
             f"{_mesh_name(rec)}, not {_mesh_name(want)}: resume it on its "
             "mesh, or start a new run from it with --init_checkpoint_dir")
     name = _FILE if mesh is None else _rank_file(mesh.rank)
+    # memory-mapped: the state is copied into ``state_like`` as it is read
+    # (an offload run's host state is not held twice)
     state_like.load_state_dict(torch.load(os.path.join(path, name),
                                           map_location="cpu",
-                                          weights_only=True))
+                                          weights_only=True, mmap=True))
     return state_like, step
 
 

@@ -5,7 +5,8 @@
 ``video_gpt_tpu/utils/torch_export.py``; ``vae_state_dict_from_jax`` emits
 diffusers AutoencoderKL names, the inverse of
 ``video_gpt_tpu/models/vae.py:vae_params_from_diffusers``;
-``lora_state_dict_from_jax`` unstacks LoRA adapters into peft's names. The port's
+``lora_state_dict_from_jax`` unstacks LoRA adapters into peft's names;
+``offload_state_from_jax`` carries a JAX offload optimizer's state. The port's
 modules carry these names, so both load with ``strict=True``. Pure numpy
 on the input side: pass ``jax.device_get(params)`` or any nested mapping of
 arrays. :func:`tp_shard_state_dict` cuts a standard-layout state dict into
@@ -81,6 +82,25 @@ def videogpt_state_dict_from_jax(params: Mapping, cfg: ModelConfig,
             sd[f"{base}{name}.weight"] = _t(layers[name]["weight"][i])
     sd["llm.norm.weight"] = _t(p["llm"]["norm"]["weight"])
     return sd if tp_shard is None else tp_shard_state_dict(sd, cfg, *tp_shard)
+
+
+def offload_state_from_jax(ostate, cfg: ModelConfig) -> dict:
+    """A JAX ``OffloadState`` (``video_gpt_tpu/training/offload.py``: the
+    count, and mu, nu and the master as parameter trees whose leaves are
+    tuples of axis-0 chunks) -> the state dict of the port's
+    ``training.offload.OffloadState``: each leaf's chunks concatenated and
+    named as :func:`videogpt_state_dict_from_jax` names the parameters."""
+    def whole(tree):
+        if isinstance(tree, Mapping):
+            return {k: whole(v) for k, v in tree.items()}
+        return np.concatenate([np.asarray(c, np.float32) for c in tree],
+                              axis=0)
+
+    sd = {"count": int(np.asarray(ostate.count))}
+    for field in ("mu", "nu", "master"):
+        sd[field] = videogpt_state_dict_from_jax(
+            whole(getattr(ostate, field)), cfg)
+    return sd
 
 
 # row-parallel weights: [out, in] with the contraction (in) over the ranks
