@@ -47,11 +47,24 @@ Phases, in order; any failure exits nonzero and none is caught:
    K7 (stage 4) build theirs in every launch (in their times); K1/K2 (and
    K4, K5 and the rollouts' rows) classify each key tile in their producer
    as they load its ranks (in their times; no map), and their records give
-   the share of tiles computed and full from the plain classifier;
+   the share of tiles computed and full from the plain classifier; then
+   every other dtype and head width the forward wrappers take: K1, K2, K3
+   and K6 in bf16 at head_dim 16, 64 and 128 (the flagship's width in
+   heads of that size, at its lengths; K6 over the prefill's clean
+   prefix), and the fp32 kernel (``csrc/fp32_attention.cu``) as K1, K2 and
+   K3 at the flagship's shapes, as K3 at the text -> image decode and as
+   K6 at the batched rollout's prefill (B 2 x 12,432^2), each against its
+   plain version in fp32 on the card (fp32 bar: |got - plain| <= 2e-5 +
+   2e-5 |plain|), timed beside the plain version and SDPA in fp32 with
+   the same mask, bound by the fp32 CUDA-core peak (66.9 TFLOP/s);
 4. small-input serving reference: ``generate`` on a tiny model (head_dim
    96, GQA) on the card in bf16 against the same weights and noise on the
    CPU in fp32 (plain versions), two blocks so every serving kernel and the
-   cache extend run (bar: final-latent relative MSE 1e-3);
+   cache extend run (bar: final-latent relative MSE 1e-3); the same in
+   fp32 on the card (the fp32 kernel only; bar 1e-6, or twice the floor:
+   the CPU's fp32 clip rerun with its linears summed in two halves), once
+   more at ``precompute_bias_limit`` 0 (its prefill through the fp32 K6),
+   and ``--tiny_model``'s config (head_dim 16) in bf16 at 1e-3;
 5. serving main path: ``VideoGPTPipeline.generate`` at full width
    (ModelConfig(), the SDXL-class VAE, random bf16 weights from a seed,
    head and adaLN random) on 8 synthetic frames, 16 frames in 10 steps with
@@ -73,13 +86,23 @@ Phases, in order; any failure exits nonzero and none is caught:
    3,200 K1 and 3,200 K2 launches (of which the 64 K3 and 3,200 K1 pass
    8192 keys: K10's and K4's function) and 2 bias-map builds (one per
    prefill), 104 uint8 frames and finite
-   latents; then its first block once more under the profiler;
+   latents; then its first block once more under the profiler, at
+   ROLLOUT_PROFILE_STEPS (10) steps;
 9. batched rollout: the same recipe for 2 videos through
    ``generate_batch`` at 10 steps: exactly 64 K6 (the B = 2 prefill is
    above the bias limit), 640 K1 (all past 8192 keys) and 640 K2
    launches, 2 x 104 frames; the serving objects are freed after it
    (less than 1 GiB may stay allocated);
-9a. ``scripts/cfg_drift.py`` at its defaults (8 layers of the flagship's
+9a. ``generate --dtype fp32`` at full width and depth: the main path's
+   recipe with fp32 weights, after a 1-step warm-up: exactly 32 K3, 320
+   K1 and 320 K2 of the fp32 kernel and no bf16 launch, one map build,
+   uint8 frames and finite fp32 latents, the clip time and peak memory;
+   then ``python -m video_gpt_tpu_torch.cli generate --tiny_model
+   --device cuda`` in bf16 and in fp32 through the CLI's ``main`` (2 -> 4
+   + 4 frames, 4 steps, guidance 1.5; synthetic frames in place of a
+   decoded video, and numpy in place of PIL where PIL is not installed):
+   each dtype's kernels and not the other's, 10 frames written;
+9b. ``scripts/cfg_drift.py`` at its defaults (8 layers of the flagship's
    width, random bf16 weights with the head re-rolled, 10 steps,
    guidance 1.5) over its whole sweep and the reference schedule against
    itself: the uncond / cond ratio measured on the card (the medians of
@@ -93,11 +116,16 @@ Phases, in order; any failure exits nonzero and none is caught:
    on one device), against the same model on one rank, all in bf16, two
    blocks over 48x80 frames whose odd tails the seq axis pads (bar:
    final-latent relative MSE 1e-3), each rank with its exact launches
-   (K6 prefills on a seq mesh, K3 with its bias on a tensor-only one);
-11. full-width mesh clips: the main path's widths at 4 of its 32 layers
+   (K6 prefills on a seq mesh, K3 with its bias on a tensor-only one).
+   These three meshes, 11a's collective probe and 11a's small-input
+   reference run at once (none of them is timed; their ranks fork from
+   one forkserver, at one intra-op thread each);
+11. full-width mesh clips, after every reference, on one set of 4 spawned
+   ranks that goes on to 11a's full-width training runs (the ranks'
+   start-up paid once): the main path's widths at 2 of its 32 layers
    (MESH_CLIP_LAYERS, seed 0), frames, noise and recipe over (seq 2,
    tensor 2) and (seq 4) (the reference's SP=4) gloo ranks on the card:
-   each rank exactly 4 K6, 40 K1 and 40 K2 at its 8 heads, the final
+   each rank exactly 2 K6, 20 K1 and 20 K2 at its 8 heads, the final
    latents bit-equal across the ranks (``shard_divergence`` 0) and within
    relative MSE 1e-3 of the same model's single-rank clip and within
    twice its floor (that clip rerun with its linears in another fp32
@@ -125,20 +153,20 @@ Phases, in order; any failure exits nonzero and none is caught:
    bit-equal on every rank); then the recipes of
    ``configs/pretrain_multichip_examples.sh`` at full width through the
    Trainer's own step, a warm-up and a timed step each: dp_tp_zero3 as
-   (data 2, tensor 2, zero3) at 4 of the 32 layers (stage 1, each rank
-   8 K3 and 4 K9 at 16 heads), dp_sp as (data 2, seq 2) at 2 layers
-   and dp_sp_tp's (seq 2, tensor 2) at stage 4 and 2 layers (a
+   (data 2, tensor 2, zero3) at 2 of the 32 layers (stage 1, each rank
+   4 K3 and 2 K9 at 16 heads), dp_sp as (data 2, seq 2) at 1 layer
+   and dp_sp_tp's (seq 2, tensor 2) at stage 4 and 1 layer (a
    replicating axis holds 16 B a parameter on each of its ranks: full
    depth does not fit the card twice; the three were cut from 32, 8 and 8
    layers for the script's time), the ring on that (seq 2, tensor 2)
-   stage-4 run (each rank 8 K6 and 4 K7 at 16 heads over 17,760-token
+   stage-4 run (each rank 4 K6 and 2 K7 at 16 heads over 17,760-token
    chunks), and dp_pp
    without its data axis as (pipe 4), stage 1, 4 rows in 4 microbatches,
-   8 layers (2 a stage, cut from 16: each rank 16 K6 and 8 K7 at 32
+   4 layers (1 a stage, cut from 16: each rank 8 K6 and 4 K7 at 32
    heads); LoRA on dp_tp_zero3's (data 2, tensor 2, zero3) at stage 1
-   and 4 layers (each rank 8 K3 and 4 K9, its adapters' tensor and ZeRO
+   and 2 layers (each rank 4 K3 and 2 K9, its adapters' tensor and ZeRO
    parts over a frozen base), and guided distillation on (seq 2, tensor
-   2) at stage 1 and 4 layers (each rank 24 K6 and 4 K7: four teacher
+   2) at stage 1 and 2 layers (each rank 12 K6 and 2 K7: four teacher
    forwards, the
    student's forward and recompute); each with the slowest rank's step
    time, global tokens/s, each rank's collective bytes (forward; backward
@@ -168,7 +196,7 @@ Phases, in order; any failure exits nonzero and none is caught:
 14. stage-4 training path, the same at 80 frames in the frame blocks of one
    seeded ``random_block_partition`` draw (L 35520, all 32 layers), after
    the stage-1 trainer is freed (two 56 GiB states do not fit): one
-   warm-up step and 2 timed steps, each with exactly 64 K6 and 32 K7
+   warm-up step and 1 timed step, with exactly 64 K6 and 32 K7
    launches and no other, its MFU line, then one profiled step;
 15. LoRA path, after the stage-4 trainer is freed (less than 1 GiB may
    stay allocated between these phases): rank-8 adapters on every layer's
@@ -211,6 +239,9 @@ Phases, in order; any failure exits nonzero and none is caught:
    only): 3 (32 + 10 x 32) = 1,056 K3 and 6 builds; each one uint8
    1024x1024x3 image and finite latents, after a 1-step warm-up with the
    host-op check on;
+20a. ``generate-image --dtype fp32``: text -> image at 1024x1024 with fp32
+   weights at FP32_IMAGE_STEPS steps (a cut in steps only), exactly 2 (32
+   + steps x 32) fp32 K3 and 4 map builds, no bf16 launch;
 21. train-image at full width through the image trainer's own step (512 x
    512 output, one 512x512 input image, max_input_images 3: L 4,609):
    one warm-up and 2 timed steps, each with exactly 64 K3, 32 K9 and one
@@ -228,12 +259,14 @@ Phases, in order; any failure exits nonzero and none is caught:
    2^-8, the gradient the host update received within 4x the CPU's own
    bf16 error, every parameter exactly bf16 of its master after it;
 22b. the offload path: stage 1 (``configs/pretrain_stage1.sh`` with
-   ``--offload_optimizer``) at full width and depth through the Trainer's
-   own step (a cut in depth only if the host's MemAvailable cannot hold
-   the 14 B a parameter of host state with a 1.25x margin: printed and
-   listed in the ``runtime_depth_cuts`` line): a warm-up (no float op on
-   the host but the shared AdamW arithmetic of the update), 2 timed steps
-   at ``offload_grad_splits`` 1 with exactly 64 K3, 32 K9 and one map
+   ``--offload_optimizer``) at full width and OFFLOAD_LAYERS (8) of the
+   32 layers (cut for the script's time: the host update scales with the
+   depth) through the Trainer's own step (a further cut only if the
+   host's MemAvailable cannot hold the 14 B a parameter of host state
+   with a 1.25x margin: printed and listed in the ``runtime_depth_cuts``
+   line): a warm-up (no float op on the host but the shared AdamW
+   arithmetic of the update), 2 timed steps at ``offload_grad_splits`` 1
+   with exactly 2 K3 and 1 K9 a layer and one map
    build each, one step at 2 (two passes: two map builds, K3 and K9
    between one and two passes' counts); each step's split (forward +
    backward, D2H, host update, H2D, with rates), peak device memory per
@@ -243,10 +276,17 @@ Phases, in order; any failure exits nonzero and none is caught:
    and exactly bf16(master) after every step; the host state and the
    pinned buffer are freed after it (these two run last, so that the
    host state is not held while the mesh ranks copy through host memory);
-23. a line of kernel records (K1-K10 and P1, each with its launches read
-   from the counters; K3 and K9 also per LoRA, distillation, train-image,
+23. a line of kernel records (K1-K10, P1 and the fp32 kernel as K1-fp32,
+   K2-fp32, K3-fp32 and K6-fp32, each with its launches read from the
+   counters; K3 and K9 also per LoRA, distillation, train-image,
    input-head and offload step, K3 per image, K1-K3 in the cfg_drift
    sweep), then the device line as the last line.
+
+Items 13-22b run at full depth unless the mesh ends past LATE_AT_S (800)
+seconds into the script: then at LATE_LAYERS (4) of the 32 layers, the
+offload path at most that (printed and listed in the
+``runtime_depth_cuts`` line), so that a slow host still ends within the
+script's 1,200 s.
 
 The training phases use the recipes of ``configs/pretrain_stage1.sh`` and
 ``configs/pretrain_stage4.sh`` (betas 0.9/0.95, weight decay 0.1, eps 1e-5,
@@ -270,6 +310,7 @@ JAX.
 """
 from __future__ import annotations
 
+import argparse
 import concurrent.futures
 import contextlib
 import dataclasses
@@ -290,6 +331,7 @@ import torch.nn.functional as F
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves
 
+from video_gpt_tpu_torch import cli
 from video_gpt_tpu_torch.config import (MeshConfig, ModelConfig, TrainConfig,
                                         stage_config)
 from video_gpt_tpu_torch.data.image_text import (ImageGenSample,
@@ -333,6 +375,10 @@ ROLLOUT_CLEAN, ROLLOUT_GEN, ROLLOUT_WINDOW, ROLLOUT_STEPS = 56, (24, 24), \
 # the batched rollout: that recipe for 2 videos through generate_batch, at
 # the flagship's 10 steps (a cut in steps only, for the script's time)
 BATCH_VIDEOS, BATCH_STEPS = 2, 10
+# the long rollout's first block once more under the profiler, at this many
+# steps (cut from the rollout's 50 for the script's time: a traced step
+# costs ~4x an untraced one)
+ROLLOUT_PROFILE_STEPS = 10
 # K5's shape: the uncond row of a 40-frame clip (Lq = Lk = 8880)
 K5_FRAMES = 40
 # the overlap probe's problems per launch: 4 blocks on each of 132 SMs
@@ -347,11 +393,21 @@ P1_PROBLEMS = 132
 # bar is each element's own rounding bound: a kernel that normalises 5%
 # off or drops a partial key tile fails it.
 KERNEL_ATOL, KERNEL_RTOL, BF16_U = 1e-4, 1e-2, 2.0 ** -8
+# the fp32 kernel against its plain version in fp32 on the card, per
+# element: |got - want| <= FP32_ATOL + FP32_RTOL |want|, the tier-1
+# plain-versus-Pallas bar at fp32 (both sum in another order; nothing is
+# rounded to bf16)
+FP32_ATOL = FP32_RTOL = 2e-5
 # small-input reference: bf16 activations against fp32 ones over the whole
 # slice (trunk, Euler steps, VAE) stay some 20x below this bar (the script
 # prints that rounding floor, measured with the plain versions on the CPU);
 # hiding the clean cache from the decode step lands above it
 REF_REL_MSE_BAR = 1e-3
+# the fp32 small-input reference: card fp32 (the fp32 kernel, fp32 GEMMs and
+# convolutions, no TF32) against the CPU in fp32, final-latent relative MSE
+# at most this, or twice the floor (the CPU's own clip with its linears in
+# another fp32 summation order) where that is above it
+FP32_REF_BAR = 1e-6
 # small-input training reference: the card's bf16 gradient may be off the
 # CPU's fp32 one by at most this many times the CPU's own bf16 error (the
 # same bf16 rounding, made at other places by other kernels). The loss, a
@@ -363,9 +419,10 @@ TRAIN_REF_FLOOR_FACTOR = 4.0
 # constant): stage -> (frames, timed steps, launches of each kernel per
 # layer and step, builds of the bias's tile map per step). Each layer runs
 # the forward twice (per-layer recompute); every layer's K3 and K9 read the
-# one map of the step's bias.
+# one map of the step's bias. Stage 4 times one step (8.5 s; two until
+# the script's time was cut).
 TRAIN_PATHS = {1: (16, 3, {"K3": 2, "K9": 1}, 1),
-               4: (80, 2, {"K6": 2, "K7": 1}, 0)}
+               4: (80, 1, {"K6": 2, "K7": 1}, 0)}
 TRAIN_LR = 1e-4
 # the LoRA path: rank-8 adapters on qkv_proj / o_proj (the reference's
 # peft recipe) over a frozen stage-1 model; per step and layer 2 K3 and 1
@@ -403,7 +460,18 @@ INPUT_HEAD_STEPS = 2
 # and nu read and written.
 OFFLOAD_STEPS = 2
 OFFLOAD_HOST_BYTES, OFFLOAD_HOST_MARGIN = 14, 1.25
+# the offload path's depth, cut from 32 layers for the script's time: its
+# host update (~19 s a step at 32 layers) scales with the depth, and so
+# does its share of a slow or busy host's CPU
+OFFLOAD_LAYERS = 8
 OFFLOAD_UPDATE_BYTES = 28
+# the paths after the mesh (items 13-22b) run at LATE_LAYERS of the 32
+# layers when the mesh ends past LATE_AT_S seconds into the script (F26
+# ended it at 581 s, F27 at 649 s; their paths after it took ~200 s at
+# full depth): on a host that much slower the script would not end within
+# its 1,200 s. PATH_LAYERS is that depth once cut (None: full depth)
+LATE_AT_S, LATE_LAYERS = 800.0, 4
+PATH_LAYERS = None
 # the cuts in depth this run made beyond those of the constants above
 CUTS = []
 # the seed of the stage-4 batch's random_block_partition draw
@@ -411,10 +479,14 @@ PARTITION_SEED = 0
 # a kernel's timing runs as many launches as fit this many ms (at most 20;
 # the plain version at most 3, the library call at most 10)
 TIME_BUDGET_MS = 2000.0
-# H100 SXM data-sheet peaks (dense bf16 tensor rate, HBM3 rate)
+# H100 SXM data-sheet peaks (dense bf16 tensor rate, fp32 CUDA-core rate,
+# HBM3 rate)
 PEAK_BF16_FLOPS = 989e12
+PEAK_FP32_FLOPS = 66.9e12
 PEAK_BYTES = 3.35e12
 TPU_KERNELS = "video_gpt_tpu/ops/flash_attention.py"
+# the script's start, for the phases' elapsed time
+T_START = time.perf_counter()
 
 
 def log(msg: str) -> None:
@@ -449,10 +521,17 @@ def timed(fn, max_reps: int, budget_ms: float = TIME_BUDGET_MS) -> float:
     return time_ms(fn, reps=reps, warmup=0)
 
 
-def bound(nbytes: int, flops: int):
-    t_bytes, t_ops = nbytes / PEAK_BYTES, flops / PEAK_BF16_FLOPS
+def bound(nbytes: int, flops: int, peak_flops: float = PEAK_BF16_FLOPS):
+    t_bytes, t_ops = nbytes / PEAK_BYTES, flops / peak_flops
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
+
+
+def kernel_source(bf16_source: str, dtype: torch.dtype) -> str:
+    """The source of the kernel that operands of ``dtype`` run: the bf16
+    kernel's, or the fp32 kernel's."""
+    name = bf16_source if dtype == torch.bfloat16 else "fp32_attention.cu"
+    return f"video_gpt_tpu_torch/csrc/{name}"
 
 
 def nbytes(*ts) -> int:
@@ -501,13 +580,14 @@ class HostFloatOps(TorchDispatchMode):
         return out
 
 
-def _bf16_maker(dev, seed: int):
-    """bf16 standard-normal tensors on ``dev`` from a numpy seed."""
+def _bf16_maker(dev, seed: int, dtype=torch.bfloat16):
+    """bf16 (or ``dtype``) standard-normal tensors on ``dev`` from a numpy
+    seed."""
     rng = np.random.default_rng(seed)
 
     def bf16(*shape):
         return torch.from_numpy(rng.standard_normal(shape, np.float32)).to(
-            dev, torch.bfloat16)
+            dev, dtype)
 
     return bf16
 
@@ -521,23 +601,30 @@ def vals(*ts, absv):
     return [t.float().abs() if absv else t.float() for t in ts]
 
 
-def _heads(heads=None):
+def _heads(heads=None, head_dim=None):
     """(heads, kv heads, head_dim): the flagship's, or ``heads`` of each
-    (the flagship has as many kv heads as heads)."""
+    (the flagship has as many kv heads as heads); at ``head_dim``, the
+    flagship's width (3072) in heads of that width."""
     cfg = ModelConfig()
+    if head_dim is not None:
+        h = cfg.hidden_size // head_dim
+        return h, h, head_dim
     if heads is None:
         return cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     return heads, heads, cfg.head_dim
 
 
 def decode_split_record(dev, seed: int, meta: AttnMeta, tail: int,
-                        replaces: int, heads: int = None) -> dict:
+                        replaces: int, heads: int = None,
+                        head_dim: int = None,
+                        dtype: torch.dtype = torch.bfloat16) -> dict:
     """K1 over a cond row: the noisy tail's queries against the cache
     (heads-major) and the tail's own K/V (views of tokens-major K/V, as
     Phi3Attention passes them), for the batch rows of ``meta``; at the
-    flagship's 32 heads, or ``heads`` (a mesh rank's share)."""
-    h, hkv, d = _heads(heads)
-    bf16 = _bf16_maker(dev, seed)
+    flagship's 32 heads, or ``heads`` (a mesh rank's share), or the
+    flagship's width in heads of ``head_dim``; bf16 or fp32 operands."""
+    h, hkv, d = _heads(heads, head_dim)
+    bf16 = _bf16_maker(dev, seed, dtype)
     b, lc = meta.index.shape[0], meta.index.shape[1] - tail
     q = bf16(b, tail, h, d)
     kc, vc = bf16(b, hkv, lc, d), bf16(b, hkv, lc, d)
@@ -564,7 +651,7 @@ def decode_split_record(dev, seed: int, meta: AttnMeta, tail: int,
 
     return dict(
         fn=fn, plain=plain, lib=lib, route="cuda",
-        source="video_gpt_tpu_torch/csrc/rank_attention.cu",
+        source=kernel_source("rank_attention.cu", dtype), dtype=dtype,
         replaces=f"{TPU_KERNELS}:{replaces}",
         shape=f"B {b}, Lq {tail} vs {lc} cached + {tail} new keys",
         bytes=nbytes(q, kc, vc, kt, vt, mask.rank, mask.q_off, q),
@@ -574,11 +661,13 @@ def decode_split_record(dev, seed: int, meta: AttnMeta, tail: int,
 
 
 def decode_record(dev, seed: int, meta: AttnMeta, replaces: int,
-                  heads: int = None) -> dict:
+                  heads: int = None, head_dim: int = None,
+                  dtype: torch.dtype = torch.bfloat16) -> dict:
     """K2 over a tail-only row (the uncond row), tokens-major K/V of its
-    own, for the batch rows of ``meta``."""
-    h, hkv, d = _heads(heads)
-    bf16 = _bf16_maker(dev, seed)
+    own, for the batch rows of ``meta`` (heads, width and dtype as
+    :func:`decode_split_record`)."""
+    h, hkv, d = _heads(heads, head_dim)
+    bf16 = _bf16_maker(dev, seed, dtype)
     b, L = meta.index.shape
     mask = decode_mask(meta, meta)
     q, k, v = bf16(b, L, h, d), bf16(b, L, hkv, d), bf16(b, L, hkv, d)
@@ -599,7 +688,7 @@ def decode_record(dev, seed: int, meta: AttnMeta, replaces: int,
 
     return dict(
         fn=fn, plain=plain, lib=lib, route="cuda",
-        source="video_gpt_tpu_torch/csrc/rank_attention.cu",
+        source=kernel_source("rank_attention.cu", dtype), dtype=dtype,
         replaces=f"{TPU_KERNELS}:{replaces}", shape=f"B {b}, Lq = Lk = {L}",
         bytes=nbytes(q, k, v, mask.rank, mask.q_off, q),
         flops=4 * h * d * rank_pairs(mask.rank, mask.q_off),
@@ -608,10 +697,13 @@ def decode_record(dev, seed: int, meta: AttnMeta, replaces: int,
 
 
 def bias_record(dev, seed: int, meta: AttnMeta, replaces: int,
-                heads: int = None) -> dict:
-    """K3 over a prefill's clean prefix with its precomputed bias."""
-    h, hkv, d = _heads(heads)
-    bf16 = _bf16_maker(dev, seed)
+                heads: int = None, head_dim: int = None,
+                dtype: torch.dtype = torch.bfloat16) -> dict:
+    """K3 over a prefill's clean prefix with its precomputed bias (heads,
+    width and dtype as :func:`decode_split_record`; the bias is bf16 at
+    every dtype, as the model builds it)."""
+    h, hkv, d = _heads(heads, head_dim)
+    bf16 = _bf16_maker(dev, seed, dtype)
     L = meta.index.shape[1]
     bias = fa.precompute_bias(meta, meta)
     # the map is built once per bias, as the prefill builds it for its 32
@@ -627,14 +719,15 @@ def bias_record(dev, seed: int, meta: AttnMeta, replaces: int,
                                            bias)
 
     qh, kh, vh = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-    bias4 = bias[:, None]
+    # the library takes a float mask of the query's dtype
+    bias4 = bias[:, None].to(dtype)
 
     def lib():
         return F.scaled_dot_product_attention(qh, kh, vh, attn_mask=bias4)
 
     return dict(
         fn=fn, plain=plain, lib=lib, route="cuda",
-        source="video_gpt_tpu_torch/csrc/bias_attention.cu",
+        source=kernel_source("bias_attention.cu", dtype), dtype=dtype,
         replaces=f"{TPU_KERNELS}:{replaces}",
         shape=f"B 1, Lq = Lk = {L}, bf16 bias",
         bytes=nbytes(q, k, v, bias, q),
@@ -680,6 +773,18 @@ def kernels_phase(dev):
         out["K3"][key] = image[key]
     for name, rec in image["train_image_shape"].items():
         out[name]["train_image_shape"] = rec
+    # the bf16 kernels' other widths under their kernel; the fp32 kernel
+    # under each mask a kernel of its own (K1-fp32 ...), its first row
+    # the record and the others beside it
+    for name, key, rec in width_kernels(dev):
+        if not key.startswith("fp32"):
+            out[name][key] = rec
+            continue
+        fname = f"{name}-fp32"
+        if fname in out:
+            out[fname][key] = rec
+        else:
+            out[fname] = dict(rec, name=fname, shape_key=key)
     return out
 
 
@@ -824,20 +929,26 @@ def check_and_time(name: str, r: dict, label: str = "") -> dict:
     the rounding bound's mass of each). ``label`` names the shape in the
     log. With ``tile_map`` (build, plain), the kernel's tile map is held
     equal to the plain one and timed (tile_map_record); with ``tiles`` (the
-    plain classes of a kernel that builds no map), their shares."""
+    plain classes of a kernel that builds no map), their shares. A record
+    with ``dtype`` fp32 is held to the fp32 bar (no rounding mass) and
+    bound by the fp32 CUDA-core peak."""
     name_l = f"{name}{label}"
+    fp32 = r.get("dtype") == torch.float32
+
     def tup(x):
         return x if isinstance(x, tuple) else (x,)
 
     got = tup(r["fn"]())
     torch.cuda.synchronize()
-    want, mass = tup(r["plain"]()), tup(r["plain"](absv=True))
+    want = tup(r["plain"]())
+    mass = want if fp32 else tup(r["plain"](absv=True))
     err = ratio = 0.0
     finite = True
     for g, w, m in zip(got, want, mass):
         w = w.float()
         diff = (g.float() - w).abs()
-        bar = KERNEL_ATOL + KERNEL_RTOL * w.abs() + BF16_U * m.float()
+        bar = (FP32_ATOL + FP32_RTOL * w.abs() if fp32 else
+               KERNEL_ATOL + KERNEL_RTOL * w.abs() + BF16_U * m.float())
         # the worst element's error over its bar: the check passes at <= 1
         err = max(err, float(diff.max()))
         ratio = max(ratio, float((diff / bar).max()))
@@ -857,7 +968,8 @@ def check_and_time(name: str, r: dict, label: str = "") -> dict:
     ms = timed(r["fn"], max_reps=20)
     plain_ms = timed(r["plain"], max_reps=3)
     lib_ms = timed(r["lib"], max_reps=10)
-    bound_ms, bound_by = bound(r["bytes"], r["flops"])
+    bound_ms, bound_by = bound(r["bytes"], r["flops"],
+                               PEAK_FP32_FLOPS if fp32 else PEAK_BF16_FLOPS)
     log(f"{name_l}: {ms:.4f} ms (plain {plain_ms:.4f}, sdpa {lib_ms:.4f}, "
         f"bound {bound_ms:.4f} by {bound_by}; "
         f"{r['flops'] / ms / 1e9:.1f} TFLOP/s)")
@@ -866,6 +978,7 @@ def check_and_time(name: str, r: dict, label: str = "") -> dict:
                err_over_bar=ratio, ms=ms, plain_ms=plain_ms,
                bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms,
                tflops_visible=r["flops"] / ms / 1e9,
+               dtype="fp32" if fp32 else "bf16",
                **({"shape": r["shape"]} if "shape" in r else {}))
     if "tile_map" in r:
         rec["tile_map"] = tile_map_record(name_l, *r["tile_map"])
@@ -1088,10 +1201,12 @@ def inline_train_records(bf16, meta: AttnMeta, q, k, v, pairs: int,
     return res
 
 
-def inline_operands(bf16, meta: AttnMeta, heads: int = None):
+def inline_operands(bf16, meta: AttnMeta, heads: int = None,
+                    head_dim: int = None):
     """q, k, v for the batch rows of ``meta`` as the attention layer makes
-    them: q, k new tensors (RoPE), v a view of the fused projection."""
-    h, hkv, d = _heads(heads)
+    them: q, k new tensors (RoPE), v a view of the fused projection (heads
+    and width as :func:`decode_split_record`)."""
+    h, hkv, d = _heads(heads, head_dim)
     b, L = meta.index.shape
     v = bf16(b, L, h + 2 * hkv, d)[:, :, h + hkv:]
     return bf16(b, L, h, d), bf16(b, L, hkv, d), v
@@ -1135,8 +1250,8 @@ def inline_record(meta, q, k, v, pairs: int, fn, replaces: int,
     out_bytes = nbytes(q) + (4 * h * q.shape[0] * q.shape[1] if with_lse
                              else 0)
     return dict(fn=fn, plain=plain, lib=lib, route="cuda",
-                source="video_gpt_tpu_torch/csrc/inline_attention.cu",
-                replaces=f"{TPU_KERNELS}:{replaces}",
+                source=kernel_source("inline_attention.cu", q.dtype),
+                dtype=q.dtype, replaces=f"{TPU_KERNELS}:{replaces}",
                 bytes=nbytes(q, k, v) + out_bytes + meta_bytes(meta),
                 flops=4 * h * d * pairs)
 
@@ -1192,15 +1307,99 @@ def rollout_kernels(dev):
     torch.cuda.empty_cache()
 
 
+# ---- every dtype and head width of the forward kernels ----------------------
+
+# the bf16 kernels' other head widths, each at the flagship's width (3072)
+# in heads of that width, so that the work per launch stays the flagship's
+WIDTHS = (16, 64, 128)
+
+
+def width_kernels(dev):
+    """The forward kernels at the other dtype and head widths their wrappers
+    take: K1, K2, K3 and K6 in bf16 at head_dim 16, 64 and 128 over the
+    flagship's lengths (K6 over the prefill's clean prefix and its
+    metadata, as a seq mesh's prefill runs it); the fp32 kernel as K1, K2
+    and K3 at the flagship's shapes, as K3 at the text -> image decode
+    (4,097 queries over 14 cached + 4,097 keys) and as K6 at the batched
+    rollout's prefill (B 2 x 12,432^2). Yields (kernel, key of its record,
+    result); the bf16 rows are held to the bf16 bar, the fp32 rows to the
+    fp32 bar (``FP32_ATOL`` + ``FP32_RTOL`` |plain|)."""
+    n_img = tokens_per_frame(H_PX, W_PX)
+    lay_c = frame_block_inference_layout(N_CLEAN, N_GEN, n_img, False)
+    lay_u = frame_block_inference_layout(0, N_GEN, n_img, False)
+    meta_c = AttnMeta.from_layout(lay_c, dev)
+    meta_u = AttnMeta.from_layout(lay_u, dev)
+    tail = lay_c.noisy_tail_len()
+    mp = meta_c.cols(slice(0, lay_c.length - tail))
+    f32t = torch.float32
+
+    def k6_record(meta, seed, dtype, head_dim=None):
+        q, k, v = inline_operands(_bf16_maker(dev, seed, dtype), meta,
+                                  head_dim=head_dim)
+
+        def k6():
+            with torch.no_grad():
+                return fa.flash_mha_inline(q, k, v, meta, meta)
+
+        return inline_record(meta, q, k, v, visible_pairs(meta), k6, 1071,
+                             with_lse=False)
+
+    rows = []
+    for d in WIDTHS:
+        key = f"bf16_d{d}"
+        rows += [
+            ("K1", key, d, lambda d=d: decode_split_record(
+                dev, 60, meta_c, tail, 661, head_dim=d)),
+            ("K2", key, d, lambda d=d: decode_record(dev, 61, meta_u, 416,
+                                                     head_dim=d)),
+            ("K3", key, d, lambda d=d: bias_record(dev, 62, mp, 133,
+                                                   head_dim=d)),
+            ("K6", key, d, lambda d=d: k6_record(mp, 63, torch.bfloat16, d))]
+    (row, *_), n_out = image_rows()["text"]
+    d = ModelConfig().head_dim
+    rows += [
+        ("K1", "fp32_flagship", d, lambda: decode_split_record(
+            dev, 64, meta_c, tail, 661, dtype=f32t)),
+        ("K2", "fp32_flagship", d, lambda: decode_record(
+            dev, 65, meta_u, 416, dtype=f32t)),
+        ("K3", "fp32_flagship", d, lambda: bias_record(dev, 66, mp, 133,
+                                                       dtype=f32t)),
+        ("K3", "fp32_image_decode_2way", d, lambda: image_decode_record(
+            dev, 67, row, n_out, f32t)),
+        ("K6", "fp32_batched_rollout", d, lambda: k6_record(
+            batched_prefill_meta(dev), 68, f32t))]
+    for name, key, head_dim, make in rows:
+        r = make()
+        r.pop("tiles", None)
+        r.pop("tile_map", None)
+        rec = check_and_time(name, r, f" ({key})")
+        rec["head_dim"] = head_dim
+        yield name, key, rec
+        del r
+        torch.cuda.empty_cache()
+
+
+def batched_prefill_meta(dev) -> AttnMeta:
+    """The metadata of the batched rollout's prefill (B 2 x 12,432: the
+    clean prefix of the long rollout's layout for 2 videos), whose
+    ``index`` is an expanded view with batch stride 0."""
+    lay = frame_block_inference_layout(
+        ROLLOUT_CLEAN, ROLLOUT_GEN[0], tokens_per_frame(H_PX, W_PX), False,
+        rows=BATCH_VIDEOS)
+    meta = AttnMeta.from_layout(lay, dev)
+    return meta.cols(slice(0, lay.length - lay.noisy_tail_len()))
+
+
 # ---- the mesh: sequence- and tensor-parallel serving ------------------------
 
 # the full-width clips' meshes: (seq 2, tensor 2), and (seq 4), the
 # reference's SP=4; each rank holds 32 / (S T) = 8 of the flagship's heads
 MESH_CLIPS = ((2, 2), (4, 1))
-# their depth: 4 of the 32 layers (cut to fit the mesh training phases in
-# the script's time; the single-rank clip they are held to, and its floor,
-# are made at the same depth)
-MESH_CLIP_LAYERS = 4
+# their depth: 2 of the 32 layers (cut to fit the mesh training phases in
+# the script's time, to 4, then to 2 when the fp32 and head-width serving
+# phases joined; the single-rank clip they are held to, and its floor, are
+# made at the same depth)
+MESH_CLIP_LAYERS = 2
 # the small-input mesh reference's meshes, and its frames: 48x80 is 15
 # tokens a frame, 17 with its markers, so the seq axis pads the tail and
 # the extend
@@ -1337,13 +1536,14 @@ def mesh_rank(seq: int, tensor: int, reference: bool, clip: bool,
 
 
 def run_mesh(seq: int, tensor: int, reference: bool, clip: bool,
-             seed: int = 0) -> list:
-    """:func:`mesh_rank` on S x T gloo ranks sharing the card; every rank
-    must exit 0."""
+             seed: int = 0, **spawn) -> list:
+    """:func:`mesh_rank` on S x T gloo ranks sharing the card (``spawn``:
+    spawn_ranks' ``threads`` and ``start_method``); every rank must exit
+    0."""
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as workdir:
         res = spawn_ranks(mesh_rank, (seq, tensor, reference, clip, seed),
-                          seq * tensor, workdir, timeout=600)
+                          seq * tensor, workdir, timeout=600, **spawn)
     log(f"mesh {mesh_name(seq, tensor)}: {seq * tensor} gloo ranks on the "
         f"card, {time.perf_counter() - t0:.1f} s with their start-up")
     return res
@@ -1353,25 +1553,20 @@ def rel_mse(got: torch.Tensor, want: torch.Tensor) -> float:
     return float(((got - want) ** 2).mean() / (want ** 2).mean())
 
 
-def mesh_reference_phase(want_launches) -> dict:
+def mesh_reference_phase(want: torch.Tensor, want_launches) -> dict:
     """The small-input mesh reference: the tiny model over (seq 2),
     (tensor 2) and (seq 2, tensor 2) gloo ranks against the same model on
-    one rank, all on the card in bf16 (bar: final-latent relative MSE
-    1e-3); each rank's launches must equal ``want_launches(seq, tensor)``.
-    The (seq 2, tensor 2) ranks go on to that mesh's full-width clip, whose
-    results come back with it (run alone, after the others, which run at
-    once)."""
-    want, _ = mesh_reference_latents(None)
+    one rank (``want``: its final latents), all on the card in bf16 (bar:
+    final-latent relative MSE 1e-3); each rank's launches must equal
+    ``want_launches(seq, tensor)``. Nothing here is timed: every mesh runs
+    at once, its ranks forked from the forkserver at one intra-op thread
+    each."""
     out = {}
-    # the meshes without a clip at once (their ranks' start-up overlaps);
-    # a mesh with its clip alone, so that nothing else runs in its timing
-    alone = [m for m in MESH_REF_MESHES if m in MESH_CLIPS]
-    together = [m for m in MESH_REF_MESHES if m not in MESH_CLIPS]
-    runs = {}
-    with concurrent.futures.ThreadPoolExecutor(len(together)) as pool:
-        runs.update(zip(together, pool.map(
-            lambda m: run_mesh(*m, True, False), together)))
-    runs.update({m: run_mesh(*m, True, True) for m in alone})
+    with concurrent.futures.ThreadPoolExecutor(len(MESH_REF_MESHES)) as pool:
+        runs = dict(zip(MESH_REF_MESHES, pool.map(
+            lambda m: run_mesh(*m, True, False, threads=1,
+                               start_method="forkserver"),
+            MESH_REF_MESHES)))
     for seq, tensor in MESH_REF_MESHES:
         name = mesh_name(seq, tensor)
         res = runs[(seq, tensor)]
@@ -1386,7 +1581,7 @@ def mesh_reference_phase(want_launches) -> dict:
         if not all(r <= REF_REL_MSE_BAR for r in rels):
             fail(f"small-input mesh reference {name} disagrees with one "
                  f"rank: {rels}")
-        out[name] = dict(rel_mse=max(rels), ranks=res)
+        out[name] = dict(rel_mse=max(rels))
     return out
 
 
@@ -1485,15 +1680,18 @@ MESH_TRAIN_LAYERS, MESH_TRAIN_STEPS = 4, 2
 # full depth: every axis shards its state) from 32 layers to 8 and dp_sp
 # from 8 to 2; when LoRA and distillation joined, those two from 8 layers
 # to 4, then dp_tp_zero3 from 8 to 4, the stage-4 (seq 2, tensor 2) runs
-# (Ulysses and the ring) from 8 to 2 and GPipe from 16 to 8 (2 a stage)
+# (Ulysses and the ring) from 8 to 2 and GPipe from 16 to 8 (2 a stage);
+# when the fp32 and head-width serving phases joined, dp_tp_zero3, LoRA
+# and distillation from 4 to 2, dp_sp and both stage-4 runs from 2 to 1,
+# GPipe from 8 to 4 (1 a stage)
 MESH_TRAIN_FULL = (
-    MeshRun(MeshConfig(2, 1, 2, True), layers=4),
-    MeshRun(MeshConfig(2, 2, 1), layers=2),
-    MeshRun(MeshConfig(1, 2, 2), rows=1, stage=4, layers=2),
-    MeshRun(MeshConfig(1, 2, 2), "ring", rows=1, stage=4, layers=2),
-    MeshRun(MeshConfig(pipe=4), nm=4, rows=4, layers=8),
-    MeshRun(MeshConfig(2, 1, 2, True), layers=4, recipe="lora"),
-    MeshRun(MeshConfig(1, 2, 2), rows=1, layers=4,
+    MeshRun(MeshConfig(2, 1, 2, True), layers=2),
+    MeshRun(MeshConfig(2, 2, 1), layers=1),
+    MeshRun(MeshConfig(1, 2, 2), rows=1, stage=4, layers=1),
+    MeshRun(MeshConfig(1, 2, 2), "ring", rows=1, stage=4, layers=1),
+    MeshRun(MeshConfig(pipe=4), nm=4, rows=4, layers=4),
+    MeshRun(MeshConfig(2, 1, 2, True), layers=2, recipe="lora"),
+    MeshRun(MeshConfig(1, 2, 2), rows=1, layers=2,
             recipe="distill_guided"))
 # the device of the mesh training ranks
 MESH_TRAIN_DEVICE = "cuda"
@@ -1624,11 +1822,17 @@ def _probe_all_reduce(x):
 
 
 def collective_probe(strict: bool = True) -> dict:
-    res = []
-    for n in (2, 3):  # every collective on 2 ranks; the hop on 3 too
+    def probe(n):
         with tempfile.TemporaryDirectory() as workdir:
-            res += spawn_ranks(probe_rank, (n == 3,), n, workdir,
-                               timeout=300)
+            return spawn_ranks(probe_rank, (n == 3,), n, workdir,
+                               timeout=300, threads=1,
+                               start_method="forkserver")
+
+    res = []
+    # every collective on 2 ranks, the hop on 3 too, both at once
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        for r in pool.map(probe, (2, 3)):
+            res += r
     log(f"gloo collectives and the hop on CUDA operands, 2 and 3 ranks "
         f"sharing the card: {res}")
     if strict and any(v is not True for r in res for v in r.values()):
@@ -1885,7 +2089,8 @@ def mesh_train_reference_phase() -> dict:
         with tempfile.TemporaryDirectory() as workdir:
             res = spawn_ranks(mesh_train_ref_rank, (args, sd),
                               group[0].cfg.num_devices, workdir,
-                              timeout=900, threads=1)
+                              timeout=900, threads=1,
+                              start_method="forkserver")
         return {run: [r[i] for r in res] for i, run in enumerate(group)}
 
     sizes = {}
@@ -2094,42 +2299,64 @@ def mesh_train_full_rank(run: MeshRun) -> dict:
         divergence=replicated_divergence(model.named_parameters(), mesh))
 
 
-def mesh_train_full_phase(smi: str) -> dict:
-    """Every run of MESH_TRAIN_FULL on gloo ranks sharing the card; each
-    rank exactly its step's launches, finite loss and gradient norm, a
-    nonzero gradient into its first layer's attention and into the patch
-    embedder, the watched parameters moved (by at most ~lr an element),
-    the replicated parameters bit-equal across the ranks. Step time is the
-    slowest rank's."""
+def mesh_timed_phase(smi: str, clips=MESH_CLIPS, check_clip=None) -> dict:
+    """The mesh's timed runs, alone on the card after every reference: on
+    one set of gloo ranks a world size, each full-width clip of ``clips``
+    ((seq, tensor)) in turn, then every run of MESH_TRAIN_FULL of that
+    size, each freed before the next, so that the ranks' start-up is paid
+    once. ``check_clip(seq, tensor, res)`` checks a clip from its ranks'
+    records ([{"clip": ...}], :func:`mesh_clip_phase`). Each training run:
+    each rank exactly its step's launches, finite loss and gradient norm,
+    a nonzero gradient into its first layer's attention and into the
+    patch embedder, the watched parameters moved (by at most ~lr an
+    element), the replicated parameters bit-equal across the ranks. Clip
+    and step times are the slowest rank's. Returns {run name: record}."""
     out = {}
     # the ranks' allocators grow segments in place: four ranks at 16-17
     # GiB each, every one encoding its clip's frames at once, leave no
-    # room for the blocks a fixed-segment allocator strands
+    # room for the blocks a fixed-segment allocator strands. The ranks are
+    # spawned, not forked from the forkserver: they take this environment
     alloc = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
     os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
     sizes = {}
+    for seq, tensor in clips:
+        sizes.setdefault(seq * tensor, ([], []))[0].append((seq, tensor))
     for run in MESH_TRAIN_FULL:
-        sizes.setdefault(run.cfg.num_devices, []).append(run)
+        sizes.setdefault(run.cfg.num_devices, ([], []))[1].append(run)
     try:
-        for n, runs in sizes.items():
-            # one set of ranks runs every run of its world size in turn,
-            # each freed before the next: the ranks' start-up is paid once
+        for n, (cs, runs) in sizes.items():
             t0 = time.perf_counter()
             with tempfile.TemporaryDirectory() as workdir:
-                res = spawn_ranks(mesh_train_full_ranks, (runs,), n,
-                                  workdir, timeout=1200)
-            log(f"full-width mesh training: {len(runs)} runs on one set of "
-                f"{n} ranks, {time.perf_counter() - t0:.1f} s with the "
-                f"ranks' start-up")
+                res = spawn_ranks(mesh_timed_ranks, (cs, runs), n, workdir,
+                                  timeout=1200)
+            log(f"the mesh's timed runs: {len(cs)} full-width clips and "
+                f"{len(runs)} training runs on one set of {n} ranks, "
+                f"{time.perf_counter() - t0:.1f} s with the ranks' "
+                f"start-up")
+            for i, (seq, tensor) in enumerate(cs):
+                check_clip(seq, tensor, [{"clip": r["clips"][i]}
+                                         for r in res])
             for i, run in enumerate(runs):
                 out[train_mesh_name(run)] = mesh_train_full_run(
-                    run, [r[i] for r in res], smi)
+                    run, [r["runs"][i] for r in res], smi)
     finally:
         if alloc is None:
             del os.environ["PYTORCH_CUDA_ALLOC_CONF"]
         else:
             os.environ["PYTORCH_CUDA_ALLOC_CONF"] = alloc
     return out
+
+
+def mesh_timed_ranks(clips: list, runs: list) -> dict:
+    """One gloo rank of :func:`mesh_timed_phase`: each clip of ``clips``
+    (:func:`mesh_rank`'s record), then the training runs ``runs``
+    (:func:`mesh_train_full_ranks`)."""
+    out = []
+    for seq, tensor in clips:
+        out.append(mesh_rank(seq, tensor, False, True)["clip"])
+        gc.collect()
+        torch.cuda.empty_cache()
+    return dict(clips=out, runs=mesh_train_full_ranks(runs))
 
 
 def mesh_train_full_ranks(runs: list) -> list:
@@ -2150,7 +2377,7 @@ def mesh_train_full_ranks(runs: list) -> list:
 
 def mesh_train_full_run(run: MeshRun, res: list, smi: str) -> dict:
     """The checks and the record of one run of MESH_TRAIN_FULL from its
-    ranks' records ``res`` (:func:`mesh_train_full_phase`)."""
+    ranks' records ``res`` (:func:`mesh_timed_phase`)."""
     name = train_mesh_name(run)
     c = run.cfg
     n = c.num_devices
@@ -2435,18 +2662,27 @@ class SeededNoise:
             self.device, dtype)
 
 
-def reference_phase(dev) -> float:
+def reference_phase(dev, cfg: ModelConfig = None,
+                    dtype: torch.dtype = torch.bfloat16,
+                    label: str = "small-input reference") -> dict:
     """The slice end to end on a small input: the port on the card (bf16,
     the CUDA kernels) against the port on the CPU (fp32, the kernels'
     plain versions), with the same bf16-made weights and the same noise.
-    Two blocks without re-noise, so prefill (K3), both decode rows (K1,
-    K2) and the cache extend (K1) all run. The CPU in bf16 gives the
-    rounding floor the card's error is read against. Returns the final
-    latents' relative MSE."""
-    cfg = ModelConfig.tiny(hidden_size=192, num_heads=2, num_kv_heads=1)
-    vae_cfg = VAEConfig.tiny()  # head_dim 96 above; GQA 2:1
-    gpu = VideoGPTPipeline.build(cfg, vae_cfg, device=dev,
-                                 dtype=torch.bfloat16, seed=0)
+    Two blocks without re-noise, so prefill (K3, or K6 above the config's
+    ``precompute_bias_limit``), both decode rows (K1, K2) and the cache
+    extend (K1) all run. In bf16 the CPU in bf16 gives the rounding floor
+    the card's error is read against, and the bar is REF_REL_MSE_BAR. With
+    ``dtype`` fp32 the card runs in fp32 (the fp32 kernel; no bf16 kernel
+    may launch) and the floor is the CPU's fp32 clip rerun with its linears
+    in another summation order (:func:`split_linears`): the bar is
+    FP32_REF_BAR, or twice the floor where the floor is above it. ``cfg``:
+    the tiny model at head_dim 96 (GQA 2:1) by default. Returns {rel_mse,
+    floor, bar, launches}."""
+    cfg = cfg or ModelConfig.tiny(hidden_size=192, num_heads=2,
+                                  num_kv_heads=1)
+    vae_cfg = VAEConfig.tiny()
+    gpu = VideoGPTPipeline.build(cfg, vae_cfg, device=dev, dtype=dtype,
+                                 seed=0)
     rng = np.random.default_rng(3)
     frames = [rng.integers(0, 256, (32, 48, 3), dtype=np.uint8)
               for _ in range(3)]
@@ -2464,24 +2700,217 @@ def reference_phase(dev) -> float:
     got = latents(gpu)
     torch.cuda.synchronize()
     ran = counts()
-    want, floor = (latents(VideoGPTPipeline.build(
-        cfg, vae_cfg, device="cpu", dtype=dtype,
-        state_dict=gpu.model.state_dict(),
-        vae_state_dict=gpu.vae.state_dict()))
-        for dtype in (torch.float32, torch.bfloat16))
+
+    def cpu(cpu_dtype):
+        return VideoGPTPipeline.build(
+            cfg, vae_cfg, device="cpu", dtype=cpu_dtype,
+            state_dict=gpu.model.state_dict(),
+            vae_state_dict=gpu.vae.state_dict())
+
+    want = latents(cpu(torch.float32))
+    fp32 = dtype == torch.float32
+    if fp32:
+        with split_linears():
+            floor = latents(cpu(torch.float32))
+    else:
+        floor = latents(cpu(torch.bfloat16))
 
     def rel_mse_of(x):
         return float(((x - want) ** 2).mean() / (want ** 2).mean())
 
-    rel_mse = rel_mse_of(got)
-    log(f"small-input reference: card (bf16, kernels) vs CPU (fp32, plain) "
-        f"final-latent relative MSE {rel_mse:.3e} (bar {REF_REL_MSE_BAR}; "
-        f"CPU bf16 vs fp32 {rel_mse_of(floor):.3e}), launches {ran}")
-    if not all(ran[k] for k in ("K1", "K2", "K3")):
-        fail(f"the small-input run skipped a kernel: {ran}")
-    if not torch.isfinite(got).all() or not rel_mse <= REF_REL_MSE_BAR:
-        fail(f"the card's generate disagrees with the CPU's: {rel_mse}")
-    return rel_mse
+    rel_mse, floor_mse = rel_mse_of(got), rel_mse_of(floor)
+    bar = max(FP32_REF_BAR, 2 * floor_mse) if fp32 else REF_REL_MSE_BAR
+    prefill = "K3" if cfg.precompute_bias_limit else "K6"
+    ran_k = [k + ("-fp32" if fp32 else "") for k in ("K1", "K2", prefill)]
+    other = [k for k in ("K1", "K2", "K3", "K6", "K1-fp32", "K2-fp32",
+                         "K3-fp32", "K6-fp32") if k not in ran_k]
+    log(f"{label}: card ({'fp32' if fp32 else 'bf16'}, kernels; head_dim "
+        f"{cfg.head_dim}) vs CPU (fp32, plain) final-latent relative MSE "
+        f"{rel_mse:.3e} (bar {bar:.3e}; "
+        f"{'CPU fp32 with its linears split' if fp32 else 'CPU bf16'} vs "
+        f"fp32: {floor_mse:.3e}), launches {ran}")
+    if not all(ran[k] for k in ran_k) or any(ran[k] for k in other):
+        fail(f"{label}: the run skipped a kernel of {ran_k} or ran another: "
+             f"{ran}")
+    if not torch.isfinite(got).all() or not rel_mse <= bar:
+        fail(f"{label}: the card's generate disagrees with the CPU's: "
+             f"{rel_mse} (bar {bar})")
+    return dict(rel_mse=rel_mse, floor=floor_mse, bar=bar, launches=ran)
+
+
+@contextlib.contextmanager
+def split_linears():
+    """Every ``F.linear`` as two products over the halves of its reduction,
+    summed: the same fp32 arithmetic in another summation order (on the
+    CPU, the floor of an fp32 reference)."""
+    linear = F.linear
+
+    def split(x, w, b=None):
+        k = x.shape[-1] // 2
+        y = linear(x[..., :k], w[:, :k]) + linear(x[..., k:], w[:, k:])
+        return y if b is None else y + b
+
+    F.linear = split
+    try:
+        yield
+    finally:
+        F.linear = linear
+
+
+def width_reference_phase(dev) -> dict:
+    """This slice's small-input references: (a) the flagship recipe of the
+    small input (:func:`reference_phase`) in fp32 at head_dim 96, on the
+    bias route (fp32 K3, K1, K2) and at ``precompute_bias_limit`` 0 (its
+    prefill on the inline route: fp32 K6), each held to FP32_REF_BAR or
+    twice its floor; (b) ``--tiny_model``'s config (head_dim 16, the bf16
+    kernels at padded width 32) in bf16 at REF_REL_MSE_BAR."""
+    wide = ModelConfig.tiny(hidden_size=192, num_heads=2, num_kv_heads=1)
+    return {
+        "fp32": reference_phase(dev, wide, torch.float32,
+                                "fp32 small-input reference"),
+        "fp32_inline": reference_phase(
+            dev, dataclasses.replace(wide, precompute_bias_limit=0),
+            torch.float32, "fp32 small-input reference, inline route"),
+        "tiny_bf16": reference_phase(dev, tiny_model_config(),
+                                     torch.bfloat16,
+                                     "tiny-model small-input reference")}
+
+
+def tiny_model_config() -> ModelConfig:
+    """The model of ``--tiny_model`` (head_dim 16), as the CLI builds it."""
+    return cli._configs(argparse.Namespace(tiny_model=True))[0]
+
+
+def fp32_clip_phase(dev, smi: str) -> dict:
+    """``generate --dtype fp32`` at full width and depth: the main path's
+    recipe (8 -> 16 frames, 10 steps, CFG 1.5, a 24-frame window) with
+    fp32 weights (random from seed 0, head and adaLN random), after a
+    1-step warm-up: the fp32 kernel exactly nl K3 (its prefill), nl x 10
+    K1 and nl x 10 K2, one build of the bias's map, and no bf16 kernel;
+    uint8 frames of the right shape and finite latents on the card. The
+    GEMMs and convolutions run in full fp32 (no TF32)."""
+    t0 = time.perf_counter()
+    pipe = VideoGPTPipeline.build(ModelConfig(), VAEConfig(), device=dev,
+                                  dtype=torch.float32, seed=0)
+    torch.cuda.synchronize()
+    log(f"build the fp32 pipeline: {time.perf_counter() - t0:.1f} s")
+    frames = synthetic_frames(N_CLEAN)
+    kw = dict(gen_nums=(N_GEN,), num_inference_steps=STEPS,
+              img_guidance_scale=CFG_SCALE, max_frame_window=N_CLEAN + N_GEN,
+              seed=0, return_latents=True)
+    t0 = time.perf_counter()
+    pipe.generate(frames, **dict(kw, num_inference_steps=1))
+    torch.cuda.synchronize()
+    log(f"fp32 warm-up generate at 1 step: {time.perf_counter() - t0:.2f} s")
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out, lat = pipe.generate(frames, **kw)
+    torch.cuda.synchronize()
+    clip_s = time.perf_counter() - t0
+    launches = counts()
+    nl = pipe.model.cfg.num_layers
+    want = expect(**{"K1-fp32": nl * STEPS, "K2-fp32": nl * STEPS,
+                     "K3-fp32": nl}, bias_map_builds=1)
+    log(f"fp32 clip launches {launches} (expected {want})")
+    if launches != want:
+        fail(f"fp32 clip launch counts {launches} != {want}")
+    gen = out[-N_GEN:]
+    if len(out) != N_CLEAN + N_GEN or not all(
+            f.dtype == np.uint8 and f.shape == (H_PX, W_PX, 3) for f in gen):
+        fail(f"the fp32 clip returned {len(out)} frames, not uint8 "
+             f"{H_PX}x{W_PX}x3")
+    lat = torch.stack(lat)
+    if lat.device.type != dev.type or lat.dtype != torch.float32 \
+            or not torch.isfinite(lat).all():
+        fail(f"fp32 clip latents on {lat.device}, {lat.dtype}, or not "
+             f"finite")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    res = dict(clip_s=clip_s, frames_per_s=N_GEN / clip_s,
+               peak_mem_gib=peak, launches=launches, device=smi)
+    log(f"fp32 main path: {N_GEN}-frame clip {clip_s:.3f} s, "
+        f"{N_GEN / clip_s:.3f} frames/s, peak {peak:.2f} GiB, on {smi}")
+    log(json.dumps({"fp32_main_path": res}))
+    return res
+
+
+# the CLI's own generate at --tiny_model on the card, in both dtypes
+CLI_TINY_ARGS = ("--tiny_model", "--device", "cuda", "--clean_image_num",
+                 "2", "--gen_nums", "4", "4", "--num_inference_steps", "4",
+                 "--img_guidance_scale", "1.5", "--seed", "0")
+
+
+def cli_tiny_phase(dev) -> dict:
+    """``python -m video_gpt_tpu_torch.cli generate --tiny_model --device
+    cuda`` (head_dim 16) in bf16 and in fp32, 2 -> 4 + 4 frames at 4 steps
+    with guidance 1.5, through the CLI's own ``main`` in this process, so
+    that its launch counters can be read: the bf16 run launches the bf16
+    kernels (K1, K2, K3 at padded width 32) and no fp32 kernel, the fp32
+    run the converse. The script needs neither cv2 nor PIL:
+    ``cli.read_conditioning`` returns synthetic 176x320 frames in place of
+    a decoded video, and a frame is written as .npy where PIL is not
+    installed.
+    Each run must write its 10 frames (the 2 conditioning frames and the
+    8 generated), uint8 of one shape."""
+    out = {}
+    saved = []
+
+    class _Image:  # PIL.Image's fromarray(...).save(path), in numpy
+        @staticmethod
+        def fromarray(a):
+            class _Saver:
+                @staticmethod
+                def save(path):
+                    np.save(path + ".npy", a)
+                    saved.append(a)
+            return _Saver
+
+    read = cli.read_conditioning
+    try:
+        import PIL  # noqa: F401
+        stub = False
+    except ImportError:
+        stub = True
+    if stub:
+        sys.modules["PIL"] = type(sys)("PIL")
+        sys.modules["PIL"].Image = _Image
+    cli.read_conditioning = lambda path, n: synthetic_frames(n)
+    try:
+        for dtype in ("bf16", "fp32"):
+            with tempfile.TemporaryDirectory() as tmp:
+                argv = ["generate", *CLI_TINY_ARGS, "--dtype", dtype,
+                        "--video_path", "synthetic.mp4", "--save_dir", tmp]
+                saved.clear()
+                reset_counts()
+                t0 = time.perf_counter()
+                cli.main(argv)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                ran = counts()
+                files = sorted(os.listdir(tmp))
+            mine = ("K1", "K2", "K3") if dtype == "bf16" else (
+                "K1-fp32", "K2-fp32", "K3-fp32")
+            others = [k for k in ("K1", "K2", "K3", "K6", "K1-fp32",
+                                  "K2-fp32", "K3-fp32", "K6-fp32")
+                      if k not in mine]
+            log(f"cli generate --tiny_model --dtype {dtype}: {wall:.2f} s, "
+                f"{len(files)} frames written, launches {ran}")
+            if not all(ran[k] for k in mine) or any(ran[k] for k in others):
+                fail(f"cli generate --dtype {dtype} ran {ran}, not {mine}")
+            if len(files) != 10 or (stub and (
+                    len(saved) != 10 or any(a.dtype != np.uint8
+                                           or a.shape != saved[0].shape
+                                           for a in saved))):
+                fail(f"cli generate --dtype {dtype} wrote {files}")
+            out[dtype] = dict(wall_s=wall, frames=len(files), launches=ran,
+                              **({"frame_shape": list(saved[0].shape)}
+                                 if saved else {}))
+    finally:
+        cli.read_conditioning = read
+        if stub:
+            del sys.modules["PIL"]
+    return out
 
 
 def synthetic_frames(n: int, seed: int = 1):
@@ -2643,7 +3072,7 @@ def rollout_phase(pipe, smi: str, name: str, n_videos: int, steps: int,
         # where the time goes: the first block once more, profiled
         profile_phase(pipe, videos[0],
                       dict(kw, gen_nums=ROLLOUT_GEN[:1],
-                           num_inference_steps=steps),
+                           num_inference_steps=ROLLOUT_PROFILE_STEPS),
                       None, name=f"{name}_block_profile")
     return rec
 
@@ -2652,7 +3081,8 @@ def counts():
     """Every kernel's launches since the last :func:`reset_counts`, and the
     builds of the bias's tile map. K4, K5 and K10 are the launches of K1,
     K2 and K3 past the TPU's 8192-key cap, where the TPU runs its k-tiled
-    kernels."""
+    kernels; ``K*-fp32`` the fp32 kernel's launches under each wrapper
+    (fp32 operands), apart from the bf16 kernels'."""
     return {"K1": fa.flash_mha_decode_split.launches,
             "K2": fa.flash_mha_decode.launches, "K3": fa.flash_mha.launches,
             "K4": fa.flash_mha_decode_split.long_launches,
@@ -2661,6 +3091,11 @@ def counts():
             "K9": fa.flash_mha_bwd.launches,
             "K6": fa.flash_mha_inline.launches,
             "K7": fa.flash_mha_inline_bwd.launches,
+            # the fp32 kernel (csrc/fp32_attention.cu) under each mask
+            "K1-fp32": fa.flash_mha_decode_split.fp32_launches,
+            "K2-fp32": fa.flash_mha_decode.fp32_launches,
+            "K3-fp32": fa.flash_mha.fp32_launches,
+            "K6-fp32": fa.flash_mha_inline.fp32_launches,
             "P1-serial": overlap_probe.overlap_serial.launches,
             "P1-pipelined": overlap_probe.overlap_pipelined.launches,
             "bias_map_builds": fa.flash_mha.bias_map_builds}
@@ -2720,7 +3155,10 @@ def run(dev: torch.device, smi: str) -> None:
 
     records = kernels_phase(dev)
     torch.cuda.empty_cache()
+    mark("the kernels phase")
     reference_phase(dev)
+    width_refs = width_reference_phase(dev)
+    mark("the small-input serving references")
 
     # ---- main path ----------------------------------------------------------
     t0 = time.perf_counter()
@@ -2820,37 +3258,16 @@ def run(dev: torch.device, smi: str) -> None:
             K2=2 * BATCH_STEPS * nl))
     del pipe
     freed("the serving paths")
+    fp32_clip = fp32_clip_phase(dev, smi)
+    freed("the fp32 clip")
+    cli_tiny = cli_tiny_phase(dev)
+    freed("the CLI's tiny runs")
     drift_counts = cfg_drift_phase(dev, smi)
     freed("the cfg_drift sweep")
 
     # ---- the mesh: gloo ranks sharing the card ----------------------------
-    def mesh_launches(seq, tensor, layers=2, steps=3):
-        # the small-input reference: a prefill (K6 under Ulysses, K3 with
-        # its bias on a tensor-only mesh), one extend and 2 blocks of
-        # cond and uncond rows
-        prefill = (dict(K6=layers) if seq > 1
-                   else dict(K3=layers, bias_map_builds=1))
-        return expect(K1=layers + 2 * steps * layers,
-                      K2=2 * steps * layers, **prefill)
-
-    # the mesh clips are held to the single-rank clip of their model and to
-    # its floor: how far the same clip moves with its linears in another
-    # fp32 summation order (TP's row-parallel split is one such order)
-    main_latents, mesh_floor = mesh_clip_reference(dev)
-    log(f"single-rank clip at {MESH_CLIP_LAYERS} layers with fp32 linears: "
-        f"relative MSE {mesh_floor:.3e} (the mesh clips' floor)")
-    freed("the mesh clips' single-rank clip")
-    mesh_ref = mesh_reference_phase(mesh_launches)
-    cl = MESH_CLIP_LAYERS
-    mesh_want = expect(K6=cl, K1=cl * STEPS, K2=cl * STEPS)
-    mesh_clips = {}
-    for seq, tensor in MESH_CLIPS:
-        res = mesh_ref.get(mesh_name(seq, tensor), {}).get("ranks") \
-            or run_mesh(seq, tensor, False, True)
-        mesh_clips[mesh_name(seq, tensor)] = mesh_clip_phase(
-            seq, tensor, res, main_latents, mesh_floor, mesh_want, smi)
-    freed("the mesh phases")
-    mesh_training = mesh_training_phases(smi)
+    mesh_clips, mesh_training = mesh_phases(dev, smi)
+    late_cut()
 
     train_reference_phase(dev)
     inline_ref = train_reference_phase(dev, bias_limit=0)
@@ -2871,6 +3288,8 @@ def run(dev: torch.device, smi: str) -> None:
     image_reference_phase(dev)
     image_serving = image_serving_phase(dev, smi)
     freed("the image serving path")
+    fp32_image = fp32_image_phase(dev, smi)
+    freed("the fp32 image")
     train_image_counts = train_image_phase(dev, smi)
     freed("the train-image path")
     input_head_counts = input_head_phase(dev, smi)
@@ -2921,6 +3340,14 @@ def run(dev: torch.device, smi: str) -> None:
         elif k in ("K5", "P1-serial", "P1-pipelined"):
             r.update(launches=sum(p[k] for p in paths.values()),
                      launches_path="every path: " + ", ".join(paths))
+        elif k in ("K1-fp32", "K2-fp32", "K3-fp32"):
+            r.update(launches=fp32_clip["launches"][k],
+                     launches_path="the fp32 clip (generate --dtype fp32)")
+        elif k == "K6-fp32":
+            r.update(launches=width_refs["fp32_inline"]["launches"][k],
+                     launches_path=(
+                         "fp32 small-input reference at "
+                         "precompute_bias_limit=0 (its prefill)"))
         else:
             r.update(launches=launches[k], launches_per_clip=launches[k])
     records["K3"]["launches_per_train_step"] = train_counts["K3"] \
@@ -2996,9 +3423,70 @@ def run(dev: torch.device, smi: str) -> None:
             offload_counts[k] // OFFLOAD_STEPS
     records["K3"]["bias_map_builds"]["per_offload_step"] = \
         offload_counts["bias_map_builds"] // OFFLOAD_STEPS
+    # the fp32 kernel per 1024x1024 fp32 image (FP32_IMAGE_STEPS steps) and
+    # per CLI --tiny_model run; the bf16 kernels at head_dim 16 per CLI
+    # --tiny_model bf16 run (no path runs head_dim 64 or 128)
+    records["K3-fp32"]["launches_per_fp32_image"] = \
+        fp32_image["launches"]["K3-fp32"]
+    for k in ("K1", "K2", "K3"):
+        records[f"{k}-fp32"]["launches_cli_tiny_fp32"] = \
+            cli_tiny["fp32"]["launches"][f"{k}-fp32"]
+    for k in ("K1", "K2", "K3", "K6"):
+        for d in WIDTHS:
+            records[k][f"bf16_d{d}"]["launches"] = (
+                cli_tiny["bf16"]["launches"][k] if d == 16 else 0)
+            records[k][f"bf16_d{d}"]["launches_path"] = (
+                "generate --tiny_model (bf16, CLI)" if d == 16
+                else "no path runs this head width")
     log(json.dumps({"runtime_depth_cuts": CUTS}))
     log(f"every phase: {time.perf_counter() - t_run:.1f} s")
     log(json.dumps({"kernels": list(records.values())}))
+
+
+def mesh_phases(dev, smi: str) -> tuple:
+    """The mesh on gloo ranks sharing the card: the references at once
+    (none timed), then the timed full-width clips and training runs alone.
+    Returns ({clip name: record}, {training run name: record})."""
+    def mesh_launches(seq, tensor, layers=2, steps=3):
+        # the small-input reference: a prefill (K6 under Ulysses, K3 with
+        # its bias on a tensor-only mesh), one extend and 2 blocks of
+        # cond and uncond rows
+        prefill = (dict(K6=layers) if seq > 1
+                   else dict(K3=layers, bias_map_builds=1))
+        return expect(K1=layers + 2 * steps * layers,
+                      K2=2 * steps * layers, **prefill)
+
+    # the mesh clips are held to the single-rank clip of their model and to
+    # its floor: how far the same clip moves with its linears in another
+    # fp32 summation order (TP's row-parallel split is one such order)
+    main_latents, mesh_floor = mesh_clip_reference(dev)
+    log(f"single-rank clip at {MESH_CLIP_LAYERS} layers with fp32 linears: "
+        f"relative MSE {mesh_floor:.3e} (the mesh clips' floor)")
+    freed("the mesh clips' single-rank clip")
+    # the references, none of them timed, all at once (their ranks' start-up
+    # and the host's work overlap): the serving meshes and the collective
+    # probe in threads, the training reference here
+    want_ref, _ = mesh_reference_latents(None)
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        serving_ref = pool.submit(mesh_reference_phase, want_ref,
+                                  mesh_launches)
+        probe = pool.submit(collective_probe)
+        mesh_train_reference_phase()
+        probe.result()
+        serving_ref.result()
+    freed("the mesh references")
+    # then the timed runs alone: the full-width clips and training runs
+    cl = MESH_CLIP_LAYERS
+    mesh_want = expect(K6=cl, K1=cl * STEPS, K2=cl * STEPS)
+    mesh_clips = {}
+
+    def check_clip(seq, tensor, res):
+        mesh_clips[mesh_name(seq, tensor)] = mesh_clip_phase(
+            seq, tensor, res, main_latents, mesh_floor, mesh_want, smi)
+
+    mesh_training = mesh_timed_phase(smi, MESH_CLIPS, check_clip)
+    freed("the mesh's timed runs")
+    return mesh_clips, mesh_training
 
 
 def mesh_training_phases(smi: str) -> dict:
@@ -3006,7 +3494,8 @@ def mesh_training_phases(smi: str) -> dict:
     collective probe, the small-input reference, the full-width runs."""
     collective_probe()
     mesh_train_reference_phase()
-    out = mesh_train_full_phase(smi)
+    mark("the mesh training reference")
+    out = mesh_timed_phase(smi, clips=())
     freed("the mesh training phases")
     return out
 
@@ -3407,6 +3896,29 @@ def host_update_ops() -> set:
     return rec.ops
 
 
+def path_config(**kw) -> ModelConfig:
+    """ModelConfig() at full width, at PATH_LAYERS layers once the paths
+    after the mesh were cut (:func:`late_cut`)."""
+    if PATH_LAYERS is not None:
+        kw.setdefault("num_layers", PATH_LAYERS)
+    return ModelConfig(**kw)
+
+
+def late_cut() -> None:
+    """Cut the paths after the mesh to LATE_LAYERS layers when the script
+    is past LATE_AT_S seconds (printed and listed in CUTS)."""
+    global PATH_LAYERS
+    at = time.perf_counter() - T_START
+    if at > LATE_AT_S:
+        PATH_LAYERS = LATE_LAYERS
+        cut = (f"the paths after the mesh at {LATE_LAYERS} of "
+               f"{ModelConfig().num_layers} layers (the offload path at "
+               f"most that): the mesh ended {at:.1f} s into the script, "
+               f"past {LATE_AT_S:.0f} s")
+        CUTS.append(cut)
+        log(f"CUT: {cut}")
+
+
 def offload_layers(full: int) -> tuple:
     """(layers, the host's MemAvailable GiB, the state's GiB at that
     depth): the depth whose offload state (OFFLOAD_HOST_BYTES a parameter)
@@ -3437,8 +3949,9 @@ def release_pinned() -> None:
 
 
 def offload_phase(dev, smi: str) -> dict:
-    """Stage 1 with the offload optimizer at full width and depth (the
-    cut, if the host's memory forces one, printed and listed in CUTS)
+    """Stage 1 with the offload optimizer at full width and OFFLOAD_LAYERS
+    (a further cut, if the host's memory forces one, printed and listed
+    in CUTS)
     through the Trainer's own step: a warm-up (the host-op check on, the
     host update apart), OFFLOAD_STEPS timed steps at grad_splits 1, each
     with exactly stage 1's launches, then one step at grad_splits 2. Each
@@ -3449,14 +3962,15 @@ def offload_phase(dev, smi: str) -> dict:
     parameters bf16 and exactly bf16(master) after every step, the master
     fp32. Returns the launch counts of the grad_splits-1 steps."""
     full = ModelConfig().num_layers
-    layers, avail_gib, need_gib = offload_layers(full)
+    depth = min(OFFLOAD_LAYERS, PATH_LAYERS or OFFLOAD_LAYERS)
+    layers, avail_gib, need_gib = offload_layers(depth)
     log(f"offload: host MemAvailable {avail_gib:.2f} GiB; the state needs "
         f"{need_gib:.2f} GiB at {layers} layers ({OFFLOAD_HOST_BYTES} B a "
         f"parameter, margin {OFFLOAD_HOST_MARGIN}x)")
-    if layers < full:
-        cut = (f"offload stage-1 path at {layers} of {full} layers: the "
-               f"host holds {avail_gib:.2f} GiB, the full-depth state needs "
-               f"more with its margin")
+    if layers < depth:
+        cut = (f"offload stage-1 path at {layers} of {depth} layers: the "
+               f"host holds {avail_gib:.2f} GiB, the state at {depth} "
+               f"needs more with its margin")
         CUTS.append(cut)
         log(f"CUT: {cut}")
     cfg = stage_config(1, lr=TRAIN_LR, lr_scheduler="constant",
@@ -3623,7 +4137,7 @@ def training_phase(dev, smi: str, stage: int) -> dict:
     cfg = stage_config(stage, lr=TRAIN_LR, lr_scheduler="constant",
                        adam_epsilon=1e-5)
     t0 = time.perf_counter()
-    trainer = Trainer(ModelConfig(), cfg, None, vae_cfg=VAEConfig(),
+    trainer = Trainer(path_config(), cfg, None, vae_cfg=VAEConfig(),
                       target_resolution=(H_PX, W_PX), device=dev, seed=0)
     state = trainer.build()
     randomise_heads_(trainer.model, seed=1)
@@ -3735,13 +4249,22 @@ def profile_train_step(trainer, state, tb, step_s: float,
         else None, "top_kernels": top}}))
 
 
+def mark(after: str) -> None:
+    """Log the seconds since the script started (the phases' share of its
+    time limit)."""
+    log(f"after {after}: {time.perf_counter() - T_START:.1f} s since the "
+        f"start")
+
+
 def freed(after: str) -> None:
     """Collect the garbage of a finished phase and fail if 1 GiB or more
-    is still allocated on the card."""
+    is still allocated on the card; log the seconds since the script
+    started (the phases' share of its time limit)."""
     gc.collect()
     torch.cuda.empty_cache()
     left_gib = torch.cuda.memory_allocated() / 2 ** 30
     log(f"after {after}: {left_gib:.2f} GiB allocated")
+    mark(after)
     if left_gib > 1.0:
         fail(f"{left_gib:.2f} GiB still allocated after {after}")
 
@@ -3817,7 +4340,7 @@ def lora_phase(dev, smi: str):
     cfg = stage_config(1, lr=TRAIN_LR, lr_scheduler="constant",
                        adam_epsilon=1e-5, use_lora=True, lora_rank=LORA_RANK)
     t0 = time.perf_counter()
-    trainer = Trainer(ModelConfig(), cfg, None, vae_cfg=VAEConfig(),
+    trainer = Trainer(path_config(), cfg, None, vae_cfg=VAEConfig(),
                       target_resolution=(H_PX, W_PX), device=dev, seed=0)
     state = trainer.build()
     model = trainer.model
@@ -3913,7 +4436,7 @@ def distill_phase(dev, smi: str):
     cfg = stage_config(1, lr=TRAIN_LR, lr_scheduler="constant",
                        adam_epsilon=1e-5, **DISTILL)
     t0 = time.perf_counter()
-    trainer = Trainer(ModelConfig(), cfg, None, vae_cfg=VAEConfig(),
+    trainer = Trainer(path_config(), cfg, None, vae_cfg=VAEConfig(),
                       target_resolution=(H_PX, W_PX), device=dev, seed=0)
     state = trainer.build()
     model, teacher = trainer.model, trainer.teacher
@@ -4070,7 +4593,7 @@ def products_phase(dev, smi: str, student: dict, adapters: dict) -> dict:
     merged weight's bf16 rounding, and a clip of the merged model. Returns
     the student clip's launches."""
     t0 = time.perf_counter()
-    pipe = VideoGPTPipeline.build(ModelConfig(), VAEConfig(), device=dev,
+    pipe = VideoGPTPipeline.build(path_config(), VAEConfig(), device=dev,
                                   dtype=torch.bfloat16, state_dict=student,
                                   seed=0)
     torch.cuda.synchronize()
@@ -4179,20 +4702,21 @@ def image_rows():
                       proc.row("<img><|image_1|></img>", [img])[0]], n_out)}
 
 
-def image_decode_record(dev, seed: int, row, n_out: int) -> dict:
+def image_decode_record(dev, seed: int, row, n_out: int,
+                        dtype: torch.dtype = torch.bfloat16) -> dict:
     """K3 as the image path's cached decode runs it: the tail's queries
     (TIME + the output tokens) over the heads-major concatenation of the
     prompt's cache and the tail's own keys (the tail's K/V views of the
     fused projection, concatenated as ``attend_cached`` does), with the
     rectangular bias of the tail's rows over every key and its map built
-    once (as once per guidance context)."""
+    once (as once per guidance context); bf16 or fp32 operands."""
     cfg = ModelConfig()
     h, hkv, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     lay = single_shot_layout([row], n_out)
     meta = AttnMeta.from_layout(lay, dev)
     tail = lay.noisy_tail_len()
     lc = lay.length - tail
-    bf16 = _bf16_maker(dev, seed)
+    bf16 = _bf16_maker(dev, seed, dtype)
     q = bf16(1, tail, h, d)
     kc, vc = bf16(1, hkv, lc, d), bf16(1, hkv, lc, d)
     kt = bf16(1, tail, hkv, d)
@@ -4208,15 +4732,15 @@ def image_decode_record(dev, seed: int, row, n_out: int) -> dict:
                                            bias)
 
     qh = q.transpose(1, 2).contiguous()
-    bias4 = bias[:, None]
+    bias4 = bias[:, None].to(dtype)
 
     def lib():
         return F.scaled_dot_product_attention(qh, kh, vh, attn_mask=bias4)
 
     return dict(
         fn=lambda: fa.flash_mha(q, k, v, bm), plain=plain, lib=lib,
-        route="cuda", source="video_gpt_tpu_torch/csrc/bias_attention.cu",
-        replaces=f"{TPU_KERNELS}:133",
+        route="cuda", source=kernel_source("bias_attention.cu", dtype),
+        dtype=dtype, replaces=f"{TPU_KERNELS}:133",
         shape=f"B 1, Lq {tail} vs {lc} cached + {tail} new keys "
               f"(heads-major), bf16 bias",
         bytes=nbytes(q, kh, vh, bias, q),
@@ -4342,7 +4866,7 @@ def image_serving_phase(dev, smi: str) -> dict:
     finite latents on the device. Returns {scenario: record}."""
     t0 = time.perf_counter()
     pipe = ImageGenPipeline.build(ImageGenProcessor(StubTokenizer()),
-                                  ModelConfig(), VAEConfig(), device=dev,
+                                  path_config(), VAEConfig(), device=dev,
                                   dtype=torch.bfloat16, seed=0)
     torch.cuda.synchronize()
     log(f"build the image pipeline: {time.perf_counter() - t0:.1f} s")
@@ -4406,6 +4930,58 @@ def image_serving_phase(dev, smi: str) -> dict:
     return out
 
 
+# the fp32 image: text -> image at 1024x1024 and 2 contexts, at this many
+# steps (a cut in steps only: an fp32 step costs ~10x a bf16 one)
+FP32_IMAGE_STEPS = 2
+
+
+def fp32_image_phase(dev, smi: str) -> dict:
+    """``generate-image --dtype fp32``: text -> image at the CLI's 1024x1024
+    and guidance 3.0 (the prompt and the default negative prompt, each
+    context at its natural length) with fp32 weights, FP32_IMAGE_STEPS
+    steps: the fp32 kernel exactly 2 (32 + steps x 32) K3 and 4 map
+    builds, no bf16 kernel; one uint8 1024x1024x3 image and finite fp32
+    latents on the card."""
+    t0 = time.perf_counter()
+    pipe = ImageGenPipeline.build(ImageGenProcessor(StubTokenizer()),
+                                  path_config(), VAEConfig(), device=dev,
+                                  dtype=torch.float32, seed=0)
+    torch.cuda.synchronize()
+    log(f"build the fp32 image pipeline: {time.perf_counter() - t0:.1f} s")
+    nl, steps = pipe.model.cfg.num_layers, FP32_IMAGE_STEPS
+    rows, _ = image_rows()["text"]
+    want = expect(**{"K3-fp32": len(rows) * (nl + steps * nl)},
+                  bias_map_builds=2 * len(rows))
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    images_out, lat = pipe(IMAGE_PROMPT, height=IMAGE_PX, width=IMAGE_PX,
+                           num_inference_steps=steps, guidance_scale=IMAGE_CFG,
+                           seed=0, output_type="np", return_latents=True)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = counts()
+    log(f"fp32 text_to_image: launches {launches} (expected {want})")
+    if launches != want:
+        fail(f"fp32 image launch counts {launches} != {want}")
+    if (len(images_out) != 1 or images_out[0].dtype != np.uint8
+            or images_out[0].shape != (IMAGE_PX, IMAGE_PX, 3)):
+        fail(f"the fp32 image is not one uint8 {IMAGE_PX}x{IMAGE_PX}x3")
+    if lat.device.type != dev.type or lat.dtype != torch.float32 \
+            or not torch.isfinite(lat).all():
+        fail("the fp32 image's latents are not finite fp32 on the card")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    res = dict(steps=steps, contexts=len(rows), image_s=wall_s,
+               s_per_step=wall_s / steps, peak_mem_gib=peak,
+               launches=launches, device=smi)
+    log(f"fp32 text_to_image: one {IMAGE_PX}x{IMAGE_PX} image in {steps} "
+        f"steps x {len(rows)} contexts: {wall_s:.3f} s, peak {peak:.2f} GiB, "
+        f"on {smi}")
+    log(json.dumps({"image_fp32_text_to_image": res}))
+    return res
+
+
 def train_image_phase(dev, smi: str) -> dict:
     """The train-image path at full width through the image trainer's own
     step (fp32 parameters and AdamW, bf16 compute, per-layer recompute; a
@@ -4417,7 +4993,7 @@ def train_image_phase(dev, smi: str) -> dict:
     parameters. Returns the summed launches."""
     cfg = TrainConfig(lr=TRAIN_LR, lr_scheduler="constant")
     t0 = time.perf_counter()
-    trainer = ImageGenTrainer(ModelConfig(), cfg, None, None,
+    trainer = ImageGenTrainer(path_config(), cfg, None, None,
                               StubTokenizer(),
                               output_size=(TRAIN_IMAGE_PX,) * 2,
                               max_input_images=MAX_INPUT_IMAGES, device=dev,
@@ -4480,7 +5056,7 @@ def input_head_phase(dev, smi: str) -> dict:
     cfg = stage_config(1, lr=TRAIN_LR, lr_scheduler="constant",
                        adam_epsilon=1e-5, input_output_return=True)
     t0 = time.perf_counter()
-    trainer = Trainer(ModelConfig(), cfg, None, vae_cfg=VAEConfig(),
+    trainer = Trainer(path_config(), cfg, None, vae_cfg=VAEConfig(),
                       target_resolution=(H_PX, W_PX), device=dev, seed=0)
     state = trainer.build()
     model = trainer.model

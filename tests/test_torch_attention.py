@@ -25,6 +25,22 @@ from video_gpt_tpu_torch.ops.attention import AttnMeta as TMeta
 ATOL = RTOL = 2e-5
 N_IMG = 4          # 32x32 frames: seg 6 tokens, never a 128-key multiple
 H, HKV, D = 4, 2, 16
+# the head widths of the K1/K2/K3 cases: the tiny model's 16, and the CUDA
+# kernels' padded widths 64 and 128 (every width the Pallas kernels take
+# is at most 128)
+WIDTHS = (D, 64, 128)
+
+
+def _widths(*cases):
+    """Each case at every width of WIDTHS: at D under its own id, at the
+    others with ``-d<width>`` appended."""
+    out = []
+    for case in cases:
+        case = case if isinstance(case, tuple) else (case,)
+        base = "-".join(str(x) for x in case)
+        out += [pytest.param(*case, d, id=base if d == D else f"{base}-d{d}")
+                for d in WIDTHS]
+    return out
 
 
 def _metas(n_clean, n_gen, use_cfg=False):
@@ -94,13 +110,13 @@ def test_precompute_bias_equal_on_unpadded_region(n_clean, use_cfg):
     np.testing.assert_array_equal(tb.float().numpy(), jb[:, :lq, :lk])
 
 
-@pytest.mark.parametrize("n_clean", [2, 3])
-def test_k1_decode_split_matches_pallas(n_clean):
+@pytest.mark.parametrize("n_clean,d", _widths(2, 3))
+def test_k1_decode_split_matches_pallas(n_clean, d):
     jl, _, jm, tm = _metas(n_clean, 2)
     tail, L = jl.noisy_tail_len(), jl.length
     lc = L - tail
-    q = _rand(1, 1, tail, H, D)
-    k, v = _rand(2, 1, HKV, L, D), _rand(3, 1, HKV, L, D)
+    q = _rand(1, 1, tail, H, d)
+    k, v = _rand(2, 1, HKV, L, d), _rand(3, 1, HKV, L, d)
     jmask = jvg.decode_mask(jm.tail(tail), jm)
     want = jfa.flash_mha_decode_split(
         jnp.asarray(q), jnp.asarray(k[:, :, :lc]), jnp.asarray(v[:, :, :lc]),
@@ -117,12 +133,12 @@ def test_k1_decode_split_matches_pallas(n_clean):
     _close(got, want)
 
 
-@pytest.mark.parametrize("n_clean", [0, 2, 3])
-def test_k2_decode_matches_pallas(n_clean):
+@pytest.mark.parametrize("n_clean,d", _widths(0, 2, 3))
+def test_k2_decode_matches_pallas(n_clean, d):
     jl, _, jm, tm = _metas(n_clean, 2)
     tail, L = jl.noisy_tail_len(), jl.length
-    q = _rand(4, 1, tail, H, D)
-    k, v = _rand(5, 1, L, HKV, D), _rand(6, 1, L, HKV, D)
+    q = _rand(4, 1, tail, H, d)
+    k, v = _rand(5, 1, L, HKV, d), _rand(6, 1, L, HKV, d)
     want = jfa.flash_mha_decode(
         jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
         jvg.decode_mask(jm.tail(tail), jm), interpret=True)
@@ -155,13 +171,13 @@ def test_k1_extend_mask_matches_pallas():
     _close(got, want)
 
 
-@pytest.mark.parametrize("n_clean,use_cfg", [(0, False), (2, False),
-                                             (3, True)])
-def test_k3_biased_matches_pallas(n_clean, use_cfg):
+@pytest.mark.parametrize("n_clean,use_cfg,d", _widths(
+    (0, False), (2, False), (3, True)))
+def test_k3_biased_matches_pallas(n_clean, use_cfg, d):
     jl, _, jm, tm = _metas(n_clean, 2, use_cfg)
     b, L = jl.batch, jl.length
-    q = _rand(10, b, L, H, D)
-    k, v = _rand(11, b, L, HKV, D), _rand(12, b, L, HKV, D)
+    q = _rand(10, b, L, H, d)
+    k, v = _rand(11, b, L, HKV, d), _rand(12, b, L, HKV, d)
     want = jfa.flash_mha(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
                          jm, jm, bias=jfa.precompute_bias(jm, jm),
                          interpret=True)
@@ -266,6 +282,8 @@ def test_plain_versions_do_not_count_launches():
     """On CPU tensors the wrappers run the plain versions: no launch is
     counted (the counters prove a CUDA run went through the kernels)."""
     tfa.reset_launch_counts()
-    test_k2_decode_matches_pallas(0)
+    test_k2_decode_matches_pallas(0, D)
     test_k1_extend_mask_matches_pallas()
     assert [f.launches for f in tfa.KERNELS] == [0] * len(tfa.KERNELS)
+    assert [f.fp32_launches for f in tfa.FORWARD_KERNELS] == [0] * len(
+        tfa.FORWARD_KERNELS)

@@ -12,7 +12,8 @@ kernel with the same function); ``jax.grad`` through
 ``flash_mha_inline`` (K8 forward, K9 backward from a derived bias). Both
 sides get the same fp32 numpy inputs at head_dim 96, MHA and GQA 2:1, on an
 inference layout (the noisy tail against the whole CFG pair) and a
-frame-block training layout. Bars: the forward at atol = rtol = 2e-5, the
+frame-block training layout; the K6 forward also at head_dim 64 and 128,
+the CUDA kernels' other padded widths. Bars: the forward at atol = rtol = 2e-5, the
 JAX package's kernel-vs-reference bar; the backward at atol = rtol = 5e-5,
 its flash-backward bar (fp32 sums in other orders).
 """
@@ -51,7 +52,7 @@ def _layouts(kind):
     return jl, tl, slice(None)
 
 
-def _case(kind, h, hkv, seed=0):
+def _case(kind, h, hkv, seed=0, d=D):
     jl, tl, rows = _layouts(kind)
     jm, tm = JMeta.from_layout(jl), AttnMeta.from_layout(tl, "cpu")
     jq, tq = JMeta(*(x[:, rows] for x in jm)), tm.cols(rows)
@@ -62,8 +63,8 @@ def _case(kind, h, hkv, seed=0):
     def arr(*shape):
         return rng.standard_normal(shape).astype(np.float32)
 
-    q, k, v = arr(b, lq, h, D), arr(b, lk, hkv, D), arr(b, lk, hkv, D)
-    return (jq, jm), (tq, tm), (q, k, v), arr(b, lq, h, D)
+    q, k, v = arr(b, lq, h, d), arr(b, lk, hkv, d), arr(b, lk, hkv, d)
+    return (jq, jm), (tq, tm), (q, k, v), arr(b, lq, h, d)
 
 
 def _t(*xs):
@@ -83,9 +84,12 @@ CASES = [("inference", 4, 4), ("inference", 4, 2), ("training", 4, 4),
          ("training", 4, 2)]
 
 
-@pytest.mark.parametrize("kind,h,hkv", CASES)
-def test_plain_k6_matches_pallas_stream_inline(kind, h, hkv):
-    (jq, jk), (tq, tk), qkv, _ = _case(kind, h, hkv)
+@pytest.mark.parametrize("kind,h,hkv,d", [
+    pytest.param(*case, d, id="-".join(map(str, case))
+                 + ("" if d == D else f"-d{d}"))
+    for case in CASES for d in (D, 64, 128)])
+def test_plain_k6_matches_pallas_stream_inline(kind, h, hkv, d):
+    (jq, jk), (tq, tk), qkv, _ = _case(kind, h, hkv, d=d)
     out, lse = fa.inline_attention_reference(*_t(*qkv), tq, tk)
     jfa.INTERPRET = True
     try:

@@ -854,6 +854,18 @@ MUTATIONS = {
         "  if (wg == 1) return;\n"
         "  bf16* out = static_cast<bf16*>(a.out) + b * a.o_sb + h * a.o_sh;",
         "K1"),
+    "fp32_without_last_key_tile": (
+        "fp32_attention.cu",
+        "for (int it = 0; it < n; ++it) {",
+        "for (int it = 0; it < n - 1; ++it) {", "K6-fp32"),
+    "fp32_partial_tile_as_full": (
+        "fp32_attention.cu",
+        "const bool partial = (e & 3) == kTilePartial;",
+        "const bool partial = false;", "K3-fp32"),
+    "padded_head_dims_not_zero_filled": (
+        "attention_common.cuh",
+        "const bool ok = r < rows_valid && (!kPadded || c < cols);",
+        "const bool ok = r < rows_valid;", "K3-d40"),
 }
 
 
@@ -880,6 +892,14 @@ def test_inline_mutation_fails_the_bar(dev, tmp_path, monkeypatch,
         ratio = _k3_error(*_training_operands(dev, *case))
     elif kernel == "K3-cache":
         ratio = _k3_cached_error(dev, ((37, 70),), 100)
+    elif kernel == "K3-fp32":
+        ratio = _k3_width_error(dev, torch.float32, 96)
+    elif kernel == "K3-d40":
+        # q, k, v views of 64-wide rows: a copy that reads past head_dim
+        # reads their random dims 40..63, in bounds
+        ratio = _k3_width_error(dev, torch.bfloat16, 40, sliced=True)
+    elif kernel == "K6-fp32":
+        ratio = _k6_width_error(dev, torch.float32, 96)
     else:
         ratio = max(_k9_errors(dev, *_training_operands(dev, *case))
                     .values())
@@ -888,19 +908,28 @@ def test_inline_mutation_fails_the_bar(dev, tmp_path, monkeypatch,
 
 
 def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
-    q = torch.zeros(1, 8, 2, 96, device=dev)          # fp32: not taken
-    k = torch.zeros(1, 8, 2, 96, device=dev)
+    q = torch.zeros(1, 8, 2, 96, device=dev, dtype=torch.float16)
+    k = torch.zeros(1, 8, 2, 96, device=dev, dtype=torch.float16)
     mask = fa.DecodeMask(torch.zeros(1, 8, dtype=torch.int32, device=dev),
                          torch.zeros(1, 8, dtype=torch.int32, device=dev))
-    with pytest.raises(TypeError):
+    with pytest.raises(TypeError, match="bf16 or fp32"):       # fp16
         fa.flash_mha_decode(q, k, k, mask)
     qb, kb = q.bfloat16(), k.bfloat16()
-    with pytest.raises(ValueError):                   # head_dim 48
-        fa.flash_mha_decode(qb[..., :48].contiguous(),
-                            kb[..., :48].contiguous(),
-                            kb[..., :48].contiguous(), mask)
+    with pytest.raises(TypeError, match="one dtype"):          # mixed
+        fa.flash_mha_decode(qb, kb.float(), kb, mask)
+    for d in (20, 136):                   # not a multiple of 8; above 128
+        qd = torch.zeros(1, 8, 2, d, device=dev, dtype=torch.bfloat16)
+        with pytest.raises(ValueError, match="head_dim"):
+            fa.flash_mha_decode(qd, qd, qd, mask)
     with pytest.raises(ValueError):                   # bias on the CPU
         fa.flash_mha(qb, kb, kb, torch.zeros(1, 8, 8, dtype=torch.bfloat16))
+    # the backward kernels take bf16 at head_dim 96 only
+    q64 = torch.zeros(1, 8, 2, 64, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="K7, K9"):
+        fa.flash_mha_bwd(q64, q64, q64, fa.precompute_bias(*(
+            AttnMeta.from_layout(layout.frame_block_inference_layout(
+                0, 1, 6, use_cfg=False), dev),) * 2), q64, q64,
+            torch.zeros(1, 2, 8, device=dev))
 
 
 # ---- past 8192 keys: the TPU's k-tiled K4/K5/K10 are K1/K2/K3 here --------
@@ -1117,3 +1146,184 @@ def test_autograd_collectives_on_cuda_operands_of_two_gloo_ranks(dev,
         assert errs.pop("backward_bytes") > 0
         print(f"autograd collectives on CUDA operands: {errs}")
         assert max(errs.values()) <= 1e-5, errs
+
+
+# ---- every dtype and head width of the forward kernels ---------------------
+
+# the fp32 kernel against the plain version in fp32, per element: the
+# tier-1 plain-versus-Pallas bar at fp32 (sums in other orders; no
+# rounding to bf16)
+FP32_ATOL = FP32_RTOL = 2e-5
+# head widths whose padded widths are 32, 64, 64, 96, 128, 128: zero-filled
+# head dims (16, 40, 104) and exact ones, at both dtypes
+WIDTH_CASES = [(dtype, d) for dtype in (torch.bfloat16, torch.float32)
+               for d in (16, 40, 64, 96, 104, 128)]
+
+
+def _operand(dev, seed, dtype, *shape):
+    g = torch.Generator(dev).manual_seed(seed)
+    return torch.randn(shape, generator=g, device=dev).to(dtype)
+
+
+def _width_err(got, plain, dtype):
+    """The worst element's error over its bar: the bf16 bar (``_err``) for
+    bf16 operands, the fp32 bar for fp32 ones; ``plain(vf)`` is the plain
+    version with ``vf`` applied to V."""
+    if dtype == torch.bfloat16:
+        return _err(got, plain(lambda x: x), plain(torch.abs))
+    got, want = (x.float().cpu() for x in (got, plain(lambda x: x)))
+    bar = FP32_ATOL + FP32_RTOL * want.abs()
+    return float(torch.nan_to_num((got - want).abs() / bar,
+                                  nan=float("inf")).max())
+
+
+def _launches(fn, dtype):
+    return fn.launches if dtype == torch.bfloat16 else fn.fp32_launches
+
+
+@pytest.mark.parametrize("dtype,d", WIDTH_CASES)
+def test_k1_at_every_width(dev, dtype, d):
+    """K1 (bf16: rank_attention.cu; fp32: fp32_attention.cu) at B 2, 129
+    rows over 200 cached (a key tile that no query sees) + 77 new keys,
+    into an output filled with NaN: a row left unstored, or a padded head
+    dim stored over the next head's, fails the bar."""
+    b, lq, lc, lt, h, hkv = 2, 129, 200, 77, 4, 2
+    q = _operand(dev, 30, dtype, b, lq, h, d)
+    kc, vc = _operand(dev, 31, dtype, b, hkv, lc, d), _operand(
+        dev, 32, dtype, b, hkv, lc, d)
+    kv = _operand(dev, 33, dtype, b, lt, 2, hkv, d)
+    kt, vt = kv[:, :, 0].transpose(1, 2), kv[:, :, 1].transpose(1, 2)
+    mask = _rank_mask(dev, 34, b, lq, lc + lt, never_tile=1)
+    fill = q.new_full((b, lq, h, d), float("nan"))
+    launch = fa._launch_rank
+    fa.reset_launch_counts()
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(fa, "_launch_rank",
+                   lambda *args: launch(*args, out=fill))
+        got = fa.flash_mha_decode_split(q, kc, vc, kt, vt, mask)
+    assert got is fill
+    assert _launches(fa.flash_mha_decode_split, dtype) == 1
+    assert fa.flash_mha_decode_split.launches \
+        + fa.flash_mha_decode_split.fp32_launches == 1
+
+    def plain(vf):
+        return fa.rank_attention_reference(
+            q.float(), (kc.float(), kt.float()), (vf(vc.float()),
+                                                  vf(vt.float())),
+            (mask.rank[:, :lc], mask.rank[:, lc:]), mask.q_off)
+
+    assert _width_err(got, plain, dtype) <= 1.0
+
+
+@pytest.mark.parametrize("dtype,d", WIDTH_CASES)
+def test_k2_at_every_width(dev, dtype, d):
+    """K2 over one tokens-major operand (B 2, 127 rows, 200 keys, the
+    second key tile seen by no query); 600 rows on a causal mask at D
+    128, where a bf16 block has two consumer warpgroups, not three."""
+    for b, lq, lk, causal in ((2, 127, 200, False), (1, 600, 600, True)):
+        q = _operand(dev, 35, dtype, b, lq, 4, d)
+        k, v = _operand(dev, 36, dtype, b, lk, 2, d), _operand(
+            dev, 37, dtype, b, lk, 2, d)
+        if causal:
+            mask = fa.DecodeMask(
+                torch.arange(lk, dtype=torch.int32, device=dev)[None],
+                torch.arange(lq, dtype=torch.int32, device=dev)[None])
+        else:
+            mask = _rank_mask(dev, 38, b, lq, lk, never_tile=1)
+        fa.reset_launch_counts()
+        got = fa.flash_mha_decode(q, k, v, mask)
+        assert _launches(fa.flash_mha_decode, dtype) == 1
+
+        def plain(vf):
+            return fa.rank_attention_reference(
+                q.float(), (k.float().transpose(1, 2),),
+                (vf(v.float()).transpose(1, 2),), (mask.rank,), mask.q_off)
+
+        assert _width_err(got, plain, dtype) <= 1.0, (b, lq, lk)
+
+
+def _k3_width_error(dev, dtype, d, sliced=False):
+    """K3 with the bf16 bias of a CFG layout (B 2), GQA, v a view of the
+    fused projection (``sliced``: q, k, v the first d dims of 64-wide
+    rows) against the plain version: the worst error / bar of the output
+    and, at fp32, of its logsumexp against the plain softmax's."""
+    h, hkv = 4, 2
+    lay = layout.frame_block_inference_layout(3, 2, 30, use_cfg=True)
+    meta = AttnMeta.from_layout(lay, dev)
+    b, L = lay.batch, lay.length
+    bias = fa.precompute_bias(meta, meta)
+    qkv = _operand(dev, 39, dtype, b, L, h + 2 * hkv, 64 if sliced else d)
+    q, k = qkv[:, :, :h], qkv[:, :, h:h + hkv]
+    if sliced:
+        q, k = q[..., :d], k[..., :d]
+    else:
+        q, k = q.contiguous(), k.contiguous()
+    v = qkv[:, :, h + hkv:, :d]
+    fa.reset_launch_counts()
+    got, lse = fa._bias_forward(q, k, v, fa.bias_map(bias), with_lse=True)
+    assert _launches(fa.flash_mha, dtype) == 1
+
+    def plain(vf):
+        return fa.bias_attention_reference(q.float(), k.float(),
+                                           vf(v.float()), bias)
+
+    ratio = _width_err(got, plain, dtype)
+    if dtype == torch.float32:
+        kf = k.float().repeat_interleave(h // hkv, dim=2)
+        logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), kf) * d ** -0.5 \
+            + bias.float()[:, None]
+        want = torch.logsumexp(logits, -1)
+        ratio = max(ratio, _width_err(lse, lambda vf: want, dtype))
+    return ratio
+
+
+@pytest.mark.parametrize("dtype,d", WIDTH_CASES)
+def test_k3_at_every_width(dev, dtype, d):
+    """K3 (bf16: bias_attention.cu; fp32: fp32_attention.cu) over the bias
+    and its map, with its logsumexp at fp32; at head_dim 40 also on q, k
+    and v that are the first 40 dims of 64-wide rows (strided views)."""
+    assert _k3_width_error(dev, dtype, d) <= 1.0
+    if d == 40:
+        assert _k3_width_error(dev, dtype, d, sliced=True) <= 1.0
+
+
+def _k6_width_error(dev, dtype, d):
+    """K6 over a training layout with pad rows and GQA (the map built in
+    the launch), and over the small batched prefill (``index`` with batch
+    stride 0), against the plain version: the worst error / bar of the
+    output and, at fp32, of its logsumexp."""
+    ratio = 0.0
+    blocks, n_img = (2, 1, 2), 30
+    f = sum(blocks)
+    lay = layout.build_layout([layout.RowSpec(blocks, "training")], n_img,
+                              pad_to=2 * f * (n_img + 2))
+    lay_b = layout.frame_block_inference_layout(6, 2, 30, use_cfg=False,
+                                                rows=2)
+    mp = AttnMeta.from_layout(lay_b, dev).cols(
+        slice(0, lay_b.length - lay_b.noisy_tail_len()))
+    for meta in (AttnMeta.from_layout(lay, dev), mp):
+        b, L = meta.index.shape
+        qkv = _operand(dev, 40, dtype, b, L, 8, d)
+        q, k, v = qkv[:, :, :4].contiguous(), qkv[:, :, 4:6].contiguous(), \
+            qkv[:, :, 6:]
+        fa.reset_launch_counts()
+        got, lse = fa._inline_forward(q, k, v, meta, meta, with_lse=True)
+        assert _launches(fa.flash_mha_inline, dtype) == 1
+
+        def plain(vf):
+            return fa.inline_attention_reference(q.float(), k.float(),
+                                                 vf(v.float()), meta,
+                                                 meta)[0]
+
+        ratio = max(ratio, _width_err(got, plain, dtype))
+        if dtype == torch.float32:
+            want = fa.inline_attention_reference(q, k, v, meta, meta)[1]
+            ratio = max(ratio, _width_err(lse, lambda vf: want, dtype))
+    return ratio
+
+
+@pytest.mark.parametrize("dtype,d", WIDTH_CASES)
+def test_k6_at_every_width(dev, dtype, d):
+    """K6 (bf16: inline_attention.cu; fp32: fp32_attention.cu) with its
+    logsumexp at fp32."""
+    assert _k6_width_error(dev, dtype, d) <= 1.0

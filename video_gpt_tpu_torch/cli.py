@@ -494,8 +494,9 @@ def _add_train_parser(sub) -> None:
     t.add_argument("--mixed_precision", default="bf16",
                    choices=["bf16", "no"],
                    help="bf16 compute over fp32 parameters; 'no' is fp32 "
-                        "and runs on the CPU only (the CUDA kernels are "
-                        "bf16)")
+                        "and, like --tiny_model, trains on --device cpu "
+                        "only until the backward kernels take fp32 and "
+                        "every head width (ROADMAP.md queue 1)")
     t.add_argument("--use_ema", action="store_true")
     t.add_argument("--cls_weight", type=float, default=None)
     t.add_argument("--input_noise", type=float, default=0.9)
@@ -646,7 +647,8 @@ def build_parser() -> argparse.ArgumentParser:
     g.add_argument("--uncond_refresh", type=int, default=1,
                    help="evaluate the uncond row only every k-th guided step")
     g.add_argument("--dtype", default="bf16", choices=["bf16", "fp32"],
-                   help="fp32 runs on the CPU only: the CUDA kernels are bf16")
+                   help="bf16 runs the tensor-core attention kernels, fp32 "
+                        "the fp32 kernel (csrc/fp32_attention.cu)")
     g.add_argument("--tiny_model", action="store_true")
     g.add_argument("--seed", type=int, default=42)
     g.add_argument("--device", default="cuda",
@@ -803,8 +805,8 @@ def _add_image_parsers(sub) -> None:
                     help="Hugging Face tokenizer path for the prompts "
                          "(default: the word-hash stub)")
     gi.add_argument("--dtype", default="bf16", choices=["bf16", "fp32"],
-                    help="fp32 runs on the CPU only: the CUDA kernels are "
-                         "bf16")
+                    help="bf16 runs the tensor-core attention kernels, fp32 "
+                         "the fp32 kernel (csrc/fp32_attention.cu)")
     gi.add_argument("--tiny_model", action="store_true")
     gi.add_argument("--no_separate_cfg", action="store_true",
                     help="run the guidance contexts as one padded batch "
@@ -848,7 +850,9 @@ def _add_image_parsers(sub) -> None:
     ti.add_argument("--mixed_precision", default="bf16",
                     choices=["bf16", "no"],
                     help="bf16 compute over fp32 parameters; 'no' is fp32 "
-                         "and runs on the CPU only")
+                         "and, like --tiny_model, trains on --device cpu "
+                         "only until the backward kernels take fp32 and "
+                         "every head width (ROADMAP.md queue 1)")
     ti.add_argument("--use_ema", action="store_true")
     ti.add_argument("--no_auto_resume", action="store_true")
     ti.add_argument("--vae_ckpt", type=str, default=None)

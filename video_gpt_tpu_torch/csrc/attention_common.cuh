@@ -25,7 +25,19 @@ namespace vgt {
 
 using bf16 = __nv_bfloat16;
 
+// The backward kernels (K7, K9) are laid out for kHeadDim; the forward
+// kernels (K1/K2, K3, K6 and the fp32 kernel) are templates on the padded
+// head width DP, one instance per padded_head_dim, the head dims from the
+// true head_dim to DP zero-filled on load.
 constexpr int kHeadDim = 96;          // ModelConfig: 3072 wide, 32 heads
+constexpr int kMaxHeadDim = 128;
+
+// The head width a forward kernel instance is laid out for: the least of
+// 32, 64, 96, 128 that holds head_dim (whole 32-dim swizzle atoms); 0 for
+// a head_dim the kernels do not take (not a multiple of 8: 16-byte rows).
+__host__ __device__ constexpr int padded_head_dim(int d) {
+  return d <= 0 || d > kMaxHeadDim || d % 8 ? 0 : (d + 31) / 32 * 32;
+}
 constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
 constexpr int kBlockQ = 16 * kWarps;  // query rows per block, 16 per warp
@@ -122,15 +134,19 @@ __device__ __forceinline__ float quad_max(float x) {
 //
 // Operand tiles live in shared memory in the layout wgmma reads without a
 // swizzle: 8x8 "core matrices" of 128 contiguous bytes (8 rows of 16 bytes,
-// 8 bf16 of the head dim each), the 12 core matrices of an 8-row group one
-// after another along the head dim, then the next 8-row group. So 16-byte
-// chunk i of a [rows][kHeadDim] tile lies at byte 16 i (async_copy_tile), and
-// the same tile serves as a K-major operand (its rows are M or N, the head
-// dim is the reduction) and as an MN-major one (its rows are the reduction,
-// the head dim is N).
+// 8 bf16 of the head dim each), the DP / 8 core matrices of an 8-row group
+// one after another along the head dim, then the next 8-row group. So
+// 16-byte chunk i of a [rows][DP] tile lies at byte 16 i (async_copy_tile),
+// and the same tile serves as a K-major operand (its rows are M or N, the
+// head dim is the reduction) and as an MN-major one (its rows are the
+// reduction, the head dim is N).
 
 constexpr int kCoreBytes = 128;                          // one 8x8 core matrix
-constexpr int kGroupBytes = kCoreBytes * kHeadDim / 8;   // 8 rows of a tile
+// 8 rows of a [rows][DP] tile
+template <int DP>
+__host__ __device__ constexpr int group_bytes() {
+  return kCoreBytes * DP / 8;
+}
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -171,21 +187,34 @@ __device__ __forceinline__ void fence_async_shared() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
-// Copy the ROWS x kHeadDim bf16 tile at `src` (row stride `row_stride`
+// Copy the ROWS x DP bf16 tile at `src` (row stride `row_stride`
 // elements, 16-byte aligned rows) into `dst` in the core-matrix layout,
-// zero-filling rows from `rows_valid` on. NT threads, this one `tid`.
-template <int ROWS, int NT>
-__device__ __forceinline__ void async_copy_tile(bf16* dst, const bf16* src,
-                                              long long row_stride,
-                                              int rows_valid, int tid) {
-  constexpr int kRowChunks = kHeadDim / 8;
+// zero-filling rows from `rows_valid` on; with kPadded also the head dims
+// from `cols` (head_dim, a multiple of 8) to DP. Without it the operand's
+// head_dim is DP and `cols` is not read. NT threads, this one `tid`.
+template <int ROWS, int NT, int DP, bool kPadded>
+__device__ __forceinline__ void async_copy_tile_dp(bf16* dst,
+                                                 const bf16* src,
+                                                 long long row_stride,
+                                                 int rows_valid, int cols,
+                                                 int tid) {
+  constexpr int kRowChunks = DP / 8;
   constexpr int kGroupChunks = 8 * kRowChunks;
   for (int i = tid; i < ROWS * kRowChunks; i += NT) {
     const int grp = i / kGroupChunks, w = i % kGroupChunks;
     const int r = grp * 8 + (w & 7), c = (w >> 3) * 8;
-    const bool ok = r < rows_valid;
+    const bool ok = r < rows_valid && (!kPadded || c < cols);
     async_copy16(dst + i * 8, src + (ok ? r * row_stride + c : 0), ok);
   }
+}
+
+// async_copy_tile_dp of a [ROWS][kHeadDim] tile (the backward kernels').
+template <int ROWS, int NT>
+__device__ __forceinline__ void async_copy_tile(bf16* dst, const bf16* src,
+                                              long long row_stride,
+                                              int rows_valid, int tid) {
+  async_copy_tile_dp<ROWS, NT, kHeadDim, false>(dst, src, row_stride,
+                                                rows_valid, kHeadDim, tid);
 }
 
 // Shared-memory matrix descriptor without swizzle: start address, the byte
@@ -198,18 +227,32 @@ __device__ __forceinline__ uint64_t wgmma_desc(const void* p, uint32_t lbo,
          (static_cast<uint64_t>(sbo >> 4) << 32);
 }
 
-// A core-matrix tile as a K-major operand (rows M or N, head dim the
-// reduction), at reduction step kk (head dims 16 kk .. 16 kk + 15).
-__device__ __forceinline__ uint64_t desc_k_major(const bf16* tile, int kk) {
+// A core-matrix [rows][DP] tile as a K-major operand (rows M or N, head
+// dim the reduction), at reduction step kk (head dims 16 kk .. 16 kk + 15).
+template <int DP>
+__device__ __forceinline__ uint64_t desc_k_major_dp(const bf16* tile,
+                                                    int kk) {
   return wgmma_desc(reinterpret_cast<const char*>(tile) + 2 * kk * kCoreBytes,
-                    kCoreBytes, kGroupBytes);
+                    kCoreBytes, group_bytes<DP>());
 }
 
-// A core-matrix tile as the MN-major B operand (rows the reduction, head
-// dim N), at reduction step j (rows 16 j .. 16 j + 15).
+// A core-matrix [rows][DP] tile as the MN-major B operand (rows the
+// reduction, head dim N), at reduction step j (rows 16 j .. 16 j + 15).
+template <int DP>
+__device__ __forceinline__ uint64_t desc_mn_major_dp(const bf16* tile,
+                                                     int j) {
+  return wgmma_desc(
+      reinterpret_cast<const char*>(tile) + 2 * j * group_bytes<DP>(),
+      group_bytes<DP>(), kCoreBytes);
+}
+
+// The same of a [rows][kHeadDim] tile (the backward kernels').
+__device__ __forceinline__ uint64_t desc_k_major(const bf16* tile, int kk) {
+  return desc_k_major_dp<kHeadDim>(tile, kk);
+}
+
 __device__ __forceinline__ uint64_t desc_mn_major(const bf16* tile, int j) {
-  return wgmma_desc(reinterpret_cast<const char*>(tile) + 2 * j * kGroupBytes,
-                    kGroupBytes, kCoreBytes);
+  return desc_mn_major_dp<kHeadDim>(tile, j);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -276,6 +319,91 @@ __device__ __forceinline__ void wgmma_64x96_rs(float (&d)[48],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// d (64 x N, fp32) += A (64 x 16, registers) . B (16 x N, MN-major shared:
+// the tile's rows are the reduction, the head dim the columns): P.V at a
+// padded head width N of 32, 64, 96 or 128.
+template <int N>
+__device__ __forceinline__ void wgmma_pv(float (&d)[N / 2],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db);
+
+template <>
+__device__ __forceinline__ void wgmma_pv<32>(float (&d)[16],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_pv<64>(float (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_pv<128>(float (&d)[64],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_pv<96>(float (&d)[48],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  wgmma_64x96_rs(d, a, db);
+}
+
 // d (64 x 64, fp32) (+)= A (64 x 16, registers) . B (16 x 64, K-major
 // shared: the tile's rows are the 64 columns of d); scale_d 0 overwrites.
 __device__ __forceinline__ void wgmma_64x64_rs(float (&d)[32],
@@ -325,13 +453,15 @@ __device__ __forceinline__ void fence_frags(uint32_t (&a)[N][4]) {
 // the stage is filled; the producer's first wait on "empty" uses parity 1,
 // which a fresh barrier reports complete.
 //
-// A [64 rows][kHeadDim] bf16 tile is kept in wgmma's 64-byte swizzle: three
+// A [64 rows][DP] bf16 tile is kept in wgmma's 64-byte swizzle: DP / 32
 // "atoms" of 32 head dims (64 rows x 64 bytes = 4 KB, one after another),
 // each row of an atom its four 16-byte chunks in the order c ^ ((row / 2) %
 // 4). A TMA box of 32 x 64 with CU_TENSOR_MAP_SWIZZLE_64B writes one atom;
 // the same tile serves as a K-major operand (its rows are N, the head dim
 // the reduction) and as an MN-major one (its rows the reduction, the head
-// dim N). The stage must start on a 512-byte boundary.
+// dim N). The stage must start on a 512-byte boundary. Head dims past the
+// operand's own (a tensor map whose inner dimension is head_dim, narrower
+// than the atoms) land as zeros.
 
 constexpr int kSw64Atom = 64 * 64;  // bytes of one 32-dim atom of 64 rows
 

@@ -25,6 +25,13 @@
 // backward (K9, bias_attention_bwd.cu) reads; a null pointer (serving)
 // writes nothing.
 //
+// Head widths: a template on the padded head width DP (32, 64, 96 or 128,
+// attention_common.cuh `padded_head_dim`); the head dims from head_dim to
+// DP are zero-filled by cp.async (src-size 0) and never stored, and the
+// scale is head_dim's own. A head_dim equal to its DP runs an instance
+// without those checks (kPadded false), so head_dim 96 runs the code it
+// ran before the widths were added.
+//
 // What bounds it on the card: at the stage-1 training shape (B 1, L 7104,
 // 32 heads of 96) 0.281 of the pairs are visible: the two products over them
 // are 0.17 TFLOP against ~0.27 GB of operands (q, k, v, the bias once, out),
@@ -44,7 +51,7 @@
 // products, with the 64x64 bias tile beside them for partial tiles only
 // (a full tile's bias is 0 everywhere: it reads none, and it lies inside
 // [0, Lq) x [0, Lk), so it needs no bounds check). S = Q.K^T and O += P.V
-// are wgmma (m64n64k16 from shared memory; m64n96k16 with P from registers,
+// are wgmma (m64n64k16 from shared memory; m64nDPk16 with P from registers,
 // V MN-major), fp32 accumulate, online softmax in registers between them.
 // A skipped (empty) tile holds only entries at most BF16_NEG of rows that
 // see some key: each of them weighs exactly 0 in fp32 against the row's
@@ -52,31 +59,10 @@
 // tile that holds a row which sees no key.
 #include <math_constants.h>
 
+#include "attention_args.cuh"
 #include "tile_map.cuh"
 
 namespace vgt {
-
-// Must match _BiasArgs in video_gpt_tpu_torch/ops/flash_attention.py.
-struct BiasAttnArgs {
-  const void* q;      // [B, Lq, H, D] (strided)
-  const void* k;      // keys [B, Lk, Hkv, D] (strided)
-  const void* v;      // values, same shape as the keys
-  const void* bias;   // bf16 [B, Lq, Lk], rows at stride bias_sq
-  void* out;          // [B, Lq, H, D]
-  float* lse;         // [B, H, Lq] contiguous, or null: the logsumexp of
-                      // each row's biased logits (natural log), which the
-                      // backward (K9, bias_attention_bwd.cu) reads
-  const int8_t* tile_map;  // [B, ceil(Lq/64), ceil(Lk/64)], vgt_bias_tile_map
-  const int* order;        // [B ceil(Lq/64)] query tiles, most tiles first
-  long long q_sb, q_sl, q_sh;
-  long long k_sb, k_sl, k_sh;
-  long long v_sb, v_sl, v_sh;
-  long long bias_sb, bias_sq;
-  long long o_sb, o_sl, o_sh;
-  int batch, heads, kv_heads, lq, lk, head_dim;
-  float scale_log2;   // head_dim^-0.5 * log2(e)
-  int bias_vec;       // bias rows allow 16-byte loads
-};
 
 // Must match _BiasMapArgs in video_gpt_tpu_torch/ops/flash_attention.py.
 struct BiasMapArgs {
@@ -92,22 +78,33 @@ struct BiasMapArgs {
 
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr int kStages = 2;                  // K/V ring depth
-constexpr int kTile = kBlockK * kHeadDim;   // one core-matrix tile (elements)
 constexpr int kBiasLd = kBlockK + 8;        // bias tile row stride (elements)
+// one core-matrix tile at padded head width DP (elements)
+template <int DP>
+__host__ __device__ constexpr int bias_tile() {
+  return kBlockK * DP;
+}
 // one ring stage: K, V, the bias tile (elements)
-constexpr int kStage = 2 * kTile + kBlockQ * kBiasLd;
-
-__host__ __device__ constexpr int bias_smem_bytes(int nk) {
-  // Q, the ring, the block's list of non-empty key tiles
-  return (kTile + kStages * kStage) * 2 + nk * 4;
+template <int DP>
+__host__ __device__ constexpr int bias_stage() {
+  return 2 * bias_tile<DP>() + kBlockQ * kBiasLd;
 }
 
-template <int D>
+template <int DP>
+__host__ __device__ constexpr int bias_smem_bytes(int nk) {
+  // Q, the ring, the block's list of non-empty key tiles
+  return (bias_tile<DP>() + kStages * bias_stage<DP>()) * 2 + nk * 4;
+}
+
+// At padded head width DP (32, 64, 96, 128): the head dims from head_dim
+// to DP are zero-filled on load, add 0 to every product and are not stored.
+template <int DP, bool kPadded>
 __global__ void __launch_bounds__(kThreads)
     bias_attention_kernel(const BiasAttnArgs a) {
-  static_assert(D == kHeadDim, "tiles are laid out for kHeadDim");
   static_assert(kBlockQ == kBlockK, "Q and K tiles share kTile");
-  constexpr int NO = D / 8;
+  constexpr int NO = DP / 8;
+  constexpr int kTile = bias_tile<DP>();
+  constexpr int kStage = bias_stage<DP>();
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* qs = reinterpret_cast<bf16*>(smem);
   bf16* ring = qs + kTile;  // [kStages][K, V, bias]
@@ -121,9 +118,9 @@ __global__ void __launch_bounds__(kThreads)
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
 
-  async_copy_tile<kBlockQ, kThreads>(
+  async_copy_tile_dp<kBlockQ, kThreads, DP, kPadded>(
       qs, static_cast<const bf16*>(a.q) + b * a.q_sb + h * a.q_sh +
-              q0 * a.q_sl, a.q_sl, min(kBlockQ, a.lq - q0), tid);
+              q0 * a.q_sl, a.q_sl, min(kBlockQ, a.lq - q0), a.head_dim, tid);
   async_commit();
   const int n = gather_tiles(
       a.tile_map + (static_cast<long long>(b) * nq + qt) * nk, 1, nk, list);
@@ -136,10 +133,10 @@ __global__ void __launch_bounds__(kThreads)
     bf16* st = ring + (i % kStages) * kStage;
     const int e = list[i], k0 = (e >> 2) * kBlockK;
     const int valid = min(kBlockK, a.lk - k0);
-    async_copy_tile<kBlockK, kThreads>(st, kp + k0 * a.k_sl, a.k_sl, valid,
-                                       tid);
-    async_copy_tile<kBlockK, kThreads>(st + kTile, vp + k0 * a.v_sl, a.v_sl,
-                                       valid, tid);
+    async_copy_tile_dp<kBlockK, kThreads, DP, kPadded>(
+        st, kp + k0 * a.k_sl, a.k_sl, valid, a.head_dim, tid);
+    async_copy_tile_dp<kBlockK, kThreads, DP, kPadded>(
+        st + kTile, vp + k0 * a.v_sl, a.v_sl, valid, a.head_dim, tid);
     if ((e & 3) == kTilePartial)
       load_bias_tile<kBlockQ, kBlockK, kThreads>(
           st + 2 * kTile, kBiasLd, bp, a.bias_sq, a.lq, a.lk,
@@ -173,8 +170,9 @@ __global__ void __launch_bounds__(kThreads)
     for (int j = 0; j < 32; ++j) s[j] = 0.f;
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
-      wgmma_64x64_ss(s, desc_k_major(qs, kk), desc_k_major(kt, kk), 1);
+    for (int kk = 0; kk < DP / 16; ++kk)
+      wgmma_64x64_ss(s, desc_k_major_dp<DP>(qs, kk), desc_k_major_dp<DP>(kt, kk),
+                     1);
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(s);
@@ -244,7 +242,7 @@ __global__ void __launch_bounds__(kThreads)
     wgmma_fence();
 #pragma unroll
     for (int j = 0; j < kBlockK / 16; ++j)
-      wgmma_64x96_rs(o, pa[j], desc_mn_major(vt, j));
+      wgmma_pv<DP>(o, pa[j], desc_mn_major_dp<DP>(vt, j));
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(o);
@@ -268,6 +266,8 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
   for (int n8 = 0; n8 < NO; ++n8) {
     const int c = n8 * 8 + 2 * t;
+    // the padded head dims are not stored
+    if (kPadded && n8 * 8 >= a.head_dim) break;
     if (r0 < a.lq)
       *reinterpret_cast<uint32_t*>(out + r0 * a.o_sl + c) =
           pack_bf16(o[4 * n8] * inv0, o[4 * n8 + 1] * inv0);
@@ -275,6 +275,20 @@ __global__ void __launch_bounds__(kThreads)
       *reinterpret_cast<uint32_t*>(out + r1 * a.o_sl + c) =
           pack_bf16(o[4 * n8 + 2] * inv1, o[4 * n8 + 3] * inv1);
   }
+}
+
+template <int DP, bool kPadded>
+int launch_bias(const BiasAttnArgs* a, cudaStream_t s) {
+  const int nq = (a->lq + kBlockQ - 1) / kBlockQ;
+  const int nk = (a->lk + kBlockK - 1) / kBlockK;
+  const int smem = bias_smem_bytes<DP>(nk);
+  cudaError_t err = cudaFuncSetAttribute(
+      bias_attention_kernel<DP, kPadded>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  bias_attention_kernel<DP, kPadded>
+      <<<dim3(a->batch * nq, a->heads), kThreads, smem, s>>>(*a);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace vgt
@@ -313,15 +327,19 @@ extern "C" int vgt_bias_tile_map(const vgt::BiasMapArgs* a, void* stream) {
 extern "C" int vgt_bias_attention(const vgt::BiasAttnArgs* a, void* stream) {
   using namespace vgt;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (a->head_dim != kHeadDim) return static_cast<int>(cudaErrorInvalidValue);
-  const int nq = (a->lq + kBlockQ - 1) / kBlockQ;
-  const int nk = (a->lk + kBlockK - 1) / kBlockK;
-  const int smem = bias_smem_bytes(nk);
-  cudaError_t err = cudaFuncSetAttribute(
-      bias_attention_kernel<kHeadDim>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  bias_attention_kernel<kHeadDim>
-      <<<dim3(a->batch * nq, a->heads), kThreads, smem, s>>>(*a);
-  return static_cast<int>(cudaGetLastError());
+  // a head_dim below its padded width takes the instance that zero-fills
+  // the dims past it; the exact widths take their own
+  const int dp = padded_head_dim(a->head_dim);
+  const bool pad = a->head_dim != dp;
+  switch (dp) {
+    case 32: return pad ? launch_bias<32, true>(a, s)
+                        : launch_bias<32, false>(a, s);
+    case 64: return pad ? launch_bias<64, true>(a, s)
+                        : launch_bias<64, false>(a, s);
+    case 96: return pad ? launch_bias<96, true>(a, s)
+                        : launch_bias<96, false>(a, s);
+    case 128: return pad ? launch_bias<128, true>(a, s)
+                         : launch_bias<128, false>(a, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

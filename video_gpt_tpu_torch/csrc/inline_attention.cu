@@ -22,6 +22,13 @@
 // masked scores are -inf and the max subtracted is 0 while a row has seen
 // no visible key, so masked keys weigh exactly 0 on every path.
 //
+// Head widths: a template on the padded head width DP (32, 64, 96 or 128,
+// attention_common.cuh `padded_head_dim`); the head dims from head_dim to
+// DP are zero-filled by cp.async (src-size 0) and never stored, and the
+// scale is head_dim's own. A head_dim equal to its DP runs an instance
+// without those checks (kPadded false), so head_dim 96 runs the code it
+// ran before the widths were added.
+//
 // What bounds it on the card: at stage 4 (B 1, L 35520, 32 heads of 96)
 // 0.261 of the 1.26e9 pairs per head are visible: 4 FLOPs x 96 each over
 // 32 heads is 4.04 TFLOP of visible-pair products against ~0.2 GB of
@@ -39,7 +46,7 @@
 //      K and V through a two-stage ring in shared memory filled by cp.async
 //      one tile ahead of the products (the key metadata beside them, for
 //      partial tiles only). S = Q.K^T and O += P.V are wgmma (m64n64k16
-//      from shared memory; m64n96k16 with P from registers, V MN-major),
+//      from shared memory; m64nDPk16 with P from registers, V MN-major),
 //      fp32 accumulate, online softmax in registers between them. Partial
 //      tiles evaluate the rule per element; full tiles skip it. At stage 4
 //      0.301 of the 64x64 tiles are non-empty (0.211 full).
@@ -47,52 +54,29 @@
 // sum: an empty tile holds only pairs that would add exp2(-inf) = 0.
 #include <math_constants.h>
 
+#include "attention_args.cuh"
 #include "inline_mask.cuh"
 
 namespace vgt {
 
-// Must match _InlineArgs in video_gpt_tpu_torch/ops/flash_attention.py.
-struct InlineAttnArgs {
-  const void* q;      // [B, Lq, H, D] (strided)
-  const void* k;      // keys [B, Lk, Hkv, D] (strided: tokens- or heads-major)
-  const void* v;      // values, same shape as the keys
-  void* out;          // [B, Lq, H, D]
-  float* lse;         // [B, H, Lq] contiguous, or null: each row's
-                      // logsumexp (natural log), which K7 reads
-  const int* qm[4];   // index, q_block, q_offset, is_pad [B, Lq]
-  const int* km[3];   // vis_start, noisy_block, noisy_role [B, Lk]
-  long long qm_sb[4], km_sb[3];
-  long long q_sb, q_sl, q_sh;
-  long long k_sb, k_sl, k_sh;
-  long long v_sb, v_sl, v_sh;
-  long long o_sb, o_sl, o_sh;
-  int batch, heads, kv_heads, lq, lk, head_dim;
-  float scale_log2;   // head_dim^-0.5 * log2(e)
-  int8_t* tile_map;   // [B, ceil(Lq/64), ceil(Lk/64)] tile classes (written)
-  int* scratch;       // B (nq + nk) 8 + 2 B nq ints (written): the query-
-                      // and key-tile summaries, each query tile's count of
-                      // non-empty key tiles, the launch order
-  int map_only;       // 1: build the tile map and stop
-};
-
 constexpr int kStages = 2;  // K/V ring depth
 
+template <int DP>
 __host__ __device__ constexpr int inline_smem_bytes(int nk) {
   // Q, the K and V ring (core-matrix tiles), the ring's key metadata, the
   // block's list of non-empty key tiles
-  return (kBlockQ + 2 * kStages * kBlockK) * kHeadDim * 2 +
+  return (kBlockQ + 2 * kStages * kBlockK) * DP * 2 +
          kStages * 3 * kBlockK * 4 + nk * 4;
 }
 
-template <int D>
+template <int DP, bool kPadded>
 __global__ void __launch_bounds__(kThreads)
     inline_attention_kernel(const InlineAttnArgs a, const int* order) {
-  static_assert(D == kHeadDim, "tiles are laid out for kHeadDim");
-  constexpr int NO = D / 8;
-  constexpr int kTile = kBlockK * D;
+  constexpr int NO = DP / 8;
+  constexpr int kTile = kBlockK * DP;
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* qs = reinterpret_cast<bf16*>(smem);
-  bf16* ks = qs + kBlockQ * D;            // [kStages][kTile]
+  bf16* ks = qs + kBlockQ * DP;           // [kStages][kTile]
   bf16* vs = ks + kStages * kTile;        // [kStages][kTile]
   int* kmeta = reinterpret_cast<int*>(vs + kStages * kTile);  // [st][3][64]
   int* list = kmeta + kStages * 3 * kBlockK;
@@ -106,9 +90,9 @@ __global__ void __launch_bounds__(kThreads)
   const int warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
 
-  async_copy_tile<kBlockQ, kThreads>(
+  async_copy_tile_dp<kBlockQ, kThreads, DP, kPadded>(
       qs, static_cast<const bf16*>(a.q) + b * a.q_sb + h * a.q_sh +
-              q0 * a.q_sl, a.q_sl, min(kBlockQ, a.lq - q0), tid);
+              q0 * a.q_sl, a.q_sl, min(kBlockQ, a.lq - q0), a.head_dim, tid);
   async_commit();
   const int n = gather_tiles(
       a.tile_map + (static_cast<long long>(b) * nq + q0 / kBlockQ) * nk, 1,
@@ -120,10 +104,10 @@ __global__ void __launch_bounds__(kThreads)
   auto prefetch = [&](int i) {
     const int e = list[i], k0 = (e >> 2) * kBlockK, st = i % kStages;
     const int valid = min(kBlockK, a.lk - k0);
-    async_copy_tile<kBlockK, kThreads>(ks + st * kTile, kp + k0 * a.k_sl,
-                                     a.k_sl, valid, tid);
-    async_copy_tile<kBlockK, kThreads>(vs + st * kTile, vp + k0 * a.v_sl,
-                                     a.v_sl, valid, tid);
+    async_copy_tile_dp<kBlockK, kThreads, DP, kPadded>(
+        ks + st * kTile, kp + k0 * a.k_sl, a.k_sl, valid, a.head_dim, tid);
+    async_copy_tile_dp<kBlockK, kThreads, DP, kPadded>(
+        vs + st * kTile, vp + k0 * a.v_sl, a.v_sl, valid, a.head_dim, tid);
     if ((e & 3) == kTilePartial) {
       for (int c = tid; c < 3 * kBlockK; c += kThreads) {
         const int m = c / kBlockK, j = c % kBlockK;
@@ -163,8 +147,9 @@ __global__ void __launch_bounds__(kThreads)
     for (int j = 0; j < 32; ++j) s[j] = 0.f;
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
-      wgmma_64x64_ss(s, desc_k_major(qs, kk), desc_k_major(kt, kk), 1);
+    for (int kk = 0; kk < DP / 16; ++kk)
+      wgmma_64x64_ss(s, desc_k_major_dp<DP>(qs, kk), desc_k_major_dp<DP>(kt, kk),
+                     1);
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(s);
@@ -226,7 +211,7 @@ __global__ void __launch_bounds__(kThreads)
     wgmma_fence();
 #pragma unroll
     for (int j = 0; j < kBlockK / 16; ++j)
-      wgmma_64x96_rs(o, pa[j], desc_mn_major(vt, j));
+      wgmma_pv<DP>(o, pa[j], desc_mn_major_dp<DP>(vt, j));
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(o);
@@ -249,6 +234,8 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
   for (int n8 = 0; n8 < NO; ++n8) {
     const int c = n8 * 8 + 2 * t;
+    // the padded head dims are not stored
+    if (kPadded && n8 * 8 >= a.head_dim) break;
     if (r0 < a.lq)
       *reinterpret_cast<uint32_t*>(out + r0 * a.o_sl + c) =
           pack_bf16(o[4 * n8] * inv0, o[4 * n8 + 1] * inv0);
@@ -256,6 +243,21 @@ __global__ void __launch_bounds__(kThreads)
       *reinterpret_cast<uint32_t*>(out + r1 * a.o_sl + c) =
           pack_bf16(o[4 * n8 + 2] * inv1, o[4 * n8 + 3] * inv1);
   }
+}
+
+template <int DP, bool kPadded>
+int launch_inline(const InlineAttnArgs* a, const int* order,
+                  cudaStream_t s) {
+  const int nq = (a->lq + kBlockQ - 1) / kBlockQ;
+  const int nk = (a->lk + kBlockK - 1) / kBlockK;
+  const int smem = inline_smem_bytes<DP>(nk);
+  cudaError_t err = cudaFuncSetAttribute(
+      inline_attention_kernel<DP, kPadded>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  inline_attention_kernel<DP, kPadded>
+      <<<dim3(a->batch * nq, a->heads), kThreads, smem, s>>>(*a, order);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace vgt
@@ -267,42 +269,22 @@ extern "C" int vgt_inline_attention(const vgt::InlineAttnArgs* a,
                                     void* stream) {
   using namespace vgt;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (a->head_dim != kHeadDim) return static_cast<int>(cudaErrorInvalidValue);
-  const int nq = (a->lq + kBlockQ - 1) / kBlockQ;
-  const int nk = (a->lk + kBlockK - 1) / kBlockK;
-  QuerySummary* qsum = reinterpret_cast<QuerySummary*>(a->scratch);
-  KeySummary* ksum =
-      reinterpret_cast<KeySummary*>(qsum + static_cast<long long>(a->batch) * nq);
-  int* counts = reinterpret_cast<int*>(ksum + static_cast<long long>(a->batch) * nk);
-  int* order = counts + static_cast<long long>(a->batch) * nq;
-
-  const long long tiles = static_cast<long long>(a->batch) * (nq + nk);
-  tile_summary_kernel<kBlockQ, kBlockK, InlineAttnArgs>
-      <<<static_cast<unsigned>((tiles + kSummaryWarps - 1) / kSummaryWarps),
-         32 * kSummaryWarps, 0, s>>>(*a, qsum, ksum);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  meta_tile_map_kernel<kBlockQ, kBlockK>
-      <<<dim3(nq, a->batch), kMapThreads, 0, s>>>(qsum, ksum, a->lq, a->lk,
-                                                  a->tile_map, counts, nullptr);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int order_smem = (nk + 1) * static_cast<int>(sizeof(int));
-  err = cudaFuncSetAttribute(tile_order_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             order_smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  tile_order_kernel<<<1, kOrderThreads, order_smem, s>>>(
-      counts, a->batch * nq, nk, order);
-  err = cudaGetLastError();
-  if (err != cudaSuccess || a->map_only) return static_cast<int>(err);
-
-  const int smem = inline_smem_bytes(nk);
-  err = cudaFuncSetAttribute(inline_attention_kernel<kHeadDim>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  inline_attention_kernel<kHeadDim>
-      <<<dim3(a->batch * nq, a->heads), kThreads, smem, s>>>(*a, order);
-  return static_cast<int>(cudaGetLastError());
+  const int dp = padded_head_dim(a->head_dim);
+  if (dp == 0) return static_cast<int>(cudaErrorInvalidValue);
+  const int* order = nullptr;
+  const int err = launch_inline_tile_map(*a, s, &order);
+  if (err != 0 || a->map_only) return err;
+  // a head_dim below its padded width takes the instance that zero-fills
+  // the dims past it; the exact widths take their own
+  const bool pad = a->head_dim != dp;
+  switch (dp) {
+    case 32: return pad ? launch_inline<32, true>(a, order, s)
+                        : launch_inline<32, false>(a, order, s);
+    case 64: return pad ? launch_inline<64, true>(a, order, s)
+                        : launch_inline<64, false>(a, order, s);
+    case 96: return pad ? launch_inline<96, true>(a, order, s)
+                        : launch_inline<96, false>(a, order, s);
+    default: return pad ? launch_inline<128, true>(a, order, s)
+                        : launch_inline<128, false>(a, order, s);
+  }
 }

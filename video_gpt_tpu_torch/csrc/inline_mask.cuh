@@ -73,4 +73,45 @@ __device__ __forceinline__ void load_key_meta(KeyMeta* dst,
     dst[i] = key_meta(m, sb, b, start + i, lk);
 }
 
+// The tile map of the metadata rule at the forward kernels' tiles (K6 and
+// the fp32 kernel's inline mask), launched on `s`: the per-tile summaries
+// (one O(L) pass), every (query tile, key tile) class into a.tile_map with
+// each query tile's count of non-empty key tiles, then the query tiles
+// ordered by that count, most first, into *order (in a.scratch: B (nq + nk)
+// summaries of 8 ints, B nq counts, B nq order). Returns the first nonzero
+// cudaGetLastError() (0 = all launched).
+template <class Args>
+inline int launch_inline_tile_map(const Args& a, cudaStream_t s,
+                                  const int** order) {
+  const int nq = (a.lq + kBlockQ - 1) / kBlockQ;
+  const int nk = (a.lk + kBlockK - 1) / kBlockK;
+  QuerySummary* qsum = reinterpret_cast<QuerySummary*>(a.scratch);
+  KeySummary* ksum = reinterpret_cast<KeySummary*>(
+      qsum + static_cast<long long>(a.batch) * nq);
+  int* counts =
+      reinterpret_cast<int*>(ksum + static_cast<long long>(a.batch) * nk);
+  int* ord = counts + static_cast<long long>(a.batch) * nq;
+  *order = ord;
+
+  const long long tiles = static_cast<long long>(a.batch) * (nq + nk);
+  tile_summary_kernel<kBlockQ, kBlockK, Args>
+      <<<static_cast<unsigned>((tiles + kSummaryWarps - 1) / kSummaryWarps),
+         32 * kSummaryWarps, 0, s>>>(a, qsum, ksum);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  meta_tile_map_kernel<kBlockQ, kBlockK>
+      <<<dim3(nq, a.batch), kMapThreads, 0, s>>>(qsum, ksum, a.lq, a.lk,
+                                                 a.tile_map, counts, nullptr);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int order_smem = (nk + 1) * static_cast<int>(sizeof(int));
+  err = cudaFuncSetAttribute(tile_order_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             order_smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  tile_order_kernel<<<1, kOrderThreads, order_smem, s>>>(
+      counts, a.batch * nq, nk, ord);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace vgt

@@ -28,7 +28,16 @@
 // tensor FLOPs at head_dim 96) and the L2 traffic of re-reading a head's
 // K/V for every block of query rows.
 //
-// Design. One block owns 192 query rows of one head (grid: query blocks
+// Head widths. The kernel is a template on the padded head width DP (32,
+// 64, 96 or 128, attention_common.cuh `padded_head_dim`): a tile is DP / 32
+// swizzle atoms, and the tensor maps' inner dimension is the true head_dim,
+// so TMA fills the head dims past it with zeros (they add 0 to every
+// product; the output's are never stored). The scale is head_dim's own. At
+// DP 128 a consumer's Q fragments and output take 96 registers, so the block
+// has two consumers (128 rows) with more registers each instead of three.
+//
+// Design (head_dim 96). One block owns 192 query rows of one head (grid:
+// query blocks
 // fastest, so the blocks that run together share their head's K/V in L2)
 // and is four warpgroups: a producer (its registers lowered with
 // setmaxnreg) and three consumers of 64 rows each, so that each K/V tile in
@@ -40,7 +49,7 @@
 // swizzle, the ranks and the classes beside them, each stage guarded by
 // full/empty mbarriers. A consumer holds
 // its Q rows in registers and runs S = Q.K^T (wgmma m64n64k16, Q from
-// registers, K from shared memory) and O += P.V (m64n96k16, P from
+// registers, K from shared memory) and O += P.V (m64nDPk16, P from
 // registers, V MN-major) on every tile of the ring, by its class: all
 // visible, no compare; some, compare per element; none (a tile that only
 // another consumer sees), P = 0. The products overlap
@@ -52,47 +61,34 @@
 
 #include <cstring>
 
+#include "attention_args.cuh"
 #include "tile_map.cuh"
 
 namespace vgt {
 
-// Must match _RankArgs in video_gpt_tpu_torch/ops/flash_attention.py.
-struct RankAttnArgs {
-  const void* q;         // [B, Lq, H, D] (strided)
-  const void* k[2];      // operand o: keys [B, L, Hkv, D] (strided)
-  const void* v[2];      // values, same shape as the keys
-  const int* rank[2];    // [B, len[o]] per-key rank (row stride rank_sb[o])
-  const int* qoff;       // [B, Lq] per-query offset
-  void* out;             // [B, Lq, H, D]
-  long long q_sb, q_sl, q_sh;
-  long long k_sb[2], k_sl[2], k_sh[2];
-  long long v_sb[2], v_sl[2], v_sh[2];
-  long long rank_sb[2];
-  long long qoff_sb;
-  long long o_sb, o_sl, o_sh;
-  int len[2];
-  int batch, heads, kv_heads, lq, head_dim;
-  float kscale;          // head_dim^-0.5 * log2(e)
-};
-
-constexpr int kRankConsumers = 3;                   // warpgroups of 64 rows
-constexpr int kRankRows = kRankTile * kRankConsumers;
-constexpr int kRankThreads = 128 * (1 + kRankConsumers);
 constexpr int kRankStages = 3;
 // registers a thread (setmaxnreg): the producer few, the consumers the
 // rest of the SM's 64K
-constexpr int kProducerRegs = 40, kConsumerRegs = 152;
-static_assert(128 * (kProducerRegs + kRankConsumers * kConsumerRegs) <=
-                  65536,
-              "the block's registers exceed the SM's");
-constexpr int kRankTileBytes = kRankTile * kHeadDim * 2;   // K or V
-// one stage: K, V (64-byte swizzle), 64 ranks, the meta words (done flag,
-// one class per consumer), padded to keep every stage 1024-byte aligned
-constexpr int kRanksOff = 2 * kRankTileBytes;
-constexpr int kMetaOff = kRanksOff + kRankTile * 4;
-constexpr int kStageBytes = (kMetaOff + 16 + 1023) / 1024 * 1024;
-constexpr int kRankSmem = kRankStages * kStageBytes +
-                          2 * kRankStages * 8 + 1024;  // + barriers, align
+constexpr int kProducerRegs = 40;
+
+// The shape of a block at padded head width DP.
+template <int DP>
+struct RankCfg {
+  static constexpr int kConsumers = DP > 96 ? 2 : 3;  // warpgroups of 64 rows
+  static constexpr int kRows = kRankTile * kConsumers;
+  static constexpr int kThreads = 128 * (1 + kConsumers);
+  static constexpr int kConsumerRegs = kConsumers == 3 ? 152 : 232;
+  static_assert(128 * (kProducerRegs + kConsumers * kConsumerRegs) <= 65536,
+                "the block's registers exceed the SM's");
+  static constexpr int kTileBytes = kRankTile * DP * 2;   // K or V
+  // one stage: K, V (64-byte swizzle), 64 ranks, the meta words (done flag,
+  // one class per consumer), padded to keep every stage 1024-byte aligned
+  static constexpr int kRanksOff = 2 * kTileBytes;
+  static constexpr int kMetaOff = kRanksOff + kRankTile * 4;
+  static constexpr int kStageBytes = (kMetaOff + 16 + 1023) / 1024 * 1024;
+  static constexpr int kSmem = kRankStages * kStageBytes +
+                               2 * kRankStages * 8 + 1024;  // + barriers, align
+};
 
 // The tensor maps of the key operands, [operand][K, V].
 struct alignas(64) RankMaps {
@@ -107,18 +103,21 @@ __device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
 // The producer warpgroup: classify every key tile for every consumer and
 // fill the ring with the tiles that one of them sees; then a stage with the
 // done flag. Only warp 0 works.
+template <int DP>
 __device__ __forceinline__ void rank_producer(const RankAttnArgs& a,
                                               const RankMaps& maps,
                                               unsigned char* smem,
                                               uint64_t* full, uint64_t* empty,
                                               int b, int h, int q0) {
+  using C = RankCfg<DP>;
+  constexpr int NC = C::kConsumers;
   const int lane = threadIdx.x & 31;
   if (threadIdx.x >= 32) return;
   const int hk = h / (a.heads / a.kv_heads);
   const int* qo = a.qoff + b * a.qoff_sb;
-  RankQueryRange qr[kRankConsumers];
+  RankQueryRange qr[NC];
 #pragma unroll
-  for (int w = 0; w < kRankConsumers; ++w)
+  for (int w = 0; w < NC; ++w)
     qr[w] = rank_query_range(qo, q0 + w * kRankTile, a.lq, lane);
 
   int stage = 0;
@@ -127,7 +126,7 @@ __device__ __forceinline__ void rank_producer(const RankAttnArgs& a,
   auto acquire = [&]() -> unsigned char* {
     if (lane == 0) mbar_wait(&empty[stage], phase ^ 1);
     __syncwarp();
-    return smem + stage * kStageBytes;
+    return smem + stage * C::kStageBytes;
   };
   auto advance = [&]() {
     if (++stage == kRankStages) {
@@ -156,32 +155,32 @@ __device__ __forceinline__ void rank_producer(const RankAttnArgs& a,
     int nop = op, nk0 = k0, na = kNever, nb = kNever;
     next(nop, nk0);
     ranks_of(nop, nk0, na, nb);  // the next tile's ranks, in flight
-    int8_t cls[kRankConsumers];
+    int8_t cls[NC];
     bool any = false;
 #pragma unroll
-    for (int w = 0; w < kRankConsumers; ++w) {
+    for (int w = 0; w < NC; ++w) {
       cls[w] = rank_tile_class(qr[w], ra, rb);
       any = any || cls[w] != kTileEmpty;
     }
     if (any) {
       unsigned char* st = acquire();
-      int* rk = reinterpret_cast<int*>(st + kRanksOff);
+      int* rk = reinterpret_cast<int*>(st + C::kRanksOff);
       rk[lane] = ra;
       rk[lane + 32] = rb;
       if (lane == 0) {
-        int* meta = reinterpret_cast<int*>(st + kMetaOff);
+        int* meta = reinterpret_cast<int*>(st + C::kMetaOff);
         meta[0] = 0;
 #pragma unroll
-        for (int w = 0; w < kRankConsumers; ++w) meta[1 + w] = cls[w];
+        for (int w = 0; w < NC; ++w) meta[1 + w] = cls[w];
       }
       __syncwarp();
       if (lane == 0) {
-        mbar_arrive_tx(&full[stage], 2 * kRankTileBytes);
+        mbar_arrive_tx(&full[stage], 2 * C::kTileBytes);
 #pragma unroll
-        for (int at = 0; at < kHeadDim / 32; ++at) {
+        for (int at = 0; at < DP / 32; ++at) {
           tma_load_4d(st + at * kSw64Atom, &maps.kv[op][0], &full[stage],
                       32 * at, k0, hk, b);
-          tma_load_4d(st + kRankTileBytes + at * kSw64Atom, &maps.kv[op][1],
+          tma_load_4d(st + C::kTileBytes + at * kSw64Atom, &maps.kv[op][1],
                       &full[stage], 32 * at, k0, hk, b);
         }
       }
@@ -194,7 +193,7 @@ __device__ __forceinline__ void rank_producer(const RankAttnArgs& a,
   }
   unsigned char* st = acquire();
   if (lane == 0) {
-    reinterpret_cast<int*>(st + kMetaOff)[0] = 1;
+    reinterpret_cast<int*>(st + C::kMetaOff)[0] = 1;
     mbar_arrive(&full[stage]);
   }
 }
@@ -224,32 +223,34 @@ __device__ __forceinline__ void rank_probs(float (&s)[32], const int* rk,
   }
 }
 
-// A consumer warpgroup (wg 0 .. kRankConsumers - 1: rows q0 + 64 wg ..):
-// drain the ring.
+// A consumer warpgroup (wg 0 .. kConsumers - 1: rows q0 + 64 wg ..): drain
+// the ring.
+template <int DP>
 __device__ __forceinline__ void rank_consumer(const RankAttnArgs& a,
                                               unsigned char* smem,
                                               uint64_t* full, uint64_t* empty,
                                               int b, int h, int q0, int wg) {
-  constexpr int NO = kHeadDim / 8;
-  constexpr int KS = kHeadDim / 16;
+  using C = RankCfg<DP>;
+  constexpr int NO = DP / 8;
+  constexpr int KS = DP / 16;
   constexpr int NP = kRankTile / 16;
   const int tid = threadIdx.x & 127, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
   const int r0 = q0 + wg * kRankTile + warp * 16 + g, r1 = r0 + 8;
 
   // this thread's Q fragments (the mma.m16n8k16 A layout of the warp's 16
-  // rows), zero past Lq, and the two rows' offsets
+  // rows), zero past Lq and past head_dim, and the two rows' offsets
   const bf16* qp = static_cast<const bf16*>(a.q) + b * a.q_sb + h * a.q_sh;
   uint32_t qa[KS][4];
 #pragma unroll
   for (int kk = 0; kk < KS; ++kk) {
-    const int c = kk * 16 + 2 * t;
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int r = (e & 1) ? r1 : r0;
-      qa[kk][e] = r < a.lq ? *reinterpret_cast<const uint32_t*>(
-                                 qp + r * a.q_sl + c + (e >> 1) * 8)
-                           : 0u;
+      const int c = kk * 16 + 2 * t + (e >> 1) * 8;
+      qa[kk][e] = r < a.lq && c < a.head_dim
+                      ? *reinterpret_cast<const uint32_t*>(qp + r * a.q_sl + c)
+                      : 0u;
     }
   }
   const int* qo = a.qoff + b * a.qoff_sb;
@@ -276,17 +277,16 @@ __device__ __forceinline__ void rank_consumer(const RankAttnArgs& a,
     if (lane == 0) mbar_arrive(&empty[s]);
   };
   auto issue_pv = [&](int s) {
-    const bf16* vt =
-        reinterpret_cast<const bf16*>(smem + s * kStageBytes + kRankTileBytes);
+    const bf16* vt = reinterpret_cast<const bf16*>(
+        smem + s * C::kStageBytes + C::kTileBytes);
 #pragma unroll
-    for (int j = 0; j < NP; ++j)
-      wgmma_64x96_rs(o, pa[j], desc_sw64_mn(vt, j));
+    for (int j = 0; j < NP; ++j) wgmma_pv<DP>(o, pa[j], desc_sw64_mn(vt, j));
     wgmma_commit();
   };
   for (;;) {
     mbar_wait(&full[stage], phase);
-    const unsigned char* st = smem + stage * kStageBytes;
-    const int* meta = reinterpret_cast<const int*>(st + kMetaOff);
+    const unsigned char* st = smem + stage * C::kStageBytes;
+    const int* meta = reinterpret_cast<const int*>(st + C::kMetaOff);
     // the same words in every thread: broadcast, so that the compiler sees
     // the branches as uniform
     if (__shfl_sync(0xffffffffu, meta[0], 0)) break;
@@ -312,7 +312,7 @@ __device__ __forceinline__ void rank_consumer(const RankAttnArgs& a,
     issue_pv(held >= 0 ? held : stage);
     wgmma_wait<1>();  // S has landed; the previous tile's P.V runs on
     fence_regs(s);
-    const int* rk = reinterpret_cast<const int*>(st + kRanksOff);
+    const int* rk = reinterpret_cast<const int*>(st + C::kRanksOff);
     if (cls == kTileFull) {
       rank_probs<false>(s, rk, qo0, qo1, a.kscale, t, l0, l1);
     } else {
@@ -350,6 +350,7 @@ __device__ __forceinline__ void rank_consumer(const RankAttnArgs& a,
 #pragma unroll
   for (int n = 0; n < NO; ++n) {
     const int c = n * 8 + 2 * t;
+    if (n * 8 >= a.head_dim) break;  // the padded head dims are not stored
     if (r0 < a.lq)
       *reinterpret_cast<uint32_t*>(out + r0 * a.o_sl + c) =
           pack_bf16(o[4 * n] * inv0, o[4 * n + 1] * inv0);
@@ -359,25 +360,27 @@ __device__ __forceinline__ void rank_consumer(const RankAttnArgs& a,
   }
 }
 
-__global__ void __launch_bounds__(kRankThreads, 1)
+template <int DP>
+__global__ void __launch_bounds__(RankCfg<DP>::kThreads, 1)
     rank_attention_kernel(const __grid_constant__ RankAttnArgs a,
                           const __grid_constant__ RankMaps maps) {
+  using C = RankCfg<DP>;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = align1024(smem_raw);
   uint64_t* full =
-      reinterpret_cast<uint64_t*>(smem + kRankStages * kStageBytes);
+      reinterpret_cast<uint64_t*>(smem + kRankStages * C::kStageBytes);
   uint64_t* empty = full + kRankStages;
-  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * kRankRows;
+  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * C::kRows;
   // stage 0's V, read with P = 0 by a consumer that sees no tile: finite
-  for (int i = threadIdx.x; i < kRankTileBytes / 16; i += kRankThreads)
-    reinterpret_cast<uint4*>(smem + kRankTileBytes)[i] =
+  for (int i = threadIdx.x; i < C::kTileBytes / 16; i += C::kThreads)
+    reinterpret_cast<uint4*>(smem + C::kTileBytes)[i] =
         make_uint4(0u, 0u, 0u, 0u);
   fence_async_shared();
   if (threadIdx.x == 0) {
     for (int s = 0; s < kRankStages; ++s) {
       // the producer's one arrival (+ the bytes of its TMA boxes)
       mbar_init(&full[s], 1);
-      mbar_init(&empty[s], 4 * kRankConsumers);
+      mbar_init(&empty[s], 4 * C::kConsumers);
     }
     fence_mbar_init();
   }
@@ -386,10 +389,10 @@ __global__ void __launch_bounds__(kRankThreads, 1)
   const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
   if (wg == 0) {
     setmaxnreg_dec<kProducerRegs>();
-    rank_producer(a, maps, smem, full, empty, b, h, q0);
+    rank_producer<DP>(a, maps, smem, full, empty, b, h, q0);
   } else {
-    setmaxnreg_inc<kConsumerRegs>();
-    rank_consumer(a, smem, full, empty, b, h, q0, wg - 1);
+    setmaxnreg_inc<C::kConsumerRegs>();
+    rank_consumer<DP>(a, smem, full, empty, b, h, q0, wg - 1);
   }
 }
 
@@ -419,15 +422,15 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// The map of a [B, Hkv, L, D] bf16 operand at `base` (element strides sb,
-// sh, sl): boxes of 32 head dims x 64 rows, 64-byte swizzle, rows past L
-// read as 0.
+// The map of a [B, Hkv, L, head_dim] bf16 operand at `base` (element
+// strides sb, sh, sl): boxes of 32 head dims x 64 rows, 64-byte swizzle,
+// rows past L and head dims past head_dim read as 0.
 inline CUresult encode_operand(CUtensorMap* m, const void* base, int batch,
-                               int kv_heads, int len, long long sb,
-                               long long sh, long long sl) {
+                               int kv_heads, int len, int head_dim,
+                               long long sb, long long sh, long long sl) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return CUDA_ERROR_NOT_FOUND;
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(kHeadDim),
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(head_dim),
                               static_cast<cuuint64_t>(len),
                               static_cast<cuuint64_t>(kv_heads),
                               static_cast<cuuint64_t>(batch)};
@@ -443,6 +446,19 @@ inline CUresult encode_operand(CUtensorMap* m, const void* base, int batch,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
 
+template <int DP>
+int launch_rank(const RankAttnArgs* a, const RankMaps& maps,
+                cudaStream_t s) {
+  using C = RankCfg<DP>;
+  cudaError_t err = cudaFuncSetAttribute(
+      rank_attention_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      C::kSmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((a->lq + C::kRows - 1) / C::kRows, a->heads, a->batch);
+  rank_attention_kernel<DP><<<grid, C::kThreads, C::kSmem, s>>>(*a, maps);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace vgt
 
 // Launches the attention on `stream`. Returns cudaGetLastError() (0 =
@@ -450,7 +466,8 @@ inline CUresult encode_operand(CUtensorMap* m, const void* base, int batch,
 extern "C" int vgt_rank_attention(const vgt::RankAttnArgs* a, void* stream) {
   using namespace vgt;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (a->head_dim != kHeadDim) return static_cast<int>(cudaErrorInvalidValue);
+  const int dp = padded_head_dim(a->head_dim);
+  if (dp == 0) return static_cast<int>(cudaErrorInvalidValue);
   RankMaps maps;
   memset(&maps, 0, sizeof(maps));
   for (int op = 0; op < 2; ++op) {
@@ -458,19 +475,28 @@ extern "C" int vgt_rank_attention(const vgt::RankAttnArgs* a, void* stream) {
     for (int kv = 0; kv < 2; ++kv) {
       const CUresult r = encode_operand(
           &maps.kv[op][kv], kv ? a->v[op] : a->k[op], a->batch, a->kv_heads,
-          a->len[op], kv ? a->v_sb[op] : a->k_sb[op],
+          a->len[op], a->head_dim, kv ? a->v_sb[op] : a->k_sb[op],
           kv ? a->v_sh[op] : a->k_sh[op], kv ? a->v_sl[op] : a->k_sl[op]);
       if (r != CUDA_SUCCESS) return 100000 + static_cast<int>(r);
     }
   }
-  cudaError_t err = cudaFuncSetAttribute(
-      rank_attention_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      kRankSmem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((a->lq + kRankRows - 1) / kRankRows, a->heads, a->batch);
-  rank_attention_kernel<<<grid, kRankThreads, kRankSmem, s>>>(*a, maps);
-  return static_cast<int>(cudaGetLastError());
+  switch (dp) {
+    case 32: return launch_rank<32>(a, maps, s);
+    case 64: return launch_rank<64>(a, maps, s);
+    case 96: return launch_rank<96>(a, maps, s);
+    default: return launch_rank<128>(a, maps, s);
+  }
 }
 
-// The dynamic shared memory of an attention block, in bytes.
-extern "C" int vgt_rank_attention_smem() { return vgt::kRankSmem; }
+// The dynamic shared memory of an attention block at `head_dim`, in bytes
+// (0: a head_dim the kernel does not take).
+extern "C" int vgt_rank_attention_smem(int head_dim) {
+  using namespace vgt;
+  switch (padded_head_dim(head_dim)) {
+    case 32: return RankCfg<32>::kSmem;
+    case 64: return RankCfg<64>::kSmem;
+    case 96: return RankCfg<96>::kSmem;
+    case 128: return RankCfg<128>::kSmem;
+    default: return 0;
+  }
+}

@@ -23,6 +23,17 @@ Port of every Pallas kernel of ``video_gpt_tpu/ops/flash_attention.py``
 - K7 :func:`flash_mha_inline_bwd` (TPU ``_stream_dq_kernel`` and
   ``_stream_dkv_kernel``): the backward of K6.
 
+The forward kernels come in two dtypes. bf16 operands run the tensor-core
+kernels named below; fp32 operands run ``csrc/fp32_attention.cu``, one
+hand-written fp32 kernel (CUDA-core FFMA, no TF32) templated on the three
+masks (columnar rank, bias and its map, inline metadata and its map).
+:func:`forward_kernel` chooses, from the operands' dtype and head width:
+both kinds take any head_dim <= 128 that is a multiple of 8, laid out at
+the least of 32, 64, 96, 128 that holds it, the head dims past head_dim
+zero-filled on load. Each wrapper counts its bf16 launches in
+``launches`` and its fp32 launches in ``fp32_launches``. The backward
+kernels (K7, K9) take bf16 at head_dim 96 only.
+
 K1 and K2 are one CUDA kernel (``csrc/rank_attention.cu``), which
 classifies each key tile from its ranks as it loads them and never loads a
 tile that no query of its block sees (plain classes:
@@ -65,8 +76,14 @@ from .attention import AttnMeta
 BF16_NEG = float(torch.finfo(torch.bfloat16).min) * 0.5
 LOG2E = 1.4426950408889634
 NEVER = 2 ** 30
-# the head width the CUDA kernels are built for (kHeadDim in csrc)
+# the head width of the backward CUDA kernels, K7 and K9 (kHeadDim in csrc)
 KERNEL_HEAD_DIM = 96
+# the head widths the forward CUDA kernels are laid out at (padded_head_dim
+# in csrc/attention_common.cuh): a head_dim runs at the least that holds it
+KERNEL_HEAD_DIMS = (32, 64, 96, 128)
+# the forward kernels by operand dtype: the tensor-core kernels of each mask
+# (bf16), csrc/fp32_attention.cu (fp32)
+KERNEL_DTYPES = {torch.bfloat16: "bf16", torch.float32: "fp32"}
 # the TPU kernels' VMEM cap on a key row; past it the TPU runs its k-tiled
 # K4, K5 and K10, whose function K1, K2 and K3 compute here. Those three
 # wrappers count such launches apart, in ``long_launches``
@@ -561,16 +578,78 @@ def _check_operand(name: str, x: torch.Tensor, device: torch.device,
         raise ValueError(f"{name} needs a contiguous last dim")
 
 
-def _check_q(q: torch.Tensor, kv_heads: int) -> None:
+class KernelChoice(NamedTuple):
+    """The forward kernel that a call's operands select."""
+
+    kernel: str           # "bf16" (tensor cores) or "fp32" (fp32_attention.cu)
+    padded_head_dim: int  # the instance's head width, one of KERNEL_HEAD_DIMS
+
+
+def forward_kernel(dtypes: Sequence[torch.dtype], head_dim: int, heads: int,
+                   kv_heads: int) -> KernelChoice:
+    """The forward CUDA kernel for operands of ``dtypes`` (q's, then every
+    key and value operand's) at ``head_dim``, ``heads`` query and
+    ``kv_heads`` key/value heads: bf16 operands run the tensor-core kernel
+    of their mask, fp32 operands ``csrc/fp32_attention.cu``, each at the
+    least of ``KERNEL_HEAD_DIMS`` that holds ``head_dim``. Raises on mixed
+    dtypes, another dtype, a head_dim above 128 or not a multiple of 8 (the
+    kernels load 16-byte rows), and heads that are not a multiple of the kv
+    heads: what the Pallas kernels' ``flash_attention_supported`` refuses,
+    and the rows the CUDA kernels cannot load."""
+    kinds = sorted({str(t) for t in dtypes})
+    if len(kinds) != 1:
+        raise TypeError(f"the CUDA attention kernels take q, k and v of one "
+                        f"dtype, got {', '.join(kinds)}")
+    dtype = dtypes[0]
+    if dtype not in KERNEL_DTYPES:
+        raise TypeError(f"the CUDA attention kernels take bf16 or fp32, got "
+                        f"{dtype}")
+    if not 0 < head_dim <= KERNEL_HEAD_DIMS[-1]:
+        raise ValueError(f"the CUDA attention kernels take head_dim <= "
+                         f"{KERNEL_HEAD_DIMS[-1]}, got {head_dim}")
+    if head_dim % 8:
+        raise ValueError(f"the CUDA attention kernels take a head_dim that "
+                         f"is a multiple of 8 (16-byte rows), got {head_dim}")
+    if heads % kv_heads:
+        raise ValueError(f"{heads} heads not a multiple of {kv_heads} kv "
+                         f"heads")
+    dp = next(w for w in KERNEL_HEAD_DIMS if w >= head_dim)
+    return KernelChoice(KERNEL_DTYPES[dtype], dp)
+
+
+def _check_q(q: torch.Tensor, kv_heads: int, *operands) -> KernelChoice:
+    """The forward kernel of q and the key/value ``operands``; raises on
+    what it does not take."""
+    h, d = q.shape[2:]
+    choice = forward_kernel([q.dtype] + [x.dtype for x in operands], d, h,
+                            kv_heads)
+    _check_operand("q", q, q.device, q.dtype, row_vectors=True)
+    return choice
+
+
+def _check_q_bwd(q: torch.Tensor, kv_heads: int) -> None:
+    """Raise on what the backward kernels (K7, K9) do not take: they are
+    bf16 at head_dim 96 only."""
     if q.dtype != torch.bfloat16:
-        raise TypeError(f"the CUDA attention kernels take bf16, got {q.dtype}")
+        raise TypeError(f"the CUDA backward kernels (K7, K9) take bf16, got "
+                        f"{q.dtype}")
     h, d = q.shape[2:]
     if d != KERNEL_HEAD_DIM:
-        raise ValueError(f"the CUDA attention kernels take head_dim "
+        raise ValueError(f"the CUDA backward kernels (K7, K9) take head_dim "
                          f"{KERNEL_HEAD_DIM}, got {d}")
     if h % kv_heads:
         raise ValueError(f"{h} heads not a multiple of {kv_heads} kv heads")
     _check_operand("q", q, q.device, torch.bfloat16, row_vectors=True)
+
+
+# the C entry point of each forward kernel: (library, function)
+_ENTRY = {("rank", "bf16"): ("rank_attention", "vgt_rank_attention"),
+          ("rank", "fp32"): ("fp32_attention", "vgt_fp32_rank_attention"),
+          ("bias", "bf16"): ("bias_attention", "vgt_bias_attention"),
+          ("bias", "fp32"): ("fp32_attention", "vgt_fp32_bias_attention"),
+          ("inline", "bf16"): ("inline_attention", "vgt_inline_attention"),
+          ("inline", "fp32"): ("fp32_attention",
+                               "vgt_fp32_inline_attention")}
 
 
 def _launch(lib: str, fn: str, args, device: torch.device) -> None:
@@ -585,13 +664,14 @@ def _launch(lib: str, fn: str, args, device: torch.device) -> None:
 
 
 def _launch_rank(q: torch.Tensor, operands, q_off: torch.Tensor,
-                 out: Optional[torch.Tensor] = None) -> torch.Tensor:
+                 out: Optional[torch.Tensor] = None):
     """operands: [(k, v, rank)] with k/v heads-major views [B,Hkv,L,D];
     the result goes into ``out`` when given (a contiguous tensor of q's
-    shape and dtype), else into a new tensor."""
+    shape and dtype), else into a new tensor. Returns (out, the
+    :class:`KernelChoice` that ran)."""
     b, lq, h, d = q.shape
     hkv = operands[0][0].shape[1]
-    _check_q(q, hkv)
+    choice = _check_q(q, hkv, *(x for k, v, _ in operands for x in (k, v)))
     _check_operand("q_off", q_off, q.device, torch.int32, (b, lq))
     if lq > 1 and q_off.stride(1) != 1:
         raise ValueError("q_off needs contiguous rows")
@@ -609,8 +689,8 @@ def _launch_rank(q: torch.Tensor, operands, q_off: torch.Tensor,
     for i, (k, v, rank) in enumerate(operands):
         lk = k.shape[2]
         for name, x in (("k", k), ("v", v)):
-            _check_operand(name, x, q.device, torch.bfloat16,
-                           (b, hkv, lk, d), row_vectors=True)
+            _check_operand(name, x, q.device, q.dtype, (b, hkv, lk, d),
+                           row_vectors=True)
         _check_operand("rank", rank, q.device, torch.int32, (b, lk))
         if lk > 1 and rank.stride(1) != 1:
             raise ValueError("rank needs contiguous rows")
@@ -620,16 +700,30 @@ def _launch_rank(q: torch.Tensor, operands, q_off: torch.Tensor,
         a.v_sb[i], a.v_sh[i], a.v_sl[i] = v.stride()[:3]
         a.rank_sb[i] = rank.stride(0)
         a.len[i] = lk
-    _launch("rank_attention", "vgt_rank_attention", a, q.device)
-    return out
+    _launch(*_ENTRY["rank", choice.kernel], a, q.device)
+    return out, choice
 
 
-def rank_attention_smem() -> int:
-    """The dynamic shared memory of a K1/K2 block (kRankSmem in
-    csrc/rank_attention.cu): its ring of K/V tiles and their barriers."""
+def rank_attention_smem(head_dim: int = KERNEL_HEAD_DIM) -> int:
+    """The dynamic shared memory of a bf16 K1/K2 block at ``head_dim``
+    (``RankCfg::kSmem`` in csrc/rank_attention.cu): its ring of K/V tiles
+    and their barriers."""
     f = _cuda.libraries()["rank_attention"].vgt_rank_attention_smem
+    f.argtypes = [ctypes.c_int]
     f.restype = ctypes.c_int
-    return f()
+    return f(head_dim)
+
+
+def _count(fn, choice: KernelChoice, keys: int) -> None:
+    """Count a launch of ``fn``'s kernel: bf16 in ``launches`` (and in
+    ``long_launches`` past ``TPU_KEY_CAP`` keys), fp32 in
+    ``fp32_launches``."""
+    if choice.kernel == "fp32":
+        fn.fp32_launches += 1
+        return
+    fn.launches += 1
+    if keys > TPU_KEY_CAP and hasattr(fn, "long_launches"):
+        fn.long_launches += 1
 
 
 # ---- K1 / K2 / K3 wrappers --------------------------------------------------
@@ -647,15 +741,14 @@ def flash_mha_decode_split(q: torch.Tensor, k_cache: torch.Tensor,
     if not q.is_cuda:
         return rank_attention_reference(q, (k_cache, k_new), (v_cache, v_new),
                                         (rank_c, rank_t), mask.q_off)
-    out = _launch_rank(q, [(k_cache, v_cache, rank_c),
-                           (k_new, v_new, rank_t)], mask.q_off)
-    flash_mha_decode_split.launches += 1
-    if mask.rank.shape[1] > TPU_KEY_CAP:
-        flash_mha_decode_split.long_launches += 1
+    out, choice = _launch_rank(q, [(k_cache, v_cache, rank_c),
+                                   (k_new, v_new, rank_t)], mask.q_off)
+    _count(flash_mha_decode_split, choice, mask.rank.shape[1])
     return out
 
 
 flash_mha_decode_split.launches = flash_mha_decode_split.long_launches = 0
+flash_mha_decode_split.fp32_launches = 0
 
 
 def flash_mha_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -665,27 +758,31 @@ def flash_mha_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if not q.is_cuda:
         return rank_attention_reference(q, (k,), (v,), (mask.rank,),
                                         mask.q_off)
-    out = _launch_rank(q, [(k, v, mask.rank)], mask.q_off)
-    flash_mha_decode.launches += 1
-    if mask.rank.shape[1] > TPU_KEY_CAP:
-        flash_mha_decode.long_launches += 1
+    out, choice = _launch_rank(q, [(k, v, mask.rank)], mask.q_off)
+    _count(flash_mha_decode, choice, mask.rank.shape[1])
     return out
 
 
 flash_mha_decode.launches = flash_mha_decode.long_launches = 0
+flash_mha_decode.fp32_launches = 0
 
 
-def _kv_views(q, k, v):
-    """k/v [B,Lk,Hkv,D] as heads-major views [B,Hkv,Lk,D]; raises on what
-    the kernels over a whole key row (K3, K6, K7, K9) do not take."""
+def _kv_views(q, k, v, backward: bool = False):
+    """(k/v [B,Lk,Hkv,D] as heads-major views [B,Hkv,Lk,D], the forward
+    :class:`KernelChoice`, or None with ``backward``); raises on what the
+    kernels over a whole key row (K3, K6; with ``backward`` K7, K9) do not
+    take."""
     kh, vh = k.transpose(1, 2), v.transpose(1, 2)
     b, lq, h, d = q.shape
     hkv, lk = kh.shape[1], kh.shape[2]
-    _check_q(q, hkv)
+    if backward:
+        choice = _check_q_bwd(q, hkv)
+    else:
+        choice = _check_q(q, hkv, kh, vh)
     for name, x in (("k", kh), ("v", vh)):
-        _check_operand(name, x, q.device, torch.bfloat16, (b, hkv, lk, d),
+        _check_operand(name, x, q.device, q.dtype, (b, hkv, lk, d),
                        row_vectors=True)
-    return kh, vh
+    return kh, vh, choice
 
 
 def _bias_vec(bias: torch.Tensor) -> int:
@@ -739,13 +836,14 @@ def _as_bias_map(bias) -> BiasMap:
     return bias if isinstance(bias, BiasMap) else bias_map(bias)
 
 
-def _check_bias_operands(q, k, v, bias):
-    """k/v as heads-major views [B,Hkv,Lk,D]; raises on what K3/K9 do not
-    take."""
-    kh, vh = _kv_views(q, k, v)
+def _check_bias_operands(q, k, v, bias, backward: bool = False):
+    """(k/v as heads-major views [B,Hkv,Lk,D], the kernel choice as
+    :func:`_kv_views` gives it); raises on what K3 (with ``backward``, K9)
+    does not take."""
+    kh, vh, choice = _kv_views(q, k, v, backward)
     _check_operand("bias", bias, q.device, torch.bfloat16,
                    (q.shape[0], q.shape[1], kh.shape[2]))
-    return kh, vh
+    return kh, vh, choice
 
 
 def _bias_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -756,7 +854,7 @@ def _bias_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if not q.is_cuda:
         return bias_attention_reference(q, k, v, bm.bias), None
     bias = bm.bias
-    kh, vh = _check_bias_operands(q, k, v, bias)
+    kh, vh, choice = _check_bias_operands(q, k, v, bias)
     b, lq, h, d = q.shape
     out = torch.empty((b, lq, h, d), dtype=q.dtype, device=q.device)
     lse = (torch.empty((b, h, lq), dtype=torch.float32, device=q.device)
@@ -773,10 +871,8 @@ def _bias_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         o_sb=out.stride(0), o_sl=out.stride(1), o_sh=out.stride(2),
         batch=b, heads=h, kv_heads=kh.shape[1], lq=lq, lk=kh.shape[2],
         head_dim=d, scale_log2=d ** -0.5 * LOG2E, bias_vec=_bias_vec(bias))
-    _launch("bias_attention", "vgt_bias_attention", a, q.device)
-    flash_mha.launches += 1
-    if kh.shape[2] > TPU_KEY_CAP:
-        flash_mha.long_launches += 1
+    _launch(*_ENTRY["bias", choice.kernel], a, q.device)
+    _count(flash_mha, choice, kh.shape[2])
     return out, lse
 
 
@@ -815,7 +911,7 @@ def flash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 flash_mha.launches = flash_mha.long_launches = 0
-flash_mha.bias_map_builds = 0
+flash_mha.fp32_launches = flash_mha.bias_map_builds = 0
 
 
 def bias_tile_classes(bias: torch.Tensor) -> torch.Tensor:
@@ -840,7 +936,7 @@ def flash_mha_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if not q.is_cuda:
         return bias_attention_backward_reference(q, k, v, bm.bias, o, do)
     bias = bm.bias
-    kh, vh = _check_bias_operands(q, k, v, bias)
+    kh, vh, _ = _check_bias_operands(q, k, v, bias, backward=True)
     b, lq, h, d = q.shape
     hkv, lk = kh.shape[1], kh.shape[2]
     do = do.contiguous()
@@ -959,7 +1055,7 @@ def _inline_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     anyway), else None."""
     if not q.is_cuda:
         return inline_attention_reference(q, k, v, q_meta, k_meta)
-    kh, vh = _kv_views(q, k, v)
+    kh, vh, choice = _kv_views(q, k, v)
     b, lq, h, d = q.shape
     lk = kh.shape[2]
     out = torch.empty((b, lq, h, d), dtype=q.dtype, device=q.device)
@@ -975,10 +1071,10 @@ def _inline_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         setattr(a, f"{name}_sb", x.stride(sb))
         setattr(a, f"{name}_sl", x.stride(sl))
         setattr(a, f"{name}_sh", x.stride(sh))
-    a.heads, a.kv_heads = h, kh.shape[1]
+    a.heads, a.kv_heads, a.head_dim = h, kh.shape[1], d
     a.scale_log2 = d ** -0.5 * LOG2E
-    _launch("inline_attention", "vgt_inline_attention", a, q.device)
-    flash_mha_inline.launches += 1
+    _launch(*_ENTRY["inline", choice.kernel], a, q.device)
+    _count(flash_mha_inline, choice, lk)
     return out, lse
 
 
@@ -1016,7 +1112,7 @@ def flash_mha_inline(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return _inline_forward(q, k, v, q_meta, k_meta, with_lse=False)[0]
 
 
-flash_mha_inline.launches = 0
+flash_mha_inline.launches = flash_mha_inline.fp32_launches = 0
 
 
 def flash_mha_inline_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -1031,7 +1127,7 @@ def flash_mha_inline_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if not q.is_cuda:
         return inline_attention_backward_reference(q, k, v, q_meta, k_meta,
                                                    o, do, lse=lse)
-    kh, vh = _kv_views(q, k, v)
+    kh, vh, _ = _kv_views(q, k, v, backward=True)
     b, lq, h, d = q.shape
     hkv, lk = kh.shape[1], kh.shape[2]
     do = do.contiguous()
@@ -1072,11 +1168,18 @@ KERNELS = (flash_mha_decode_split, flash_mha_decode, flash_mha,
            flash_mha_bwd, flash_mha_inline, flash_mha_inline_bwd)
 
 
+# the wrappers whose kernels take fp32 operands too (``fp32_launches``)
+FORWARD_KERNELS = (flash_mha_decode_split, flash_mha_decode, flash_mha,
+                   flash_mha_inline)
+
+
 def reset_launch_counts() -> None:
     """Every wrapper's launch counts, and ``flash_mha.bias_map_builds``,
     to 0."""
     flash_mha.bias_map_builds = 0
     for fn in KERNELS:
         fn.launches = 0
+    for fn in FORWARD_KERNELS:
+        fn.fp32_launches = 0
     for fn in (flash_mha_decode_split, flash_mha_decode, flash_mha):
         fn.long_launches = 0

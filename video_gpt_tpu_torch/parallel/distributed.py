@@ -384,6 +384,9 @@ def _rank_main(rank: int, fn: Callable, args: Sequence, world: int,
                workdir: str, threads: int) -> None:
     if threads:
         torch.set_num_threads(threads)
+    if args is None:
+        args = torch.load(os.path.join(workdir, "args.pt"),
+                          weights_only=False)
     dist.init_process_group("gloo", init_method=f"file://{workdir}/rdzv",
                             world_size=world, rank=rank)
     try:
@@ -393,19 +396,27 @@ def _rank_main(rank: int, fn: Callable, args: Sequence, world: int,
 
 
 def spawn_ranks(fn: Callable, args: Sequence, world: int, workdir: str,
-                timeout: float = 600.0, threads: int = 0) -> list:
-    """``fn(*args)`` in ``world`` processes of ``torch.multiprocessing``'s
-    spawn, each one rank of a gloo process group joined through a file
-    under ``workdir`` (an empty directory); returns each rank's result, in
-    rank order (tensors, numbers, strings and containers of them: they
-    cross as ``torch.save`` files). ``fn`` is a module-level function (it
-    is pickled by name). A rank that fails stops the others and its error
-    is raised here; past ``timeout`` seconds every rank is stopped and
-    ``RuntimeError`` raised. ``threads`` (when nonzero) caps each rank's
-    intra-op threads."""
+                timeout: float = 600.0, threads: int = 0,
+                start_method: str = "spawn") -> list:
+    """``fn(*args)`` in ``world`` processes of ``torch.multiprocessing``
+    (``start_method``: "spawn", or "forkserver", whose ranks fork from one
+    server that has imported the main module once), each one rank of a
+    gloo process group joined through a file under ``workdir`` (an empty
+    directory); returns each rank's result, in rank order (tensors,
+    numbers, strings and containers of them: they cross as ``torch.save``
+    files). ``fn`` is a module-level function (it is pickled by name). A
+    rank that fails stops the others and its error is raised here; past
+    ``timeout`` seconds every rank is stopped and ``RuntimeError`` raised.
+    ``threads`` (when nonzero) caps each rank's intra-op threads. A
+    forkserver's ranks take the environment the server started with, and
+    their ``args`` cross as a ``torch.save`` file (the server passes a
+    process at most 256 file descriptors: one a shared tensor)."""
+    if start_method == "forkserver":
+        torch.save(args, os.path.join(workdir, "args.pt"))
+        args = None
     ctx = torch.multiprocessing.start_processes(
         _rank_main, args=(fn, args, world, workdir, threads), nprocs=world,
-        join=False, start_method="spawn")
+        join=False, start_method=start_method)
     deadline = time.monotonic() + timeout
     try:
         while not ctx.join(max(deadline - time.monotonic(), 0.0)):

@@ -128,8 +128,10 @@ class VideoGPTPipeline:
 
         if axis_size(mesh, DATA_AXIS) != 1:
             raise NotImplementedError(
-                "serving on a mesh with a data axis is not ported yet "
-                "(ROADMAP.md queue 1: the mesh's training half)")
+                "serving on a mesh with a data axis is not ported: the JAX "
+                "pipeline shards nothing over it (every data group would "
+                "compute the same clip) and no command reaches it; serve "
+                "over --mesh_seq / --mesh_tensor")
         tp = axis_size(mesh, TENSOR_AXIS)
         if tp > 1:
             if state_dict is None:
