@@ -285,5 +285,5 @@ def test_plain_versions_do_not_count_launches():
     test_k2_decode_matches_pallas(0, D)
     test_k1_extend_mask_matches_pallas()
     assert [f.launches for f in tfa.KERNELS] == [0] * len(tfa.KERNELS)
-    assert [f.fp32_launches for f in tfa.FORWARD_KERNELS] == [0] * len(
-        tfa.FORWARD_KERNELS)
+    assert [f.fp32_launches for f in tfa.KERNELS] == [0] * len(
+        tfa.KERNELS)

@@ -5,9 +5,11 @@ The JAX side runs its Pallas kernels in interpret mode (``INTERPRET`` set
 inside try/finally, as tests/test_flash_attention.py does): ``_flash_bwd``
 (the TPU ``_bwd_kernel``) and ``jax.grad`` of ``flash_mha_biased`` (forward
 ``_bias_kernel``, backward ``_bwd_kernel``). Both sides get the same fp32
-numpy inputs on a (1, 2, 1) training layout at head_dim 96, MHA and GQA 2:1.
-Bar: atol = rtol = 5e-5, the JAX package's own bar for its flash backward
-against dense gradients (fp32 sums in other orders).
+numpy inputs on a (1, 2, 1) training layout at head_dim 96, MHA and GQA 2:1,
+and at head_dim 16, 64 and 128 with GQA 2:1 (the backward kernels' other
+padded widths, 32, 64 and 128). Bar: atol = rtol = 5e-5, the JAX package's
+own bar for its flash backward against dense gradients (fp32 sums in other
+orders).
 """
 import numpy as np
 import pytest
@@ -26,9 +28,15 @@ from video_gpt_tpu_torch.ops.attention import AttnMeta
 
 TOL = 5e-5
 D = 96
+# (h, hkv, head_dim): the flagship's width in MHA and GQA (ids "4-4",
+# "4-2"), and GQA at the other widths
+WIDTH_CASES = [pytest.param(h, hkv, d, id=f"{h}-{hkv}" + (
+    "" if d == D else f"-d{d}"))
+    for h, hkv, d in [(4, 4, D), (4, 2, D), (4, 2, 16), (4, 2, 64),
+                      (4, 2, 128)]]
 
 
-def _case(h, hkv, seed=0):
+def _case(h, hkv, seed=0, d=D):
     n = tokens_per_frame(32, 32)
     meta = AttnMeta.from_layout(
         build_layout([RowSpec((1, 2, 1), "training")], n), "cpu")
@@ -40,8 +48,8 @@ def _case(h, hkv, seed=0):
     def arr(*shape):
         return rng.standard_normal(shape).astype(np.float32)
 
-    q, k, v = arr(b, l, h, D), arr(b, l, hkv, D), arr(b, l, hkv, D)
-    return meta, jmeta, q, k, v, arr(b, l, h, D)
+    q, k, v = arr(b, l, h, d), arr(b, l, hkv, d), arr(b, l, hkv, d)
+    return meta, jmeta, q, k, v, arr(b, l, h, d)
 
 
 def _close(got, want, name):
@@ -49,9 +57,9 @@ def _close(got, want, name):
                                atol=TOL, rtol=TOL, err_msg=name)
 
 
-@pytest.mark.parametrize("h,hkv", [(4, 4), (4, 2)])
-def test_plain_k9_matches_pallas_bwd(h, hkv):
-    meta, jmeta, q, k, v, do = _case(h, hkv)
+@pytest.mark.parametrize("h,hkv,d", WIDTH_CASES)
+def test_plain_k9_matches_pallas_bwd(h, hkv, d):
+    meta, jmeta, q, k, v, do = _case(h, hkv, d=d)
     bias = fa.precompute_bias(meta, meta)
     tq, tk, tv, tdo = (torch.from_numpy(x) for x in (q, k, v, do))
     o = fa.bias_attention_reference(tq, tk, tv, bias)
@@ -61,7 +69,7 @@ def test_plain_k9_matches_pallas_bwd(h, hkv):
         want = jfa._flash_bwd(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
                               jfa.precompute_bias(jmeta, jmeta),
                               jnp.asarray(o.numpy()), jnp.asarray(do),
-                              D ** -0.5)
+                              d ** -0.5)
     finally:
         jfa.INTERPRET = False
     for g, w, name in zip(got, want, ("dq", "dk", "dv")):
@@ -107,8 +115,8 @@ def test_magnitude_bounds_the_gradients():
         assert bool((g.abs() <= m * (1 + 1e-5) + 1e-6).all())
 
 
-@pytest.mark.parametrize("h,hkv", [(4, 4), (4, 2)])
-def test_bias_carrier_grads_match_jax_grad(h, hkv):
+@pytest.mark.parametrize("h,hkv,d", WIDTH_CASES)
+def test_bias_carrier_grads_match_jax_grad(h, hkv, d):
     """The model's bias carrier (``maybe_bias``: the bias with its tile
     map, which on the CPU holds no map and counts no build) through a
     checkpointed ``flash_mha``, as a layer with per-layer recompute runs
@@ -118,7 +126,7 @@ def test_bias_carrier_grads_match_jax_grad(h, hkv):
 
     from video_gpt_tpu_torch.config import ModelConfig
     from video_gpt_tpu_torch.models.video_gpt import maybe_bias
-    meta, jmeta, q, k, v, w = _case(h, hkv, seed=3)
+    meta, jmeta, q, k, v, w = _case(h, hkv, seed=3, d=d)
     fa.reset_launch_counts()
     bm = maybe_bias(ModelConfig.tiny(), meta, meta)
     assert isinstance(bm, fa.BiasMap)

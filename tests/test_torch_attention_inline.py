@@ -13,7 +13,8 @@ kernel with the same function); ``jax.grad`` through
 sides get the same fp32 numpy inputs at head_dim 96, MHA and GQA 2:1, on an
 inference layout (the noisy tail against the whole CFG pair) and a
 frame-block training layout; the K6 forward also at head_dim 64 and 128,
-the CUDA kernels' other padded widths. Bars: the forward at atol = rtol = 2e-5, the
+the CUDA kernels' other padded widths, and the K7 backward at head_dim 16,
+64 and 128 with GQA 2:1. Bars: the forward at atol = rtol = 2e-5, the
 JAX package's kernel-vs-reference bar; the backward at atol = rtol = 5e-5,
 its flash-backward bar (fp32 sums in other orders).
 """
@@ -126,9 +127,17 @@ def test_plain_k6_matches_dense_reference(kind, h, hkv, monkeypatch):
     _close(out, want.numpy(), FWD_TOL)
 
 
-@pytest.mark.parametrize("kind,h,hkv", CASES)
-def test_plain_k7_matches_pallas_stream_bwd(kind, h, hkv, monkeypatch):
-    (jq, jk), (tq, tk), qkv, do = _case(kind, h, hkv, seed=3)
+# the backward's cases: CASES at head_dim 96, and GQA 2:1 at the other
+# widths (ids of the 96 cases as before)
+BWD_WIDTHS = (16, 64, 128)
+
+
+@pytest.mark.parametrize("kind,h,hkv,d", [
+    pytest.param(*case, D, id="-".join(map(str, case))) for case in CASES] + [
+    pytest.param(kind, 4, 2, d, id=f"{kind}-4-2-d{d}")
+    for kind in ("inference", "training") for d in BWD_WIDTHS])
+def test_plain_k7_matches_pallas_stream_bwd(kind, h, hkv, d, monkeypatch):
+    (jq, jk), (tq, tk), qkv, do = _case(kind, h, hkv, seed=3, d=d)
     q, k, v = _t(*qkv)
     o, _ = fa.inline_attention_reference(q, k, v, tq, tk)
     monkeypatch.setattr(fa, "INLINE_ROWS", 9)   # several row steps
@@ -150,12 +159,14 @@ def test_plain_k7_matches_pallas_stream_bwd(kind, h, hkv, monkeypatch):
 
 @pytest.mark.parametrize("jax_fn", ["flash_mha_streaming_inline",
                                     "flash_mha_inline"])
-@pytest.mark.parametrize("h,hkv", [(4, 4), (4, 2)])
-def test_flash_mha_inline_grads_match_jax_grad(jax_fn, h, hkv):
+@pytest.mark.parametrize("h,hkv,d", [
+    pytest.param(h, hkv, D, id=f"{h}-{hkv}") for h, hkv in [(4, 4), (4, 2)]]
+    + [pytest.param(4, 2, d, id=f"4-2-d{d}") for d in BWD_WIDTHS])
+def test_flash_mha_inline_grads_match_jax_grad(jax_fn, h, hkv, d):
     """The port's autograd Function (on CPU tensors: plain K6 forward,
     plain K7 backward) against jax.grad through the JAX package's two
     differentiable inline attentions, on the training layout."""
-    (jq, jk), (tq, tk), qkv, w = _case("training", h, hkv, seed=4)
+    (jq, jk), (tq, tk), qkv, w = _case("training", h, hkv, seed=4, d=d)
     tq_, tk_, tv_ = (x.requires_grad_() for x in _t(*qkv))
     fa.reset_launch_counts()
     out = fa.flash_mha_inline(tq_, tk_, tv_, tq, tk)

@@ -37,7 +37,17 @@ list, K7's dK/dV without its last listed query tile, K7's dQ and K3
 without their last listed key tile, K3 treating a partial tile as full,
 one non-empty tile (the first query tile against the first key tile)
 classed empty in K6's and in the bias's map, the pipelined overlap probe
-without its last subtile.
+without its last subtile, the fp32 backward's dQ without its last key
+tile, the padded head dims of a bf16 backward instance not zero-filled
+(K9 on 40-wide views of 64-wide rows), and the Dp-128 dK/dV kernels of K9
+and K7 reading the wrong 16 rows of their MN-major operand (a descriptor
+off by one K-step).
+
+Every kernel also runs at every dtype and head width its wrapper takes
+(``test_k*_at_every_width``: bf16 and fp32 at head_dim 16, 40, 64, 96,
+104 and 128); the fp32 backward (K9 and K7 in ``fp32_attention_bwd.cu``)
+is held to |got - want| <= 2e-5 + 2e-5 |want| + 2^-18 mass, the bf16
+bar's backward mass with fp32's rounding in place of bf16's.
 
 Past 8192 keys the TPU runs k-tiled kernels (K4, K5, K10); here K1, K2 and
 K3 serve those rows, and are held against their plain versions at those
@@ -69,6 +79,8 @@ from video_gpt_tpu_torch.probes import overlap_probe
 
 pytestmark = pytest.mark.gpu
 ATOL, RTOL, BF16_U = 1e-4, 1e-2, 2.0 ** -8
+# the flagship's head width, the tests' default
+D = ModelConfig().head_dim
 
 
 @pytest.fixture
@@ -94,7 +106,7 @@ def _err(got, want, mass):
 
 @pytest.mark.parametrize("h,hkv,n_img", [(4, 2, 30), (8, 8, 17)])
 def test_k1_k2_match_plain(dev, h, hkv, n_img):
-    d = fa.KERNEL_HEAD_DIM
+    d = D
     lay = layout.frame_block_inference_layout(3, 2, n_img, use_cfg=False)
     meta = AttnMeta.from_layout(lay, dev)
     tail, L = lay.noisy_tail_len(), lay.length
@@ -168,7 +180,7 @@ def _k1_error(dev, b, lq, lc, lt, seed=0, heads=(4, 2)):
     into an output filled with NaN, so that a row it leaves unstored fails
     the bar."""
     h, hkv = heads
-    d = fa.KERNEL_HEAD_DIM
+    d = D
     q = _bf16(dev, seed, b, lq, h, d)
     kc, vc = _bf16(dev, seed + 1, b, hkv, lc, d), _bf16(dev, seed + 2, b,
                                                        hkv, lc, d)
@@ -212,7 +224,7 @@ def test_k1_at_odd_lengths(dev, b, lq, lc, lt):
 def test_k2_at_odd_lengths(dev, b, lq, lk):
     """K2 over one tokens-major operand at the K1 case's lengths; at Lk 200
     the second key tile is seen by no query."""
-    d = fa.KERNEL_HEAD_DIM
+    d = D
     q = _bf16(dev, 5, b, lq, 4, d)
     k, v = _bf16(dev, 6, b, lk, 2, d), _bf16(dev, 7, b, lk, 2, d)
     mask = _rank_mask(dev, 8, b, lq, lk, never_tile=1 if lk >= 128 else None)
@@ -232,7 +244,7 @@ def test_k2_at_odd_lengths(dev, b, lq, lk):
 def test_k1_k2_on_a_key_tile_that_no_query_sees(dev):
     """A tile that neither consumer sees is never loaded: the output is the
     plain version's, and the tile's K/V may hold anything (here NaN)."""
-    d = fa.KERNEL_HEAD_DIM
+    d = D
     b, lq, lk = 1, 100, 300
     q = _bf16(dev, 9, b, lq, 4, d)
     k, v = _bf16(dev, 10, b, lk, 2, d), _bf16(dev, 11, b, lk, 2, d)
@@ -257,7 +269,7 @@ def test_k2_on_a_causal_mask(dev, lk):
     prefix of the key tiles, so one meets many tiles that only the others
     see while it holds a stage of the ring (the ring must not wrap around
     it)."""
-    d = fa.KERNEL_HEAD_DIM
+    d = D
     lq = 600
     q = _bf16(dev, 14, 1, lq, 4, d)
     k, v = _bf16(dev, 15, 1, lk, 2, d), _bf16(dev, 16, 1, lk, 2, d)
@@ -279,7 +291,7 @@ def test_k1_at_the_extend_shape(dev):
     queries) grow the 8-frame cache (1,776 keys) with their own 888 keys,
     under extend_mask (frame-causal, so the blocks' consumers see
     different prefixes of the key tiles)."""
-    d = fa.KERNEL_HEAD_DIM
+    d = D
     n_img = layout.tokens_per_frame(176, 320)
     lay = layout.frame_block_inference_layout(12, 4, n_img, use_cfg=False)
     meta = AttnMeta.from_layout(lay, dev)
@@ -305,7 +317,7 @@ def test_k1_at_the_extend_shape(dev):
 @pytest.mark.parametrize("n_clean,use_cfg,h,hkv", [
     (3, False, 4, 2), (2, True, 8, 8)])
 def test_k3_matches_plain(dev, n_clean, use_cfg, h, hkv):
-    d = fa.KERNEL_HEAD_DIM
+    d = D
     lay = layout.frame_block_inference_layout(n_clean, 2, 30,
                                               use_cfg=use_cfg)
     meta = AttnMeta.from_layout(lay, dev)
@@ -343,7 +355,7 @@ def _k3_cached_error(dev, rows, n_out, h=4, hkv=2):
     """K3 as the image decode runs it (``attend_cached``: the heads-major
     cache and the tail's K/V views of the fused projection concatenated,
     the decode's BiasMap) against the plain version: worst error / bar."""
-    d = fa.KERNEL_HEAD_DIM
+    d = D
     lay = _image_layout(rows, n_out)
     meta = AttnMeta.from_layout(lay, dev)
     b, tail = lay.batch, lay.noisy_tail_len()
@@ -389,7 +401,7 @@ def _training_layout(blocks, n_img):
 def _training_operands(dev, h, hkv, blocks, n_img, requires_grad=False):
     """q/k/v as the attention layer makes them (q, k new tensors, v a view
     of the fused projection) over a training layout, and its bias."""
-    d = fa.KERNEL_HEAD_DIM
+    d = D
     lay = _training_layout(blocks, n_img)
     meta = AttnMeta.from_layout(lay, dev)
     qkv = _bf16(dev, 7, lay.batch, lay.length, h + 2 * hkv, d)
@@ -493,7 +505,7 @@ def test_one_bias_map_serves_four_forwards(dev):
     exactly what they give over a map built per call, and one build is
     made."""
     _, _, _, bias = _training_operands(dev, 4, 2, (1, 2, 1), 30)
-    d = fa.KERNEL_HEAD_DIM
+    d = D
     b, lq, lk = bias.shape
     fa.reset_launch_counts()
     bm = fa.bias_map(bias)
@@ -581,7 +593,7 @@ def test_flash_mha_gradients_reach_q_k_v(dev):
 def _inline_operands(dev, h, hkv, blocks, n_img, requires_grad=False):
     """q/k/v as the attention layer makes them over a training layout, and
     its metadata (``index`` an expanded view with batch stride 0)."""
-    d = fa.KERNEL_HEAD_DIM
+    d = D
     lay = _training_layout(blocks, n_img)
     meta = AttnMeta.from_layout(lay, dev)
     qkv = _bf16(dev, 17, lay.batch, lay.length, h + 2 * hkv, d)
@@ -642,7 +654,7 @@ def test_k6_matches_plain(dev, h, hkv, blocks, n_img):
 def test_k6_on_the_inference_layout(dev):
     """K6 as a prefill above the bias limit would run it: the CFG pair
     (B 2), the noisy tail against the whole row, keys heads-major views."""
-    d = fa.KERNEL_HEAD_DIM
+    d = D
     lay = layout.frame_block_inference_layout(3, 2, 30, use_cfg=True)
     meta = AttnMeta.from_layout(lay, dev)
     tail = lay.noisy_tail_len()
@@ -675,7 +687,7 @@ def _k6_case_error(q, k, v, qm, km):
 def test_k6_with_pad_rows(dev):
     """A training row as ``collate`` pads it: the pad rows (first in the
     row) see every key, so their tiles are never empty."""
-    d = fa.KERNEL_HEAD_DIM
+    d = D
     blocks, n_img = (2, 1, 2), 30
     f = sum(blocks)
     lay = layout.build_layout([layout.RowSpec(blocks, "training")], n_img,
@@ -691,7 +703,7 @@ def test_k6_with_pad_rows(dev):
 def test_k6_at_a_small_batched_prefill(dev):
     """The batched rollout's prefill at a small size: B 2, the clean prefix
     against itself, ``index`` an expanded view with batch stride 0."""
-    d = fa.KERNEL_HEAD_DIM
+    d = D
     lay = layout.frame_block_inference_layout(6, 2, 30, use_cfg=False,
                                               rows=2)
     mp = AttnMeta.from_layout(lay, dev).cols(
@@ -866,6 +878,24 @@ MUTATIONS = {
         "attention_common.cuh",
         "const bool ok = r < rows_valid && (!kPadded || c < cols);",
         "const bool ok = r < rows_valid;", "K3-d40"),
+    "fp32_bwd_without_last_key_tile": (
+        "fp32_attention_bwd.cu",
+        "for (int it = 0; it < n; ++it) {",
+        "for (int it = 0; it < n - 1; ++it) {", "K9-fp32"),
+    "padded_bwd_head_dims_not_zero_filled": (
+        "attention_common.cuh",
+        "const bool ok = r < rows_valid && (!kPadded || c < cols);",
+        "const bool ok = r < rows_valid;", "K9-d40"),
+    "k9_dkdv_dp128_wrong_descriptor": (
+        "bias_attention_bwd.cu",
+        "wgmma_pv<DP>(dv, fa[j], desc_mn_major_dp<DP>(bt, j));",
+        "wgmma_pv<DP>(dv, fa[j], desc_mn_major_dp<DP>(bt, j ^ 1));",
+        "K9-d128"),
+    "k7_dkdv_dp128_wrong_descriptor": (
+        "inline_attention_bwd.cu",
+        "wgmma_pv<DP>(dv, fa[j], desc_mn_major_dp<DP>(bt, j));",
+        "wgmma_pv<DP>(dv, fa[j], desc_mn_major_dp<DP>(bt, j ^ 1));",
+        "K7-d128"),
 }
 
 
@@ -900,6 +930,15 @@ def test_inline_mutation_fails_the_bar(dev, tmp_path, monkeypatch,
         ratio = _k3_width_error(dev, torch.bfloat16, 40, sliced=True)
     elif kernel == "K6-fp32":
         ratio = _k6_width_error(dev, torch.float32, 96)
+    elif kernel == "K9-fp32":
+        ratio = max(_k9_width_errors(dev, torch.float32, 96).values())
+    elif kernel == "K9-d40":
+        ratio = max(_k9_width_errors(dev, torch.bfloat16, 40,
+                                     sliced=True).values())
+    elif kernel == "K9-d128":
+        ratio = max(_k9_width_errors(dev, torch.bfloat16, 128).values())
+    elif kernel == "K7-d128":
+        ratio = max(_k7_width_errors(dev, torch.bfloat16, 128).values())
     else:
         ratio = max(_k9_errors(dev, *_training_operands(dev, *case))
                     .values())
@@ -923,13 +962,22 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
             fa.flash_mha_decode(qd, qd, qd, mask)
     with pytest.raises(ValueError):                   # bias on the CPU
         fa.flash_mha(qb, kb, kb, torch.zeros(1, 8, 8, dtype=torch.bfloat16))
-    # the backward kernels take bf16 at head_dim 96 only
-    q64 = torch.zeros(1, 8, 2, 64, device=dev, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="K7, K9"):
-        fa.flash_mha_bwd(q64, q64, q64, fa.precompute_bias(*(
-            AttnMeta.from_layout(layout.frame_block_inference_layout(
-                0, 1, 6, use_cfg=False), dev),) * 2), q64, q64,
-            torch.zeros(1, 2, 8, device=dev))
+    # the backward kernels take what the forward takes: bf16 and fp32 at
+    # head_dim 64 too, fp16 not
+    bias = fa.precompute_bias(*(AttnMeta.from_layout(
+        layout.frame_block_inference_layout(0, 1, 6, use_cfg=False),
+        dev),) * 2)
+    lse = torch.zeros(1, 2, 8, device=dev)
+    fa.reset_launch_counts()
+    for dtype in (torch.bfloat16, torch.float32):
+        q64 = torch.zeros(1, 8, 2, 64, device=dev, dtype=dtype)
+        grads = fa.flash_mha_bwd(q64, q64, q64, bias, q64, q64, lse)
+        assert [g.shape for g in grads] == [q64.shape] * 3
+        assert all(g.dtype == dtype for g in grads)
+    torch.cuda.synchronize()
+    assert fa.flash_mha_bwd.launches == fa.flash_mha_bwd.fp32_launches == 1
+    with pytest.raises(TypeError, match="bf16 or fp32"):       # fp16
+        fa.flash_mha_bwd(q, k, k, bias, q, q, lse)
 
 
 # ---- past 8192 keys: the TPU's k-tiled K4/K5/K10 are K1/K2/K3 here --------
@@ -950,7 +998,7 @@ def test_k1_at_the_long_rollout_cond_row(dev, batch):
     """K4's shape: 5,328 queries against 12,432 cached + 5,328 new keys,
     the cache heads-major as the KV cache holds it (at B 2 as the batched
     rollout's cond row), the tail views of tokens-major K/V."""
-    d = fa.KERNEL_HEAD_DIM
+    d = D
     lay, meta = _rollout_meta(dev, 56, 24, rows=batch)
     tail, L = lay.noisy_tail_len(), lay.length
     lc = L - tail
@@ -978,7 +1026,7 @@ def test_k1_at_the_long_rollout_cond_row(dev, batch):
 
 def test_k2_at_the_k5_shape(dev):
     """K5's shape: the uncond row of a 40-frame clip, Lq = Lk = 8,880."""
-    d = fa.KERNEL_HEAD_DIM
+    d = D
     lay, meta = _rollout_meta(dev, 0, 40)
     L = lay.length
     assert L > 8192
@@ -1002,7 +1050,7 @@ def test_k2_at_the_k5_shape(dev):
 def test_k3_at_the_k10_shape(dev):
     """K10's shape: the long rollout's prefill at B 1, 12,432^2 with its
     309 MB bf16 bias."""
-    d = fa.KERNEL_HEAD_DIM
+    d = D
     lay, meta = _rollout_meta(dev, 56, 24)
     lp = lay.length - lay.noisy_tail_len()
     mp = meta.cols(slice(0, lp))
@@ -1024,7 +1072,7 @@ def test_k3_at_the_k10_shape(dev):
 def test_k6_at_the_batched_prefill(dev):
     """The batched rollout's prefill: B 2 x 12,432^2 (above the bias
     limit), ``index`` an expanded view with batch stride 0."""
-    d = fa.KERNEL_HEAD_DIM
+    d = D
     lay, meta = _rollout_meta(dev, 56, 24, rows=2)
     lp = lay.length - lay.noisy_tail_len()
     mp = meta.cols(slice(0, lp))
@@ -1102,7 +1150,7 @@ def test_ulysses_attend_cached_on_two_gloo_ranks(dev, tmp_path):
     from video_gpt_tpu_torch.config import MeshConfig
     from video_gpt_tpu_torch.parallel.distributed import spawn_ranks
     shape = (2, 1, 5, 2)  # 7-token frames: the cond row 21, the tail 7
-    h, hkv, d = 8, 4, fa.KERNEL_HEAD_DIM
+    h, hkv, d = 8, 4, D
     meta, _, tail = ranks.metas(*shape, device=dev)
     b, length = meta.index.shape
     rng = np.random.default_rng(0)
@@ -1327,3 +1375,132 @@ def test_k6_at_every_width(dev, dtype, d):
     """K6 (bf16: inline_attention.cu; fp32: fp32_attention.cu) with its
     logsumexp at fp32."""
     assert _k6_width_error(dev, dtype, d) <= 1.0
+
+
+# ---- the backward kernels at every dtype and head width --------------------
+
+# the fp32 backward against its plain version in fp32, per element:
+# |got - want| <= FP32_ATOL + FP32_RTOL |want| + FP32_BWD_MASS * mass, with
+# the bf16 bar's masses (|ds| |K|, |ds|^T |Q|, p^T |dO|). Nothing is
+# rounded to bf16, but ds = p (dp - di) cancels where dp is near di: an
+# element of dq, dk, dv then carries the fp32 summation error of its terms
+# (their mass, not its value), and p carries that of the forward's lse
+# (~1e-6 relative at these logits). 2^-18 is 64 fp32 ulps of the mass.
+FP32_BWD_MASS = 2.0 ** -18
+
+
+def _bwd_width_err(got, want, mass, dtype):
+    """The worst element's error over its bar: the bf16 bar for bf16
+    gradients, the fp32 backward's (``FP32_BWD_MASS``) for fp32 ones."""
+    if dtype == torch.bfloat16:
+        return _err(got, want, mass)
+    got, want, mass = (x.float().cpu() for x in (got, want, mass))
+    bar = FP32_ATOL + FP32_RTOL * want.abs() + FP32_BWD_MASS * mass
+    return float(torch.nan_to_num((got - want).abs() / bar,
+                                  nan=float("inf")).max())
+
+
+def _bwd_errors(got, want, mass, dtype):
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == dtype
+    return {name: _bwd_width_err(g, w, m, dtype)
+            for name, g, w, m in zip(("dq", "dk", "dv"), got, want, mass)}
+
+
+def _k9_width_errors(dev, dtype, d, sliced=False):
+    """K3 forward (keeping the lse) and K9 (bf16: bias_attention_bwd.cu;
+    fp32: fp32_attention_bwd.cu) over a training layout's bias with one
+    row that sees no key, GQA 4:2, v a view of the fused projection
+    (``sliced``: q, k, v the first d dims of 64-wide rows), against the
+    plain backward: {grad: worst error / bar}."""
+    h, hkv = 4, 2
+    lay = _training_layout((1, 2, 1), 30)
+    meta = AttnMeta.from_layout(lay, dev)
+    b, L = lay.batch, lay.length
+    bias = fa.precompute_bias(meta, meta)
+    bias[:, 70] = fa.BF16_NEG
+    qkv = _operand(dev, 43, dtype, b, L, h + 2 * hkv, 64 if sliced else d)
+    q, k = qkv[:, :, :h], qkv[:, :, h:h + hkv]
+    if sliced:
+        q, k = q[..., :d], k[..., :d]
+    else:
+        q, k = q.contiguous(), k.contiguous()
+    v = qkv[:, :, h + hkv:, :d]
+    fa.reset_launch_counts()
+    bm = fa.bias_map(bias)
+    out, lse = fa._bias_forward(q, k, v, bm, with_lse=True)
+    do = _operand(dev, 44, dtype, *out.shape)
+    got = fa.flash_mha_bwd(q, k, v, bm, out, do, lse)
+    torch.cuda.synchronize()
+    assert _launches(fa.flash_mha_bwd, dtype) == 1
+    assert fa.flash_mha_bwd.launches + fa.flash_mha_bwd.fp32_launches == 1
+    args = [x.float() for x in (q, k, v)] + [bias, out.float(), do.float()]
+    want = fa.bias_attention_backward_reference(*args)
+    mass = fa.bias_attention_backward_reference(*args, magnitude=True)
+    return _bwd_errors(got, want, mass, dtype)
+
+
+@pytest.mark.parametrize("dtype,d", WIDTH_CASES)
+def test_k9_at_every_width(dev, dtype, d):
+    """K9 at bf16 (padded widths 32 / 64 / 96 / 128: two warpgroups in its
+    dK/dV kernel at 128) and fp32; at head_dim 40 also on 40-wide views
+    of 64-wide rows."""
+    errs = _k9_width_errors(dev, dtype, d)
+    assert max(errs.values()) <= 1.0, errs
+    if d == 40:
+        errs = _k9_width_errors(dev, dtype, d, sliced=True)
+        assert max(errs.values()) <= 1.0, errs
+
+
+def _k7_width_errors(dev, dtype, d):
+    """K6 forward (keeping the lse) and K7 (bf16: inline_attention_bwd.cu;
+    fp32: fp32_attention_bwd.cu) over a training layout with pad rows and
+    over the small batched prefill (``index`` with batch stride 0), GQA
+    4:2, against the plain backward; then K7 on the two chunks of the
+    first layout's keys, each from the global lse of the whole row (a
+    ring's chunks): {grad: worst error / bar}."""
+    errs = {}
+    blocks, n_img = (2, 1, 2), 30
+    f = sum(blocks)
+    lay = layout.build_layout([layout.RowSpec(blocks, "training")], n_img,
+                              pad_to=2 * f * (n_img + 2))
+    lay_b = layout.frame_block_inference_layout(6, 2, 30, use_cfg=False,
+                                                rows=2)
+    mp = AttnMeta.from_layout(lay_b, dev).cols(
+        slice(0, lay_b.length - lay_b.noisy_tail_len()))
+    for case, meta in enumerate((AttnMeta.from_layout(lay, dev), mp)):
+        b, L = meta.index.shape
+        qkv = _operand(dev, 45 + case, dtype, b, L, 8, d)
+        q, k, v = qkv[:, :, :4].contiguous(), qkv[:, :, 4:6].contiguous(), \
+            qkv[:, :, 6:]
+        fa.reset_launch_counts()
+        out, lse = fa._inline_forward(q, k, v, meta, meta, with_lse=True)
+        do = _operand(dev, 47 + case, dtype, *out.shape)
+        chunks = [(slice(None), lse)]
+        if case == 0:  # two key chunks from the row's global lse
+            chunks += [(slice(0, L // 2), lse), (slice(L // 2, L), lse)]
+        for cols, lse_c in chunks:
+            km = meta.cols(cols)
+            kc, vc = k[:, cols], v[:, cols]
+            fa.reset_launch_counts()
+            got = fa.flash_mha_inline_bwd(q, kc, vc, meta, km, out, do,
+                                          lse_c)
+            torch.cuda.synchronize()
+            assert _launches(fa.flash_mha_inline_bwd, dtype) == 1
+            args = [x.float() for x in (q, kc, vc)] + [meta, km, out.float(),
+                                                       do.float()]
+            want = fa.inline_attention_backward_reference(*args, lse=lse_c)
+            mass = fa.inline_attention_backward_reference(
+                *args, magnitude=True, lse=lse_c)
+            for name, e in _bwd_errors(got, want, mass, dtype).items():
+                errs[name] = max(errs.get(name, 0.0), e)
+    return errs
+
+
+@pytest.mark.parametrize("dtype,d", WIDTH_CASES)
+def test_k7_at_every_width(dev, dtype, d):
+    """K7 at bf16 (padded widths 32 / 64 / 96 / 128: two warpgroups in its
+    dK/dV kernel at 128) and fp32, over its own lse and a ring chunk's
+    global one."""
+    errs = _k7_width_errors(dev, dtype, d)
+    assert max(errs.values()) <= 1.0, errs

@@ -240,6 +240,49 @@ def test_remat_gives_the_same_gradients(models):
                                    atol=1e-9, err_msg=name)
 
 
+def test_tiny_fp32_trainer_step_matches_jax(models):
+    """``train --tiny_model --mixed_precision no`` at stage 1, a recipe
+    that trains on CUDA too (the fp32 kernels at head_dim 16): one
+    ``Trainer`` step in fp32 (loss, backward through plain K3 / K9, clip,
+    AdamW) on the tiny model equals the JAX trainer's step from the same
+    parameters, batch and draws: loss rtol 1e-5, gradient norm rtol 1e-4,
+    every updated parameter rtol 1e-4 / atol 1e-6. AdamW's epsilon is
+    1e-3, as in the mesh step tests: at 1e-8 Adam's first step is
+    sign-like and amplifies ulp differences of near-zero gradients."""
+    from video_gpt_tpu.config import stage_config as jstage_config
+    from video_gpt_tpu.training.train_state import \
+        init_train_state as jinit_state
+    from video_gpt_tpu.training.train_state import \
+        make_train_step as jmake_step
+    jm, params = models
+    jin, tin, key, draws = _loss_pair()
+    kw = dict(frame_num=F, lr=1e-3, lr_scheduler="constant",
+              mixed_precision="no", adam_epsilon=1e-3)
+    jcfg = jstage_config(1, **kw)
+    jstate, jmetrics = jax.jit(jmake_step(jm, jcfg, max_blocks=F))(
+        jax.jit(lambda p: jinit_state(jm, p, jcfg))(params), key, jin)
+    cfg = ModelConfig.tiny(pos_embed_max_size=8)
+    assert cfg.head_dim == 16
+    trainer = Trainer(cfg, stage_config(1, **kw), None,
+                      vae_cfg=VAEConfig.tiny(),
+                      init_state_dict=_port_model(params).state_dict(),
+                      device="cpu")
+    state = trainer.build()
+    metrics = trainer._step_fn(state, tin, draws)
+    np.testing.assert_allclose(float(metrics["loss"]),
+                               float(jmetrics["loss"]), rtol=1e-5)
+    np.testing.assert_allclose(float(metrics["grad_norm"]),
+                               float(jmetrics["grad_norm"]), rtol=1e-4)
+    want = videogpt_state_dict_from_jax(
+        jax.device_get(jstate.params["params"]), cfg)
+    got = dict(state.model.named_parameters())
+    assert set(got) == set(want)
+    for name, p in got.items():
+        assert p.dtype == torch.float32, name
+        np.testing.assert_allclose(p.detach().numpy(), want[name].numpy(),
+                                   rtol=1e-4, atol=1e-6, err_msg=name)
+
+
 def test_train_init_zeroes_head_and_patch_embedder():
     tm = VideoGPT(ModelConfig.tiny(), train_init=True).init_random_(
         torch.Generator().manual_seed(0))

@@ -493,10 +493,9 @@ def _add_train_parser(sub) -> None:
     t.add_argument("--adam_beta2", type=float, default=0.95)
     t.add_argument("--mixed_precision", default="bf16",
                    choices=["bf16", "no"],
-                   help="bf16 compute over fp32 parameters; 'no' is fp32 "
-                        "and, like --tiny_model, trains on --device cpu "
-                        "only until the backward kernels take fp32 and "
-                        "every head width (ROADMAP.md queue 1)")
+                   help="bf16 compute over fp32 parameters; 'no' "
+                        "trains in fp32 end to end (the fp32 "
+                        "attention kernels on CUDA)")
     t.add_argument("--use_ema", action="store_true")
     t.add_argument("--cls_weight", type=float, default=None)
     t.add_argument("--input_noise", type=float, default=0.9)
@@ -849,10 +848,9 @@ def _add_image_parsers(sub) -> None:
     ti.add_argument("--ckpt_every", type=int, default=1000)
     ti.add_argument("--mixed_precision", default="bf16",
                     choices=["bf16", "no"],
-                    help="bf16 compute over fp32 parameters; 'no' is fp32 "
-                         "and, like --tiny_model, trains on --device cpu "
-                         "only until the backward kernels take fp32 and "
-                         "every head width (ROADMAP.md queue 1)")
+                    help="bf16 compute over fp32 parameters; 'no' "
+                         "trains in fp32 end to end (the fp32 "
+                         "attention kernels on CUDA)")
     ti.add_argument("--use_ema", action="store_true")
     ti.add_argument("--no_auto_resume", action="store_true")
     ti.add_argument("--vae_ckpt", type=str, default=None)

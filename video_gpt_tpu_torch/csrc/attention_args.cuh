@@ -1,8 +1,11 @@
-// The arguments of the forward attention kernels, one struct per mask: the
-// columnar rank (K1/K2, rank_attention.cu), the bias (K3,
-// bias_attention.cu) and the inline metadata (K6, inline_attention.cu). The
-// fp32 kernel (fp32_attention.cu) takes the same structs, its q, k, v and
-// out pointing at fp32 tensors; every other field means the same.
+// The arguments of the attention kernels, one struct per mask and
+// direction: the columnar rank (K1/K2, rank_attention.cu), the bias (K3,
+// bias_attention.cu; its backward K9, bias_attention_bwd.cu) and the inline
+// metadata (K6, inline_attention.cu; its backward K7,
+// inline_attention_bwd.cu). The fp32 kernels (fp32_attention.cu,
+// fp32_attention_bwd.cu) take the same structs, their q, k, v, out (o,
+// dout, dq, dk, dv) pointing at fp32 tensors; every other field means the
+// same.
 #pragma once
 
 #include <stdint.h>
@@ -71,6 +74,70 @@ struct InlineAttnArgs {
   int* scratch;       // B (nq + nk) 8 + 2 B nq ints (written): the query-
                       // and key-tile summaries, each query tile's count of
                       // non-empty key tiles, the launch order
+  int map_only;       // 1: build the tile map and stop
+};
+
+// Must match _BiasBwdArgs in video_gpt_tpu_torch/ops/flash_attention.py.
+struct BiasAttnBwdArgs {
+  const void* q;      // [B, Lq, H, D] (strided)
+  const void* k;      // keys [B, Lk, Hkv, D] (strided)
+  const void* v;      // values, same shape as the keys
+  const void* bias;   // bf16 [B, Lq, Lk], rows at stride bias_sq
+  const void* o;      // forward output [B, Lq, H, D]
+  const void* dout;   // its cotangent [B, Lq, H, D]
+  const float* lse;   // [B, H, Lq] contiguous, from the forward
+  float* delta;       // [B, H, Lq] contiguous scratch: rowsum(o * do)
+  void* dq;           // [B, Lq, H, D]
+  void* dk;           // [B, Lk, Hkv, D]
+  void* dv;           // [B, Lk, Hkv, D], the strides of dk
+  const int8_t* tile_map;  // [B, ceil(Lq/64), ceil(Lk/64)] tile classes and
+  const float* rowdead;    // [B, Lq] each row's dead-row count (see
+                           // bias_tile_map_kernel), from vgt_bias_tile_map
+  float* rowref;      // [B, H, Lq, 2] scratch: each row's softmax reference
+                      // (x_ref, off): p = exp2((x - x_ref) - off)
+  long long q_sb, q_sl, q_sh;
+  long long k_sb, k_sl, k_sh;
+  long long v_sb, v_sl, v_sh;
+  long long bias_sb, bias_sq;
+  long long o_sb, o_sl, o_sh;
+  long long do_sb, do_sl, do_sh;
+  long long dq_sb, dq_sl, dq_sh;
+  long long dkv_sb, dkv_sl, dkv_sh;
+  int batch, heads, kv_heads, lq, lk, head_dim;
+  float scale;        // head_dim^-0.5
+  float scale_log2;   // head_dim^-0.5 * log2(e)
+  int bias_vec;       // bias rows allow 16-byte loads
+};
+
+// Must match _InlineBwdArgs in video_gpt_tpu_torch/ops/flash_attention.py.
+struct InlineAttnBwdArgs {
+  const void* q;      // [B, Lq, H, D] (strided)
+  const void* k;      // keys [B, Lk, Hkv, D] (strided)
+  const void* v;      // values, same shape as the keys
+  const void* o;      // forward output [B, Lq, H, D]
+  const void* dout;   // its cotangent [B, Lq, H, D]
+  const float* lse;   // [B, H, Lq] contiguous, from the forward
+  float* delta;       // [B, H, Lq] contiguous scratch: rowsum(o * do)
+  void* dq;           // [B, Lq, H, D]
+  void* dk;           // [B, Lk, Hkv, D]
+  void* dv;           // [B, Lk, Hkv, D], the strides of dk
+  const int* qm[4];   // index, q_block, q_offset, is_pad [B, Lq]
+  const int* km[3];   // vis_start, noisy_block, noisy_role [B, Lk]
+  long long qm_sb[4], km_sb[3];
+  long long q_sb, q_sl, q_sh;
+  long long k_sb, k_sl, k_sh;
+  long long v_sb, v_sl, v_sh;
+  long long o_sb, o_sl, o_sh;
+  long long do_sb, do_sl, do_sh;
+  long long dq_sb, dq_sl, dq_sh;
+  long long dkv_sb, dkv_sl, dkv_sh;
+  int batch, heads, kv_heads, lq, lk, head_dim;
+  float scale;        // head_dim^-0.5
+  float scale_log2;   // head_dim^-0.5 * log2(e)
+  int8_t* tile_map;   // [B, ceil(Lq/64), ceil(Lk/64)] tile classes (written)
+  int* scratch;       // 8 B (nq + nk) + 2 B (nq + nk) ints (written): the
+                      // query- and key-tile summaries, the non-empty tiles
+                      // of each row and each column, the two launch orders
   int map_only;       // 1: build the tile map and stop
 };
 

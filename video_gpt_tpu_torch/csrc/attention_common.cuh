@@ -25,16 +25,15 @@ namespace vgt {
 
 using bf16 = __nv_bfloat16;
 
-// The backward kernels (K7, K9) are laid out for kHeadDim; the forward
-// kernels (K1/K2, K3, K6 and the fp32 kernel) are templates on the padded
-// head width DP, one instance per padded_head_dim, the head dims from the
-// true head_dim to DP zero-filled on load.
-constexpr int kHeadDim = 96;          // ModelConfig: 3072 wide, 32 heads
+// Every attention kernel, forward (K1/K2, K3, K6, the fp32 kernel) and
+// backward (K7, K9, the fp32 backward), is a template on the padded head
+// width DP, one instance per padded_head_dim, the head dims from the true
+// head_dim to DP zero-filled on load.
 constexpr int kMaxHeadDim = 128;
 
-// The head width a forward kernel instance is laid out for: the least of
-// 32, 64, 96, 128 that holds head_dim (whole 32-dim swizzle atoms); 0 for
-// a head_dim the kernels do not take (not a multiple of 8: 16-byte rows).
+// The head width a kernel instance is laid out for: the least of 32, 64,
+// 96, 128 that holds head_dim (whole 32-dim swizzle atoms); 0 for a
+// head_dim the kernels do not take (not a multiple of 8: 16-byte rows).
 __host__ __device__ constexpr int padded_head_dim(int d) {
   return d <= 0 || d > kMaxHeadDim || d % 8 ? 0 : (d + 31) / 32 * 32;
 }
@@ -208,15 +207,6 @@ __device__ __forceinline__ void async_copy_tile_dp(bf16* dst,
   }
 }
 
-// async_copy_tile_dp of a [ROWS][kHeadDim] tile (the backward kernels').
-template <int ROWS, int NT>
-__device__ __forceinline__ void async_copy_tile(bf16* dst, const bf16* src,
-                                              long long row_stride,
-                                              int rows_valid, int tid) {
-  async_copy_tile_dp<ROWS, NT, kHeadDim, false>(dst, src, row_stride,
-                                                rows_valid, kHeadDim, tid);
-}
-
 // Shared-memory matrix descriptor without swizzle: start address, the byte
 // offset between core matrices along the reduction (lbo) and along M or N
 // (sbo).
@@ -244,15 +234,6 @@ __device__ __forceinline__ uint64_t desc_mn_major_dp(const bf16* tile,
   return wgmma_desc(
       reinterpret_cast<const char*>(tile) + 2 * j * group_bytes<DP>(),
       group_bytes<DP>(), kCoreBytes);
-}
-
-// The same of a [rows][kHeadDim] tile (the backward kernels').
-__device__ __forceinline__ uint64_t desc_k_major(const bf16* tile, int kk) {
-  return desc_k_major_dp<kHeadDim>(tile, kk);
-}
-
-__device__ __forceinline__ uint64_t desc_mn_major(const bf16* tile, int j) {
-  return desc_mn_major_dp<kHeadDim>(tile, j);
 }
 
 __device__ __forceinline__ void wgmma_fence() {

@@ -55,6 +55,21 @@
 // The dQ kernel recomputes S and dP (7 products per tile, not 5) to keep
 // dq free of atomics.
 //
+// Head widths: the dK/dV and dQ kernels are templates on the padded head
+// width DP (32, 64, 96 or 128, attention_common.cuh `padded_head_dim`), as
+// the forward is: the tiles, the core-matrix layout (no swizzle at any DP)
+// and the wgmma N / K extents (m64nDPk16, DP / 16 K-steps) follow DP; the
+// head dims from head_dim to DP are zero-filled by cp.async (src-size 0),
+// add 0 to every product and are never stored, and the scale is
+// head_dim's own. A head_dim equal to its DP runs an instance without
+// those checks (kPadded false), so head_dim 96 runs the code it ran when
+// it was the only width. At DP 128 one warpgroup cannot hold dK and dV
+// (128 fp32 registers a thread) beside S^T and dP^T: the dK/dV kernel runs
+// two warpgroups there (kSplit), both computing S^T and dP^T of the tile,
+// the first accumulating dV = P^T.dO, the second dK = dS^T.Q, with the
+// same instructions (the operand and the stored gradient picked by the
+// warpgroup's index), so no product sits in a branch.
+//
 // A row whose bias is BF16_NEG everywhere sees no key; in fp32 every logit
 // of it is the same (the bias absorbs q.k), so its softmax is uniform over
 // its keys, while K3's lse of it carries no trace of the count. The
@@ -62,41 +77,10 @@
 // log2 n) with x_neg the row's common logit, in place of exp2(x - lse).
 #include <math_constants.h>
 
+#include "attention_args.cuh"
 #include "tile_map.cuh"
 
 namespace vgt {
-
-// Must match _BiasBwdArgs in video_gpt_tpu_torch/ops/flash_attention.py.
-struct BiasAttnBwdArgs {
-  const void* q;      // [B, Lq, H, D] (strided)
-  const void* k;      // keys [B, Lk, Hkv, D] (strided)
-  const void* v;      // values, same shape as the keys
-  const void* bias;   // bf16 [B, Lq, Lk], rows at stride bias_sq
-  const void* o;      // forward output [B, Lq, H, D]
-  const void* dout;   // its cotangent [B, Lq, H, D]
-  const float* lse;   // [B, H, Lq] contiguous, from the forward
-  float* delta;       // [B, H, Lq] contiguous scratch: rowsum(o * do)
-  void* dq;           // [B, Lq, H, D]
-  void* dk;           // [B, Lk, Hkv, D]
-  void* dv;           // [B, Lk, Hkv, D], the strides of dk
-  const int8_t* tile_map;  // [B, ceil(Lq/64), ceil(Lk/64)] tile classes and
-  const float* rowdead;    // [B, Lq] each row's dead-row count (see
-                           // bias_tile_map_kernel), from vgt_bias_tile_map
-  float* rowref;      // [B, H, Lq, 2] scratch: each row's softmax reference
-                      // (x_ref, off): p = exp2((x - x_ref) - off)
-  long long q_sb, q_sl, q_sh;
-  long long k_sb, k_sl, k_sh;
-  long long v_sb, v_sl, v_sh;
-  long long bias_sb, bias_sq;
-  long long o_sb, o_sl, o_sh;
-  long long do_sb, do_sl, do_sh;
-  long long dq_sb, dq_sl, dq_sh;
-  long long dkv_sb, dkv_sl, dkv_sh;
-  int batch, heads, kv_heads, lq, lk, head_dim;
-  float scale;        // head_dim^-0.5
-  float scale_log2;   // head_dim^-0.5 * log2(e)
-  int bias_vec;       // bias rows allow 16-byte loads
-};
 
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr int kDeltaWarps = 8;
@@ -132,36 +116,44 @@ __global__ void __launch_bounds__(32 * kDeltaWarps)
   }
 }
 
-// The bias tile of query rows q0.. and keys k0.. of batch row b into bs
-// [64][kBiasLd] (tile_map.cuh's load_bias_tile).
-__device__ __forceinline__ void load_bias_tile(bf16* bs, const BiasAttnBwdArgs& a,
-                                               int b, int q0, int k0, int tid) {
-  load_bias_tile<kBlockQ, kBlockK, kThreads>(
-      bs, kBiasLd, static_cast<const bf16*>(a.bias) + b * a.bias_sb,
-      a.bias_sq, a.lq, a.lk, a.bias_vec != 0, q0, k0, tid);
-}
-
 constexpr int kStages = 2;  // ring depth of the streamed tiles
-constexpr int kTile = kBlockK * kHeadDim;  // one core-matrix tile (elements)
+// one core-matrix tile at padded head width DP (elements)
+template <int DP>
+__host__ __device__ constexpr int bwd_tile() {
+  return kBlockK * DP;
+}
+// the dK/dV kernel's warpgroups: two at DP 128, one owning dV and one dK
+template <int DP>
+__host__ __device__ constexpr bool dkdv_split() {
+  return DP > 96;
+}
 
 // dK/dV kernel shared memory: K, V; per stage Q, dO, the bias tile, delta
 // and the softmax references of the query tile; the list of query tiles.
-constexpr int kDkdvStage = 2 * kTile * 2 + kBlockQ * kBiasLd * 2 +
-                           3 * kBlockQ * 4;
+template <int DP>
+__host__ __device__ constexpr int dkdv_stage() {
+  return 2 * bwd_tile<DP>() * 2 + kBlockQ * kBiasLd * 2 + 3 * kBlockQ * 4;
+}
+template <int DP>
 __host__ __device__ constexpr int dkdv_smem_bytes(int nq) {
-  return 2 * kTile * 2 + kStages * kDkdvStage + nq * 4;
+  return 2 * bwd_tile<DP>() * 2 + kStages * dkdv_stage<DP>() + nq * 4;
 }
 
-// 2. dK/dV of one 64-key tile of one kv head; warp w owns keys w*16..+15.
-// Per non-empty query tile of the map's column, for each q head of the
-// group, the transposed products, rows = keys:
+// 2. dK/dV of one 64-key tile of one kv head; warp w (of a warpgroup) owns
+// keys w*16..+15. Per non-empty query tile of the map's column, for each q
+// head of the group, the transposed products, rows = keys:
 //   S^T = K.Q^T, P^T = exp2(S^T scale_log2 + bias^T log2e - x_ref) 2^-off,
 //   dV += P^T.dO, dP^T = V.dO^T, dS^T = P^T (dP^T - di) scale, dK += dS^T.Q
-template <int D>
-__global__ void __launch_bounds__(kThreads)
+// At padded head width DP; kPadded: head_dim < DP (dims past it zero-filled
+// on load, never stored).
+template <int DP, bool kPadded>
+__global__ void __launch_bounds__(dkdv_split<DP>() ? 2 * kThreads : kThreads)
     bias_attention_dkdv_kernel(const BiasAttnBwdArgs a) {
-  static_assert(D == kHeadDim, "tiles are laid out for kHeadDim");
-  constexpr int NO = D / 8;
+  constexpr bool kSplit = dkdv_split<DP>();
+  constexpr int NT = kSplit ? 2 * kThreads : kThreads;
+  constexpr int NO = DP / 8;
+  constexpr int kTile = bwd_tile<DP>();
+  constexpr int kDkdvStage = dkdv_stage<DP>();
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* ks = reinterpret_cast<bf16*>(smem);
   bf16* vs = ks + kTile;
@@ -172,16 +164,19 @@ __global__ void __launch_bounds__(kThreads)
   const int group = a.heads / a.kv_heads;
   const int nq = (a.lq + kBlockQ - 1) / kBlockQ;
   const int nk = (a.lk + kBlockK - 1) / kBlockK;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  // kSplit: warpgroup 0 accumulates dV, warpgroup 1 dK
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int warp = kSplit ? (tid >> 5) & 3 : tid >> 5;
+  const int wg = kSplit ? tid >> 7 : 0;
   const int g = lane >> 2, t = lane & 3;
   const int kvalid = min(kBlockK, a.lk - k0);
 
-  async_copy_tile<kBlockK, kThreads>(
+  async_copy_tile_dp<kBlockK, NT, DP, kPadded>(
       ks, static_cast<const bf16*>(a.k) + b * a.k_sb + hk * a.k_sh +
-              k0 * a.k_sl, a.k_sl, kvalid, tid);
-  async_copy_tile<kBlockK, kThreads>(
+              k0 * a.k_sl, a.k_sl, kvalid, a.head_dim, tid);
+  async_copy_tile_dp<kBlockK, NT, DP, kPadded>(
       vs, static_cast<const bf16*>(a.v) + b * a.v_sb + hk * a.v_sh +
-              k0 * a.v_sl, a.v_sl, kvalid, tid);
+              k0 * a.v_sl, a.v_sl, kvalid, a.head_dim, tid);
   async_commit();
   const int n = gather_tiles(
       a.tile_map + static_cast<long long>(b) * nq * nk + blockIdx.x, nk, nq,
@@ -204,14 +199,14 @@ __global__ void __launch_bounds__(kThreads)
     const int e = list[i % n], q0 = (e >> 2) * kBlockQ;
     const int h = hk * group + i / n;
     const int qvalid = min(kBlockQ, a.lq - q0);
-    async_copy_tile<kBlockQ, kThreads>(
+    async_copy_tile_dp<kBlockQ, NT, DP, kPadded>(
         qs, static_cast<const bf16*>(a.q) + b * a.q_sb + h * a.q_sh +
-                q0 * a.q_sl, a.q_sl, qvalid, tid);
-    async_copy_tile<kBlockQ, kThreads>(
+                q0 * a.q_sl, a.q_sl, qvalid, a.head_dim, tid);
+    async_copy_tile_dp<kBlockQ, NT, DP, kPadded>(
         dos, static_cast<const bf16*>(a.dout) + b * a.do_sb + h * a.do_sh +
-                 q0 * a.do_sl, a.do_sl, qvalid, tid);
+                 q0 * a.do_sl, a.do_sl, qvalid, a.head_dim, tid);
     const long long row0 = (static_cast<long long>(b) * a.heads + h) * a.lq + q0;
-    for (int c = tid; c < 3 * kBlockQ; c += kThreads) {
+    for (int c = tid; c < 3 * kBlockQ; c += NT) {
       const int r = c < kBlockQ ? c : (c - kBlockQ) >> 1;
       const bool ok = r < qvalid;
       if (c < kBlockQ)
@@ -220,16 +215,24 @@ __global__ void __launch_bounds__(kThreads)
         async_copy4(ref + (c - kBlockQ), a.rowref + (ok ? 2 * row0 + c - kBlockQ : 0),
                   ok);
     }
-    if ((e & 3) == kTilePartial) load_bias_tile(bs, a, b, q0, k0, tid);
+    if ((e & 3) == kTilePartial)
+      load_bias_tile<kBlockQ, kBlockK, NT>(
+          bs, kBiasLd, static_cast<const bf16*>(a.bias) + b * a.bias_sb,
+          a.bias_sq, a.lq, a.lk, a.bias_vec != 0, q0, k0, tid);
   };
   for (int p = 0; p < kStages - 1; ++p) {  // the ring's first tiles
     if (p < pairs) prefetch(p);
     async_commit();
   }
 
-  float dk[NO * 4], dv[NO * 4];
+  // kSplit: one accumulator a thread, dV (warpgroup 0) or dK (1)
+  float dk[kSplit ? 1 : NO * 4], dv[NO * 4];
 #pragma unroll
-  for (int i = 0; i < NO * 4; ++i) dk[i] = dv[i] = 0.f;
+  for (int i = 0; i < NO * 4; ++i) dv[i] = 0.f;
+  if constexpr (!kSplit) {
+#pragma unroll
+    for (int i = 0; i < NO * 4; ++i) dk[i] = 0.f;
+  }
 
   for (int i = 0; i < pairs; ++i) {
     if (i + kStages - 1 < pairs) prefetch(i + kStages - 1);
@@ -247,11 +250,13 @@ __global__ void __launch_bounds__(kThreads)
     for (int j = 0; j < 32; ++j) st[j] = dpt[j] = 0.f;
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
-      wgmma_64x64_ss(st, desc_k_major(ks, kk), desc_k_major(qs, kk), 1);
+    for (int kk = 0; kk < DP / 16; ++kk)
+      wgmma_64x64_ss(st, desc_k_major_dp<DP>(ks, kk),
+                     desc_k_major_dp<DP>(qs, kk), 1);
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
-      wgmma_64x64_ss(dpt, desc_k_major(vs, kk), desc_k_major(dos, kk), 1);
+    for (int kk = 0; kk < DP / 16; ++kk)
+      wgmma_64x64_ss(dpt, desc_k_major_dp<DP>(vs, kk),
+                     desc_k_major_dp<DP>(dos, kk), 1);
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(st);
@@ -275,23 +280,41 @@ __global__ void __launch_bounds__(kThreads)
       st[j] = p;
       dpt[j] = p * (dpt[j] - dl[qc]) * a.scale;
     }
-    uint32_t pa[kBlockQ / 16][4], da[kBlockQ / 16][4];
+    if constexpr (kSplit) {
+      // the A operand of this warpgroup's product: P^T (dV) or dS^T (dK),
+      // against dO or Q
 #pragma unroll
-    for (int j = 0; j < kBlockQ / 16; ++j) {
-      acc_to_a(pa[j], st + 8 * j);
-      acc_to_a(da[j], dpt + 8 * j);
+      for (int j = 0; j < 32; ++j) st[j] = wg ? dpt[j] : st[j];
+      uint32_t fa[kBlockQ / 16][4];
+#pragma unroll
+      for (int j = 0; j < kBlockQ / 16; ++j) acc_to_a(fa[j], st + 8 * j);
+      const bf16* bt = wg ? qs : dos;
+      wgmma_fence();
+#pragma unroll
+      for (int j = 0; j < kBlockQ / 16; ++j)
+        wgmma_pv<DP>(dv, fa[j], desc_mn_major_dp<DP>(bt, j));
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(dv);
+    } else {
+      uint32_t pa[kBlockQ / 16][4], da[kBlockQ / 16][4];
+#pragma unroll
+      for (int j = 0; j < kBlockQ / 16; ++j) {
+        acc_to_a(pa[j], st + 8 * j);
+        acc_to_a(da[j], dpt + 8 * j);
+      }
+      wgmma_fence();
+#pragma unroll
+      for (int j = 0; j < kBlockQ / 16; ++j)
+        wgmma_pv<DP>(dv, pa[j], desc_mn_major_dp<DP>(dos, j));
+#pragma unroll
+      for (int j = 0; j < kBlockQ / 16; ++j)
+        wgmma_pv<DP>(dk, da[j], desc_mn_major_dp<DP>(qs, j));
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(dv);
+      fence_regs(dk);
     }
-    wgmma_fence();
-#pragma unroll
-    for (int j = 0; j < kBlockQ / 16; ++j)
-      wgmma_64x96_rs(dv, pa[j], desc_mn_major(dos, j));
-#pragma unroll
-    for (int j = 0; j < kBlockQ / 16; ++j)
-      wgmma_64x96_rs(dk, da[j], desc_mn_major(qs, j));
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_regs(dv);
-    fence_regs(dk);
     __syncthreads();  // every warp is done with this stage before its refill
   }
   async_wait<0>();
@@ -299,42 +322,63 @@ __global__ void __launch_bounds__(kThreads)
   const int kr0 = warp * 16 + g, kr1 = kr0 + 8;  // this thread's key rows
   bf16* dkp = static_cast<bf16*>(a.dk) + b * a.dkv_sb + hk * a.dkv_sh;
   bf16* dvp = static_cast<bf16*>(a.dv) + b * a.dkv_sb + hk * a.dkv_sh;
+  if constexpr (kSplit) {
+    bf16* out = wg ? dkp : dvp;
 #pragma unroll
-  for (int n8 = 0; n8 < NO; ++n8) {
-    const int c = n8 * 8 + 2 * t;
-    if (kr0 < kvalid) {
-      const long long off = (k0 + kr0) * a.dkv_sl + c;
-      *reinterpret_cast<uint32_t*>(dkp + off) =
-          pack_bf16(dk[4 * n8], dk[4 * n8 + 1]);
-      *reinterpret_cast<uint32_t*>(dvp + off) =
-          pack_bf16(dv[4 * n8], dv[4 * n8 + 1]);
+    for (int n8 = 0; n8 < NO; ++n8) {
+      const int c = n8 * 8 + 2 * t;
+      if (kPadded && n8 * 8 >= a.head_dim) break;  // padded dims: not stored
+      if (kr0 < kvalid)
+        *reinterpret_cast<uint32_t*>(out + (k0 + kr0) * a.dkv_sl + c) =
+            pack_bf16(dv[4 * n8], dv[4 * n8 + 1]);
+      if (kr1 < kvalid)
+        *reinterpret_cast<uint32_t*>(out + (k0 + kr1) * a.dkv_sl + c) =
+            pack_bf16(dv[4 * n8 + 2], dv[4 * n8 + 3]);
     }
-    if (kr1 < kvalid) {
-      const long long off = (k0 + kr1) * a.dkv_sl + c;
-      *reinterpret_cast<uint32_t*>(dkp + off) =
-          pack_bf16(dk[4 * n8 + 2], dk[4 * n8 + 3]);
-      *reinterpret_cast<uint32_t*>(dvp + off) =
-          pack_bf16(dv[4 * n8 + 2], dv[4 * n8 + 3]);
+  } else {
+#pragma unroll
+    for (int n8 = 0; n8 < NO; ++n8) {
+      const int c = n8 * 8 + 2 * t;
+      if (kPadded && n8 * 8 >= a.head_dim) break;  // padded dims: not stored
+      if (kr0 < kvalid) {
+        const long long off = (k0 + kr0) * a.dkv_sl + c;
+        *reinterpret_cast<uint32_t*>(dkp + off) =
+            pack_bf16(dk[4 * n8], dk[4 * n8 + 1]);
+        *reinterpret_cast<uint32_t*>(dvp + off) =
+            pack_bf16(dv[4 * n8], dv[4 * n8 + 1]);
+      }
+      if (kr1 < kvalid) {
+        const long long off = (k0 + kr1) * a.dkv_sl + c;
+        *reinterpret_cast<uint32_t*>(dkp + off) =
+            pack_bf16(dk[4 * n8 + 2], dk[4 * n8 + 3]);
+        *reinterpret_cast<uint32_t*>(dvp + off) =
+            pack_bf16(dv[4 * n8 + 2], dv[4 * n8 + 3]);
+      }
     }
   }
 }
 
 // dQ kernel shared memory: Q, dO; per stage K, V and the bias tile; the
 // list of key tiles.
-constexpr int kDqStage = 2 * kTile * 2 + kBlockQ * kBiasLd * 2;
+template <int DP>
+__host__ __device__ constexpr int dq_stage() {
+  return 2 * bwd_tile<DP>() * 2 + kBlockQ * kBiasLd * 2;
+}
+template <int DP>
 __host__ __device__ constexpr int dq_smem_bytes(int nk) {
-  return 2 * kTile * 2 + kStages * kDqStage + nk * 4;
+  return 2 * bwd_tile<DP>() * 2 + kStages * dq_stage<DP>() + nk * 4;
 }
 
 // 3. dQ of one 64-row query tile of one head; warp w owns rows w*16..+15;
 // the non-empty key tiles of the map's row stream through the ring:
 //   S = Q.K^T, P = exp2(S scale_log2 + bias log2e - x_ref) 2^-off,
 //   dP = dO.V^T, dS = P (dP - di) scale, dQ += dS.K
-template <int D>
+template <int DP, bool kPadded>
 __global__ void __launch_bounds__(kThreads)
     bias_attention_dq_kernel(const BiasAttnBwdArgs a) {
-  static_assert(D == kHeadDim, "tiles are laid out for kHeadDim");
-  constexpr int NO = D / 8;
+  constexpr int NO = DP / 8;
+  constexpr int kTile = bwd_tile<DP>();
+  constexpr int kDqStage = dq_stage<DP>();
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* qs = reinterpret_cast<bf16*>(smem);
   bf16* dos = qs + kTile;
@@ -349,12 +393,12 @@ __global__ void __launch_bounds__(kThreads)
   const int g = lane >> 2, t = lane & 3;
   const int qvalid = min(kBlockQ, a.lq - q0);
 
-  async_copy_tile<kBlockQ, kThreads>(
+  async_copy_tile_dp<kBlockQ, kThreads, DP, kPadded>(
       qs, static_cast<const bf16*>(a.q) + b * a.q_sb + h * a.q_sh +
-              q0 * a.q_sl, a.q_sl, qvalid, tid);
-  async_copy_tile<kBlockQ, kThreads>(
+              q0 * a.q_sl, a.q_sl, qvalid, a.head_dim, tid);
+  async_copy_tile_dp<kBlockQ, kThreads, DP, kPadded>(
       dos, static_cast<const bf16*>(a.dout) + b * a.do_sb + h * a.do_sh +
-               q0 * a.do_sl, a.do_sl, qvalid, tid);
+               q0 * a.do_sl, a.do_sl, qvalid, a.head_dim, tid);
   async_commit();
   const int n = gather_tiles(
       a.tile_map + (static_cast<long long>(b) * nq + blockIdx.x) * nk, 1, nk,
@@ -366,12 +410,15 @@ __global__ void __launch_bounds__(kThreads)
     bf16* kt = reinterpret_cast<bf16*>(stages + (i % kStages) * kDqStage);
     const int e = list[i], k0 = (e >> 2) * kBlockK;
     const int valid = min(kBlockK, a.lk - k0);
-    async_copy_tile<kBlockK, kThreads>(kt, kp + k0 * a.k_sl, a.k_sl, valid,
-                                     tid);
-    async_copy_tile<kBlockK, kThreads>(kt + kTile, vp + k0 * a.v_sl, a.v_sl,
-                                     valid, tid);
+    async_copy_tile_dp<kBlockK, kThreads, DP, kPadded>(
+        kt, kp + k0 * a.k_sl, a.k_sl, valid, a.head_dim, tid);
+    async_copy_tile_dp<kBlockK, kThreads, DP, kPadded>(
+        kt + kTile, vp + k0 * a.v_sl, a.v_sl, valid, a.head_dim, tid);
     if ((e & 3) == kTilePartial)
-      load_bias_tile(kt + 2 * kTile, a, b, q0, k0, tid);
+      load_bias_tile<kBlockQ, kBlockK, kThreads>(
+          kt + 2 * kTile, kBiasLd,
+          static_cast<const bf16*>(a.bias) + b * a.bias_sb, a.bias_sq, a.lq,
+          a.lk, a.bias_vec != 0, q0, k0, tid);
   };
   for (int p = 0; p < kStages - 1; ++p) {  // the ring's first tiles
     if (p < n) prefetch(p);
@@ -415,11 +462,13 @@ __global__ void __launch_bounds__(kThreads)
     for (int j = 0; j < 32; ++j) s[j] = dp[j] = 0.f;
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
-      wgmma_64x64_ss(s, desc_k_major(qs, kk), desc_k_major(kt, kk), 1);
+    for (int kk = 0; kk < DP / 16; ++kk)
+      wgmma_64x64_ss(s, desc_k_major_dp<DP>(qs, kk),
+                     desc_k_major_dp<DP>(kt, kk), 1);
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
-      wgmma_64x64_ss(dp, desc_k_major(dos, kk), desc_k_major(vt, kk), 1);
+    for (int kk = 0; kk < DP / 16; ++kk)
+      wgmma_64x64_ss(dp, desc_k_major_dp<DP>(dos, kk),
+                     desc_k_major_dp<DP>(vt, kk), 1);
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(s);
@@ -446,7 +495,7 @@ __global__ void __launch_bounds__(kThreads)
     wgmma_fence();
 #pragma unroll
     for (int j = 0; j < kBlockK / 16; ++j)
-      wgmma_64x96_rs(dq, da[j], desc_mn_major(kt, j));
+      wgmma_pv<DP>(dq, da[j], desc_mn_major_dp<DP>(kt, j));
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(dq);
@@ -458,6 +507,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
   for (int n8 = 0; n8 < NO; ++n8) {
     const int c = n8 * 8 + 2 * t;
+    if (kPadded && n8 * 8 >= a.head_dim) break;  // padded dims: not stored
     if (r0 < a.lq)
       *reinterpret_cast<uint32_t*>(out + r0 * a.dq_sl + c) =
           pack_bf16(dq[4 * n8], dq[4 * n8 + 1]);
@@ -465,6 +515,33 @@ __global__ void __launch_bounds__(kThreads)
       *reinterpret_cast<uint32_t*>(out + r1 * a.dq_sl + c) =
           pack_bf16(dq[4 * n8 + 2], dq[4 * n8 + 3]);
   }
+}
+
+// dK/dV, then dQ, at padded head width DP; returns the first nonzero
+// cudaGetLastError() (0 = both launched).
+template <int DP, bool kPadded>
+int launch_bias_bwd(const BiasAttnBwdArgs* a, cudaStream_t s) {
+  const int nq = (a->lq + kBlockQ - 1) / kBlockQ;
+  const int nk = (a->lk + kBlockK - 1) / kBlockK;
+  int smem = dkdv_smem_bytes<DP>(nq);
+  cudaError_t err = cudaFuncSetAttribute(
+      bias_attention_dkdv_kernel<DP, kPadded>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid_kv(nk, a->kv_heads, a->batch);
+  bias_attention_dkdv_kernel<DP, kPadded>
+      <<<grid_kv, dkdv_split<DP>() ? 2 * kThreads : kThreads, smem, s>>>(*a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+
+  smem = dq_smem_bytes<DP>(nk);
+  err = cudaFuncSetAttribute(bias_attention_dq_kernel<DP, kPadded>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid_q(nq, a->heads, a->batch);
+  bias_attention_dq_kernel<DP, kPadded><<<grid_q, kThreads, smem, s>>>(*a);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace vgt
@@ -476,32 +553,25 @@ extern "C" int vgt_bias_attention_bwd(const vgt::BiasAttnBwdArgs* a,
                                       void* stream) {
   using namespace vgt;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (a->head_dim != kHeadDim) return static_cast<int>(cudaErrorInvalidValue);
-  const int nq = (a->lq + kBlockQ - 1) / kBlockQ;
-  const int nk = (a->lk + kBlockK - 1) / kBlockK;
+  // a head_dim below its padded width takes the instance that zero-fills
+  // the dims past it; the exact widths take their own
+  const int dp = padded_head_dim(a->head_dim);
+  if (dp == 0) return static_cast<int>(cudaErrorInvalidValue);
+  const bool pad = a->head_dim != dp;
   const long long rows = static_cast<long long>(a->batch) * a->heads * a->lq;
   bias_attention_delta_kernel<<<
       static_cast<unsigned>((rows + kDeltaWarps - 1) / kDeltaWarps),
       32 * kDeltaWarps, 0, s>>>(*a);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-
-  int smem = dkdv_smem_bytes(nq);
-  err = cudaFuncSetAttribute(bias_attention_dkdv_kernel<kHeadDim>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid_kv(nk, a->kv_heads, a->batch);
-  bias_attention_dkdv_kernel<kHeadDim><<<grid_kv, kThreads, smem, s>>>(*a);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-
-  smem = dq_smem_bytes(nk);
-  err = cudaFuncSetAttribute(bias_attention_dq_kernel<kHeadDim>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid_q(nq, a->heads, a->batch);
-  bias_attention_dq_kernel<kHeadDim><<<grid_q, kThreads, smem, s>>>(*a);
-  return static_cast<int>(cudaGetLastError());
+  switch (dp) {
+    case 32: return pad ? launch_bias_bwd<32, true>(a, s)
+                        : launch_bias_bwd<32, false>(a, s);
+    case 64: return pad ? launch_bias_bwd<64, true>(a, s)
+                        : launch_bias_bwd<64, false>(a, s);
+    case 96: return pad ? launch_bias_bwd<96, true>(a, s)
+                        : launch_bias_bwd<96, false>(a, s);
+    default: return pad ? launch_bias_bwd<128, true>(a, s)
+                        : launch_bias_bwd<128, false>(a, s);
+  }
 }

@@ -270,7 +270,7 @@ extern "C" int vgt_inline_attention(const vgt::InlineAttnArgs* a,
   using namespace vgt;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int dp = padded_head_dim(a->head_dim);
-  if (dp == 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (dp == 0 && !a->map_only) return static_cast<int>(cudaErrorInvalidValue);
   const int* order = nullptr;
   const int err = launch_inline_tile_map(*a, s, &order);
   if (err != 0 || a->map_only) return err;

@@ -51,6 +51,12 @@
 //      through the ring; S = Q.K^T, dP = dO.V^T (m64n64k16), dQ += dS.K
 //      (m64n96k16). It recomputes S and dP (7 products per tile, not 5) to
 //      keep dq free of atomics, so the result is deterministic.
+// Head widths: the dK/dV and dQ kernels are templates on the padded head
+// width DP (32, 64, 96 or 128), as K9's are (bias_attention_bwd.cu): the
+// tiles, the core-matrix layout and the wgmma extents follow DP, the head
+// dims past head_dim are zero-filled by cp.async and never stored, head_dim
+// 96 runs an instance without those checks, and at DP 128 the dK/dV kernel
+// runs two warpgroups, one accumulating dV and one dK.
 // Partial tiles evaluate the rule per element; full tiles skip it, and need
 // no bounds check (a full tile lies inside [0, Lq) x [0, Lk)). An empty
 // tile holds no visible pair, so skipping it changes no sum. A key tile
@@ -61,46 +67,24 @@
 // the inputs' dtype from fp32 accumulators.
 #include <math_constants.h>
 
+#include "attention_args.cuh"
 #include "inline_mask.cuh"
 
 namespace vgt {
 
-// Must match _InlineBwdArgs in video_gpt_tpu_torch/ops/flash_attention.py.
-struct InlineAttnBwdArgs {
-  const void* q;      // [B, Lq, H, D] (strided)
-  const void* k;      // keys [B, Lk, Hkv, D] (strided)
-  const void* v;      // values, same shape as the keys
-  const void* o;      // forward output [B, Lq, H, D]
-  const void* dout;   // its cotangent [B, Lq, H, D]
-  const float* lse;   // [B, H, Lq] contiguous, from the forward
-  float* delta;       // [B, H, Lq] contiguous scratch: rowsum(o * do)
-  void* dq;           // [B, Lq, H, D]
-  void* dk;           // [B, Lk, Hkv, D]
-  void* dv;           // [B, Lk, Hkv, D], the strides of dk
-  const int* qm[4];   // index, q_block, q_offset, is_pad [B, Lq]
-  const int* km[3];   // vis_start, noisy_block, noisy_role [B, Lk]
-  long long qm_sb[4], km_sb[3];
-  long long q_sb, q_sl, q_sh;
-  long long k_sb, k_sl, k_sh;
-  long long v_sb, v_sl, v_sh;
-  long long o_sb, o_sl, o_sh;
-  long long do_sb, do_sl, do_sh;
-  long long dq_sb, dq_sl, dq_sh;
-  long long dkv_sb, dkv_sl, dkv_sh;
-  int batch, heads, kv_heads, lq, lk, head_dim;
-  float scale;        // head_dim^-0.5
-  float scale_log2;   // head_dim^-0.5 * log2(e)
-  int8_t* tile_map;   // [B, ceil(Lq/64), ceil(Lk/64)] tile classes (written)
-  int* scratch;       // 8 B (nq + nk) + 2 B (nq + nk) ints (written): the
-                      // query- and key-tile summaries, the non-empty tiles
-                      // of each row and each column, the two launch orders
-  int map_only;       // 1: build the tile map and stop
-};
-
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr int kDeltaWarps = 8;
 constexpr int kStages = 2;                  // ring depth of the streamed tiles
-constexpr int kTile = kBlockK * kHeadDim;   // one core-matrix tile (elements)
+// one core-matrix tile at padded head width DP (elements)
+template <int DP>
+__host__ __device__ constexpr int bwd_tile() {
+  return kBlockK * DP;
+}
+// the dK/dV kernel's warpgroups: two at DP 128, one owning dV and one dK
+template <int DP>
+__host__ __device__ constexpr bool dkdv_split() {
+  return DP > 96;
+}
 
 // 2. di = rowsum(o * do): one warp per (b, h, query row).
 __global__ void __launch_bounds__(32 * kDeltaWarps)
@@ -128,22 +112,31 @@ __global__ void __launch_bounds__(32 * kDeltaWarps)
 // dK/dV kernel shared memory: K, V, the key tile's metadata; per stage Q,
 // dO, the query tile's lse and delta and its four metadata vectors; the
 // list of query tiles.
-constexpr int kDkdvStage = 2 * kTile * 2 + 2 * kBlockQ * 4 + 4 * kBlockQ * 4;
+template <int DP>
+__host__ __device__ constexpr int dkdv_stage() {
+  return 2 * bwd_tile<DP>() * 2 + 2 * kBlockQ * 4 + 4 * kBlockQ * 4;
+}
+template <int DP>
 __host__ __device__ constexpr int dkdv_smem_bytes(int nq) {
-  return 2 * kTile * 2 + 3 * kBlockK * 4 + kStages * kDkdvStage + nq * 4;
+  return 2 * bwd_tile<DP>() * 2 + 3 * kBlockK * 4 + kStages * dkdv_stage<DP>() +
+         nq * 4;
 }
 
-// 3. dK/dV (K7b) of one 64-key tile of one kv head; warp w owns keys
-// w*16..+15. Per (q head of the group, non-empty query tile of the map's
-// column), the transposed products, rows = keys:
+// 3. dK/dV (K7b) of one 64-key tile of one kv head; warp w (of a
+// warpgroup) owns keys w*16..+15. Per (q head of the group, non-empty query
+// tile of the map's column), the transposed products, rows = keys:
 //   S^T = K.Q^T, P^T = exp2(S^T scale_log2 - lse log2e) where visible,
 //   dV += P^T.dO, dP^T = V.dO^T, dS^T = P^T (dP^T - di) scale, dK += dS^T.Q
-template <int D>
-__global__ void __launch_bounds__(kThreads)
+// At padded head width DP; kPadded: head_dim < DP.
+template <int DP, bool kPadded>
+__global__ void __launch_bounds__(dkdv_split<DP>() ? 2 * kThreads : kThreads)
     inline_attention_dkdv_kernel(const InlineAttnBwdArgs a, const int* order) {
-  static_assert(D == kHeadDim, "tiles are laid out for kHeadDim");
   static_assert(kBlockQ == kBlockK, "Q and K tiles share kTile");
-  constexpr int NO = D / 8;
+  constexpr bool kSplit = dkdv_split<DP>();
+  constexpr int NT = kSplit ? 2 * kThreads : kThreads;
+  constexpr int NO = DP / 8;
+  constexpr int kTile = bwd_tile<DP>();
+  constexpr int kDkdvStage = dkdv_stage<DP>();
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* ks = reinterpret_cast<bf16*>(smem);
   bf16* vs = ks + kTile;
@@ -156,17 +149,20 @@ __global__ void __launch_bounds__(kThreads)
   const int item = order[blockIdx.x];
   const int b = item / nk, kt = item % nk, k0 = kt * kBlockK;
   const int hk = blockIdx.y, group = a.heads / a.kv_heads;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  // kSplit: warpgroup 0 accumulates dV, warpgroup 1 dK
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int warp = kSplit ? (tid >> 5) & 3 : tid >> 5;
+  const int wg = kSplit ? tid >> 7 : 0;
   const int g = lane >> 2, t = lane & 3;
   const int kvalid = min(kBlockK, a.lk - k0);
 
-  async_copy_tile<kBlockK, kThreads>(
+  async_copy_tile_dp<kBlockK, NT, DP, kPadded>(
       ks, static_cast<const bf16*>(a.k) + b * a.k_sb + hk * a.k_sh +
-              k0 * a.k_sl, a.k_sl, kvalid, tid);
-  async_copy_tile<kBlockK, kThreads>(
+              k0 * a.k_sl, a.k_sl, kvalid, a.head_dim, tid);
+  async_copy_tile_dp<kBlockK, NT, DP, kPadded>(
       vs, static_cast<const bf16*>(a.v) + b * a.v_sb + hk * a.v_sh +
-              k0 * a.v_sl, a.v_sl, kvalid, tid);
-  for (int c = tid; c < 3 * kBlockK; c += kThreads) {
+              k0 * a.v_sl, a.v_sl, kvalid, a.head_dim, tid);
+  for (int c = tid; c < 3 * kBlockK; c += NT) {
     const int m = c / kBlockK, j = c % kBlockK;
     const bool ok = j < kvalid;
     async_copy4(kmeta + c, a.km[m] + b * a.km_sb[m] + (ok ? k0 + j : 0), ok);
@@ -193,22 +189,22 @@ __global__ void __launch_bounds__(kThreads)
     const int e = list[i % n], q0 = (e >> 2) * kBlockQ;
     const int h = hk * group + i / n;
     const int qvalid = min(kBlockQ, a.lq - q0);
-    async_copy_tile<kBlockQ, kThreads>(
+    async_copy_tile_dp<kBlockQ, NT, DP, kPadded>(
         qs, static_cast<const bf16*>(a.q) + b * a.q_sb + h * a.q_sh +
-                q0 * a.q_sl, a.q_sl, qvalid, tid);
-    async_copy_tile<kBlockQ, kThreads>(
+                q0 * a.q_sl, a.q_sl, qvalid, a.head_dim, tid);
+    async_copy_tile_dp<kBlockQ, NT, DP, kPadded>(
         dos, static_cast<const bf16*>(a.dout) + b * a.do_sb + h * a.do_sh +
-                 q0 * a.do_sl, a.do_sl, qvalid, tid);
+                 q0 * a.do_sl, a.do_sl, qvalid, a.head_dim, tid);
     const long long row0 =
         (static_cast<long long>(b) * a.heads + h) * a.lq + q0;
-    for (int c = tid; c < 2 * kBlockQ; c += kThreads) {
+    for (int c = tid; c < 2 * kBlockQ; c += NT) {
       const int r = c % kBlockQ;
       const bool ok = r < qvalid;
       const float* src = c < kBlockQ ? a.lse : a.delta;
       async_copy4(lse + c, src + (ok ? row0 + r : 0), ok);
     }
     if ((e & 3) == kTilePartial) {
-      for (int c = tid; c < 4 * kBlockQ; c += kThreads) {
+      for (int c = tid; c < 4 * kBlockQ; c += NT) {
         const int m = c / kBlockQ, j = c % kBlockQ;
         const bool ok = j < qvalid;
         async_copy4(qmeta + c, a.qm[m] + b * a.qm_sb[m] + (ok ? q0 + j : 0),
@@ -222,9 +218,14 @@ __global__ void __launch_bounds__(kThreads)
   }
 
   const int kr0 = warp * 16 + g, kr1 = kr0 + 8;  // this thread's key rows
-  float dk[NO * 4], dv[NO * 4];
+  // kSplit: one accumulator a thread, dV (warpgroup 0) or dK (1)
+  float dk[kSplit ? 1 : NO * 4], dv[NO * 4];
 #pragma unroll
-  for (int i = 0; i < NO * 4; ++i) dk[i] = dv[i] = 0.f;
+  for (int i = 0; i < NO * 4; ++i) dv[i] = 0.f;
+  if constexpr (!kSplit) {
+#pragma unroll
+    for (int i = 0; i < NO * 4; ++i) dk[i] = 0.f;
+  }
 
   for (int i = 0; i < pairs; ++i) {
     if (i + kStages - 1 < pairs) prefetch(i + kStages - 1);
@@ -243,11 +244,13 @@ __global__ void __launch_bounds__(kThreads)
     for (int j = 0; j < 32; ++j) st[j] = dpt[j] = 0.f;
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
-      wgmma_64x64_ss(st, desc_k_major(ks, kk), desc_k_major(qs, kk), 1);
+    for (int kk = 0; kk < DP / 16; ++kk)
+      wgmma_64x64_ss(st, desc_k_major_dp<DP>(ks, kk),
+                     desc_k_major_dp<DP>(qs, kk), 1);
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
-      wgmma_64x64_ss(dpt, desc_k_major(vs, kk), desc_k_major(dos, kk), 1);
+    for (int kk = 0; kk < DP / 16; ++kk)
+      wgmma_64x64_ss(dpt, desc_k_major_dp<DP>(vs, kk),
+                     desc_k_major_dp<DP>(dos, kk), 1);
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(st);
@@ -278,54 +281,92 @@ __global__ void __launch_bounds__(kThreads)
       st[j] = p;
       dpt[j] = p * (dpt[j] - dl[qc]) * a.scale;
     }
-    uint32_t pa[kBlockQ / 16][4], da[kBlockQ / 16][4];
+    if constexpr (kSplit) {
+      // the A operand of this warpgroup's product: P^T (dV) or dS^T (dK),
+      // against dO or Q
 #pragma unroll
-    for (int j = 0; j < kBlockQ / 16; ++j) {
-      acc_to_a(pa[j], st + 8 * j);
-      acc_to_a(da[j], dpt + 8 * j);
+      for (int j = 0; j < 32; ++j) st[j] = wg ? dpt[j] : st[j];
+      uint32_t fa[kBlockQ / 16][4];
+#pragma unroll
+      for (int j = 0; j < kBlockQ / 16; ++j) acc_to_a(fa[j], st + 8 * j);
+      const bf16* bt = wg ? qs : dos;
+      wgmma_fence();
+#pragma unroll
+      for (int j = 0; j < kBlockQ / 16; ++j)
+        wgmma_pv<DP>(dv, fa[j], desc_mn_major_dp<DP>(bt, j));
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(dv);
+    } else {
+      uint32_t pa[kBlockQ / 16][4], da[kBlockQ / 16][4];
+#pragma unroll
+      for (int j = 0; j < kBlockQ / 16; ++j) {
+        acc_to_a(pa[j], st + 8 * j);
+        acc_to_a(da[j], dpt + 8 * j);
+      }
+      wgmma_fence();
+#pragma unroll
+      for (int j = 0; j < kBlockQ / 16; ++j)
+        wgmma_pv<DP>(dv, pa[j], desc_mn_major_dp<DP>(dos, j));
+#pragma unroll
+      for (int j = 0; j < kBlockQ / 16; ++j)
+        wgmma_pv<DP>(dk, da[j], desc_mn_major_dp<DP>(qs, j));
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(dv);
+      fence_regs(dk);
     }
-    wgmma_fence();
-#pragma unroll
-    for (int j = 0; j < kBlockQ / 16; ++j)
-      wgmma_64x96_rs(dv, pa[j], desc_mn_major(dos, j));
-#pragma unroll
-    for (int j = 0; j < kBlockQ / 16; ++j)
-      wgmma_64x96_rs(dk, da[j], desc_mn_major(qs, j));
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_regs(dv);
-    fence_regs(dk);
     __syncthreads();  // every warp is done with this stage before its refill
   }
   async_wait<0>();
 
   bf16* dkp = static_cast<bf16*>(a.dk) + b * a.dkv_sb + hk * a.dkv_sh;
   bf16* dvp = static_cast<bf16*>(a.dv) + b * a.dkv_sb + hk * a.dkv_sh;
+  if constexpr (kSplit) {
+    bf16* out = wg ? dkp : dvp;
 #pragma unroll
-  for (int n8 = 0; n8 < NO; ++n8) {
-    const int c = n8 * 8 + 2 * t;
-    if (kr0 < kvalid) {
-      const long long off = (k0 + kr0) * a.dkv_sl + c;
-      *reinterpret_cast<uint32_t*>(dkp + off) =
-          pack_bf16(dk[4 * n8], dk[4 * n8 + 1]);
-      *reinterpret_cast<uint32_t*>(dvp + off) =
-          pack_bf16(dv[4 * n8], dv[4 * n8 + 1]);
+    for (int n8 = 0; n8 < NO; ++n8) {
+      const int c = n8 * 8 + 2 * t;
+      if (kPadded && n8 * 8 >= a.head_dim) break;  // padded dims: not stored
+      if (kr0 < kvalid)
+        *reinterpret_cast<uint32_t*>(out + (k0 + kr0) * a.dkv_sl + c) =
+            pack_bf16(dv[4 * n8], dv[4 * n8 + 1]);
+      if (kr1 < kvalid)
+        *reinterpret_cast<uint32_t*>(out + (k0 + kr1) * a.dkv_sl + c) =
+            pack_bf16(dv[4 * n8 + 2], dv[4 * n8 + 3]);
     }
-    if (kr1 < kvalid) {
-      const long long off = (k0 + kr1) * a.dkv_sl + c;
-      *reinterpret_cast<uint32_t*>(dkp + off) =
-          pack_bf16(dk[4 * n8 + 2], dk[4 * n8 + 3]);
-      *reinterpret_cast<uint32_t*>(dvp + off) =
-          pack_bf16(dv[4 * n8 + 2], dv[4 * n8 + 3]);
+  } else {
+#pragma unroll
+    for (int n8 = 0; n8 < NO; ++n8) {
+      const int c = n8 * 8 + 2 * t;
+      if (kPadded && n8 * 8 >= a.head_dim) break;  // padded dims: not stored
+      if (kr0 < kvalid) {
+        const long long off = (k0 + kr0) * a.dkv_sl + c;
+        *reinterpret_cast<uint32_t*>(dkp + off) =
+            pack_bf16(dk[4 * n8], dk[4 * n8 + 1]);
+        *reinterpret_cast<uint32_t*>(dvp + off) =
+            pack_bf16(dv[4 * n8], dv[4 * n8 + 1]);
+      }
+      if (kr1 < kvalid) {
+        const long long off = (k0 + kr1) * a.dkv_sl + c;
+        *reinterpret_cast<uint32_t*>(dkp + off) =
+            pack_bf16(dk[4 * n8 + 2], dk[4 * n8 + 3]);
+        *reinterpret_cast<uint32_t*>(dvp + off) =
+            pack_bf16(dv[4 * n8 + 2], dv[4 * n8 + 3]);
+      }
     }
   }
 }
 
 // dQ kernel shared memory: Q, dO; per stage K, V and the key tile's three
 // metadata vectors; the list of key tiles.
-constexpr int kDqStage = 2 * kTile * 2 + 3 * kBlockK * 4;
+template <int DP>
+__host__ __device__ constexpr int dq_stage() {
+  return 2 * bwd_tile<DP>() * 2 + 3 * kBlockK * 4;
+}
+template <int DP>
 __host__ __device__ constexpr int dq_smem_bytes(int nk) {
-  return 2 * kTile * 2 + kStages * kDqStage + nk * 4;
+  return 2 * bwd_tile<DP>() * 2 + kStages * dq_stage<DP>() + nk * 4;
 }
 
 // 4. dQ (K7a) of one 64-row query tile of one head; warp w owns rows
@@ -333,11 +374,12 @@ __host__ __device__ constexpr int dq_smem_bytes(int nk) {
 // ring:
 //   S = Q.K^T, P = exp2(S scale_log2 - lse log2e) where visible,
 //   dP = dO.V^T, dS = P (dP - di) scale, dQ += dS.K
-template <int D>
+template <int DP, bool kPadded>
 __global__ void __launch_bounds__(kThreads)
     inline_attention_dq_kernel(const InlineAttnBwdArgs a, const int* order) {
-  static_assert(D == kHeadDim, "tiles are laid out for kHeadDim");
-  constexpr int NO = D / 8;
+  constexpr int NO = DP / 8;
+  constexpr int kTile = bwd_tile<DP>();
+  constexpr int kDqStage = dq_stage<DP>();
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* qs = reinterpret_cast<bf16*>(smem);
   bf16* dos = qs + kTile;
@@ -353,12 +395,12 @@ __global__ void __launch_bounds__(kThreads)
   const int g = lane >> 2, t = lane & 3;
   const int qvalid = min(kBlockQ, a.lq - q0);
 
-  async_copy_tile<kBlockQ, kThreads>(
+  async_copy_tile_dp<kBlockQ, kThreads, DP, kPadded>(
       qs, static_cast<const bf16*>(a.q) + b * a.q_sb + h * a.q_sh +
-              q0 * a.q_sl, a.q_sl, qvalid, tid);
-  async_copy_tile<kBlockQ, kThreads>(
+              q0 * a.q_sl, a.q_sl, qvalid, a.head_dim, tid);
+  async_copy_tile_dp<kBlockQ, kThreads, DP, kPadded>(
       dos, static_cast<const bf16*>(a.dout) + b * a.do_sb + h * a.do_sh +
-               q0 * a.do_sl, a.do_sl, qvalid, tid);
+               q0 * a.do_sl, a.do_sl, qvalid, a.head_dim, tid);
   async_commit();
   const int n = gather_tiles(
       a.tile_map + (static_cast<long long>(b) * nq + qt) * nk, 1, nk, list);
@@ -369,10 +411,10 @@ __global__ void __launch_bounds__(kThreads)
     bf16* kt = reinterpret_cast<bf16*>(stages + (i % kStages) * kDqStage);
     const int e = list[i], k0 = (e >> 2) * kBlockK;
     const int valid = min(kBlockK, a.lk - k0);
-    async_copy_tile<kBlockK, kThreads>(kt, kp + k0 * a.k_sl, a.k_sl, valid,
-                                       tid);
-    async_copy_tile<kBlockK, kThreads>(kt + kTile, vp + k0 * a.v_sl, a.v_sl,
-                                       valid, tid);
+    async_copy_tile_dp<kBlockK, kThreads, DP, kPadded>(
+        kt, kp + k0 * a.k_sl, a.k_sl, valid, a.head_dim, tid);
+    async_copy_tile_dp<kBlockK, kThreads, DP, kPadded>(
+        kt + kTile, vp + k0 * a.v_sl, a.v_sl, valid, a.head_dim, tid);
     if ((e & 3) == kTilePartial) {
       int* kmeta = reinterpret_cast<int*>(kt + 2 * kTile);
       for (int c = tid; c < 3 * kBlockK; c += kThreads) {
@@ -419,11 +461,13 @@ __global__ void __launch_bounds__(kThreads)
     for (int j = 0; j < 32; ++j) s[j] = dp[j] = 0.f;
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
-      wgmma_64x64_ss(s, desc_k_major(qs, kk), desc_k_major(kt, kk), 1);
+    for (int kk = 0; kk < DP / 16; ++kk)
+      wgmma_64x64_ss(s, desc_k_major_dp<DP>(qs, kk),
+                     desc_k_major_dp<DP>(kt, kk), 1);
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
-      wgmma_64x64_ss(dp, desc_k_major(dos, kk), desc_k_major(vt, kk), 1);
+    for (int kk = 0; kk < DP / 16; ++kk)
+      wgmma_64x64_ss(dp, desc_k_major_dp<DP>(dos, kk),
+                     desc_k_major_dp<DP>(vt, kk), 1);
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(s);
@@ -452,7 +496,7 @@ __global__ void __launch_bounds__(kThreads)
     wgmma_fence();
 #pragma unroll
     for (int j = 0; j < kBlockK / 16; ++j)
-      wgmma_64x96_rs(dq, da[j], desc_mn_major(kt, j));
+      wgmma_pv<DP>(dq, da[j], desc_mn_major_dp<DP>(kt, j));
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(dq);
@@ -464,6 +508,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
   for (int n8 = 0; n8 < NO; ++n8) {
     const int c = n8 * 8 + 2 * t;
+    if (kPadded && n8 * 8 >= a.head_dim) break;  // padded dims: not stored
     if (r0 < a.lq)
       *reinterpret_cast<uint32_t*>(out + r0 * a.dq_sl + c) =
           pack_bf16(dq[4 * n8], dq[4 * n8 + 1]);
@@ -471,6 +516,39 @@ __global__ void __launch_bounds__(kThreads)
       *reinterpret_cast<uint32_t*>(out + r1 * a.dq_sl + c) =
           pack_bf16(dq[4 * n8 + 2], dq[4 * n8 + 3]);
   }
+}
+
+// dK/dV over the key tiles in `col_order`, then dQ over the query tiles in
+// `row_order`, at padded head width DP; returns the first nonzero
+// cudaGetLastError() (0 = both launched).
+template <int DP, bool kPadded>
+int launch_inline_bwd(const InlineAttnBwdArgs* a, const int* row_order,
+                      const int* col_order, cudaStream_t s) {
+  const long long bq = static_cast<long long>(a->batch) *
+                       ((a->lq + kBlockQ - 1) / kBlockQ);
+  const long long bk = static_cast<long long>(a->batch) *
+                       ((a->lk + kBlockK - 1) / kBlockK);
+  int smem = dkdv_smem_bytes<DP>((a->lq + kBlockQ - 1) / kBlockQ);
+  cudaError_t err = cudaFuncSetAttribute(
+      inline_attention_dkdv_kernel<DP, kPadded>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  inline_attention_dkdv_kernel<DP, kPadded>
+      <<<dim3(static_cast<unsigned>(bk), a->kv_heads),
+         dkdv_split<DP>() ? 2 * kThreads : kThreads, smem, s>>>(*a,
+                                                               col_order);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+
+  smem = dq_smem_bytes<DP>((a->lk + kBlockK - 1) / kBlockK);
+  err = cudaFuncSetAttribute(inline_attention_dq_kernel<DP, kPadded>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  inline_attention_dq_kernel<DP, kPadded>
+      <<<dim3(static_cast<unsigned>(bq), a->heads), kThreads, smem, s>>>(
+          *a, row_order);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace vgt
@@ -482,41 +560,11 @@ extern "C" int vgt_inline_attention_bwd(const vgt::InlineAttnBwdArgs* a,
                                         void* stream) {
   using namespace vgt;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (a->head_dim != kHeadDim) return static_cast<int>(cudaErrorInvalidValue);
-  const int nq = (a->lq + kBlockQ - 1) / kBlockQ;
-  const int nk = (a->lk + kBlockK - 1) / kBlockK;
-  const long long bq = static_cast<long long>(a->batch) * nq;
-  const long long bk = static_cast<long long>(a->batch) * nk;
-  QuerySummary* qsum = reinterpret_cast<QuerySummary*>(a->scratch);
-  KeySummary* ksum = reinterpret_cast<KeySummary*>(qsum + bq);
-  int* row_counts = reinterpret_cast<int*>(ksum + bk);
-  int* col_counts = row_counts + bq;
-  int* row_order = col_counts + bk;
-  int* col_order = row_order + bq;
-
-  cudaError_t err = cudaMemsetAsync(col_counts, 0, bk * sizeof(int), s);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  tile_summary_kernel<kBlockQ, kBlockK, InlineAttnBwdArgs>
-      <<<static_cast<unsigned>((bq + bk + kSummaryWarps - 1) / kSummaryWarps),
-         32 * kSummaryWarps, 0, s>>>(*a, qsum, ksum);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  meta_tile_map_kernel<kBlockQ, kBlockK>
-      <<<dim3(nq, a->batch), kMapThreads, 0, s>>>(
-          qsum, ksum, a->lq, a->lk, a->tile_map, row_counts, col_counts);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int order_smem = ((nq > nk ? nq : nk) + 1) *
-                         static_cast<int>(sizeof(int));
-  err = cudaFuncSetAttribute(tile_order_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             order_smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  tile_order_kernel<<<1, kOrderThreads, order_smem, s>>>(
-      row_counts, static_cast<int>(bq), nk, row_order);
-  tile_order_kernel<<<1, kOrderThreads, order_smem, s>>>(
-      col_counts, static_cast<int>(bk), nq, col_order);
-  err = cudaGetLastError();
+  const int dp = padded_head_dim(a->head_dim);
+  if (dp == 0 && !a->map_only) return static_cast<int>(cudaErrorInvalidValue);
+  const int *row_order, *col_order;
+  cudaError_t err = static_cast<cudaError_t>(
+      launch_inline_bwd_tile_map(*a, s, &row_order, &col_order));
   if (err != cudaSuccess || a->map_only) return static_cast<int>(err);
 
   const long long rows = static_cast<long long>(a->batch) * a->heads * a->lq;
@@ -525,25 +573,17 @@ extern "C" int vgt_inline_attention_bwd(const vgt::InlineAttnBwdArgs* a,
       32 * kDeltaWarps, 0, s>>>(*a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-
-  int smem = dkdv_smem_bytes(nq);
-  err = cudaFuncSetAttribute(inline_attention_dkdv_kernel<kHeadDim>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  inline_attention_dkdv_kernel<kHeadDim>
-      <<<dim3(static_cast<unsigned>(bk), a->kv_heads), kThreads, smem, s>>>(
-          *a, col_order);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-
-  smem = dq_smem_bytes(nk);
-  err = cudaFuncSetAttribute(inline_attention_dq_kernel<kHeadDim>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  inline_attention_dq_kernel<kHeadDim>
-      <<<dim3(static_cast<unsigned>(bq), a->heads), kThreads, smem, s>>>(
-          *a, row_order);
-  return static_cast<int>(cudaGetLastError());
+  // a head_dim below its padded width takes the instance that zero-fills
+  // the dims past it; the exact widths take their own
+  const bool pad = a->head_dim != dp;
+  switch (dp) {
+    case 32: return pad ? launch_inline_bwd<32, true>(a, row_order, col_order, s)
+                        : launch_inline_bwd<32, false>(a, row_order, col_order, s);
+    case 64: return pad ? launch_inline_bwd<64, true>(a, row_order, col_order, s)
+                        : launch_inline_bwd<64, false>(a, row_order, col_order, s);
+    case 96: return pad ? launch_inline_bwd<96, true>(a, row_order, col_order, s)
+                        : launch_inline_bwd<96, false>(a, row_order, col_order, s);
+    default: return pad ? launch_inline_bwd<128, true>(a, row_order, col_order, s)
+                        : launch_inline_bwd<128, false>(a, row_order, col_order, s);
+  }
 }

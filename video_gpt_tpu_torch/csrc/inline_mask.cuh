@@ -114,4 +114,53 @@ inline int launch_inline_tile_map(const Args& a, cudaStream_t s,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The same map for the backward kernels (K7 and the fp32 backward's inline
+// mask), launched on `s`: the summaries, the classes with each query
+// tile's and each key tile's count of non-empty tiles, then the query
+// tiles and the key tiles each ordered by their count, most first, into
+// *row_order and *col_order (in a.scratch: B (nq + nk) summaries of 8
+// ints, B nq row counts, B nk column counts, B nq and B nk orders).
+// Returns the first nonzero CUDA error (0 = all launched).
+template <class Args>
+inline int launch_inline_bwd_tile_map(const Args& a, cudaStream_t s,
+                                      const int** row_order,
+                                      const int** col_order) {
+  const int nq = (a.lq + kBlockQ - 1) / kBlockQ;
+  const int nk = (a.lk + kBlockK - 1) / kBlockK;
+  const long long bq = static_cast<long long>(a.batch) * nq;
+  const long long bk = static_cast<long long>(a.batch) * nk;
+  QuerySummary* qsum = reinterpret_cast<QuerySummary*>(a.scratch);
+  KeySummary* ksum = reinterpret_cast<KeySummary*>(qsum + bq);
+  int* row_counts = reinterpret_cast<int*>(ksum + bk);
+  int* col_counts = row_counts + bq;
+  int* rows = col_counts + bk;
+  int* cols = rows + bq;
+  *row_order = rows;
+  *col_order = cols;
+
+  cudaError_t err = cudaMemsetAsync(col_counts, 0, bk * sizeof(int), s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  tile_summary_kernel<kBlockQ, kBlockK, Args>
+      <<<static_cast<unsigned>((bq + bk + kSummaryWarps - 1) / kSummaryWarps),
+         32 * kSummaryWarps, 0, s>>>(a, qsum, ksum);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  meta_tile_map_kernel<kBlockQ, kBlockK>
+      <<<dim3(nq, a.batch), kMapThreads, 0, s>>>(
+          qsum, ksum, a.lq, a.lk, a.tile_map, row_counts, col_counts);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int order_smem = ((nq > nk ? nq : nk) + 1) *
+                         static_cast<int>(sizeof(int));
+  err = cudaFuncSetAttribute(tile_order_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             order_smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  tile_order_kernel<<<1, kOrderThreads, order_smem, s>>>(
+      row_counts, static_cast<int>(bq), nk, rows);
+  tile_order_kernel<<<1, kOrderThreads, order_smem, s>>>(
+      col_counts, static_cast<int>(bk), nq, cols);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace vgt

@@ -26,7 +26,7 @@ BUILD_DIR = os.path.join(_PKG, "_build")
 SOURCES = ("rank_attention.cu", "bias_attention.cu",
            "bias_attention_bwd.cu", "inline_attention.cu",
            "inline_attention_bwd.cu", "fp32_attention.cu",
-           "overlap_probe.cu")
+           "fp32_attention_bwd.cu", "overlap_probe.cu")
 HEADERS = ("attention_args.cuh", "attention_common.cuh", "inline_mask.cuh",
            "tile_map.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

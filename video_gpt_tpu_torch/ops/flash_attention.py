@@ -23,16 +23,17 @@ Port of every Pallas kernel of ``video_gpt_tpu/ops/flash_attention.py``
 - K7 :func:`flash_mha_inline_bwd` (TPU ``_stream_dq_kernel`` and
   ``_stream_dkv_kernel``): the backward of K6.
 
-The forward kernels come in two dtypes. bf16 operands run the tensor-core
+Every kernel comes in two dtypes. bf16 operands run the tensor-core
 kernels named below; fp32 operands run ``csrc/fp32_attention.cu``, one
 hand-written fp32 kernel (CUDA-core FFMA, no TF32) templated on the three
-masks (columnar rank, bias and its map, inline metadata and its map).
-:func:`forward_kernel` chooses, from the operands' dtype and head width:
-both kinds take any head_dim <= 128 that is a multiple of 8, laid out at
-the least of 32, 64, 96, 128 that holds it, the head dims past head_dim
-zero-filled on load. Each wrapper counts its bf16 launches in
-``launches`` and its fp32 launches in ``fp32_launches``. The backward
-kernels (K7, K9) take bf16 at head_dim 96 only.
+masks (columnar rank, bias and its map, inline metadata and its map), and
+for the backward ``csrc/fp32_attention_bwd.cu``, its twin under the bias
+and the inline masks. :func:`forward_kernel` and :func:`backward_kernel`
+choose, from the operands' dtype and head width: both kinds take any
+head_dim <= 128 that is a multiple of 8, laid out at the least of 32, 64,
+96, 128 that holds it, the head dims past head_dim zero-filled on load.
+Each wrapper counts its bf16 launches in ``launches`` and its fp32
+launches in ``fp32_launches``.
 
 K1 and K2 are one CUDA kernel (``csrc/rank_attention.cu``), which
 classifies each key tile from its ranks as it loads them and never loads a
@@ -76,13 +77,11 @@ from .attention import AttnMeta
 BF16_NEG = float(torch.finfo(torch.bfloat16).min) * 0.5
 LOG2E = 1.4426950408889634
 NEVER = 2 ** 30
-# the head width of the backward CUDA kernels, K7 and K9 (kHeadDim in csrc)
-KERNEL_HEAD_DIM = 96
-# the head widths the forward CUDA kernels are laid out at (padded_head_dim
-# in csrc/attention_common.cuh): a head_dim runs at the least that holds it
+# the head widths the CUDA kernels are laid out at (padded_head_dim in
+# csrc/attention_common.cuh): a head_dim runs at the least that holds it
 KERNEL_HEAD_DIMS = (32, 64, 96, 128)
-# the forward kernels by operand dtype: the tensor-core kernels of each mask
-# (bf16), csrc/fp32_attention.cu (fp32)
+# the kernels by operand dtype: the tensor-core kernels of each mask
+# (bf16), csrc/fp32_attention.cu and csrc/fp32_attention_bwd.cu (fp32)
 KERNEL_DTYPES = {torch.bfloat16: "bf16", torch.float32: "fp32"}
 # the TPU kernels' VMEM cap on a key row; past it the TPU runs its k-tiled
 # K4, K5 and K10, whose function K1, K2 and K3 compute here. Those three
@@ -147,6 +146,9 @@ def precompute_bias(q_meta: AttnMeta, k_meta: AttnMeta) -> torch.Tensor:
 # are 0.58 GB, so a step holds a few GB, not the 160 GB of a whole-row
 # softmax over all heads (the long rollout's K1 row over 17,760 keys: 12 GB)
 INLINE_ROWS = 4096
+# query heads per step of the plain K9, which holds [B, heads, Lq, Lk] fp32
+# products of that many heads at once
+BIAS_BWD_HEADS = 32
 
 
 def _row_steps(b: int, lq: int, hkv: int, group: int):
@@ -226,32 +228,42 @@ def bias_attention_backward_reference(q: torch.Tensor, k: torch.Tensor,
     kernel's bf16 rounding of ds and p before its products is read
     against."""
     b, lq, h, d = q.shape
-    hkv = k.shape[2]
+    lk, hkv = k.shape[1], k.shape[2]
     group = h // hkv
     scale = d ** -0.5
+    dq = torch.empty((b, lq, h, d), dtype=torch.float32, device=q.device)
+    dk = torch.empty((b, lk, hkv, d), dtype=torch.float32, device=q.device)
+    dv = torch.empty_like(dk)
+    bias_f = bias.float()[:, None]
+    # BIAS_BWD_HEADS query heads (whole GQA groups) at a time: the [B, H,
+    # Lq, Lk] fp32 products of every head at once would not fit the card
+    # at 192 heads of 16 over L 7104
+    step = max(1, BIAS_BWD_HEADS // group)
+    for g0 in range(0, hkv, step):
+        gs = slice(g0, min(g0 + step, hkv))
+        hs = slice(gs.start * group, gs.stop * group)
 
-    def heads(x, rep=1):
-        return x.transpose(1, 2).float().repeat_interleave(rep, dim=1)
+        def heads(x, sl, rep=1):
+            return x[:, :, sl].transpose(1, 2).float().repeat_interleave(
+                rep, dim=1)
 
-    qf, of, dof = heads(q), heads(o), heads(do)
-    kf, vf = heads(k, group), heads(v, group)
-    p = torch.softmax(qf @ kf.transpose(-1, -2) * scale
-                      + bias.float()[:, None], dim=-1)       # [B,H,Lq,Lk]
-    di = (of * dof).sum(-1, keepdim=True)
-    ds = p * (dof @ vf.transpose(-1, -2) - di) * scale
+        qf, of, dof = heads(q, hs), heads(o, hs), heads(do, hs)
+        kf, vf = heads(k, gs, group), heads(v, gs, group)
+        p = torch.softmax(qf @ kf.transpose(-1, -2) * scale + bias_f,
+                          dim=-1)                            # [B,h,Lq,Lk]
+        di = (of * dof).sum(-1, keepdim=True)
+        ds = p * (dof @ vf.transpose(-1, -2) - di) * scale
+        if magnitude:
+            ds, qf, kf, dof = ds.abs(), qf.abs(), kf.abs(), dof.abs()
+        dq[:, :, hs] = (ds @ kf).transpose(1, 2)
+        for out, x in ((dk, ds.transpose(-1, -2) @ qf),
+                       (dv, p.transpose(-1, -2) @ dof)):
+            out[:, :, gs] = x.reshape(b, -1, group, lk, d).sum(2).transpose(
+                1, 2)
+        del p, ds
     if magnitude:
-        ds, qf, kf, dof = ds.abs(), qf.abs(), kf.abs(), dof.abs()
-    dq = ds @ kf
-    dk = ds.transpose(-1, -2) @ qf
-    dv = p.transpose(-1, -2) @ dof
-
-    def kv_grad(x, like):
-        x = x.reshape(b, hkv, group, *x.shape[2:]).sum(2).transpose(1, 2)
-        return x if magnitude else x.to(like.dtype)
-
-    dq = dq.transpose(1, 2)
-    return (dq if magnitude else dq.to(q.dtype), kv_grad(dk, k),
-            kv_grad(dv, v))
+        return dq, dk, dv
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def _inline_steps(q_meta: AttnMeta, k_meta: AttnMeta, lq: int, hkv: int,
@@ -508,7 +520,7 @@ class _BiasMapArgs(ctypes.Structure):
 
 
 class _BiasBwdArgs(ctypes.Structure):
-    """Mirror of ``BiasAttnBwdArgs`` in csrc/bias_attention_bwd.cu."""
+    """Mirror of ``BiasAttnBwdArgs`` in csrc/attention_args.cuh."""
     _fields_ = [(name, ctypes.c_void_p) for name in (
         "q", "k", "v", "bias", "o", "dout", "lse", "delta", "dq", "dk",
         "dv", "tile_map", "rowdead", "rowref")] + [
@@ -544,7 +556,7 @@ class _InlineArgs(ctypes.Structure):
 
 
 class _InlineBwdArgs(ctypes.Structure):
-    """Mirror of ``InlineAttnBwdArgs`` in csrc/inline_attention_bwd.cu."""
+    """Mirror of ``InlineAttnBwdArgs`` in csrc/attention_args.cuh."""
     _fields_ = [(name, ctypes.c_void_p) for name in (
         "q", "k", "v", "o", "dout", "lse", "delta", "dq", "dk",
         "dv")] + _META_FIELDS + [(name, ctypes.c_int64) for name in (
@@ -579,9 +591,9 @@ def _check_operand(name: str, x: torch.Tensor, device: torch.device,
 
 
 class KernelChoice(NamedTuple):
-    """The forward kernel that a call's operands select."""
+    """The kernel that a call's operands select."""
 
-    kernel: str           # "bf16" (tensor cores) or "fp32" (fp32_attention.cu)
+    kernel: str           # "bf16" (tensor cores) or "fp32" (fp32_attention*.cu)
     padded_head_dim: int  # the instance's head width, one of KERNEL_HEAD_DIMS
 
 
@@ -617,39 +629,47 @@ def forward_kernel(dtypes: Sequence[torch.dtype], head_dim: int, heads: int,
     return KernelChoice(KERNEL_DTYPES[dtype], dp)
 
 
-def _check_q(q: torch.Tensor, kv_heads: int, *operands) -> KernelChoice:
-    """The forward kernel of q and the key/value ``operands``; raises on
-    what it does not take."""
+def backward_kernel(dtypes: Sequence[torch.dtype], head_dim: int,
+                    heads: int, kv_heads: int) -> KernelChoice:
+    """The backward CUDA kernel (K9 under the bias, K7 under the inline
+    metadata) for operands of ``dtypes`` (q's, then k's and v's): bf16
+    operands run the tensor-core K9 / K7, fp32 operands
+    ``csrc/fp32_attention_bwd.cu``, each at the least of
+    ``KERNEL_HEAD_DIMS`` that holds ``head_dim``. It takes what the
+    forward takes (:func:`forward_kernel`), so a step whose forward ran has
+    a backward; it raises on the same: mixed dtypes, another dtype, a
+    head_dim above 128 or not a multiple of 8, heads that are not a
+    multiple of the kv heads."""
+    return forward_kernel(dtypes, head_dim, heads, kv_heads)
+
+
+def _check_q(q: torch.Tensor, kv_heads: int, *operands,
+             backward: bool = False) -> KernelChoice:
+    """The forward (with ``backward``, the backward) kernel of q and the
+    key/value ``operands``; raises on what it does not take."""
     h, d = q.shape[2:]
-    choice = forward_kernel([q.dtype] + [x.dtype for x in operands], d, h,
-                            kv_heads)
+    choose = backward_kernel if backward else forward_kernel
+    choice = choose([q.dtype] + [x.dtype for x in operands], d, h, kv_heads)
     _check_operand("q", q, q.device, q.dtype, row_vectors=True)
     return choice
 
 
-def _check_q_bwd(q: torch.Tensor, kv_heads: int) -> None:
-    """Raise on what the backward kernels (K7, K9) do not take: they are
-    bf16 at head_dim 96 only."""
-    if q.dtype != torch.bfloat16:
-        raise TypeError(f"the CUDA backward kernels (K7, K9) take bf16, got "
-                        f"{q.dtype}")
-    h, d = q.shape[2:]
-    if d != KERNEL_HEAD_DIM:
-        raise ValueError(f"the CUDA backward kernels (K7, K9) take head_dim "
-                         f"{KERNEL_HEAD_DIM}, got {d}")
-    if h % kv_heads:
-        raise ValueError(f"{h} heads not a multiple of {kv_heads} kv heads")
-    _check_operand("q", q, q.device, torch.bfloat16, row_vectors=True)
-
-
-# the C entry point of each forward kernel: (library, function)
+# the C entry point of each kernel: (library, function)
 _ENTRY = {("rank", "bf16"): ("rank_attention", "vgt_rank_attention"),
           ("rank", "fp32"): ("fp32_attention", "vgt_fp32_rank_attention"),
           ("bias", "bf16"): ("bias_attention", "vgt_bias_attention"),
           ("bias", "fp32"): ("fp32_attention", "vgt_fp32_bias_attention"),
           ("inline", "bf16"): ("inline_attention", "vgt_inline_attention"),
           ("inline", "fp32"): ("fp32_attention",
-                               "vgt_fp32_inline_attention")}
+                               "vgt_fp32_inline_attention"),
+          ("bias_bwd", "bf16"): ("bias_attention_bwd",
+                                 "vgt_bias_attention_bwd"),
+          ("bias_bwd", "fp32"): ("fp32_attention_bwd",
+                                 "vgt_fp32_bias_attention_bwd"),
+          ("inline_bwd", "bf16"): ("inline_attention_bwd",
+                                   "vgt_inline_attention_bwd"),
+          ("inline_bwd", "fp32"): ("fp32_attention_bwd",
+                                   "vgt_fp32_inline_attention_bwd")}
 
 
 def _launch(lib: str, fn: str, args, device: torch.device) -> None:
@@ -704,7 +724,7 @@ def _launch_rank(q: torch.Tensor, operands, q_off: torch.Tensor,
     return out, choice
 
 
-def rank_attention_smem(head_dim: int = KERNEL_HEAD_DIM) -> int:
+def rank_attention_smem(head_dim: int = 96) -> int:
     """The dynamic shared memory of a bf16 K1/K2 block at ``head_dim``
     (``RankCfg::kSmem`` in csrc/rank_attention.cu): its ring of K/V tiles
     and their barriers."""
@@ -769,16 +789,13 @@ flash_mha_decode.fp32_launches = 0
 
 def _kv_views(q, k, v, backward: bool = False):
     """(k/v [B,Lk,Hkv,D] as heads-major views [B,Hkv,Lk,D], the forward
-    :class:`KernelChoice`, or None with ``backward``); raises on what the
-    kernels over a whole key row (K3, K6; with ``backward`` K7, K9) do not
-    take."""
+    :class:`KernelChoice`, or with ``backward`` the backward one); raises
+    on what the kernels over a whole key row (K3, K6; with ``backward`` K7,
+    K9) do not take."""
     kh, vh = k.transpose(1, 2), v.transpose(1, 2)
     b, lq, h, d = q.shape
     hkv, lk = kh.shape[1], kh.shape[2]
-    if backward:
-        choice = _check_q_bwd(q, hkv)
-    else:
-        choice = _check_q(q, hkv, kh, vh)
+    choice = _check_q(q, hkv, kh, vh, backward=backward)
     for name, x in (("k", kh), ("v", vh)):
         _check_operand(name, x, q.device, q.dtype, (b, hkv, lk, d),
                        row_vectors=True)
@@ -936,12 +953,12 @@ def flash_mha_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if not q.is_cuda:
         return bias_attention_backward_reference(q, k, v, bm.bias, o, do)
     bias = bm.bias
-    kh, vh, _ = _check_bias_operands(q, k, v, bias, backward=True)
+    kh, vh, choice = _check_bias_operands(q, k, v, bias, backward=True)
     b, lq, h, d = q.shape
     hkv, lk = kh.shape[1], kh.shape[2]
     do = do.contiguous()
     for name, x in (("o", o), ("do", do)):
-        _check_operand(name, x, q.device, torch.bfloat16, (b, lq, h, d),
+        _check_operand(name, x, q.device, q.dtype, (b, lq, h, d),
                        row_vectors=True)
     if lse is None:
         raise ValueError("the K9 kernel needs K3's logsumexp (lse)")
@@ -971,12 +988,12 @@ def flash_mha_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         setattr(a, f"{name}_sh", x.stride(sh))
     a.heads, a.kv_heads = h, hkv
     a.scale, a.scale_log2 = d ** -0.5, d ** -0.5 * LOG2E
-    _launch("bias_attention_bwd", "vgt_bias_attention_bwd", a, q.device)
-    flash_mha_bwd.launches += 1
+    _launch(*_ENTRY["bias_bwd", choice.kernel], a, q.device)
+    _count(flash_mha_bwd, choice, lk)
     return dq, dk, dv
 
 
-flash_mha_bwd.launches = 0
+flash_mha_bwd.launches = flash_mha_bwd.fp32_launches = 0
 
 
 # ---- K6 / K7 wrappers -------------------------------------------------------
@@ -1024,9 +1041,11 @@ def _inline_map_args(q_meta: AttnMeta, k_meta: AttnMeta,
     orders = b * (nq + nk) if backward else b * nq
     scratch = torch.empty((b * (nq + nk) * 8 + 2 * orders,),
                           dtype=torch.int32, device=device)
+    # head_dim is set by the caller that launches the attention (a launch
+    # that builds the map alone reads none)
     a = (_InlineBwdArgs if backward else _InlineArgs)(
         tile_map=tile_map.data_ptr(), scratch=scratch.data_ptr(), batch=b,
-        lq=lq, lk=lk, head_dim=KERNEL_HEAD_DIM)
+        lq=lq, lk=lk)
     _set_meta(a, q_meta, k_meta, b, lq, lk, device)
     return a, tile_map, scratch
 
@@ -1127,12 +1146,12 @@ def flash_mha_inline_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if not q.is_cuda:
         return inline_attention_backward_reference(q, k, v, q_meta, k_meta,
                                                    o, do, lse=lse)
-    kh, vh, _ = _kv_views(q, k, v, backward=True)
+    kh, vh, choice = _kv_views(q, k, v, backward=True)
     b, lq, h, d = q.shape
     hkv, lk = kh.shape[1], kh.shape[2]
     do = do.contiguous()
     for name, x in (("o", o), ("do", do)):
-        _check_operand(name, x, q.device, torch.bfloat16, (b, lq, h, d),
+        _check_operand(name, x, q.device, q.dtype, (b, lq, h, d),
                        row_vectors=True)
     if lse is None:
         raise ValueError("the K7 kernels need K6's logsumexp (lse)")
@@ -1155,22 +1174,19 @@ def flash_mha_inline_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         setattr(a, f"{name}_sb", x.stride(sb))
         setattr(a, f"{name}_sl", x.stride(sl))
         setattr(a, f"{name}_sh", x.stride(sh))
-    a.heads, a.kv_heads = h, hkv
+    a.heads, a.kv_heads, a.head_dim = h, hkv, d
     a.scale, a.scale_log2 = d ** -0.5, d ** -0.5 * LOG2E
-    _launch("inline_attention_bwd", "vgt_inline_attention_bwd", a, q.device)
-    flash_mha_inline_bwd.launches += 1
+    _launch(*_ENTRY["inline_bwd", choice.kernel], a, q.device)
+    _count(flash_mha_inline_bwd, choice, lk)
     return dq, dk, dv
 
 
-flash_mha_inline_bwd.launches = 0
+flash_mha_inline_bwd.launches = flash_mha_inline_bwd.fp32_launches = 0
 
+# every wrapper: bf16 launches in ``launches``, fp32 ones in
+# ``fp32_launches``
 KERNELS = (flash_mha_decode_split, flash_mha_decode, flash_mha,
            flash_mha_bwd, flash_mha_inline, flash_mha_inline_bwd)
-
-
-# the wrappers whose kernels take fp32 operands too (``fp32_launches``)
-FORWARD_KERNELS = (flash_mha_decode_split, flash_mha_decode, flash_mha,
-                   flash_mha_inline)
 
 
 def reset_launch_counts() -> None:
@@ -1178,8 +1194,6 @@ def reset_launch_counts() -> None:
     to 0."""
     flash_mha.bias_map_builds = 0
     for fn in KERNELS:
-        fn.launches = 0
-    for fn in FORWARD_KERNELS:
-        fn.fp32_launches = 0
+        fn.launches = fn.fp32_launches = 0
     for fn in (flash_mha_decode_split, flash_mha_decode, flash_mha):
         fn.long_launches = 0

@@ -27,7 +27,9 @@ backward hop of K/V is never read: both are skipped. Under a tensor axis
 each rank runs its H/T heads; with S = 1 (a tensor-only mesh) the call is
 ``ulysses_attend``'s, as in the JAX package. On the CPU the chunk calls
 are the plain K6/K7 (the plain K7 takes the global lse); on CUDA they are
-the kernels, with no fallback.
+the kernels of the operands' dtype and head width (``forward_kernel``,
+``backward_kernel``: bf16 or fp32 at any head_dim the kernels take), with
+no fallback.
 """
 from __future__ import annotations
 

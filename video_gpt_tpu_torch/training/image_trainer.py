@@ -43,9 +43,8 @@ from .loss import draw_loss_noise
 from .offload import init_offload_training
 from .train_state import (TrainState, autocast, init_train_state,
                           make_train_step)
-from .trainer import (check_train_device, checkpoint_writer, draw_part,
-                      init_model_, new_model, shard_state_dict,
-                      write_train_args)
+from .trainer import (checkpoint_writer, draw_part, init_model_, new_model,
+                      shard_state_dict, write_train_args)
 
 
 class ImageGenTrainer:
@@ -73,7 +72,6 @@ class ImageGenTrainer:
         are random from ``seed`` (the head and the noisy-patch embedder
         zero, as a fresh training model's)."""
         check_train_config(train_cfg)
-        check_train_device(model_cfg, train_cfg, device)
         self.mesh = None
         if mesh_cfg is not None and mesh_cfg.num_devices > 1:
             if train_cfg.offload_optimizer:

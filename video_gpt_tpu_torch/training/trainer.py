@@ -70,7 +70,6 @@ from ..data.video import VideoClipDataset
 from ..layout import tokens_per_frame
 from ..models.vae import AutoencoderKL, VAEConfig
 from ..models.video_gpt import VideoGPT
-from ..ops.flash_attention import KERNEL_HEAD_DIM
 from ..parallel.distributed import GracefulShutdown
 from ..parallel.mesh import (DATA_AXIS, PIPE_AXIS, SEQ_AXIS, TENSOR_AXIS,
                              axis_size, batch_rows, make_mesh, shard_params_,
@@ -89,37 +88,6 @@ from .offload import init_offload_training
 from .train_state import (TrainState, autocast, init_lora_train_state,
                           init_train_state, make_lora_train_step,
                           make_train_step)
-
-
-# the ROADMAP.md item that ports the backward kernels at the other dtypes
-# and head widths
-BACKWARD_WIDTHS_ITEM = ("ROADMAP.md queue 1: the backward kernels K7 and K9 "
-                        "at fp32 and every head width")
-
-
-def check_train_device(model_cfg: ModelConfig, train_cfg: TrainConfig,
-                       device) -> None:
-    """Refuse, before any weight is made or CUDA is touched, a training run
-    on a CUDA device that the backward kernels (K7, K9: bf16 at head_dim
-    96) cannot run: ``mixed_precision='no'`` (fp32 attention) or a head_dim
-    other than 96 (``--tiny_model``'s 16). The forward kernels take both,
-    so such a step would raise in the backward after a wasted forward. The
-    CPU runs both through the plain versions."""
-    if torch.device(device).type != "cuda":
-        return
-    why = []
-    if train_cfg.mixed_precision != "bf16":
-        why.append(f"mixed_precision={train_cfg.mixed_precision!r} (fp32 "
-                   f"attention)")
-    if model_cfg.head_dim != KERNEL_HEAD_DIM:
-        why.append(f"head_dim {model_cfg.head_dim}")
-    if why:
-        raise NotImplementedError(
-            f"training on CUDA with {' and '.join(why)} is not ported yet: "
-            f"the backward kernels K7 and K9 take bf16 at head_dim "
-            f"{KERNEL_HEAD_DIM} ({BACKWARD_WIDTHS_ITEM}); train with "
-            f"--mixed_precision bf16 at head_dim {KERNEL_HEAD_DIM}, or with "
-            f"--device cpu")
 
 
 class Trainer:
@@ -144,7 +112,6 @@ class Trainer:
         mesh of a launch of one process per rank (its world size must be
         the mesh's)."""
         check_train_config(train_cfg)
-        check_train_device(model_cfg, train_cfg, device)
         self.mesh = None
         if mesh_cfg is not None and mesh_cfg.num_devices > 1:
             if train_cfg.offload_optimizer:
