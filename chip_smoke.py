@@ -52,11 +52,14 @@ Phases, in order; any failure exits nonzero and none is caught:
    and K6 in bf16 at head_dim 16, 64 and 128 (the flagship's width in
    heads of that size, at its lengths; K6 over the prefill's clean
    prefix), and the fp32 kernel (``csrc/fp32_attention.cu``) as K1, K2 and
-   K3 at the flagship's shapes, as K3 at the text -> image decode and as
-   K6 at the batched rollout's prefill (B 2 x 12,432^2), each against its
-   plain version in fp32 on the card (fp32 bar: |got - plain| <= 2e-5 +
-   2e-5 |plain|), timed beside the plain version and SDPA in fp32 with
-   the same mask, bound by the fp32 CUDA-core peak (66.9 TFLOP/s); then
+   K3 at the flagship's shapes, as K3 at the text -> image decode and at
+   the stage-1 training shape (L 7104) and as K6 at the batched rollout's
+   prefill (B 2 x 12,432^2), each against its plain version in fp32 on
+   the card (fp32 bar: |got - plain| <= 2e-5 + 2e-5 |plain|), timed
+   beside the plain version and SDPA in fp32 with the same mask, bound by
+   the split-precision tensor rate (the fp32 kernels compute each fp32
+   product as six bf16 products: 989 / 6 = 164.8 TFLOP/s; the log gives
+   the CUDA-core fp32 bound, 66.9 TFLOP/s, beside it); then
    the backward kernels at every other dtype and head width their
    wrappers take: K9 and K7 in bf16 at head_dim 16, 64 and 128 (192 / 48
    / 24 heads; Dp 32, 64 and 128, the last with two dK/dV warpgroups) and
@@ -524,6 +527,9 @@ TIME_BUDGET_MS = 2000.0
 # HBM3 rate)
 PEAK_BF16_FLOPS = 989e12
 PEAK_FP32_FLOPS = 66.9e12
+# the fp32 kernels' rate: each fp32 product as six bf16 tensor-core
+# products of the operands' bf16 pieces (csrc/fp32_split.cuh)
+PEAK_SPLIT_FP32_FLOPS = PEAK_BF16_FLOPS / 6
 PEAK_BYTES = 3.35e12
 TPU_KERNELS = "video_gpt_tpu/ops/flash_attention.py"
 # the script's start, for the phases' elapsed time
@@ -974,7 +980,8 @@ def check_and_time(name: str, r: dict, label: str = "") -> dict:
     plain classes of a kernel that builds no map), their shares. A record
     with ``dtype`` fp32 is held to the fp32 bar (no rounding mass; with
     ``backward``, FP32_BWD_MASS of the backward's mass) and bound by the
-    fp32 CUDA-core peak. ``budget_ms``: each timing's budget
+    split-precision rate (PEAK_SPLIT_FP32_FLOPS; the log also gives the
+    fp32 CUDA-core bound). ``budget_ms``: each timing's budget
     (TIME_BUDGET_MS by default)."""
     name_l = f"{name}{label}"
     fp32 = r.get("dtype") == torch.float32
@@ -1015,10 +1022,14 @@ def check_and_time(name: str, r: dict, label: str = "") -> dict:
     ms = timed(r["fn"], max_reps=20, budget_ms=budget)
     plain_ms = timed(r["plain"], max_reps=3, budget_ms=budget)
     lib_ms = timed(r["lib"], max_reps=10, budget_ms=budget)
-    bound_ms, bound_by = bound(r["bytes"], r["flops"],
-                               PEAK_FP32_FLOPS if fp32 else PEAK_BF16_FLOPS)
+    bound_ms, bound_by = bound(
+        r["bytes"], r["flops"],
+        PEAK_SPLIT_FP32_FLOPS if fp32 else PEAK_BF16_FLOPS)
+    ffma = (f", CUDA-core fp32 bound "
+            f"{bound(r['bytes'], r['flops'], PEAK_FP32_FLOPS)[0]:.4f}"
+            if fp32 else "")
     log(f"{name_l}: {ms:.4f} ms (plain {plain_ms:.4f}, sdpa {lib_ms:.4f}, "
-        f"bound {bound_ms:.4f} by {bound_by}; "
+        f"bound {bound_ms:.4f} by {bound_by}{ffma}; "
         f"{r['flops'] / ms / 1e9:.1f} TFLOP/s)")
     rec = dict(name=name, route=r["route"], source=r["source"],
                replaces=r["replaces"], max_abs_err=err, max_err=err,
@@ -1367,10 +1378,11 @@ def width_kernels(dev):
     flagship's lengths (K6 over the prefill's clean prefix and its
     metadata, as a seq mesh's prefill runs it); the fp32 kernel as K1, K2
     and K3 at the flagship's shapes, as K3 at the text -> image decode
-    (4,097 queries over 14 cached + 4,097 keys) and as K6 at the batched
-    rollout's prefill (B 2 x 12,432^2). Yields (kernel, key of its record,
-    result); the bf16 rows are held to the bf16 bar, the fp32 rows to the
-    fp32 bar (``FP32_ATOL`` + ``FP32_RTOL`` |plain|)."""
+    (4,097 queries over 14 cached + 4,097 keys) and at the stage-1 training
+    shape (L 7104; 64 launches per fp32 stage-1 step) and as K6 at the
+    batched rollout's prefill (B 2 x 12,432^2). Yields (kernel, key of its
+    record, result); the bf16 rows are held to the bf16 bar, the fp32 rows
+    to the fp32 bar (``FP32_ATOL`` + ``FP32_RTOL`` |plain|)."""
     n_img = tokens_per_frame(H_PX, W_PX)
     lay_c = frame_block_inference_layout(N_CLEAN, N_GEN, n_img, False)
     lay_u = frame_block_inference_layout(0, N_GEN, n_img, False)
@@ -1413,6 +1425,10 @@ def width_kernels(dev):
                                                        dtype=f32t)),
         ("K3", "fp32_image_decode_2way", d, lambda: image_decode_record(
             dev, 67, row, n_out, f32t)),
+        ("K3", "fp32_train", d, lambda: bias_record(
+            dev, 69, AttnMeta(*(x.to(dev) for x in
+                                train_batch(1).inputs.batch.meta)),
+            133, dtype=f32t)),
         ("K6", "fp32_batched_rollout", d, lambda: k6_record(
             batched_prefill_meta(dev), 68, f32t))]
     for name, key, head_dim, make in rows:
@@ -3776,6 +3792,9 @@ def run(dev: torch.device, smi: str) -> None:
     # smoke trains at 64 or 128, nor runs the ring at a width other than 96
     records["K3-fp32"]["launches_per_fp32_train_step"] = \
         fp32_train_counts["K3-fp32"] // FP32_TRAIN_STEPS
+    records["K3-fp32"]["fp32_train"].update(
+        launches=fp32_train_counts["K3-fp32"] // FP32_TRAIN_STEPS,
+        launches_path="per fp32 stage-1 step (train --mixed_precision no)")
     for k in ("K3", "K9"):
         records[k]["launches_cli_tiny_train"] = \
             cli_train["train_bf16"]["launches"][k]

@@ -38,7 +38,9 @@ without their last listed key tile, K3 treating a partial tile as full,
 one non-empty tile (the first query tile against the first key tile)
 classed empty in K6's and in the bias's map, the pipelined overlap probe
 without its last subtile, the fp32 backward's dQ without its last key
-tile, the padded head dims of a bf16 backward instance not zero-filled
+tile, the fp32 kernels' split products cut to their hh piece product (the
+forward's S = Q.K^T, the backward's dQ += dS.K: one bf16 product in place
+of six), the padded head dims of a bf16 backward instance not zero-filled
 (K9 on 40-wide views of 64-wide rows), and the Dp-128 dK/dV kernels of K9
 and K7 reading the wrong 16 rows of their MN-major operand (a descriptor
 off by one K-step).
@@ -868,11 +870,11 @@ MUTATIONS = {
         "K1"),
     "fp32_without_last_key_tile": (
         "fp32_attention.cu",
-        "for (int it = 0; it < n; ++it) {",
-        "for (int it = 0; it < n - 1; ++it) {", "K6-fp32"),
+        "for (int it = 0; it < items; ++it) {",
+        "for (int it = 0; it < items - 2; ++it) {", "K6-fp32"),
     "fp32_partial_tile_as_full": (
         "fp32_attention.cu",
-        "const bool partial = (e & 3) == kTilePartial;",
+        "const bool partial = (list[it >> 1] & 3) == kTilePartial;",
         "const bool partial = false;", "K3-fp32"),
     "padded_head_dims_not_zero_filled": (
         "attention_common.cuh",
@@ -880,8 +882,21 @@ MUTATIONS = {
         "const bool ok = r < rows_valid;", "K3-d40"),
     "fp32_bwd_without_last_key_tile": (
         "fp32_attention_bwd.cu",
-        "for (int it = 0; it < n; ++it) {",
-        "for (int it = 0; it < n - 1; ++it) {", "K9-fp32"),
+        "for (int it = 0; it < items; ++it) {",
+        "for (int it = 0; it < items - SUB; ++it) {", "K9-fp32"),
+    "fp32_scores_without_split_corrections": (
+        "fp32_attention.cu",
+        "      split_product_rs_k<DP>(s, qf, kp);",
+        "      for (int kk = 0; kk < DP / 16; ++kk)\n"
+        "        wgmma_64x32_rs(s, qf[0][kk], desc_k_major_dp<DP>(kp, kk));",
+        "K3-fp32"),
+    "fp32_bwd_dq_without_split_corrections": (
+        "fp32_attention_bwd.cu",
+        "    split_product_rs<DP, R>(gt, fa, kvp);",
+        "#pragma unroll\n"
+        "    for (int j = 0; j < R; ++j)\n"
+        "      wgmma_pv<DP>(gt, fa[0][j], desc_mn_major_dp<DP>(kvp, j));",
+        "K9-fp32"),
     "padded_bwd_head_dims_not_zero_filled": (
         "attention_common.cuh",
         "const bool ok = r < rows_valid && (!kPadded || c < cols);",

@@ -27,8 +27,8 @@ SOURCES = ("rank_attention.cu", "bias_attention.cu",
            "bias_attention_bwd.cu", "inline_attention.cu",
            "inline_attention_bwd.cu", "fp32_attention.cu",
            "fp32_attention_bwd.cu", "overlap_probe.cu")
-HEADERS = ("attention_args.cuh", "attention_common.cuh", "inline_mask.cuh",
-           "tile_map.cuh")
+HEADERS = ("attention_args.cuh", "attention_common.cuh", "fp32_split.cuh",
+           "inline_mask.cuh", "tile_map.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -25,11 +25,16 @@ Port of every Pallas kernel of ``video_gpt_tpu/ops/flash_attention.py``
 
 Every kernel comes in two dtypes. bf16 operands run the tensor-core
 kernels named below; fp32 operands run ``csrc/fp32_attention.cu``, one
-hand-written fp32 kernel (CUDA-core FFMA, no TF32) templated on the three
-masks (columnar rank, bias and its map, inline metadata and its map), and
-for the backward ``csrc/fp32_attention_bwd.cu``, its twin under the bias
-and the inline masks. :func:`forward_kernel` and :func:`backward_kernel`
-choose, from the operands' dtype and head width: both kinds take any
+hand-written fp32 kernel templated on the three masks (columnar rank,
+bias and its map, inline metadata and its map), and for the backward
+``csrc/fp32_attention_bwd.cu``, its twin under the bias and the inline
+masks. Both compute every fp32 product on the bf16 tensor cores, as the
+TPU computes an fp32 dot at HIGHEST precision: each operand split exactly
+into three bf16 pieces, six of the nine piece products kept, fp32
+accumulation (``csrc/fp32_split.cuh``; no TF32). Their plain split,
+:func:`split_pieces` and :func:`split_matmul`, serves the tests only.
+:func:`forward_kernel` and :func:`backward_kernel` choose, from the
+operands' dtype and head width: both kinds take any
 head_dim <= 128 that is a multiple of 8, laid out at the least of 32, 64,
 96, 128 that holds it, the head dims past head_dim zero-filled on load.
 Each wrapper counts its bf16 launches in ``launches`` and its fp32
@@ -364,6 +369,42 @@ def inline_attention_backward_reference(q: torch.Tensor, k: torch.Tensor,
     if magnitude:
         return dq, dk, dv
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+# ---- the fp32 kernels' split products (plain; tests only) --------------------
+
+# the piece products that the fp32 kernels keep, (A's piece, B's piece) with
+# 0 = h, 1 = m, 2 = l: the correction products first, hh last
+# (csrc/fp32_split.cuh; ml, lm, ll are dropped)
+SPLIT_PRODUCTS = ((2, 0), (0, 2), (1, 1), (1, 0), (0, 1), (0, 0))
+
+
+def split_pieces(x: torch.Tensor):
+    """The three bf16 pieces (h, m, l) of fp32 ``x`` as the fp32 kernels
+    split an operand: h = bf16(x), m = bf16(x - h), l = bf16(x - h - m),
+    each subtraction exact in fp32, so h + m + l == x for every x whose
+    pieces stay normal (|x| >= 2^-102)."""
+    h = x.to(torch.bfloat16)
+    r = x - h.float()
+    m = r.to(torch.bfloat16)
+    return h, m, (r - m.float()).to(torch.bfloat16)
+
+
+def split_matmul(a: torch.Tensor, b: torch.Tensor,
+                 pieces: int = 3) -> torch.Tensor:
+    """fp32 ``a @ b`` as the fp32 kernels compute it on the tensor cores:
+    the sum of the kept products of the bf16 pieces of ``a`` and ``b``
+    (``SPLIT_PRODUCTS``), each piece product exact in fp32. ``pieces`` 1
+    or 2 keeps only the products of the first pieces: a plain bf16 product,
+    or two pieces (hh, hm, mh, mm), the shortcuts that the fp32 bar tells
+    apart from the kernels' three."""
+    pa, pb = split_pieces(a.float()), split_pieces(b.float())
+    out = None
+    for i, j in SPLIT_PRODUCTS:
+        if i < pieces and j < pieces:
+            x = pa[i].float() @ pb[j].float()
+            out = x if out is None else out + x
+    return out
 
 
 def _tile_view(x: torch.Tensor, tile_q: int, tile_k: int) -> torch.Tensor:
