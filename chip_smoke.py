@@ -413,7 +413,8 @@ BATCH_VIDEOS, BATCH_STEPS = 2, 10
 ROLLOUT_PROFILE_STEPS = 10
 # K5's shape: the uncond row of a 40-frame clip (Lq = Lk = 8880)
 K5_FRAMES = 40
-# the overlap probe's problems per launch: 4 blocks on each of 132 SMs
+# the overlap probe's problems per launch: two blocks of 128 rows each,
+# one block an SM, two waves over the 132 SMs
 P1_PROBLEMS = 132
 # kernel vs plain, per element (bf16 inputs; the plain version in fp32 from
 # the same values):
@@ -896,13 +897,13 @@ def long_kernels(dev) -> dict:
 def probe_kernels(dev) -> dict:
     """P1, the overlap probe's serial and pipelined bodies, at the probe's
     shapes (BQ 256 queries over LK 8192 keys of D 128) for G = P1_PROBLEMS
-    problems in one launch (4 blocks on each of the 132 SMs), each against
+    problems in one launch (264 blocks, one an SM at a time), each against
     the plain version; the pipelined body for every nsub (with its speedup
     over the serial body), the record keeps nsub 4 (the serial body's
     64-key tile). The library yardstick is ``scaled_dot_product_attention``
     at scale ln 2: exp2(s) = exp(s ln 2), and no |s| here comes near the
-    clamp at 100. Then the probe's own sweep at G 1 (median of 20
-    launches), the TPU probe's occupancy."""
+    clamp at 100. Then the probe's own sweep at G 1 (``median_ms``), the
+    TPU probe's occupancy."""
     q, k, v = overlap_probe.probe_inputs(P1_PROBLEMS, dev)
 
     def plain(absv=False):

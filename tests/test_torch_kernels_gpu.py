@@ -30,20 +30,21 @@ layout with pad rows and on a small
 batched prefill (``index`` with batch stride 0); K7 on a layout whose key
 tile no query sees (its dK/dV are exactly 0).
 
-The mutation checks build a copy of ``csrc/`` with one fault in a temporary
-directory and show that the bar catches it (worst error / bar above 1,
-printed; run with ``-s`` to read it): K6 without the last key tile of its
-list, K7's dK/dV without its last listed query tile, K7's dQ and K3
-without their last listed key tile, K3 treating a partial tile as full,
-one non-empty tile (the first query tile against the first key tile)
-classed empty in K6's and in the bias's map, the pipelined overlap probe
-without its last subtile, the fp32 backward's dQ without its last key
-tile, the fp32 kernels' split products cut to their hh piece product (the
-forward's S = Q.K^T, the backward's dQ += dS.K: one bf16 product in place
-of six), the padded head dims of a bf16 backward instance not zero-filled
-(K9 on 40-wide views of 64-wide rows), and the Dp-128 dK/dV kernels of K9
-and K7 reading the wrong 16 rows of their MN-major operand (a descriptor
-off by one K-step).
+The mutation checks build a copy of ``csrc/`` with one fault in a
+temporary directory and show that the bar catches it (worst error / bar
+above 1, printed; run with ``-s`` to read it): K6 without the last key
+tile of its list, K7's dK/dV without its last listed query tile, K7's dQ
+and K3 without their last listed key tile, K3 treating a partial tile as
+full, one non-empty tile (the first query tile against the first key
+tile) classed empty in K6's and in the bias's map, the pipelined overlap
+probe without its last subtile and the serial one without its last tile,
+the fp32 backward's dQ without its last key tile, the fp32 kernels'
+split products cut to their hh piece product (the forward's S = Q.K^T,
+the backward's dQ += dS.K: one bf16 product in place of six), the padded
+head dims of a bf16 backward instance not zero-filled (K9 on 40-wide
+views of 64-wide rows), and the Dp-128 dK/dV kernels of K9 and K7
+reading the wrong 16 rows of their MN-major operand (a descriptor off by
+one K-step).
 
 Every kernel also runs at every dtype and head width its wrapper takes
 (``test_k*_at_every_width``: bf16 and fp32 at head_dim 16, 40, 64, 96,
@@ -1133,23 +1134,68 @@ def test_overlap_probe_matches_plain(dev, nsub):
     assert _probe_error(dev, nsub) <= 1.0
 
 
-def test_overlap_probe_mutation_fails_the_bar(dev, tmp_path, monkeypatch):
-    """The pipelined body without its last subtile (its last step skipped)
-    fails the bar: over 512 keys at nsub 2 it drops 128 of them."""
-    loop = ("    pipelined_step<D, W>(j + 1, n, sb, sa, o, l0, l1, qa, kbuf, "
-            "vbuf, kp, vp,")
-    short = ("    if (j + 1 < n - 1) pipelined_step<D, W>(j + 1, n, sb, sa, "
-             "o, l0, l1, qa, kbuf, vbuf, kp, vp,")
+def test_overlap_probe_raises_on_what_it_does_not_take(dev):
+    """The wrappers refuse, before any launch: an nsub outside NSUBS, a
+    dtype other than bf16, LK not a multiple of 256, and an operand that
+    does not start on a 16-byte boundary (TMA reads it)."""
+    q, k, v = overlap_probe.probe_inputs(1, dev, lk=256)
+    overlap_probe.overlap_serial.launches = 0
+    overlap_probe.overlap_pipelined.launches = 0
+    with pytest.raises(ValueError, match="nsub"):
+        overlap_probe.overlap_pipelined(q, k, v, 3)
+    with pytest.raises(ValueError, match="contiguous bf16"):
+        overlap_probe.overlap_serial(q.half(), k, v)
+    with pytest.raises(ValueError, match="LK a multiple of 256"):
+        overlap_probe.overlap_serial(q, k[:, :192].contiguous(),
+                                     v[:, :192].contiguous())
+    shifted = torch.empty(q.numel() + 1, device=dev,
+                          dtype=torch.bfloat16)[1:].view(q.shape)
+    shifted.copy_(q)
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        overlap_probe.overlap_pipelined(shifted, k, v, 4)
+    assert (overlap_probe.overlap_serial.launches
+            + overlap_probe.overlap_pipelined.launches) == 0
+
+
+def _probe_mutant_error(dev, tmp_path, monkeypatch, line, mutant, nsub):
+    """Worst error / bar over 512 keys of the probe built from a copy of
+    ``csrc/`` whose ``overlap_probe.cu`` has ``line`` (found once) replaced
+    by ``mutant``."""
     csrc = tmp_path / "csrc"
     shutil.copytree(_cuda.CSRC, csrc)
     text = (csrc / "overlap_probe.cu").read_text()
-    assert text.count(loop) == 1
-    (csrc / "overlap_probe.cu").write_text(text.replace(loop, short))
+    assert text.count(line) == 1
+    (csrc / "overlap_probe.cu").write_text(text.replace(line, mutant))
     libs = _cuda.build(str(csrc), os.path.join(tmp_path, "_build"))
     monkeypatch.setattr(_cuda, "libraries", lambda: libs)
-    ratio = _probe_error(dev, 2, lk=512)
+    return _probe_error(dev, nsub, lk=512)
+
+
+def test_overlap_probe_mutation_fails_the_bar(dev, tmp_path, monkeypatch):
+    """The pipelined body without its last subtile (its probabilities
+    zeroed, its keys out of the row sums) fails the bar: over 512 keys at
+    nsub 2 it drops 128 of them."""
+    ratio = _probe_mutant_error(
+        dev, tmp_path, monkeypatch,
+        "  exp2_pass<W>(sb, l0, l1);  // the last subtile's exp2 pass",
+        "  for (int e = 0; e < W / 2; ++e) sb[e] = 0.f;", 2)
     print(f"mutation overlap_pipelined_without_last_subtile: worst error / "
           f"bar {ratio:.2f}")
+    assert ratio > 1.0
+
+
+def test_overlap_probe_serial_mutation_fails_the_bar(dev, tmp_path,
+                                                     monkeypatch):
+    """The serial body without its last tile (its probabilities zeroed, its
+    keys out of the row sums) fails the bar: over 512 keys it drops 64 of
+    them."""
+    ratio = _probe_mutant_error(
+        dev, tmp_path, monkeypatch,
+        "    exp2_pass<W>(s, l0, l1);  // the serial body's exp2 pass",
+        "    if (i + 1 < n) exp2_pass<W>(s, l0, l1);\n"
+        "    else for (int e = 0; e < W / 2; ++e) s[e] = 0.f;", None)
+    print(f"mutation overlap_serial_without_last_tile: worst error / bar "
+          f"{ratio:.2f}")
     assert ratio > 1.0
 
 

@@ -533,4 +533,111 @@ __device__ __forceinline__ uint64_t desc_sw64_mn(const bf16* tile, int j) {
          (2ull << 62);
 }
 
+// ---- Hopper: S = Q.K^T at any key-tile width (the overlap probe) ---------
+//
+// A 64-byte-swizzled tile of ROWS rows keeps the layout above with its
+// 32-dim atoms ROWS * 64 bytes apart (TMA boxes of 32 x ROWS); ROWS 64 is
+// the tile of desc_sw64_k / desc_sw64_mn.
+
+// A ROWS-row 64-byte-swizzled tile as the K-major operand (rows M or N,
+// head dim the reduction), at reduction step kk.
+template <int ROWS>
+__device__ __forceinline__ uint64_t desc_sw64_k_rows(const bf16* tile,
+                                                     int kk) {
+  return wgmma_desc(reinterpret_cast<const char*>(tile) +
+                        (kk >> 1) * (ROWS * 64) + (kk & 1) * 32,
+                    16, 512) |
+         (2ull << 62);
+}
+
+// ... as the MN-major B operand (rows the reduction, head dim N), at
+// reduction step j (rows 16 j .. 16 j + 15).
+template <int ROWS>
+__device__ __forceinline__ uint64_t desc_sw64_mn_rows(const bf16* tile,
+                                                      int j) {
+  return wgmma_desc(reinterpret_cast<const char*>(tile) + j * 1024,
+                    ROWS * 64, 512) |
+         (2ull << 62);
+}
+
+// d (64 x 128, fp32) (+)= A (64 x 16, K-major, shared) . B (16 x 128,
+// K-major shared: the tile's rows are the 128 columns of d); scale_d 0
+// overwrites.
+__device__ __forceinline__ void wgmma_64x128_ss(float (&d)[64], uint64_t da,
+                                                uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
+      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
+      "%62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d (64 x N, fp32) (+)= A (64 x 16, registers) . B (16 x N, K-major
+// shared); scale_d 0 overwrites. S over a key tile of N = 16, 32 or 64
+// keys with Q's fragments in registers.
+template <int N>
+__device__ __forceinline__ void wgmma_s_rs(float (&d)[N / 2],
+                                           const uint32_t (&a)[4],
+                                           uint64_t db, int scale_d);
+
+template <>
+__device__ __forceinline__ void wgmma_s_rs<16>(float (&d)[8],
+                                               const uint32_t (&a)[4],
+                                               uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_s_rs<32>(float (&d)[16],
+                                               const uint32_t (&a)[4],
+                                               uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_s_rs<64>(float (&d)[32],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db, int scale_d) {
+  wgmma_64x64_rs(d, a, db, scale_d);
+}
+
 }  // namespace vgt

@@ -2,35 +2,69 @@
 //
 // Replaces the two bodies of the TPU probe scripts/overlap_probe.py
 // (`_serial_kernel` and `_pipelined_kernel`, one `pallas_call`). The question
-// it asks of the card: when one block's key loop is software-pipelined, so
+// it asks of the card: when a warpgroup's key loop is software-pipelined, so
 // that the QK^T product of the next key subtile is issued before the exp2
 // pass over the current one, do the tensor cores run under the exp2 pass?
 //
 // Function, per problem p and query row r (q [G, BQ, D], k/v [G, LK, D],
 // all contiguous bf16; no mask, scale 1, as the TPU probe):
 //   s(r, k) = q_r . k_k                           (fp32 accumulate)
-//   p(r, k) = exp2(clamp(s, -100, 100))
+//   p(r, k) = exp2(clamp(s, -100, 100))           (no max shift)
 //   out(r)  = sum_k bf16(p) v_k / max(sum_k p, 1e-30)
-// K1's columnar rank attention (rank_attention.cu) without the mask, at
-// D 128. Both kernels compute it with the same products in the same order
-// per key, so they agree with each other up to fp32 summation order.
+// the row sum taken in fp32 from the unrounded p. K1's columnar rank
+// attention (rank_attention.cu) without the mask, at D 128.
 //
-// - serial: K1's body. Each block owns 64 query rows (16 per warp); per
-//   64-key tile it loads K and V synchronously into one shared buffer, then
-//   S = Q.K^T (mma.sync), then exp2, then P.V, strictly in order.
-// - pipelined<W>: the key row walks subtiles of W keys. Subtile j+1's QK^T
-//   goes into a second score register set before subtile j's exp2 and P.V,
-//   and the K and V of the subtiles after that are in flight (cp.async into
-//   two shared buffers each) while subtile j is consumed. The TPU probe
-//   splits its 8192-key row into nsub subtiles of 4096-512 keys that VMEM
-//   holds at once; a Hopper block holds a few hundred keys' scores in
-//   registers at most, so nsub here splits each 256-key span: W = 256 / nsub
-//   = 128, 64, 32, 16 keys for nsub 2, 4, 8, 16 (nsub 4 has the serial
-//   kernel's 64-key tile). Equal math, FLOPs and bytes.
+// The TPU probe holds q, k and v in VMEM and copies nothing, so its two
+// bodies differ only in the order of the products and the exp2 pass. Here
+// both bodies share everything but that order, and use the instructions of
+// the production kernels:
+// - one block shape: a producer warpgroup (its registers lowered with
+//   setmaxnreg; one thread works) and kProbeConsumers consumer warpgroups of
+//   64 query rows each;
+// - the producer loads each consumer's Q tile once and streams the
+//   problem's K and V, W keys a subtile, by TMA (64-byte swizzle) into one
+//   ring of stages guarded by full / empty mbarriers; the ring holds
+//   kRingBytes whatever W, so every instance keeps as many bytes in flight;
+// - S = Q.K^T on wgmma m64nWk16, K from shared memory and Q's fragments in
+//   registers as in K1 (read once from the Q tile); at W 128 Q from shared
+//   memory instead, where its 32 registers do not fit beside two S sets;
+//   the exp2 pass and the row sums in registers (ex2.approx, as K1), then
+//   O += P.V on wgmma m64n128k16 (P from registers, V MN-major from shared
+//   memory).
+// The bodies:
+// - serial (W 64): per subtile, issue S and wait for it, run the exp2 pass,
+//   issue P.V and wait for it. None of a warpgroup's products runs under its
+//   own exp2 pass.
+// - pipelined<W>: the TPU body's order. Subtile j+1's S is committed before
+//   subtile j's exp2 pass (into a second S register set) and runs under
+//   that pass, and P.V of j is issued after it; one wait for both ends the
+//   step (pipelined_step says why not wgmma_wait<1>). nsub splits
+//   each 256-key span into subtiles of W = 256 / nsub keys: 128, 64, 32, 16
+//   for nsub 2, 4, 8, 16 (the TPU probe splits its whole 8192-key row, which
+//   VMEM holds; a warpgroup holds a few hundred keys' scores in registers at
+//   most). At nsub 4 it has the serial body's tile, ring and block shape.
+// The consumer warpgroups of a block (and of the blocks an SM holds) still
+// overlap one another's products and exp2 passes whatever the order inside
+// each: on Hopper "serial" is serial within a warpgroup.
+//
+// Grid: (BQ / (64 kProbeConsumers), G), query blocks fastest: the blocks of
+// one problem each read its whole K/V, at the same time, so the later reads
+// are mostly L2 hits. Registers: the consumers' O takes 64 a thread, each S
+// set W / 2, P W / 4, Q 32 (up to W 64); at W 128 (two S sets, 224 live)
+// the consumers get 240 and the producer 24, one block an SM.
 //
 // What bounds it on the card: G problems of 4 * BQ * LK * D FLOPs against
-// 2 * LK * D * 2 bytes of K/V each; at G 132 (every SM busy) the two
-// bounds are within 15% of each other. Neither kernel uses wgmma or TMA.
+// 2 * LK * D * 2 bytes of K/V each; at G 132 the bytes (0.170 ms at 3.35
+// TB/s) and the products (0.143 ms at 989 TFLOP/s) are within 20% of each
+// other, and beside them each pair's exp2 (277M a launch, ~0.07 ms of the
+// SMs' MUFU at 16 a clock). Measured (PERF.md section 6): at G 132 both
+// bodies take ~0.25 ms, two thirds of the card's byte rate, and the order
+// inside a warpgroup moves them by a few percent; at G 1, where nothing
+// contends for bytes, the pipelined body is ~1.2x the serial one.
+#include <cuda.h>
+
+#include <cstring>
+
 #include "attention_common.cuh"
 
 namespace vgt {
@@ -46,250 +80,410 @@ struct ProbeArgs {
 
 constexpr int kProbeDim = 128;  // the TPU probe's D
 constexpr int kSpan = 256;      // keys split into nsub subtiles (W = 256/nsub)
+constexpr int kProbeConsumers = 2;  // warpgroups of 64 query rows a block
+constexpr int kProbeRows = 64 * kProbeConsumers;
+constexpr int kProbeThreads = 128 * (1 + kProbeConsumers);
+// One block an SM (two with a single consumer: the launch takes half the
+// registers). setmaxnreg moves registers within the block, so the
+// producer's and the consumers' counts add up to the launch's.
+constexpr int kProbeMinBlocks = kProbeConsumers == 1 ? 2 : 1;
+constexpr int kProbeLaunchRegs =
+    65536 / (kProbeThreads * kProbeMinBlocks) / 8 * 8;
+constexpr int kProbeProducerRegs = 24;
+constexpr int kProbeConsumerRegs =
+    (kProbeLaunchRegs * (1 + kProbeConsumers) - kProbeProducerRegs) /
+    kProbeConsumers / 8 * 8;
+static_assert(128 * (kProbeProducerRegs + kProbeConsumers *
+                           kProbeConsumerRegs) <=
+                  kProbeLaunchRegs * kProbeThreads,
+              "the warpgroups' registers exceed the launch's");
+constexpr int kQTileBytes = 64 * kProbeDim * 2;  // one consumer's Q
+constexpr int kRingBytes = 192 * 1024;           // K/V stages, any W
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(src));
-}
+// The shared memory of a block at subtile width W, from a 1024-byte
+// boundary: the ring's stages (K then V, W rows each in 64-byte-swizzled
+// atoms of 32 head dims), the consumers' Q tiles, then the barriers.
+template <int W>
+struct ProbeCfg {
+  static constexpr bool kQRegs = W <= 64;  // else S reads Q from shared
+  static constexpr int kTileBytes = W * kProbeDim * 2;  // K or V
+  static constexpr int kStageBytes = 2 * kTileBytes;
+  static constexpr int kStages = kRingBytes / kStageBytes;  // 3 .. 24
+  static constexpr int kQOff = kRingBytes;
+  static constexpr int kBarOff = kQOff + kProbeConsumers * kQTileBytes;
+  static constexpr int kSmem = 1024 + kBarOff + (2 * kStages + 1) * 8;
+  static_assert(kStages >= 3, "the pipelined body holds two stages");
+  static_assert(kSmem <= 232448, "a block's shared memory exceeds the SM's");
+};
 
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
+// The tensor maps of a launch: Q (boxes of 32 dims x 64 rows), K and V
+// (32 dims x W rows).
+struct alignas(64) ProbeMaps {
+  CUtensorMap q, k, v;
+};
 
-// Wait until at most N of this thread's most recent groups are in flight.
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// Issue the copy of ROWS full rows of D bf16 (row stride D) into a
-// [ROWS][LDS] shared tile, 16 bytes per cp.async.
-template <int D, int ROWS, int LDS>
-__device__ __forceinline__ void load_tile_async(bf16* dst, const bf16* src) {
-  constexpr int kChunks = D / 8;
-  for (int i = threadIdx.x; i < ROWS * kChunks; i += kThreads) {
-    const int r = i / kChunks;
-    const int c = (i % kChunks) * 8;
-    cp_async16(dst + r * LDS + c, src + static_cast<long long>(r) * D + c);
-  }
-}
-
-// S = Q.K^T over the NS * 8 keys of the shared tile `ks`.
-template <int KS, int NS, int LDS>
-__device__ __forceinline__ void qk_scores(float (&s)[NS][4],
-                                          const uint32_t (&qa)[KS][4],
-                                          const bf16* ks, int lane) {
+// p = exp2(clamp(s)) of this thread's W / 2 entries of S, in place; their
+// row sums (row g: entries 4n, 4n + 1; row g + 8: 4n + 2, 4n + 3) added to
+// l0 / l1.
+template <int W>
+__device__ __forceinline__ void exp2_pass(float (&s)[W / 2], float& l0,
+                                          float& l1) {
 #pragma unroll
-  for (int n = 0; n < NS; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < KS; ++kk) {
-#pragma unroll
-    for (int n = 0; n < NS; ++n) {
-      uint32_t b0, b1;
-      load_b_kt(b0, b1, ks + n * 8 * LDS + kk * 16, LDS, lane);
-      mma_16816(s[n], qa[kk], b0, b1);
-    }
-  }
-}
-
-// p = exp2(clamp(s)), the row sums, and O += bf16(p).V over the shared
-// tile `vs` of the same NS * 8 keys.
-template <int NS, int NO, int LDS>
-__device__ __forceinline__ void exp2_pv(float (&s)[NS][4], float (&o)[NO][4],
-                                        float& l0, float& l1, const bf16* vs,
-                                        int lane) {
-#pragma unroll
-  for (int n = 0; n < NS; ++n) {
+  for (int n = 0; n < W / 8; ++n) {
 #pragma unroll
     for (int e = 0; e < 4; ++e)
-      s[n][e] = exp2f(fminf(fmaxf(s[n][e], -100.f), 100.f));
-    l0 += s[n][0] + s[n][1];
-    l1 += s[n][2] + s[n][3];
+      s[4 * n + e] = ex2_approx(fminf(fmaxf(s[4 * n + e], -100.f), 100.f));
+    l0 += s[4 * n] + s[4 * n + 1];
+    l1 += s[4 * n + 2] + s[4 * n + 3];
   }
+}
+
+// A consumer warpgroup's state and steps over the ring.
+template <int W>
+struct ProbeConsumer {
+  using C = ProbeCfg<W>;
+  unsigned char* ring;
+  uint64_t* full;
+  uint64_t* empty;
+  const bf16* qt;     // this consumer's Q tile
+  uint32_t qa[C::kQRegs ? kProbeDim / 16 : 1][4];  // and its A fragments
+  int lane;
+  int wait_stage = 0;  // the next stage to wait for, and its parity
+  uint32_t phase = 0;
+  int free_stage = 0;  // the next stage to release
+
+  __device__ __forceinline__ const bf16* kt(int s) const {
+    return reinterpret_cast<const bf16*>(ring + s * C::kStageBytes);
+  }
+  __device__ __forceinline__ const bf16* vt(int s) const {
+    return reinterpret_cast<const bf16*>(ring + s * C::kStageBytes +
+                                         C::kTileBytes);
+  }
+
+  // Wait for the next subtile and issue its S into s; its stage. s is
+  // zeroed first, as in K1, so that its old values die at their last use
+  // and not at the product's "+f" operands (at W 128 they would hold 64
+  // registers beside P and the S in flight).
+  __device__ __forceinline__ int issue_s(float (&s)[W / 2]) {
+    const int st = wait_stage;
+    mbar_wait(&full[st], phase);
+    if (++wait_stage == C::kStages) {
+      wait_stage = 0;
+      phase ^= 1;
+    }
 #pragma unroll
-  for (int j = 0; j < NS / 2; ++j) {
-    const uint32_t pa[4] = {pack_bf16(s[2 * j][0], s[2 * j][1]),
-                            pack_bf16(s[2 * j][2], s[2 * j][3]),
-                            pack_bf16(s[2 * j + 1][0], s[2 * j + 1][1]),
-                            pack_bf16(s[2 * j + 1][2], s[2 * j + 1][3])};
+    for (int i = 0; i < W / 2; ++i) s[i] = 0.f;
+    fence_regs(s);
+    if constexpr (C::kQRegs) fence_frags(qa);
+    wgmma_fence();
 #pragma unroll
-    for (int n = 0; n < NO; ++n) {
-      uint32_t b0, b1;
-      load_b_v(b0, b1, vs + j * 16 * LDS + n * 8, LDS, lane);
-      mma_16816(o[n], pa, b0, b1);
+    for (int kk = 0; kk < kProbeDim / 16; ++kk) {
+      if constexpr (C::kQRegs)
+        wgmma_s_rs<W>(s, qa[kk], desc_sw64_k_rows<W>(kt(st), kk), kk > 0);
+      else
+        wgmma_64x128_ss(s, desc_sw64_k(qt, kk),
+                        desc_sw64_k_rows<W>(kt(st), kk), kk > 0);
+    }
+    wgmma_commit();
+    return st;
+  }
+
+  // P = bf16(s) into registers and O += P.V over stage st's V.
+  __device__ __forceinline__ void issue_pv(float (&o)[64],
+                                           uint32_t (&pa)[W / 16][4],
+                                           const float (&s)[W / 2], int st) {
+#pragma unroll
+    for (int j = 0; j < W / 16; ++j) acc_to_a(pa[j], s + 8 * j);
+    fence_frags(pa);
+    fence_regs(o);
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < W / 16; ++j)
+      wgmma_pv<kProbeDim>(o, pa[j], desc_sw64_mn_rows<W>(vt(st), j));
+    wgmma_commit();
+  }
+
+  // Q's A fragments of this thread (warp w: rows 16 w ..) from the landed
+  // tile: row r's 16-byte chunk ch of an atom at 64 r + 16 (ch ^ (r / 2) % 4).
+  __device__ __forceinline__ void load_q(int warp) {
+    if constexpr (C::kQRegs) {
+      const unsigned char* base = reinterpret_cast<const unsigned char*>(qt);
+      const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+      for (int kk = 0; kk < kProbeDim / 16; ++kk)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = warp * 16 + g + (e & 1) * 8;
+          const int col = kk * 16 + 2 * t + (e >> 1) * 8;
+          const int ch = ((col >> 3) & 3) ^ ((r >> 1) & 3);
+          qa[kk][e] = *reinterpret_cast<const uint32_t*>(
+              base + (col >> 5) * kSw64Atom + r * 64 + ch * 16 +
+              (col & 7) * 2);
+        }
+    }
+  }
+
+  // Every warp signals once it is done with the oldest held stage.
+  __device__ __forceinline__ void release() {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[free_stage]);
+    if (++free_stage == C::kStages) free_stage = 0;
+  }
+};
+
+// The serial body: per subtile S, wait, exp2, P.V, wait.
+template <int W>
+__device__ __forceinline__ void overlap_serial(ProbeConsumer<W>& c, int n,
+                                               float (&o)[64], float& l0,
+                                               float& l1) {
+  float s[W / 2];
+  uint32_t pa[W / 16][4];
+  for (int i = 0; i < n; ++i) {
+    const int st = c.issue_s(s);
+    wgmma_wait<0>();
+    fence_regs(s);
+    exp2_pass<W>(s, l0, l1);  // the serial body's exp2 pass
+    c.issue_pv(o, pa, s, st);
+    wgmma_wait<0>();
+    fence_regs(o);
+    fence_frags(pa);
+    c.release();
+  }
+}
+
+// One step j of the pipelined body: `prev` holds subtile j's S (landed),
+// from stage `prev_st`. Issue subtile j + 1's S into `cur`, run subtile j's
+// exp2 pass under it, then issue its P.V; return subtile j + 1's stage.
+// Each step ends with no product in flight (both waited for), so that no
+// group stays pending across the loop's back edge: with S(j + 1) and P.V(j)
+// left in flight there (a wgmma_wait<1> at the next step's start), ptxas
+// serialized every wgmma of the body (C7514).
+template <int W>
+__device__ __forceinline__ int pipelined_step(ProbeConsumer<W>& c,
+                                              float (&prev)[W / 2],
+                                              int prev_st,
+                                              float (&cur)[W / 2],
+                                              float (&o)[64],
+                                              uint32_t (&pa)[W / 16][4],
+                                              float& l0, float& l1) {
+  const int next = c.issue_s(cur);
+  exp2_pass<W>(prev, l0, l1);  // under S(j + 1)
+  c.issue_pv(o, pa, prev, prev_st);
+  wgmma_wait<0>();
+  fence_regs(cur);
+  fence_regs(o);
+  fence_frags(pa);
+  c.release();  // subtile j's stage
+  return next;
+}
+
+// The pipelined body over n (even, >= 2) subtiles.
+template <int W>
+__device__ __forceinline__ void overlap_pipelined(ProbeConsumer<W>& c, int n,
+                                                  float (&o)[64], float& l0,
+                                                  float& l1) {
+  float sa[W / 2], sb[W / 2];
+  uint32_t pa[W / 16][4];
+  int st = c.issue_s(sa);
+  wgmma_wait<0>();
+  fence_regs(sa);
+  // steps 0 .. n - 3, two at a time, so that the S sets swap; then n - 2
+  for (int j = 0; j < n - 2; j += 2) {
+    st = pipelined_step<W>(c, sa, st, sb, o, pa, l0, l1);
+    st = pipelined_step<W>(c, sb, st, sa, o, pa, l0, l1);
+  }
+  st = pipelined_step<W>(c, sa, st, sb, o, pa, l0, l1);
+  // step n - 1: no S to issue
+  exp2_pass<W>(sb, l0, l1);  // the last subtile's exp2 pass
+  c.issue_pv(o, pa, sb, st);
+  wgmma_wait<0>();
+  fence_regs(o);
+  fence_frags(pa);
+  c.release();
+}
+
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  const uint32_t a = smem_u32(p);
+  return p + (((a + 1023u) & ~1023u) - a);
+}
+
+// The producer: each consumer's Q tile, then the problem's K and V subtiles
+// in order through the ring. One thread works.
+template <int W>
+__device__ __forceinline__ void probe_producer(const ProbeMaps& maps,
+                                               unsigned char* smem,
+                                               uint64_t* full,
+                                               uint64_t* empty,
+                                               uint64_t* qbar, int p, int q0,
+                                               int n) {
+  using C = ProbeCfg<W>;
+  if (threadIdx.x != 0) return;
+  mbar_arrive_tx(qbar, kProbeConsumers * kQTileBytes);
+  for (int c = 0; c < kProbeConsumers; ++c)
+#pragma unroll
+    for (int at = 0; at < kProbeDim / 32; ++at)
+      tma_load_4d(smem + C::kQOff + c * kQTileBytes + at * kSw64Atom,
+                  &maps.q, qbar, 32 * at, q0 + 64 * c, p, 0);
+  int stage = 0;
+  uint32_t phase = 0;
+  for (int i = 0; i < n; ++i) {
+    mbar_wait(&empty[stage], phase ^ 1);
+    unsigned char* st = smem + stage * C::kStageBytes;
+    mbar_arrive_tx(&full[stage], C::kStageBytes);
+#pragma unroll
+    for (int at = 0; at < kProbeDim / 32; ++at) {
+      tma_load_4d(st + at * (W * 64), &maps.k, &full[stage], 32 * at, i * W,
+                  p, 0);
+      tma_load_4d(st + C::kTileBytes + at * (W * 64), &maps.v, &full[stage],
+                  32 * at, i * W, p, 0);
+    }
+    if (++stage == C::kStages) {
+      stage = 0;
+      phase ^= 1;
     }
   }
 }
 
-// The block's 64 query rows into shared memory and into A fragments.
-template <int D, int LDS>
-__device__ __forceinline__ void load_queries(uint32_t (&qa)[D / 16][4],
-                                             bf16* qs, const bf16* qp,
-                                             int warp, int lane) {
-  load_tile<D, kBlockQ, LDS>(qs, qp, D, kBlockQ);
+template <int W, bool kPipelined>
+__global__ void __launch_bounds__(kProbeThreads, kProbeMinBlocks)
+    overlap_kernel(const __grid_constant__ ProbeArgs a,
+                   const __grid_constant__ ProbeMaps maps) {
+  using C = ProbeCfg<W>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + C::kBarOff);
+  uint64_t* empty = full + C::kStages;
+  uint64_t* qbar = empty + C::kStages;
+  const int p = blockIdx.y, q0 = blockIdx.x * kProbeRows;
+  const int n = a.lk / W;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < C::kStages; ++s) {
+      mbar_init(&full[s], 1);  // the producer's arrival (+ the TMA bytes)
+      mbar_init(&empty[s], 4 * kProbeConsumers);  // every consumer warp
+    }
+    mbar_init(qbar, 1);
+    fence_mbar_init();
+  }
   __syncthreads();
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk)
-    load_a(qa[kk], qs + warp * 16 * LDS + kk * 16, LDS, lane);
-}
-
-template <int NO>
-__device__ __forceinline__ void store_rows(const float (&o)[NO][4], float l0,
-                                           float l1, bf16* out, int row0,
-                                           int lane) {
+  // warp-uniform in the compiler's view (a shuffle), as wgmma wants
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  if (wg == 0) {
+    setmaxnreg_dec<kProbeProducerRegs>();
+    probe_producer<W>(maps, smem, full, empty, qbar, p, q0, n);
+    return;
+  }
+  setmaxnreg_inc<kProbeConsumerRegs>();
+  const int tid = threadIdx.x & 127, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
+  const int row0 = q0 + 64 * (wg - 1);
+  ProbeConsumer<W> c;
+  c.ring = smem;
+  c.full = full;
+  c.empty = empty;
+  c.qt = reinterpret_cast<const bf16*>(smem + C::kQOff +
+                                       (wg - 1) * kQTileBytes);
+  c.lane = lane;
+  float o[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) o[i] = 0.f;
+  float l0 = 0.f, l1 = 0.f;
+  mbar_wait(qbar, 0);
+  c.load_q(warp);
+  if constexpr (kPipelined)
+    overlap_pipelined<W>(c, n, o, l0, l1);
+  else
+    overlap_serial<W>(c, n, o, l0, l1);
+
   const float inv0 = 1.f / fmaxf(quad_sum(l0), 1e-30f);
   const float inv1 = 1.f / fmaxf(quad_sum(l1), 1e-30f);
-  bf16* r0 = out + static_cast<long long>(row0 + g) * (NO * 8);
-  bf16* r1 = r0 + 8 * (NO * 8);
+  const int r0 = row0 + warp * 16 + g, r1 = r0 + 8;
+  bf16* out = static_cast<bf16*>(a.out) +
+              static_cast<long long>(p) * a.bq * kProbeDim;
 #pragma unroll
-  for (int n = 0; n < NO; ++n) {
-    const int c = n * 8 + 2 * t;
-    *reinterpret_cast<uint32_t*>(r0 + c) =
-        pack_bf16(o[n][0] * inv0, o[n][1] * inv0);
-    *reinterpret_cast<uint32_t*>(r1 + c) =
-        pack_bf16(o[n][2] * inv1, o[n][3] * inv1);
+  for (int n8 = 0; n8 < kProbeDim / 8; ++n8) {
+    const int col = n8 * 8 + 2 * t;
+    if (r0 < a.bq)
+      *reinterpret_cast<uint32_t*>(out + r0 * kProbeDim + col) =
+          pack_bf16(o[4 * n8] * inv0, o[4 * n8 + 1] * inv0);
+    if (r1 < a.bq)
+      *reinterpret_cast<uint32_t*>(out + r1 * kProbeDim + col) =
+          pack_bf16(o[4 * n8 + 2] * inv1, o[4 * n8 + 3] * inv1);
   }
 }
 
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-    overlap_serial_kernel(const ProbeArgs a) {
-  constexpr int LDS = D + 8, KS = D / 16, NO = D / 8, NS = kBlockK / 8;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* qs = reinterpret_cast<bf16*>(smem);
-  bf16* ks = qs + kBlockQ * LDS;
-  bf16* vs = ks + kBlockK * LDS;
+// cuTensorMapEncodeTiled, looked up through the runtime's entry-point
+// query (the library links no -lcuda).
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
 
-  const int p = blockIdx.y, q0 = blockIdx.x * kBlockQ;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const long long qrow = static_cast<long long>(p) * a.bq + q0;
-  const long long krow = static_cast<long long>(p) * a.lk;
-  const bf16* kp = static_cast<const bf16*>(a.k) + krow * D;
-  const bf16* vp = static_cast<const bf16*>(a.v) + krow * D;
-
-  uint32_t qa[KS][4];
-  load_queries<D, LDS>(qa, qs, static_cast<const bf16*>(a.q) + qrow * D,
-                       warp, lane);
-  float o[NO][4];
-#pragma unroll
-  for (int n = 0; n < NO; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
-  float l0 = 0.f, l1 = 0.f;
-
-  for (int k0 = 0; k0 < a.lk; k0 += kBlockK) {
-    __syncthreads();  // the previous tile is fully consumed
-    load_tile<D, kBlockK, LDS>(ks, kp + static_cast<long long>(k0) * D, D,
-                               kBlockK);
-    load_tile<D, kBlockK, LDS>(vs, vp + static_cast<long long>(k0) * D, D,
-                               kBlockK);
-    __syncthreads();
-    float s[NS][4];
-    qk_scores<KS, NS, LDS>(s, qa, ks, lane);
-    exp2_pv<NS, NO, LDS>(s, o, l0, l1, vs, lane);
-  }
-  store_rows<NO>(o, l0, l1,
-                 static_cast<bf16*>(a.out) + static_cast<long long>(p) *
-                                                 a.bq * D,
-                 q0 + warp * 16, lane);
+inline EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                     cudaEnableDefault, &q);
+#else
+    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                            &q);
+#endif
+    return q == cudaDriverEntryPointSuccess ? reinterpret_cast<EncodeTiled>(p)
+                                            : nullptr;
+  }();
+  return fn;
 }
 
-// One step j of the pipelined loop: `prev` holds subtile j's scores; the
-// step fills `cur` with subtile j+1's, then consumes `prev`.
-template <int D, int W>
-__device__ __forceinline__ void pipelined_step(
-    int j, int n, float (&prev)[W / 8][4], float (&cur)[W / 8][4],
-    float (&o)[D / 8][4], float& l0, float& l1,
-    const uint32_t (&qa)[D / 16][4], bf16* kbuf, bf16* vbuf, const bf16* kp,
-    const bf16* vp, int lane) {
-  constexpr int LDS = D + 8, SLOT = W * LDS;
-  // every warp is done with K slot j&1 (subtile j's QK^T, the step before)
-  // and V slot (j+1)&1 (subtile j-1's P.V): refill them
-  __syncthreads();
-  if (j + 2 < n)
-    load_tile_async<D, W, LDS>(kbuf + (j & 1) * SLOT,
-                               kp + static_cast<long long>(j + 2) * W * D);
-  if (j + 1 < n)
-    load_tile_async<D, W, LDS>(vbuf + ((j + 1) & 1) * SLOT,
-                               vp + static_cast<long long>(j + 1) * W * D);
-  cp_async_commit();
-  cp_async_wait<1>();  // K of subtile j+1 and V of subtile j have landed
-  __syncthreads();
-  if (j + 1 < n)
-    qk_scores<D / 16, W / 8, LDS>(cur, qa, kbuf + ((j + 1) & 1) * SLOT, lane);
-  exp2_pv<W / 8, D / 8, LDS>(prev, o, l0, l1, vbuf + (j & 1) * SLOT, lane);
-}
-
-template <int D, int W>
-__global__ void __launch_bounds__(kThreads)
-    overlap_pipelined_kernel(const ProbeArgs a) {
-  constexpr int LDS = D + 8, KS = D / 16, NO = D / 8, NS = W / 8;
-  constexpr int SLOT = W * LDS;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* qs = reinterpret_cast<bf16*>(smem);
-  bf16* kbuf = qs + kBlockQ * LDS;   // two slots of W keys
-  bf16* vbuf = kbuf + 2 * SLOT;      // two slots of W keys
-
-  const int p = blockIdx.y, q0 = blockIdx.x * kBlockQ;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const long long qrow = static_cast<long long>(p) * a.bq + q0;
-  const long long krow = static_cast<long long>(p) * a.lk;
-  const bf16* kp = static_cast<const bf16*>(a.k) + krow * D;
-  const bf16* vp = static_cast<const bf16*>(a.v) + krow * D;
-  const int n = a.lk / W;  // even: the wrapper takes lk in multiples of 256
-
-  // in flight: {K0}, then {K1, V0}
-  load_tile_async<D, W, LDS>(kbuf, kp);
-  cp_async_commit();
-  load_tile_async<D, W, LDS>(kbuf + SLOT, kp + W * D);
-  load_tile_async<D, W, LDS>(vbuf, vp);
-  cp_async_commit();
-
-  uint32_t qa[KS][4];
-  load_queries<D, LDS>(qa, qs, static_cast<const bf16*>(a.q) + qrow * D,
-                       warp, lane);
-  float o[NO][4];
-#pragma unroll
-  for (int i = 0; i < NO; ++i) o[i][0] = o[i][1] = o[i][2] = o[i][3] = 0.f;
-  float l0 = 0.f, l1 = 0.f;
-
-  float sa[NS][4], sb[NS][4];
-  cp_async_wait<1>();  // K0
-  __syncthreads();
-  qk_scores<KS, NS, LDS>(sa, qa, kbuf, lane);
-  for (int j = 0; j < n; j += 2) {  // two steps, so the score sets swap
-    pipelined_step<D, W>(j, n, sa, sb, o, l0, l1, qa, kbuf, vbuf, kp, vp,
-                         lane);
-    pipelined_step<D, W>(j + 1, n, sb, sa, o, l0, l1, qa, kbuf, vbuf, kp, vp,
-                         lane);
-  }
-  store_rows<NO>(o, l0, l1,
-                 static_cast<bf16*>(a.out) + static_cast<long long>(p) *
-                                                 a.bq * D,
-                 q0 + warp * 16, lane);
-}
-
-template <typename Kernel>
-int launch(Kernel kernel, const ProbeArgs* a, int smem, void* stream) {
-  // above 48 KB a block's shared memory is dynamic and must be allowed
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(a->bq / kBlockQ, a->problems);
-  kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(*a);
-  return static_cast<int>(cudaGetLastError());
+// The map of a contiguous [problems, len, D] bf16 operand: boxes of 32 head
+// dims x `rows` rows, 64-byte swizzle; rows past len read as 0.
+inline CUresult encode_rows(CUtensorMap* m, const void* base, int problems,
+                            int len, int rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return CUDA_ERROR_NOT_FOUND;
+  const cuuint64_t row = kProbeDim * 2;  // bytes
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(kProbeDim),
+                              static_cast<cuuint64_t>(len),
+                              static_cast<cuuint64_t>(problems), 1};
+  const cuuint64_t strides[3] = {row, row * len, row * len * problems};
+  const cuuint32_t box[4] = {32, static_cast<cuuint32_t>(rows), 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return encode(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                const_cast<void*>(base), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_64B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
 
 bool takes(const ProbeArgs* a) {
-  return a->head_dim == kProbeDim && a->bq % kBlockQ == 0 &&
-         a->lk % kSpan == 0 && a->lk > 0 && a->problems > 0;
+  return a->head_dim == kProbeDim && a->bq % 64 == 0 && a->bq > 0 &&
+         a->lk % kSpan == 0 && a->lk > 0 && a->problems > 0 &&
+         a->problems <= 65535;
 }
 
-template <int W>
-int launch_pipelined(const ProbeArgs* a, void* stream) {
-  constexpr int LDS = kProbeDim + 8;
-  const int smem = (kBlockQ + 4 * W) * LDS * static_cast<int>(sizeof(bf16));
-  return launch(overlap_pipelined_kernel<kProbeDim, W>, a, smem, stream);
+// Returns cudaGetLastError() (0 = launched), or 100000 + the CUresult of a
+// tensor map that failed to encode.
+template <int W, bool kPipelined>
+int launch(const ProbeArgs* a, void* stream) {
+  using C = ProbeCfg<W>;
+  ProbeMaps maps;
+  memset(&maps, 0, sizeof(maps));
+  CUresult r = encode_rows(&maps.q, a->q, a->problems, a->bq, 64);
+  if (r == CUDA_SUCCESS)
+    r = encode_rows(&maps.k, a->k, a->problems, a->lk, W);
+  if (r == CUDA_SUCCESS)
+    r = encode_rows(&maps.v, a->v, a->problems, a->lk, W);
+  if (r != CUDA_SUCCESS) return 100000 + static_cast<int>(r);
+  auto kernel = overlap_kernel<W, kPipelined>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((a->bq + kProbeRows - 1) / kProbeRows, a->problems);
+  kernel<<<grid, kProbeThreads, C::kSmem, static_cast<cudaStream_t>(stream)>>>(
+      *a, maps);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace vgt
@@ -297,20 +491,17 @@ int launch_pipelined(const ProbeArgs* a, void* stream) {
 // Launch on `stream`; return cudaGetLastError() (0 = launched).
 extern "C" int vgt_overlap_serial(const vgt::ProbeArgs* a, void* stream) {
   if (!vgt::takes(a)) return static_cast<int>(cudaErrorInvalidValue);
-  constexpr int LDS = vgt::kProbeDim + 8;
-  const int smem = (vgt::kBlockQ + 2 * vgt::kBlockK) * LDS *
-                   static_cast<int>(sizeof(vgt::bf16));
-  return vgt::launch(vgt::overlap_serial_kernel<vgt::kProbeDim>, a, smem,
-                     stream);
+  return vgt::launch<vgt::kSpan / 4, false>(a, stream);
 }
 
 extern "C" int vgt_overlap_pipelined(const vgt::ProbeArgs* a, void* stream) {
+  using vgt::kSpan;
   if (!vgt::takes(a)) return static_cast<int>(cudaErrorInvalidValue);
   switch (a->nsub) {
-    case 2: return vgt::launch_pipelined<vgt::kSpan / 2>(a, stream);
-    case 4: return vgt::launch_pipelined<vgt::kSpan / 4>(a, stream);
-    case 8: return vgt::launch_pipelined<vgt::kSpan / 8>(a, stream);
-    case 16: return vgt::launch_pipelined<vgt::kSpan / 16>(a, stream);
+    case 2: return vgt::launch<kSpan / 2, true>(a, stream);
+    case 4: return vgt::launch<kSpan / 4, true>(a, stream);
+    case 8: return vgt::launch<kSpan / 8, true>(a, stream);
+    case 16: return vgt::launch<kSpan / 16, true>(a, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -1,26 +1,30 @@
-"""Does the card run the tensor cores under the exp2 pass when one block's
-key loop is software-pipelined?
+"""Does the card run the tensor cores under the exp2 pass when a
+warpgroup's key loop is software-pipelined?
 
 Port of ``scripts/overlap_probe.py`` (P1): one unmasked unshifted-exp2
 attention of [256, 128] queries over 8192 keys of D 128, scale 1, computed
-by two hand-written kernels of ``csrc/overlap_probe.cu``:
+by two hand-written kernels of ``csrc/overlap_probe.cu`` that share one
+block shape (a TMA producer warpgroup, two consumer warpgroups of 64 query
+rows on wgmma) and one ring of K/V stages, and differ only in the order of
+issue and wait inside a consumer warpgroup:
 
-- :func:`overlap_serial`: K1's body, load -> QK^T -> exp2 -> P.V per 64-key
-  tile, one K/V buffer;
-- :func:`overlap_pipelined`: subtile j+1's QK^T issued before subtile j's
-  exp2, the next subtiles' K/V in flight (cp.async, two buffers each);
-  ``nsub`` in (2, 4, 8, 16) splits each 256-key span into subtiles of
-  256 / nsub keys.
+- :func:`overlap_serial`: per 64-key subtile, S = Q.K^T and wait, the exp2
+  pass, P.V and wait;
+- :func:`overlap_pipelined`: subtile j+1's S issued before subtile j's exp2
+  pass and left to run under it, P.V of j after it; ``nsub`` in (2, 4, 8,
+  16) splits each 256-key span into subtiles of 256 / nsub keys (nsub 4:
+  the serial body's tile).
 
 Equal math, FLOPs and bytes. ``problems`` (G) independent copies of the
-probe run in one launch: G = 1 is the TPU probe (4 blocks of 64 rows, 4 of
-132 SMs busy), G = 132 puts 4 blocks on every SM. Runs on CUDA only:
+probe run in one launch: G = 1 is the TPU probe (2 blocks of 128 rows),
+G = 132 gives every SM two blocks in turn. Runs on CUDA only:
 
     python -m video_gpt_tpu_torch.probes.overlap_probe
 
-prints, per G, the median of 20 launches of each variant, max|A - B|
-between the variants and against the plain version, and the speedup of
-each ``nsub`` over the serial body, then one JSON line.
+prints, per G, each variant's time (``median_ms``: the median of 20
+samples of 10 launches back to back), max|A - B| between the variants and
+against the plain version, and the speedup of each ``nsub`` over the
+serial body, then one JSON line.
 """
 from __future__ import annotations
 
@@ -37,6 +41,7 @@ from ..ops.flash_attention import _launch
 BQ, LK, D = 256, 8192, 128
 NSUBS = (2, 4, 8, 16)
 REPS = 20
+BURST = 10  # launches a timed sample
 SPAN = 256  # keys split into nsub subtiles (csrc kSpan)
 
 
@@ -71,6 +76,9 @@ def _run(fn: str, q, k, v, nsub: int = 0) -> torch.Tensor:
     if d != D or bq % 64 or lk % SPAN:
         raise ValueError(f"the probe kernels take D {D}, BQ a multiple of 64 "
                          f"and LK a multiple of {SPAN}; got {d}, {bq}, {lk}")
+    if any(x.data_ptr() % 16 for x in (q, k, v)):
+        raise ValueError("the probe kernels read q, k, v by TMA: each must "
+                         "start on a 16-byte boundary")
     out = torch.empty_like(q)
     a = _ProbeArgs(q=q.data_ptr(), k=k.data_ptr(), v=v.data_ptr(),
                    out=out.data_ptr(), problems=g, bq=bq, lk=lk, head_dim=d,
@@ -123,18 +131,22 @@ def probe_inputs(problems: int, device, bq: int = BQ, lk: int = LK,
 
 
 def median_ms(fn, reps: int = REPS) -> float:
-    """Median device time of ``reps`` launches of ``fn``, each between two
-    CUDA events, after one warm-up launch."""
+    """Median device time of one launch of ``fn`` over ``reps`` samples,
+    after one warm-up launch. A sample is the mean of ``BURST`` launches
+    back to back between two CUDA events, so that the host's work between
+    launches (the wrapper, the tensor maps: ~30 us, a quarter of a G 1
+    launch) overlaps the device's instead of adding to it."""
     fn()
     times = []
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(BURST):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / BURST)
     return float(np.median(times))
 
 
