@@ -13,7 +13,9 @@ Architecture: 4 down blocks (``layers_per_block`` resnets each) with
 stride-2 convs after an asymmetric (0, 1) pad, a mid block with one
 single-head attention, a mirrored decoder with ``layers_per_block + 1``
 resnets per up block and nearest-neighbour upsampling; GroupNorm + SiLU
-throughout; 4 latent channels, 8x spatial reduction.
+throughout; 4 latent channels, 8x spatial reduction. ``encode`` and
+``decode`` are the spans ``vgt.vae.encode`` and ``vgt.vae.decode``
+(``utils.profiling.annotate``).
 """
 from __future__ import annotations
 
@@ -23,6 +25,8 @@ from typing import Optional, Tuple, Union
 import torch
 from torch import nn
 import torch.nn.functional as F
+
+from ..utils.profiling import annotate
 
 
 @dataclasses.dataclass(frozen=True)
@@ -230,24 +234,27 @@ class AutoencoderKL(nn.Module):
         Generator on the VAE's device to draw it from; ``noise_rows``
         (first, total): the pixels are rows first.. of a global batch of
         ``total``, whose draw is made and sliced (a data rank's)."""
-        mean, logvar = self.encode_moments(pixels).chunk(2, dim=-1)
-        if sample:
-            if not isinstance(noise, torch.Tensor):
-                first, total = noise_rows or (0, mean.shape[0])
-                noise = torch.randn((total,) + mean.shape[1:],
-                                    generator=noise, device=mean.device,
-                                    dtype=mean.dtype)
-                noise = noise[first:first + mean.shape[0]]
-            std = torch.exp(0.5 * logvar.clamp(-30.0, 20.0))
-            mean = mean + std * noise.to(mean.dtype)
-        if self.cfg.shift_factor is not None:
-            return (mean - self.cfg.shift_factor) * self.cfg.scaling_factor
-        return mean * self.cfg.scaling_factor
+        with annotate("vgt.vae.encode"):
+            mean, logvar = self.encode_moments(pixels).chunk(2, dim=-1)
+            if sample:
+                if not isinstance(noise, torch.Tensor):
+                    first, total = noise_rows or (0, mean.shape[0])
+                    noise = torch.randn((total,) + mean.shape[1:],
+                                        generator=noise, device=mean.device,
+                                        dtype=mean.dtype)
+                    noise = noise[first:first + mean.shape[0]]
+                std = torch.exp(0.5 * logvar.clamp(-30.0, 20.0))
+                mean = mean + std * noise.to(mean.dtype)
+            if self.cfg.shift_factor is not None:
+                return ((mean - self.cfg.shift_factor)
+                        * self.cfg.scaling_factor)
+            return mean * self.cfg.scaling_factor
 
     def decode(self, latents: torch.Tensor) -> torch.Tensor:
         """Scaled latents [N, h, w, Cz] -> pixels [N, H, W, 3] in [-1, 1]."""
-        z = latents.to(self.dtype) / self.cfg.scaling_factor
-        if self.cfg.shift_factor is not None:
-            z = z + self.cfg.shift_factor
-        z = self.post_quant_conv(z.permute(0, 3, 1, 2))
-        return self.decoder(z).permute(0, 2, 3, 1)
+        with annotate("vgt.vae.decode"):
+            z = latents.to(self.dtype) / self.cfg.scaling_factor
+            if self.cfg.shift_factor is not None:
+                z = z + self.cfg.shift_factor
+            z = self.post_quant_conv(z.permute(0, 3, 1, 2))
+            return self.decoder(z).permute(0, 2, 3, 1)

@@ -8,6 +8,9 @@ assembled with the layout's precomputed gather maps; forward variants:
 - ``extend_cache``: grow that cache by new clean frames;
 - ``decode``: one denoise evaluation over the noisy tail against the cache.
 
+Each variant is a span (``utils.profiling.annotate``): ``vgt.model.forward``,
+``vgt.model.prefill``, ``vgt.model.extend`` and ``vgt.model.decode``.
+
 Clean conditions are one [N, hl, wl, C] tensor (the video path) or a tuple
 of such groups of different sizes (an image prompt's input images, each at
 its own token length), embedded as one flat patch stream in group order.
@@ -43,6 +46,7 @@ from ..ops.attention import AttnMeta
 from ..ops.flash_attention import DecodeMask, bias_map, precompute_bias
 from ..parallel.mesh import (DATA_AXIS, PIPE_AXIS, SEQ_AXIS, axis_size,
                              gather_params)
+from ..utils.profiling import annotate
 from .embedders import (FinalLayer, PatchEmbed, TimestepEmbedder,
                         crop_pos_embed, sincos_2d_pos_embed, unpatchify)
 from .phi3 import KVCache, Phi3Decoder
@@ -295,50 +299,52 @@ class VideoGPT(nn.Module):
         DecodeMask) lets loop callers pay the step-invariant mask once.
         ``num_micro``: the GPipe microbatches of a pipe mesh (one per stage
         by default; ``parallel.pipeline.pp_apply``)."""
-        mesh = self.llm.mesh
-        if (mesh is not None and mesh.cfg.zero_params
-                and axis_size(mesh, DATA_AXIS) > 1
-                and not self._whole_params):
-            # ZeRO-3: this call on the parameters outside the trunk's
-            # layers gathered whole (the layers gather their own)
-            self._whole_params = True
-            try:
-                return functional_call(
-                    self, gather_params(self, mesh, skip="llm.layers."),
-                    (batch, noisy_latents, t, clean_latents),
-                    dict(input_output_return=input_output_return,
-                         bias=bias, num_micro=num_micro))
-            finally:
-                self._whole_params = False
-        emb = self._assemble(batch, noisy_latents, t, clean_latents)
-        if bias is None:
-            bias = maybe_bias(self.cfg, batch.meta, batch.meta,
-                              self.llm.mesh)
-        hidden, _ = self.llm(emb, batch.pos_ids, batch.meta, batch.meta,
-                             bias=bias, num_micro=num_micro)
-        nn_, hl, wl, _ = noisy_latents.shape
-        pred = self._heads(hidden, batch.noisy_gather, t, (nn_, hl, wl))
-        if input_output_return:
-            nc, hc, wc = clean_latents.shape[:3]
-            aux = self._heads(hidden, batch.clean_gather, None, (nc, hc, wc),
-                              aux=True)
-            return pred, aux
-        return pred
+        with annotate("vgt.model.forward"):
+            mesh = self.llm.mesh
+            if (mesh is not None and mesh.cfg.zero_params
+                    and axis_size(mesh, DATA_AXIS) > 1
+                    and not self._whole_params):
+                # ZeRO-3: this call on the parameters outside the trunk's
+                # layers gathered whole (the layers gather their own)
+                self._whole_params = True
+                try:
+                    return functional_call(
+                        self, gather_params(self, mesh, skip="llm.layers."),
+                        (batch, noisy_latents, t, clean_latents),
+                        dict(input_output_return=input_output_return,
+                             bias=bias, num_micro=num_micro))
+                finally:
+                    self._whole_params = False
+            emb = self._assemble(batch, noisy_latents, t, clean_latents)
+            if bias is None:
+                bias = maybe_bias(self.cfg, batch.meta, batch.meta,
+                                  self.llm.mesh)
+            hidden, _ = self.llm(emb, batch.pos_ids, batch.meta, batch.meta,
+                                 bias=bias, num_micro=num_micro)
+            nn_, hl, wl, _ = noisy_latents.shape
+            pred = self._heads(hidden, batch.noisy_gather, t, (nn_, hl, wl))
+            if input_output_return:
+                nc, hc, wc = clean_latents.shape[:3]
+                aux = self._heads(hidden, batch.clean_gather, None,
+                                  (nc, hc, wc), aux=True)
+                return pred, aux
+            return pred
 
     def prefill(self, batch: Batch, clean_latents, prefix_len: int
                 ) -> KVCache:
         """Run the clean-context prefix once; return per-layer K/V."""
-        lp = prefix_len
-        emb = self._embed_ids(batch.input_ids[:, :lp])
-        if _has_frames(clean_latents):
-            emb = _scatter(emb, batch.clean_src[:, :lp],
-                           self._embed_clean_flat(clean_latents))
-        meta_p = batch.meta.cols(slice(0, lp))
-        _, cache = self.llm(emb, batch.pos_ids[:, :lp], meta_p, meta_p,
-                            bias=maybe_bias(self.cfg, meta_p, meta_p,
-                                            self.llm.mesh),
-                            return_kv=True)
-        return cache
+        with annotate("vgt.model.prefill"):
+            lp = prefix_len
+            emb = self._embed_ids(batch.input_ids[:, :lp])
+            if _has_frames(clean_latents):
+                emb = _scatter(emb, batch.clean_src[:, :lp],
+                               self._embed_clean_flat(clean_latents))
+            meta_p = batch.meta.cols(slice(0, lp))
+            _, cache = self.llm(emb, batch.pos_ids[:, :lp], meta_p, meta_p,
+                                bias=maybe_bias(self.cfg, meta_p, meta_p,
+                                                self.llm.mesh),
+                                return_kv=True)
+            return cache
 
     def extend_cache(self, batch: Batch, new_latents: torch.Tensor,
                      cache: KVCache, new_len: int,
@@ -350,23 +356,26 @@ class VideoGPT(nn.Module):
         how many clean frames the cache already covers. Equal to a fresh
         prefill because clean positions start at 0 and the row is pad-free.
         """
-        old = cache.length
-        sl = slice(old, old + new_len)
-        emb = self._embed_ids(batch.input_ids[:, sl])
-        c = self._embed_frames(new_latents, is_input=True)
-        p = self.cfg.patch_size
-        offset = n_prev_clean * ((new_latents.shape[1] // p)
-                                 * (new_latents.shape[2] // p))
-        src = batch.clean_src[:, sl]
-        emb = _scatter(emb, torch.where(src >= offset, src - offset, -1), c)
-        q_meta = batch.meta.cols(sl)
-        k_meta = batch.meta.cols(slice(0, old + new_len))
-        _, new_kv = self.llm(emb, batch.pos_ids[:, sl], q_meta, k_meta,
-                             cache=cache, bias=extend_mask(q_meta, k_meta),
-                             return_kv=True)
-        # heads-major [layers, B, H_kv, L, D]: append along L
-        return KVCache(torch.cat([cache.k, new_kv.k], dim=3),
-                       torch.cat([cache.v, new_kv.v], dim=3))
+        with annotate("vgt.model.extend"):
+            old = cache.length
+            sl = slice(old, old + new_len)
+            emb = self._embed_ids(batch.input_ids[:, sl])
+            c = self._embed_frames(new_latents, is_input=True)
+            p = self.cfg.patch_size
+            offset = n_prev_clean * ((new_latents.shape[1] // p)
+                                     * (new_latents.shape[2] // p))
+            src = batch.clean_src[:, sl]
+            emb = _scatter(emb, torch.where(src >= offset, src - offset, -1),
+                           c)
+            q_meta = batch.meta.cols(sl)
+            k_meta = batch.meta.cols(slice(0, old + new_len))
+            _, new_kv = self.llm(emb, batch.pos_ids[:, sl], q_meta, k_meta,
+                                 cache=cache,
+                                 bias=extend_mask(q_meta, k_meta),
+                                 return_kv=True)
+            # heads-major [layers, B, H_kv, L, D]: append along L
+            return KVCache(torch.cat([cache.k, new_kv.k], dim=3),
+                           torch.cat([cache.v, new_kv.v], dim=3))
 
     def decode(self, batch: Batch, noisy_latents: torch.Tensor,
                t: torch.Tensor, cache: KVCache, tail_len: int,
@@ -379,19 +388,21 @@ class VideoGPT(nn.Module):
         key (the image path's rectangular bias, built once per context)
         runs K3, and None K6, over their concatenation. By default the
         bias is built here, as :func:`maybe_bias` builds it."""
-        lt = tail_len
-        full_l = batch.input_ids.shape[1]
-        emb = self._embed_ids(batch.input_ids[:, -lt:])
-        emb = _scatter(emb, batch.noisy_src[:, -lt:],
-                       self._embed_frames(noisy_latents, is_input=False))
-        emb = _scatter(emb, batch.time_src[:, -lt:], self.time_token(t))
-        q_meta = batch.meta.tail(lt)
-        if bias is None:
-            bias = maybe_bias(self.cfg, q_meta, batch.meta, self.llm.mesh)
-        hidden, _ = self.llm(emb, batch.pos_ids[:, -lt:], q_meta, batch.meta,
-                             cache=cache, bias=bias)
-        # remap full-sequence gather indices onto the tail
-        g = batch.noisy_gather
-        g_tail = (g // full_l) * lt + (g % full_l - (full_l - lt))
-        nn_, hl, wl, _ = noisy_latents.shape
-        return self._heads(hidden, g_tail, t, (nn_, hl, wl))
+        with annotate("vgt.model.decode"):
+            lt = tail_len
+            full_l = batch.input_ids.shape[1]
+            emb = self._embed_ids(batch.input_ids[:, -lt:])
+            emb = _scatter(emb, batch.noisy_src[:, -lt:],
+                           self._embed_frames(noisy_latents, is_input=False))
+            emb = _scatter(emb, batch.time_src[:, -lt:], self.time_token(t))
+            q_meta = batch.meta.tail(lt)
+            if bias is None:
+                bias = maybe_bias(self.cfg, q_meta, batch.meta,
+                                  self.llm.mesh)
+            hidden, _ = self.llm(emb, batch.pos_ids[:, -lt:], q_meta,
+                                 batch.meta, cache=cache, bias=bias)
+            # remap full-sequence gather indices onto the tail
+            g = batch.noisy_gather
+            g_tail = (g // full_l) * lt + (g % full_l - (full_l - lt))
+            nn_, hl, wl, _ = noisy_latents.shape
+            return self._heads(hidden, g_tail, t, (nn_, hl, wl))

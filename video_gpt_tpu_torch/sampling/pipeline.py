@@ -48,6 +48,7 @@ from ..data.processor import postprocess_frames, preprocess_frames
 from ..layout import decode_rank, frame_block_inference_layout
 from ..models.vae import AutoencoderKL, VAEConfig
 from ..models.video_gpt import Batch, VideoGPT, decode_mask
+from ..utils.profiling import annotate
 from ..utils.weights import tp_shard_state_dict
 from .scheduler import sample, sample_separate_cfg
 
@@ -170,7 +171,9 @@ class VideoGPTPipeline:
             q_meta = batch.meta.tail(tl) if tl else batch.meta
             return decode_mask(q_meta, batch.meta)
 
-        bias_c = tail_bias(batch_c, tail if cached else 0)
+        with annotate("vgt.layout"):
+            bias_c = tail_bias(batch_c, tail if cached else 0)
+            bias_u = tail_bias(batch_u, 0) if use_cfg else None
 
         def denoise_cond(z, t):
             if not cached:
@@ -179,7 +182,6 @@ class VideoGPTPipeline:
 
         if not use_cfg:
             return sample(z0, denoise_cond, sched, use_cfg=False)
-        bias_u = tail_bias(batch_u, 0)
 
         def denoise_pair(z, t):
             return denoise_cond(z, t), model(batch_u, z, t, bias=bias_u)
@@ -264,120 +266,136 @@ class VideoGPTPipeline:
         n_vid = len(inputs)
         device = self.device
         dtype = self.model.dtype
-        pix = [preprocess_frames(f, max_input_image_size) for f in inputs]
-        shapes = {p.shape for p in pix}
-        if len(shapes) != 1:
-            raise ValueError(
-                f"generate_batch needs same-shaped videos after "
-                f"preprocessing; got {sorted(shapes)} — group by bucket "
-                "and batch each group")
-        H, W = pix[0].shape[1:3]
-        f = self.vae.cfg.downsample_factor
-        p = self.model.cfg.patch_size
-        hl, wl = H // f, W // f
-        n_img = (hl // p) * (wl // p)
-        c = self.model.cfg.in_channels
-        lat_shape = (pix[0].shape[0], hl, wl, self.vae.cfg.latent_channels)
-        # [N, frames, hl, wl, C]; each video's encode takes its own draw
-        clean = torch.stack([
-            self.vae.encode(torch.from_numpy(x).to(device=device, dtype=dtype),
-                            noise("encode", lat_shape, dtype))
-            for x, noise in zip(pix, noises)])
+        with annotate("vgt.generate"):
+            with annotate("vgt.preprocess"):
+                pix = [preprocess_frames(f, max_input_image_size)
+                       for f in inputs]
+                shapes = {p.shape for p in pix}
+                if len(shapes) != 1:
+                    raise ValueError(
+                        f"generate_batch needs same-shaped videos after "
+                        f"preprocessing; got {sorted(shapes)} — group by "
+                        "bucket and batch each group")
+                pix_dev = [torch.from_numpy(x).to(device=device, dtype=dtype)
+                           for x in pix]
+            H, W = pix[0].shape[1:3]
+            f = self.vae.cfg.downsample_factor
+            p = self.model.cfg.patch_size
+            hl, wl = H // f, W // f
+            n_img = (hl // p) * (wl // p)
+            c = self.model.cfg.in_channels
+            lat_shape = (pix[0].shape[0], hl, wl,
+                         self.vae.cfg.latent_channels)
+            # [N, frames, hl, wl, C]; each video's encode takes its own draw
+            clean = torch.stack([
+                self.vae.encode(x, noise("encode", lat_shape, dtype))
+                for x, noise in zip(pix_dev, noises)])
 
-        def rows(x):  # [N, F, ...] -> [N * F, ...], video-major
-            return x.reshape((-1,) + tuple(x.shape[2:]))
+            def rows(x):  # [N, F, ...] -> [N * F, ...], video-major
+                return x.reshape((-1,) + tuple(x.shape[2:]))
 
-        emits: List[Tuple[torch.Tensor, int]] = []  # ([N * F, H, W, 3], F)
-        out_latents: List[torch.Tensor] = []         # [N * gen, h, w, C]
-        emit_initial = True
-        # cross-block KV cache (cache, frames covered): reusable while the
-        # window has not slid (positions restart) and recycled predictions
-        # are not re-noised (re-noise changes their K/V)
-        kv_cache, kv_frames = None, 0
-        for k, gen_num in enumerate(gen_nums):
-            if clean.shape[1] + gen_num > max_frame_window:
-                clean = clean[:, gen_num + clean.shape[1] - max_frame_window:]
-                kv_cache, kv_frames = None, 0
-            if k > 0 and clean_image_noise_level:
-                kv_cache, kv_frames = None, 0
-            n_clean = clean.shape[1]
-            layout_c = frame_block_inference_layout(n_clean, gen_num, n_img,
-                                                    use_cfg=False, rows=n_vid)
-            batch_c = Batch.from_layout(layout_c, device)
-            tail = layout_c.noisy_tail_len()
-            prefix = layout_c.length - tail
-            batch_u = layout_u = None
-            if use_img_guidance:
-                # unconditional context at its natural length
-                layout_u = frame_block_inference_layout(
-                    0, gen_num, n_img, use_cfg=False, rows=n_vid)
-                batch_u = Batch.from_layout(layout_u, device)
+            emits: List[Tuple[torch.Tensor, int]] = []  # ([N*F, H, W, 3], F)
+            out_latents: List[torch.Tensor] = []         # [N * gen, h, w, C]
+            emit_initial = True
+            # cross-block KV cache (cache, frames covered): reusable while
+            # the window has not slid (positions restart) and recycled
+            # predictions are not re-noised (re-noise changes their K/V)
+            kv_cache, kv_frames = None, 0
+            for k, gen_num in enumerate(gen_nums):
+                if clean.shape[1] + gen_num > max_frame_window:
+                    clean = clean[:, gen_num + clean.shape[1]
+                                  - max_frame_window:]
+                    kv_cache, kv_frames = None, 0
+                if k > 0 and clean_image_noise_level:
+                    kv_cache, kv_frames = None, 0
+                n_clean = clean.shape[1]
+                with annotate("vgt.layout"):
+                    layout_c = frame_block_inference_layout(
+                        n_clean, gen_num, n_img, use_cfg=False, rows=n_vid)
+                    batch_c = Batch.from_layout(layout_c, device)
+                    tail = layout_c.noisy_tail_len()
+                    prefix = layout_c.length - tail
+                    batch_u = layout_u = None
+                    if use_img_guidance:
+                        # unconditional context at its natural length
+                        layout_u = frame_block_inference_layout(
+                            0, gen_num, n_img, use_cfg=False, rows=n_vid)
+                        batch_u = Batch.from_layout(layout_u, device)
+                    if decode_rank(layout_c, tail) is None or (
+                            use_img_guidance
+                            and decode_rank(layout_u, layout_u.length)
+                            is None):
+                        # the denoise rows take the columnar decode kernels
+                        # only
+                        raise NotImplementedError(
+                            "this layout has no columnar decode mask")
 
-            cl = clean
-            if k > 0 and clean_image_noise_level:
-                lvl = clean_image_noise_level
-                cl = (1.0 - lvl) * cl + lvl * torch.stack([
-                    noise("renoise", tuple(cl.shape[1:]), cl.dtype)
-                    for noise in noises])
-            z = torch.cat([noise("z", (gen_num, hl, wl, c), dtype)
-                           for noise in noises])
+                cl = clean
+                if k > 0 and clean_image_noise_level:
+                    lvl = clean_image_noise_level
+                    cl = (1.0 - lvl) * cl + lvl * torch.stack([
+                        noise("renoise", tuple(cl.shape[1:]), cl.dtype)
+                        for noise in noises])
+                z = torch.cat([noise("z", (gen_num, hl, wl, c), dtype)
+                               for noise in noises])
 
-            if decode_rank(layout_c, tail) is None or (
-                    use_img_guidance
-                    and decode_rank(layout_u, layout_u.length) is None):
-                # the denoise rows take the columnar decode kernels only
-                raise NotImplementedError(
-                    "this layout has no columnar decode mask")
-            if prefix > 0:
-                n_new = n_clean - kv_frames
-                if kv_cache is not None and 0 < n_new < n_clean:
-                    kv_cache = self.model.extend_cache(
-                        batch_c, rows(cl[:, -n_new:]), kv_cache,
-                        n_new * (n_img + 2), kv_frames)
-                elif kv_cache is None or n_new != 0:
-                    kv_cache = self.model.prefill(batch_c, rows(cl), prefix)
-                kv_frames = n_clean
-            else:
-                kv_cache, kv_frames = None, 0
-            sched = SchedulerConfig(num_steps=num_inference_steps,
-                                    time_shifting_factor=time_shifting_factor,
-                                    prediction_type=prediction_type,
-                                    cfg_interval=cfg_interval,
-                                    uncond_refresh=uncond_refresh)
-            samples = self._denoise(batch_c, batch_u, kv_cache, z, tail,
-                                    sched, use_img_guidance,
-                                    img_guidance_scale)
-            if emit_initial:
-                if n_clean:
-                    emits.append((self._decode_u8(rows(clean)), n_clean))
-                emit_initial = False
+                if prefix > 0:
+                    n_new = n_clean - kv_frames
+                    if kv_cache is not None and 0 < n_new < n_clean:
+                        kv_cache = self.model.extend_cache(
+                            batch_c, rows(cl[:, -n_new:]), kv_cache,
+                            n_new * (n_img + 2), kv_frames)
+                    elif kv_cache is None or n_new != 0:
+                        kv_cache = self.model.prefill(batch_c, rows(cl),
+                                                      prefix)
+                    kv_frames = n_clean
+                else:
+                    kv_cache, kv_frames = None, 0
+                sched = SchedulerConfig(
+                    num_steps=num_inference_steps,
+                    time_shifting_factor=time_shifting_factor,
+                    prediction_type=prediction_type,
+                    cfg_interval=cfg_interval,
+                    uncond_refresh=uncond_refresh)
+                samples = self._denoise(batch_c, batch_u, kv_cache, z, tail,
+                                        sched, use_img_guidance,
+                                        img_guidance_scale)
+                if emit_initial:
+                    if n_clean:
+                        emits.append((self._decode_u8(rows(clean)),
+                                      n_clean))
+                    emit_initial = False
 
-            recycled = samples
-            if vae_roundtrip_recycle:
-                # reference semantics: re-encode the DECODED pixels
-                out_px = self.vae.decode(samples)
-                emits.append((out_px, gen_num))
-                recycled = torch.cat([
-                    self.vae.encode(
-                        out_px[i * gen_num:(i + 1) * gen_num].to(dtype),
-                        noise("recycle_encode",
-                              (gen_num,) + tuple(samples.shape[1:]), dtype))
-                    for i, noise in enumerate(noises)])
-            else:
-                emits.append((self._decode_u8(samples), gen_num))
-            out_latents.append(samples)
-            clean = torch.cat(
-                [clean, recycled.reshape((n_vid, gen_num)
-                                         + tuple(recycled.shape[1:]))], dim=1)
+                recycled = samples
+                if vae_roundtrip_recycle:
+                    # reference semantics: re-encode the DECODED pixels
+                    out_px = self.vae.decode(samples)
+                    emits.append((out_px, gen_num))
+                    recycled = torch.cat([
+                        self.vae.encode(
+                            out_px[i * gen_num:(i + 1) * gen_num].to(dtype),
+                            noise("recycle_encode",
+                                  (gen_num,) + tuple(samples.shape[1:]),
+                                  dtype))
+                        for i, noise in enumerate(noises)])
+                else:
+                    emits.append((self._decode_u8(samples), gen_num))
+                out_latents.append(samples)
+                clean = torch.cat(
+                    [clean, recycled.reshape((n_vid, gen_num)
+                                             + tuple(recycled.shape[1:]))],
+                    dim=1)
 
-        def video(x, i, per):  # video i's rows of a video-major [N*per, ..]
-            return x[i * per:(i + 1) * per]
+            def video(x, i, per):  # video i's rows of a video-major [N*per]
+                return x[i * per:(i + 1) * per]
 
-        return [([im for x, per in emits
-                  for im in postprocess_frames(_host(video(x, i, per)))],
-                 [l for blk in out_latents
-                  for l in video(blk, i, blk.shape[0] // n_vid)])
-                for i in range(n_vid)]
+            with annotate("vgt.to_host"):
+                return [([im for x, per in emits
+                          for im in postprocess_frames(
+                              _host(video(x, i, per)))],
+                         [l for blk in out_latents
+                          for l in video(blk, i, blk.shape[0] // n_vid)])
+                        for i in range(n_vid)]
 
 
 def _host(x: torch.Tensor) -> np.ndarray:

@@ -8,7 +8,10 @@ sigma grid is a Python loop here. Semantics:
 - CFG: uncond + scale * (cond - uncond)
 - Euler update  z += (sigma_next - sigma) * v, integrated in fp32
 
-``add_noise_x1`` is the training loss's interpolation.
+``add_noise_x1`` is the training loss's interpolation. Each denoise step
+is the span ``vgt.sampler.step`` (``utils.profiling.annotate``): the model
+calls nest in it, and its own kernels are the guidance mix and the Euler
+update.
 """
 from __future__ import annotations
 
@@ -18,6 +21,9 @@ import numpy as np
 import torch
 
 from ..config import SchedulerConfig
+from ..utils.profiling import annotate
+
+STEP_SPAN = "vgt.sampler.step"
 
 
 def sigma_schedule(num_steps: int, time_shifting_factor: float = 1.0,
@@ -116,14 +122,16 @@ def sample(z0: torch.Tensor,
         lambda v: cfg_mix(v, cfg_scale))
     z = z0
     for i in range(cfg.num_steps):
-        pred = denoise_fn(z, _timesteps(z, sigmas[i])).float()
-        if cfg.prediction_type == "x1":
-            v = (pred - z.float()) / float(np.float32(1.0) - sigmas[i])
-            if use_cfg:
-                v = guide(v)
-        else:
-            v = guide(pred) if use_cfg else pred
-        z = (z.float() + float(sigmas[i + 1] - sigmas[i]) * v).to(z.dtype)
+        with annotate(STEP_SPAN):
+            pred = denoise_fn(z, _timesteps(z, sigmas[i])).float()
+            if cfg.prediction_type == "x1":
+                v = (pred - z.float()) / float(np.float32(1.0) - sigmas[i])
+                if use_cfg:
+                    v = guide(v)
+            else:
+                v = guide(pred) if use_cfg else pred
+            z = (z.float() + float(sigmas[i + 1] - sigmas[i]) * v).to(
+                z.dtype)
     return z
 
 
@@ -153,18 +161,20 @@ def sample_separate_cfg(
     z = z0
     u_cache = torch.zeros_like(z0)
     for i, kind in enumerate(step_kinds(cfg)):
-        t = _timesteps(z, sigmas[i])
-        if kind == "cfg":
-            cond, uncond = denoise_pair_fn(z, t)
-            u_cache = uncond.to(z0.dtype)
-        else:
-            cond = eval_cond(z, t)
-            uncond = u_cache
-        if kind == "cond":
-            pred = cond.float()
-        else:
-            pred = uncond.float() + cfg_scale * (cond.float() - uncond.float())
-        z = _euler(cfg, sigmas, z, i, pred)
+        with annotate(STEP_SPAN):
+            t = _timesteps(z, sigmas[i])
+            if kind == "cfg":
+                cond, uncond = denoise_pair_fn(z, t)
+                u_cache = uncond.to(z0.dtype)
+            else:
+                cond = eval_cond(z, t)
+                uncond = u_cache
+            if kind == "cond":
+                pred = cond.float()
+            else:
+                pred = uncond.float() + cfg_scale * (cond.float()
+                                                     - uncond.float())
+            z = _euler(cfg, sigmas, z, i, pred)
     return z
 
 
@@ -188,14 +198,15 @@ def sample_separate_multi(
     z = z0
     cache = [torch.zeros_like(z0) for _ in denoise_fns[1:]]
     for i, kind in enumerate(step_kinds(cfg)):
-        t = _timesteps(z, sigmas[i])
-        if kind == "cfg":
-            preds = [fn(z, t).float() for fn in denoise_fns]
-            cache = [p.to(z0.dtype) for p in preds[1:]]
-            pred = combine(preds)
-        else:
-            cond = denoise_fns[0](z, t).float()
-            pred = cond if kind == "cond" else combine(
-                [cond] + [c.float() for c in cache])
-        z = _euler(cfg, sigmas, z, i, pred)
+        with annotate(STEP_SPAN):
+            t = _timesteps(z, sigmas[i])
+            if kind == "cfg":
+                preds = [fn(z, t).float() for fn in denoise_fns]
+                cache = [p.to(z0.dtype) for p in preds[1:]]
+                pred = combine(preds)
+            else:
+                cond = denoise_fns[0](z, t).float()
+                pred = cond if kind == "cond" else combine(
+                    [cond] + [c.float() for c in cache])
+            z = _euler(cfg, sigmas, z, i, pred)
     return z

@@ -56,6 +56,7 @@ from ..config import TrainConfig
 from ..parallel.mesh import (DATA_AXIS, PIPE_AXIS, SEQ_AXIS, TENSOR_AXIS,
                              axis_size, zero_dim)
 from ..parallel.tensor import TP_SHARDED
+from ..utils.profiling import annotate
 from .lora import lora_state_dict
 from .loss import LossDraws, LossInputs, training_loss
 
@@ -412,10 +413,13 @@ def loss_step(state: TrainState, loss_fn: Callable, cfg: TrainConfig,
     backward, clip and AdamW, and the gated EMA when ``update_ema``, in
     place on ``state``. Metrics are device tensors (reading them waits for
     the device); on a mesh with a data axis the loss is the mean over the
-    data ranks (the global batch's), the per-frame losses the rank's."""
-    with autocast(cfg, device):
+    data ranks (the global batch's), the per-frame losses the rank's. The
+    forward and the backward (with its per-layer recompute) are the spans
+    ``vgt.train.loss`` and ``vgt.train.backward``."""
+    with annotate("vgt.train.loss"), autocast(cfg, device):
         loss, aux = loss_fn()
-    loss.backward()
+    with annotate("vgt.train.backward"):
+        loss.backward()
     grad_norm = state.optimizer.step()
     if update_ema and state.ema is not None:
         ema_update_gated(state.ema, state.model, cfg, state.optimizer)

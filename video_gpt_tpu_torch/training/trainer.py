@@ -77,6 +77,7 @@ from ..parallel.mesh import (DATA_AXIS, PIPE_AXIS, SEQ_AXIS, TENSOR_AXIS,
 from ..parallel.pipeline import pp_apply
 from ..sampling.pipeline import resolve_device
 from ..utils import checkpoint as ckpt
+from ..utils.profiling import annotate
 from ..utils.weights import (tp_shard, tp_shard_state_dict,
                              zero_shard_state_dict)
 from .data import TrainBatch, collate
@@ -283,27 +284,32 @@ class Trainer:
     def train_step(self, state: TrainState, tb: TrainBatch, step_idx: int):
         """One full step on a batch already on the device: VAE encode under
         no_grad with a posterior draw, then the recipe's loss (training or
-        distillation), backward, clip, AdamW and the gated EMA. Returns the
-        step's metrics (device tensors)."""
-        cfg = self.cfg
-        gen = self.step_generator(step_idx)
-        part, denominator = draw_part(self.mesh, tb.inputs, tb.clean_valid,
-                                      cfg.input_output_return)
-        f = tb.pixels.shape[0] // tb.inputs.batch.input_ids.shape[0]
-        with torch.no_grad(), autocast(cfg, self.device):
-            latents = self.vae.encode(tb.pixels, noise=gen, noise_rows=(
-                None if part is None else (part.rows[0] * f,
-                                           part.rows[1] * f)))
-        inputs = tb.inputs._replace(
-            x1=latents[tb.noisy_sel.long()],
-            clean_latents=latents[tb.clean_sel.long()])
-        if cfg.distill:
-            draws = draw_distill_noise(gen, inputs, cfg.frame_num,
-                                       cfg.distill_student_steps, part=part)
-            return self._step_fn(state, inputs, draws)
-        draws = draw_loss_noise(gen, inputs, max_blocks=cfg.frame_num,
-                                part=part)
-        return self._step_fn(state, inputs, draws, denominator=denominator)
+        distillation), backward, clip, AdamW and the gated EMA, in the span
+        ``vgt.train.step``. Returns the step's metrics (device tensors)."""
+        with annotate("vgt.train.step"):
+            cfg = self.cfg
+            gen = self.step_generator(step_idx)
+            part, denominator = draw_part(self.mesh, tb.inputs,
+                                          tb.clean_valid,
+                                          cfg.input_output_return)
+            f = tb.pixels.shape[0] // tb.inputs.batch.input_ids.shape[0]
+            with torch.no_grad(), autocast(cfg, self.device):
+                latents = self.vae.encode(
+                    tb.pixels, noise=gen, noise_rows=(
+                        None if part is None else (part.rows[0] * f,
+                                                   part.rows[1] * f)))
+            inputs = tb.inputs._replace(
+                x1=latents[tb.noisy_sel.long()],
+                clean_latents=latents[tb.clean_sel.long()])
+            if cfg.distill:
+                draws = draw_distill_noise(gen, inputs, cfg.frame_num,
+                                           cfg.distill_student_steps,
+                                           part=part)
+                return self._step_fn(state, inputs, draws)
+            draws = draw_loss_noise(gen, inputs, max_blocks=cfg.frame_num,
+                                    part=part)
+            return self._step_fn(state, inputs, draws,
+                                 denominator=denominator)
 
     # ---- loop --------------------------------------------------------------
 

@@ -1,18 +1,16 @@
-"""File + stdout logger and phase timing.
+"""File + stdout logger.
 
 Port of ``video_gpt_tpu/utils/logging.py`` (the reference's
 ``LVM/utils.py`` logger): :func:`create_logger` writes each record to
-stdout and, given a directory, to its ``log.txt``, in the same format;
-:class:`PhaseTimer` accumulates wall-clock time per named phase and
-prints the same summary. Host clock only: time of device work needs a
-``torch.cuda.synchronize()`` inside the phase.
+stdout and, given a directory, to its ``log.txt``, in the same format.
+Time by phase is the profiler's: ``utils.profiling.trace`` records the
+program's spans beside the card's kernels.
 """
 from __future__ import annotations
 
 import logging
 import os
-import time
-from typing import Dict, Optional
+from typing import Optional
 
 
 def create_logger(logging_dir: Optional[str] = None,
@@ -34,38 +32,3 @@ def create_logger(logging_dir: Optional[str] = None,
         fh.setFormatter(fmt)
         logger.addHandler(fh)
     return logger
-
-
-class PhaseTimer:
-    """Accumulating wall-clock timers for named phases:
-    ``with timer.phase("encode"): ...``, then :meth:`summary`."""
-
-    def __init__(self):
-        self.totals: Dict[str, float] = {}
-        self.counts: Dict[str, int] = {}
-
-    def phase(self, name: str):
-        timer = self
-
-        class _Ctx:
-            def __enter__(self):
-                self.t0 = time.perf_counter()
-                return self
-
-            def __exit__(self, *exc):
-                dt = time.perf_counter() - self.t0
-                timer.totals[name] = timer.totals.get(name, 0.0) + dt
-                timer.counts[name] = timer.counts.get(name, 0) + 1
-                return False
-
-        return _Ctx()
-
-    def summary(self) -> str:
-        """One line per phase, the longest first: total seconds, count and
-        mean milliseconds."""
-        lines = []
-        for k in sorted(self.totals, key=self.totals.get, reverse=True):
-            mean_ms = self.totals[k] / self.counts[k] * 1e3
-            lines.append(f"{k}: {self.totals[k]:.3f}s "
-                         f"({self.counts[k]}x, {mean_ms:.1f} ms avg)")
-        return "\n".join(lines)

@@ -2,18 +2,21 @@
 
 Port of ``video_gpt_tpu/utils/profiling.py``:
 
-- :func:`trace` writes a ``torch.profiler`` trace of a region (the
-  card's kernels and the host's ranges) to a directory, readable by
-  TensorBoard's profile plugin or Perfetto; :func:`annotate` names a
-  range inside it (``torch.profiler.record_function``);
+- :func:`annotate` is the program's span: a named range at a layer
+  boundary (``vgt.generate``, ``vgt.model.decode``, ``vgt.vae.encode``,
+  ...). Spans are off by default, and then ``annotate`` returns one shared
+  no-op context without a call into the profiler. Inside :func:`spans`
+  each is a ``torch.profiler.record_function``, which the profiler keeps
+  on the clock of the card's kernels;
+- :func:`trace` writes a ``torch.profiler`` trace of a region (the card's
+  kernels and the host's ranges, the spans switched on) to a directory,
+  readable by TensorBoard's profile plugin or Perfetto;
 - :func:`force_ready` waits for the device that computed an output;
 - the model-flops arithmetic that ``bench.py`` and ``bench_suite.py``
   report, in the same formulas: :func:`count_params`,
   :func:`dense_model_flops` (2PT), :func:`attention_flops` (QK^T and PV)
   and :func:`mfu` against :func:`peak_flops`, the card's bf16 dense peak
-  by its name;
-- :func:`compiled_flops`, the count of ``torch.utils.flop_counter`` over
-  one call (there is no XLA cost analysis here).
+  by its name.
 """
 from __future__ import annotations
 
@@ -31,12 +34,40 @@ _PEAK_BF16_TFLOPS = (
 )
 
 
+_NO_SPAN = contextlib.nullcontext()
+
+
+class _Spans:
+    """How many :func:`spans` regions are open, in any thread: the
+    profiler they feed is one per process too."""
+    open = 0
+
+
+@contextlib.contextmanager
+def spans():
+    """Switch the program's spans (:func:`annotate`) on for the region."""
+    _Spans.open += 1
+    try:
+        yield
+    finally:
+        _Spans.open -= 1
+
+
+def annotate(name: str):
+    """The program's span ``name``: inside :func:`spans` a named range of
+    the profile (``torch.profiler.record_function``), outside it a shared
+    no-op context."""
+    if not _Spans.open:
+        return _NO_SPAN
+    return torch.profiler.record_function(name)
+
+
 @contextlib.contextmanager
 def trace(logdir: str = "video_gpt_tpu_torch_trace",
           annotate: str = "video_gpt_tpu_torch"):
     """Profile the region (the host, and the card when there is one) into
     a Chrome trace under ``logdir``, the whole region a range named
-    ``annotate``; yields ``logdir``."""
+    ``annotate`` and the program's spans switched on; yields ``logdir``."""
     os.makedirs(logdir, exist_ok=True)
     activities = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
@@ -44,13 +75,8 @@ def trace(logdir: str = "video_gpt_tpu_torch_trace",
     with torch.profiler.profile(
             activities=activities,
             on_trace_ready=torch.profiler.tensorboard_trace_handler(logdir)):
-        with torch.profiler.record_function(annotate):
+        with spans(), torch.profiler.record_function(annotate):
             yield logdir
-
-
-def annotate(name: str):
-    """A named range in a profile (``torch.profiler.record_function``)."""
-    return torch.profiler.record_function(name)
 
 
 def force_ready(out):
@@ -89,23 +115,6 @@ def peak_flops(device=None) -> Optional[float]:
         if name.startswith(prefix):
             return tf * 1e12
     return None
-
-
-def compiled_flops(fn, *args, **kwargs) -> Optional[float]:
-    """The floating-point operations of one call ``fn(*args, **kwargs)``
-    as ``torch.utils.flop_counter.FlopCounterMode`` counts them (it runs
-    the call), or None if the count fails. Like the JAX function it
-    undercounts: it sees PyTorch's operators only, not the attention
-    kernels launched through ctypes (K1-K10) or their plain versions'
-    custom steps; use :func:`dense_model_flops` and
-    :func:`attention_flops` for MFU."""
-    from torch.utils.flop_counter import FlopCounterMode
-    try:
-        with FlopCounterMode(display=False) as counter:
-            fn(*args, **kwargs)
-        return float(counter.get_total_flops())
-    except Exception:
-        return None
 
 
 def count_params(tree) -> int:
