@@ -1160,11 +1160,25 @@ def bias_train_records(dev, meta: AttnMeta, label: str,
     return res
 
 
-def inline_tile_map(label: str, meta: AttnMeta) -> dict:
-    """K6's tile map of ``meta`` against itself (tile_map_record)."""
-    return tile_map_record(
+def inline_tile_map(label: str, meta: AttnMeta, q=None) -> dict:
+    """K6's tile map of ``meta`` against itself (tile_map_record); with the
+    launch's ``q``, also the query rows a block covers and the share of the
+    K/V stages it loads on which every consumer warpgroup of the block
+    computes (from the plain map: ``inline_groups_reference``)."""
+    rec = tile_map_record(
         label, lambda: fa.inline_tile_classes(meta, meta),
         lambda: fa.inline_tile_classes_reference(meta, meta))
+    if q is not None:
+        b, L, h, d = q.shape
+        rows = fa.inline_block_rows(b, L, h, d, q.device)
+        groups = fa.inline_groups_reference(
+            fa.inline_tile_classes_reference(meta, meta), rows // fa.TILE_Q)
+        shared = float(groups.shared.sum() / groups.tiles.sum())
+        log(f"{label}: {rows}-row blocks, {int(groups.tiles.sum())} K/V "
+            f"stages loaded, every consumer computes on {shared:.4f}")
+        rec.update(block_rows=rows, stages_loaded=int(groups.tiles.sum()),
+                   stages_all_consumers=shared)
+    return rec
 
 
 def inline_kernels(dev) -> dict:
@@ -1186,7 +1200,7 @@ def inline_kernels(dev) -> dict:
     res = inline_train_records(bf16, meta, q, k, v, pairs,
                                " (stage-4 training shape)")
     res["K6"]["tile_map"] = inline_tile_map("K6 (stage-4 training shape)",
-                                            meta)
+                                            meta, q)
     del q, k, v
     torch.cuda.empty_cache()
 
@@ -1196,7 +1210,7 @@ def inline_kernels(dev) -> dict:
         149, with_lse=False), " (K6's kernel at the stage-1 shape)")
     res["K8"]["same_kernel_as"] = "K6"
     res["K8"]["tile_map"] = inline_tile_map(
-        "K8 (K6's kernel at the stage-1 shape)", meta)
+        "K8 (K6's kernel at the stage-1 shape)", meta, q)
     return res
 
 
@@ -1361,7 +1375,7 @@ def rollout_kernels(dev):
     rec = check_and_time(
         "K6", inline_record(mp, q, k, v, pairs, k6, 1071, with_lse=False),
         " (batched rollout prefill)")
-    rec["tile_map"] = inline_tile_map("K6 (batched rollout prefill)", mp)
+    rec["tile_map"] = inline_tile_map("K6 (batched rollout prefill)", mp, q)
     yield "K6", "batched_rollout_shape", rec
     torch.cuda.empty_cache()
 
@@ -1673,7 +1687,7 @@ def mesh_kernels(dev):
     rec = check_and_time("K6", inline_record(
         mp, q, k, v, visible_pairs(mp), k6, 1071, with_lse=False),
         f" (a seq-sharded prefill: {heads} heads)")
-    rec["tile_map"] = inline_tile_map("K6 (a seq-sharded prefill)", mp)
+    rec["tile_map"] = inline_tile_map("K6 (a seq-sharded prefill)", mp, q)
     yield "K6", "mesh_prefill_shape", rec
     del q, k, v
     torch.cuda.empty_cache()
@@ -2803,7 +2817,7 @@ def mesh_train_kernels(dev):
         label = f" (a training rank's Ulysses heads: {h}, L " \
                 f"{meta.index.shape[1]})"
         res = inline_train_records(bf16, meta, q, k, v, pairs, label)
-        res["K6"]["tile_map"] = inline_tile_map("K6" + label, meta)
+        res["K6"]["tile_map"] = inline_tile_map("K6" + label, meta, q)
         for name, rec in res.items():
             yield name, key, rec
         del q, k, v, res

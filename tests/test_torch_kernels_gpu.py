@@ -28,12 +28,16 @@ recompute and the backward, and across the four forwards of a guided
 distillation step (whose Trainer step builds one map per layout); K6 on a
 layout with pad rows and on a small
 batched prefill (``index`` with batch stride 0); K7 on a layout whose key
-tile no query sees (its dK/dV are exactly 0).
+tile no query sees (its dK/dV are exactly 0). K6 runs at every block shape
+it chooses (64 to 256 query rows a block, by head width and grid), with a
+short last group, rows that see no key and lq != lk; its group order and
+K7's orders are held to the plain versions.
 
 The mutation checks build a copy of ``csrc/`` with one fault in a
 temporary directory and show that the bar catches it (worst error / bar
 above 1, printed; run with ``-s`` to read it): K6 without the last key
-tile of its list, K7's dK/dV without its last listed query tile, K7's dQ
+tile of the map, K6's second consumer warpgroup's rows unstored (a
+192-row block), K7's dK/dV without its last listed query tile, K7's dQ
 and K3 without their last listed key tile, K3 treating a partial tile as
 full, one non-empty tile (the first query tile against the first key
 tile) classed empty in K6's and in the bias's map, the pipelined overlap
@@ -718,6 +722,191 @@ def test_k6_at_a_small_batched_prefill(dev):
     assert _k6_case_error(q, k, v, mp, mp) <= 1.0
 
 
+# K6's block shapes (csrc/inline_attention.cu): (head_dim, heads, kv
+# heads, the rows a block covers on a card of 132 SMs). A training row of
+# 17 frames in 8 blocks, 961 tokens left-padded to 1,180 (19 query tiles,
+# the last of 28 rows): four consumers (Dp 32 only) need 5 groups x heads
+# >= 264 blocks, three 7 x heads, two 10 x heads; the padded head widths
+# 16 and 104 zero-filled by TMA; Dp 128 takes at most two consumers.
+K6_BLOCK_CASES = [(96, 8, 4, 64), (96, 32, 8, 128), (96, 48, 16, 192),
+                  (16, 48, 48, 192), (16, 64, 16, 256), (32, 64, 64, 256),
+                  (64, 48, 24, 192), (104, 48, 12, 128), (128, 32, 32, 128),
+                  (128, 8, 8, 64)]
+K6_BLOCKS, K6_N_IMG, K6_PAD_TO = (2, 1, 3, 1, 2, 4, 1, 3), 29, 1180
+
+
+def _k6_block_meta(dev):
+    lay = layout.build_layout([layout.RowSpec(K6_BLOCKS, "training")],
+                              K6_N_IMG, pad_to=K6_PAD_TO)
+    meta = AttnMeta.from_layout(lay, dev)
+    assert int(meta.is_pad.sum()) > 0 and lay.length % 64
+    return meta
+
+
+def _k6_block_error(dev, d, h, hkv, qm, km, lq, lk, seed=50):
+    """K6 (with its lse) at heads h of width d over the metadata (lq
+    queries, lk keys) against the plain version: (worst error / bar of out
+    and lse, out, lse, the rows a block covered)."""
+    q = _operand(dev, seed, torch.bfloat16, 1, lq, h, d)
+    kv = _operand(dev, seed + 1, torch.bfloat16, 1, lk, 2 * hkv, d)
+    k, v = kv[:, :, :hkv].contiguous(), kv[:, :, hkv:]
+    fa.reset_launch_counts()
+    got, lse = fa._inline_forward(q, k, v, qm, km, with_lse=True)
+    torch.cuda.synchronize()
+    assert fa.flash_mha_inline.launches == 1
+    (rows, n), = fa.flash_mha_inline.launches_by_rows.items()
+    assert n == 1
+    want, want_lse = fa.inline_attention_reference(q.float(), k.float(),
+                                                   v.float(), qm, km)
+    mass, _ = fa.inline_attention_reference(q.float(), k.float(),
+                                            v.float().abs(), qm, km)
+    ratio = _err(got, want, mass)
+    lse, want_lse = lse.cpu(), want_lse.cpu()
+    dead = torch.isinf(want_lse)
+    assert torch.equal(torch.isinf(lse), dead)
+    # the lse in fp32 from the same products: fp32 summation order alone
+    live = ~dead
+    bar = 1e-4 + 1e-4 * want_lse[live].abs()
+    ratio = max(ratio, float(((lse[live] - want_lse[live]).abs()
+                              / bar).max()))
+    return ratio, got, lse, rows
+
+
+@pytest.mark.parametrize("d,h,hkv,rows", K6_BLOCK_CASES)
+def test_k6_at_every_block_shape(dev, d, h, hkv, rows):
+    """K6 at each block shape the wrapper chooses (64, 128, 192, 256 query
+    rows a block) and padded head width, with pad rows, GQA, a last group of
+    fewer tiles than the block's consumers, and key tiles that are empty
+    for one query tile of a group and partial for another."""
+    meta = _k6_block_meta(dev)
+    L = meta.index.shape[1]
+    tiles = fa.inline_tile_classes(meta, meta).cpu()   # the kernel's map
+    groups = fa.inline_groups_reference(tiles, rows // 64)
+    if rows > 64:
+        c, nq = rows // 64, tiles.shape[1]
+        ng = -(-nq // c)
+        assert ng * c != nq   # a last group of fewer query tiles
+        t = tiles[:, :(ng - 1) * c].view(1, ng - 1, c, tiles.shape[2])
+        assert ((t == fa.TILE_EMPTY).any(2)
+                & (t == fa.TILE_PARTIAL).any(2)).any()
+        assert (groups.shared != groups.tiles).any()
+    assert fa.inline_block_rows(1, L, h, d, dev) == rows
+    ratio, *_, got_rows = _k6_block_error(dev, d, h, hkv, meta, meta, L, L)
+    assert got_rows == rows
+    assert ratio <= 1.0
+
+
+def test_k6_rows_that_see_no_key(dev):
+    """Rows that see no key, inside a 192-row block whose other rows do:
+    out exactly 0 and lse -inf, the rest as the plain version."""
+    meta = _k6_block_meta(dev)
+    L = meta.index.shape[1]
+    dead = slice(330, 350)   # the second block's third consumer
+    index, blk = meta.index.clone(), meta.q_block.clone()
+    index[:, dead], blk[:, dead] = -fa.NEVER, -1
+    pad = meta.is_pad.clone()
+    pad[:, dead] = 0
+    qm = meta._replace(index=index, q_block=blk, is_pad=pad)
+    ratio, got, lse, rows = _k6_block_error(dev, 96, 48, 16, qm, meta, L, L)
+    assert rows == 192 and ratio <= 1.0
+    assert not got[:, dead].any()
+    assert torch.isinf(lse[:, :, dead]).all() and (lse[:, :, dead] < 0).all()
+    assert torch.isfinite(lse[:, :, :dead.start]).all()
+
+
+def test_k6_at_a_ring_hop_shape(dev):
+    """lq != lk as a ring hop runs it: query chunk 1 over key chunk 0 of a
+    training row, at 192 rows a block (72 heads of 96, 24 kv heads)."""
+    meta = _k6_block_meta(dev)
+    L = meta.index.shape[1]
+    c = L // 2
+    qm, km = meta.cols(slice(c, L)), meta.cols(slice(0, c))
+    assert fa.inline_block_rows(1, L - c, 72, 96, dev) == 192
+    ratio, *_, rows = _k6_block_error(dev, 96, 72, 24, qm, km, L - c, c)
+    assert rows == 192 and ratio <= 1.0
+
+
+def test_k6_is_deterministic(dev):
+    """Two launches on the same inputs give the same bits (no atomics)."""
+    meta = _k6_block_meta(dev)
+    L = meta.index.shape[1]
+    q = _operand(dev, 52, torch.bfloat16, 1, L, 48, 96)
+    k = _operand(dev, 53, torch.bfloat16, 1, L, 16, 96)
+    v = _operand(dev, 54, torch.bfloat16, 1, L, 16, 96)
+    a = fa._inline_forward(q, k, v, meta, meta, with_lse=True)
+    b = fa._inline_forward(q, k, v, meta, meta, with_lse=True)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+def test_k6_block_rows_at_the_path_shapes(dev):
+    """The stage-4 training forward (B 1, L 35,520, 32 heads of 96) takes
+    192-row blocks; a seq-mesh rank's prefill (8 heads, L 1,776: 28 query
+    tiles, 224 blocks of 64 rows) keeps 64 rows. The latter launched too."""
+    assert fa.inline_block_rows(1, 35520, 32, 96, dev) == 192
+    assert fa.inline_block_rows(1, 1776, 8, 96, dev) == 64
+    lay = layout.frame_block_inference_layout(8, 16, 220, use_cfg=False)
+    mp = AttnMeta.from_layout(lay, dev).cols(
+        slice(0, lay.length - lay.noisy_tail_len()))
+    assert mp.index.shape[1] == 1776
+    q, k, v = (_bf16(dev, 55 + i, 1, 1776, 8, D) for i in range(3))
+    assert _k6_case_error(q, k, v, mp, mp) <= 1.0
+    assert fa.flash_mha_inline.launches_by_rows == {64: 1}
+
+
+def _map_scratch(meta, backward, heads=0, head_dim=0):
+    """(the map, the scratch) of K6's (``backward``: K7's) map-only
+    launch; with heads and head_dim K6 orders its blocks as a launch of
+    that shape would."""
+    a, tile_map, scratch = fa._inline_map_args(meta, meta, backward)
+    a.map_only, a.heads, a.head_dim = 1, heads, head_dim
+    lib = "inline_attention_bwd" if backward else "inline_attention"
+    fa._launch(lib, f"vgt_{lib}", a, meta.index.device)
+    torch.cuda.synchronize()
+    return tile_map.cpu(), scratch.cpu().long()
+
+
+def _assert_order(counts, order, want_counts):
+    assert torch.equal(counts, want_counts)
+    assert sorted(order.tolist()) == list(range(len(order)))
+    assert (counts[order][:-1] >= counts[order][1:]).all()
+
+
+@pytest.mark.parametrize("heads", [8, 32, 48])
+def test_k6_group_order_matches_plain(dev, heads):
+    """K6's blocks of the launch shape: each group's count of loaded key
+    tiles and the launch order, most first, against the plain version."""
+    meta = _k6_block_meta(dev)
+    b, L = meta.index.shape
+    tile_map, scratch = _map_scratch(meta, False, heads, 96)
+    # the map of the metadata's summaries: the order's input
+    assert torch.equal(tile_map, _map_scratch(meta, False)[0])
+    group = fa.inline_block_rows(b, L, heads, 96, dev) // 64
+    plain = fa.inline_groups_reference(tile_map, group)
+    nq, nk = tile_map.shape[1:]
+    ng = len(plain.counts)
+    base = b * (nq + nk) * 8
+    _assert_order(scratch[base:base + ng],
+                  scratch[base + b * nq:base + b * nq + ng], plain.counts)
+
+
+def test_k7_map_and_order_unchanged(dev):
+    """K7's map (K6's, from the same summaries) and its two launch
+    orders: the query tiles by their count of non-empty key tiles and the
+    key tiles by theirs, most first."""
+    meta = _k6_block_meta(dev)
+    tile_map, scratch = _map_scratch(meta, True)
+    assert torch.equal(tile_map, _map_scratch(meta, False)[0])
+    b, nq, nk = tile_map.shape
+    seen = tile_map != fa.TILE_EMPTY
+    base = b * (nq + nk) * 8
+    rc, cc = scratch[base:base + b * nq], scratch[base + b * nq:
+                                                  base + b * (nq + nk)]
+    rows = scratch[base + b * (nq + nk):base + b * (2 * nq + nk)]
+    cols = scratch[base + b * (2 * nq + nk):base + 2 * b * (nq + nk)]
+    _assert_order(rc, rows, seen.sum(-1).flatten())
+    _assert_order(cc, cols, seen.sum(1).flatten())
+
+
 def _map_cases(dev):
     """(name, query meta, key meta) of the map checks."""
     def training(blocks, n_img, pad=False):
@@ -818,8 +1007,14 @@ def test_flash_mha_inline_gradients_reach_q_k_v(dev):
 MUTATIONS = {
     "k6_without_last_key_tile": (
         "inline_attention.cu",
-        "for (int i = 0; i < n; ++i) {",
-        "for (int i = 0; i < n - 1; ++i) {", "K6"),
+        "    if (kt < nk)\n",
+        "    if (kt < nk - 1)\n", "K6"),
+    "k6_second_consumer_rows_unstored": (
+        "inline_attention.cu",
+        "  bf16* out = static_cast<bf16*>(a.out) + b * a.o_sb + h * a.o_sh;",
+        "  if (w == 1) return;\n"
+        "  bf16* out = static_cast<bf16*>(a.out) + b * a.o_sb + h * a.o_sh;",
+        "K6-c3"),
     "k6_map_one_tile_empty": (
         "tile_map.cuh",
         "    row[kt] = c;",
@@ -932,6 +1127,10 @@ def test_inline_mutation_fails_the_bar(dev, tmp_path, monkeypatch,
         ratio = _k1_error(dev, 1, 129, 70, 100)
     elif kernel == "K6":
         ratio = _k6_error(dev, *case)
+    elif kernel == "K6-c3":
+        meta = _k6_block_meta(dev)
+        L = meta.index.shape[1]
+        ratio = _k6_block_error(dev, 96, 48, 16, meta, meta, L, L)[0]
     elif kernel == "K7":
         ratio = max(_k7_errors(dev, *case).values())
     elif kernel == "K3":

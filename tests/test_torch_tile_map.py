@@ -24,6 +24,7 @@ import random
 
 import numpy as np
 import pytest
+import torch
 
 from video_gpt_tpu import layout as jlayout
 from video_gpt_tpu.ops.attention import AttnMeta as JMeta
@@ -346,3 +347,35 @@ def test_rank_classes_match_the_jax_decode_rank(name):
     np.testing.assert_array_equal(_range_classes(jranks, jqoff, tq, tk),
                                   want)
     assert (want == fa.TILE_FULL).any() and (want == fa.TILE_PARTIAL).any()
+
+
+@pytest.mark.parametrize("group", [1, 2, 3])
+@pytest.mark.parametrize("name", ["stage4", "inference", "inference_tail",
+                                  "prefill_b2"])
+def test_inline_groups_cover_their_rows(name, group):
+    """K6's blocks of ``group`` query tiles (``inline_groups_reference``):
+    every key tile that a query tile does not call empty is in its group's
+    list, no other is; a tile is shared when no query tile of the group
+    calls it empty; the counts are the lists' lengths and the order takes
+    the groups by count, most first, each once."""
+    _, tl, rows, cols = _layouts(name)
+    meta = AttnMeta.from_layout(tl, "cpu")
+    tiles = fa.inline_tile_classes_reference(meta.cols(rows),
+                                             meta.cols(cols))
+    b, nq, nk = tiles.shape
+    g = fa.inline_groups_reference(tiles, group)
+    ng = -(-nq // group)
+    assert g.tiles.shape == g.shared.shape == (b, ng, nk)
+    seen = tiles != fa.TILE_EMPTY
+    for qt in range(nq):
+        assert not (seen[:, qt] & ~g.tiles[:, qt // group]).any()
+    for gi in range(ng):
+        part = seen[:, gi * group:(gi + 1) * group]
+        assert torch.equal(g.tiles[:, gi], part.any(1))
+        assert torch.equal(g.shared[:, gi], part.all(1))
+    assert torch.equal(g.counts, g.tiles.sum(-1).flatten())
+    assert sorted(g.order.tolist()) == list(range(b * ng))
+    counts = g.counts[g.order]
+    assert (counts[:-1] >= counts[1:]).all()
+    if group == 1:
+        assert torch.equal(g.counts, seen.sum(-1).flatten())

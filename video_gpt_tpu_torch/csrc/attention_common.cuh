@@ -1,6 +1,7 @@
 // Shared pieces of the hand-written Hopper attention kernels: tile sizes,
-// the bf16 tensor-core product (mma.sync m16n8k16, fp32 accumulate), and
-// fragment loads from shared memory.
+// the bf16 tensor-core product (mma.sync m16n8k16, fp32 accumulate),
+// fragment loads from shared memory, wgmma, and the mbarriers and TMA
+// tensor maps of the producer / consumer kernels (K1, K6, P1).
 //
 // Fragment layouts (PTX ISA, mma.m16n8k16 with .bf16 inputs); g = lane / 4,
 // t = lane % 4:
@@ -18,7 +19,9 @@
 // registers.
 #pragma once
 
+#include <cuda.h>
 #include <cuda_bf16.h>
+#include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace vgt {
@@ -511,6 +514,61 @@ __device__ __forceinline__ float ex2_approx(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
   return y;
+}
+
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  const uint32_t a = smem_u32(p);
+  return p + (((a + 1023u) & ~1023u) - a);
+}
+
+// cuTensorMapEncodeTiled, looked up through the runtime's entry-point
+// query (the library links no -lcuda).
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+inline EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                     cudaEnableDefault, &q);
+#else
+    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                            &q);
+#endif
+    return q == cudaDriverEntryPointSuccess ? reinterpret_cast<EncodeTiled>(p)
+                                            : nullptr;
+  }();
+  return fn;
+}
+
+// The map of a [B, Hkv, L, head_dim] bf16 operand at `base` (element
+// strides sb, sh, sl): boxes of 32 head dims x 64 rows, 64-byte swizzle,
+// rows past L and head dims past head_dim read as 0.
+inline CUresult encode_operand(CUtensorMap* m, const void* base, int batch,
+                               int kv_heads, int len, int head_dim,
+                               long long sb, long long sh, long long sl) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return CUDA_ERROR_NOT_FOUND;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(head_dim),
+                              static_cast<cuuint64_t>(len),
+                              static_cast<cuuint64_t>(kv_heads),
+                              static_cast<cuuint64_t>(batch)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(sl) * 2,
+                                 static_cast<cuuint64_t>(sh) * 2,
+                                 static_cast<cuuint64_t>(sb) * 2};
+  const cuuint32_t box[4] = {32, kBlockK, 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return encode(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                const_cast<void*>(base), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_64B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
 
 // A 64-byte-swizzled 64-row tile as the K-major B operand (rows N, head dim

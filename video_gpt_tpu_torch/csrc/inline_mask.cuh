@@ -78,11 +78,14 @@ __device__ __forceinline__ void load_key_meta(KeyMeta* dst,
 // (one O(L) pass), every (query tile, key tile) class into a.tile_map with
 // each query tile's count of non-empty key tiles, then the query tiles
 // ordered by that count, most first, into *order (in a.scratch: B (nq + nk)
-// summaries of 8 ints, B nq counts, B nq order). Returns the first nonzero
+// summaries of 8 ints, B nq counts, B nq order). With `group` > 1 (K6's
+// blocks of that many query tiles) the counts are each group's instead, of
+// the key tiles that some query tile of the group sees, and *order holds
+// the B ceil(nq / group) groups. Returns the first nonzero
 // cudaGetLastError() (0 = all launched).
 template <class Args>
 inline int launch_inline_tile_map(const Args& a, cudaStream_t s,
-                                  const int** order) {
+                                  const int** order, int group = 1) {
   const int nq = (a.lq + kBlockQ - 1) / kBlockQ;
   const int nk = (a.lk + kBlockK - 1) / kBlockK;
   QuerySummary* qsum = reinterpret_cast<QuerySummary*>(a.scratch);
@@ -104,13 +107,21 @@ inline int launch_inline_tile_map(const Args& a, cudaStream_t s,
                                                  a.tile_map, counts, nullptr);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
+  const int ng = (nq + group - 1) / group;
+  if (group > 1) {
+    // the groups' counts over the query tiles' (which nothing else reads)
+    meta_tile_map_groups_kernel<<<dim3(ng, a.batch), kMapThreads, 0,
+                                  s>>>(a.tile_map, nq, nk, group, counts);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
   const int order_smem = (nk + 1) * static_cast<int>(sizeof(int));
   err = cudaFuncSetAttribute(tile_order_kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              order_smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   tile_order_kernel<<<1, kOrderThreads, order_smem, s>>>(
-      counts, a.batch * nq, nk, ord);
+      counts, a.batch * ng, nk, ord);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -61,8 +61,6 @@
 // bodies take ~0.25 ms, two thirds of the card's byte rate, and the order
 // inside a warpgroup moves them by a few percent; at G 1, where nothing
 // contends for bytes, the pipelined body is ~1.2x the serial one.
-#include <cuda.h>
-
 #include <cstring>
 
 #include "attention_common.cuh"
@@ -302,11 +300,6 @@ __device__ __forceinline__ void overlap_pipelined(ProbeConsumer<W>& c, int n,
   c.release();
 }
 
-__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
-  const uint32_t a = smem_u32(p);
-  return p + (((a + 1023u) & ~1023u) - a);
-}
-
 // The producer: each consumer's Q tile, then the problem's K and V subtiles
 // in order through the ring. One thread works.
 template <int W>
@@ -409,32 +402,6 @@ __global__ void __launch_bounds__(kProbeThreads, kProbeMinBlocks)
       *reinterpret_cast<uint32_t*>(out + r1 * kProbeDim + col) =
           pack_bf16(o[4 * n8 + 2] * inv1, o[4 * n8 + 3] * inv1);
   }
-}
-
-// cuTensorMapEncodeTiled, looked up through the runtime's entry-point
-// query (the library links no -lcuda).
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-inline EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q = cudaDriverEntryPointSymbolNotFound;
-#if CUDART_VERSION >= 12050
-    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                     cudaEnableDefault, &q);
-#else
-    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
-                            &q);
-#endif
-    return q == cudaDriverEntryPointSuccess ? reinterpret_cast<EncodeTiled>(p)
-                                            : nullptr;
-  }();
-  return fn;
 }
 
 // The map of a contiguous [problems, len, D] bf16 operand: boxes of 32 head

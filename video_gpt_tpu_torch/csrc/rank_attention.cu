@@ -57,8 +57,6 @@
 // softmax of the tile runs while that P.V is in flight; the three
 // consumers' products and softmaxes interleave on the SM. The row sums stay
 // in registers and are quad-reduced once at the end.
-#include <cuda.h>
-
 #include <cstring>
 
 #include "attention_args.cuh"
@@ -94,11 +92,6 @@ struct RankCfg {
 struct alignas(64) RankMaps {
   CUtensorMap kv[2][2];
 };
-
-__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
-  const uint32_t a = smem_u32(p);
-  return p + (((a + 1023u) & ~1023u) - a);
-}
 
 // The producer warpgroup: classify every key tile for every consumer and
 // fill the ring with the tiles that one of them sees; then a stage with the
@@ -394,56 +387,6 @@ __global__ void __launch_bounds__(RankCfg<DP>::kThreads, 1)
     setmaxnreg_inc<C::kConsumerRegs>();
     rank_consumer<DP>(a, smem, full, empty, b, h, q0, wg - 1);
   }
-}
-
-// cuTensorMapEncodeTiled, looked up through the runtime's entry-point
-// query (the library links no -lcuda).
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-inline EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q = cudaDriverEntryPointSymbolNotFound;
-#if CUDART_VERSION >= 12050
-    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                     cudaEnableDefault, &q);
-#else
-    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
-                            &q);
-#endif
-    return q == cudaDriverEntryPointSuccess ? reinterpret_cast<EncodeTiled>(p)
-                                            : nullptr;
-  }();
-  return fn;
-}
-
-// The map of a [B, Hkv, L, head_dim] bf16 operand at `base` (element
-// strides sb, sh, sl): boxes of 32 head dims x 64 rows, 64-byte swizzle,
-// rows past L and head dims past head_dim read as 0.
-inline CUresult encode_operand(CUtensorMap* m, const void* base, int batch,
-                               int kv_heads, int len, int head_dim,
-                               long long sb, long long sh, long long sl) {
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return CUDA_ERROR_NOT_FOUND;
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(head_dim),
-                              static_cast<cuuint64_t>(len),
-                              static_cast<cuuint64_t>(kv_heads),
-                              static_cast<cuuint64_t>(batch)};
-  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(sl) * 2,
-                                 static_cast<cuuint64_t>(sh) * 2,
-                                 static_cast<cuuint64_t>(sb) * 2};
-  const cuuint32_t box[4] = {32, kRankTile, 1, 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  return encode(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-                const_cast<void*>(base), dims, strides, box, unit,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_64B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
 
 template <int DP>

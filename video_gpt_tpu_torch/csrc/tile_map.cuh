@@ -204,6 +204,31 @@ __global__ void __launch_bounds__(kMapThreads)
   if (threadIdx.x == 0) counts[b * nq + qt] = total;
 }
 
+// One block per (batch row b, group of `group` consecutive query tiles,
+// the last group possibly shorter): the count of key tiles that some query
+// tile of the group does not call empty, the key tiles that a block of K6
+// covering the group loads, into counts[b * ceil(nq / group) + group].
+__global__ void __launch_bounds__(kMapThreads)
+    meta_tile_map_groups_kernel(const int8_t* map, int nq, int nk,
+                                int group, int* counts) {
+  const int ng = (nq + group - 1) / group;
+  const int b = blockIdx.y, qt0 = blockIdx.x * group;
+  const int rows = min(group, nq - qt0);
+  const int8_t* m = map + (static_cast<long long>(b) * nq + qt0) * nk;
+  int n = 0;
+  for (int kt = threadIdx.x; kt < nk; kt += kMapThreads) {
+    bool any = false;
+    for (int r = 0; r < rows; ++r) any = any || m[r * nk + kt] != kTileEmpty;
+    n += any;
+  }
+  __shared__ int total;
+  if (threadIdx.x == 0) total = 0;
+  __syncthreads();
+  atomicAdd(&total, n);
+  __syncthreads();
+  if (threadIdx.x == 0) counts[b * ng + blockIdx.x] = total;
+}
+
 constexpr int kOrderThreads = 1024;
 
 // One block: order[0 .. items) = the items 0 .. items-1 by decreasing

@@ -53,7 +53,15 @@ plain versions
 :func:`inline_tile_classes` and :func:`bias_tile_classes`): K6 and K7 build
 the metadata's map in each launch; the bias's map is built once per bias
 by :func:`bias_map` (where the model builds the bias) and read by every
-K3 and K9 launch over that bias. Each
+K3 and K9 launch over that bias. A K6 block is a TMA producer warpgroup
+and one to four consumer warpgroups of 64 query rows that share each
+loaded K/V tile: it loads the key tiles that some of its query tiles see
+(the union of their rows of the map) and each consumer computes those it
+sees; the blocks launch by that count, most first (plain version
+:func:`inline_groups_reference`). The kernel chooses the block from the
+head width and the grid (:func:`inline_block_rows`); the wrapper counts
+its bf16 launches by those rows in ``flash_mha_inline.launches_by_rows``.
+K8 (the resident kernel) is the same kernel. Each
 wrapper takes its plain PyTorch version (``*_reference``) for CPU tensors
 only; for CUDA tensors it launches the kernel or raises, and counts the
 launch in its ``launches`` attribute (K1-K3 also in ``long_launches``
@@ -72,6 +80,7 @@ and K6 at B = 2 (B*L^2 above ``precompute_bias_limit``, as on the TPU).
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple, Optional, Sequence
 
 import torch
@@ -454,6 +463,40 @@ def inline_tile_classes_reference(q_meta: AttnMeta, k_meta: AttnMeta,
     return out
 
 
+class InlineGroups(NamedTuple):
+    """K6's blocks at ``group`` query tiles a block (the plain version of
+    its group counts, order and key lists; csrc/inline_attention.cu)."""
+
+    tiles: torch.Tensor   # bool [B, ng, nk]: the key tiles a block loads
+    shared: torch.Tensor  # bool [B, ng, nk]: ... on which each of its
+                          # query tiles computes
+    counts: torch.Tensor  # int64 [B ng]: each block's loaded key tiles
+    order: torch.Tensor   # int64 [B ng]: the blocks by count, most first
+
+
+def inline_groups_reference(tile_map: torch.Tensor,
+                            group: int) -> InlineGroups:
+    """Plain version of how K6 walks its map [B, nq, nk] with ``group``
+    consecutive query tiles a block (the last group of a batch row
+    possibly shorter; ng = ceil(nq / group)): each block loads the key
+    tiles that some query tile of its group does not call empty, in order
+    of key tile, and the blocks launch by that count, most first (ties in
+    order of batch row and group here; the kernel's are in any order)."""
+    b, nq, nk = tile_map.shape
+    ng = -(-nq // group)
+    seen = tile_map != TILE_EMPTY
+    pad = (0, 0, 0, ng * group - nq)
+    tiles = torch.nn.functional.pad(seen, pad, value=False).view(
+        b, ng, group, nk).any(2)
+    # a query tile past the last (a short group's) computes nothing and
+    # takes no stage
+    shared = torch.nn.functional.pad(seen, pad, value=True).view(
+        b, ng, group, nk).all(2)
+    counts = tiles.sum(-1).flatten()
+    order = torch.sort(counts, descending=True, stable=True).indices
+    return InlineGroups(tiles, shared, counts, order)
+
+
 def rank_tile_classes_reference(ranks: Sequence[torch.Tensor],
                                 q_off: torch.Tensor, tile_q: int = TILE_Q,
                                 tile_k: int = TILE_K) -> torch.Tensor:
@@ -773,6 +816,20 @@ def rank_attention_smem(head_dim: int = 96) -> int:
     f.argtypes = [ctypes.c_int]
     f.restype = ctypes.c_int
     return f(head_dim)
+
+
+@functools.lru_cache(maxsize=256)
+def inline_block_rows(batch: int, lq: int, heads: int, head_dim: int,
+                      device: torch.device) -> int:
+    """The query rows a bf16 K6 block covers (64 a consumer warpgroup) at
+    this launch shape on the CUDA ``device``: csrc/inline_attention.cu's
+    own choice, which :func:`flash_mha_inline` counts in
+    ``launches_by_rows``."""
+    f = _cuda.libraries()["inline_attention"].vgt_inline_block_rows
+    f.argtypes = [ctypes.c_int] * 4
+    f.restype = ctypes.c_int
+    with torch.cuda.device(device):
+        return f(batch, lq, heads, head_dim)
 
 
 def _count(fn, choice: KernelChoice, keys: int) -> None:
@@ -1135,6 +1192,10 @@ def _inline_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     a.scale_log2 = d ** -0.5 * LOG2E
     _launch(*_ENTRY["inline", choice.kernel], a, q.device)
     _count(flash_mha_inline, choice, lk)
+    if choice.kernel == "bf16":
+        rows = inline_block_rows(b, lq, h, d, q.device)
+        by_rows = flash_mha_inline.launches_by_rows
+        by_rows[rows] = by_rows.get(rows, 0) + 1
     return out, lse
 
 
@@ -1173,6 +1234,8 @@ def flash_mha_inline(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 flash_mha_inline.launches = flash_mha_inline.fp32_launches = 0
+# bf16 launches by the query rows a block covers (inline_block_rows)
+flash_mha_inline.launches_by_rows = {}
 
 
 def flash_mha_inline_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -1232,8 +1295,9 @@ KERNELS = (flash_mha_decode_split, flash_mha_decode, flash_mha,
 
 def reset_launch_counts() -> None:
     """Every wrapper's launch counts, and ``flash_mha.bias_map_builds``,
-    to 0."""
+    to 0 (``flash_mha_inline.launches_by_rows`` emptied)."""
     flash_mha.bias_map_builds = 0
+    flash_mha_inline.launches_by_rows = {}
     for fn in KERNELS:
         fn.launches = fn.fp32_launches = 0
     for fn in (flash_mha_decode_split, flash_mha_decode, flash_mha):
