@@ -30,8 +30,9 @@ from video_gpt_tpu.ops import flash_attention as jfa
 from video_gpt_tpu.ops.attention import AttnMeta as JMeta
 from video_gpt_tpu_torch import layout as tlayout
 from video_gpt_tpu_torch.ops import flash_attention as fa
-from video_gpt_tpu_torch.ops.attention import (AttnMeta, attend,
-                                               attention_bias, mha_reference)
+from video_gpt_tpu_torch.ops.attention import (AttnMeta, Window, attend,
+                                               attention_bias, mha_reference,
+                                               visibility)
 
 FWD_TOL, BWD_TOL = 2e-5, 5e-5
 D = 96
@@ -115,16 +116,53 @@ def test_plain_k6_matches_pallas_k8(kind, h, hkv):
     _close(out, want, FWD_TOL)
 
 
-@pytest.mark.parametrize("kind,h,hkv", CASES)
-def test_plain_k6_matches_dense_reference(kind, h, hkv, monkeypatch):
+# a sliding window of half a frame of positions (the AFMoE
+# trunk's sliding layers), which hides keys in both layouts
+WINDOW = 12
+
+
+def _window(kind):
+    """The window over the port layout's positions: (queries, keys)."""
+    _, tl, rows = _layouts(kind)
+    pos = torch.as_tensor(tl.pos_ids, dtype=torch.int32)
+    return Window(WINDOW, pos[:, rows], pos)
+
+
+@pytest.mark.parametrize("kind,h,hkv,window", [
+    pytest.param(*case, w, id="-".join(map(str, case)) + ("-window" if w
+                                                          else ""))
+    for case in CASES for w in (False, True)])
+def test_plain_k6_matches_dense_reference(kind, h, hkv, window,
+                                          monkeypatch):
     """The plain version row by row equals the port's dense masked
-    attention, with small row steps so several of them run."""
-    _, (tq, tk), qkv, _ = _case(kind, h, hkv, seed=2)
+    attention, with small row steps so several of them run; with a window
+    the plain K6 and K7 and the plain K3 and K9 over the windowed bias
+    equal the dense attention under the rule and the window, and its
+    gradients."""
+    _, (tq, tk), qkv, dout = _case(kind, h, hkv, seed=2)
     q, k, v = _t(*qkv)
     monkeypatch.setattr(fa, "INLINE_ROWS", 7)
-    out, _ = fa.inline_attention_reference(q, k, v, tq, tk)
-    want = mha_reference(q, k, v, attention_bias(tq, tk))
+    win = _window(kind) if window else None
+    out, _ = fa.inline_attention_reference(q, k, v, tq, tk, win)
+    want = mha_reference(q, k, v, attention_bias(tq, tk, window=win))
     _close(out, want.numpy(), FWD_TOL)
+    if not window:
+        return
+    assert not bool(visibility(tq, tk, win).eq(visibility(tq, tk)).all())
+    bias = fa.precompute_bias(tq, tk, win)
+    _close(fa.bias_attention_reference(q, k, v, bias), want.numpy(),
+           FWD_TOL, "K3")
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    dense = mha_reference(*leaves, attention_bias(tq, tk, window=win))
+    grads = torch.autograd.grad(dense, leaves, torch.from_numpy(dout))
+    k7 = fa.inline_attention_backward_reference(q, k, v, tq, tk, out,
+                                                torch.from_numpy(dout),
+                                                window=win)
+    k9 = fa.bias_attention_backward_reference(q, k, v, bias, out,
+                                              torch.from_numpy(dout))
+    for name, g, a, b in zip(("dq", "dk", "dv"), grads, k7, k9):
+        _close(a, g.numpy(), BWD_TOL, f"K7 {name}")
+        _close(b, g.numpy(), BWD_TOL, f"K9 {name}")
 
 
 # the backward's cases: CASES at head_dim 96, and GQA 2:1 at the other

@@ -81,7 +81,7 @@ from video_gpt_tpu_torch.models.video_gpt import (decode_mask, extend_mask,
                                                   maybe_bias)
 from video_gpt_tpu_torch.ops import _cuda
 from video_gpt_tpu_torch.ops import flash_attention as fa
-from video_gpt_tpu_torch.ops.attention import AttnMeta, attend_cached
+from video_gpt_tpu_torch.ops.attention import AttnMeta, Window, attend_cached
 from video_gpt_tpu_torch.probes import overlap_probe
 
 pytestmark = pytest.mark.gpu
@@ -1107,6 +1107,13 @@ MUTATIONS = {
         "wgmma_pv<DP>(dv, fa[j], desc_mn_major_dp<DP>(bt, j));",
         "wgmma_pv<DP>(dv, fa[j], desc_mn_major_dp<DP>(bt, j ^ 1));",
         "K7-d128"),
+    # the window term dropped from the map that K6 and K7 read: a full tile
+    # that reaches past the window is taken as full, its mask skipped
+    "k7_map_without_window": (
+        "tile_map.cuh",
+        "  if (c == kTileFull && static_cast<long long>(qr.hi) - kr.lo >= "
+        "window)\n    return kTilePartial;\n",
+        "", "K7-window"),
 }
 
 
@@ -1154,6 +1161,9 @@ def test_inline_mutation_fails_the_bar(dev, tmp_path, monkeypatch,
         ratio = max(_k9_width_errors(dev, torch.bfloat16, 128).values())
     elif kernel == "K7-d128":
         ratio = max(_k7_width_errors(dev, torch.bfloat16, 128).values())
+    elif kernel == "K7-window":
+        ratio = max(_window_errors(dev, *_window_operands(
+            dev, 8, 1, (1, 2, 1, 3), 30, 40))[0].values())
     else:
         ratio = max(_k9_errors(dev, *_training_operands(dev, *case))
                     .values())
@@ -1764,3 +1774,129 @@ def test_k7_at_every_width(dev, dtype, d):
     global one."""
     errs = _k7_width_errors(dev, dtype, d)
     assert max(errs.values()) <= 1.0, errs
+
+
+# ---- the sliding window (the AFMoE trunk's sliding layers) ------------------
+
+def _window_operands(dev, h, hkv, blocks, n_img, window, d=128, seed=27):
+    """q/k/v at head width ``d`` over a training layout, its metadata and a
+    window of ``window`` positions over its ``pos_ids``."""
+    lay = _training_layout(blocks, n_img)
+    meta = AttnMeta.from_layout(lay, dev)
+    pos = torch.as_tensor(lay.pos_ids, dtype=torch.int32, device=dev)
+    qkv = _bf16(dev, seed, lay.batch, lay.length, h + 2 * hkv, d)
+    q, k = qkv[:, :, :h].contiguous(), qkv[:, :, h:h + hkv].contiguous()
+    return q, k, qkv[:, :, h + hkv:], meta, Window(window, pos, pos)
+
+
+def _window_errors(dev, q, k, v, meta, win):
+    """Windowed K6 (with its lse) and K7 against the plain versions under
+    the same window: ({output: worst error / bar}, the two tile maps)."""
+    fa.reset_launch_counts()
+    out, lse = fa._inline_forward(q, k, v, meta, meta, with_lse=True,
+                                  window=win)
+    qf, kf, vf = (x.float() for x in (q, k, v))
+    want, want_lse = fa.inline_attention_reference(qf, kf, vf, meta, meta,
+                                                   win)
+    mass, _ = fa.inline_attention_reference(qf, kf, vf.abs(), meta, meta,
+                                            win)
+    do = _bf16(dev, 28, *out.shape)
+    got = fa.flash_mha_inline_bwd(q, k, v, meta, meta, out, do, lse,
+                                  window=win)
+    args = [qf, kf, vf, meta, meta, out.float(), do.float()]
+    want_b = fa.inline_attention_backward_reference(*args, window=win)
+    mass_b = fa.inline_attention_backward_reference(*args, magnitude=True,
+                                                    window=win)
+    torch.cuda.synchronize()
+    assert fa.flash_mha_inline.window_launches == 1
+    assert fa.flash_mha_inline_bwd.window_launches == 1
+    lse_bar = 1e-2 + 1e-3 * want_lse.abs()
+    errs = {"out": _err(out, want, mass),
+            "lse": float(torch.nan_to_num((lse - want_lse).abs() / lse_bar,
+                                          nan=float("inf")).max())}
+    errs.update({name: _err(g, w, m) for name, g, w, m in zip(
+        ("dq", "dk", "dv"), got, want_b, mass_b)})
+    return errs, out
+
+
+@pytest.mark.parametrize("h,hkv,blocks,n_img,window", [
+    (8, 1, (1, 2, 1, 3), 30, 40), (4, 2, ((1, 2, 1), (2, 2)), 30, 40),
+    (32, 4, (1, 3, 1, 1, 2), 30, 70)])
+def test_windowed_k6_k7_match_plain(dev, h, hkv, blocks, n_img, window):
+    errs, _ = _window_errors(dev, *_window_operands(dev, h, hkv, blocks,
+                                                    n_img, window))
+    assert max(errs.values()) <= 1.0, errs
+
+
+def test_windowed_tile_map_is_conservative(dev):
+    """The window's map: empty only where the plain classes are, full only
+    where they are, and fewer tiles than without the window."""
+    _, _, _, meta, win = _window_operands(dev, 8, 1, (1, 2, 1, 3, 2), 60, 60)
+    want = fa.inline_tile_classes_reference(meta, meta, window=win)
+    for backward in (False, True):
+        got = fa.inline_tile_classes(meta, meta, backward, window=win)
+        assert bool((want[got == fa.TILE_EMPTY] == fa.TILE_EMPTY).all())
+        assert bool((want[got == fa.TILE_FULL] == fa.TILE_FULL).all())
+        unwindowed = fa.inline_tile_classes(meta, meta, backward)
+        assert int((got != fa.TILE_EMPTY).sum()) < int(
+            (unwindowed != fa.TILE_EMPTY).sum())
+
+
+def _stage4_layout():
+    """The cells' stage-4 row: 80 frames of 220 patches, padded as the
+    collate pads it (2 x 80 x 222 = 35,520)."""
+    return layout.build_layout([layout.RowSpec(tuple(STAGE4_BLOCKS),
+                                               "training")], 220,
+                               pad_to=2 * 80 * 222)
+
+
+# the frame blocks of the stage-4 cells (bench_port/workloads)
+STAGE4_BLOCKS = (1, 3, 1, 1, 1, 3, 3, 1, 2, 1, 1, 2, 1, 1, 1, 3, 2, 1, 2, 2,
+                 1, 1, 1, 1, 2, 1, 1, 3, 2, 1, 2, 1, 2, 2, 1, 1, 2, 1, 3, 1,
+                 2, 1, 2, 2, 1, 1, 1, 1, 3, 1, 2)
+
+
+def test_windowed_k6_k7_at_the_trinity_stage4_shape(dev):
+    """B 1, L 35,520, 32 heads of 128 over 4 KV heads, a window of 2048
+    positions: the sliding layers of ``videogpt-trinitymini.train_stage4``."""
+    lay = _stage4_layout()
+    assert lay.length == 35520
+    meta = AttnMeta.from_layout(lay, dev)
+    pos = torch.as_tensor(lay.pos_ids, dtype=torch.int32, device=dev)
+    qkv = _bf16(dev, 29, 1, lay.length, 40, 128)
+    q, k = qkv[:, :, :32].contiguous(), qkv[:, :, 32:36].contiguous()
+    errs, _ = _window_errors(dev, q, k, qkv[:, :, 36:], meta,
+                             Window(2048, pos, pos))
+    print(f"windowed K6/K7 at stage 4: worst error / bar {errs}")
+    assert max(errs.values()) <= 1.0, errs
+
+
+def test_grouped_experts_match_the_loop_at_a_cell_layer(dev):
+    """The routed part of one expert layer of the stage-4 cell (35,076
+    tokens, top 8 of 128 experts of width 1024 over hidden 2048) in bf16
+    on ``torch._grouped_mm`` against the plain loop over the experts in
+    fp32: the output and every gradient within 2% of their norm."""
+    from video_gpt_tpu_torch.models.afmoe import RoutedExperts
+    t, k, e, hid, inter = 35076, 8, 128, 2048, 1024
+    g = torch.Generator(dev).manual_seed(31)
+    m = torch.randn(t, hid, generator=g, device=dev)
+    w = torch.rand(t, k, generator=g, device=dev)
+    idx = torch.argsort(torch.rand(t, e, generator=g, device=dev),
+                        dim=-1)[:, :k]
+    wg = torch.randn(e, 2 * inter, hid, generator=g, device=dev) * 0.02
+    wd = torch.randn(e, hid, inter, generator=g, device=dev) * 0.02
+    r = torch.randn(t, hid, generator=g, device=dev)
+    outs = []
+    for dt in (torch.bfloat16, torch.float32):
+        leaves = [x.detach().clone().requires_grad_(True)
+                  for x in (m.to(dt), w, wg, wd)]
+        counts = torch.zeros(e, dtype=torch.int64, device=dev)
+        out = RoutedExperts.apply(leaves[0], leaves[1], idx, leaves[2],
+                                  leaves[3], counts)
+        grads = torch.autograd.grad((out.float() * r).sum(), leaves)
+        outs.append([out.float()] + [x.float() for x in grads])
+    assert int(counts.sum()) == t * k
+    for name, got, want in zip(("out", "dm", "dw", "dwg", "dwd"), *outs):
+        rel = float((got - want).norm().detach() / want.norm())
+        print(f"grouped experts {name}: relative error {rel:.2e}")
+        assert rel < 2e-2, name

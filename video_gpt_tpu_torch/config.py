@@ -55,10 +55,38 @@ class ModelConfig:
     lora_rank: int = 0
     lora_alpha: float = 8.0
     token_ids: TokenIds = DEFAULT_TOKEN_IDS
+    # the trunk: "phi3" (models/phi3.py) or "afmoe" (models/afmoe.py: the
+    # AFMoE block of Arcee's Trinity models, the fields below)
+    trunk: str = "phi3"
+    # the attention heads' width; 0: hidden_size / num_heads (Phi-3)
+    attn_head_dim: int = 0
+    # AFMoE: the first num_dense_layers layers run a SwiGLU MLP of
+    # intermediate_size, the others a layer of num_experts routed SwiGLU
+    # experts of moe_intermediate_size (top num_experts_per_tok by sigmoid
+    # score, normalised, times route_scale) plus num_shared_experts shared
+    # ones; layer_types[i] is "sliding_attention" (a window of
+    # sliding_window positions, RoPE) or "full_attention" (no positional
+    # encoding); mup_enabled scales the trunk's input by sqrt(hidden_size)
+    num_dense_layers: int = 0
+    moe_intermediate_size: int = 0
+    num_experts: int = 0
+    num_experts_per_tok: int = 0
+    num_shared_experts: int = 0
+    route_scale: float = 1.0
+    sliding_window: int = 0
+    layer_types: Tuple[str, ...] = ()
+    mup_enabled: bool = False
 
     @property
     def head_dim(self) -> int:
-        return self.hidden_size // self.num_heads
+        return self.attn_head_dim or self.hidden_size // self.num_heads
+
+    def window(self, layer: int) -> int:
+        """The attention window of ``layer`` in positions (0: none)."""
+        if self.trunk == "afmoe" and \
+                self.layer_types[layer] == "sliding_attention":
+            return self.sliding_window
+        return 0
 
     @classmethod
     def tiny(cls, **kw) -> "ModelConfig":

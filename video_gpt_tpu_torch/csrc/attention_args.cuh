@@ -73,8 +73,13 @@ struct InlineAttnArgs {
   int8_t* tile_map;   // [B, ceil(Lq/64), ceil(Lk/64)] tile classes (written)
   int* scratch;       // B (nq + nk) 8 + 2 B nq ints (written): the query-
                       // and key-tile summaries, each query tile's count of
-                      // non-empty key tiles, the launch order
+                      // non-empty key tiles, the launch order; under a
+                      // window B (nq + nk) 2 more: each tile's positions
   int map_only;       // 1: build the tile map and stop
+  const int* qpos;    // a sliding window's positions [B, Lq] and [B, Lk]
+  const int* kpos;    // (contiguous rows), read where window > 0
+  long long qpos_sb, kpos_sb;
+  int window;         // the window in positions (inline_mask.cuh); 0: none
 };
 
 // Must match _BiasBwdArgs in video_gpt_tpu_torch/ops/flash_attention.py.
@@ -137,8 +142,13 @@ struct InlineAttnBwdArgs {
   int8_t* tile_map;   // [B, ceil(Lq/64), ceil(Lk/64)] tile classes (written)
   int* scratch;       // 8 B (nq + nk) + 2 B (nq + nk) ints (written): the
                       // query- and key-tile summaries, the non-empty tiles
-                      // of each row and each column, the two launch orders
+                      // of each row and each column, the two launch orders;
+                      // under a window 2 B (nq + nk) more: tile positions
   int map_only;       // 1: build the tile map and stop
+  const int* qpos;    // a sliding window's positions [B, Lq] and [B, Lk]
+  const int* kpos;    // (contiguous rows), read where window > 0
+  long long qpos_sb, kpos_sb;
+  int window;         // the window in positions (inline_mask.cuh); 0: none
 };
 
 }  // namespace vgt

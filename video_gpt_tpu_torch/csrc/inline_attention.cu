@@ -102,8 +102,9 @@ constexpr int kInlineProducerRegs = 40;
 constexpr int kSmPerBlockSmem = 232448;  // a block's most dynamic smem
 constexpr int kSmSmem = 233472;          // an SM's, 1 KB of it per block
 
-// The shape of a block of C consumer warpgroups at padded head width DP.
-template <int DP, int C>
+// The shape of a block of C consumer warpgroups at padded head width DP;
+// kWin: under a sliding window (a stage carries the keys' positions too).
+template <int DP, int C, bool kWin = false>
 struct InlineCfg {
   static constexpr int kThreads = 128 * (1 + C);
   // two blocks an SM at one consumer, one otherwise; setmaxnreg moves
@@ -115,11 +116,13 @@ struct InlineCfg {
       (kLaunchRegs * (1 + C) - kInlineProducerRegs) / C / 8 * 8;
   static_assert(kConsumerRegs <= 256, "setmaxnreg takes at most 256");
   static constexpr int kTileBytes = kBlockK * DP * 2;  // K, V or a Q tile
-  // one stage: K, V (64-byte swizzle), the key metadata [3][64], the words
-  // (done flag, key tile, the consumers' classes 2 bits each), padded to
-  // keep every stage 1024-byte aligned
+  // one stage: K, V (64-byte swizzle), the key metadata [3][64] (and under
+  // a window the positions [64]), the words (done flag, key tile, the
+  // consumers' classes 2 bits each), padded to keep every stage 1024-byte
+  // aligned
+  static constexpr int kMetaVecs = kWin ? 4 : 3;
   static constexpr int kMetaOff = 2 * kTileBytes;
-  static constexpr int kWordsOff = kMetaOff + 3 * kBlockK * 4;
+  static constexpr int kWordsOff = kMetaOff + kMetaVecs * kBlockK * 4;
   static constexpr int kStageBytes = (kWordsOff + 16 + 1023) / 1024 * 1024;
   static constexpr int kQBytes = C * kTileBytes;
   static constexpr int kFixed = 1024 + kQBytes + (2 * kMaxStages + 1) * 8;
@@ -141,12 +144,13 @@ struct alignas(64) InlineMaps {
 // The producer warpgroup: the consumers' Q tiles, then every key tile that
 // some consumer sees, in order, through the ring; then a stage with the
 // done flag. Only warp 0 works (lane 0 issues).
-template <int DP, int C>
+template <int DP, int C, bool kWin>
 __device__ __forceinline__ void inline_producer(
     const InlineAttnArgs& a, const InlineMaps& maps, unsigned char* smem,
     uint64_t* full, uint64_t* empty, uint64_t* qbar, int b, int h, int qt0,
     int nc) {
-  using Cfg = InlineCfg<DP, C>;
+  using Cfg = InlineCfg<DP, C, kWin>;
+  constexpr int NM = Cfg::kMetaVecs;
   if (threadIdx.x >= 32) return;
   const int lane = threadIdx.x;
   const int nq = (a.lq + kBlockQ - 1) / kBlockQ;
@@ -190,21 +194,23 @@ __device__ __forceinline__ void inline_producer(
       const int k0 = (kt0 + j) * kBlockK;
       // partial for some consumer: a class of 1 (its low bit)
       const bool partial = (cls & 0x55) != 0;
-      int km[3][2];
+      int km[NM][2];
       if (partial) {  // loaded before the wait for a free stage
 #pragma unroll
-        for (int m = 0; m < 3; ++m)
+        for (int m = 0; m < NM; ++m)
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
             const int c = k0 + lane + 32 * e;
-            km[m][e] = c < a.lk ? a.km[m][b * a.km_sb[m] + c] : 0;
+            const int* src = m < 3 ? a.km[m] + b * a.km_sb[m]
+                                   : a.kpos + b * a.kpos_sb;
+            km[m][e] = c < a.lk ? src[c] : 0;
           }
       }
       unsigned char* st = acquire();
       if (partial) {
         int* kv = reinterpret_cast<int*>(st + Cfg::kMetaOff);
 #pragma unroll
-        for (int m = 0; m < 3; ++m)
+        for (int m = 0; m < NM; ++m)
 #pragma unroll
           for (int e = 0; e < 2; ++e)
             kv[m * kBlockK + lane + 32 * e] = km[m][e];
@@ -241,17 +247,22 @@ __device__ __forceinline__ void inline_producer(
 }
 
 // Consumer warpgroup w (query tile qt, rows 64 qt ..): drain the ring.
-template <int DP, int C>
+template <int DP, int C, bool kWin>
 __device__ __forceinline__ void inline_consumer(
     const InlineAttnArgs& a, unsigned char* smem, uint64_t* full,
     uint64_t* empty, uint64_t* qbar, int b, int h, int qt, int w) {
-  using Cfg = InlineCfg<DP, C>;
+  using Cfg = InlineCfg<DP, C, kWin>;
   constexpr int NO = DP / 8;
   const int tid = threadIdx.x & 127, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
   const int r0 = qt * kBlockQ + warp * 16 + g, r1 = r0 + 8;
   const QueryMeta qm0 = query_meta(a.qm, a.qm_sb, b, r0, a.lq);
   const QueryMeta qm1 = query_meta(a.qm, a.qm_sb, b, r1, a.lq);
+  int qp0 = 0, qp1 = 0;  // the rows' positions, under a window
+  if constexpr (kWin) {
+    qp0 = token_pos(a.qpos, a.qpos_sb, b, r0, a.lq);
+    qp1 = token_pos(a.qpos, a.qpos_sb, b, r1, a.lq);
+  }
   const bf16* qs =
       reinterpret_cast<const bf16*>(smem + Cfg::kQOff + w * Cfg::kTileBytes);
 
@@ -300,12 +311,18 @@ __device__ __forceinline__ void inline_consumer(
           const int2 vs = *reinterpret_cast<const int2*>(kv + c0);
           const int2 bl = *reinterpret_cast<const int2*>(kv + kBlockK + c0);
           const int2 ro = *reinterpret_cast<const int2*>(kv + 2 * kBlockK + c0);
+          int2 po{0, 0};
+          if constexpr (kWin)
+            po = *reinterpret_cast<const int2*>(kv + 3 * kBlockK + c0);
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
             const KeyMeta km = (e & 1) ? KeyMeta{vs.y, bl.y, ro.y}
                                        : KeyMeta{vs.x, bl.x, ro.x};
-            const bool vis = c0 + (e & 1) < valid &&
-                             inline_visible((e & 2) ? qm1 : qm0, km);
+            const bool vis =
+                c0 + (e & 1) < valid &&
+                inline_visible<kWin>((e & 2) ? qm1 : qm0, km,
+                                     (e & 2) ? qp1 : qp0,
+                                     (e & 1) ? po.y : po.x, a.window);
             s[4 * n + e] = vis ? s[4 * n + e] : -CUDART_INF_F;
           }
         }
@@ -395,13 +412,13 @@ __device__ __forceinline__ void inline_consumer(
   }
 }
 
-template <int DP, int C>
-__global__ void __launch_bounds__(InlineCfg<DP, C>::kThreads,
-                                  InlineCfg<DP, C>::kMinBlocks)
+template <int DP, int C, bool kWin>
+__global__ void __launch_bounds__(InlineCfg<DP, C, kWin>::kThreads,
+                                  InlineCfg<DP, C, kWin>::kMinBlocks)
     inline_attention_kernel(const __grid_constant__ InlineAttnArgs a,
                             const __grid_constant__ InlineMaps maps,
                             const int* order) {
-  using Cfg = InlineCfg<DP, C>;
+  using Cfg = InlineCfg<DP, C, kWin>;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = align1024(smem_raw);
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + Cfg::kBarOff);
@@ -426,12 +443,13 @@ __global__ void __launch_bounds__(InlineCfg<DP, C>::kThreads,
   const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
   if (wg == 0) {
     setmaxnreg_dec<kInlineProducerRegs>();
-    inline_producer<DP, C>(a, maps, smem, full, empty, qbar, b, h, qt0, nc);
+    inline_producer<DP, C, kWin>(a, maps, smem, full, empty, qbar, b, h, qt0,
+                                 nc);
   } else {
     setmaxnreg_inc<Cfg::kConsumerRegs>();
     if (wg - 1 < nc)
-      inline_consumer<DP, C>(a, smem, full, empty, qbar, b, h, qt0 + wg - 1,
-                             wg - 1);
+      inline_consumer<DP, C, kWin>(a, smem, full, empty, qbar, b, h,
+                                   qt0 + wg - 1, wg - 1);
   }
 }
 
@@ -463,15 +481,16 @@ namespace {
 // linkage, not a static of the template: those are process-wide unique
 // symbols, which a second copy of this library (a rebuilt one loaded
 // beside it) would share without having set its own.
-std::atomic<bool> smem_ready[4 * kMaxConsumers][kMaxDevices];
+std::atomic<bool> smem_ready[2 * 4 * kMaxConsumers][kMaxDevices];
 }  // namespace
 
-template <int DP, int C>
+template <int DP, int C, bool kWin>
 int launch_inline(const InlineAttnArgs* a, const InlineMaps& maps,
                   const int* order, cudaStream_t s) {
-  using Cfg = InlineCfg<DP, C>;
-  auto kernel = inline_attention_kernel<DP, C>;
-  std::atomic<bool>* ready = smem_ready[(DP / 32 - 1) * kMaxConsumers + C - 1];
+  using Cfg = InlineCfg<DP, C, kWin>;
+  auto kernel = inline_attention_kernel<DP, C, kWin>;
+  std::atomic<bool>* ready =
+      smem_ready[(kWin * 4 + DP / 32 - 1) * kMaxConsumers + C - 1];
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -487,19 +506,28 @@ int launch_inline(const InlineAttnArgs* a, const InlineMaps& maps,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int DP, bool kWin>
+int launch_inline_c(const InlineAttnArgs* a, const InlineMaps& maps,
+                    const int* order, int c, cudaStream_t s) {
+  switch (c) {
+    case 1: return launch_inline<DP, 1, kWin>(a, maps, order, s);
+    case 2: return launch_inline<DP, 2, kWin>(a, maps, order, s);
+    case 3:
+      if constexpr (DP > 96) return static_cast<int>(cudaErrorInvalidValue);
+      else return launch_inline<DP, 3, kWin>(a, maps, order, s);
+    default:
+      if constexpr (DP > 32) return static_cast<int>(cudaErrorInvalidValue);
+      else return launch_inline<DP, 4, kWin>(a, maps, order, s);
+  }
+}
+
+// The windowless instances (every launch but a sliding layer's) and the
+// windowed ones.
 template <int DP>
 int launch_inline_dp(const InlineAttnArgs* a, const InlineMaps& maps,
                      const int* order, int c, cudaStream_t s) {
-  switch (c) {
-    case 1: return launch_inline<DP, 1>(a, maps, order, s);
-    case 2: return launch_inline<DP, 2>(a, maps, order, s);
-    case 3:
-      if constexpr (DP > 96) return static_cast<int>(cudaErrorInvalidValue);
-      else return launch_inline<DP, 3>(a, maps, order, s);
-    default:
-      if constexpr (DP > 32) return static_cast<int>(cudaErrorInvalidValue);
-      else return launch_inline<DP, 4>(a, maps, order, s);
-  }
+  return a->window > 0 ? launch_inline_c<DP, true>(a, maps, order, c, s)
+                       : launch_inline_c<DP, false>(a, maps, order, c, s);
 }
 
 }  // namespace vgt

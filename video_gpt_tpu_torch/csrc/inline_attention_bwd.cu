@@ -109,17 +109,46 @@ __global__ void __launch_bounds__(32 * kDeltaWarps)
   if (lane == 0) a.delta[row] = s;
 }
 
-// dK/dV kernel shared memory: K, V, the key tile's metadata; per stage Q,
-// dO, the query tile's lse and delta and its four metadata vectors; the
-// list of query tiles.
-template <int DP>
-__host__ __device__ constexpr int dkdv_stage() {
-  return 2 * bwd_tile<DP>() * 2 + 2 * kBlockQ * 4 + 4 * kBlockQ * 4;
+// The metadata vectors a key tile and a query tile carry: three and four,
+// and under a window (kWin) the positions besides.
+template <bool kWin>
+__host__ __device__ constexpr int key_vecs() {
+  return kWin ? 4 : 3;
 }
-template <int DP>
+template <bool kWin>
+__host__ __device__ constexpr int query_vecs() {
+  return kWin ? 5 : 4;
+}
+
+// Row b of key metadata vector m (3: the positions) and of query metadata
+// vector m (4: the positions).
+template <bool kWin>
+__device__ __forceinline__ const int* key_vec(const InlineAttnBwdArgs& a,
+                                              int m, int b) {
+  if constexpr (kWin)
+    if (m == 3) return a.kpos + b * a.kpos_sb;
+  return a.km[m] + b * a.km_sb[m];
+}
+template <bool kWin>
+__device__ __forceinline__ const int* query_vec(const InlineAttnBwdArgs& a,
+                                                int m, int b) {
+  if constexpr (kWin)
+    if (m == 4) return a.qpos + b * a.qpos_sb;
+  return a.qm[m] + b * a.qm_sb[m];
+}
+
+// dK/dV kernel shared memory: K, V, the key tile's metadata; per stage Q,
+// dO, the query tile's lse and delta and its metadata vectors; the list of
+// query tiles.
+template <int DP, bool kWin>
+__host__ __device__ constexpr int dkdv_stage() {
+  return 2 * bwd_tile<DP>() * 2 + 2 * kBlockQ * 4 +
+         query_vecs<kWin>() * kBlockQ * 4;
+}
+template <int DP, bool kWin>
 __host__ __device__ constexpr int dkdv_smem_bytes(int nq) {
-  return 2 * bwd_tile<DP>() * 2 + 3 * kBlockK * 4 + kStages * dkdv_stage<DP>() +
-         nq * 4;
+  return 2 * bwd_tile<DP>() * 2 + key_vecs<kWin>() * kBlockK * 4 +
+         kStages * dkdv_stage<DP, kWin>() + nq * 4;
 }
 
 // 3. dK/dV (K7b) of one 64-key tile of one kv head; warp w (of a
@@ -127,21 +156,22 @@ __host__ __device__ constexpr int dkdv_smem_bytes(int nq) {
 // tile of the map's column), the transposed products, rows = keys:
 //   S^T = K.Q^T, P^T = exp2(S^T scale_log2 - lse log2e) where visible,
 //   dV += P^T.dO, dP^T = V.dO^T, dS^T = P^T (dP^T - di) scale, dK += dS^T.Q
-// At padded head width DP; kPadded: head_dim < DP.
-template <int DP, bool kPadded>
+// At padded head width DP; kPadded: head_dim < DP; kWin: under a window.
+template <int DP, bool kPadded, bool kWin>
 __global__ void __launch_bounds__(dkdv_split<DP>() ? 2 * kThreads : kThreads)
     inline_attention_dkdv_kernel(const InlineAttnBwdArgs a, const int* order) {
   static_assert(kBlockQ == kBlockK, "Q and K tiles share kTile");
   constexpr bool kSplit = dkdv_split<DP>();
   constexpr int NT = kSplit ? 2 * kThreads : kThreads;
   constexpr int NO = DP / 8;
+  constexpr int NK = key_vecs<kWin>(), NQ = query_vecs<kWin>();
   constexpr int kTile = bwd_tile<DP>();
-  constexpr int kDkdvStage = dkdv_stage<DP>();
+  constexpr int kDkdvStage = dkdv_stage<DP, kWin>();
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* ks = reinterpret_cast<bf16*>(smem);
   bf16* vs = ks + kTile;
-  int* kmeta = reinterpret_cast<int*>(vs + kTile);  // [3][64]
-  unsigned char* stages = reinterpret_cast<unsigned char*>(kmeta + 3 * kBlockK);
+  int* kmeta = reinterpret_cast<int*>(vs + kTile);  // [NK][64]
+  unsigned char* stages = reinterpret_cast<unsigned char*>(kmeta + NK * kBlockK);
   int* list = reinterpret_cast<int*>(stages + kStages * kDkdvStage);
 
   const int nq = (a.lq + kBlockQ - 1) / kBlockQ;
@@ -162,10 +192,10 @@ __global__ void __launch_bounds__(dkdv_split<DP>() ? 2 * kThreads : kThreads)
   async_copy_tile_dp<kBlockK, NT, DP, kPadded>(
       vs, static_cast<const bf16*>(a.v) + b * a.v_sb + hk * a.v_sh +
               k0 * a.v_sl, a.v_sl, kvalid, a.head_dim, tid);
-  for (int c = tid; c < 3 * kBlockK; c += NT) {
+  for (int c = tid; c < NK * kBlockK; c += NT) {
     const int m = c / kBlockK, j = c % kBlockK;
     const bool ok = j < kvalid;
-    async_copy4(kmeta + c, a.km[m] + b * a.km_sb[m] + (ok ? k0 + j : 0), ok);
+    async_copy4(kmeta + c, key_vec<kWin>(a, m, b) + (ok ? k0 + j : 0), ok);
   }
   async_commit();
   const int n = gather_tiles(
@@ -179,7 +209,7 @@ __global__ void __launch_bounds__(dkdv_split<DP>() ? 2 * kThreads : kThreads)
     dos = qs + kTile;
     lse = reinterpret_cast<float*>(dos + kTile);
     dl = lse + kBlockQ;
-    qmeta = reinterpret_cast<int*>(dl + kBlockQ);  // [4][64]
+    qmeta = reinterpret_cast<int*>(dl + kBlockQ);  // [NQ][64]
   };
   auto prefetch = [&](int i) {
     bf16 *qs, *dos;
@@ -204,10 +234,10 @@ __global__ void __launch_bounds__(dkdv_split<DP>() ? 2 * kThreads : kThreads)
       async_copy4(lse + c, src + (ok ? row0 + r : 0), ok);
     }
     if ((e & 3) == kTilePartial) {
-      for (int c = tid; c < 4 * kBlockQ; c += NT) {
+      for (int c = tid; c < NQ * kBlockQ; c += NT) {
         const int m = c / kBlockQ, j = c % kBlockQ;
         const bool ok = j < qvalid;
-        async_copy4(qmeta + c, a.qm[m] + b * a.qm_sb[m] + (ok ? q0 + j : 0),
+        async_copy4(qmeta + c, query_vec<kWin>(a, m, b) + (ok ? q0 + j : 0),
                     ok);
       }
     }
@@ -261,9 +291,14 @@ __global__ void __launch_bounds__(dkdv_split<DP>() ? 2 * kThreads : kThreads)
     const bool partial = (e & 3) == kTilePartial;
     const int qvalid = min(kBlockQ, a.lq - q0);
     KeyMeta km0{}, km1{};
+    int kp0 = 0, kp1 = 0;
     if (partial) {
       km0 = KeyMeta{kmeta[kr0], kmeta[kBlockK + kr0], kmeta[2 * kBlockK + kr0]};
       km1 = KeyMeta{kmeta[kr1], kmeta[kBlockK + kr1], kmeta[2 * kBlockK + kr1]};
+      if constexpr (kWin) {
+        kp0 = kmeta[3 * kBlockK + kr0];
+        kp1 = kmeta[3 * kBlockK + kr1];
+      }
     }
 #pragma unroll
     for (int j = 0; j < 32; ++j) {
@@ -274,7 +309,9 @@ __global__ void __launch_bounds__(dkdv_split<DP>() ? 2 * kThreads : kThreads)
         const QueryMeta qm{qmeta[qc], qmeta[kBlockQ + qc],
                            qmeta[2 * kBlockQ + qc], qmeta[3 * kBlockQ + qc]};
         ok = (hi ? kr1 : kr0) < kvalid && qc < qvalid &&
-             inline_visible(qm, hi ? km1 : km0);
+             inline_visible<kWin>(qm, hi ? km1 : km0,
+                                  kWin ? qmeta[4 * kBlockQ + qc] : 0,
+                                  hi ? kp1 : kp0, a.window);
       }
       const float p =
           ok ? exp2f(st[j] * a.scale_log2 - lse[qc] * kLog2e) : 0.f;
@@ -358,15 +395,15 @@ __global__ void __launch_bounds__(dkdv_split<DP>() ? 2 * kThreads : kThreads)
   }
 }
 
-// dQ kernel shared memory: Q, dO; per stage K, V and the key tile's three
+// dQ kernel shared memory: Q, dO; per stage K, V and the key tile's
 // metadata vectors; the list of key tiles.
-template <int DP>
+template <int DP, bool kWin>
 __host__ __device__ constexpr int dq_stage() {
-  return 2 * bwd_tile<DP>() * 2 + 3 * kBlockK * 4;
+  return 2 * bwd_tile<DP>() * 2 + key_vecs<kWin>() * kBlockK * 4;
 }
-template <int DP>
+template <int DP, bool kWin>
 __host__ __device__ constexpr int dq_smem_bytes(int nk) {
-  return 2 * bwd_tile<DP>() * 2 + kStages * dq_stage<DP>() + nk * 4;
+  return 2 * bwd_tile<DP>() * 2 + kStages * dq_stage<DP, kWin>() + nk * 4;
 }
 
 // 4. dQ (K7a) of one 64-row query tile of one head; warp w owns rows
@@ -374,12 +411,13 @@ __host__ __device__ constexpr int dq_smem_bytes(int nk) {
 // ring:
 //   S = Q.K^T, P = exp2(S scale_log2 - lse log2e) where visible,
 //   dP = dO.V^T, dS = P (dP - di) scale, dQ += dS.K
-template <int DP, bool kPadded>
+template <int DP, bool kPadded, bool kWin>
 __global__ void __launch_bounds__(kThreads)
     inline_attention_dq_kernel(const InlineAttnBwdArgs a, const int* order) {
   constexpr int NO = DP / 8;
+  constexpr int NK = key_vecs<kWin>();
   constexpr int kTile = bwd_tile<DP>();
-  constexpr int kDqStage = dq_stage<DP>();
+  constexpr int kDqStage = dq_stage<DP, kWin>();
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* qs = reinterpret_cast<bf16*>(smem);
   bf16* dos = qs + kTile;
@@ -417,10 +455,10 @@ __global__ void __launch_bounds__(kThreads)
         kt + kTile, vp + k0 * a.v_sl, a.v_sl, valid, a.head_dim, tid);
     if ((e & 3) == kTilePartial) {
       int* kmeta = reinterpret_cast<int*>(kt + 2 * kTile);
-      for (int c = tid; c < 3 * kBlockK; c += kThreads) {
+      for (int c = tid; c < NK * kBlockK; c += kThreads) {
         const int m = c / kBlockK, j = c % kBlockK;
         const bool ok = j < valid;
-        async_copy4(kmeta + c, a.km[m] + b * a.km_sb[m] + (ok ? k0 + j : 0),
+        async_copy4(kmeta + c, key_vec<kWin>(a, m, b) + (ok ? k0 + j : 0),
                     ok);
       }
     }
@@ -435,6 +473,11 @@ __global__ void __launch_bounds__(kThreads)
   const long long row0 = (static_cast<long long>(b) * a.heads + h) * a.lq;
   const QueryMeta qm0 = query_meta(a.qm, a.qm_sb, b, r0, a.lq);
   const QueryMeta qm1 = query_meta(a.qm, a.qm_sb, b, r1, a.lq);
+  int qp[2] = {0, 0};  // the rows' positions, under a window
+  if constexpr (kWin) {
+    qp[0] = token_pos(a.qpos, a.qpos_sb, b, r0, a.lq);
+    qp[1] = token_pos(a.qpos, a.qpos_sb, b, r1, a.lq);
+  }
   const float dl[2] = {r0 < a.lq ? a.delta[row0 + r0] : 0.f,
                        r1 < a.lq ? a.delta[row0 + r1] : 0.f};
   const float ls[2] = {r0 < a.lq ? a.lse[row0 + r0] * kLog2e : 0.f,
@@ -485,7 +528,10 @@ __global__ void __launch_bounds__(kThreads)
       if (partial) {
         const KeyMeta km{kmeta[col], kmeta[kBlockK + col],
                          kmeta[2 * kBlockK + col]};
-        ok = col < kvalid && inline_visible(hi ? qm1 : qm0, km);
+        ok = col < kvalid &&
+             inline_visible<kWin>(hi ? qm1 : qm0, km, qp[hi],
+                                  kWin ? kmeta[3 * kBlockK + col] : 0,
+                                  a.window);
       }
       const float p = ok ? exp2f(s[j] * a.scale_log2 - ls[hi]) : 0.f;
       s[j] = p * (dp[j] - dl[hi]) * a.scale;
@@ -521,34 +567,46 @@ __global__ void __launch_bounds__(kThreads)
 // dK/dV over the key tiles in `col_order`, then dQ over the query tiles in
 // `row_order`, at padded head width DP; returns the first nonzero
 // cudaGetLastError() (0 = both launched).
-template <int DP, bool kPadded>
-int launch_inline_bwd(const InlineAttnBwdArgs* a, const int* row_order,
-                      const int* col_order, cudaStream_t s) {
+template <int DP, bool kPadded, bool kWin>
+int launch_inline_bwd_w(const InlineAttnBwdArgs* a, const int* row_order,
+                        const int* col_order, cudaStream_t s) {
   const long long bq = static_cast<long long>(a->batch) *
                        ((a->lq + kBlockQ - 1) / kBlockQ);
   const long long bk = static_cast<long long>(a->batch) *
                        ((a->lk + kBlockK - 1) / kBlockK);
-  int smem = dkdv_smem_bytes<DP>((a->lq + kBlockQ - 1) / kBlockQ);
+  int smem = dkdv_smem_bytes<DP, kWin>((a->lq + kBlockQ - 1) / kBlockQ);
   cudaError_t err = cudaFuncSetAttribute(
-      inline_attention_dkdv_kernel<DP, kPadded>,
+      inline_attention_dkdv_kernel<DP, kPadded, kWin>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  inline_attention_dkdv_kernel<DP, kPadded>
+  inline_attention_dkdv_kernel<DP, kPadded, kWin>
       <<<dim3(static_cast<unsigned>(bk), a->kv_heads),
          dkdv_split<DP>() ? 2 * kThreads : kThreads, smem, s>>>(*a,
                                                                col_order);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
 
-  smem = dq_smem_bytes<DP>((a->lk + kBlockK - 1) / kBlockK);
-  err = cudaFuncSetAttribute(inline_attention_dq_kernel<DP, kPadded>,
+  smem = dq_smem_bytes<DP, kWin>((a->lk + kBlockK - 1) / kBlockK);
+  err = cudaFuncSetAttribute(inline_attention_dq_kernel<DP, kPadded, kWin>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  inline_attention_dq_kernel<DP, kPadded>
+  inline_attention_dq_kernel<DP, kPadded, kWin>
       <<<dim3(static_cast<unsigned>(bq), a->heads), kThreads, smem, s>>>(
           *a, row_order);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The windowless instances (every launch but a sliding layer's) and the
+// windowed ones.
+template <int DP, bool kPadded>
+int launch_inline_bwd(const InlineAttnBwdArgs* a, const int* row_order,
+                      const int* col_order, cudaStream_t s) {
+  return a->window > 0
+             ? launch_inline_bwd_w<DP, kPadded, true>(a, row_order, col_order,
+                                                      s)
+             : launch_inline_bwd_w<DP, kPadded, false>(a, row_order,
+                                                       col_order, s);
 }
 
 }  // namespace vgt

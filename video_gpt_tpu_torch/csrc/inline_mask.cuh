@@ -27,12 +27,26 @@ struct KeyMeta {
 
 // Clean and causal keys from vis_start on; noisy keys only within the
 // query's own frame-block, gated by role; a pad row sees every key. The
-// callers exclude keys past Lk themselves.
+// callers exclude keys past Lk themselves. kWindow: a sliding window over
+// the positions besides (a sliding layer of the AFMoE trunk): a non-pad
+// query at position qpos sees only the keys at kpos > qpos - window. The
+// instance without it is the rule alone, as every other launch runs it.
+template <bool kWindow = false>
 __device__ __forceinline__ bool inline_visible(const QueryMeta& q,
-                                               const KeyMeta& k) {
-  return q.index >= k.vis_start ||
-         (k.block >= 0 && k.block == q.block && q.offset >= k.role) ||
-         q.pad > 0;
+                                               const KeyMeta& k, int qpos = 0,
+                                               int kpos = 0, int window = 0) {
+  const bool vis =
+      q.index >= k.vis_start ||
+      (k.block >= 0 && k.block == q.block && q.offset >= k.role) ||
+      q.pad > 0;
+  if constexpr (kWindow) return vis && (q.pad > 0 || qpos - kpos < window);
+  return vis;
+}
+
+// The position of query row r (0 past Lq) or key column c of batch b.
+__device__ __forceinline__ int token_pos(const int* pos, long long sb, int b,
+                                         int i, int n) {
+  return i < n ? pos[b * sb + i] : 0;
 }
 
 // Query row r of batch b; a row past Lq sees no key, so the tile rows that
@@ -73,6 +87,33 @@ __device__ __forceinline__ void load_key_meta(KeyMeta* dst,
     dst[i] = key_meta(m, sb, b, start + i, lk);
 }
 
+// Under a window (a.window > 0), the map's classes of the rule with the
+// window: the positions' range of each tile (`pos_range_kernel`, into
+// `qpr`, then the key tiles' after the B nq query tiles'), then the classes
+// (`window_tile_map_kernel`) with each row's (and, with `col_counts`, each
+// column's) count of non-empty tiles. Returns the first nonzero
+// cudaGetLastError() (0 = all launched).
+template <class Args>
+inline int launch_window_tile_map(const Args& a, cudaStream_t s,
+                                  const QuerySummary* qsum,
+                                  const KeySummary* ksum, PosRange* qpr,
+                                  int* counts, int* col_counts) {
+  const int nq = (a.lq + kBlockQ - 1) / kBlockQ;
+  const int nk = (a.lk + kBlockK - 1) / kBlockK;
+  const long long tiles = static_cast<long long>(a.batch) * (nq + nk);
+  PosRange* kpr = qpr + static_cast<long long>(a.batch) * nq;
+  pos_range_kernel<kBlockQ, kBlockK, Args>
+      <<<static_cast<unsigned>((tiles + kSummaryWarps - 1) / kSummaryWarps),
+         32 * kSummaryWarps, 0, s>>>(a, qpr, kpr);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  window_tile_map_kernel<kBlockQ, kBlockK>
+      <<<dim3(nq, a.batch), kMapThreads, 0, s>>>(
+          qsum, ksum, qpr, kpr, a.window, a.lq, a.lk, a.tile_map, counts,
+          col_counts);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // The tile map of the metadata rule at the forward kernels' tiles (K6 and
 // the fp32 kernel's inline mask), launched on `s`: the per-tile summaries
 // (one O(L) pass), every (query tile, key tile) class into a.tile_map with
@@ -102,10 +143,17 @@ inline int launch_inline_tile_map(const Args& a, cudaStream_t s,
          32 * kSummaryWarps, 0, s>>>(a, qsum, ksum);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  meta_tile_map_kernel<kBlockQ, kBlockK>
-      <<<dim3(nq, a.batch), kMapThreads, 0, s>>>(qsum, ksum, a.lq, a.lk,
-                                                 a.tile_map, counts, nullptr);
-  err = cudaGetLastError();
+  if (a.window > 0) {
+    PosRange* qpr = reinterpret_cast<PosRange*>(
+        ord + static_cast<long long>(a.batch) * nq);
+    err = static_cast<cudaError_t>(launch_window_tile_map(
+        a, s, qsum, ksum, qpr, counts, nullptr));
+  } else {
+    meta_tile_map_kernel<kBlockQ, kBlockK>
+        <<<dim3(nq, a.batch), kMapThreads, 0, s>>>(
+            qsum, ksum, a.lq, a.lk, a.tile_map, counts, nullptr);
+    err = cudaGetLastError();
+  }
   if (err != cudaSuccess) return static_cast<int>(err);
   const int ng = (nq + group - 1) / group;
   if (group > 1) {
@@ -156,10 +204,16 @@ inline int launch_inline_bwd_tile_map(const Args& a, cudaStream_t s,
          32 * kSummaryWarps, 0, s>>>(a, qsum, ksum);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  meta_tile_map_kernel<kBlockQ, kBlockK>
-      <<<dim3(nq, a.batch), kMapThreads, 0, s>>>(
-          qsum, ksum, a.lq, a.lk, a.tile_map, row_counts, col_counts);
-  err = cudaGetLastError();
+  if (a.window > 0) {
+    err = static_cast<cudaError_t>(launch_window_tile_map(
+        a, s, qsum, ksum, reinterpret_cast<PosRange*>(cols + bk), row_counts,
+        col_counts));
+  } else {
+    meta_tile_map_kernel<kBlockQ, kBlockK>
+        <<<dim3(nq, a.batch), kMapThreads, 0, s>>>(
+            qsum, ksum, a.lq, a.lk, a.tile_map, row_counts, col_counts);
+    err = cudaGetLastError();
+  }
   if (err != cudaSuccess) return static_cast<int>(err);
   const int order_smem = ((nq > nk ? nq : nk) + 1) *
                          static_cast<int>(sizeof(int));

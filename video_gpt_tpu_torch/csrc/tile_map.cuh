@@ -204,6 +204,101 @@ __global__ void __launch_bounds__(kMapThreads)
   if (threadIdx.x == 0) counts[b * nq + qt] = total;
 }
 
+// ---- the window (a sliding layer's positions) --------------------------------
+
+// A tile's positions: over the non-pad real rows of a query tile, over the
+// real keys of a key tile (kIntMax / kIntMin: none).
+struct PosRange {
+  int lo, hi;
+};
+
+// One warp per tile, the query tiles of every batch row, then the key
+// tiles, as tile_summary_kernel walks them: each tile's PosRange from
+// a.qpos / a.kpos (and the query side's is_pad, a.qm[3]).
+template <int TQ, int TK, class Args>
+__global__ void __launch_bounds__(32 * kSummaryWarps)
+    pos_range_kernel(const Args a, PosRange* qpr, PosRange* kpr) {
+  const int nq = (a.lq + TQ - 1) / TQ, nk = (a.lk + TK - 1) / TK;
+  const int tile = blockIdx.x * kSummaryWarps + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (tile >= a.batch * (nq + nk)) return;
+  int lo = kIntMax, hi = kIntMin;
+  if (tile < a.batch * nq) {
+    const int b = tile / nq, r0 = (tile % nq) * TQ;
+    for (int r = r0 + lane; r < min(r0 + TQ, a.lq); r += 32) {
+      if (a.qm[3][b * a.qm_sb[3] + r] > 0) continue;  // a pad row: any key
+      const int p = a.qpos[b * a.qpos_sb + r];
+      lo = min(lo, p);
+      hi = max(hi, p);
+    }
+  } else {
+    const int t = tile - a.batch * nq;
+    const int b = t / nk, c0 = (t % nk) * TK;
+    for (int c = c0 + lane; c < min(c0 + TK, a.lk); c += 32) {
+      const int p = a.kpos[b * a.kpos_sb + c];
+      lo = min(lo, p);
+      hi = max(hi, p);
+    }
+  }
+  const PosRange r{warp_min(lo), warp_max(hi)};
+  if (lane == 0) {
+    if (tile < a.batch * nq)
+      qpr[tile] = r;
+    else
+      kpr[tile - a.batch * nq] = r;
+  }
+}
+
+// The class of a tile pair under the rule and a window: the rule's class,
+// made empty where no non-pad row is within the window of any key (and no
+// row is a pad row, which sees every key), and partial where a full tile
+// holds a pair outside it.
+__device__ __forceinline__ int8_t classify_window(const QuerySummary& q,
+                                                  const KeySummary& k,
+                                                  bool inside,
+                                                  const PosRange& qr,
+                                                  const PosRange& kr,
+                                                  int window) {
+  const int8_t c = classify_meta(q, k, inside);
+  if (c == kTileEmpty) return c;
+  if (!q.pad_any && static_cast<long long>(qr.lo) - kr.hi >= window)
+    return kTileEmpty;
+  if (c == kTileFull && static_cast<long long>(qr.hi) - kr.lo >= window)
+    return kTilePartial;
+  return c;
+}
+
+// meta_tile_map_kernel's map, counts and column counts, under a window.
+template <int TQ, int TK>
+__global__ void __launch_bounds__(kMapThreads)
+    window_tile_map_kernel(const QuerySummary* qsum, const KeySummary* ksum,
+                           const PosRange* qpr, const PosRange* kpr,
+                           int window, int lq, int lk, int8_t* map,
+                           int* counts, int* col_counts) {
+  const int nq = (lq + TQ - 1) / TQ, nk = (lk + TK - 1) / TK;
+  const int b = blockIdx.y, qt = blockIdx.x;
+  const QuerySummary q = qsum[b * nq + qt];
+  const PosRange qr = qpr[b * nq + qt];
+  const bool q_inside = (qt + 1) * TQ <= lq;
+  int8_t* row = map + (static_cast<long long>(b) * nq + qt) * nk;
+  int n = 0;
+  for (int kt = threadIdx.x; kt < nk; kt += kMapThreads) {
+    const int8_t cls =
+        classify_window(q, ksum[b * nk + kt], q_inside && (kt + 1) * TK <= lk,
+                        qr, kpr[b * nk + kt], window);
+    row[kt] = cls;
+    n += cls != kTileEmpty;
+    if (col_counts != nullptr && cls != kTileEmpty)
+      atomicAdd(&col_counts[b * nk + kt], 1);
+  }
+  __shared__ int total;
+  if (threadIdx.x == 0) total = 0;
+  __syncthreads();
+  atomicAdd(&total, n);
+  __syncthreads();
+  if (threadIdx.x == 0) counts[b * nq + qt] = total;
+}
+
 // One block per (batch row b, group of `group` consecutive query tiles,
 // the last group possibly shorter): the count of key tiles that some query
 // tile of the group does not call empty, the key tiles that a block of K6

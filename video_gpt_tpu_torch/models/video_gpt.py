@@ -47,6 +47,7 @@ from ..ops.flash_attention import DecodeMask, bias_map, precompute_bias
 from ..parallel.mesh import (DATA_AXIS, PIPE_AXIS, SEQ_AXIS, axis_size,
                              gather_params)
 from ..utils.profiling import annotate
+from .afmoe import AfmoeDecoder, afmoe_biases
 from .embedders import (FinalLayer, PatchEmbed, TimestepEmbedder,
                         crop_pos_embed, sincos_2d_pos_embed, unpatchify)
 from .phi3 import KVCache, Phi3Decoder
@@ -172,7 +173,8 @@ class VideoGPT(nn.Module):
             self.input_final_layer = nn.Linear(
                 d, cfg.patch_size ** 2 * cfg.in_channels, **kw)
             self.input_final_layer.zero_init = True
-        self.llm = Phi3Decoder(cfg, mesh=mesh, **kw)
+        trunk = AfmoeDecoder if cfg.trunk == "afmoe" else Phi3Decoder
+        self.llm = trunk(cfg, mesh=mesh, **kw)
         self._pos_tables: Dict[tuple, torch.Tensor] = {}
         self._whole_params = False
 
@@ -218,6 +220,9 @@ class VideoGPT(nn.Module):
                 t.zero_()
             if whole is not None and dst is not None:
                 dst.copy_(part(name, t))
+        for name, buf in self.named_buffers():
+            if name.endswith("expert_bias"):  # held at zero, untrained
+                buf.zero_()
         return self
 
     # ---- embedding assembly ------------------------------------------------
@@ -316,7 +321,9 @@ class VideoGPT(nn.Module):
                 finally:
                     self._whole_params = False
             emb = self._assemble(batch, noisy_latents, t, clean_latents)
-            if bias is None:
+            if bias is None and self.cfg.trunk == "afmoe":
+                bias = afmoe_biases(self.cfg, batch.meta, batch.pos_ids)
+            elif bias is None:
                 bias = maybe_bias(self.cfg, batch.meta, batch.meta,
                                   self.llm.mesh)
             hidden, _ = self.llm(emb, batch.pos_ids, batch.meta, batch.meta,

@@ -54,22 +54,42 @@ class AttnMeta(NamedTuple):
         return self.cols(slice(-tail_len, None))
 
 
-def visibility(q: AttnMeta, k: AttnMeta) -> torch.Tensor:
+class Window(NamedTuple):
+    """A sliding window over the layout's positions (``pos_ids``), on top
+    of the frame-block rule: key k stays visible to a non-pad query q only
+    where q_pos - k_pos < size. A noisy frame shares its positions with its
+    clean copy, so the window covers the same frames in training and in
+    serving. The positions ride beside :class:`AttnMeta`, whose seven
+    fields are the JAX package's."""
+
+    size: int
+    q_pos: torch.Tensor  # [B, Lq] int32
+    k_pos: torch.Tensor  # [B, Lk] int32
+
+
+def visibility(q: AttnMeta, k: AttnMeta,
+               window: Optional[Window] = None) -> torch.Tensor:
     """[B, Lq, Lk] bool: may query q attend key k. Pad rows attend
     everything; clean/causal keys from ``vis_start``; noisy keys only within
-    the same frame-block, gated by role."""
+    the same frame-block, gated by role; with a ``window``, only keys
+    within its positions."""
     causal = q.index[:, :, None] >= k.vis_start[:, None, :]
     noisy = ((k.noisy_block[:, None, :] >= 0)
              & (k.noisy_block[:, None, :] == q.q_block[:, :, None])
              & (q.q_offset[:, :, None] >= k.noisy_role[:, None, :]))
     pad_row = q.is_pad[:, :, None] > 0
-    return causal | noisy | pad_row
+    vis = causal | noisy | pad_row
+    if window is None or window.size <= 0:
+        return vis
+    near = (window.q_pos[:, :, None] - window.k_pos[:, None, :]) < window.size
+    return vis & (near | pad_row)
 
 
 def attention_bias(q: AttnMeta, k: AttnMeta,
-                   dtype: torch.dtype = torch.float32) -> torch.Tensor:
+                   dtype: torch.dtype = torch.float32,
+                   window: Optional[Window] = None) -> torch.Tensor:
     """Additive [B, 1, Lq, Lk] bias: 0 where visible, finfo.min where not."""
-    vis = visibility(q, k)
+    vis = visibility(q, k, window)
     neg = torch.tensor(torch.finfo(dtype).min, dtype=dtype, device=vis.device)
     return torch.where(vis, torch.zeros((), dtype=dtype, device=vis.device),
                        neg)[:, None]
@@ -95,7 +115,8 @@ def mha_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-           q_meta: AttnMeta, k_meta: AttnMeta, bias=None) -> torch.Tensor:
+           q_meta: AttnMeta, k_meta: AttnMeta, bias=None,
+           window: Optional[Window] = None) -> torch.Tensor:
     """Metadata-masked attention dispatch; q [B,Lq,H,D], k/v [B,Lk,Hkv,D].
 
     ``bias`` is a ``DecodeMask`` (columnar per-key rank: the decode kernel,
@@ -104,15 +125,19 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     backward is K9, over the same map), or None: the metadata-inline
     kernel K6 evaluates the rule from ``q_meta``/``k_meta`` per tile
     (differentiable: its backward is K7). Each kernel's wrapper runs its
-    plain version on CPU tensors.
+    plain version on CPU tensors. A ``window`` narrows the rule: K6/K7
+    evaluate it with the metadata; a bias must have been built with it
+    (``precompute_bias(..., window)``); the decode kernels take none.
     """
     from .flash_attention import (DecodeMask, flash_mha, flash_mha_decode,
                                   flash_mha_inline)
     if isinstance(bias, DecodeMask):
+        if window is not None:
+            raise ValueError("the decode kernels (K1/K2) take no window")
         return flash_mha_decode(q, k, v, bias)
     if bias is not None:
         return flash_mha(q, k, v, bias)
-    return flash_mha_inline(q, k, v, q_meta, k_meta)
+    return flash_mha_inline(q, k, v, q_meta, k_meta, window=window)
 
 
 def attend_decode_split(q: torch.Tensor, k_cache: torch.Tensor,

@@ -86,7 +86,7 @@ from typing import NamedTuple, Optional, Sequence
 import torch
 
 from . import _cuda
-from .attention import AttnMeta
+from .attention import AttnMeta, Window
 
 BF16_NEG = float(torch.finfo(torch.bfloat16).min) * 0.5
 LOG2E = 1.4426950408889634
@@ -119,9 +119,11 @@ class DecodeMask(NamedTuple):
 
 
 def _padded_visibility(q_meta: AttnMeta, k_meta: AttnMeta, lqp: int,
-                       lkp: int) -> torch.Tensor:
+                       lkp: int, window: Optional[Window] = None
+                       ) -> torch.Tensor:
     """[B, Lqp, Lkp] bool; padded queries act as pad rows over real keys,
-    padded keys are never visible."""
+    padded keys are never visible. A ``window`` hides the keys at
+    q_pos - k_pos >= its size from the non-pad queries."""
     lq = q_meta.index.shape[1]
     lk = k_meta.vis_start.shape[1]
 
@@ -136,18 +138,24 @@ def _padded_visibility(q_meta: AttnMeta, k_meta: AttnMeta, lqp: int,
     vis = padk(k_meta.vis_start, NEVER)
     k_blk, k_role = padk(k_meta.noisy_block, -1), padk(k_meta.noisy_role, 0)
     col = torch.arange(lkp, device=vis.device)[None, None, :]
-    return ((q_idx >= vis)
-            | ((k_blk >= 0) & (k_blk == q_blk) & (q_off >= k_role))
-            | ((q_pad > 0) & (col < lk)))
+    out = ((q_idx >= vis)
+           | ((k_blk >= 0) & (k_blk == q_blk) & (q_off >= k_role))
+           | ((q_pad > 0) & (col < lk)))
+    if window is not None and window.size > 0:
+        q_pos, k_pos = padq(window.q_pos, 0), padk(window.k_pos, 0)
+        out = out & ((q_pos - k_pos < window.size) | (q_pad > 0))
+    return out
 
 
-def precompute_bias(q_meta: AttnMeta, k_meta: AttnMeta) -> torch.Tensor:
+def precompute_bias(q_meta: AttnMeta, k_meta: AttnMeta,
+                    window: Optional[Window] = None) -> torch.Tensor:
     """bf16 additive bias [B, Lq, Lk]: 0 where visible, ``BF16_NEG`` where
     masked (finite, so a fully masked row stays NaN-free). Built once per
-    clip and shared by every layer."""
+    clip and shared by every layer (with a ``window``, by every layer of
+    that window)."""
     lq = q_meta.index.shape[1]
     lk = k_meta.vis_start.shape[1]
-    visible = _padded_visibility(q_meta, k_meta, lq, lk)
+    visible = _padded_visibility(q_meta, k_meta, lq, lk, window)
     return torch.where(
         visible, torch.zeros((), dtype=torch.bfloat16, device=visible.device),
         torch.tensor(BF16_NEG, dtype=torch.bfloat16, device=visible.device))
@@ -280,8 +288,16 @@ def bias_attention_backward_reference(q: torch.Tensor, k: torch.Tensor,
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+def _window_rows(window: Optional[Window], b: int, sl: slice):
+    """``window`` at batch row b and the query rows ``sl`` (every key)."""
+    if window is None:
+        return None
+    return Window(window.size, window.q_pos[b:b + 1, sl],
+                  window.k_pos[b:b + 1])
+
+
 def _inline_steps(q_meta: AttnMeta, k_meta: AttnMeta, lq: int, hkv: int,
-                  group: int):
+                  group: int, window: Optional[Window] = None):
     """The steps of :func:`_row_steps` with the visible [rows, Lk] of each:
     K6's rule, ``_padded_visibility`` with no padding."""
     lk = k_meta.vis_start.shape[1]
@@ -291,7 +307,8 @@ def _inline_steps(q_meta: AttnMeta, k_meta: AttnMeta, lq: int, hkv: int,
             at = (b, sl.start)
             km = AttnMeta(*(x[b:b + 1] for x in k_meta))
             qm = AttnMeta(*(x[b:b + 1, sl] for x in q_meta))
-            vis = _padded_visibility(qm, km, sl.stop - sl.start, lk)[0]
+            vis = _padded_visibility(qm, km, sl.stop - sl.start, lk,
+                                     _window_rows(window, b, sl))[0]
         yield b, g, heads, sl, vis
 
 
@@ -309,20 +326,22 @@ def _inline_probs(qf: torch.Tensor, kf: torch.Tensor, vis: torch.Tensor,
 
 def inline_attention_reference(q: torch.Tensor, k: torch.Tensor,
                                v: torch.Tensor, q_meta: AttnMeta,
-                               k_meta: AttnMeta):
+                               k_meta: AttnMeta,
+                               window: Optional[Window] = None):
     """Plain K6: softmax attention over the keys that the metadata rule
     makes visible to each query; q [B,Lq,H,D], k/v [B,Lk,Hkv,D] ->
     (out [B,Lq,H,D] in q's dtype, lse [B, H, Lq] fp32, the natural-log
     logsumexp of each row's scaled logits over its visible keys). The
     probabilities are cast to v's dtype before P.V, as the kernels do. Runs
-    one kv head's group and ``INLINE_ROWS`` query rows at a time."""
+    one kv head's group and ``INLINE_ROWS`` query rows at a time; a
+    ``window`` narrows the rule."""
     b, lq, h, d = q.shape
     hkv = k.shape[2]
     group = h // hkv
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, lq), dtype=torch.float32, device=q.device)
     for bi, g, heads, sl, vis in _inline_steps(q_meta, k_meta, lq, hkv,
-                                               group):
+                                               group, window):
         qf = q[bi, sl, heads].transpose(0, 1).float()   # [G, n, D]
         p, lse_g = _inline_probs(qf, k[bi, :, g].float(), vis, d ** -0.5)
         o = p.to(v.dtype).float() @ v[bi, :, g].float()
@@ -336,7 +355,8 @@ def inline_attention_backward_reference(q: torch.Tensor, k: torch.Tensor,
                                         k_meta: AttnMeta, o: torch.Tensor,
                                         do: torch.Tensor,
                                         magnitude: bool = False,
-                                        lse: Optional[torch.Tensor] = None):
+                                        lse: Optional[torch.Tensor] = None,
+                                        window: Optional[Window] = None):
     """Plain K7: the gradients (dq, dk, dv) of :func:`flash_mha_inline` at
     output ``o`` for the cotangent ``do``, by the TPU kernels' math in fp32:
     p = exp(s - lse) where the key is visible, else 0, di = rowsum(o * do),
@@ -348,7 +368,8 @@ def inline_attention_backward_reference(q: torch.Tensor, k: torch.Tensor,
     grads in the inputs' dtypes. ``magnitude=True`` returns the same
     products over absolute values, in fp32, as
     :func:`bias_attention_backward_reference` does. Runs one kv head's
-    group and ``INLINE_ROWS`` query rows at a time."""
+    group and ``INLINE_ROWS`` query rows at a time; a ``window`` narrows
+    the rule."""
     b, lq, h, d = q.shape
     lk, hkv = k.shape[1], k.shape[2]
     group = h // hkv
@@ -357,7 +378,7 @@ def inline_attention_backward_reference(q: torch.Tensor, k: torch.Tensor,
     dk = torch.zeros((b, lk, hkv, d), dtype=torch.float32, device=q.device)
     dv = torch.zeros_like(dk)
     for bi, g, heads, sl, vis in _inline_steps(q_meta, k_meta, lq, hkv,
-                                               group):
+                                               group, window):
         def rows_of(x):
             return x[bi, sl, heads].transpose(0, 1).float()  # [G, n, D]
 
@@ -441,7 +462,9 @@ def _tile_row_steps(lq: int, tile_q: int):
 
 def inline_tile_classes_reference(q_meta: AttnMeta, k_meta: AttnMeta,
                                   tile_q: int = TILE_Q,
-                                  tile_k: int = TILE_K) -> torch.Tensor:
+                                  tile_k: int = TILE_K,
+                                  window: Optional[Window] = None
+                                  ) -> torch.Tensor:
     """Plain version of K6's tile map: int8 [B, ceil(Lq/tile_q),
     ceil(Lk/tile_k)], per (query tile, key tile) ``TILE_EMPTY`` when no
     real pair (query < Lq, key < Lk) is visible, ``TILE_FULL`` when the
@@ -456,7 +479,8 @@ def inline_tile_classes_reference(q_meta: AttnMeta, k_meta: AttnMeta,
         km = AttnMeta(*(x[bi:bi + 1] for x in k_meta))
         for sl in _tile_row_steps(lq, tile_q):
             qm = AttnMeta(*(x[bi:bi + 1, sl] for x in q_meta))
-            vis = _padded_visibility(qm, km, sl.stop - sl.start, lk)[0]
+            vis = _padded_visibility(qm, km, sl.stop - sl.start, lk,
+                                     _window_rows(window, bi, sl))[0]
             t = _tile_view(vis, tile_q, tile_k)
             out[bi, sl.start // tile_q:-(-sl.stop // tile_q)] = _classes(
                 t.any(-1), t.all(-1))
@@ -624,6 +648,11 @@ Q_META = ("index", "q_block", "q_offset", "is_pad")
 K_META = ("vis_start", "noisy_block", "noisy_role")
 _META_FIELDS = [("qm", ctypes.c_void_p * 4), ("km", ctypes.c_void_p * 3),
                 ("qm_sb", ctypes.c_int64 * 4), ("km_sb", ctypes.c_int64 * 3)]
+# a sliding window's positions [B, Lq] / [B, Lk] with their batch strides
+# and its size (0: no window; csrc/inline_mask.cuh)
+_WINDOW_FIELDS = [("qpos", ctypes.c_void_p), ("kpos", ctypes.c_void_p),
+                  ("qpos_sb", ctypes.c_int64), ("kpos_sb", ctypes.c_int64),
+                  ("window", ctypes.c_int)]
 
 
 class _InlineArgs(ctypes.Structure):
@@ -636,7 +665,8 @@ class _InlineArgs(ctypes.Structure):
         (name, ctypes.c_int) for name in (
             "batch", "heads", "kv_heads", "lq", "lk", "head_dim")] + [
         ("scale_log2", ctypes.c_float), ("tile_map", ctypes.c_void_p),
-        ("scratch", ctypes.c_void_p), ("map_only", ctypes.c_int)]
+        ("scratch", ctypes.c_void_p), ("map_only", ctypes.c_int)] + \
+        _WINDOW_FIELDS
 
 
 class _InlineBwdArgs(ctypes.Structure):
@@ -651,7 +681,7 @@ class _InlineBwdArgs(ctypes.Structure):
             "batch", "heads", "kv_heads", "lq", "lk", "head_dim")] + [
         ("scale", ctypes.c_float), ("scale_log2", ctypes.c_float),
         ("tile_map", ctypes.c_void_p), ("scratch", ctypes.c_void_p),
-        ("map_only", ctypes.c_int)]
+        ("map_only", ctypes.c_int)] + _WINDOW_FIELDS
 
 
 def _check_operand(name: str, x: torch.Tensor, device: torch.device,
@@ -1122,11 +1152,17 @@ def _check_meta_shapes(q_meta: AttnMeta, k_meta: AttnMeta, b: int, lq: int,
                          f"keys {(b, lk)}")
 
 
+def _windowed(window: Optional[Window]) -> bool:
+    return window is not None and window.size > 0
+
+
 def _inline_map_args(q_meta: AttnMeta, k_meta: AttnMeta,
-                     backward: bool = False):
+                     backward: bool = False,
+                     window: Optional[Window] = None):
     """(K6's arguments, or with ``backward`` K7's, with the metadata, the
-    tile map and scratch set, ``map_only`` 0; the map [B, ceil(Lq/TILE_Q),
-    ceil(Lk/TILE_K)]; the scratch, to be held until the launch)."""
+    window, the tile map and scratch set, ``map_only`` 0; the map [B,
+    ceil(Lq/TILE_Q), ceil(Lk/TILE_K)]; the scratch, to be held until the
+    launch)."""
     b, lq = q_meta.index.shape
     lk = k_meta.vis_start.shape[1]
     device = q_meta.index.device
@@ -1135,9 +1171,10 @@ def _inline_map_args(q_meta: AttnMeta, k_meta: AttnMeta,
     # the query- and key-tile summaries (8 ints each); csrc/
     # inline_attention.cu: each query tile's count of non-empty key tiles
     # and the launch order; csrc/inline_attention_bwd.cu: those of the key
-    # tiles too
+    # tiles too; under a window, each tile's range of positions (2 ints)
     orders = b * (nq + nk) if backward else b * nq
-    scratch = torch.empty((b * (nq + nk) * 8 + 2 * orders,),
+    ranges = b * (nq + nk) * 2 if _windowed(window) else 0
+    scratch = torch.empty((b * (nq + nk) * 8 + 2 * orders + ranges,),
                           dtype=torch.int32, device=device)
     # head_dim is set by the caller that launches the attention (a launch
     # that builds the map alone reads none)
@@ -1145,41 +1182,66 @@ def _inline_map_args(q_meta: AttnMeta, k_meta: AttnMeta,
         tile_map=tile_map.data_ptr(), scratch=scratch.data_ptr(), batch=b,
         lq=lq, lk=lk)
     _set_meta(a, q_meta, k_meta, b, lq, lk, device)
+    if _windowed(window):
+        for name, x, n in (("qpos", window.q_pos, lq),
+                           ("kpos", window.k_pos, lk)):
+            _check_operand(name, x, device, torch.int32, (b, n))
+            if n > 1 and x.stride(1) != 1:
+                raise ValueError(f"{name} needs contiguous rows")
+            setattr(a, name, x.data_ptr())
+            setattr(a, f"{name}_sb", x.stride(0))
+        a.window = window.size
     return a, tile_map, scratch
 
 
 def inline_tile_classes(q_meta: AttnMeta, k_meta: AttnMeta,
-                        backward: bool = False) -> torch.Tensor:
+                        backward: bool = False,
+                        window: Optional[Window] = None) -> torch.Tensor:
     """K6's tile map alone (the first launches of :func:`flash_mha_inline`;
     with ``backward``, of :func:`flash_mha_inline_bwd`, which builds the
     same map and counts its columns too): int8 [B, ceil(Lq/TILE_Q),
     ceil(Lk/TILE_K)] of ``TILE_EMPTY`` / ``TILE_PARTIAL`` / ``TILE_FULL``,
-    from per-tile summaries of the metadata. For metadata on the CPU,
+    from per-tile summaries of the metadata (and, under a ``window``, of
+    the positions). For metadata on the CPU,
     :func:`inline_tile_classes_reference`. Counts no launch."""
     if not q_meta.index.is_cuda:
-        return inline_tile_classes_reference(q_meta, k_meta)
-    a, tile_map, scratch = _inline_map_args(q_meta, k_meta, backward)
+        return inline_tile_classes_reference(q_meta, k_meta, window=window)
+    a, tile_map, scratch = _inline_map_args(q_meta, k_meta, backward,
+                                            window)
     a.map_only = 1
     lib = "inline_attention_bwd" if backward else "inline_attention"
     _launch(lib, f"vgt_{lib}", a, q_meta.index.device)
     return tile_map
 
 
+def _check_window(choice: KernelChoice, window: Optional[Window]) -> None:
+    if _windowed(window) and choice.kernel == "fp32":
+        raise ValueError("the fp32 inline kernels take no window: run a "
+                         "windowed layer in bf16 or on the bias route")
+
+
+def _count_window(fn, window: Optional[Window]) -> None:
+    if _windowed(window):
+        fn.window_launches += 1
+
+
 def _inline_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    q_meta: AttnMeta, k_meta: AttnMeta, with_lse: bool):
+                    q_meta: AttnMeta, k_meta: AttnMeta, with_lse: bool,
+                    window: Optional[Window] = None):
     """K6 -> (out, lse): ``lse`` the fp32 per-row logsumexp [B, H, Lq] when
     ``with_lse`` (always on the CPU, where the plain version computes it
     anyway), else None."""
     if not q.is_cuda:
-        return inline_attention_reference(q, k, v, q_meta, k_meta)
+        return inline_attention_reference(q, k, v, q_meta, k_meta, window)
     kh, vh, choice = _kv_views(q, k, v)
+    _check_window(choice, window)
     b, lq, h, d = q.shape
     lk = kh.shape[2]
     out = torch.empty((b, lq, h, d), dtype=q.dtype, device=q.device)
     lse = (torch.empty((b, h, lq), dtype=torch.float32, device=q.device)
            if with_lse else None)
     _check_meta_shapes(q_meta, k_meta, b, lq, lk)
-    a, tile_map, scratch = _inline_map_args(q_meta, k_meta)
+    a, tile_map, scratch = _inline_map_args(q_meta, k_meta, window=window)
     a.q, a.k, a.v, a.out = (x.data_ptr() for x in (q, kh, vh, out))
     a.lse = None if lse is None else lse.data_ptr()
     for name, x, (sb, sl, sh) in (
@@ -1192,6 +1254,7 @@ def _inline_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     a.scale_log2 = d ** -0.5 * LOG2E
     _launch(*_ENTRY["inline", choice.kernel], a, q.device)
     _count(flash_mha_inline, choice, lk)
+    _count_window(flash_mha_inline, window)
     if choice.kernel == "bf16":
         rows = inline_block_rows(b, lq, h, d, q.device)
         by_rows = flash_mha_inline.launches_by_rows
@@ -1199,58 +1262,79 @@ def _inline_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out, lse
 
 
+def _unpack_meta(size: int, meta):
+    """(q_meta, k_meta, window) from the tensors that ride through
+    autograd: the fourteen metadata vectors, then, under a window of
+    ``size``, its two position vectors."""
+    window = Window(size, *meta[14:]) if size > 0 else None
+    return AttnMeta(*meta[:7]), AttnMeta(*meta[7:14]), window
+
+
 class _InlineAttention(torch.autograd.Function):
     """K6 forward (keeping the logsumexp), K7 backward; the fourteen
-    metadata vectors (query side, then key side) ride as inputs without a
-    gradient."""
+    metadata vectors (query side, then key side), and a window's two
+    position vectors, ride as inputs without a gradient."""
 
     @staticmethod
-    def forward(ctx, q, k, v, *meta):
-        out, lse = _inline_forward(q, k, v, AttnMeta(*meta[:7]),
-                                   AttnMeta(*meta[7:]), with_lse=True)
+    def forward(ctx, q, k, v, size, *meta):
+        q_meta, k_meta, window = _unpack_meta(size, meta)
+        out, lse = _inline_forward(q, k, v, q_meta, k_meta, with_lse=True,
+                                   window=window)
+        ctx.size = size
         ctx.save_for_backward(q, k, v, out, lse, *meta)
         return out
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, out, lse, *meta = ctx.saved_tensors
-        dq, dk, dv = flash_mha_inline_bwd(q, k, v, AttnMeta(*meta[:7]),
-                                          AttnMeta(*meta[7:]), out, do, lse)
-        return (dq, dk, dv) + (None,) * len(meta)
+        q_meta, k_meta, window = _unpack_meta(ctx.size, meta)
+        dq, dk, dv = flash_mha_inline_bwd(q, k, v, q_meta, k_meta, out, do,
+                                          lse, window=window)
+        return (dq, dk, dv, None) + (None,) * len(meta)
 
 
 def flash_mha_inline(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     q_meta: AttnMeta, k_meta: AttnMeta) -> torch.Tensor:
+                     q_meta: AttnMeta, k_meta: AttnMeta,
+                     window: Optional[Window] = None) -> torch.Tensor:
     """K6. q [B,Lq,H,D], k/v [B,Lk,Hkv,D] (views are fine: a heads-major
     cache passes ``cache.transpose(1, 2)``) -> [B,Lq,H,D], masked by the
     visibility rule of ``q_meta``/``k_meta`` evaluated in the kernel: no
-    [Lq, Lk] tensor exists. Differentiable in q, k, v: with grad enabled
-    and an input that requires it, the backward is K7
-    (:func:`flash_mha_inline_bwd`)."""
+    [Lq, Lk] tensor exists; a ``window`` narrows it (the kernels' windowed
+    instances, counted also in ``window_launches``). Differentiable in q,
+    k, v: with grad enabled and an input that requires it, the backward is
+    K7 (:func:`flash_mha_inline_bwd`)."""
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
-        return _InlineAttention.apply(q, k, v, *q_meta, *k_meta)
-    return _inline_forward(q, k, v, q_meta, k_meta, with_lse=False)[0]
+        size, pos = ((window.size, (window.q_pos, window.k_pos))
+                     if _windowed(window) else (0, ()))
+        return _InlineAttention.apply(q, k, v, size, *q_meta, *k_meta, *pos)
+    return _inline_forward(q, k, v, q_meta, k_meta, with_lse=False,
+                           window=window)[0]
 
 
 flash_mha_inline.launches = flash_mha_inline.fp32_launches = 0
+flash_mha_inline.window_launches = 0
 # bf16 launches by the query rows a block covers (inline_block_rows)
 flash_mha_inline.launches_by_rows = {}
 
 
 def flash_mha_inline_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          q_meta: AttnMeta, k_meta: AttnMeta, o: torch.Tensor,
-                         do: torch.Tensor, lse=None):
+                         do: torch.Tensor, lse=None,
+                         window: Optional[Window] = None):
     """K7: (dq, dk, dv) of :func:`flash_mha_inline` at its output ``o`` for
     the cotangent ``do`` [B,Lq,H,D]. ``lse`` is an fp32 logsumexp
     [B, H, Lq], from which each probability is recomputed: K6's of these
     keys, or the global one of a ring of key chunks. CUDA needs it; the
     plain version (CPU tensors) takes it where given and recomputes the
-    softmax over these keys where not."""
+    softmax over these keys where not. A ``window`` narrows the rule, as
+    in :func:`flash_mha_inline`."""
     if not q.is_cuda:
         return inline_attention_backward_reference(q, k, v, q_meta, k_meta,
-                                                   o, do, lse=lse)
+                                                   o, do, lse=lse,
+                                                   window=window)
     kh, vh, choice = _kv_views(q, k, v, backward=True)
+    _check_window(choice, window)
     b, lq, h, d = q.shape
     hkv, lk = kh.shape[1], kh.shape[2]
     do = do.contiguous()
@@ -1267,7 +1351,8 @@ def flash_mha_inline_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dq = torch.empty((b, lq, h, d), dtype=q.dtype, device=q.device)
     dk = torch.empty((b, lk, hkv, d), dtype=k.dtype, device=q.device)
     dv = torch.empty((b, lk, hkv, d), dtype=v.dtype, device=q.device)
-    a, tile_map, scratch = _inline_map_args(q_meta, k_meta, backward=True)
+    a, tile_map, scratch = _inline_map_args(q_meta, k_meta, backward=True,
+                                            window=window)
     a.q, a.k, a.v, a.o, a.dout = (x.data_ptr() for x in (q, kh, vh, o, do))
     a.lse, a.delta = lse.data_ptr(), delta.data_ptr()
     a.dq, a.dk, a.dv = dq.data_ptr(), dk.data_ptr(), dv.data_ptr()
@@ -1282,10 +1367,12 @@ def flash_mha_inline_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     a.scale, a.scale_log2 = d ** -0.5, d ** -0.5 * LOG2E
     _launch(*_ENTRY["inline_bwd", choice.kernel], a, q.device)
     _count(flash_mha_inline_bwd, choice, lk)
+    _count_window(flash_mha_inline_bwd, window)
     return dq, dk, dv
 
 
 flash_mha_inline_bwd.launches = flash_mha_inline_bwd.fp32_launches = 0
+flash_mha_inline_bwd.window_launches = 0
 
 # every wrapper: bf16 launches in ``launches``, fp32 ones in
 # ``fp32_launches``
@@ -1294,10 +1381,13 @@ KERNELS = (flash_mha_decode_split, flash_mha_decode, flash_mha,
 
 
 def reset_launch_counts() -> None:
-    """Every wrapper's launch counts, and ``flash_mha.bias_map_builds``,
-    to 0 (``flash_mha_inline.launches_by_rows`` emptied)."""
+    """Every wrapper's launch counts, ``flash_mha.bias_map_builds`` and
+    the windowed launches to 0 (``flash_mha_inline.launches_by_rows``
+    emptied)."""
     flash_mha.bias_map_builds = 0
     flash_mha_inline.launches_by_rows = {}
+    for fn in (flash_mha_inline, flash_mha_inline_bwd):
+        fn.window_launches = 0
     for fn in KERNELS:
         fn.launches = fn.fp32_launches = 0
     for fn in (flash_mha_decode_split, flash_mha_decode, flash_mha):

@@ -68,6 +68,7 @@ from ..config import MeshConfig, ModelConfig, TrainConfig, check_train_config
 from ..data.prefetch import Prefetcher
 from ..data.video import VideoClipDataset
 from ..layout import tokens_per_frame
+from ..models.afmoe import expert_loads
 from ..models.vae import AutoencoderKL, VAEConfig
 from ..models.video_gpt import VideoGPT
 from ..parallel.distributed import GracefulShutdown
@@ -115,6 +116,9 @@ class Trainer:
         check_train_config(train_cfg)
         self.mesh = None
         if mesh_cfg is not None and mesh_cfg.num_devices > 1:
+            if model_cfg.trunk == "afmoe":
+                raise ValueError("the AFMoE trunk trains on one device: no "
+                                 "mesh (no expert parallelism yet)")
             if train_cfg.offload_optimizer:
                 raise ValueError("offload_optimizer is the single-chip "
                                  "full-depth path; use ZeRO over the mesh "
@@ -365,6 +369,10 @@ class Trainer:
                 grad_norm = float(metrics["grad_norm"])
                 self.log(f"step {step_idx + 1}: loss={mean_loss:.4f} "
                          f"grad_norm={grad_norm:.3f} steps/sec={sps:.3f}")
+                loads = expert_loads(self.model)
+                if loads:
+                    self.log("expert load max/mean by layer: " + " ".join(
+                        f"{float(x):.2f}" for x in loads))
                 if log_writer is not None and self.is_main:
                     log_writer.add_scalar("train/loss", mean_loss,
                                           step_idx + 1)
